@@ -1,0 +1,108 @@
+"""Correlation pyramid and windowed lookup (PyTorch port of
+``craft_tpu.ops.corr``, one-way D=1 volumes).
+
+Pyramid level l is stored [B*H1*W1, h_l, w_l].  The per-iteration lookup
+samples a (2r+1)^2 bilinear window around coords/2^l on every level and
+returns [B, H1, W1, L*(2r+1)^2] in the reference channel order: level, then
+x-offset i, then y-offset j (reference corr.py:47-71).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class CorrPyramid(NamedTuple):
+    levels: tuple  # [B*H1*W1, h_l, w_l] per level
+    batch: int
+    h1: int
+    w1: int
+    radius: int
+
+
+def _pool2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool of [N, h, w] in fp32; an odd last row or column is
+    dropped (a level may shrink to zero rows, as in the JAX package)."""
+    h, w = (x.shape[1] // 2) * 2, (x.shape[2] // 2) * 2
+    c = x[:, :h, :w].float()
+    return (c[:, 0::2, 0::2] + c[:, 1::2, 0::2]
+            + c[:, 0::2, 1::2] + c[:, 1::2, 1::2]) * 0.25
+
+
+def global_layer_norm(vol: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Layer-norm over the flat volume per (batch, dim) slice (reference
+    corr.py:27-30, 200-204).  vol: [B, D, N]."""
+    mean = vol.mean(dim=-1, keepdim=True)
+    var = (vol - mean).square().mean(dim=-1, keepdim=True)
+    return (vol - mean) * torch.rsqrt(var + eps)
+
+
+def build_pyramid(corr: torch.Tensor, batch: int, h1: int, w1: int,
+                  num_levels: int = 4, radius: int = 4,
+                  do_global_norm: bool = False,
+                  level_dtype=torch.float32) -> CorrPyramid:
+    """Average-pool pyramid from a raw [B, U1, 1, U2] fp32 volume."""
+    B, U1, D, U2 = corr.shape
+    assert D == 1 and U1 == h1 * w1 and U2 == h1 * w1
+    if do_global_norm:
+        corr = global_layer_norm(corr.reshape(B, 1, U1 * U2))
+    levels = [corr.reshape(B * U1, h1, w1)]
+    for _ in range(num_levels - 1):
+        levels.append(_pool2x2(levels[-1]))
+    return CorrPyramid(tuple(l.to(level_dtype) for l in levels), batch, h1,
+                       w1, radius)
+
+
+def pyramid_from_level0(level0: torch.Tensor, batch: int, h1: int, w1: int,
+                        num_levels: int = 4, radius: int = 4,
+                        level_dtype=torch.bfloat16) -> CorrPyramid:
+    """Pyramid from an already-normalized [B, U1, U2] base volume.  Pooling
+    accumulates in fp32; an odd last row or column is dropped."""
+    B, U1, U2 = level0.shape
+    cur = level0.reshape(B * U1, h1, w1)
+    levels = [cur.to(level_dtype)]
+    for _ in range(num_levels - 1):
+        cur = _pool2x2(cur).to(level_dtype)
+        levels.append(cur)
+    return CorrPyramid(tuple(levels), batch, h1, w1, radius)
+
+
+def corr_lookup(pyr: CorrPyramid, coords: torch.Tensor) -> torch.Tensor:
+    """Windowed multi-scale lookup by gather.
+
+    All (2r+1)^2 taps of a query share one fractional offset, so each level
+    gathers the (2r+2)^2 integer grid around the window once and blends it
+    with one bilinear lerp; taps outside the level read zero (grid_sample
+    zero padding).  coords: [B, H1, W1, 2] (x, y) fp32.
+    Returns [B, H1, W1, L*(2r+1)^2] fp32."""
+    r = pyr.radius
+    B, H1, W1, _ = coords.shape
+    n = 2 * r + 1
+    Q = B * H1 * W1
+    flat = coords.reshape(Q, 2).float()
+    t = torch.arange(n + 1, device=coords.device)
+    out = []
+    for i, level in enumerate(pyr.levels):
+        h, w = level.shape[1], level.shape[2]
+        if h == 0 or w == 0:  # a level pooled away reads zero everywhere
+            out.append(flat.new_zeros(B, H1, W1, n * n))
+            continue
+        base = flat / (2.0 ** i)
+        x0, y0 = torch.floor(base[:, 0]), torch.floor(base[:, 1])
+        fx = (base[:, 0] - x0)[:, None, None]
+        fy = (base[:, 1] - y0)[:, None, None]
+        cols = x0.long()[:, None] - r + t[None]  # [Q, n+1]
+        rows = y0.long()[:, None] - r + t[None]
+        valid = (((rows >= 0) & (rows < h))[:, :, None]
+                 & ((cols >= 0) & (cols < w))[:, None, :])
+        idx = rows.clamp(0, h - 1)[:, :, None] * w \
+            + cols.clamp(0, w - 1)[:, None, :]  # [Q, y, x]
+        g = torch.gather(level.reshape(Q, h * w), 1, idx.reshape(Q, -1))
+        g = g.reshape(Q, n + 1, n + 1).float() * valid
+        # g[q, y, x]: blend rows (y) then columns (x).
+        gy = (1 - fy) * g[:, :n] + fy * g[:, 1:]          # [Q, j, x]
+        win = (1 - fx) * gy[:, :, :n] + fx * gy[:, :, 1:]  # [Q, j, i]
+        out.append(win.transpose(1, 2).reshape(B, H1, W1, n * n))
+    return torch.cat(out, dim=-1)

@@ -1,0 +1,97 @@
+"""Sampling, coordinate grids, convex upsampling and padding (PyTorch port of
+``craft_tpu.ops.geometry``).
+
+Image-like tensors are NHWC; flow/coords tensors carry their 2-vector in the
+trailing axis in (x, y) order (reference core/utils/utils.py:14-139).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+def coords_grid(batch: int, ht: int, wd: int, device=None,
+                dtype=torch.float32) -> torch.Tensor:
+    """[B, H, W, 2] pixel-coordinate grid, channels (x, y)."""
+    ys, xs = torch.meshgrid(torch.arange(ht, device=device, dtype=dtype),
+                            torch.arange(wd, device=device, dtype=dtype),
+                            indexing="ij")
+    return torch.stack([xs, ys], dim=-1)[None].expand(batch, ht, wd, 2)
+
+
+def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear sampling at pixel coordinates, zero outside the image.
+
+    Equals ``F.grid_sample(align_corners=True, padding_mode='zeros')`` on
+    pixel coordinates.  img [B, H, W, C], coords [B, h, w, 2] (x, y);
+    returns [B, h, w, C] float32."""
+    B, H, W, C = img.shape
+    x = coords[..., 0].float()
+    y = coords[..., 1].float()
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx1, wy1 = x - x0, y - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    flat = img.reshape(B, H * W, C).float()
+
+    def tap(yi, xi, w):
+        valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long()
+        v = torch.gather(flat, 1, idx.reshape(B, -1, 1).expand(-1, -1, C))
+        return v.reshape(*idx.shape, C) * (w * valid)[..., None]
+
+    return (tap(y0, x0, wy0 * wx0) + tap(y0, x0 + 1, wy0 * wx1)
+            + tap(y0 + 1, x0, wy1 * wx0) + tap(y0 + 1, x0 + 1, wy1 * wx1))
+
+
+def convex_upsample(flow: torch.Tensor, mask: torch.Tensor,
+                    factor: int = 8) -> torch.Tensor:
+    """Convex 9-neighbour upsampling (reference network.py:151-162).
+
+    flow [B, H, W, 2]; mask [B, H, W, 9*factor^2] logits laid out
+    (9, factor, factor) row-major.  Returns [B, factor*H, factor*W, 2]."""
+    B, H, W, _ = flow.shape
+    f2 = factor * factor
+    w = torch.softmax(mask.reshape(B, H, W, 9, f2), dim=3)
+    fp = F.pad(factor * flow, (0, 0, 1, 1, 1, 1))
+    # The 9 neighbours in F.unfold's order: row-major offsets (-1,-1)..(1,1).
+    nb = torch.stack([fp[:, di:di + H, dj:dj + W, :]
+                      for di in range(3) for dj in range(3)], dim=3)
+    up = torch.einsum("bhwkf,bhwkc->bhwfc", w, nb)  # [B, H, W, f2, 2]
+    up = up.reshape(B, H, W, factor, factor, 2).permute(0, 1, 3, 2, 4, 5)
+    return up.reshape(B, factor * H, factor * W, 2)
+
+
+def avg_pool2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 average pool on NHWC, odd edges dropped (floor)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+class InputPadder:
+    """Pads NHWC images so H, W divide by `mod` (reference utils.py:14-31).
+
+    mode='sintel' pads symmetrically; otherwise ('kitti') width is centred
+    and height is padded at the bottom.  Replicate-edge padding."""
+
+    def __init__(self, dims: Sequence[int], mode: str = "sintel",
+                 mod: int = 8):
+        self.ht, self.wd = dims[-3], dims[-2]
+        pad_ht = (((self.ht // mod) + 1) * mod - self.ht) % mod
+        pad_wd = (((self.wd // mod) + 1) * mod - self.wd) % mod
+        if mode == "sintel":
+            self._pad = [pad_wd // 2, pad_wd - pad_wd // 2,
+                         pad_ht // 2, pad_ht - pad_ht // 2]
+        else:
+            self._pad = [pad_wd // 2, pad_wd - pad_wd // 2, 0, pad_ht]
+
+    def pad(self, *inputs):
+        return [F.pad(x.permute(0, 3, 1, 2), self._pad,
+                      mode="replicate").permute(0, 2, 3, 1)
+                for x in inputs]
+
+    def unpad(self, x):
+        ht, wd = x.shape[1], x.shape[2]
+        l, r, t, b = self._pad
+        return x[:, t:ht - b, l:wd - r, :]

@@ -1,0 +1,87 @@
+"""Build the CUDA kernels under ``craft_tpu_torch/csrc`` and load them.
+
+Each ``<name>.cu`` compiles on its own with ``nvcc`` into a shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds) and
+is loaded with ``ctypes``.  Libraries go to ``build/kernels/`` at the root of
+the checkout, named by a hash of their sources and flags, so an edited
+source is rebuilt and an unchanged one is reused.  Nothing is built when a
+module is imported: the first launch builds what it needs, and
+``build_all()`` builds every library at once, one ``nvcc`` per source, all
+started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("scores_max", "flash_attn", "corr_norm", "softmax_probs")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every missing library in parallel.  Returns {name: the
+    compiler's output} for the sources built now (ptxas register and
+    shared-memory reports); raises with the compiler's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        target = _lib_path(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    reports, failed = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu ---\n{out}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

@@ -1,0 +1,127 @@
+"""Where the time goes in the PyTorch port's main path, on one GPU.
+
+    python3 tools/profile_torch_main_path.py [--pairs 2]
+
+The main path of chip_smoke.py (its model, frame pairs and serving loop):
+full CRAFT at 436x1024 padded to 440x1024, bf16 with int8 intra probs, 12
+iterations, the weights of the oracle snapshot.  After one warm-up pair it
+times `--pairs` frame pairs on the host clock, then traces the same pairs
+with torch.profiler, and prints per pair: the host wall time (untraced and
+traced), the kernel time under each phase range (craft.* in
+FlowModel.forward), kernel time by family, the device busy share (kernel
+time over the untraced wall time), and the 20 costliest kernels.  The last
+line is one JSON object with those numbers.  Needs CUDA; imports nothing of
+JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import json
+import sys
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
+FAMILIES = (  # (family, substrings of the kernel name), first match wins
+    ("B1 scores_max", ("scores_max_kernel", "max_reduce_kernel")),
+    ("B2 flash_attn", ("flash_attn_kernel",)),
+    ("B3 corr_norm", ("corr_stats_kernel", "corr_moments_kernel",
+                      "corr_write_kernel")),
+    ("B4 probs", ("probs_kernel",)),
+    ("convolution", ("conv", "xmma", "cudnn", "implicit", "winograd")),
+    ("matmul", ("gemm", "cutlass", "sm90", "ampere")),
+    ("gather/index", ("gather", "index", "scatter")),
+)
+
+
+def _self_dev_time(evt):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return getattr(evt, attr)
+    return 0.0
+
+
+def _phase_kernel_ms(events, n: int) -> dict:
+    """Kernel time under each craft.* range, per pair, attributed on the
+    device timeline.  The profiler records each range also as a device-side
+    annotation spanning its kernels; a kernel belongs to the annotation its
+    start falls in.  (The host-side op tree would miss the kernels launched
+    through ctypes: no PyTorch op sits above them.)"""
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in dev if e.name.startswith("craft."))
+    starts = [s[0] for s in spans]
+    out = {}
+    for e in dev:
+        if e.name.startswith("craft."):
+            continue
+        t = e.time_range.start
+        i = bisect.bisect_right(starts, t) - 1
+        name = spans[i][2] if i >= 0 and t < spans[i][1] else "(no phase)"
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--pairs", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile: CUDA is not available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = chip_smoke.card_line()
+    print(card)
+    model = chip_smoke.main_path_model(dev)
+    _, pairs = chip_smoke.frame_pairs(dev, args.pairs + 1)
+
+    def wall_ms_per_pair():
+        return sum(chip_smoke.serve(model, pairs[1:])[0]) / args.pairs
+
+    chip_smoke.serve(model, pairs[:1])  # warm-up
+    wall_ms = wall_ms_per_pair()  # without the profiler's overhead
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_wall_ms = wall_ms_per_pair()
+
+    n = args.pairs
+    phases = _phase_kernel_ms(prof.events(), n)
+    families, kernels, total = {}, [], 0.0
+    for e in prof.key_averages():
+        t = _self_dev_time(e) / 1e3 / n
+        if t <= 0 or e.key.startswith("craft.") or e.device_type != \
+                torch.autograd.DeviceType.CUDA:
+            continue
+        total += t
+        kernels.append((t, e.count // n, e.key))
+        low = e.key.lower()
+        fam = next((f for f, subs in FAMILIES
+                    if any(s.lower() in low for s in subs)), "elementwise/other")
+        families[fam] = families.get(fam, 0.0) + t
+    kernels.sort(reverse=True)
+    print(f"host wall per pair {wall_ms:.3f} ms ({traced_wall_ms:.3f} ms "
+          f"traced); device kernel time {total:.3f} ms; busy share "
+          f"{total / wall_ms:.3f}")
+    for name, t in sorted(phases.items(), key=lambda x: -x[1]):
+        print(f"phase {name}: {t:.3f} ms of kernels")
+    for fam, t in sorted(families.items(), key=lambda x: -x[1]):
+        print(f"family {fam}: {t:.3f} ms")
+    for t, count, name in kernels[:20]:
+        print(f"kernel {t:8.3f} ms  x{count:<4d} {name[:110]}")
+    print(json.dumps({"card": card, "wall_ms_per_pair": wall_ms,
+                      "traced_wall_ms_per_pair": traced_wall_ms,
+                      "device_ms_per_pair": total,
+                      "busy_share": total / wall_ms, "phases_ms": phases,
+                      "families_ms": families}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

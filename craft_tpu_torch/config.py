@@ -37,8 +37,12 @@ class SETransSiteConfig:
     has_input_skip: bool = False
     pool_modes_feat: str = "softmax"    # only softmax pooling is ported
     # int8 fixed-point probs (p*127 with a per-row scale) for the
-    # probs-only site.
+    # probs-only site; serving only (training takes float probs).
     quantize_probs: bool = False
+    # Training dropout (reference setrans.py:110-111): on the layer-normed
+    # tokens of every site, and on the probs of the f2 and intra sites.
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.2
 
     @property
     def mode_dim(self) -> int:
@@ -105,6 +109,7 @@ class ModelConfig:
     inter: SETransSiteConfig = field(default_factory=inter_corr_config)
     f2: SETransSiteConfig = field(default_factory=f2_trans_config)
     intra: SETransSiteConfig = field(default_factory=intra_attn_config)
+    dropout: float = 0.0          # fnet/cnet Dropout2d rate (training)
     mixed_precision: bool = True  # bf16 compute islands, fp32 correlation
     upsample_mode: str = "all"    # 'all' | 'final'
 

@@ -20,59 +20,13 @@
 //      the result is deterministic (no float atomics);
 //   3. a write sweep recomputes the volume and writes it normalized.
 // A block holds all four modes' q tiles (one 64-row slice) in shared
-// memory and sweeps a group of k tiles; the four per-mode scores of each
-// element stay in registers for the aggregation.  Any W8 works: the bias
-// window is indexed directly and ragged U is masked in-kernel.
-#include "common.cuh"
+// memory and sweeps a group of k tiles (agg_modes.cuh, shared with B6).
+// Any W8 works: the bias window is indexed directly and ragged U is masked
+// in-kernel.
+#include "agg_modes.cuh"
 
-#define NMODES 4
-#define KGROUP 8  // k tiles per block
-
-template <typename T>
-__device__ __forceinline__ void agg_tile(
-    float vol[4][4], const T* __restrict__ kb, const float* qs, float* ks,
-    const float* win, int kt, int U, int md, int W8, int R, float scale,
-    float clip, float pos_w, float agg_w, float agg_b, const int qh[4],
-    const int qw[4]) {
-  const int tx = threadIdx.x & 15;
-  float s[NMODES][4][4];
-#pragma unroll
-  for (int m = 0; m < NMODES; ++m) {
-    __syncthreads();
-    load_tile_t(ks, kb + (size_t)m * U * md, kt * TILE, U, md);
-    __syncthreads();
-    score_tile(s[m], qs + m * MAXMD * SPAD, ks, md);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int u = kt * TILE + tx + 16 * j;
-    const int kh = u / W8, kw = u - (u / W8) * W8;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float bias = pos_w * window_bias(win, qh[i], qw[i], kh, kw, R);
-      float x[NMODES], lg[NMODES];
-#pragma unroll
-      for (int m = 0; m < NMODES; ++m) {
-        x[m] = fminf(fmaxf(s[m][i][j] * scale, -clip), clip) + bias;
-        lg[m] = agg_w * x[m] + agg_b;
-      }
-      float mmax = lg[0];
-#pragma unroll
-      for (int m = 1; m < NMODES; ++m) mmax = fmaxf(mmax, lg[m]);
-      float denom = 0.f, acc = 0.f;
-#pragma unroll
-      for (int m = 0; m < NMODES; ++m) {
-        const float e = expf(lg[m] - mmax);
-        denom += e;
-        acc += e * x[m];
-      }
-      vol[i][j] = acc / denom;
-    }
-  }
-}
-
-// Shared prologue: this block's q tiles (all modes), the bias window, the
-// clip value from the raw max, and its rows' token coordinates.
+// Shared prologue: this block's q tiles, window and token coordinates
+// (load_q_modes), and the clip value from the raw max.
 template <typename T>
 __device__ __forceinline__ float prologue(const T* __restrict__ qb,
                                           const float* __restrict__ biases,
@@ -81,18 +35,7 @@ __device__ __forceinline__ float prologue(const T* __restrict__ qb,
                                           float* qs, float* win, int qt,
                                           int U, int md, int W8, int R,
                                           int qh[4], int qw[4]) {
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int m = 0; m < NMODES; ++m)
-    load_tile_t(qs + m * MAXMD * SPAD, qb + (size_t)m * U * md, qt * TILE, U,
-                md);
-  load_window(win, biases, R);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = qt * TILE + ty + 16 * i;
-    qh[i] = u / W8;
-    qw[i] = u - qh[i] * W8;
-  }
+  load_q_modes(qb, biases, qs, win, qt, U, md, W8, R, qh, qw);
   const float attn_clip = scal[0];
   return gmax[0] > attn_clip ? attn_clip : 1e30f;
 }
@@ -238,8 +181,7 @@ static int launch(const void* q, const void* k, const void* biases,
                   const void* scal, const void* gmax, void* partial,
                   void* stats, void* norm, void* out, int B, int U, int md,
                   int W8, int R, float scale, float eps, cudaStream_t s) {
-  const size_t smem =
-      ((NMODES + 1) * MAXMD * SPAD + MAXWIN) * sizeof(float);
+  const size_t smem = AGG_SMEM;
   const int nq = (U + TILE - 1) / TILE;
   const int ng = (nq + KGROUP - 1) / KGROUP;
   dim3 grid(nq, ng, B);

@@ -1,16 +1,22 @@
-"""SETrans attention stack, inference sites of the main path (PyTorch port of
-``craft_tpu.nn.setrans``; reference core/setrans.py:71-800).
+"""SETrans attention stack, the three sites of the CRAFT model (PyTorch port
+of ``craft_tpu.nn.setrans``; reference core/setrans.py:71-800).
 
-Three sites:
+In eval mode (serving):
   * inter-frame correlation (out_attn_scores_only): the clamped,
     mode-aggregated, globally normed volume from kernel B3;
   * f2 semantic smoothing (feature output, input skip): flash attention B2
     feeding ExpandedFeatTrans;
   * intra-frame attention (out_attn_probs_only): probs from B4, int8 with a
     row scale (QuantizedProbs) when the site quantizes.
-The conditional clamp (only when the batch-global max exceeds attn_clip,
-reference setrans.py:527-529) takes its predicate from B1 and stays on the
-device.  Module and parameter names are the reference's.
+In train mode every site is differentiable: the inter site gives the raw
+aggregated volume of B6 (its backward a kernel too), the f2 and intra sites
+float probs in the compute dtype from B4 with B7 as their backward
+(``quantize_probs`` is ignored), then attention dropout; the f2 site feeds
+the materialized probs to ExpandedFeatTrans.  Hidden dropout follows the
+token layer norm of every site.  The conditional clamp (only when the
+batch-global max exceeds attn_clip, reference setrans.py:527-529) takes its
+predicate from B1 on detached q and k, and stays on the device.  Module and
+parameter names are the reference's.
 """
 
 from __future__ import annotations
@@ -22,10 +28,12 @@ import torch
 import torch.nn as nn
 
 from craft_tpu_torch.config import SETransSiteConfig
-from craft_tpu_torch.nn.layers import layer_norm, linear
+from craft_tpu_torch.nn.layers import dropout, layer_norm, linear
+from craft_tpu_torch.ops.kernels.corr_vjp import fused_agg_corr_diff
 from craft_tpu_torch.ops.kernels.mode_attention import (
     flash_mode_attention, fused_agg_corr_norm, mode_softmax_probs,
     scores_global_max)
+from craft_tpu_torch.ops.kernels.probs_vjp import mode_softmax_probs_diff
 
 
 class SlidingBias(NamedTuple):
@@ -58,19 +66,23 @@ class SlidingPosBiases2D(nn.Module):
 
 
 class InputFeatEncoder(nn.Module):
-    """NHWC -> [B, U, C] layer-normed tokens, plus the sliding bias
-    (reference SETransInputFeatEncoder, setrans.py:710-800)."""
+    """NHWC -> [B, U, C] layer-normed tokens (hidden dropout in training),
+    plus the sliding bias (reference SETransInputFeatEncoder,
+    setrans.py:710-800)."""
 
     def __init__(self, cfg: SETransSiteConfig, dtype=torch.float32):
         super().__init__()
         if cfg.pos_code_type != "bias":
             raise NotImplementedError(f"pos_code_type {cfg.pos_code_type}")
         self.dtype = dtype
+        self.hidden_dropout_prob = cfg.hidden_dropout_prob
         self.pos_coder = SlidingPosBiases2D(cfg.pos_bias_radius)
 
-    def forward(self, vis_feat: torch.Tensor):
+    def forward(self, vis_feat: torch.Tensor, generator=None):
         B, H, W, C = vis_feat.shape
         tokens = layer_norm(vis_feat.reshape(B, H * W, C), dtype=self.dtype)
+        if self.training:
+            tokens = dropout(tokens, self.hidden_dropout_prob, generator)
         return tokens, self.pos_coder(H, W)
 
 
@@ -173,20 +185,24 @@ class CrossAttFeatTrans(nn.Module):
         return q, k
 
     def _clip(self, q, k):
-        gmax = scores_global_max(q, k, 1.0 / math.sqrt(self.cfg.mode_dim))
+        gmax = scores_global_max(q.detach(), k.detach(),
+                                 1.0 / math.sqrt(self.cfg.mode_dim))
         return torch.where(gmax > self.cfg.attn_clip,
                            torch.full_like(gmax, self.cfg.attn_clip),
                            torch.full_like(gmax, 1e30))
 
     def forward(self, query_feat, key_feat=None, pos_biases=None,
-                out_dtype=None):
-        """Scores-only site: the normed [B, U1, U2] volume in `out_dtype`.
-        Probs-only site: [B, M, U1, U2] probs or QuantizedProbs.  Feature
-        site: [B, U1, F]."""
+                out_dtype=None, generator=None):
+        """Scores-only site: the normed [B, U1, U2] volume in `out_dtype`
+        (eval), or the raw fp32 one (train).  Probs-only site: [B, M, U1,
+        U2] probs or QuantizedProbs.  Feature site: [B, U1, F].
+        `generator` draws the attention dropout in training."""
         cfg = self.cfg
         if key_feat is None:
             key_feat = query_feat
         q, k = self._qk(query_feat, key_feat)
+        if self.training:
+            return self._train_forward(q, k, key_feat, pos_biases, generator)
         grid_hw = (pos_biases.H, pos_biases.W)
         if cfg.out_attn_scores_only:
             agg_w, agg_b = self.attn_softaggr.scalar_wb()
@@ -211,6 +227,22 @@ class CrossAttFeatTrans(nn.Module):
 
         return self.out_trans(key_feat, attention_fn=attention_fn)
 
+    def _train_forward(self, q, k, key_feat, pos_biases, generator):
+        cfg = self.cfg
+        grid_hw = (pos_biases.H, pos_biases.W)
+        clip = self._clip(q, k)
+        if cfg.out_attn_scores_only:
+            agg_w, agg_b = self.attn_softaggr.scalar_wb()
+            return fused_agg_corr_diff(q, k, pos_biases.biases, clip,
+                                       cfg.pos_code_weight, agg_w, agg_b,
+                                       grid_hw)
+        probs = mode_softmax_probs_diff(q, k, pos_biases.biases, clip,
+                                        cfg.pos_code_weight, grid_hw)
+        probs = dropout(probs, cfg.attention_probs_dropout_prob, generator)
+        if cfg.out_attn_probs_only:
+            return probs
+        return self.out_trans(key_feat, attention=probs)
+
 
 class SelfAttVisPosTrans(nn.Module):
     """Self-attention over an NHWC feature map (reference setrans.py:568-619):
@@ -222,10 +254,11 @@ class SelfAttVisPosTrans(nn.Module):
         self.vispos_encoder = InputFeatEncoder(cfg, dtype)
         self.setrans = CrossAttFeatTrans(cfg, dtype)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator=None):
         B, H, W, C = x.shape
-        tokens, pos_biases = self.vispos_encoder(x)
-        out = self.setrans(tokens, pos_biases=pos_biases)
+        tokens, pos_biases = self.vispos_encoder(x, generator)
+        out = self.setrans(tokens, pos_biases=pos_biases,
+                           generator=generator)
         if not self.cfg.out_attn_only:
             out = out.reshape(B, H, W, C)
         return out

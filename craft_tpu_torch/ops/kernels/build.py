@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("scores_max", "flash_attn", "corr_norm", "softmax_probs")
+SOURCES = ("scores_max", "flash_attn", "corr_norm", "softmax_probs",
+           "agg_corr", "probs_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,7 +39,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

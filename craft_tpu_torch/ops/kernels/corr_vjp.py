@@ -1,0 +1,190 @@
+"""B6: the raw aggregated inter-frame volume and its backward, each beside
+its plain PyTorch version, joined into the differentiable
+``fused_agg_corr_diff`` (counterparts of ``craft_tpu/ops/pallas/
+corr_vjp.py`` and of ``fused_agg_corr_mt`` / ``fused_agg_corr`` in
+``craft_tpu/ops/pallas/mode_attention.py``).
+
+Per sample, with s_m = clamp(c_m, +-clip) + pos_w * bias and c_m = scale *
+q_m k_m^T:
+  vol             = sum_m p_m s_m,  p = softmax_m(agg_w * s_m + agg_b)
+  dvol/ds_m       = t_m = p_m * (1 + agg_w * (s_m - vol))
+  dc_m            = g * t_m * 1[|c_m| < clip]
+  dq_m, dk_m      = (dc_m @ k_m, dc_m^T @ q_m) * scale
+  dbias           = pos_w * masked diagonal sums of g   (sum_m t_m == 1)
+  dagg_w          = sum g * sum_m p_m s_m (s_m - vol);  dagg_b = 0
+The kernels (csrc/agg_corr.cu) compute vol and (dc, dagg_w); the products
+dq/dk run as plain fp32 matrix products, as the JAX package leaves them to
+XLA.  pos_w is a config constant and gets no gradient; clip comes from B1
+on detached q and k, so the clamp predicate carries none either.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from craft_tpu_torch.ops.kernels.launch import (F, I, P, call, check_cuda,
+                                                counted, f32, prep, ptr,
+                                                stream)
+from craft_tpu_torch.ops.kernels.mode_attention import (acc_dtype,
+                                                        biased_scores)
+
+_FWD_SIG = [P, P, P, P, P, I, I, I, I, I, F, I, P]
+_BWD_SIG = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]
+_TILE, _KGROUP, _MODES = 64, 8, 4  # csrc/agg_modes.cuh TILE, KGROUP, NMODES
+
+
+def _scal(q, clip, pos_w, agg_w, agg_b):
+    """The kernels' [clip, pos_w, agg_w, agg_b] fp32 device array (no host
+    sync: clip and agg_w may be device tensors)."""
+    return torch.cat([f32(x, q).detach() for x in (clip, pos_w, agg_w,
+                                                   agg_b)])
+
+
+def _shape_check(q, k, name):
+    B, M, U, md = q.shape
+    if M != _MODES or k.shape != q.shape:
+        raise ValueError(f"{name}: q, k must be [B, {_MODES}, U, md] alike, "
+                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def fused_agg_corr_plain(q, k, biases, grid_hw, clip, pos_w, agg_w, agg_b):
+    _, s = biased_scores(q, k, biases, grid_hw, clip, pos_w)
+    p = torch.softmax(agg_w * s + agg_b, dim=1)
+    return (p * s).sum(dim=1)
+
+
+@counted
+def fused_agg_corr(q, k, biases, grid_hw, clip, pos_w: float, agg_w, agg_b):
+    """vol[b] = sum_m softmax_m(agg_w s_m + agg_b) s_m, s_m = clamp(scale
+    q_m k_m^T, +-clip) + pos_w * bias, as [B, U, U] fp32 (fp64 for fp64
+    inputs on the CPU).  q, k: [B, 4, U, md]; biases: the [2R+1, 2R+1]
+    window over the (H8, W8) token grid; clip: 0-d tensor or float."""
+    if not q.is_cuda:
+        return fused_agg_corr_plain(q, k, biases, grid_hw, clip, pos_w,
+                                    agg_w, agg_b)
+    _shape_check(q, k, "fused_agg_corr")
+    (q, k), bf16 = prep(q, k)
+    B, _, U, md = q.shape
+    R = (biases.shape[0] - 1) // 2
+    out = torch.empty(B, U, U, dtype=torch.float32, device=q.device)
+    win, scal = f32(biases, q), _scal(q, clip, pos_w, agg_w, agg_b)
+    call("agg_corr", "agg_corr_launch", _FWD_SIG, ptr(q), ptr(k), ptr(win),
+         ptr(scal), ptr(out), B, U, md, grid_hw[1], R, 1.0 / math.sqrt(md),
+         bf16, stream(q))
+    fused_agg_corr.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+def agg_corr_bwd_plain(q, k, g, vol, biases, grid_hw, clip, pos_w, agg_w):
+    c, s = biased_scores(q, k, biases, grid_hw, clip, pos_w)
+    p = torch.softmax(agg_w * s, dim=1)  # agg_b cancels over the modes
+    sv = s - vol.to(s.dtype)[:, None]
+    g = g.to(s.dtype)[:, None]
+    t = p * (1.0 + agg_w * sv)
+    clip = torch.as_tensor(clip, dtype=c.dtype, device=c.device)
+    dc = torch.where(c.abs() < clip, g * t, torch.zeros((), dtype=c.dtype,
+                                                        device=c.device))
+    da = (g * p * s * sv).sum()
+    return dc, da
+
+
+@counted
+def agg_corr_bwd(q, k, g, vol, biases, grid_hw, clip, pos_w: float, agg_w):
+    """The clamp-masked score cotangent dc [B, 4, U, U] fp32 and the agg_w
+    cotangent da (0-d fp32) from the volume's cotangent g and the saved
+    volume vol, both [B, U, U] fp32."""
+    if not q.is_cuda:
+        return agg_corr_bwd_plain(q, k, g, vol, biases, grid_hw, clip, pos_w,
+                                  agg_w)
+    _shape_check(q, k, "agg_corr_bwd")
+    (q, k), bf16 = prep(q, k)
+    check_cuda(q, g, vol)
+    B, M, U, md = q.shape
+    if g.shape != (B, U, U) or vol.shape != (B, U, U) or \
+            g.dtype != torch.float32 or vol.dtype != torch.float32:
+        raise ValueError("agg_corr_bwd: g and vol must be [B, U, U] fp32")
+    g, vol = g.contiguous(), vol.contiguous()
+    R = (biases.shape[0] - 1) // 2
+    nq = -(-U // _TILE)
+    dev = q.device
+    dc = torch.empty(B, M, U, U, dtype=torch.float32, device=dev)
+    partial = torch.empty(B * nq * -(-nq // _KGROUP), dtype=torch.float64,
+                          device=dev)
+    da = torch.empty(1, dtype=torch.float32, device=dev)
+    win, scal = f32(biases, q), _scal(q, clip, pos_w, agg_w, 0.0)
+    call("agg_corr", "agg_corr_bwd_launch", _BWD_SIG, ptr(q), ptr(k), ptr(g),
+         ptr(vol), ptr(win), ptr(scal), ptr(dc), ptr(partial), ptr(da), B, U,
+         md, grid_hw[1], R, 1.0 / math.sqrt(md), bf16, stream(q))
+    agg_corr_bwd.launches += 1
+    return dc, da[0]
+
+
+def sliding_bias_grad(g: torch.Tensor, H: int, W: int, R: int,
+                      pos_w: float) -> torch.Tensor:
+    """d biases[dh + R, dw + R] = pos_w * sum over tokens u = (i, j) of
+    g[..., u, u + dh * W + dw], summed over any leading dims, where
+    (i + dh, j + dw) stays on the H x W grid: a diagonal of the [U, U]
+    table wraps across token rows, and the wrapped entries are masked.
+    Sums run in fp32 (fp64 for fp64 g)."""
+    U = H * W
+    g2 = g.reshape(-1, U, U).to(acc_dtype(g)).sum(0)
+    dev = g.device
+    u = torch.arange(U, device=dev)
+    off = torch.arange(-R, R + 1, device=dev)
+    ii = (u // W)[None, None, :] + off[:, None, None]  # [dh, dw, u]
+    jj = (u % W)[None, None, :] + off[None, :, None]
+    valid = (ii >= 0) & (ii < H) & (jj >= 0) & (jj < W)
+    u2 = ii.clamp(0, H - 1) * W + jj.clamp(0, W - 1)
+    vals = g2[u.expand_as(u2), u2]
+    return pos_w * (vals * valid).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# The differentiable volume
+# ---------------------------------------------------------------------------
+
+class _FusedAggCorr(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, biases, clip, agg_w, agg_b, grid_hw, pos_w):
+        vol = fused_agg_corr(q, k, biases, grid_hw, clip, pos_w, agg_w,
+                             agg_b)
+        ctx.save_for_backward(q, k, biases, clip, agg_w, agg_b, vol)
+        ctx.grid_hw, ctx.pos_w = grid_hw, pos_w
+        return vol
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, biases, clip, agg_w, agg_b, vol = ctx.saved_tensors
+        (H, W), pos_w = ctx.grid_hw, ctx.pos_w
+        dc, da = agg_corr_bwd(q, k, g.contiguous(), vol, biases, (H, W),
+                              clip, pos_w, agg_w)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        dq = torch.matmul(dc, k.to(dc.dtype)) * scale
+        dk = torch.matmul(dc.transpose(-1, -2), q.to(dc.dtype)) * scale
+        del dc
+        dbias = sliding_bias_grad(g, H, W, (biases.shape[0] - 1) // 2, pos_w)
+        return (dq.to(q.dtype), dk.to(k.dtype), dbias.to(biases.dtype), None,
+                da.reshape(agg_w.shape).to(agg_w.dtype), torch.zeros_like(
+                    agg_b), None, None)
+
+
+def fused_agg_corr_diff(q, k, biases, clip, pos_w: float, agg_w, agg_b,
+                        grid_hw):
+    """The raw aggregated volume [B, U, U] fp32 (B6), differentiable in q,
+    k, biases, agg_w and agg_b (whose gradient is 0)."""
+    clip = torch.as_tensor(clip, dtype=torch.float32, device=q.device)
+    agg_w = torch.as_tensor(agg_w, device=q.device)
+    agg_b = torch.as_tensor(agg_b, device=q.device)
+    return _FusedAggCorr.apply(q, k, biases, clip, agg_w, agg_b,
+                               tuple(grid_hw), pos_w)

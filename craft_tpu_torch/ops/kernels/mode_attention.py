@@ -20,14 +20,16 @@ predicate never syncs the host.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from craft_tpu_torch.ops.kernels import build
+from craft_tpu_torch.ops.kernels.launch import (F as _F, I as _I,
+                                                MAX_MODE_DIM, P as _P,
+                                                call, counted, f32 as _f32,
+                                                prep as _prep, ptr as _ptr,
+                                                stream as _stream)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "scores_max_launch": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "flash_attn_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -41,51 +43,26 @@ _LIB_OF = {"scores_max_launch": "scores_max",
            "flash_attn_launch": "flash_attn",
            "corr_norm_launch": "corr_norm",
            "probs_launch": "softmax_probs"}
-MAX_MODE_DIM = 64
 FLASH_FEAT = 256  # csrc/flash_attn.cu FEAT: the f2 site's feature width
 # Scratch sizes follow the kernels' tiling (csrc/common.cuh TILE,
 # csrc/corr_norm.cu KGROUP).
 _TILE, _KGROUP = 64, 8
+assert MAX_MODE_DIM == 64  # csrc/common.cuh MAXMD
 
 
 def _call(fn_name: str, *args) -> None:
-    fn = getattr(build.load(_LIB_OF[fn_name]), fn_name)
-    fn.argtypes = _SIGNATURES[fn_name]
-    fn.restype = ctypes.c_int
-    build.check(fn(*args), fn_name)
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _prep(*tensors):
-    """Kernel inputs: one CUDA device, one dtype (bf16 or fp32), contiguous.
-    Returns (contiguous tensors, in_bf16 flag)."""
-    dt = tensors[0].dtype
-    for t in tensors:
-        if not t.is_cuda or t.device != tensors[0].device:
-            raise ValueError("kernel inputs must lie on one CUDA device")
-        if t.dtype != dt or dt not in (torch.bfloat16, torch.float32):
-            raise ValueError(f"kernel inputs must share bf16 or fp32, got "
-                             f"{[x.dtype for x in tensors]}")
-    if tensors[0].shape[-1] > MAX_MODE_DIM:
-        raise ValueError(f"mode dim {tensors[0].shape[-1]} > {MAX_MODE_DIM}")
-    return [t.contiguous() for t in tensors], int(dt == torch.bfloat16)
-
-
-def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32,
-                           device=like.device).reshape(-1).contiguous()
+    call(_LIB_OF[fn_name], fn_name, _SIGNATURES[fn_name], *args)
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch pieces shared by the plain versions
 # ---------------------------------------------------------------------------
+
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' working type: fp32, or fp64 for fp64 inputs (the
+    gradient checks)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
 
 def sliding_pos_biases(biases: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """Dense [H*W, H*W] table of the (2R+1)^2 window: pos[i*W+j, h*W+w] =
@@ -102,17 +79,19 @@ def sliding_pos_biases(biases: torch.Tensor, H: int, W: int) -> torch.Tensor:
     return (table * mask).permute(0, 2, 1, 3).reshape(H * W, H * W)
 
 
-def _scores(q, k, scale):
-    return torch.einsum("bmid,bmjd->bmij", q.float(), k.float()) * scale
+def scores(q, k, scale):
+    """scale * q k^T, [B, M, U, U] in acc_dtype(q)."""
+    dt = acc_dtype(q)
+    return torch.einsum("bmid,bmjd->bmij", q.to(dt), k.to(dt)) * scale
 
 
-def _biased(q, k, biases, grid_hw, clip, pos_w):
-    """clamp(scale * q k^T, +-clip) + pos_w * bias, fp32 [B, M, U, U]."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = _scores(q, k, scale)
-    clip = torch.as_tensor(clip, dtype=torch.float32, device=s.device)
-    s = torch.minimum(torch.maximum(s, -clip), clip)
-    return s + pos_w * sliding_pos_biases(biases.float(), *grid_hw)
+def biased_scores(q, k, biases, grid_hw, clip, pos_w):
+    """(c, clamp(c, +-clip) + pos_w * bias) with c = scale * q k^T, both
+    [B, M, U, U] in acc_dtype(q)."""
+    c = scores(q, k, 1.0 / math.sqrt(q.shape[-1]))
+    clip = torch.as_tensor(clip, dtype=c.dtype, device=c.device)
+    s = torch.minimum(torch.maximum(c, -clip), clip)
+    return c, s + pos_w * sliding_pos_biases(biases.to(c.dtype), *grid_hw)
 
 
 # ---------------------------------------------------------------------------
@@ -132,9 +111,10 @@ def _launch_scores_max(q, k, scale) -> torch.Tensor:
 
 
 def scores_global_max_plain(q, k, scale: float) -> torch.Tensor:
-    return _scores(q, k, scale).amax()
+    return scores(q, k, scale).amax()
 
 
+@counted
 def scores_global_max(q: torch.Tensor, k: torch.Tensor,
                       scale: float) -> torch.Tensor:
     """Max of scale * q_m k_m^T over batch, modes and tokens, as a 0-d fp32
@@ -149,10 +129,12 @@ def scores_global_max(q: torch.Tensor, k: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def flash_mode_attention_plain(q, k, v, biases, grid_hw, clip, pos_w):
-    p = torch.softmax(_biased(q, k, biases, grid_hw, clip, pos_w), -1)
+    p = torch.softmax(biased_scores(q, k, biases, grid_hw, clip, pos_w)[1],
+                      -1)
     return (p @ v.float()).to(v.dtype)
 
 
+@counted
 def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float):
     """out[b, m] = softmax(clamp(scale q k^T, +-clip) + pos_w * bias) @ v.
 
@@ -185,7 +167,7 @@ def fused_agg_corr_norm_plain(q, k, biases, grid_hw, attn_clip, pos_w,
                               agg_w, agg_b, out_dtype=torch.bfloat16,
                               eps: float = 1e-12):
     B, M, U, md = q.shape
-    c = _scores(q, k, 1.0 / math.sqrt(md))
+    c = scores(q, k, 1.0 / math.sqrt(md))
     gmax = c.amax()
     clip = torch.where(gmax > attn_clip, attn_clip, 1e30)
     s = torch.minimum(torch.maximum(c, -clip), clip) \
@@ -205,6 +187,7 @@ def fused_agg_corr_norm_plain(q, k, biases, grid_hw, attn_clip, pos_w,
     return out.to(out_dtype), stats.view(B, 1, 4)
 
 
+@counted
 def fused_agg_corr_norm(q, k, biases, grid_hw, attn_clip: float,
                         pos_w: float, agg_w, agg_b,
                         out_dtype=torch.bfloat16, eps: float = 1e-12):
@@ -255,7 +238,7 @@ def fused_agg_corr_norm(q, k, biases, grid_hw, attn_clip: float,
 
 def mode_softmax_probs_plain(q, k, biases, grid_hw, clip, pos_w,
                              out_dtype=torch.bfloat16, quantized=False):
-    s = _biased(q, k, biases, grid_hw, clip, pos_w)
+    _, s = biased_scores(q, k, biases, grid_hw, clip, pos_w)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     del s
     l = e.sum(dim=-1, keepdim=True)
@@ -264,6 +247,7 @@ def mode_softmax_probs_plain(q, k, biases, grid_hw, clip, pos_w,
     return (e / l).to(out_dtype)
 
 
+@counted
 def mode_softmax_probs(q, k, biases, grid_hw, clip, pos_w: float,
                        out_dtype=torch.bfloat16, quantized: bool = False):
     """probs[b, m] = softmax(clamp(scale q k^T, +-clip) + pos_w * bias).
@@ -299,15 +283,3 @@ def mode_softmax_probs(q, k, biases, grid_hw, clip, pos_w: float,
 
 KERNELS = (scores_global_max, flash_mode_attention, fused_agg_corr_norm,
            mode_softmax_probs)
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
-
-
-reset_launch_counts()

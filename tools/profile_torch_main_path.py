@@ -1,6 +1,6 @@
 """Where the time goes in the PyTorch port's main path, on one GPU.
 
-    python3 tools/profile_torch_main_path.py [--pairs 2]
+    python3 tools/profile_torch_main_path.py [--pairs 2] [--train]
 
 The main path of chip_smoke.py (its model, frame pairs and serving loop):
 full CRAFT at 436x1024 padded to 440x1024, bf16 with int8 intra probs, 12
@@ -8,10 +8,11 @@ iterations, the weights of the oracle snapshot.  After one warm-up pair it
 times `--pairs` frame pairs on the host clock, then traces the same pairs
 with torch.profiler, and prints per pair: the host wall time (untraced and
 traced), the kernel time under each phase range (craft.* in
-FlowModel.forward), kernel time by family, the device busy share (kernel
-time over the untraced wall time), and the 20 costliest kernels.  The last
-line is one JSON object with those numbers.  Needs CUDA; imports nothing of
-JAX.
+FlowModel.forward and the train step), kernel time by family, the device
+busy share (kernel time over the untraced wall time), and the 20 costliest
+kernels.  With --train the unit is a training step of chip_smoke.py's
+training path (368x496, batch 8) instead of a pair.  The last line is one
+JSON object with those numbers.  Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("B3 corr_norm", ("corr_stats_kernel", "corr_moments_kernel",
                       "corr_write_kernel")),
     ("B4 probs", ("probs_kernel",)),
+    ("B6 agg_corr_bwd", ("agg_corr_bwd_kernel", "sum_partials_kernel")),
+    ("B6 agg_corr", ("agg_corr_kernel",)),
+    ("B7 probs_bwd", ("probs_bwd_kernel",)),
     ("convolution", ("conv", "xmma", "cudnn", "implicit", "winograd")),
     ("matmul", ("gemm", "cutlass", "sm90", "ampere")),
     ("gather/index", ("gather", "index", "scatter")),
@@ -71,7 +75,10 @@ def _phase_kernel_ms(events, n: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--pairs", type=int, default=2)
+    ap.add_argument("--pairs", type=int, default=2,
+                    help="frame pairs (or training steps) to time")
+    ap.add_argument("--train", action="store_true",
+                    help="profile training steps instead of serving")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: CUDA is not available", file=sys.stderr)
@@ -79,13 +86,22 @@ def main() -> int:
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
     print(card)
-    model = chip_smoke.main_path_model(dev)
-    _, pairs = chip_smoke.frame_pairs(dev, args.pairs + 1)
+    if args.train:
+        state, step, batch = chip_smoke.train_setup(dev)
 
-    def wall_ms_per_pair():
-        return sum(chip_smoke.serve(model, pairs[1:])[0]) / args.pairs
+        def wall_ms_per_pair():
+            return sum(chip_smoke.train_steps(state, step, batch,
+                                              args.pairs)[1]) / args.pairs
 
-    chip_smoke.serve(model, pairs[:1])  # warm-up
+        chip_smoke.train_steps(state, step, batch, 1)  # warm-up
+    else:
+        model = chip_smoke.main_path_model(dev)
+        _, pairs = chip_smoke.frame_pairs(dev, args.pairs + 1)
+
+        def wall_ms_per_pair():
+            return sum(chip_smoke.serve(model, pairs[1:])[0]) / args.pairs
+
+        chip_smoke.serve(model, pairs[:1])  # warm-up
     wall_ms = wall_ms_per_pair()  # without the profiler's overhead
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

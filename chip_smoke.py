@@ -14,7 +14,9 @@ these phases and fails on the first that fails:
      Then the training kernels at the chairs shapes (B=8, M=4, 46x62 ->
      U=2852, md 64 and 32): B1 and B4 float at this ragged U, B6 forward,
      B6 backward (dc, da) and B7 backward (dc, dlsum), each with faults
-     planted in its plain version.
+     planted in its plain version.  Then B5, the pyramid lookup, forward
+     and backward at the serving, chairs and oracle shapes, with four
+     faults planted in its plain version.
   3. oracle: full-width CRAFT with the weights of
      tests/data/oracle_craft_128.npz at 128x128, 12 iterations, against the
      reference flow: fp32 within 1e-3 px, the mixed-precision config
@@ -24,14 +26,23 @@ these phases and fails on the first that fails:
   4. main path: craft_config(mixed_precision=True), 436x1024 padded to
      440x1024, 12 iterations, one warm-up pair then 3 seeded frame pairs;
      per-pair ms, frame-pairs/s and peak device memory.  Every kernel's
-     launch count is zeroed just before and read just after.  Then the
+     launch count is zeroed just before and read just after (B5: 12 per
+     pair; 12 forward and 12 backward per training step).  Then the
      training path: the same config at 368x496 (the chairs crops), batch
      8, 12 iterations, dropout at the config's rates, one warm-up step and
      3 timed steps; ms per step, samples/s, peak memory, each step's loss
      and grad norm, and the launches of its own run.
+     Then the evaluation entry point (craft_tpu_torch.evaluate.main) on
+     the card: the oracle as a reference .pth over a one-pair Sintel tree
+     whose ground truth is the port's CPU flow (fp32 within 1e-3 px,
+     mixed within 0.15 px), then KITTI (2 pairs at 375x1242) and Sintel
+     (3 frames at 436x1024, --batch_size 2) at full size: metrics,
+     pairs/s and launches (B1-B5 in each).
   5. kernel times over CUDA events at the main-path shapes, beside each
-     plain version, the bound and (B2) scaled_dot_product_attention; then
-     the training kernels and B1/B4 at the chairs shapes.
+     plain version, the bound and (B2) scaled_dot_product_attention; B2-B4
+     at the KITTI shape (U=7332, W8=156); the training kernels and B1/B4
+     at the chairs shapes; B5 forward and backward at the serving and
+     chairs shapes beside per-level F.grid_sample and its backward.
 
 Prints the card line and a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
@@ -43,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -51,10 +63,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from craft_tpu_torch import evaluate as evaluate_cli
 from craft_tpu_torch.config import craft_config
+from craft_tpu_torch.data import frame_utils, imgio
+from craft_tpu_torch.eval import evaluate as tev
 from craft_tpu_torch.models.flow_model import create_model
-from craft_tpu_torch.ops.geometry import InputPadder
+from craft_tpu_torch.ops.geometry import InputPadder, coords_grid
 from craft_tpu_torch.ops.kernels import build, launch
+from craft_tpu_torch.ops.kernels import corr_lookup as lk
 from craft_tpu_torch.ops.kernels import corr_vjp as cv
 from craft_tpu_torch.ops.kernels import mode_attention as ma
 from craft_tpu_torch.ops.kernels import probs_vjp as pv
@@ -70,6 +86,7 @@ FRAME_H, FRAME_W, ITERS = 436, 1024, 12  # Sintel frames, padded to 440
 H8, W8 = 55, 128          # 440x1024 / 8
 U = H8 * W8
 BF16_TFLOPS, HBM_TBS = 989.0, 3.35  # H100 SXM dense bf16 peak, HBM rate
+FP32_TFLOPS = 67.0  # H100 SXM fp32 peak outside the tensor cores
 SOURCE = "craft_tpu_torch/csrc/{}.cu"
 TPU_KERNEL = "craft_tpu/ops/pallas/mode_attention.py:{}"
 # The training path: the chairs stage of the reference curriculum.
@@ -97,8 +114,9 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    t_ops = flops / (BF16_TFLOPS * 1e12) * 1e3
+def bound_ms(flops: float, nbytes: float, tflops: float = BF16_TFLOPS
+             ) -> tuple:
+    t_ops = flops / (tflops * 1e12) * 1e3
     t_mem = nbytes / (HBM_TBS * 1e12) * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
@@ -457,6 +475,135 @@ def check_train_kernels(dev, gen, report, grid=CHAIRS_GRID,
     report["probs_bwd"]["max_abs_err"] = max(errs)
 
 
+# B5, the pyramid lookup: (label, batch, H8, W8, level type) of the serving
+# pair (440x1024), a chairs training batch (368x496, batch 8) and the oracle
+# (128x128, fp32).
+LOOKUP_SHAPES = (("serving", 1, H8, W8, torch.bfloat16),
+                 ("chairs", TRAIN_BATCH, *CHAIRS_GRID, torch.bfloat16),
+                 ("oracle", 1, 16, 16, torch.float32))
+RADIUS, LEVELS = 4, 4
+# Forward: kernel and plain version blend the same four level values in
+# fp32 with the same operations, so the bound is 4 fp32 ulps of max |level|.
+B5_FWD_TOL = 4 * 2.0 ** -23
+# Backward, each element against the plain version on fp32 levels: one bf16
+# rounding (half an ulp, 2^-8 of the value) for bf16 levels, 4 fp32 ulps of
+# the value for fp32 levels.
+B5_BWD_TOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 4 * 2.0 ** -23}
+B5_FAULTS = ("i, j swapped", "clamped padding", "level scale 2^(l+1)",
+             "no y blend")
+
+
+def lookup_inputs(dev, batch, h8, w8, dtype, seed=3):
+    """Seeded levels [Q, h8 / 2^l, w8 / 2^l] ~ N(0, 1) in `dtype` (odd
+    edges dropped, as the pyramid pools) and coords [batch, h8, w8, 2]: the
+    token grid moved by up to 6 px, so windows near the edges lie partly
+    outside; every 5th query on integers; every 13th left of and above
+    every level, every 17th beyond it (wholly outside)."""
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+    Q = batch * h8 * w8
+    levels = [torch.randn(Q, h8 >> l, w8 >> l, generator=dgen,
+                          device=dev).to(dtype) for l in range(LEVELS)]
+    coords = coords_grid(batch, h8, w8, device=dev) + torch.rand(
+        batch, h8, w8, 2, generator=dgen, device=dev) * 12 - 6
+    flat = coords.view(-1, 2)
+    flat[::5] = flat[::5].round()
+    flat[::13] = -200.0 - flat[::13]
+    flat[::17] += 150.0 + max(h8, w8)
+    return levels, coords
+
+
+def _b5_fault(levels, coords, r, fault):
+    """The plain lookup with one planted fault (B5_FAULTS): the channel
+    order (x-offset, y-offset) swapped, out-of-level corners clamped to the
+    edge instead of read as zero, level l at coords / 2^(l+1), or the y
+    blend dropped (each window row read at its integer row)."""
+    B, H1, W1, _ = coords.shape
+    n, Q = 2 * r + 1, B * H1 * W1
+    flat = coords.reshape(Q, 2).float()
+    t = torch.arange(n + 1, device=coords.device)
+    out = []
+    for i, level in enumerate(levels):
+        h, w = level.shape[1], level.shape[2]
+        if h == 0 or w == 0:
+            out.append(flat.new_zeros(B, H1, W1, n * n))
+            continue
+        base = flat / 2.0 ** (i + (fault == "level scale 2^(l+1)"))
+        x0, y0 = torch.floor(base[:, 0]), torch.floor(base[:, 1])
+        fx = (base[:, 0] - x0)[:, None, None]
+        fy = (base[:, 1] - y0)[:, None, None]
+        cols = x0.long()[:, None] - r + t[None]
+        rows = y0.long()[:, None] - r + t[None]
+        valid = (((rows >= 0) & (rows < h))[:, :, None]
+                 & ((cols >= 0) & (cols < w))[:, None, :])
+        if fault == "clamped padding":
+            valid = torch.ones_like(valid)
+        idx = rows.clamp(0, h - 1)[:, :, None] * w \
+            + cols.clamp(0, w - 1)[:, None, :]
+        g = torch.gather(level.reshape(Q, h * w), 1, idx.reshape(Q, -1))
+        g = g.reshape(Q, n + 1, n + 1).float() * valid
+        gy = g[:, :n] if fault == "no y blend" else \
+            (1 - fy) * g[:, :n] + fy * g[:, 1:]
+        win = (1 - fx) * gy[:, :, :n] + fx * gy[:, :, 1:]  # [Q, j, i]
+        if fault != "i, j swapped":
+            win = win.transpose(1, 2)
+        out.append(win.reshape(B, H1, W1, n * n))
+    return torch.cat(out, dim=-1)
+
+
+def _b5_bwd_fault(coords, g, shapes, r, fault):
+    """Level gradients of _b5_fault (fp32), by autograd."""
+    with torch.enable_grad():
+        levels = [torch.zeros(s, device=coords.device, requires_grad=True)
+                  for s in shapes]
+        out = _b5_fault(levels, coords, r, fault)
+        grads = torch.autograd.grad(out, levels, g, allow_unused=True)
+    return [torch.zeros_like(lv) if d is None else d
+            for lv, d in zip(levels, grads)]
+
+
+def level_rel_err(got, want) -> float:
+    """Per element |got - want| / |want| (0 where both are 0), the worst
+    over every level."""
+    return max(float(((a.float() - b.float()).abs()
+                      / b.float().abs().clamp(min=1e-30)).max())
+               for a, b in zip(got, want) if b.numel())
+
+
+def check_lookup(dev, report, shapes=LOOKUP_SHAPES) -> None:
+    """Phase 2, B5: the lookup kernel and its backward against the plain
+    versions, with the four B5_FAULTS planted in the plain versions."""
+    errs = {"corr_lookup": [], "corr_lookup_bwd": []}
+    for label, batch, h8, w8, dtype in shapes:
+        levels, coords = lookup_inputs(dev, batch, h8, w8, dtype)
+        top = max(float(lv.float().abs().max()) for lv in levels
+                  if lv.numel())
+        got = lk.corr_lookup(levels, coords, RADIUS)
+        sync(dev)
+        want = lk.corr_lookup_plain(levels, coords, RADIUS)
+        hold(f"B5 forward {label} {dtype}", got, want,
+             lambda a, b: float((a - b).abs().max()) / top, B5_FWD_TOL,
+             {f: _b5_fault(levels, coords, RADIUS, f) for f in B5_FAULTS})
+        errs["corr_lookup"].append(float((got - want).abs().max()))
+        shapes_ = [tuple(lv.shape) for lv in levels]
+        g = torch.randn(got.shape, generator=torch.Generator(
+            device=dev).manual_seed(4), device=dev)
+        del got, want, levels
+        got = lk.corr_lookup_bwd(coords, g, shapes_, dtype, RADIUS)
+        sync(dev)
+        want = lk.corr_lookup_bwd_plain(coords, g, shapes_, torch.float32,
+                                        RADIUS)
+        hold(f"B5 backward {label} {dtype}", got, want, level_rel_err,
+             B5_BWD_TOL[dtype],
+             {f: _b5_bwd_fault(coords, g, shapes_, RADIUS, f)
+              for f in B5_FAULTS})
+        errs["corr_lookup_bwd"].append(max(
+            float((a.float() - b).abs().max()) for a, b in zip(got, want)
+            if b.numel()))
+        del got, want, g
+    for name, e in errs.items():
+        report[name]["max_abs_err"] = max(e)
+
+
 def check_oracle(dev) -> dict:
     """Phase 3: the 128x128 oracle on the card."""
     img1, img2, want, tree = load_oracle_npz(ORACLE)
@@ -513,6 +660,11 @@ def serve(model, pairs):
     return times, flows
 
 
+# The kernels a served pair launches (B1-B4, B5 forward).
+SERVE_KERNELS = ("scores_global_max", "flash_mode_attention",
+                 "fused_agg_corr_norm", "mode_softmax_probs", "corr_lookup")
+
+
 def main_path(dev, n_pairs: int = 3) -> dict:
     """Phase 4: full-size serving of seeded frame pairs, after one warm-up
     pair."""
@@ -522,7 +674,7 @@ def main_path(dev, n_pairs: int = 3) -> dict:
     torch.cuda.reset_peak_memory_stats()
     launch.reset_launch_counts()
     times, flows = serve(model, pairs[1:])
-    counts = {fn.__name__: fn.launches for fn in ma.KERNELS}
+    counts = launch.launch_counts()
     for flow in flows:
         out = padder.unpad(flow)
         assert out.shape == (1, FRAME_H, FRAME_W, 2)
@@ -531,8 +683,11 @@ def main_path(dev, n_pairs: int = 3) -> dict:
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": counts}
     print("main path:", json.dumps(res))
-    for name, n in counts.items():
-        assert n > 0, f"{name} was not launched on the main path"
+    for name in SERVE_KERNELS:
+        assert counts[name] > 0, f"{name} was not launched on the main path"
+    assert counts["corr_lookup"] == ITERS * n_pairs, "B5: 12 per pair"
+    for name in set(counts) - set(SERVE_KERNELS):
+        assert counts[name] == 0, f"{name} was launched on the main path"
     return res
 
 
@@ -545,9 +700,10 @@ def main_path(dev, n_pairs: int = 3) -> dict:
 # O(1).
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_STATS_TOL = 1e-5, 1e-2, 1e-4
 GROUPS = ("fnet", "cnet", "f2_trans", "att", "corr_fn", "update_block")
-# The kernels a training step launches (B1, B4 float, B6 and B7).
+# The kernels a training step launches (B1, B4 float, B5, B6 and B7).
 TRAIN_KERNELS = ("scores_global_max", "mode_softmax_probs", "fused_agg_corr",
-                 "agg_corr_bwd", "probs_bwd")
+                 "agg_corr_bwd", "probs_bwd", "corr_lookup",
+                 "corr_lookup_bwd")
 
 
 def _no_dropout(cfg):
@@ -675,8 +831,180 @@ def train_path(dev, n_steps: int = 3) -> dict:
         assert counts[name] > 0, f"{name} was not launched on the train path"
     for name in ("flash_mode_attention", "fused_agg_corr_norm"):
         assert counts[name] == 0, f"{name} was launched on the train path"
+    for name in ("corr_lookup", "corr_lookup_bwd"):
+        assert counts[name] == ITERS * n_steps, f"B5 {name}: 12 per step"
     res["launches"] = counts
     return res
+
+
+# The evaluation phase: reference-format checkpoint, synthetic dataset
+# trees (written by the port's own codecs), the port's CLI on the card.
+EVAL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
+KITTI_H, KITTI_W = 375, 1242  # KITTI 2015 frames, padded to 376x1248
+
+
+def _write_sintel(root: Path, frames, flows, scene="alley_1") -> None:
+    """A Sintel training tree of one scene: the same uint8 frames as the
+    clean and the final pass, and flows[i] as frame i + 1's ground truth."""
+    for sub in ("clean", "final", "flow"):
+        (root / "Sintel" / "training" / sub / scene).mkdir(parents=True)
+    for i, frame in enumerate(frames):
+        for sub in ("clean", "final"):
+            imgio.write_png(str(root / "Sintel" / "training" / sub / scene
+                                / f"frame_{i + 1:04d}.png"), frame)
+    for i, flow in enumerate(flows):
+        frame_utils.write_flo(str(root / "Sintel" / "training" / "flow"
+                                  / scene / f"frame_{i + 1:04d}.flo"), flow)
+
+
+def _write_kitti(root: Path, pairs, flows) -> None:
+    for sub in ("image_2", "flow_occ"):
+        (root / "KITTI" / "training" / sub).mkdir(parents=True)
+    for i, ((a, b), flow) in enumerate(zip(pairs, flows)):
+        for suf, img in (("10", a), ("11", b)):
+            imgio.write_png(str(root / "KITTI" / "training" / "image_2"
+                                / f"{i:06d}_{suf}.png"), img)
+        frame_utils.write_flow_kitti(str(root / "KITTI" / "training"
+                                         / "flow_occ" / f"{i:06d}_10.png"),
+                                     flow)
+
+
+def _timed_cli(label, argv, n_pairs) -> dict:
+    """Run craft_tpu_torch.evaluate.main(argv) with the launch counts set
+    to 0 just before: its metrics, host seconds, pairs/s and launches."""
+    launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = evaluate_cli.main(argv)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    out = {"metrics": res, "seconds": sec, "pairs_per_s": n_pairs / sec,
+           "launches": launch.launch_counts()}
+    print(f"eval {label}:", json.dumps(out))
+    assert all(math.isfinite(v) for v in res.values()), f"eval {label}"
+    return out
+
+
+def eval_phase(dev, kitti_hw=(KITTI_H, KITTI_W),
+               sintel_hw=(FRAME_H, FRAME_W)) -> dict:
+    """The evaluation entry point on the card.  (1) The oracle's full-width
+    tree saved as a reference .pth ('module.' keys); (2) a one-pair Sintel
+    tree of the oracle frames rounded to uint8, whose ground truth is the
+    port's fp32 CPU flow for them; (3) the CLI with --fullprec and mixed,
+    held within the oracle bounds; (4) a KITTI tree (2 pairs) and a Sintel
+    scene (3 frames) at full size, run with --dataset kitti and --dataset
+    sintel --batch_size 2 (cold, then warm): finite metrics, pairs/s, and
+    B1-B5 launched in each (B3 at KITTI's W8 = 156); (5) the steady
+    forward rate of the evaluator at those padded shapes."""
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    EVAL_DIR.mkdir(parents=True)
+    img1, img2, _, tree = load_oracle_npz(ORACLE)
+    sd = state_dict_from_flax(tree)
+    pth = EVAL_DIR / "craft-oracle.pth"
+    torch.save({f"module.{k}": v for k, v in sd.items()}, pth)
+    frames = [np.round(x[0]).astype(np.uint8) for x in (img1, img2)]
+    cpu = create_model(craft_config(mixed_precision=False), device="cpu")
+    cpu.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        _, flows = cpu(*(torch.from_numpy(f[None].astype(np.float32))
+                         for f in frames), iters=ITERS)
+    _write_sintel(EVAL_DIR / "oracle", frames, [flows[-1][0].numpy()])
+    argv = ["--model", str(pth), "--craft", "--setrans", "--iters",
+            str(ITERS), "--device", str(dev), "--dataset"]
+    out = {}
+    for label, extra, bound in (("fp32", ["--fullprec"], FULLPREC_BOUND_PX),
+                                ("mixed", [], BF16_BOUND_PX)):
+        r = _timed_cli(f"oracle sintel {label}", argv + [
+            "sintel", "--data_root", str(EVAL_DIR / "oracle")] + extra, 2)
+        epe = r["metrics"]["sintel_clean_epe"]
+        print(f"eval oracle {label}: sintel_clean_epe {epe:.3e} px against "
+              f"the port's CPU flow (bound {bound})")
+        assert epe < bound, f"eval oracle {label}"
+        out[f"oracle_{label}_epe"] = epe
+
+    rng = np.random.RandomState(5)
+
+    def frame(hw):
+        return rng.randint(0, 256, (*hw, 3)).astype(np.uint8)
+
+    def flow(hw):
+        return rng.uniform(-10, 10, (*hw, 2)).astype(np.float32)
+    big = EVAL_DIR / "full"
+    _write_kitti(big, [(frame(kitti_hw), frame(kitti_hw)) for _ in range(2)],
+                 [flow(kitti_hw) for _ in range(2)])
+    _write_sintel(big, [frame(sintel_hw) for _ in range(3)],
+                  [flow(sintel_hw) for _ in range(2)])
+    # (CLI arguments, pairs, forwards): Sintel's 2 pairs make one batch
+    # per pass, clean and final.
+    runs = {"kitti": (["kitti"], 2, 2),
+            "sintel batch 2": (["sintel", "--batch_size", "2"], 4, 2)}
+    for label, (ds_args, n_pairs, n_forwards) in runs.items():
+        for warm in ("cold", "warm"):
+            r = _timed_cli(f"{label} {warm}", argv + ds_args + [
+                "--data_root", str(big)], n_pairs)
+            out[f"{label} {warm}"] = r
+            n = r["launches"]
+            for name in SERVE_KERNELS:
+                assert n[name] > 0, f"eval {label}: {name} not launched"
+            assert n["corr_lookup"] == ITERS * n_forwards, "B5: 12 a forward"
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+
+    # The CLI runs above are mostly set-up (model build, checkpoint load,
+    # decode) at 2-4 pairs; the steady rate of the same evaluator forward
+    # at each padded shape, one warm-up then 3 timed forwards:
+    ev = tev.Evaluator(craft_config(mixed_precision=True), sd, iters=ITERS,
+                       device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pad8 = lambda n: -(-n // 8) * 8  # noqa: E731
+    for label, batch, (h, w) in (("kitti", 1, kitti_hw),
+                                 ("sintel batch 2", 2, sintel_hw)):
+        img = torch.rand(batch, pad8(h), pad8(w), 3, generator=gen,
+                         device=dev) * 255
+        ev(img, img)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ev(img, img)
+        sec = time.perf_counter() - t0
+        steady = {"ms_per_forward": sec / 3 * 1e3,
+                  "pairs_per_s": 3 * batch / sec}
+        print(f"eval {label} steady ({batch}x{pad8(h)}x{pad8(w)}):",
+              json.dumps(steady))
+        out[f"{label} steady"] = steady
+    return out
+
+
+def time_kitti_kernels(dev, gen) -> None:
+    """Phase 5, the KITTI evaluation shape (376x1248: H8 = 47, W8 = 156,
+    U = 7332, B = 1): B2-B4 beside their plain versions and bounds."""
+    biases = (torch.randn(15, 15, generator=gen) * 0.5).to(dev)
+    grid = (KITTI_H // 8 + 1, KITTI_W // 8 + 1)
+    u = grid[0] * grid[1]
+    clip = torch.tensor(1e30, device=dev)
+    q64, k64 = inputs(gen, 64, dev, u)
+    q32, k32 = inputs(gen, 32, dev, u)
+    v = torch.randn(1, 4, u, 256, generator=gen).to(dev, torch.bfloat16)
+    one = torch.tensor(1.0, device=dev)
+    n = 4 * u * u
+    qk_bytes = lambda md: 2 * 4 * u * md * 2  # noqa: E731
+    cases = {
+        "flash_mode_attention": (
+            (q64, k64, v, biases, grid, clip, 0.5), {},
+            bound_ms(2.0 * n * 64 + 2.0 * n * 256,
+                     qk_bytes(64) + 2 * 2 * 4 * u * 256)),
+        "fused_agg_corr_norm": (
+            (q64, k64, biases, grid, 100.0, 0.5, one, one), {},
+            bound_ms(2.0 * n * 64, qk_bytes(64) + 2 * u * u + 16)),
+        "mode_softmax_probs": (
+            (q32, k32, biases, grid, clip, 1.0), {"quantized": True},
+            bound_ms(2.0 * n * 32, qk_bytes(32) + n + 4 * 4 * u)),
+    }
+    for name, (args, kw, (bms, by)) in cases.items():
+        kern = getattr(ma, name)
+        plain = getattr(ma, name + "_plain")
+        ms = time_ms(lambda: kern(*args, **kw), 5)
+        pms = time_ms(lambda: plain(*args, **kw), 2)
+        print(f"{name} (KITTI, U={u}, W8={grid[1]}): {ms:.3f} ms, plain "
+              f"{pms:.3f} ms, bound {bms:.4f} ms ({by})")
+        torch.cuda.empty_cache()
 
 
 def time_train_kernels(dev, gen, report) -> None:
@@ -807,6 +1135,100 @@ def time_kernels(dev, gen, report) -> None:
     print(f"scores_global_max at the intra shape (md 32): {md32:.3f} ms")
 
 
+def window_elems(levels, coords, r=RADIUS) -> int:
+    """Level values that this run's windows must read: per query and level,
+    the (2r+2)^2 corners that lie inside the level."""
+    flat = coords.reshape(-1, 2).float()
+    total = 0
+    for i, lv in enumerate(levels):
+        h, w = lv.shape[1], lv.shape[2]
+        lo = torch.floor(flat / 2.0 ** i) - r
+
+        def span(start, size):
+            return ((start + 2 * r + 2).clamp(max=size)
+                    - start.clamp(min=0)).clamp(min=0)
+        total += int((span(lo[:, 0], w) * span(lo[:, 1], h)).sum())
+    return total
+
+
+def _grid_sample_args(levels, coords, g, r=RADIUS):
+    """Per level: the fp32 level [Q, 1, h, w], the grid of its window taps
+    normalized for F.grid_sample(align_corners=True) [Q, n, n, 2] (the
+    reference's bilinear_sampler, corr.py:47-71: axis 1 offsets x, axis 2
+    y) and that level's output cotangent [Q, 1, n, n]."""
+    n = 2 * r + 1
+    Q = coords.numel() // 2
+    flat = coords.reshape(Q, 1, 1, 2).float()
+    d = torch.arange(-r, r + 1, device=coords.device, dtype=torch.float32)
+    delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), -1)[None]
+    args = []
+    for i, lv in enumerate(levels):
+        h, w = lv.shape[1], lv.shape[2]
+        xy = flat / 2.0 ** i + delta
+        grid = torch.stack([2 * xy[..., 0] / (w - 1) - 1,
+                            2 * xy[..., 1] / (h - 1) - 1], -1)
+        gl = g.reshape(Q, LEVELS, n, n)[:, i, None].contiguous()
+        args.append((lv.float()[:, None].contiguous(), grid, gl))
+    return args
+
+
+def time_lookup(dev, report) -> None:
+    """Phase 5, B5: forward and backward at the serving and chairs shapes,
+    beside the plain versions, the bounds and the library: per level
+    F.grid_sample (forward) and its backward (aten.grid_sampler_2d_backward),
+    on fp32 copies of the levels made outside the timing.  The forward row
+    of the kernels line takes the serving shape, the backward row the
+    chairs shape (the backward runs only in training)."""
+    F = torch.nn.functional
+    n2 = (2 * RADIUS + 1) ** 2
+    for label, batch, h8, w8, dtype in LOOKUP_SHAPES[:2]:
+        levels, coords = lookup_inputs(dev, batch, h8, w8, dtype)
+        Q = coords.numel() // 2
+        shapes = [tuple(lv.shape) for lv in levels]
+        g = torch.randn(batch, h8, w8, LEVELS * n2, device=dev)
+        isz = levels[0].element_size()
+        taps = Q * LEVELS * n2
+        out_b, g_b = 4 * taps, 4 * taps
+        fwd_bytes = window_elems(levels, coords) * isz + 8 * Q + out_b
+        bwd_bytes = g_b + 8 * Q + isz * sum(lv.numel() for lv in levels)
+        lib = _grid_sample_args(levels, coords, g)
+        want = lk.corr_lookup_plain(levels, coords, RADIUS)
+        got_lib = torch.cat([F.grid_sample(x, gr, align_corners=True)
+                             .reshape(batch, h8, w8, n2)
+                             for x, gr, _ in lib], -1)
+        lib_err = float((got_lib - want).abs().max())
+        print(f"B5 {label}: grid_sample against the plain version "
+              f"{lib_err:.3e}")
+        assert lib_err < 1e-3 * float(want.abs().max()), "grid_sample"
+        del want, got_lib
+        cases = {
+            "corr_lookup": (
+                lambda: lk.corr_lookup(levels, coords, RADIUS),
+                lambda: lk.corr_lookup_plain(levels, coords, RADIUS),
+                lambda: [F.grid_sample(x, gr, align_corners=True)
+                         for x, gr, _ in lib],
+                bound_ms(12.0 * taps, fwd_bytes, FP32_TFLOPS)),
+            "corr_lookup_bwd": (
+                lambda: lk.corr_lookup_bwd(coords, g, shapes, dtype, RADIUS),
+                lambda: lk.corr_lookup_bwd_plain(coords, g, shapes, dtype,
+                                                 RADIUS),
+                lambda: [torch.ops.aten.grid_sampler_2d_backward(
+                    gl, x, gr, 0, 0, True, [True, False])
+                    for x, gr, gl in lib],
+                bound_ms(16.0 * taps, bwd_bytes, FP32_TFLOPS)),
+        }
+        for name, (kern, plain, libf, (bms, by)) in cases.items():
+            ms, pms, lms = time_ms(kern, 20), time_ms(plain, 5), \
+                time_ms(libf, 10)
+            print(f"{name} ({label}, {dtype}): {ms:.4f} ms, plain {pms:.4f} "
+                  f"ms, bound {bms:.4f} ms ({by}), library {lms:.4f} ms")
+            if (name == "corr_lookup") == (label == "serving"):
+                report[name].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                    bound_ms=bms, bound_by=by)
+        del lib, levels, g
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -839,6 +1261,10 @@ def main() -> int:
               for name, (src, tpu) in fn_of.items()}
     pallas = "craft_tpu/ops/pallas/"
     for name, src, tpu in (
+            ("corr_lookup", "corr_lookup",
+             pallas + "corr_lookup.py:corr_lookup_pallas:134"),
+            ("corr_lookup_bwd", "corr_lookup",
+             pallas + "corr_lookup.py:corr_lookup_tpu:216"),
             ("fused_agg_corr", "agg_corr",
              TPU_KERNEL.format("fused_agg_corr_mt:394")),
             ("agg_corr_bwd", "agg_corr",
@@ -853,6 +1279,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_train_kernels(dev, gen, report)
     torch.cuda.empty_cache()
+    check_lookup(dev, report)
+    torch.cuda.empty_cache()
     check_oracle(dev)
     check_oracle_train(dev)
     res = main_path(dev)
@@ -860,11 +1288,16 @@ def main() -> int:
         report[name]["launches"] = n
     torch.cuda.empty_cache()
     tres = train_path(dev)
-    for name in ("fused_agg_corr", "agg_corr_bwd", "probs_bwd"):
+    for name in ("fused_agg_corr", "agg_corr_bwd", "probs_bwd",
+                 "corr_lookup_bwd"):
         report[name]["launches"] = tres["launches"][name]
     torch.cuda.empty_cache()
+    eval_phase(dev)
+    torch.cuda.empty_cache()
     time_kernels(dev, gen, report)
+    time_kitti_kernels(dev, gen)
     time_train_kernels(dev, gen, report)
+    time_lookup(dev, report)
 
     print(card_line())
     print(json.dumps({"kernels": list(report.values())}))

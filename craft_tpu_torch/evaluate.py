@@ -1,0 +1,125 @@
+"""Evaluation and single-pair CLI (port of ``craft_tpu.evaluate``;
+reference evaluate.py:1418-1653).
+
+Loads a reference ``.pth`` checkpoint straight into the port's model (its
+modules use the reference key names), then validates on a dataset or runs
+one image pair:
+
+  python -m craft_tpu_torch.evaluate --model checkpoints/craft-sintel.pth \\
+      --craft --setrans --dataset sintel [--batch_size 2] [--test_mode 2]
+  python -m craft_tpu_torch.evaluate --model ... --dataset kitti
+  python -m craft_tpu_torch.evaluate --model ... --img1 a.png --img2 b.png
+
+Mixed precision is on unless --fullprec, which also turns TF32 off for
+matrix products and convolutions.  It runs on the card unless --device
+names another device (--device cpu).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from craft_tpu_torch import resolve_device
+from craft_tpu_torch.cli import (ROADMAP_EVAL, ROADMAP_SP, add_model_args,
+                                 model_config_from_args, not_ported)
+from craft_tpu_torch.eval.demo import gen_flow
+from craft_tpu_torch.eval.evaluate import VALIDATORS
+from craft_tpu_torch.models.flow_model import FlowModel
+from craft_tpu_torch.utils.weights import load_reference_checkpoint
+
+_DATASETS = ["chairs", "things", "sintel", "kitti", "kittitrain", "hd1k",
+             "viper", "slowflow"]
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--model", required=True, help="reference .pth checkpoint")
+    p.add_argument("--model_name", default="craft")
+    add_model_args(p)
+    p.add_argument("--dataset", default=None, choices=[None, *_DATASETS])
+    p.add_argument("--submission", default=None,
+                   choices=[None, "sintel", "kitti", "viper"])
+    p.add_argument("--warm_start", action="store_true")
+    p.add_argument("--output_path", default="output",
+                   help="where the single-pair flow is written")
+    p.add_argument("--vis", dest="do_vis", action="store_true")
+    p.add_argument("--img1", default=None)
+    p.add_argument("--img2", default=None)
+    p.add_argument("--flow", dest="flow_path", default=None,
+                   help="ground truth of the single pair (.flo)")
+    p.add_argument("--scale", type=float, default=1.0)
+    p.add_argument("--flop", dest="calc_flop", action="store_true")
+    p.add_argument("--xshifts", type=str, default=None)
+    p.add_argument("--yshifts", type=str, default=None)
+    p.add_argument("--max_val_count", type=int, default=-1)
+    p.add_argument("--test_mode", type=int, default=1, choices=[1, 2],
+                   help="2 = per-iteration EPE curves on dense sets")
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="batch consecutive same-shape pairs (sintel)")
+    p.add_argument("--data_root", type=str, default="datasets")
+    p.add_argument("--convert", default=None, metavar="OUT_DIR")
+    p.add_argument("--fullprec", dest="fullprec", action="store_true")
+    p.add_argument("--seq_parallel", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the card)")
+    args = p.parse_args(argv)
+    if not args.fullprec:
+        args.mixed_precision = True
+    return args
+
+
+def _check_ported(args) -> None:
+    checks = [("--submission", args.submission, ROADMAP_EVAL),
+              ("--xshifts / --yshifts (the shift sweep)",
+               args.xshifts or args.yshifts, ROADMAP_EVAL),
+              ("--vis (flow_viz)", args.do_vis, ROADMAP_EVAL),
+              ("--flop (eval/flops.py)", args.calc_flop, ROADMAP_EVAL),
+              ("--convert", args.convert, ROADMAP_EVAL),
+              ("--scale", args.scale != 1.0, ROADMAP_EVAL),
+              (f"--dataset {args.dataset}",
+               args.dataset not in (None, "chairs", "sintel", "kitti"),
+               ROADMAP_EVAL),
+              ("--seq_parallel", args.seq_parallel, ROADMAP_SP)]
+    for what, on, item in checks:
+        if on:
+            raise not_ported(what, item)
+
+
+def main(argv=None):
+    """Returns the validator's metrics, or the single pair's flow."""
+    args = parse_args(argv)
+    _check_ported(args)
+    cfg = model_config_from_args(args)
+    device = resolve_device(args.device)
+    if args.fullprec:
+        # Exact fp32 products, the counterpart of the JAX CLI's "highest"
+        # matmul precision (TF32 keeps about three decimal digits).
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    model = FlowModel(cfg)
+    load_reference_checkpoint(args.model, model, strict=False)
+    weights = model.state_dict()
+
+    if args.img1 and args.img2:
+        return gen_flow(cfg, weights, args.img1, args.img2, args.flow_path,
+                        output_path=args.output_path, iters=args.iters,
+                        model_name=args.model_name, device=device)
+    if args.dataset:
+        extra = {}
+        if args.dataset == "sintel":
+            extra = {"batch_size": args.batch_size,
+                     "test_mode": args.test_mode}
+        elif args.test_mode != 1:
+            print(f"--test_mode {args.test_mode} only applies to sintel; "
+                  "ignoring")
+        return VALIDATORS[args.dataset](
+            cfg, weights, iters=args.iters, data_root=args.data_root,
+            max_val_count=args.max_val_count, device=device, **extra)
+    print("Nothing to do: pass --dataset or --img1/--img2")
+    return None
+
+
+if __name__ == "__main__":
+    main()

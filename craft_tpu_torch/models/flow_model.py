@@ -3,8 +3,8 @@ for arch='craft' with f1trans='none'; reference core/network.py:26-267).
 
 Forward: fnet/cnet encoders -> f2 transformer on frame 2 -> SETrans intra
 attention probs (B4) -> the inter-frame volume as the pyramid base -> 12
-refinement iterations of windowed lookup + GMAUpdateBlock + convex
-upsampling.  In eval mode the volume is clamped, aggregated and normed in
+refinement iterations of windowed lookup (B5, forward and, in training,
+backward) + GMAUpdateBlock + convex upsampling.  In eval mode the volume is clamped, aggregated and normed in
 one kernel call (B3).  In train mode (``model.train()``) it is the raw
 differentiable volume of B6, normed by ``build_pyramid``; cnet's BatchNorm
 takes batch statistics unless ``freeze_bn``; dropout draws from the

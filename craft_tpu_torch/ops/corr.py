@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from craft_tpu_torch.ops.kernels import corr_lookup as lk
+
 
 class CorrPyramid(NamedTuple):
     levels: tuple  # [B*H1*W1, h_l, w_l] per level
@@ -70,39 +72,10 @@ def pyramid_from_level0(level0: torch.Tensor, batch: int, h1: int, w1: int,
 
 
 def corr_lookup(pyr: CorrPyramid, coords: torch.Tensor) -> torch.Tensor:
-    """Windowed multi-scale lookup by gather.
+    """The windowed multi-scale lookup (B5), [B, H1, W1, L*(2r+1)^2] fp32,
+    differentiable in the levels.
 
-    All (2r+1)^2 taps of a query share one fractional offset, so each level
-    gathers the (2r+2)^2 integer grid around the window once and blends it
-    with one bilinear lerp; taps outside the level read zero (grid_sample
-    zero padding).  coords: [B, H1, W1, 2] (x, y) fp32.
-    Returns [B, H1, W1, L*(2r+1)^2] fp32."""
-    r = pyr.radius
-    B, H1, W1, _ = coords.shape
-    n = 2 * r + 1
-    Q = B * H1 * W1
-    flat = coords.reshape(Q, 2).float()
-    t = torch.arange(n + 1, device=coords.device)
-    out = []
-    for i, level in enumerate(pyr.levels):
-        h, w = level.shape[1], level.shape[2]
-        if h == 0 or w == 0:  # a level pooled away reads zero everywhere
-            out.append(flat.new_zeros(B, H1, W1, n * n))
-            continue
-        base = flat / (2.0 ** i)
-        x0, y0 = torch.floor(base[:, 0]), torch.floor(base[:, 1])
-        fx = (base[:, 0] - x0)[:, None, None]
-        fy = (base[:, 1] - y0)[:, None, None]
-        cols = x0.long()[:, None] - r + t[None]  # [Q, n+1]
-        rows = y0.long()[:, None] - r + t[None]
-        valid = (((rows >= 0) & (rows < h))[:, :, None]
-                 & ((cols >= 0) & (cols < w))[:, None, :])
-        idx = rows.clamp(0, h - 1)[:, :, None] * w \
-            + cols.clamp(0, w - 1)[:, None, :]  # [Q, y, x]
-        g = torch.gather(level.reshape(Q, h * w), 1, idx.reshape(Q, -1))
-        g = g.reshape(Q, n + 1, n + 1).float() * valid
-        # g[q, y, x]: blend rows (y) then columns (x).
-        gy = (1 - fy) * g[:, :n] + fy * g[:, 1:]          # [Q, j, x]
-        win = (1 - fx) * gy[:, :, :n] + fx * gy[:, :, 1:]  # [Q, j, i]
-        out.append(win.transpose(1, 2).reshape(B, H1, W1, n * n))
-    return torch.cat(out, dim=-1)
+    coords: [B, H1, W1, 2] (x, y) fp32; they get no gradient.  CPU tensors
+    take the plain gather forward and backward; CUDA tensors take the hand
+    kernels, forward and backward, or raise."""
+    return lk.corr_lookup_diff(pyr.levels, coords, pyr.radius)

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("scores_max", "flash_attn", "corr_norm", "softmax_probs",
-           "agg_corr", "probs_bwd")
+           "agg_corr", "probs_bwd", "corr_lookup")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

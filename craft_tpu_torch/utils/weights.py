@@ -11,6 +11,9 @@ flax), with its own copy of the flax-path -> reference-key mapping:
                                        num_batches_tracked)
 and the tied Q/K projection duplicated under ``setrans.key.*`` (the
 reference registers the shared module twice, setrans.py:470-478).
+
+Since the port's modules use the reference key names, a reference ``.pth``
+checkpoint loads straight into them (``load_reference_checkpoint``).
 """
 
 from __future__ import annotations
@@ -114,6 +117,36 @@ def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
             sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
                 torch.zeros((), dtype=torch.long)
     return sd
+
+
+def strip_prefixes(state: Mapping) -> Dict:
+    """Unwrap {'model': ...} and strip DataParallel 'module.' prefixes (as
+    ``craft_tpu.utils.torch_convert.strip_prefixes``)."""
+    if "model" in state and isinstance(state["model"], Mapping):
+        state = state["model"]
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in state.items()}
+
+
+def load_reference_checkpoint(path, model: torch.nn.Module,
+                              strict: bool = False):
+    """Load a reference checkpoint (a bare state_dict, or {'model': ...},
+    keys with or without 'module.') into `model`, as the reference's
+    ``load_state_dict(strict=False)`` (evaluate.py:72-98).  Non-tensor
+    entries are dropped.  Returns the (missing, unexpected) key lists and
+    prints a warning when either is non-empty."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    state = {k: v for k, v in strip_prefixes(raw).items()
+             if isinstance(v, torch.Tensor)}
+    result = model.load_state_dict(state, strict=strict)
+    missing, unexpected = list(result.missing_keys), \
+        list(result.unexpected_keys)
+    if missing or unexpected:
+        print(f"WARNING: {path}: {len(missing)} parameters missing from the "
+              f"checkpoint (left as initialised), {len(unexpected)} "
+              f"checkpoint entries unused (strict=False, the reference's "
+              f"load_state_dict(strict=False))")
+    return missing, unexpected
 
 
 def unflatten(flat: Mapping[str, np.ndarray]) -> dict:

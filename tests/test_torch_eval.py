@@ -1,0 +1,195 @@
+"""The port's evaluator on the CPU against the JAX package's: Sintel (batch
+1, and batch 2 with test_mode 2), KITTI and FlyingChairs validation on
+synthetic trees at 64x128 (KITTI at 60x124, so that its bottom padding
+runs), full-width CRAFT in fp32 with one set of JAX-initialised variables
+bridged by ``state_dict_from_flax``.  Every metric agrees within 1e-3 px,
+or 1e-3 of a share (KITTI's F1 is a percentage).  Then the port's CLI over
+a saved reference-format .pth, its checkpoint loader, and the flags it does
+not run yet.
+
+Each JAX validator builds its own Evaluator, whose jitted forward compiles
+anew; the module fixture hands them one Evaluator per (iters, test_mode),
+so the four validators compile twice (the JAX package is not changed).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import craft_tpu.config as jconfig
+from craft_tpu.eval import evaluate as jev
+from craft_tpu.models.flow_model import FlowModel as JaxFlowModel
+from craft_tpu.utils.torch_convert import strip_prefixes as jax_strip
+import craft_tpu_torch.config as tconfig
+from craft_tpu_torch import cli
+from craft_tpu_torch import evaluate as tcli
+from craft_tpu_torch.data import frame_utils as tfu
+from craft_tpu_torch.eval import evaluate as tev
+from craft_tpu_torch.models.flow_model import FlowModel
+from craft_tpu_torch.utils.weights import (load_reference_checkpoint,
+                                           state_dict_from_flax,
+                                           strip_prefixes)
+
+import test_torch_data as td
+
+H, W, ITERS = 64, 128, 4
+CPU = "cpu"
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    """(JAX variables, the port's state_dict, a data root holding Sintel
+    (one scene, 2 pairs), KITTI and FlyingChairs trees)."""
+    cfg = jconfig.craft_config(mixed_precision=False)
+    model = JaxFlowModel(cfg=cfg, train=False)
+    zeros = jnp.zeros((1, H, W, 3))
+    variables = jax.jit(lambda key: model.init(key, zeros, zeros, iters=1))(
+        jax.random.PRNGKey(0))
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    root = str(tmp_path_factory.mktemp("data"))
+    rng = np.random.RandomState(0)
+    td.write_sintel(os.path.join(root, "Sintel"), rng, scenes=("alley_1",),
+                    H=H, W=W)
+    td.write_kitti(os.path.join(root, "KITTI"), rng, H=H - 4, W=W - 4)
+    td.write_chairs(os.path.join(root, "FlyingChairs_release"), rng, H=H,
+                    W=W)
+    evaluators, make = {}, jev.Evaluator
+
+    def shared(cfg, variables, iters=12, test_mode=1, seq_parallel=None):
+        key = (iters, test_mode)
+        if key not in evaluators:
+            evaluators[key] = make(cfg, variables, iters, test_mode,
+                                   seq_parallel)
+        return evaluators[key]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jev, "Evaluator", shared)
+        yield variables, state_dict_from_flax(variables), root
+
+
+def _agree(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        scale = 100.0 if key.endswith("_f1") else 1.0  # F1 in percent
+        assert abs(got[key] - w) / scale <= 1e-3, (key, got[key], w)
+
+
+@pytest.mark.parametrize("batch_size,test_mode", [(1, 1), (2, 2)])
+def test_validate_sintel_matches_jax(setup, batch_size, test_mode):
+    variables, sd, root = setup
+    kw = dict(iters=ITERS, data_root=root, dstype="clean",
+              batch_size=batch_size, test_mode=test_mode)
+    want = jev.validate_sintel(jconfig.craft_config(mixed_precision=False),
+                               variables, **kw)
+    got = tev.validate_sintel(tconfig.craft_config(mixed_precision=False), sd,
+                              device=CPU, **kw)
+    if test_mode == 2:
+        assert f"sintel_clean_iter{ITERS - 1}_epe" in got
+    _agree(got, want)
+
+
+def test_validate_kitti_matches_jax(setup):
+    variables, sd, root = setup
+    want = jev.validate_kitti(jconfig.craft_config(mixed_precision=False),
+                              variables, iters=ITERS, data_root=root)
+    got = tev.validate_kitti(tconfig.craft_config(mixed_precision=False), sd,
+                             iters=ITERS, data_root=root, device=CPU)
+    _agree(got, want)
+
+
+def test_validate_chairs_matches_jax(setup):
+    variables, sd, root = setup
+    want = jev.validate_chairs(jconfig.craft_config(mixed_precision=False),
+                               variables, iters=ITERS, data_root=root)
+    got = tev.validate_chairs(tconfig.craft_config(mixed_precision=False), sd,
+                              iters=ITERS, data_root=root, device=CPU)
+    _agree(got, want)
+
+
+def _save_pth(sd, path):
+    """The reference's checkpoint layout: DataParallel keys in {'model'}."""
+    torch.save({"model": {f"module.{k}": v for k, v in sd.items()},
+                "step": 100}, path)
+
+
+def test_cli_over_a_saved_pth(setup, tmp_path):
+    _, sd, root = setup
+    pth = str(tmp_path / "craft.pth")
+    _save_pth(sd, pth)
+    args = ["--model", pth, "--craft", "--setrans", "--iters", str(ITERS),
+            "--device", CPU, "--max_val_count", "1"]
+    got = tcli.main(args + ["--fullprec", "--dataset", "sintel",
+                            "--data_root", root])
+    want = tev.validate_sintel(tconfig.craft_config(mixed_precision=False), sd,
+                               iters=ITERS, data_root=root, max_val_count=1,
+                               device=CPU)
+    assert got == want and "sintel_final_epe" in got
+    mixed = tcli.main(args + ["--dataset", "kitti", "--data_root", root])
+    assert np.isfinite(list(mixed.values())).all()
+    # The single pair writes its flow as .flo.
+    scene = os.path.join(root, "Sintel", "training", "clean", "alley_1")
+    out = str(tmp_path / "out")
+    flow = tcli.main(args + ["--fullprec", "--img1",
+                             os.path.join(scene, "frame_0001.png"), "--img2",
+                             os.path.join(scene, "frame_0002.png"),
+                             "--output_path", out])
+    assert flow.shape == (H, W, 2)
+    np.testing.assert_array_equal(
+        tfu.read_flo(os.path.join(out, "frame_0001-craft-4.flo")), flow)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_cli_config_is_craft_config(mixed):
+    args = tcli.parse_args(["--model", "x.pth", "--craft", "--setrans"]
+                           + ([] if mixed else ["--fullprec"]))
+    assert cli.model_config_from_args(args) == tconfig.craft_config(
+        mixed_precision=mixed)
+
+
+def test_loader_unwraps_like_the_jax_converter(setup, tmp_path):
+    _, sd, _ = setup
+    state = {"model": {f"module.{k}": v for k, v in sd.items()}}
+    assert sorted(strip_prefixes(state)) == sorted(jax_strip(state))
+    assert sorted(strip_prefixes(sd)) == sorted(jax_strip(sd)) == sorted(sd)
+    # A bare state_dict with one entry missing and one foreign entry.
+    bare = {k: v for k, v in sd.items() if k != "fnet.conv1.weight"}
+    bare["extra.weight"] = torch.zeros(1)
+    bare["epoch"] = 3
+    pth = str(tmp_path / "bare.pth")
+    torch.save(bare, pth)
+    model = FlowModel(tconfig.craft_config(mixed_precision=False))
+    missing, unexpected = load_reference_checkpoint(pth, model)
+    assert missing == ["fnet.conv1.weight"] and unexpected == ["extra.weight"]
+    torch.testing.assert_close(model.state_dict()["cnet.conv1.weight"],
+                               sd["cnet.conv1.weight"], rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="Missing key"):
+        load_reference_checkpoint(pth, model, strict=True)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--raft"], "item 6"), (["--nogma"], "item 6"),
+    (["--f1", "shared"], "item 6"), (["--upsample_mode", "packed"], "item 6"),
+    (["--interpos", "lsinu"], "item 1"), (["--f2radius", "3"], "item 1"),
+    (["--submission", "sintel"], "item 4"), (["--xshifts", "8"], "item 4"),
+    (["--convert", "out"], "item 4"), (["--flop"], "item 4"),
+    (["--vis"], "item 4"), (["--dataset", "things"], "item 4"),
+    (["--seq_parallel"], "item 2")])
+def test_unported_flags_exit_naming_the_roadmap_item(flags, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP.md section 2, {item}"):
+        tcli.main(["--model", "absent.pth", "--craft", "--setrans",
+                   "--device", CPU] + flags)
+
+
+def test_gma_attention_exits():
+    with pytest.raises(SystemExit, match="GMA attention"):
+        tcli.main(["--model", "absent.pth", "--craft", "--device", CPU])
+
+
+def test_missing_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcli.main(["--model", "absent.pth", "--craft", "--setrans",
+                   "--dataset", "sintel"])

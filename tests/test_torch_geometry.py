@@ -52,7 +52,7 @@ def test_avg_pool2x2_drops_odd_edges(rng, hw):
 
 
 @pytest.mark.parametrize("mode", ["sintel", "kitti"])
-@pytest.mark.parametrize("hw", [(436, 1024), (21, 30)])
+@pytest.mark.parametrize("hw", [(436, 1024), (375, 1242), (21, 30)])
 def test_input_padder(rng, mode, hw):
     x = rng.uniform(0, 255, (1, *hw, 3)).astype(np.float32)
     tp = tg.InputPadder(x.shape, mode=mode)
@@ -61,4 +61,6 @@ def test_input_padder(rng, mode, hw):
     (want,) = jp.pad(jnp.asarray(x))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.shape[1] % 8 == 0 and got.shape[2] % 8 == 0
+    if hw == (375, 1242):  # KITTI: 376x1248, the bottom row padded
+        assert got.shape[1:3] == (376, 1248)
     np.testing.assert_array_equal(tp.unpad(got).numpy(), x)

@@ -1,6 +1,6 @@
-"""The CUDA kernels (B1-B4, and the training kernels B6 forward and
-backward and B7 backward) against their plain versions at small ragged
-shapes, bf16 and fp32 inputs, batch 2.  Needs an NVIDIA GPU with nvcc
+"""The CUDA kernels (B1-B4, the training kernels B6 forward and backward
+and B7 backward, and the lookup B5 forward and backward) against their
+plain versions at small ragged shapes, bf16 and fp32 inputs, batch 2.  Needs an NVIDIA GPU with nvcc
 (sm_90a); skipped elsewhere.  On the card:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -14,6 +14,7 @@ import math
 import pytest
 import torch
 
+from craft_tpu_torch.ops.kernels import corr_lookup as lk
 from craft_tpu_torch.ops.kernels import corr_vjp as cv
 from craft_tpu_torch.ops.kernels import launch
 from craft_tpu_torch.ops.kernels import mode_attention as ma
@@ -137,7 +138,9 @@ def test_launch_counts_count_kernel_launches_only(dev):
                                       "mode_softmax_probs": 1,
                                       "fused_agg_corr": 1,
                                       "agg_corr_bwd": 0,
-                                      "probs_bwd": 0}
+                                      "probs_bwd": 0,
+                                      "corr_lookup": 0,
+                                      "corr_lookup_bwd": 0}
 
 
 def test_unsupported_variants_raise(dev):
@@ -227,3 +230,61 @@ def test_autograd_functions_on_the_card_match_the_cpu(dev):
             a.grad for a in args), aw.grad)]
     for got, want in zip(out["cuda"], out["cpu"]):
         assert _rel(got, want) <= 1e-3
+
+
+# ------------------------------------------------- the lookup (B5)
+
+# (batch, H8, W8): a ragged grid whose last level pools to one row, one
+# whose last level pools to zero rows, and the serving width.
+LOOKUP_GRIDS = [(2, 5, 12), (1, 7, 9), (1, 9, 128)]
+
+
+def _lookup_inputs(dev, batch, h8, w8, dtype):
+    import chip_smoke
+    return chip_smoke.lookup_inputs(dev, batch, h8, w8, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid", LOOKUP_GRIDS)
+@pytest.mark.parametrize("radius", [4, 2])
+def test_b5_lookup_forward_and_backward(dev, dtype, grid, radius):
+    levels, coords = _lookup_inputs(dev, *grid, dtype)
+    got = lk.corr_lookup(levels, coords, radius)
+    want = lk.corr_lookup_plain(levels, coords, radius)
+    top = max(float(lv.float().abs().max()) for lv in levels if lv.numel())
+    # The same four values blended with the same fp32 operations.
+    assert float((got - want).abs().max()) <= 4 * 2.0 ** -23 * top
+    g = torch.randn(got.shape, device=dev)
+    shapes = [tuple(lv.shape) for lv in levels]
+    dl = lk.corr_lookup_bwd(coords, g, shapes, dtype, radius)
+    wdl = lk.corr_lookup_bwd_plain(coords, g, shapes, torch.float32, radius)
+    # Each element within one rounding to the level type of the fp32 value.
+    tol = 2.0 ** -8 if dtype == torch.bfloat16 else 4 * 2.0 ** -23
+    for d, w in zip(dl, wdl):
+        assert d.dtype == dtype and d.shape == w.shape
+        assert bool(((d.float() - w).abs() <= tol * w.abs()).all())
+
+
+def test_b5_function_on_the_card_matches_the_cpu(dev):
+    levels, coords = _lookup_inputs(dev, 2, 5, 12, torch.float32)
+    g = torch.randn(2, 5, 12, 4 * 81, device=dev)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        lv = [t.detach().to(d).requires_grad_() for t in levels]
+        res = lk.corr_lookup_diff(lv, coords.to(d), 4)
+        (res * g.to(d)).sum().backward()
+        out[d.type] = [t.detach().cpu() for t in (res, *(x.grad for x in lv))]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_b5_rejects_what_the_kernel_does_not_take(dev):
+    levels, coords = _lookup_inputs(dev, 1, 5, 12, torch.float32)
+    with pytest.raises(ValueError, match="coords"):
+        lk.corr_lookup(levels, coords.double(), 4)
+    with pytest.raises(ValueError, match="one type"):
+        lk.corr_lookup([levels[0], levels[1].bfloat16()], coords, 4)
+    with pytest.raises(ValueError, match="radius"):
+        lk.corr_lookup(levels, coords, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        lk.corr_lookup([lv.cpu() for lv in levels], coords, 4)

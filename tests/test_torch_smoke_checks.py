@@ -1,9 +1,10 @@
 """The kernel-against-plain checks of chip_smoke.py (its phase 2), run on
 the CPU at a small ragged grid.  On CPU tensors each wrapper takes its plain
 version, so the checks pass as they are; with a fault planted in a wrapper
-(the sliding bias dropped, the clamp ignored, or for the training kernels
-the backward's clamp mask, its agg_w term or its softmax row term dropped)
-they must fail.  On the card the same checks also plant the faults in the
+(the sliding bias dropped, the clamp ignored, for the training kernels the
+backward's clamp mask, its agg_w term or its softmax row term dropped, and
+for the lookup its channel order swapped, clamped padding, a wrong level
+scale or the y blend dropped) they must fail.  On the card the same checks also plant the faults in the
 plain versions and fail unless their bounds catch them.
 """
 
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
+from craft_tpu_torch.ops.kernels import corr_lookup as lk
 from craft_tpu_torch.ops.kernels import corr_vjp as cv
 from craft_tpu_torch.ops.kernels import mode_attention as ma
 from craft_tpu_torch.ops.kernels import probs_vjp as pv
@@ -146,3 +148,43 @@ def test_train_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper,
     monkeypatch.setattr(module, wrapper, make(fault))
     with pytest.raises(AssertionError, match="disagrees"):
         _run_train()
+
+
+# ------------------------------------------------- the lookup (B5)
+
+# A bf16 grid whose last level pools to zero rows, and an fp32 one.
+LOOKUP_SHAPES = (("ragged", 2, 5, 12, torch.bfloat16),
+                 ("fp32", 1, 7, 9, torch.float32))
+
+
+def _run_lookup():
+    report = {"corr_lookup": {}, "corr_lookup_bwd": {}}
+    chip_smoke.check_lookup(CPU, report, shapes=LOOKUP_SHAPES)
+    return report
+
+
+def test_lookup_checks_pass_the_plain_versions():
+    report = _run_lookup()
+    assert report["corr_lookup"]["max_abs_err"] == 0.0
+    # bf16 level gradients against fp32 ones: one rounding of values < 8.
+    assert 0.0 < report["corr_lookup_bwd"]["max_abs_err"] < 2.0 ** -5
+
+
+def _lookup_fault(wrapper, fault):
+    if wrapper == "corr_lookup":
+        return lambda levels, coords, r: chip_smoke._b5_fault(
+            levels, coords, r, fault)
+
+    def faulty(coords, g, shapes, dtype, r):
+        return tuple(d.to(dtype) for d in chip_smoke._b5_bwd_fault(
+            coords, g, shapes, r, fault))
+    return faulty
+
+
+@pytest.mark.parametrize("fault", chip_smoke.B5_FAULTS)
+@pytest.mark.parametrize("wrapper", ["corr_lookup", "corr_lookup_bwd"])
+def test_lookup_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper,
+                                                    fault):
+    monkeypatch.setattr(lk, wrapper, _lookup_fault(wrapper, fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run_lookup()

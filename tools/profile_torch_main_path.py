@@ -38,6 +38,8 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("B6 agg_corr_bwd", ("agg_corr_bwd_kernel", "sum_partials_kernel")),
     ("B6 agg_corr", ("agg_corr_kernel",)),
     ("B7 probs_bwd", ("probs_bwd_kernel",)),
+    ("B5 lookup_bwd", ("lookup_bwd_kernel",)),
+    ("B5 lookup", ("lookup_fwd_kernel",)),
     ("convolution", ("conv", "xmma", "cudnn", "implicit", "winograd")),
     ("matmul", ("gemm", "cutlass", "sm90", "ampere")),
     ("gather/index", ("gather", "index", "scatter")),

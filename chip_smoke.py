@@ -16,13 +16,20 @@ these phases and fails on the first that fails:
      B6 backward (dc, da) and B7 backward (dc, dlsum), each with faults
      planted in its plain version.  Then B5, the pyramid lookup, forward
      and backward at the serving, chairs and oracle shapes, with four
-     faults planted in its plain version.
+     faults planted in its plain version.  Then the dense-table kernels
+     B8, B6 dense and B4 dense at the serving shapes: no table and a
+     seeded one, U1 != U2 with ragged keys, the clamp off and on, bf16 and
+     fp32, with a transposed table, a table scaled by pos_w twice, ragged
+     keys left unmasked and a missing clamp planted in the plain versions.
   3. oracle: full-width CRAFT with the weights of
      tests/data/oracle_craft_128.npz at 128x128, 12 iterations, against the
      reference flow: fp32 within 1e-3 px, the mixed-precision config
-     within 0.15 px.  Then one fp32 training step (dropout off, 2
-     iterations) on the card through the kernels against the same step on
-     the CPU through the plain versions: loss, every gradient, batch stats.
+     within 0.15 px.  The same tree with seeded pos_fc weights in place of
+     the sliding windows, under lsinu (all three sites), on the card
+     against the CPU within the same bounds.  Then one fp32 training step
+     (dropout off, 2 iterations) on the card through the kernels against
+     the same step on the CPU through the plain versions: loss, every
+     gradient, batch stats.
   4. main path: craft_config(mixed_precision=True), 436x1024 padded to
      440x1024, 12 iterations, one warm-up pair then 3 seeded frame pairs;
      per-pair ms, frame-pairs/s and peak device memory.  Every kernel's
@@ -32,17 +39,26 @@ these phases and fails on the first that fails:
      8, 12 iterations, dropout at the config's rates, one warm-up step and
      3 timed steps; ms per step, samples/s, peak memory, each step's loss
      and grad norm, and the launches of its own run.
+     Then the dense-table paths: the lsinu config served as the main path
+     (3 pairs after a warm-up: 3 launches each of B8, B6 dense and B4
+     dense, 9 of B1, 36 of B5, none of B2-B4), and one pair of the main
+     config under --f2radius 7 (B8 with its table in place of B2).
      Then the evaluation entry point (craft_tpu_torch.evaluate.main) on
      the card: the oracle as a reference .pth over a one-pair Sintel tree
      whose ground truth is the port's CPU flow (fp32 within 1e-3 px,
      mixed within 0.15 px), then KITTI (2 pairs at 375x1242) and Sintel
      (3 frames at 436x1024, --batch_size 2) at full size: metrics,
-     pairs/s and launches (B1-B5 in each).
+     pairs/s and launches (B1-B5 in each); then --interpos/--intrapos
+     lsinu on the KITTI tree, and --f2radius 7 over a one-pair Sintel tree
+     whose ground truth is the port's CPU flow under that flag.
   5. kernel times over CUDA events at the main-path shapes, beside each
      plain version, the bound and (B2) scaled_dot_product_attention; B2-B4
      at the KITTI shape (U=7332, W8=156); the training kernels and B1/B4
      at the chairs shapes; B5 forward and backward at the serving and
-     chairs shapes beside per-level F.grid_sample and its backward.
+     chairs shapes beside per-level F.grid_sample and its backward; B8,
+     B6 dense and B4 dense at the serving shape (B8 also with the
+     --f2radius table, beside scaled_dot_product_attention with it as its
+     mask).
 
 Prints the card line and a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
@@ -67,7 +83,7 @@ from craft_tpu_torch import evaluate as evaluate_cli
 from craft_tpu_torch.config import craft_config
 from craft_tpu_torch.data import frame_utils, imgio
 from craft_tpu_torch.eval import evaluate as tev
-from craft_tpu_torch.models.flow_model import create_model
+from craft_tpu_torch.models.flow_model import FlowModel, create_model
 from craft_tpu_torch.ops.geometry import InputPadder, coords_grid
 from craft_tpu_torch.ops.kernels import build, launch
 from craft_tpu_torch.ops.kernels import corr_lookup as lk
@@ -604,6 +620,134 @@ def check_lookup(dev, report, shapes=LOOKUP_SHAPES) -> None:
         report[name]["max_abs_err"] = max(e)
 
 
+# Phase 2, the dense-table kernels (B8, B6 dense, B4 dense) at the serving
+# shapes.  The seeded table ~ N(0, BIAS_STD^2), as the window; pos_w 0.5 at
+# every kernel, so that a table scaled by pos_w twice differs.  The
+# rectangular case's U2 = 129 leaves 63 ragged keys in its last 64-key
+# tile: a kernel that read them as scores of 0 would move about a tenth of
+# each softmax row's weight onto zero keys.
+RECT_U2 = 129
+DENSE_POS_W = 0.5
+DENSE_FP32_TOL = 1e-4  # fp32 out, max |diff| / max |plain|: fp32 sums of md
+#                        products in another order and an online softmax
+AGG_WB = (1.3, 0.1)  # the inter site's learned (agg_w, agg_b) in the checks
+
+
+def _pad_keys(x, mult: int = 64):
+    """x [B, M, U2, d] with zero rows up to a multiple of `mult`: the keys a
+    kernel with its ragged keys left unmasked would read as scores of 0."""
+    pad = -x.shape[2] % mult
+    return torch.cat([x, x.new_zeros(*x.shape[:2], pad, x.shape[3])], 2) \
+        if pad else x
+
+
+def _dense_plains():
+    """{wrapper name: (plain(q, k, table, clip, pos_w, v), mode dim,
+    io dtype -> (err_fn, tol), the plain version with its ragged keys left
+    unmasked or None)}."""
+    def b8(q, k, table, clip, pos_w, v):
+        return ma.flash_mode_attention_dense_plain(q, k, v, table, clip, pos_w)
+
+    def b8_ragged(q, k, table, clip, pos_w, v):
+        u2 = k.shape[2]
+        t = None if table is None else torch.nn.functional.pad(
+            table, (0, -u2 % 64))
+        return b8(q, _pad_keys(k), t, clip, pos_w, _pad_keys(v))
+
+    def b6(q, k, table, clip, pos_w, v):
+        return cv.fused_agg_corr_dense_plain(q, k, table, clip, pos_w,
+                                             *AGG_WB)
+
+    def b4(q, k, table, clip, pos_w, v):
+        return ma.mode_softmax_probs_dense_plain(q, k, table, clip, pos_w,
+                                                 out_dtype=torch.float32)
+
+    def b4_ragged(q, k, table, clip, pos_w, v):
+        u2 = k.shape[2]
+        t = None if table is None else torch.nn.functional.pad(
+            table, (0, -u2 % 64))
+        return b4(q, _pad_keys(k), t, clip, pos_w, v)[..., :u2]
+
+    def b8_tol(dtype):
+        return rel_err, (B2_TOL if dtype == torch.bfloat16
+                         else DENSE_FP32_TOL)
+    return {
+        "flash_mode_attention_dense": (b8, 64, b8_tol, b8_ragged),
+        "fused_agg_corr_dense": (b6, 64, lambda _: (rel_err, B6_TOL), None),
+        "mode_softmax_probs_dense": (b4, 32, lambda dtype: (
+            row_rel_err, B4_ROW_TOL[dtype]), b4_ragged),
+    }
+
+
+def _dense_call(name, q, k, table, clip, v):
+    """The kernel wrapper `name` on one case (v: B8's values)."""
+    module = ma if name != "fused_agg_corr_dense" else cv
+    fn = getattr(module, name)
+    if name == "flash_mode_attention_dense":
+        return fn(q, k, v, table, clip, DENSE_POS_W)
+    if name == "fused_agg_corr_dense":
+        return fn(q, k, table, clip, DENSE_POS_W, *AGG_WB)
+    return fn(q, k, table, clip, DENSE_POS_W, out_dtype=q.dtype)
+
+
+def check_dense_kernels(dev, gen, report, grid=(H8, W8),
+                        rect_u2=RECT_U2) -> None:
+    """Phase 2, the dense-table kernels against their plain versions, each
+    with faults planted in the plain version: no table and a seeded one, a
+    U1 != U2 case with ragged keys, the clamp off and on, bf16 and fp32
+    inputs.  On CPU tensors the wrappers take the plain versions themselves
+    (how the tests run this phase with faults planted in the wrappers)."""
+    u = grid[0] * grid[1]
+    tables = {u: (torch.randn(u, u, generator=gen) * BIAS_STD).to(dev),
+              rect_u2: (torch.randn(u, rect_u2, generator=gen)
+                        * BIAS_STD).to(dev)}
+    # (label, U2, io dtype, with a table, clip)
+    cases = [("no table, clip off", u, torch.bfloat16, False, CLIP_OFF),
+             ("no table, clip on", u, torch.bfloat16, False, CLIP_ON),
+             ("table, clip off", u, torch.bfloat16, True, CLIP_OFF),
+             ("table, clip on", u, torch.bfloat16, True, CLIP_ON),
+             (f"U1={u} U2={rect_u2}, table, clip on", rect_u2,
+              torch.bfloat16, True, CLIP_ON),
+             ("fp32, table, clip on", u, torch.float32, True, CLIP_ON)]
+    for name, (plain, md, tol_of, ragged) in _dense_plains().items():
+        errs = []
+        for label, u2, dtype, with_table, clip in cases:
+            q = (torch.randn(1, 4, u, md, generator=gen) * QK_STD).to(dev,
+                                                                      dtype)
+            k = (torch.randn(1, 4, u2, md, generator=gen) * QK_STD).to(
+                dev, dtype)
+            v = torch.randn(1, 4, u2, 256, generator=gen).to(dev, dtype)
+            full = tables[u2]
+            table = full if with_table else None
+            clip_t = torch.tensor(clip, device=dev)
+            got = _dense_call(name, q, k, table, clip_t, v)
+            sync(dev)
+            want = plain(q, k, table, clip_t, DENSE_POS_W, v)
+            if with_table:
+                faults = {"table scaled by pos_w twice": plain(
+                    q, k, table, clip_t, DENSE_POS_W ** 2, v)}
+                if u2 == u:
+                    faults["table transposed"] = plain(
+                        q, k, table.t(), clip_t, DENSE_POS_W, v)
+            else:
+                faults = {"a table where there is none": plain(
+                    q, k, full, clip_t, DENSE_POS_W, v)}
+            if clip != CLIP_OFF:
+                faults["no clamp"] = plain(q, k, table,
+                                           torch.tensor(CLIP_OFF, device=dev),
+                                           DENSE_POS_W, v)
+            if ragged is not None and u2 != u:
+                faults["ragged keys unmasked"] = ragged(q, k, table, clip_t,
+                                                       DENSE_POS_W, v)
+            err_fn, tol = tol_of(dtype)
+            hold(f"{name} {label}", got, want, err_fn, tol, faults)
+            errs.append(float((got.float() - want.float()).abs().max()))
+            del got, want, faults
+        report[name]["max_abs_err"] = max(errs)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
 def check_oracle(dev) -> dict:
     """Phase 3: the 128x128 oracle on the card."""
     img1, img2, want, tree = load_oracle_npz(ORACLE)
@@ -625,12 +769,80 @@ def check_oracle(dev) -> dict:
     return errs
 
 
-def main_path_model(dev):
-    """craft_config(mixed_precision=True) with the oracle's full-width
-    weights, in eval mode on `dev`."""
+def lsinu_config(mixed_precision: bool = True):
+    """craft_config with learned sinusoid codes at all three sites
+    (--interpos lsinu --intrapos lsinu)."""
+    cfg = craft_config(mixed_precision=mixed_precision)
+    return cfg.replace(**{site: dataclasses.replace(
+        getattr(cfg, site), pos_code_type="lsinu")
+        for site in ("inter", "f2", "intra")})
+
+
+def f2radius_config(radius: int, mixed_precision: bool = True):
+    """craft_config with the masked f2 attention (--f2radius radius)."""
+    cfg = craft_config(mixed_precision=mixed_precision)
+    return cfg.replace(f2=dataclasses.replace(cfg.f2,
+                                              attn_mask_radius=radius))
+
+
+POS_FC_STD = 2.0  # seeded pos_fc weights: O(1) phases across the grid
+
+
+def lsinu_state_dict(sd: dict, seed: int = 7) -> dict:
+    """The oracle's state_dict with each site's sliding window replaced by
+    seeded pos_fc weights ~ N(0, POS_FC_STD^2) (pos_fc takes the (y, x)
+    coordinates in [0, 1]), for the lsinu config."""
+    gen = torch.Generator().manual_seed(seed)
+    want = FlowModel(lsinu_config(False)).state_dict()
+    out = {k: v for k, v in sd.items() if k in want}
+    for key in sorted(set(want) - set(out)):
+        out[key] = torch.randn(want[key].shape, generator=gen) * POS_FC_STD
+    return out
+
+
+def check_oracle_lsinu(dev) -> dict:
+    """Phase 3, lsinu: the oracle tree with seeded pos_fc weights in place of
+    the windows, at 128x128 and 12 iterations, on the card against the same
+    model on the CPU (plain versions): fp32 within 1e-3 px, mixed within
+    0.15 px."""
+    img1, img2, _, tree = load_oracle_npz(ORACLE)
+    sd = lsinu_state_dict(state_dict_from_flax(tree))
+    errs = {}
+    for label, mp, bound in (("fp32", False, FULLPREC_BOUND_PX),
+                             ("mixed", True, BF16_BOUND_PX)):
+        flows = []
+        for d in (dev, torch.device("cpu")):
+            model = create_model(lsinu_config(mp), device=d)
+            model.load_state_dict(sd, strict=True)
+            with torch.inference_mode():
+                _, f = model(torch.from_numpy(img1).to(d),
+                             torch.from_numpy(img2).to(d), iters=ITERS)
+            flows.append(f[-1].float().cpu().numpy())
+        got, want = flows
+        err = float(np.abs(got - want).max())
+        print(f"oracle lsinu {label}: card against the CPU, max |flow diff| "
+              f"{err:.3e} px (max |flow| {float(np.abs(want).max()):.3f}, "
+              f"bound {bound})")
+        assert np.isfinite(got).all() and err < bound, f"oracle lsinu {label}"
+        errs[label] = err
+    return errs
+
+
+def serving_model(dev, variant: str = "main"):
+    """The serving model in eval mode on `dev`, with the oracle's full-width
+    weights: craft_config(mixed_precision=True) ('main'), under lsinu with
+    seeded pos_fc weights in place of the windows ('lsinu'), or under
+    --f2radius F2RADIUS ('f2radius')."""
     _, _, _, tree = load_oracle_npz(ORACLE)
-    model = create_model(craft_config(mixed_precision=True), device=dev)
-    model.load_state_dict(state_dict_from_flax(tree), strict=True)
+    sd = state_dict_from_flax(tree)
+    if variant == "lsinu":
+        cfg, sd = lsinu_config(True), lsinu_state_dict(sd)
+    elif variant == "f2radius":
+        cfg = f2radius_config(F2RADIUS)
+    else:
+        cfg = craft_config(mixed_precision=True)
+    model = create_model(cfg, device=dev)
+    model.load_state_dict(sd, strict=True)
     return model
 
 
@@ -668,7 +880,7 @@ SERVE_KERNELS = ("scores_global_max", "flash_mode_attention",
 def main_path(dev, n_pairs: int = 3) -> dict:
     """Phase 4: full-size serving of seeded frame pairs, after one warm-up
     pair."""
-    model = main_path_model(dev)
+    model = serving_model(dev)
     padder, pairs = frame_pairs(dev, n_pairs + 1)
     serve(model, pairs[:1])  # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -688,6 +900,67 @@ def main_path(dev, n_pairs: int = 3) -> dict:
     assert counts["corr_lookup"] == ITERS * n_pairs, "B5: 12 per pair"
     for name in set(counts) - set(SERVE_KERNELS):
         assert counts[name] == 0, f"{name} was launched on the main path"
+    return res
+
+
+# The kernels a pair served under lsinu launches, and how many per pair
+# (B1 once per site, B5 once per iteration).
+LSINU_KERNELS = {"scores_global_max": 3, "flash_mode_attention_dense": 1,
+                 "fused_agg_corr_dense": 1, "mode_softmax_probs_dense": 1,
+                 "corr_lookup": ITERS}
+F2RADIUS = 7
+# A pair of the main config under --f2radius: B8 with its table in place of
+# B2, the rest as the main path.
+F2RADIUS_KERNELS = {"scores_global_max": 3, "flash_mode_attention_dense": 1,
+                    "fused_agg_corr_norm": 1, "mode_softmax_probs": 1,
+                    "corr_lookup": ITERS}
+
+
+def _assert_launches(label, counts, per_pair, n_pairs) -> None:
+    """Each kernel of `per_pair` launched that many times a pair, every
+    other kernel never."""
+    for name, n in counts.items():
+        want = per_pair.get(name, 0) * n_pairs
+        assert n == want, f"{label}: {name} launched {n} times, not {want}"
+
+
+def dense_paths(dev, n_pairs: int = 3) -> dict:
+    """Phase 4, the dense-table paths: the lsinu config (all three sites)
+    served like the main path (one warm-up pair, then n_pairs seeded pairs
+    with the launch counts zeroed just before), then one pair of the main
+    config under --f2radius F2RADIUS (its own counts)."""
+    model = serving_model(dev, "lsinu")
+    padder, pairs = frame_pairs(dev, n_pairs + 1, seed=1)
+    serve(model, pairs[:1])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launch_counts()
+    times, flows = serve(model, pairs[1:])
+    counts = launch.launch_counts()
+    for flow in flows:
+        out = padder.unpad(flow)
+        assert out.shape == (1, FRAME_H, FRAME_W, 2)
+        assert bool(torch.isfinite(out).all())
+    res = {"lsinu": {"pair_ms": times,
+                     "pairs_per_s": n_pairs / (sum(times) / 1e3),
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "launches": counts}}
+    print("lsinu path:", json.dumps(res["lsinu"]))
+    _assert_launches("lsinu path", counts, LSINU_KERNELS, n_pairs)
+    del model, flows
+    torch.cuda.empty_cache()
+
+    model = serving_model(dev, "f2radius")
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launch_counts()
+    times, flows = serve(model, pairs[1:2])
+    counts = launch.launch_counts()
+    assert bool(torch.isfinite(flows[0]).all())
+    res["f2radius"] = {"pair_ms": times,
+                       "max_memory_allocated":
+                       torch.cuda.max_memory_allocated(),
+                       "launches": counts}
+    print(f"f2radius {F2RADIUS} pair:", json.dumps(res["f2radius"]))
+    _assert_launches("f2radius pair", counts, F2RADIUS_KERNELS, 1)
     return res
 
 
@@ -946,6 +1219,7 @@ def eval_phase(dev, kitti_hw=(KITTI_H, KITTI_W),
             for name in SERVE_KERNELS:
                 assert n[name] > 0, f"eval {label}: {name} not launched"
             assert n["corr_lookup"] == ITERS * n_forwards, "B5: 12 a forward"
+    out.update(eval_dense(dev, sd, frames, argv, big))
     shutil.rmtree(EVAL_DIR, ignore_errors=True)
 
     # The CLI runs above are mostly set-up (model build, checkpoint load,
@@ -969,6 +1243,49 @@ def eval_phase(dev, kitti_hw=(KITTI_H, KITTI_W),
         print(f"eval {label} steady ({batch}x{pad8(h)}x{pad8(w)}):",
               json.dumps(steady))
         out[f"{label} steady"] = steady
+    return out
+
+
+def eval_dense(dev, sd, frames, argv, big) -> dict:
+    """The evaluation entry point under the dense-table flags.  (1) The
+    lsinu state_dict saved as a reference .pth, and the CLI with --interpos
+    lsinu --intrapos lsinu on the KITTI tree (2 pairs at 375x1242): finite
+    metrics, B8, B6 dense and B4 dense in place of B2-B4.  (2) The oracle
+    .pth with --f2radius F2RADIUS over a one-pair Sintel tree of the oracle
+    frames whose ground truth is the port's fp32 CPU flow under the same
+    flag: within 1e-3 px with --fullprec and 0.15 px mixed, B8 in place of
+    B2."""
+    pth = EVAL_DIR / "craft-lsinu.pth"
+    torch.save({f"module.{k}": v for k, v in lsinu_state_dict(sd).items()},
+               pth)
+    lsinu_argv = ["--model", str(pth)] + argv[2:-1] + [
+        "--interpos", "lsinu", "--intrapos", "lsinu", "--dataset"]
+    out = {}
+    r = _timed_cli("kitti lsinu", lsinu_argv + ["kitti", "--data_root",
+                                                str(big)], 2)
+    _assert_launches("eval kitti lsinu", r["launches"], LSINU_KERNELS, 2)
+    out["kitti lsinu"] = r
+
+    cpu = create_model(f2radius_config(F2RADIUS, False), device="cpu")
+    cpu.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        _, flows = cpu(*(torch.from_numpy(f[None].astype(np.float32))
+                         for f in frames), iters=ITERS)
+    root = EVAL_DIR / "oracle_f2radius"
+    _write_sintel(root, frames, [flows[-1][0].numpy()])
+    for label, extra, bound in (("fp32", ["--fullprec"], FULLPREC_BOUND_PX),
+                                ("mixed", [], BF16_BOUND_PX)):
+        r = _timed_cli(f"f2radius {F2RADIUS} sintel {label}", argv + [
+            "sintel", "--data_root", str(root), "--f2radius",
+            str(F2RADIUS)] + extra, 2)
+        epe = r["metrics"]["sintel_clean_epe"]
+        print(f"eval f2radius {label}: sintel_clean_epe {epe:.3e} px against "
+              f"the port's CPU flow (bound {bound})")
+        assert epe < bound, f"eval f2radius {label}"
+        # Clean and final: two forwards.
+        _assert_launches(f"eval f2radius {label}", r["launches"],
+                         F2RADIUS_KERNELS, 2)
+        out[f"f2radius_{label}_epe"] = epe
     return out
 
 
@@ -1135,6 +1452,68 @@ def time_kernels(dev, gen, report) -> None:
     print(f"scores_global_max at the intra shape (md 32): {md32:.3f} ms")
 
 
+def time_dense_kernels(dev, gen, report) -> None:
+    """Phase 5, the dense-table kernels at the serving shapes (B=1, U=7040),
+    beside the plain versions and the bounds, as the lsinu path runs them
+    (no table; B4 dense with bf16 output), and B8 with the --f2radius
+    F2RADIUS table (pos_w * the dense window + the mask) beside
+    scaled_dot_product_attention with that table as its float attn_mask
+    (clip off).  The B8 row of the kernels line takes the table case."""
+    from craft_tpu_torch.nn.setrans import attention_mask
+    biases = (torch.randn(15, 15, generator=gen) * 0.5).to(dev)
+    clip = torch.tensor(CLIP_OFF, device=dev)
+    q64, k64 = inputs(gen, 64, dev)
+    q32, k32 = inputs(gen, 32, dev)
+    v = torch.randn(1, 4, U, 256, generator=gen).to(dev, torch.bfloat16)
+    table = (0.5 * ma.sliding_pos_biases(biases, H8, W8)
+             + attention_mask(H8, W8, F2RADIUS, dev))
+    mask = table.to(torch.bfloat16)
+    n = 4 * U * U
+    qk_flops = lambda md: 2.0 * n * md  # noqa: E731
+    qk_bytes = lambda md: 2 * 4 * U * md * 2  # noqa: E731
+    v_bytes = 2 * 2 * 4 * U * 256  # v read, out written, bf16
+    agg = (torch.tensor(AGG_WB[0], device=dev),
+           torch.tensor(AGG_WB[1], device=dev))
+    cases = {
+        "flash_mode_attention_dense": (
+            lambda: ma.flash_mode_attention_dense(q64, k64, v, table, clip,
+                                                  1.0),
+            lambda: ma.flash_mode_attention_dense_plain(q64, k64, v, table,
+                                                        clip, 1.0),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q64, k64, v, attn_mask=mask),
+            bound_ms(qk_flops(64) + 2.0 * n * 256,
+                     qk_bytes(64) + v_bytes + 4 * U * U)),
+        "flash_mode_attention_dense no table": (
+            lambda: ma.flash_mode_attention_dense(q64, k64, v, None, clip,
+                                                  0.5),
+            lambda: ma.flash_mode_attention_dense_plain(q64, k64, v, None,
+                                                        clip, 0.5),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q64, k64, v),
+            bound_ms(qk_flops(64) + 2.0 * n * 256, qk_bytes(64) + v_bytes)),
+        "fused_agg_corr_dense": (
+            lambda: cv.fused_agg_corr_dense(q64, k64, None, clip, 0.5, *agg),
+            lambda: cv.fused_agg_corr_dense_plain(q64, k64, None, clip, 0.5,
+                                                  *agg),
+            None, bound_ms(qk_flops(64), qk_bytes(64) + 4 * U * U)),
+        "mode_softmax_probs_dense": (
+            lambda: ma.mode_softmax_probs_dense(q32, k32, None, clip, 1.0),
+            lambda: ma.mode_softmax_probs_dense_plain(q32, k32, None, clip,
+                                                      1.0),
+            None, bound_ms(qk_flops(32), qk_bytes(32) + 2 * n)),
+    }
+    for name, (kern, plain, lib, (bms, by)) in cases.items():
+        ms, pms = time_ms(kern, 5), time_ms(plain, 2)
+        lms = time_ms(lib, 5) if lib is not None else None
+        print(f"{name}: {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms "
+              f"({by}), library {lms}")
+        if name in report:
+            report[name].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                bound_ms=bms, bound_by=by)
+        torch.cuda.empty_cache()
+
+
 def window_elems(levels, coords, r=RADIUS) -> int:
     """Level values that this run's windows must read: per query and level,
     the (2r+2)^2 corners that lie inside the level."""
@@ -1270,7 +1649,13 @@ def main() -> int:
             ("agg_corr_bwd", "agg_corr",
              pallas + "corr_vjp.py:_pallas_agg_corr_bwd:75"),
             ("probs_bwd", "probs_bwd",
-             pallas + "probs_vjp.py:_pallas_probs_bwd:80")):
+             pallas + "probs_vjp.py:_pallas_probs_bwd:80"),
+            ("flash_mode_attention_dense", "flash_attn",
+             TPU_KERNEL.format("flash_mode_attention:201")),
+            ("fused_agg_corr_dense", "agg_corr",
+             TPU_KERNEL.format("fused_agg_corr:1137")),
+            ("mode_softmax_probs_dense", "softmax_probs",
+             TPU_KERNEL.format("mode_softmax_probs:1047"))):
         report[name] = dict(report["scores_global_max"], name=name,
                             source=SOURCE.format(src), replaces=tpu)
 
@@ -1281,11 +1666,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_lookup(dev, report)
     torch.cuda.empty_cache()
+    check_dense_kernels(dev, gen, report)
+    torch.cuda.empty_cache()
     check_oracle(dev)
+    check_oracle_lsinu(dev)
     check_oracle_train(dev)
     res = main_path(dev)
     for name, n in res["launches"].items():
         report[name]["launches"] = n
+    torch.cuda.empty_cache()
+    dres = dense_paths(dev)
+    for name in ("flash_mode_attention_dense", "fused_agg_corr_dense",
+                 "mode_softmax_probs_dense"):
+        report[name]["launches"] = dres["lsinu"]["launches"][name]
     torch.cuda.empty_cache()
     tres = train_path(dev)
     for name in ("fused_agg_corr", "agg_corr_bwd", "probs_bwd",
@@ -1298,6 +1691,7 @@ def main() -> int:
     time_kitti_kernels(dev, gen)
     time_train_kernels(dev, gen, report)
     time_lookup(dev, report)
+    time_dense_kernels(dev, gen, report)
 
     print(card_line())
     print(json.dumps({"kernels": list(report.values())}))

@@ -13,7 +13,6 @@ from craft_tpu_torch.config import (ModelConfig, f2_trans_config,
                                     inter_corr_config, intra_attn_config)
 
 # ROADMAP.md queue items (section 2) that hold what the port lacks.
-ROADMAP_B8 = "ROADMAP.md section 2, item 1 (B8 and the dense-table B6/B7)"
 ROADMAP_SP = "ROADMAP.md section 2, item 2 (B9 with DDP and sequence " \
     "parallelism)"
 ROADMAP_EVAL = "ROADMAP.md section 2, item 4 (the rest of the evaluator)"
@@ -89,12 +88,7 @@ def _check_ported(args) -> None:
          ROADMAP_ARCHS),
         ("mode counts other than 4 (--intermodes, --intramodes, --f2modes)",
          (args.inter_num_modes, args.intra_num_modes,
-          args.f2_num_modes) != (4, 4, 4), ROADMAP_ARCHS),
-        ("--interpos lsinu / --intrapos lsinu",
-         "lsinu" in (args.inter_pos_code_type, args.intra_pos_code_type),
-         ROADMAP_B8),
-        ("--f2radius (a masked f2 attention)", args.f2_attn_mask_radius > 0,
-         ROADMAP_B8)]
+          args.f2_num_modes) != (4, 4, 4), ROADMAP_ARCHS)]
     for what, on, item in checks:
         if on:
             raise not_ported(what, item)
@@ -106,12 +100,18 @@ def model_config_from_args(args) -> ModelConfig:
     _check_ported(args)
     inter = inter_corr_config(
         num_modes=args.inter_num_modes, qk_have_bias=args.inter_qk_have_bias,
+        pos_code_type=args.inter_pos_code_type,
         pos_code_weight=args.inter_pos_code_weight,
         pos_bias_radius=args.pos_bias_radius)
+    # The f2 site takes the intra site's positional code, as the reference
+    # (craft_tpu/cli.py:82-88).
     f2 = f2_trans_config(num_modes=args.f2_num_modes,
+                         pos_code_type=args.intra_pos_code_type,
                          pos_code_weight=args.f2_pos_code_weight,
-                         pos_bias_radius=args.pos_bias_radius)
+                         pos_bias_radius=args.pos_bias_radius,
+                         attn_mask_radius=args.f2_attn_mask_radius)
     intra = intra_attn_config(num_modes=args.intra_num_modes,
+                              pos_code_type=args.intra_pos_code_type,
                               pos_code_weight=args.intra_pos_code_weight,
                               pos_bias_radius=args.pos_bias_radius)
     if args.mixed_precision:

@@ -27,7 +27,8 @@ class SETransSiteConfig:
     qk_have_bias: bool = False
     v_has_bias: bool = False
     attn_clip: float = 100.0
-    pos_code_type: str = "bias"  # only the sliding bias is ported
+    # 'bias' (the sliding window) or 'lsinu' (learned sinusoid codes).
+    pos_code_type: str = "bias"
     pos_code_weight: float = 1.0
     pos_bias_radius: int = 7
     # Output selector: at most one of these may be True.
@@ -36,6 +37,8 @@ class SETransSiteConfig:
     has_FFN: bool = True
     has_input_skip: bool = False
     pool_modes_feat: str = "softmax"    # only softmax pooling is ported
+    # Local attention mask radius in 1/8-res cells (<= 0 disables); f2 only.
+    attn_mask_radius: int = -1
     # int8 fixed-point probs (p*127 with a per-row scale) for the
     # probs-only site; serving only (training takes float probs).
     quantize_probs: bool = False
@@ -54,32 +57,37 @@ class SETransSiteConfig:
 
 
 def inter_corr_config(num_modes: int = 4, qk_have_bias: bool = True,
+                      pos_code_type: str = "bias",
                       pos_code_weight: float = 0.5,
                       pos_bias_radius: int = 7) -> SETransSiteConfig:
     """Inter-frame attentional-correlation site (reference network.py:44-61)."""
     return SETransSiteConfig(
         in_feat_dim=256, feat_dim=256, num_modes=num_modes,
         tie_qk_scheme="shared", qk_have_bias=qk_have_bias,
-        pos_code_weight=pos_code_weight, pos_bias_radius=pos_bias_radius,
+        pos_code_type=pos_code_type, pos_code_weight=pos_code_weight,
+        pos_bias_radius=pos_bias_radius,
         out_attn_scores_only=True, has_FFN=False, has_input_skip=False)
 
 
-def f2_trans_config(num_modes: int = 4, pos_code_weight: float = 0.5,
-                    pos_bias_radius: int = 7) -> SETransSiteConfig:
+def f2_trans_config(num_modes: int = 4, pos_code_type: str = "bias",
+                    pos_code_weight: float = 0.5, pos_bias_radius: int = 7,
+                    attn_mask_radius: int = -1) -> SETransSiteConfig:
     """F2 semantic-smoothing self-attention site (reference network.py:67-92)."""
     return SETransSiteConfig(
         in_feat_dim=256, feat_dim=256, num_modes=num_modes,
-        tie_qk_scheme=None, qk_have_bias=False,
+        tie_qk_scheme=None, qk_have_bias=False, pos_code_type=pos_code_type,
         pos_code_weight=pos_code_weight, pos_bias_radius=pos_bias_radius,
-        has_FFN=False, has_input_skip=True)
+        has_FFN=False, has_input_skip=True,
+        attn_mask_radius=attn_mask_radius)
 
 
-def intra_attn_config(num_modes: int = 4, pos_code_weight: float = 1.0,
+def intra_attn_config(num_modes: int = 4, pos_code_type: str = "bias",
+                      pos_code_weight: float = 1.0,
                       pos_bias_radius: int = 7) -> SETransSiteConfig:
     """Intra-frame (--setrans) attention site (reference network.py:108-128)."""
     return SETransSiteConfig(
         in_feat_dim=128, feat_dim=128, num_modes=num_modes,
-        tie_qk_scheme=None, qk_have_bias=False,
+        tie_qk_scheme=None, qk_have_bias=False, pos_code_type=pos_code_type,
         pos_code_weight=pos_code_weight, pos_bias_radius=pos_bias_radius,
         out_attn_probs_only=True, has_FFN=False, has_input_skip=True)
 

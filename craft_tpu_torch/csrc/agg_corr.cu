@@ -9,53 +9,56 @@
 // agg_b cancels in the mode softmax, so its gradient is 0 and the backward
 // leaves it out.
 //
-// Replaces craft_tpu/ops/pallas/mode_attention.py:fused_agg_corr_mt and
-// fused_agg_corr (forward; one kernel takes the (2R+1)^2 window at any W8,
-// so the dense-table variant the TPU needed at W8 % 128 != 0 has no
-// counterpart) and craft_tpu/ops/pallas/corr_vjp.py:_pallas_agg_corr_bwd
-// (backward).
+// Replaces craft_tpu/ops/pallas/mode_attention.py:fused_agg_corr_mt
+// (forward, the window at any W8), fused_agg_corr (forward, B6 dense: a
+// dense [U1, U2] fp32 table or none, the inter site under --interpos lsinu;
+// the same kernel body over another bias source, common.cuh) and
+// craft_tpu/ops/pallas/corr_vjp.py:_pallas_agg_corr_bwd (backward, window).
 //
 // Bound on the H100: bytes.  At the chairs crops (B=8, M=4, U=46*62=2852,
 // md=64) one q.k^T sweep is 33 GFLOP (34 us at the bf16 peak) while the
 // forward writes a 260 MB fp32 volume (78 us) and the backward reads g and
 // vol (520 MB) and writes a 1.04 GB dc (0.47 ms).  Each block recomputes
 // the four mode scores of its tiles in registers (agg_modes.cuh) and
-// touches each volume-sized element once.  The backward's da is a fp64
+// touches each volume-sized element once.  At serving under lsinu (B=1,
+// U=7040) the forward writes a 198 MB volume (59 us) against 25 GFLOP
+// (26 us at the bf16 peak).  The backward's da is a fp64
 // per-block partial, summed by one block in a fixed order: no float
 // atomics, deterministic.
 #include "agg_modes.cuh"
 
-template <typename T>
+template <typename T, class Bias>
 __global__ void __launch_bounds__(NTHREADS)
     agg_corr_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const float* __restrict__ biases,
-                    const float* __restrict__ scal, float* __restrict__ out,
-                    int U, int md, int W8, int R, float scale) {
+                    BiasArgs ba, const float* __restrict__ scal,
+                    float* __restrict__ out, int U1, int U2, int md,
+                    float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + NMODES * MAXMD * SPAD;
-  float* win = ks + MAXMD * SPAD;
+  float* bsm = ks + MAXMD * SPAD;
   const int qt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t off = (size_t)b * NMODES * U * md;
-  int qh[4], qw[4];
-  load_q_modes(q + off, biases, qs, win, qt, U, md, W8, R, qh, qw);
+  Bias bias;
+  load_q_modes(q + (size_t)b * NMODES * U1 * md, qs, bsm, bias, ba, qt, U1,
+               md);
+  const T* kb = k + (size_t)b * NMODES * U2 * md;
   const float clip = scal[0], pos_w = scal[1], agg_w = scal[2],
               agg_b = scal[3];
-  const int nk = (U + TILE - 1) / TILE;
+  const int nk = (U2 + TILE - 1) / TILE;
   for (int kt = g * KGROUP; kt < min(nk, (g + 1) * KGROUP); ++kt) {
     float vol[4][4];
-    agg_tile(vol, k + off, qs, ks, win, kt, U, md, W8, R, scale, clip, pos_w,
-             agg_w, agg_b, qh, qw);
+    agg_tile(vol, kb, qs, ks, bias, kt, U2, md, scale, clip, pos_w, agg_w,
+             agg_b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = qt * TILE + ty + 16 * i;
-      if (row >= U) continue;
-      float* orow = out + ((size_t)b * U + row) * U;
+      if (row >= U1) continue;
+      float* orow = out + ((size_t)b * U1 + row) * U2;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = kt * TILE + tx + 16 * j;
-        if (col < U) orow[col] = vol[i][j];
+        if (col < U2) orow[col] = vol[i][j];
       }
     }
   }
@@ -79,26 +82,26 @@ __global__ void __launch_bounds__(NTHREADS)
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t off = (size_t)b * NMODES * U * md;
   const size_t plane = (size_t)U * U;
-  int qh[4], qw[4];
-  load_q_modes(q + off, biases, qs, win, qt, U, md, W8, R, qh, qw);
+  WindowBias wb;
+  load_q_modes(q + off, qs, win, wb, BiasArgs{biases, W8, R, U, U}, qt, U,
+               md);
   const float clip = scal[0], pos_w = scal[1], agg_w = scal[2];
   const int nk = (U + TILE - 1) / TILE;
   double da = 0.0;
   for (int kt = grp * KGROUP; kt < min(nk, (grp + 1) * KGROUP); ++kt) {
     float s[NMODES][4][4];
-    mode_score_tiles(s, k + off, qs, ks, kt, U, md);
+    mode_score_tiles(s, k + off, qs, ks, wb, kt, U, md);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = kt * TILE + tx + 16 * j;
       if (col >= U) continue;
-      const int kh = col / W8, kw = col - (col / W8) * W8;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = qt * TILE + ty + 16 * i;
         if (row >= U) continue;
         const size_t e = (size_t)b * plane + (size_t)row * U + col;
         const float gv = g[e], vv = vol[e];
-        const float bias = pos_w * window_bias(win, qh[i], qw[i], kh, kw, R);
+        const float bias = pos_w * wb.at(i, j);
         float c[NMODES], x[NMODES], p[NMODES];
 #pragma unroll
         for (int m = 0; m < NMODES; ++m) {
@@ -133,20 +136,21 @@ __global__ void __launch_bounds__(NTHREADS)
     partial[((size_t)b * gridDim.y + grp) * gridDim.x + qt] = da;
 }
 
-static dim3 agg_grid(int B, int U) {
-  const int nq = (U + TILE - 1) / TILE;
-  return dim3(nq, (nq + KGROUP - 1) / KGROUP, B);
+static dim3 agg_grid(int B, int U1, int U2) {
+  const int nq = (U1 + TILE - 1) / TILE, nk = (U2 + TILE - 1) / TILE;
+  return dim3(nq, (nk + KGROUP - 1) / KGROUP, B);
 }
 
-template <typename T>
-static int launch_fwd(const void* q, const void* k, const void* biases,
-                      const void* scal, void* out, int B, int U, int md,
-                      int W8, int R, float scale, cudaStream_t s) {
-  cudaError_t err = allow_smem(agg_corr_kernel<T>, AGG_SMEM);
+template <typename T, class Bias>
+static int launch_fwd(const void* q, const void* k, const BiasArgs& ba,
+                      const void* scal, void* out, int B, int U1, int U2,
+                      int md, float scale, cudaStream_t s) {
+  cudaError_t err = allow_smem(agg_corr_kernel<T, Bias>, agg_smem<Bias>());
   if (err != cudaSuccess) return (int)err;
-  agg_corr_kernel<T><<<agg_grid(B, U), NTHREADS, AGG_SMEM, s>>>(
-      (const T*)q, (const T*)k, (const float*)biases, (const float*)scal,
-      (float*)out, U, md, W8, R, scale);
+  agg_corr_kernel<T, Bias>
+      <<<agg_grid(B, U1, U2), NTHREADS, agg_smem<Bias>(), s>>>(
+          (const T*)q, (const T*)k, ba, (const float*)scal, (float*)out, U1,
+          U2, md, scale);
   return (int)cudaGetLastError();
 }
 
@@ -155,10 +159,11 @@ static int launch_bwd(const void* q, const void* k, const void* g,
                       const void* vol, const void* biases, const void* scal,
                       void* dc, void* partial, void* da, int B, int U,
                       int md, int W8, int R, float scale, cudaStream_t s) {
-  cudaError_t err = allow_smem(agg_corr_bwd_kernel<T>, AGG_SMEM);
+  const size_t smem = agg_smem<WindowBias>();
+  cudaError_t err = allow_smem(agg_corr_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid = agg_grid(B, U);
-  agg_corr_bwd_kernel<T><<<grid, NTHREADS, AGG_SMEM, s>>>(
+  const dim3 grid = agg_grid(B, U, U);
+  agg_corr_bwd_kernel<T><<<grid, NTHREADS, smem, s>>>(
       (const T*)q, (const T*)k, (const float*)g, (const float*)vol,
       (const float*)biases, (const float*)scal, (float*)dc, (double*)partial,
       U, md, W8, R, scale);
@@ -177,11 +182,32 @@ extern "C" int agg_corr_launch(const void* q, const void* k,
                                void* out, int B, int U, int md, int W8, int R,
                                float scale, int in_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const BiasArgs ba{(const float*)biases, W8, R, U, U};
   if (in_bf16)
-    return launch_fwd<__nv_bfloat16>(q, k, biases, scal, out, B, U, md, W8,
-                                     R, scale, s);
-  return launch_fwd<float>(q, k, biases, scal, out, B, U, md, W8, R, scale,
-                           s);
+    return launch_fwd<__nv_bfloat16, WindowBias>(q, k, ba, scal, out, B, U,
+                                                 U, md, scale, s);
+  return launch_fwd<float, WindowBias>(q, k, ba, scal, out, B, U, U, md,
+                                       scale, s);
+}
+
+// B6 dense.  q: [B, 4, U1, md]; k: [B, 4, U2, md] contiguous (bf16 when
+// in_bf16, else fp32), md <= 64; table: [U1, U2] fp32, or null for no bias;
+// scal: [4] fp32 (clip, pos_w, agg_w, agg_b); out: [B, U1, U2] fp32.
+extern "C" int agg_corr_dense_launch(const void* q, const void* k,
+                                     const void* table, const void* scal,
+                                     void* out, int B, int U1, int U2, int md,
+                                     float scale, int in_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const BiasArgs ba{(const float*)table, 0, 0, U1, U2};
+  if (table == nullptr)
+    return in_bf16 ? launch_fwd<__nv_bfloat16, NoBias>(q, k, ba, scal, out, B,
+                                                       U1, U2, md, scale, s)
+                   : launch_fwd<float, NoBias>(q, k, ba, scal, out, B, U1, U2,
+                                               md, scale, s);
+  return in_bf16 ? launch_fwd<__nv_bfloat16, TableBias>(q, k, ba, scal, out, B,
+                                                        U1, U2, md, scale, s)
+                 : launch_fwd<float, TableBias>(q, k, ba, scal, out, B, U1,
+                                                U2, md, scale, s);
 }
 
 // q, k, biases, scal as above (agg_b unread); g, vol: [B, U, U] fp32;

@@ -1,5 +1,5 @@
 // The inter-site mode aggregation, shared by the volume kernels B3
-// (corr_norm.cu) and B6 (agg_corr.cu):
+// (corr_norm.cu) and B6 and B6 dense (agg_corr.cu):
 //   s_m = clamp(scale * q_m k_m^T, +-clip) + pos_w * bias
 //   vol = sum_m softmax_m(agg_w * s_m + agg_b) * s_m
 // A block holds all four modes' q tiles (one 64-row slice) in shared memory
@@ -11,47 +11,52 @@
 
 #define NMODES 4
 #define KGROUP 8  // k tiles per block
-// Dynamic shared memory of a block: the q tiles of all modes, one k tile,
-// and the bias window.
-#define AGG_SMEM (((NMODES + 1) * MAXMD * SPAD + MAXWIN) * sizeof(float))
 
-// s[m] = q_m k_m^T (unscaled) over k tile kt, for every mode.  qs holds the
-// q tiles at qs + m * MAXMD * SPAD; ks is the k staging buffer.
-template <typename T>
+// Dynamic shared memory of a block: the q tiles of all modes, one k tile,
+// and what the bias source takes.
+template <class Bias>
+constexpr size_t agg_smem() {
+  return ((NMODES + 1) * MAXMD * SPAD + Bias::SMEM) * sizeof(float);
+}
+
+// s[m] = q_m k_m^T (unscaled) over k tile kt, for every mode; the bias
+// source loads its tile kt with mode 0's k tile and sets up its columns
+// after the products.  qs holds the q tiles at
+// qs + m * MAXMD * SPAD; ks is the k staging buffer; kb is [4, U2, md].
+template <typename T, class Bias>
 __device__ __forceinline__ void mode_score_tiles(float s[NMODES][4][4],
                                                  const T* __restrict__ kb,
                                                  const float* qs, float* ks,
-                                                 int kt, int U, int md) {
+                                                 Bias& bias, int kt, int U2,
+                                                 int md) {
 #pragma unroll
   for (int m = 0; m < NMODES; ++m) {
     __syncthreads();
-    load_tile_t(ks, kb + (size_t)m * U * md, kt * TILE, U, md);
+    load_tile_t(ks, kb + (size_t)m * U2 * md, kt * TILE, U2, md);
+    if (m == 0) bias.load(kt);
     __syncthreads();
     score_tile(s[m], qs + m * MAXMD * SPAD, ks, md);
   }
+  bias.cols(kt);
 }
 
 // vol of one (q tile, k tile kt), as a 4x4 micro-tile per thread.
-template <typename T>
+template <typename T, class Bias>
 __device__ __forceinline__ void agg_tile(
     float vol[4][4], const T* __restrict__ kb, const float* qs, float* ks,
-    const float* win, int kt, int U, int md, int W8, int R, float scale,
-    float clip, float pos_w, float agg_w, float agg_b, const int qh[4],
-    const int qw[4]) {
-  const int tx = threadIdx.x & 15;
+    Bias& bias, int kt, int U2, int md, float scale, float clip, float pos_w,
+    float agg_w, float agg_b) {
   float s[NMODES][4][4];
-  mode_score_tiles(s, kb, qs, ks, kt, U, md);
+  mode_score_tiles(s, kb, qs, ks, bias, kt, U2, md);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int u = kt * TILE + tx + 16 * j;
-    const int kh = u / W8, kw = u - (u / W8) * W8;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float bias = pos_w * window_bias(win, qh[i], qw[i], kh, kw, R);
+      const float b = pos_w * bias.at(i, j);
       float x[NMODES], lg[NMODES];
 #pragma unroll
       for (int m = 0; m < NMODES; ++m) {
-        x[m] = fminf(fmaxf(s[m][i][j] * scale, -clip), clip) + bias;
+        x[m] = fminf(fmaxf(s[m][i][j] * scale, -clip), clip) + b;
         lg[m] = agg_w * x[m] + agg_b;
       }
       float mmax = lg[0];
@@ -69,27 +74,19 @@ __device__ __forceinline__ void agg_tile(
   }
 }
 
-// This block's q tiles (all modes), the bias window, and its rows' token
-// coordinates (qh, qw).  The caller's first __syncthreads (in
-// mode_score_tiles) publishes them.
-template <typename T>
+// This block's q tiles (all modes; qb is [4, U1, md]) and the bias
+// source's set-up.  The caller's first __syncthreads (in mode_score_tiles)
+// publishes them.
+template <typename T, class Bias>
 __device__ __forceinline__ void load_q_modes(const T* __restrict__ qb,
-                                             const float* __restrict__ biases,
-                                             float* qs, float* win, int qt,
-                                             int U, int md, int W8, int R,
-                                             int qh[4], int qw[4]) {
-  const int ty = threadIdx.x >> 4;
+                                             float* qs, float* bsm,
+                                             Bias& bias, const BiasArgs& ba,
+                                             int qt, int U1, int md) {
 #pragma unroll
   for (int m = 0; m < NMODES; ++m)
-    load_tile_t(qs + m * MAXMD * SPAD, qb + (size_t)m * U * md, qt * TILE, U,
-                md);
-  load_window(win, biases, R);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = qt * TILE + ty + 16 * i;
-    qh[i] = u / W8;
-    qw[i] = u - qh[i] * W8;
-  }
+    load_tile_t(qs + m * MAXMD * SPAD, qb + (size_t)m * U1 * md, qt * TILE,
+                U1, md);
+  bias.init(bsm, ba, qt);
 }
 
 // One block: out[0] = the sum of partial[0..n) in a fixed order (each

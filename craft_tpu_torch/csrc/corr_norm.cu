@@ -32,10 +32,10 @@ __device__ __forceinline__ float prologue(const T* __restrict__ qb,
                                           const float* __restrict__ biases,
                                           const float* __restrict__ scal,
                                           const float* __restrict__ gmax,
-                                          float* qs, float* win, int qt,
-                                          int U, int md, int W8, int R,
-                                          int qh[4], int qw[4]) {
-  load_q_modes(qb, biases, qs, win, qt, U, md, W8, R, qh, qw);
+                                          float* qs, float* win,
+                                          WindowBias& wb, int qt, int U,
+                                          int md, int W8, int R) {
+  load_q_modes(qb, qs, win, wb, BiasArgs{biases, W8, R, U, U}, qt, U, md);
   const float attn_clip = scal[0];
   return gmax[0] > attn_clip ? attn_clip : 1e30f;
 }
@@ -56,16 +56,16 @@ __global__ void __launch_bounds__(NTHREADS)
   const int qt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t off = (size_t)b * NMODES * U * md;
-  int qh[4], qw[4];
-  const float clip = prologue(q + off, biases, scal, gmax, qs, win, qt, U,
-                              md, W8, R, qh, qw);
+  WindowBias wb;
+  const float clip = prologue(q + off, biases, scal, gmax, qs, win, wb, qt,
+                              U, md, W8, R);
   const float pos_w = scal[1], agg_w = scal[2], agg_b = scal[3];
   const int nk = (U + TILE - 1) / TILE;
   double sum = 0.0, sumsq = 0.0;
   for (int kt = g * KGROUP; kt < min(nk, (g + 1) * KGROUP); ++kt) {
     float vol[4][4];
-    agg_tile(vol, k + off, qs, ks, win, kt, U, md, W8, R, scale, clip, pos_w,
-             agg_w, agg_b, qh, qw);
+    agg_tile(vol, k + off, qs, ks, wb, kt, U, md, scale, clip, pos_w, agg_w,
+             agg_b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (qt * TILE + ty + 16 * i >= U) continue;
@@ -152,16 +152,16 @@ __global__ void __launch_bounds__(NTHREADS)
   const int qt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t off = (size_t)b * NMODES * U * md;
-  int qh[4], qw[4];
-  const float clip = prologue(q + off, biases, scal, gmax, qs, win, qt, U,
-                              md, W8, R, qh, qw);
+  WindowBias wb;
+  const float clip = prologue(q + off, biases, scal, gmax, qs, win, wb, qt,
+                              U, md, W8, R);
   const float pos_w = scal[1], agg_w = scal[2], agg_b = scal[3];
   const float mean = norm[2 * b], rstd = norm[2 * b + 1];
   const int nk = (U + TILE - 1) / TILE;
   for (int kt = g * KGROUP; kt < min(nk, (g + 1) * KGROUP); ++kt) {
     float vol[4][4];
-    agg_tile(vol, k + off, qs, ks, win, kt, U, md, W8, R, scale, clip, pos_w,
-             agg_w, agg_b, qh, qw);
+    agg_tile(vol, k + off, qs, ks, wb, kt, U, md, scale, clip, pos_w, agg_w,
+             agg_b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = qt * TILE + ty + 16 * i;
@@ -181,7 +181,7 @@ static int launch(const void* q, const void* k, const void* biases,
                   const void* scal, const void* gmax, void* partial,
                   void* stats, void* norm, void* out, int B, int U, int md,
                   int W8, int R, float scale, float eps, cudaStream_t s) {
-  const size_t smem = AGG_SMEM;
+  const size_t smem = agg_smem<WindowBias>();
   const int nq = (U + TILE - 1) / TILE;
   const int ng = (nq + KGROUP - 1) / KGROUP;
   dim3 grid(nq, ng, B);

@@ -4,11 +4,13 @@ for arch='craft' with f1trans='none'; reference core/network.py:26-267).
 Forward: fnet/cnet encoders -> f2 transformer on frame 2 -> SETrans intra
 attention probs (B4) -> the inter-frame volume as the pyramid base -> 12
 refinement iterations of windowed lookup (B5, forward and, in training,
-backward) + GMAUpdateBlock + convex upsampling.  In eval mode the volume is clamped, aggregated and normed in
-one kernel call (B3).  In train mode (``model.train()``) it is the raw
-differentiable volume of B6, normed by ``build_pyramid``; cnet's BatchNorm
-takes batch statistics unless ``freeze_bn``; dropout draws from the
-`generator` passed to forward.  The correlation is an fp32 island; pyramid
+backward) + GMAUpdateBlock + convex upsampling.  In eval mode with the
+sliding bias at the inter site the volume is clamped, aggregated and normed
+in one kernel call (B3).  Otherwise (train mode, or an inter site under
+pos_code_type 'lsinu') it is the raw volume (B6, or B6 dense in eval),
+normed by ``build_pyramid``.  In train mode (``model.train()``) cnet's
+BatchNorm takes batch statistics unless ``freeze_bn``; dropout draws from
+the `generator` passed to forward.  The correlation is an fp32 island; pyramid
 levels are stored bf16 under mixed precision; coords stay fp32 and are
 detached every iteration.
 """
@@ -34,14 +36,22 @@ from craft_tpu_torch.ops.geometry import convex_upsample, coords_grid
 
 class TransCorr(nn.Module):
     """Cross-frame attentional correlation volume (reference
-    corr.py:132-207): in eval mode the globally layer-normed [B, U1, U2]
-    volume in `out_dtype`, ready to be the pyramid base; in train mode the
-    raw [B, U1, U2] fp32 volume."""
+    corr.py:132-207): when ``prenormed()``, the globally layer-normed
+    [B, U1, U2] volume in `out_dtype`, ready to be the pyramid base (B3);
+    otherwise the raw [B, U1, U2] fp32 volume."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
+        self.pos_code_type = cfg.inter.pos_code_type
         self.vispos_encoder = InputFeatEncoder(cfg.inter, dtype)
         self.setrans = CrossAttFeatTrans(cfg.inter, dtype)
+
+    def prenormed(self) -> bool:
+        """Whether forward gives the normed volume: eval mode with the
+        sliding bias, the static decision of ``craft_tpu/models/
+        flow_model.py:219-225`` (there fp32 also takes the raw volume; the
+        port keeps B3 for fp32, whose output it normalizes exactly)."""
+        return not self.training and self.pos_code_type == "bias"
 
     def forward(self, fmap1, fmap2, out_dtype=torch.float32, generator=None):
         vispos1, pos_biases = self.vispos_encoder(fmap1, generator)
@@ -116,18 +126,18 @@ class FlowModel(nn.Module):
         with record_function("craft.intra_attention"):
             attention = self.att(inp, generator)
         with record_function("craft.corr_volume"):
-            if self.training:
-                vol = self.corr_fn(fmap1, fmap2, generator=generator)
-                pyramid = build_pyramid(
-                    vol.reshape(B, H8 * W8, 1, H8 * W8), B, H8, W8,
-                    cfg.corr_levels, cfg.corr_radius, do_global_norm=True,
-                    level_dtype=lvl_dtype)
-            else:
-                vol = self.corr_fn(fmap1, fmap2, out_dtype=lvl_dtype)
+            vol = self.corr_fn(fmap1, fmap2, out_dtype=lvl_dtype,
+                               generator=generator)
+            if self.corr_fn.prenormed():
                 pyramid = pyramid_from_level0(vol, B, H8, W8,
                                               cfg.corr_levels,
                                               cfg.corr_radius,
                                               level_dtype=lvl_dtype)
+            else:
+                pyramid = build_pyramid(
+                    vol.reshape(B, H8 * W8, 1, H8 * W8), B, H8, W8,
+                    cfg.corr_levels, cfg.corr_radius, do_global_norm=True,
+                    level_dtype=lvl_dtype)
             del vol
 
         coords0 = coords_grid(B, H8, W8, device=image1.device)

@@ -1,19 +1,29 @@
 """SETrans attention stack, the three sites of the CRAFT model (PyTorch port
 of ``craft_tpu.nn.setrans``; reference core/setrans.py:71-800).
 
-In eval mode (serving):
+In eval mode (serving), with the sliding positional bias
+(pos_code_type='bias'):
   * inter-frame correlation (out_attn_scores_only): the clamped,
     mode-aggregated, globally normed volume from kernel B3;
   * f2 semantic smoothing (feature output, input skip): flash attention B2
     feeding ExpandedFeatTrans;
   * intra-frame attention (out_attn_probs_only): probs from B4, int8 with a
     row scale (QuantizedProbs) when the site quantizes.
+With learned sinusoid codes (pos_code_type='lsinu') the positions are added
+to the tokens and no bias reaches the scores, and an f2 site with
+attn_mask_radius > 0 (--f2radius) adds a dense table: pos_w * the dense
+sliding bias + the -1e9 mask, built once per forward on the device.  Those
+sites take the dense-table kernels: the inter site the raw fp32 volume of
+B6 dense (normed by the caller's build_pyramid), the f2 site B8, the intra
+site float probs in the compute dtype from B4 dense (``quantize_probs`` is
+ignored, as the JAX package's XLA softmax does).
 In train mode every site is differentiable: the inter site gives the raw
 aggregated volume of B6 (its backward a kernel too), the f2 and intra sites
 float probs in the compute dtype from B4 with B7 as their backward
 (``quantize_probs`` is ignored), then attention dropout; the f2 site feeds
 the materialized probs to ExpandedFeatTrans.  Hidden dropout follows the
-token layer norm of every site.  The conditional clamp (only when the
+token layer norm of every site.  Training under lsinu or an f2 mask is not
+ported (ROADMAP.md section 2, item 7).  The conditional clamp (only when the
 batch-global max exceeds attn_clip, reference setrans.py:527-529) takes its
 predicate from B1 on detached q and k, and stays on the device.  Module and
 parameter names are the reference's.
@@ -29,11 +39,18 @@ import torch.nn as nn
 
 from craft_tpu_torch.config import SETransSiteConfig
 from craft_tpu_torch.nn.layers import dropout, layer_norm, linear
-from craft_tpu_torch.ops.kernels.corr_vjp import fused_agg_corr_diff
+from craft_tpu_torch.ops.kernels.corr_vjp import (fused_agg_corr_dense,
+                                                  fused_agg_corr_diff)
 from craft_tpu_torch.ops.kernels.mode_attention import (
-    flash_mode_attention, fused_agg_corr_norm, mode_softmax_probs,
-    scores_global_max)
+    flash_mode_attention, flash_mode_attention_dense, fused_agg_corr_norm,
+    mode_softmax_probs, mode_softmax_probs_dense, scores_global_max,
+    sliding_pos_biases)
 from craft_tpu_torch.ops.kernels.probs_vjp import mode_softmax_probs_diff
+
+NOT_PORTED_TRAIN = (
+    "training with pos_code_type='lsinu' or an f2 attention mask "
+    "(--interpos/--intrapos lsinu, --f2radius) is not ported to "
+    "craft_tpu_torch yet: see ROADMAP.md section 2, item 7.")
 
 
 class SlidingBias(NamedTuple):
@@ -65,25 +82,75 @@ class SlidingPosBiases2D(nn.Module):
         return SlidingBias(self.biases, H, W)
 
 
+def attention_mask(H: int, W: int, radius: int, device=None) -> torch.Tensor:
+    """The f2 site's local attention mask (reference setrans.py:568-619, the
+    JAX package's setrans.py:922-928): fp32 [H*W, H*W], -1e9 where the
+    Chebyshev distance of two tokens exceeds `radius`, else 0."""
+    ys, xs = torch.meshgrid(torch.arange(H, device=device),
+                            torch.arange(W, device=device), indexing="ij")
+    coords = torch.stack([ys, xs], dim=-1).reshape(H * W, 2)
+    diff = (coords[None] - coords[:, None]).abs().amax(dim=-1)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(diff > radius, torch.full_like(zero, -1e9), zero)
+
+
+class LearnedSinuPosEmbedder(nn.Module):
+    """pos_code_type='lsinu' (reference setrans.py:623-642): Linear(2 -> C)
+    in fp32, sin of the even columns and cos of the odd ones, interleaved
+    (out[2i] = sin(p[2i]), out[2i+1] = cos(p[2i+1])), then a layer norm
+    without affine, cast to `dtype`."""
+
+    def __init__(self, pos_embed_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.pos_fc = nn.Linear(2, pos_embed_dim)
+
+    def forward(self, pos_normed: torch.Tensor) -> torch.Tensor:
+        p = linear(self.pos_fc, pos_normed.float(), torch.float32)
+        mixed = torch.stack([torch.sin(p[..., 0::2]),
+                             torch.cos(p[..., 1::2])], dim=-1).reshape(p.shape)
+        return layer_norm(mixed, dtype=self.dtype)
+
+
 class InputFeatEncoder(nn.Module):
     """NHWC -> [B, U, C] layer-normed tokens (hidden dropout in training),
-    plus the sliding bias (reference SETransInputFeatEncoder,
-    setrans.py:710-800)."""
+    plus the positional code (reference SETransInputFeatEncoder,
+    setrans.py:710-800): the sliding bias for pos_code_type='bias', or, for
+    'lsinu', learned sinusoid codes of the token coordinates added to the
+    tokens before the layer norm, and no bias (None)."""
 
     def __init__(self, cfg: SETransSiteConfig, dtype=torch.float32):
         super().__init__()
-        if cfg.pos_code_type != "bias":
-            raise NotImplementedError(f"pos_code_type {cfg.pos_code_type}")
         self.dtype = dtype
+        self.pos_code_type = cfg.pos_code_type
+        self.pos_code_weight = cfg.pos_code_weight
         self.hidden_dropout_prob = cfg.hidden_dropout_prob
-        self.pos_coder = SlidingPosBiases2D(cfg.pos_bias_radius)
+        if cfg.pos_code_type == "bias":
+            self.pos_coder = SlidingPosBiases2D(cfg.pos_bias_radius)
+        elif cfg.pos_code_type == "lsinu":
+            self.pos_coder = LearnedSinuPosEmbedder(cfg.in_feat_dim, dtype)
+        else:
+            raise NotImplementedError(f"pos_code_type {cfg.pos_code_type}")
 
     def forward(self, vis_feat: torch.Tensor, generator=None):
         B, H, W, C = vis_feat.shape
-        tokens = layer_norm(vis_feat.reshape(B, H * W, C), dtype=self.dtype)
+        tokens = vis_feat.reshape(B, H * W, C)
+        pos_biases = None
+        if self.pos_code_type == "bias":
+            pos_biases = self.pos_coder(H, W)
+        else:
+            # (y, x) over the one global max of both axes, as the reference.
+            ys, xs = torch.meshgrid(
+                torch.arange(H, dtype=torch.float32, device=tokens.device),
+                torch.arange(W, dtype=torch.float32, device=tokens.device),
+                indexing="ij")
+            coords = torch.stack([ys, xs], dim=-1).reshape(1, H * W, 2)
+            coords = coords / max(H - 1, W - 1, 1)
+            tokens = tokens + self.pos_code_weight * self.pos_coder(coords)
+        tokens = layer_norm(tokens, dtype=self.dtype)
         if self.training:
             tokens = dropout(tokens, self.hidden_dropout_prob, generator)
-        return tokens, self.pos_coder(H, W)
+        return tokens, pos_biases
 
 
 class LearnedSoftAggregate(nn.Module):
@@ -192,17 +259,26 @@ class CrossAttFeatTrans(nn.Module):
                            torch.full_like(gmax, 1e30))
 
     def forward(self, query_feat, key_feat=None, pos_biases=None,
-                out_dtype=None, generator=None):
+                out_dtype=None, generator=None, attention_mask=None):
         """Scores-only site: the normed [B, U1, U2] volume in `out_dtype`
-        (eval), or the raw fp32 one (train).  Probs-only site: [B, M, U1,
-        U2] probs or QuantizedProbs.  Feature site: [B, U1, F].
+        (eval with the sliding bias), or the raw fp32 one (train, or no
+        sliding bias).  Probs-only site: [B, M, U1, U2] probs or
+        QuantizedProbs.  Feature site: [B, U1, F].  `pos_biases` is a
+        SlidingBias or None (pos_code_type 'lsinu'); `attention_mask` an
+        additive fp32 [U1, U2] table (the f2 site's --f2radius) or None.
         `generator` draws the attention dropout in training."""
         cfg = self.cfg
         if key_feat is None:
             key_feat = query_feat
         q, k = self._qk(query_feat, key_feat)
+        dense = pos_biases is None or attention_mask is not None
         if self.training:
+            if dense:
+                raise NotImplementedError(NOT_PORTED_TRAIN)
             return self._train_forward(q, k, key_feat, pos_biases, generator)
+        if dense:
+            return self._dense_forward(q, k, key_feat, pos_biases,
+                                       attention_mask)
         grid_hw = (pos_biases.H, pos_biases.W)
         if cfg.out_attn_scores_only:
             agg_w, agg_b = self.attn_softaggr.scalar_wb()
@@ -227,6 +303,34 @@ class CrossAttFeatTrans(nn.Module):
 
         return self.out_trans(key_feat, attention_fn=attention_fn)
 
+    def _dense_forward(self, q, k, key_feat, pos_biases, attention_mask):
+        """Eval mode without a sliding bias (lsinu) or with an attention
+        mask: the dense-table kernels.  A mask becomes one table, pos_w *
+        the dense sliding bias (if any) + the mask, applied with pos_w = 1:
+        the JAX package's XLA sum (setrans.py:675-680), computed by the
+        kernel.  The inter site returns the raw fp32 volume, the intra site
+        float probs in the compute dtype."""
+        cfg = self.cfg
+        table, pos_w = None, cfg.pos_code_weight
+        if attention_mask is not None:
+            table, pos_w = attention_mask, 1.0
+            if pos_biases is not None:
+                table = table + cfg.pos_code_weight * sliding_pos_biases(
+                    pos_biases.biases.float(), pos_biases.H, pos_biases.W)
+        clip = self._clip(q, k)
+        if cfg.out_attn_scores_only:
+            agg_w, agg_b = self.attn_softaggr.scalar_wb()
+            return fused_agg_corr_dense(q, k, table, clip, pos_w, agg_w,
+                                        agg_b)
+        if cfg.out_attn_probs_only:
+            return mode_softmax_probs_dense(q, k, table, clip, pos_w,
+                                            out_dtype=self.dtype)
+
+        def attention_fn(v):
+            return flash_mode_attention_dense(q, k, v, table, clip, pos_w)
+
+        return self.out_trans(key_feat, attention_fn=attention_fn)
+
     def _train_forward(self, q, k, key_feat, pos_biases, generator):
         cfg = self.cfg
         grid_hw = (pos_biases.H, pos_biases.W)
@@ -246,7 +350,8 @@ class CrossAttFeatTrans(nn.Module):
 
 class SelfAttVisPosTrans(nn.Module):
     """Self-attention over an NHWC feature map (reference setrans.py:568-619):
-    encode -> CrossAttFeatTrans -> NHWC (unless attention-only output)."""
+    encode -> CrossAttFeatTrans -> NHWC (unless attention-only output), with
+    the local attention mask when attn_mask_radius > 0."""
 
     def __init__(self, cfg: SETransSiteConfig, dtype=torch.float32):
         super().__init__()
@@ -256,9 +361,12 @@ class SelfAttVisPosTrans(nn.Module):
 
     def forward(self, x: torch.Tensor, generator=None):
         B, H, W, C = x.shape
+        mask = None
+        if self.cfg.attn_mask_radius > 0:
+            mask = attention_mask(H, W, self.cfg.attn_mask_radius, x.device)
         tokens, pos_biases = self.vispos_encoder(x, generator)
         out = self.setrans(tokens, pos_biases=pos_biases,
-                           generator=generator)
+                           generator=generator, attention_mask=mask)
         if not self.cfg.out_attn_only:
             out = out.reshape(B, H, W, C)
         return out

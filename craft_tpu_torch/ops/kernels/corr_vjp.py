@@ -1,8 +1,10 @@
 """B6: the raw aggregated inter-frame volume and its backward, each beside
 its plain PyTorch version, joined into the differentiable
 ``fused_agg_corr_diff`` (counterparts of ``craft_tpu/ops/pallas/
-corr_vjp.py`` and of ``fused_agg_corr_mt`` / ``fused_agg_corr`` in
-``craft_tpu/ops/pallas/mode_attention.py``).
+corr_vjp.py`` and of ``fused_agg_corr_mt`` in ``craft_tpu/ops/pallas/
+mode_attention.py``); and B6 dense, the forward with a dense [U1, U2] table
+or none (``fused_agg_corr_dense``, the counterpart of ``fused_agg_corr``
+there: the inter site in eval mode under pos_code_type 'lsinu').
 
 Per sample, with s_m = clamp(c_m, +-clip) + pos_w * bias and c_m = scale *
 q_m k_m^T:
@@ -28,9 +30,13 @@ from craft_tpu_torch.ops.kernels.launch import (F, I, P, call, check_cuda,
                                                 counted, f32, prep, ptr,
                                                 stream)
 from craft_tpu_torch.ops.kernels.mode_attention import (acc_dtype,
-                                                        biased_scores)
+                                                        biased_scores,
+                                                        check_table,
+                                                        table_ptr,
+                                                        table_scores)
 
 _FWD_SIG = [P, P, P, P, P, I, I, I, I, I, F, I, P]
+_DENSE_SIG = [P, P, P, P, P, I, I, I, I, F, I, P]
 _BWD_SIG = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]
 _TILE, _KGROUP, _MODES = 64, 8, 4  # csrc/agg_modes.cuh TILE, KGROUP, NMODES
 
@@ -78,6 +84,39 @@ def fused_agg_corr(q, k, biases, grid_hw, clip, pos_w: float, agg_w, agg_b):
          ptr(scal), ptr(out), B, U, md, grid_hw[1], R, 1.0 / math.sqrt(md),
          bf16, stream(q))
     fused_agg_corr.launches += 1
+    return out
+
+
+def fused_agg_corr_dense_plain(q, k, table, clip, pos_w, agg_w, agg_b):
+    s = table_scores(q, k, table, clip, pos_w)
+    p = torch.softmax(agg_w * s + agg_b, dim=1)
+    return (p * s).sum(dim=1)
+
+
+@counted
+def fused_agg_corr_dense(q, k, table, clip, pos_w: float, agg_w, agg_b):
+    """vol[b] = sum_m softmax_m(agg_w s_m + agg_b) s_m with s_m = clamp(scale
+    q_m k_m^T, +-clip) + pos_w * table, as [B, U1, U2] fp32: the counterpart
+    of ``craft_tpu.ops.pallas.mode_attention.fused_agg_corr`` (B6 dense).
+    q: [B, 4, U1, md]; k: [B, 4, U2, md]; table: fp32 [U1, U2] or None (no
+    bias); clip: 0-d tensor or float."""
+    check_table(table, q, k)
+    if not q.is_cuda:
+        return fused_agg_corr_dense_plain(q, k, table, clip, pos_w, agg_w,
+                                          agg_b)
+    (q, k), bf16 = prep(q, k)
+    B, M, U1, md = q.shape
+    U2 = k.shape[2]
+    if M != _MODES or k.shape[:2] != (B, M):
+        raise ValueError(f"fused_agg_corr_dense: q, k must be [B, {_MODES}, "
+                         f"U, md], got {tuple(q.shape)} and {tuple(k.shape)}")
+    out = torch.empty(B, U1, U2, dtype=torch.float32, device=q.device)
+    table = None if table is None else table.contiguous()
+    scal = _scal(q, clip, pos_w, agg_w, agg_b)
+    call("agg_corr", "agg_corr_dense_launch", _DENSE_SIG, ptr(q), ptr(k),
+         table_ptr(table), ptr(scal), ptr(out), B, U1, U2, md,
+         1.0 / math.sqrt(md), bf16, stream(q))
+    fused_agg_corr_dense.launches += 1
     return out
 
 

@@ -1,4 +1,4 @@
-"""The four SETrans attention kernels of the inference path, each beside its
+"""The SETrans attention kernels of the inference path, each beside its
 plain PyTorch version (counterparts of ``craft_tpu/ops/pallas/
 mode_attention.py``):
 
@@ -8,9 +8,14 @@ mode_attention.py``):
                             volume, inter site
   B4 mode_softmax_probs     softmax probs (float, or int8 + row scale),
                             intra site
+  B8 flash_mode_attention_dense   B2 with a dense [U1, U2] table or none
+  B4 mode_softmax_probs_dense     B4 float with a dense table or none
 
-q and k are [B, M, U, md] with U = H8 * W8 row-major tokens; the sliding
-bias is the (2R+1)^2 window `biases`.  The tensor decides the route: CUDA
+(B6 dense, the inter site's raw volume with a dense table, is in
+``corr_vjp.py`` beside B6.)  q and k are [B, M, U, md] with U = H8 * W8
+row-major tokens; the sliding bias is the (2R+1)^2 window `biases`, and a
+dense table is an fp32 [U1, U2] tensor (q has U1 tokens, k U2) or None
+(pos_code_type 'lsinu').  The tensor decides the route: CUDA
 tensors launch the hand-written kernel (csrc/*.cu) or raise, CPU tensors
 take the plain version.  Each kernel's launches are counted in
 ``<wrapper>.launches`` where the kernel is launched: B1's count includes
@@ -38,11 +43,17 @@ _SIGNATURES = {
                          _I, _F, _F, _I, _I, _P],
     "probs_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
                      _I, _P],
+    "flash_attn_dense_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _F, _I, _P],
+    "probs_dense_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
+                           _I, _P],
 }
 _LIB_OF = {"scores_max_launch": "scores_max",
            "flash_attn_launch": "flash_attn",
            "corr_norm_launch": "corr_norm",
-           "probs_launch": "softmax_probs"}
+           "probs_launch": "softmax_probs",
+           "flash_attn_dense_launch": "flash_attn",
+           "probs_dense_launch": "softmax_probs"}
 FLASH_FEAT = 256  # csrc/flash_attn.cu FEAT: the f2 site's feature width
 # Scratch sizes follow the kernels' tiling (csrc/common.cuh TILE,
 # csrc/corr_norm.cu KGROUP).
@@ -85,13 +96,45 @@ def scores(q, k, scale):
     return torch.einsum("bmid,bmjd->bmij", q.to(dt), k.to(dt)) * scale
 
 
+def clamped_scores(q, k, clip):
+    """(c, clamp(c, +-clip)) with c = scale * q k^T, both [B, M, U1, U2] in
+    acc_dtype(q)."""
+    c = scores(q, k, 1.0 / math.sqrt(q.shape[-1]))
+    clip = torch.as_tensor(clip, dtype=c.dtype, device=c.device)
+    return c, torch.minimum(torch.maximum(c, -clip), clip)
+
+
 def biased_scores(q, k, biases, grid_hw, clip, pos_w):
     """(c, clamp(c, +-clip) + pos_w * bias) with c = scale * q k^T, both
     [B, M, U, U] in acc_dtype(q)."""
-    c = scores(q, k, 1.0 / math.sqrt(q.shape[-1]))
-    clip = torch.as_tensor(clip, dtype=c.dtype, device=c.device)
-    s = torch.minimum(torch.maximum(c, -clip), clip)
+    c, s = clamped_scores(q, k, clip)
     return c, s + pos_w * sliding_pos_biases(biases.to(c.dtype), *grid_hw)
+
+
+def table_scores(q, k, table, clip, pos_w):
+    """clamp(scale * q k^T, +-clip) + pos_w * table, [B, M, U1, U2] in
+    acc_dtype(q); no bias when table is None."""
+    _, s = clamped_scores(q, k, clip)
+    return s if table is None else s + pos_w * table.to(s.dtype)
+
+
+def check_table(table, q, k) -> None:
+    """A dense table must be None or an fp32 [U1, U2] tensor on q's
+    device."""
+    if table is None:
+        return
+    want = (q.shape[-2], k.shape[-2])
+    if (tuple(table.shape) != want or table.dtype != torch.float32
+            or table.device != q.device):
+        raise ValueError(f"dense bias table: want fp32 {want} on {q.device}, "
+                         f"got {table.dtype} {tuple(table.shape)} on "
+                         f"{table.device}")
+
+
+def table_ptr(table) -> _P:
+    """The kernels' table argument: a pointer to a contiguous table (the
+    caller keeps it alive), or null for no bias."""
+    return _P(None) if table is None else _ptr(table)
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +199,44 @@ def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float):
           _ptr(win), _ptr(clip_t), B * M, U, md, F, grid_hw[1], R,
           1.0 / math.sqrt(md), pos_w, bf16, _stream(q))
     flash_mode_attention.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B8: flash multi-mode attention with a dense table
+# ---------------------------------------------------------------------------
+
+def flash_mode_attention_dense_plain(q, k, v, table, clip, pos_w):
+    p = torch.softmax(table_scores(q, k, table, clip, pos_w), -1)
+    return (p @ v.to(p.dtype)).to(v.dtype)
+
+
+@counted
+def flash_mode_attention_dense(q, k, v, table, clip, pos_w: float):
+    """out[b, m] = softmax(clamp(scale q k^T, +-clip) + pos_w * table) @ v,
+    the counterpart of ``craft_tpu.ops.pallas.mode_attention.
+    flash_mode_attention`` (B8).
+
+    q: [B, M, U1, md]; k: [B, M, U2, md]; v: [B, M, U2, F]; table: fp32
+    [U1, U2] or None (no bias); clip: 0-d tensor or float.  Returns
+    [B, M, U1, F] in v's dtype."""
+    check_table(table, q, k)
+    if not q.is_cuda:
+        return flash_mode_attention_dense_plain(q, k, v, table, clip, pos_w)
+    (q, k, v), bf16 = _prep(q, k, v)
+    B, M, U1, md = q.shape
+    U2, F = k.shape[2], v.shape[-1]
+    if F != FLASH_FEAT or k.shape[:2] != (B, M) or v.shape[:3] != (B, M, U2):
+        raise ValueError(f"flash_mode_attention_dense: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; the kernel "
+                         f"takes feature dim {FLASH_FEAT}")
+    out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
+    table = None if table is None else table.contiguous()
+    clip_t = _f32(clip, q)
+    _call("flash_attn_dense_launch", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+          table_ptr(table), _ptr(clip_t), B * M, U1, U2, md, F,
+          1.0 / math.sqrt(md), pos_w, bf16, _stream(q))
+    flash_mode_attention_dense.launches += 1
     return out
 
 
@@ -279,6 +360,53 @@ def mode_softmax_probs(q, k, biases, grid_hw, clip, pos_w: float,
           1.0 / math.sqrt(md), pos_w, bf16, kind, _stream(q))
     mode_softmax_probs.launches += 1
     return (out, row_scale) if quantized else out
+
+
+# ---------------------------------------------------------------------------
+# B4 dense: softmax probabilities with a dense table
+# ---------------------------------------------------------------------------
+
+def mode_softmax_probs_dense_plain(q, k, table, clip, pos_w,
+                                   out_dtype=torch.bfloat16):
+    s = table_scores(q, k, table, clip, pos_w)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    del s
+    return (e / e.sum(dim=-1, keepdim=True)).to(out_dtype)
+
+
+@counted
+def mode_softmax_probs_dense(q, k, table, clip, pos_w: float,
+                             out_dtype=torch.bfloat16):
+    """probs[b, m] = softmax(clamp(scale q k^T, +-clip) + pos_w * table),
+    the counterpart of ``craft_tpu.ops.pallas.mode_attention.
+    mode_softmax_probs`` (B4 dense).
+
+    q: [B, M, U1, md]; k: [B, M, U2, md]; table: fp32 [U1, U2] or None (no
+    bias); clip: 0-d tensor or float.  Returns float probs [B, M, U1, U2] in
+    out_dtype (bf16 or fp32; fp32 inputs take fp32 only)."""
+    check_table(table, q, k)
+    if not q.is_cuda:
+        return mode_softmax_probs_dense_plain(q, k, table, clip, pos_w,
+                                              out_dtype)
+    (q, k), bf16 = _prep(q, k)
+    kinds = {torch.float32: 0, torch.bfloat16: 1}
+    if out_dtype not in kinds or (not bf16 and out_dtype != torch.float32):
+        raise ValueError(f"mode_softmax_probs_dense: {q.dtype} -> {out_dtype};"
+                         " the kernel takes bf16 -> bf16 or fp32 and fp32 -> "
+                         "fp32")
+    B, M, U1, md = q.shape
+    U2 = k.shape[2]
+    if k.shape[:2] != (B, M):
+        raise ValueError(f"mode_softmax_probs_dense: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    out = torch.empty(B, M, U1, U2, dtype=out_dtype, device=q.device)
+    table = None if table is None else table.contiguous()
+    clip_t = _f32(clip, q)
+    _call("probs_dense_launch", _ptr(q), _ptr(k), table_ptr(table),
+          _ptr(clip_t), _ptr(out), B * M, U1, U2, md,
+          1.0 / math.sqrt(md), pos_w, bf16, kinds[out_dtype], _stream(q))
+    mode_softmax_probs_dense.launches += 1
+    return out
 
 
 KERNELS = (scores_global_max, flash_mode_attention, fused_agg_corr_norm,

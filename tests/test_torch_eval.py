@@ -5,7 +5,8 @@ runs), full-width CRAFT in fp32 with one set of JAX-initialised variables
 bridged by ``state_dict_from_flax``.  Every metric agrees within 1e-3 px,
 or 1e-3 of a share (KITTI's F1 is a percentage).  Then the port's CLI over
 a saved reference-format .pth, its checkpoint loader, and the flags it does
-not run yet.
+not run yet (``tests/test_torch_eval_dense.py`` runs the CLI under
+--interpos/--intrapos lsinu and --f2radius).
 
 Each JAX validator builds its own Evaluator, whose jitted forward compiles
 anew; the module fixture hands them one Evaluator per (iters, test_mode),
@@ -172,7 +173,6 @@ def test_loader_unwraps_like_the_jax_converter(setup, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--raft"], "item 6"), (["--nogma"], "item 6"),
     (["--f1", "shared"], "item 6"), (["--upsample_mode", "packed"], "item 6"),
-    (["--interpos", "lsinu"], "item 1"), (["--f2radius", "3"], "item 1"),
     (["--submission", "sintel"], "item 4"), (["--xshifts", "8"], "item 4"),
     (["--convert", "out"], "item 4"), (["--flop"], "item 4"),
     (["--vis"], "item 4"), (["--dataset", "things"], "item 4"),

@@ -1,6 +1,8 @@
 """The CUDA kernels (B1-B4, the training kernels B6 forward and backward
-and B7 backward, and the lookup B5 forward and backward) against their
-plain versions at small ragged shapes, bf16 and fp32 inputs, batch 2.  Needs an NVIDIA GPU with nvcc
+and B7 backward, the lookup B5 forward and backward, and the dense-table
+kernels B8, B6 dense and B4 dense) against their plain versions at small
+ragged shapes, bf16 and fp32 inputs, batch 2, every input drawn from a
+seeded generator.  Needs an NVIDIA GPU with nvcc
 (sm_90a); skipped elsewhere.  On the card:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -33,8 +35,14 @@ def dev():
     return torch.device("cuda")
 
 
+def _gen(seed: int) -> torch.Generator:
+    """A seeded CPU generator: each test's inputs are the same in every run
+    and in every order."""
+    return torch.Generator().manual_seed(seed)
+
+
 def _inputs(dev, grid, md, dtype, seed=0, qk_std=0.7, bias_std=0.5):
-    gen = torch.Generator().manual_seed(seed)
+    gen = _gen(seed)
     U = grid[0] * grid[1]
     q, k = (torch.randn(2, 4, U, md, generator=gen) * qk_std
             for _ in range(2))
@@ -73,7 +81,7 @@ def test_b1_scores_global_max(dev, dtype, grid, md):
 @pytest.mark.parametrize("clip", [1e30, 0.4])
 def test_b2_flash_attention(dev, dtype, grid, clip):
     q, k, biases = _inputs(dev, grid, 64, dtype, **_PEAKY)
-    v = torch.randn(2, 4, q.shape[2], 256, device=dev).to(dtype)
+    v = torch.randn(2, 4, q.shape[2], 256, generator=_gen(1)).to(dev, dtype)
     clip_t = torch.tensor(clip, device=dev)
     got = ma.flash_mode_attention(q, k, v, biases, grid, clip_t, 0.5)
     want = ma.flash_mode_attention_plain(q, k, v, biases, grid, clip_t, 0.5)
@@ -132,11 +140,15 @@ def test_launch_counts_count_kernel_launches_only(dev):
     # B3 launches the B1 kernel as its phase 0: B1's count takes it.
     ma.fused_agg_corr_norm(q, k, biases, GRIDS[0], 100.0, 0.5, one, one)
     cv.fused_agg_corr(q, k, biases, GRIDS[0], one, 0.5, one, one)
+    cv.fused_agg_corr_dense(q, k, None, one, 0.5, one, one)
     assert launch.launch_counts() == {"scores_global_max": 2,
                                       "flash_mode_attention": 0,
+                                      "flash_mode_attention_dense": 0,
                                       "fused_agg_corr_norm": 1,
                                       "mode_softmax_probs": 1,
+                                      "mode_softmax_probs_dense": 0,
                                       "fused_agg_corr": 1,
+                                      "fused_agg_corr_dense": 1,
                                       "agg_corr_bwd": 0,
                                       "probs_bwd": 0,
                                       "corr_lookup": 0,
@@ -146,7 +158,7 @@ def test_launch_counts_count_kernel_launches_only(dev):
 def test_unsupported_variants_raise(dev):
     q, k, biases = _inputs(dev, GRIDS[0], 64, torch.float32)
     clip = torch.tensor(1e30, device=dev)
-    v = torch.randn(2, 4, q.shape[2], 128, device=dev)
+    v = torch.randn(2, 4, q.shape[2], 128, generator=_gen(1)).to(dev)
     with pytest.raises(ValueError, match="feature dim"):
         ma.flash_mode_attention(q, k, v, biases, GRIDS[0], clip, 0.5)
     one = torch.tensor(1.0, device=dev)
@@ -180,7 +192,7 @@ def test_b6_forward_and_backward(dev, dtype, grid, clip):
                                   agg_b)
     assert got.dtype == torch.float32 and _rel(got, vol) <= 1e-4
     U = q.shape[2]
-    g = torch.randn(2, U, U, device=dev) + 1.0
+    g = torch.randn(2, U, U, generator=_gen(1)).to(dev) + 1.0
     dc, da = cv.agg_corr_bwd(q, k, g, vol, biases, grid, clip, 0.5, agg_w)
     wdc, wda = cv.agg_corr_bwd_plain(q, k, g, vol, biases, grid, clip, 0.5,
                                      agg_w)
@@ -194,22 +206,134 @@ def test_b6_forward_and_backward(dev, dtype, grid, clip):
 @pytest.mark.parametrize("grid", GRIDS)
 @pytest.mark.parametrize("md", [32, 64])
 @pytest.mark.parametrize("clip", [1e30, 0.4])
+def b7_fp32_row_err(dc, wdc, p, g) -> float:
+    """Per row, max_j |dc_j - wdc_j| / A with A = sum_j |p_j g_j|; the worst
+    row."""
+    a = (p.float() * g.float()).abs().sum(-1)
+    return float(((dc.float() - wdc.float()).abs().amax(-1) / a).max())
+
+
+def b7_fp32_bound(u: int) -> float:
+    """The bound of b7_fp32_row_err.  dl_j = p_j (g_j - S) with S = sum_i
+    g_i p_i; kernel and plain version take S in different orders, and any
+    order errs by at most gamma_U A (gamma_U ~ U u, u = 2^-24 the fp32 unit
+    roundoff), so the two S differ by at most 2 gamma_U A, and p_j <= 1
+    carries that to dl_j.  g_j - S and the product by p_j round once each on
+    either side, at most 2 u p_j (|g_j| + |S|) <= 4 u A a side (p_j |g_j|
+    <= A, |S| <= A).  Hence |dc_j - wdc_j| <= (2U + 8) u A; 2U + 16 leaves
+    room for the 1 / (1 - U u) of gamma_U.  Against the row max of dc (the
+    bound before) a row whose probs sit on one key cancels in dl_j and has
+    no such bound."""
+    return (2 * u + 16) * 2.0 ** -24
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("md", [32, 64])
+@pytest.mark.parametrize("clip", [1e30, 0.4])
 def test_b7_backward(dev, dtype, grid, md, clip):
     q, k, biases = _inputs(dev, grid, md, dtype, **_PEAKY)
     clip_t = torch.tensor(clip, device=dev)
     p = ma.mode_softmax_probs_plain(q, k, biases, grid, clip_t, 1.0,
                                     out_dtype=dtype)
-    g = torch.randn(p.shape, device=dev).to(dtype)
+    g = torch.randn(p.shape, generator=_gen(1)).to(dev, dtype)
     dc, dlsum = pv.probs_bwd(q, k, p, g, clip)
     wdc, wdlsum = pv.probs_bwd_plain(q, k, p, g, clip)
     keep = _outside_band(q, k, clip)
     assert dc.dtype == dtype and dlsum.dtype == torch.float32
-    # Per row, over the row max.  bf16: half an ulp, 2^-8.  fp32: dl = p (g
-    # - sum_j g p) subtracts a sum of U terms taken in another order, which
-    # shows in a row whose dl is small against its terms.
-    tol = 1e-2 if dtype == torch.bfloat16 else 1e-3
-    assert _rel(dc.float() * keep, wdc.float() * keep, -1) <= tol
+    if dtype == torch.bfloat16:
+        # Per row, over the row max: half a bf16 ulp, 2^-8, either side.
+        assert _rel(dc.float() * keep, wdc.float() * keep, -1) <= 1e-2
+    else:
+        assert b7_fp32_row_err(dc * keep, wdc * keep, p, g) <= \
+            b7_fp32_bound(q.shape[2])
     assert _rel(dlsum, wdlsum) <= 1e-4
+
+
+# ------------------------------------------------- the dense-table kernels
+
+# (U1, U2): ragged squares (one with the serving W8) and a rectangle.
+DENSE_SHAPES = [(60, 60), (384, 384), (100, 37)]
+
+
+def _dense_inputs(dev, shape, md, dtype, with_table, seed=3):
+    gen = _gen(seed)
+    u1, u2 = shape
+    q = torch.randn(2, 4, u1, md, generator=gen) * 1.5
+    k = torch.randn(2, 4, u2, md, generator=gen) * 1.5
+    table = torch.randn(u1, u2, generator=gen) * 3.0 if with_table else None
+    v = torch.randn(2, 4, u2, 256, generator=gen)
+    return (q.to(dev, dtype), k.to(dev, dtype),
+            None if table is None else table.to(dev), v.to(dev, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_table", [False, True])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+@pytest.mark.parametrize("clip", [1e30, 0.4])
+def test_b8_flash_attention_dense(dev, dtype, with_table, shape, clip):
+    q, k, table, v = _dense_inputs(dev, shape, 64, dtype, with_table)
+    clip_t = torch.tensor(clip, device=dev)
+    got = ma.flash_mode_attention_dense(q, k, v, table, clip_t, 0.5)
+    want = ma.flash_mode_attention_dense_plain(q, k, v, table, clip_t, 0.5)
+    assert got.shape == (2, 4, shape[0], 256) and got.dtype == dtype
+    if dtype == torch.bfloat16:  # both bf16: one ulp is <= 2^-7 of a value
+        assert _rel(got, want) <= 2e-2
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_b8_masked_rows_keep_their_own_key(dev):
+    """The f2 mask at radius 0 leaves each row its own key only: out = v,
+    with no NaN from rows whose other keys all sit at -1e9."""
+    from craft_tpu_torch.nn.setrans import attention_mask
+    q, k, _, v = _dense_inputs(dev, (384, 384), 64, torch.float32, False)
+    table = attention_mask(3, 128, 0, dev)
+    got = ma.flash_mode_attention_dense(q, k, v, table, 1e30, 1.0)
+    torch.testing.assert_close(got, v, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_table", [False, True])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+@pytest.mark.parametrize("clip", [1e30, 0.4])
+def test_b6_dense_forward(dev, dtype, with_table, shape, clip):
+    q, k, table, _ = _dense_inputs(dev, shape, 64, dtype, with_table)
+    agg = (torch.tensor(1.3, device=dev), torch.tensor(0.1, device=dev))
+    got = cv.fused_agg_corr_dense(q, k, table, clip, 0.5, *agg)
+    want = cv.fused_agg_corr_dense_plain(q, k, table, clip, 0.5, *agg)
+    assert got.dtype == torch.float32 and got.shape == (2, *shape)
+    assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("io", [(torch.bfloat16, torch.bfloat16),
+                                (torch.bfloat16, torch.float32),
+                                (torch.float32, torch.float32)])
+@pytest.mark.parametrize("with_table", [False, True])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+@pytest.mark.parametrize("clip", [1e30, 0.4])
+def test_b4_dense_probs(dev, io, with_table, shape, clip):
+    dtype, out_dtype = io
+    q, k, table, _ = _dense_inputs(dev, shape, 32, dtype, with_table)
+    clip_t = torch.tensor(clip, device=dev)
+    got = ma.mode_softmax_probs_dense(q, k, table, clip_t, 1.0,
+                                      out_dtype=out_dtype)
+    want = ma.mode_softmax_probs_dense_plain(q, k, table, clip_t, 1.0,
+                                             out_dtype=torch.float32)
+    assert got.dtype == out_dtype and got.shape == (2, 4, *shape)
+    # per row, over the row max; bf16 rounding is <= 2^-8 of a value
+    assert _rel(got, want, -1) <= (1e-2 if out_dtype == torch.bfloat16
+                                   else 1e-4)
+
+
+def test_dense_variants_that_the_kernels_do_not_take_raise(dev):
+    q, k, table, v = _dense_inputs(dev, (60, 60), 64, torch.float32, True)
+    with pytest.raises(ValueError, match="feature dim"):
+        ma.flash_mode_attention_dense(q, k, v[..., :128], table, 1e30, 0.5)
+    with pytest.raises(ValueError, match="fp32 -> fp32"):
+        ma.mode_softmax_probs_dense(q, k, table, 1e30, 1.0)
+    with pytest.raises(ValueError, match="dense bias table"):
+        cv.fused_agg_corr_dense(q, k, table.cpu(), 1e30, 0.5, 1.0, 0.0)
 
 
 def test_autograd_functions_on_the_card_match_the_cpu(dev):
@@ -218,7 +342,7 @@ def test_autograd_functions_on_the_card_match_the_cpu(dev):
     kernel tests above cover it on)."""
     q, k, biases = _inputs(dev, GRIDS[0], 32, torch.float32, **_PEAKY)
     agg = (torch.tensor(1.3), torch.tensor(0.1))
-    w = torch.randn(2, 4, q.shape[2], q.shape[2])
+    w = torch.randn(2, 4, q.shape[2], q.shape[2], generator=_gen(2))
     out = {}
     for d in (dev, torch.device("cpu")):
         args = [t.detach().to(d).requires_grad_() for t in (q, k, biases)]
@@ -254,7 +378,7 @@ def test_b5_lookup_forward_and_backward(dev, dtype, grid, radius):
     top = max(float(lv.float().abs().max()) for lv in levels if lv.numel())
     # The same four values blended with the same fp32 operations.
     assert float((got - want).abs().max()) <= 4 * 2.0 ** -23 * top
-    g = torch.randn(got.shape, device=dev)
+    g = torch.randn(got.shape, generator=_gen(1)).to(dev)
     shapes = [tuple(lv.shape) for lv in levels]
     dl = lk.corr_lookup_bwd(coords, g, shapes, dtype, radius)
     wdl = lk.corr_lookup_bwd_plain(coords, g, shapes, torch.float32, radius)
@@ -267,7 +391,7 @@ def test_b5_lookup_forward_and_backward(dev, dtype, grid, radius):
 
 def test_b5_function_on_the_card_matches_the_cpu(dev):
     levels, coords = _lookup_inputs(dev, 2, 5, 12, torch.float32)
-    g = torch.randn(2, 5, 12, 4 * 81, device=dev)
+    g = torch.randn(2, 5, 12, 4 * 81, generator=_gen(1)).to(dev)
     out = {}
     for d in (dev, torch.device("cpu")):
         lv = [t.detach().to(d).requires_grad_() for t in levels]

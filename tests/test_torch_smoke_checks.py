@@ -2,9 +2,12 @@
 the CPU at a small ragged grid.  On CPU tensors each wrapper takes its plain
 version, so the checks pass as they are; with a fault planted in a wrapper
 (the sliding bias dropped, the clamp ignored, for the training kernels the
-backward's clamp mask, its agg_w term or its softmax row term dropped, and
-for the lookup its channel order swapped, clamped padding, a wrong level
-scale or the y blend dropped) they must fail.  On the card the same checks also plant the faults in the
+backward's clamp mask, its agg_w term or its softmax row term dropped, for
+the lookup its channel order swapped, clamped padding, a wrong level scale
+or the y blend dropped, and for the dense-table kernels a transposed table,
+a table scaled by pos_w twice, no clamp or ragged keys left unmasked
+(B6 dense reads each key on its own, so it has no such fault)) they must
+fail.  On the card the same checks also plant the faults in the
 plain versions and fail unless their bounds catch them.
 """
 
@@ -188,3 +191,61 @@ def test_lookup_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper,
     monkeypatch.setattr(lk, wrapper, _lookup_fault(wrapper, fault))
     with pytest.raises(AssertionError, match="disagrees"):
         _run_lookup()
+
+
+# ------------------------------------------------- the dense-table kernels
+
+DENSE = ("flash_mode_attention_dense", "fused_agg_corr_dense",
+         "mode_softmax_probs_dense")
+DENSE_FAULTS = ("table transposed", "table scaled by pos_w twice",
+                "no clamp", "ragged keys unmasked")
+
+
+def _run_dense(seed=0):
+    report = {name: {} for name in DENSE}
+    chip_smoke.check_dense_kernels(CPU, torch.Generator().manual_seed(seed),
+                                   report, grid=GRID)
+    return report
+
+
+def test_dense_checks_pass_the_plain_versions():
+    report = _run_dense()
+    assert report["flash_mode_attention_dense"]["max_abs_err"] == 0.0
+    assert report["fused_agg_corr_dense"]["max_abs_err"] == 0.0
+    # bf16 probs against fp32 ones: one rounding of values <= 1.
+    assert 0.0 < report["mode_softmax_probs_dense"]["max_abs_err"] < 2 ** -8
+
+
+def _dense_fault(name, fault):
+    """The wrapper `name` as its plain version with `fault` planted."""
+    plain, _, _, ragged = chip_smoke._dense_plains()[name]
+
+    def apply(q, k, table, clip, pos_w, v):
+        if fault == "table transposed" and table is not None \
+                and table.shape[0] == table.shape[1]:
+            table = table.t()
+        if fault == "table scaled by pos_w twice":
+            pos_w = pos_w * pos_w
+        if fault == "no clamp":
+            clip = torch.tensor(chip_smoke.CLIP_OFF)
+        fn = ragged if fault == "ragged keys unmasked" else plain
+        return fn(q, k, table, clip, pos_w, v)
+    if name == "flash_mode_attention_dense":
+        return lambda q, k, v, table, clip, pos_w: apply(q, k, table, clip,
+                                                         pos_w, v)
+    if name == "fused_agg_corr_dense":
+        return lambda q, k, table, clip, pos_w, agg_w, agg_b: apply(
+            q, k, table, clip, pos_w, None)
+    return lambda q, k, table, clip, pos_w, out_dtype: apply(
+        q, k, table, clip, pos_w, None).to(out_dtype)
+
+
+@pytest.mark.parametrize("wrapper,fault", [
+    (w, f) for w in DENSE for f in DENSE_FAULTS
+    if not (w == "fused_agg_corr_dense" and f == "ragged keys unmasked")])
+def test_dense_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper,
+                                                   fault):
+    module = cv if wrapper == "fused_agg_corr_dense" else ma
+    monkeypatch.setattr(module, wrapper, _dense_fault(wrapper, fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run_dense()

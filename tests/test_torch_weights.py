@@ -62,6 +62,54 @@ def test_flow_model_loads_the_bridged_state_strictly(mixed_precision):
     assert model.corr_fn.setrans.key is model.corr_fn.setrans.query
 
 
+def test_lsinu_tree_round_trips_and_loads(tmp_path):
+    """Under --interpos/--intrapos lsinu every site's pos_coder is a Dense
+    (pos_fc) and there is no bias window: the generic Dense mapping carries
+    it both ways, and a reference .pth of it loads with nothing missing."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    import craft_tpu.config as jconfig
+    from craft_tpu.models.flow_model import FlowModel as JaxFlowModel
+    from craft_tpu_torch.utils.weights import load_reference_checkpoint
+
+    def lsinu(cfg):
+        return cfg.replace(**{site: dataclasses.replace(
+            getattr(cfg, site), pos_code_type="lsinu")
+            for site in ("inter", "f2", "intra")})
+    zeros = jnp.zeros((1, 16, 16, 3))
+    init = JaxFlowModel(cfg=lsinu(jconfig.craft_config(False)),
+                        train=False).init
+    tree = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda key: init(key, zeros, zeros, iters=1))(jax.random.PRNGKey(0)))
+    sd = state_dict_from_flax(tree)
+    for site, dim in (("f2_trans", 256), ("att", 128), ("corr_fn", 256)):
+        key = f"{site}.vispos_encoder.pos_coder.pos_fc"
+        assert sd[f"{key}.weight"].shape == (dim, 2)
+        assert sd[f"{key}.bias"].shape == (dim,)
+    assert not [k for k in sd if k.endswith("pos_coder.biases")]
+    new_vars, report = convert_torch_state(
+        {k: v.numpy() for k, v in sd.items()}, tree, strict=True)
+    assert report["missing"] == [] and report["unused_torch_keys"] == []
+    for col in ("params", "batch_stats"):
+        for path, want in _flat(tree[col]):
+            got = new_vars[col]
+            for p in path:
+                got = got[p]
+            np.testing.assert_array_equal(np.asarray(got), want)
+    model = FlowModel(lsinu(craft_config(mixed_precision=False)))
+    model.load_state_dict(sd, strict=True)
+    pth = tmp_path / "lsinu.pth"
+    torch.save({"model": {f"module.{k}": v for k, v in sd.items()}}, pth)
+    fresh = FlowModel(lsinu(craft_config(mixed_precision=False)))
+    assert load_reference_checkpoint(pth, fresh) == ([], [])
+    torch.testing.assert_close(
+        fresh.state_dict()["att.vispos_encoder.pos_coder.pos_fc.weight"],
+        sd["att.vispos_encoder.pos_coder.pos_fc.weight"], rtol=0, atol=0)
+
+
 def _imported_modules(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

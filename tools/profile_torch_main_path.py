@@ -1,10 +1,13 @@
 """Where the time goes in the PyTorch port's main path, on one GPU.
 
     python3 tools/profile_torch_main_path.py [--pairs 2] [--train]
+        [--config main|lsinu|f2radius]
 
 The main path of chip_smoke.py (its model, frame pairs and serving loop):
 full CRAFT at 436x1024 padded to 440x1024, bf16 with int8 intra probs, 12
-iterations, the weights of the oracle snapshot.  After one warm-up pair it
+iterations, the weights of the oracle snapshot; with --config, the same
+served under lsinu (all three sites) or --f2radius 7 (chip_smoke.py's
+serving_model).  After one warm-up pair it
 times `--pairs` frame pairs on the host clock, then traces the same pairs
 with torch.profiler, and prints per pair: the host wall time (untraced and
 traced), the kernel time under each phase range (craft.* in
@@ -31,12 +34,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("B1 scores_max", ("scores_max_kernel", "max_reduce_kernel")),
-    ("B2 flash_attn", ("flash_attn_kernel",)),
+    # The dense-table kernels share their window twins' names: under lsinu
+    # and --f2radius the B2, B4 and B6 rows hold B8, B4 dense and B6 dense.
+    ("B2 / B8 flash_attn", ("flash_attn_kernel",)),
     ("B3 corr_norm", ("corr_stats_kernel", "corr_moments_kernel",
                       "corr_write_kernel")),
-    ("B4 probs", ("probs_kernel",)),
+    ("B4 / B4 dense probs", ("probs_kernel",)),
     ("B6 agg_corr_bwd", ("agg_corr_bwd_kernel", "sum_partials_kernel")),
-    ("B6 agg_corr", ("agg_corr_kernel",)),
+    ("B6 / B6 dense agg_corr", ("agg_corr_kernel",)),
     ("B7 probs_bwd", ("probs_bwd_kernel",)),
     ("B5 lookup_bwd", ("lookup_bwd_kernel",)),
     ("B5 lookup", ("lookup_fwd_kernel",)),
@@ -81,6 +86,9 @@ def main() -> int:
                     help="frame pairs (or training steps) to time")
     ap.add_argument("--train", action="store_true",
                     help="profile training steps instead of serving")
+    ap.add_argument("--config", default="main",
+                    choices=["main", "lsinu", "f2radius"],
+                    help="the serving configuration")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: CUDA is not available", file=sys.stderr)
@@ -97,7 +105,7 @@ def main() -> int:
 
         chip_smoke.train_steps(state, step, batch, 1)  # warm-up
     else:
-        model = chip_smoke.main_path_model(dev)
+        model = chip_smoke.serving_model(dev, args.config)
         _, pairs = chip_smoke.frame_pairs(dev, args.pairs + 1)
 
         def wall_ms_per_pair():
@@ -133,7 +141,8 @@ def main() -> int:
         print(f"family {fam}: {t:.3f} ms")
     for t, count, name in kernels[:20]:
         print(f"kernel {t:8.3f} ms  x{count:<4d} {name[:110]}")
-    print(json.dumps({"card": card, "wall_ms_per_pair": wall_ms,
+    print(json.dumps({"card": card, "config": "train" if args.train else
+                      args.config, "wall_ms_per_pair": wall_ms,
                       "traced_wall_ms_per_pair": traced_wall_ms,
                       "device_ms_per_pair": total,
                       "busy_share": total / wall_ms, "phases_ms": phases,

@@ -21,6 +21,14 @@ these phases and fails on the first that fails:
      seeded one, U1 != U2 with ragged keys, the clamp off and on, bf16 and
      fp32, with a transposed table, a table scaled by pos_w twice, ragged
      keys left unmasked and a missing clamp planted in the plain versions.
+     Then sequence parallelism: B9 (sums and write) on every shard of the
+     serving grid split over 1, 2 and 4 ranks (55 rows: 28/27,
+     14/14/14/13), clamp off and on, bf16 and fp32, against its plain
+     versions, and the shards assembled against B3's plain volume, with the
+     row offset dropped, the moments over the shard's own element count
+     and the shard's own max as the clamp predicate planted in the plain
+     versions; B1, B2 and B4 on a shard with its row offset (offset
+     dropped planted).
   3. oracle: full-width CRAFT with the weights of
      tests/data/oracle_craft_128.npz at 128x128, 12 iterations, against the
      reference flow: fp32 within 1e-3 px, the mixed-precision config
@@ -51,6 +59,16 @@ these phases and fails on the first that fails:
      pairs/s and launches (B1-B5 in each); then --interpos/--intrapos
      lsinu on the KITTI tree, and --f2radius 7 over a one-pair Sintel tree
      whose ground truth is the port's CPU flow under that flag.
+     Then sequence parallelism (--seq_parallel): two ranks of this script
+     on the one card under torch.distributed.run (gloo: the ranks share
+     the card), each serving the main path's 3 pairs (launches per rank and
+     pair: B1 3, B2 1, B4 1, B9 sums 1, B9 write 1, B5 12, no B3), one fp32
+     pair, one 1088x1920 pair and the evaluator CLI with --seq_parallel on
+     a KITTI tree (47 rows: 24/23), mixed and --fullprec; their flows
+     against the unsharded ones (0.15 px mixed, 1e-3 px fp32), the CLI's
+     metrics against the unsharded CLI's, and each rank's peak memory
+     below the unsharded peak at 440x1024 and 1088x1920; then one rank
+     without torchrun on NCCL (world = the card count) against unsharded.
   5. kernel times over CUDA events at the main-path shapes, beside each
      plain version, the bound and (B2) scaled_dot_product_attention; B2-B4
      at the KITTI shape (U=7332, W8=156); the training kernels and B1/B4
@@ -58,19 +76,24 @@ these phases and fails on the first that fails:
      chairs shapes beside per-level F.grid_sample and its backward; B8,
      B6 dense and B4 dense at the serving shape (B8 also with the
      --f2radius table, beside scaled_dot_product_attention with it as its
-     mask).
+     mask); B9 sums and write per shard at 2 and 4 shards beside their
+     plain versions, bounds and B3.
 
 Prints the card line and a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
-CUDA is unavailable.  Imports nothing of JAX.
+CUDA is unavailable.  Imports nothing of JAX.  `--sp-rank DIR [--sp-nccl]`
+runs one rank of the sequence-parallel phase (the script starts them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -748,6 +771,201 @@ def check_dense_kernels(dev, gen, report, grid=(H8, W8),
             torch.cuda.empty_cache()
 
 
+# Phase 2, sequence parallelism: B9 on row shards of the serving grid (55
+# rows over 1, 2 and 4 shards: 55, 28/27, 14/14/14/13), and B1, B2 and B4
+# on a shard with its row offset.  The B9 inputs give every score a shift
+# of +SP_SHIFT on the first shard's grid rows at the most shards ([0, 14)
+# at the serving grid) and -SP_SHIFT on the rest (q and k share a
+# direction, scaled so that scale * q.k moves by SP_SHIFT), over scores of
+# std about 0.6: every shard but the first sees only negative scores, whose
+# local max stays below SP_CLIP_ON while the global max is above it, so the
+# clamp (at +-SP_CLIP_ON) moves most of their elements in all four modes.
+# A shard that took its own max for the clamp predicate (the planted "local
+# gmax" fault) would leave them unclamped.
+SP_WORLDS = (1, 2, 4)
+SP_SHIFT, SP_CLIP_ON, SP_CLIP_OFF, SP_STD = 4.0, 3.0, 100.0, 0.5
+# Sums: fp64 sums of fp32 volumes that differ by fp32 rounding (~1e-6 of a
+# value): |d sum| / (N rms) and |d sum of squares| / (sum of squares).
+B9_SUMS_TOL = 1e-5
+# fp32 volume out against the fp32 plain one: max |d| / (1e-4 + 1e-4 |want|)
+B9_FP32_ATOL = B9_FP32_RTOL = 1e-4
+
+
+def sp_inputs(gen, md, dev, dtype, pos_rows, grid=(H8, W8), batch=1):
+    """q, k [batch, 4, U, md] for the B9 checks, the positive shift on grid
+    rows [0, pos_rows) (see SP_SHIFT)."""
+    u = grid[0] * grid[1]
+    w = torch.randn(md, generator=gen)
+    w = w / w.norm() * math.sqrt(SP_SHIFT) * md ** 0.25
+    sign = torch.full((u, 1), -1.0)
+    sign[:pos_rows * grid[1]] = 1.0
+    q = torch.randn(batch, 4, u, md, generator=gen) * SP_STD + sign * w
+    k = torch.randn(batch, 4, u, md, generator=gen) * SP_STD + w
+    return q.to(dev, dtype), k.to(dev, dtype)
+
+
+def sums_err(n: float):
+    """The error of B9 sums [B, 2] over n elements: the worst of |d sum| /
+    sqrt(n sum of squares) (= n rms) and |d sum of squares| / sum of
+    squares."""
+    def err(got, want):
+        got, want = got.double(), want.double()
+        return float(max(((got[:, 0] - want[:, 0]).abs()
+                          / (n * want[:, 1]).sqrt()).max(),
+                         ((got[:, 1] - want[:, 1]).abs() / want[:, 1]).max()))
+    return err
+
+
+def vol_err(dtype):
+    """(err_fn, bound) of a normed volume in `dtype` against the fp32 plain
+    one: B3's for bf16."""
+    if dtype == torch.bfloat16:
+        return b3_err, 1.0
+
+    def err(got, want):
+        d = (got.float() - want.float()).abs()
+        return float((d / (B9_FP32_ATOL + B9_FP32_RTOL
+                           * want.float().abs())).max())
+    return err, 1.0
+
+
+def check_sp_kernels(dev, gen, report, grid=(H8, W8), worlds=SP_WORLDS
+                     ) -> None:
+    """Phase 2, sequence parallelism: B9 sums and write on every shard
+    against their plain versions (the plain write taking the kernels'
+    summed sums), the written shards assembled against plain B3, with the
+    row offset dropped, the moments over the shard's own element count and
+    the shard's own max as the clamp predicate planted in the plain
+    versions; then B1, B2 and B4 on a shard with its row offset, the offset
+    dropped planted.  On CPU tensors the wrappers take the plain versions
+    themselves (how the tests run this phase with faults planted in the
+    wrappers)."""
+    from craft_tpu_torch.parallel.sp import row_split
+    biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
+    H, Wd = grid
+    agg = (torch.tensor(AGG_WB[0], device=dev),
+           torch.tensor(AGG_WB[1], device=dev))
+    errs = {"corr_norm_sums": [0.0], "corr_norm_write": [0.0]}
+    pos_rows = row_split(H, max(worlds), 0)[1]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k = sp_inputs(gen, 64, dev, dtype, pos_rows, grid)
+        n_all = float(k.shape[2]) ** 2
+        err_fn, tol = vol_err(dtype)
+        for attn_clip in (SP_CLIP_OFF, SP_CLIP_ON):
+            b3, _ = ma.fused_agg_corr_norm_plain(q, k, biases, grid,
+                                                 attn_clip, 0.5, *agg,
+                                                 out_dtype=torch.float32)
+            for world in worlds:
+                shards = [row_split(H, world, r) for r in range(world)]
+                ql = [q[:, :, h0 * Wd:h1 * Wd] for h0, h1 in shards]
+                lmax = [ma.scores_global_max(x, k, 0.125) for x in ql]
+                gmax = torch.stack(lmax).amax()
+                sync(dev)
+                tag = f"B9 {dtype} attn_clip={attn_clip:g} n={world}"
+                clamps = float(gmax) > attn_clip
+                sums = []
+                for x, lm, (h0, h1) in zip(ql, lmax, shards):
+                    got = ma.corr_norm_sums(x, k, biases, grid, gmax,
+                                            attn_clip, 0.5, *agg, q_row0=h0)
+                    sync(dev)
+                    plain = functools.partial(ma.corr_norm_sums_plain, x, k,
+                                              biases, grid)
+                    faults = {}
+                    if h0 > 0:
+                        faults["row offset dropped"] = plain(
+                            gmax, attn_clip, 0.5, *agg)
+                    if clamps and float(lm) <= attn_clip:
+                        faults["local gmax"] = plain(lm, attn_clip, 0.5,
+                                                     *agg, q_row0=h0)
+                    want = plain(gmax, attn_clip, 0.5, *agg, q_row0=h0)
+                    hold(f"{tag} sums rows {h0}:{h1}", got, want,
+                         sums_err(float(x.shape[2] * k.shape[2])),
+                         B9_SUMS_TOL, faults)
+                    errs["corr_norm_sums"].append(
+                        float((got - want).abs().max()))
+                    sums.append(got)
+                total = torch.stack(sums).sum(0)
+                parts = []
+                for x, lm, (h0, h1) in zip(ql, lmax, shards):
+                    got = ma.corr_norm_write(x, k, biases, grid, gmax, total,
+                                             attn_clip, 0.5, *agg, q_row0=h0,
+                                             out_dtype=dtype)
+                    sync(dev)
+                    plain = functools.partial(ma.corr_norm_write_plain, x, k,
+                                              biases, grid)
+                    args = (attn_clip, 0.5, *agg)
+                    kw = {"q_row0": h0, "out_dtype": torch.float32}
+                    faults = {}
+                    if h0 > 0:
+                        faults["row offset dropped"] = plain(
+                            gmax, total, n_all, *args, out_dtype=torch.float32)
+                    if world > 1:
+                        faults["moments over the local count"] = plain(
+                            gmax, total, float(x.shape[2] * k.shape[2]),
+                            *args, **kw)
+                    if clamps and float(lm) <= attn_clip:
+                        faults["local gmax"] = plain(lm, total, n_all, *args,
+                                                     **kw)
+                    want = plain(gmax, total, n_all, *args, **kw)
+                    hold(f"{tag} write rows {h0}:{h1}", got, want, err_fn,
+                         tol, faults)
+                    errs["corr_norm_write"].append(
+                        float((got.float() - want).abs().max()))
+                    parts.append(got)
+                    del faults, want
+                got = torch.cat(parts, dim=1)
+                err = err_fn(got, b3)
+                print(f"{tag}: shards assembled against plain B3, error "
+                      f"{err:.3e} (bound {tol:g})")
+                assert err <= tol, f"{tag}: the shards disagree with B3"
+                del got, parts
+            del b3
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    for name, e in errs.items():
+        report[name]["max_abs_err"] = max(e)
+
+    # B1, B2, B4 on shard 2 of 4 (rows 28..41 of the serving grid).
+    h0, h1 = row_split(H, 4, 2) if H >= 4 else (H - 1, H)
+    q, k = inputs(gen, 64, dev, H * Wd)
+    ql = q[:, :, h0 * Wd:h1 * Wd]
+    got = float(ma.scores_global_max(ql, k, 0.125))
+    sync(dev)
+    want = float(ma.scores_global_max_plain(ql, k, 0.125))
+    print(f"B1 rows {h0}:{h1}: kernel {got:.6f} plain {want:.6f}")
+    assert abs(got - want) <= B1_RTOL * abs(want), "B1 disagrees on a shard"
+    v = torch.randn(1, 4, H * Wd, 256, generator=gen).to(dev, torch.bfloat16)
+    clip_t = torch.tensor(CLIP_ON, device=dev)
+    got = ma.flash_mode_attention(ql, k, v, biases, grid, clip_t, 0.5,
+                                  q_row0=h0)
+    sync(dev)
+    plain = functools.partial(ma.flash_mode_attention_plain, ql, k, v,
+                              biases, grid, clip_t, 0.5)
+    hold(f"B2 rows {h0}:{h1}", got, plain(q_row0=h0), rel_err, B2_TOL,
+         {"row offset dropped": plain()})
+    del v, got
+    q, k = inputs(gen, 32, dev, H * Wd)
+    ql = q[:, :, h0 * Wd:h1 * Wd]
+    plain = functools.partial(ma.mode_softmax_probs_plain, ql, k, biases,
+                              grid, clip_t, 1.0)
+    num, sc = ma.mode_softmax_probs(ql, k, biases, grid, clip_t, 1.0,
+                                    quantized=True, q_row0=h0)
+    sync(dev)
+    wnum, wsc = plain(quantized=True, q_row0=h0)
+    fnum, fsc = plain(quantized=True)
+    hold(f"B4 int8 numerators rows {h0}:{h1}", num, wnum, num_err,
+         B4_NUM_TOL, {"row offset dropped": fnum})
+    hold(f"B4 int8 row scales rows {h0}:{h1}", sc, wsc, lambda a, b: float(
+        ((a - b).abs() / b).max()), B4_SCALE_RTOL, {"row offset dropped": fsc})
+    got = ma.mode_softmax_probs(ql, k, biases, grid, clip_t, 1.0,
+                                out_dtype=torch.bfloat16, q_row0=h0)
+    sync(dev)
+    hold(f"B4 bf16 rows {h0}:{h1}", got,
+         plain(out_dtype=torch.float32, q_row0=h0), row_rel_err,
+         B4_ROW_TOL[torch.bfloat16],
+         {"row offset dropped": plain(out_dtype=torch.float32)})
+
+
 def check_oracle(dev) -> dict:
     """Phase 3: the 128x128 oracle on the card."""
     img1, img2, want, tree = load_oracle_npz(ORACLE)
@@ -846,26 +1064,27 @@ def serving_model(dev, variant: str = "main"):
     return model
 
 
-def frame_pairs(dev, n: int, seed: int = 0):
-    """(InputPadder, n seeded noise frame pairs at FRAME_H x FRAME_W padded
-    to 440x1024, NHWC in [0, 255] on `dev`)."""
-    padder = InputPadder((1, FRAME_H, FRAME_W, 3), mode="sintel")
+def frame_pairs(dev, n: int, seed: int = 0, hw=(FRAME_H, FRAME_W)):
+    """(InputPadder, n seeded noise frame pairs at hw (FRAME_H x FRAME_W)
+    padded to a multiple of 8 (440x1024), NHWC in [0, 255] on `dev`)."""
+    padder = InputPadder((1, *hw, 3), mode="sintel")
     rng = np.random.RandomState(seed)
 
     def frame():
-        return torch.from_numpy(rng.uniform(0, 255, (
-            1, FRAME_H, FRAME_W, 3)).astype(np.float32)).to(dev)
+        return torch.from_numpy(rng.uniform(0, 255, (1, *hw, 3)).astype(
+            np.float32)).to(dev)
     return padder, [padder.pad(frame(), frame()) for _ in range(n)]
 
 
-def serve(model, pairs):
+def serve(model, pairs, seq_parallel=None):
     """Answer each pair with ITERS iterations, synchronizing after each:
-    (host ms per pair, each pair's final padded flow)."""
+    (host ms per pair, each pair's final padded flow); with a SeqParallel
+    group, as this rank."""
     times, flows = [], []
     with torch.inference_mode():
         for a, b in pairs:
             t0 = time.perf_counter()
-            _, f = model(a, b, iters=ITERS)
+            _, f = model(a, b, iters=ITERS, seq_parallel=seq_parallel)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             flows.append(f[-1])
@@ -1289,6 +1508,263 @@ def eval_dense(dev, sd, frames, argv, big) -> dict:
     return out
 
 
+# Phase 4, sequence parallelism: ranks of this script (--sp-rank) under
+# torch.distributed.run, two on the one card (gloo), and one rank without
+# torchrun (NCCL: a card of its own).
+SP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_sp"
+SP_RANKS = 2
+BIG_H, BIG_W = 1088, 1920  # one 1080p-class pair: H8 = 136, W8 = 240
+# Per rank and pair: B1 at the three sites, B2 (f2), B4 (intra), B9 (inter,
+# in place of B3), B5 per iteration.
+SP_KERNELS = {"scores_global_max": 3, "flash_mode_attention": 1,
+              "mode_softmax_probs": 1, "corr_norm_sums": 1,
+              "corr_norm_write": 1, "corr_lookup": ITERS}
+SP_TIMEOUT = 900  # seconds for one multi-rank command
+
+
+def _run_ranks(cmd, label) -> None:
+    """Run a rank command in its own process group, print its output, and
+    kill the whole group if it outlives SP_TIMEOUT; fail unless it exits
+    0."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=SP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    for line in out.splitlines():
+        print(f"[{label}] {line}")
+    print(f"{label}: exit {proc.returncode} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    assert proc.returncode == 0, f"{label} failed"
+
+
+def _sp_kitti_argv(pth, root) -> list:
+    return ["--model", str(pth), "--craft", "--setrans", "--iters",
+            str(ITERS), "--device", "cuda", "--dataset", "kitti",
+            "--data_root", str(root)]
+
+
+def sp_rank_main(outdir: str, nccl_only: bool) -> int:
+    """One rank of the sequence-parallel phase: the main config's 3 pairs
+    (after a warm-up) with the launches and peak memory of this rank; then
+    (not nccl_only) one fp32 pair, one BIG_H x BIG_W pair, and the evaluator
+    CLI with --seq_parallel on the KITTI tree the parent wrote, mixed and
+    --fullprec.  Writes rank<r>[_nccl].json and the flows under outdir."""
+    from craft_tpu_torch.parallel import sp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = sp.init("cuda")
+    dev, r = group.device, group.rank
+    out = Path(outdir)
+    tag = f"rank{r}" + ("_nccl" if nccl_only else "")
+    res = {"rank": r, "world": group.world, "backend": group.backend,
+           "device": str(dev)}
+    model = serving_model(dev)
+    _, pairs = frame_pairs(dev, 4, seed=0)
+    serve(model, pairs[:1], group)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launch_counts()
+    times, flows = serve(model, pairs[1:], group)
+    res["launches"] = launch.launch_counts()
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    res["pair_ms"] = times
+    _assert_launches(f"sp {tag}", res["launches"], SP_KERNELS, 3)
+    torch.save([f.cpu() for f in flows], out / f"{tag}_mixed.pt")
+    del model, flows
+    if not nccl_only:
+        model = create_model(craft_config(mixed_precision=False), device=dev)
+        model.load_state_dict(state_dict_from_flax(load_oracle_npz(ORACLE)[3]))
+        _, flows = serve(model, pairs[1:2], group)
+        torch.save([f.cpu() for f in flows], out / f"{tag}_fp32.pt")
+        del model, flows, pairs
+        torch.cuda.empty_cache()
+        model = serving_model(dev)
+        _, big = frame_pairs(dev, 1, seed=8, hw=(BIG_H, BIG_W))
+        torch.cuda.reset_peak_memory_stats()
+        times, flows = serve(model, big, group)
+        res["big"] = {"pair_ms": times, "max_memory_allocated":
+                      torch.cuda.max_memory_allocated()}
+        torch.save([f.cpu() for f in flows], out / f"{tag}_big.pt")
+        del model, flows, big
+        torch.cuda.empty_cache()
+        argv = _sp_kitti_argv(out / "craft-oracle.pth", out / "data")
+        for label, extra in (("mixed", []), ("fp32", ["--fullprec"])):
+            launch.reset_launch_counts()
+            metrics = evaluate_cli.main(argv + extra + ["--seq_parallel"])
+            res[f"kitti_{label}"] = {"metrics": metrics,
+                                     "launches": launch.launch_counts()}
+            _assert_launches(f"sp {tag} kitti {label}",
+                             res[f"kitti_{label}"]["launches"], SP_KERNELS, 2)
+    (out / f"{tag}.json").write_text(json.dumps(res))
+    print(f"sp {tag}:", json.dumps(res), flush=True)
+    return 0
+
+
+def _max_diff(a, b) -> float:
+    return float(max((x.float() - y.float()).abs().max()
+                     for x, y in zip(a, b)))
+
+
+def sp_paths(dev) -> dict:
+    """Phase 4, sequence parallelism.  The unsharded references here (the
+    main config's 3 pairs, one fp32 pair, one BIG_H x BIG_W pair, the KITTI
+    CLI mixed and --fullprec, with peak memory), then SP_RANKS ranks of
+    this script on the one card (gloo) and one NCCL rank; each rank's flows
+    against the unsharded ones (0.15 px mixed, 1e-3 px fp32), its launches
+    (SP_KERNELS per pair, no B3) and its peak memory (below the unsharded
+    peak at 440x1024 and at BIG_H x BIG_W)."""
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    SP_DIR.mkdir(parents=True)
+    res = {}
+    model = serving_model(dev)
+    _, pairs = frame_pairs(dev, 4, seed=0)
+    serve(model, pairs[:1])
+    torch.cuda.reset_peak_memory_stats()
+    _, mixed = serve(model, pairs[1:])
+    res["unsharded_peak"] = torch.cuda.max_memory_allocated()
+    model32 = create_model(craft_config(mixed_precision=False), device=dev)
+    model32.load_state_dict(model.state_dict())
+    _, fp32 = serve(model32, pairs[1:2])
+    del model32, pairs
+    torch.cuda.empty_cache()
+    _, big = frame_pairs(dev, 1, seed=8, hw=(BIG_H, BIG_W))
+    torch.cuda.reset_peak_memory_stats()
+    times, big_flow = serve(model, big)
+    res["big_unsharded"] = {"pair_ms": times, "max_memory_allocated":
+                            torch.cuda.max_memory_allocated()}
+    print("sp: unsharded", json.dumps(res))
+    ref = {"mixed": [f.cpu() for f in mixed], "fp32": [f.cpu() for f in fp32],
+           "big": [f.cpu() for f in big_flow]}
+    del model, big, mixed, fp32, big_flow
+    torch.cuda.empty_cache()
+
+    # The KITTI tree (H8 = 47: 24/23 rows over two ranks), unsharded CLI.
+    _, _, _, tree = load_oracle_npz(ORACLE)
+    torch.save({f"module.{k}": v
+                for k, v in state_dict_from_flax(tree).items()},
+               SP_DIR / "craft-oracle.pth")
+    rng = np.random.RandomState(9)
+    hw = (KITTI_H, KITTI_W)
+    _write_kitti(SP_DIR / "data", [(rng.randint(0, 256, (*hw, 3)).astype(
+        np.uint8), rng.randint(0, 256, (*hw, 3)).astype(np.uint8))
+        for _ in range(2)], [rng.uniform(-10, 10, (*hw, 2)).astype(
+            np.float32) for _ in range(2)])
+    argv = _sp_kitti_argv(SP_DIR / "craft-oracle.pth", SP_DIR / "data")
+    kitti = {label: _timed_cli(f"sp kitti unsharded {label}", argv + extra,
+                               2)["metrics"]
+             for label, extra in (("mixed", []), ("fp32", ["--fullprec"]))}
+    torch.cuda.empty_cache()
+
+    script = str(Path(__file__).resolve())
+    _run_ranks([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(SP_RANKS), script, "--sp-rank",
+                str(SP_DIR)], f"sp {SP_RANKS} ranks")
+    _run_ranks([sys.executable, script, "--sp-rank", str(SP_DIR),
+                "--sp-nccl"], "sp 1 rank nccl")
+    ranks = [json.loads((SP_DIR / f"rank{r}.json").read_text())
+             for r in range(SP_RANKS)]
+    for r, rk in enumerate(ranks):
+        assert (rk["world"], rk["backend"]) == (SP_RANKS, "gloo"), rk
+        for label, bound in (("mixed", BF16_BOUND_PX),
+                             ("fp32", FULLPREC_BOUND_PX),
+                             ("big", BF16_BOUND_PX)):
+            got = torch.load(SP_DIR / f"rank{r}_{label}.pt")
+            err = _max_diff(got, ref[label])
+            print(f"sp rank {r} {label}: max |flow diff| against unsharded "
+                  f"{err:.3e} px (bound {bound})")
+            assert all(bool(torch.isfinite(f).all()) for f in got)
+            assert err < bound, f"sp rank {r} {label}"
+            rk[f"{label}_err_px"] = err
+        for label, bound in (("mixed", BF16_BOUND_PX),
+                             ("fp32", FULLPREC_BOUND_PX)):
+            got, want = rk[f"kitti_{label}"]["metrics"], kitti[label]
+            d_epe = abs(got["kitti_epe"] - want["kitti_epe"])
+            d_f1 = abs(got["kitti_f1"] - want["kitti_f1"])
+            print(f"sp rank {r} kitti {label}: epe {got['kitti_epe']:.6f} "
+                  f"against {want['kitti_epe']:.6f} (|d| {d_epe:.3e}, bound "
+                  f"{bound}); f1 {got['kitti_f1']:.4f} against "
+                  f"{want['kitti_f1']:.4f} (|d| {d_f1:.3e} points)")
+            assert d_epe < bound, f"sp rank {r} kitti {label} epe"
+        for label, peak, unsharded in (
+                ("440x1024", rk["max_memory_allocated"],
+                 res["unsharded_peak"]),
+                (f"{BIG_H}x{BIG_W}", rk["big"]["max_memory_allocated"],
+                 res["big_unsharded"]["max_memory_allocated"])):
+            print(f"sp rank {r} peak memory at {label}: {peak / 1e9:.3f} GB "
+                  f"against unsharded {unsharded / 1e9:.3f} GB")
+            assert peak < unsharded, f"sp rank {r} peak memory at {label}"
+    rank_flows = [torch.load(SP_DIR / f"rank{r}_mixed.pt")
+                  for r in range(SP_RANKS)]
+    print(f"sp: the ranks' flows differ by "
+          f"{_max_diff(rank_flows[0], rank_flows[1]):.3e} px")
+    nccl = json.loads((SP_DIR / "rank0_nccl.json").read_text())
+    assert (nccl["world"], nccl["backend"]) == (1, "nccl"), nccl
+    err = _max_diff(torch.load(SP_DIR / "rank0_nccl_mixed.pt"), ref["mixed"])
+    print(f"sp nccl rank: max |flow diff| against unsharded {err:.3e} px "
+          f"(bound {BF16_BOUND_PX})")
+    assert err < BF16_BOUND_PX, "sp nccl rank"
+    res.update(ranks=ranks, nccl=nccl, nccl_err_px=err, kitti=kitti)
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    return res
+
+
+def time_sp_kernels(dev, gen, report, b3_ms) -> None:
+    """Phase 5, B9 at the serving shape: sums and write of each shard at
+    n = 2 and 4 beside the plain versions and each shard's bound (one q.k^T
+    sweep of its rows; q, k read once, the sums or its bf16 rows written
+    once), their sum over the shards beside B3 (b3_ms); the kernels line
+    takes n = 2's larger shard."""
+    from craft_tpu_torch.parallel.sp import row_split
+    biases = (torch.randn(15, 15, generator=gen) * 0.5).to(dev)
+    q, k = inputs(gen, 64, dev)
+    agg = (torch.tensor(AGG_WB[0], device=dev),
+           torch.tensor(AGG_WB[1], device=dev))
+    grid = (H8, W8)
+    gmax = ma.scores_global_max(q, k, 0.125)
+    sums = ma.fused_agg_corr_norm_plain(q, k, biases, grid, 100.0, 0.5,
+                                        *agg)[1][:, 0, 1:3].double() * U * U
+    for world in (2, 4):
+        total = 0.0
+        for rank in range(world):
+            h0, h1 = row_split(H8, world, rank)
+            ql = q[:, :, h0 * W8:h1 * W8].contiguous()
+            u1 = ql.shape[2]
+            flops = 2.0 * 4 * u1 * U * 64
+            qk = 2 * 4 * (u1 + U) * 64
+            sargs = (ql, k, biases, grid, gmax, 100.0, 0.5, *agg)
+            wargs = (ql, k, biases, grid, gmax, sums, 100.0, 0.5, *agg)
+            cases = {
+                "corr_norm_sums": (
+                    lambda: ma.corr_norm_sums(*sargs, q_row0=h0),
+                    lambda: ma.corr_norm_sums_plain(*sargs, q_row0=h0),
+                    bound_ms(flops, qk + 16)),
+                "corr_norm_write": (
+                    lambda: ma.corr_norm_write(*wargs, q_row0=h0),
+                    lambda: ma.corr_norm_write_plain(
+                        *wargs[:6], float(U) * U, *wargs[6:], q_row0=h0),
+                    bound_ms(flops, qk + 2 * u1 * U)),
+            }
+            for name, (kern, plain, (bms, by)) in cases.items():
+                ms, pms = time_ms(kern, 5), time_ms(plain, 2)
+                total += ms
+                print(f"{name} n={world} rows {h0}:{h1}: {ms:.3f} ms, plain "
+                      f"{pms:.3f} ms, bound {bms:.4f} ms ({by})")
+                if world == 2 and rank == 0:
+                    report[name].update(ms=ms, plain_ms=pms, library_ms=None,
+                                        bound_ms=bms, bound_by=by)
+            torch.cuda.empty_cache()
+        print(f"B9 n={world}: sums + write over the shards {total:.3f} ms "
+              f"against B3 {b3_ms:.3f} ms")
+
+
 def time_kitti_kernels(dev, gen) -> None:
     """Phase 5, the KITTI evaluation shape (376x1248: H8 = 47, W8 = 156,
     U = 7332, B = 1): B2-B4 beside their plain versions and bounds."""
@@ -1655,7 +2131,11 @@ def main() -> int:
             ("fused_agg_corr_dense", "agg_corr",
              TPU_KERNEL.format("fused_agg_corr:1137")),
             ("mode_softmax_probs_dense", "softmax_probs",
-             TPU_KERNEL.format("mode_softmax_probs:1047"))):
+             TPU_KERNEL.format("mode_softmax_probs:1047")),
+            ("corr_norm_sums", "corr_norm",
+             TPU_KERNEL.format("corr_norm_sums_mt:733")),
+            ("corr_norm_write", "corr_norm",
+             TPU_KERNEL.format("corr_norm_write_mt:772"))):
         report[name] = dict(report["scores_global_max"], name=name,
                             source=SOURCE.format(src), replaces=tpu)
 
@@ -1667,6 +2147,8 @@ def main() -> int:
     check_lookup(dev, report)
     torch.cuda.empty_cache()
     check_dense_kernels(dev, gen, report)
+    torch.cuda.empty_cache()
+    check_sp_kernels(dev, gen, report)
     torch.cuda.empty_cache()
     check_oracle(dev)
     check_oracle_lsinu(dev)
@@ -1693,6 +2175,13 @@ def main() -> int:
     time_lookup(dev, report)
     time_dense_kernels(dev, gen, report)
 
+    sres = sp_paths(dev)
+    for name in ("corr_norm_sums", "corr_norm_write"):
+        report[name]["launches"] = sres["ranks"][0]["launches"][name]
+    torch.cuda.empty_cache()
+    time_sp_kernels(dev, gen, report, report["fused_agg_corr_norm"]["ms"]
+                    - report["scores_global_max"]["ms"])
+
     print(card_line())
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -1702,4 +2191,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--sp-rank" in sys.argv:  # a rank of the sequence-parallel phase
+        sys.exit(sp_rank_main(sys.argv[sys.argv.index("--sp-rank") + 1],
+                              "--sp-nccl" in sys.argv))
     sys.exit(main())

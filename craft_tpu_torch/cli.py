@@ -13,8 +13,8 @@ from craft_tpu_torch.config import (ModelConfig, f2_trans_config,
                                     inter_corr_config, intra_attn_config)
 
 # ROADMAP.md queue items (section 2) that hold what the port lacks.
-ROADMAP_SP = "ROADMAP.md section 2, item 2 (B9 with DDP and sequence " \
-    "parallelism)"
+ROADMAP_SP = "ROADMAP.md section 2, item 8 (sequence parallelism under " \
+    "lsinu and --f2radius, and across several cards)"
 ROADMAP_EVAL = "ROADMAP.md section 2, item 4 (the rest of the evaluator)"
 ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (the remaining archs)"
 

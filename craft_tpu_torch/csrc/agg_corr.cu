@@ -83,8 +83,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const size_t off = (size_t)b * NMODES * U * md;
   const size_t plane = (size_t)U * U;
   WindowBias wb;
-  load_q_modes(q + off, qs, win, wb, BiasArgs{biases, W8, R, U, U}, qt, U,
-               md);
+  load_q_modes(q + off, qs, win, wb, BiasArgs{biases, W8, R, U, U, 0}, qt,
+               U, md);
   const float clip = scal[0], pos_w = scal[1], agg_w = scal[2];
   const int nk = (U + TILE - 1) / TILE;
   double da = 0.0;
@@ -182,7 +182,7 @@ extern "C" int agg_corr_launch(const void* q, const void* k,
                                void* out, int B, int U, int md, int W8, int R,
                                float scale, int in_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const BiasArgs ba{(const float*)biases, W8, R, U, U};
+  const BiasArgs ba{(const float*)biases, W8, R, U, U, 0};
   if (in_bf16)
     return launch_fwd<__nv_bfloat16, WindowBias>(q, k, ba, scal, out, B, U,
                                                  U, md, scale, s);
@@ -198,7 +198,7 @@ extern "C" int agg_corr_dense_launch(const void* q, const void* k,
                                      void* out, int B, int U1, int U2, int md,
                                      float scale, int in_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const BiasArgs ba{(const float*)table, 0, 0, U1, U2};
+  const BiasArgs ba{(const float*)table, 0, 0, U1, U2, 0};
   if (table == nullptr)
     return in_bf16 ? launch_fwd<__nv_bfloat16, NoBias>(q, k, ba, scal, out, B,
                                                        U1, U2, md, scale, s)

@@ -12,6 +12,9 @@
 // template over them.  The sliding window is read straight from the
 // (2R+1)^2 window in shared memory: bias(u1, u2) = w[kh - qh + R][kw - qw
 // + R] inside the window, 0 outside, with u = h * W8 + w (row-major tokens).
+// A query row shard (sequence parallelism) counts its query tokens from the
+// global token q_tok0, so the window lands on the right diagonals; the
+// offset enters the row coordinates once per block, not the inner loops.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -110,6 +113,8 @@ struct BiasArgs {
   const float* data;  // the window [(2R+1)^2], the table [U1, U2], or null
   int W8, R;          // window: token grid width and radius
   int U1, U2;         // table: rows (queries) and columns (keys)
+  int q_tok0;         // window: global token of query row 0 (a row shard
+                      // of the grid under sequence parallelism; else 0)
 };
 
 struct NoBias {
@@ -133,7 +138,7 @@ struct WindowBias {
     const int ty = threadIdx.x >> 4;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int u = qt * TILE + ty + 16 * i;
+      const int u = a.q_tok0 + qt * TILE + ty + 16 * i;
       qh[i] = u / W8;
       qw[i] = u - qh[i] * W8;
     }

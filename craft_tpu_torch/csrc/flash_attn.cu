@@ -143,21 +143,25 @@ static int launch(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// B2.  q, k: [BM, U, md]; v, out: [BM, U, F] contiguous, all bf16 when
-// in_bf16 else fp32; md <= 64, F == FEAT; biases: [(2R+1)^2] fp32; clip:
-// [1] fp32 on the device.  Returns a cudaError_t code.
+// B2.  q: [BM, U1, md]; k: [BM, U2, md]; v: [BM, U2, F]; out: [BM, U1, F]
+// contiguous, all bf16 when in_bf16 else fp32; md <= 64, F == FEAT; the
+// queries are the grid's tokens q_tok0 .. q_tok0 + U1 - 1 (a row shard; 0
+// and U1 = U2 for the whole grid), the keys all U2 = H8 * W8 tokens;
+// biases: [(2R+1)^2] fp32; clip: [1] fp32 on the device.  Returns a
+// cudaError_t code.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, const void* biases,
-                                 const void* clip, int BM, int U, int md,
-                                 int F, int W8, int R, float scale,
-                                 float pos_w, int in_bf16, void* stream) {
+                                 const void* clip, int BM, int U1, int U2,
+                                 int q_tok0, int md, int F, int W8, int R,
+                                 float scale, float pos_w, int in_bf16,
+                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (F != FEAT) return (int)cudaErrorInvalidValue;
-  const BiasArgs ba{(const float*)biases, W8, R, U, U};
+  const BiasArgs ba{(const float*)biases, W8, R, U1, U2, q_tok0};
   return in_bf16 ? launch<__nv_bfloat16, WindowBias>(
-                       q, k, v, out, ba, clip, BM, U, U, md, scale, pos_w, s)
-                 : launch<float, WindowBias>(q, k, v, out, ba, clip, BM, U, U,
-                                             md, scale, pos_w, s);
+                       q, k, v, out, ba, clip, BM, U1, U2, md, scale, pos_w, s)
+                 : launch<float, WindowBias>(q, k, v, out, ba, clip, BM, U1,
+                                             U2, md, scale, pos_w, s);
 }
 
 // B8.  q: [BM, U1, md]; k: [BM, U2, md]; v: [BM, U2, F]; out: [BM, U1, F];
@@ -171,7 +175,7 @@ extern "C" int flash_attn_dense_launch(const void* q, const void* k,
                                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (F != FEAT) return (int)cudaErrorInvalidValue;
-  const BiasArgs ba{(const float*)table, 0, 0, U1, U2};
+  const BiasArgs ba{(const float*)table, 0, 0, U1, U2, 0};
   if (table == nullptr)
     return in_bf16 ? launch<__nv_bfloat16, NoBias>(q, k, v, out, ba, clip, BM,
                                                    U1, U2, md, scale, pos_w, s)

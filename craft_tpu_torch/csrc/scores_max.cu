@@ -17,7 +17,7 @@
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
     scores_max_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      float* __restrict__ partial, int U, int md,
+                      float* __restrict__ partial, int U1, int U2, int md,
                       float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
@@ -25,23 +25,27 @@ __global__ void __launch_bounds__(NTHREADS)
   __shared__ float red[NTHREADS / 32];
   const int qt = blockIdx.x, bm = blockIdx.y;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const T* qb = q + (size_t)bm * U * md;
-  const T* kb = k + (size_t)bm * U * md;
-  load_tile_t(qs, qb, qt * TILE, U, md);
+  const T* qb = q + (size_t)bm * U1 * md;
+  const T* kb = k + (size_t)bm * U2 * md;
+  load_tile_t(qs, qb, qt * TILE, U1, md);
   float m = NEG_INF;
-  const int nk = (U + TILE - 1) / TILE;
+  // The masks leave the sweep's index arithmetic: this thread's query rows
+  // are tested once, its key columns against the count left in the tile.
+  const int rows = U1 - qt * TILE - ty;
+  const int nk = (U2 + TILE - 1) / TILE;
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();
-    load_tile_t(ks, kb, kt * TILE, U, md);
+    load_tile_t(ks, kb, kt * TILE, U2, md);
     __syncthreads();
     float acc[4][4];
     score_tile(acc, qs, ks, md);
+    const int cols = U2 - kt * TILE - tx;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if (qt * TILE + ty + 16 * i >= U) continue;
+      if (16 * i >= rows) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (kt * TILE + tx + 16 * j < U) m = fmaxf(m, acc[i][j] * scale);
+        if (16 * j < cols) m = fmaxf(m, acc[i][j] * scale);
     }
   }
 #pragma unroll
@@ -72,13 +76,14 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-// q, k: [BM, U, md] contiguous (bf16 when in_bf16, else fp32), md <= 64.
-// partial: [BM * ceil(U / 64)] fp32 scratch; out: [1] fp32.
+// q: [BM, U1, md], k: [BM, U2, md] contiguous (bf16 when in_bf16, else
+// fp32), md <= 64; U1 < U2 for a row shard of the queries.  partial:
+// [BM * ceil(U1 / 64)] fp32 scratch; out: [1] fp32.
 extern "C" int scores_max_launch(const void* q, const void* k, void* partial,
-                                 void* out, int BM, int U, int md,
+                                 void* out, int BM, int U1, int U2, int md,
                                  float scale, int in_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nq = (U + TILE - 1) / TILE;
+  const int nq = (U1 + TILE - 1) / TILE;
   const size_t smem = 2 * MAXMD * SPAD * sizeof(float);
   dim3 grid(nq, BM);
   cudaError_t err;
@@ -87,12 +92,13 @@ extern "C" int scores_max_launch(const void* q, const void* k, void* partial,
     if (err != cudaSuccess) return (int)err;
     scores_max_kernel<__nv_bfloat16><<<grid, NTHREADS, smem, s>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (float*)partial,
-        U, md, scale);
+        U1, U2, md, scale);
   } else {
     err = allow_smem(scores_max_kernel<float>, smem);
     if (err != cudaSuccess) return (int)err;
     scores_max_kernel<float><<<grid, NTHREADS, smem, s>>>(
-        (const float*)q, (const float*)k, (float*)partial, U, md, scale);
+        (const float*)q, (const float*)k, (float*)partial, U1, U2, md,
+        scale);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -125,21 +125,23 @@ static int launch(const void* q, const void* k, const BiasArgs& ba,
   return (int)cudaGetLastError();
 }
 
-// B4.  q, k: [BM, U, md] contiguous (bf16 when in_bf16, else fp32), md <=
-// 64; out: [BM, U, U] of out_kind (0 fp32, 1 bf16, 2 int8); row_scale:
-// [BM, U] fp32 (written for int8 only); biases: [(2R+1)^2] fp32; clip: [1]
-// fp32.  bf16 inputs take every out_kind; fp32 inputs (the fp32 config)
-// only fp32.
+// B4.  q: [BM, U1, md], k: [BM, U2, md] contiguous (bf16 when in_bf16,
+// else fp32), md <= 64; the queries are the grid's tokens q_tok0 .. q_tok0
+// + U1 - 1 (a row shard; 0 and U1 = U2 for the whole grid), the keys all
+// U2 = H8 * W8 tokens; out: [BM, U1, U2] of out_kind (0 fp32, 1 bf16, 2
+// int8); row_scale: [BM, U1] fp32 (written for int8 only); biases:
+// [(2R+1)^2] fp32; clip: [1] fp32.  bf16 inputs take every out_kind; fp32
+// inputs (the fp32 config) only fp32.
 extern "C" int probs_launch(const void* q, const void* k, const void* biases,
                             const void* clip, void* out, void* row_scale,
-                            int BM, int U, int md, int W8, int R, float scale,
-                            float pos_w, int in_bf16, int out_kind,
-                            void* stream) {
+                            int BM, int U1, int U2, int q_tok0, int md,
+                            int W8, int R, float scale, float pos_w,
+                            int in_bf16, int out_kind, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const BiasArgs ba{(const float*)biases, W8, R, U, U};
-#define CASE(T, KIND)                                                       \
-  return launch<T, KIND, WindowBias>(q, k, ba, clip, out, row_scale, BM, U, \
-                                     U, md, scale, pos_w, s);
+  const BiasArgs ba{(const float*)biases, W8, R, U1, U2, q_tok0};
+#define CASE(T, KIND)                                                        \
+  return launch<T, KIND, WindowBias>(q, k, ba, clip, out, row_scale, BM, U1, \
+                                     U2, md, scale, pos_w, s);
   if (!in_bf16) {
     if (out_kind == OUT_F32) CASE(float, OUT_F32)
   } else if (out_kind == OUT_F32) {
@@ -163,7 +165,7 @@ extern "C" int probs_dense_launch(const void* q, const void* k,
                                   float scale, float pos_w, int in_bf16,
                                   int out_kind, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const BiasArgs ba{(const float*)table, 0, 0, U1, U2};
+  const BiasArgs ba{(const float*)table, 0, 0, U1, U2, 0};
 #define CASE(T, KIND)                                                         \
   return table ? launch<T, KIND, TableBias>(q, k, ba, clip, out, nullptr, BM, \
                                             U1, U2, md, scale, pos_w, s)      \

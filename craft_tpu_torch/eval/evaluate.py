@@ -9,6 +9,11 @@ curves), magnitude-bucketed EPE over [0, 1, 10, 20, 30, inf), KITTI F1-all
 truncation.  The model runs on the card (or the device asked for) under
 ``torch.inference_mode``; metrics are computed in numpy on the host, as in
 the JAX package, so both report the same statistics.
+
+With ``seq_parallel`` the evaluator runs as one rank of a sequence-parallel
+group (``craft_tpu_torch.parallel.sp``: torchrun's ranks, or one rank
+without torchrun): each rank holds its share of the grid rows of the
+O(U^2) tensors, every rank computes the same metrics, and rank 0 prints.
 """
 
 from __future__ import annotations
@@ -26,17 +31,29 @@ from craft_tpu_torch.config import ModelConfig
 from craft_tpu_torch.data import datasets as ds
 from craft_tpu_torch.models.flow_model import create_model
 from craft_tpu_torch.ops.geometry import InputPadder
+from craft_tpu_torch.parallel import sp
 
 MAG_ENDPOINTS = [1, 10, 20, 30, np.inf]
+
+def _say(*args) -> None:
+    """print, on the rank that prints (all output outside sequence
+    parallelism)."""
+    if sp.is_main_rank():
+        print(*args)
 
 
 class Evaluator:
     """The model in eval mode on `device` (default CUDA; raises without
-    one), with the reference state_dict `weights` loaded strictly."""
+    one), with the reference state_dict `weights` loaded strictly.  With
+    `seq_parallel` the grid's rows are split across the ranks of this
+    process's SeqParallel group, made on first use, and the model runs on
+    the rank's device."""
 
     def __init__(self, cfg: ModelConfig, weights: Mapping, iters: int = 12,
-                 test_mode: int = 1, device=None):
-        self.device = resolve_device(device)
+                 test_mode: int = 1, device=None, seq_parallel=False):
+        self.seq_parallel = sp.init(device) if seq_parallel else None
+        self.device = (self.seq_parallel.device if seq_parallel
+                       else resolve_device(device))
         self.model = create_model(cfg, device=self.device)
         self.model.load_state_dict(weights, strict=True)
         self.cfg, self.iters, self.test_mode = cfg, iters, test_mode
@@ -50,7 +67,8 @@ class Evaluator:
         mode = self.cfg.upsample_mode if self.test_mode == 1 else "all"
         with torch.inference_mode():
             lowres, flows = self.model(a, b, iters=self.iters,
-                                       upsample_mode=mode)
+                                       upsample_mode=mode,
+                                       seq_parallel=self.seq_parallel)
             if self.test_mode == 1:
                 flows = flows[-1:]
             flows = flows.cpu().numpy()
@@ -134,9 +152,11 @@ def _epe(flow: np.ndarray, gt: np.ndarray) -> np.ndarray:
 
 
 def validate_chairs(cfg, weights, iters=12, data_root="datasets",
-                    max_val_count=-1, device=None) -> Dict[str, float]:
+                    max_val_count=-1, device=None,
+                    seq_parallel=False) -> Dict[str, float]:
     """FlyingChairs validation split EPE (reference evaluate.py:247-280)."""
-    evaluator = Evaluator(cfg, weights, iters=iters, device=device)
+    evaluator = Evaluator(cfg, weights, iters=iters, device=device,
+                          seq_parallel=seq_parallel)
     dataset = ds.FlyingChairs(
         split="validation", root=f"{data_root}/FlyingChairs_release/data",
         split_file=f"{data_root}/FlyingChairs_release/"
@@ -147,18 +167,18 @@ def validate_chairs(cfg, weights, iters=12, data_root="datasets",
         _, flows = evaluator(item["image1"][None], item["image2"][None])
         epe_list.append(_epe(flows[-1][0], item["flow"]).reshape(-1))
     epe = float(np.concatenate(epe_list).mean())
-    print(f"Validation Chairs EPE: {epe:.6f}")
+    _say(f"Validation Chairs EPE: {epe:.6f}")
     return {"chairs_epe": epe}
 
 
 def _validate_dense(cfg, weights, dataset, name, iters=12, max_val_count=-1,
                     pad_mode="sintel", batch_size=1, test_mode=1,
-                    device=None) -> Dict[str, float]:
+                    device=None, seq_parallel=False) -> Dict[str, float]:
     """The dense-GT validation loop (reference evaluate.py:444-602):
     batch_size > 1 batches consecutive same-shape pairs into one forward;
     test_mode 2 adds per-iteration EPE (reference :317-323)."""
     evaluator = Evaluator(cfg, weights, iters=iters, test_mode=test_mode,
-                          device=device)
+                          device=device, seq_parallel=seq_parallel)
     iter_epes: Dict[int, list] = {}
     epe_list, mag_list = [], []
     for items in _iter_batches(dataset, batch_size, max_val_count):
@@ -185,20 +205,21 @@ def _validate_dense(cfg, weights, dataset, name, iters=12, max_val_count=-1,
     }
     res.update({f"{name}_{k}": v
                 for k, v in _mag_bucket_stats(epe_all, mag_all).items()})
-    print(f"Validation ({name}) EPE: {res[f'{name}_epe']:.6f}, "
+    _say(f"Validation ({name}) EPE: {res[f'{name}_epe']:.6f}, "
           f"1px: {res[f'{name}_1px']:.4f}, 3px: {res[f'{name}_3px']:.4f}, "
           f"5px: {res[f'{name}_5px']:.4f}")
     if test_mode == 2:
         for it in sorted(iter_epes):
             e = float(np.concatenate(iter_epes[it]).mean())
             res[f"{name}_iter{it}_epe"] = e
-            print(f"  Iter {it}, EPE: {e:.6f}")
+            _say(f"  Iter {it}, EPE: {e:.6f}")
     return res
 
 
 def validate_sintel(cfg, weights, iters=12, data_root="datasets",
                     dstype="both", max_val_count=-1, batch_size=1,
-                    test_mode=1, device=None) -> Dict[str, float]:
+                    test_mode=1, device=None,
+                    seq_parallel=False) -> Dict[str, float]:
     """Sintel training split, clean and final passes (reference
     evaluate.py:444-602)."""
     dstypes = ["clean", "final"] if dstype == "both" else [dstype]
@@ -208,15 +229,18 @@ def validate_sintel(cfg, weights, iters=12, data_root="datasets",
                                root=f"{data_root}/Sintel")
         results.update(_validate_dense(
             cfg, weights, dataset, f"sintel_{dt}", iters, max_val_count,
-            batch_size=batch_size, test_mode=test_mode, device=device))
+            batch_size=batch_size, test_mode=test_mode, device=device,
+            seq_parallel=seq_parallel))
     return results
 
 
 def _validate_sparse(cfg, weights, dataset, name, iters=12,
-                     max_val_count=-1, device=None) -> Dict[str, float]:
+                     max_val_count=-1, device=None,
+                     seq_parallel=False) -> Dict[str, float]:
     """Sparse-GT validation with F1-all (reference evaluate.py:770-900:
     out = (epe > 3) & (epe / mag > 0.05), over valid pixels)."""
-    evaluator = Evaluator(cfg, weights, iters=iters, device=device)
+    evaluator = Evaluator(cfg, weights, iters=iters, device=device,
+                          seq_parallel=seq_parallel)
     epe_list, out_list = [], []
     for item in _iter_pairs(dataset, max_val_count):
         gt, valid = item["flow"], item["valid"]
@@ -234,17 +258,19 @@ def _validate_sparse(cfg, weights, dataset, name, iters=12,
     out_all = np.concatenate(out_list)
     res = {f"{name}_epe": float(epe_all.mean()),
            f"{name}_f1": float(100 * out_all.mean())}
-    print(f"Validation {name}: EPE {res[f'{name}_epe']:.6f}, "
+    _say(f"Validation {name}: EPE {res[f'{name}_epe']:.6f}, "
           f"F1-all {res[f'{name}_f1']:.4f}%")
     return res
 
 
 def validate_kitti(cfg, weights, iters=12, data_root="datasets",
-                   max_val_count=-1, device=None) -> Dict[str, float]:
+                   max_val_count=-1, device=None,
+                   seq_parallel=False) -> Dict[str, float]:
     """KITTI 2015 training split: EPE and F1-all."""
     dataset = ds.KITTI(split="training", root=f"{data_root}/KITTI")
     return _validate_sparse(cfg, weights, dataset, "kitti", iters,
-                            max_val_count, device=device)
+                            max_val_count, device=device,
+                            seq_parallel=seq_parallel)
 
 
 VALIDATORS = {

@@ -9,10 +9,15 @@ one image pair:
       --craft --setrans --dataset sintel [--batch_size 2] [--test_mode 2]
   python -m craft_tpu_torch.evaluate --model ... --dataset kitti
   python -m craft_tpu_torch.evaluate --model ... --img1 a.png --img2 b.png
+  torchrun --nproc_per_node N -m craft_tpu_torch.evaluate --seq_parallel \
+      --model ... --dataset kitti
 
 Mixed precision is on unless --fullprec, which also turns TF32 off for
 matrix products and convolutions.  It runs on the card unless --device
-names another device (--device cpu).
+names another device (--device cpu).  --seq_parallel splits the grid rows
+of the attention and correlation tensors across the ranks (under torchrun;
+one rank without it): NCCL when every rank has a card of its own, gloo when
+ranks share one; every rank computes the metrics and rank 0 prints them.
 """
 
 from __future__ import annotations
@@ -81,7 +86,11 @@ def _check_ported(args) -> None:
               (f"--dataset {args.dataset}",
                args.dataset not in (None, "chairs", "sintel", "kitti"),
                ROADMAP_EVAL),
-              ("--seq_parallel", args.seq_parallel, ROADMAP_SP)]
+              ("--seq_parallel with --interpos/--intrapos lsinu or "
+               "--f2radius", args.seq_parallel and (
+                   "lsinu" in (args.inter_pos_code_type,
+                               args.intra_pos_code_type)
+                   or args.f2_attn_mask_radius > 0), ROADMAP_SP)]
     for what, on, item in checks:
         if on:
             raise not_ported(what, item)
@@ -105,7 +114,8 @@ def main(argv=None):
     if args.img1 and args.img2:
         return gen_flow(cfg, weights, args.img1, args.img2, args.flow_path,
                         output_path=args.output_path, iters=args.iters,
-                        model_name=args.model_name, device=device)
+                        model_name=args.model_name, device=device,
+                        seq_parallel=args.seq_parallel)
     if args.dataset:
         extra = {}
         if args.dataset == "sintel":
@@ -116,7 +126,8 @@ def main(argv=None):
                   "ignoring")
         return VALIDATORS[args.dataset](
             cfg, weights, iters=args.iters, data_root=args.data_root,
-            max_val_count=args.max_val_count, device=device, **extra)
+            max_val_count=args.max_val_count, device=device,
+            seq_parallel=args.seq_parallel, **extra)
     print("Nothing to do: pass --dataset or --img1/--img2")
     return None
 

@@ -13,6 +13,16 @@ BatchNorm takes batch statistics unless ``freeze_bn``; dropout draws from
 the `generator` passed to forward.  The correlation is an fp32 island; pyramid
 levels are stored bf16 under mixed precision; coords stay fp32 and are
 detached every iteration.
+
+Under sequence parallelism (eval, sliding bias; ``seq_parallel``, a
+``craft_tpu_torch.parallel.sp.SeqParallel`` group) each rank holds its
+RowShard's query rows of the O(U^2) tensors: the intra probs, the normed
+level 0 (B9) and the pyramid pooled from it (pooling runs over the key axis
+only), and it runs the lookup on its rows of coords1 and the aggregator's
+probs product on its rows; the f2 output, the lookup features and the
+aggregated motion are gathered to every rank, and everything else (the
+encoders, the projections, the update block's convs, GRU and upsampling)
+runs on every rank as it is.
 """
 
 from __future__ import annotations
@@ -53,11 +63,13 @@ class TransCorr(nn.Module):
         port keeps B3 for fp32, whose output it normalizes exactly)."""
         return not self.training and self.pos_code_type == "bias"
 
-    def forward(self, fmap1, fmap2, out_dtype=torch.float32, generator=None):
+    def forward(self, fmap1, fmap2, out_dtype=torch.float32, generator=None,
+                shard=None):
         vispos1, pos_biases = self.vispos_encoder(fmap1, generator)
         vispos2, _ = self.vispos_encoder(fmap2, generator)
         return self.setrans(vispos1, vispos2, pos_biases=pos_biases,
-                            out_dtype=out_dtype, generator=generator)
+                            out_dtype=out_dtype, generator=generator,
+                            shard=shard)
 
 
 class FlowModel(nn.Module):
@@ -93,13 +105,15 @@ class FlowModel(nn.Module):
 
     def forward(self, image1, image2, iters: Optional[int] = None,
                 flow_init=None, upsample_mode: Optional[str] = None,
-                generator=None):
+                generator=None, seq_parallel=None):
         """image1/image2: [B, H, W, 3] floats in [0, 255] on the model's
         device.  Returns (flow_lowres [B, H/8, W/8, 2], flows_up
         [iters, B, H, W, 2]); with upsample_mode='final' only the last
         iteration is upsampled and flows_up is [1, B, H, W, 2].
         `generator` (a ``torch.Generator`` on the model's device) draws
-        every training dropout mask."""
+        every training dropout mask.  `seq_parallel` (a SeqParallel group,
+        eval only) splits the grid's rows across its ranks; every rank
+        returns the whole flow."""
         cfg = self.cfg
         iters = iters or cfg.iters
         upsample_mode = upsample_mode or cfg.upsample_mode
@@ -112,6 +126,7 @@ class FlowModel(nn.Module):
         B, H, W, _ = image1.shape
         H8, W8 = H // 8, W // 8
         hdim = cfg.hidden_dim
+        shard = None if seq_parallel is None else seq_parallel.shard(H8, W8)
 
         # The record_function ranges name the phases in a profiler trace.
         with record_function("craft.encoders"):
@@ -121,13 +136,13 @@ class FlowModel(nn.Module):
             net = torch.tanh(cnet[..., :hdim])
             inp = torch.relu(cnet[..., hdim:])
         with record_function("craft.f2_trans"):
-            fmap2 = self.f2_trans(fmap2, generator)
+            fmap2 = self.f2_trans(fmap2, generator, shard)
             fmap1, fmap2 = fmap1.float(), fmap2.float()
         with record_function("craft.intra_attention"):
-            attention = self.att(inp, generator)
+            attention = self.att(inp, generator, shard)
         with record_function("craft.corr_volume"):
             vol = self.corr_fn(fmap1, fmap2, out_dtype=lvl_dtype,
-                               generator=generator)
+                               generator=generator, shard=shard)
             if self.corr_fn.prenormed():
                 pyramid = pyramid_from_level0(vol, B, H8, W8,
                                               cfg.corr_levels,
@@ -150,12 +165,18 @@ class FlowModel(nn.Module):
         for _ in range(iters):
             coords1 = coords1.detach()
             with record_function("craft.lookup"):
-                corr = corr_lookup(pyramid, coords1)
+                if shard is None:
+                    corr = corr_lookup(pyramid, coords1)
+                else:
+                    corr = corr_lookup(pyramid,
+                                       coords1[:, shard.h0:shard.h1])
+                    corr = shard.gather(corr.reshape(B, -1, corr.shape[-1])
+                                        ).reshape(B, H8, W8, -1)
             flow = coords1 - coords0
             with record_function("craft.update_block"):
                 net, up_mask, delta = self.update_block(
                     net, inp, corr.to(cdt), flow.to(cdt), attention,
-                    gru_static=gru_static)
+                    gru_static=gru_static, shard=shard)
             coords1 = coords1 + delta.float()
             if upsample_mode == "all":
                 with record_function("craft.upsample"):

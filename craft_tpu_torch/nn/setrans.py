@@ -17,6 +17,14 @@ sites take the dense-table kernels: the inter site the raw fp32 volume of
 B6 dense (normed by the caller's build_pyramid), the f2 site B8, the intra
 site float probs in the compute dtype from B4 dense (``quantize_probs`` is
 ignored, as the JAX package's XLA softmax does).
+Under sequence parallelism (eval, sliding bias) each site takes `shard`, this
+rank's RowShard of the grid: queries from its rows, keys and values from
+every token, through the same kernels with the shard's row offset and the
+clamp predicate all-maxed over the ranks; the inter site gives the shard's
+rows of the normed volume (B9 in place of B3,
+``craft_tpu_torch.parallel.sequence_parallel``), the intra site the shard's
+rows of the probs, and the f2 site its rows of the output gathered to every
+rank.
 In train mode every site is differentiable: the inter site gives the raw
 aggregated volume of B6 (its backward a kernel too), the f2 and intra sites
 float probs in the compute dtype from B4 with B7 as their backward
@@ -46,11 +54,18 @@ from craft_tpu_torch.ops.kernels.mode_attention import (
     mode_softmax_probs, mode_softmax_probs_dense, scores_global_max,
     sliding_pos_biases)
 from craft_tpu_torch.ops.kernels.probs_vjp import mode_softmax_probs_diff
+from craft_tpu_torch.parallel.sequence_parallel import \
+    sp_fused_agg_corr_norm_mt
 
 NOT_PORTED_TRAIN = (
     "training with pos_code_type='lsinu' or an f2 attention mask "
     "(--interpos/--intrapos lsinu, --f2radius) is not ported to "
     "craft_tpu_torch yet: see ROADMAP.md section 2, item 7.")
+NOT_PORTED_SP = (
+    "sequence parallelism in training, with pos_code_type='lsinu' or with "
+    "an f2 attention mask (--seq_parallel with --interpos/--intrapos lsinu "
+    "or --f2radius) is not ported to craft_tpu_torch yet: see ROADMAP.md "
+    "section 2, item 8.")
 
 
 class SlidingBias(NamedTuple):
@@ -179,7 +194,10 @@ class ExpandedFeatTrans(nn.Module):
     setrans.py:304-410), without the FFN (has_FFN=False on every main-path
     site) and with softmax mode pooling (every site's).  input_feat:
     [B, U2, C]; attention: probs [B, M, U1, U2], QuantizedProbs, or None with
-    `attention_fn` mapping v [B, M, U2, F] to [B, M, U1, F]."""
+    `attention_fn` mapping v [B, M, U2, F] to [B, M, U1, F].  Under
+    sequence parallelism U1 is the `shard`'s rows: the input skip takes
+    those rows of input_feat, and the output is gathered to every rank as
+    [B, U2, F]."""
 
     def __init__(self, cfg: SETransSiteConfig, dtype=torch.float32):
         super().__init__()
@@ -196,7 +214,8 @@ class ExpandedFeatTrans(nn.Module):
         if cfg.has_input_skip:
             self.input_skip_coeff = nn.Parameter(torch.ones(1))
 
-    def forward(self, input_feat, attention=None, attention_fn=None):
+    def forward(self, input_feat, attention=None, attention_fn=None,
+                shard=None):
         cfg, dt = self.cfg, self.dtype
         B, U2, _ = input_feat.shape
         M, F = cfg.num_modes, cfg.feat_dim
@@ -212,9 +231,10 @@ class ExpandedFeatTrans(nn.Module):
             fused = attention.to(dt) @ v
         pooled = self.feat_softaggr(fused)
         if cfg.has_input_skip:
-            pooled = self.input_skip_coeff.to(dt) * input_feat + pooled
+            skip = input_feat if shard is None else shard.tokens(input_feat)
+            pooled = self.input_skip_coeff.to(dt) * skip + pooled
             pooled = layer_norm(pooled, dtype=dt)
-        return pooled
+        return pooled if shard is None else shard.gather(pooled)
 
 
 class CrossAttFeatTrans(nn.Module):
@@ -251,27 +271,36 @@ class CrossAttFeatTrans(nn.Module):
         k = k.reshape(B, U2, M, md).permute(0, 2, 1, 3).contiguous()
         return q, k
 
-    def _clip(self, q, k):
-        gmax = scores_global_max(q.detach(), k.detach(),
-                                 1.0 / math.sqrt(self.cfg.mode_dim))
+    def _clip(self, q, k, shard=None):
+        """The clamp: attn_clip where the raw max of the scores (over every
+        rank's rows under `shard`) exceeds it, else none (1e30)."""
+        scale = 1.0 / math.sqrt(self.cfg.mode_dim)
+        gmax = scores_global_max(q.detach(), k.detach(), scale)
+        if shard is not None:
+            gmax = shard.all_max(gmax)
         return torch.where(gmax > self.cfg.attn_clip,
                            torch.full_like(gmax, self.cfg.attn_clip),
                            torch.full_like(gmax, 1e30))
 
     def forward(self, query_feat, key_feat=None, pos_biases=None,
-                out_dtype=None, generator=None, attention_mask=None):
+                out_dtype=None, generator=None, attention_mask=None,
+                shard=None):
         """Scores-only site: the normed [B, U1, U2] volume in `out_dtype`
         (eval with the sliding bias), or the raw fp32 one (train, or no
         sliding bias).  Probs-only site: [B, M, U1, U2] probs or
         QuantizedProbs.  Feature site: [B, U1, F].  `pos_biases` is a
         SlidingBias or None (pos_code_type 'lsinu'); `attention_mask` an
         additive fp32 [U1, U2] table (the f2 site's --f2radius) or None.
-        `generator` draws the attention dropout in training."""
+        `generator` draws the attention dropout in training.  `shard` (a
+        RowShard) takes the queries from this rank's rows of query_feat."""
         cfg = self.cfg
         if key_feat is None:
             key_feat = query_feat
-        q, k = self._qk(query_feat, key_feat)
         dense = pos_biases is None or attention_mask is not None
+        if shard is not None and (self.training or dense):
+            raise NotImplementedError(NOT_PORTED_SP)
+        q, k = self._qk(query_feat if shard is None
+                        else shard.tokens(query_feat), key_feat)
         if self.training:
             if dense:
                 raise NotImplementedError(NOT_PORTED_TRAIN)
@@ -280,28 +309,35 @@ class CrossAttFeatTrans(nn.Module):
             return self._dense_forward(q, k, key_feat, pos_biases,
                                        attention_mask)
         grid_hw = (pos_biases.H, pos_biases.W)
+        q_row0 = 0 if shard is None else shard.h0
         if cfg.out_attn_scores_only:
             agg_w, agg_b = self.attn_softaggr.scalar_wb()
+            out_dtype = out_dtype or torch.float32
+            if shard is not None:
+                return sp_fused_agg_corr_norm_mt(
+                    shard, q, k, pos_biases.biases, cfg.attn_clip,
+                    cfg.pos_code_weight, agg_w, agg_b, out_dtype=out_dtype)
             vol, _ = fused_agg_corr_norm(
                 q, k, pos_biases.biases, grid_hw, cfg.attn_clip,
-                cfg.pos_code_weight, agg_w, agg_b,
-                out_dtype=out_dtype or torch.float32)
+                cfg.pos_code_weight, agg_w, agg_b, out_dtype=out_dtype)
             return vol
-        clip = self._clip(q, k)
+        clip = self._clip(q, k, shard)
         if cfg.out_attn_probs_only:
             if cfg.quantize_probs:
                 return QuantizedProbs(*mode_softmax_probs(
                     q, k, pos_biases.biases, grid_hw, clip,
-                    cfg.pos_code_weight, quantized=True))
+                    cfg.pos_code_weight, quantized=True, q_row0=q_row0))
             return mode_softmax_probs(q, k, pos_biases.biases, grid_hw, clip,
                                       cfg.pos_code_weight,
-                                      out_dtype=self.dtype)
+                                      out_dtype=self.dtype, q_row0=q_row0)
 
         def attention_fn(v):
             return flash_mode_attention(q, k, v, pos_biases.biases, grid_hw,
-                                        clip, cfg.pos_code_weight)
+                                        clip, cfg.pos_code_weight,
+                                        q_row0=q_row0)
 
-        return self.out_trans(key_feat, attention_fn=attention_fn)
+        return self.out_trans(key_feat, attention_fn=attention_fn,
+                              shard=shard)
 
     def _dense_forward(self, q, k, key_feat, pos_biases, attention_mask):
         """Eval mode without a sliding bias (lsinu) or with an attention
@@ -351,7 +387,9 @@ class CrossAttFeatTrans(nn.Module):
 class SelfAttVisPosTrans(nn.Module):
     """Self-attention over an NHWC feature map (reference setrans.py:568-619):
     encode -> CrossAttFeatTrans -> NHWC (unless attention-only output), with
-    the local attention mask when attn_mask_radius > 0."""
+    the local attention mask when attn_mask_radius > 0.  Under sequence
+    parallelism (`shard`) a feature site's output is the whole grid, gathered
+    before the reshape; an attention-only site gives the shard's rows."""
 
     def __init__(self, cfg: SETransSiteConfig, dtype=torch.float32):
         super().__init__()
@@ -359,14 +397,15 @@ class SelfAttVisPosTrans(nn.Module):
         self.vispos_encoder = InputFeatEncoder(cfg, dtype)
         self.setrans = CrossAttFeatTrans(cfg, dtype)
 
-    def forward(self, x: torch.Tensor, generator=None):
+    def forward(self, x: torch.Tensor, generator=None, shard=None):
         B, H, W, C = x.shape
         mask = None
         if self.cfg.attn_mask_radius > 0:
             mask = attention_mask(H, W, self.cfg.attn_mask_radius, x.device)
         tokens, pos_biases = self.vispos_encoder(x, generator)
         out = self.setrans(tokens, pos_biases=pos_biases,
-                           generator=generator, attention_mask=mask)
+                           generator=generator, attention_mask=mask,
+                           shard=shard)
         if not self.cfg.out_attn_only:
             out = out.reshape(B, H, W, C)
         return out

@@ -127,7 +127,9 @@ class FlowHead(nn.Module):
 class GMAUpdateBlock(nn.Module):
     """GMA update block with the SETrans motion aggregator (reference
     update.py:116-162).  `attention` (intra probs) and `gru_static` are
-    computed once per forward, outside the refinement loop."""
+    computed once per forward, outside the refinement loop.  Under sequence
+    parallelism `attention` holds the `shard`'s rows, and the aggregator
+    gathers its output to every rank."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
@@ -167,12 +169,14 @@ class GMAUpdateBlock(nn.Module):
         mask = 0.25 * conv(m2, y[:, nf:], dt)
         return _nhwc(delta), _nhwc(mask)
 
-    def forward(self, net, inp, corr, flow, attention, gru_static=None):
+    def forward(self, net, inp, corr, flow, attention, gru_static=None,
+                shard=None):
         """NHWC in and out: returns (net, up_mask, delta_flow)."""
         motion = self.encoder(flow, corr)
         B, H, W, C = motion.shape
         motion_global = self.aggregator(
-            motion.reshape(B, H * W, C), attention).reshape(B, H, W, C)
+            motion.reshape(B, H * W, C), attention,
+            shard=shard).reshape(B, H, W, C)
         if gru_static is None:
             net = self.gru(net, torch.cat([inp, motion, motion_global], -1))
         else:

@@ -15,7 +15,7 @@ import torch
 
 from craft_tpu_torch.ops.kernels import build
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 MAX_MODE_DIM = 64
 
 _COUNTED: list = []

@@ -10,14 +10,21 @@ mode_attention.py``):
                             intra site
   B8 flash_mode_attention_dense   B2 with a dense [U1, U2] table or none
   B4 mode_softmax_probs_dense     B4 float with a dense table or none
+  B9 corr_norm_sums, corr_norm_write   B3 for a row shard of the queries
+                            (sequence parallelism): the shard's volume
+                            sums, then its rows normed with the sums of
+                            every shard
 
 (B6 dense, the inter site's raw volume with a dense table, is in
 ``corr_vjp.py`` beside B6.)  q and k are [B, M, U, md] with U = H8 * W8
 row-major tokens; the sliding bias is the (2R+1)^2 window `biases`, and a
 dense table is an fp32 [U1, U2] tensor (q has U1 tokens, k U2) or None
-(pos_code_type 'lsinu').  The tensor decides the route: CUDA
-tensors launch the hand-written kernel (csrc/*.cu) or raise, CPU tensors
-take the plain version.  Each kernel's launches are counted in
+(pos_code_type 'lsinu').  Under sequence parallelism q holds a shard of
+whole grid rows, U1 = rows * W8 tokens from grid row `q_row0`, against all
+U2 = H8 * W8 keys; B1 takes any U1 and U2, and B2, B4 and B9 take the
+shard's `q_row0` so that the window lands on the right diagonals.  The
+tensor decides the route: CUDA tensors launch the hand-written kernel
+(csrc/*.cu) or raise, CPU tensors take the plain version.  Each kernel's launches are counted in
 ``<wrapper>.launches`` where the kernel is launched: B1's count includes
 the B1 launch that B3 makes as its phase 0.  The clamp value `clip` is a device tensor, so the
 predicate never syncs the host.
@@ -29,20 +36,24 @@ import math
 
 import torch
 
-from craft_tpu_torch.ops.kernels.launch import (F as _F, I as _I,
+from craft_tpu_torch.ops.kernels.launch import (D as _D, F as _F, I as _I,
                                                 MAX_MODE_DIM, P as _P,
                                                 call, counted, f32 as _f32,
                                                 prep as _prep, ptr as _ptr,
                                                 stream as _stream)
 
 _SIGNATURES = {
-    "scores_max_launch": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "scores_max_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "flash_attn_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _F, _I, _P],
+                          _I, _I, _F, _F, _I, _P],
     "corr_norm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _F, _F, _I, _I, _P],
-    "probs_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
-                     _I, _P],
+    "corr_norm_sums_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _I, _P],
+    "corr_norm_write_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _D, _F, _I, _I, _P],
+    "probs_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                     _F, _I, _I, _P],
     "flash_attn_dense_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _F, _F, _I, _P],
     "probs_dense_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
@@ -51,6 +62,8 @@ _SIGNATURES = {
 _LIB_OF = {"scores_max_launch": "scores_max",
            "flash_attn_launch": "flash_attn",
            "corr_norm_launch": "corr_norm",
+           "corr_norm_sums_launch": "corr_norm",
+           "corr_norm_write_launch": "corr_norm",
            "probs_launch": "softmax_probs",
            "flash_attn_dense_launch": "flash_attn",
            "probs_dense_launch": "softmax_probs"}
@@ -75,23 +88,49 @@ def acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def sliding_pos_biases(biases: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """Dense [H*W, H*W] table of the (2R+1)^2 window: pos[i*W+j, h*W+w] =
-    biases[h-i+R, w-j+R] when |h-i| <= R and |w-j| <= R, else 0."""
+def sliding_pos_biases(biases: torch.Tensor, H: int, W: int,
+                       q_row0: int = 0, q_rows=None) -> torch.Tensor:
+    """Dense table of the (2R+1)^2 window over an H x W token grid, the
+    rows of query grid rows q_row0 .. q_row0 + q_rows - 1 (every row by
+    default): [q_rows * W, H * W] with pos[(i - q_row0) * W + j, h * W + w]
+    = biases[h-i+R, w-j+R] when |h-i| <= R and |w-j| <= R, else 0."""
     R = (biases.shape[0] - 1) // 2
+    q_rows = H - q_row0 if q_rows is None else q_rows
+    ar_q = torch.arange(q_row0, q_row0 + q_rows, device=biases.device)
     ar_h = torch.arange(H, device=biases.device)
     ar_w = torch.arange(W, device=biases.device)
-    dh = ar_h[None, :] - ar_h[:, None]
+    dh = ar_h[None, :] - ar_q[:, None]
     dw = ar_w[None, :] - ar_w[:, None]
     ih = (dh + R).clamp(0, 2 * R)
     iw = (dw + R).clamp(0, 2 * R)
     table = biases[ih][:, :, iw]  # [i, h, j, w]
     mask = (dh.abs() <= R)[:, :, None, None] & (dw.abs() <= R)[None, None]
-    return (table * mask).permute(0, 2, 1, 3).reshape(H * W, H * W)
+    return (table * mask).permute(0, 2, 1, 3).reshape(q_rows * W, H * W)
+
+
+def query_rows(q, k, grid_hw, q_row0: int = 0) -> int:
+    """The grid rows that q holds: q's U1 tokens are whole rows of the
+    H8 x W8 grid from row q_row0, k holds all U2 = H8 * W8.  Raises on
+    anything else."""
+    H8, W8 = grid_hw
+    U1, U2 = q.shape[-2], k.shape[-2]
+    rows = U1 // W8
+    if U2 != H8 * W8 or U1 != rows * W8 or not (
+            rows > 0 and 0 <= q_row0 and q_row0 + rows <= H8):
+        raise ValueError(f"q rows {U1} from grid row {q_row0}, k {U2} keys: "
+                         f"not whole rows of the {H8}x{W8} grid")
+    return rows
+
+
+def window_rows(biases, grid_hw, q, k, q_row0: int = 0) -> torch.Tensor:
+    """The dense window table of q's query rows against every key,
+    [U1, U2] in acc_dtype(q)."""
+    return sliding_pos_biases(biases.to(acc_dtype(q)), *grid_hw, q_row0,
+                              query_rows(q, k, grid_hw, q_row0))
 
 
 def scores(q, k, scale):
-    """scale * q k^T, [B, M, U, U] in acc_dtype(q)."""
+    """scale * q k^T, [B, M, U1, U2] in acc_dtype(q)."""
     dt = acc_dtype(q)
     return torch.einsum("bmid,bmjd->bmij", q.to(dt), k.to(dt)) * scale
 
@@ -104,11 +143,11 @@ def clamped_scores(q, k, clip):
     return c, torch.minimum(torch.maximum(c, -clip), clip)
 
 
-def biased_scores(q, k, biases, grid_hw, clip, pos_w):
+def biased_scores(q, k, biases, grid_hw, clip, pos_w, q_row0: int = 0):
     """(c, clamp(c, +-clip) + pos_w * bias) with c = scale * q k^T, both
-    [B, M, U, U] in acc_dtype(q)."""
+    [B, M, U1, U2] in acc_dtype(q); q holds the grid rows from q_row0."""
     c, s = clamped_scores(q, k, clip)
-    return c, s + pos_w * sliding_pos_biases(biases.to(c.dtype), *grid_hw)
+    return c, s + pos_w * window_rows(biases, grid_hw, q, k, q_row0)
 
 
 def table_scores(q, k, table, clip, pos_w):
@@ -143,12 +182,16 @@ def table_ptr(table) -> _P:
 
 def _launch_scores_max(q, k, scale) -> torch.Tensor:
     (q, k), bf16 = _prep(q, k)
-    B, M, U, md = q.shape
-    nq = -(-U // _TILE)
+    B, M, U1, md = q.shape
+    U2 = k.shape[2]
+    if k.shape[:2] != (B, M) or k.shape[3] != md:
+        raise ValueError(f"scores_global_max: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    nq = -(-U1 // _TILE)
     partial = torch.empty(B * M * nq, dtype=torch.float32, device=q.device)
     out = torch.empty(1, dtype=torch.float32, device=q.device)
     _call("scores_max_launch", _ptr(q), _ptr(k), _ptr(partial), _ptr(out),
-          B * M, U, md, scale, bf16, _stream(q))
+          B * M, U1, U2, md, scale, bf16, _stream(q))
     scores_global_max.launches += 1
     return out
 
@@ -161,7 +204,8 @@ def scores_global_max_plain(q, k, scale: float) -> torch.Tensor:
 def scores_global_max(q: torch.Tensor, k: torch.Tensor,
                       scale: float) -> torch.Tensor:
     """Max of scale * q_m k_m^T over batch, modes and tokens, as a 0-d fp32
-    tensor on q's device.  q, k: [B, M, U, md]."""
+    tensor on q's device.  q: [B, M, U1, md], k: [B, M, U2, md] (U1 < U2
+    for a row shard of the queries)."""
     if not q.is_cuda:
         return scores_global_max_plain(q, k, scale)
     return _launch_scores_max(q, k, scale)[0]
@@ -171,32 +215,39 @@ def scores_global_max(q: torch.Tensor, k: torch.Tensor,
 # B2: flash multi-mode attention with the sliding bias
 # ---------------------------------------------------------------------------
 
-def flash_mode_attention_plain(q, k, v, biases, grid_hw, clip, pos_w):
-    p = torch.softmax(biased_scores(q, k, biases, grid_hw, clip, pos_w)[1],
-                      -1)
+def flash_mode_attention_plain(q, k, v, biases, grid_hw, clip, pos_w,
+                               q_row0: int = 0):
+    p = torch.softmax(biased_scores(q, k, biases, grid_hw, clip, pos_w,
+                                    q_row0)[1], -1)
     return (p @ v.float()).to(v.dtype)
 
 
 @counted
-def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float):
+def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float,
+                         q_row0: int = 0):
     """out[b, m] = softmax(clamp(scale q k^T, +-clip) + pos_w * bias) @ v.
 
-    q, k: [B, M, U, md]; v: [B, M, U, F]; biases: [2R+1, 2R+1];
-    clip: 0-d tensor.  Returns [B, M, U, F] in v's dtype."""
+    q: [B, M, U1, md], the grid rows from q_row0 (all of them by default);
+    k: [B, M, U2, md] and v: [B, M, U2, F], every token of the H8 x W8
+    grid; biases: [2R+1, 2R+1]; clip: 0-d tensor.  Returns [B, M, U1, F]
+    in v's dtype."""
+    query_rows(q, k, grid_hw, q_row0)
     if not q.is_cuda:
         return flash_mode_attention_plain(q, k, v, biases, grid_hw, clip,
-                                          pos_w)
+                                          pos_w, q_row0)
     (q, k, v), bf16 = _prep(q, k, v)
-    B, M, U, md = q.shape
-    F = v.shape[-1]
-    if F != FLASH_FEAT:
-        raise ValueError(f"flash_mode_attention: feature dim {F}, the kernel "
-                         f"takes {FLASH_FEAT}")
+    B, M, U1, md = q.shape
+    U2, F = k.shape[2], v.shape[-1]
+    if F != FLASH_FEAT or k.shape[:2] != (B, M) or v.shape[:3] != (B, M, U2):
+        raise ValueError(f"flash_mode_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; the kernel "
+                         f"takes feature dim {FLASH_FEAT}")
     R = (biases.shape[0] - 1) // 2
-    out = torch.empty_like(v)
+    W8 = grid_hw[1]
+    out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
     win, clip_t = _f32(biases, q), _f32(clip, q)
     _call("flash_attn_launch", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-          _ptr(win), _ptr(clip_t), B * M, U, md, F, grid_hw[1], R,
+          _ptr(win), _ptr(clip_t), B * M, U1, U2, q_row0 * W8, md, F, W8, R,
           1.0 / math.sqrt(md), pos_w, bf16, _stream(q))
     flash_mode_attention.launches += 1
     return out
@@ -244,25 +295,51 @@ def flash_mode_attention_dense(q, k, v, table, clip, pos_w: float):
 # B3: fused clamp + mode aggregation + global layer norm
 # ---------------------------------------------------------------------------
 
+def agg_volume(c, biases, grid_hw, gmax, attn_clip, pos_w, agg_w, agg_b,
+               q_row0: int = 0):
+    """The clamped, mode-aggregated volume [B, U1, U2] in c's dtype from the
+    raw scores c = scale * q k^T [B, M, U1, U2] of the grid rows from
+    q_row0: s_m = clamp(c_m, +-clip) + pos_w * bias with clip = attn_clip
+    if gmax > attn_clip (else 1e30), vol = sum_m softmax_m(agg_w s_m +
+    agg_b) s_m."""
+    H8, W8 = grid_hw
+    clip = torch.where(gmax > attn_clip, attn_clip, 1e30)
+    s = torch.minimum(torch.maximum(c, -clip), clip) + pos_w * \
+        sliding_pos_biases(biases.to(c.dtype), H8, W8, q_row0,
+                           c.shape[2] // W8)
+    lg = agg_w * s + agg_b
+    e = torch.exp(lg - lg.amax(dim=1, keepdim=True))
+    del lg
+    return (e * s).sum(dim=1) / e.sum(dim=1)
+
+
+def _normed(vol, sums, n_elems: float, eps: float):
+    """(vol - mean) * rsqrt(var + eps) per sample, from fp64 sums [B, 2] =
+    (sum, sum of squares) over n_elems elements; (out, mean, E[x^2])."""
+    B = vol.shape[0]
+    mean, ex2 = sums[:, 0] / n_elems, sums[:, 1] / n_elems
+    rstd = torch.rsqrt((ex2 - mean * mean).clamp(min=0.0) + eps)
+    out = (vol - mean.float().view(B, 1, 1)) * rstd.float().view(B, 1, 1)
+    return out, mean, ex2
+
+
+def _volume_sums(vol):
+    """fp64 [B, 2]: per sample (sum, sum of squares) of vol."""
+    v = vol.double()
+    return torch.stack([v.sum(dim=(1, 2)), v.square().sum(dim=(1, 2))], -1)
+
+
 def fused_agg_corr_norm_plain(q, k, biases, grid_hw, attn_clip, pos_w,
                               agg_w, agg_b, out_dtype=torch.bfloat16,
                               eps: float = 1e-12):
     B, M, U, md = q.shape
     c = scores(q, k, 1.0 / math.sqrt(md))
     gmax = c.amax()
-    clip = torch.where(gmax > attn_clip, attn_clip, 1e30)
-    s = torch.minimum(torch.maximum(c, -clip), clip) \
-        + pos_w * sliding_pos_biases(biases.float(), *grid_hw)
+    vol = agg_volume(c, biases, grid_hw, gmax, attn_clip, pos_w, agg_w,
+                     agg_b)
     del c
-    lg = agg_w * s + agg_b
-    e = torch.exp(lg - lg.amax(dim=1, keepdim=True))
-    del lg
-    vol = (e * s).sum(dim=1) / e.sum(dim=1)
-    del e, s
-    mean = vol.double().mean(dim=(1, 2))
-    ex2 = vol.double().square().mean(dim=(1, 2))
-    rstd = torch.rsqrt((ex2 - mean * mean).clamp(min=0.0) + eps)
-    out = (vol - mean.float().view(B, 1, 1)) * rstd.float().view(B, 1, 1)
+    out, mean, ex2 = _normed(vol, _volume_sums(vol), float(U) * float(U),
+                             eps)
     stats = torch.stack([gmax.expand(B), mean.float(), ex2.float(),
                          torch.zeros_like(gmax).expand(B)], dim=-1)
     return out.to(out_dtype), stats.view(B, 1, 4)
@@ -314,12 +391,124 @@ def fused_agg_corr_norm(q, k, biases, grid_hw, attn_clip: float,
 
 
 # ---------------------------------------------------------------------------
+# B9: B3 for a row shard of the queries (sequence parallelism)
+# ---------------------------------------------------------------------------
+
+def corr_norm_sums_plain(q, k, biases, grid_hw, gmax, attn_clip, pos_w,
+                         agg_w, agg_b, q_row0: int = 0):
+    c = scores(q, k, 1.0 / math.sqrt(q.shape[-1]))
+    return _volume_sums(agg_volume(c, biases, grid_hw, gmax, attn_clip,
+                                   pos_w, agg_w, agg_b, q_row0))
+
+
+def corr_norm_write_plain(q, k, biases, grid_hw, gmax, sums, n_elems: float,
+                          attn_clip, pos_w, agg_w, agg_b, q_row0: int = 0,
+                          out_dtype=torch.bfloat16, eps: float = 1e-12):
+    c = scores(q, k, 1.0 / math.sqrt(q.shape[-1]))
+    vol = agg_volume(c, biases, grid_hw, gmax, attn_clip, pos_w, agg_w,
+                     agg_b, q_row0)
+    del c
+    return _normed(vol, sums, n_elems, eps)[0].to(out_dtype)
+
+
+def _shard_prep(q, k, grid_hw, q_row0, what):
+    """Checks shared by the two B9 halves: (contiguous q, k, bf16 flag,
+    the fp64 partial-sum scratch)."""
+    query_rows(q, k, grid_hw, q_row0)
+    B, M, U1, md = q.shape
+    if M != 4 or k.shape[:2] != (B, M):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}; "
+                         "the kernel takes 4 modes")
+    (q, k), bf16 = _prep(q, k)
+    nq, nk = -(-U1 // _TILE), -(-k.shape[2] // _TILE)
+    partial = torch.empty(B * nq * -(-nk // _KGROUP) * 2,
+                          dtype=torch.float64, device=q.device)
+    return q, k, bf16, partial
+
+
+def _corr_scalars(attn_clip, pos_w, agg_w, agg_b, q):
+    return torch.cat([_f32(attn_clip, q), _f32(pos_w, q), _f32(agg_w, q),
+                      _f32(agg_b, q)])
+
+
+@counted
+def corr_norm_sums(q, k, biases, grid_hw, gmax, attn_clip: float,
+                   pos_w: float, agg_w, agg_b, q_row0: int = 0):
+    """The stats half of B3 for a row shard (counterpart of
+    ``craft_tpu.ops.pallas.mode_attention.corr_norm_sums_mt``): per sample
+    fp64 (sum, sum of squares) [B, 2] of this shard's rows of the clamped,
+    aggregated volume, the clamp decided by `gmax`, the raw max over every
+    shard.  q: [B, 4, U1, md], the grid rows from q_row0; k: [B, 4, U2, md],
+    every token.  Summed over the shards, they give B3's moments."""
+    if not q.is_cuda:
+        query_rows(q, k, grid_hw, q_row0)
+        return corr_norm_sums_plain(q, k, biases, grid_hw, gmax, attn_clip,
+                                    pos_w, agg_w, agg_b, q_row0)
+    q, k, bf16, partial = _shard_prep(q, k, grid_hw, q_row0,
+                                      "corr_norm_sums")
+    B, _, U1, md = q.shape
+    W8 = grid_hw[1]
+    sums = torch.empty(B, 2, dtype=torch.float64, device=q.device)
+    # The kernel's inputs are held here until the launch.
+    win, gmax = _f32(biases, q), _f32(gmax, q)
+    scal = _corr_scalars(attn_clip, pos_w, agg_w, agg_b, q)
+    _call("corr_norm_sums_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(scal),
+          _ptr(gmax), _ptr(partial), _ptr(sums), B, U1, k.shape[2],
+          q_row0 * W8, md, W8, (biases.shape[0] - 1) // 2,
+          1.0 / math.sqrt(md), bf16, _stream(q))
+    corr_norm_sums.launches += 1
+    return sums
+
+
+@counted
+def corr_norm_write(q, k, biases, grid_hw, gmax, sums, attn_clip: float,
+                    pos_w: float, agg_w, agg_b, q_row0: int = 0,
+                    out_dtype=torch.bfloat16, eps: float = 1e-12):
+    """The write half of B3 for a row shard (counterpart of
+    ``craft_tpu.ops.pallas.mode_attention.corr_norm_write_mt``): this
+    shard's rows of the volume, (vol - mean) * rsqrt(var + eps) as
+    [B, U1, U2] out_dtype, the moments from `sums` (fp64 [B, 2], the
+    shards' corr_norm_sums summed) over the global element count U2 * U2.
+    Arguments otherwise as corr_norm_sums; the (in, out) types as B3."""
+    n_elems = float(k.shape[2]) * float(k.shape[2])
+    if not q.is_cuda:
+        query_rows(q, k, grid_hw, q_row0)
+        return corr_norm_write_plain(q, k, biases, grid_hw, gmax, sums,
+                                     n_elems, attn_clip, pos_w, agg_w, agg_b,
+                                     q_row0, out_dtype, eps)
+    q, k, bf16, _ = _shard_prep(q, k, grid_hw, q_row0, "corr_norm_write")
+    if out_dtype not in (torch.bfloat16, torch.float32) or (
+            out_dtype == torch.bfloat16 and not bf16):
+        raise ValueError(f"corr_norm_write: {q.dtype} -> {out_dtype}; the "
+                         "kernel takes bf16 -> bf16, bf16 -> fp32 and fp32 -> "
+                         "fp32")
+    B, _, U1, md = q.shape
+    U2, W8 = k.shape[2], grid_hw[1]
+    if sums.shape != (B, 2) or sums.dtype != torch.float64 or \
+            sums.device != q.device:
+        raise ValueError(f"corr_norm_write: sums must be fp64 [{B}, 2] on "
+                         f"{q.device}")
+    norm = torch.empty(B, 2, dtype=torch.float32, device=q.device)
+    out = torch.empty(B, U1, U2, dtype=out_dtype, device=q.device)
+    win, gmax, sums = _f32(biases, q), _f32(gmax, q), sums.contiguous()
+    scal = _corr_scalars(attn_clip, pos_w, agg_w, agg_b, q)
+    _call("corr_norm_write_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(scal),
+          _ptr(gmax), _ptr(sums), _ptr(norm), _ptr(out), B, U1, U2,
+          q_row0 * W8, md, W8,
+          (biases.shape[0] - 1) // 2, 1.0 / math.sqrt(md), n_elems, eps,
+          bf16, int(out_dtype == torch.bfloat16), _stream(q))
+    corr_norm_write.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # B4: blockwise softmax probabilities
 # ---------------------------------------------------------------------------
 
 def mode_softmax_probs_plain(q, k, biases, grid_hw, clip, pos_w,
-                             out_dtype=torch.bfloat16, quantized=False):
-    _, s = biased_scores(q, k, biases, grid_hw, clip, pos_w)
+                             out_dtype=torch.bfloat16, quantized=False,
+                             q_row0: int = 0):
+    _, s = biased_scores(q, k, biases, grid_hw, clip, pos_w, q_row0)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     del s
     l = e.sum(dim=-1, keepdim=True)
@@ -330,33 +519,41 @@ def mode_softmax_probs_plain(q, k, biases, grid_hw, clip, pos_w,
 
 @counted
 def mode_softmax_probs(q, k, biases, grid_hw, clip, pos_w: float,
-                       out_dtype=torch.bfloat16, quantized: bool = False):
+                       out_dtype=torch.bfloat16, quantized: bool = False,
+                       q_row0: int = 0):
     """probs[b, m] = softmax(clamp(scale q k^T, +-clip) + pos_w * bias).
 
-    Returns [B, M, U, U] out_dtype, or with quantized=True the int8
-    numerators round(exp(s - rowmax) * 127) [B, M, U, U] and fp32 row
-    scales 1 / (127 * l) [B, M, U, 1] (probs = num * scale)."""
+    q: [B, M, U1, md], the grid rows from q_row0 (all of them by default);
+    k: [B, M, U2, md], every token.  Returns [B, M, U1, U2] out_dtype, or
+    with quantized=True the int8 numerators round(exp(s - rowmax) * 127)
+    [B, M, U1, U2] and fp32 row scales 1 / (127 * l) [B, M, U1, 1] (probs =
+    num * scale)."""
+    query_rows(q, k, grid_hw, q_row0)
     if not q.is_cuda:
         return mode_softmax_probs_plain(q, k, biases, grid_hw, clip, pos_w,
-                                        out_dtype, quantized)
+                                        out_dtype, quantized, q_row0)
     (q, k), bf16 = _prep(q, k)
     if not bf16 and (quantized or out_dtype != torch.float32):
         raise ValueError("mode_softmax_probs: fp32 inputs take fp32 output "
                          "only")
-    B, M, U, md = q.shape
+    B, M, U1, md = q.shape
+    U2, W8 = k.shape[2], grid_hw[1]
+    if k.shape[:2] != (B, M):
+        raise ValueError(f"mode_softmax_probs: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
     R = (biases.shape[0] - 1) // 2
     dev = q.device
     if quantized:
-        out = torch.empty(B, M, U, U, dtype=torch.int8, device=dev)
-        row_scale = torch.empty(B, M, U, 1, dtype=torch.float32, device=dev)
+        out = torch.empty(B, M, U1, U2, dtype=torch.int8, device=dev)
+        row_scale = torch.empty(B, M, U1, 1, dtype=torch.float32, device=dev)
         kind = 2
     else:
         kind = {torch.float32: 0, torch.bfloat16: 1}[out_dtype]
-        out = torch.empty(B, M, U, U, dtype=out_dtype, device=dev)
+        out = torch.empty(B, M, U1, U2, dtype=out_dtype, device=dev)
         row_scale = out  # not written
     win, clip_t = _f32(biases, q), _f32(clip, q)
     _call("probs_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(clip_t),
-          _ptr(out), _ptr(row_scale), B * M, U, md, grid_hw[1], R,
+          _ptr(out), _ptr(row_scale), B * M, U1, U2, q_row0 * W8, md, W8, R,
           1.0 / math.sqrt(md), pos_w, bf16, kind, _stream(q))
     mode_softmax_probs.launches += 1
     return (out, row_scale) if quantized else out

@@ -176,7 +176,8 @@ def test_loader_unwraps_like_the_jax_converter(setup, tmp_path):
     (["--submission", "sintel"], "item 4"), (["--xshifts", "8"], "item 4"),
     (["--convert", "out"], "item 4"), (["--flop"], "item 4"),
     (["--vis"], "item 4"), (["--dataset", "things"], "item 4"),
-    (["--seq_parallel"], "item 2")])
+    (["--seq_parallel", "--intrapos", "lsinu"], "item 8"),
+    (["--seq_parallel", "--f2radius", "3"], "item 8")])
 def test_unported_flags_exit_naming_the_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md section 2, {item}"):
         tcli.main(["--model", "absent.pth", "--craft", "--setrans",

@@ -1,7 +1,8 @@
 """The CUDA kernels (B1-B4, the training kernels B6 forward and backward
-and B7 backward, the lookup B5 forward and backward, and the dense-table
-kernels B8, B6 dense and B4 dense) against their plain versions at small
-ragged shapes, bf16 and fp32 inputs, batch 2, every input drawn from a
+and B7 backward, the lookup B5 forward and backward, the dense-table
+kernels B8, B6 dense and B4 dense, and the sequence-parallel B9 with B1,
+B2 and B4 on row shards) against their plain versions at small ragged
+shapes, bf16 and fp32 inputs, batch 2, every input drawn from a
 seeded generator.  Needs an NVIDIA GPU with nvcc
 (sm_90a); skipped elsewhere.  On the card:
 
@@ -152,7 +153,9 @@ def test_launch_counts_count_kernel_launches_only(dev):
                                       "agg_corr_bwd": 0,
                                       "probs_bwd": 0,
                                       "corr_lookup": 0,
-                                      "corr_lookup_bwd": 0}
+                                      "corr_lookup_bwd": 0,
+                                      "corr_norm_sums": 0,
+                                      "corr_norm_write": 0}
 
 
 def test_unsupported_variants_raise(dev):
@@ -412,3 +415,96 @@ def test_b5_rejects_what_the_kernel_does_not_take(dev):
         lk.corr_lookup(levels, coords, 8)
     with pytest.raises(ValueError, match="CUDA"):
         lk.corr_lookup([lv.cpu() for lv in levels], coords, 4)
+
+
+# ------------------------------------------------- row shards (B9, offsets)
+
+# (H8, W8) grids split into (h0, h1) row shards: even, uneven and one row.
+SHARDS = [((5, 12), [(0, 3), (3, 5)]), ((7, 128), [(0, 3), (3, 5), (5, 7)]),
+          ((3, 20), [(2, 3)])]
+
+
+def _shard_case(dev, grid, dtype, md, seed, **kw):
+    q, k, biases = _inputs(dev, grid, md, dtype, seed=seed, **kw)
+    return q, k, biases, grid[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid,shards", SHARDS)
+def test_b1_on_row_shards(dev, dtype, grid, shards):
+    q, k, _, W8 = _shard_case(dev, grid, dtype, 64, 2)
+    for h0, h1 in shards:
+        ql = q[:, :, h0 * W8:h1 * W8]
+        torch.testing.assert_close(ma.scores_global_max(ql, k, 0.125),
+                                   ma.scores_global_max_plain(ql, k, 0.125),
+                                   rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid,shards", SHARDS)
+@pytest.mark.parametrize("clip", [1e30, 0.4])
+def test_b2_b4_with_row_offsets(dev, dtype, grid, shards, clip):
+    q, k, biases, W8 = _shard_case(dev, grid, dtype, 64, 3, **_PEAKY)
+    v = torch.randn(2, 4, k.shape[2], 256, generator=_gen(4)).to(dev, dtype)
+    clip_t = torch.tensor(clip, device=dev)
+    for h0, h1 in shards:
+        ql = q[:, :, h0 * W8:h1 * W8]
+        got = ma.flash_mode_attention(ql, k, v, biases, grid, clip_t, 0.5,
+                                      q_row0=h0)
+        want = ma.flash_mode_attention_plain(ql, k, v, biases, grid, clip_t,
+                                             0.5, q_row0=h0)
+        assert _rel(got, want) <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+        odt = dtype  # bf16 -> bf16, fp32 -> fp32
+        got = ma.mode_softmax_probs(ql, k, biases, grid, clip_t, 1.0,
+                                    out_dtype=odt, q_row0=h0)
+        want = ma.mode_softmax_probs_plain(ql, k, biases, grid, clip_t, 1.0,
+                                           out_dtype=torch.float32,
+                                           q_row0=h0)
+        assert _rel(got, want, -1) <= (1e-2 if odt == torch.bfloat16
+                                       else 1e-4)
+        if dtype == torch.bfloat16:
+            num, sc = ma.mode_softmax_probs(ql, k, biases, grid, clip_t, 1.0,
+                                            quantized=True, q_row0=h0)
+            wnum, wsc = ma.mode_softmax_probs_plain(
+                ql, k, biases, grid, clip_t, 1.0, quantized=True, q_row0=h0)
+            assert (num.int() - wnum.int()).abs().max() <= 1
+            torch.testing.assert_close(sc, wsc, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid,shards", SHARDS[:2])
+@pytest.mark.parametrize("attn_clip", [100.0, 0.4])
+def test_b9_shards_against_plain_and_b3(dev, out_dtype, grid, shards,
+                                        attn_clip):
+    in_dtype = torch.float32 if out_dtype == torch.float32 else torch.bfloat16
+    q, k, biases, W8 = _shard_case(dev, grid, in_dtype, 64, 5)
+    agg = (torch.tensor(1.3, device=dev), torch.tensor(0.1, device=dev))
+    ql = [q[:, :, h0 * W8:h1 * W8] for h0, h1 in shards]
+    gmax = max(ma.scores_global_max(x, k, 0.125) for x in ql)
+    sums = 0
+    for x, (h0, _) in zip(ql, shards):
+        got = ma.corr_norm_sums(x, k, biases, grid, gmax, attn_clip, 0.5,
+                                *agg, q_row0=h0)
+        want = ma.corr_norm_sums_plain(x, k, biases, grid, gmax, attn_clip,
+                                       0.5, *agg, q_row0=h0)
+        assert got.dtype == torch.float64
+        n = x.shape[2] * k.shape[2]
+        rms = float((want[:, 1] / n).sqrt().max())
+        assert float((got - want)[:, 0].abs().max()) <= 1e-5 * rms * n
+        torch.testing.assert_close(got[:, 1], want[:, 1], rtol=1e-5, atol=0)
+        sums = sums + got
+    tol = (3e-2, 1e-2) if out_dtype == torch.bfloat16 else (1e-4, 1e-4)
+    parts = []
+    for x, (h0, _) in zip(ql, shards):
+        got = ma.corr_norm_write(x, k, biases, grid, gmax, sums, attn_clip,
+                                 0.5, *agg, q_row0=h0, out_dtype=out_dtype)
+        want = ma.corr_norm_write_plain(
+            x, k, biases, grid, gmax, sums, float(k.shape[2]) ** 2, attn_clip,
+            0.5, *agg, q_row0=h0, out_dtype=torch.float32)
+        torch.testing.assert_close(got.float(), want, atol=tol[0],
+                                   rtol=tol[1])
+        parts.append(got)
+    b3, _ = ma.fused_agg_corr_norm(q, k, biases, grid, attn_clip, 0.5, *agg,
+                                   out_dtype=out_dtype)
+    torch.testing.assert_close(torch.cat(parts, 1).float(), b3.float(),
+                               atol=tol[0], rtol=tol[1])

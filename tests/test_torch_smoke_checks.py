@@ -6,9 +6,12 @@ backward's clamp mask, its agg_w term or its softmax row term dropped, for
 the lookup its channel order swapped, clamped padding, a wrong level scale
 or the y blend dropped, and for the dense-table kernels a transposed table,
 a table scaled by pos_w twice, no clamp or ragged keys left unmasked
-(B6 dense reads each key on its own, so it has no such fault)) they must
-fail.  On the card the same checks also plant the faults in the
-plain versions and fail unless their bounds catch them.
+(B6 dense reads each key on its own, so it has no such fault), and for the
+sequence-parallel kernels (B9, and B2 and B4 on a row shard) the row offset
+dropped, the moments over a shard's own element count or a shard's own max
+as the clamp predicate) they must fail.  On the card the same checks also
+plant the faults in the plain versions and fail unless their bounds catch
+them.
 """
 
 import functools
@@ -249,3 +252,56 @@ def test_dense_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper,
     monkeypatch.setattr(module, wrapper, _dense_fault(wrapper, fault))
     with pytest.raises(AssertionError, match="disagrees"):
         _run_dense()
+
+
+# ------------------------------------------------- sequence parallelism
+
+SP_GRID, SP_WORLDS = (6, 20), (1, 2, 3)
+
+
+def _run_sp(seed=0):
+    report = {"corr_norm_sums": {}, "corr_norm_write": {}}
+    chip_smoke.check_sp_kernels(CPU, torch.Generator().manual_seed(seed),
+                                report, grid=SP_GRID, worlds=SP_WORLDS)
+    return report
+
+
+def test_sp_checks_pass_the_plain_versions():
+    report = _run_sp()
+    assert report["corr_norm_sums"]["max_abs_err"] == 0.0
+    # bf16 rows against fp32 ones: one rounding of normed values < 16.
+    assert 0.0 < report["corr_norm_write"]["max_abs_err"] < 2.0 ** -4
+
+
+def _sp_fault(name, fault):
+    """The wrapper `name` as its plain version with `fault` planted: the
+    row offset dropped, the moments over the shard's own element count, or
+    the shard's own max as the clamp predicate."""
+    plain = getattr(ma, name + "_plain")
+
+    def faulty(*args, **kw):
+        args = list(args)
+        q, k = args[0], args[1]
+        if fault == "row offset dropped":
+            kw["q_row0"] = 0
+        if fault == "local gmax":
+            args[4] = ma.scores_global_max_plain(q, k, q.shape[-1] ** -0.5)
+        if name != "corr_norm_write":
+            return plain(*args, **kw)
+        n = float(k.shape[2]) * (q.shape[2] if fault.startswith("moments")
+                                 else k.shape[2])
+        return plain(*args[:6], n, *args[6:], **kw)
+    return faulty
+
+
+@pytest.mark.parametrize("wrapper,fault", [
+    ("corr_norm_sums", "row offset dropped"), ("corr_norm_sums", "local gmax"),
+    ("corr_norm_write", "row offset dropped"),
+    ("corr_norm_write", "moments over the local count"),
+    ("corr_norm_write", "local gmax"),
+    ("flash_mode_attention", "row offset dropped"),
+    ("mode_softmax_probs", "row offset dropped")])
+def test_sp_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper, fault):
+    monkeypatch.setattr(ma, wrapper, _sp_fault(wrapper, fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run_sp()

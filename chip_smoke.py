@@ -28,7 +28,14 @@ these phases and fails on the first that fails:
      row offset dropped, the moments over the shard's own element count
      and the shard's own max as the clamp predicate planted in the plain
      versions; B1, B2 and B4 on a shard with its row offset (offset
-     dropped planted).
+     dropped planted).  Then B10, the fused SepConvGRU pass, at the GRU's
+     full width (hidden 128, x 384) on the serving grid (B=1, 55x128) and
+     the chairs grid (B=8, 46x62), bf16 and fp32: both passes (horizontal,
+     stride 1 with the image-row mask; vertical, stride W over the same
+     rows), forward and backward, with the row mask dropped, q over h,
+     the blend reversed, halo rows counted twice in the weight gradients
+     and dh without its drh r term planted in the plain versions; two
+     backwards of one input must be bit-identical.
   3. oracle: full-width CRAFT with the weights of
      tests/data/oracle_craft_128.npz at 128x128, 12 iterations, against the
      reference flow: fp32 within 1e-3 px, the mixed-precision config
@@ -69,6 +76,13 @@ these phases and fails on the first that fails:
      metrics against the unsharded CLI's, and each rank's peak memory
      below the unsharded peak at 440x1024 and 1088x1920; then one rank
      without torchrun on NCCL (world = the card count) against unsharded.
+     Then the GRU path: SepConvGRU(fused='on') against fused='off' with
+     the oracle tree's update-block GRU, 12 chained calls (h carried, a
+     fresh x each call): serving forward in bf16, chairs forward and
+     backward (autograd from a seeded loss on the last h) in bf16 and
+     fp32; the last h and every weight gradient within stated bounds; 24
+     forward passes per 12 calls, 24 backward passes per backward, none
+     under `static` (asserted).
   5. kernel times over CUDA events at the main-path shapes, beside each
      plain version, the bound and (B2) scaled_dot_product_attention; B2-B4
      at the KITTI shape (U=7332, W8=156); the training kernels and B1/B4
@@ -77,7 +91,9 @@ these phases and fails on the first that fails:
      B6 dense and B4 dense at the serving shape (B8 also with the
      --f2radius table, beside scaled_dot_product_attention with it as its
      mask); B9 sums and write per shard at 2 and 4 shards beside their
-     plain versions, bounds and B3.
+     plain versions, bounds and B3; B10 forward and backward of each
+     pass at the serving and chairs grids (bf16) beside the plain
+     versions, the bounds and the same pass in the cuDNN conv form.
 
 Prints the card line and a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
@@ -107,12 +123,14 @@ from craft_tpu_torch.config import craft_config
 from craft_tpu_torch.data import frame_utils, imgio
 from craft_tpu_torch.eval import evaluate as tev
 from craft_tpu_torch.models.flow_model import FlowModel, create_model
+from craft_tpu_torch.nn.update import SepConvGRU
 from craft_tpu_torch.ops.geometry import InputPadder, coords_grid
 from craft_tpu_torch.ops.kernels import build, launch
 from craft_tpu_torch.ops.kernels import corr_lookup as lk
 from craft_tpu_torch.ops.kernels import corr_vjp as cv
 from craft_tpu_torch.ops.kernels import mode_attention as ma
 from craft_tpu_torch.ops.kernels import probs_vjp as pv
+from craft_tpu_torch.ops.kernels import sep_conv_gru as sg
 from craft_tpu_torch.training.train_step import (create_train_state,
                                                  host_metrics,
                                                  make_train_step)
@@ -151,6 +169,25 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Kernel time per call on the device (torch.profiler): where a call is
+    shorter than its host work, time_ms measures the host instead."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+    return total / 1e3 / reps
 
 
 def bound_ms(flops: float, nbytes: float, tflops: float = BF16_TFLOPS
@@ -2084,6 +2121,327 @@ def time_lookup(dev, report) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# B10, the fused SepConvGRU pass (phases 2, 4 and 5)
+# ---------------------------------------------------------------------------
+
+# (label, batch, H8, W8) of a served pair (440x1024) and a chairs training
+# batch (368x496, batch 8); the GRU's full width: hidden 128, x = inp 128 +
+# motion 128 + aggregated motion 128.
+GRU_GRIDS = (("serving", 1, H8, W8), ("chairs", TRAIN_BATCH, *CHAIRS_GRID))
+GRU_CH, GRU_CX = 128, 384
+# max |kernel - plain| / max |plain| per tensor: (io outputs h', z, r, q,
+# dh, dx; fp32 weight and bias gradients).  fp32: sums of 5 (Ch + Cx) =
+# 2560 products (22,816 rows for a weight gradient) in another order, well
+# under 1e-4 of the largest value.  bf16: an io output may round one ulp
+# the other way (2^-7 of the largest value at most) where the two fp32 sums
+# straddle a rounding boundary; the weight and bias gradients are fp32 sums
+# of exact products of the same bf16 operands, of which those that
+# straddled a boundary (dqh, dzh, drhat) move one term of a sum of
+# thousands by 2^-8 of itself.
+B10_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
+B10_FAULTS = ("no row mask", "q over h", "blend reversed", "halo rows twice",
+              "no drh r term")
+B10_TILE = 64  # rows of a tile whose halo 'halo rows twice' counts again
+
+
+def gru_inputs(dev, batch, h8, w8, dtype, seed=21):
+    """The 13 arguments of a horizontal pass and a cotangent of h', seeded:
+    h in (-1, 1) in `dtype`, x ~ N(0, 1) fp32 (the module passes fp32 x to
+    a bf16 pass), fp32 taps ~ N(0, 1 / 2560) so that each gate's
+    pre-activation has unit scale, fp32 biases ~ N(0, 0.1^2), g ~ N(0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+    rows = h8 * w8
+    h = randn(batch, rows, GRU_CH).tanh().to(dtype)
+    x = randn(batch, rows, GRU_CX)
+    std = (5 * (GRU_CH + GRU_CX)) ** -0.5
+    ws = [randn(5, c, GRU_CH, std=std) for _ in range(3)
+          for c in (GRU_CH, GRU_CX)]
+    bs = [randn(GRU_CH, std=0.1) for _ in range(3)]
+    return [h, x, *ws, *bs], randn(batch, rows, GRU_CH)
+
+
+def _gru_fwd_fault(args, stride, width, fault):
+    """The plain forward with one planted fault: taps crossing an image row
+    read (no row mask), q over h in place of r h, or the blend reversed to
+    (1 - z) q + z h."""
+    h, x, wzh, wzx, wrh, wrx, wqh, wqx, bz, br, bq = args
+    if fault == "no row mask":
+        return sg.gru_pass_fwd_plain(*args, stride, h.shape[1])
+    io, acc = h.dtype, sg.acc_type(h.dtype)
+    x = x.to(io)
+    geo = (stride, width, acc)
+
+    def gate(a, wh, wx, b):
+        return (sg.conv_rows(a, wh.to(io), *geo)
+                + sg.conv_rows(x, wx.to(io), *geo) + b.to(acc))
+    z = torch.sigmoid(gate(h, wzh, wzx, bz))
+    r = torch.sigmoid(gate(h, wrh, wrx, br))
+    hf = h.to(acc)
+    rh = h if fault == "q over h" else (r * hf).to(io)
+    q = torch.tanh(gate(rh, wqh, wqx, bq))
+    hout = (1 - z) * q + z * hf if fault == "blend reversed" else \
+        (1 - z) * hf + z * q
+    return hout.to(io), z.to(io), r.to(io), q.to(io)
+
+
+def _gru_bwd_fault(res, stride, width, fault):
+    """The plain backward with one planted fault: no row mask, the weight
+    gradients also summed over the rows within 2 * stride of each 64-row
+    tile's edges (a halo row counted twice), or dh without its drh r term."""
+    h, x, z, r, q, g, *ws = res
+    if fault == "no row mask":
+        return sg.gru_pass_bwd_plain(*res, stride, h.shape[1])
+    out = list(sg.gru_pass_bwd_plain(*res, stride, width))
+    io, acc = h.dtype, sg.acc_type(h.dtype)
+    geo = (stride, width, acc)
+    hf, zf, rf, qf = (t.to(acc) for t in (h, z, r, q))
+    gf = g.to(io).to(acc)
+    dqh = (gf * zf * (1.0 - qf * qf)).to(io)
+    drh = sg.conv_rows_t(dqh, ws[4].to(io), *geo)
+    if fault == "no drh r term":
+        out[0] = (out[0].to(acc) - drh * rf).to(h.dtype)
+    elif fault == "halo rows twice":
+        dzh = (gf * (qf - hf) * zf * (1.0 - zf)).to(io)
+        drhat = (drh * hf * rf * (1.0 - rf)).to(io)
+        p = torch.arange(h.shape[1], device=h.device) % B10_TILE
+        edge = ((p < 2 * stride) | (p >= B10_TILE - 2 * stride))[None, :,
+                                                                  None]
+        xi, rh = x.to(io), (rf * hf).to(io)
+        for i, (a, d) in enumerate(((h, dzh), (xi, dzh), (h, drhat),
+                                    (xi, drhat), (rh, dqh), (xi, dqh))):
+            extra = sg.wgrad_rows(a, torch.where(edge, d, 0), *geo)
+            out[2 + i] = out[2 + i] + extra.to(out[2 + i].dtype)
+    return tuple(out)
+
+
+def tensors_rel_err(got, want) -> float:
+    """The worst rel_err over paired tensors."""
+    return max(rel_err(a, b) for a, b in zip(got, want))
+
+
+def check_gru(dev, report, grids=GRU_GRIDS) -> None:
+    """Phase 2, B10: both passes (horizontal: stride 1, masked at image
+    rows; vertical: stride W over the same rows), forward and backward, at
+    the serving and chairs grids, bf16 and fp32 (TF32 off), against the
+    plain versions on the same inputs, with the five B10_FAULTS planted in
+    the plain versions; two backwards of one input bit-identical."""
+    errs = {"gru_pass_fwd": [], "gru_pass_bwd": []}
+    for label, batch, h8, w8 in grids:
+        for dtype in (torch.bfloat16, torch.float32):
+            args, g = gru_inputs(dev, batch, h8, w8, dtype)
+            io_tol, w_tol = B10_TOL[dtype]
+            for name, geo in (("h", (1, w8)), ("v", (w8, h8 * w8))):
+                tag = f"B10 {label} {name} {dtype}"
+                got = sg.gru_pass_fwd(*args, *geo)
+                sync(dev)
+                want = sg.gru_pass_fwd_plain(*args, *geo)
+                faults = {f: _gru_fwd_fault(args, *geo, f)
+                          for f in B10_FAULTS[:3]
+                          if name == "h" or f != "no row mask"}
+                hold(f"{tag} forward", got, want, tensors_rel_err, io_tol,
+                     faults)
+                errs["gru_pass_fwd"].append(max(
+                    float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want)))
+                del got, faults
+                res = (args[0], args[1], *want[1:], g, *args[2:8])
+                got = sg.gru_pass_bwd(*res, *geo)
+                again = sg.gru_pass_bwd(*res, *geo)
+                sync(dev)
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                    f"{tag}: two backwards differ"
+                del again
+                want_b = sg.gru_pass_bwd_plain(*res, *geo)
+                bwd_faults = [f for f in ("no row mask", "no drh r term",
+                                          "halo rows twice")
+                              if name == "h" or f != "no row mask"]
+                fb = {f: _gru_bwd_fault(res, *geo, f) for f in bwd_faults}
+                hold(f"{tag} backward dh, dx", got[:2], want_b[:2],
+                     tensors_rel_err, io_tol,
+                     {f: o[:2] for f, o in fb.items()
+                      if f != "halo rows twice"})
+                hold(f"{tag} backward weights, biases", got[2:], want_b[2:],
+                     tensors_rel_err, w_tol,
+                     {f: o[2:] for f, o in fb.items()
+                      if f != "no drh r term"})
+                errs["gru_pass_bwd"].append(max(
+                    float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want_b)))
+                del got, want, want_b, fb, res
+            del args, g
+    for name, e in errs.items():
+        report[name]["max_abs_err"] = max(e)
+
+
+GRU_CALLS = 12  # the refinement loop's iterations
+# The path's bounds, fused against the conv form over GRU_CALLS chained
+# calls of two passes each.  bf16: the conv form rounds its conv outputs,
+# gate sums, z, r, q and the blend to bf16 (about 4 roundings of at most
+# 2^-9 of values below 1 a pass) where the fused pass keeps fp32, so the
+# last h may move by 24 * 4 * 2^-9 = 0.19; the gradients, rounded to bf16
+# as often through the conv form's backward, by the same share of their
+# largest value.  fp32 (TF32 off): sums in another order only.
+GRU_PATH_TOL = {torch.bfloat16: (0.1875, 0.1875), torch.float32: (1e-4, 1e-3)}
+
+
+def gru_modules(dev, dtype):
+    """SepConvGRU(fused='on') and (fused='off') with the oracle tree's
+    update-block GRU weights, on `dev`."""
+    _, _, _, tree = load_oracle_npz(ORACLE)
+    prefix = "update_block.gru."
+    sd = {k[len(prefix):]: v for k, v in state_dict_from_flax(tree).items()
+          if k.startswith(prefix)}
+    mods = []
+    for fused in ("on", "off"):
+        m = SepConvGRU(GRU_CH, GRU_CX, dtype, fused=fused).to(dev)
+        m.load_state_dict(sd, strict=True)
+        mods.append(m)
+    return mods
+
+
+def _gru_chain(mod, h, xs, static=None):
+    for x in xs:
+        h = mod(h, x, static=static)
+    return h
+
+
+def gru_path(dev) -> dict:
+    """Phase 4, the GRU path: SepConvGRU(fused='on') against fused='off',
+    12 chained calls (h carried, a fresh seeded x each call, as the
+    refinement loop runs it).  Serving (B=1, 55x128): forward, bf16.
+    Chairs (B=8, 46x62): forward and backward through autograd from a
+    seeded loss on the last h, bf16 and fp32.  The last h and every weight
+    gradient within GRU_PATH_TOL; launches asserted: 24 forward passes per
+    12 calls, 24 backward passes per backward, none with `static`."""
+    res = {}
+    for label, batch, h8, w8 in GRU_GRIDS:
+        for dtype in ((torch.bfloat16,) if label == "serving"
+                      else (torch.bfloat16, torch.float32)):
+            gen = torch.Generator(device=dev).manual_seed(31)
+            shape = (batch, h8, w8)
+            h0 = torch.randn(*shape, GRU_CH, generator=gen,
+                             device=dev).tanh().to(dtype)
+            xs = [torch.randn(*shape, GRU_CX, generator=gen, device=dev)
+                  for _ in range(GRU_CALLS)]
+            wgt = torch.randn(*shape, GRU_CH, generator=gen, device=dev)
+            train = label == "chairs"
+            on, off = gru_modules(dev, dtype)
+            outs = []
+            for mod in (on, off):
+                launch.reset_launch_counts()
+                t0 = time.perf_counter()
+                with torch.set_grad_enabled(train):
+                    h = _gru_chain(mod, h0, xs)
+                    if train:
+                        (h.float() * wgt).sum().backward()
+                sync(dev)
+                ms = (time.perf_counter() - t0) * 1e3
+                grads = [p.grad for p in mod.parameters()] if train else []
+                outs.append((h.detach().float(), grads, ms,
+                             launch.launch_counts()))
+            counts = outs[0][3]
+            h_tol, g_tol = GRU_PATH_TOL[dtype]
+            herr = float((outs[0][0] - outs[1][0]).abs().max())
+            gerr = max((rel_err(a, b) for a, b in zip(outs[0][1],
+                                                      outs[1][1])),
+                       default=0.0)
+            tag = f"GRU path {label} {dtype}"
+            print(f"{tag}: last h on vs off {herr:.3e} (bound {h_tol:g}), "
+                  f"gradients {gerr:.3e} (bound {g_tol:g}); "
+                  f"{'forward and backward' if train else 'forward'} "
+                  f"{outs[0][2]:.1f} ms fused, {outs[1][2]:.1f} ms conv form"
+                  f", launches {counts['gru_pass_fwd']} forward, "
+                  f"{counts['gru_pass_bwd']} backward")
+            assert bool(torch.isfinite(outs[0][0]).all()), tag
+            assert herr <= h_tol and gerr <= g_tol, f"{tag}: on != off"
+            assert counts["gru_pass_fwd"] == 2 * GRU_CALLS, tag
+            assert counts["gru_pass_bwd"] == (2 * GRU_CALLS if train else 0)
+            for name, n in counts.items():
+                if not name.startswith("gru_pass"):
+                    assert n == 0, f"{tag}: {name} launched"
+            assert not any(outs[1][3].values()), f"{tag}: the conv form " \
+                "launched a kernel"
+            res[f"{label} {dtype}"] = counts
+            # With the context's share given (`static`), the conv form runs.
+            launch.reset_launch_counts()
+            with torch.no_grad():
+                _gru_chain(on, h0, [x[..., 128:] for x in xs[:2]],
+                           static=on.static_contrib(xs[0][..., :128]))
+            sync(dev)
+            assert not any(launch.launch_counts().values()), \
+                f"{tag}: a kernel launched under static"
+            del on, off, outs, xs
+            torch.cuda.empty_cache()
+    return res
+
+
+def time_gru(dev, report) -> None:
+    """Phase 5, B10: forward and backward of each pass at the serving and
+    chairs grids in bf16, beside the plain versions, the bounds and the
+    library: the same pass in the conv form (SepConvGRU.conv_pass: cuDNN
+    convs and the gates, bf16 parameters; its backward by autograd).  The
+    conv form is a dozen launches, so beside the event times the kernels'
+    device times (torch.profiler) of B10 and of the conv form."""
+    for label, batch, h8, w8 in GRU_GRIDS:
+        args, g = gru_inputs(dev, batch, h8, w8, torch.bfloat16)
+        args = [a.to(torch.bfloat16) for a in args[:8]] + args[8:]
+        rows, isz = batch * h8 * w8, 2
+        cin = GRU_CH + GRU_CX
+        flops = 2.0 * rows * 5 * cin * GRU_CH * 3
+        w_bytes = 15 * cin * GRU_CH * isz + 3 * GRU_CH * 4
+        fwd_bytes = rows * (cin + 4 * GRU_CH) * isz + w_bytes
+        bwd_bytes = (rows * (5 * GRU_CH + GRU_CX + cin) * isz + w_bytes
+                     + 15 * cin * GRU_CH * 4 + 3 * GRU_CH * 4)
+        mod = SepConvGRU(GRU_CH, GRU_CX, torch.bfloat16).to(
+            dev, torch.bfloat16)
+        h4 = args[0].reshape(batch, h8, w8, GRU_CH).permute(0, 3, 1, 2)
+        x4 = args[1].reshape(batch, h8, w8, GRU_CX).permute(0, 3, 1, 2)
+        g4 = g.to(torch.bfloat16).reshape(batch, h8, w8, GRU_CH).permute(
+            0, 3, 1, 2)
+        for name, geo in (("h", (1, w8)), ("v", (w8, h8 * w8))):
+            out = sg.gru_pass_fwd(*args, *geo)
+            res = (args[0], args[1], *out[1:], g, *args[2:8])
+            hr = h4.detach().requires_grad_()
+            xr = x4.detach().requires_grad_()
+            y = mod.conv_pass(hr, xr, name)
+            lib_in = [hr, xr, *mod.parameters()]
+            cases = {
+                "gru_pass_fwd": (
+                    lambda: sg.gru_pass_fwd(*args, *geo),
+                    lambda: sg.gru_pass_fwd_plain(*args, *geo),
+                    lambda: mod.conv_pass(h4, x4, name),
+                    bound_ms(flops, fwd_bytes)),
+                "gru_pass_bwd": (
+                    lambda: sg.gru_pass_bwd(*res, *geo),
+                    lambda: sg.gru_pass_bwd_plain(*res, *geo),
+                    lambda: torch.autograd.grad(y, lib_in, g4,
+                                                retain_graph=True,
+                                                allow_unused=True),
+                    bound_ms(2 * flops, bwd_bytes)),
+            }
+            for kname, (kern, plain, lib, (bms, by)) in cases.items():
+                with torch.no_grad() if kname == "gru_pass_fwd" else \
+                        torch.enable_grad():
+                    ms, pms, lms = time_ms(kern, 10), time_ms(plain, 3), \
+                        time_ms(lib, 10)
+                    dms, dlms = device_ms(kern, 10), device_ms(lib, 10)
+                print(f"{kname} ({label}, pass {name}, bf16): {ms:.3f} ms, "
+                      f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), conv "
+                      f"form {lms:.3f} ms; device time {dms:.3f} ms, conv "
+                      f"form {dlms:.3f} ms")
+                if name == "h" and (kname == "gru_pass_fwd") == (
+                        label == "serving"):
+                    report[kname].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                         bound_ms=bms, bound_by=by)
+            del out, res, y, lib_in
+        del args, g, mod
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2135,7 +2493,11 @@ def main() -> int:
             ("corr_norm_sums", "corr_norm",
              TPU_KERNEL.format("corr_norm_sums_mt:733")),
             ("corr_norm_write", "corr_norm",
-             TPU_KERNEL.format("corr_norm_write_mt:772"))):
+             TPU_KERNEL.format("corr_norm_write_mt:772")),
+            ("gru_pass_fwd", "sep_conv_gru",
+             pallas + "sep_conv_gru.py:_gru_fwd:277"),
+            ("gru_pass_bwd", "sep_conv_gru",
+             pallas + "sep_conv_gru.py:_gru_bwd_vjp:319")):
         report[name] = dict(report["scores_global_max"], name=name,
                             source=SOURCE.format(src), replaces=tpu)
 
@@ -2149,6 +2511,8 @@ def main() -> int:
     check_dense_kernels(dev, gen, report)
     torch.cuda.empty_cache()
     check_sp_kernels(dev, gen, report)
+    torch.cuda.empty_cache()
+    check_gru(dev, report)
     torch.cuda.empty_cache()
     check_oracle(dev)
     check_oracle_lsinu(dev)
@@ -2167,6 +2531,11 @@ def main() -> int:
                  "corr_lookup_bwd"):
         report[name]["launches"] = tres["launches"][name]
     torch.cuda.empty_cache()
+    gres = gru_path(dev)
+    report["gru_pass_fwd"]["launches"] = \
+        gres["serving torch.bfloat16"]["gru_pass_fwd"]
+    report["gru_pass_bwd"]["launches"] = \
+        gres["chairs torch.bfloat16"]["gru_pass_bwd"]
     eval_phase(dev)
     torch.cuda.empty_cache()
     time_kernels(dev, gen, report)
@@ -2174,6 +2543,7 @@ def main() -> int:
     time_train_kernels(dev, gen, report)
     time_lookup(dev, report)
     time_dense_kernels(dev, gen, report)
+    time_gru(dev, report)
 
     sres = sp_paths(dev)
     for name in ("corr_norm_sums", "corr_norm_write"):

@@ -14,24 +14,28 @@
 // float atomics, deterministic).
 #include "common.cuh"
 
-template <typename T>
+// SHARD is false when the queries are all of the keys' rows (U1 == U2, every
+// path but sequence parallelism): the key count is then U1 itself, and the
+// masks test the token indices in place.  The sharded instantiation tests
+// its query rows against the rows left in the shard and its key columns
+// against the keys left in each tile.  Keeping the unsharded sweep free of
+// the shard's arithmetic keeps its time (see PERF.md, B1).
+template <typename T, bool SHARD>
 __global__ void __launch_bounds__(NTHREADS)
     scores_max_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      float* __restrict__ partial, int U1, int U2, int md,
-                      float scale) {
+                      float* __restrict__ partial, int U1, int U2_,
+                      int md, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = smem + MAXMD * SPAD;
   __shared__ float red[NTHREADS / 32];
+  const int U2 = SHARD ? U2_ : U1;
   const int qt = blockIdx.x, bm = blockIdx.y;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const T* qb = q + (size_t)bm * U1 * md;
   const T* kb = k + (size_t)bm * U2 * md;
   load_tile_t(qs, qb, qt * TILE, U1, md);
   float m = NEG_INF;
-  // The masks leave the sweep's index arithmetic: this thread's query rows
-  // are tested once, its key columns against the count left in the tile.
-  const int rows = U1 - qt * TILE - ty;
   const int nk = (U2 + TILE - 1) / TILE;
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();
@@ -39,13 +43,24 @@ __global__ void __launch_bounds__(NTHREADS)
     __syncthreads();
     float acc[4][4];
     score_tile(acc, qs, ks, md);
-    const int cols = U2 - kt * TILE - tx;
+    if (SHARD) {
+      const int rows = U1 - qt * TILE - ty;
+      const int cols = U2 - kt * TILE - tx;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (16 * i >= rows) continue;
+      for (int i = 0; i < 4; ++i) {
+        if (16 * i >= rows) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (16 * j < cols) m = fmaxf(m, acc[i][j] * scale);
+        for (int j = 0; j < 4; ++j)
+          if (16 * j < cols) m = fmaxf(m, acc[i][j] * scale);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (qt * TILE + ty + 16 * i >= U1) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (kt * TILE + tx + 16 * j < U2) m = fmaxf(m, acc[i][j] * scale);
+      }
     }
   }
 #pragma unroll
@@ -76,6 +91,17 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+template <typename T, bool SHARD>
+static cudaError_t launch_max(const void* q, const void* k, void* partial,
+                              dim3 grid, size_t smem, int U1, int U2, int md,
+                              float scale, cudaStream_t s) {
+  cudaError_t err = allow_smem(scores_max_kernel<T, SHARD>, smem);
+  if (err != cudaSuccess) return err;
+  scores_max_kernel<T, SHARD><<<grid, NTHREADS, smem, s>>>(
+      (const T*)q, (const T*)k, (float*)partial, U1, U2, md, scale);
+  return cudaGetLastError();
+}
+
 // q: [BM, U1, md], k: [BM, U2, md] contiguous (bf16 when in_bf16, else
 // fp32), md <= 64; U1 < U2 for a row shard of the queries.  partial:
 // [BM * ceil(U1 / 64)] fp32 scratch; out: [1] fp32.
@@ -86,21 +112,15 @@ extern "C" int scores_max_launch(const void* q, const void* k, void* partial,
   const int nq = (U1 + TILE - 1) / TILE;
   const size_t smem = 2 * MAXMD * SPAD * sizeof(float);
   dim3 grid(nq, BM);
-  cudaError_t err;
-  if (in_bf16) {
-    err = allow_smem(scores_max_kernel<__nv_bfloat16>, smem);
-    if (err != cudaSuccess) return (int)err;
-    scores_max_kernel<__nv_bfloat16><<<grid, NTHREADS, smem, s>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (float*)partial,
-        U1, U2, md, scale);
-  } else {
-    err = allow_smem(scores_max_kernel<float>, smem);
-    if (err != cudaSuccess) return (int)err;
-    scores_max_kernel<float><<<grid, NTHREADS, smem, s>>>(
-        (const float*)q, (const float*)k, (float*)partial, U1, U2, md,
-        scale);
-  }
-  err = cudaGetLastError();
+  cudaError_t err = U1 == U2
+      ? (in_bf16 ? launch_max<__nv_bfloat16, false>(q, k, partial, grid, smem,
+                                                     U1, U2, md, scale, s)
+                 : launch_max<float, false>(q, k, partial, grid, smem, U1,
+                                            U2, md, scale, s))
+      : (in_bf16 ? launch_max<__nv_bfloat16, true>(q, k, partial, grid, smem,
+                                                    U1, U2, md, scale, s)
+                 : launch_max<float, true>(q, k, partial, grid, smem, U1, U2,
+                                           md, scale, s));
   if (err != cudaSuccess) return (int)err;
   max_reduce_kernel<<<1, NTHREADS, 0, s>>>((const float*)partial, nq * BM,
                                            (float*)out);

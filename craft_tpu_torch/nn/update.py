@@ -19,6 +19,8 @@ import torch.nn as nn
 from craft_tpu_torch.config import ModelConfig, intra_aggregator_config
 from craft_tpu_torch.nn.layers import conv, conv2d
 from craft_tpu_torch.nn.setrans import ExpandedFeatTrans
+from craft_tpu_torch.ops.kernels.sep_conv_gru import (fused_gru_vmem_ok,
+                                                      gru_pass)
 
 _PAD = {"h": (2, 2, 0, 0), "v": (0, 0, 2, 2)}  # F.pad (left, right, top, bottom)
 
@@ -33,13 +35,26 @@ def _nhwc(x):
 
 class SepConvGRU(nn.Module):
     """Separable ConvGRU: horizontal (1x5) then vertical (5x1) gated update
-    (reference update.py:37-64)."""
+    (reference update.py:37-64).
+
+    fused = 'on' runs each direction as one pass of B10 (``gru_pass``: the
+    three gate convs and the update in hand kernels on a CUDA tensor, their
+    plain version on a CPU one), with the same parameters split into taps;
+    'auto' does so on a CUDA tensor; 'off' (the default, as in the JAX
+    package) runs the conv form.  The fused pass runs only where the JAX
+    module takes its kernel: no `static` contribution, and a shape that
+    ``fused_gru_vmem_ok`` admits.  Its io type is h's, as in the JAX
+    package."""
 
     def __init__(self, hidden_dim: int = 128, input_dim: int = 384,
-                 dtype=torch.float32):
+                 dtype=torch.float32, fused: str = "off"):
         super().__init__()
+        if fused not in ("off", "on", "auto"):
+            raise ValueError(f"fused must be 'off', 'on' or 'auto', got "
+                             f"{fused!r}")
         self.hidden_dim = hidden_dim
         self.dtype = dtype
+        self.fused = fused
         cin = hidden_dim + input_dim
         for g in ("z", "r", "q"):
             setattr(self, f"conv{g}1",
@@ -63,30 +78,61 @@ class SepConvGRU(nn.Module):
             out[d] = conv2d(x, w, None, 1, _PAD[d], self.dtype)
         return out
 
+    def _fused_pass(self, h, x, d: str, stride: int, width: int):
+        """One direction as a B10 pass over the rows of h [B, HW, Ch], x
+        [B, HW, Cx]: each gate's [Ch, Ch + Cx, kh, kw] kernel as taps [5,
+        Ch + Cx, Ch], split at Ch."""
+        hd = self.hidden_dim
+        parts = []
+        for m in self._gates(d):
+            taps = m.weight.reshape(hd, -1, 5).permute(2, 1, 0)
+            parts += [taps[:, :hd], taps[:, hd:]]
+        biases = [m.bias for m in self._gates(d)]
+        return gru_pass(h, x, *parts, *biases, stride, width)
+
     def forward(self, h, x, static=None):
         """h: [B, H, W, hidden]; x: the per-iteration input channels (all of
         them when static is None).  Returns the new h (NHWC)."""
-        dt, hd = self.dtype, self.hidden_dim
+        dt = self.dtype
         cs = static["cs"] if static is not None else 0
+        B, H, W, Ch = h.shape
+        use_fused = self.fused == "on" or (self.fused == "auto"
+                                           and h.is_cuda)
+        if use_fused and static is None and fused_gru_vmem_ok(
+                H * W, Ch, cs + x.shape[-1], 1, torch.finfo(dt).bits // 8):
+            # The vertical pass reads the same row-major rows W apart (one
+            # "image row" of H * W: only the image bounds mask its taps).
+            rows = (B, H * W, -1)
+            hr, xr = h.reshape(rows), x.reshape(rows)
+            hr = self._fused_pass(hr, xr, "h", 1, W)
+            return self._fused_pass(hr, xr, "v", W, H * W).reshape(B, H, W,
+                                                                  Ch)
         h = _nchw(h)
         x = _nchw(x).to(dt)
         for d in ("h", "v"):
-            cz, cr, cq = self._gates(d)
-            w_x = torch.cat([m.weight[:, hd + cs:] for m in (cz, cr, cq)])
-            a = conv2d(x, w_x, None, 1, _PAD[d], dt)
-            if static is not None:
-                a = a + static[d].to(a.dtype)
-            w_h = torch.cat([cz.weight[:, :hd], cr.weight[:, :hd]])
-            g = conv2d(h, w_h, None, 1, _PAD[d], dt)
-            z = torch.sigmoid(g[:, :hd] + a[:, :hd]
-                              + cz.bias.to(dt).view(1, -1, 1, 1))
-            r = torch.sigmoid(g[:, hd:] + a[:, hd:2 * hd]
-                              + cr.bias.to(dt).view(1, -1, 1, 1))
-            q = torch.tanh(conv2d(r * h, cq.weight[:, :hd], None, 1, _PAD[d],
-                                  dt) + a[:, 2 * hd:]
-                           + cq.bias.to(dt).view(1, -1, 1, 1))
-            h = (1 - z) * h + z * q
+            h = self.conv_pass(h, x, d, static)
         return _nhwc(h)
+
+    def conv_pass(self, h, x, d: str, static=None):
+        """One direction in the conv form, NCHW: the merged convs over x
+        (z|r|q thirds, plus the static share) and over h (z|r halves), the
+        q conv over r h, and the update."""
+        dt, hd = self.dtype, self.hidden_dim
+        cs = static["cs"] if static is not None else 0
+        cz, cr, cq = self._gates(d)
+        w_x = torch.cat([m.weight[:, hd + cs:] for m in (cz, cr, cq)])
+        a = conv2d(x, w_x, None, 1, _PAD[d], dt)
+        if static is not None:
+            a = a + static[d].to(a.dtype)
+        w_h = torch.cat([cz.weight[:, :hd], cr.weight[:, :hd]])
+        g = conv2d(h, w_h, None, 1, _PAD[d], dt)
+        z = torch.sigmoid(g[:, :hd] + a[:, :hd]
+                          + cz.bias.to(dt).view(1, -1, 1, 1))
+        r = torch.sigmoid(g[:, hd:] + a[:, hd:2 * hd]
+                          + cr.bias.to(dt).view(1, -1, 1, 1))
+        q = torch.tanh(conv2d(r * h, cq.weight[:, :hd], None, 1, _PAD[d], dt)
+                       + a[:, 2 * hd:] + cq.bias.to(dt).view(1, -1, 1, 1))
+        return (1 - z) * h + z * q
 
 
 class BasicMotionEncoder(nn.Module):

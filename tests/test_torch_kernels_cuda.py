@@ -1,7 +1,8 @@
 """The CUDA kernels (B1-B4, the training kernels B6 forward and backward
 and B7 backward, the lookup B5 forward and backward, the dense-table
-kernels B8, B6 dense and B4 dense, and the sequence-parallel B9 with B1,
-B2 and B4 on row shards) against their plain versions at small ragged
+kernels B8, B6 dense and B4 dense, the sequence-parallel B9 with B1,
+B2 and B4 on row shards, and the fused SepConvGRU pass B10 forward and
+backward) against their plain versions at small ragged
 shapes, bf16 and fp32 inputs, batch 2, every input drawn from a
 seeded generator.  Needs an NVIDIA GPU with nvcc
 (sm_90a); skipped elsewhere.  On the card:
@@ -22,6 +23,7 @@ from craft_tpu_torch.ops.kernels import corr_vjp as cv
 from craft_tpu_torch.ops.kernels import launch
 from craft_tpu_torch.ops.kernels import mode_attention as ma
 from craft_tpu_torch.ops.kernels import probs_vjp as pv
+from craft_tpu_torch.ops.kernels import sep_conv_gru as sg
 
 pytestmark = pytest.mark.cuda
 
@@ -155,7 +157,9 @@ def test_launch_counts_count_kernel_launches_only(dev):
                                       "corr_lookup": 0,
                                       "corr_lookup_bwd": 0,
                                       "corr_norm_sums": 0,
-                                      "corr_norm_write": 0}
+                                      "corr_norm_write": 0,
+                                      "gru_pass_fwd": 0,
+                                      "gru_pass_bwd": 0}
 
 
 def test_unsupported_variants_raise(dev):
@@ -508,3 +512,121 @@ def test_b9_shards_against_plain_and_b3(dev, out_dtype, grid, shards,
                                    out_dtype=out_dtype)
     torch.testing.assert_close(torch.cat(parts, 1).float(), b3.float(),
                                atol=tol[0], rtol=tol[1])
+
+
+# ------------------------------------------------- B10, the fused GRU pass
+
+# (B, H, W, Ch, Cx): odd widths with channels that no tile divides, and the
+# full width over rows that span several 64-row tiles and image rows.
+GRU_SHAPES = [(2, 5, 9, 16, 24), (1, 4, 70, 128, 384)]
+# max |kernel - plain| / max |plain| per tensor.  fp32: sums of up to
+# 5 (Ch + Cx) products (rows, for the weight gradients) in another order.
+# bf16: an io output may round one ulp (2^-7 of the largest value) the
+# other way; the fp32 weight and bias gradients sum exact products of the
+# same bf16 operands, of which a few may have rounded the other way.
+GRU_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
+
+
+def _gru_inputs(dev, shape, dtype, seed=11):
+    """The 13 arguments of a pass (stride 1) and a cotangent, seeded: h in
+    (-1, 1), x ~ N(0, 1), taps ~ N(0, 1 / (5 (Ch + Cx))) so that each gate's
+    pre-activation has unit scale, biases ~ N(0, 0.1^2)."""
+    B, H, W, Ch, Cx = shape
+    gen = _gen(seed)
+    h = torch.randn(B, H * W, Ch, generator=gen).tanh()
+    x = torch.randn(B, H * W, Cx, generator=gen)
+    std = (5 * (Ch + Cx)) ** -0.5
+    ws = [torch.randn(5, c, Ch, generator=gen) * std
+          for _ in range(3) for c in (Ch, Cx)]
+    bs = [torch.randn(Ch, generator=gen) * 0.1 for _ in range(3)]
+    g = torch.randn(B, H * W, Ch, generator=gen)
+    return ([h.to(dev, dtype), x.to(dev), *[w.to(dev) for w in ws],
+             *[b.to(dev) for b in bs]], g.to(dev))
+
+
+def _gru_close(got, want, tol):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        err = _rel(a, b)
+        assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("vertical", [False, True], ids=["h", "v"])
+@pytest.mark.parametrize("shape", GRU_SHAPES)
+def test_b10_forward(dev, dtype, vertical, shape):
+    args, _ = _gru_inputs(dev, shape, dtype)
+    geo = (shape[2], shape[1] * shape[2]) if vertical else (1, shape[2])
+    got = sg.gru_pass_fwd(*args, *geo)
+    want = sg.gru_pass_fwd_plain(*args, *geo)
+    _gru_close(got, want, GRU_TOL[dtype][0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("vertical", [False, True], ids=["h", "v"])
+@pytest.mark.parametrize("shape", GRU_SHAPES)
+def test_b10_backward(dev, dtype, vertical, shape):
+    args, g = _gru_inputs(dev, shape, dtype)
+    geo = (shape[2], shape[1] * shape[2]) if vertical else (1, shape[2])
+    _, z, r, q = sg.gru_pass_fwd_plain(*args, *geo)
+    res = (args[0], args[1], z, r, q, g, *args[2:8])
+    got = sg.gru_pass_bwd(*res, *geo)
+    want = sg.gru_pass_bwd_plain(*res, *geo)
+    io_tol, w_tol = GRU_TOL[dtype]
+    _gru_close(got[:2], want[:2], io_tol)
+    _gru_close(got[2:], want[2:], w_tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_b10_backward_is_deterministic(dev, dtype):
+    args, g = _gru_inputs(dev, GRU_SHAPES[1], dtype)
+    hout, z, r, q = sg.gru_pass_fwd(*args, 1, GRU_SHAPES[1][2])
+    res = (args[0], args[1], z, r, q, g, *args[2:8], 1, GRU_SHAPES[1][2])
+    for a, b in zip(sg.gru_pass_bwd(*res), sg.gru_pass_bwd(*res)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("vertical", [False, True], ids=["h", "v"])
+def test_b10_fp32_takes_ragged_channels(dev, vertical):
+    """fp32 tiles mask channels that no 8 divides; bf16 ones refuse them."""
+    shape = (2, 3, 7, 12, 20)
+    args, g = _gru_inputs(dev, shape, torch.float32)
+    geo = (shape[2], shape[1] * shape[2]) if vertical else (1, shape[2])
+    got = sg.gru_pass_fwd(*args, *geo)
+    want = sg.gru_pass_fwd_plain(*args, *geo)
+    _gru_close(got, want, GRU_TOL[torch.float32][0])
+    res = (args[0], args[1], *want[1:], g, *args[2:8])
+    _gru_close(sg.gru_pass_bwd(*res, *geo), sg.gru_pass_bwd_plain(*res, *geo),
+               GRU_TOL[torch.float32][1])
+    args[0] = args[0].bfloat16()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        sg.gru_pass_fwd(*args, *geo)
+
+
+def test_b10_module_on_card_launches_its_kernels(dev, monkeypatch):
+    """SepConvGRU(fused='on') on the card: two forward and two backward
+    launches a call, none under `static` or with fused='off'; its output
+    and gradients against the conv form in fp32 (cuDNN's convs with TF32
+    off, or they keep three decimal digits)."""
+    from craft_tpu_torch.nn.update import SepConvGRU
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = _gen(12)
+    on = SepConvGRU(128, 384, fused="on").to(dev)
+    off = SepConvGRU(128, 384).to(dev)
+    off.load_state_dict(on.state_dict())
+    h = torch.randn(2, 6, 13, 128, generator=gen).tanh().to(dev)
+    x = torch.randn(2, 6, 13, 384, generator=gen).to(dev)
+    outs = []
+    for mod in (on, off):
+        launch.reset_launch_counts()
+        y = mod(h, x)
+        y.square().sum().backward()
+        counts = launch.launch_counts()
+        n = 2 if mod is on else 0
+        assert (counts["gru_pass_fwd"], counts["gru_pass_bwd"]) == (n, n)
+        outs.append([y.detach()] + [p.grad for p in mod.parameters()])
+    for a, b in zip(*outs):
+        assert _rel(a, b) <= 1e-4
+    launch.reset_launch_counts()
+    on(h, x[..., 128:], static=on.static_contrib(x[..., :128]))
+    assert launch.launch_counts()["gru_pass_fwd"] == 0

@@ -9,7 +9,9 @@ a table scaled by pos_w twice, no clamp or ragged keys left unmasked
 (B6 dense reads each key on its own, so it has no such fault), and for the
 sequence-parallel kernels (B9, and B2 and B4 on a row shard) the row offset
 dropped, the moments over a shard's own element count or a shard's own max
-as the clamp predicate) they must fail.  On the card the same checks also
+as the clamp predicate, and for the fused GRU pass B10 the row mask
+dropped, q over h, the blend reversed, halo rows counted twice in the
+weight gradients or dh without its drh r term) they must fail.  On the card the same checks also
 plant the faults in the plain versions and fail unless their bounds catch
 them.
 """
@@ -24,6 +26,7 @@ from craft_tpu_torch.ops.kernels import corr_lookup as lk
 from craft_tpu_torch.ops.kernels import corr_vjp as cv
 from craft_tpu_torch.ops.kernels import mode_attention as ma
 from craft_tpu_torch.ops.kernels import probs_vjp as pv
+from craft_tpu_torch.ops.kernels import sep_conv_gru as sg
 
 GRID = (6, 20)  # U = 120: not a multiple of the kernels' 64-row tiles
 CPU = torch.device("cpu")
@@ -305,3 +308,49 @@ def test_sp_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper, fault):
     monkeypatch.setattr(ma, wrapper, _sp_fault(wrapper, fault))
     with pytest.raises(AssertionError, match="disagrees"):
         _run_sp()
+
+
+# ------------------------------------------------- B10, the fused GRU pass
+
+GRU_GRIDS = (("tiny", 2, 5, 9),)  # 45 rows an image: no 64-row tile fits
+
+
+def _run_gru():
+    report = {"gru_pass_fwd": {}, "gru_pass_bwd": {}}
+    chip_smoke.check_gru(CPU, report, grids=GRU_GRIDS)
+    return report
+
+
+def test_gru_checks_pass_the_plain_versions():
+    report = _run_gru()
+    assert report["gru_pass_fwd"]["max_abs_err"] == 0.0
+    assert report["gru_pass_bwd"]["max_abs_err"] == 0.0
+
+
+def _gru_fault(fault):
+    if fault in chip_smoke.B10_FAULTS[:3]:
+        return "gru_pass_fwd", lambda *a: chip_smoke._gru_fwd_fault(
+            list(a[:11]), a[11], a[12], fault)
+    return "gru_pass_bwd", lambda *a: chip_smoke._gru_bwd_fault(
+        a[:12], a[12], a[13], fault)
+
+
+@pytest.mark.parametrize("fault", chip_smoke.B10_FAULTS)
+def test_gru_checks_catch_a_planted_kernel_fault(monkeypatch, fault):
+    wrapper, faulty = _gru_fault(fault)
+    monkeypatch.setattr(sg, wrapper, faulty)
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run_gru()
+
+
+def test_gru_checks_catch_a_backward_that_is_not_repeatable(monkeypatch):
+    calls = []
+
+    def drifting(*a):
+        out = list(sg.gru_pass_bwd_plain(*a))
+        calls.append(1)
+        out[2] = out[2] + len(calls) * 1e-7
+        return tuple(out)
+    monkeypatch.setattr(sg, "gru_pass_bwd", drifting)
+    with pytest.raises(AssertionError, match="two backwards differ"):
+        _run_gru()

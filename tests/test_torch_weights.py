@@ -130,7 +130,8 @@ def test_port_file_imports_no_jax(path):
 def test_importing_the_port_leaves_jax_and_flax_out():
     code = ("import sys; import craft_tpu_torch.models.flow_model, "
             "craft_tpu_torch.ops.kernels.mode_attention, "
-            "craft_tpu_torch.parallel.sequence_parallel; "
+            "craft_tpu_torch.parallel.sequence_parallel, "
+            "craft_tpu_torch.ops.kernels.sep_conv_gru; "
             "bad = [m for m in ('jax', 'flax', 'craft_tpu') "
             "if m in sys.modules]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

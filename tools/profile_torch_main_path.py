@@ -45,6 +45,12 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("B7 probs_bwd", ("probs_bwd_kernel",)),
     ("B5 lookup_bwd", ("lookup_bwd_kernel",)),
     ("B5 lookup", ("lookup_fwd_kernel",)),
+    # B10, the fused SepConvGRU pass (SepConvGRU(fused='on'); no FlowModel
+    # path builds it, so a model profile shows it only when a caller does).
+    ("B10 gru_pass", ("gru_zr_kernel", "gru_q_kernel")),
+    ("B10 gru_pass_bwd", ("gru_bwd_elem_kernel", "gru_drh_kernel",
+                          "gru_dhx_kernel", "gru_wgrad_kernel",
+                          "sum_splits_kernel")),
     ("convolution", ("conv", "xmma", "cudnn", "implicit", "winograd")),
     ("matmul", ("gemm", "cutlass", "sm90", "ampere")),
     ("gather/index", ("gather", "index", "scatter")),

@@ -1,25 +1,43 @@
-"""Times of the serving attention kernels with the sliding window, B1
-(scores_global_max), B2 (flash_mode_attention), B3 (fused_agg_corr_norm) and
-B4 (mode_softmax_probs, int8), at the serving shape (B=1, M=4, 440x1024 ->
-U=7040, W8=128) over CUDA events, for the craft_tpu_torch package under
---root (default: this checkout), so that two checkouts can be compared in
-one call on one card:
+"""A/B times of the hand kernels B1-B8 over CUDA events, for the
+craft_tpu_torch package under --root (default: this checkout), so that two
+checkouts can be compared in one call on one card:
 
     python tools/time_window_kernels.py --root build/parent --reps 20
 
-Builds that checkout's kernels into its own build/kernels/.  Seeded inputs
-(q, k ~ N(0, 1.5^2) bf16, the window ~ N(0, 0.5^2)), the clamp off.  Each
-kernel is timed in ROUNDS rounds of `reps` calls (the rounds of the four
-kernels interleaved, so that a disturbance of the card spreads over all of
-them); a round's time is its mean per call.  Prints the card (nvidia-smi
-name, power limit) and one JSON line: per kernel the median round (ms per
-call), every round, and a SHA-256 prefix of its output bytes (equal
-prefixes: the checkouts' results are bit-identical).
+Builds that checkout's kernels into its own build/kernels/.  The cases, at
+the shapes their paths run them (serving: B=1, M=4, 440x1024 -> U=7040,
+W8=128; chairs: B=8, 368x496 -> U=2852, W8=62; KITTI: 376x1248 -> U=7332,
+W8=156):
+
+  B1 (scores_global_max) at serving, md 64, and at chairs (B*M = 32);
+  B2 (flash_mode_attention) at serving;
+  B3 (fused_agg_corr_norm) at serving and KITTI;
+  B4 (mode_softmax_probs, int8) at serving;
+  B5 (corr_lookup) forward and backward at serving and chairs, bf16 levels;
+  B6 (fused_agg_corr) forward and backward at chairs, md 64;
+  B6 dense and B4 dense (no table, bf16 probs) at serving;
+  B7 (probs_bwd) at chairs, md 64 and 32;
+  B8 (flash_mode_attention_dense) at serving, with no table and with the
+  --f2radius 7 table (pos_w * the dense window + the mask).
+
+Seeded inputs from CPU generators (q, k ~ N(0, 1.5^2) bf16, the window ~
+N(0, 0.5^2)), the clamp off.  Each case is timed in ROUNDS rounds of `reps`
+calls, the rounds of all cases interleaved, so that a disturbance of the
+card spreads over all of them; a round's time is its mean per call.  After
+the rounds, one more run of `reps` calls of each case under torch.profiler
+gives its kernels' device time per call (`_dev_ms`): where a kernel is
+shorter than its wrapper's host work, the events time the host, and the
+device time is the kernel's own.  Prints the card (nvidia-smi name, power
+limit) and one JSON line with the card again and, per case, the median
+round (ms per call), every round, the device time and a SHA-256 prefix of
+its output bytes (equal prefixes: the checkouts' results are
+bit-identical).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import statistics
@@ -28,6 +46,125 @@ import sys
 from pathlib import Path
 
 ROUNDS = 7
+SERVING, CHAIRS, KITTI = (55, 128), (46, 62), (47, 156)
+RADIUS, LEVELS, F2RADIUS = 4, 4, 7
+
+
+def _lookup_inputs(torch, gen, dev, batch, grid):
+    """bf16 levels [Q, h / 2^l, w / 2^l] ~ N(0, 1) and coords: the token
+    grid moved by up to 6 px, some queries outside every level."""
+    h8, w8 = grid
+    Q = batch * h8 * w8
+    levels = [torch.randn(Q, h8 >> l, w8 >> l, generator=gen).to(
+        dev, torch.bfloat16) for l in range(LEVELS)]
+    ys, xs = torch.meshgrid(torch.arange(h8), torch.arange(w8),
+                            indexing="ij")
+    base = torch.stack([xs, ys], -1).float()[None].expand(batch, -1, -1, -1)
+    coords = base + torch.rand(batch, h8, w8, 2, generator=gen) * 12 - 6
+    flat = coords.reshape(-1, 2)
+    flat[::13] = -200.0 - flat[::13]
+    flat[::17] += 150.0 + max(h8, w8)
+    return levels, coords.to(dev)
+
+
+def _cases(torch, dev):
+    """{name: a call of one kernel wrapper on this run's seeded inputs}."""
+    from craft_tpu_torch.nn.setrans import attention_mask
+    from craft_tpu_torch.ops.kernels import corr_lookup as lk
+    from craft_tpu_torch.ops.kernels import corr_vjp as cv
+    from craft_tpu_torch.ops.kernels import mode_attention as ma
+    from craft_tpu_torch.ops.kernels import probs_vjp as pv
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * std).to(dev, dtype)
+
+    def qk(batch, u, md):
+        return (randn(batch, 4, u, md, std=1.5) for _ in range(2))
+
+    u, uc, uk = (g[0] * g[1] for g in (SERVING, CHAIRS, KITTI))
+    q64, k64 = qk(1, u, 64)
+    q32, k32 = qk(1, u, 32)
+    qc64, kc64 = qk(8, uc, 64)
+    qc32, kc32 = qk(8, uc, 32)
+    qk64, kk64 = qk(1, uk, 64)
+    v = randn(1, 4, u, 256)
+    biases = randn(15, 15, std=0.5, dtype=torch.float32)
+    clip = torch.tensor(1e30, device=dev)
+    one = torch.tensor(1.0, device=dev)
+    agg_w = torch.tensor(1.3, device=dev)
+    agg_b = torch.tensor(0.1, device=dev)
+    table = (0.5 * ma.sliding_pos_biases(biases, *SERVING)
+             + attention_mask(*SERVING, F2RADIUS, dev))
+    cases = {
+        "B1": lambda: ma.scores_global_max(q64, k64, 0.125),
+        "B1_chairs": lambda: ma.scores_global_max(qc64, kc64, 0.125),
+        "B2": lambda: ma.flash_mode_attention(q64, k64, v, biases, SERVING,
+                                              clip, 0.5),
+        "B3": lambda: ma.fused_agg_corr_norm(q64, k64, biases, SERVING,
+                                             100.0, 0.5, one, one),
+        "B3_kitti": lambda: ma.fused_agg_corr_norm(qk64, kk64, biases, KITTI,
+                                                   100.0, 0.5, one, one),
+        "B4": lambda: ma.mode_softmax_probs(q32, k32, biases, SERVING, clip,
+                                            1.0, quantized=True),
+        "B4_dense": lambda: ma.mode_softmax_probs_dense(q32, k32, None, clip,
+                                                        1.0),
+        "B6_dense": lambda: cv.fused_agg_corr_dense(q64, k64, None, clip,
+                                                    0.5, agg_w, agg_b),
+        "B8": lambda: ma.flash_mode_attention_dense(q64, k64, v, None, clip,
+                                                    0.5),
+        "B8_table": lambda: ma.flash_mode_attention_dense(q64, k64, v, table,
+                                                          clip, 1.0),
+    }
+    for label, batch, grid in (("", 1, SERVING), ("_chairs", 8, CHAIRS)):
+        levels, coords = _lookup_inputs(torch, gen, dev, batch, grid)
+        shapes = [tuple(lv.shape) for lv in levels]
+        g = torch.randn(batch, *grid, LEVELS * (2 * RADIUS + 1) ** 2,
+                        generator=gen).to(dev)
+        cases["B5" + label] = functools.partial(lk.corr_lookup, levels,
+                                                coords, RADIUS)
+        cases["B5_bwd" + label] = functools.partial(
+            lk.corr_lookup_bwd, coords, g, shapes, torch.bfloat16, RADIUS)
+    vol = cv.fused_agg_corr(qc64, kc64, biases, CHAIRS, clip, 0.5, agg_w,
+                            agg_b)
+    g_vol = randn(8, uc, uc, dtype=torch.float32)
+    cases["B6"] = lambda: cv.fused_agg_corr(qc64, kc64, biases, CHAIRS, clip,
+                                            0.5, agg_w, agg_b)
+    cases["B6_bwd"] = lambda: cv.agg_corr_bwd(qc64, kc64, g_vol, vol, biases,
+                                              CHAIRS, clip, 0.5, agg_w)
+    g_p = randn(8, 4, uc, uc)
+    for md, (q, k), pos_w in ((64, (qc64, kc64), 0.5),
+                              (32, (qc32, kc32), 1.0)):
+        p = ma.mode_softmax_probs(q, k, biases, CHAIRS, clip, pos_w)
+        cases[f"B7_md{md}"] = functools.partial(pv.probs_bwd, q, k, p, g_p,
+                                                clip)
+    return cases
+
+
+def _digest(torch, res) -> str:
+    digest = hashlib.sha256()
+    for t in res if isinstance(res, (tuple, list)) else (res,):
+        digest.update(t.contiguous().reshape(-1).view(torch.uint8).cpu()
+                      .numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+def _device_ms(torch, fn, reps: int) -> float:
+    """Kernel time per call on the device, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                total += getattr(e, attr)
+                break
+    return total / 1e3 / reps
 
 
 def main() -> int:
@@ -43,41 +180,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_window_kernels: CUDA is not available", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card)
     assert Path(ma.__file__).resolve().is_relative_to(root), ma.__file__
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
-    grid = (55, 128)
-    u = grid[0] * grid[1]
-
-    def randn(*shape, std=1.0):
-        return (torch.randn(*shape, generator=gen) * std).to(dev)
-    q64, k64 = (randn(1, 4, u, 64, std=1.5).bfloat16() for _ in range(2))
-    q32, k32 = (randn(1, 4, u, 32, std=1.5).bfloat16() for _ in range(2))
-    v = randn(1, 4, u, 256).bfloat16()
-    biases = randn(15, 15, std=0.5)
-    clip = torch.tensor(1e30, device=dev)
-    one = torch.tensor(1.0, device=dev)
-    cases = {
-        "B1_ms": lambda: ma.scores_global_max(q64, k64, 0.125),
-        "B2_ms": lambda: ma.flash_mode_attention(q64, k64, v, biases, grid,
-                                                 clip, 0.5),
-        "B3_ms": lambda: ma.fused_agg_corr_norm(q64, k64, biases, grid,
-                                                100.0, 0.5, one, one),
-        "B4_ms": lambda: ma.mode_softmax_probs(q32, k32, biases, grid, clip,
-                                               1.0, quantized=True),
-    }
-    out = {"root": str(root)}
+    cases = _cases(torch, torch.device("cuda"))
+    out = {"root": str(root), "card": card}
     for name, fn in cases.items():
         res = fn()
         torch.cuda.synchronize()
-        digest = hashlib.sha256()
-        for t in res if isinstance(res, tuple) else (res,):
-            digest.update(t.reshape(-1).view(torch.uint8).cpu().numpy()
-                          .tobytes())
-        out[name.replace("_ms", "_sha")] = digest.hexdigest()[:16]
+        out[name + "_sha"] = _digest(torch, res)
+        del res
     rounds = {name: [] for name in cases}
     for _ in range(ROUNDS):
         for name, fn in cases.items():
@@ -90,8 +204,9 @@ def main() -> int:
             torch.cuda.synchronize()
             rounds[name].append(start.elapsed_time(end) / args.reps)
     for name, times in rounds.items():
-        out[name] = statistics.median(times)
-        out[name.replace("_ms", "_rounds")] = times
+        out[name + "_ms"] = statistics.median(times)
+        out[name + "_rounds"] = times
+        out[name + "_dev_ms"] = _device_ms(torch, cases[name], args.reps)
     print(json.dumps(out))
     return 0
 

@@ -9,8 +9,9 @@ these phases and fails on the first that fails:
   1. card: prints `nvidia-smi --query-gpu=name,power.limit`; TF32 off.
   2. kernels: each serving kernel (B1-B4) against its plain PyTorch
      version on seeded inputs at the main-path shapes (B=1, M=4, 440x1024
-     -> U=7040), the clamp off and on; a dropped bias and a missing clamp,
-     planted in the plain version, must each fall outside the bound.
+     -> U=7040), the clamp off and on; a dropped bias and a missing clamp
+     (for B2 also the window's outer ring dropped), planted in the plain
+     version, must each fall outside the bound.
      Then the training kernels at the chairs shapes (B=8, M=4, 46x62 ->
      U=2852, md 64 and 32): B1 and B4 float at this ragged U, B6 forward,
      B6 backward (dc, da) and B7 backward (dc, dlsum), each with faults
@@ -266,6 +267,15 @@ def hold(label, got, want, err_fn, tol, faults) -> float:
     return err
 
 
+def drop_outer_ring(biases):
+    """The window with its outer ring (|dh| = R or |dw| = R) set to 0: what
+    a kernel whose band or window test is one row or column too tight
+    computes."""
+    w = biases.clone()
+    w[0], w[-1], w[:, 0], w[:, -1] = 0.0, 0.0, 0.0, 0.0
+    return w
+
+
 def clamped_share(q, k, clip: float) -> float:
     """Share of the scores scale * q.k that |.| > clip clamps."""
     s = torch.einsum("bmid,bmjd->bmij", q.float(), k.float())
@@ -305,7 +315,10 @@ def check_kernels(dev, gen, report, grid=(H8, W8)) -> None:
         sync(dev)
         plain = lambda c, w: ma.flash_mode_attention_plain(  # noqa: E731
             q, k, v, biases, grid, torch.tensor(c, device=dev), w)
-        faults = {"no bias": plain(clip, 0.0)}
+        faults = {"no bias": plain(clip, 0.0),
+                  "outer ring dropped": ma.flash_mode_attention_plain(
+                      q, k, v, drop_outer_ring(biases), grid,
+                      torch.tensor(clip, device=dev), 0.5)}
         if clip != CLIP_OFF:
             faults["no clamp"] = plain(CLIP_OFF, 0.5)
         want = plain(clip, 0.5)
@@ -1960,6 +1973,9 @@ def time_kernels(dev, gen, report) -> None:
         r["bound_ms"], r["bound_by"] = bms, by
         print(f"{name}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"bound {bms:.4f} ms ({by}), library {r['library_ms']}")
+        if lib is not None:
+            print(f"{name}: {r['library_ms'] / r['ms']:.3f} x the speed of "
+                  "its library call")
         torch.cuda.empty_cache()
     md32 = time_ms(lambda: ma.scores_global_max(q32, k32, 0.17677669), 5)
     print(f"scores_global_max at the intra shape (md 32): {md32:.3f} ms")
@@ -2021,6 +2037,8 @@ def time_dense_kernels(dev, gen, report) -> None:
         lms = time_ms(lib, 5) if lib is not None else None
         print(f"{name}: {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms "
               f"({by}), library {lms}")
+        if lms is not None:
+            print(f"{name}: {lms / ms:.3f} x the speed of its library call")
         if name in report:
             report[name].update(ms=ms, plain_ms=pms, library_ms=lms,
                                 bound_ms=bms, bound_by=by)

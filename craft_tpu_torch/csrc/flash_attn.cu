@@ -2,8 +2,7 @@
 //   out[b,m] = softmax(clamp(scale * q k^T, +-clip) + pos_w * bias) @ v,
 // keys past U2 masked; the [U1, U2] scores never leave the block.  B2 takes
 // the sliding window as its bias, B8 a dense [U1, U2] fp32 table or none;
-// one kernel body serves both (a template over the bias source,
-// common.cuh).
+// one kernel body serves both (a template over the bias source).
 //
 // Replaces craft_tpu/ops/pallas/mode_attention.py:flash_mode_attention_mt
 // (body _flash_kernel_mt; B2, the window) and flash_mode_attention (body
@@ -11,21 +10,70 @@
 // no table, and under --f2radius, the table pos_w * bias + the -1e9 mask).
 //
 // Bound on the H100: operations.  At the f2 site (B=1, M=4, U=7040, md=64,
-// F=256) it is 127 GFLOP over 36 MB of inputs and outputs (B8 with a table
-// adds 198 MB of fp32 table, 59 us, still under the 128 us of the bf16
-// peak).  Each block keeps a 64-row q tile and its 64 x F output
-// accumulator resident (the accumulator in registers, 64 floats per thread)
-// and streams k and v tiles (and a table tile) through shared memory, so v
-// is read once per q tile and no score or probability tensor is written.
-// The running row max and sum are kept per thread for its four rows; the
-// online-softmax rescale multiplies the thread's own accumulator rows.  A
-// row whose first key tiles are all masked by -1e9 runs at max ~ -1e9 until
-// its unmasked keys arrive, and then alpha = exp(-1e9 - max) = 0 wipes what
-// it summed: the diagonal is never masked, so every row ends finite.  The
-// bias window sits in shared memory and is indexed directly (the TPU's
-// [2R+1, W8, W8] Toeplitz table was a Mosaic workaround), and ragged U1 and
-// U2 are masked in-kernel, so there is no padded copy.  The inner products
-// are plain fp32 FMA; tensor cores are later work.
+// F=256) it is 127 GFLOP, 80 % of it p.v, over 36 MB of inputs and outputs
+// (B8 with a table adds 198 MB of fp32 table, 59 us, still under the 128 us
+// of the bf16 peak).  Two bodies:
+//
+// bf16 (flash_wgmma_kernel): the products on the tensor cores as wgmma
+// (sm_90a), bf16 operands and fp32 sums.  A block is two warpgroups, each
+// owning 64 query rows (a warp 16): its q fragments stay in registers for
+// the whole key sweep (read once from global memory, so q takes no shared
+// memory), as does its 64 x 256 fp32 output accumulator (128 registers a
+// thread).  Per key tile of 64: S = q k^T as 64 x 64 x 16 wgmmas (A = the q
+// registers, B = k from shared memory); the clamp, the bias, the ragged-key
+// mask and the online softmax (fp32, two quad shuffles per row max) run on
+// S in its accumulator layout; p, rounded to bf16 as the Pallas kernels
+// round it before p.v, is repacked in registers as the A operand of
+// o += p v (64 x 256 x 16 wgmmas, v from shared memory, MN-major): the
+// m16n8 accumulator layout of two adjacent n tiles is the m16k16 A layout,
+// so p never touches shared memory.  A warpgroup starts o += p v(kt) and
+// S(kt + 1) together and waits once; the two warpgroups take turns to start
+// theirs (named barriers), so one's softmax runs under the other's
+// products.  The running max moves only when a tile's max passes it by more
+// than MAX_SLACK (p <= e^8), so o is rescaled on few tiles; the row sum
+// takes the fp32 p and is reduced over the quad once, at the end.
+//   Keys arrive through a ring of 4 stages (3 with a table) in shared
+// memory: k (64 x md bf16), v (64 x 256 bf16) and a table's 128 x 64 fp32
+// tile, 40 KB a stage (72 KB with a table), filled by 16-byte cp.async
+// whose completion an mbarrier counts (full); a second mbarrier per stage
+// (empty) frees it once both warpgroups are done, and tile kt + 3 (kt + 2)
+// is copied while tile kt is multiplied.  Each thread copies fixed chunk
+// columns, its offsets set once per block.  k rows and v's 64-feature
+// blocks are laid out with the 128-, 64- or 32-byte swizzle that wgmma's
+// descriptors name (16-byte chunk index XOR row bits), conflict-free.
+//   Sizes: about 245 registers a thread, 160 (216) KB of shared memory, one
+// block of 256 threads an SM.  Serving (U=7040, 4 modes) launches 55 x 4 =
+// 220 blocks on 132 SMs, 1.67 waves; KITTI (U=7332) 58 x 4 = 232, 1.76
+// waves (the last wave leaves a third of the SMs idle; 64-row blocks, two
+// an SM, gave the same 1.67).  The grid runs the B*M blocks of one q tile
+// back to back (modes fastest), so the table tile that the 4 modes of a q
+// tile share comes from L2 after the first: B8 reads its 198 MB table from
+// HBM once, not once per mode (792 MB).
+//   The window (B2) sits in shared memory.  Per (16-row warp, key tile) one
+// warp-uniform test decides whether any key lies within +-R grid rows of
+// any of the warp's queries (about 31 of the 110 key tiles at R = 7,
+// W8 = 128): outside that band the tile adds no bias; inside it each
+// fragment element looks its window entry up from its (row, column) token
+// coordinates, the key coordinates stepped along the thread's columns
+// without a division per element.  The q_tok0 offset of a row shard enters
+// the row coordinates once per block.  The wrapper raises unless md is a
+// multiple of 16 (up to 64; md 48 runs the 64-wide tiles with zero
+// columns) and q, k, v and out are 16-byte aligned; a table whose rows are
+// not (U2 % 4 != 0) is staged by 4-byte copies.
+//
+// fp32 (flash_attn_kernel): plain fp32 FMA, kept for fp32 parity (--fullprec
+// and the fp32 oracle; TF32 would not hold 1e-5).  Each block keeps a 64-row
+// q tile and its 64 x F output accumulator resident (64 floats a thread)
+// and streams k and v tiles (and a table tile) through shared memory.  The
+// running row max and sum are kept per thread for its four rows; the
+// online-softmax rescale multiplies the thread's own accumulator rows.
+//
+// Both bodies: a row whose first key tiles are all masked by -1e9 runs at
+// max ~ -1e9 until its unmasked keys arrive, and then alpha = exp(-1e9 -
+// max) = 0 wipes what it summed: the diagonal is never masked, so every
+// row ends finite.  Ragged U1 and U2 are masked in the kernel, so there is
+// no padded copy (the TPU's [2R+1, W8, W8] Toeplitz table was a Mosaic
+// workaround).
 #include "common.cuh"
 
 #define FEAT 256      // value / output width: the f2 site's feat_dim
@@ -128,27 +176,715 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <typename T, class Bias>
-static int launch(const void* q, const void* k, const void* v, void* out,
-                  const BiasArgs& ba, const void* clip, int BM, int U1,
-                  int U2, int md, float scale, float pos_w, cudaStream_t s) {
+template <class Bias>
+static int launch_fp32(const void* q, const void* k, const void* v, void* out,
+                       const BiasArgs& ba, const void* clip, int BM, int U1,
+                       int U2, int md, float scale, float pos_w,
+                       cudaStream_t s) {
   const size_t smem = (2 * MAXMD * SPAD + TILE * SPAD + TILE * FEAT +
                        Bias::SMEM) * sizeof(float);
-  cudaError_t err = allow_smem(flash_attn_kernel<T, Bias>, smem);
+  cudaError_t err = allow_smem(flash_attn_kernel<float, Bias>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((U1 + TILE - 1) / TILE, BM);
-  flash_attn_kernel<T, Bias><<<grid, NTHREADS, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, ba, (const float*)clip,
-      U1, U2, md, scale, pos_w);
+  flash_attn_kernel<float, Bias><<<grid, NTHREADS, smem, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, ba,
+      (const float*)clip, U1, U2, md, scale, pos_w);
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 body on the tensor cores
+// ---------------------------------------------------------------------------
+typedef __nv_bfloat16 bf16;
+
+#define MROWS 128           // query rows per block: 2 warpgroups x 64
+#define MKEYS 64            // keys per tile
+#define MWARPS (MROWS / 16)  // a warp owns 16 query rows
+#define MTHREADS (MWARPS * 32)
+#define LOG2E 1.4426950408889634f
+#define MAX_SLACK 8.f       // how far p's exponent may exceed 0
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes (4 bytes) from global to shared memory, asynchronously; zeros
+// when !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Two floats as bf16 in one register, lo in the low half (the lower column
+// of an mma fragment pair).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// wgmma (sm_90a): a warpgroup's 64 x N x 16 product, A (16 bf16 of each of
+// the warpgroup's 64 rows) from registers in the m16n8k16 A layout per
+// warp, B from shared memory through a matrix descriptor; d += a b (d = a b
+// when scale_d is 0).  The accumulator of warp w holds rows 16 w + g and
+// 16 w + g + 8, d[j][0..1] and d[j][2..3] at columns 8 j + 2 t, + 1: the
+// mma.sync C layout, one n tile of 8 columns per j.
+__device__ __forceinline__ void wgmma_s(float (*d)[4], const uint32_t a[4],
+                                        uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// B MN-major (v: keys x features, features contiguous).
+__device__ __forceinline__ void wgmma_o(float (*d)[4], const uint32_t a[4],
+                                        uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Shared memory written by cp.async (the generic proxy) made visible to
+// wgmma's reads (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Registers that an asynchronous wgmma reads or writes stay where they are
+// until its wait: the compiler may not move their uses across this point.
+__device__ __forceinline__ void pin(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
+// mbarriers (shared memory, 8 bytes): init with an arrival count; arrive;
+// arrive when this thread's cp.async copies so far have landed (counted in
+// the init count); wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_init(uint32_t a, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t a) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_copies(uint32_t a) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   a)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t a, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\nbra.uni LAB_WAIT;\nDONE:\n}\n" ::"r"(a),
+      "r"(parity)
+      : "memory");
+}
+// Named barrier `id` over the block's MTHREADS threads: wait there, or
+// arrive without waiting.
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(MTHREADS) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(MTHREADS) : "memory");
+}
+
+// The wgmma matrix descriptor of a tile at shared address addr: leading and
+// stride byte offsets, layout 1 (128-byte swizzle), 2 (64) or 3 (32).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+// The physical 16-byte chunk of chunk c in row r of a bf16 tile with C
+// chunks (16-byte units) a row, C = 8, 4 or 2: the 128-, 64- and 32-byte
+// swizzles that wgmma reads (address bits 4.. XOR bits 7..), so that the 8
+// rows of a core matrix at one chunk land in different bank groups.
+template <int C>
+__device__ __forceinline__ int swz(int r, int c) {
+  if constexpr (C >= 8)
+    return c ^ (r & 7);
+  else
+    return c ^ ((r / (8 / C)) & (C - 1));
+}
+
+// Bias sources of the bf16 body.  STAGE: bytes a ring stage takes beside
+// k and v; SMEM: bytes after the ring.  init(smem, args, qt) once per block
+// (published by the first barrier of the key loop); load(stage, kt) starts
+// the asynchronous copies of key tile kt (committed with k and v);
+// add(sc, kt, stage, pos_w) adds pos_w * bias to the thread's fragments
+// sc[j][e] of key tile kt: rows warp * 16 + g (e < 2) and + 8 (e >= 2),
+// columns 8 j + 2 t + (e & 1), with g = lane / 4, t = lane % 4.
+struct MmaNoBias {
+  static constexpr int STAGE = 0, SMEM = 0;
+  __device__ __forceinline__ void init(unsigned char*, const BiasArgs&,
+                                       int) {}
+  __device__ __forceinline__ void load(unsigned char*, int) {}
+  __device__ __forceinline__ void add(float (*)[4], int, unsigned char*,
+                                      float) const {}
+};
+
+// A 64 x 64 fp32 tile of the table a stage, its 16-byte chunks swizzled by
+// (row % 4) * 2: the 8-byte reads of a half-warp (rows g = 0..3 or 4..7,
+// columns 8 j + 2 t) then fall in 16 different banks.
+struct MmaTable {
+  static constexpr int STAGE = MROWS * MKEYS * 4, SMEM = 0;
+  static_assert(MROWS * MKEYS % (4 * MTHREADS) == 0, "whole copies");
+  static constexpr int TROWS = MTHREADS / 16;  // rows a pass of copies covers
+  const float* table;
+  const float* src;  // 16-byte path: this thread's chunk of row r, key 0
+  int U1, U2, row0, rows_left;
+  uint32_t dst;      // ... and its place in a stage
+  bool by16;  // 16-byte copies: rows 16-byte aligned, U2 % 4 == 0
+  __device__ __forceinline__ void init(unsigned char*, const BiasArgs& a,
+                                       int qt) {
+    table = a.data;
+    U1 = a.U1;
+    U2 = a.U2;
+    row0 = qt * MROWS;
+    by16 = ((uintptr_t)table & 15) == 0 && (U2 & 3) == 0;
+    const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
+    rows_left = U1 - row0 - r;  // copies it with r + TROWS it < U1 - row0
+    src = table + (size_t)(rows_left > 0 ? row0 + r : 0) * U2 + 4 * c;
+    dst = (r * MKEYS + ((c ^ ((r & 3) << 1)) << 2)) * 4;
+  }
+  __device__ __forceinline__ void load(unsigned char* st, int kt) {
+    float* ts = reinterpret_cast<float*>(st);
+    const int col0 = kt * MKEYS;
+    if (by16) {
+      const uint32_t sa = smem_u32(st) + dst;
+      const bool col_ok = col0 + 4 * (threadIdx.x & 15) < U2;
+#pragma unroll
+      for (int it = 0; it < MROWS / TROWS; ++it) {
+        const bool ok = col_ok && TROWS * it < rows_left;
+        cp_async16(sa + it * TROWS * MKEYS * 4,
+                   ok ? src + col0 + (size_t)it * TROWS * U2 : table, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < MROWS * MKEYS; e += MTHREADS) {
+        const int r = e >> 6, cl = e & 63;
+        const int row = row0 + r, col = col0 + cl;
+        const bool ok = row < U1 && col < U2;
+        const int c = cl >> 2;
+        cp_async4(smem_u32(ts + r * MKEYS + ((c ^ ((r & 3) << 1)) << 2) +
+                           (cl & 3)),
+                  ok ? table + (size_t)row * U2 + col : table, ok);
+      }
+    }
+  }
+  __device__ __forceinline__ void add(float (*sc)[4], int,
+                                      unsigned char* st, float pos_w) const {
+    const float* ts = reinterpret_cast<const float*>(st);
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int r = (threadIdx.x >> 5) * 16 + g;  // r % 4 == (r + 8) % 4
+    const int sw = (r & 3) << 1;
+#pragma unroll
+    for (int j = 0; j < MKEYS / 8; ++j) {
+      const int off = (((2 * j + (t >> 1)) ^ sw) << 2) + ((t & 1) << 1);
+      const float2 b0 = *reinterpret_cast<const float2*>(ts + r * MKEYS + off);
+      const float2 b1 =
+          *reinterpret_cast<const float2*>(ts + (r + 8) * MKEYS + off);
+      sc[j][0] += pos_w * b0.x;
+      sc[j][1] += pos_w * b0.y;
+      sc[j][2] += pos_w * b1.x;
+      sc[j][3] += pos_w * b1.y;
+    }
+  }
+};
+
+// The (2R+1)^2 window in shared memory, looked up only on key tiles that
+// lie within +-R grid rows of the q tile.
+struct MmaWindow {
+  static constexpr int STAGE = 0, SMEM = (MAXWIN * 4 + 15) / 16 * 16;
+  const float* win;
+  int W8, R, U2;
+  int qh[2], qw[2];  // token coordinates of the thread's two rows
+  int qh_lo, qh_hi;  // grid rows of the warp's first and last token
+  __device__ __forceinline__ void init(unsigned char* sm, const BiasArgs& a,
+                                       int qt) {
+    float* w = reinterpret_cast<float*>(sm);
+    W8 = a.W8;
+    R = a.R;
+    U2 = a.U2;
+    for (int e = threadIdx.x; e < (2 * R + 1) * (2 * R + 1); e += MTHREADS)
+      w[e] = a.data[e];
+    win = w;
+    const int tok0 = a.q_tok0 + qt * MROWS + (threadIdx.x >> 5) * 16;
+    const int u = tok0 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      qh[i] = (u + 8 * i) / W8;
+      qw[i] = (u + 8 * i) - qh[i] * W8;
+    }
+    qh_lo = tok0 / W8;
+    qh_hi = (tok0 + 15) / W8;
+  }
+  __device__ __forceinline__ void load(unsigned char*, int) {}
+  __device__ __forceinline__ void add(float (*sc)[4], int kt, unsigned char*,
+                                      float pos_w) const {
+    const int key0 = kt * MKEYS;
+    const int kh_lo = key0 / W8;
+    const int kh_hi = (min(key0 + MKEYS, U2) - 1) / W8;
+    if (kh_lo > qh_hi + R || kh_hi < qh_lo - R) return;  // warp-uniform
+    const int side = 2 * R + 1;
+    const int t = threadIdx.x & 3;
+    int kh = (key0 + 2 * t) / W8;
+    int kw = (key0 + 2 * t) - kh * W8;
+#pragma unroll
+    for (int j = 0; j < MKEYS / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        int h = kh, w = kw + c;
+        if (w == W8) {
+          w = 0;
+          ++h;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int dh = h - qh[i] + R, dw = w - qw[i] + R;
+          if ((unsigned)dh <= (unsigned)(2 * R) &&
+              (unsigned)dw <= (unsigned)(2 * R))
+            sc[j][2 * i + c] += pos_w * win[dh * side + dw];
+        }
+      }
+      kw += 8;
+      while (kw >= W8) {
+        kw -= W8;
+        ++kh;
+      }
+    }
+  }
+};
+
+// The wgmma layout of a k tile row of MDP bf16 (K-major): 128-, 64- or
+// 32-byte rows, swizzled as swz<MDP / 8> does.
+template <int MDP>
+struct KLayout {
+  static constexpr uint32_t TYPE = MDP == 64 ? 1 : MDP == 32 ? 2 : 3;
+  static constexpr uint32_t SBO = 8 * MDP * 2;  // between 8-row groups
+};
+
+// Ring depth: 4 stages of k and v (160 KB), 3 with a table tile (216 KB).
+template <class Bias>
+__host__ __device__ constexpr int ring_depth() {
+  return Bias::STAGE > 0 ? 3 : 4;
+}
+
+// MDP: the tiles' mode dim (16, 32 or 64 >= md; columns past md are zero).
+template <int MDP, class Bias>
+__global__ void __launch_bounds__(MTHREADS, 1)
+    flash_wgmma_kernel(const bf16* __restrict__ q,
+                       const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       BiasArgs ba, const float* __restrict__ clip_ptr,
+                       int U1, int U2, int md, float scale, float pos_w) {
+  constexpr int KC = MDP / 8;    // 16-byte chunks of a k row
+  constexpr int K_BYTES = MKEYS * MDP * 2, V_BYTES = MKEYS * FEAT * 2;
+  constexpr int VBLK = MKEYS * 128;  // v: 4 blocks of 64 keys x 64 features
+  constexpr int STAGE = K_BYTES + V_BYTES + Bias::STAGE;
+  constexpr int NST = ring_depth<Bias>();
+  static_assert(STAGE % 1024 == 0, "stages keep the 1024-byte swizzle atoms");
+  constexpr int NT = MKEYS / 8;  // n tiles of 8 keys in a key tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (-(int)smem_u32(smem_raw) & 1023);
+  const int bm = blockIdx.x, qt = blockIdx.y;  // modes fastest
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* qb = q + (size_t)bm * U1 * md;
+  const bf16* kb = k + (size_t)bm * U2 * md;
+  const bf16* vb = v + (size_t)bm * U2 * FEAT;
+
+  const int wg = threadIdx.x >> 7;  // warpgroup 0 or 1
+  Bias bias;
+  bias.init(smem + NST * STAGE, ba, qt);
+  // Ring barriers: full[s] completes when the 256 threads' copies into
+  // stage s have landed, empty[s] when all 256 threads are done with it.
+  const uint32_t full0 = smem_u32(smem + NST * STAGE + Bias::SMEM);
+  const uint32_t empty0 = full0 + 8 * NST;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(full0 + 8 * i, MTHREADS);
+      mbar_init(empty0 + 8 * i, MTHREADS);
+    }
+  }
+  __syncthreads();  // the barriers and the bias source's shared memory
+
+  // k rows at MDP * 2 bytes, their chunks swizzled; v as 4 blocks of 64
+  // features, 128-byte rows, chunks swizzled by key % 8 (the 128-byte
+  // swizzle of an MN-major wgmma operand).  Each thread copies the same
+  // chunk column of rows KROWS (k) and 8 (v) apart, so its shared and
+  // global offsets are fixed here and a tile adds key0 and constants.
+  constexpr int KROWS = MTHREADS / KC;  // k rows a pass covers
+  constexpr int KIT = (MKEYS + KROWS - 1) / KROWS;
+  const int tid = threadIdx.x;
+  const int k_r = tid / KC, k_c = tid % KC;
+  const bool k_on = k_r < MKEYS && 8 * k_c < md;  // else zeros (md 48)
+  const bf16* k_src =
+      k_on ? kb + (size_t)k_r * md + 8 * k_c : kb;
+  const uint32_t k_dst = k_r * MDP * 2 + 16 * swz<KC>(k_r, k_c);
+  const int v_r = tid >> 5;  // + 8 it
+  const bf16* v_src = vb + (size_t)v_r * FEAT + 8 * (tid & 31);
+  const uint32_t v_dst =
+      K_BYTES + ((tid & 31) >> 3) * VBLK + v_r * 128 + 16 * ((tid & 7) ^ v_r);
+  auto load_stage = [&](int kt, int s) {
+    unsigned char* st = smem + s * STAGE;
+    const uint32_t sa = smem_u32(st);
+    const int key0 = kt * MKEYS;
+    const int left = U2 - key0;  // keys of this tile that exist
+#pragma unroll
+    for (int it = 0; it < KIT; ++it) {
+      const bool ok = k_on && k_r + KROWS * it < min(left, MKEYS);
+      if (KROWS <= MKEYS || k_r < MKEYS)  // MDP 16: threads 0..127
+        cp_async16(sa + k_dst + it * KROWS * MDP * 2,
+                   ok ? k_src + (size_t)(key0 + KROWS * it) * md : kb, ok);
+    }
+    const bf16* vsrc = v_src + (size_t)key0 * FEAT;
+    if (left >= MKEYS) {
+#pragma unroll
+      for (int it = 0; it < MKEYS / 8; ++it)
+        cp_async16(sa + v_dst + it * 8 * 128, vsrc + it * 8 * FEAT, true);
+    } else {
+#pragma unroll
+      for (int it = 0; it < MKEYS / 8; ++it) {
+        const bool ok = v_r + 8 * it < left;
+        cp_async16(sa + v_dst + it * 8 * 128, ok ? vsrc + it * 8 * FEAT : vb,
+                   ok);
+      }
+    }
+    bias.load(st + K_BYTES + V_BYTES, kt);
+  };
+
+  const int nk = (U2 + MKEYS - 1) / MKEYS;
+#pragma unroll
+  for (int kt = 0; kt < NST - 1; ++kt) {
+    if (kt < nk) {
+      load_stage(kt, kt);
+      mbar_arrive_copies(full0 + 8 * kt);
+    }
+  }
+
+  // q fragments (A of m16n8k16 and of the warp's share of wgmma) for rows
+  // r0 = warp * 16 + g and r0 + 8: a0 (r0, 2t..2t+1), a1 (r0 + 8, 2t..),
+  // a2 (r0, 2t + 8..), a3 (r0 + 8, 2t + 8..) of each 16-wide slice.
+  const int r0 = qt * MROWS + warp * 16 + g;
+  uint32_t qa[MDP / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < MDP / 16; ++kd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + 8 * (e & 1), col = 16 * kd + 8 * (e >> 1) + 2 * t;
+      qa[kd][e] = row < U1 && col < md
+                      ? *reinterpret_cast<const uint32_t*>(
+                            qb + (size_t)row * md + col)
+                      : 0u;
+    }
+  const float clip = clip_ptr[0];
+
+  float o[FEAT / 8][4];
+#pragma unroll
+  for (int n = 0; n < FEAT / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.f, 0.f};
+
+  // S = q k^T of the tile in stage s: one 64 x 64 x 16 wgmma per 16-wide
+  // slice of the mode dim (the first with scale_d 0: sc = q k^T), started,
+  // not waited for.
+  float sc[NT][4] = {};
+  auto start_s = [&](int s) {
+    wgmma_fence();
+    const uint32_t ks = smem_u32(smem + s * STAGE);
+#pragma unroll
+    for (int kd = 0; kd < MDP / 16; ++kd)
+      wgmma_s(sc, qa[kd],
+              gmma_desc(ks + 32 * kd, 16, KLayout<MDP>::SBO,
+                        KLayout<MDP>::TYPE),
+              kd);
+    wgmma_commit();
+  };
+
+  mbar_wait(full0, 0);  // tile 0
+  fence_async_smem();
+  start_s(0);
+  wgmma_wait0();
+  if (wg == 1) bar_arrive(1);  // warpgroup 0 goes first
+
+  // Per tile kt (stage s): the epilogue of S(kt) on its fragments, then
+  // o += p v(kt) and S(kt + 1) started back to back, so the tensor cores run
+  // both while the warps wait once.  The two warpgroups take turns to start
+  // them (named barriers 1 and 2), so one's epilogue runs under the
+  // other's products.
+  for (int kt = 0, s = 0; kt < nk; ++kt, s = s == NST - 1 ? 0 : s + 1) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pin(sc[j][e]);
+    unsigned char* st = smem + s * STAGE;
+
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[j][e] = fminf(fmaxf(sc[j][e] * scale, -clip), clip);
+    bias.add(sc, kt, st + K_BYTES + V_BYTES, pos_w);
+    const int key0 = kt * MKEYS;
+    if (key0 + MKEYS > U2) {  // the ragged last tile
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + 8 * j + 2 * t + (e & 1) >= U2) sc[j][e] = NEG_INF;
+    }
+
+    // Online softmax on the fragments: rows i = 0 (e < 2) and 1 (e >= 2),
+    // each spread over the 4 lanes of a quad.
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(sc[j][2 * i], sc[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // The running max moves only when the tile's max passes it by more
+      // than MAX_SLACK: below that p = exp(x - m) <= e^MAX_SLACK stays well
+      // inside bf16 and fp32, o and l keep their scale, and the softmax is
+      // the same; o is rescaled on few tiles.
+      const bool move = mx > mrow[i] + MAX_SLACK;
+      const float m_new = move ? mx : mrow[i];
+      alpha[i] = move ? exp2_approx((mrow[i] - m_new) * LOG2E) : 1.f;
+      mrow[i] = m_new;
+      // exp(x - m) = 2^(x log2 e - m log2 e), one FFMA: m log2 e rounds by
+      // at most 64 where m ~ -1e9 (a row that has met only masked keys), so
+      // such a row sums finite values (< 2^64) that its first unmasked key
+      // wipes with alpha = 0.
+      const float ml = m_new * LOG2E;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = exp2_approx(fmaf(sc[j][2 * i + c], LOG2E, -ml));
+          sc[j][2 * i + c] = p;
+          sum += p;
+        }
+      lrow[i] = lrow[i] * alpha[i] + sum;  // this lane's share of the row
+    }
+    // Rescale only where a row max moved.
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < FEAT / 8; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+    }
+
+    // o += bf16(p) v: the C fragments of n tiles 2 kk and 2 kk + 1 are the
+    // A fragment of keys 16 kk .. + 15; one 64 x 256 x 16 wgmma each.
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      pa[kk][0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[kk][1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[kk][2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+    }
+    const uint32_t vs = smem_u32(st + K_BYTES);
+    bar_sync(1 + wg);  // this warpgroup's turn
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+      wgmma_o(o, pa[kk], gmma_desc(vs + kk * 16 * 128, VBLK, 1024, 1), 1);
+    wgmma_commit();
+    if (kt + 1 < nk) {
+      const int s1 = s == NST - 1 ? 0 : s + 1;
+      mbar_wait(full0 + 8 * s1, ((kt + 1) / NST) & 1);  // tile kt + 1
+      fence_async_smem();
+      start_s(s1);
+    }
+    if (wg == 0 || kt + 1 < nk) bar_arrive(2 - wg);  // the other's turn
+    wgmma_wait0();
+#pragma unroll
+    for (int n = 0; n < FEAT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pin(o[n][e]);
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pin(pa[kk][e]);
+    mbar_arrive(empty0 + 8 * s);  // done with tile kt
+    // Tile kt + NST - 1 into the stage of tile kt - 1, once both
+    // warpgroups are done with that.
+    if (kt + NST - 1 < nk) {
+      const int sp = s == 0 ? NST - 1 : s - 1;
+      if (kt > 0) mbar_wait(empty0 + 8 * sp, ((kt - 1) / NST) & 1);
+      load_stage(kt + NST - 1, sp);
+      mbar_arrive_copies(full0 + 8 * sp);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = lrow[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = r0 + 8 * i;
+    if (row >= U1) continue;
+    const float inv = 1.f / l;
+    bf16* dst = out + ((size_t)bm * U1 + row) * FEAT + 2 * t;
+#pragma unroll
+    for (int n = 0; n < FEAT / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+  }
+}
+
+template <int MDP, class Bias>
+static int launch_wgmma_md(const void* q, const void* k, const void* v,
+                           void* out, const BiasArgs& ba, const void* clip,
+                           int BM, int U1, int U2, int md, float scale,
+                           float pos_w, cudaStream_t s) {
+  constexpr int STAGE = MKEYS * MDP * 2 + MKEYS * FEAT * 2 + Bias::STAGE;
+  // + 1024: the ring starts at the first 1024-byte boundary (the swizzle
+  // atoms' alignment).
+  const size_t smem =
+      ring_depth<Bias>() * (STAGE + 16) + Bias::SMEM + 1024;  // + barriers
+  auto kernel = flash_wgmma_kernel<MDP, Bias>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BM, (U1 + MROWS - 1) / MROWS);
+  kernel<<<grid, MTHREADS, smem, s>>>((const bf16*)q, (const bf16*)k,
+                                      (const bf16*)v, (bf16*)out, ba,
+                                      (const float*)clip, U1, U2, md, scale,
+                                      pos_w);
+  return (int)cudaGetLastError();
+}
+
+// md a multiple of 16 up to 64, q, k, v and out 16-byte aligned.
+template <class Bias>
+static int launch_wgmma(const void* q, const void* k, const void* v,
+                        void* out, const BiasArgs& ba, const void* clip,
+                        int BM, int U1, int U2, int md, float scale,
+                        float pos_w, cudaStream_t s) {
+  const uintptr_t align = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                          (uintptr_t)out;
+  if (md <= 0 || md > MAXMD || md % 16 != 0 || (align & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (md <= 16)
+    return launch_wgmma_md<16, Bias>(q, k, v, out, ba, clip, BM, U1, U2,
+                                     md, scale, pos_w, s);
+  if (md <= 32)
+    return launch_wgmma_md<32, Bias>(q, k, v, out, ba, clip, BM, U1, U2,
+                                     md, scale, pos_w, s);
+  return launch_wgmma_md<64, Bias>(q, k, v, out, ba, clip, BM, U1, U2, md,
+                                   scale, pos_w, s);
+}
+
 // B2.  q: [BM, U1, md]; k: [BM, U2, md]; v: [BM, U2, F]; out: [BM, U1, F]
-// contiguous, all bf16 when in_bf16 else fp32; md <= 64, F == FEAT; the
-// queries are the grid's tokens q_tok0 .. q_tok0 + U1 - 1 (a row shard; 0
-// and U1 = U2 for the whole grid), the keys all U2 = H8 * W8 tokens;
-// biases: [(2R+1)^2] fp32; clip: [1] fp32 on the device.  Returns a
-// cudaError_t code.
+// contiguous, all bf16 when in_bf16 else fp32; md <= 64 (bf16: a multiple
+// of 16, the pointers 16-byte aligned), F == FEAT; the queries are the
+// grid's tokens q_tok0 .. q_tok0 + U1 - 1 (a row shard; 0 and U1 = U2 for
+// the whole grid), the keys all U2 = H8 * W8 tokens; biases: [(2R+1)^2]
+// fp32; clip: [1] fp32 on the device.  Returns a cudaError_t code.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, const void* biases,
                                  const void* clip, int BM, int U1, int U2,
@@ -158,15 +894,16 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (F != FEAT) return (int)cudaErrorInvalidValue;
   const BiasArgs ba{(const float*)biases, W8, R, U1, U2, q_tok0};
-  return in_bf16 ? launch<__nv_bfloat16, WindowBias>(
-                       q, k, v, out, ba, clip, BM, U1, U2, md, scale, pos_w, s)
-                 : launch<float, WindowBias>(q, k, v, out, ba, clip, BM, U1,
-                                             U2, md, scale, pos_w, s);
+  return in_bf16 ? launch_wgmma<MmaWindow>(q, k, v, out, ba, clip, BM, U1,
+                                           U2, md, scale, pos_w, s)
+                 : launch_fp32<WindowBias>(q, k, v, out, ba, clip, BM, U1,
+                                           U2, md, scale, pos_w, s);
 }
 
 // B8.  q: [BM, U1, md]; k: [BM, U2, md]; v: [BM, U2, F]; out: [BM, U1, F];
-// contiguous, bf16 when in_bf16 else fp32; md <= 64, F == FEAT; table:
-// [U1, U2] fp32, or null for no bias; clip: [1] fp32 on the device.
+// contiguous, bf16 when in_bf16 else fp32; md <= 64 (bf16: as B2), F ==
+// FEAT; table: [U1, U2] fp32, or null for no bias; clip: [1] fp32 on the
+// device.
 extern "C" int flash_attn_dense_launch(const void* q, const void* k,
                                        const void* v, void* out,
                                        const void* table, const void* clip,
@@ -177,12 +914,12 @@ extern "C" int flash_attn_dense_launch(const void* q, const void* k,
   if (F != FEAT) return (int)cudaErrorInvalidValue;
   const BiasArgs ba{(const float*)table, 0, 0, U1, U2, 0};
   if (table == nullptr)
-    return in_bf16 ? launch<__nv_bfloat16, NoBias>(q, k, v, out, ba, clip, BM,
-                                                   U1, U2, md, scale, pos_w, s)
-                   : launch<float, NoBias>(q, k, v, out, ba, clip, BM, U1, U2,
-                                           md, scale, pos_w, s);
-  return in_bf16 ? launch<__nv_bfloat16, TableBias>(
-                       q, k, v, out, ba, clip, BM, U1, U2, md, scale, pos_w, s)
-                 : launch<float, TableBias>(q, k, v, out, ba, clip, BM, U1,
-                                            U2, md, scale, pos_w, s);
+    return in_bf16 ? launch_wgmma<MmaNoBias>(q, k, v, out, ba, clip, BM,
+                                             U1, U2, md, scale, pos_w, s)
+                   : launch_fp32<NoBias>(q, k, v, out, ba, clip, BM, U1, U2,
+                                         md, scale, pos_w, s);
+  return in_bf16 ? launch_wgmma<MmaTable>(q, k, v, out, ba, clip, BM, U1,
+                                          U2, md, scale, pos_w, s)
+                 : launch_fp32<TableBias>(q, k, v, out, ba, clip, BM, U1, U2,
+                                          md, scale, pos_w, s);
 }

@@ -170,6 +170,20 @@ def check_table(table, q, k) -> None:
                          f"{table.device}")
 
 
+def check_flash_tiles(what: str, bf16: int, md: int, *tensors) -> None:
+    """B2's and B8's bf16 body (tensor-core tiles) takes a mode dim that is
+    a multiple of 16 and 16-byte aligned q, k, v and out; raises on
+    anything else.  fp32 takes any md <= 64."""
+    if not bf16:
+        return
+    if md % 16:
+        raise ValueError(f"{what}: bf16 needs a mode dim that is a multiple "
+                         f"of 16, got {md}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: bf16 needs q, k, v and out 16-byte "
+                         "aligned")
+
+
 def table_ptr(table) -> _P:
     """The kernels' table argument: a pointer to a contiguous table (the
     caller keeps it alive), or null for no bias."""
@@ -245,6 +259,7 @@ def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float,
     R = (biases.shape[0] - 1) // 2
     W8 = grid_hw[1]
     out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
+    check_flash_tiles("flash_mode_attention", bf16, md, q, k, v, out)
     win, clip_t = _f32(biases, q), _f32(clip, q)
     _call("flash_attn_launch", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
           _ptr(win), _ptr(clip_t), B * M, U1, U2, q_row0 * W8, md, F, W8, R,
@@ -282,6 +297,7 @@ def flash_mode_attention_dense(q, k, v, table, clip, pos_w: float):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; the kernel "
                          f"takes feature dim {FLASH_FEAT}")
     out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
+    check_flash_tiles("flash_mode_attention_dense", bf16, md, q, k, v, out)
     table = None if table is None else table.contiguous()
     clip_t = _f32(clip, q)
     _call("flash_attn_dense_launch", _ptr(q), _ptr(k), _ptr(v), _ptr(out),

@@ -79,11 +79,17 @@ def test_b1_scores_global_max(dev, dtype, grid, md):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
 
 
+# B2's grids add two widths whose 64-row q tiles straddle grid rows: the
+# chairs width (62) and the KITTI width (156).
+B2_GRIDS = GRIDS + [(3, 62), (2, 156)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("grid", B2_GRIDS)
 @pytest.mark.parametrize("clip", [1e30, 0.4])
-def test_b2_flash_attention(dev, dtype, grid, clip):
-    q, k, biases = _inputs(dev, grid, 64, dtype, **_PEAKY)
+@pytest.mark.parametrize("md", [16, 32, 64])
+def test_b2_flash_attention(dev, dtype, grid, clip, md):
+    q, k, biases = _inputs(dev, grid, md, dtype, **_PEAKY)
     v = torch.randn(2, 4, q.shape[2], 256, generator=_gen(1)).to(dev, dtype)
     clip_t = torch.tensor(clip, device=dev)
     got = ma.flash_mode_attention(q, k, v, biases, grid, clip_t, 0.5)
@@ -92,6 +98,91 @@ def test_b2_flash_attention(dev, dtype, grid, clip):
         assert _rel(got, want) <= 2e-2
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def _ring(biases, value=3.0):
+    """The window with its outer ring (|dh| = R or |dw| = R) at +-value, in
+    a fixed sign pattern."""
+    w = biases.clone()
+    n = w.shape[0]
+    ring = torch.zeros(n, n, dtype=torch.bool, device=w.device)
+    ring[0], ring[-1], ring[:, 0], ring[:, -1] = True, True, True, True
+    signs = torch.ones(n, n, device=w.device)
+    signs[::2, 1::2] = signs[1::2, ::2] = -1.0
+    w[ring] = (value * signs)[ring]
+    return w, ring
+
+
+# Grids tall enough for |dh| = R = 7 at the chairs and KITTI widths, where
+# 16-row warps and 64-key tiles straddle grid rows: some (warp, key tile)
+# pairs meet only at |dh| = R (W8 = 62: the warp of tokens 0-15, grid row
+# 0, and key tile 7, rows 7-8), so a band test one row too tight drops the
+# ring's entries there.
+RING_GRIDS = [(10, 62), (9, 156)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid", RING_GRIDS)
+def test_b2_window_outer_ring(dev, dtype, grid):
+    q, k, biases = _inputs(dev, grid, 64, dtype, **_PEAKY)
+    biases, ring = _ring(biases)
+    v = torch.randn(2, 4, q.shape[2], 256, generator=_gen(1)).to(dev, dtype)
+    clip_t = torch.tensor(1e30, device=dev)
+    got = ma.flash_mode_attention(q, k, v, biases, grid, clip_t, 0.5)
+    want = ma.flash_mode_attention_plain(q, k, v, biases, grid, clip_t, 0.5)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert _rel(got, want) <= tol
+    # The ring matters: the window without it is far outside the bound.
+    no_ring = ma.flash_mode_attention_plain(
+        q, k, v, biases.masked_fill(ring, 0.0), grid, clip_t, 0.5)
+    assert _rel(no_ring, want) > 5 * tol
+
+
+@pytest.mark.parametrize("grid,shards", [((10, 62), [(0, 3), (3, 10)]),
+                                         ((9, 156), [(2, 5)])])
+@pytest.mark.parametrize("md", [16, 32, 64])
+def test_b2_bf16_tiles_on_row_shards(dev, grid, shards, md):
+    q, k, biases = _inputs(dev, grid, md, torch.bfloat16, seed=6, **_PEAKY)
+    biases, _ = _ring(biases)
+    v = torch.randn(2, 4, k.shape[2], 256, generator=_gen(4)).to(
+        dev, torch.bfloat16)
+    clip_t = torch.tensor(0.4, device=dev)
+    W8 = grid[1]
+    for h0, h1 in shards:
+        ql = q[:, :, h0 * W8:h1 * W8]
+        got = ma.flash_mode_attention(ql, k, v, biases, grid, clip_t, 0.5,
+                                      q_row0=h0)
+        want = ma.flash_mode_attention_plain(ql, k, v, biases, grid, clip_t,
+                                             0.5, q_row0=h0)
+        assert got.shape == (2, 4, ql.shape[2], 256)
+        assert _rel(got, want) <= 2e-2
+
+
+def test_flash_bf16_tiles_reject_what_they_do_not_take(dev):
+    """The bf16 body needs md a multiple of 16 and 16-byte aligned
+    tensors; fp32 takes md 24."""
+    grid = GRIDS[0]
+    q, k, biases = _inputs(dev, grid, 24, torch.bfloat16)
+    v = torch.randn(2, 4, q.shape[2], 256, generator=_gen(1)).to(
+        dev, torch.bfloat16)
+    clip = torch.tensor(1e30, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ma.flash_mode_attention(q, k, v, biases, grid, clip, 0.5)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ma.flash_mode_attention_dense(q, k, v, None, clip, 0.5)
+    ma.flash_mode_attention(q.float(), k.float(), v.float(), biases, grid,
+                            clip, 0.5)
+    q, k, _ = _inputs(dev, grid, 64, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    q_off = flat[1:].view(q.shape)  # contiguous, 2 bytes past alignment
+    q_off.copy_(q)
+    for fn in (lambda x: ma.flash_mode_attention(x, k, v, biases, grid, clip,
+                                                 0.5),
+               lambda x: ma.flash_mode_attention_dense(x, k, v, None, clip,
+                                                       0.5)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(q_off)
+        fn(q)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -278,8 +369,9 @@ def _dense_inputs(dev, shape, md, dtype, with_table, seed=3):
 @pytest.mark.parametrize("with_table", [False, True])
 @pytest.mark.parametrize("shape", DENSE_SHAPES)
 @pytest.mark.parametrize("clip", [1e30, 0.4])
-def test_b8_flash_attention_dense(dev, dtype, with_table, shape, clip):
-    q, k, table, v = _dense_inputs(dev, shape, 64, dtype, with_table)
+@pytest.mark.parametrize("md", [16, 32, 48, 64])
+def test_b8_flash_attention_dense(dev, dtype, with_table, shape, clip, md):
+    q, k, table, v = _dense_inputs(dev, shape, md, dtype, with_table)
     clip_t = torch.tensor(clip, device=dev)
     got = ma.flash_mode_attention_dense(q, k, v, table, clip_t, 0.5)
     want = ma.flash_mode_attention_dense_plain(q, k, v, table, clip_t, 0.5)
@@ -290,11 +382,12 @@ def test_b8_flash_attention_dense(dev, dtype, with_table, shape, clip):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
-def test_b8_masked_rows_keep_their_own_key(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b8_masked_rows_keep_their_own_key(dev, dtype):
     """The f2 mask at radius 0 leaves each row its own key only: out = v,
     with no NaN from rows whose other keys all sit at -1e9."""
     from craft_tpu_torch.nn.setrans import attention_mask
-    q, k, _, v = _dense_inputs(dev, (384, 384), 64, torch.float32, False)
+    q, k, _, v = _dense_inputs(dev, (384, 384), 64, dtype, False)
     table = attention_mask(3, 128, 0, dev)
     got = ma.flash_mode_attention_dense(q, k, v, table, 1e30, 1.0)
     torch.testing.assert_close(got, v, rtol=0, atol=1e-6)

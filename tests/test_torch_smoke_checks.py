@@ -1,8 +1,9 @@
 """The kernel-against-plain checks of chip_smoke.py (its phase 2), run on
 the CPU at a small ragged grid.  On CPU tensors each wrapper takes its plain
 version, so the checks pass as they are; with a fault planted in a wrapper
-(the sliding bias dropped, the clamp ignored, for the training kernels the
-backward's clamp mask, its agg_w term or its softmax row term dropped, for
+(the sliding bias dropped, the clamp ignored, B2's outer window ring
+dropped, for the training kernels the backward's clamp mask, its agg_w
+term or its softmax row term dropped, for
 the lookup its channel order swapped, clamped padding, a wrong level scale
 or the y blend dropped, and for the dense-table kernels a transposed table,
 a table scaled by pos_w twice, no clamp or ragged keys left unmasked
@@ -79,6 +80,17 @@ def test_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper, fault):
     faulty = (_no_bias(plain, pos_w_at) if fault == "no bias"
               else _no_clamp(plain, clip_at, off))
     monkeypatch.setattr(ma, wrapper, faulty)
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run()
+
+
+def test_checks_catch_a_dropped_outer_ring(monkeypatch):
+    """B2 with its window's outer ring (|dh| = R or |dw| = R) dropped: a
+    band test one row too tight."""
+    def faulty(q, k, v, biases, *args, **kwargs):
+        return ma.flash_mode_attention_plain(
+            q, k, v, chip_smoke.drop_outer_ring(biases), *args, **kwargs)
+    monkeypatch.setattr(ma, "flash_mode_attention", faulty)
     with pytest.raises(AssertionError, match="disagrees"):
         _run()
 

@@ -36,7 +36,7 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("B1 scores_max", ("scores_max_kernel", "max_reduce_kernel")),
     # The dense-table kernels share their window twins' names: under lsinu
     # and --f2radius the B2, B4 and B6 rows hold B8, B4 dense and B6 dense.
-    ("B2 / B8 flash_attn", ("flash_attn_kernel",)),
+    ("B2 / B8 flash_attn", ("flash_attn_kernel", "flash_wgmma_kernel")),
     ("B3 corr_norm", ("corr_stats_kernel", "corr_moments_kernel",
                       "corr_write_kernel")),
     ("B4 / B4 dense probs", ("probs_kernel",)),

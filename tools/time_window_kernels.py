@@ -18,7 +18,8 @@ W8=156):
   B6 dense and B4 dense (no table, bf16 probs) at serving;
   B7 (probs_bwd) at chairs, md 64 and 32;
   B8 (flash_mode_attention_dense) at serving, with no table and with the
-  --f2radius 7 table (pos_w * the dense window + the mask).
+  --f2radius 7 table (pos_w * the dense window + the mask);
+  B2 and B8 with the table again in fp32 (their fp32 body).
 
 Seeded inputs from CPU generators (q, k ~ N(0, 1.5^2) bf16, the window ~
 N(0, 0.5^2)), the clamp off.  Each case is timed in ROUNDS rounds of `reps`
@@ -32,6 +33,11 @@ limit) and one JSON line with the card again and, per case, the median
 round (ms per call), every round, the device time and a SHA-256 prefix of
 its output bytes (equal prefixes: the checkouts' results are
 bit-identical).
+
+For the cases whose bits a change may move (SAVED), `--save DIR` writes
+their outputs to DIR and `--diff DIR` adds `<case>_max_abs_diff`, the
+largest |difference| from the outputs saved there by another checkout's
+run (A B B A: the first A saves, the others diff).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import sys
 from pathlib import Path
 
 ROUNDS = 7
+SAVED = ("B2", "B2_fp32", "B8", "B8_table", "B8_fp32_table")
 SERVING, CHAIRS, KITTI = (55, 128), (46, 62), (47, 156)
 RADIUS, LEVELS, F2RADIUS = 4, 4, 7
 
@@ -96,6 +103,7 @@ def _cases(torch, dev):
     agg_b = torch.tensor(0.1, device=dev)
     table = (0.5 * ma.sliding_pos_biases(biases, *SERVING)
              + attention_mask(*SERVING, F2RADIUS, dev))
+    q64f, k64f, vf = (x.float() for x in (q64, k64, v))
     cases = {
         "B1": lambda: ma.scores_global_max(q64, k64, 0.125),
         "B1_chairs": lambda: ma.scores_global_max(qc64, kc64, 0.125),
@@ -115,6 +123,10 @@ def _cases(torch, dev):
                                                     0.5),
         "B8_table": lambda: ma.flash_mode_attention_dense(q64, k64, v, table,
                                                           clip, 1.0),
+        "B2_fp32": lambda: ma.flash_mode_attention(q64f, k64f, vf, biases,
+                                                   SERVING, clip, 0.5),
+        "B8_fp32_table": lambda: ma.flash_mode_attention_dense(
+            q64f, k64f, vf, table, clip, 1.0),
     }
     for label, batch, grid in (("", 1, SERVING), ("_chairs", 8, CHAIRS)):
         levels, coords = _lookup_inputs(torch, gen, dev, batch, grid)
@@ -171,6 +183,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--save", help="write the SAVED cases' outputs here")
+    ap.add_argument("--diff", help="max |difference| from the outputs "
+                    "saved here")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -191,6 +206,13 @@ def main() -> int:
         res = fn()
         torch.cuda.synchronize()
         out[name + "_sha"] = _digest(torch, res)
+        if name in SAVED and args.save:
+            Path(args.save).mkdir(parents=True, exist_ok=True)
+            torch.save(res.cpu(), Path(args.save) / f"{name}.pt")
+        if name in SAVED and args.diff:
+            ref = torch.load(Path(args.diff) / f"{name}.pt")
+            out[name + "_max_abs_diff"] = float(
+                (res.cpu().float() - ref.float()).abs().max())
         del res
     rounds = {name: [] for name in cases}
     for _ in range(ROUNDS):

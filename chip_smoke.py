@@ -9,9 +9,14 @@ these phases and fails on the first that fails:
   1. card: prints `nvidia-smi --query-gpu=name,power.limit`; TF32 off.
   2. kernels: each serving kernel (B1-B4) against its plain PyTorch
      version on seeded inputs at the main-path shapes (B=1, M=4, 440x1024
-     -> U=7040), the clamp off and on; a dropped bias and a missing clamp
-     (for B2 also the window's outer ring dropped), planted in the plain
-     version, must each fall outside the bound.
+     -> U=7040; B3 also at the KITTI grid, 47x156), the clamp off and on;
+     a dropped bias and a missing clamp (for B2 and B3 also the window's
+     outer ring dropped), planted in the plain version, must each fall
+     outside the bound.  B1 must return a planted peak (the last mode, the
+     last query row, the last ragged key) exactly at the serving (md 64
+     and 32), chairs and KITTI shapes and on the last rows of a shard; the
+     plain version with its last key tile or its mode 3 dropped must miss
+     it.
      Then the training kernels at the chairs shapes (B=8, M=4, 46x62 ->
      U=2852, md 64 and 32): B1 and B4 float at this ragged U, B6 forward,
      B6 backward (dc, da) and B7 backward (dc, dlsum), each with faults
@@ -150,6 +155,9 @@ TPU_KERNEL = "craft_tpu/ops/pallas/mode_attention.py:{}"
 # The training path: the chairs stage of the reference curriculum.
 CROP_H, CROP_W, TRAIN_BATCH = 368, 496, 8
 CHAIRS_GRID = (CROP_H // 8, CROP_W // 8)  # 46 x 62 -> U = 2852
+# The KITTI evaluation grid: 375x1242 padded to 376x1248 -> 47 x 156,
+# U = 7332 (W8 = 156: 64-key tiles and 16-row warps straddle grid rows).
+KITTI_GRID = (47, 156)
 
 
 def card_line() -> str:
@@ -172,9 +180,10 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, match=None) -> float:
     """Kernel time per call on the device (torch.profiler): where a call is
-    shorter than its host work, time_ms measures the host instead."""
+    shorter than its host work, time_ms measures the host instead.  With
+    `match`, only the kernels whose names hold one of its substrings."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -185,7 +194,8 @@ def device_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
     total = 0.0
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and (
+                match is None or any(m in e.key for m in match)):
             total += getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
     return total / 1e3 / reps
@@ -282,11 +292,13 @@ def clamped_share(q, k, clip: float) -> float:
     return float((s.abs() > clip * math.sqrt(q.shape[-1])).float().mean())
 
 
-def check_kernels(dev, gen, report, grid=(H8, W8)) -> None:
+def check_kernels(dev, gen, report, grid=(H8, W8),
+                  b3_grids=((H8, W8), KITTI_GRID)) -> None:
     """Phase 2: every kernel against its plain version on the same inputs
-    (the plain versions run on the card too), with the clamp off and on.
-    On CPU tensors the wrappers take the plain versions themselves, which
-    is how the tests run this phase with planted faults."""
+    (the plain versions run on the card too), with the clamp off and on;
+    B3 also at a ragged grid width (b3_grids).  On CPU tensors the
+    wrappers take the plain versions themselves, which is how the tests
+    run this phase with planted faults."""
     biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
     u = grid[0] * grid[1]
 
@@ -326,30 +338,39 @@ def check_kernels(dev, gen, report, grid=(H8, W8)) -> None:
         errs.append(float((got.float() - want.float()).abs().max()))
         del got, want, faults
     report["flash_mode_attention"]["max_abs_err"] = max(errs)
+    del v
 
     # B3 (inter site, pos_w 0.5), bf16 output against the fp32 plain
-    # volume, the clamp inactive (attn_clip 100 > raw max) and active.
+    # volume, the clamp inactive (attn_clip 100 > raw max) and active; at
+    # the serving grid and at the KITTI width, whose key tiles cross grid
+    # rows where the band test decides which tiles take the window.
     agg_w = torch.tensor(1.3, device=dev)
     agg_b = torch.tensor(0.1, device=dev)
     errs = []
-    for attn_clip in (100.0, CLIP_ON):
-        got, stats = ma.fused_agg_corr_norm(q, k, biases, grid, attn_clip,
-                                            0.5, agg_w, agg_b)
-        sync(dev)
-        plain = lambda c, w: ma.fused_agg_corr_norm_plain(  # noqa: E731
-            q, k, biases, grid, c, w, agg_w, agg_b, out_dtype=torch.float32)
-        faults = {"no bias": plain(attn_clip, 0.0)[0]}
-        if attn_clip != 100.0:
-            faults["no clamp"] = plain(CLIP_OFF, 0.5)[0]
-        want, wstats = plain(attn_clip, 0.5)
-        hold(f"B3 attn_clip={attn_clip:g}", got, want, b3_err, 1.0, faults)
-        print(f"B3 stats {stats.flatten().tolist()} plain "
-              f"{wstats.flatten().tolist()}")
-        torch.testing.assert_close(stats, wstats, rtol=1e-4, atol=1e-5)
-        errs.append(float((got.float() - want).abs().max()))
-        del got, want, faults
+    for g3 in b3_grids:
+        if g3 != grid:
+            q, k = inputs(gen, 64, dev, g3[0] * g3[1])
+        for attn_clip in (100.0, CLIP_ON):
+            got, stats = ma.fused_agg_corr_norm(q, k, biases, g3, attn_clip,
+                                                0.5, agg_w, agg_b)
+            sync(dev)
+            plain = lambda c, w, b=biases: (  # noqa: E731
+                ma.fused_agg_corr_norm_plain(q, k, b, g3, c, w, agg_w, agg_b,
+                                             out_dtype=torch.float32))
+            faults = {"no bias": plain(attn_clip, 0.0)[0],
+                      "outer ring dropped": plain(
+                          attn_clip, 0.5, drop_outer_ring(biases))[0]}
+            if attn_clip != 100.0:
+                faults["no clamp"] = plain(CLIP_OFF, 0.5)[0]
+            want, wstats = plain(attn_clip, 0.5)
+            hold(f"B3 {g3[0]}x{g3[1]} attn_clip={attn_clip:g}", got, want,
+                 b3_err, 1.0, faults)
+            print(f"B3 stats {stats.flatten().tolist()} plain "
+                  f"{wstats.flatten().tolist()}")
+            torch.testing.assert_close(stats, wstats, rtol=1e-4, atol=1e-5)
+            errs.append(float((got.float() - want).abs().max()))
+            del got, want, faults
     report["fused_agg_corr_norm"]["max_abs_err"] = max(errs)
-    del v
 
     # B4 (intra site, pos_w 1.0): quantized (the main path) and float.
     q, k = inputs(gen, 32, dev, u)
@@ -388,6 +409,65 @@ def check_kernels(dev, gen, report, grid=(H8, W8)) -> None:
             errs.append(float((got.float() - want).abs().max()))
             del got, want, faults
     report["mode_softmax_probs"]["max_abs_err"] = max(errs)
+
+
+# B1's planted peaks: (label, batch, grid, query rows (h0, h1) of a shard
+# or None, mode dim).  The peak sits at the last mode, the last query row
+# and the last key, which is ragged in every case: serving (7040 = 110
+# tiles of 64), chairs (2852), KITTI (7332), and the last row of the
+# serving grid's last shard of 4 (rows 42..54).
+B1_PEAK_CASES = (("serving", 1, (H8, W8), None, 64),
+                 ("serving md 32", 1, (H8, W8), None, 32),
+                 ("chairs", TRAIN_BATCH, CHAIRS_GRID, None, 64),
+                 ("KITTI", 1, KITTI_GRID, None, 64),
+                 ("shard 4 of 4", 1, (H8, W8), (42, H8), 64))
+PEAK = 3.0  # every feature of the peak's q row and k row
+B1_FAULTS = ("last key tile dropped", "mode 3 dropped")
+
+
+def plant_peak(q, k):
+    """q, k with q[:, 3, -1] = k[:, 3, -1] = PEAK in every feature: their
+    score PEAK^2 md scale is exact in any summation order (bf16 PEAK, sums
+    of equal products) and above every other score (std QK_STD^2 = 2.25),
+    so a max that skips the last key tile, mode 3 or the last query row
+    misses it."""
+    q, k = q.clone(), k.clone()
+    q[:, 3, -1] = PEAK
+    k[:, 3, -1] = PEAK
+    return q, k
+
+
+def b1_fault(q, k, scale, fault):
+    """The plain B1 with `fault` planted: the last (ragged) key tile of 64
+    dropped, or mode 3 dropped."""
+    if fault == "last key tile dropped":
+        k = k[:, :, :(k.shape[2] - 1) // 64 * 64]
+    else:
+        q, k = q[:, :3], k[:, :3]
+    return ma.scores_global_max_plain(q, k, scale)
+
+
+def check_b1_peaks(dev, gen, cases=B1_PEAK_CASES) -> None:
+    """Phase 2: B1 returns each planted peak exactly, and each of B1_FAULTS
+    planted in the plain version misses it (on CPU tensors the wrapper is
+    the plain version, which is how the tests plant a fault in it)."""
+    for label, batch, grid, rows, md in cases:
+        q, k = inputs(gen, md, dev, grid[0] * grid[1], batch)
+        if rows is not None:
+            q = q[:, :, rows[0] * grid[1]:rows[1] * grid[1]]
+        q, k = plant_peak(q, k)
+        scale = 1.0 / math.sqrt(md)
+        peak = float(torch.tensor(PEAK * PEAK * md) * scale)
+        got = float(ma.scores_global_max(q, k, scale))
+        sync(dev)
+        print(f"B1 peak {label} (U1 {q.shape[2]}, U2 {k.shape[2]}, md {md}): "
+              f"kernel {got!r}, planted {peak!r}")
+        assert got == peak, f"B1 {label}: the kernel disagrees with the peak"
+        for fault in B1_FAULTS:
+            missed = float(b1_fault(q, k, scale, fault))
+            print(f"B1 peak {label}: planted fault '{fault}' gives {missed!r}")
+            assert missed != peak, f"B1 {label}: the check misses '{fault}'"
+        del q, k
 
 
 # Training-kernel tolerances, each set from what is compared:
@@ -1819,7 +1899,7 @@ def time_kitti_kernels(dev, gen) -> None:
     """Phase 5, the KITTI evaluation shape (376x1248: H8 = 47, W8 = 156,
     U = 7332, B = 1): B2-B4 beside their plain versions and bounds."""
     biases = (torch.randn(15, 15, generator=gen) * 0.5).to(dev)
-    grid = (KITTI_H // 8 + 1, KITTI_W // 8 + 1)
+    grid = KITTI_GRID
     u = grid[0] * grid[1]
     clip = torch.tensor(1e30, device=dev)
     q64, k64 = inputs(gen, 64, dev, u)
@@ -1979,6 +2059,15 @@ def time_kernels(dev, gen, report) -> None:
         torch.cuda.empty_cache()
     md32 = time_ms(lambda: ma.scores_global_max(q32, k32, 0.17677669), 5)
     print(f"scores_global_max at the intra shape (md 32): {md32:.3f} ms")
+    # Device times: B1 alone, and B3's sweeps and moments without the B1
+    # launch of its phase 0 (which B1's launches count).
+    for label, fn, match in (
+            ("scores_global_max md 64", cases["scores_global_max"][0], None),
+            ("scores_global_max md 32",
+             lambda: ma.scores_global_max(q32, k32, 0.17677669), None),
+            ("fused_agg_corr_norm sweeps and moments",
+             cases["fused_agg_corr_norm"][0], ("corr_",))):
+        print(f"{label}: device {device_ms(fn, 5, match):.4f} ms")
 
 
 def time_dense_kernels(dev, gen, report) -> None:
@@ -2521,6 +2610,7 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     check_kernels(dev, gen, report)
+    check_b1_peaks(dev, gen)
     torch.cuda.empty_cache()
     check_train_kernels(dev, gen, report)
     torch.cuda.empty_cache()

@@ -33,16 +33,49 @@
 //      elements per sample: fp32 running sums would lose digits);
 //   2. a one-block-per-sample pass sums the partials in a fixed order;
 //   3. a write sweep recomputes the volume and writes it normalized.
-// A block holds all four modes' q tiles (one 64-row slice) in shared
-// memory and sweeps a group of k tiles (agg_modes.cuh, shared with B6).
 // Any W8 works: the bias window is indexed directly and ragged U1, U2 are
-// masked in-kernel.
+// masked in-kernel.  Two bodies for the sweeps:
+//
+// bf16 inputs (corr_sweep_kernel, bf16 or fp32 output): the products on
+// the tensor cores, bf16 with fp32 sums as the Pallas bodies'
+// dot_general(preferred_element_type=f32).  A block owns 128 query rows
+// (B3_ROWS) and sweeps B3_KGROUP key tiles of 64; the four modes' q tiles
+// stay in shared memory for the block (the A operand through its own
+// descriptor: 64 KB at md 64, no registers), and each stage of a 4-stage
+// cp.async ring counted by mbarriers holds the four modes' k tiles of one
+// key tile (the B operand, 32 KB), swizzled as wgmma.cuh's descriptors
+// name.  Four warpgroups split a tile into 64 rows x 32 keys each and take
+// turns to issue their 4 modes x md / 16 wgmmas m64n32k16 into four
+// accumulator sets of one fragment layout (64 registers a thread, 16 warps
+// an SM): each thread holds the four modes' scores of the same (row,
+// column), so the mode aggregation runs per thread without shuffles:
+// clamp, the window bias (looked up only where the warp's rows and the 32
+// keys are within +-R grid rows and columns, any W8), the softmax over the
+// four modes on the exp2 scale (ex2.approx), then per-tile fp32 sums of
+// vol and vol^2 added to fp64 per thread (stats) or the normalised value
+// stored as a pair of columns (write).  The serving grid is 55 q tiles x
+// 14 key groups = 770 blocks, one an SM (194 KB of shared memory).  The
+// products take a fraction of the sweep: the epilogue's issue (about 27
+// instructions and 5 SFU operations per volume element, 4 U^2 of the
+// exponentials) and the window lookups bound it.  The wrapper raises
+// unless md is a multiple of 16 and q and k are 16-byte aligned.
+//
+// fp32 inputs (corr_stats_kernel, corr_write_kernel): plain fp32 FMA, kept
+// for fp32 parity.  A block holds all four modes' q tiles (one 64-row
+// slice) in shared memory and sweeps a group of k tiles (agg_modes.cuh,
+// shared with B6).
 #include "agg_modes.cuh"
+#include "wgmma.cuh"
+
+#define B3_ROWS 128    // query rows a block (bf16): two warpgroups of 64
+#define B3_KEYS 64     // keys a ring stage, in each of the four modes
+#define B3_KGROUP 8    // key tiles a block
+#define B3_STAGES 4    // ring depth
+#define B3_THREADS 512  // four warpgroups: 2 row halves x 2 key halves
 
 // Shared prologue: this block's q tiles, window and token coordinates
 // (load_q_modes), and the clip value from the raw max.
-template <typename T>
-__device__ __forceinline__ float prologue(const T* __restrict__ qb,
+__device__ __forceinline__ float prologue(const float* __restrict__ qb,
                                           const BiasArgs& ba,
                                           const float* __restrict__ scal,
                                           const float* __restrict__ gmax,
@@ -55,9 +88,9 @@ __device__ __forceinline__ float prologue(const T* __restrict__ qb,
 
 // Per block: fixed-order fp64 sums of vol and vol^2 over its tile rows and
 // k-tile group -> partial[2 * blk], partial[2 * blk + 1].
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    corr_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    corr_stats_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
                       BiasArgs ba, const float* __restrict__ scal,
                       const float* __restrict__ gmax,
                       double* __restrict__ partial, int md, float scale) {
@@ -72,7 +105,7 @@ __global__ void __launch_bounds__(NTHREADS)
   WindowBias wb;
   const float clip = prologue(q + (size_t)b * NMODES * U1 * md, ba, scal,
                               gmax, qs, win, wb, qt, md);
-  const T* kb = k + (size_t)b * NMODES * U2 * md;
+  const float* kb = k + (size_t)b * NMODES * U2 * md;
   const float pos_w = scal[1], agg_w = scal[2], agg_b = scal[3];
   const int nk = (U2 + TILE - 1) / TILE;
   double sum = 0.0, sumsq = 0.0;
@@ -196,13 +229,13 @@ __global__ void corr_finish_kernel(const double* __restrict__ sums, int B,
                    nullptr, norm);
 }
 
-template <typename T, typename O>
 __global__ void __launch_bounds__(NTHREADS)
-    corr_write_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    corr_write_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
                       BiasArgs ba, const float* __restrict__ scal,
                       const float* __restrict__ gmax,
-                      const float* __restrict__ norm, O* __restrict__ out,
-                      int md, float scale) {
+                      const float* __restrict__ norm,
+                      float* __restrict__ out, int md, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + NMODES * MAXMD * SPAD;
@@ -213,7 +246,7 @@ __global__ void __launch_bounds__(NTHREADS)
   WindowBias wb;
   const float clip = prologue(q + (size_t)b * NMODES * U1 * md, ba, scal,
                               gmax, qs, win, wb, qt, md);
-  const T* kb = k + (size_t)b * NMODES * U2 * md;
+  const float* kb = k + (size_t)b * NMODES * U2 * md;
   const float pos_w = scal[1], agg_w = scal[2], agg_b = scal[3];
   const float mean = norm[2 * b], rstd = norm[2 * b + 1];
   const int nk = (U2 + TILE - 1) / TILE;
@@ -225,118 +258,450 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int i = 0; i < 4; ++i) {
       const int row = qt * TILE + ty + 16 * i;
       if (row >= U1) continue;
-      O* orow = out + ((size_t)b * U1 + row) * U2;
+      float* orow = out + ((size_t)b * U1 + row) * U2;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = kt * TILE + tx + 16 * j;
-        if (col < U2) orow[col] = from_f<O>((vol[i][j] - mean) * rstd);
+        if (col < U2) orow[col] = (vol[i][j] - mean) * rstd;
       }
     }
   }
 }
 
-// The sweeps' grid: (q tiles, k-tile groups, samples).
-static dim3 sweep_grid(int B, int U1, int U2) {
+// ---------------------------------------------------------------------------
+// The bf16 body of both sweeps
+// ---------------------------------------------------------------------------
+typedef MmaWindowT<B3_ROWS, B3_KEYS, B3_THREADS> CorrWindow;
+
+// One sweep over the key tiles [grp * B3_KGROUP, +B3_KGROUP) of q tile qt
+// of sample b (grid (q tiles, key groups, samples)).  Warpgroup w owns rows
+// 64 (w % 2) .. + 63 of the tile and keys 32 (w / 2) .. + 31 of each key
+// tile: four 64 x 32 accumulator sets (64 registers a thread), so that 16
+// warps an SM hide the epilogue's latencies.  WRITE false (stats):
+// partial[2 blk], partial[2 blk + 1] = the block's fp64 sums of vol and
+// vol^2, blk = (b * gridDim.y + grp) * gridDim.x + qt.  WRITE true: out
+// [B, U1, U2] = (vol - norm[2 b]) * norm[2 b + 1] as O.  MDP: the tiles'
+// mode dim (16, 32 or 64 >= md; columns past md are zero).
+//   The epilogue works in units of the raw products c = q.k: clamp(scale
+// c, +-clip) = scale clamp(c, +-clip / scale) and the bias enters as
+// pos_w / scale * w, so vol = scale * sum_m p_m x_m / sum_m p_m with x_m the
+// unscaled s_m and p_m = 2^(x_m agg_w scale log2 e - max) (agg_b cancels in
+// the softmax over the modes); the scale is applied once per sum (stats)
+// or folded into the normalisation (write).
+template <int MDP, bool WRITE, typename O>
+__global__ void __launch_bounds__(B3_THREADS, 1)
+    corr_sweep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      BiasArgs ba, const float* __restrict__ scal,
+                      const float* __restrict__ gmax,
+                      const float* __restrict__ norm, O* __restrict__ out,
+                      double* __restrict__ partial, int md, float scale) {
+  constexpr int KC = MDP / 8;                    // 16-byte chunks of a row
+  constexpr int KTILE = B3_KEYS * MDP * 2;       // a mode's k tile
+  constexpr int STAGE = NMODES * KTILE;
+  constexpr int QTILE = B3_ROWS * MDP * 2;       // a mode's q tile
+  constexpr int WKEYS = B3_KEYS / 2;             // keys of a warpgroup
+  constexpr int NT = WKEYS / 8;                  // its n tiles of 8 keys
+  constexpr int NWG = B3_THREADS / 128;
+  constexpr int PASS = B3_THREADS / KC;          // rows a pass of copies
+  constexpr int QIT = PASS < B3_ROWS ? B3_ROWS / PASS : 1;
+  constexpr int KIT = PASS < B3_KEYS ? B3_KEYS / PASS : 1;
+  static_assert(QTILE % 1024 == 0 && KTILE % 1024 == 0, "swizzle atoms");
+  static_assert(NWG == 4 && B3_ROWS == 128, "2 x 2 warpgroups");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (-(int)smem_u32(smem_raw) & 1023);
+  unsigned char* ring = smem + NMODES * QTILE;
+  unsigned char* wsm = ring + B3_STAGES * STAGE;
+  const uint32_t full0 = smem_u32(wsm + CorrWindow::SMEM);
+  const uint32_t empty0 = full0 + 8 * B3_STAGES;
+  __shared__ double red[2][B3_THREADS / 32];
+  const int qt = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int U1 = ba.U1, U2 = ba.U2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warp >> 2;
+  const int wrow = 64 * (wg & 1), wkey = WKEYS * (wg >> 1);
+  const bf16* qb = q + (size_t)b * NMODES * U1 * md;
+  const bf16* kb = k + (size_t)b * NMODES * U2 * md;
+  const int nk = (U2 + B3_KEYS - 1) / B3_KEYS;
+  const int kt0 = grp * B3_KGROUP;
+  const int n = min(nk, kt0 + B3_KGROUP) - kt0;  // >= 1
+
+  CorrWindow win;
+  win.init(wsm, ba, qt);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < B3_STAGES; ++i) {
+      mbar_init(full0 + 8 * i, B3_THREADS);
+      mbar_init(empty0 + 8 * i, B3_THREADS);
+    }
+  }
+  __syncthreads();  // the barriers and the window
+
+  // Each thread copies the same chunk column of rows PASS apart, q and k
+  // alike (the swizzle repeats every 8 rows): offsets fixed here.
+  const int c_r = threadIdx.x / KC, c_c = threadIdx.x % KC;
+  const bool c_on = 8 * c_c < md;  // else zeros (md 48)
+  const uint32_t c_dst = c_r * MDP * 2 + 16 * swz<KC>(c_r, c_c);
+  const size_t c_src = (size_t)c_r * md + 8 * c_c;
+  if (PASS <= B3_ROWS || c_r < B3_ROWS) {
+    const uint32_t qa = smem_u32(smem) + c_dst;
+    const int left = U1 - qt * B3_ROWS;
+    const bf16* src = qb + (size_t)qt * B3_ROWS * md + c_src;
+#pragma unroll
+    for (int m = 0; m < NMODES; ++m)
+#pragma unroll
+      for (int it = 0; it < QIT; ++it) {
+        const bool ok = c_on && c_r + PASS * it < left;
+        cp_async16(qa + m * QTILE + it * PASS * MDP * 2,
+                   ok ? src + ((size_t)m * U1 + PASS * it) * md : qb, ok);
+      }
+  }
+  auto load_stage = [&](int kt, int s) {
+    if (PASS > B3_KEYS && c_r >= B3_KEYS) return;
+    const uint32_t sa = smem_u32(ring + s * STAGE) + c_dst;
+    const int left = min(U2 - kt * B3_KEYS, B3_KEYS);
+    const bf16* src = kb + (size_t)kt * B3_KEYS * md + c_src;
+#pragma unroll
+    for (int m = 0; m < NMODES; ++m)
+#pragma unroll
+      for (int it = 0; it < KIT; ++it) {
+        const bool ok = c_on && c_r + PASS * it < left;
+        cp_async16(sa + m * KTILE + it * PASS * MDP * 2,
+                   ok ? src + ((size_t)m * U2 + PASS * it) * md : kb, ok);
+      }
+  };
+  // The q tiles land with stage 0 (full[0] counts every earlier copy).
+#pragma unroll
+  for (int i = 0; i < B3_STAGES - 1; ++i) {
+    if (i < n) {
+      load_stage(kt0 + i, i);
+      mbar_arrive_copies(full0 + 8 * i);
+    }
+  }
+
+  const float attn_clip = scal[0];
+  const float bias_u = scal[1] / scale;            // pos_w / scale
+  const float cws = scal[2] * scale * LOG2E;       // agg_w scale log2 e
+  const float clip = gmax[0] > attn_clip ? attn_clip : 1e30f;
+  const bool clip_on = clip < 1e30f;
+  const float clip_u = clip / scale;
+  float wa = 0.f, wb = 0.f;  // write: out = wa * (sum p x / sum p) + wb
+  if (WRITE) {
+    wa = scale * norm[2 * b + 1];
+    wb = -norm[2 * b] * norm[2 * b + 1];
+  }
+  const int r0 = qt * B3_ROWS + wrow + 16 * (warp & 3) + g;  // r0, r0 + 8
+  const bool rows_all = r0 - g + 16 <= U1;  // warp-uniform
+  const bool row_ok[2] = {r0 < U1, r0 + 8 < U1};
+  const bool pairs = (U2 & 1) == 0;  // column pairs 4- or 8-byte aligned
+  // Descriptors of mode 0's q rows of this warpgroup and of its keys in
+  // stage 0; a tile adds its byte offset / 16 (the address field's unit).
+  const uint64_t da0 = gmma_desc(smem_u32(smem) + wrow * MDP * 2, 16,
+                                 KLayout<MDP>::SBO, KLayout<MDP>::TYPE);
+  const uint64_t db0 = gmma_desc(smem_u32(ring) + wkey * MDP * 2, 16,
+                                 KLayout<MDP>::SBO, KLayout<MDP>::TYPE);
+  double dsum = 0.0, dsq = 0.0;
+
+  float acc[NMODES][NT][4] = {};
+  if (wg == NWG - 1) bar_arrive<256>(1);  // warpgroup 0 goes first
+  for (int i = 0; i < n; ++i) {
+    const int kt = kt0 + i, s = i % B3_STAGES;
+    mbar_wait(full0 + 8 * s, (i / B3_STAGES) & 1);
+    fence_async_smem();
+    const uint64_t db = db0 + (uint64_t)(s * STAGE / 16);
+    // The warpgroups take turns to issue (named barriers 1 to 4, round
+    // robin), so that the tensor cores finish one's products first.
+    bar_sync<256>(1 + wg);
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < NMODES; ++m)
+#pragma unroll
+      for (int kd = 0; kd < MDP / 16; ++kd)
+        wgmma_ss32(acc[m], da0 + (m * QTILE + 32 * kd) / 16,
+                   db + (m * KTILE + 32 * kd) / 16, kd);
+    wgmma_commit();
+    if (wg < NWG - 1 || i + 1 < n) bar_arrive<256>(1 + (wg + 1) % NWG);
+    wgmma_wait0();
+#pragma unroll
+    for (int m = 0; m < NMODES; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pin(acc[m][j][e]);
+    mbar_arrive(empty0 + 8 * s);  // done with stage s
+
+    // x_m = clamp(c_m, +-clip / scale) + pos_w / scale * bias, in place.
+    if (clip_on) {
+#pragma unroll
+      for (int m = 0; m < NMODES; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[m][j][e] = fminf(fmaxf(acc[m][j][e], -clip_u), clip_u);
+    }
+    const int key0 = kt * B3_KEYS + wkey;
+    if (win.keys_in_window(key0, WKEYS)) {  // warp-uniform
+      int kh, kw;
+      win.first_col(key0, kh, kw);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float bj[4];
+        win.col_bias(kh, kw, bias_u, bj);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int m = 0; m < NMODES; ++m) acc[m][j][e] += bj[e];
+      }
+    }
+
+    // vol / scale = sum_m p_m x_m / sum_m p_m, per element.
+    const bool tile_all = rows_all && key0 + WKEYS <= U2;  // warp-uniform
+    float tsum = 0.f, tsq = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float l[NMODES];
+#pragma unroll
+        for (int m = 0; m < NMODES; ++m) l[m] = acc[m][j][e] * cws;
+        const float lmax = fmaxf(fmaxf(l[0], l[1]), fmaxf(l[2], l[3]));
+        float den = 0.f, num = 0.f;
+#pragma unroll
+        for (int m = 0; m < NMODES; ++m) {
+          const float p = exp2_approx(l[m] - lmax);
+          den += p;
+          num = fmaf(p, acc[m][j][e], num);
+        }
+        v[e] = __fdividef(num, den);
+      }
+      const int col = key0 + 8 * j + 2 * t;
+      if constexpr (!WRITE) {
+        if (tile_all) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            tsum += v[e];
+            tsq = fmaf(v[e], v[e], tsq);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (row_ok[e >> 1] && col + (e & 1) < U2) {
+              tsum += v[e];
+              tsq = fmaf(v[e], v[e], tsq);
+            }
+        }
+      } else {
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const float o0 = fmaf(v[2 * i2], wa, wb);
+          const float o1 = fmaf(v[2 * i2 + 1], wa, wb);
+          O* dst = out + ((size_t)b * U1 + r0 + 8 * i2) * U2 + col;
+          if (tile_all && pairs) {
+            if constexpr (sizeof(O) == 2) {
+              *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o0, o1);
+            } else {
+              *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
+            }
+          } else if (row_ok[i2]) {
+            if (col < U2) dst[0] = from_f<O>(o0);
+            if (col + 1 < U2) dst[1] = from_f<O>(o1);
+          }
+        }
+      }
+    }
+    if constexpr (!WRITE) {
+      dsum += (double)tsum;
+      dsq += (double)tsq;
+    }
+
+    // Key tile i + B3_STAGES - 1 into the stage of tile i - 1, once every
+    // warpgroup is done with that.
+    if (i + B3_STAGES - 1 < n) {
+      const int sp = (i + B3_STAGES - 1) % B3_STAGES;
+      if (i > 0) mbar_wait(empty0 + 8 * sp, ((i - 1) / B3_STAGES) & 1);
+      load_stage(kt + B3_STAGES - 1, sp);
+      mbar_arrive_copies(full0 + 8 * sp);
+    }
+  }
+  if constexpr (!WRITE) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
+      dsq += __shfl_xor_sync(0xffffffffu, dsq, o);
+    }
+    if (lane == 0) {
+      red[0][warp] = dsum;
+      red[1][warp] = dsq;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < B3_THREADS / 32; ++w) {
+        dsum += red[0][w];
+        dsq += red[1][w];
+      }
+      const double sc = (double)scale;
+      const size_t blk = ((size_t)b * gridDim.y + grp) * gridDim.x + qt;
+      partial[2 * blk] = dsum * sc;
+      partial[2 * blk + 1] = dsq * sc * sc;
+    }
+  }
+}
+
+// The sweeps' grid of the body that in_bf16 selects: (q tiles, key-tile
+// groups, samples).
+static dim3 sweep_grid(int B, int U1, int U2, int in_bf16) {
+  if (in_bf16) {
+    const int nk = (U2 + B3_KEYS - 1) / B3_KEYS;
+    return dim3((U1 + B3_ROWS - 1) / B3_ROWS,
+                (nk + B3_KGROUP - 1) / B3_KGROUP, B);
+  }
   const int nq = (U1 + TILE - 1) / TILE, nk = (U2 + TILE - 1) / TILE;
   return dim3(nq, (nk + KGROUP - 1) / KGROUP, B);
 }
 
-template <typename T>
-static int launch_stats(const void* q, const void* k, const BiasArgs& ba,
-                        const void* scal, const void* gmax, void* partial,
-                        int B, int md, float scale, cudaStream_t s) {
-  const size_t smem = agg_smem<WindowBias>();
-  cudaError_t err = allow_smem(corr_stats_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  corr_stats_kernel<T><<<sweep_grid(B, ba.U1, ba.U2), NTHREADS, smem, s>>>(
-      (const T*)q, (const T*)k, ba, (const float*)scal, (const float*)gmax,
-      (double*)partial, md, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, typename O>
-static int launch_write(const void* q, const void* k, const BiasArgs& ba,
-                        const void* scal, const void* gmax, const void* norm,
-                        void* out, int B, int md, float scale,
-                        cudaStream_t s) {
-  const size_t smem = agg_smem<WindowBias>();
-  cudaError_t err = allow_smem(corr_write_kernel<T, O>, smem);
-  if (err != cudaSuccess) return (int)err;
-  corr_write_kernel<T, O><<<sweep_grid(B, ba.U1, ba.U2), NTHREADS, smem, s>>>(
-      (const T*)q, (const T*)k, ba, (const float*)scal, (const float*)gmax,
-      (const float*)norm, (O*)out, md, scale);
-  return (int)cudaGetLastError();
-}
-
-static int partial_blocks(int U1, int U2) {
-  const dim3 g = sweep_grid(1, U1, U2);
+// The stats sweep's fp64 partial pairs per sample (the wrapper's count is
+// held against this by tests/test_torch_kernel_grids.py).
+static int partial_blocks(int U1, int U2, int in_bf16) {
+  const dim3 g = sweep_grid(1, U1, U2, in_bf16);
   return (int)(g.x * g.y);
 }
 
-template <typename T, typename O>
-static int launch(const void* q, const void* k, const BiasArgs& ba,
-                  const void* scal, const void* gmax, void* partial,
-                  void* stats, void* norm, void* out, int B, int md,
-                  float scale, float eps, cudaStream_t s) {
-  int err = launch_stats<T>(q, k, ba, scal, gmax, partial, B, md, scale, s);
-  if (err != 0) return err;
-  corr_moments_kernel<<<B, NTHREADS, 0, s>>>(
-      (const double*)partial, partial_blocks(ba.U1, ba.U2),
-      (const float*)gmax, (double)ba.U2 * (double)ba.U2, eps, (float*)stats,
-      (float*)norm);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return launch_write<T, O>(q, k, ba, scal, gmax, norm, out, B, md, scale, s);
+template <int MDP, bool WRITE, typename O>
+static int launch_sweep_md(const void* q, const void* k, const BiasArgs& ba,
+                           const void* scal, const void* gmax,
+                           const void* norm, void* out, void* partial, int B,
+                           int md, float scale, cudaStream_t s) {
+  // + 1024: the q tiles start at the first 1024-byte boundary.
+  const size_t smem = NMODES * B3_ROWS * MDP * 2 +
+                      B3_STAGES * (NMODES * B3_KEYS * MDP * 2 + 16) +
+                      CorrWindow::SMEM + 1024;
+  auto kernel = corr_sweep_kernel<MDP, WRITE, O>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<sweep_grid(B, ba.U1, ba.U2, 1), B3_THREADS, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, ba, (const float*)scal,
+      (const float*)gmax, (const float*)norm, (O*)out, (double*)partial, md,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 body: md a multiple of 16 up to 64, q and k 16-byte aligned.
+template <bool WRITE, typename O>
+static int launch_sweep(const void* q, const void* k, const BiasArgs& ba,
+                        const void* scal, const void* gmax, const void* norm,
+                        void* out, void* partial, int B, int md, float scale,
+                        cudaStream_t s) {
+  if (md <= 0 || md > MAXMD || md % 16 != 0 ||
+      (((uintptr_t)q | (uintptr_t)k) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (md <= 16)
+    return launch_sweep_md<16, WRITE, O>(q, k, ba, scal, gmax, norm, out,
+                                         partial, B, md, scale, s);
+  if (md <= 32)
+    return launch_sweep_md<32, WRITE, O>(q, k, ba, scal, gmax, norm, out,
+                                         partial, B, md, scale, s);
+  return launch_sweep_md<64, WRITE, O>(q, k, ba, scal, gmax, norm, out,
+                                       partial, B, md, scale, s);
+}
+
+// The stats sweep, either body.
+static int launch_stats(const void* q, const void* k, const BiasArgs& ba,
+                        const void* scal, const void* gmax, void* partial,
+                        int B, int md, float scale, int in_bf16,
+                        cudaStream_t s) {
+  if (in_bf16)
+    return launch_sweep<false, float>(q, k, ba, scal, gmax, nullptr, nullptr,
+                                      partial, B, md, scale, s);
+  const size_t smem = agg_smem<WindowBias>();
+  cudaError_t err = allow_smem(corr_stats_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  corr_stats_kernel<<<sweep_grid(B, ba.U1, ba.U2, 0), NTHREADS, smem, s>>>(
+      (const float*)q, (const float*)k, ba, (const float*)scal,
+      (const float*)gmax, (double*)partial, md, scale);
+  return (int)cudaGetLastError();
+}
+
+// The write sweep, either body: (in, out) bf16 -> bf16, bf16 -> fp32 or
+// fp32 -> fp32.
+static int launch_write(const void* q, const void* k, const BiasArgs& ba,
+                        const void* scal, const void* gmax, const void* norm,
+                        void* out, int B, int md, float scale, int in_bf16,
+                        int out_bf16, cudaStream_t s) {
+  if (in_bf16 && out_bf16)
+    return launch_sweep<true, bf16>(q, k, ba, scal, gmax, norm, out, nullptr,
+                                    B, md, scale, s);
+  if (in_bf16)
+    return launch_sweep<true, float>(q, k, ba, scal, gmax, norm, out, nullptr,
+                                     B, md, scale, s);
+  if (out_bf16) return (int)cudaErrorInvalidValue;
+  const size_t smem = agg_smem<WindowBias>();
+  cudaError_t err = allow_smem(corr_write_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  corr_write_kernel<<<sweep_grid(B, ba.U1, ba.U2, 0), NTHREADS, smem, s>>>(
+      (const float*)q, (const float*)k, ba, (const float*)scal,
+      (const float*)gmax, (const float*)norm, (float*)out, md, scale);
+  return (int)cudaGetLastError();
 }
 
 // B3.  q, k: [B, 4, U, md] contiguous (bf16 when in_bf16, else fp32), md <=
-// 64; scal: [4] fp32 (attn_clip, pos_w, agg_w, agg_b); gmax: [1] fp32, the
-// raw max of scale * q k^T over the batch (B1); partial: [B * ceil(U/64) *
-// ceil(ceil(U/64)/8) * 2] fp64 scratch; stats: [B, 4] fp32; norm: [B, 2]
-// fp32 scratch; out: [B, U, U] bf16 when out_bf16 else fp32.  The (in, out)
-// pairs are bf16 -> bf16 (the main path), fp32 -> fp32 (the fp32 config)
-// and bf16 -> fp32; fp32 -> bf16 is refused.
+// 64 (bf16: a multiple of 16, q and k 16-byte aligned); scal: [4] fp32
+// (attn_clip, pos_w, agg_w, agg_b); gmax: [1] fp32, the raw max of scale *
+// q k^T over the batch (B1); partial: [n_partial] fp64 scratch, n_partial
+// = 2 B partial_blocks(U, U, in_bf16) (refused otherwise); stats: [B, 4]
+// fp32; norm: [B, 2] fp32 scratch; out: [B, U, U] bf16 when out_bf16 else
+// fp32.  The (in, out) pairs are bf16 -> bf16 (the main path), fp32 -> fp32
+// (the fp32 config) and bf16 -> fp32; fp32 -> bf16 is refused.
 extern "C" int corr_norm_launch(const void* q, const void* k,
                                 const void* biases, const void* scal,
-                                const void* gmax, void* partial, void* stats,
-                                void* norm, void* out, int B, int U, int md,
-                                int W8, int R, float scale, float eps,
-                                int in_bf16, int out_bf16, void* stream) {
+                                const void* gmax, void* partial,
+                                int n_partial, void* stats, void* norm,
+                                void* out, int B, int U, int md, int W8,
+                                int R, float scale, float eps, int in_bf16,
+                                int out_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int nblk = partial_blocks(U, U, in_bf16);
+  if (n_partial != 2 * B * nblk || (!in_bf16 && out_bf16))
+    return (int)cudaErrorInvalidValue;
   const BiasArgs ba{(const float*)biases, W8, R, U, U, 0};
-  if (in_bf16 && out_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, ba, scal, gmax,
-                                                partial, stats, norm, out, B,
-                                                md, scale, eps, s);
-  if (in_bf16)
-    return launch<__nv_bfloat16, float>(q, k, ba, scal, gmax, partial, stats,
-                                        norm, out, B, md, scale, eps, s);
-  if (out_bf16) return (int)cudaErrorInvalidValue;
-  return launch<float, float>(q, k, ba, scal, gmax, partial, stats, norm,
-                              out, B, md, scale, eps, s);
+  int err = launch_stats(q, k, ba, scal, gmax, partial, B, md, scale,
+                         in_bf16, s);
+  if (err != 0) return err;
+  corr_moments_kernel<<<B, NTHREADS, 0, s>>>(
+      (const double*)partial, nblk, (const float*)gmax,
+      (double)U * (double)U, eps, (float*)stats, (float*)norm);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_write(q, k, ba, scal, gmax, norm, out, B, md, scale, in_bf16,
+                      out_bf16, s);
 }
 
 // B9 sums.  q: [B, 4, U1, md], the shard's query rows (global tokens q_tok0
 // .. q_tok0 + U1 - 1); k: [B, 4, U2, md], every key; contiguous, bf16 when
-// in_bf16 else fp32, md <= 64; scal as B3; gmax: [1] fp32, the global raw
-// max; partial: [B * ceil(U1/64) * ceil(ceil(U2/64)/8) * 2] fp64 scratch;
-// sums: [B, 2] fp64 out.
+// in_bf16 else fp32, md <= 64 (bf16 as B3); scal as B3; gmax: [1] fp32, the
+// global raw max; partial: [n_partial] fp64 scratch, n_partial = 2 B
+// partial_blocks(U1, U2, in_bf16) (refused otherwise); sums: [B, 2] fp64
+// out.
 extern "C" int corr_norm_sums_launch(const void* q, const void* k,
                                      const void* biases, const void* scal,
                                      const void* gmax, void* partial,
-                                     void* sums, int B, int U1, int U2,
-                                     int q_tok0, int md, int W8, int R,
-                                     float scale, int in_bf16,
+                                     int n_partial, void* sums, int B,
+                                     int U1, int U2, int q_tok0, int md,
+                                     int W8, int R, float scale, int in_bf16,
                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int nblk = partial_blocks(U1, U2, in_bf16);
+  if (n_partial != 2 * B * nblk) return (int)cudaErrorInvalidValue;
   const BiasArgs ba{(const float*)biases, W8, R, U1, U2, q_tok0};
-  int err = in_bf16 ? launch_stats<__nv_bfloat16>(q, k, ba, scal, gmax,
-                                                  partial, B, md, scale, s)
-                    : launch_stats<float>(q, k, ba, scal, gmax, partial, B,
-                                          md, scale, s);
+  int err = launch_stats(q, k, ba, scal, gmax, partial, B, md, scale,
+                         in_bf16, s);
   if (err != 0) return err;
-  corr_shard_sums_kernel<<<B, NTHREADS, 0, s>>>(
-      (const double*)partial, partial_blocks(U1, U2), (double*)sums);
+  corr_shard_sums_kernel<<<B, NTHREADS, 0, s>>>((const double*)partial, nblk,
+                                                (double*)sums);
   return (int)cudaGetLastError();
 }
 
@@ -359,13 +724,6 @@ extern "C" int corr_norm_write_launch(const void* q, const void* k,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const BiasArgs ba{(const float*)biases, W8, R, U1, U2, q_tok0};
-  if (in_bf16 && out_bf16)
-    return launch_write<__nv_bfloat16, __nv_bfloat16>(q, k, ba, scal, gmax,
-                                                      norm, out, B, md, scale,
-                                                      s);
-  if (in_bf16)
-    return launch_write<__nv_bfloat16, float>(q, k, ba, scal, gmax, norm, out,
-                                              B, md, scale, s);
-  return launch_write<float, float>(q, k, ba, scal, gmax, norm, out, B, md,
-                                    scale, s);
+  return launch_write(q, k, ba, scal, gmax, norm, out, B, md, scale, in_bf16,
+                      out_bf16, s);
 }

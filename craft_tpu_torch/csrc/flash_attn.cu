@@ -75,6 +75,7 @@
 // no padded copy (the TPU's [2R+1, W8, W8] Toeplitz table was a Mosaic
 // workaround).
 #include "common.cuh"
+#include "wgmma.cuh"
 
 #define FEAT 256      // value / output width: the f2 site's feat_dim
 #define FJ (FEAT / 16)  // output columns per thread
@@ -195,211 +196,15 @@ static int launch_fp32(const void* q, const void* k, const void* v, void* out,
 // ---------------------------------------------------------------------------
 // The bf16 body on the tensor cores
 // ---------------------------------------------------------------------------
-typedef __nv_bfloat16 bf16;
 
 #define MROWS 128           // query rows per block: 2 warpgroups x 64
 #define MKEYS 64            // keys per tile
 #define MWARPS (MROWS / 16)  // a warp owns 16 query rows
 #define MTHREADS (MWARPS * 32)
-#define LOG2E 1.4426950408889634f
 #define MAX_SLACK 8.f       // how far p's exponent may exceed 0
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes (4 bytes) from global to shared memory, asynchronously; zeros
-// when !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-// Two floats as bf16 in one register, lo in the low half (the lower column
-// of an mma fragment pair).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// wgmma (sm_90a): a warpgroup's 64 x N x 16 product, A (16 bf16 of each of
-// the warpgroup's 64 rows) from registers in the m16n8k16 A layout per
-// warp, B from shared memory through a matrix descriptor; d += a b (d = a b
-// when scale_d is 0).  The accumulator of warp w holds rows 16 w + g and
-// 16 w + g + 8, d[j][0..1] and d[j][2..3] at columns 8 j + 2 t, + 1: the
-// mma.sync C layout, one n tile of 8 columns per j.
-__device__ __forceinline__ void wgmma_s(float (*d)[4], const uint32_t a[4],
-                                        uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(scale_d));
-}
-
-// B MN-major (v: keys x features, features contiguous).
-__device__ __forceinline__ void wgmma_o(float (*d)[4], const uint32_t a[4],
-                                        uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
-        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
-        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
-        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
-        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
-        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
-        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
-        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
-        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
-        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
-        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
-        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
-        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
-        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
-        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
-        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
-        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Shared memory written by cp.async (the generic proxy) made visible to
-// wgmma's reads (the async proxy).
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Registers that an asynchronous wgmma reads or writes stay where they are
-// until its wait: the compiler may not move their uses across this point.
-__device__ __forceinline__ void pin(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t& x) {
-  asm volatile("" : "+r"(x)::"memory");
-}
-
-// mbarriers (shared memory, 8 bytes): init with an arrival count; arrive;
-// arrive when this thread's cp.async copies so far have landed (counted in
-// the init count); wait until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_init(uint32_t a, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t a) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_copies(uint32_t a) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   a)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t a, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra.uni DONE;\nbra.uni LAB_WAIT;\nDONE:\n}\n" ::"r"(a),
-      "r"(parity)
-      : "memory");
-}
-// Named barrier `id` over the block's MTHREADS threads: wait there, or
-// arrive without waiting.
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(MTHREADS) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(MTHREADS) : "memory");
-}
-
-// The wgmma matrix descriptor of a tile at shared address addr: leading and
-// stride byte offsets, layout 1 (128-byte swizzle), 2 (64) or 3 (32).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint32_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
-// The physical 16-byte chunk of chunk c in row r of a bf16 tile with C
-// chunks (16-byte units) a row, C = 8, 4 or 2: the 128-, 64- and 32-byte
-// swizzles that wgmma reads (address bits 4.. XOR bits 7..), so that the 8
-// rows of a core matrix at one chunk land in different bank groups.
-template <int C>
-__device__ __forceinline__ int swz(int r, int c) {
-  if constexpr (C >= 8)
-    return c ^ (r & 7);
-  else
-    return c ^ ((r / (8 / C)) & (C - 1));
-}
+// The (2R+1)^2 window of B2 on this block's fragments (wgmma.cuh).
+typedef MmaWindowT<MROWS, MKEYS, MTHREADS> MmaWindow;
 
 // Bias sources of the bf16 body.  STAGE: bytes a ring stage takes beside
 // k and v; SMEM: bytes after the ring.  init(smem, args, qt) once per block
@@ -483,78 +288,6 @@ struct MmaTable {
       sc[j][3] += pos_w * b1.y;
     }
   }
-};
-
-// The (2R+1)^2 window in shared memory, looked up only on key tiles that
-// lie within +-R grid rows of the q tile.
-struct MmaWindow {
-  static constexpr int STAGE = 0, SMEM = (MAXWIN * 4 + 15) / 16 * 16;
-  const float* win;
-  int W8, R, U2;
-  int qh[2], qw[2];  // token coordinates of the thread's two rows
-  int qh_lo, qh_hi;  // grid rows of the warp's first and last token
-  __device__ __forceinline__ void init(unsigned char* sm, const BiasArgs& a,
-                                       int qt) {
-    float* w = reinterpret_cast<float*>(sm);
-    W8 = a.W8;
-    R = a.R;
-    U2 = a.U2;
-    for (int e = threadIdx.x; e < (2 * R + 1) * (2 * R + 1); e += MTHREADS)
-      w[e] = a.data[e];
-    win = w;
-    const int tok0 = a.q_tok0 + qt * MROWS + (threadIdx.x >> 5) * 16;
-    const int u = tok0 + ((threadIdx.x & 31) >> 2);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      qh[i] = (u + 8 * i) / W8;
-      qw[i] = (u + 8 * i) - qh[i] * W8;
-    }
-    qh_lo = tok0 / W8;
-    qh_hi = (tok0 + 15) / W8;
-  }
-  __device__ __forceinline__ void load(unsigned char*, int) {}
-  __device__ __forceinline__ void add(float (*sc)[4], int kt, unsigned char*,
-                                      float pos_w) const {
-    const int key0 = kt * MKEYS;
-    const int kh_lo = key0 / W8;
-    const int kh_hi = (min(key0 + MKEYS, U2) - 1) / W8;
-    if (kh_lo > qh_hi + R || kh_hi < qh_lo - R) return;  // warp-uniform
-    const int side = 2 * R + 1;
-    const int t = threadIdx.x & 3;
-    int kh = (key0 + 2 * t) / W8;
-    int kw = (key0 + 2 * t) - kh * W8;
-#pragma unroll
-    for (int j = 0; j < MKEYS / 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        int h = kh, w = kw + c;
-        if (w == W8) {
-          w = 0;
-          ++h;
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int dh = h - qh[i] + R, dw = w - qw[i] + R;
-          if ((unsigned)dh <= (unsigned)(2 * R) &&
-              (unsigned)dw <= (unsigned)(2 * R))
-            sc[j][2 * i + c] += pos_w * win[dh * side + dw];
-        }
-      }
-      kw += 8;
-      while (kw >= W8) {
-        kw -= W8;
-        ++kh;
-      }
-    }
-  }
-};
-
-// The wgmma layout of a k tile row of MDP bf16 (K-major): 128-, 64- or
-// 32-byte rows, swizzled as swz<MDP / 8> does.
-template <int MDP>
-struct KLayout {
-  static constexpr uint32_t TYPE = MDP == 64 ? 1 : MDP == 32 ? 2 : 3;
-  static constexpr uint32_t SBO = 8 * MDP * 2;  // between 8-row groups
 };
 
 // Ring depth: 4 stages of k and v (160 KB), 3 with a table tile (216 KB).
@@ -700,7 +433,7 @@ __global__ void __launch_bounds__(MTHREADS, 1)
   fence_async_smem();
   start_s(0);
   wgmma_wait0();
-  if (wg == 1) bar_arrive(1);  // warpgroup 0 goes first
+  if (wg == 1) bar_arrive<MTHREADS>(1);  // warpgroup 0 goes first
 
   // Per tile kt (stage s): the epilogue of S(kt) on its fragments, then
   // o += p v(kt) and S(kt + 1) started back to back, so the tensor cores run
@@ -786,7 +519,7 @@ __global__ void __launch_bounds__(MTHREADS, 1)
       pa[kk][3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
     }
     const uint32_t vs = smem_u32(st + K_BYTES);
-    bar_sync(1 + wg);  // this warpgroup's turn
+    bar_sync<MTHREADS>(1 + wg);  // this warpgroup's turn
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk)
@@ -798,7 +531,7 @@ __global__ void __launch_bounds__(MTHREADS, 1)
       fence_async_smem();
       start_s(s1);
     }
-    if (wg == 0 || kt + 1 < nk) bar_arrive(2 - wg);  // the other's turn
+    if (wg == 0 || kt + 1 < nk) bar_arrive<MTHREADS>(2 - wg);  // the other's turn
     wgmma_wait0();
 #pragma unroll
     for (int n = 0; n < FEAT / 8; ++n)

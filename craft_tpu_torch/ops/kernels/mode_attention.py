@@ -24,7 +24,10 @@ whole grid rows, U1 = rows * W8 tokens from grid row `q_row0`, against all
 U2 = H8 * W8 keys; B1 takes any U1 and U2, and B2, B4 and B9 take the
 shard's `q_row0` so that the window lands on the right diagonals.  The
 tensor decides the route: CUDA tensors launch the hand-written kernel
-(csrc/*.cu) or raise, CPU tensors take the plain version.  Each kernel's launches are counted in
+(csrc/*.cu) or raise, CPU tensors take the plain version.  In bf16, B1,
+B2, B3, B8 and B9 run tensor-core (wgmma) bodies, which take a mode dim
+that is a multiple of 16 and 16-byte aligned inputs (check_mma_tiles);
+fp32 runs FMA bodies.  Each kernel's launches are counted in
 ``<wrapper>.launches`` where the kernel is launched: B1's count includes
 the B1 launch that B3 makes as its phase 0.  The clamp value `clip` is a device tensor, so the
 predicate never syncs the host.
@@ -43,13 +46,13 @@ from craft_tpu_torch.ops.kernels.launch import (D as _D, F as _F, I as _I,
                                                 stream as _stream)
 
 _SIGNATURES = {
-    "scores_max_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "scores_max_launch": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _P],
     "flash_attn_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _F, _F, _I, _P],
-    "corr_norm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _F, _F, _I, _I, _P],
-    "corr_norm_sums_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _I, _P],
+    "corr_norm_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _F, _F, _I, _I, _P],
+    "corr_norm_sums_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _F, _I, _P],
     "corr_norm_write_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _D, _F, _I, _I, _P],
     "probs_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -68,10 +71,39 @@ _LIB_OF = {"scores_max_launch": "scores_max",
            "flash_attn_dense_launch": "flash_attn",
            "probs_dense_launch": "softmax_probs"}
 FLASH_FEAT = 256  # csrc/flash_attn.cu FEAT: the f2 site's feature width
-# Scratch sizes follow the kernels' tiling (csrc/common.cuh TILE,
-# csrc/corr_norm.cu KGROUP).
+# Scratch sizes follow the kernels' grids: the fp32 bodies' tiles
+# (csrc/common.cuh TILE, csrc/agg_modes.cuh KGROUP) and the bf16 bodies'
+# (csrc/scores_max.cu B1_*, csrc/corr_norm.cu B3_*).  The kernels refuse a
+# scratch of another size, and tests/test_torch_kernel_grids.py holds these
+# constants against the sources.
 _TILE, _KGROUP = 64, 8
+_B1_ROWS, _B1_KEYS, _B1_KCHUNK = 128, 64, 16
+_B3_ROWS, _B3_KEYS, _B3_KGROUP = 128, 64, 8
 assert MAX_MODE_DIM == 64  # csrc/common.cuh MAXMD
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def scores_max_partials(BM: int, U1: int, U2: int, bf16: int) -> int:
+    """B1's partial maxima: one per block, [BM * ceil(U1/64)] fp32 (fp32
+    body) or [BM * ceil(U1/128) * key chunks] (bf16)."""
+    if not bf16:
+        return BM * _cdiv(U1, _TILE)
+    return (BM * _cdiv(U1, _B1_ROWS)
+            * _cdiv(_cdiv(U2, _B1_KEYS), _B1_KCHUNK))
+
+
+def corr_partials(B: int, U1: int, U2: int, bf16: int) -> int:
+    """fp64 scratch of B3's and B9's stats sweep: a (sum, sum of squares)
+    pair per block, the blocks of the body that bf16 selects."""
+    if bf16:
+        nq, ng = (_cdiv(U1, _B3_ROWS),
+                  _cdiv(_cdiv(U2, _B3_KEYS), _B3_KGROUP))
+    else:
+        nq, ng = _cdiv(U1, _TILE), _cdiv(_cdiv(U2, _TILE), _KGROUP)
+    return 2 * B * nq * ng
 
 
 def _call(fn_name: str, *args) -> None:
@@ -170,18 +202,18 @@ def check_table(table, q, k) -> None:
                          f"{table.device}")
 
 
-def check_flash_tiles(what: str, bf16: int, md: int, *tensors) -> None:
-    """B2's and B8's bf16 body (tensor-core tiles) takes a mode dim that is
-    a multiple of 16 and 16-byte aligned q, k, v and out; raises on
-    anything else.  fp32 takes any md <= 64."""
+def check_mma_tiles(what: str, bf16: int, md: int, names: str,
+                    *tensors) -> None:
+    """The bf16 bodies on the tensor cores (B1, B2, B3, B8, B9) take a mode
+    dim that is a multiple of 16 and 16-byte aligned tensors (`names`);
+    raises on anything else.  fp32 takes any md <= 64."""
     if not bf16:
         return
     if md % 16:
         raise ValueError(f"{what}: bf16 needs a mode dim that is a multiple "
                          f"of 16, got {md}")
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{what}: bf16 needs q, k, v and out 16-byte "
-                         "aligned")
+        raise ValueError(f"{what}: bf16 needs {names} 16-byte aligned")
 
 
 def table_ptr(table) -> _P:
@@ -201,11 +233,12 @@ def _launch_scores_max(q, k, scale) -> torch.Tensor:
     if k.shape[:2] != (B, M) or k.shape[3] != md:
         raise ValueError(f"scores_global_max: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    nq = -(-U1 // _TILE)
-    partial = torch.empty(B * M * nq, dtype=torch.float32, device=q.device)
+    check_mma_tiles("scores_global_max", bf16, md, "q and k", q, k)
+    n_partial = scores_max_partials(B * M, U1, U2, bf16)
+    partial = torch.empty(n_partial, dtype=torch.float32, device=q.device)
     out = torch.empty(1, dtype=torch.float32, device=q.device)
-    _call("scores_max_launch", _ptr(q), _ptr(k), _ptr(partial), _ptr(out),
-          B * M, U1, U2, md, scale, bf16, _stream(q))
+    _call("scores_max_launch", _ptr(q), _ptr(k), _ptr(partial), n_partial,
+          _ptr(out), B * M, U1, U2, md, scale, bf16, _stream(q))
     scores_global_max.launches += 1
     return out
 
@@ -259,7 +292,8 @@ def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float,
     R = (biases.shape[0] - 1) // 2
     W8 = grid_hw[1]
     out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
-    check_flash_tiles("flash_mode_attention", bf16, md, q, k, v, out)
+    check_mma_tiles("flash_mode_attention", bf16, md, "q, k, v and out",
+                    q, k, v, out)
     win, clip_t = _f32(biases, q), _f32(clip, q)
     _call("flash_attn_launch", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
           _ptr(win), _ptr(clip_t), B * M, U1, U2, q_row0 * W8, md, F, W8, R,
@@ -297,7 +331,8 @@ def flash_mode_attention_dense(q, k, v, table, clip, pos_w: float):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; the kernel "
                          f"takes feature dim {FLASH_FEAT}")
     out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
-    check_flash_tiles("flash_mode_attention_dense", bf16, md, q, k, v, out)
+    check_mma_tiles("flash_mode_attention_dense", bf16, md,
+                    "q, k, v and out", q, k, v, out)
     table = None if table is None else table.contiguous()
     clip_t = _f32(clip, q)
     _call("flash_attn_dense_launch", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
@@ -386,12 +421,12 @@ def fused_agg_corr_norm(q, k, biases, grid_hw, attn_clip: float,
         raise ValueError(f"fused_agg_corr_norm: {q.dtype} -> {out_dtype}; "
                          "the kernel takes bf16 -> bf16, bf16 -> fp32 and "
                          "fp32 -> fp32")
+    check_mma_tiles("fused_agg_corr_norm", bf16, md, "q and k", q, k)
     gmax = _launch_scores_max(q, k, scale)  # phase 0: the raw max (B1)
     R = (biases.shape[0] - 1) // 2
-    nq = -(-U // _TILE)
-    nblk = nq * -(-nq // _KGROUP)
     dev = q.device
-    partial = torch.empty(B * nblk * 2, dtype=torch.float64, device=dev)
+    n_partial = corr_partials(B, U, U, bf16)
+    partial = torch.empty(n_partial, dtype=torch.float64, device=dev)
     stats = torch.empty(B, 1, 4, dtype=torch.float32, device=dev)
     norm = torch.empty(B, 2, dtype=torch.float32, device=dev)
     out = torch.empty(B, U, U, dtype=out_dtype, device=dev)
@@ -399,8 +434,8 @@ def fused_agg_corr_norm(q, k, biases, grid_hw, attn_clip: float,
     scal = torch.cat([_f32(attn_clip, q), _f32(pos_w, q), _f32(agg_w, q),
                       _f32(agg_b, q)])
     _call("corr_norm_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(scal),
-          _ptr(gmax), _ptr(partial), _ptr(stats), _ptr(norm), _ptr(out), B,
-          U, md, grid_hw[1], R, scale, eps, bf16,
+          _ptr(gmax), _ptr(partial), n_partial, _ptr(stats), _ptr(norm),
+          _ptr(out), B, U, md, grid_hw[1], R, scale, eps, bf16,
           int(out_dtype == torch.bfloat16), _stream(q))
     fused_agg_corr_norm.launches += 1
     return out, stats
@@ -428,18 +463,15 @@ def corr_norm_write_plain(q, k, biases, grid_hw, gmax, sums, n_elems: float,
 
 
 def _shard_prep(q, k, grid_hw, q_row0, what):
-    """Checks shared by the two B9 halves: (contiguous q, k, bf16 flag,
-    the fp64 partial-sum scratch)."""
+    """Checks shared by the two B9 halves: (contiguous q, k, bf16 flag)."""
     query_rows(q, k, grid_hw, q_row0)
     B, M, U1, md = q.shape
     if M != 4 or k.shape[:2] != (B, M):
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}; "
                          "the kernel takes 4 modes")
     (q, k), bf16 = _prep(q, k)
-    nq, nk = -(-U1 // _TILE), -(-k.shape[2] // _TILE)
-    partial = torch.empty(B * nq * -(-nk // _KGROUP) * 2,
-                          dtype=torch.float64, device=q.device)
-    return q, k, bf16, partial
+    check_mma_tiles(what, bf16, md, "q and k", q, k)
+    return q, k, bf16
 
 
 def _corr_scalars(attn_clip, pos_w, agg_w, agg_b, q):
@@ -460,17 +492,18 @@ def corr_norm_sums(q, k, biases, grid_hw, gmax, attn_clip: float,
         query_rows(q, k, grid_hw, q_row0)
         return corr_norm_sums_plain(q, k, biases, grid_hw, gmax, attn_clip,
                                     pos_w, agg_w, agg_b, q_row0)
-    q, k, bf16, partial = _shard_prep(q, k, grid_hw, q_row0,
-                                      "corr_norm_sums")
+    q, k, bf16 = _shard_prep(q, k, grid_hw, q_row0, "corr_norm_sums")
     B, _, U1, md = q.shape
     W8 = grid_hw[1]
+    n_partial = corr_partials(B, U1, k.shape[2], bf16)
+    partial = torch.empty(n_partial, dtype=torch.float64, device=q.device)
     sums = torch.empty(B, 2, dtype=torch.float64, device=q.device)
     # The kernel's inputs are held here until the launch.
     win, gmax = _f32(biases, q), _f32(gmax, q)
     scal = _corr_scalars(attn_clip, pos_w, agg_w, agg_b, q)
     _call("corr_norm_sums_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(scal),
-          _ptr(gmax), _ptr(partial), _ptr(sums), B, U1, k.shape[2],
-          q_row0 * W8, md, W8, (biases.shape[0] - 1) // 2,
+          _ptr(gmax), _ptr(partial), n_partial, _ptr(sums), B, U1,
+          k.shape[2], q_row0 * W8, md, W8, (biases.shape[0] - 1) // 2,
           1.0 / math.sqrt(md), bf16, _stream(q))
     corr_norm_sums.launches += 1
     return sums
@@ -492,7 +525,7 @@ def corr_norm_write(q, k, biases, grid_hw, gmax, sums, attn_clip: float,
         return corr_norm_write_plain(q, k, biases, grid_hw, gmax, sums,
                                      n_elems, attn_clip, pos_w, agg_w, agg_b,
                                      q_row0, out_dtype, eps)
-    q, k, bf16, _ = _shard_prep(q, k, grid_hw, q_row0, "corr_norm_write")
+    q, k, bf16 = _shard_prep(q, k, grid_hw, q_row0, "corr_norm_write")
     if out_dtype not in (torch.bfloat16, torch.float32) or (
             out_dtype == torch.bfloat16 and not bf16):
         raise ValueError(f"corr_norm_write: {q.dtype} -> {out_dtype}; the "

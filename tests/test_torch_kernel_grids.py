@@ -1,0 +1,98 @@
+"""The scratch the wrappers size against the grids the kernels launch.
+
+B1's partial maxima and the fp64 partial sums of B3's and B9's stats sweep
+are one per block, so the wrapper's count must equal the kernel's grid: a
+smaller buffer is written past, a larger one leaves partials that the
+second pass reads unset.  The kernels refuse a count other than their own
+on the card; here, without a compiler, the tile constants are read from the
+CUDA sources and the grids they give (the launchers' formulas, written out
+below) are held against the wrapper's counts at the shapes the paths run.
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+
+from craft_tpu_torch.ops.kernels import mode_attention as ma
+
+CSRC = Path(ma.__file__).resolve().parents[2] / "csrc"
+
+
+def _defines(name: str) -> dict:
+    text = (CSRC / name).read_text()
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"^#define\s+(\w+)\s+(\d+)\b", text, re.MULTILINE)}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _source_partials():
+    """(B1 partials, B3 partial doubles) as the sources' launchers count
+    them: scores_max.cu max_partials, corr_norm.cu partial_blocks."""
+    common, agg = _defines("common.cuh"), _defines("agg_modes.cuh")
+    b1, b3 = _defines("scores_max.cu"), _defines("corr_norm.cu")
+
+    def b1_partials(BM, U1, U2, bf16):
+        if not bf16:
+            return BM * _cdiv(U1, common["TILE"])
+        return (BM * _cdiv(U1, b1["B1_ROWS"])
+                * _cdiv(_cdiv(U2, b1["B1_KEYS"]), b1["B1_KCHUNK"]))
+
+    def b3_partials(B, U1, U2, bf16):
+        if bf16:
+            blocks = (_cdiv(U1, b3["B3_ROWS"])
+                      * _cdiv(_cdiv(U2, b3["B3_KEYS"]), b3["B3_KGROUP"]))
+        else:
+            blocks = (_cdiv(U1, common["TILE"])
+                      * _cdiv(_cdiv(U2, common["TILE"]), agg["KGROUP"]))
+        return 2 * B * blocks
+    return b1_partials, b3_partials
+
+
+def test_the_launchers_count_from_these_constants():
+    """The formulas above are the launchers': each names its constants."""
+    b1 = (CSRC / "scores_max.cu").read_text()
+    body = b1[b1.index("static int max_partials"):]
+    body = body[:body.index("\n}\n")]
+    for name in ("TILE", "B1_ROWS", "B1_KEYS", "B1_KCHUNK"):
+        assert name in body, name
+    b3 = (CSRC / "corr_norm.cu").read_text()
+    body = b3[b3.index("static dim3 sweep_grid"):]
+    body = body[:body.index("\n}\n")]
+    for name in ("TILE", "KGROUP", "B3_ROWS", "B3_KEYS", "B3_KGROUP"):
+        assert name in body, name
+
+
+# (label, batch, query rows U1, keys U2): serving 440x1024, chairs 368x496
+# (batch 8), KITTI 376x1248, and the serving grid's row shards at 2 and 4
+# ranks (28/27 and 14/13 rows of 128 tokens).
+SHAPES = [("serving", 1, 7040, 7040), ("chairs", 8, 2852, 2852),
+          ("kitti", 1, 7332, 7332), ("shard 2 of 2", 1, 27 * 128, 7040),
+          ("shard 1 of 2", 1, 28 * 128, 7040),
+          ("shard 4 of 4", 1, 13 * 128, 7040)]
+
+
+@pytest.mark.parametrize("bf16", [1, 0])
+@pytest.mark.parametrize("label,batch,u1,u2", SHAPES)
+def test_b1_partials_follow_the_grid(label, batch, u1, u2, bf16):
+    b1_partials, _ = _source_partials()
+    assert ma.scores_max_partials(batch * 4, u1, u2, bf16) == \
+        b1_partials(batch * 4, u1, u2, bf16)
+
+
+@pytest.mark.parametrize("bf16", [1, 0])
+@pytest.mark.parametrize("label,batch,u1,u2", SHAPES)
+def test_b3_b9_partials_follow_the_grid(label, batch, u1, u2, bf16):
+    _, b3_partials = _source_partials()
+    assert ma.corr_partials(batch, u1, u2, bf16) == \
+        b3_partials(batch, u1, u2, bf16)
+
+
+def test_the_serving_grids():
+    """The block counts the sources' notes state: B1 55 x 4 x 7 = 1540,
+    B3 55 x 14 = 770 a sample."""
+    assert ma.scores_max_partials(4, 7040, 7040, 1) == 1540
+    assert ma.corr_partials(1, 7040, 7040, 1) == 2 * 770

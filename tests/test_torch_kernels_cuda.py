@@ -68,15 +68,76 @@ def _rel(got, want, dim=None):
     return float((d.amax(dim) / w.amax(dim)).max())
 
 
+# B1 also at grids that span several of its bf16 body's 128-row q tiles
+# and 16-tile key chunks, ragged in both: the KITTI width (156) and the
+# chairs width (62).
+BIG_GRIDS = [(9, 156), (20, 62)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("grid", GRIDS)
-@pytest.mark.parametrize("md", [16, 32, 64])
+@pytest.mark.parametrize("grid", GRIDS + BIG_GRIDS)
+@pytest.mark.parametrize("md", [16, 32, 48, 64])
 def test_b1_scores_global_max(dev, dtype, grid, md):
     q, k, _ = _inputs(dev, grid, md, dtype)
     scale = 1.0 / math.sqrt(md)
     got = ma.scores_global_max(q, k, scale)
     want = ma.scores_global_max_plain(q, k, scale)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def _peaked(q, k, m, row, key, value=3.0):
+    """q, k with q[:, m, row] = k[:, m, key] = value (every feature): their
+    score value^2 md scale is exact in any summation order and above every
+    other score."""
+    q, k = q.clone(), k.clone()
+    q[:, m, row] = value
+    k[:, m, key] = value
+    return q, k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid,shard", [((5, 12), None), ((9, 156), None),
+                                        ((20, 62), None), ((9, 156), (6, 9))])
+@pytest.mark.parametrize("md", [32, 64])
+def test_b1_finds_a_planted_peak_exactly(dev, dtype, grid, shard, md):
+    """The peak at the last mode, the last query row and the last (ragged)
+    key: a body that drops the last key tile, mode 3 or the last rows
+    misses it."""
+    q, k, _ = _inputs(dev, grid, md, dtype, seed=9)
+    if shard is not None:
+        q = q[:, :, shard[0] * grid[1]:shard[1] * grid[1]]
+    q, k = _peaked(q, k, 3, q.shape[2] - 1, k.shape[2] - 1)
+    scale = 1.0 / math.sqrt(md)
+    peak = torch.tensor(9.0 * md, dtype=torch.float32) * scale
+    assert float(ma.scores_global_max(q, k, scale)) == float(peak)
+    assert float(ma.scores_global_max_plain(q, k, scale)) == float(peak)
+
+
+def test_b1_b3_bf16_tiles_reject_what_they_do_not_take(dev):
+    """The bf16 bodies of B1, B3 and B9 take md a multiple of 16 and
+    16-byte aligned q and k; fp32 takes md 24."""
+    grid = GRIDS[0]
+    one = torch.tensor(1.0, device=dev)
+    q, k, biases = _inputs(dev, grid, 24, torch.bfloat16)
+    for fn in (lambda a, b: ma.scores_global_max(a, b, 0.2),
+               lambda a, b: ma.fused_agg_corr_norm(
+                   a, b, biases, grid, 100.0, 0.5, one, one,
+                   out_dtype=torch.float32),
+               lambda a, b: ma.corr_norm_sums(a, b, biases, grid, one, 100.0,
+                                              0.5, one, one)):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fn(q, k)
+        fn(q.float(), k.float())
+    q, k, _ = _inputs(dev, grid, 64, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    q_off = flat[1:].view(q.shape)  # contiguous, 2 bytes past alignment
+    q_off.copy_(q)
+    for fn in (lambda a: ma.scores_global_max(a, k, 0.2),
+               lambda a: ma.fused_agg_corr_norm(a, k, biases, grid, 100.0,
+                                                0.5, one, one)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(q_off)
+        fn(q)
 
 
 # B2's grids add two widths whose 64-row q tiles straddle grid rows: the
@@ -185,11 +246,18 @@ def test_flash_bf16_tiles_reject_what_they_do_not_take(dev):
         fn(q)
 
 
+# B3's grids add ragged widths, the KITTI one (156) among them, whose
+# 16-row warps and 64-key tiles straddle grid rows, over several q tiles
+# and key groups.
+B3_GRIDS = GRIDS + [(9, 156), (11, 62)]
+
+
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("grid", B3_GRIDS)
 @pytest.mark.parametrize("attn_clip", [100.0, 0.4])
-def test_b3_fused_agg_corr_norm(dev, out_dtype, grid, attn_clip):
-    q, k, biases = _inputs(dev, grid, 64, torch.bfloat16)
+@pytest.mark.parametrize("md", [32, 64])
+def test_b3_fused_agg_corr_norm(dev, out_dtype, grid, attn_clip, md):
+    q, k, biases = _inputs(dev, grid, md, torch.bfloat16)
     q[0, 0, 0] *= 4  # only sample 0 crosses 0.4 by the most
     agg = (torch.tensor(1.3, device=dev), torch.tensor(0.1, device=dev))
     got, stats = ma.fused_agg_corr_norm(q, k, biases, grid, attn_clip, 0.5,
@@ -199,6 +267,24 @@ def test_b3_fused_agg_corr_norm(dev, out_dtype, grid, attn_clip):
     tol = (3e-2, 1e-2) if out_dtype == torch.bfloat16 else (1e-4, 1e-4)
     torch.testing.assert_close(got.float(), want, atol=tol[0], rtol=tol[1])
     torch.testing.assert_close(stats, wstats, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("grid", RING_GRIDS)
+def test_b3_window_outer_ring(dev, grid):
+    """B3 in bf16 with the window's outer ring at +-3: a band test one grid
+    row too tight moves the volume far outside the bound."""
+    q, k, biases = _inputs(dev, grid, 64, torch.bfloat16, seed=8)
+    biases, ring = _ring(biases)
+    agg = (torch.tensor(1.3, device=dev), torch.tensor(0.1, device=dev))
+    got, _ = ma.fused_agg_corr_norm(q, k, biases, grid, 100.0, 0.5, *agg,
+                                    out_dtype=torch.float32)
+    want, _ = ma.fused_agg_corr_norm_plain(q, k, biases, grid, 100.0, 0.5,
+                                           *agg, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    no_ring, _ = ma.fused_agg_corr_norm_plain(
+        q, k, biases.masked_fill(ring, 0.0), grid, 100.0, 0.5, *agg,
+        out_dtype=torch.float32)
+    assert float((no_ring - want).abs().max()) > 1e-2
 
 
 @pytest.mark.parametrize("grid", GRIDS)
@@ -569,7 +655,8 @@ def test_b2_b4_with_row_offsets(dev, dtype, grid, shards, clip):
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("grid,shards", SHARDS[:2])
+@pytest.mark.parametrize("grid,shards", SHARDS[:2] + [
+    ((9, 156), [(0, 4), (4, 9)])])
 @pytest.mark.parametrize("attn_clip", [100.0, 0.4])
 def test_b9_shards_against_plain_and_b3(dev, out_dtype, grid, shards,
                                         attn_clip):

@@ -1,8 +1,9 @@
 """The kernel-against-plain checks of chip_smoke.py (its phase 2), run on
 the CPU at a small ragged grid.  On CPU tensors each wrapper takes its plain
 version, so the checks pass as they are; with a fault planted in a wrapper
-(the sliding bias dropped, the clamp ignored, B2's outer window ring
-dropped, for the training kernels the backward's clamp mask, its agg_w
+(the sliding bias dropped, the clamp ignored, B2's and B3's outer window
+ring dropped, B1's last key tile or mode 3 dropped before a planted peak,
+for the training kernels the backward's clamp mask, its agg_w
 term or its softmax row term dropped, for
 the lookup its channel order swapped, clamped padding, a wrong level scale
 or the y blend dropped, and for the dense-table kernels a transposed table,
@@ -30,13 +31,15 @@ from craft_tpu_torch.ops.kernels import probs_vjp as pv
 from craft_tpu_torch.ops.kernels import sep_conv_gru as sg
 
 GRID = (6, 20)  # U = 120: not a multiple of the kernels' 64-row tiles
+# B3 also at a ragged KITTI-width grid (W8 = 156, U = 468).
+B3_GRIDS = (GRID, (3, 156))
 CPU = torch.device("cpu")
 
 
 def _run(seed=0):
     report = {fn.__name__: {} for fn in ma.KERNELS}
     gen = torch.Generator().manual_seed(seed)
-    chip_smoke.check_kernels(CPU, gen, report, grid=GRID)
+    chip_smoke.check_kernels(CPU, gen, report, grid=GRID, b3_grids=B3_GRIDS)
     return report
 
 
@@ -93,6 +96,42 @@ def test_checks_catch_a_dropped_outer_ring(monkeypatch):
     monkeypatch.setattr(ma, "flash_mode_attention", faulty)
     with pytest.raises(AssertionError, match="disagrees"):
         _run()
+
+
+def test_checks_catch_a_b3_outer_ring_dropped(monkeypatch):
+    """B3 with its window's outer ring dropped: a band or column test one
+    row or column too tight."""
+    def faulty(q, k, biases, *args, **kwargs):
+        return ma.fused_agg_corr_norm_plain(
+            q, k, chip_smoke.drop_outer_ring(biases), *args, **kwargs)
+    monkeypatch.setattr(ma, "fused_agg_corr_norm", faulty)
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run()
+
+
+# B1's planted peaks at small ragged shapes: U2 = 100 and 91 (the last key
+# tile of 64 ragged), md 64 and 32, and the last rows of a shard.
+B1_PEAK_CASES = (("ragged", 2, (5, 20), None, 64),
+                 ("md 32", 1, (7, 13), None, 32),
+                 ("shard", 1, (6, 20), (4, 6), 64))
+
+
+def _run_peaks():
+    chip_smoke.check_b1_peaks(CPU, torch.Generator().manual_seed(0),
+                              cases=B1_PEAK_CASES)
+
+
+def test_b1_peak_checks_pass_the_plain_version():
+    _run_peaks()
+
+
+@pytest.mark.parametrize("fault", chip_smoke.B1_FAULTS)
+def test_b1_peak_checks_catch_a_planted_kernel_fault(monkeypatch, fault):
+    monkeypatch.setattr(ma, "scores_global_max",
+                        lambda q, k, scale: chip_smoke.b1_fault(q, k, scale,
+                                                                fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run_peaks()
 
 
 def test_hold_fails_a_bound_that_misses_a_fault():

@@ -33,12 +33,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
-    ("B1 scores_max", ("scores_max_kernel", "max_reduce_kernel")),
+    ("B1 scores_max", ("scores_max_kernel", "scores_max_wgmma_kernel",
+                       "max_reduce_kernel")),
     # The dense-table kernels share their window twins' names: under lsinu
     # and --f2radius the B2, B4 and B6 rows hold B8, B4 dense and B6 dense.
     ("B2 / B8 flash_attn", ("flash_attn_kernel", "flash_wgmma_kernel")),
+    # B9's halves (--seq_parallel) run B3's sweep kernels.
     ("B3 corr_norm", ("corr_stats_kernel", "corr_moments_kernel",
-                      "corr_write_kernel")),
+                      "corr_write_kernel", "corr_sweep_kernel",
+                      "corr_shard_sums_kernel", "corr_finish_kernel")),
     ("B4 / B4 dense probs", ("probs_kernel",)),
     ("B6 agg_corr_bwd", ("agg_corr_bwd_kernel", "sum_partials_kernel")),
     ("B6 / B6 dense agg_corr", ("agg_corr_kernel",)),

@@ -1,4 +1,4 @@
-"""A/B times of the hand kernels B1-B8 over CUDA events, for the
+"""A/B times of the hand kernels B1-B9 over CUDA events, for the
 craft_tpu_torch package under --root (default: this checkout), so that two
 checkouts can be compared in one call on one card:
 
@@ -9,9 +9,10 @@ the shapes their paths run them (serving: B=1, M=4, 440x1024 -> U=7040,
 W8=128; chairs: B=8, 368x496 -> U=2852, W8=62; KITTI: 376x1248 -> U=7332,
 W8=156):
 
-  B1 (scores_global_max) at serving, md 64, and at chairs (B*M = 32);
+  B1 (scores_global_max) at serving, md 64 and 32, and at chairs (B*M =
+  32), and at serving in fp32 (its fp32 body);
   B2 (flash_mode_attention) at serving;
-  B3 (fused_agg_corr_norm) at serving and KITTI;
+  B3 (fused_agg_corr_norm) at serving and KITTI, and at serving in fp32;
   B4 (mode_softmax_probs, int8) at serving;
   B5 (corr_lookup) forward and backward at serving and chairs, bf16 levels;
   B6 (fused_agg_corr) forward and backward at chairs, md 64;
@@ -19,16 +20,18 @@ W8=156):
   B7 (probs_bwd) at chairs, md 64 and 32;
   B8 (flash_mode_attention_dense) at serving, with no table and with the
   --f2radius 7 table (pos_w * the dense window + the mask);
-  B2 and B8 with the table again in fp32 (their fp32 body).
+  B2 and B8 with the table again in fp32 (their fp32 body);
+  B9 (corr_norm_sums, corr_norm_write) on both row shards of the serving
+  grid at n = 2 (rows 0:28 and 28:55).
 
 Seeded inputs from CPU generators (q, k ~ N(0, 1.5^2) bf16, the window ~
 N(0, 0.5^2)), the clamp off.  Each case is timed in ROUNDS rounds of `reps`
 calls, the rounds of all cases interleaved, so that a disturbance of the
 card spreads over all of them; a round's time is its mean per call.  After
 the rounds, one more run of `reps` calls of each case under torch.profiler
-gives its kernels' device time per call (`_dev_ms`): where a kernel is
-shorter than its wrapper's host work, the events time the host, and the
-device time is the kernel's own.  Prints the card (nvidia-smi name, power
+gives its kernels' device time per call (`_dev_ms`, and per kernel in
+`_kernels`): where a kernel is shorter than its wrapper's host work, the
+events time the host, and the device time is the kernel's own.  Prints the card (nvidia-smi name, power
 limit) and one JSON line with the card again and, per case, the median
 round (ms per call), every round, the device time and a SHA-256 prefix of
 its output bytes (equal prefixes: the checkouts' results are
@@ -52,7 +55,9 @@ import sys
 from pathlib import Path
 
 ROUNDS = 7
-SAVED = ("B2", "B2_fp32", "B8", "B8_table", "B8_fp32_table")
+SAVED = ("B1", "B1_md32", "B1_chairs", "B1_fp32", "B2", "B2_fp32", "B3",
+         "B3_kitti", "B3_fp32", "B8", "B8_table", "B8_fp32_table",
+         "B9_sums_r0", "B9_sums_r1", "B9_write_r0", "B9_write_r1")
 SERVING, CHAIRS, KITTI = (55, 128), (46, 62), (47, 156)
 RADIUS, LEVELS, F2RADIUS = 4, 4, 7
 
@@ -106,13 +111,18 @@ def _cases(torch, dev):
     q64f, k64f, vf = (x.float() for x in (q64, k64, v))
     cases = {
         "B1": lambda: ma.scores_global_max(q64, k64, 0.125),
+        "B1_md32": lambda: ma.scores_global_max(q32, k32, 32 ** -0.5),
         "B1_chairs": lambda: ma.scores_global_max(qc64, kc64, 0.125),
+        "B1_fp32": lambda: ma.scores_global_max(q64f, k64f, 0.125),
         "B2": lambda: ma.flash_mode_attention(q64, k64, v, biases, SERVING,
                                               clip, 0.5),
         "B3": lambda: ma.fused_agg_corr_norm(q64, k64, biases, SERVING,
                                              100.0, 0.5, one, one),
         "B3_kitti": lambda: ma.fused_agg_corr_norm(qk64, kk64, biases, KITTI,
                                                    100.0, 0.5, one, one),
+        "B3_fp32": lambda: ma.fused_agg_corr_norm(
+            q64f, k64f, biases, SERVING, 100.0, 0.5, one, one,
+            out_dtype=torch.float32),
         "B4": lambda: ma.mode_softmax_probs(q32, k32, biases, SERVING, clip,
                                             1.0, quantized=True),
         "B4_dense": lambda: ma.mode_softmax_probs_dense(q32, k32, None, clip,
@@ -144,6 +154,19 @@ def _cases(torch, dev):
                                             0.5, agg_w, agg_b)
     cases["B6_bwd"] = lambda: cv.agg_corr_bwd(qc64, kc64, g_vol, vol, biases,
                                               CHAIRS, clip, 0.5, agg_w)
+    # B9 at n = 2: the clamp predicate and the sums from the plain versions,
+    # so that both checkouts' kernels take the same values.
+    gmax = ma.scores_global_max_plain(q64, k64, 0.125)
+    sums = ma.corr_norm_sums_plain(q64, k64, biases, SERVING, gmax, 100.0,
+                                   0.5, agg_w, agg_b)
+    for r, (h0, h1) in enumerate(((0, 28), (28, SERVING[0]))):
+        ql = q64[:, :, h0 * SERVING[1]:h1 * SERVING[1]].contiguous()
+        cases[f"B9_sums_r{r}"] = functools.partial(
+            ma.corr_norm_sums, ql, k64, biases, SERVING, gmax, 100.0, 0.5,
+            agg_w, agg_b, q_row0=h0)
+        cases[f"B9_write_r{r}"] = functools.partial(
+            ma.corr_norm_write, ql, k64, biases, SERVING, gmax, sums, 100.0,
+            0.5, agg_w, agg_b, q_row0=h0)
     g_p = randn(8, 4, uc, uc)
     for md, (q, k), pos_w in ((64, (qc64, kc64), 0.5),
                               (32, (qc32, kc32), 1.0)):
@@ -161,22 +184,23 @@ def _digest(torch, res) -> str:
     return digest.hexdigest()[:16]
 
 
-def _device_ms(torch, fn, reps: int) -> float:
-    """Kernel time per call on the device, from torch.profiler."""
+def _device_ms(torch, fn, reps: int) -> tuple:
+    """Kernel time per call on the device, from torch.profiler: (the total,
+    {kernel name: its share})."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    kernels = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         for attr in ("self_device_time_total", "self_cuda_time_total"):
             if hasattr(e, attr):
-                total += getattr(e, attr)
+                kernels[e.key[:60]] = getattr(e, attr) / 1e3 / reps
                 break
-    return total / 1e3 / reps
+    return sum(kernels.values()), kernels
 
 
 def main() -> int:
@@ -206,14 +230,15 @@ def main() -> int:
         res = fn()
         torch.cuda.synchronize()
         out[name + "_sha"] = _digest(torch, res)
+        first = res[0] if isinstance(res, (tuple, list)) else res
         if name in SAVED and args.save:
             Path(args.save).mkdir(parents=True, exist_ok=True)
-            torch.save(res.cpu(), Path(args.save) / f"{name}.pt")
+            torch.save(first.cpu(), Path(args.save) / f"{name}.pt")
         if name in SAVED and args.diff:
             ref = torch.load(Path(args.diff) / f"{name}.pt")
             out[name + "_max_abs_diff"] = float(
-                (res.cpu().float() - ref.float()).abs().max())
-        del res
+                (first.cpu().double() - ref.double()).abs().max())
+        del res, first
     rounds = {name: [] for name in cases}
     for _ in range(ROUNDS):
         for name, fn in cases.items():
@@ -228,7 +253,8 @@ def main() -> int:
     for name, times in rounds.items():
         out[name + "_ms"] = statistics.median(times)
         out[name + "_rounds"] = times
-        out[name + "_dev_ms"] = _device_ms(torch, cases[name], args.reps)
+        out[name + "_dev_ms"], out[name + "_kernels"] = _device_ms(
+            torch, cases[name], args.reps)
     print(json.dumps(out))
     return 0
 

@@ -16,7 +16,9 @@ these phases and fails on the first that fails:
      last query row, the last ragged key) exactly at the serving (md 64
      and 32), chairs and KITTI shapes and on the last rows of a shard; the
      plain version with its last key tile or its mode 3 dropped must miss
-     it.
+     it.  B4 int8 and bf16 also at the KITTI (47x156) and chairs (B=8,
+     46x62) shapes; for int8 a row max taken over one key tile is planted
+     too (at serving as well).
      Then the training kernels at the chairs shapes (B=8, M=4, 46x62 ->
      U=2852, md 64 and 32): B1 and B4 float at this ragged U, B6 forward,
      B6 backward (dc, da) and B7 backward (dc, dlsum), each with faults
@@ -100,6 +102,7 @@ these phases and fails on the first that fails:
      plain versions, bounds and B3; B10 forward and backward of each
      pass at the serving and chairs grids (bf16) beside the plain
      versions, the bounds and the same pass in the cuDNN conv form.
+     B4's lines add the floor of its exponentials on the SFUs.
 
 Prints the card line and a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
@@ -206,6 +209,17 @@ def bound_ms(flops: float, nbytes: float, tflops: float = BF16_TFLOPS
     t_ops = flops / (tflops * 1e12) * 1e3
     t_mem = nbytes / (HBM_TBS * 1e12) * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+# B4's exponentials, one a score in each of its two sweeps, beside its
+# bound: the SFUs take 16 a clock on each of the 132 SMs, at the 1.98 GHz
+# boost clock of the H100 SXM.
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def sfu_ms(n_scores: float) -> float:
+    """The least time of B4's 2 n_scores exponentials on the SFUs."""
+    return 2.0 * n_scores / SFU_EXP_PER_S * 1e3
 
 
 # Phase 2 inputs.  q, k ~ N(0, QK_STD^2) give scores scale * q.k with a
@@ -384,7 +398,9 @@ def check_kernels(dev, gen, report, grid=(H8, W8),
         sync(dev)
         plain = lambda c, w, **kw: ma.mode_softmax_probs_plain(  # noqa: E731
             q, k, biases, grid, torch.tensor(c, device=dev), w, **kw)
-        faults = {"no bias": plain(clip, 0.0, quantized=True)}
+        faults = {"no bias": plain(clip, 0.0, quantized=True),
+                  "row max taken over one key tile": b4_tile_max_fault(
+                      q, k, biases, grid, clip_t, 1.0)}
         if clip != CLIP_OFF:
             faults["no clamp"] = plain(CLIP_OFF, 1.0, quantized=True)
         wnum, wsc = plain(clip, 1.0, quantized=True)
@@ -409,6 +425,66 @@ def check_kernels(dev, gen, report, grid=(H8, W8),
             errs.append(float((got.float() - want).abs().max()))
             del got, want, faults
     report["mode_softmax_probs"]["max_abs_err"] = max(errs)
+
+
+def b4_tile_max_fault(q, k, biases, grid, clip, pos_w, q_row0: int = 0):
+    """B4's int8 output from a row max taken over the first key tile (64
+    keys) only, as a split-key kernel that lost its other chunks would
+    give: numerators above 127 saturate, and the row scales follow."""
+    _, s = ma.biased_scores(q, k, biases, grid, clip, pos_w, q_row0)
+    e = torch.exp(s - s[..., :64].amax(dim=-1, keepdim=True))
+    del s
+    num = torch.round(e * 127.0).clamp(-128, 127).to(torch.int8)
+    return num, 1.0 / (127.0 * e.sum(dim=-1, keepdim=True))
+
+
+# B4 at the other shapes its paths run: (label, batch, grid) of the KITTI
+# evaluation grid (W8 = 156, U = 7332: int8 rows 4-byte aligned, bf16 rows
+# 8-byte) and the chairs training batch (W8 = 62, U = 2852: every 64-key
+# tile crosses a grid row), int8 and bf16 probs, md 32 (the intra site).
+B4_SHAPES = (("KITTI", 1, KITTI_GRID), ("chairs", TRAIN_BATCH, CHAIRS_GRID))
+
+
+def check_b4_shapes(dev, gen, report, shapes=B4_SHAPES) -> None:
+    """Phase 2: B4 int8 (numerators, row scales) and bf16 probs against the
+    plain version at each shape, the clamp on, with no bias, no clamp and
+    (int8) a row max over one key tile planted in the plain version."""
+    errs = []
+    for label, batch, grid in shapes:
+        biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
+        q, k = inputs(gen, 32, dev, grid[0] * grid[1], batch)
+        clip_t = torch.tensor(CLIP_ON, device=dev)
+        plain = lambda c, w, **kw: ma.mode_softmax_probs_plain(  # noqa: E731
+            q, k, biases, grid, torch.tensor(c, device=dev), w, **kw)
+        num, sc = ma.mode_softmax_probs(q, k, biases, grid, clip_t, 1.0,
+                                        quantized=True)
+        sync(dev)
+        faults = {"no bias": plain(CLIP_ON, 0.0, quantized=True),
+                  "no clamp": plain(CLIP_OFF, 1.0, quantized=True),
+                  "row max taken over one key tile": b4_tile_max_fault(
+                      q, k, biases, grid, clip_t, 1.0)}
+        wnum, wsc = plain(CLIP_ON, 1.0, quantized=True)
+        hold(f"B4 {label} int8 numerators", num, wnum, num_err, B4_NUM_TOL,
+             {n: f[0] for n, f in faults.items()})
+        hold(f"B4 {label} int8 row scales", sc, wsc, lambda a, b: float(
+            ((a - b).abs() / b).max()), B4_SCALE_RTOL,
+            {n: f[1] for n, f in faults.items()})
+        errs.append(float((num.float() * sc - wnum.float() * wsc).abs().max()))
+        del num, sc, wnum, wsc, faults
+        got = ma.mode_softmax_probs(q, k, biases, grid, clip_t, 1.0,
+                                    out_dtype=torch.bfloat16)
+        sync(dev)
+        want = plain(CLIP_ON, 1.0, out_dtype=torch.float32)
+        hold(f"B4 {label} bf16", got, want, row_rel_err,
+             B4_ROW_TOL[torch.bfloat16],
+             {"no bias": plain(CLIP_ON, 0.0, out_dtype=torch.float32),
+              "no clamp": plain(CLIP_OFF, 1.0, out_dtype=torch.float32)})
+        errs.append(float((got.float() - want).abs().max()))
+        del got, want, q, k
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    r = report["mode_softmax_probs"]
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), *errs)
 
 
 # B1's planted peaks: (label, batch, grid, query rows (h0, h1) of a shard
@@ -1928,6 +2004,7 @@ def time_kitti_kernels(dev, gen) -> None:
         print(f"{name} (KITTI, U={u}, W8={grid[1]}): {ms:.3f} ms, plain "
               f"{pms:.3f} ms, bound {bms:.4f} ms ({by})")
         torch.cuda.empty_cache()
+    print(f"mode_softmax_probs (KITTI): exponentials floor {sfu_ms(n):.4f} ms")
 
 
 def time_train_kernels(dev, gen, report) -> None:
@@ -2003,6 +2080,8 @@ def time_train_kernels(dev, gen, report) -> None:
         print(f"{label} (chairs, B=8): {ms:.3f} ms, plain {pms:.3f} ms, "
               f"bound {bms:.4f} ms ({by})")
         torch.cuda.empty_cache()
+    print(f"mode_softmax_probs (chairs, B=8): exponentials floor "
+          f"{sfu_ms(n):.4f} ms")
 
 
 def time_kernels(dev, gen, report) -> None:
@@ -2057,6 +2136,8 @@ def time_kernels(dev, gen, report) -> None:
             print(f"{name}: {r['library_ms'] / r['ms']:.3f} x the speed of "
                   "its library call")
         torch.cuda.empty_cache()
+    print(f"mode_softmax_probs: exponentials floor {sfu_ms(n):.4f} ms "
+          "(2 M U^2 on the SFUs)")
     md32 = time_ms(lambda: ma.scores_global_max(q32, k32, 0.17677669), 5)
     print(f"scores_global_max at the intra shape (md 32): {md32:.3f} ms")
     # Device times: B1 alone, and B3's sweeps and moments without the B1
@@ -2132,6 +2213,7 @@ def time_dense_kernels(dev, gen, report) -> None:
             report[name].update(ms=ms, plain_ms=pms, library_ms=lms,
                                 bound_ms=bms, bound_by=by)
         torch.cuda.empty_cache()
+    print(f"mode_softmax_probs_dense: exponentials floor {sfu_ms(n):.4f} ms")
 
 
 def window_elems(levels, coords, r=RADIUS) -> int:
@@ -2610,6 +2692,7 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     check_kernels(dev, gen, report)
+    check_b4_shapes(dev, gen, report)
     check_b1_peaks(dev, gen)
     torch.cuda.empty_cache()
     check_train_kernels(dev, gen, report)

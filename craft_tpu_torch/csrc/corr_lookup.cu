@@ -15,6 +15,8 @@
 // rows (y) then columns (x) in fp32 with the plain version's operations in
 // its order (no fused multiply-add, so the two agree bit for bit), and
 // writes out[q, l (2r+1)^2 + i (2r+1) + j], the reference channel order.
+// The radius is a template parameter (a kernel for each r <= MAXR), and all
+// levels' corner loads are in flight together.
 //
 // Backward.  A query reads only its own slab, so queries never share a level
 // element and a warp owns a query's whole gradient: it forms the (2r+2)^2
@@ -63,38 +65,89 @@ __device__ __forceinline__ float lerp_rn(float a, float b, float t) {
   return __fadd_rn(__fmul_rn(1.f - t, a), __fmul_rn(t, b));
 }
 
-template <typename T>
+// The forward for radius R: one warp a query.  Every corner load of all
+// the query's levels is issued into registers before the first is used
+// (the trip counts are compile-time: no division by a runtime m, no loop
+// that waits level by level), so a warp waits on one round trip of loads,
+// not one a level; the corners then go to shared memory (one __syncwarp),
+// each lane blends its taps into registers, and the query's L (2r+1)^2
+// outputs, staged in the same shared memory, leave in 16-byte stores when
+// L (2r+1)^2 is a multiple of 4 (L = 4: 1296 bytes at r = 4).
+template <typename T, int R>
 __global__ void __launch_bounds__(WARPS * 32)
     lookup_fwd_kernel(Levels lv, int L, const float* __restrict__ coords,
-                      float* __restrict__ out, int Q, int r) {
-  __shared__ float corners[WARPS][MAXC];
+                      float* __restrict__ out, int Q) {
+  constexpr int n = 2 * R + 1, m = n + 1, MM = m * m, NN = n * n;
+  constexpr int CIT = (MM + 31) / 32;  // corners a lane loads per level
+  constexpr int OIT = (NN + 31) / 32;  // taps a lane blends per level
+  __shared__ __align__(16) float buf[WARPS][MAXL * MM];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q = blockIdx.x * WARPS + warp;
   if (q >= Q) return;  // a whole warp; the block never synchronises
-  const int n = 2 * r + 1, m = n + 1;
-  float* g = corners[warp];
+  float* g = buf[warp];
   const float cx = coords[2 * (size_t)q], cy = coords[2 * (size_t)q + 1];
-  float* o = out + (size_t)q * L * n * n;
-  for (int l = 0; l < L; ++l) {
+  int x0[MAXL], y0[MAXL];
+  float fx[MAXL], fy[MAXL];
+  float v[MAXL][CIT];
+#pragma unroll
+  for (int l = 0; l < MAXL; ++l) {
+    if (l >= L) continue;
     const int h = lv.h[l], w = lv.w[l];
-    int x0, y0;
-    float fx, fy;
-    window_origin(cx, cy, l, h, w, r, &x0, &y0, &fx, &fy);
+    window_origin(cx, cy, l, h, w, R, &x0[l], &y0[l], &fx[l], &fy[l]);
     const T* slab = (const T*)lv.ptr[l] + (size_t)q * h * w;
-    for (int e = lane; e < m * m; e += 32) {
-      const int yy = y0 + e / m, xx = x0 + e % m;
-      g[e] = (yy >= 0 && yy < h && xx >= 0 && xx < w)
-                 ? to_f(slab[(size_t)yy * w + xx])
-                 : 0.f;
+#pragma unroll
+    for (int it = 0; it < CIT; ++it) {
+      const int e = lane + 32 * it;
+      const int yy = y0[l] + e / m, xx = x0[l] + e % m;
+      v[l][it] = (e < MM && yy >= 0 && yy < h && xx >= 0 && xx < w)
+                     ? to_f(__ldg(slab + (size_t)yy * w + xx))
+                     : 0.f;
     }
-    __syncwarp();
-    for (int e = lane; e < n * n; e += 32) {
+  }
+#pragma unroll
+  for (int l = 0; l < MAXL; ++l) {
+    if (l >= L) continue;
+#pragma unroll
+    for (int it = 0; it < CIT; ++it) {
+      const int e = lane + 32 * it;
+      if (e < MM) g[l * MM + e] = v[l][it];
+    }
+  }
+  __syncwarp();
+  float o[MAXL][OIT];
+#pragma unroll
+  for (int l = 0; l < MAXL; ++l) {
+    if (l >= L) continue;
+    const float* gl = g + l * MM;
+#pragma unroll
+    for (int it = 0; it < OIT; ++it) {
+      const int e = lane + 32 * it;
+      if (e >= NN) continue;
       const int i = e / n, j = e - i * n;  // i offsets x, j offsets y
-      const float a = lerp_rn(g[j * m + i], g[(j + 1) * m + i], fy);
-      const float b = lerp_rn(g[j * m + i + 1], g[(j + 1) * m + i + 1], fy);
-      o[l * n * n + e] = lerp_rn(a, b, fx);
+      const float a = lerp_rn(gl[j * m + i], gl[(j + 1) * m + i], fy[l]);
+      const float b =
+          lerp_rn(gl[j * m + i + 1], gl[(j + 1) * m + i + 1], fy[l]);
+      o[l][it] = lerp_rn(a, b, fx[l]);
     }
-    __syncwarp();
+  }
+  __syncwarp();  // every corner is read: the buffer takes the outputs
+#pragma unroll
+  for (int l = 0; l < MAXL; ++l) {
+    if (l >= L) continue;
+#pragma unroll
+    for (int it = 0; it < OIT; ++it) {
+      const int e = lane + 32 * it;
+      if (e < NN) g[l * NN + e] = o[l][it];
+    }
+  }
+  __syncwarp();
+  const int nout = L * NN;
+  float* oq = out + (size_t)q * nout;
+  if ((nout & 3) == 0) {  // oq is 16-byte aligned
+    for (int e = lane; e < nout / 4; e += 32)
+      reinterpret_cast<float4*>(oq)[e] = reinterpret_cast<const float4*>(g)[e];
+  } else {
+    for (int e = lane; e < nout; e += 32) oq[e] = g[e];
   }
 }
 
@@ -177,12 +230,20 @@ extern "C" int corr_lookup_launch(void* const* levels, const int* hw, int L,
   if (Q == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (Q + WARPS - 1) / WARPS;
-  if (in_bf16)
-    lookup_fwd_kernel<__nv_bfloat16><<<blocks, WARPS * 32, 0, s>>>(
-        lv, L, (const float*)coords, (float*)out, Q, r);
-  else
-    lookup_fwd_kernel<float><<<blocks, WARPS * 32, 0, s>>>(
-        lv, L, (const float*)coords, (float*)out, Q, r);
+  switch (r) {
+#define CASE(R)                                                            \
+  case R:                                                                  \
+    if (in_bf16)                                                           \
+      lookup_fwd_kernel<__nv_bfloat16, R><<<blocks, WARPS * 32, 0, s>>>(   \
+          lv, L, (const float*)coords, (float*)out, Q);                    \
+    else                                                                   \
+      lookup_fwd_kernel<float, R><<<blocks, WARPS * 32, 0, s>>>(           \
+          lv, L, (const float*)coords, (float*)out, Q);                    \
+    break;
+    CASE(0) CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7)
+#undef CASE
+  }
+  static_assert(MAXR == 7, "a case for every radius");
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // Tensor-core pieces of the bf16 bodies (sm_90a), shared by B1
-// (scores_max.cu), B2 and B8 (flash_attn.cu) and B3 and B9 (corr_norm.cu):
-// asynchronous copies, the wgmma wrappers and fences, mbarriers, matrix
-// descriptors and the swizzles they name, and the sliding window looked up
-// on accumulator fragments.
+// (scores_max.cu), B2 and B8 (flash_attn.cu), B3 and B9 (corr_norm.cu) and
+// B4 (softmax_probs.cu): asynchronous copies, the wgmma wrappers and
+// fences, mbarriers, matrix descriptors and the swizzles they name, and the
+// bias sources on accumulator fragments (the sliding window, none, a dense
+// table).
 //
 // Fragments.  A warpgroup (4 warps, 128 threads) owns a 64-row tile of a
 // wgmma accumulator; warp w of it holds rows 16 w + g and 16 w + g + 8,
@@ -362,6 +363,94 @@ struct MmaWindowT {
         kw -= W8;
         ++kh;
       }
+    }
+  }
+};
+
+// Bias sources of the bf16 bodies of B2/B8 and B4 (B4 dense), beside
+// MmaWindowT.  STAGE: bytes a ring stage takes beside the keys (and
+// values); SMEM: bytes after the ring.  init(smem, args, qt) once per block
+// (published by the first barrier of the key loop); load(stage, kt) starts
+// the asynchronous copies of key tile kt (committed with k and v);
+// add(sc, kt, stage, pos_w) adds pos_w * bias to the thread's fragments
+// sc[j][e] of key tile kt: rows warp * 16 + g (e < 2) and + 8 (e >= 2),
+// columns 8 j + 2 t + (e & 1), with g = lane / 4, t = lane % 4.
+struct MmaNoBias {
+  static constexpr int STAGE = 0, SMEM = 0;
+  __device__ __forceinline__ void init(unsigned char*, const BiasArgs&,
+                                       int) {}
+  __device__ __forceinline__ void load(unsigned char*, int) {}
+  __device__ __forceinline__ void add(float (*)[4], int, unsigned char*,
+                                      float) const {}
+};
+
+// A ROWS x KEYS (64) fp32 tile of the table a stage, for blocks of THREADS
+// threads whose warp w owns rows 16 w .. 16 w + 15; its 16-byte chunks are
+// swizzled by (row % 4) * 2: the 8-byte reads of a half-warp (rows g =
+// 0..3 or 4..7, columns 8 j + 2 t) then fall in 16 different banks.
+template <int ROWS, int KEYS, int THREADS>
+struct MmaTableT {
+  static constexpr int STAGE = ROWS * KEYS * 4, SMEM = 0;
+  static_assert(KEYS == 64, "16 chunks of 4 keys a row");
+  static_assert(ROWS * KEYS % (4 * THREADS) == 0, "whole copies");
+  static constexpr int TROWS = THREADS / 16;  // rows a pass of copies covers
+  const float* table;
+  const float* src;  // 16-byte path: this thread's chunk of row r, key 0
+  int U1, U2, row0, rows_left;
+  uint32_t dst;      // ... and its place in a stage
+  bool by16;  // 16-byte copies: rows 16-byte aligned, U2 % 4 == 0
+  __device__ __forceinline__ void init(unsigned char*, const BiasArgs& a,
+                                       int qt) {
+    table = a.data;
+    U1 = a.U1;
+    U2 = a.U2;
+    row0 = qt * ROWS;
+    by16 = ((uintptr_t)table & 15) == 0 && (U2 & 3) == 0;
+    const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
+    rows_left = U1 - row0 - r;  // copies it with r + TROWS it < U1 - row0
+    src = table + (size_t)(rows_left > 0 ? row0 + r : 0) * U2 + 4 * c;
+    dst = (r * KEYS + ((c ^ ((r & 3) << 1)) << 2)) * 4;
+  }
+  __device__ __forceinline__ void load(unsigned char* st, int kt) {
+    float* ts = reinterpret_cast<float*>(st);
+    const int col0 = kt * KEYS;
+    if (by16) {
+      const uint32_t sa = smem_u32(st) + dst;
+      const bool col_ok = col0 + 4 * (threadIdx.x & 15) < U2;
+#pragma unroll
+      for (int it = 0; it < ROWS / TROWS; ++it) {
+        const bool ok = col_ok && TROWS * it < rows_left;
+        cp_async16(sa + it * TROWS * KEYS * 4,
+                   ok ? src + col0 + (size_t)it * TROWS * U2 : table, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < ROWS * KEYS; e += THREADS) {
+        const int r = e >> 6, cl = e & 63;
+        const int row = row0 + r, col = col0 + cl;
+        const bool ok = row < U1 && col < U2;
+        const int c = cl >> 2;
+        cp_async4(smem_u32(ts + r * KEYS + ((c ^ ((r & 3) << 1)) << 2) +
+                           (cl & 3)),
+                  ok ? table + (size_t)row * U2 + col : table, ok);
+      }
+    }
+  }
+  __device__ __forceinline__ void add(float (*sc)[4], int,
+                                      unsigned char* st, float pos_w) const {
+    const float* ts = reinterpret_cast<const float*>(st);
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int r = (threadIdx.x >> 5) * 16 + g;  // r % 4 == (r + 8) % 4
+    const int sw = (r & 3) << 1;
+#pragma unroll
+    for (int j = 0; j < KEYS / 8; ++j) {
+      const int off = (((2 * j + (t >> 1)) ^ sw) << 2) + ((t & 1) << 1);
+      const float2 b0 = *reinterpret_cast<const float2*>(ts + r * KEYS + off);
+      const float2 b1 =
+          *reinterpret_cast<const float2*>(ts + (r + 8) * KEYS + off);
+      sc[j][0] += pos_w * b0.x;
+      sc[j][1] += pos_w * b0.y;
+      sc[j][2] += pos_w * b1.x;
+      sc[j][3] += pos_w * b1.y;
     }
   }
 };

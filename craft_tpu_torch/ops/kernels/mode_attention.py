@@ -25,8 +25,8 @@ U2 = H8 * W8 keys; B1 takes any U1 and U2, and B2, B4 and B9 take the
 shard's `q_row0` so that the window lands on the right diagonals.  The
 tensor decides the route: CUDA tensors launch the hand-written kernel
 (csrc/*.cu) or raise, CPU tensors take the plain version.  In bf16, B1,
-B2, B3, B8 and B9 run tensor-core (wgmma) bodies, which take a mode dim
-that is a multiple of 16 and 16-byte aligned inputs (check_mma_tiles);
+B2, B3, B4, B8 and B9 run tensor-core (wgmma) bodies, which take a mode
+dim that is a multiple of 16 and 16-byte aligned inputs (check_mma_tiles);
 fp32 runs FMA bodies.  Each kernel's launches are counted in
 ``<wrapper>.launches`` where the kernel is launched: B1's count includes
 the B1 launch that B3 makes as its phase 0.  The clamp value `clip` is a device tensor, so the
@@ -55,12 +55,12 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _F, _I, _P],
     "corr_norm_write_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _D, _F, _I, _I, _P],
-    "probs_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                     _F, _I, _I, _P],
+    "probs_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _F, _F, _I, _I, _P],
     "flash_attn_dense_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _F, _F, _I, _P],
-    "probs_dense_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-                           _I, _P],
+    "probs_dense_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F,
+                           _F, _I, _I, _P],
 }
 _LIB_OF = {"scores_max_launch": "scores_max",
            "flash_attn_launch": "flash_attn",
@@ -73,12 +73,14 @@ _LIB_OF = {"scores_max_launch": "scores_max",
 FLASH_FEAT = 256  # csrc/flash_attn.cu FEAT: the f2 site's feature width
 # Scratch sizes follow the kernels' grids: the fp32 bodies' tiles
 # (csrc/common.cuh TILE, csrc/agg_modes.cuh KGROUP) and the bf16 bodies'
-# (csrc/scores_max.cu B1_*, csrc/corr_norm.cu B3_*).  The kernels refuse a
-# scratch of another size, and tests/test_torch_kernel_grids.py holds these
-# constants against the sources.
+# (csrc/scores_max.cu B1_*, csrc/corr_norm.cu B3_*, csrc/softmax_probs.cu
+# B4_*).  The kernels refuse a scratch of another size, and
+# tests/test_torch_kernel_grids.py holds these constants against the
+# sources.
 _TILE, _KGROUP = 64, 8
 _B1_ROWS, _B1_KEYS, _B1_KCHUNK = 128, 64, 16
 _B3_ROWS, _B3_KEYS, _B3_KGROUP = 128, 64, 8
+_B4_ROWS, _B4_KEYS, _B4_KCHUNK = 128, 64, 16
 assert MAX_MODE_DIM == 64  # csrc/common.cuh MAXMD
 
 
@@ -104,6 +106,24 @@ def corr_partials(B: int, U1: int, U2: int, bf16: int) -> int:
     else:
         nq, ng = _cdiv(U1, _TILE), _cdiv(_cdiv(U2, _TILE), _KGROUP)
     return 2 * B * nq * ng
+
+
+def probs_partials(BM: int, U1: int, U2: int, bf16: int) -> int:
+    """B4's (max, sum) pairs of the bf16 body's stats sweep: one per (b *
+    M, 128-row q tile, chunk of 16 key tiles, row of the tile); none for
+    the fp32 body."""
+    if not bf16:
+        return 0
+    return (BM * _cdiv(U1, _B4_ROWS) * _cdiv(_cdiv(U2, _B4_KEYS), _B4_KCHUNK)
+            * _B4_ROWS)
+
+
+def _probs_scratch(BM: int, U1: int, U2: int, bf16: int, like):
+    """A B4 launch's scratch: fp32 [pairs, 2] on like's device, or None
+    (fp32 body)."""
+    n = probs_partials(BM, U1, U2, bf16)
+    return (torch.empty(n, 2, dtype=torch.float32, device=like.device)
+            if n else None)
 
 
 def _call(fn_name: str, *args) -> None:
@@ -204,7 +224,7 @@ def check_table(table, q, k) -> None:
 
 def check_mma_tiles(what: str, bf16: int, md: int, names: str,
                     *tensors) -> None:
-    """The bf16 bodies on the tensor cores (B1, B2, B3, B8, B9) take a mode
+    """The bf16 bodies on the tensor cores (B1-B4, B8, B9) take a mode
     dim that is a multiple of 16 and 16-byte aligned tensors (`names`);
     raises on anything else.  fp32 takes any md <= 64."""
     if not bf16:
@@ -217,8 +237,8 @@ def check_mma_tiles(what: str, bf16: int, md: int, names: str,
 
 
 def table_ptr(table) -> _P:
-    """The kernels' table argument: a pointer to a contiguous table (the
-    caller keeps it alive), or null for no bias."""
+    """The kernels' table (or scratch) argument: a pointer to a contiguous
+    tensor (the caller keeps it alive), or null for None."""
     return _P(None) if table is None else _ptr(table)
 
 
@@ -600,9 +620,13 @@ def mode_softmax_probs(q, k, biases, grid_hw, clip, pos_w: float,
         kind = {torch.float32: 0, torch.bfloat16: 1}[out_dtype]
         out = torch.empty(B, M, U1, U2, dtype=out_dtype, device=dev)
         row_scale = out  # not written
+    check_mma_tiles("mode_softmax_probs", bf16, md, "q, k and out", q, k,
+                    out)
     win, clip_t = _f32(biases, q), _f32(clip, q)
+    scratch = _probs_scratch(B * M, U1, U2, bf16, q)
     _call("probs_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(clip_t),
-          _ptr(out), _ptr(row_scale), B * M, U1, U2, q_row0 * W8, md, W8, R,
+          table_ptr(scratch), probs_partials(B * M, U1, U2, bf16), _ptr(out),
+          _ptr(row_scale), B * M, U1, U2, q_row0 * W8, md, W8, R,
           1.0 / math.sqrt(md), pos_w, bf16, kind, _stream(q))
     mode_softmax_probs.launches += 1
     return (out, row_scale) if quantized else out
@@ -646,10 +670,14 @@ def mode_softmax_probs_dense(q, k, table, clip, pos_w: float,
         raise ValueError(f"mode_softmax_probs_dense: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
     out = torch.empty(B, M, U1, U2, dtype=out_dtype, device=q.device)
+    check_mma_tiles("mode_softmax_probs_dense", bf16, md, "q, k and out", q,
+                    k, out)
     table = None if table is None else table.contiguous()
     clip_t = _f32(clip, q)
+    scratch = _probs_scratch(B * M, U1, U2, bf16, q)
     _call("probs_dense_launch", _ptr(q), _ptr(k), table_ptr(table),
-          _ptr(clip_t), _ptr(out), B * M, U1, U2, md,
+          _ptr(clip_t), table_ptr(scratch),
+          probs_partials(B * M, U1, U2, bf16), _ptr(out), B * M, U1, U2, md,
           1.0 / math.sqrt(md), pos_w, bf16, kinds[out_dtype], _stream(q))
     mode_softmax_probs_dense.launches += 1
     return out

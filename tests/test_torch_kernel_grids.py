@@ -1,7 +1,8 @@
 """The scratch the wrappers size against the grids the kernels launch.
 
 B1's partial maxima and the fp64 partial sums of B3's and B9's stats sweep
-are one per block, so the wrapper's count must equal the kernel's grid: a
+are one per block, and B4's (max, sum) pairs one per row of a block, so
+the wrapper's count must equal the kernel's grid: a
 smaller buffer is written past, a larger one leaves partials that the
 second pass reads unset.  The kernels refuse a count other than their own
 on the card; here, without a compiler, the tile constants are read from the
@@ -30,10 +31,12 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _source_partials():
-    """(B1 partials, B3 partial doubles) as the sources' launchers count
-    them: scores_max.cu max_partials, corr_norm.cu partial_blocks."""
+    """(B1 partials, B3 partial doubles, B4 pairs) as the sources'
+    launchers count them: scores_max.cu max_partials, corr_norm.cu
+    sweep_grid, softmax_probs.cu probs_partials."""
     common, agg = _defines("common.cuh"), _defines("agg_modes.cuh")
     b1, b3 = _defines("scores_max.cu"), _defines("corr_norm.cu")
+    b4 = _defines("softmax_probs.cu")
 
     def b1_partials(BM, U1, U2, bf16):
         if not bf16:
@@ -49,7 +52,14 @@ def _source_partials():
             blocks = (_cdiv(U1, common["TILE"])
                       * _cdiv(_cdiv(U2, common["TILE"]), agg["KGROUP"]))
         return 2 * B * blocks
-    return b1_partials, b3_partials
+
+    def b4_pairs(BM, U1, U2, bf16):
+        if not bf16:
+            return 0
+        return (BM * _cdiv(U1, b4["B4_ROWS"])
+                * _cdiv(_cdiv(U2, b4["B4_KEYS"]), b4["B4_KCHUNK"])
+                * b4["B4_ROWS"])
+    return b1_partials, b3_partials, b4_pairs
 
 
 def test_the_launchers_count_from_these_constants():
@@ -63,6 +73,11 @@ def test_the_launchers_count_from_these_constants():
     body = b3[b3.index("static dim3 sweep_grid"):]
     body = body[:body.index("\n}\n")]
     for name in ("TILE", "KGROUP", "B3_ROWS", "B3_KEYS", "B3_KGROUP"):
+        assert name in body, name
+    b4 = (CSRC / "softmax_probs.cu").read_text()
+    body = b4[b4.index("static int probs_partials"):]
+    body = body[:body.index("\n}\n")]
+    for name in ("B4_ROWS", "B4_KEYS", "B4_KCHUNK"):
         assert name in body, name
 
 
@@ -78,7 +93,7 @@ SHAPES = [("serving", 1, 7040, 7040), ("chairs", 8, 2852, 2852),
 @pytest.mark.parametrize("bf16", [1, 0])
 @pytest.mark.parametrize("label,batch,u1,u2", SHAPES)
 def test_b1_partials_follow_the_grid(label, batch, u1, u2, bf16):
-    b1_partials, _ = _source_partials()
+    b1_partials, _, _ = _source_partials()
     assert ma.scores_max_partials(batch * 4, u1, u2, bf16) == \
         b1_partials(batch * 4, u1, u2, bf16)
 
@@ -86,13 +101,22 @@ def test_b1_partials_follow_the_grid(label, batch, u1, u2, bf16):
 @pytest.mark.parametrize("bf16", [1, 0])
 @pytest.mark.parametrize("label,batch,u1,u2", SHAPES)
 def test_b3_b9_partials_follow_the_grid(label, batch, u1, u2, bf16):
-    _, b3_partials = _source_partials()
+    _, b3_partials, _ = _source_partials()
     assert ma.corr_partials(batch, u1, u2, bf16) == \
         b3_partials(batch, u1, u2, bf16)
 
 
+@pytest.mark.parametrize("bf16", [1, 0])
+@pytest.mark.parametrize("label,batch,u1,u2", SHAPES)
+def test_b4_pairs_follow_the_grid(label, batch, u1, u2, bf16):
+    _, _, b4_pairs = _source_partials()
+    assert ma.probs_partials(batch * 4, u1, u2, bf16) == \
+        b4_pairs(batch * 4, u1, u2, bf16)
+
+
 def test_the_serving_grids():
     """The block counts the sources' notes state: B1 55 x 4 x 7 = 1540,
-    B3 55 x 14 = 770 a sample."""
+    B3 55 x 14 = 770 a sample, B4 4 x 7 x 55 = 1540 blocks of 128 rows."""
     assert ma.scores_max_partials(4, 7040, 7040, 1) == 1540
     assert ma.corr_partials(1, 7040, 7040, 1) == 2 * 770
+    assert ma.probs_partials(4, 7040, 7040, 1) == 1540 * 128

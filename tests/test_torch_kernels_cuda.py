@@ -308,6 +308,74 @@ def test_b4_probs(dev, grid, md):
                                        else 1e-4)
 
 
+def _hold_b4(q, k, biases, grid, clip, pos_w, q_row0=0):
+    """B4 int8 and bf16 against the plain version under phase 2's bounds:
+    numerators within 1, row scales rtol 1e-4, bf16 probs per row 1e-2."""
+    num, sc = ma.mode_softmax_probs(q, k, biases, grid, clip, pos_w,
+                                    quantized=True, q_row0=q_row0)
+    wnum, wsc = ma.mode_softmax_probs_plain(q, k, biases, grid, clip, pos_w,
+                                            quantized=True, q_row0=q_row0)
+    assert (num.int() - wnum.int()).abs().max() <= 1
+    torch.testing.assert_close(sc, wsc, rtol=1e-4, atol=0)
+    got = ma.mode_softmax_probs(q, k, biases, grid, clip, pos_w,
+                                out_dtype=torch.bfloat16, q_row0=q_row0)
+    want = ma.mode_softmax_probs_plain(q, k, biases, grid, clip, pos_w,
+                                       out_dtype=torch.float32,
+                                       q_row0=q_row0)
+    assert _rel(got, want, -1) <= 1e-2
+    return num
+
+
+# B4's bf16 body at grids that span several 128-row q tiles and 16-tile key
+# chunks, U % 128 != 0: the KITTI width (W8 = 156: int8 rows 4-byte
+# aligned, bf16 rows 8-byte) and the chairs width (W8 = 62: every 64-key
+# tile crosses a grid row), the window's outer ring on.
+@pytest.mark.parametrize("grid", BIG_GRIDS)
+@pytest.mark.parametrize("md", [32, 64])
+@pytest.mark.parametrize("clip", [1e30, 1.0])
+def test_b4_bf16_body_at_wide_grids(dev, grid, md, clip):
+    q, k, biases = _inputs(dev, grid, md, torch.bfloat16, seed=5, **_PEAKY)
+    _hold_b4(q, k, biases, grid, torch.tensor(clip, device=dev), 1.0)
+
+
+@pytest.mark.parametrize("grid,rows", [((9, 156), (4, 9)),
+                                       ((20, 62), (7, 13))])
+def test_b4_bf16_body_on_a_row_shard(dev, grid, rows):
+    q, k, biases = _inputs(dev, grid, 32, torch.bfloat16, seed=6, **_PEAKY)
+    h0, h1 = rows
+    ql = q[:, :, h0 * grid[1]:h1 * grid[1]]
+    _hold_b4(ql, k, biases, grid, torch.tensor(1.0, device=dev), 1.0,
+             q_row0=h0)
+
+
+@pytest.mark.parametrize("grid", GRIDS + BIG_GRIDS)
+def test_b4_every_rows_largest_numerator_is_127(dev, grid):
+    """Sweep 2 subtracts the exact max of the scores that sweep 1 saw:
+    each row's largest int8 numerator is 127, not 126 (a max taken from
+    part of the row, or rounded, would lose it)."""
+    q, k, biases = _inputs(dev, grid, 32, torch.bfloat16, seed=7, **_PEAKY)
+    num, _ = ma.mode_softmax_probs(q, k, biases, grid,
+                                   torch.tensor(1.0, device=dev), 1.0,
+                                   quantized=True)
+    assert bool((num.amax(-1) == 127).all())
+
+
+def test_b4_bf16_tiles_reject_what_they_do_not_take(dev):
+    q, k, biases = _inputs(dev, GRIDS[0], 40, torch.bfloat16)
+    clip = torch.tensor(1.0, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ma.mode_softmax_probs(q, k, biases, GRIDS[0], clip, 1.0,
+                              quantized=True)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ma.mode_softmax_probs_dense(q, k, None, clip, 1.0)
+    q, k, biases = _inputs(dev, GRIDS[0], 32, torch.bfloat16)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    q_odd = buf[1:].view(q.shape)  # 2 bytes past a 16-byte boundary
+    q_odd.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ma.mode_softmax_probs(q_odd, k, biases, GRIDS[0], clip, 1.0)
+
+
 def test_launch_counts_count_kernel_launches_only(dev):
     q, k, biases = _inputs(dev, GRIDS[0], 32, torch.bfloat16)
     one = torch.tensor(1.0, device=dev)
@@ -512,6 +580,23 @@ def test_b4_dense_probs(dev, io, with_table, shape, clip):
                                    else 1e-4)
 
 
+@pytest.mark.parametrize("with_table", [False, True])
+@pytest.mark.parametrize("shape", [(1240, 1240), (500, 1404)])
+@pytest.mark.parametrize("md", [32, 64])
+def test_b4_dense_bf16_body_at_wide_shapes(dev, with_table, shape, md):
+    """B4 dense's bf16 body over several q tiles and key chunks, rows of
+    2480 and 2808 bytes (bf16 rows 16- and 8-byte aligned), no table and
+    a table."""
+    q, k, table, _ = _dense_inputs(dev, shape, md, torch.bfloat16,
+                                   with_table)
+    clip_t = torch.tensor(0.4, device=dev)
+    got = ma.mode_softmax_probs_dense(q, k, table, clip_t, 1.0)
+    want = ma.mode_softmax_probs_dense_plain(q, k, table, clip_t, 1.0,
+                                             out_dtype=torch.float32)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 4, *shape)
+    assert _rel(got, want, -1) <= 1e-2
+
+
 def test_dense_variants_that_the_kernels_do_not_take_raise(dev):
     q, k, table, v = _dense_inputs(dev, (60, 60), 64, torch.float32, True)
     with pytest.raises(ValueError, match="feature dim"):
@@ -561,9 +646,9 @@ def test_b5_lookup_forward_and_backward(dev, dtype, grid, radius):
     levels, coords = _lookup_inputs(dev, *grid, dtype)
     got = lk.corr_lookup(levels, coords, radius)
     want = lk.corr_lookup_plain(levels, coords, radius)
-    top = max(float(lv.float().abs().max()) for lv in levels if lv.numel())
-    # The same four values blended with the same fp32 operations.
-    assert float((got - want).abs().max()) <= 4 * 2.0 ** -23 * top
+    # The same four values blended with the same rounded fp32 operations
+    # in the same order: bit for bit.
+    assert torch.equal(got, want)
     g = torch.randn(got.shape, generator=_gen(1)).to(dev)
     shapes = [tuple(lv.shape) for lv in levels]
     dl = lk.corr_lookup_bwd(coords, g, shapes, dtype, radius)

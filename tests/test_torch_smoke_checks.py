@@ -2,7 +2,9 @@
 the CPU at a small ragged grid.  On CPU tensors each wrapper takes its plain
 version, so the checks pass as they are; with a fault planted in a wrapper
 (the sliding bias dropped, the clamp ignored, B2's and B3's outer window
-ring dropped, B1's last key tile or mode 3 dropped before a planted peak,
+ring dropped, B4's int8 row max taken over one key tile (also at the
+KITTI and chairs widths), B1's last key tile or mode 3 dropped before a
+planted peak,
 for the training kernels the backward's clamp mask, its agg_w
 term or its softmax row term dropped, for
 the lookup its channel order swapped, clamped padding, a wrong level scale
@@ -107,6 +109,55 @@ def test_checks_catch_a_b3_outer_ring_dropped(monkeypatch):
     monkeypatch.setattr(ma, "fused_agg_corr_norm", faulty)
     with pytest.raises(AssertionError, match="disagrees"):
         _run()
+
+
+def _tile_max_fault(plain=ma.mode_softmax_probs):
+    """B4 whose int8 output takes the row max over one key tile (float
+    outputs stay right: the max cancels in e / l)."""
+    def faulty(q, k, biases, grid, clip, pos_w, out_dtype=torch.bfloat16,
+               quantized=False, q_row0=0):
+        if quantized:
+            return chip_smoke.b4_tile_max_fault(q, k, biases, grid, clip,
+                                                pos_w, q_row0)
+        return plain(q, k, biases, grid, clip, pos_w, out_dtype=out_dtype,
+                     q_row0=q_row0)
+    return faulty
+
+
+def test_checks_catch_a_row_max_over_one_key_tile(monkeypatch):
+    monkeypatch.setattr(ma, "mode_softmax_probs", _tile_max_fault())
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run()
+
+
+# B4 at small stand-ins for the KITTI and chairs shapes: W8 = 156 (U = 468)
+# and W8 = 62, batch 2 (U = 310), both ragged against the 64-key tiles.
+B4_SHAPES = (("KITTI width", 1, (3, 156)), ("chairs width", 2, (5, 62)))
+
+
+def _run_b4_shapes(seed=0):
+    report = {"mode_softmax_probs": {}}
+    chip_smoke.check_b4_shapes(CPU, torch.Generator().manual_seed(seed),
+                               report, shapes=B4_SHAPES)
+    return report
+
+
+def test_b4_shape_checks_pass_the_plain_version():
+    report = _run_b4_shapes()
+    # bf16 probs against fp32 ones: one rounding of values <= 1.
+    assert 0.0 < report["mode_softmax_probs"]["max_abs_err"] < 2 ** -8
+
+
+@pytest.mark.parametrize("fault", ["no bias", "no clamp",
+                                   "row max taken over one key tile"])
+def test_b4_shape_checks_catch_a_planted_kernel_fault(monkeypatch, fault):
+    plain, clip_at, pos_w_at, off = _SITES["mode_softmax_probs"]
+    faulty = (_tile_max_fault(plain) if fault.startswith("row max")
+              else _no_bias(plain, pos_w_at) if fault == "no bias"
+              else _no_clamp(plain, clip_at, off))
+    monkeypatch.setattr(ma, "mode_softmax_probs", faulty)
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run_b4_shapes()
 
 
 # B1's planted peaks at small ragged shapes: U2 = 100 and 91 (the last key

@@ -42,7 +42,7 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("B3 corr_norm", ("corr_stats_kernel", "corr_moments_kernel",
                       "corr_write_kernel", "corr_sweep_kernel",
                       "corr_shard_sums_kernel", "corr_finish_kernel")),
-    ("B4 / B4 dense probs", ("probs_kernel",)),
+    ("B4 / B4 dense probs", ("probs_kernel", "probs_wgmma_kernel")),
     ("B6 agg_corr_bwd", ("agg_corr_bwd_kernel", "sum_partials_kernel")),
     ("B6 / B6 dense agg_corr", ("agg_corr_kernel",)),
     ("B7 probs_bwd", ("probs_bwd_kernel",)),

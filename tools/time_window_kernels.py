@@ -13,10 +13,12 @@ W8=156):
   32), and at serving in fp32 (its fp32 body);
   B2 (flash_mode_attention) at serving;
   B3 (fused_agg_corr_norm) at serving and KITTI, and at serving in fp32;
-  B4 (mode_softmax_probs, int8) at serving;
+  B4 (mode_softmax_probs) int8 at serving and KITTI, bf16 probs at chairs
+  (md 32 and 64), and fp32 at serving (its fp32 body);
   B5 (corr_lookup) forward and backward at serving and chairs, bf16 levels;
   B6 (fused_agg_corr) forward and backward at chairs, md 64;
-  B6 dense and B4 dense (no table, bf16 probs) at serving;
+  B6 dense and B4 dense (bf16 probs) at serving, B4 dense with no table
+  and with the --f2radius 7 table;
   B7 (probs_bwd) at chairs, md 64 and 32;
   B8 (flash_mode_attention_dense) at serving, with no table and with the
   --f2radius 7 table (pos_w * the dense window + the mask);
@@ -40,7 +42,9 @@ bit-identical).
 For the cases whose bits a change may move (SAVED), `--save DIR` writes
 their outputs to DIR and `--diff DIR` adds `<case>_max_abs_diff`, the
 largest |difference| from the outputs saved there by another checkout's
-run (A B B A: the first A saves, the others diff).
+run (A B B A: the first A saves, the others diff); for B4's int8 cases
+that is the numerators', and `<case>_scale_rel_diff` adds the row scales'
+largest relative difference.
 """
 
 from __future__ import annotations
@@ -56,8 +60,10 @@ from pathlib import Path
 
 ROUNDS = 7
 SAVED = ("B1", "B1_md32", "B1_chairs", "B1_fp32", "B2", "B2_fp32", "B3",
-         "B3_kitti", "B3_fp32", "B8", "B8_table", "B8_fp32_table",
-         "B9_sums_r0", "B9_sums_r1", "B9_write_r0", "B9_write_r1")
+         "B3_kitti", "B3_fp32", "B4", "B4_kitti", "B4_chairs_md32",
+         "B4_chairs_md64", "B4_dense", "B4_dense_table", "B5", "B5_chairs",
+         "B8", "B8_table", "B8_fp32_table", "B9_sums_r0", "B9_sums_r1",
+         "B9_write_r0", "B9_write_r1")
 SERVING, CHAIRS, KITTI = (55, 128), (46, 62), (47, 156)
 RADIUS, LEVELS, F2RADIUS = 4, 4, 7
 
@@ -100,6 +106,7 @@ def _cases(torch, dev):
     qc64, kc64 = qk(8, uc, 64)
     qc32, kc32 = qk(8, uc, 32)
     qk64, kk64 = qk(1, uk, 64)
+    qk32, kk32 = qk(1, uk, 32)
     v = randn(1, 4, u, 256)
     biases = randn(15, 15, std=0.5, dtype=torch.float32)
     clip = torch.tensor(1e30, device=dev)
@@ -108,7 +115,8 @@ def _cases(torch, dev):
     agg_b = torch.tensor(0.1, device=dev)
     table = (0.5 * ma.sliding_pos_biases(biases, *SERVING)
              + attention_mask(*SERVING, F2RADIUS, dev))
-    q64f, k64f, vf = (x.float() for x in (q64, k64, v))
+    q64f, k64f, vf, q32f, k32f = (x.float() for x in (q64, k64, v, q32,
+                                                     k32))
     cases = {
         "B1": lambda: ma.scores_global_max(q64, k64, 0.125),
         "B1_md32": lambda: ma.scores_global_max(q32, k32, 32 ** -0.5),
@@ -125,8 +133,15 @@ def _cases(torch, dev):
             out_dtype=torch.float32),
         "B4": lambda: ma.mode_softmax_probs(q32, k32, biases, SERVING, clip,
                                             1.0, quantized=True),
+        "B4_kitti": lambda: ma.mode_softmax_probs(qk32, kk32, biases, KITTI,
+                                                  clip, 1.0, quantized=True),
+        "B4_fp32": lambda: ma.mode_softmax_probs(q32f, k32f, biases, SERVING,
+                                                 clip, 1.0,
+                                                 out_dtype=torch.float32),
         "B4_dense": lambda: ma.mode_softmax_probs_dense(q32, k32, None, clip,
                                                         1.0),
+        "B4_dense_table": lambda: ma.mode_softmax_probs_dense(
+            q32, k32, table, clip, 1.0),
         "B6_dense": lambda: cv.fused_agg_corr_dense(q64, k64, None, clip,
                                                     0.5, agg_w, agg_b),
         "B8": lambda: ma.flash_mode_attention_dense(q64, k64, v, None, clip,
@@ -167,10 +182,16 @@ def _cases(torch, dev):
         cases[f"B9_write_r{r}"] = functools.partial(
             ma.corr_norm_write, ql, k64, biases, SERVING, gmax, sums, 100.0,
             0.5, agg_w, agg_b, q_row0=h0)
+    for md, (q, k), pos_w in ((32, (qc32, kc32), 1.0),
+                              (64, (qc64, kc64), 0.5)):
+        cases[f"B4_chairs_md{md}"] = functools.partial(
+            ma.mode_softmax_probs, q, k, biases, CHAIRS, clip, pos_w)
     g_p = randn(8, 4, uc, uc)
     for md, (q, k), pos_w in ((64, (qc64, kc64), 0.5),
                               (32, (qc32, kc32), 1.0)):
-        p = ma.mode_softmax_probs(q, k, biases, CHAIRS, clip, pos_w)
+        # B7's probs from B4's plain version, so that both checkouts' B7
+        # read the same bits.
+        p = ma.mode_softmax_probs_plain(q, k, biases, CHAIRS, clip, pos_w)
         cases[f"B7_md{md}"] = functools.partial(pv.probs_bwd, q, k, p, g_p,
                                                 clip)
     return cases
@@ -231,14 +252,21 @@ def main() -> int:
         torch.cuda.synchronize()
         out[name + "_sha"] = _digest(torch, res)
         first = res[0] if isinstance(res, (tuple, list)) else res
+        # B4 int8: (numerators, row scales); the scales are kept too.
+        scales = res[1] if first.dtype == torch.int8 else None
         if name in SAVED and args.save:
             Path(args.save).mkdir(parents=True, exist_ok=True)
-            torch.save(first.cpu(), Path(args.save) / f"{name}.pt")
+            torch.save((first.cpu(), None if scales is None else scales.cpu()),
+                       Path(args.save) / f"{name}.pt")
         if name in SAVED and args.diff:
-            ref = torch.load(Path(args.diff) / f"{name}.pt")
+            ref, ref_scales = torch.load(Path(args.diff) / f"{name}.pt")
             out[name + "_max_abs_diff"] = float(
                 (first.cpu().double() - ref.double()).abs().max())
-        del res, first
+            if scales is not None:
+                out[name + "_scale_rel_diff"] = float(
+                    ((scales.cpu().double() - ref_scales.double()).abs()
+                     / ref_scales.double()).max())
+        del res, first, scales
     rounds = {name: [] for name in cases}
     for _ in range(ROUNDS):
         for name, fn in cases.items():

@@ -22,7 +22,12 @@ these phases and fails on the first that fails:
      Then the training kernels at the chairs shapes (B=8, M=4, 46x62 ->
      U=2852, md 64 and 32): B1 and B4 float at this ragged U, B6 forward,
      B6 backward (dc, da) and B7 backward (dc, dlsum), each with faults
-     planted in its plain version.  Then B5, the pyramid lookup, forward
+     planted in its plain version, among them faults against the bf16
+     bodies' tiles (B6 backward: every mode's dc from mode 0's scores, da
+     over the first key group; B7: the row term over the first 128-column
+     tile, dlsum of the last bm); B6 backward also at B = 1 and B7 at
+     BM = 1, and each launched twice, which must give the same bits.
+     Then B5, the pyramid lookup, forward
      and backward at the serving, chairs and oracle shapes, with four
      faults planted in its plain version.  Then the dense-table kernels
      B8, B6 dense and B4 dense at the serving shapes: no table and a
@@ -570,10 +575,20 @@ def _masked(keep, *tensors):
             for t in tensors]
 
 
+# The bf16 bodies' tiles that the planted faults below follow: B7's column
+# tile (csrc/probs_bwd.cu B7_COLS) and the keys of a B6 backward block
+# (csrc/agg_corr.cu B6B_KEYS x B6B_KGROUP).
+B7_COL_TILE = 128
+B6_KEY_GROUP = cv.B6B_KEYS * cv.B6B_KGROUP
+
+
 def _b6_dc_fault(q, k, g, vol, biases, grid, clip, agg_w, drop_term=False,
-                 mask=True):
+                 mask=True, mode0=False):
     """The plain B6 backward's dc with a planted fault: t = p (the
-    agg_w * (s - vol) term dropped), or no clamp mask."""
+    agg_w * (s - vol) term dropped), no clamp mask, or every mode's dc from
+    mode 0's scores."""
+    if mode0:
+        q, k = q[:, :1].expand_as(q), k[:, :1].expand_as(k)
     c, s = ma.biased_scores(q, k, biases, grid, clip, 0.5)
     p = torch.softmax(agg_w * s, dim=1)
     t = p if drop_term else p * (1.0 + agg_w * (s - vol[:, None]))
@@ -581,15 +596,26 @@ def _b6_dc_fault(q, k, g, vol, biases, grid, clip, agg_w, drop_term=False,
     return torch.where(c.abs() < clip, dc, 0.0) if mask else dc
 
 
-def _b7_fault(q, k, p, g, clip, row_term=True, mask=True):
+def _b6_da_fault(q, k, g, vol, biases, grid, clip, agg_w):
+    """The plain B6 backward's da over the first B6_KEY_GROUP keys only."""
+    g = g.clone()
+    g[..., B6_KEY_GROUP:] = 0.0
+    return cv.agg_corr_bwd_plain(q, k, g, vol, biases, grid, clip, 0.5,
+                                 agg_w)[1]
+
+
+def _b7_fault(q, k, p, g, clip, row_term=True, mask=True, row_cols=None,
+              last_bm=False):
     """The plain B7 backward with a planted fault: dl = p * g (the softmax
-    row term dropped), or no clamp mask."""
+    row term dropped), no clamp mask, the row term over the first row_cols
+    columns only, or dlsum of the last bm only."""
     c = ma.scores(q, k, 1.0 / math.sqrt(q.shape[-1]))
     p32, g32 = p.float(), g.float()
-    dl = p32 * (g32 - (g32 * p32).sum(-1, keepdim=True)) if row_term \
-        else p32 * g32
+    gp = g32 * p32 if row_cols is None else (g32 * p32)[..., :row_cols]
+    dl = p32 * (g32 - gp.sum(-1, keepdim=True)) if row_term else p32 * g32
     dc = torch.where(c.abs() < clip, dl, 0.0) if mask else dl
-    return dc.to(p.dtype), dl.sum(dim=(0, 1))
+    dlsum = dl.flatten(0, 1)[-1] if last_bm else dl.sum(dim=(0, 1))
+    return dc.to(p.dtype), dlsum
 
 
 def check_train_kernels(dev, gen, report, grid=CHAIRS_GRID,
@@ -656,66 +682,91 @@ def check_train_kernels(dev, gen, report, grid=CHAIRS_GRID,
         del got, faults
     report["fused_agg_corr"]["max_abs_err"] = max(errs)
 
-    # B6 backward: g ~ N(1, 1) so that da is a well-conditioned sum.
+    # B6 backward: g ~ N(1, 1) so that da is a well-conditioned sum; the
+    # whole batch, then one sample.
     vol = want
     g = randn(batch, u, u) + 1.0
     errs = []
-    for clip in (CLIP_OFF, CLIP_ON):
-        dc, da = cv.agg_corr_bwd(q, k, g, vol, biases, grid, clip, 0.5,
-                                 agg_w)
+    for bsz, clip in ((batch, CLIP_OFF), (batch, CLIP_ON), (1, CLIP_ON)):
+        args = (q[:bsz], k[:bsz], g[:bsz], vol[:bsz], biases, grid, clip)
+        dc, da = cv.agg_corr_bwd(*args, 0.5, agg_w)
         sync(dev)
-        wdc, wda = cv.agg_corr_bwd_plain(q, k, g, vol, biases, grid, clip,
-                                         0.5, agg_w)
-        keep, band = _outside_band(q, k, clip)
-        print(f"B6 backward clip={clip:g}: {band:.2e} of dc in the mask band")
-        fdc = {"t = p": _b6_dc_fault(q, k, g, vol, biases, grid, clip,
-                                     agg_w, drop_term=True)}
+        wdc, wda = cv.agg_corr_bwd_plain(*args, 0.5, agg_w)
+        keep, band = _outside_band(q[:bsz], k[:bsz], clip)
+        label = f"B6 backward B={bsz} clip={clip:g}"
+        print(f"{label}: {band:.2e} of dc in the mask band")
+        fdc = {"t = p": _b6_dc_fault(*args, agg_w, drop_term=True),
+               "dc of every mode from mode 0's scores":
+                   _b6_dc_fault(*args, agg_w, mode0=True)}
         if clip != CLIP_OFF:
-            fdc["no clamp mask"] = _b6_dc_fault(q, k, g, vol, biases, grid,
-                                                clip, agg_w, mask=False)
+            fdc["no clamp mask"] = _b6_dc_fault(*args, agg_w, mask=False)
         got_m, want_m = _masked(keep, dc, wdc)
-        hold(f"B6 backward dc clip={clip:g}", got_m, want_m, rel_err, B6_TOL,
+        hold(f"{label} dc", got_m, want_m, rel_err, B6_TOL,
              {n: _masked(keep, f)[0] for n, f in fdc.items()})
         del fdc, got_m, want_m
-        hold(f"B6 backward da clip={clip:g}", da, wda,
-             lambda a, b: float((a - b).abs() / b.abs()), B6_DA_RTOL,
-             {"no bias": cv.agg_corr_bwd_plain(q, k, g, vol, biases, grid,
-                                               clip, 0.0, agg_w)[1]})
+        fda = {"no bias": cv.agg_corr_bwd_plain(*args[:-1], clip, 0.0,
+                                                agg_w)[1]}
+        if u > B6_KEY_GROUP:
+            fda["da from the first key group only"] = _b6_da_fault(*args,
+                                                                  agg_w)
+        hold(f"{label} da", da, wda,
+             lambda a, b: float((a - b).abs() / b.abs()), B6_DA_RTOL, fda)
+        dc2, da2 = cv.agg_corr_bwd(*args, 0.5, agg_w)
+        sync(dev)
+        assert torch.equal(dc, dc2) and torch.equal(da, da2), \
+            f"{label}: two launches differ"
         errs.append(float(((dc - wdc) * keep).abs().max()))
-        del dc, wdc, keep
+        del dc, wdc, dc2, keep
     report["agg_corr_bwd"]["max_abs_err"] = max(errs)
     del vol, g, q, k
 
     # B7 backward at the f2 (md 64, pos_w 0.5) and intra (md 32) shapes,
-    # from the site's own bf16 probs and a bf16 cotangent.
+    # from the site's own bf16 probs and a bf16 cotangent; then at md 64
+    # one (b, mode) slice, BM = 1.
     errs = []
     for md, pos_w in ((64, 0.5), (32, 1.0)):
         q, k = inputs(gen, md, dev, u, batch)
         g = randn(batch, 4, u, u).to(torch.bfloat16)
-        for clip in (CLIP_OFF, CLIP_ON):
+        cases = [(4 * batch, CLIP_OFF), (4 * batch, CLIP_ON)]
+        if md == 64:
+            cases.append((1, CLIP_ON))
+        for bm, clip in cases:
             p = ma.mode_softmax_probs_plain(
                 q, k, biases, grid, torch.tensor(clip, device=dev), pos_w,
                 out_dtype=torch.bfloat16)
-            dc, dlsum = pv.probs_bwd(q, k, p, g, clip)
+            args = (q, k, p, g) if bm > 1 else tuple(
+                x[:1, :1] for x in (q, k, p, g))
+            dc, dlsum = pv.probs_bwd(*args, clip)
             sync(dev)
-            wdc, wdlsum = pv.probs_bwd_plain(q, k, p, g, clip)
+            wdc, wdlsum = pv.probs_bwd_plain(*args, clip)
+            label = f"B7 backward md={md} BM={bm} clip={clip:g}"
+            keep, band = _outside_band(args[0], args[1], clip)
+            print(f"{label}: {band:.2e} of dc in the mask band")
             # dl = p * g: the softmax row term dropped.
-            no_row = _b7_fault(q, k, p, g, clip, row_term=False)
-            keep, band = _outside_band(q, k, clip)
-            print(f"B7 backward md={md} clip={clip:g}: {band:.2e} of dc in "
-                  "the mask band")
+            no_row = _b7_fault(*args, clip, row_term=False)
             fdc = {"no row term": no_row[0]}
+            fsum = {"no row term": no_row[1]}
+            if u > B7_COL_TILE:
+                part = _b7_fault(*args, clip, row_cols=B7_COL_TILE)
+                fdc["row term over the first column tile only"] = part[0]
+                fsum["row term over the first column tile only"] = part[1]
+            if bm > 1:
+                fsum["dlsum of the last bm only"] = _b7_fault(
+                    *args, clip, last_bm=True)[1]
             if clip != CLIP_OFF:
-                fdc["no clamp mask"] = _b7_fault(q, k, p, g, clip,
-                                                 mask=False)[0]
+                fdc["no clamp mask"] = _b7_fault(*args, clip, mask=False)[0]
             got_m, want_m = _masked(keep, dc, wdc)
-            hold(f"B7 backward dc md={md} clip={clip:g}", got_m, want_m,
-                 row_rel_err, B7_DC_TOL,
+            hold(f"{label} dc", got_m, want_m, row_rel_err, B7_DC_TOL,
                  {n: _masked(keep, f)[0] for n, f in fdc.items()})
-            hold(f"B7 backward dlsum md={md} clip={clip:g}", dlsum, wdlsum,
-                 rel_err, B7_DLSUM_TOL, {"no row term": no_row[1]})
+            hold(f"{label} dlsum", dlsum, wdlsum, rel_err, B7_DLSUM_TOL,
+                 fsum)
+            dc2, dlsum2 = pv.probs_bwd(*args, clip)
+            sync(dev)
+            assert torch.equal(dc, dc2) and torch.equal(dlsum, dlsum2), \
+                f"{label}: two launches differ"
             errs.append(float((dlsum - wdlsum).abs().max()))
-            del p, dc, dlsum, wdc, wdlsum, no_row, fdc, got_m, want_m, keep
+            del p, args, dc, dlsum, dc2, dlsum2, wdc, wdlsum, no_row, fdc
+            del fsum, got_m, want_m, keep
         del q, k, g
     report["probs_bwd"]["max_abs_err"] = max(errs)
 

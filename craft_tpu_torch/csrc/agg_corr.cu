@@ -25,7 +25,23 @@
 // (26 us at the bf16 peak).  The backward's da is a fp64
 // per-block partial, summed by one block in a fixed order: no float
 // atomics, deterministic.
+//
+// The backward has two bodies.  bf16 (agg_bwd_wgmma_kernel): the four mode
+// scores on wgmma, B3's sweep (corr_norm.cu) rearranged for the traffic
+// of the backward: 64-row blocks whose four warpgroups sit side by side
+// along the keys, so that the four modes' q tiles take 32 KB and a ring
+// stage has room for the tile's g and vol rows beside its k tiles (they
+// arrive by cp.async with the products' operands instead of as register
+// loads behind them), and dc leaves through a staging tile in whole
+// 16-byte units along 256-byte rows.  At chairs it takes 0.911 ms, 1.091
+// with dc stored from the fragments (tools/time_bwd_variants.py, NVIDIA
+// H100 80GB HBM3, 700 W); 45 q tiles x 5 key groups x 8 samples = 1800
+// blocks of 512 threads, one an SM.  The
+// wrapper raises unless md is a multiple of 16 and q and k are 16-byte
+// aligned.  fp32 (agg_corr_bwd_kernel): the FMA body below, kept for fp32
+// parity.
 #include "agg_modes.cuh"
+#include "wgmma.cuh"
 
 template <typename T, class Bias>
 __global__ void __launch_bounds__(NTHREADS)
@@ -136,6 +152,281 @@ __global__ void __launch_bounds__(NTHREADS)
     partial[((size_t)b * gridDim.y + grp) * gridDim.x + qt] = da;
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward on the tensor cores
+// ---------------------------------------------------------------------------
+
+#define B6B_ROWS 64      // query rows a block, shared by its warpgroups
+#define B6B_KEYS 64      // keys a ring stage: 16 a warpgroup, every mode
+#define B6B_KGROUP 9     // key tiles a block (45 at chairs: 5 groups)
+#define B6B_STAGES 2     // ring depth
+#define B6B_THREADS 512  // four warpgroups side by side along the keys
+#define B6B_GROW 272     // bytes a staged row of g, vol or dc: 64 fp32 + 16
+
+typedef MmaWindowT<B6B_ROWS, B6B_KEYS, B6B_THREADS> AggWindow;
+
+// The backward over key tiles [grp * B6B_KGROUP, + B6B_KGROUP) of q tile
+// qt of sample b (grid (q tiles, key groups, samples)).  The four modes' q
+// tiles stay in shared memory (the A operand); each stage of the cp.async
+// ring holds one key tile: the four modes' k tiles (the B operand) and the
+// tile's g and vol rows, each row from the 16-byte unit that holds its
+// first element and standing m_r = (its start) % 16 bytes into its
+// staging row.  Warpgroup w owns keys 16 w .. 16 w + 15 of each tile, all
+// 64 rows: four m64n16 accumulator sets of one fragment layout, so each
+// thread holds the four modes' scores of the same (row, column) and runs
+// the mode softmax on them without shuffles.  The epilogue follows the
+// fp32 body's operations in scaled units (c = scale q.k, the clamp, the
+// window bias), with the softmax on the exp2 scale (ex2.approx), and puts
+// dc_m in place of the scores; then plane by plane the block stages its
+// 64 rows x 64 keys (two staging tiles in turn, one barrier a plane) and
+// writes them in whole 16-byte units along the rows (wgmma.cuh
+// put_row_unit).  The stage of a tile is refilled with the tile two on
+// once every thread has passed the first plane's barrier.  g * sum_m p_m
+// s_m (s_m - vol) is summed per tile in fp32, added to an fp64 sum per
+// thread, and the block's sum goes to partial[(b * gridDim.y + grp) *
+// gridDim.x + qt] in a fixed order.  MDP: the tiles' mode dim (16, 32 or
+// 64 >= md; columns past md are zero).
+template <int MDP>
+__global__ void __launch_bounds__(B6B_THREADS, 1)
+    agg_bwd_wgmma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const float* __restrict__ g,
+                         const float* __restrict__ vol, BiasArgs ba,
+                         const float* __restrict__ scal,
+                         float* __restrict__ dc, double* __restrict__ partial,
+                         int md, float scale) {
+  constexpr int KC = MDP / 8;                    // 16-byte chunks of a row
+  constexpr int KTILE = B6B_KEYS * MDP * 2;      // a mode's k tile
+  constexpr int QTILE = B6B_ROWS * MDP * 2;      // a mode's q tile
+  constexpr int GB = B6B_ROWS * B6B_GROW;        // a g (vol, dc) tile
+  constexpr int STAGE = NMODES * KTILE + 2 * GB;
+  constexpr int UNITS = B6B_GROW / 16;           // 16-byte units a row
+  constexpr int NWG = B6B_THREADS / 128;
+  constexpr int WKEYS = B6B_KEYS / NWG;          // keys of a warpgroup
+  constexpr int NT = WKEYS / 8;                  // its n tiles of 8 keys
+  static_assert(QTILE % 1024 == 0 && KTILE % 1024 == 0 && STAGE % 1024 == 0,
+                "swizzle atoms");
+  static_assert(WKEYS == 16 && B6B_ROWS == 64, "m64n16 warpgroups");
+  static_assert(B6B_GROW == 4 * B6B_KEYS + 16, "a row and its shift");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (-(int)smem_u32(smem_raw) & 1023);
+  unsigned char* ring = smem + NMODES * QTILE;
+  unsigned char* stg = ring + B6B_STAGES * STAGE;  // [2][B6B_ROWS][B6B_GROW]
+  unsigned char* wsm = stg + 2 * GB;
+  const uint32_t full0 = smem_u32(wsm + AggWindow::SMEM);
+  __shared__ double red[B6B_THREADS / 32];
+  const int qt = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int U = ba.U1;
+  const int row0 = qt * B6B_ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int wg = warp >> 2;
+  const int wkey = WKEYS * wg;
+  const bf16* qb = q + (size_t)b * NMODES * U * md;
+  const bf16* kb = k + (size_t)b * NMODES * U * md;
+  const int nk = (U + B6B_KEYS - 1) / B6B_KEYS;
+  const int kt0 = grp * B6B_KGROUP;
+  const int n = min(nk, kt0 + B6B_KGROUP) - kt0;  // >= 1
+  const size_t gbytes = (size_t)gridDim.z * U * U * 4;  // g's and vol's
+  const unsigned char* g8 = reinterpret_cast<const unsigned char*>(g);
+  const unsigned char* v8 = reinterpret_cast<const unsigned char*>(vol);
+  unsigned char* dc8 = reinterpret_cast<unsigned char*>(dc);
+
+  AggWindow win;
+  win.init(wsm, ba, qt);
+  if (threadIdx.x == 0)
+    for (int i = 0; i < B6B_STAGES; ++i) mbar_init(full0 + 8 * i, B6B_THREADS);
+  __syncthreads();  // the barriers and the window
+
+  // This block's q tiles (they land with stage 0: full[0] counts every
+  // earlier copy), then per stage the key tile's k tiles and g, vol rows.
+  for (int e = threadIdx.x; e < NMODES * B6B_ROWS * KC; e += B6B_THREADS) {
+    const int m = e / (B6B_ROWS * KC), rc = e % (B6B_ROWS * KC);
+    const int r = rc / KC, c = rc % KC;
+    const bool ok = row0 + r < U && 8 * c < md;  // else zeros (md 48)
+    cp_async16(smem_u32(smem) + m * QTILE + r * MDP * 2 + 16 * swz<KC>(r, c),
+               ok ? qb + ((size_t)m * U + row0 + r) * md + 8 * c : qb, ok);
+  }
+  auto load_stage = [&](int kt, int s) {
+    const uint32_t sa = smem_u32(ring + s * STAGE);
+    const int key0 = kt * B6B_KEYS;
+    const int nkeys = min(B6B_KEYS, U - key0);
+    for (int e = threadIdx.x; e < NMODES * B6B_KEYS * KC;
+         e += B6B_THREADS) {
+      const int m = e / (B6B_KEYS * KC), rc = e % (B6B_KEYS * KC);
+      const int r = rc / KC, c = rc % KC;
+      const bool ok = r < nkeys && 8 * c < md;
+      cp_async16(sa + m * KTILE + r * MDP * 2 + 16 * swz<KC>(r, c),
+                 ok ? kb + ((size_t)m * U + key0 + r) * md + 8 * c : kb, ok);
+    }
+    for (int e = threadIdx.x; e < 2 * B6B_ROWS * UNITS; e += B6B_THREADS) {
+      const int tv = e >= B6B_ROWS * UNITS;  // 0: g, 1: vol
+      const int ru = e - tv * B6B_ROWS * UNITS;
+      const int r = ru / UNITS, u = ru % UNITS;
+      const size_t a = 4 * (((size_t)b * U + row0 + r) * U + key0);
+      const size_t a0 = (a & ~(size_t)15) + 16 * u;
+      const bool ok = row0 + r < U && 16 * u < (int)(a & 15) + 4 * nkeys;
+      const unsigned char* src = tv ? v8 : g8;
+      cp_async16_n(sa + NMODES * KTILE + tv * GB + r * B6B_GROW + 16 * u,
+                   ok ? src + a0 : src,
+                   ok ? (int)min((size_t)16, gbytes - a0) : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < B6B_STAGES; ++i) {
+    if (i < n) {
+      load_stage(kt0 + i, i);
+      mbar_arrive_copies(full0 + 8 * i);
+    }
+  }
+
+  const float clip = scal[0], pos_w = scal[1], agg_w = scal[2];
+  const float aw2 = agg_w * LOG2E;
+  const int rl = 16 * (warp & 3) + gq;  // tile rows rl, rl + 8
+  const bool row_ok[2] = {row0 + rl < U, row0 + rl + 8 < U};
+  const bool pairs = (U & 1) == 0;  // g, vol, dc pairs on 8-byte words
+  const uint64_t da0 = gmma_desc(smem_u32(smem), 16, KLayout<MDP>::SBO,
+                                 KLayout<MDP>::TYPE);
+  const uint64_t db0 = gmma_desc(smem_u32(ring) + wkey * MDP * 2, 16,
+                                 KLayout<MDP>::SBO, KLayout<MDP>::TYPE);
+  double da = 0.0;
+
+  float acc[NMODES][NT][4] = {};
+  for (int i = 0; i < n; ++i) {
+    const int kt = kt0 + i, s = i % B6B_STAGES;
+    const int key0 = kt * B6B_KEYS;
+    const int nkeys = min(B6B_KEYS, U - key0);
+    const unsigned char* st = ring + s * STAGE;
+    mbar_wait(full0 + 8 * s, (i / B6B_STAGES) & 1);
+    fence_async_smem();
+    const uint64_t db = db0 + (uint64_t)(s * STAGE / 16);
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < NMODES; ++m)
+#pragma unroll
+      for (int kd = 0; kd < MDP / 16; ++kd)
+        wgmma_ss16(acc[m], da0 + (m * QTILE + 32 * kd) / 16,
+                   db + (m * KTILE + 32 * kd) / 16, kd);
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int m = 0; m < NMODES; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pin(acc[m][j][e]);
+
+    // The window bias of the warpgroup's keys, dc_m in place of the scores.
+    const bool in_win = win.keys_in_window(key0 + wkey, WKEYS);
+    int kh = 0, kw = 0;
+    if (in_win) win.first_col(key0 + wkey, kh, kw);
+    float tda = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float bj[4] = {0.f, 0.f, 0.f, 0.f};
+      if (in_win) win.col_bias(kh, kw, pos_w, bj);
+      const int cl = wkey + 8 * j + 2 * t;  // the tile's column
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2) {
+        const int r = rl + 8 * i2;
+        const size_t a = 4 * (((size_t)b * U + row0 + r) * U + key0);
+        const unsigned char* gs =
+            st + NMODES * KTILE + r * B6B_GROW + (int)(a & 15) + 4 * cl;
+        float gv[2], vv[2];
+        if (pairs) {
+          const float2 g2 = *reinterpret_cast<const float2*>(gs);
+          const float2 v2 = *reinterpret_cast<const float2*>(gs + GB);
+          gv[0] = g2.x;
+          gv[1] = g2.y;
+          vv[0] = v2.x;
+          vv[1] = v2.y;
+        } else {
+          gv[0] = reinterpret_cast<const float*>(gs)[0];
+          gv[1] = reinterpret_cast<const float*>(gs)[1];
+          vv[0] = reinterpret_cast<const float*>(gs + GB)[0];
+          vv[1] = reinterpret_cast<const float*>(gs + GB)[1];
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * i2 + c;
+          // Outside the volume g is 0, which zeroes the element's da term.
+          const float gvc = row_ok[i2] && cl + c < nkeys ? gv[c] : 0.f;
+          const float vvc = vv[c];
+          float cm[NMODES], x[NMODES], l[NMODES];
+#pragma unroll
+          for (int m = 0; m < NMODES; ++m) {
+            cm[m] = acc[m][j][e] * scale;
+            x[m] = fminf(fmaxf(cm[m], -clip), clip) + bj[e];
+            l[m] = x[m] * aw2;
+          }
+          const float lmax = fmaxf(fmaxf(l[0], l[1]), fmaxf(l[2], l[3]));
+          float pm[NMODES], den = 0.f;
+#pragma unroll
+          for (int m = 0; m < NMODES; ++m) {
+            pm[m] = exp2_approx(l[m] - lmax);
+            den += pm[m];
+          }
+          float dsum = 0.f;
+#pragma unroll
+          for (int m = 0; m < NMODES; ++m) {
+            const float pn = __fdividef(pm[m], den);
+            const float sv = x[m] - vvc;
+            const float tm = pn * (1.f + agg_w * sv);
+            acc[m][j][e] = fabsf(cm[m]) < clip ? gvc * tm : 0.f;  // dc_m
+            dsum += pn * x[m] * sv;
+          }
+          tda = fmaf(gvc, dsum, tda);
+        }
+      }
+    }
+    da += (double)tda;
+
+    // dc out, plane by plane through the two staging tiles.
+#pragma unroll
+    for (int m = 0; m < NMODES; ++m) {
+      unsigned char* sb = stg + (m & 1) * GB;
+      const size_t pl = ((size_t)b * NMODES + m) * U;  // the plane's row 0
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2) {
+        const int r = rl + 8 * i2;
+        const size_t a = 4 * ((pl + row0 + r) * U + key0);
+        float* d = reinterpret_cast<float*>(sb + r * B6B_GROW +
+                                            (int)(a & 15)) + wkey + 2 * t;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (pairs) {
+            *reinterpret_cast<float2*>(d + 8 * j) =
+                make_float2(acc[m][j][2 * i2], acc[m][j][2 * i2 + 1]);
+          } else {
+            d[8 * j] = acc[m][j][2 * i2];
+            d[8 * j + 1] = acc[m][j][2 * i2 + 1];
+          }
+        }
+      }
+      __syncthreads();  // plane m is staged; stage s and plane m - 2's
+                        // staging tile are free
+      if (m == 0 && i + B6B_STAGES < n) {
+        load_stage(kt + B6B_STAGES, s);
+        mbar_arrive_copies(full0 + 8 * s);
+      }
+      for (int e = threadIdx.x; e < B6B_ROWS * UNITS; e += B6B_THREADS) {
+        const int r = e / UNITS, u = e % UNITS;
+        if (row0 + r >= U) continue;
+        const size_t a = 4 * ((pl + row0 + r) * U + key0);
+        put_row_unit(dc8 + a, sb + r * B6B_GROW, (int)(a & 15), 4 * nkeys, u);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) da += __shfl_xor_sync(0xffffffffu, da, o);
+  if (lane == 0) red[warp] = da;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < B6B_THREADS / 32; ++w) da += red[w];
+    partial[((size_t)b * gridDim.y + grp) * gridDim.x + qt] = da;
+  }
+}
+
 static dim3 agg_grid(int B, int U1, int U2) {
   const int nq = (U1 + TILE - 1) / TILE, nk = (U2 + TILE - 1) / TILE;
   return dim3(nq, (nk + KGROUP - 1) / KGROUP, B);
@@ -154,20 +445,76 @@ static int launch_fwd(const void* q, const void* k, const BiasArgs& ba,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// The backward's grid for the body that in_bf16 selects: (q tiles, key-tile
+// groups, samples).
+static dim3 bwd_grid(int B, int U, int in_bf16) {
+  if (!in_bf16) return agg_grid(B, U, U);
+  const int nk = (U + B6B_KEYS - 1) / B6B_KEYS;
+  return dim3((U + B6B_ROWS - 1) / B6B_ROWS,
+              (nk + B6B_KGROUP - 1) / B6B_KGROUP, B);
+}
+
+// The backward's fp64 partials: one a block (tests/test_torch_kernel_grids.py
+// holds the wrapper's count against this).
+static int bwd_partials(int B, int U, int in_bf16) {
+  const dim3 g = bwd_grid(B, U, in_bf16);
+  return (int)(g.x * g.y * g.z);
+}
+
+template <int MDP>
+static cudaError_t launch_bwd_wgmma(const void* q, const void* k,
+                                    const void* g, const void* vol,
+                                    const BiasArgs& ba, const void* scal,
+                                    void* dc, void* partial, int B, int md,
+                                    float scale, cudaStream_t s) {
+  // The q tiles, the ring, two dc staging tiles, the window, the
+  // barriers; + 1024: the q tiles start at the first 1024-byte boundary.
+  const size_t smem =
+      NMODES * B6B_ROWS * MDP * 2 +
+      B6B_STAGES * (NMODES * B6B_KEYS * MDP * 2 + 2 * B6B_ROWS * B6B_GROW) +
+      2 * B6B_ROWS * B6B_GROW + AggWindow::SMEM + 8 * B6B_STAGES + 1024;
+  auto kernel = agg_bwd_wgmma_kernel<MDP>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<bwd_grid(B, ba.U1, 1), B6B_THREADS, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const float*)g, (const float*)vol, ba,
+      (const float*)scal, (float*)dc, (double*)partial, md, scale);
+  return cudaGetLastError();
+}
+
 static int launch_bwd(const void* q, const void* k, const void* g,
                       const void* vol, const void* biases, const void* scal,
                       void* dc, void* partial, void* da, int B, int U,
-                      int md, int W8, int R, float scale, cudaStream_t s) {
-  const size_t smem = agg_smem<WindowBias>();
-  cudaError_t err = allow_smem(agg_corr_bwd_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid = agg_grid(B, U, U);
-  agg_corr_bwd_kernel<T><<<grid, NTHREADS, smem, s>>>(
-      (const T*)q, (const T*)k, (const float*)g, (const float*)vol,
-      (const float*)biases, (const float*)scal, (float*)dc, (double*)partial,
-      U, md, W8, R, scale);
-  err = cudaGetLastError();
+                      int md, int W8, int R, float scale, int in_bf16,
+                      cudaStream_t s) {
+  const dim3 grid = bwd_grid(B, U, in_bf16);
+  cudaError_t err;
+  if (in_bf16) {
+    // md a multiple of 16 up to 64; q and k 16-byte aligned.
+    if (md <= 0 || md > MAXMD || md % 16 != 0 ||
+        (((uintptr_t)q | (uintptr_t)k) & 15) != 0)
+      return (int)cudaErrorInvalidValue;
+    const BiasArgs ba{(const float*)biases, W8, R, U, U, 0};
+    err = md <= 16   ? launch_bwd_wgmma<16>(q, k, g, vol, ba, scal, dc,
+                                            partial, B, md, scale, s)
+          : md <= 32 ? launch_bwd_wgmma<32>(q, k, g, vol, ba, scal, dc,
+                                            partial, B, md, scale, s)
+                     : launch_bwd_wgmma<64>(q, k, g, vol, ba, scal, dc,
+                                            partial, B, md, scale, s);
+  } else {
+    const size_t smem = agg_smem<WindowBias>();
+    err = allow_smem(agg_corr_bwd_kernel<float>, smem);
+    if (err != cudaSuccess) return (int)err;
+    agg_corr_bwd_kernel<float><<<grid, NTHREADS, smem, s>>>(
+        (const float*)q, (const float*)k, (const float*)g, (const float*)vol,
+        (const float*)biases, (const float*)scal, (float*)dc,
+        (double*)partial, U, md, W8, R, scale);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<1, NTHREADS, 0, s>>>(
       (const double*)partial, (int)(grid.x * grid.y * grid.z), (float*)da);
@@ -210,19 +557,19 @@ extern "C" int agg_corr_dense_launch(const void* q, const void* k,
                                                 U2, md, scale, s);
 }
 
-// q, k, biases, scal as above (agg_b unread); g, vol: [B, U, U] fp32;
-// dc: [B, 4, U, U] fp32; partial: [B * ceil(U/64) *
-// ceil(ceil(U/64)/8)] fp64 scratch; da: [1] fp32.
+// q, k, biases, scal as above (agg_b unread; bf16: md a multiple of 16, q
+// and k 16-byte aligned); g, vol: [B, U, U] fp32; dc: [B, 4, U, U] fp32;
+// partial: n_partial = bwd_partials(B, U, in_bf16) fp64 of scratch
+// (refused otherwise); da: [1] fp32.
 extern "C" int agg_corr_bwd_launch(const void* q, const void* k,
                                    const void* g, const void* vol,
                                    const void* biases, const void* scal,
-                                   void* dc, void* partial, void* da, int B,
-                                   int U, int md, int W8, int R, float scale,
-                                   int in_bf16, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (in_bf16)
-    return launch_bwd<__nv_bfloat16>(q, k, g, vol, biases, scal, dc, partial,
-                                     da, B, U, md, W8, R, scale, s);
-  return launch_bwd<float>(q, k, g, vol, biases, scal, dc, partial, da, B, U,
-                           md, W8, R, scale, s);
+                                   void* dc, void* partial, int n_partial,
+                                   void* da, int B, int U, int md, int W8,
+                                   int R, float scale, int in_bf16,
+                                   void* stream) {
+  if (n_partial != bwd_partials(B, U, in_bf16))
+    return (int)cudaErrorInvalidValue;
+  return launch_bwd(q, k, g, vol, biases, scal, dc, partial, da, B, U, md,
+                    W8, R, scale, in_bf16, (cudaStream_t)stream);
 }

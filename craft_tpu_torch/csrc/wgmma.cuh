@@ -1,7 +1,8 @@
 // Tensor-core pieces of the bf16 bodies (sm_90a), shared by B1
-// (scores_max.cu), B2 and B8 (flash_attn.cu), B3 and B9 (corr_norm.cu) and
-// B4 (softmax_probs.cu): asynchronous copies, the wgmma wrappers and
-// fences, mbarriers, matrix descriptors and the swizzles they name, and the
+// (scores_max.cu), B2 and B8 (flash_attn.cu), B3 and B9 (corr_norm.cu), B4
+// (softmax_probs.cu), B6's backward (agg_corr.cu) and B7 (probs_bwd.cu):
+// asynchronous copies, the wgmma wrappers and fences, mbarriers, matrix
+// descriptors and the swizzles they name, staged 16-byte stores, and the
 // bias sources on accumulator fragments (the sliding window, none, a dense
 // table).
 //
@@ -33,6 +34,17 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0));
+}
+// The first n (0..16) of 16 bytes, the rest zeros: a unit that runs past
+// the end of a tensor (src is not read when n is 0).
+__device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src,
+                                             int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+// Waits until this thread's cp.async copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool valid) {
@@ -99,6 +111,19 @@ __device__ __forceinline__ void wgmma_ss32(float (*d)[4], uint64_t desc_a,
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The m64n16k16 product with both operands from shared memory: a
+// 16-column accumulator, d[j] for j < 2.
+__device__ __forceinline__ void wgmma_ss16(float (*d)[4], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -219,6 +244,47 @@ __device__ __forceinline__ void bar_sync(int id) {
 template <int N>
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+
+// Staged stores (B6 backward, B7): a tile row staged in shared memory at
+// the offset that its global start has within a 16-byte unit goes out in
+// 16-byte units, so that a warp writes whole 32-byte sectors.  Bytes [lo,
+// hi) of the unit staged at src (16-byte aligned) to dst (its 16-byte
+// aligned place in global memory): one 16-byte store where the unit is
+// whole, else pieces of 8, 4 and 2 bytes on their own alignment (lo, hi
+// even: the row's first and last units).
+__device__ __forceinline__ void put_unit(unsigned char* dst,
+                                         const unsigned char* src, int lo,
+                                         int hi) {
+  if (lo == 0 && hi == 16) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    return;
+  }
+  for (int b = lo; b < hi;) {
+    if ((b & 7) == 0 && b + 8 <= hi) {
+      *reinterpret_cast<uint2*>(dst + b) =
+          *reinterpret_cast<const uint2*>(src + b);
+      b += 8;
+    } else if ((b & 3) == 0 && b + 4 <= hi) {
+      *reinterpret_cast<uint32_t*>(dst + b) =
+          *reinterpret_cast<const uint32_t*>(src + b);
+      b += 4;
+    } else {
+      *reinterpret_cast<uint16_t*>(dst + b) =
+          *reinterpret_cast<const uint16_t*>(src + b);
+      b += 2;
+    }
+  }
+}
+
+// Unit u of a staged row whose nb bytes stand from byte m (< 16) of their
+// staging row and go to global byte address a (a % 16 == m): unit u covers
+// global [a - m + 16 u, + 16).  Nothing where the unit holds none of them.
+__device__ __forceinline__ void put_row_unit(unsigned char* a_row,
+                                             const unsigned char* srow,
+                                             int m, int nb, int u) {
+  const int lo = max(0, m - 16 * u), hi = min(16, m + nb - 16 * u);
+  if (lo < hi) put_unit(a_row - m + 16 * u, srow + 16 * u, lo, hi);
 }
 
 // The wgmma matrix descriptor of a tile at shared address addr: leading and

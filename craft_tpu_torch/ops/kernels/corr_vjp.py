@@ -16,8 +16,11 @@ q_m k_m^T:
   dagg_w          = sum g * sum_m p_m s_m (s_m - vol);  dagg_b = 0
 The kernels (csrc/agg_corr.cu) compute vol and (dc, dagg_w); the products
 dq/dk run as plain fp32 matrix products, as the JAX package leaves them to
-XLA.  pos_w is a config constant and gets no gradient; clip comes from B1
-on detached q and k, so the clamp predicate carries none either.
+XLA.  The backward's bf16 body (wgmma tiles) takes a mode dim that is a
+multiple of 16 and 16-byte aligned q and k; its fp64 partials of dagg_w
+are bwd_partials(...), one a block of the grid that the body launches.
+pos_w is a config constant and gets no gradient; clip comes from B1 on
+detached q and k, so the clamp predicate carries none either.
 """
 
 from __future__ import annotations
@@ -31,14 +34,29 @@ from craft_tpu_torch.ops.kernels.launch import (F, I, P, call, check_cuda,
                                                 stream)
 from craft_tpu_torch.ops.kernels.mode_attention import (acc_dtype,
                                                         biased_scores,
+                                                        check_mma_tiles,
                                                         check_table,
                                                         table_ptr,
                                                         table_scores)
 
 _FWD_SIG = [P, P, P, P, P, I, I, I, I, I, F, I, P]
 _DENSE_SIG = [P, P, P, P, P, I, I, I, I, F, I, P]
-_BWD_SIG = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]
+_BWD_SIG = [P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, P]
 _TILE, _KGROUP, _MODES = 64, 8, 4  # csrc/agg_modes.cuh TILE, KGROUP, NMODES
+# The backward's bf16 body (csrc/agg_corr.cu): query rows and keys a
+# block's tile, key tiles a block.
+B6B_ROWS, B6B_KEYS, B6B_KGROUP = 64, 64, 9
+
+
+def bwd_partials(B: int, U: int, bf16: int) -> int:
+    """The backward's fp64 partials of dagg_w: one a block, (q tiles, key
+    groups, samples) of the body that bf16 selects (the kernel refuses
+    another count)."""
+    if bf16:
+        nq = -(-U // B6B_ROWS)
+        return B * nq * -(-(-(-U // B6B_KEYS)) // B6B_KGROUP)
+    nq = -(-U // _TILE)
+    return B * nq * -(-nq // _KGROUP)
 
 
 def _scal(q, clip, pos_w, agg_w, agg_b):
@@ -152,18 +170,19 @@ def agg_corr_bwd(q, k, g, vol, biases, grid_hw, clip, pos_w: float, agg_w):
     if g.shape != (B, U, U) or vol.shape != (B, U, U) or \
             g.dtype != torch.float32 or vol.dtype != torch.float32:
         raise ValueError("agg_corr_bwd: g and vol must be [B, U, U] fp32")
+    check_mma_tiles("agg_corr_bwd", bf16, md, "q and k", q, k)
     g, vol = g.contiguous(), vol.contiguous()
     R = (biases.shape[0] - 1) // 2
-    nq = -(-U // _TILE)
     dev = q.device
     dc = torch.empty(B, M, U, U, dtype=torch.float32, device=dev)
-    partial = torch.empty(B * nq * -(-nq // _KGROUP), dtype=torch.float64,
-                          device=dev)
+    n_partial = bwd_partials(B, U, bf16)
+    partial = torch.empty(n_partial, dtype=torch.float64, device=dev)
     da = torch.empty(1, dtype=torch.float32, device=dev)
     win, scal = f32(biases, q), _scal(q, clip, pos_w, agg_w, 0.0)
     call("agg_corr", "agg_corr_bwd_launch", _BWD_SIG, ptr(q), ptr(k), ptr(g),
-         ptr(vol), ptr(win), ptr(scal), ptr(dc), ptr(partial), ptr(da), B, U,
-         md, grid_hw[1], R, 1.0 / math.sqrt(md), bf16, stream(q))
+         ptr(vol), ptr(win), ptr(scal), ptr(dc), ptr(partial), n_partial,
+         ptr(da), B, U, md, grid_hw[1], R, 1.0 / math.sqrt(md), bf16,
+         stream(q))
     agg_corr_bwd.launches += 1
     return dc, da[0]
 

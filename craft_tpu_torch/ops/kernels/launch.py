@@ -16,6 +16,7 @@ import torch
 from craft_tpu_torch.ops.kernels import build
 
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+L = ctypes.c_longlong
 MAX_MODE_DIM = 64
 
 _COUNTED: list = []

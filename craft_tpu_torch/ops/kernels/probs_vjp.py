@@ -15,7 +15,10 @@ The backward starts from the saved probs (what the JAX rule keeps) and
 recomputes only c, for the clamp mask.  The kernel (csrc/probs_bwd.cu)
 computes dc in the io type and dlsum = sum_{b,m} dl in fp32; dq/dk run as
 plain products in the io type with fp32 accumulation, as the JAX package
-leaves them to XLA.  Attention dropout stays outside (nn/layers.py).
+leaves them to XLA.  Attention dropout stays outside (nn/layers.py).  The
+bf16 body (a row-term pass, then wgmma tiles) takes a mode dim that is a
+multiple of 16 and 16-byte aligned q, k, p, g and dc, and its row-term
+scratch is probs_rowterm_size(...) floats.
 """
 
 from __future__ import annotations
@@ -25,13 +28,22 @@ import math
 import torch
 
 from craft_tpu_torch.ops.kernels.corr_vjp import sliding_bias_grad
-from craft_tpu_torch.ops.kernels.launch import (F, I, P, call, counted, f32,
-                                                prep, ptr, stream)
+from craft_tpu_torch.ops.kernels.launch import (F, I, L, P, call, counted,
+                                                f32, prep, ptr, stream)
 from craft_tpu_torch.ops.kernels.mode_attention import (acc_dtype,
+                                                        check_mma_tiles,
                                                         mode_softmax_probs,
                                                         scores)
 
-_BWD_SIG = [P, P, P, P, P, P, P, I, I, I, F, I, P]
+_BWD_SIG = [P, P, P, P, P, P, P, P, L, I, I, I, F, I, P]
+_B7_ROWS = 64  # csrc/probs_bwd.cu B7_ROWS
+
+
+def probs_rowterm_size(BM: int, U: int, bf16: int) -> int:
+    """The bf16 body's row-term scratch: one fp32 a row of each of the BM
+    probs matrices, the rows padded to its 64-row tiles; none for fp32
+    (the kernel refuses another size)."""
+    return BM * -(-U // _B7_ROWS) * _B7_ROWS if bf16 else 0
 
 
 def probs_bwd_plain(q, k, p, g, clip):
@@ -59,10 +71,14 @@ def probs_bwd(q, k, p, g, clip):
         raise ValueError("probs_bwd: q, k [B, M, U, md] and p, g "
                          "[B, M, U, U]")
     dc = torch.empty_like(p)
+    check_mma_tiles("probs_bwd", bf16, md, "q, k, p, g and dc", q, k, p, g,
+                    dc)
     dlsum = torch.empty(U, U, dtype=torch.float32, device=q.device)
+    n_row = probs_rowterm_size(B * M, U, bf16)
+    rowt = torch.empty(n_row, dtype=torch.float32, device=q.device)
     call("probs_bwd", "probs_bwd_launch", _BWD_SIG, ptr(q), ptr(k), ptr(p),
-         ptr(g), ptr(f32(clip, q)), ptr(dc), ptr(dlsum), B * M, U, md,
-         1.0 / math.sqrt(md), bf16, stream(q))
+         ptr(g), ptr(f32(clip, q)), ptr(dc), ptr(dlsum), ptr(rowt), n_row,
+         B * M, U, md, 1.0 / math.sqrt(md), bf16, stream(q))
     probs_bwd.launches += 1
     return dc, dlsum
 

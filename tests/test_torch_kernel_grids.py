@@ -1,8 +1,9 @@
 """The scratch the wrappers size against the grids the kernels launch.
 
-B1's partial maxima and the fp64 partial sums of B3's and B9's stats sweep
-are one per block, and B4's (max, sum) pairs one per row of a block, so
-the wrapper's count must equal the kernel's grid: a
+B1's partial maxima, the fp64 partial sums of B3's and B9's stats sweep and
+of B6 backward's agg_w gradient are one per block, B4's (max, sum) pairs
+one per row of a block, and B7's row terms one per row of its row tiles,
+so the wrapper's count must equal the kernel's grid: a
 smaller buffer is written past, a larger one leaves partials that the
 second pass reads unset.  The kernels refuse a count other than their own
 on the card; here, without a compiler, the tile constants are read from the
@@ -15,7 +16,9 @@ from pathlib import Path
 
 import pytest
 
+from craft_tpu_torch.ops.kernels import corr_vjp as cv
 from craft_tpu_torch.ops.kernels import mode_attention as ma
+from craft_tpu_torch.ops.kernels import probs_vjp as pv
 
 CSRC = Path(ma.__file__).resolve().parents[2] / "csrc"
 
@@ -112,6 +115,69 @@ def test_b4_pairs_follow_the_grid(label, batch, u1, u2, bf16):
     _, _, b4_pairs = _source_partials()
     assert ma.probs_partials(batch * 4, u1, u2, bf16) == \
         b4_pairs(batch * 4, u1, u2, bf16)
+
+
+def _training_scratch():
+    """(B6 backward partials, B7 row terms) as the sources' launchers count
+    them: agg_corr.cu bwd_grid (agg_grid for fp32), probs_bwd.cu
+    probs_rowterm_size."""
+    common, agg = _defines("common.cuh"), _defines("agg_modes.cuh")
+    b6, b7 = _defines("agg_corr.cu"), _defines("probs_bwd.cu")
+
+    def b6_partials(B, U, bf16):
+        if bf16:
+            return (B * _cdiv(U, b6["B6B_ROWS"])
+                    * _cdiv(_cdiv(U, b6["B6B_KEYS"]), b6["B6B_KGROUP"]))
+        nq = _cdiv(U, common["TILE"])
+        return B * nq * _cdiv(nq, agg["KGROUP"])
+
+    def b7_rows(BM, U, bf16):
+        return BM * _cdiv(U, b7["B7_ROWS"]) * b7["B7_ROWS"] if bf16 else 0
+    return b6_partials, b7_rows
+
+
+def test_the_training_launchers_count_from_these_constants():
+    b6 = (CSRC / "agg_corr.cu").read_text()
+    for fn, names in (("static dim3 bwd_grid", ("agg_grid", "B6B_ROWS",
+                                                "B6B_KEYS", "B6B_KGROUP")),
+                      ("static dim3 agg_grid", ("TILE", "KGROUP"))):
+        body = b6[b6.index(fn):]
+        body = body[:body.index("\n}\n")]
+        for name in names:
+            assert name in body, (fn, name)
+    b7 = (CSRC / "probs_bwd.cu").read_text()
+    body = b7[b7.index("static long long probs_rowterm_size"):]
+    body = body[:body.index("\n}\n")]
+    assert "B7_ROWS" in body
+
+
+# (label, batch, U) of B6 backward and B7: chairs 368x496 (batch 8), the
+# serving and KITTI grids, and the card tests' 20 x 62 grid (batch 2).
+TRAIN_SHAPES = [("chairs", 8, 2852), ("serving", 1, 7040),
+                ("kitti", 1, 7332), ("card test", 2, 1240)]
+
+
+@pytest.mark.parametrize("bf16", [1, 0])
+@pytest.mark.parametrize("label,batch,u", TRAIN_SHAPES)
+def test_b6_backward_partials_follow_the_grid(label, batch, u, bf16):
+    b6_partials, _ = _training_scratch()
+    assert cv.bwd_partials(batch, u, bf16) == b6_partials(batch, u, bf16)
+
+
+@pytest.mark.parametrize("bf16", [1, 0])
+@pytest.mark.parametrize("label,batch,u", TRAIN_SHAPES)
+def test_b7_row_terms_follow_the_grid(label, batch, u, bf16):
+    _, b7_rows = _training_scratch()
+    assert pv.probs_rowterm_size(batch * 4, u, bf16) == \
+        b7_rows(batch * 4, u, bf16)
+
+
+def test_the_chairs_training_grids():
+    """The block counts the sources' notes state at chairs (U = 2852,
+    batch 8): B6 backward 45 x 5 x 8 = 1800 blocks; B7's row terms 32 x
+    45 x 64."""
+    assert cv.bwd_partials(8, 2852, 1) == 1800
+    assert pv.probs_rowterm_size(32, 2852, 1) == 32 * 45 * 64
 
 
 def test_the_serving_grids():

@@ -1,6 +1,7 @@
 """The CUDA kernels (B1-B4, the training kernels B6 forward and backward
-and B7 backward, the lookup B5 forward and backward, the dense-table
-kernels B8, B6 dense and B4 dense, the sequence-parallel B9 with B1,
+and B7 backward (their bf16 bodies also at misaligned and ragged grids,
+BM 1 to 32, twice for bit-identity), the lookup B5 forward and
+backward, the dense-table kernels B8, B6 dense and B4 dense, the sequence-parallel B9 with B1,
 B2 and B4 on row shards, and the fused SepConvGRU pass B10 forward and
 backward) against their plain versions at small ragged
 shapes, bf16 and fp32 inputs, batch 2, every input drawn from a
@@ -454,10 +455,6 @@ def test_b6_forward_and_backward(dev, dtype, grid, clip):
     assert float((da - wda).abs()) <= 1e-4 * float(wda.abs())
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("grid", GRIDS)
-@pytest.mark.parametrize("md", [32, 64])
-@pytest.mark.parametrize("clip", [1e30, 0.4])
 def b7_fp32_row_err(dc, wdc, p, g) -> float:
     """Per row, max_j |dc_j - wdc_j| / A with A = sum_j |p_j g_j|; the worst
     row."""
@@ -500,6 +497,106 @@ def test_b7_backward(dev, dtype, grid, md, clip):
         assert b7_fp32_row_err(dc * keep, wdc * keep, p, g) <= \
             b7_fp32_bound(q.shape[2])
     assert _rel(dlsum, wdlsum) <= 1e-4
+
+
+# The bf16 bodies of B6 backward and B7 (wgmma tiles) at grids whose rows
+# start 8 (6 x 62, as chairs), 4 (7 x 62) and 2 (5 x 13, odd U) bytes off a
+# 16-byte unit in bf16, ragged against their 64- and 128-wide tiles, wider
+# than B7's 128-column tile (6 x 62) and than a B6 backward block's 576
+# keys (10 x 62).
+TILE_GRIDS = [(6, 62), (7, 62), (5, 13), (10, 62)]
+
+
+def _b7_case(dev, grid, md, clip, bm, seed=5):
+    """B7's inputs at BM = bm: batch 8 x 4 modes (32) or one (b, mode)."""
+    q, k, biases = _inputs(dev, grid, md, torch.bfloat16, seed=seed,
+                           **_PEAKY)
+    if bm == 32:
+        q, k = q.repeat(4, 1, 1, 1), k.repeat(4, 1, 1, 1)
+    elif bm == 1:
+        q, k = q[:1, :1].contiguous(), k[:1, :1].contiguous()
+    p = ma.mode_softmax_probs_plain(q, k, biases, grid,
+                                    torch.tensor(clip, device=dev), 1.0,
+                                    out_dtype=torch.bfloat16)
+    g = torch.randn(p.shape, generator=_gen(seed + 1)).to(dev,
+                                                          torch.bfloat16)
+    return q, k, p, g
+
+
+@pytest.mark.parametrize("grid", TILE_GRIDS)
+@pytest.mark.parametrize("md", [32, 64])
+@pytest.mark.parametrize("bm", [1, 8, 32])
+@pytest.mark.parametrize("clip", [1e30, 0.4])
+def test_b7_bf16_body_on_misaligned_rows(dev, grid, md, bm, clip):
+    q, k, p, g = _b7_case(dev, grid, md, clip, bm)
+    dc, dlsum = pv.probs_bwd(q, k, p, g, clip)
+    wdc, wdlsum = pv.probs_bwd_plain(q, k, p, g, clip)
+    keep = _outside_band(q, k, clip)
+    # Per row, over the row max: half a bf16 ulp, 2^-8, either side.
+    assert _rel(dc.float() * keep, wdc.float() * keep, -1) <= 1e-2
+    assert _rel(dlsum, wdlsum) <= 1e-4
+
+
+@pytest.mark.parametrize("grid", [(6, 62), (5, 13)])
+def test_b7_bf16_body_is_deterministic(dev, grid):
+    q, k, p, g = _b7_case(dev, grid, 64, 0.4, 32)
+    dc, dlsum = pv.probs_bwd(q, k, p, g, 0.4)
+    dc2, dlsum2 = pv.probs_bwd(q, k, p, g, 0.4)
+    assert torch.equal(dc, dc2) and torch.equal(dlsum, dlsum2)
+
+
+@pytest.mark.parametrize("grid", TILE_GRIDS)
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("md", [32, 64])
+@pytest.mark.parametrize("clip", [1e30, 0.4])
+def test_b6_backward_bf16_body_on_ragged_grids(dev, grid, batch, md, clip):
+    q, k, biases = _inputs(dev, grid, md, torch.bfloat16, seed=6, **_PEAKY)
+    q, k = q[:batch], k[:batch]
+    agg_w = torch.tensor(1.3, device=dev)
+    vol = cv.fused_agg_corr_plain(q, k, biases, grid, clip, 0.5, agg_w,
+                                  torch.tensor(0.1, device=dev))
+    U = q.shape[2]
+    g = torch.randn(batch, U, U, generator=_gen(7)).to(dev) + 1.0
+    dc, da = cv.agg_corr_bwd(q, k, g, vol, biases, grid, clip, 0.5, agg_w)
+    wdc, wda = cv.agg_corr_bwd_plain(q, k, g, vol, biases, grid, clip, 0.5,
+                                     agg_w)
+    keep = _outside_band(q, k, clip)
+    assert _rel(dc * keep, wdc * keep) <= 1e-4
+    assert float((da - wda).abs()) <= 1e-4 * float(wda.abs())
+    dc2, da2 = cv.agg_corr_bwd(q, k, g, vol, biases, grid, clip, 0.5, agg_w)
+    assert torch.equal(dc, dc2) and torch.equal(da, da2)
+
+
+def test_b6_b7_bf16_bodies_reject_what_they_do_not_take(dev):
+    """md a multiple of 16 and 16-byte aligned tensors; fp32 takes md 24
+    and any offset."""
+    grid = (6, 62)
+    q, k, biases = _inputs(dev, grid, 24, torch.bfloat16)
+    U = q.shape[2]
+    p = torch.rand(2, 4, U, U, generator=_gen(3)).to(dev, torch.bfloat16)
+    gv = torch.rand(2, U, U, generator=_gen(4)).to(dev)
+    one = torch.tensor(1.0, device=dev)
+    for fn in (lambda a, b, pp: pv.probs_bwd(a, b, pp, pp, 0.4),
+               lambda a, b, pp: cv.agg_corr_bwd(a, b, gv, gv, biases, grid,
+                                                0.4, 0.5, one)):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fn(q, k, p)
+        fn(q.float(), k.float(), p.float())
+    q, k, _ = _inputs(dev, grid, 64, torch.bfloat16)
+
+    def off(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        y = flat[1:].view(x.shape)  # contiguous, 2 bytes past alignment
+        y.copy_(x)
+        return y
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pv.probs_bwd(off(q), k, p, p, 0.4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pv.probs_bwd(q, k, off(p), p, 0.4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cv.agg_corr_bwd(q, off(k), gv, gv, biases, grid, 0.4, 0.5, one)
+    pv.probs_bwd(q, k, p, p, 0.4)
+    cv.agg_corr_bwd(q, k, gv, gv, biases, grid, 0.4, 0.5, one)
 
 
 # ------------------------------------------------- the dense-table kernels

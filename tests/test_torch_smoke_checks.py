@@ -6,7 +6,11 @@ ring dropped, B4's int8 row max taken over one key tile (also at the
 KITTI and chairs widths), B1's last key tile or mode 3 dropped before a
 planted peak,
 for the training kernels the backward's clamp mask, its agg_w
-term or its softmax row term dropped, for
+term or its softmax row term dropped (and, against the bf16 bodies' tiles,
+B6 backward's dc of every mode from mode 0's scores or its da over the
+first key group only, B7's row term over the first column tile only or
+its dlsum of the last bm only, and a backward whose two launches differ),
+for
 the lookup its channel order swapped, clamped padding, a wrong level scale
 or the y blend dropped, and for the dense-table kernels a transposed table,
 a table scaled by pos_w twice, no clamp or ragged keys left unmasked
@@ -258,6 +262,89 @@ def test_train_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper,
     module, make = _TRAIN_SITES[(wrapper, fault)]
     monkeypatch.setattr(module, wrapper, make(fault))
     with pytest.raises(AssertionError, match="disagrees"):
+        _run_train()
+
+
+# Faults against the bf16 bodies' tiles: at a grid wider than B7's column
+# tile (128) and a B6 backward block's key group (576 keys), batch 2.
+TILE_GRID = (10, 62)  # U = 620
+
+
+def _run_train_tiles(seed=0):
+    report = {name: {} for name in ("fused_agg_corr", "agg_corr_bwd",
+                                    "probs_bwd")}
+    chip_smoke.check_train_kernels(CPU, torch.Generator().manual_seed(seed),
+                                   report, grid=TILE_GRID, batch=TRAIN_BATCH)
+    return report
+
+
+def test_tile_fault_grid_is_wider_than_the_tiles():
+    u = TILE_GRID[0] * TILE_GRID[1]
+    assert u > chip_smoke.B6_KEY_GROUP and u > chip_smoke.B7_COL_TILE
+
+
+def test_train_checks_pass_the_plain_versions_at_the_tile_grid():
+    report = _run_train_tiles()
+    for name, r in report.items():
+        assert r["max_abs_err"] == 0.0, name
+
+
+def _b6_tile_fault(fault):
+    def faulty(q, k, g, vol, biases, grid, clip, pos_w, agg_w):
+        dc, da = cv.agg_corr_bwd_plain(q, k, g, vol, biases, grid, clip,
+                                       pos_w, agg_w)
+        if fault == "dc of every mode from mode 0's scores":
+            dc = chip_smoke._b6_dc_fault(q, k, g, vol, biases, grid, clip,
+                                         agg_w, mode0=True)
+        else:
+            da = chip_smoke._b6_da_fault(q, k, g, vol, biases, grid, clip,
+                                         agg_w)
+        return dc, da
+    return faulty
+
+
+def _b7_tile_fault(fault):
+    def faulty(q, k, p, g, clip):
+        if fault == "row term over the first column tile only":
+            return chip_smoke._b7_fault(q, k, p, g, clip,
+                                        row_cols=chip_smoke.B7_COL_TILE)
+        return chip_smoke._b7_fault(q, k, p, g, clip, last_bm=True)
+    return faulty
+
+
+_TILE_SITES = {
+    ("agg_corr_bwd", "dc of every mode from mode 0's scores"):
+        (cv, _b6_tile_fault),
+    ("agg_corr_bwd", "da from the first key group only"):
+        (cv, _b6_tile_fault),
+    ("probs_bwd", "row term over the first column tile only"):
+        (pv, _b7_tile_fault),
+    ("probs_bwd", "dlsum of the last bm only"): (pv, _b7_tile_fault),
+}
+
+
+@pytest.mark.parametrize("wrapper,fault", sorted(_TILE_SITES))
+def test_train_checks_catch_a_fault_against_the_tiles(monkeypatch, wrapper,
+                                                      fault):
+    module, make = _TILE_SITES[(wrapper, fault)]
+    monkeypatch.setattr(module, wrapper, make(fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run_train_tiles()
+
+
+@pytest.mark.parametrize("wrapper", ["agg_corr_bwd", "probs_bwd"])
+def test_train_checks_catch_a_backward_that_is_not_repeatable(monkeypatch,
+                                                              wrapper):
+    module = cv if wrapper == "agg_corr_bwd" else pv
+    plain = getattr(module, wrapper + "_plain")
+    calls = []
+
+    def drifting(*a):
+        dc, second = plain(*a)
+        calls.append(1)
+        return dc, second * (1.0 + len(calls) * 2.0 ** -20)
+    monkeypatch.setattr(module, wrapper, drifting)
+    with pytest.raises(AssertionError, match="two launches differ"):
         _run_train()
 
 

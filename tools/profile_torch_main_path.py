@@ -43,9 +43,12 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
                       "corr_write_kernel", "corr_sweep_kernel",
                       "corr_shard_sums_kernel", "corr_finish_kernel")),
     ("B4 / B4 dense probs", ("probs_kernel", "probs_wgmma_kernel")),
-    ("B6 agg_corr_bwd", ("agg_corr_bwd_kernel", "sum_partials_kernel")),
+    # B6 backward and B7: their fp32 bodies and their bf16 (wgmma) bodies.
+    ("B6 agg_corr_bwd", ("agg_corr_bwd_kernel", "agg_bwd_wgmma_kernel",
+                         "sum_partials_kernel")),
     ("B6 / B6 dense agg_corr", ("agg_corr_kernel",)),
-    ("B7 probs_bwd", ("probs_bwd_kernel",)),
+    ("B7 probs_bwd", ("probs_bwd_kernel", "probs_bwd_wgmma_kernel",
+                      "probs_row_kernel")),
     ("B5 lookup_bwd", ("lookup_bwd_kernel",)),
     ("B5 lookup", ("lookup_fwd_kernel",)),
     # B10, the fused SepConvGRU pass (SepConvGRU(fused='on'); no FlowModel

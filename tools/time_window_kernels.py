@@ -44,7 +44,12 @@ their outputs to DIR and `--diff DIR` adds `<case>_max_abs_diff`, the
 largest |difference| from the outputs saved there by another checkout's
 run (A B B A: the first A saves, the others diff); for B4's int8 cases
 that is the numerators', and `<case>_scale_rel_diff` adds the row scales'
-largest relative difference.
+largest relative difference; for B7 that is dc's, and `<case>_dlsum_max_
+abs_diff` adds dlsum's; for B6's backward dc's, and `B6_bwd_da_max_abs_
+diff` adds da's; for those two the `_rel_diff` keys give each largest
+|difference| over the largest |value| of the other checkout's output.
+Where the first output is bf16, `<case>_max_ulp_diff` adds how many bf16
+steps apart its elements lie at most.
 """
 
 from __future__ import annotations
@@ -63,7 +68,10 @@ SAVED = ("B1", "B1_md32", "B1_chairs", "B1_fp32", "B2", "B2_fp32", "B3",
          "B3_kitti", "B3_fp32", "B4", "B4_kitti", "B4_chairs_md32",
          "B4_chairs_md64", "B4_dense", "B4_dense_table", "B5", "B5_chairs",
          "B8", "B8_table", "B8_fp32_table", "B9_sums_r0", "B9_sums_r1",
-         "B9_write_r0", "B9_write_r1")
+         "B9_write_r0", "B9_write_r1", "B7_md64", "B7_md32", "B6_bwd")
+# The second output kept beside the first, by case: B7's dlsum, B6
+# backward's da.
+SECOND = {"B7_md64": "dlsum", "B7_md32": "dlsum", "B6_bwd": "da"}
 SERVING, CHAIRS, KITTI = (55, 128), (46, 62), (47, 156)
 RADIUS, LEVELS, F2RADIUS = 4, 4, 7
 
@@ -197,6 +205,15 @@ def _cases(torch, dev):
     return cases
 
 
+def _max_ulp_diff(torch, a, b) -> int:
+    """The most bf16 steps between elements of a and b: each bit pattern
+    as an integer ordered like its value (+0 and -0 both 0)."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
 def _digest(torch, res) -> str:
     digest = hashlib.sha256()
     for t in res if isinstance(res, (tuple, list)) else (res,):
@@ -252,21 +269,37 @@ def main() -> int:
         torch.cuda.synchronize()
         out[name + "_sha"] = _digest(torch, res)
         first = res[0] if isinstance(res, (tuple, list)) else res
-        # B4 int8: (numerators, row scales); the scales are kept too.
+        # B4 int8: (numerators, row scales); the scales are kept too, and
+        # the SECOND outputs.
         scales = res[1] if first.dtype == torch.int8 else None
+        second = res[1] if name in SECOND else None
         if name in SAVED and args.save:
             Path(args.save).mkdir(parents=True, exist_ok=True)
-            torch.save((first.cpu(), None if scales is None else scales.cpu()),
+            torch.save(tuple(None if t is None else t.cpu()
+                             for t in (first, scales, second)),
                        Path(args.save) / f"{name}.pt")
         if name in SAVED and args.diff:
-            ref, ref_scales = torch.load(Path(args.diff) / f"{name}.pt")
+            ref, ref_scales, ref_second = torch.load(
+                Path(args.diff) / f"{name}.pt")
             out[name + "_max_abs_diff"] = float(
                 (first.cpu().double() - ref.double()).abs().max())
+            if first.dtype == torch.bfloat16:
+                out[name + "_max_ulp_diff"] = _max_ulp_diff(
+                    torch, first.cpu(), ref)
             if scales is not None:
                 out[name + "_scale_rel_diff"] = float(
                     ((scales.cpu().double() - ref_scales.double()).abs()
                      / ref_scales.double()).max())
-        del res, first, scales
+            if second is not None:
+                out[name + "_rel_diff"] = out[name + "_max_abs_diff"] / float(
+                    ref.double().abs().max())
+                key = f"{name}_{SECOND[name]}"
+                d = float((second.cpu().double() - ref_second.double()).abs()
+                          .max())
+                out[key + "_max_abs_diff"] = d
+                out[key + "_rel_diff"] = d / float(
+                    ref_second.double().abs().max())
+        del res, first, scales, second
     rounds = {name: [] for name in cases}
     for _ in range(ROUNDS):
         for name, fn in cases.items():

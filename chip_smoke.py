@@ -23,17 +23,23 @@ these phases and fails on the first that fails:
      U=2852, md 64 and 32): B1 and B4 float at this ragged U, B6 forward,
      B6 backward (dc, da) and B7 backward (dc, dlsum), each with faults
      planted in its plain version, among them faults against the bf16
-     bodies' tiles (B6 backward: every mode's dc from mode 0's scores, da
+     bodies' tiles (B6 forward: every mode's vol from mode 0's scores, the
+     window over one warpgroup's 32 keys of each tile, a normalisation
+     offset left in; B6 backward: every mode's dc from mode 0's scores, da
      over the first key group; B7: the row term over the first 128-column
-     tile, dlsum of the last bm); B6 backward also at B = 1 and B7 at
-     BM = 1, and each launched twice, which must give the same bits.
+     tile, dlsum of the last bm); B6 forward also at md 32 and B = 1, B6
+     backward at B = 1 and B7 at BM = 1, and each launched twice, which
+     must give the same bits.
      Then B5, the pyramid lookup, forward
      and backward at the serving, chairs and oracle shapes, with four
      faults planted in its plain version.  Then the dense-table kernels
      B8, B6 dense and B4 dense at the serving shapes: no table and a
      seeded one, U1 != U2 with ragged keys, the clamp off and on, bf16 and
      fp32, with a transposed table, a table scaled by pos_w twice, ragged
-     keys left unmasked and a missing clamp planted in the plain versions.
+     keys left unmasked and a missing clamp planted in the plain versions
+     (B6 dense also its vol from mode 0's scores, the table read with the
+     other 64-row half of a block and a normalisation offset, and two
+     launches that must give the same bits).
      Then sequence parallelism: B9 (sums and write) on every shard of the
      serving grid split over 1, 2 and 4 ranks (55 rows: 28/27,
      14/14/14/13), clamp off and on, bf16 and fp32, against its plain
@@ -101,13 +107,14 @@ these phases and fails on the first that fails:
      at the KITTI shape (U=7332, W8=156); the training kernels and B1/B4
      at the chairs shapes; B5 forward and backward at the serving and
      chairs shapes beside per-level F.grid_sample and its backward; B8,
-     B6 dense and B4 dense at the serving shape (B8 also with the
-     --f2radius table, beside scaled_dot_product_attention with it as its
-     mask); B9 sums and write per shard at 2 and 4 shards beside their
+     B6 dense and B4 dense at the serving shape (B8 and B6 dense also with
+     the --f2radius table, B8 beside scaled_dot_product_attention with it
+     as its mask); B9 sums and write per shard at 2 and 4 shards beside their
      plain versions, bounds and B3; B10 forward and backward of each
      pass at the serving and chairs grids (bf16) beside the plain
      versions, the bounds and the same pass in the cuDNN conv form.
-     B4's lines add the floor of its exponentials on the SFUs.
+     B4's, B6's and B6 dense's lines add the floor of their exponentials
+     on the SFUs.
 
 Prints the card line and a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
@@ -216,15 +223,20 @@ def bound_ms(flops: float, nbytes: float, tflops: float = BF16_TFLOPS
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
-# B4's exponentials, one a score in each of its two sweeps, beside its
-# bound: the SFUs take 16 a clock on each of the 132 SMs, at the 1.98 GHz
-# boost clock of the H100 SXM.
+# The exponentials beside the bound: the SFUs take 16 a clock on each of
+# the 132 SMs, at the 1.98 GHz boost clock of the H100 SXM.  B4 takes one a
+# score in each of its two sweeps, B6 and B6 dense one a score.
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def exp_ms(n_exp: float) -> float:
+    """The least time of n_exp exponentials on the SFUs."""
+    return n_exp / SFU_EXP_PER_S * 1e3
 
 
 def sfu_ms(n_scores: float) -> float:
     """The least time of B4's 2 n_scores exponentials on the SFUs."""
-    return 2.0 * n_scores / SFU_EXP_PER_S * 1e3
+    return exp_ms(2.0 * n_scores)
 
 
 # Phase 2 inputs.  q, k ~ N(0, QK_STD^2) give scores scale * q.k with a
@@ -580,6 +592,16 @@ def _masked(keep, *tensors):
 # (csrc/agg_corr.cu B6B_KEYS x B6B_KGROUP).
 B7_COL_TILE = 128
 B6_KEY_GROUP = cv.B6B_KEYS * cv.B6B_KGROUP
+# B6's forward and B6 dense in bf16 run B3's sweep (csrc/agg_modes.cuh
+# B3_ROWS, B3_KEYS): a block's 128 query rows are two warpgroups' halves of
+# 64 rows, each 64-key tile two warpgroups' halves of 32 keys.  The faults
+# planted against them:
+B6_ROW_HALF, B6_KEY_HALF = 64, 32
+B6_MODE0, B6_HALF_WINDOW, B6_TABLE_ROWS, B6_WB = (
+    "every mode's vol from mode 0's scores",
+    "the window bias over one warpgroup's keys only",
+    "the table read with another warpgroup's rows",
+    "the normalisation's wb left at a nonzero value")
 
 
 def _b6_dc_fault(q, k, g, vol, biases, grid, clip, agg_w, drop_term=False,
@@ -594,6 +616,33 @@ def _b6_dc_fault(q, k, g, vol, biases, grid, clip, agg_w, drop_term=False,
     t = p if drop_term else p * (1.0 + agg_w * (s - vol[:, None]))
     dc = g[:, None] * t
     return torch.where(c.abs() < clip, dc, 0.0) if mask else dc
+
+
+def b6_fwd_fault(q, k, table, clip, pos_w, agg_w, agg_b, fault):
+    """The plain B6 volume with s_m = clamp(c_m, +-clip) + pos_w * table
+    (the window's dense rows for B6, B6 dense's table; None: no bias) and
+    `fault` planted: every mode's scores from mode 0's q and k, the bias on
+    the first B6_KEY_HALF keys of every 64-key tile only, the table's row r
+    read at r ^ B6_ROW_HALF (the other warpgroup's half of a 128-row block;
+    its own row where that lies past U1), or vol - mean(vol) per sample
+    (the normalisation's offset where B6 takes none).  Without a table the
+    two bias faults change nothing."""
+    if fault == B6_MODE0:
+        q, k = q[:, :1].expand_as(q), k[:, :1].expand_as(k)
+    elif table is None:
+        pass
+    elif fault == B6_HALF_WINDOW:
+        cols = torch.arange(table.shape[1], device=table.device)
+        table = table * (cols % (2 * B6_KEY_HALF) < B6_KEY_HALF)
+    elif fault == B6_TABLE_ROWS:
+        rows = torch.arange(table.shape[0], device=table.device)
+        other = rows ^ B6_ROW_HALF
+        table = table[torch.where(other < table.shape[0], other, rows)]
+    vol = cv.fused_agg_corr_dense_plain(q, k, table, clip, pos_w, agg_w,
+                                        agg_b)
+    if fault == B6_WB:
+        vol = vol - vol.mean(dim=(1, 2), keepdim=True)
+    return vol
 
 
 def _b6_da_fault(q, k, g, vol, biases, grid, clip, agg_w):
@@ -616,6 +665,54 @@ def _b7_fault(q, k, p, g, clip, row_term=True, mask=True, row_cols=None,
     dc = torch.where(c.abs() < clip, dl, 0.0) if mask else dl
     dlsum = dl.flatten(0, 1)[-1] if last_bm else dl.sum(dim=(0, 1))
     return dc.to(p.dtype), dlsum
+
+
+def check_b6_forward(dev, gen, report, biases, grid=CHAIRS_GRID,
+                     batch=TRAIN_BATCH):
+    """Phase 2, B6 forward (inter site, pos_w 0.5): the raw fp32 volume at
+    md 64 (the inter site) and 32, the whole batch and one sample, the clamp
+    off and on, each launched twice (the same bits), with faults planted in
+    the plain version, among them three against the bf16 body's tiles.
+    Returns md 64's q, k and the plain volume of the whole batch with the
+    clamp on.  On CPU tensors the wrapper takes the plain version itself
+    (how the tests run this check)."""
+    agg_w = torch.tensor(1.3, device=dev)
+    agg_b = torch.tensor(0.1, device=dev)
+    u = grid[0] * grid[1]
+    errs = []
+    for md in (64, 32):
+        q, k = inputs(gen, md, dev, u, batch)
+        print(f"B6 inputs md={md}: clip {CLIP_ON} clamps "
+              f"{clamped_share(q, k, CLIP_ON):.3f} of the scores")
+        for bsz, clip in ((batch, CLIP_OFF), (batch, CLIP_ON), (1, CLIP_OFF),
+                          (1, CLIP_ON)):
+            qb, kb = q[:bsz], k[:bsz]
+            got = cv.fused_agg_corr(qb, kb, biases, grid, clip, 0.5, agg_w,
+                                    agg_b)
+            sync(dev)
+            plain = lambda c, w: cv.fused_agg_corr_plain(  # noqa: E731
+                qb, kb, biases, grid, c, w, agg_w, agg_b)
+            window = ma.window_rows(biases, grid, qb, kb)
+            faults = {"no bias": plain(clip, 0.0)}
+            if clip != CLIP_OFF:
+                faults["no clamp"] = plain(CLIP_OFF, 0.5)
+            for fault in (B6_MODE0, B6_HALF_WINDOW, B6_WB):
+                faults[fault] = b6_fwd_fault(qb, kb, window, clip, 0.5,
+                                             agg_w, agg_b, fault)
+            want = plain(clip, 0.5)
+            label = f"B6 forward md={md} B={bsz} clip={clip:g}"
+            hold(label, got, want, rel_err, B6_TOL, faults)
+            errs.append(float((got - want).abs().max()))
+            got2 = cv.fused_agg_corr(qb, kb, biases, grid, clip, 0.5, agg_w,
+                                     agg_b)
+            sync(dev)
+            assert torch.equal(got, got2), f"{label}: two launches differ"
+            if md == 64 and bsz == batch and clip == CLIP_ON:
+                q64, k64, vol = q, k, want
+            del got, got2, faults, window, want
+        del q, k
+    report["fused_agg_corr"]["max_abs_err"] = max(errs)
+    return q64, k64, vol
 
 
 def check_train_kernels(dev, gen, report, grid=CHAIRS_GRID,
@@ -661,30 +758,13 @@ def check_train_kernels(dev, gen, report, grid=CHAIRS_GRID,
                  B4_ROW_TOL[odt], faults)
         del want, faults, got
 
-    # B6 forward (inter site, pos_w 0.5): the raw fp32 volume.
-    q, k = inputs(gen, 64, dev, u, batch)
+    # B6 forward, then its backward on md 64's inputs and the plain volume
+    # of the whole batch with the clamp on.
+    q, k, vol = check_b6_forward(dev, gen, report, biases, grid, batch)
     agg_w = torch.tensor(1.3, device=dev)
-    agg_b = torch.tensor(0.1, device=dev)
-    print(f"B6 inputs: clip {CLIP_ON} clamps "
-          f"{clamped_share(q, k, CLIP_ON):.3f} of the scores")
-    errs = []
-    for clip in (CLIP_OFF, CLIP_ON):
-        got = cv.fused_agg_corr(q, k, biases, grid, clip, 0.5, agg_w, agg_b)
-        sync(dev)
-        plain = lambda c, w: cv.fused_agg_corr_plain(  # noqa: E731
-            q, k, biases, grid, c, w, agg_w, agg_b)
-        faults = {"no bias": plain(clip, 0.0)}
-        if clip != CLIP_OFF:
-            faults["no clamp"] = plain(CLIP_OFF, 0.5)
-        want = plain(clip, 0.5)
-        hold(f"B6 forward clip={clip:g}", got, want, rel_err, B6_TOL, faults)
-        errs.append(float((got - want).abs().max()))
-        del got, faults
-    report["fused_agg_corr"]["max_abs_err"] = max(errs)
 
     # B6 backward: g ~ N(1, 1) so that da is a well-conditioned sum; the
     # whole batch, then one sample.
-    vol = want
     g = randn(batch, u, u) + 1.0
     errs = []
     for bsz, clip in ((batch, CLIP_OFF), (batch, CLIP_ON), (1, CLIP_ON)):
@@ -1019,9 +1099,20 @@ def check_dense_kernels(dev, gen, report, grid=(H8, W8),
             if ragged is not None and u2 != u:
                 faults["ragged keys unmasked"] = ragged(q, k, table, clip_t,
                                                        DENSE_POS_W, v)
+            if name == "fused_agg_corr_dense":  # against B6's bf16 tiles
+                for fault in (B6_MODE0, B6_WB) + (
+                        (B6_TABLE_ROWS,) if with_table else ()):
+                    faults[fault] = b6_fwd_fault(q, k, table, clip_t,
+                                                 DENSE_POS_W, *AGG_WB, fault)
             err_fn, tol = tol_of(dtype)
             hold(f"{name} {label}", got, want, err_fn, tol, faults)
             errs.append(float((got.float() - want.float()).abs().max()))
+            if name == "fused_agg_corr_dense":
+                got2 = _dense_call(name, q, k, table, clip_t, v)
+                sync(dev)
+                assert torch.equal(got, got2), \
+                    f"{name} {label}: two launches differ"
+                del got2
             del got, want, faults
         report[name]["max_abs_err"] = max(errs)
         if dev.type == "cuda":
@@ -2103,6 +2194,8 @@ def time_train_kernels(dev, gen, report) -> None:
               f"{r['plain_ms']:.3f} ms, bound {bms:.4f} ms ({by}), library "
               "None")
         torch.cuda.empty_cache()
+    print(f"fused_agg_corr (chairs, B=8): exponentials floor {exp_ms(n):.4f} "
+          "ms (4 B U^2 on the SFUs)")
     del vol, g_vol, p64
     # The intra shape (md 32) of B7, and B4 bf16 / B1 at the chairs U.
     p32 = ma.mode_softmax_probs(q32, k32, biases, grid, clip, 1.0)
@@ -2205,10 +2298,11 @@ def time_kernels(dev, gen, report) -> None:
 def time_dense_kernels(dev, gen, report) -> None:
     """Phase 5, the dense-table kernels at the serving shapes (B=1, U=7040),
     beside the plain versions and the bounds, as the lsinu path runs them
-    (no table; B4 dense with bf16 output), and B8 with the --f2radius
-    F2RADIUS table (pos_w * the dense window + the mask) beside
-    scaled_dot_product_attention with that table as its float attn_mask
-    (clip off).  The B8 row of the kernels line takes the table case."""
+    (no table; B4 dense with bf16 output), and B8 and B6 dense with the
+    --f2radius F2RADIUS table (pos_w * the dense window + the mask), B8
+    beside scaled_dot_product_attention with that table as its float
+    attn_mask (clip off).  The B8 row of the kernels line takes the table
+    case, the B6 dense row the lsinu path's (no table)."""
     from craft_tpu_torch.nn.setrans import attention_mask
     biases = (torch.randn(15, 15, generator=gen) * 0.5).to(dev)
     clip = torch.tensor(CLIP_OFF, device=dev)
@@ -2247,6 +2341,11 @@ def time_dense_kernels(dev, gen, report) -> None:
             lambda: cv.fused_agg_corr_dense_plain(q64, k64, None, clip, 0.5,
                                                   *agg),
             None, bound_ms(qk_flops(64), qk_bytes(64) + 4 * U * U)),
+        "fused_agg_corr_dense table": (
+            lambda: cv.fused_agg_corr_dense(q64, k64, table, clip, 0.5, *agg),
+            lambda: cv.fused_agg_corr_dense_plain(q64, k64, table, clip, 0.5,
+                                                  *agg),
+            None, bound_ms(qk_flops(64), qk_bytes(64) + 2 * 4 * U * U)),
         "mode_softmax_probs_dense": (
             lambda: ma.mode_softmax_probs_dense(q32, k32, None, clip, 1.0),
             lambda: ma.mode_softmax_probs_dense_plain(q32, k32, None, clip,
@@ -2265,6 +2364,8 @@ def time_dense_kernels(dev, gen, report) -> None:
                                 bound_ms=bms, bound_by=by)
         torch.cuda.empty_cache()
     print(f"mode_softmax_probs_dense: exponentials floor {sfu_ms(n):.4f} ms")
+    print(f"fused_agg_corr_dense: exponentials floor {exp_ms(n):.4f} ms "
+          "(4 U^2 on the SFUs)")
 
 
 def window_elems(levels, coords, r=RADIUS) -> int:

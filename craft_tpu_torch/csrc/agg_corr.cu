@@ -11,41 +11,53 @@
 //
 // Replaces craft_tpu/ops/pallas/mode_attention.py:fused_agg_corr_mt
 // (forward, the window at any W8), fused_agg_corr (forward, B6 dense: a
-// dense [U1, U2] fp32 table or none, the inter site under --interpos lsinu;
-// the same kernel body over another bias source, common.cuh) and
-// craft_tpu/ops/pallas/corr_vjp.py:_pallas_agg_corr_bwd (backward, window).
+// dense [U1, U2] fp32 table or none, the inter site under --interpos lsinu)
+// and craft_tpu/ops/pallas/corr_vjp.py:_pallas_agg_corr_bwd (backward,
+// window).
 //
 // Bound on the H100: bytes.  At the chairs crops (B=8, M=4, U=46*62=2852,
-// md=64) one q.k^T sweep is 33 GFLOP (34 us at the bf16 peak) while the
-// forward writes a 260 MB fp32 volume (78 us) and the backward reads g and
-// vol (520 MB) and writes a 1.04 GB dc (0.47 ms).  Each block recomputes
-// the four mode scores of its tiles in registers (agg_modes.cuh) and
-// touches each volume-sized element once.  At serving under lsinu (B=1,
-// U=7040) the forward writes a 198 MB volume (59 us) against 25 GFLOP
-// (26 us at the bf16 peak).  The backward's da is a fp64
-// per-block partial, summed by one block in a fixed order: no float
-// atomics, deterministic.
+// md=64) one q.k^T sweep is 33 GFLOP (34 us at the bf16 peak) and 4 B U^2
+// = 260 M exponentials (62 us on the SFUs) while the forward writes a 260
+// MB fp32 volume (78 us); the backward reads g and vol (520 MB) and writes
+// a 1.04 GB dc (0.47 ms).  At serving under lsinu (B=1, U=7040) the
+// forward writes a 198 MB volume (59 us) against 25 GFLOP (26 us) and 198
+// M exponentials (47 us).  Each block recomputes the four mode scores of
+// its tiles in registers and touches each volume-sized element once.
 //
-// The backward has two bodies.  bf16 (agg_bwd_wgmma_kernel): the four mode
-// scores on wgmma, B3's sweep (corr_norm.cu) rearranged for the traffic
-// of the backward: 64-row blocks whose four warpgroups sit side by side
-// along the keys, so that the four modes' q tiles take 32 KB and a ring
-// stage has room for the tile's g and vol rows beside its k tiles (they
-// arrive by cp.async with the products' operands instead of as register
-// loads behind them), and dc leaves through a staging tile in whole
-// 16-byte units along 256-byte rows.  At chairs it takes 0.911 ms, 1.091
-// with dc stored from the fragments (tools/time_bwd_variants.py, NVIDIA
-// H100 80GB HBM3, 700 W); 45 q tiles x 5 key groups x 8 samples = 1800
-// blocks of 512 threads, one an SM.  The
-// wrapper raises unless md is a multiple of 16 and q and k are 16-byte
-// aligned.  fp32 (agg_corr_bwd_kernel): the FMA body below, kept for fp32
+// The forward's bf16 body (agg_corr_wgmma_kernel) is B3's write sweep
+// (agg_modes.cuh corr_sweep) with the raw epilogue: the clip as resolved
+// (scal[0]), no normalisation, fp32 stores of column pairs from the
+// fragments (B3's layout: 128 rows a block, four warpgroups of 64 rows x
+// 32 keys, every mode's scores of an element in one thread, the softmax
+// over the modes on ex2.approx).  Its bias source is a template: the window
+// at any W8 (B6), none or a dense table (B6 dense), the table's 128 x 64
+// fp32 tile copied into each ring stage beside the k tiles (a two-stage
+// ring: four would need 320 KB).  At chairs 23 q tiles x 6 key groups x 8
+// samples = 1104 blocks, one an SM.
+//
+// The backward's bf16 body (agg_bwd_wgmma_kernel): the four mode scores on
+// wgmma, B3's sweep rearranged for the traffic of the backward: 64-row
+// blocks whose four warpgroups sit side by side along the keys, so that
+// the four modes' q tiles take 32 KB and a ring stage has room for the
+// tile's g and vol rows beside its k tiles (they arrive by cp.async with
+// the products' operands instead of as register loads behind them), and dc
+// leaves through a staging tile in whole 16-byte units along 256-byte
+// rows.  At chairs it takes 0.911 ms, 1.091 with dc stored from the
+// fragments (tools/time_bwd_variants.py, NVIDIA H100 80GB HBM3, 700 W); 45
+// q tiles x 5 key groups x 8 samples = 1800 blocks of 512 threads, one an
+// SM.  da is a fp64 per-block partial, summed by one block in a fixed
+// order: no float atomics, deterministic.
+//
+// The wrappers raise on bf16 unless md is a multiple of 16 and q and k are
+// 16-byte aligned.  fp32 inputs take the FMA bodies (agg_corr_kernel,
+// agg_corr_bwd_kernel below; agg_modes.cuh's FMA tiles), kept for fp32
 // parity.
 #include "agg_modes.cuh"
-#include "wgmma.cuh"
 
-template <typename T, class Bias>
+// The fp32 forward.
+template <class Bias>
 __global__ void __launch_bounds__(NTHREADS)
-    agg_corr_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    agg_corr_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     BiasArgs ba, const float* __restrict__ scal,
                     float* __restrict__ out, int U1, int U2, int md,
                     float scale) {
@@ -58,7 +70,7 @@ __global__ void __launch_bounds__(NTHREADS)
   Bias bias;
   load_q_modes(q + (size_t)b * NMODES * U1 * md, qs, bsm, bias, ba, qt, U1,
                md);
-  const T* kb = k + (size_t)b * NMODES * U2 * md;
+  const float* kb = k + (size_t)b * NMODES * U2 * md;
   const float clip = scal[0], pos_w = scal[1], agg_w = scal[2],
               agg_b = scal[3];
   const int nk = (U2 + TILE - 1) / TILE;
@@ -78,6 +90,18 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
   }
+}
+
+// The bf16 forward: agg_modes.cuh's sweep with the raw epilogue, over the
+// bias source Bias (CorrWindow, MmaNoBias, CorrTable).
+template <int MDP, class Bias>
+__global__ void __launch_bounds__(B3_THREADS, 1)
+    agg_corr_wgmma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k, BiasArgs ba,
+                          const float* __restrict__ scal,
+                          float* __restrict__ out, int md, float scale) {
+  corr_sweep<MDP, true, true, float, Bias>(q, k, ba, scal, nullptr, nullptr,
+                                           out, nullptr, md, scale);
 }
 
 template <typename T>
@@ -432,16 +456,40 @@ static dim3 agg_grid(int B, int U1, int U2) {
   return dim3(nq, (nk + KGROUP - 1) / KGROUP, B);
 }
 
-template <typename T, class Bias>
-static int launch_fwd(const void* q, const void* k, const BiasArgs& ba,
-                      const void* scal, void* out, int B, int U1, int U2,
-                      int md, float scale, cudaStream_t s) {
-  cudaError_t err = allow_smem(agg_corr_kernel<T, Bias>, agg_smem<Bias>());
+template <int MDP, class Bias>
+static int launch_fwd_md(const void* q, const void* k, const BiasArgs& ba,
+                         const void* scal, void* out, int B, int md,
+                         float scale, cudaStream_t s) {
+  const size_t smem = sweep_smem<MDP, Bias>();
+  auto kernel = agg_corr_wgmma_kernel<MDP, Bias>;
+  cudaError_t err = allow_sweep_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  agg_corr_kernel<T, Bias>
-      <<<agg_grid(B, U1, U2), NTHREADS, agg_smem<Bias>(), s>>>(
-          (const T*)q, (const T*)k, ba, (const float*)scal, (float*)out, U1,
-          U2, md, scale);
+  kernel<<<sweep_grid(B, ba.U1, ba.U2, 1), B3_THREADS, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, ba, (const float*)scal, (float*)out, md,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// The forward over the bias source Bias: the bf16 body (md a multiple of
+// 16 up to 64, q and k 16-byte aligned; refused otherwise) or the fp32 one.
+template <class Bias, class FmaBias>
+static int launch_fwd(const void* q, const void* k, const BiasArgs& ba,
+                      const void* scal, void* out, int B, int md,
+                      float scale, int in_bf16, cudaStream_t s) {
+  if (in_bf16) {
+    if (!sweep_takes(q, k, md)) return (int)cudaErrorInvalidValue;
+    if (md <= 16)
+      return launch_fwd_md<16, Bias>(q, k, ba, scal, out, B, md, scale, s);
+    if (md <= 32)
+      return launch_fwd_md<32, Bias>(q, k, ba, scal, out, B, md, scale, s);
+    return launch_fwd_md<64, Bias>(q, k, ba, scal, out, B, md, scale, s);
+  }
+  const size_t smem = agg_smem<FmaBias>();
+  cudaError_t err = allow_smem(agg_corr_kernel<FmaBias>, smem);
+  if (err != cudaSuccess) return (int)err;
+  agg_corr_kernel<FmaBias><<<agg_grid(B, ba.U1, ba.U2), NTHREADS, smem, s>>>(
+      (const float*)q, (const float*)k, ba, (const float*)scal, (float*)out,
+      ba.U1, ba.U2, md, scale);
   return (int)cudaGetLastError();
 }
 
@@ -474,11 +522,7 @@ static cudaError_t launch_bwd_wgmma(const void* q, const void* k,
       B6B_STAGES * (NMODES * B6B_KEYS * MDP * 2 + 2 * B6B_ROWS * B6B_GROW) +
       2 * B6B_ROWS * B6B_GROW + AggWindow::SMEM + 8 * B6B_STAGES + 1024;
   auto kernel = agg_bwd_wgmma_kernel<MDP>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  cudaError_t err = allow_sweep_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<bwd_grid(B, ba.U1, 1), B6B_THREADS, smem, s>>>(
       (const bf16*)q, (const bf16*)k, (const float*)g, (const float*)vol, ba,
@@ -494,10 +538,7 @@ static int launch_bwd(const void* q, const void* k, const void* g,
   const dim3 grid = bwd_grid(B, U, in_bf16);
   cudaError_t err;
   if (in_bf16) {
-    // md a multiple of 16 up to 64; q and k 16-byte aligned.
-    if (md <= 0 || md > MAXMD || md % 16 != 0 ||
-        (((uintptr_t)q | (uintptr_t)k) & 15) != 0)
-      return (int)cudaErrorInvalidValue;
+    if (!sweep_takes(q, k, md)) return (int)cudaErrorInvalidValue;
     const BiasArgs ba{(const float*)biases, W8, R, U, U, 0};
     err = md <= 16   ? launch_bwd_wgmma<16>(q, k, g, vol, ba, scal, dc,
                                             partial, B, md, scale, s)
@@ -521,25 +562,22 @@ static int launch_bwd(const void* q, const void* k, const void* g,
   return (int)cudaGetLastError();
 }
 
-// q, k: [B, 4, U, md] contiguous (bf16 when in_bf16, else fp32), md <= 64;
-// biases: [(2R+1)^2] fp32; scal: [4] fp32 (clip, pos_w, agg_w, agg_b);
-// out: [B, U, U] fp32.
+// q, k: [B, 4, U, md] contiguous (bf16 when in_bf16, else fp32), md <= 64
+// (bf16: a multiple of 16, q and k 16-byte aligned); biases: [(2R+1)^2]
+// fp32; scal: [4] fp32 (clip, pos_w, agg_w, agg_b); out: [B, U, U] fp32.
 extern "C" int agg_corr_launch(const void* q, const void* k,
                                const void* biases, const void* scal,
                                void* out, int B, int U, int md, int W8, int R,
                                float scale, int in_bf16, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   const BiasArgs ba{(const float*)biases, W8, R, U, U, 0};
-  if (in_bf16)
-    return launch_fwd<__nv_bfloat16, WindowBias>(q, k, ba, scal, out, B, U,
-                                                 U, md, scale, s);
-  return launch_fwd<float, WindowBias>(q, k, ba, scal, out, B, U, U, md,
-                                       scale, s);
+  return launch_fwd<CorrWindow, WindowBias>(q, k, ba, scal, out, B, md, scale,
+                                            in_bf16, (cudaStream_t)stream);
 }
 
 // B6 dense.  q: [B, 4, U1, md]; k: [B, 4, U2, md] contiguous (bf16 when
-// in_bf16, else fp32), md <= 64; table: [U1, U2] fp32, or null for no bias;
-// scal: [4] fp32 (clip, pos_w, agg_w, agg_b); out: [B, U1, U2] fp32.
+// in_bf16, else fp32), md <= 64 (bf16 as B6); table: [U1, U2] fp32, or null
+// for no bias; scal: [4] fp32 (clip, pos_w, agg_w, agg_b); out: [B, U1, U2]
+// fp32.
 extern "C" int agg_corr_dense_launch(const void* q, const void* k,
                                      const void* table, const void* scal,
                                      void* out, int B, int U1, int U2, int md,
@@ -547,14 +585,10 @@ extern "C" int agg_corr_dense_launch(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   const BiasArgs ba{(const float*)table, 0, 0, U1, U2, 0};
   if (table == nullptr)
-    return in_bf16 ? launch_fwd<__nv_bfloat16, NoBias>(q, k, ba, scal, out, B,
-                                                       U1, U2, md, scale, s)
-                   : launch_fwd<float, NoBias>(q, k, ba, scal, out, B, U1, U2,
-                                               md, scale, s);
-  return in_bf16 ? launch_fwd<__nv_bfloat16, TableBias>(q, k, ba, scal, out, B,
-                                                        U1, U2, md, scale, s)
-                 : launch_fwd<float, TableBias>(q, k, ba, scal, out, B, U1,
-                                                U2, md, scale, s);
+    return launch_fwd<MmaNoBias, NoBias>(q, k, ba, scal, out, B, md, scale,
+                                         in_bf16, s);
+  return launch_fwd<CorrTable, TableBias>(q, k, ba, scal, out, B, md, scale,
+                                          in_bf16, s);
 }
 
 // q, k, biases, scal as above (agg_b unread; bf16: md a multiple of 16, q

@@ -36,8 +36,10 @@
 // Any W8 works: the bias window is indexed directly and ragged U1, U2 are
 // masked in-kernel.  Two bodies for the sweeps:
 //
-// bf16 inputs (corr_sweep_kernel, bf16 or fp32 output): the products on
-// the tensor cores, bf16 with fp32 sums as the Pallas bodies'
+// bf16 inputs (corr_sweep_kernel, bf16 or fp32 output; its body is
+// agg_modes.cuh's corr_sweep, which B6 and B6 dense (agg_corr.cu) share
+// with another epilogue and bias source): the products on the tensor
+// cores, bf16 with fp32 sums as the Pallas bodies'
 // dot_general(preferred_element_type=f32).  A block owns 128 query rows
 // (B3_ROWS) and sweeps B3_KGROUP key tiles of 64; the four modes' q tiles
 // stay in shared memory for the block (the A operand through its own
@@ -62,16 +64,9 @@
 //
 // fp32 inputs (corr_stats_kernel, corr_write_kernel): plain fp32 FMA, kept
 // for fp32 parity.  A block holds all four modes' q tiles (one 64-row
-// slice) in shared memory and sweeps a group of k tiles (agg_modes.cuh,
-// shared with B6).
+// slice) in shared memory and sweeps a group of k tiles (agg_modes.cuh's
+// FMA tiles, shared with B6).
 #include "agg_modes.cuh"
-#include "wgmma.cuh"
-
-#define B3_ROWS 128    // query rows a block (bf16): two warpgroups of 64
-#define B3_KEYS 64     // keys a ring stage, in each of the four modes
-#define B3_KGROUP 8    // key tiles a block
-#define B3_STAGES 4    // ring depth
-#define B3_THREADS 512  // four warpgroups: 2 row halves x 2 key halves
 
 // Shared prologue: this block's q tiles, window and token coordinates
 // (load_q_modes), and the clip value from the raw max.
@@ -268,26 +263,8 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-// ---------------------------------------------------------------------------
-// The bf16 body of both sweeps
-// ---------------------------------------------------------------------------
-typedef MmaWindowT<B3_ROWS, B3_KEYS, B3_THREADS> CorrWindow;
-
-// One sweep over the key tiles [grp * B3_KGROUP, +B3_KGROUP) of q tile qt
-// of sample b (grid (q tiles, key groups, samples)).  Warpgroup w owns rows
-// 64 (w % 2) .. + 63 of the tile and keys 32 (w / 2) .. + 31 of each key
-// tile: four 64 x 32 accumulator sets (64 registers a thread), so that 16
-// warps an SM hide the epilogue's latencies.  WRITE false (stats):
-// partial[2 blk], partial[2 blk + 1] = the block's fp64 sums of vol and
-// vol^2, blk = (b * gridDim.y + grp) * gridDim.x + qt.  WRITE true: out
-// [B, U1, U2] = (vol - norm[2 b]) * norm[2 b + 1] as O.  MDP: the tiles'
-// mode dim (16, 32 or 64 >= md; columns past md are zero).
-//   The epilogue works in units of the raw products c = q.k: clamp(scale
-// c, +-clip) = scale clamp(c, +-clip / scale) and the bias enters as
-// pos_w / scale * w, so vol = scale * sum_m p_m x_m / sum_m p_m with x_m the
-// unscaled s_m and p_m = 2^(x_m agg_w scale log2 e - max) (agg_b cancels in
-// the softmax over the modes); the scale is applied once per sum (stats)
-// or folded into the normalisation (write).
+// The bf16 body of both sweeps: agg_modes.cuh's corr_sweep over the window,
+// its clip from the raw max, normalised (write) or summed (stats).
 template <int MDP, bool WRITE, typename O>
 __global__ void __launch_bounds__(B3_THREADS, 1)
     corr_sweep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -295,269 +272,8 @@ __global__ void __launch_bounds__(B3_THREADS, 1)
                       const float* __restrict__ gmax,
                       const float* __restrict__ norm, O* __restrict__ out,
                       double* __restrict__ partial, int md, float scale) {
-  constexpr int KC = MDP / 8;                    // 16-byte chunks of a row
-  constexpr int KTILE = B3_KEYS * MDP * 2;       // a mode's k tile
-  constexpr int STAGE = NMODES * KTILE;
-  constexpr int QTILE = B3_ROWS * MDP * 2;       // a mode's q tile
-  constexpr int WKEYS = B3_KEYS / 2;             // keys of a warpgroup
-  constexpr int NT = WKEYS / 8;                  // its n tiles of 8 keys
-  constexpr int NWG = B3_THREADS / 128;
-  constexpr int PASS = B3_THREADS / KC;          // rows a pass of copies
-  constexpr int QIT = PASS < B3_ROWS ? B3_ROWS / PASS : 1;
-  constexpr int KIT = PASS < B3_KEYS ? B3_KEYS / PASS : 1;
-  static_assert(QTILE % 1024 == 0 && KTILE % 1024 == 0, "swizzle atoms");
-  static_assert(NWG == 4 && B3_ROWS == 128, "2 x 2 warpgroups");
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + (-(int)smem_u32(smem_raw) & 1023);
-  unsigned char* ring = smem + NMODES * QTILE;
-  unsigned char* wsm = ring + B3_STAGES * STAGE;
-  const uint32_t full0 = smem_u32(wsm + CorrWindow::SMEM);
-  const uint32_t empty0 = full0 + 8 * B3_STAGES;
-  __shared__ double red[2][B3_THREADS / 32];
-  const int qt = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
-  const int U1 = ba.U1, U2 = ba.U2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wg = warp >> 2;
-  const int wrow = 64 * (wg & 1), wkey = WKEYS * (wg >> 1);
-  const bf16* qb = q + (size_t)b * NMODES * U1 * md;
-  const bf16* kb = k + (size_t)b * NMODES * U2 * md;
-  const int nk = (U2 + B3_KEYS - 1) / B3_KEYS;
-  const int kt0 = grp * B3_KGROUP;
-  const int n = min(nk, kt0 + B3_KGROUP) - kt0;  // >= 1
-
-  CorrWindow win;
-  win.init(wsm, ba, qt);
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < B3_STAGES; ++i) {
-      mbar_init(full0 + 8 * i, B3_THREADS);
-      mbar_init(empty0 + 8 * i, B3_THREADS);
-    }
-  }
-  __syncthreads();  // the barriers and the window
-
-  // Each thread copies the same chunk column of rows PASS apart, q and k
-  // alike (the swizzle repeats every 8 rows): offsets fixed here.
-  const int c_r = threadIdx.x / KC, c_c = threadIdx.x % KC;
-  const bool c_on = 8 * c_c < md;  // else zeros (md 48)
-  const uint32_t c_dst = c_r * MDP * 2 + 16 * swz<KC>(c_r, c_c);
-  const size_t c_src = (size_t)c_r * md + 8 * c_c;
-  if (PASS <= B3_ROWS || c_r < B3_ROWS) {
-    const uint32_t qa = smem_u32(smem) + c_dst;
-    const int left = U1 - qt * B3_ROWS;
-    const bf16* src = qb + (size_t)qt * B3_ROWS * md + c_src;
-#pragma unroll
-    for (int m = 0; m < NMODES; ++m)
-#pragma unroll
-      for (int it = 0; it < QIT; ++it) {
-        const bool ok = c_on && c_r + PASS * it < left;
-        cp_async16(qa + m * QTILE + it * PASS * MDP * 2,
-                   ok ? src + ((size_t)m * U1 + PASS * it) * md : qb, ok);
-      }
-  }
-  auto load_stage = [&](int kt, int s) {
-    if (PASS > B3_KEYS && c_r >= B3_KEYS) return;
-    const uint32_t sa = smem_u32(ring + s * STAGE) + c_dst;
-    const int left = min(U2 - kt * B3_KEYS, B3_KEYS);
-    const bf16* src = kb + (size_t)kt * B3_KEYS * md + c_src;
-#pragma unroll
-    for (int m = 0; m < NMODES; ++m)
-#pragma unroll
-      for (int it = 0; it < KIT; ++it) {
-        const bool ok = c_on && c_r + PASS * it < left;
-        cp_async16(sa + m * KTILE + it * PASS * MDP * 2,
-                   ok ? src + ((size_t)m * U2 + PASS * it) * md : kb, ok);
-      }
-  };
-  // The q tiles land with stage 0 (full[0] counts every earlier copy).
-#pragma unroll
-  for (int i = 0; i < B3_STAGES - 1; ++i) {
-    if (i < n) {
-      load_stage(kt0 + i, i);
-      mbar_arrive_copies(full0 + 8 * i);
-    }
-  }
-
-  const float attn_clip = scal[0];
-  const float bias_u = scal[1] / scale;            // pos_w / scale
-  const float cws = scal[2] * scale * LOG2E;       // agg_w scale log2 e
-  const float clip = gmax[0] > attn_clip ? attn_clip : 1e30f;
-  const bool clip_on = clip < 1e30f;
-  const float clip_u = clip / scale;
-  float wa = 0.f, wb = 0.f;  // write: out = wa * (sum p x / sum p) + wb
-  if (WRITE) {
-    wa = scale * norm[2 * b + 1];
-    wb = -norm[2 * b] * norm[2 * b + 1];
-  }
-  const int r0 = qt * B3_ROWS + wrow + 16 * (warp & 3) + g;  // r0, r0 + 8
-  const bool rows_all = r0 - g + 16 <= U1;  // warp-uniform
-  const bool row_ok[2] = {r0 < U1, r0 + 8 < U1};
-  const bool pairs = (U2 & 1) == 0;  // column pairs 4- or 8-byte aligned
-  // Descriptors of mode 0's q rows of this warpgroup and of its keys in
-  // stage 0; a tile adds its byte offset / 16 (the address field's unit).
-  const uint64_t da0 = gmma_desc(smem_u32(smem) + wrow * MDP * 2, 16,
-                                 KLayout<MDP>::SBO, KLayout<MDP>::TYPE);
-  const uint64_t db0 = gmma_desc(smem_u32(ring) + wkey * MDP * 2, 16,
-                                 KLayout<MDP>::SBO, KLayout<MDP>::TYPE);
-  double dsum = 0.0, dsq = 0.0;
-
-  float acc[NMODES][NT][4] = {};
-  if (wg == NWG - 1) bar_arrive<256>(1);  // warpgroup 0 goes first
-  for (int i = 0; i < n; ++i) {
-    const int kt = kt0 + i, s = i % B3_STAGES;
-    mbar_wait(full0 + 8 * s, (i / B3_STAGES) & 1);
-    fence_async_smem();
-    const uint64_t db = db0 + (uint64_t)(s * STAGE / 16);
-    // The warpgroups take turns to issue (named barriers 1 to 4, round
-    // robin), so that the tensor cores finish one's products first.
-    bar_sync<256>(1 + wg);
-    wgmma_fence();
-#pragma unroll
-    for (int m = 0; m < NMODES; ++m)
-#pragma unroll
-      for (int kd = 0; kd < MDP / 16; ++kd)
-        wgmma_ss32(acc[m], da0 + (m * QTILE + 32 * kd) / 16,
-                   db + (m * KTILE + 32 * kd) / 16, kd);
-    wgmma_commit();
-    if (wg < NWG - 1 || i + 1 < n) bar_arrive<256>(1 + (wg + 1) % NWG);
-    wgmma_wait0();
-#pragma unroll
-    for (int m = 0; m < NMODES; ++m)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pin(acc[m][j][e]);
-    mbar_arrive(empty0 + 8 * s);  // done with stage s
-
-    // x_m = clamp(c_m, +-clip / scale) + pos_w / scale * bias, in place.
-    if (clip_on) {
-#pragma unroll
-      for (int m = 0; m < NMODES; ++m)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[m][j][e] = fminf(fmaxf(acc[m][j][e], -clip_u), clip_u);
-    }
-    const int key0 = kt * B3_KEYS + wkey;
-    if (win.keys_in_window(key0, WKEYS)) {  // warp-uniform
-      int kh, kw;
-      win.first_col(key0, kh, kw);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float bj[4];
-        win.col_bias(kh, kw, bias_u, bj);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int m = 0; m < NMODES; ++m) acc[m][j][e] += bj[e];
-      }
-    }
-
-    // vol / scale = sum_m p_m x_m / sum_m p_m, per element.
-    const bool tile_all = rows_all && key0 + WKEYS <= U2;  // warp-uniform
-    float tsum = 0.f, tsq = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float l[NMODES];
-#pragma unroll
-        for (int m = 0; m < NMODES; ++m) l[m] = acc[m][j][e] * cws;
-        const float lmax = fmaxf(fmaxf(l[0], l[1]), fmaxf(l[2], l[3]));
-        float den = 0.f, num = 0.f;
-#pragma unroll
-        for (int m = 0; m < NMODES; ++m) {
-          const float p = exp2_approx(l[m] - lmax);
-          den += p;
-          num = fmaf(p, acc[m][j][e], num);
-        }
-        v[e] = __fdividef(num, den);
-      }
-      const int col = key0 + 8 * j + 2 * t;
-      if constexpr (!WRITE) {
-        if (tile_all) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            tsum += v[e];
-            tsq = fmaf(v[e], v[e], tsq);
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (row_ok[e >> 1] && col + (e & 1) < U2) {
-              tsum += v[e];
-              tsq = fmaf(v[e], v[e], tsq);
-            }
-        }
-      } else {
-#pragma unroll
-        for (int i2 = 0; i2 < 2; ++i2) {
-          const float o0 = fmaf(v[2 * i2], wa, wb);
-          const float o1 = fmaf(v[2 * i2 + 1], wa, wb);
-          O* dst = out + ((size_t)b * U1 + r0 + 8 * i2) * U2 + col;
-          if (tile_all && pairs) {
-            if constexpr (sizeof(O) == 2) {
-              *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o0, o1);
-            } else {
-              *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
-            }
-          } else if (row_ok[i2]) {
-            if (col < U2) dst[0] = from_f<O>(o0);
-            if (col + 1 < U2) dst[1] = from_f<O>(o1);
-          }
-        }
-      }
-    }
-    if constexpr (!WRITE) {
-      dsum += (double)tsum;
-      dsq += (double)tsq;
-    }
-
-    // Key tile i + B3_STAGES - 1 into the stage of tile i - 1, once every
-    // warpgroup is done with that.
-    if (i + B3_STAGES - 1 < n) {
-      const int sp = (i + B3_STAGES - 1) % B3_STAGES;
-      if (i > 0) mbar_wait(empty0 + 8 * sp, ((i - 1) / B3_STAGES) & 1);
-      load_stage(kt + B3_STAGES - 1, sp);
-      mbar_arrive_copies(full0 + 8 * sp);
-    }
-  }
-  if constexpr (!WRITE) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
-      dsq += __shfl_xor_sync(0xffffffffu, dsq, o);
-    }
-    if (lane == 0) {
-      red[0][warp] = dsum;
-      red[1][warp] = dsq;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < B3_THREADS / 32; ++w) {
-        dsum += red[0][w];
-        dsq += red[1][w];
-      }
-      const double sc = (double)scale;
-      const size_t blk = ((size_t)b * gridDim.y + grp) * gridDim.x + qt;
-      partial[2 * blk] = dsum * sc;
-      partial[2 * blk + 1] = dsq * sc * sc;
-    }
-  }
-}
-
-// The sweeps' grid of the body that in_bf16 selects: (q tiles, key-tile
-// groups, samples).
-static dim3 sweep_grid(int B, int U1, int U2, int in_bf16) {
-  if (in_bf16) {
-    const int nk = (U2 + B3_KEYS - 1) / B3_KEYS;
-    return dim3((U1 + B3_ROWS - 1) / B3_ROWS,
-                (nk + B3_KGROUP - 1) / B3_KGROUP, B);
-  }
-  const int nq = (U1 + TILE - 1) / TILE, nk = (U2 + TILE - 1) / TILE;
-  return dim3(nq, (nk + KGROUP - 1) / KGROUP, B);
+  corr_sweep<MDP, WRITE, false, O, CorrWindow>(q, k, ba, scal, gmax, norm,
+                                               out, partial, md, scale);
 }
 
 // The stats sweep's fp64 partial pairs per sample (the wrapper's count is
@@ -572,16 +288,9 @@ static int launch_sweep_md(const void* q, const void* k, const BiasArgs& ba,
                            const void* scal, const void* gmax,
                            const void* norm, void* out, void* partial, int B,
                            int md, float scale, cudaStream_t s) {
-  // + 1024: the q tiles start at the first 1024-byte boundary.
-  const size_t smem = NMODES * B3_ROWS * MDP * 2 +
-                      B3_STAGES * (NMODES * B3_KEYS * MDP * 2 + 16) +
-                      CorrWindow::SMEM + 1024;
+  const size_t smem = sweep_smem<MDP, CorrWindow>();
   auto kernel = corr_sweep_kernel<MDP, WRITE, O>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  cudaError_t err = allow_sweep_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<sweep_grid(B, ba.U1, ba.U2, 1), B3_THREADS, smem, s>>>(
       (const bf16*)q, (const bf16*)k, ba, (const float*)scal,
@@ -596,9 +305,7 @@ static int launch_sweep(const void* q, const void* k, const BiasArgs& ba,
                         const void* scal, const void* gmax, const void* norm,
                         void* out, void* partial, int B, int md, float scale,
                         cudaStream_t s) {
-  if (md <= 0 || md > MAXMD || md % 16 != 0 ||
-      (((uintptr_t)q | (uintptr_t)k) & 15) != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!sweep_takes(q, k, md)) return (int)cudaErrorInvalidValue;
   if (md <= 16)
     return launch_sweep_md<16, WRITE, O>(q, k, ba, scal, gmax, norm, out,
                                          partial, B, md, scale, s);

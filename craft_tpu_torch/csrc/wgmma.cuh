@@ -1,6 +1,7 @@
 // Tensor-core pieces of the bf16 bodies (sm_90a), shared by B1
-// (scores_max.cu), B2 and B8 (flash_attn.cu), B3 and B9 (corr_norm.cu), B4
-// (softmax_probs.cu), B6's backward (agg_corr.cu) and B7 (probs_bwd.cu):
+// (scores_max.cu), B2 and B8 (flash_attn.cu), B3, B9, B6 and B6 dense (the
+// sweep of agg_modes.cuh), B4 (softmax_probs.cu), B6's backward
+// (agg_corr.cu) and B7 (probs_bwd.cu):
 // asynchronous copies, the wgmma wrappers and fences, mbarriers, matrix
 // descriptors and the swizzles they name, staged 16-byte stores, and the
 // bias sources on accumulator fragments (the sliding window, none, a dense
@@ -431,16 +432,38 @@ struct MmaWindowT {
       }
     }
   }
+  // The sweep's form (agg_modes.cuh): pos_w * the bias of keys key0 ..
+  // key0 + 8 NT - 1 added to NM accumulator sets of one fragment layout
+  // (every mode's scores of the same elements).  The tile row and the
+  // stage are the table's; the window takes its rows from init.
+  template <int NM, int NT>
+  __device__ __forceinline__ void add_modes(float (&acc)[NM][NT][4], int,
+                                            int key0, const unsigned char*,
+                                            float pos_w) const {
+    if (!keys_in_window(key0, 8 * NT)) return;  // warp-uniform
+    int kh, kw;
+    first_col(key0, kh, kw);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float bj[4];
+      col_bias(kh, kw, pos_w, bj);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int m = 0; m < NM; ++m) acc[m][j][e] += bj[e];
+    }
+  }
 };
 
-// Bias sources of the bf16 bodies of B2/B8 and B4 (B4 dense), beside
-// MmaWindowT.  STAGE: bytes a ring stage takes beside the keys (and
+// Bias sources of the bf16 bodies of B2/B8, B4 (B4 dense) and the sweep of
+// B3/B9 and B6 (B6 dense), beside MmaWindowT.  STAGE: bytes a ring stage takes beside the keys (and
 // values); SMEM: bytes after the ring.  init(smem, args, qt) once per block
 // (published by the first barrier of the key loop); load(stage, kt) starts
 // the asynchronous copies of key tile kt (committed with k and v);
 // add(sc, kt, stage, pos_w) adds pos_w * bias to the thread's fragments
 // sc[j][e] of key tile kt: rows warp * 16 + g (e < 2) and + 8 (e >= 2),
-// columns 8 j + 2 t + (e & 1), with g = lane / 4, t = lane % 4.
+// columns 8 j + 2 t + (e & 1), with g = lane / 4, t = lane % 4;
+// add_modes(acc, r, key0, stage, pos_w) the sweep's form (MmaWindowT).
 struct MmaNoBias {
   static constexpr int STAGE = 0, SMEM = 0;
   __device__ __forceinline__ void init(unsigned char*, const BiasArgs&,
@@ -448,12 +471,17 @@ struct MmaNoBias {
   __device__ __forceinline__ void load(unsigned char*, int) {}
   __device__ __forceinline__ void add(float (*)[4], int, unsigned char*,
                                       float) const {}
+  template <int NM, int NT>
+  __device__ __forceinline__ void add_modes(float (&)[NM][NT][4], int, int,
+                                            const unsigned char*,
+                                            float) const {}
 };
 
 // A ROWS x KEYS (64) fp32 tile of the table a stage, for blocks of THREADS
-// threads whose warp w owns rows 16 w .. 16 w + 15; its 16-byte chunks are
-// swizzled by (row % 4) * 2: the 8-byte reads of a half-warp (rows g =
-// 0..3 or 4..7, columns 8 j + 2 t) then fall in 16 different banks.
+// threads (add: whose warp w owns rows 16 w .. 16 w + 15; add_modes: the
+// sweep's warps, which share rows); its 16-byte chunks are swizzled by
+// (row % 4) * 2: the 8-byte reads of a half-warp (rows g = 0..3 or 4..7,
+// columns 8 j + 2 t) then fall in 16 different banks.
 template <int ROWS, int KEYS, int THREADS>
 struct MmaTableT {
   static constexpr int STAGE = ROWS * KEYS * 4, SMEM = 0;
@@ -517,6 +545,32 @@ struct MmaTableT {
       sc[j][1] += pos_w * b0.y;
       sc[j][2] += pos_w * b1.x;
       sc[j][3] += pos_w * b1.y;
+    }
+  }
+  // The sweep's form (agg_modes.cuh), whose warps share rows and split the
+  // keys: pos_w * the table at tile rows r, r + 8 and keys key0 .. key0 +
+  // 8 NT - 1 (key0 % KEYS: where the warpgroup's keys start in the tile),
+  // added to NM accumulator sets of one fragment layout.
+  template <int NM, int NT>
+  __device__ __forceinline__ void add_modes(float (&acc)[NM][NT][4], int r,
+                                            int key0, const unsigned char* st,
+                                            float pos_w) const {
+    const float* ts = reinterpret_cast<const float*>(st);
+    const int t = threadIdx.x & 3;
+    const int sw = (r & 3) << 1;  // r % 4 == (r + 8) % 4
+    const int c0 = (key0 & (KEYS - 1)) >> 2;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int off = (((c0 + 2 * j + (t >> 1)) ^ sw) << 2) + ((t & 1) << 1);
+      const float2 b0 = *reinterpret_cast<const float2*>(ts + r * KEYS + off);
+      const float2 b1 =
+          *reinterpret_cast<const float2*>(ts + (r + 8) * KEYS + off);
+      const float bj[4] = {pos_w * b0.x, pos_w * b0.y, pos_w * b1.x,
+                           pos_w * b1.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int m = 0; m < NM; ++m) acc[m][j][e] += bj[e];
     }
   }
 };

@@ -16,9 +16,10 @@ q_m k_m^T:
   dagg_w          = sum g * sum_m p_m s_m (s_m - vol);  dagg_b = 0
 The kernels (csrc/agg_corr.cu) compute vol and (dc, dagg_w); the products
 dq/dk run as plain fp32 matrix products, as the JAX package leaves them to
-XLA.  The backward's bf16 body (wgmma tiles) takes a mode dim that is a
-multiple of 16 and 16-byte aligned q and k; its fp64 partials of dagg_w
-are bwd_partials(...), one a block of the grid that the body launches.
+XLA.  The bf16 bodies (wgmma tiles: the forward B3's sweep in
+csrc/agg_modes.cuh, the backward its own) take a mode dim that is a
+multiple of 16 and 16-byte aligned q and k; the backward's fp64 partials of
+dagg_w are bwd_partials(...), one a block of the grid that it launches.
 pos_w is a config constant and gets no gradient; clip comes from B1 on
 detached q and k, so the clamp predicate carries none either.
 """
@@ -87,14 +88,16 @@ def fused_agg_corr_plain(q, k, biases, grid_hw, clip, pos_w, agg_w, agg_b):
 def fused_agg_corr(q, k, biases, grid_hw, clip, pos_w: float, agg_w, agg_b):
     """vol[b] = sum_m softmax_m(agg_w s_m + agg_b) s_m, s_m = clamp(scale
     q_m k_m^T, +-clip) + pos_w * bias, as [B, U, U] fp32 (fp64 for fp64
-    inputs on the CPU).  q, k: [B, 4, U, md]; biases: the [2R+1, 2R+1]
-    window over the (H8, W8) token grid; clip: 0-d tensor or float."""
+    inputs on the CPU).  q, k: [B, 4, U, md] (bf16: md a multiple of 16,
+    16-byte aligned); biases: the [2R+1, 2R+1] window over the (H8, W8)
+    token grid; clip: 0-d tensor or float."""
     if not q.is_cuda:
         return fused_agg_corr_plain(q, k, biases, grid_hw, clip, pos_w,
                                     agg_w, agg_b)
     _shape_check(q, k, "fused_agg_corr")
     (q, k), bf16 = prep(q, k)
     B, _, U, md = q.shape
+    check_mma_tiles("fused_agg_corr", bf16, md, "q and k", q, k)
     R = (biases.shape[0] - 1) // 2
     out = torch.empty(B, U, U, dtype=torch.float32, device=q.device)
     win, scal = f32(biases, q), _scal(q, clip, pos_w, agg_w, agg_b)
@@ -116,8 +119,9 @@ def fused_agg_corr_dense(q, k, table, clip, pos_w: float, agg_w, agg_b):
     """vol[b] = sum_m softmax_m(agg_w s_m + agg_b) s_m with s_m = clamp(scale
     q_m k_m^T, +-clip) + pos_w * table, as [B, U1, U2] fp32: the counterpart
     of ``craft_tpu.ops.pallas.mode_attention.fused_agg_corr`` (B6 dense).
-    q: [B, 4, U1, md]; k: [B, 4, U2, md]; table: fp32 [U1, U2] or None (no
-    bias); clip: 0-d tensor or float."""
+    q: [B, 4, U1, md]; k: [B, 4, U2, md] (bf16: md a multiple of 16, q and
+    k 16-byte aligned); table: fp32 [U1, U2] or None (no bias); clip: 0-d
+    tensor or float."""
     check_table(table, q, k)
     if not q.is_cuda:
         return fused_agg_corr_dense_plain(q, k, table, clip, pos_w, agg_w,
@@ -128,6 +132,7 @@ def fused_agg_corr_dense(q, k, table, clip, pos_w: float, agg_w, agg_b):
     if M != _MODES or k.shape[:2] != (B, M):
         raise ValueError(f"fused_agg_corr_dense: q, k must be [B, {_MODES}, "
                          f"U, md], got {tuple(q.shape)} and {tuple(k.shape)}")
+    check_mma_tiles("fused_agg_corr_dense", bf16, md, "q and k", q, k)
     out = torch.empty(B, U1, U2, dtype=torch.float32, device=q.device)
     table = None if table is None else table.contiguous()
     scal = _scal(q, clip, pos_w, agg_w, agg_b)

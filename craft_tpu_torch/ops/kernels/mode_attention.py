@@ -73,10 +73,10 @@ _LIB_OF = {"scores_max_launch": "scores_max",
 FLASH_FEAT = 256  # csrc/flash_attn.cu FEAT: the f2 site's feature width
 # Scratch sizes follow the kernels' grids: the fp32 bodies' tiles
 # (csrc/common.cuh TILE, csrc/agg_modes.cuh KGROUP) and the bf16 bodies'
-# (csrc/scores_max.cu B1_*, csrc/corr_norm.cu B3_*, csrc/softmax_probs.cu
-# B4_*).  The kernels refuse a scratch of another size, and
-# tests/test_torch_kernel_grids.py holds these constants against the
-# sources.
+# (csrc/scores_max.cu B1_*, csrc/agg_modes.cuh B3_* (B3's and B9's sweeps,
+# which B6's forward shares), csrc/softmax_probs.cu B4_*).  The kernels
+# refuse a scratch of another size, and tests/test_torch_kernel_grids.py
+# holds these constants against the sources.
 _TILE, _KGROUP = 64, 8
 _B1_ROWS, _B1_KEYS, _B1_KCHUNK = 128, 64, 16
 _B3_ROWS, _B3_KEYS, _B3_KGROUP = 128, 64, 8
@@ -224,7 +224,7 @@ def check_table(table, q, k) -> None:
 
 def check_mma_tiles(what: str, bf16: int, md: int, names: str,
                     *tensors) -> None:
-    """The bf16 bodies on the tensor cores (B1-B4, B8, B9) take a mode
+    """The bf16 bodies on the tensor cores (B1-B4, B6-B9) take a mode
     dim that is a multiple of 16 and 16-byte aligned tensors (`names`);
     raises on anything else.  fp32 takes any md <= 64."""
     if not bf16:

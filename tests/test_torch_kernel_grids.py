@@ -1,4 +1,5 @@
-"""The scratch the wrappers size against the grids the kernels launch.
+"""The scratch the wrappers size against the grids the kernels launch, and
+the shared memory of the sweep that B3, B9, B6 and B6 dense share.
 
 B1's partial maxima, the fp64 partial sums of B3's and B9's stats sweep and
 of B6 backward's agg_w gradient are one per block, B4's (max, sum) pairs
@@ -9,6 +10,8 @@ second pass reads unset.  The kernels refuse a count other than their own
 on the card; here, without a compiler, the tile constants are read from the
 CUDA sources and the grids they give (the launchers' formulas, written out
 below) are held against the wrapper's counts at the shapes the paths run.
+The same constants give each instantiation of the sweep's body its shared
+memory, which must fit the 232,448 bytes a block may have on an H100.
 """
 
 import re
@@ -35,10 +38,10 @@ def _cdiv(a: int, b: int) -> int:
 
 def _source_partials():
     """(B1 partials, B3 partial doubles, B4 pairs) as the sources'
-    launchers count them: scores_max.cu max_partials, corr_norm.cu
+    launchers count them: scores_max.cu max_partials, agg_modes.cuh
     sweep_grid, softmax_probs.cu probs_partials."""
     common, agg = _defines("common.cuh"), _defines("agg_modes.cuh")
-    b1, b3 = _defines("scores_max.cu"), _defines("corr_norm.cu")
+    b1, b3 = _defines("scores_max.cu"), agg
     b4 = _defines("softmax_probs.cu")
 
     def b1_partials(BM, U1, U2, bf16):
@@ -72,7 +75,7 @@ def test_the_launchers_count_from_these_constants():
     body = body[:body.index("\n}\n")]
     for name in ("TILE", "B1_ROWS", "B1_KEYS", "B1_KCHUNK"):
         assert name in body, name
-    b3 = (CSRC / "corr_norm.cu").read_text()
+    b3 = (CSRC / "agg_modes.cuh").read_text()
     body = b3[b3.index("static dim3 sweep_grid"):]
     body = body[:body.index("\n}\n")]
     for name in ("TILE", "KGROUP", "B3_ROWS", "B3_KEYS", "B3_KGROUP"):
@@ -186,3 +189,101 @@ def test_the_serving_grids():
     assert ma.scores_max_partials(4, 7040, 7040, 1) == 1540
     assert ma.corr_partials(1, 7040, 7040, 1) == 2 * 770
     assert ma.probs_partials(4, 7040, 7040, 1) == 1540 * 128
+
+
+# ------------------------------------------- the sweep's shared memory
+
+SMEM_PER_BLOCK = 232448  # an H100 block's most, static and dynamic
+MDPS = (16, 32, 64)
+BIASES = ("window", "none", "table")
+
+
+def _bias_bytes(bias: str) -> tuple:
+    """(bytes a ring stage takes beside the k tiles, bytes after the ring)
+    of the sweep's bias sources (wgmma.cuh CorrWindow = MmaWindowT,
+    MmaNoBias, CorrTable = MmaTableT at agg_modes.cuh's tile)."""
+    agg, common = _defines("agg_modes.cuh"), _defines("common.cuh")
+    if bias == "window":
+        return 0, (common["MAXWIN"] * 4 + 15) // 16 * 16
+    if bias == "table":
+        return agg["B3_ROWS"] * agg["B3_KEYS"] * 4, 0
+    return 0, 0
+
+
+# The body's static shared memory: its fp64 sums red[2][B3_THREADS / 32]
+# (256 bytes), which ptxas reports as 1024 bytes for the stats sweep (the
+# dynamic tiles' 1024-byte alignment).
+STATIC_SMEM = 1024
+
+
+def _sweep_smem(mdp: int, bias: str) -> int:
+    """agg_modes.cuh sweep_smem<MDP, Bias>() and the static bytes."""
+    agg = _defines("agg_modes.cuh")
+    stage, after = _bias_bytes(bias)
+    stages = agg["B3_TABLE_STAGES"] if stage else agg["B3_STAGES"]
+    dynamic = (agg["NMODES"] * agg["B3_ROWS"] * mdp * 2
+               + stages * (agg["NMODES"] * agg["B3_KEYS"] * mdp * 2 + stage
+                           + 16) + after + 1024)
+    assert 2 * agg["B3_THREADS"] // 32 * 8 <= STATIC_SMEM
+    return dynamic + STATIC_SMEM
+
+
+def test_the_sweep_smem_follows_these_constants():
+    """The formulas above are the sources': sweep_smem and sweep_stages
+    name their constants, the bias sources state their bytes, and every
+    launcher of the body sizes it with sweep_smem."""
+    agg = (CSRC / "agg_modes.cuh").read_text()
+    for fn, names in (("constexpr size_t sweep_smem", (
+            "NMODES", "B3_ROWS", "B3_KEYS", "Bias::STAGE", "Bias::SMEM",
+            "sweep_stages", "1024")),
+            ("constexpr int sweep_stages", ("B3_TABLE_STAGES",
+                                            "B3_STAGES"))):
+        body = agg[agg.index(fn):]
+        body = body[:body.index("\n}\n")]
+        for name in names:
+            assert name in body, (fn, name)
+    assert "__shared__ double red[2][B3_THREADS / 32];" in agg
+    assert "typedef MmaWindowT<B3_ROWS, B3_KEYS, B3_THREADS> CorrWindow;" \
+        in agg
+    assert "typedef MmaTableT<B3_ROWS, B3_KEYS, B3_THREADS> CorrTable;" in agg
+    mma = (CSRC / "wgmma.cuh").read_text()
+    for struct, decl in (
+            ("struct MmaWindowT", "STAGE = 0, SMEM = (MAXWIN * 4 + 15) / 16 "
+                                  "* 16;"),
+            ("struct MmaNoBias", "STAGE = 0, SMEM = 0;"),
+            ("struct MmaTableT", "STAGE = ROWS * KEYS * 4, SMEM = 0;")):
+        body = mma[mma.index(struct):]
+        assert decl in body[:body.index("\n};\n")], struct
+    for src, calls in (("corr_norm.cu", ("sweep_smem<MDP, CorrWindow>()",)),
+                       ("agg_corr.cu", ("sweep_smem<MDP, Bias>()",))):
+        text = (CSRC / src).read_text()
+        for call in calls:
+            assert call in text, (src, call)
+    text = (CSRC / "agg_corr.cu").read_text()
+    for bias in ("CorrWindow", "MmaNoBias", "CorrTable"):
+        assert f"launch_fwd<{bias}," in text, bias
+    # B6's bf16 forward launches B3's sweep grid, so its blocks are those
+    # the B3 partials above count.
+    body = text[text.index("static int launch_fwd_md"):]
+    assert "sweep_grid(B, ba.U1, ba.U2, 1)" in body[:body.index("\n}\n")]
+
+
+@pytest.mark.parametrize("bias", BIASES)
+@pytest.mark.parametrize("mdp", MDPS)
+def test_every_sweep_fits_a_block(mdp, bias):
+    assert _sweep_smem(mdp, bias) <= SMEM_PER_BLOCK
+
+
+def test_the_sweeps_shared_memory_at_md_64():
+    """The bytes the sources' notes state: B3's sweep 194 KB (q 64 KB, a
+    4-stage ring of 32 KB), B6 dense's with a table 194 KB too (a 2-stage
+    ring of 64 KB)."""
+    assert _sweep_smem(64, "window") // 1024 == 194
+    assert _sweep_smem(64, "table") // 1024 == 194
+
+
+def test_the_chairs_forward_grid():
+    """B6's bf16 forward at chairs (U = 2852, batch 8): 23 x 6 x 8 = 1104
+    blocks, as agg_corr.cu's note states."""
+    _, b3_partials, _ = _source_partials()
+    assert b3_partials(8, 2852, 2852, 1) == 2 * 1104

@@ -1,6 +1,7 @@
 """The CUDA kernels (B1-B4, the training kernels B6 forward and backward
 and B7 backward (their bf16 bodies also at misaligned and ragged grids,
-BM 1 to 32, twice for bit-identity), the lookup B5 forward and
+BM 1 to 32, twice for bit-identity, B6's forward against the faults
+planted against its tiles), the lookup B5 forward and
 backward, the dense-table kernels B8, B6 dense and B4 dense, the sequence-parallel B9 with B1,
 B2 and B4 on row shards, and the fused SepConvGRU pass B10 forward and
 backward) against their plain versions at small ragged
@@ -567,6 +568,74 @@ def test_b6_backward_bf16_body_on_ragged_grids(dev, grid, batch, md, clip):
     assert torch.equal(dc, dc2) and torch.equal(da, da2)
 
 
+# B6's forward in bf16 runs B3's sweep: 128-row blocks of two 64-row
+# warpgroup halves, 64-key tiles of two 32-key halves.
+_AGG = (1.3, 0.1)
+
+
+def _agg(dev):
+    return tuple(torch.tensor(x, device=dev) for x in _AGG)
+
+
+@pytest.mark.parametrize("grid", TILE_GRIDS)
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("md", [16, 32, 64])
+@pytest.mark.parametrize("clip", [1e30, 0.4])
+def test_b6_forward_bf16_body_on_ragged_grids(dev, grid, batch, md, clip):
+    q, k, biases = _inputs(dev, grid, md, torch.bfloat16, seed=8, **_PEAKY)
+    q, k = q[:batch], k[:batch]
+    got = cv.fused_agg_corr(q, k, biases, grid, clip, 0.5, *_agg(dev))
+    want = cv.fused_agg_corr_plain(q, k, biases, grid, clip, 0.5,
+                                   *_agg(dev))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(got, cv.fused_agg_corr(q, k, biases, grid, clip, 0.5,
+                                              *_agg(dev)))
+
+
+@pytest.mark.parametrize("fault", ["mode 0", "half window", "wb"])
+@pytest.mark.parametrize("clip", [1e30, 0.4])
+def test_b6_forward_bound_catches_the_tile_faults(dev, fault, clip):
+    """The kernel within 1e-4 of the plain volume, and each fault that
+    chip_smoke.py plants against the tiles outside it (10 x 62: five
+    128-row blocks, ten 64-key tiles)."""
+    import chip_smoke as cs
+    name = {"mode 0": cs.B6_MODE0, "half window": cs.B6_HALF_WINDOW,
+            "wb": cs.B6_WB}[fault]
+    grid = (10, 62)
+    q, k, biases = _inputs(dev, grid, 64, torch.bfloat16, seed=9, **_PEAKY)
+    got = cv.fused_agg_corr(q, k, biases, grid, clip, 0.5, *_agg(dev))
+    want = cv.fused_agg_corr_plain(q, k, biases, grid, clip, 0.5,
+                                   *_agg(dev))
+    bad = cs.b6_fwd_fault(q, k, ma.window_rows(biases, grid, q, k), clip,
+                          0.5, *_agg(dev), name)
+    assert _rel(got, want) <= 1e-4 < _rel(bad, want)
+
+
+def test_b6_forward_bf16_body_rejects_what_it_does_not_take(dev):
+    """md a multiple of 16 and 16-byte aligned q and k; fp32 takes md 24
+    and any offset."""
+    grid = (6, 62)
+    q, k, biases = _inputs(dev, grid, 24, torch.bfloat16)
+    agg = _agg(dev)
+    for fn in (lambda a, b: cv.fused_agg_corr(a, b, biases, grid, 0.4, 0.5,
+                                              *agg),
+               lambda a, b: cv.fused_agg_corr_dense(a, b, None, 0.4, 0.5,
+                                                    *agg)):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fn(q, k)
+        fn(q.float(), k.float())
+    q, k, _ = _inputs(dev, grid, 64, torch.bfloat16)
+    flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=dev)
+    k_off = flat[1:].view(k.shape)  # contiguous, 2 bytes past alignment
+    k_off.copy_(k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cv.fused_agg_corr(q, k_off, biases, grid, 0.4, 0.5, *agg)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cv.fused_agg_corr_dense(k_off, q, None, 0.4, 0.5, *agg)
+    cv.fused_agg_corr(q, k, biases, grid, 0.4, 0.5, *agg)
+
+
 def test_b6_b7_bf16_bodies_reject_what_they_do_not_take(dev):
     """md a multiple of 16 and 16-byte aligned tensors; fp32 takes md 24
     and any offset."""
@@ -655,6 +724,31 @@ def test_b6_dense_forward(dev, dtype, with_table, shape, clip):
     want = cv.fused_agg_corr_dense_plain(q, k, table, clip, 0.5, *agg)
     assert got.dtype == torch.float32 and got.shape == (2, *shape)
     assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("with_table", [False, True])
+@pytest.mark.parametrize("shape", [(1240, 1240), (500, 1404), (300, 129)])
+@pytest.mark.parametrize("md", [16, 32, 64])
+def test_b6_dense_bf16_body_at_wide_shapes(dev, with_table, shape, md):
+    """B6 dense's bf16 body (B3's sweep with no bias or a table tile in
+    each ring stage) over several 128-row blocks and key groups, ragged
+    both ways, U2 odd (129), twice for bit-identity, against the faults
+    planted against its tiles."""
+    import chip_smoke as cs
+    q, k, table, _ = _dense_inputs(dev, shape, md, torch.bfloat16,
+                                   with_table)
+    agg = _agg(dev)
+    got = cv.fused_agg_corr_dense(q, k, table, 0.4, 0.5, *agg)
+    want = cv.fused_agg_corr_dense_plain(q, k, table, 0.4, 0.5, *agg)
+    assert got.dtype == torch.float32 and got.shape == (2, *shape)
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(got, cv.fused_agg_corr_dense(q, k, table, 0.4, 0.5,
+                                                    *agg))
+    faults = [cs.B6_MODE0, cs.B6_WB] + ([cs.B6_TABLE_ROWS] if with_table
+                                        else [])
+    for fault in faults:
+        bad = cs.b6_fwd_fault(q, k, table, 0.4, 0.5, *agg, fault)
+        assert _rel(bad, want) > 1e-4, fault
 
 
 @pytest.mark.parametrize("io", [(torch.bfloat16, torch.bfloat16),

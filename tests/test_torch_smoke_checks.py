@@ -9,7 +9,10 @@ for the training kernels the backward's clamp mask, its agg_w
 term or its softmax row term dropped (and, against the bf16 bodies' tiles,
 B6 backward's dc of every mode from mode 0's scores or its da over the
 first key group only, B7's row term over the first column tile only or
-its dlsum of the last bm only, and a backward whose two launches differ),
+its dlsum of the last bm only, B6 forward's and B6 dense's vol of every
+mode from mode 0's scores, the window over one warpgroup's keys, the
+table read with another warpgroup's rows or a normalisation offset left
+in, and a forward or backward whose two launches differ),
 for
 the lookup its channel order swapped, clamped padding, a wrong level scale
 or the y blend dropped, and for the dense-table kernels a transposed table,
@@ -332,6 +335,54 @@ def test_train_checks_catch_a_fault_against_the_tiles(monkeypatch, wrapper,
         _run_train_tiles()
 
 
+def _run_b6_forward(seed=0):
+    report = {"fused_agg_corr": {}}
+    gen = torch.Generator().manual_seed(seed)
+    biases = torch.randn(15, 15, generator=gen) * chip_smoke.BIAS_STD
+    chip_smoke.check_b6_forward(CPU, gen, report, biases, grid=TILE_GRID,
+                                batch=TRAIN_BATCH)
+    return report
+
+
+def test_tile_fault_grid_spans_the_forward_blocks():
+    """B6's forward tiles: more than one 128-row block of two 64-row
+    halves, and many 64-key tiles of two 32-key halves."""
+    u = TILE_GRID[0] * TILE_GRID[1]
+    assert u > 4 * chip_smoke.B6_ROW_HALF and u > 8 * chip_smoke.B6_KEY_HALF
+
+
+@pytest.mark.parametrize("fault", [chip_smoke.B6_MODE0,
+                                   chip_smoke.B6_HALF_WINDOW,
+                                   chip_smoke.B6_WB])
+def test_b6_forward_checks_catch_a_fault_against_the_tiles(monkeypatch,
+                                                           fault):
+    def faulty(q, k, biases, grid, clip, pos_w, agg_w, agg_b):
+        return chip_smoke.b6_fwd_fault(q, k, ma.window_rows(biases, grid, q,
+                                                            k),
+                                       clip, pos_w, agg_w, agg_b, fault)
+    monkeypatch.setattr(cv, "fused_agg_corr", faulty)
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run_b6_forward()
+
+
+@pytest.mark.parametrize("wrapper", ["fused_agg_corr",
+                                     "fused_agg_corr_dense"])
+def test_checks_catch_a_forward_that_is_not_repeatable(monkeypatch,
+                                                       wrapper):
+    plain = getattr(cv, wrapper + "_plain")
+    calls = []
+
+    def drifting(*a):
+        calls.append(1)
+        return plain(*a) * (1.0 + len(calls) * 2.0 ** -20)
+    monkeypatch.setattr(cv, wrapper, drifting)
+    with pytest.raises(AssertionError, match="two launches differ"):
+        if wrapper == "fused_agg_corr":
+            _run_b6_forward()
+        else:
+            _run_dense()
+
+
 @pytest.mark.parametrize("wrapper", ["agg_corr_bwd", "probs_bwd"])
 def test_train_checks_catch_a_backward_that_is_not_repeatable(monkeypatch,
                                                               wrapper):
@@ -442,6 +493,20 @@ def test_dense_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper,
                                                    fault):
     module = cv if wrapper == "fused_agg_corr_dense" else ma
     monkeypatch.setattr(module, wrapper, _dense_fault(wrapper, fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run_dense()
+
+
+@pytest.mark.parametrize("fault", [chip_smoke.B6_MODE0,
+                                   chip_smoke.B6_TABLE_ROWS,
+                                   chip_smoke.B6_WB])
+def test_dense_checks_catch_a_b6_fault_against_the_tiles(monkeypatch, fault):
+    """B6 dense against its bf16 body's tiles, at GRID (U = 120: the rows
+    of a 128-row block's second half are ragged)."""
+    def faulty(q, k, table, clip, pos_w, agg_w, agg_b):
+        return chip_smoke.b6_fwd_fault(q, k, table, clip, pos_w, agg_w, agg_b,
+                                       fault)
+    monkeypatch.setattr(cv, "fused_agg_corr_dense", faulty)
     with pytest.raises(AssertionError, match="disagrees"):
         _run_dense()
 

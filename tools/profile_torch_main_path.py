@@ -46,7 +46,8 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     # B6 backward and B7: their fp32 bodies and their bf16 (wgmma) bodies.
     ("B6 agg_corr_bwd", ("agg_corr_bwd_kernel", "agg_bwd_wgmma_kernel",
                          "sum_partials_kernel")),
-    ("B6 / B6 dense agg_corr", ("agg_corr_kernel",)),
+    ("B6 / B6 dense agg_corr", ("agg_corr_kernel",
+                                "agg_corr_wgmma_kernel")),
     ("B7 probs_bwd", ("probs_bwd_kernel", "probs_bwd_wgmma_kernel",
                       "probs_row_kernel")),
     ("B5 lookup_bwd", ("lookup_bwd_kernel",)),

@@ -16,9 +16,11 @@ W8=156):
   B4 (mode_softmax_probs) int8 at serving and KITTI, bf16 probs at chairs
   (md 32 and 64), and fp32 at serving (its fp32 body);
   B5 (corr_lookup) forward and backward at serving and chairs, bf16 levels;
-  B6 (fused_agg_corr) forward and backward at chairs, md 64;
-  B6 dense and B4 dense (bf16 probs) at serving, B4 dense with no table
-  and with the --f2radius 7 table;
+  B6 (fused_agg_corr) forward and backward at chairs, md 64 (the backward
+  on the plain version's volume, so that both checkouts' backwards read
+  the same bits);
+  B6 dense and B4 dense (bf16 probs) at serving, each with no table and
+  with the --f2radius 7 table;
   B7 (probs_bwd) at chairs, md 64 and 32;
   B8 (flash_mode_attention_dense) at serving, with no table and with the
   --f2radius 7 table (pos_w * the dense window + the mask);
@@ -68,7 +70,8 @@ SAVED = ("B1", "B1_md32", "B1_chairs", "B1_fp32", "B2", "B2_fp32", "B3",
          "B3_kitti", "B3_fp32", "B4", "B4_kitti", "B4_chairs_md32",
          "B4_chairs_md64", "B4_dense", "B4_dense_table", "B5", "B5_chairs",
          "B8", "B8_table", "B8_fp32_table", "B9_sums_r0", "B9_sums_r1",
-         "B9_write_r0", "B9_write_r1", "B7_md64", "B7_md32", "B6_bwd")
+         "B9_write_r0", "B9_write_r1", "B7_md64", "B7_md32", "B6", "B6_bwd",
+         "B6_dense", "B6_dense_table")
 # The second output kept beside the first, by case: B7's dlsum, B6
 # backward's da.
 SECOND = {"B7_md64": "dlsum", "B7_md32": "dlsum", "B6_bwd": "da"}
@@ -152,6 +155,8 @@ def _cases(torch, dev):
             q32, k32, table, clip, 1.0),
         "B6_dense": lambda: cv.fused_agg_corr_dense(q64, k64, None, clip,
                                                     0.5, agg_w, agg_b),
+        "B6_dense_table": lambda: cv.fused_agg_corr_dense(
+            q64, k64, table, clip, 0.5, agg_w, agg_b),
         "B8": lambda: ma.flash_mode_attention_dense(q64, k64, v, None, clip,
                                                     0.5),
         "B8_table": lambda: ma.flash_mode_attention_dense(q64, k64, v, table,
@@ -170,8 +175,8 @@ def _cases(torch, dev):
                                                 coords, RADIUS)
         cases["B5_bwd" + label] = functools.partial(
             lk.corr_lookup_bwd, coords, g, shapes, torch.bfloat16, RADIUS)
-    vol = cv.fused_agg_corr(qc64, kc64, biases, CHAIRS, clip, 0.5, agg_w,
-                            agg_b)
+    vol = cv.fused_agg_corr_plain(qc64, kc64, biases, CHAIRS, clip, 0.5,
+                                  agg_w, agg_b)
     g_vol = randn(8, uc, uc, dtype=torch.float32)
     cases["B6"] = lambda: cv.fused_agg_corr(qc64, kc64, biases, CHAIRS, clip,
                                             0.5, agg_w, agg_b)

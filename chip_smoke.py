@@ -937,6 +937,39 @@ def _b5_bwd_fault(coords, g, shapes, r, fault):
             for lv, d in zip(levels, grads)]
 
 
+# B5's backward writes each level as 16-byte units (8 bf16, 4 fp32), one
+# writer each; at odd slab sizes a unit straddles two queries.  A kernel
+# that skipped such a unit, or had two writers add into it, would show as
+# these faults.
+B5_UNIT_FAULTS = ("straddling unit dropped", "straddling unit doubled")
+
+
+def _b5_unit_faults(want, dtype) -> dict:
+    """{fault: want with every nonzero unit that straddles two queries
+    zeroed or doubled}, for the B5_UNIT_FAULTS that these shapes can show
+    (none where every slab fills whole units)."""
+    ue = 16 // torch.empty((), dtype=dtype).element_size()
+    sel = []
+    for d in want:
+        hw, n = d.shape[1] * d.shape[2], d.numel()
+        if n == 0:
+            sel.append(None)
+            continue
+        nu = -(-n // ue)
+        first = torch.arange(nu, device=d.device) * ue
+        last = (first + ue).clamp(max=n) - 1
+        pad = d.new_zeros(nu * ue)
+        pad[:n] = d.reshape(-1).abs()
+        unit = ((first // hw != last // hw)
+                & (pad.view(nu, ue).amax(1) > 0))
+        sel.append(unit.repeat_interleave(ue)[:n].view_as(d))
+    if not any(m is not None and bool(m.any()) for m in sel):
+        return {}
+    return {f: [d if m is None else torch.where(
+        m, d * (0.0 if f == B5_UNIT_FAULTS[0] else 2.0), d)
+        for d, m in zip(want, sel)] for f in B5_UNIT_FAULTS}
+
+
 def level_rel_err(got, want) -> float:
     """Per element |got - want| / |want| (0 where both are 0), the worst
     over every level."""
@@ -970,14 +1003,57 @@ def check_lookup(dev, report, shapes=LOOKUP_SHAPES) -> None:
                                         RADIUS)
         hold(f"B5 backward {label} {dtype}", got, want, level_rel_err,
              B5_BWD_TOL[dtype],
-             {f: _b5_bwd_fault(coords, g, shapes_, RADIUS, f)
-              for f in B5_FAULTS})
+             {**{f: _b5_bwd_fault(coords, g, shapes_, RADIUS, f)
+                 for f in B5_FAULTS}, **_b5_unit_faults(want, dtype)})
         errs["corr_lookup_bwd"].append(max(
             float((a.float() - b).abs().max()) for a, b in zip(got, want)
             if b.numel()))
         del got, want, g
     for name, e in errs.items():
         report[name]["max_abs_err"] = max(e)
+
+
+# B5 at slabs of odd sizes (11 x 15 -> 165, 35, 6 and 1 values a query:
+# 16-byte units straddle queries at every level), batch 3, at the radii
+# 0, 1, 4 and 7 (each a kernel of its own).
+LOOKUP_ODD_GRID = ("odd slabs", 3, 11, 15)
+LOOKUP_RADII = (0, 1, 4, 7)
+
+
+def check_lookup_radii(dev, report, grid=LOOKUP_ODD_GRID,
+                       radii=LOOKUP_RADII) -> None:
+    """Phase 2, B5 at odd slab sizes and every radius of LOOKUP_RADII, bf16
+    and fp32 levels: forward and backward against the plain versions, the
+    backward with B5_UNIT_FAULTS planted (they must be plantable here)."""
+    label, batch, h8, w8 = grid
+    for dtype in (torch.bfloat16, torch.float32):
+        levels, coords = lookup_inputs(dev, batch, h8, w8, dtype, seed=5)
+        top = max(float(lv.float().abs().max()) for lv in levels
+                  if lv.numel())
+        shapes = [tuple(lv.shape) for lv in levels]
+        for r in radii:
+            tag = f"B5 {label} r={r} {dtype}"
+            got = lk.corr_lookup(levels, coords, r)
+            sync(dev)
+            want = lk.corr_lookup_plain(levels, coords, r)
+            hold(f"{tag} forward", got, want,
+                 lambda a, b: float((a - b).abs().max()) / top, B5_FWD_TOL,
+                 {})
+            g = torch.randn(got.shape, generator=torch.Generator(
+                device=dev).manual_seed(6), device=dev)
+            got = lk.corr_lookup_bwd(coords, g, shapes, dtype, r)
+            sync(dev)
+            want = lk.corr_lookup_bwd_plain(coords, g, shapes, torch.float32,
+                                            r)
+            faults = _b5_unit_faults(want, dtype)
+            assert set(faults) == set(B5_UNIT_FAULTS), tag
+            hold(f"{tag} backward", got, want, level_rel_err,
+                 B5_BWD_TOL[dtype], faults)
+            report["corr_lookup_bwd"]["max_abs_err"] = max(
+                report["corr_lookup_bwd"].get("max_abs_err") or 0.0,
+                *(float((a.float() - b).abs().max())
+                  for a, b in zip(got, want) if b.numel()))
+            del got, want, g, faults
 
 
 # Phase 2, the dense-table kernels (B8, B6 dense, B4 dense) at the serving
@@ -2470,6 +2546,10 @@ def time_lookup(dev, report) -> None:
 # batch (368x496, batch 8); the GRU's full width: hidden 128, x = inp 128 +
 # motion 128 + aggregated motion 128.
 GRU_GRIDS = (("serving", 1, H8, W8), ("chairs", TRAIN_BATCH, *CHAIRS_GRID))
+# Phase 2 also checks a ragged grid: 2 x 37 x 61 = 4514 rows, a multiple
+# neither of the backward's 128-row tiles nor of its 64-row weight-gradient
+# steps, in two row splits of 2304 and 2210 rows.
+GRU_CHECK_GRIDS = GRU_GRIDS + (("ragged", 2, 37, 61),)
 GRU_CH, GRU_CX = 128, 384
 # max |kernel - plain| / max |plain| per tensor: (io outputs h', z, r, q,
 # dh, dx; fp32 weight and bias gradients).  fp32: sums of 5 (Ch + Cx) =
@@ -2564,11 +2644,11 @@ def tensors_rel_err(got, want) -> float:
     return max(rel_err(a, b) for a, b in zip(got, want))
 
 
-def check_gru(dev, report, grids=GRU_GRIDS) -> None:
+def check_gru(dev, report, grids=GRU_CHECK_GRIDS) -> None:
     """Phase 2, B10: both passes (horizontal: stride 1, masked at image
     rows; vertical: stride W over the same rows), forward and backward, at
-    the serving and chairs grids, bf16 and fp32 (TF32 off), against the
-    plain versions on the same inputs, with the five B10_FAULTS planted in
+    the serving, chairs and ragged grids, bf16 and fp32 (TF32 off), against
+    the plain versions on the same inputs, with the five B10_FAULTS planted in
     the plain versions; two backwards of one input bit-identical."""
     errs = {"gru_pass_fwd": [], "gru_pass_bwd": []}
     for label, batch, h8, w8 in grids:
@@ -2817,8 +2897,10 @@ def main() -> int:
     for name, src, tpu in (
             ("corr_lookup", "corr_lookup",
              pallas + "corr_lookup.py:corr_lookup_pallas:134"),
+            # No pallas_call: the JAX package takes XLA's VJP of
+            # corr_lookup_mxu as the lookup's backward.
             ("corr_lookup_bwd", "corr_lookup",
-             pallas + "corr_lookup.py:corr_lookup_tpu:216"),
+             pallas + "corr_lookup.py:_lookup_bwd:198"),
             ("fused_agg_corr", "agg_corr",
              TPU_KERNEL.format("fused_agg_corr_mt:394")),
             ("agg_corr_bwd", "agg_corr",
@@ -2850,6 +2932,7 @@ def main() -> int:
     check_train_kernels(dev, gen, report)
     torch.cuda.empty_cache()
     check_lookup(dev, report)
+    check_lookup_radii(dev, report)
     torch.cuda.empty_cache()
     check_dense_kernels(dev, gen, report)
     torch.cuda.empty_cache()

@@ -19,12 +19,27 @@
 // levels' corner loads are in flight together.
 //
 // Backward.  A query reads only its own slab, so queries never share a level
-// element and a warp owns a query's whole gradient: it forms the (2r+2)^2
-// corner cotangents in fp32 from the (2r+1)^2 output cotangents (each corner
-// gathers its up to four taps, as autograd's product rule orders them: the x
-// blend, then the y blend), and writes the query's dense slab once, the
-// corner cotangent inside the window and zero elsewhere.  No atomics, so the
-// result is deterministic.  Coords get no gradient (detached in the model).
+// element: each element of the dense gradient [Q, h_l, w_l] has one writer,
+// and no atomics are needed (the result is deterministic).  Inside the
+// query's (2r+2)^2 window it is the corner cotangent, gathered from the up to
+// four taps of the (2r+1)^2 output cotangents as autograd's product rule
+// orders them (the x blend, then the y blend, __fmul_rn/__fadd_rn); zero
+// elsewhere.  Coords get no gradient (detached in the model).
+//   The gradient is almost all zeros (at chairs 86 M elements a launch, 9 M
+// of them in windows), so the kernel is a store stream: each level is one
+// flat array of Q h_l w_l values cut into 16-byte units (8 bf16, 4 fp32),
+// and a work item owns a run of whole units, so every unit has one writer
+// and every store is 16 bytes wide (slabs of an odd size start anywhere, so a
+// unit may straddle two queries and per-query stores could not be).  Per
+// item: (1) one warp a query forms the corner cotangents of every query whose
+// slab the run touches into shared memory and marks the units that its window
+// span (the flat range from its window's first to its last element) covers;
+// (2) the block writes the run: an unmarked unit is zeros with no index
+// arithmetic, a marked one finds (q, y, x) of its first element once and
+// steps it along its elements.  The items of all levels (level 0 first) form
+// one launch, taken by a grid of whole waves that strides over them; a run is
+// cut short where its slabs are so small that it would touch more queries
+// than the shared memory holds.  The wrapper's tensors are 16-byte aligned.
 //
 // Bound on the H100: bytes.  The forward must read the windows,
 // Q L (2r+2)^2 level values (not the whole pyramid), and write
@@ -36,8 +51,6 @@
 
 #define MAXL 4
 #define MAXR 7
-#define MAXC ((2 * MAXR + 2) * (2 * MAXR + 2))
-#define MAXT ((2 * MAXR + 1) * (2 * MAXR + 1))
 #define WARPS 8
 
 struct Levels {
@@ -151,59 +164,209 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-    lookup_bwd_kernel(Levels dlv, int L, const float* __restrict__ coords,
-                      const float* __restrict__ gout, int Q, int r) {
-  __shared__ float gtap[WARPS][MAXT];
-  __shared__ float gcorner[WARPS][MAXC];
+// The backward's tiling: a work item writes at most B5B_RUN units of one
+// level and touches at most qmax(R) queries, whose corner cotangents
+// (B5B_CBUF floats at most) it holds in shared memory.
+#define B5B_THREADS 256
+#define B5B_RUN 4096
+#define B5B_CBUF 8192
+#define B5B_QMAX 256
+
+__host__ __device__ constexpr int qmax(int r) {
+  return B5B_CBUF / ((2 * r + 2) * (2 * r + 2)) < B5B_QMAX
+             ? B5B_CBUF / ((2 * r + 2) * (2 * r + 2))
+             : B5B_QMAX;
+}
+
+// The backward's work: per level its gradient, size, element count, the
+// units an item takes, and its items [item0, item1) of the launch's.
+struct BwdPlan {
+  void* ptr[MAXL];
+  int h[MAXL], w[MAXL], ub[MAXL], item0[MAXL], item1[MAXL];
+  long long nel[MAXL], units[MAXL];
+};
+
+// Units an item of a level of hw values a query takes: at most B5B_RUN,
+// and few enough that its ub * ue elements touch at most q queries
+// (floor((ub ue - 1) / hw) + 2 <= q when ub ue <= (q - 1) hw).
+static inline int item_units(int hw, int ue, int q) {
+  const long long ub = (long long)(q - 1) * hw / ue;
+  return (int)(ub < 1 ? 1 : ub > B5B_RUN ? B5B_RUN : ub);
+}
+
+// A unit's values in the level type, as one 16-byte word (the lower
+// address in the lower bits).
+__device__ __forceinline__ uint4 pack_unit(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16;
+}
+__device__ __forceinline__ uint4 pack_unit(const float (&v)[8]) {
+  return make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                    pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(B5B_THREADS)
+    lookup_bwd_kernel(BwdPlan pl, int L, int nitems,
+                      const float* __restrict__ coords,
+                      const float* __restrict__ gout) {
+  constexpr int n = 2 * R + 1, m = n + 1, MM = m * m, NN = n * n;
+  constexpr int UE = 16 / sizeof(T);  // elements a unit
+  constexpr int QM = qmax(R);
+  constexpr int NW = B5B_THREADS / 32;
+  __shared__ float gc[QM * MM];  // corner cotangents, per touched query
+  __shared__ int org[QM][2];     // the window's first corner (x0, y0)
+  __shared__ float frac[QM][2];  // and its fractional offset (fx, fy)
+  __shared__ unsigned touched[B5B_RUN / 32];  // units in a window span
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q = blockIdx.x * WARPS + warp;
-  if (q >= Q) return;
-  const int n = 2 * r + 1, m = n + 1;
-  float* gt = gtap[warp];
-  float* gc = gcorner[warp];
-  const float cx = coords[2 * (size_t)q], cy = coords[2 * (size_t)q + 1];
-  const float* go = gout + (size_t)q * L * n * n;
-  for (int l = 0; l < L; ++l) {
-    const int h = dlv.h[l], w = dlv.w[l];
-    int x0, y0;
-    float fx, fy;
-    window_origin(cx, cy, l, h, w, r, &x0, &y0, &fx, &fy);
-    for (int e = lane; e < n * n; e += 32) gt[e] = go[l * n * n + e];
-    __syncwarp();
-    // Corner (y, x): the x blend hands row j = y (and j = y - 1) the
-    // cotangent dgy(j, x) = (1 - fx) t(i = x, j) + fx t(i = x - 1, j); the
-    // y blend hands the corner (1 - fy) dgy(y, x) + fy dgy(y - 1, x).
-    for (int e = lane; e < m * m; e += 32) {
-      const int y = e / m, x = e - y * m;
-      float dgy[2];
+  for (int item = blockIdx.x; item < nitems; item += gridDim.x) {
+    int l = 0;
+    while (item < pl.item0[l] || item >= pl.item1[l]) ++l;
+    const int h = pl.h[l], w = pl.w[l], hw = h * w, ub = pl.ub[l];
+    const long long u0 = (long long)(item - pl.item0[l]) * ub;
+    const int nu = (int)min((long long)ub, pl.units[l] - u0);
+    const long long e0 = u0 * UE, e1 = min(e0 + (long long)nu * UE,
+                                           pl.nel[l]);
+    const int qa = (int)(e0 / hw), nq = (int)((e1 - 1) / hw) - qa + 1;
+    const long long base = (long long)qa * hw;  // qa's first element
+
+    // (1a) Each touched query's window origin; the span bits cleared.
+    for (int i = threadIdx.x; i < B5B_RUN / 32; i += B5B_THREADS)
+      touched[i] = 0u;
+    for (int qi = threadIdx.x; qi < nq; qi += B5B_THREADS) {
+      const int q = qa + qi;
+      window_origin(coords[2 * (size_t)q], coords[2 * (size_t)q + 1], l, h,
+                    w, R, &org[qi][0], &org[qi][1], &frac[qi][0],
+                    &frac[qi][1]);
+    }
+    __syncthreads();
+
+    // (1b) The corner cotangents, every (query, corner row) of the item
+    // spread over the block; a corner row reads the query's output
+    // cotangents of two window rows (j = y, y - 1) once.  Corner (y, x):
+    // the x blend hands row j = y (and j = y - 1) the cotangent dgy(j, x) =
+    // (1 - fx) t(i = x, j) + fx t(i = x - 1, j); the y blend hands the
+    // corner (1 - fy) dgy(y, x) + fy dgy(y - 1, x).
+    for (int cr = threadIdx.x; cr < nq * m; cr += B5B_THREADS) {
+      const int qi = cr / m, y = cr - qi * m;
+      const float fx = frac[qi][0], fy = frac[qi][1];
+      const float* gt = gout + ((size_t)(qa + qi) * L + l) * NN;
+      float t[2][n];
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
         const int j = y - s;
-        float v = 0.f;
-        if (j >= 0 && j < n) {
-          const float a = x < n ? __fmul_rn(1.f - fx, gt[x * n + j]) : 0.f;
-          const float b = x > 0 ? __fmul_rn(fx, gt[(x - 1) * n + j]) : 0.f;
-          v = __fadd_rn(a, b);
-        }
-        dgy[s] = v;
+#pragma unroll
+        for (int i = 0; i < n; ++i)
+          t[s][i] = j >= 0 && j < n ? __ldg(gt + i * n + j) : 0.f;
       }
-      const float a = y < n ? __fmul_rn(1.f - fy, dgy[0]) : 0.f;
-      const float b = y > 0 ? __fmul_rn(fy, dgy[1]) : 0.f;
-      gc[e] = __fadd_rn(a, b);
+      float* row = gc + qi * MM + y * m;
+#pragma unroll
+      for (int x = 0; x < m; ++x) {
+        float dgy[2];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int j = y - s;
+          float v = 0.f;
+          if (j >= 0 && j < n) {
+            const float a = x < n ? __fmul_rn(1.f - fx, t[s][x]) : 0.f;
+            const float b = x > 0 ? __fmul_rn(fx, t[s][x - 1]) : 0.f;
+            v = __fadd_rn(a, b);
+          }
+          dgy[s] = v;
+        }
+        const float a = y < n ? __fmul_rn(1.f - fy, dgy[0]) : 0.f;
+        const float b = y > 0 ? __fmul_rn(fy, dgy[1]) : 0.f;
+        row[x] = __fadd_rn(a, b);
+      }
     }
-    __syncwarp();
-    T* slab = (T*)dlv.ptr[l] + (size_t)q * h * w;
-    for (int e = lane; e < h * w; e += 32) {
-      const int yy = e / w, xx = e - yy * w;
-      const int cy0 = yy - y0, cx0 = xx - x0;
-      const float v = (cy0 >= 0 && cy0 < m && cx0 >= 0 && cx0 < m)
-                          ? gc[cy0 * m + cx0]
-                          : 0.f;
-      slab[e] = from_f<T>(v);
+    // ... and, one warp a query, the units that its window's elements in
+    // the level (rows ys..ye-1, columns xs..xe-1 of its slab) cover, from
+    // the item's first element: each window row's run of elements marks
+    // its one to three units.
+    constexpr int RU = (m + UE - 2) / UE + 1;  // units a window row spans
+    for (int qi = warp; qi < nq; qi += NW) {
+      const int x0 = org[qi][0], y0 = org[qi][1];
+      const int ys = max(y0, 0), ye = min(y0 + m, h);
+      const int xs = max(x0, 0), xe = min(x0 + m, w);
+      if (ys >= ye || xs >= xe) continue;
+      const long long off = (long long)(qa + qi) * hw - e0 + xs;
+      for (int k = lane; k < (ye - ys) * RU; k += 32) {
+        const int yy = ys + k / RU;
+        long long lo = off + (long long)yy * w;
+        long long hi = lo + (xe - xs);
+        lo = max(lo, 0LL);
+        hi = min(hi, (long long)nu * UE);
+        if (lo >= hi) continue;
+        const int u = (int)(lo / UE) + k % RU;
+        if (u <= (int)((hi - 1) / UE))
+          atomicOr(&touched[u >> 5], 1u << (u & 31));
+      }
     }
-    __syncwarp();
+    __syncthreads();
+
+    // (2) The run in 16-byte units, built in registers: units before
+    // `whole` lie wholly inside the level.
+    T* dl = (T*)pl.ptr[l];
+    const float inv_hw = 1.f / (float)hw, inv_w = 1.f / (float)w;
+    const int whole = (int)min((long long)nu, (pl.nel[l] - e0) / UE);
+    for (int u = threadIdx.x; u < nu; u += B5B_THREADS) {
+      const long long ue = e0 + (long long)u * UE;
+      float v[UE];
+#pragma unroll
+      for (int k = 0; k < UE; ++k) v[k] = 0.f;
+      if (touched[u >> 5] >> (u & 31) & 1u) {
+        // (q, y, x) of the unit's first element: quotients from fp32
+        // reciprocals (rel < 2^24, so off by one at most) set right.
+        const int rel = (int)(ue - base);
+        int qi = (int)((float)rel * inv_hw);
+        qi -= qi * hw > rel;
+        qi += (qi + 1) * hw <= rel;
+        const int rem = rel - qi * hw;
+        int y = (int)((float)rem * inv_w);
+        y -= y * w > rem;
+        y += (y + 1) * w <= rem;
+        int x = rem - y * w;
+        if (x + UE <= w) {  // one row of one query
+          const int cy0 = y - org[qi][1], cx0 = x - org[qi][0];
+          if ((unsigned)cy0 < (unsigned)m) {
+            const float* grow = gc + qi * MM + cy0 * m;
+#pragma unroll
+            for (int k = 0; k < UE; ++k)
+              if ((unsigned)(cx0 + k) < (unsigned)m) v[k] = grow[cx0 + k];
+          }
+        } else {  // across rows or queries: step (q, y, x) along it
+          const int ne = (int)min((long long)UE, pl.nel[l] - ue);
+#pragma unroll
+          for (int k = 0; k < UE; ++k) {
+            if (k < ne) {
+              const int cy0 = y - org[qi][1], cx0 = x - org[qi][0];
+              if ((unsigned)cy0 < (unsigned)m && (unsigned)cx0 < (unsigned)m)
+                v[k] = gc[qi * MM + cy0 * m + cx0];
+            }
+            if (++x == w) {
+              x = 0;
+              if (++y == h) {
+                y = 0;
+                ++qi;
+              }
+            }
+          }
+        }
+      }
+      if (u < whole) {
+        *reinterpret_cast<uint4*>(dl + ue) = pack_unit(v);
+      } else {  // the level's last unit, cut short at its end
+        const int ne = (int)(pl.nel[l] - ue);
+#pragma unroll
+        for (int k = 0; k < UE; ++k)
+          if (k < ne) dl[ue + k] = from_f<T>(v[k]);
+      }
+    }
+    __syncthreads();  // gc, org and touched are rewritten by the next item
   }
 }
 
@@ -247,9 +410,50 @@ extern "C" int corr_lookup_launch(void* const* levels, const int* hw, int L,
   return (int)cudaGetLastError();
 }
 
-// dlevels: L host pointers to [Q, h_l, w_l] device arrays that the kernel
-// fills completely (bf16 when out_bf16, else fp32); gout: [Q, L (2r+1)^2]
-// fp32, the cotangent of the forward's output.
+// The backward's items at this radius and element size: each level's
+// units in runs of item_units.  The smallest level's items come first:
+// theirs touch the most queries a byte, and the grid takes them in its
+// first round rather than as a tail.  Returns the item count.
+static int plan_items(BwdPlan* pl, const Levels& lv, int L, int Q, int r,
+                      int esz) {
+  const int ue = 16 / esz;
+  int items = 0;
+  for (int l = L - 1; l >= 0; --l) {
+    const long long hw = (long long)lv.h[l] * lv.w[l];
+    pl->ptr[l] = lv.ptr[l];
+    pl->h[l] = lv.h[l];
+    pl->w[l] = lv.w[l];
+    pl->nel[l] = (long long)Q * hw;
+    pl->units[l] = (pl->nel[l] * esz + 15) / 16;
+    pl->ub[l] = hw > 0 ? item_units((int)hw, ue, qmax(r)) : 1;
+    pl->item0[l] = items;
+    items += (int)((pl->units[l] + pl->ub[l] - 1) / pl->ub[l]);
+    pl->item1[l] = items;
+  }
+  return items;
+}
+
+template <typename T, int R>
+static int launch_bwd(const BwdPlan& pl, int L, int items,
+                      const float* coords, const float* gout,
+                      cudaStream_t s) {
+  auto kernel = lookup_bwd_kernel<T, R>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        B5B_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = min(items, max(1, sms * per_sm));  // whole waves
+  kernel<<<grid, B5B_THREADS, 0, s>>>(pl, L, items, coords, gout);
+  return (int)cudaGetLastError();
+}
+
+// dlevels: L host pointers to [Q, h_l, w_l] 16-byte aligned device arrays
+// that the kernel fills completely (bf16 when out_bf16, else fp32); gout:
+// [Q, L (2r+1)^2] fp32, the cotangent of the forward's output.
 extern "C" int corr_lookup_bwd_launch(void* const* dlevels, const int* hw,
                                       int L, const void* coords,
                                       const void* gout, int Q, int r,
@@ -257,14 +461,21 @@ extern "C" int corr_lookup_bwd_launch(void* const* dlevels, const int* hw,
   Levels lv;
   cudaError_t err = fill_levels(&lv, dlevels, hw, L, r);
   if (err != cudaSuccess) return (int)err;
+  for (int l = 0; l < L; ++l)
+    if ((uintptr_t)dlevels[l] & 15) return (int)cudaErrorInvalidValue;
   if (Q == 0) return 0;
+  BwdPlan pl;
+  const int items = plan_items(&pl, lv, L, Q, r, out_bf16 ? 2 : 4);
+  if (items == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (Q + WARPS - 1) / WARPS;
-  if (out_bf16)
-    lookup_bwd_kernel<__nv_bfloat16><<<blocks, WARPS * 32, 0, s>>>(
-        lv, L, (const float*)coords, (const float*)gout, Q, r);
-  else
-    lookup_bwd_kernel<float><<<blocks, WARPS * 32, 0, s>>>(
-        lv, L, (const float*)coords, (const float*)gout, Q, r);
-  return (int)cudaGetLastError();
+  const float *c = (const float*)coords, *g = (const float*)gout;
+  switch (r) {
+#define CASE(R)                                                          \
+  case R:                                                                \
+    return out_bf16 ? launch_bwd<__nv_bfloat16, R>(pl, L, items, c, g, s) \
+                    : launch_bwd<float, R>(pl, L, items, c, g, s);
+    CASE(0) CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7)
+#undef CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

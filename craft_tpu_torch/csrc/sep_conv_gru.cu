@@ -14,22 +14,26 @@
 // Bound on the H100: operations.  Each pass is a product of the rows with
 // 5 * (Ch + Cx) weights per gate: at Ch = 128, Cx = 384 that is 2 * 5 * 512
 // * 128 * 3 FLOP a row forward (13.8 GFLOP at B = 1, 440x1024), twice that
-// backward, over a few MB of rows, while the 15 taps of weights (1.97 MB in
-// bf16) are far above a block's shared memory.  The design is a plain tiled
-// product: every kernel below is a sweep of 64-row x 128-column output
-// tiles, with the depth (tap, then 32 channels at a time) staged through
-// shared memory, the weights streamed by tap and channel tile, and the gate
-// arithmetic in the epilogue.  bf16 tiles are staged with 16-byte loads and
-// multiplied on the tensor cores (WMMA, fp32 sums); fp32 tiles in fp32 FMA.
-// No stage is double-buffered.  A tap's shifted rows are re-read from L2
-// rather than held as a halo.  The forward takes two launches (z|r,
-// then q with the blend), since q needs r h at the neighbouring rows.  The
-// backward takes five: the elementwise cotangents dqh, dzh (and r h), the
-// conv-transpose drh with drhat in its epilogue, dh and dx, the weight and
-// bias gradients as fixed row splits per (gate, tap, channel tile), and a
-// fixed-order sum of the splits: no float atomics, so two backwards of one
-// input are bit-identical.  The TPU kernel accumulated the weight gradients
-// across sequential grid steps; blocks here run in parallel.
+// backward (about 90 GFLOP at the chairs batch, 22,816 rows: 0.091 ms at
+// the bf16 peak), over a few MB of rows, while the 15 taps of weights (1.97
+// MB in bf16) are far above a block's shared memory.
+//   The forward (and the fp32 backward) is a plain tiled product: a sweep
+// of 64-row x 128-column output tiles, the depth (tap, then 32 channels at
+// a time) staged through shared memory, the weights streamed by tap and
+// channel tile, the gate arithmetic in the epilogue; bf16 tiles multiplied
+// on the tensor cores by WMMA (fp32 sums), fp32 ones in FMA, no stage
+// double-buffered.  It takes two launches (z|r, then q with the blend),
+// since q needs r h at the neighbouring rows.
+//   The bf16 backward runs wgmma bodies (below: gru_tconv_wgmma_kernel,
+// gru_wgrad_wgmma_kernel): 256 x 128 tiles of four warpgroups fed by a
+// cp.async ring, the epilogues on the accumulator fragments.  Both
+// backwards take five launches: the elementwise cotangents dqh, dzh (and
+// r h), the conv-transpose drh with drhat in its epilogue, dh and dx, the
+// weight and bias gradients as fixed row splits per (gate, tap, channel
+// tile), and a fixed-order sum of the splits: no float atomics, so two
+// backwards of one input are bit-identical.  The TPU kernel accumulated the
+// weight gradients across sequential grid steps; blocks here run in
+// parallel.
 //
 // Casts, as the TPU kernel's: x and the weights in the io type (h's), the
 // bias fp32, every product summed in fp32; r h rounded to io from the fp32
@@ -43,6 +47,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -56,15 +61,12 @@ constexpr int MAX_OPS = 3;
 // of 32 x 32 outputs each over the 64 x 128 tile.  Leading dimensions are
 // padded by 16 bytes (a multiple of 8 bf16, as WMMA needs); the fp32
 // result tile Cs reuses the staging memory after the sweep.
-using bf16 = __nv_bfloat16;
 constexpr int WM = 16;
 constexpr int LDA_TC = BK + 8;  // As [BM][LDA_TC]: rows x depth
 constexpr int LDB_TC = BN + 8;  // Bs [BK][LDB_TC]: depth x columns
-constexpr int LDBT_TC = BK + 8; // Bs [BN][LDBT_TC]: columns x depth (TRANS)
 constexpr int LDC_TC = BN + 4;  // Cs [BM][LDC_TC] fp32
 constexpr int TC_SMEM = BM * LDC_TC * 4;
-static_assert(BM * LDA_TC * 2 + BN * LDBT_TC * 2 <= TC_SMEM, "tc staging");
-static_assert(BK * (BM + 8) * 2 + BK * LDB_TC * 2 <= TC_SMEM, "tc wgrad");
+static_assert(BM * LDA_TC * 2 + BK * LDB_TC * 2 <= TC_SMEM, "tc staging");
 
 // The rows of the pass: B images of HW rows each, taps s rows apart; a
 // horizontal pass (s == 1) keeps its taps inside image rows of `width`.
@@ -224,10 +226,10 @@ __device__ __forceinline__ void store_frags(FragC c[2][2], float* Cs) {
   __syncthreads();
 }
 
-// rowconv_tile_fma's tile for bf16 operands on the tensor cores: the same
-// staging order (tap, then 32 channels), bf16 kept as it is in shared
-// memory, the products summed in fp32 by WMMA.
-template <bool TRANS>
+// rowconv_tile_fma's forward tile for bf16 operands on the tensor cores:
+// the same staging order (tap, then 32 channels), bf16 kept as it is in
+// shared memory, the products summed in fp32 by WMMA.  (The bf16 backward
+// runs its own wgmma body, below.)
 __device__ void rowconv_tile_tc(const RowConv<bf16>& rc, const Geo& g,
                                 int row0, int col0, float acc[4][8]) {
   using namespace nvcuda;
@@ -246,35 +248,22 @@ __device__ void rowconv_tile_tc(const RowConv<bf16>& rc, const Geo& g,
   for (int o = 0; o < rc.nop; ++o) {
     const Operand<bf16> op = rc.op[o];
     for (int t = 0; t < TAPS; ++t) {
-      const int d = TRANS ? RAD - t : t - RAD;
-      const int src = tap_src(g, row0 + r_v, d);
-      const bf16* wt =
-          op.w + (size_t)t * (TRANS ? rc.ncol : op.ka) * rc.ldw;
+      const int src = tap_src(g, row0 + r_v, t - RAD);
+      const bf16* wt = op.w + (size_t)t * op.ka * rc.ldw;
       for (int k0 = 0; k0 < op.ka; k0 += BK) {
         __syncthreads();
         const int k = k0 + k_v;
         *reinterpret_cast<uint4*>(As + r_v * LDA_TC + k_v) =
             src >= 0 && k < op.ka ? load8(op.a + (size_t)src * op.ka + k)
                                   : zero8();
-        // B staging: 8 consecutive depths (TRANS) or columns a load.
+        // B staging: 8 consecutive columns a load.
 #pragma unroll
         for (int e = tid; e < BK * BN / 8; e += NTHREADS) {
-          int kk, cc;
-          if (TRANS) {
-            cc = e / (BK / 8);
-            kk = e % (BK / 8) * 8;
-          } else {
-            kk = e / (BN / 8);
-            cc = e % (BN / 8) * 8;
-          }
+          const int kk = e / (BN / 8), cc = e % (BN / 8) * 8;
           const int kg = k0 + kk, col = col0 + cc;
           const bool in = kg < op.ka && col < rc.ncol;
-          if (TRANS)
-            *reinterpret_cast<uint4*>(Bs + cc * LDBT_TC + kk) =
-                in ? load8(wt + (size_t)col * rc.ldw + kg) : zero8();
-          else
-            *reinterpret_cast<uint4*>(Bs + kk * LDB_TC + cc) =
-                in ? load8(wt + (size_t)kg * rc.ldw + col) : zero8();
+          *reinterpret_cast<uint4*>(Bs + kk * LDB_TC + cc) =
+              in ? load8(wt + (size_t)kg * rc.ldw + col) : zero8();
         }
         __syncthreads();
 #pragma unroll
@@ -288,21 +277,12 @@ __device__ void rowconv_tile_tc(const RowConv<bf16>& rc, const Geo& g,
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int n = wn * 32 + WM * j;
-            if (TRANS) {
-              wmma::fragment<wmma::matrix_b, WM, WM, WM, bf16,
-                             wmma::col_major> b;
-              wmma::load_matrix_sync(b, Bs + n * LDBT_TC + ks, LDBT_TC);
+            wmma::fragment<wmma::matrix_b, WM, WM, WM, bf16,
+                           wmma::row_major> b;
+            wmma::load_matrix_sync(b, Bs + ks * LDB_TC + n, LDB_TC);
 #pragma unroll
-              for (int i = 0; i < 2; ++i)
-                wmma::mma_sync(c[i][j], a[i], b, c[i][j]);
-            } else {
-              wmma::fragment<wmma::matrix_b, WM, WM, WM, bf16,
-                             wmma::row_major> b;
-              wmma::load_matrix_sync(b, Bs + ks * LDB_TC + n, LDB_TC);
-#pragma unroll
-              for (int i = 0; i < 2; ++i)
-                wmma::mma_sync(c[i][j], a[i], b, c[i][j]);
-            }
+            for (int i = 0; i < 2; ++i)
+              wmma::mma_sync(c[i][j], a[i], b, c[i][j]);
           }
         }
       }
@@ -313,15 +293,18 @@ __device__ void rowconv_tile_tc(const RowConv<bf16>& rc, const Geo& g,
   tile_to_acc(Cs, acc);
 }
 
-// The tile of a row convolution: bf16 on the tensor cores, fp32 in FMA.
+// The tile of a row convolution: bf16 on the tensor cores (the forward),
+// fp32 in FMA (both directions).
 template <typename T, bool TRANS>
 __device__ __forceinline__ void rowconv_tile(const RowConv<T>& rc,
                                              const Geo& g, int row0,
                                              int col0, float acc[4][8]) {
-  if constexpr (std::is_same<T, bf16>::value)
-    rowconv_tile_tc<TRANS>(rc, g, row0, col0, acc);
-  else
+  if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(!TRANS, "the bf16 backward runs gru_tconv_wgmma_kernel");
+    rowconv_tile_tc(rc, g, row0, col0, acc);
+  } else {
     rowconv_tile_fma<T, TRANS>(rc, g, row0, col0, acc);
+  }
 }
 
 __device__ __forceinline__ float sigmoidf_(float v) {
@@ -481,129 +464,64 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-// Weight and bias gradients.  Block (channel tile, column tile) of gate
-// blockIdx.y / 5, tap blockIdx.y % 5, row split blockIdx.z sums
+// Weight and bias gradients (fp32 FMA).  Block (channel tile, column tile)
+// of gate blockIdx.y / 5, tap blockIdx.y % 5, row split blockIdx.z sums
 //   dW_t[c][n] = sum_p A[src(p, t - 2)][c] D[p][n]
 // over its split's rows, A = [h | x] (z, r) or [r h | x] (q), Cin = Ch + Cx
 // channels, D = dzh, drhat, dqh: every row of every image once.  The blocks
 // of the centre tap and channel tile 0 also sum D's columns (the bias
 // gradient).  Partials go to part[split][gate][t][c][n], then the split's
 // bias sums at part[split][15 Cin Ch + gate Ch + n].
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    gru_wgrad_kernel(const T* __restrict__ h, const T* __restrict__ rh,
-                     const T* __restrict__ x, const T* __restrict__ dzh,
-                     const T* __restrict__ drhat, const T* __restrict__ dqh,
-                     Geo g, int Ch, int Cx, int chunk,
-                     float* __restrict__ part) {
-  // bf16 operands stay bf16 in shared memory for the tensor cores; fp32
-  // ones go through FMA.  As [BK][LDA] (rows x channels), Ds [BK][LDD].
-  constexpr bool TC = std::is_same<T, bf16>::value;
-  constexpr int LDA = TC ? BM + 8 : BM, LDD = TC ? BN + 8 : BN;
-  constexpr int SMEM = TC ? TC_SMEM : (BK * BM + BK * BN) * 4;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Ds = reinterpret_cast<T*>(smem + BK * LDA * sizeof(T));
+    gru_wgrad_kernel(const float* __restrict__ h, const float* __restrict__ rh,
+                     const float* __restrict__ x,
+                     const float* __restrict__ dzh,
+                     const float* __restrict__ drhat,
+                     const float* __restrict__ dqh, Geo g, int Ch, int Cx,
+                     int chunk, float* __restrict__ part) {
+  __shared__ float As[BK * BM];  // rows x channels
+  __shared__ float Ds[BK * BN];  // rows x columns
   const int Cin = Ch + Cx;
   const int nct = (Cin + BM - 1) / BM;
   const int c0 = (blockIdx.x % nct) * BM, n0 = (blockIdx.x / nct) * BN;
   const int gate = blockIdx.y / TAPS, t = blockIdx.y % TAPS;
   const int split = blockIdx.z;
-  const T* ah = gate == 2 ? rh : h;
-  const T* d = gate == 0 ? dzh : gate == 1 ? drhat : dqh;
+  const float* ah = gate == 2 ? rh : h;
+  const float* d = gate == 0 ? dzh : gate == 1 ? drhat : dqh;
   const int p0 = split * chunk;
   const int p1 = min(g.rows, p0 + chunk);
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int warp = tid >> 5, wm = warp >> 2, wn = warp & 3;
   const bool bias_block = t == RAD && c0 == 0;
-  const T zero = from_f<T>(0.f);
   float acc[4][8], db = 0.f;
   zero_acc(acc);
-  FragC frag[2][2];
-  if constexpr (TC) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(frag[i][j], 0.f);
-  }
   const int ca = tid % BM, ka = tid / BM;    // A staging: 8 rows a thread
   const int nd = tid % BN, kd = tid / BN;    // D staging: 16 rows a thread
   const int c = c0 + ca;
-  // bf16: one row and 8 channels of A a thread, 8 columns of D a load.
-  const int kv = tid >> 3, cv = (tid & 7) * 8;
   for (int k0 = p0; k0 < p1; k0 += BK) {
     __syncthreads();
-    if constexpr (TC) {
-      const int p = k0 + kv, cc = c0 + cv;
-      uint4 v = zero8();
-      if (p < p1 && cc < Cin) {
+#pragma unroll
+    for (int it = 0; it < BK / 4; ++it) {
+      const int kk = ka + 4 * it, p = k0 + kk;
+      float v = 0.f;
+      if (p < p1 && c < Cin) {
         const int src = tap_src(g, p, t - RAD);
         if (src >= 0)
-          v = cc < Ch ? load8(ah + (size_t)src * Ch + cc)
-                      : load8(x + (size_t)src * Cx + (cc - Ch));
+          v = c < Ch ? ah[(size_t)src * Ch + c]
+                     : x[(size_t)src * Cx + (c - Ch)];
       }
-      *reinterpret_cast<uint4*>(As + kv * LDA + cv) = v;
+      As[kk * BM + ca] = v;
+    }
 #pragma unroll
-      for (int e = tid; e < BK * BN / 8; e += NTHREADS) {
-        const int kk = e / (BN / 8), n8 = e % (BN / 8) * 8;
-        const int pp = k0 + kk, n = n0 + n8;
-        *reinterpret_cast<uint4*>(Ds + kk * LDD + n8) =
-            pp < p1 && n < Ch ? load8(d + (size_t)pp * Ch + n) : zero8();
-      }
-    } else {
-#pragma unroll
-      for (int it = 0; it < BK / 4; ++it) {
-        const int kk = ka + 4 * it, p = k0 + kk;
-        T v = zero;
-        if (p < p1 && c < Cin) {
-          const int src = tap_src(g, p, t - RAD);
-          if (src >= 0)
-            v = c < Ch ? ah[(size_t)src * Ch + c]
-                       : x[(size_t)src * Cx + (c - Ch)];
-        }
-        As[kk * LDA + ca] = v;
-      }
-#pragma unroll
-      for (int it = 0; it < BK / 2; ++it) {
-        const int kk = kd + 2 * it, p = k0 + kk, n = n0 + nd;
-        Ds[kk * LDD + nd] = p < p1 && n < Ch ? d[(size_t)p * Ch + n] : zero;
-      }
+    for (int it = 0; it < BK / 2; ++it) {
+      const int kk = kd + 2 * it, p = k0 + kk, n = n0 + nd;
+      Ds[kk * BN + nd] = p < p1 && n < Ch ? d[(size_t)p * Ch + n] : 0.f;
     }
     __syncthreads();
-    if constexpr (TC) {
-      using namespace nvcuda;
-#pragma unroll
-      for (int ks = 0; ks < BK; ks += WM) {
-        // dW's rows are channels: A^T, read from As as column-major.
-        wmma::fragment<wmma::matrix_a, WM, WM, WM, bf16, wmma::col_major>
-            a[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], As + ks * LDA + wm * 32 + WM * i,
-                                 LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, WM, WM, WM, bf16, wmma::row_major>
-              b;
-          wmma::load_matrix_sync(b, Ds + ks * LDD + wn * 32 + WM * j, LDD);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::mma_sync(frag[i][j], a[i], b, frag[i][j]);
-        }
-      }
-    } else {
-      mac_tile(acc, reinterpret_cast<const float*>(As), LDA,
-               reinterpret_cast<const float*>(Ds), LDD);
-    }
+    mac_tile(acc, As, BM, Ds, BN);
     if (bias_block && tid < BN) {
-      for (int kk = 0; kk < BK; ++kk) db += to_f(Ds[kk * LDD + tid]);
+      for (int kk = 0; kk < BK; ++kk) db += Ds[kk * BN + tid];
     }
-  }
-  if constexpr (TC) {
-    float* Cs = reinterpret_cast<float*>(smem);
-    store_frags(frag, Cs);
-    tile_to_acc(Cs, acc);
   }
   const size_t per_split = (size_t)15 * Cin * Ch + 3 * Ch;
   float* out = part + split * per_split + (size_t)(gate * TAPS + t) * Cin * Ch;
@@ -632,6 +550,433 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int k = 0; k < nsplit; ++k) s += part[(size_t)k * n + i];
     out[i] = s;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 backward on the tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+//
+// Two tile kernels, both 256 x 128 outputs a block of four consumer
+// warpgroups (wgmma m64n128k16, fp32 sums in registers), their depth
+// staged GB_DEPTH at a time through a ring of 16-byte cp.async copies that
+// full/empty mbarriers count, 128-byte swizzled, one block an SM:
+//   gru_tconv_wgmma_kernel, the conv-transposes drh (then, in a second
+//   launch, dh | dx): rows x columns, the depth walking (operand, tap, 64
+//   channels) through GB_TSTAGES stages; A = the operand's source rows of
+//   the tap, K-major, a tap that leaves the image (or the image row, s = 1)
+//   zero-filled by its copy; B = the tap's weights W_t[col][k], K-major as
+//   they lie.  The epilogue reads the fragments: drh's gives drhat (io) and
+//   dhp (fp32), dh's adds dhp, dx's writes fp32 or io.
+//   gru_wgrad_wgmma_kernel, the weight gradients dW_t = A_t^T D: channels x
+//   columns of one (gate, tap), the depth walking the rows of the block's
+//   split through GB_WSTAGES stages.  A (rows x channels) and D (rows x
+//   columns) lie MN-major in shared memory, so both descriptors take the
+//   transpose bit.  GW_SPLITS row splits give 4 x 30 blocks at Ch 128, Cx
+//   384 (15.7 MB of partials, not 16 x 3.93 MB); the centre tap's first
+//   channel tile sums D's columns in row order for the bias gradients.
+//   sum_splits_kernel adds the splits in order, so two backwards of one
+//   input give the same bits.
+// A 256 x 128 tile moves 85 FLOP a byte staged (a 128 x 128 one 64): the
+// staged copies, from L2, bound both kernels more than the products do.
+#define GB_WG 4        // consumer warpgroups a block: 256 rows (channels)
+#define GB_COLS 128    // output columns a block (wgmma n)
+#define GB_DEPTH 64    // depth a stage: channels, or rows for dW
+#define GB_TSTAGES 3   // ring stages of the conv-transpose tiles
+#define GB_WSTAGES 4   // ring stages of the weight-gradient tiles
+#define GW_SPLITS 4      // row splits of the bf16 weight gradients
+#define GW_SPLIT_ROWS 2048  // fewest rows a split sums
+
+static_assert(GB_DEPTH * 2 == 128, "128-byte rows: the 128-byte swizzle");
+
+// A body of GB_WG consumer warpgroups (64 GB_WG output rows, or channels
+// for dW) and a ring of ST stages: its threads, tiles and shared memory.
+template <int ST>
+struct Tiles {
+  static constexpr int THREADS = 128 * GB_WG, ROWS = 64 * GB_WG;
+  static constexpr int A = ROWS * GB_DEPTH * 2;     // A tile, bytes
+  static constexpr int B = GB_COLS * GB_DEPTH * 2;  // B (D) tile, bytes
+  static constexpr int STAGE = A + B;
+  static constexpr int SMEM = ST * STAGE + 2 * ST * 8 + 1024;
+};
+
+// wgmma m64n128k16, both operands from shared memory; TA, TB: the
+// transpose bits (1: the operand is MN-major in shared memory).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss128(float (*d)[4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// A tile (stage base + offset) as the K-major operand of a 64-row
+// warpgroup slice (rows of 128 bytes, 8-row groups 1024 bytes apart), or as
+// an MN-major one (64-element blocks `blk` bytes apart, 8-row groups along
+// the depth 1024 bytes apart), each 128-byte swizzled.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return gmma_desc(addr, 16, 1024, 1);
+}
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr,
+                                                 uint32_t blk) {
+  return gmma_desc(addr, blk, 1024, 1);
+}
+
+// The byte offset of 16-byte chunk c (0..7) of tile row r in a 128-byte
+// swizzled tile.
+__device__ __forceinline__ uint32_t swz128(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// The ring's barriers (full, empty a stage), shared by both kernels.
+template <int ST, int THREADS>
+struct Ring {
+  uint32_t full0, empty0;
+  __device__ __forceinline__ void init(unsigned char* bars) {
+    full0 = smem_u32(bars);
+    empty0 = full0 + 8 * ST;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < ST; ++i) {
+        mbar_init(full0 + 8 * i, THREADS);
+        mbar_init(empty0 + 8 * i, THREADS);
+      }
+    }
+    __syncthreads();
+  }
+};
+
+// Up to three conv-transpose operands (a [rows][Ch], the forward's taps w
+// [5][ncol][Ch]) summed into one output of ncol columns.
+struct TConv {
+  const bf16 *a0, *a1, *a2, *w0, *w1, *w2;
+  int nop, ncol;
+};
+
+struct TEpi {
+  const bf16 *gr, *h, *z, *r;
+  bf16* drhat;
+  float* dhp;
+  bf16* dh;
+  void* dx;
+  int dx_f32;
+};
+
+// One 64 GB_WG x 128 conv-transpose tile: DRH (grid: row tiles x column
+// tiles of Ch) drh through rc0 with drhat and dhp in the epilogue; else
+// (grid: row tiles x (nh column tiles of dh, then those of dx)) dh = dhp +
+// rc0's sum, dx = rc1's.  Channels (Ch, Cx) are multiples of 8.
+template <bool DRH, int ST>
+__global__ void __launch_bounds__(128 * GB_WG, 1)
+    gru_tconv_wgmma_kernel(TConv rc0, TConv rc1, Geo g, int Ch, int nh,
+                           TEpi ep) {
+  using TL = Tiles<ST>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (-(int)smem_u32(smem_raw) & 1023);
+  const bool first = DRH || (int)blockIdx.y < nh;
+  const TConv rc = first ? rc0 : rc1;
+  const int row0 = blockIdx.x * TL::ROWS;
+  const int col0 = (first ? blockIdx.y : blockIdx.y - nh) * GB_COLS;
+  Ring<ST, TL::THREADS> ring;
+  ring.init(smem + ST * TL::STAGE);
+
+  // Copies: chunk c of tile rows rr + RSTEP i (A: output rows; B:
+  // columns).
+  constexpr int RSTEP = TL::THREADS / 8;
+  const int tid = threadIdx.x, c = tid & 7, rr = tid >> 3;
+  int loc[4], wc[4];
+  bool row_in[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = row0 + rr + RSTEP * i;
+    row_in[i] = p < g.rows;
+    loc[i] = p % g.HW;
+    wc[i] = loc[i] % g.width;
+  }
+  const int nkc = (Ch + GB_DEPTH - 1) / GB_DEPTH;
+  const int nk = rc.nop * TAPS * nkc;
+  auto load_stage = [&](int ks, int s) {
+    const int kc = ks % nkc, t = ks / nkc % TAPS, o = ks / (nkc * TAPS);
+    const bf16* a = o == 0 ? rc.a0 : o == 1 ? rc.a1 : rc.a2;
+    const bf16* w = (o == 0 ? rc.w0 : o == 1 ? rc.w1 : rc.w2) +
+                    (size_t)t * rc.ncol * Ch;
+    const int d = RAD - t, k = kc * GB_DEPTH + 8 * c;
+    const bool k_in = k < Ch;
+    const uint32_t sa = smem_u32(smem + s * TL::STAGE);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rr + RSTEP * i;
+      const int nb = loc[i] + d * g.s;
+      bool ok = k_in && row_in[i] && nb >= 0 && nb < g.HW;
+      if (g.s == 1) ok = ok && wc[i] + d >= 0 && wc[i] + d < g.width;
+      const int src = row0 + r + d * g.s;
+      cp_async16(sa + swz128(r, c), ok ? a + (size_t)src * Ch + k : a, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < GB_COLS / RSTEP; ++i) {
+      const int r = rr + RSTEP * i;
+      const bool wok = k_in && col0 + r < rc.ncol;
+      cp_async16(sa + TL::A + swz128(r, c),
+                 wok ? w + (size_t)(col0 + r) * Ch + k : w, wok);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < nk) {
+      load_stage(i, i);
+      mbar_arrive_copies(ring.full0 + 8 * i);
+    }
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const uint32_t base = smem_u32(smem);
+  for (int ks = 0; ks < nk; ++ks) {
+    const int s = ks % ST;
+    mbar_wait(ring.full0 + 8 * s, (ks / ST) & 1);
+    fence_async_smem();
+    const uint32_t st = base + s * TL::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GB_DEPTH / 16; ++kk)
+      wgmma_ss128<0, 0>(acc, kmajor_desc(st + wg * 64 * 128 + 32 * kk),
+                        kmajor_desc(st + TL::A + 32 * kk), 1);
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pin(acc[j][e]);
+    mbar_arrive(ring.empty0 + 8 * s);
+    const int nxt = ks + ST - 1;
+    if (nxt < nk) {
+      const int sp = nxt % ST;
+      if (ks > 0) mbar_wait(ring.empty0 + 8 * sp, ((ks - 1) / ST) & 1);
+      load_stage(nxt, sp);
+      mbar_arrive_copies(ring.full0 + 8 * sp);
+    }
+  }
+
+  // Epilogue on the fragments: rows 64 wg + 16 (warp % 4) + lane / 4
+  // (+ 8), columns 8 j + 2 (lane % 4) (+ 1).
+  const int C = rc.ncol;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = row0 + 64 * wg + 16 * (warp & 3) + (lane >> 2) + 8 * i;
+    if (p >= g.rows) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * j + 2 * (lane & 3);
+      if (col >= C) continue;
+      const size_t e = (size_t)p * C + col;
+      const float v0 = acc[j][2 * i], v1 = acc[j][2 * i + 1];
+      if (DRH) {
+        const float2 hv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ep.h + e));
+        const float2 rv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ep.r + e));
+        const float2 gv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ep.gr + e));
+        const float2 zv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ep.z + e));
+        *reinterpret_cast<uint32_t*>(ep.drhat + e) =
+            pack_bf16(v0 * hv.x * rv.x * (1.f - rv.x),
+                      v1 * hv.y * rv.y * (1.f - rv.y));
+        *reinterpret_cast<float2*>(ep.dhp + e) =
+            make_float2(gv.x * (1.f - zv.x) + v0 * rv.x,
+                        gv.y * (1.f - zv.y) + v1 * rv.y);
+      } else if (first) {
+        const float2 d = *reinterpret_cast<const float2*>(ep.dhp + e);
+        *reinterpret_cast<uint32_t*>(ep.dh + e) =
+            pack_bf16(d.x + v0, d.y + v1);
+      } else if (ep.dx_f32) {
+        *reinterpret_cast<float2*>((float*)ep.dx + e) = make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<uint32_t*>((bf16*)ep.dx + e) = pack_bf16(v0, v1);
+      }
+    }
+  }
+}
+
+// Block (channel tile, column tile) of gate blockIdx.y / 5, tap
+// blockIdx.y % 5, row split blockIdx.z: dW_t[c][n] = sum_p A[src(p, t -
+// 2)][c] D[p][n] over the split's rows, A = [h | x] (z, r) or [r h | x]
+// (q), D = dzh, drhat, dqh; written to part as gru_wgrad_kernel writes it.
+template <int ST>
+__global__ void __launch_bounds__(128 * GB_WG, 1)
+    gru_wgrad_wgmma_kernel(const bf16* __restrict__ h,
+                           const bf16* __restrict__ rh,
+                           const bf16* __restrict__ x,
+                           const bf16* __restrict__ dzh,
+                           const bf16* __restrict__ drhat,
+                           const bf16* __restrict__ dqh, Geo g, int Ch,
+                           int Cx, int chunk, float* __restrict__ part) {
+  using TL = Tiles<ST>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (-(int)smem_u32(smem_raw) & 1023);
+  const int Cin = Ch + Cx;
+  const int nct = (Cin + TL::ROWS - 1) / TL::ROWS;
+  const int c0 = (blockIdx.x % nct) * TL::ROWS;
+  const int n0 = (blockIdx.x / nct) * GB_COLS;
+  const int gate = blockIdx.y / TAPS, t = blockIdx.y % TAPS;
+  const int split = blockIdx.z;
+  const bf16* ah = gate == 2 ? rh : h;
+  const bf16* dd = gate == 0 ? dzh : gate == 1 ? drhat : dqh;
+  const int p0 = split * chunk, p1 = min(g.rows, p0 + chunk);
+  const int nk = p1 > p0 ? (p1 - p0 + GB_DEPTH - 1) / GB_DEPTH : 0;
+  Ring<ST, TL::THREADS> ring;
+  ring.init(smem + ST * TL::STAGE);
+
+  // Copies of A: 16-byte chunk cc (8 channels; 64-channel block cc / 8) of
+  // depth rows kr + 16 i.  Each thread's rows step by GB_DEPTH a stage, so
+  // their place in the image is stepped, not divided, per stage.  Copies
+  // of D: chunk dc (8 columns) of rows dr + DSTEP i.
+  constexpr int ACH = 8 * GB_WG, DSTEP = TL::THREADS / 16;
+  const int tid = threadIdx.x, cc = tid % ACH, kr = tid / ACH;
+  const int dc = tid & 15, dr = tid >> 4;
+  const int d = t - RAD;
+  int loc[4], wc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = p0 + kr + 16 * i;
+    loc[i] = p % g.HW;
+    wc[i] = loc[i] % g.width;
+  }
+  const int ch = c0 + 8 * cc, col = n0 + 8 * dc;
+  const bool ch_in = ch < Cin, col_in = col < Ch;
+  const bf16* asrc = ch < Ch ? ah + ch : x + (ch - Ch);
+  const int lda = ch < Ch ? Ch : Cx;
+  const uint32_t ablk = (uint32_t)(cc >> 3) * (GB_DEPTH * 128);
+  const uint32_t dblk = TL::A + (uint32_t)(dc >> 3) * (GB_DEPTH * 128);
+  auto load_stage = [&](int ks, int s) {
+    const uint32_t sa = smem_u32(smem + s * TL::STAGE);
+    const int pk = p0 + ks * GB_DEPTH;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = kr + 16 * i, p = pk + r;
+      const int nb = loc[i] + d * g.s;
+      bool ok = ch_in && p < p1 && nb >= 0 && nb < g.HW;
+      if (g.s == 1) ok = ok && wc[i] + d >= 0 && wc[i] + d < g.width;
+      cp_async16(sa + ablk + swz128(r, cc & 7),
+                 ok ? asrc + (size_t)(p + d * g.s) * lda : h, ok);
+      // The next stage's rows lie GB_DEPTH further on.
+      loc[i] += GB_DEPTH;
+      if (loc[i] >= g.HW) {  // into the next image (rare): divide again
+        loc[i] %= g.HW;
+        wc[i] = loc[i] % g.width;
+      } else if (g.s == 1) {
+        wc[i] += GB_DEPTH;
+        while (wc[i] >= g.width) wc[i] -= g.width;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < GB_DEPTH / DSTEP; ++i) {
+      const int r = dr + DSTEP * i, p = pk + r;
+      const bool dok = col_in && p < p1;
+      cp_async16(sa + dblk + swz128(r, dc & 7),
+                 dok ? dd + (size_t)p * Ch + col : dd, dok);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < nk) {
+      load_stage(i, i);
+      mbar_arrive_copies(ring.full0 + 8 * i);
+    }
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  const bool bias_block = t == RAD && c0 == 0 && tid < GB_COLS;
+  float acc[16][4], db = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const uint32_t base = smem_u32(smem);
+  for (int ks = 0; ks < nk; ++ks) {
+    const int s = ks % ST;
+    mbar_wait(ring.full0 + 8 * s, (ks / ST) & 1);
+    fence_async_smem();
+    const uint32_t st = base + s * TL::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GB_DEPTH / 16; ++kk)
+      wgmma_ss128<1, 1>(
+          acc, mnmajor_desc(st + wg * (GB_DEPTH * 128) + kk * 16 * 128,
+                            GB_DEPTH * 128),
+          mnmajor_desc(st + TL::A + kk * 16 * 128, GB_DEPTH * 128), 1);
+    wgmma_commit();
+    if (bias_block) {  // column tid of D, its rows in order
+      const unsigned char* ds = smem + s * TL::STAGE + TL::A +
+                                (tid >> 6) * (GB_DEPTH * 128) +
+                                2 * (tid & 7);
+      const int c8 = (tid & 63) >> 3;
+#pragma unroll 8
+      for (int r = 0; r < GB_DEPTH; ++r)
+        db += __bfloat162float(
+            *reinterpret_cast<const bf16*>(ds + swz128(r, c8)));
+    }
+    wgmma_wait0();
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pin(acc[j][e]);
+    mbar_arrive(ring.empty0 + 8 * s);
+    const int nxt = ks + ST - 1;
+    if (nxt < nk) {
+      const int sp = nxt % ST;
+      if (ks > 0) mbar_wait(ring.empty0 + 8 * sp, ((ks - 1) / ST) & 1);
+      load_stage(nxt, sp);
+      mbar_arrive_copies(ring.full0 + 8 * sp);
+    }
+  }
+
+  const size_t per_split = (size_t)15 * Cin * Ch + 3 * Ch;
+  float* out = part + split * per_split + (size_t)(gate * TAPS + t) * Cin * Ch;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = c0 + 64 * wg + 16 * (warp & 3) + (lane >> 2) + 8 * i;
+    if (c >= Cin) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane & 3);
+      if (n < Ch)
+        *reinterpret_cast<float2*>(out + (size_t)c * Ch + n) =
+            make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+  if (bias_block && n0 + tid < Ch)
+    part[split * per_split + (size_t)15 * Cin * Ch + gate * Ch + n0 + tid] =
+        db;
 }
 
 inline int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
@@ -673,42 +1018,109 @@ int fwd(const void* h_, const void* x_, const void* const* w,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int bwd(const void* h_, const void* x_, const void* z_, const void* r_,
-        const void* q_, const void* g_, const void* const* w, void* dh,
-        void* dx, int dx_f32, void* dqh_, void* dzh_, void* rh_,
-        void* drhat_, float* dhp, float* part, int nsplit, float* dw, int B,
-        int HW, int Ch, int Cx, int s, int width, cudaStream_t st) {
-  const T *h = (const T*)h_, *x = (const T*)x_, *z = (const T*)z_;
-  const T *r = (const T*)r_, *q = (const T*)q_, *gr = (const T*)g_;
-  const T *wzh = (const T*)w[0], *wzx = (const T*)w[1];
-  const T *wrh = (const T*)w[2], *wrx = (const T*)w[3];
-  const T *wqh = (const T*)w[4], *wqx = (const T*)w[5];
-  T *dqh = (T*)dqh_, *dzh = (T*)dzh_, *rh = (T*)rh_, *drhat = (T*)drhat_;
-  const Geo g{B * HW, HW, s, width};
+// Row splits of the weight gradients, a rule the wrapper repeats to size
+// the partials (another count is refused): fp32 up to FW_SPLITS of at
+// least FW_SPLIT_ROWS rows, bf16 up to GW_SPLITS of at least GW_SPLIT_ROWS.
+#define FW_SPLITS 16
+#define FW_SPLIT_ROWS 1024
+int wgrad_splits(int rows, int io_bf16) {
+  const int most = io_bf16 ? GW_SPLITS : FW_SPLITS;
+  const int n = rows / (io_bf16 ? GW_SPLIT_ROWS : FW_SPLIT_ROWS);
+  return n < 1 ? 1 : n > most ? most : n;
+}
+
+// The scratch of a backward: dqh, dzh, rh, drhat (io), dhp (fp32), part
+// (fp32, nsplit x the length of dw).
+struct BwdScratch {
+  void *dqh, *dzh, *rh, *drhat;
+  float *dhp, *part;
+};
+
+int bwd_fp32(const float* h, const float* x, const float* z, const float* r,
+             const float* q, const float* gr, const float* const* w,
+             void* dh, void* dx, BwdScratch sc, int nsplit, float* dw,
+             const Geo& g, int Ch, int Cx, cudaStream_t st) {
+  const float *wzh = w[0], *wzx = w[1], *wrh = w[2], *wrx = w[3];
+  const float *wqh = w[4], *wqx = w[5];
+  float *dqh = (float*)sc.dqh, *dzh = (float*)sc.dzh, *rh = (float*)sc.rh;
+  float* drhat = (float*)sc.drhat;
   const size_t n = (size_t)g.rows * Ch;
-  gru_bwd_elem_kernel<T><<<elem_blocks(n), NTHREADS, 0, st>>>(
+  gru_bwd_elem_kernel<float><<<elem_blocks(n), NTHREADS, 0, st>>>(
       gr, h, z, r, q, dqh, dzh, rh, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nr = cdiv(g.rows, BM), nh = cdiv(Ch, BN);
-  gru_drh_kernel<T><<<dim3(nr, nh), NTHREADS, 0, st>>>(
-      rowconv<T>(Ch, Ch, {{dqh, wqh, Ch}}), g, gr, h, z, r, drhat, dhp, Ch);
+  gru_drh_kernel<float><<<dim3(nr, nh), NTHREADS, 0, st>>>(
+      rowconv<float>(Ch, Ch, {{dqh, wqh, Ch}}), g, gr, h, z, r, drhat,
+      sc.dhp, Ch);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  gru_dhx_kernel<T><<<dim3(nr, nh + cdiv(Cx, BN)), NTHREADS, 0, st>>>(
-      rowconv<T>(Ch, Ch, {{dzh, wzh, Ch}, {drhat, wrh, Ch}}),
-      rowconv<T>(Cx, Ch, {{dzh, wzx, Ch}, {drhat, wrx, Ch}, {dqh, wqx, Ch}}),
-      g, nh, dhp, (T*)dh, dx, dx_f32);
+  gru_dhx_kernel<float><<<dim3(nr, nh + cdiv(Cx, BN)), NTHREADS, 0, st>>>(
+      rowconv<float>(Ch, Ch, {{dzh, wzh, Ch}, {drhat, wrh, Ch}}),
+      rowconv<float>(Cx, Ch,
+                     {{dzh, wzx, Ch}, {drhat, wrx, Ch}, {dqh, wqx, Ch}}),
+      g, nh, sc.dhp, (float*)dh, dx, 1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int chunk = cdiv(cdiv(g.rows, nsplit), BK) * BK;
   const int Cin = Ch + Cx;
-  gru_wgrad_kernel<T>
-      <<<dim3(cdiv(Cin, BM) * nh, 3 * TAPS, nsplit), NTHREADS, 0, st>>>(
-          h, rh, x, dzh, drhat, dqh, g, Ch, Cx, chunk, part);
+  gru_wgrad_kernel<<<dim3(cdiv(Cin, BM) * nh, 3 * TAPS, nsplit), NTHREADS,
+                      0, st>>>(h, rh, x, dzh, drhat, dqh, g, Ch, Cx, chunk,
+                               sc.part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t per_split = (size_t)15 * Cin * Ch + 3 * Ch;
   sum_splits_kernel<<<elem_blocks(per_split), NTHREADS, 0, st>>>(
-      part, nsplit, per_split, dw);
+      sc.part, nsplit, per_split, dw);
+  return (int)cudaGetLastError();
+}
+
+int bwd_bf16(const bf16* h, const bf16* x, const bf16* z, const bf16* r,
+             const bf16* q, const bf16* gr, const bf16* const* w, void* dh,
+             void* dx, int dx_f32, BwdScratch sc, int nsplit, float* dw,
+             const Geo& g, int Ch, int Cx, cudaStream_t st) {
+  using TT = Tiles<GB_TSTAGES>;
+  using WT = Tiles<GB_WSTAGES>;
+  bf16 *dqh = (bf16*)sc.dqh, *dzh = (bf16*)sc.dzh, *rh = (bf16*)sc.rh;
+  bf16* drhat = (bf16*)sc.drhat;
+  const uintptr_t align = (uintptr_t)h | (uintptr_t)x | (uintptr_t)z |
+                          (uintptr_t)r | (uintptr_t)gr | (uintptr_t)dh |
+                          (uintptr_t)dx | (uintptr_t)dqh | (uintptr_t)dzh |
+                          (uintptr_t)rh | (uintptr_t)drhat |
+                          (uintptr_t)sc.dhp | (uintptr_t)sc.part |
+                          (uintptr_t)w[0] | (uintptr_t)w[1] |
+                          (uintptr_t)w[2] | (uintptr_t)w[3] |
+                          (uintptr_t)w[4] | (uintptr_t)w[5];
+  if (Ch % 8 || Cx % 8 || (align & 15)) return (int)cudaErrorInvalidValue;
+  auto drh_k = gru_tconv_wgmma_kernel<true, GB_TSTAGES>;
+  auto dhx_k = gru_tconv_wgmma_kernel<false, GB_TSTAGES>;
+  auto wgrad_k = gru_wgrad_wgmma_kernel<GB_WSTAGES>;
+  cudaError_t err;
+  if ((err = allow_smem(drh_k, TT::SMEM)) != cudaSuccess ||
+      (err = allow_smem(dhx_k, TT::SMEM)) != cudaSuccess ||
+      (err = allow_smem(wgrad_k, WT::SMEM)) != cudaSuccess)
+    return (int)err;
+  const size_t n = (size_t)g.rows * Ch;
+  gru_bwd_elem_kernel<bf16><<<elem_blocks(n), NTHREADS, 0, st>>>(
+      gr, h, z, r, q, dqh, dzh, rh, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const TEpi ep{gr, h, z, r, drhat, sc.dhp, (bf16*)dh, dx, dx_f32};
+  const int nr = cdiv(g.rows, TT::ROWS), nh = cdiv(Ch, GB_COLS);
+  const TConv none{};
+  drh_k<<<dim3(nr, nh), TT::THREADS, TT::SMEM, st>>>(
+      TConv{dqh, nullptr, nullptr, w[4], nullptr, nullptr, 1, Ch}, none, g,
+      Ch, nh, ep);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  dhx_k<<<dim3(nr, nh + cdiv(Cx, GB_COLS)), TT::THREADS, TT::SMEM, st>>>(
+      TConv{dzh, drhat, nullptr, w[0], w[2], nullptr, 2, Ch},
+      TConv{dzh, drhat, dqh, w[1], w[3], w[5], 3, Cx}, g, Ch, nh, ep);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int chunk = cdiv(cdiv(g.rows, nsplit), GB_DEPTH) * GB_DEPTH;
+  const int Cin = Ch + Cx;
+  wgrad_k<<<dim3(cdiv(Cin, WT::ROWS) * nh, 3 * TAPS, nsplit), WT::THREADS,
+            WT::SMEM, st>>>(h, rh, x, dzh, drhat, dqh, g, Ch, Cx, chunk,
+                            sc.part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t per_split = (size_t)15 * Cin * Ch + 3 * Ch;
+  sum_splits_kernel<<<elem_blocks(per_split), NTHREADS, 0, st>>>(
+      sc.part, nsplit, per_split, dw);
   return (int)cudaGetLastError();
 }
 
@@ -736,11 +1148,13 @@ extern "C" int gru_fwd_launch(const void* h, const void* x, const void* wzh,
 
 // The saved h, x, z, r, q and the cotangent g of h' (all in the io type,
 // contiguous, as gru_fwd_launch's), the weights as there.  Writes dh
-// [B*HW, Ch] (io) and dx [B*HW, Cx] (fp32 when dx_f32, else io), and dw:
-// the fp32 weight gradients [3 gates][5][Ch + Cx][Ch] (rows of the h part,
-// then of the x part) followed by the bias gradients [3][Ch].  dqh, dzh,
-// rh, drhat [B*HW, Ch] (io), dhp [B*HW, Ch] fp32 and part [nsplit][len(dw)]
-// fp32 are scratch.
+// [B*HW, Ch] (io) and dx [B*HW, Cx] (fp32 when dx_f32, else io; fp32 io
+// takes fp32), and dw: the fp32 weight gradients [3 gates][5][Ch + Cx][Ch]
+// (rows of the h part, then of the x part) followed by the bias gradients
+// [3][Ch].  dqh, dzh, rh, drhat [B*HW, Ch] (io), dhp [B*HW, Ch] fp32 and
+// part [nsplit][len(dw)] fp32 are scratch, nsplit = wgrad_splits(B*HW,
+// in_bf16) (refused otherwise).  bf16: Ch, Cx multiples of 8, every tensor
+// 16-byte aligned.
 extern "C" int gru_bwd_launch(const void* h, const void* x, const void* z,
                               const void* r, const void* q, const void* g,
                               const void* wzh, const void* wzx,
@@ -751,14 +1165,22 @@ extern "C" int gru_bwd_launch(const void* h, const void* x, const void* z,
                               int nsplit, void* dw, int B, int HW, int Ch,
                               int Cx, int s, int width, int in_bf16,
                               void* stream) {
-  const void* w[6] = {wzh, wzx, wrh, wrx, wqh, wqx};
+  const Geo geo{B * HW, HW, s, width};
+  if (nsplit != wgrad_splits(geo.rows, in_bf16))
+    return (int)cudaErrorInvalidValue;
+  const BwdScratch sc{dqh, dzh, rh, drhat, (float*)dhp, (float*)part};
   cudaStream_t st = (cudaStream_t)stream;
-  return in_bf16
-             ? bwd<__nv_bfloat16>(h, x, z, r, q, g, w, dh, dx, dx_f32, dqh,
-                                  dzh, rh, drhat, (float*)dhp, (float*)part,
-                                  nsplit, (float*)dw, B, HW, Ch, Cx, s, width,
-                                  st)
-             : bwd<float>(h, x, z, r, q, g, w, dh, dx, dx_f32, dqh, dzh, rh,
-                          drhat, (float*)dhp, (float*)part, nsplit,
-                          (float*)dw, B, HW, Ch, Cx, s, width, st);
+  if (in_bf16) {
+    const bf16* w[6] = {(const bf16*)wzh, (const bf16*)wzx, (const bf16*)wrh,
+                        (const bf16*)wrx, (const bf16*)wqh, (const bf16*)wqx};
+    return bwd_bf16((const bf16*)h, (const bf16*)x, (const bf16*)z,
+                    (const bf16*)r, (const bf16*)q, (const bf16*)g, w, dh, dx,
+                    dx_f32, sc, nsplit, (float*)dw, geo, Ch, Cx, st);
+  }
+  const float* w[6] = {(const float*)wzh, (const float*)wzx,
+                       (const float*)wrh, (const float*)wrx,
+                       (const float*)wqh, (const float*)wqx};
+  return bwd_fp32((const float*)h, (const float*)x, (const float*)z,
+                  (const float*)r, (const float*)q, (const float*)g, w, dh,
+                  dx, sc, nsplit, (float*)dw, geo, Ch, Cx, st);
 }

@@ -36,8 +36,11 @@ from craft_tpu_torch.ops.kernels.launch import (I, P, call, check_cuda,
                                                 counted, ptr, stream)
 
 TAPS, RAD = 5, 2
-ROWS_PER_SPLIT = 1024  # weight-gradient rows summed by one block, at least
-MAX_SPLITS = 16
+# The weight gradients' row splits (csrc/sep_conv_gru.cu wgrad_splits): up
+# to FW_SPLITS of at least FW_SPLIT_ROWS rows for the fp32 body, up to
+# GW_SPLITS of at least GW_SPLIT_ROWS for the bf16 (wgmma) body.
+FW_SPLITS, FW_SPLIT_ROWS = 16, 1024
+GW_SPLITS, GW_SPLIT_ROWS = 4, 2048
 _FWD_SIG = [P] * 15 + [I] * 7 + [P]
 _BWD_SIG = [P] * 14 + [I] + [P] * 6 + [I, P] + [I] * 7 + [P]
 
@@ -51,6 +54,14 @@ def fused_gru_vmem_ok(HW: int, Ch: int, Cx: int, stride: int = 1,
     del HW, stride
     weights = TAPS * 3 * (Ch * Ch + Cx * Ch) * itemsize
     return weights < 4 * 2 ** 20 and Ch % 8 == 0
+
+
+def wgrad_splits(rows: int, io_bf16: bool) -> int:
+    """The row splits of the backward's weight gradients, as the kernel
+    counts them (it refuses a partial buffer of another count)."""
+    most, least = (GW_SPLITS, GW_SPLIT_ROWS) if io_bf16 else \
+        (FW_SPLITS, FW_SPLIT_ROWS)
+    return max(1, min(most, rows // least))
 
 
 def acc_type(io: torch.dtype) -> torch.dtype:
@@ -248,7 +259,7 @@ def gru_pass_bwd(h, x, z, r, q, g, wzh, wzx, wrh, wrx, wqh, wqx,
     dqh, dzh, rh, drhat = (torch.empty_like(h) for _ in range(4))
     dhp = torch.empty(h.shape, dtype=torch.float32, device=h.device)
     rows, Cin = B * HW, Ch + Cx
-    nsplit = max(1, min(MAX_SPLITS, rows // ROWS_PER_SPLIT))
+    nsplit = wgrad_splits(rows, io == torch.bfloat16)
     per_split = 15 * Cin * Ch + 3 * Ch
     part = torch.empty(nsplit, per_split, dtype=torch.float32,
                        device=h.device)

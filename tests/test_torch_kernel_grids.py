@@ -12,6 +12,12 @@ CUDA sources and the grids they give (the launchers' formulas, written out
 below) are held against the wrapper's counts at the shapes the paths run.
 The same constants give each instantiation of the sweep's body its shared
 memory, which must fit the 232,448 bytes a block may have on an H100.
+
+B10's backward sizes its weight-gradient partials by its row splits
+(wgrad_splits, refused otherwise), and its bf16 tile bodies' rings must fit
+a block; B5's backward cuts each level into items of whole 16-byte units,
+which must cover every unit once and touch no more queries than an item's
+static shared memory holds.
 """
 
 import re
@@ -22,6 +28,7 @@ import pytest
 from craft_tpu_torch.ops.kernels import corr_vjp as cv
 from craft_tpu_torch.ops.kernels import mode_attention as ma
 from craft_tpu_torch.ops.kernels import probs_vjp as pv
+from craft_tpu_torch.ops.kernels import sep_conv_gru as sg
 
 CSRC = Path(ma.__file__).resolve().parents[2] / "csrc"
 
@@ -287,3 +294,177 @@ def test_the_chairs_forward_grid():
     blocks, as agg_corr.cu's note states."""
     _, b3_partials, _ = _source_partials()
     assert b3_partials(8, 2852, 2852, 1) == 2 * 1104
+
+
+# ------------------------------------------------- B10's backward
+
+def _gru_defines() -> dict:
+    return _defines("sep_conv_gru.cu")
+
+
+def _gru_splits(rows: int, bf16: int) -> int:
+    """sep_conv_gru.cu wgrad_splits, from its constants."""
+    d = _gru_defines()
+    most, least = ((d["GW_SPLITS"], d["GW_SPLIT_ROWS"]) if bf16
+                   else (d["FW_SPLITS"], d["FW_SPLIT_ROWS"]))
+    return max(1, min(most, rows // least))
+
+
+def test_the_gru_launcher_counts_from_these_constants():
+    """wgrad_splits names the constants above, the launcher refuses another
+    count, and the bf16 weight-gradient grid is (channel tiles x column
+    tiles, 15, splits) of Tiles' rows."""
+    text = (CSRC / "sep_conv_gru.cu").read_text()
+    body = text[text.index("int wgrad_splits(int rows, int io_bf16)"):]
+    body = body[:body.index("\n}\n")]
+    for name in ("GW_SPLITS", "FW_SPLITS", "GW_SPLIT_ROWS", "FW_SPLIT_ROWS"):
+        assert name in body, name
+    assert "if (nsplit != wgrad_splits(geo.rows, in_bf16))" in text
+    assert ("wgrad_k<<<dim3(cdiv(Cin, WT::ROWS) * nh, 3 * TAPS, nsplit)"
+            in text)
+    assert "static constexpr int THREADS = 128 * GB_WG, ROWS = 64 * GB_WG;" \
+        in text
+
+
+# (label, rows): chairs (8 x 46 x 62), serving (55 x 128), the checks'
+# ragged grid (2 x 37 x 61) and the card tests' small ones.
+GRU_ROWS = [("chairs", 22816), ("serving", 7040), ("ragged", 4514),
+            ("card test", 280), ("tiny", 90)]
+
+
+@pytest.mark.parametrize("bf16", [1, 0])
+@pytest.mark.parametrize("label,rows", GRU_ROWS)
+def test_b10_backward_splits_follow_the_grid(label, rows, bf16):
+    assert sg.wgrad_splits(rows, bool(bf16)) == _gru_splits(rows, bf16)
+
+
+def test_the_chairs_gru_backward_grid():
+    """At chairs (22,816 rows, Ch 128, Cx 384) the bf16 weight gradients
+    run 2 channel tiles x 15 (gate, tap) x 4 splits = 120 blocks, one wave
+    of one block an SM, over 15.7 MB of partials (the fp32 body's 16 splits
+    wrote 62.9 MB)."""
+    d = _gru_defines()
+    splits = _gru_splits(22816, 1)
+    blocks = _cdiv(512, 64 * d["GB_WG"]) * _cdiv(128, d["GB_COLS"]) * 15 \
+        * splits
+    assert (splits, blocks) == (4, 120)
+    per_split = 15 * 512 * 128 + 3 * 128
+    assert splits * per_split * 4 < 16e6 < _gru_splits(22816, 0) \
+        * per_split * 4
+
+
+def _gru_tiles_smem(stages: int) -> int:
+    """sep_conv_gru.cu Tiles<ST>::SMEM."""
+    d = _gru_defines()
+    a = 64 * d["GB_WG"] * d["GB_DEPTH"] * 2
+    b = d["GB_COLS"] * d["GB_DEPTH"] * 2
+    return stages * (a + b) + 2 * stages * 8 + 1024
+
+
+def test_the_gru_tiles_smem_follows_these_constants():
+    text = (CSRC / "sep_conv_gru.cu").read_text()
+    body = text[text.index("struct Tiles {"):]
+    body = body[:body.index("\n};\n")]
+    for decl in ("A = ROWS * GB_DEPTH * 2;", "B = GB_COLS * GB_DEPTH * 2;",
+                 "STAGE = A + B;", "SMEM = ST * STAGE + 2 * ST * 8 + 1024;"):
+        assert decl in body, decl
+    for inst in ("using TT = Tiles<GB_TSTAGES>;",
+                 "using WT = Tiles<GB_WSTAGES>;"):
+        assert inst in text, inst
+
+
+@pytest.mark.parametrize("stages", ["GB_TSTAGES", "GB_WSTAGES"])
+def test_every_gru_backward_body_fits_a_block(stages):
+    assert _gru_tiles_smem(_gru_defines()[stages]) <= SMEM_PER_BLOCK
+
+
+# ------------------------------------------------- B5's backward
+
+def _lookup_defines() -> dict:
+    return _defines("corr_lookup.cu")
+
+
+def _qmax(r: int) -> int:
+    d = _lookup_defines()
+    return min(d["B5B_CBUF"] // (2 * r + 2) ** 2, d["B5B_QMAX"])
+
+
+def _lookup_plan(shapes, Q, r, esz):
+    """corr_lookup.cu plan_items: per level (its first item, its items,
+    units an item, the level's units), the smallest level's items first."""
+    d = _lookup_defines()
+    ue, items, plan = 16 // esz, 0, {}
+    for lvl in range(len(shapes) - 1, -1, -1):
+        hw = shapes[lvl][0] * shapes[lvl][1]
+        units = (Q * hw * esz + 15) // 16
+        ub = max(1, min(d["B5B_RUN"], (_qmax(r) - 1) * hw // ue)) if hw \
+            else 1
+        n = _cdiv(units, ub)
+        plan[lvl] = (items, n, ub, units)
+        items += n
+    return plan, items
+
+
+def test_the_lookup_plan_follows_these_constants():
+    text = (CSRC / "corr_lookup.cu").read_text()
+    for fn, names in (("static inline int item_units", ("B5B_RUN",)),
+                      ("__host__ __device__ constexpr int qmax",
+                       ("B5B_CBUF", "B5B_QMAX")),
+                      ("static int plan_items", ("item_units", "qmax(r)",
+                                                 "l = L - 1; l >= 0; --l"))):
+        body = text[text.index(fn):]
+        body = body[:body.index("\n}\n")]
+        for name in names:
+            assert name in body, (fn, name)
+
+
+# (label, batch, H8, W8, level type): chairs, serving, the oracle and the
+# checks' odd-slab grid (11 x 15: 165, 35, 6 and 1 values a query).
+LOOKUP_GRIDS = [("chairs", 8, 46, 62, 2), ("serving", 1, 55, 128, 2),
+                ("oracle", 1, 16, 16, 4), ("odd slabs", 3, 11, 15, 2),
+                ("odd slabs fp32", 3, 11, 15, 4)]
+
+
+@pytest.mark.parametrize("radius", [0, 1, 4, 7])
+@pytest.mark.parametrize("label,batch,h8,w8,esz", LOOKUP_GRIDS)
+def test_b5_backward_units_cover_each_level_once(label, batch, h8, w8, esz,
+                                                 radius):
+    """The items of a launch tile [0, items) level by level, and each
+    level's items cover its units once; no item touches more queries than
+    its shared memory holds."""
+    Q = batch * h8 * w8
+    shapes = [(h8 >> lvl, w8 >> lvl) for lvl in range(4)]
+    plan, items = _lookup_plan(shapes, Q, radius, esz)
+    ue = 16 // esz
+    owner = [None] * items
+    for lvl, (first, n, ub, units) in plan.items():
+        for i in range(first, first + n):
+            assert owner[i] is None
+            owner[i] = lvl
+        assert (n - 1) * ub < units <= n * ub or units == n == 0
+        hw = shapes[lvl][0] * shapes[lvl][1]
+        nel = Q * hw
+        for i in range(n):
+            e0 = i * ub * ue
+            e1 = min(e0 + ub * ue, nel)
+            assert (e1 - 1) // hw - e0 // hw + 1 <= _qmax(radius)
+    assert None not in owner
+
+
+STATIC_SMEM_PER_BLOCK = 49152  # static shared memory a block may declare
+
+
+@pytest.mark.parametrize("radius", range(8))
+def test_every_lookup_backward_fits_its_static_smem(radius):
+    """gc, org, frac and touched of lookup_bwd_kernel<T, radius>."""
+    d = _lookup_defines()
+    qm, mm = _qmax(radius), (2 * radius + 2) ** 2
+    assert qm * mm <= d["B5B_CBUF"] and qm >= 2
+    smem = 4 * qm * mm + 8 * qm + 8 * qm + 4 * (d["B5B_RUN"] // 32)
+    assert smem <= STATIC_SMEM_PER_BLOCK
+    text = (CSRC / "corr_lookup.cu").read_text()
+    for decl in ("__shared__ float gc[QM * MM];",
+                 "__shared__ int org[QM][2];",
+                 "__shared__ float frac[QM][2];",
+                 "__shared__ unsigned touched[B5B_RUN / 32];"):
+        assert decl in text, decl

@@ -851,6 +851,25 @@ def test_b5_lookup_forward_and_backward(dev, dtype, grid, radius):
         assert bool(((d.float() - w).abs() <= tol * w.abs()).all())
 
 
+# B5's backward writes 16-byte units that straddle queries where slabs are
+# odd: 11 x 15 gives 165, 35, 6 and 1 values a query; batch 3, the radii 0,
+# 1, 4 and 7 (each a kernel of its own).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("radius", [0, 1, 4, 7])
+def test_b5_backward_at_odd_slabs(dev, dtype, radius):
+    levels, coords = _lookup_inputs(dev, 3, 11, 15, dtype)
+    g = torch.randn(3, 11, 15, 4 * (2 * radius + 1) ** 2,
+                    generator=_gen(2)).to(dev)
+    shapes = [tuple(lv.shape) for lv in levels]
+    dl = lk.corr_lookup_bwd(coords, g, shapes, dtype, radius)
+    again = lk.corr_lookup_bwd(coords, g, shapes, dtype, radius)
+    wdl = lk.corr_lookup_bwd_plain(coords, g, shapes, torch.float32, radius)
+    tol = 2.0 ** -8 if dtype == torch.bfloat16 else 4 * 2.0 ** -23
+    for d, a, w in zip(dl, again, wdl):
+        assert torch.equal(d, a)
+        assert bool(((d.float() - w).abs() <= tol * w.abs()).all())
+
+
 def test_b5_function_on_the_card_matches_the_cpu(dev):
     levels, coords = _lookup_inputs(dev, 2, 5, 12, torch.float32)
     g = torch.randn(2, 5, 12, 4 * 81, generator=_gen(1)).to(dev)
@@ -1040,6 +1059,28 @@ def test_b10_backward_is_deterministic(dev, dtype):
     res = (args[0], args[1], z, r, q, g, *args[2:8], 1, GRU_SHAPES[1][2])
     for a, b in zip(sg.gru_pass_bwd(*res), sg.gru_pass_bwd(*res)):
         assert torch.equal(a, b)
+
+
+# 2 x 37 x 61 = 4514 rows: a multiple neither of the bf16 backward's
+# 128-row tiles nor of its 64-row weight-gradient steps, in two row splits.
+GRU_RAGGED = (2, 37, 61, 128, 384)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("vertical", [False, True], ids=["h", "v"])
+def test_b10_backward_at_ragged_rows(dev, dtype, vertical):
+    shape = GRU_RAGGED
+    args, g = _gru_inputs(dev, shape, dtype)
+    geo = (shape[2], shape[1] * shape[2]) if vertical else (1, shape[2])
+    _, z, r, q = sg.gru_pass_fwd_plain(*args, *geo)
+    res = (args[0], args[1], z, r, q, g, *args[2:8])
+    got = sg.gru_pass_bwd(*res, *geo)
+    for a, b in zip(got, sg.gru_pass_bwd(*res, *geo)):
+        assert torch.equal(a, b)
+    want = sg.gru_pass_bwd_plain(*res, *geo)
+    io_tol, w_tol = GRU_TOL[dtype]
+    _gru_close(got[:2], want[:2], io_tol)
+    _gru_close(got[2:], want[2:], w_tol)
 
 
 @pytest.mark.parametrize("vertical", [False, True], ids=["h", "v"])

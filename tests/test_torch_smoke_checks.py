@@ -22,9 +22,11 @@ sequence-parallel kernels (B9, and B2 and B4 on a row shard) the row offset
 dropped, the moments over a shard's own element count or a shard's own max
 as the clamp predicate, and for the fused GRU pass B10 the row mask
 dropped, q over h, the blend reversed, halo rows counted twice in the
-weight gradients or dh without its drh r term) they must fail.  On the card the same checks also
-plant the faults in the plain versions and fail unless their bounds catch
-them.
+weight gradients or dh without its drh r term, and B5's backward with its
+16-byte units that straddle two queries dropped or doubled, also at odd
+slab sizes and radii 0, 1, 4 and 7) they must fail.  On the card the same
+checks also plant the faults in the plain versions and fail unless their
+bounds catch them.
 """
 
 import functools
@@ -439,6 +441,46 @@ def test_lookup_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper,
         _run_lookup()
 
 
+def _unit_fault(fault):
+    """corr_lookup_bwd whose straddling 16-byte units are dropped or
+    doubled (chip_smoke.B5_UNIT_FAULTS)."""
+    def faulty(coords, g, shapes, dtype, r):
+        out = lk.corr_lookup_bwd_plain(coords, g, shapes, torch.float32, r)
+        return tuple(d.to(dtype) for d in
+                     chip_smoke._b5_unit_faults(list(out), dtype)[fault])
+    return faulty
+
+
+def test_lookup_radii_checks_pass_the_plain_versions():
+    report = {"corr_lookup_bwd": {}}
+    chip_smoke.check_lookup_radii(CPU, report)
+    assert 0.0 < report["corr_lookup_bwd"]["max_abs_err"] < 2.0 ** -5
+
+
+@pytest.mark.parametrize("fault", chip_smoke.B5_UNIT_FAULTS)
+def test_lookup_radii_checks_catch_a_straddling_unit_fault(monkeypatch,
+                                                           fault):
+    monkeypatch.setattr(lk, "corr_lookup_bwd", _unit_fault(fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.check_lookup_radii(CPU, {"corr_lookup_bwd": {}},
+                                      radii=(1,))
+
+
+@pytest.mark.parametrize("fault", chip_smoke.B5_UNIT_FAULTS)
+def test_lookup_checks_catch_a_straddling_unit_fault(monkeypatch, fault):
+    """The ragged grid's slabs (60 and 12 values) straddle units too."""
+    monkeypatch.setattr(lk, "corr_lookup_bwd", _unit_fault(fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        _run_lookup()
+
+
+def test_the_odd_slab_grid_has_odd_slabs():
+    _, batch, h8, w8 = chip_smoke.LOOKUP_ODD_GRID
+    slabs = [(h8 >> lvl) * (w8 >> lvl) for lvl in range(4)]
+    assert batch >= 3 and sum(s % 2 for s in slabs) >= 3
+    assert set(chip_smoke.LOOKUP_RADII) == {0, 1, 4, 7}
+
+
 # ------------------------------------------------- the dense-table kernels
 
 DENSE = ("flash_mode_attention_dense", "fused_agg_corr_dense",
@@ -608,3 +650,21 @@ def test_gru_checks_catch_a_backward_that_is_not_repeatable(monkeypatch):
     monkeypatch.setattr(sg, "gru_pass_bwd", drifting)
     with pytest.raises(AssertionError, match="two backwards differ"):
         _run_gru()
+
+
+def test_the_ragged_gru_grid_is_ragged():
+    """chip_smoke's ragged GRU grid: its rows are a multiple neither of the
+    bf16 backward's row tiles nor of its weight-gradient steps, and they
+    fall into two or more row splits, the last one short."""
+    import re
+    from pathlib import Path
+    src = Path(sg.__file__).resolve().parents[2] / "csrc" / "sep_conv_gru.cu"
+    d = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"^#define\s+(\w+)\s+(\d+)\b", src.read_text(), re.MULTILINE)}
+    label, batch, h8, w8 = chip_smoke.GRU_CHECK_GRIDS[-1]
+    rows = batch * h8 * w8
+    assert label == "ragged" and rows % (64 * d["GB_WG"]) and \
+        rows % d["GB_DEPTH"]
+    n = sg.wgrad_splits(rows, True)
+    chunk = -(-(-(-rows // n)) // d["GB_DEPTH"]) * d["GB_DEPTH"]
+    assert n >= 2 and 0 < rows - (n - 1) * chunk < chunk

@@ -55,8 +55,10 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     # B10, the fused SepConvGRU pass (SepConvGRU(fused='on'); no FlowModel
     # path builds it, so a model profile shows it only when a caller does).
     ("B10 gru_pass", ("gru_zr_kernel", "gru_q_kernel")),
+    # B10's backward: its fp32 tiles and its bf16 (wgmma) tiles.
     ("B10 gru_pass_bwd", ("gru_bwd_elem_kernel", "gru_drh_kernel",
                           "gru_dhx_kernel", "gru_wgrad_kernel",
+                          "gru_tconv_wgmma_kernel", "gru_wgrad_wgmma_kernel",
                           "sum_splits_kernel")),
     ("convolution", ("conv", "xmma", "cudnn", "implicit", "winograd")),
     ("matmul", ("gemm", "cutlass", "sm90", "ampere")),

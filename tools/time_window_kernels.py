@@ -1,4 +1,4 @@
-"""A/B times of the hand kernels B1-B9 over CUDA events, for the
+"""A/B times of the hand kernels B1-B10 over CUDA events, for the
 craft_tpu_torch package under --root (default: this checkout), so that two
 checkouts can be compared in one call on one card:
 
@@ -26,7 +26,11 @@ W8=156):
   --f2radius 7 table (pos_w * the dense window + the mask);
   B2 and B8 with the table again in fp32 (their fp32 body);
   B9 (corr_norm_sums, corr_norm_write) on both row shards of the serving
-  grid at n = 2 (rows 0:28 and 28:55).
+  grid at n = 2 (rows 0:28 and 28:55);
+  B10 (gru_pass_fwd, gru_pass_bwd) at the serving and chairs grids, bf16
+  h, Ch 128, Cx 384 (fp32 x, as the module passes it), both passes: h
+  (stride 1) and v (stride W); the backward on the plain forward's z, r, q,
+  so that both checkouts' backwards read the same bits.
 
 Seeded inputs from CPU generators (q, k ~ N(0, 1.5^2) bf16, the window ~
 N(0, 0.5^2)), the clamp off.  Each case is timed in ROUNDS rounds of `reps`
@@ -51,7 +55,10 @@ abs_diff` adds dlsum's; for B6's backward dc's, and `B6_bwd_da_max_abs_
 diff` adds da's; for those two the `_rel_diff` keys give each largest
 |difference| over the largest |value| of the other checkout's output.
 Where the first output is bf16, `<case>_max_ulp_diff` adds how many bf16
-steps apart its elements lie at most.
+steps apart its elements lie at most.  For B10's backward (WHOLE) every
+output is kept: `_max_abs_diff` is the largest over dh, dx and the weight
+and bias gradients, `_rel_diff` the largest of each one's over its largest
+|value|.
 """
 
 from __future__ import annotations
@@ -75,6 +82,13 @@ SAVED = ("B1", "B1_md32", "B1_chairs", "B1_fp32", "B2", "B2_fp32", "B3",
 # The second output kept beside the first, by case: B7's dlsum, B6
 # backward's da.
 SECOND = {"B7_md64": "dlsum", "B7_md32": "dlsum", "B6_bwd": "da"}
+# B10: the pass's forward and backward, each pass, serving and chairs.
+B10_CASES = tuple(f"B10{b}{g}_{p}" for b in ("", "_bwd")
+                  for g in ("", "_chairs") for p in ("h", "v"))
+SAVED += B10_CASES
+# Cases whose every output is kept and compared.
+WHOLE = tuple(c for c in B10_CASES if c.startswith("B10_bwd"))
+GRU_CH, GRU_CX = 128, 384
 SERVING, CHAIRS, KITTI = (55, 128), (46, 62), (47, 156)
 RADIUS, LEVELS, F2RADIUS = 4, 4, 7
 
@@ -195,6 +209,7 @@ def _cases(torch, dev):
         cases[f"B9_write_r{r}"] = functools.partial(
             ma.corr_norm_write, ql, k64, biases, SERVING, gmax, sums, 100.0,
             0.5, agg_w, agg_b, q_row0=h0)
+    _gru_cases(torch, gen, dev, cases)
     for md, (q, k), pos_w in ((32, (qc32, kc32), 1.0),
                               (64, (qc64, kc64), 0.5)):
         cases[f"B4_chairs_md{md}"] = functools.partial(
@@ -208,6 +223,33 @@ def _cases(torch, dev):
         cases[f"B7_md{md}"] = functools.partial(pv.probs_bwd, q, k, p, g_p,
                                                 clip)
     return cases
+
+
+def _gru_cases(torch, gen, dev, cases) -> None:
+    """B10's forward and backward at the serving and chairs grids, both
+    passes: h in (-1, 1) bf16, x ~ N(0, 1) fp32, fp32 taps ~ N(0, 1 /
+    2560) (so that the weight gradients come back in fp32), biases ~ N(0,
+    0.1^2), the cotangent ~ N(0, 1)."""
+    from craft_tpu_torch.ops.kernels import sep_conv_gru as sg
+    std = (5 * (GRU_CH + GRU_CX)) ** -0.5
+    for label, batch, (h8, w8) in (("", 1, SERVING), ("_chairs", 8, CHAIRS)):
+        rows = h8 * w8
+
+        def randn(*shape, s=1.0):
+            return (torch.randn(*shape, generator=gen) * s).to(dev)
+        h = randn(batch, rows, GRU_CH).tanh().bfloat16()
+        x = randn(batch, rows, GRU_CX)
+        ws = [randn(5, c, GRU_CH, s=std) for _ in range(3)
+              for c in (GRU_CH, GRU_CX)]
+        bs = [randn(GRU_CH, s=0.1) for _ in range(3)]
+        g = randn(batch, rows, GRU_CH)
+        for p, geo in (("h", (1, w8)), ("v", (w8, rows))):
+            args = (h, x, *ws, *bs, *geo)
+            _, z, r, q = sg.gru_pass_fwd_plain(*args)
+            cases[f"B10{label}_{p}"] = functools.partial(sg.gru_pass_fwd,
+                                                         *args)
+            cases[f"B10_bwd{label}_{p}"] = functools.partial(
+                sg.gru_pass_bwd, h, x, z, r, q, g, *ws, *geo)
 
 
 def _max_ulp_diff(torch, a, b) -> int:
@@ -278,12 +320,25 @@ def main() -> int:
         # the SECOND outputs.
         scales = res[1] if first.dtype == torch.int8 else None
         second = res[1] if name in SECOND else None
-        if name in SAVED and args.save:
+        if name in WHOLE:
+            if args.save:
+                Path(args.save).mkdir(parents=True, exist_ok=True)
+                torch.save([t.cpu() for t in res],
+                           Path(args.save) / f"{name}.pt")
+            if args.diff:
+                refs = torch.load(Path(args.diff) / f"{name}.pt")
+                diffs = [float((t.cpu().double() - r.double()).abs().max())
+                         for t, r in zip(res, refs)]
+                out[name + "_max_abs_diff"] = max(diffs)
+                out[name + "_rel_diff"] = max(
+                    d / float(r.double().abs().max())
+                    for d, r in zip(diffs, refs))
+        elif name in SAVED and args.save:
             Path(args.save).mkdir(parents=True, exist_ok=True)
             torch.save(tuple(None if t is None else t.cpu()
                              for t in (first, scales, second)),
                        Path(args.save) / f"{name}.pt")
-        if name in SAVED and args.diff:
+        if name in SAVED and name not in WHOLE and args.diff:
             ref, ref_scales, ref_second = torch.load(
                 Path(args.diff) / f"{name}.pt")
             out[name + "_max_abs_diff"] = float(

@@ -52,7 +52,8 @@ these phases and fails on the first that fails:
      the chairs grid (B=8, 46x62), bf16 and fp32: both passes (horizontal,
      stride 1 with the image-row mask; vertical, stride W over the same
      rows), forward and backward, with the row mask dropped, q over h,
-     the blend reversed, halo rows counted twice in the weight gradients
+     the blend reversed, r h read as zero across the forward's 64-row
+     tiles, halo rows counted twice in the weight gradients
      and dh without its drh r term planted in the plain versions; two
      backwards of one input must be bit-identical.
   3. oracle: full-width CRAFT with the weights of
@@ -2561,9 +2562,13 @@ GRU_CH, GRU_CX = 128, 384
 # straddled a boundary (dqh, dzh, drhat) move one term of a sum of
 # thousands by 2^-8 of itself.
 B10_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
-B10_FAULTS = ("no row mask", "q over h", "blend reversed", "halo rows twice",
-              "no drh r term")
+B10_FAULTS = ("no row mask", "q over h", "blend reversed",
+              "r h halo dropped", "halo rows twice", "no drh r term")
+B10_FWD_FAULTS = B10_FAULTS[:4]
 B10_TILE = 64  # rows of a tile whose halo 'halo rows twice' counts again
+# Rows of the bf16 forward's tile (csrc/sep_conv_gru.cu GF_ROWS), whose q
+# reads r h from the neighbouring tiles in 'r h halo dropped'.
+B10_FWD_TILE = 64
 
 
 def gru_inputs(dev, batch, h8, w8, dtype, seed=21):
@@ -2587,8 +2592,9 @@ def gru_inputs(dev, batch, h8, w8, dtype, seed=21):
 
 def _gru_fwd_fault(args, stride, width, fault):
     """The plain forward with one planted fault: taps crossing an image row
-    read (no row mask), q over h in place of r h, or the blend reversed to
-    (1 - z) q + z h."""
+    read (no row mask), q over h in place of r h, the blend reversed to
+    (1 - z) q + z h, or q's taps of r h reading zero from rows of another
+    B10_FWD_TILE-row tile of the flattened batch (r h halo dropped)."""
     h, x, wzh, wzx, wrh, wrx, wqh, wqx, bz, br, bq = args
     if fault == "no row mask":
         return sg.gru_pass_fwd_plain(*args, stride, h.shape[1])
@@ -2603,7 +2609,17 @@ def _gru_fwd_fault(args, stride, width, fault):
     r = torch.sigmoid(gate(h, wrh, wrx, br))
     hf = h.to(acc)
     rh = h if fault == "q over h" else (r * hf).to(io)
-    q = torch.tanh(gate(rh, wqh, wqx, bq))
+    if fault == "r h halo dropped":
+        B, HW = h.shape[:2]
+        rows = torch.arange(B * HW, device=h.device).view(B, HW, 1)
+        q = torch.tanh(sum(
+            torch.where((rows + (t - 2) * stride) // B10_FWD_TILE
+                        == rows // B10_FWD_TILE,
+                        sg.shift_rows(rh, t - 2, stride, width), 0).to(acc)
+            @ wqh[t].to(io).to(acc) for t in range(5))
+            + sg.conv_rows(x, wqx.to(io), *geo) + bq.to(acc))
+    else:
+        q = torch.tanh(gate(rh, wqh, wqx, bq))
     hout = (1 - z) * q + z * hf if fault == "blend reversed" else \
         (1 - z) * hf + z * q
     return hout.to(io), z.to(io), r.to(io), q.to(io)
@@ -2648,7 +2664,7 @@ def check_gru(dev, report, grids=GRU_CHECK_GRIDS) -> None:
     """Phase 2, B10: both passes (horizontal: stride 1, masked at image
     rows; vertical: stride W over the same rows), forward and backward, at
     the serving, chairs and ragged grids, bf16 and fp32 (TF32 off), against
-    the plain versions on the same inputs, with the five B10_FAULTS planted in
+    the plain versions on the same inputs, with the B10_FAULTS planted in
     the plain versions; two backwards of one input bit-identical."""
     errs = {"gru_pass_fwd": [], "gru_pass_bwd": []}
     for label, batch, h8, w8 in grids:
@@ -2661,7 +2677,7 @@ def check_gru(dev, report, grids=GRU_CHECK_GRIDS) -> None:
                 sync(dev)
                 want = sg.gru_pass_fwd_plain(*args, *geo)
                 faults = {f: _gru_fwd_fault(args, *geo, f)
-                          for f in B10_FAULTS[:3]
+                          for f in B10_FWD_FAULTS
                           if name == "h" or f != "no row mask"}
                 hold(f"{tag} forward", got, want, tensors_rel_err, io_tol,
                      faults)

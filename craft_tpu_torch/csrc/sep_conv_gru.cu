@@ -17,13 +17,15 @@
 // backward (about 90 GFLOP at the chairs batch, 22,816 rows: 0.091 ms at
 // the bf16 peak), over a few MB of rows, while the 15 taps of weights (1.97
 // MB in bf16) are far above a block's shared memory.
-//   The forward (and the fp32 backward) is a plain tiled product: a sweep
-// of 64-row x 128-column output tiles, the depth (tap, then 32 channels at
-// a time) staged through shared memory, the weights streamed by tap and
-// channel tile, the gate arithmetic in the epilogue; bf16 tiles multiplied
-// on the tensor cores by WMMA (fp32 sums), fp32 ones in FMA, no stage
-// double-buffered.  It takes two launches (z|r, then q with the blend),
-// since q needs r h at the neighbouring rows.
+//   The bf16 forward runs a wgmma body (below: gru_fwd_wgmma_kernel) in
+// two launches, since q needs r h at the neighbouring rows: z and r over
+// h | x on 64-row tiles of two warpgroups, then q over r h | x with the
+// blend; the weights reach it as bulk copies of stage images that
+// gru_pack_taps_kernel lays out once a pass.  The fp32 forward (and the
+// fp32 backward) is a plain tiled product in FMA: a sweep of 64-row x
+// 128-column output tiles, the depth (tap, then 32 channels at a time)
+// staged through shared memory, the gate arithmetic in the epilogue, in
+// the same two launches (z|r, then q with the blend).
 //   The bf16 backward runs wgmma bodies (below: gru_tconv_wgmma_kernel,
 // gru_wgrad_wgmma_kernel): 256 x 128 tiles of four warpgroups fed by a
 // cp.async ring, the epilogues on the accumulator fragments.  Both
@@ -40,11 +42,8 @@
 // r in the forward and from the saved, rounded r in the backward; z, r, q
 // saved in io; dqh, dzh and drhat rounded to io before every product and
 // bias sum that reads them.
-#include <mma.h>
-
 #include <algorithm>
 #include <initializer_list>
-#include <type_traits>
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -57,16 +56,6 @@ constexpr int BN = 128;  // output columns of a tile
 constexpr int BK = 32;   // depth staged per step: channels, or rows
 constexpr int APAD = BM + 1, BPAD = BN + 1;
 constexpr int MAX_OPS = 3;
-// bf16 tiles on the tensor cores (WMMA 16x16x16, fp32 sums): eight warps
-// of 32 x 32 outputs each over the 64 x 128 tile.  Leading dimensions are
-// padded by 16 bytes (a multiple of 8 bf16, as WMMA needs); the fp32
-// result tile Cs reuses the staging memory after the sweep.
-constexpr int WM = 16;
-constexpr int LDA_TC = BK + 8;  // As [BM][LDA_TC]: rows x depth
-constexpr int LDB_TC = BN + 8;  // Bs [BK][LDB_TC]: depth x columns
-constexpr int LDC_TC = BN + 4;  // Cs [BM][LDC_TC] fp32
-constexpr int TC_SMEM = BM * LDC_TC * 4;
-static_assert(BM * LDA_TC * 2 + BK * LDB_TC * 2 <= TC_SMEM, "tc staging");
 
 // The rows of the pass: B images of HW rows each, taps s rows apart; a
 // horizontal pass (s == 1) keeps its taps inside image rows of `width`.
@@ -136,7 +125,7 @@ __device__ __forceinline__ void mac_tile(float acc[4][8], const float* As,
 // transposed), in fp32 FMA.  Thread (tx, ty) holds rows ty + 16 i, columns
 // tx + 16 j.
 template <typename T, bool TRANS>
-__device__ void rowconv_tile_fma(const RowConv<T>& rc, const Geo& g,
+__device__ void rowconv_tile(const RowConv<T>& rc, const Geo& g,
                                  int row0, int col0, float acc[4][8]) {
   __shared__ float As[BK * APAD];
   __shared__ float Bs[BK * BPAD];
@@ -186,143 +175,26 @@ __device__ void rowconv_tile_fma(const RowConv<T>& rc, const Geo& g,
   }
 }
 
-// Eight bf16 (16 bytes) at p, which the caller keeps 16-byte aligned: the
-// bf16 kernels take channel counts that are multiples of 8.
-__device__ __forceinline__ uint4 load8(const bf16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint4 zero8() {
-  return make_uint4(0u, 0u, 0u, 0u);
-}
-
-// Cs's fp32 tile into the FMA layout: thread (tx, ty) takes rows ty + 16 i,
-// columns tx + 16 j, so that every epilogue reads one layout.
-__device__ __forceinline__ void tile_to_acc(const float* Cs,
-                                            float acc[4][8]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[i][j] = Cs[(ty + 16 * i) * LDC_TC + tx + 16 * j];
-}
-
-using FragC = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, WM, WM, WM,
-                                     float>;
-
-// The warp's 32 x 32 outputs (2 x 2 fragments at rows wm * 32, columns
-// wn * 32) into Cs, after every warp has left the staging memory.
-__device__ __forceinline__ void store_frags(FragC c[2][2], float* Cs) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x >> 5, wm = warp >> 2, wn = warp & 3;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(
-          Cs + (wm * 32 + WM * i) * LDC_TC + wn * 32 + WM * j, c[i][j],
-          LDC_TC, wmma::mem_row_major);
-  __syncthreads();
-}
-
-// rowconv_tile_fma's forward tile for bf16 operands on the tensor cores:
-// the same staging order (tap, then 32 channels), bf16 kept as it is in
-// shared memory, the products summed in fp32 by WMMA.  (The bf16 backward
-// runs its own wgmma body, below.)
-__device__ void rowconv_tile_tc(const RowConv<bf16>& rc, const Geo& g,
-                                int row0, int col0, float acc[4][8]) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[TC_SMEM];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + BM * LDA_TC * 2);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, wm = warp >> 2, wn = warp & 3;
-  // A staging: one row and 8 channels (16 bytes) a thread.
-  const int r_v = tid >> 2, k_v = (tid & 3) * 8;
-  FragC c[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-  for (int o = 0; o < rc.nop; ++o) {
-    const Operand<bf16> op = rc.op[o];
-    for (int t = 0; t < TAPS; ++t) {
-      const int src = tap_src(g, row0 + r_v, t - RAD);
-      const bf16* wt = op.w + (size_t)t * op.ka * rc.ldw;
-      for (int k0 = 0; k0 < op.ka; k0 += BK) {
-        __syncthreads();
-        const int k = k0 + k_v;
-        *reinterpret_cast<uint4*>(As + r_v * LDA_TC + k_v) =
-            src >= 0 && k < op.ka ? load8(op.a + (size_t)src * op.ka + k)
-                                  : zero8();
-        // B staging: 8 consecutive columns a load.
-#pragma unroll
-        for (int e = tid; e < BK * BN / 8; e += NTHREADS) {
-          const int kk = e / (BN / 8), cc = e % (BN / 8) * 8;
-          const int kg = k0 + kk, col = col0 + cc;
-          const bool in = kg < op.ka && col < rc.ncol;
-          *reinterpret_cast<uint4*>(Bs + kk * LDB_TC + cc) =
-              in ? load8(wt + (size_t)kg * rc.ldw + col) : zero8();
-        }
-        __syncthreads();
-#pragma unroll
-        for (int ks = 0; ks < BK; ks += WM) {
-          wmma::fragment<wmma::matrix_a, WM, WM, WM, bf16, wmma::row_major>
-              a[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(
-                a[i], As + (wm * 32 + WM * i) * LDA_TC + ks, LDA_TC);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int n = wn * 32 + WM * j;
-            wmma::fragment<wmma::matrix_b, WM, WM, WM, bf16,
-                           wmma::row_major> b;
-            wmma::load_matrix_sync(b, Bs + ks * LDB_TC + n, LDB_TC);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              wmma::mma_sync(c[i][j], a[i], b, c[i][j]);
-          }
-        }
-      }
-    }
-  }
-  float* Cs = reinterpret_cast<float*>(smem);
-  store_frags(c, Cs);
-  tile_to_acc(Cs, acc);
-}
-
-// The tile of a row convolution: bf16 on the tensor cores (the forward),
-// fp32 in FMA (both directions).
-template <typename T, bool TRANS>
-__device__ __forceinline__ void rowconv_tile(const RowConv<T>& rc,
-                                             const Geo& g, int row0,
-                                             int col0, float acc[4][8]) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(!TRANS, "the bf16 backward runs gru_tconv_wgmma_kernel");
-    rowconv_tile_tc(rc, g, row0, col0, acc);
-  } else {
-    rowconv_tile_fma<T, TRANS>(rc, g, row0, col0, acc);
-  }
-}
-
 __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
 // ---------------------------------------------------------------------------
-// Forward
+// Forward (fp32)
 // ---------------------------------------------------------------------------
+
+// The gates' biases, [Ch] fp32 each.
+struct Bias3 {
+  const float *z, *r, *q;
+};
 
 // z (gate 0, blockIdx.z) or r (gate 1) over a tile.  z is kept in fp32 for
 // the blend (zf), r is saved in io and r h rounded to io from the fp32 r.
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    gru_zr_kernel(RowConv<T> rz, RowConv<T> rr, Geo g,
-                  const float* __restrict__ bias, const T* __restrict__ h,
-                  float* __restrict__ zf, T* __restrict__ r_out,
-                  T* __restrict__ rh, int Ch) {
+    gru_zr_kernel(RowConv<T> rz, RowConv<T> rr, Geo g, Bias3 bias,
+                  const T* __restrict__ h, float* __restrict__ zf,
+                  T* __restrict__ r_out, T* __restrict__ rh, int Ch) {
   const int gate = blockIdx.z;
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -337,7 +209,8 @@ __global__ void __launch_bounds__(NTHREADS)
       const int c = col0 + tx + 16 * j;
       if (c >= Ch) continue;
       const size_t e = (size_t)p * Ch + c;
-      const float v = sigmoidf_(acc[i][j] + bias[gate * Ch + c]);
+      const float b = (gate == 0 ? bias.z : bias.r)[c];
+      const float v = sigmoidf_(acc[i][j] + b);
       if (gate == 0) {
         zf[e] = v;
       } else {
@@ -351,10 +224,9 @@ __global__ void __launch_bounds__(NTHREADS)
 // q over a tile, and the blend h' = (1 - z) h + z q with the fp32 z.
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    gru_q_kernel(RowConv<T> rq, Geo g, const float* __restrict__ bias,
-                 const T* __restrict__ h, const float* __restrict__ zf,
-                 T* __restrict__ hout, T* __restrict__ z_out,
-                 T* __restrict__ q_out, int Ch) {
+    gru_q_kernel(RowConv<T> rq, Geo g, Bias3 bias, const T* __restrict__ h,
+                 const float* __restrict__ zf, T* __restrict__ hout,
+                 T* __restrict__ z_out, T* __restrict__ q_out, int Ch) {
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float acc[4][8];
@@ -368,7 +240,7 @@ __global__ void __launch_bounds__(NTHREADS)
       const int c = col0 + tx + 16 * j;
       if (c >= Ch) continue;
       const size_t e = (size_t)p * Ch + c;
-      const float q = tanhf(acc[i][j] + bias[2 * Ch + c]);
+      const float q = tanhf(acc[i][j] + bias.q[c]);
       const float z = zf[e];
       hout[e] = from_f<T>((1.f - z) * to_f(h[e]) + z * q);
       z_out[e] = from_f<T>(z);
@@ -540,15 +412,29 @@ __global__ void __launch_bounds__(NTHREADS)
         db;
 }
 
-// out[i] = sum over the splits of part[split][i], split 0 first.
+// dw[o] = the sum over the splits of the partials of its element, split 0
+// first.  The partials lie [gate][tap][Ch + Cx][Ch] (then the biases [3]
+// [Ch]), dw [gate][the h part: tap][Ch][Ch], [the x part: tap][Cx][Ch]
+// (then the biases): each weight's gradient is one contiguous piece.
 __global__ void __launch_bounds__(NTHREADS)
     sum_splits_kernel(const float* __restrict__ part, int nsplit, size_t n,
-                      float* __restrict__ out) {
-  for (size_t i = blockIdx.x * (size_t)NTHREADS + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * NTHREADS) {
+                      int Ch, int Cx, float* __restrict__ out) {
+  const size_t hpart = (size_t)TAPS * Ch * Ch;
+  const size_t gpart = (size_t)TAPS * (Ch + Cx) * Ch, wlen = 3 * gpart;
+  for (size_t o = blockIdx.x * (size_t)NTHREADS + threadIdx.x; o < n;
+       o += (size_t)gridDim.x * NTHREADS) {
+    size_t i = o;
+    if (o < wlen) {
+      const size_t gate = o / gpart, rem = o % gpart;
+      const bool xp = rem >= hpart;
+      const size_t tap_len = (size_t)(xp ? Cx : Ch) * Ch;
+      const size_t rr = xp ? rem - hpart : rem;
+      i = gate * gpart + rr / tap_len * (Ch + Cx) * Ch +
+          (xp ? (size_t)Ch * Ch : 0) + rr % tap_len;
+    }
     float s = 0.f;
     for (int k = 0; k < nsplit; ++k) s += part[(size_t)k * n + i];
-    out[i] = s;
+    out[o] = s;
   }
 }
 
@@ -979,6 +865,277 @@ __global__ void __launch_bounds__(128 * GB_WG, 1)
         db;
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+//
+// One tile kernel, gru_fwd_wgmma_kernel, in two launches of 64 x 128
+// outputs a block, one consumer warpgroup a gate (m64n128k16 from shared
+// memory, fp32 sums in registers: one 64-float accumulator a thread), the
+// depth (tap, segment, 64 channels) staged through a ring that full/empty
+// mbarriers count:
+//   ZR, two warpgroups: z and r over h | x.  The epilogue writes z (fp32)
+//   for the blend, r and r h (io).
+//   Q, one warpgroup: q over r h | x, which reads r h at rows +-2s, then
+//   h' = (1 - z) h + z q, z and q in io.
+// A stage holds the tap's source rows of the segment (K-major, 128-byte
+// swizzled), copied 16 bytes a thread by cp.async, so that a tap that
+// leaves the image or the image row is zero-filled by its copy; and the
+// gates' weights W_t[k][col] as they lie (N-contiguous: 64-column blocks
+// of 128-byte depth rows, MN-major, the transpose bit on B only), one bulk
+// copy (the copy engine, counted in bytes on the full barrier) of the
+// stage's image that gru_pack_taps_kernel lays out once a pass.  Each
+// warpgroup keeps one step's products in flight while it refills the ring.
+// What bounds a block is its chain of waits a step (copies, barriers, the
+// products), so the tiles are the smallest wgmma takes: 64 rows fill 110
+// SMs at serving (128-row tiles of four warpgroups filled 55 and took half
+// as long again), and the q launch's small ring lets three blocks share an
+// SM.  No sum crosses blocks: two forwards of one input give the same
+// bits.
+#define GF_ROWS 64      // output rows of a forward block (the wgmma m)
+#define GF_ZSTAGES 4    // ring stages of the z | r launch
+#define GF_QSTAGES 3    // ring stages of the q launch
+#define GF_TILE 16384   // bytes of one gate's weights in a stage
+
+static_assert(GB_COLS * GB_DEPTH * 2 == GF_TILE, "a gate's B tile");
+
+// A forward body of NG gates (a consumer warpgroup each) and a ring of ST
+// stages: its rows, threads and shared memory.
+template <int NG, int ST>
+struct FTiles {
+  static constexpr int ROWS = GF_ROWS, THREADS = 128 * NG;
+  static constexpr int A = ROWS * GB_DEPTH * 2;  // A tile, bytes
+  static constexpr int STAGE = A + NG * GF_TILE;
+  static constexpr int SMEM = ST * STAGE + 2 * ST * 8 + 1024;
+};
+
+// 16-byte units of the stage images: per launch (ZR's two gates over h |
+// x, then Q's one over r h | x), per column tile, stage (tap t, then the
+// 64-channel chunks of both segments) and gate, GF_TILE bytes: two
+// 64-column blocks of 64 depth rows of 128 bytes, swz128-swizzled, zeros
+// beyond the segment's channels and beyond Ch.
+struct Taps {
+  const bf16* w[6];  // wzh, wzx, wrh, wrx, wqh, wqx: [5][Ch or Cx][Ch]
+  int Ch, Cx;
+};
+
+__device__ __forceinline__ int chunks64(int k) {
+  return (k + GB_DEPTH - 1) / GB_DEPTH;
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+    gru_pack_taps_kernel(Taps tp, uint4* __restrict__ out, long long n) {
+  const int nkt = chunks64(tp.Ch) + chunks64(tp.Cx), nk = TAPS * nkt;
+  const int nct = (tp.Ch + GB_COLS - 1) / GB_COLS;
+  const long long zr_tiles = 2LL * nct * nk;
+  for (long long u = blockIdx.x * (long long)NTHREADS + threadIdx.x; u < n;
+       u += (long long)gridDim.x * NTHREADS) {
+    long long tile = u >> 10;
+    const int in = (int)(u & 1023), blk = in >> 9, r = (in >> 3) & 63;
+    const int c = (in & 7) ^ (r & 7);
+    int gate;  // 0..2: z, r, q
+    if (tile < zr_tiles) {
+      gate = (int)(tile & 1);
+      tile >>= 1;
+    } else {
+      gate = 2;
+      tile -= zr_tiles;
+    }
+    const int ct = (int)(tile / nk), ks = (int)(tile % nk);
+    const int t = ks / nkt, j = ks % nkt, nkh = chunks64(tp.Ch);
+    const bool seg = j >= nkh;
+    const int ka = seg ? tp.Cx : tp.Ch;
+    const int k = (seg ? j - nkh : j) * GB_DEPTH + r;
+    const int col = ct * GB_COLS + 64 * blk + 8 * c;
+    const bf16* w = tp.w[2 * gate + (seg ? 1 : 0)];
+    out[u] = k < ka && col < tp.Ch
+                 ? *reinterpret_cast<const uint4*>(
+                       w + ((size_t)t * ka + k) * tp.Ch + col)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The copy engine: bytes from global to shared memory, their arrival
+// counted on the mbarrier at bar (whose phase waits for them after
+// arrive_expect_tx has announced them).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The depth of a forward launch: two segments of source rows (h and x, or
+// r h and x), a[s] [rows][k[s]], and the launch's stage images.
+struct FConv {
+  const bf16* a[2];
+  const unsigned char* wimg;
+  int k[2], ncol;
+};
+
+struct FEpi {
+  const float *bz, *br, *bq;
+  const bf16* h;
+  float* zf;
+  bf16 *r, *rh, *hout, *z, *q;
+};
+
+template <bool ZR, int ST>
+__global__ void __launch_bounds__(ZR ? 256 : 128, ZR ? 1 : 3)
+    gru_fwd_wgmma_kernel(FConv fc, Geo g, FEpi ep) {
+  constexpr int NG = ZR ? 2 : 1;
+  using TL = FTiles<NG, ST>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (-(int)smem_u32(smem_raw) & 1023);
+  const int row0 = blockIdx.x * TL::ROWS, col0 = blockIdx.y * GB_COLS;
+  const int tid = threadIdx.x;
+  // Full: every thread's copies and the bulk copy's bytes (thread 0's
+  // extra arrival announces them); empty: every thread.
+  const uint32_t full0 = smem_u32(smem + ST * TL::STAGE);
+  const uint32_t empty0 = full0 + 8 * ST;
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full0 + 8 * i, TL::THREADS + 1);
+      mbar_init(empty0 + 8 * i, TL::THREADS);
+    }
+  }
+  __syncthreads();
+
+  // Warpgroup gate: z or r (ZR), q.  Copies of A: chunk c (8 channels) of
+  // tile rows rr + RSTEP i, each row's place in the image found once.
+  constexpr int RSTEP = TL::THREADS / 8, AI = TL::ROWS / RSTEP;
+  const int c = tid & 7, rr = tid >> 3;
+  const int warp = tid >> 5, lane = tid & 31, gate = warp >> 2;
+  int loc[AI], wc[AI];
+  bool row_in[AI];
+#pragma unroll
+  for (int i = 0; i < AI; ++i) {
+    const int p = row0 + rr + RSTEP * i;
+    row_in[i] = p < g.rows;
+    loc[i] = p % g.HW;
+    wc[i] = loc[i] % g.width;
+  }
+  const int nk0 = chunks64(fc.k[0]);
+  const int nkt = nk0 + chunks64(fc.k[1]), nk = TAPS * nkt;
+  const unsigned char* wimg =
+      fc.wimg + (size_t)blockIdx.y * nk * NG * GF_TILE;
+  auto load_stage = [&](int ks, int s) {
+    const int t = ks / nkt, j = ks % nkt;
+    const bool seg = j >= nk0;
+    const int kc = seg ? j - nk0 : j, ka = seg ? fc.k[1] : fc.k[0];
+    const bf16* a = seg ? fc.a[1] : fc.a[0];
+    const int d = t - RAD, k = kc * GB_DEPTH + 8 * c;
+    const bool k_in = k < ka;
+    const uint32_t sa = smem_u32(smem + s * TL::STAGE);
+    if (tid == 0) {
+      mbar_arrive_expect_tx(full0 + 8 * s, NG * GF_TILE);
+      bulk_copy(sa + TL::A, wimg + (size_t)ks * NG * GF_TILE, NG * GF_TILE,
+                full0 + 8 * s);
+    }
+#pragma unroll
+    for (int i = 0; i < AI; ++i) {
+      const int r = rr + RSTEP * i;
+      const int nb = loc[i] + d * g.s;
+      bool ok = k_in && row_in[i] && nb >= 0 && nb < g.HW;
+      if (g.s == 1) ok = ok && wc[i] + d >= 0 && wc[i] + d < g.width;
+      const int src = row0 + r + d * g.s;
+      cp_async16(sa + swz128(r, c), ok ? a + (size_t)src * ka + k : a, ok);
+    }
+    mbar_arrive_copies(full0 + 8 * s);
+  };
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i)
+    if (i < nk) load_stage(i, i);
+
+  // Step ks: its products go in flight, then those of step ks - 1 are
+  // waited for, their stage released and refilled with step ks + ST - 1.
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const uint32_t base = smem_u32(smem);
+  for (int ks = 0; ks < nk; ++ks) {
+    const int s = ks % ST;
+    mbar_wait(full0 + 8 * s, (ks / ST) & 1);
+    fence_async_smem();
+    const uint32_t st = base + s * TL::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GB_DEPTH / 16; ++kk)
+      wgmma_ss128<0, 1>(
+          acc, kmajor_desc(st + 32 * kk),
+          mnmajor_desc(st + TL::A + gate * GF_TILE + kk * 16 * 128,
+                       GB_DEPTH * 128),
+          1);
+    wgmma_commit();
+    wgmma_wait1();
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pin(acc[j][e]);
+    const int sp = (ks + ST - 1) % ST;  // step ks - 1's stage
+    if (ks > 0) mbar_arrive(empty0 + 8 * sp);
+    if (ks + ST - 1 < nk) {
+      if (ks > 0) mbar_wait(empty0 + 8 * sp, ((ks - 1) / ST) & 1);
+      load_stage(ks + ST - 1, sp);
+    }
+  }
+  wgmma_wait0();
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pin(acc[j][e]);
+
+  // Epilogue on the fragments: rows 16 (warp % 4) + lane / 4 (+ 8),
+  // columns 8 j + 2 (lane % 4) (+ 1).
+  const int C = fc.ncol;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = row0 + 16 * (warp & 3) + (lane >> 2) + 8 * i;
+    if (p >= g.rows) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int cl = col0 + 8 * j + 2 * (lane & 3);
+      if (cl >= C) continue;
+      const size_t e = (size_t)p * C + cl;
+      const float v0 = acc[j][2 * i], v1 = acc[j][2 * i + 1];
+      if (ZR && gate == 0) {
+        *reinterpret_cast<float2*>(ep.zf + e) = make_float2(
+            sigmoidf_(v0 + ep.bz[cl]), sigmoidf_(v1 + ep.bz[cl + 1]));
+      } else if (ZR) {
+        const float r0 = sigmoidf_(v0 + ep.br[cl]);
+        const float r1 = sigmoidf_(v1 + ep.br[cl + 1]);
+        const float2 hv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ep.h + e));
+        *reinterpret_cast<uint32_t*>(ep.r + e) = pack_bf16(r0, r1);
+        *reinterpret_cast<uint32_t*>(ep.rh + e) =
+            pack_bf16(r0 * hv.x, r1 * hv.y);
+      } else {
+        const float2 zv = *reinterpret_cast<const float2*>(ep.zf + e);
+        const float2 hv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ep.h + e));
+        const float q0 = tanhf(v0 + ep.bq[cl]);
+        const float q1 = tanhf(v1 + ep.bq[cl + 1]);
+        *reinterpret_cast<uint32_t*>(ep.hout + e) =
+            pack_bf16((1.f - zv.x) * hv.x + zv.x * q0,
+                      (1.f - zv.y) * hv.y + zv.y * q1);
+        *reinterpret_cast<uint32_t*>(ep.z + e) = pack_bf16(zv.x, zv.y);
+        *reinterpret_cast<uint32_t*>(ep.q + e) = pack_bf16(q0, q1);
+      }
+    }
+  }
+}
+
 inline int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
 
 inline int elem_blocks(size_t n) {
@@ -995,26 +1152,94 @@ RowConv<T> rowconv(int ncol, int ldw, std::initializer_list<Operand<T>> ops) {
   return rc;
 }
 
-template <typename T>
-int fwd(const void* h_, const void* x_, const void* const* w,
-        const float* bias, void* hout, void* z, void* r, void* q, float* zf,
-        void* rh, int B, int HW, int Ch, int Cx, int s, int width,
-        cudaStream_t st) {
-  const T *h = (const T*)h_, *x = (const T*)x_;
-  const T *wzh = (const T*)w[0], *wzx = (const T*)w[1];
-  const T *wrh = (const T*)w[2], *wrx = (const T*)w[3];
-  const T *wqh = (const T*)w[4], *wqx = (const T*)w[5];
-  const Geo g{B * HW, HW, s, width};
+// Scratch buffers are carved into pieces that each start on a
+// SCRATCH_ALIGN-byte boundary.
+#define SCRATCH_ALIGN 256
+inline long long align_up(long long n) {
+  return (n + SCRATCH_ALIGN - 1) / SCRATCH_ALIGN * SCRATCH_ALIGN;
+}
+struct Carve {
+  unsigned char* p;
+  template <typename T>
+  T* take(long long bytes) {
+    T* out = reinterpret_cast<T*>(p);
+    p += align_up(bytes);
+    return out;
+  }
+};
+
+// The forward's scratch, in bytes: zf (fp32), then r h (io), each
+// [rows][Ch], then for bf16 the stage images of the weights (GF_TILE bytes
+// for each of 3 gates, 5 taps, the 64-channel chunks of Ch and of Cx, and
+// the 128-column tiles of Ch); the wrapper repeats the rule (another size
+// is refused).
+long long fwd_scratch_bytes(int rows, int Ch, int Cx, int io_bf16) {
+  const long long n = (long long)rows * Ch;
+  const long long images =
+      io_bf16 ? 3LL * TAPS * (cdiv(Ch, GB_DEPTH) + cdiv(Cx, GB_DEPTH)) *
+                    cdiv(Ch, GB_COLS) * GF_TILE
+              : 0;
+  return align_up(4 * n) + align_up((io_bf16 ? 2 : 4) * n) + images;
+}
+
+int fwd_fp32(const float* h, const float* x, const float* const* w,
+             Bias3 bias, float* hout, float* z, float* r, float* q,
+             Carve sc, const Geo& g, int Ch, int Cx, cudaStream_t st) {
+  const long long n = (long long)g.rows * Ch;
+  float* zf = sc.take<float>(4 * n);
+  float* rh = sc.take<float>(4 * n);
   const dim3 grid(cdiv(g.rows, BM), cdiv(Ch, BN), 2);
-  gru_zr_kernel<T><<<grid, NTHREADS, 0, st>>>(
-      rowconv<T>(Ch, Ch, {{h, wzh, Ch}, {x, wzx, Cx}}),
-      rowconv<T>(Ch, Ch, {{h, wrh, Ch}, {x, wrx, Cx}}), g, bias, h, zf,
-      (T*)r, (T*)rh, Ch);
+  gru_zr_kernel<float><<<grid, NTHREADS, 0, st>>>(
+      rowconv<float>(Ch, Ch, {{h, w[0], Ch}, {x, w[1], Cx}}),
+      rowconv<float>(Ch, Ch, {{h, w[2], Ch}, {x, w[3], Cx}}), g, bias, h,
+      zf, r, rh, Ch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gru_q_kernel<T><<<dim3(grid.x, grid.y), NTHREADS, 0, st>>>(
-      rowconv<T>(Ch, Ch, {{(const T*)rh, wqh, Ch}, {x, wqx, Cx}}), g, bias,
-      h, zf, (T*)hout, (T*)z, (T*)q, Ch);
+  gru_q_kernel<float><<<dim3(grid.x, grid.y), NTHREADS, 0, st>>>(
+      rowconv<float>(Ch, Ch, {{rh, w[4], Ch}, {x, w[5], Cx}}), g, bias, h,
+      zf, hout, z, q, Ch);
+  return (int)cudaGetLastError();
+}
+
+int fwd_bf16(const bf16* h, const bf16* x, const bf16* const* w, Bias3 bias,
+             bf16* hout, bf16* z, bf16* r, bf16* q, Carve sc, const Geo& g,
+             int Ch, int Cx, cudaStream_t st) {
+  const long long n = (long long)g.rows * Ch;
+  FEpi ep{bias.z, bias.r, bias.q, h, nullptr, r, nullptr, hout, z, q};
+  ep.zf = sc.take<float>(4 * n);
+  ep.rh = sc.take<bf16>(2 * n);
+  uint4* images = reinterpret_cast<uint4*>(sc.p);
+  const uintptr_t align = (uintptr_t)h | (uintptr_t)x | (uintptr_t)w[0] |
+                          (uintptr_t)w[1] | (uintptr_t)w[2] |
+                          (uintptr_t)w[3] | (uintptr_t)w[4] |
+                          (uintptr_t)w[5] | (uintptr_t)ep.zf;
+  const uintptr_t align4 = (uintptr_t)hout | (uintptr_t)z | (uintptr_t)r |
+                           (uintptr_t)q;
+  if (Ch % 8 || Cx % 8 || (align & 15) || (align4 & 3))
+    return (int)cudaErrorInvalidValue;
+  const int nct = cdiv(Ch, GB_COLS);
+  const long long zr_bytes = 2LL * TAPS *
+                             (cdiv(Ch, GB_DEPTH) + cdiv(Cx, GB_DEPTH)) *
+                             nct * GF_TILE;
+  const long long units = zr_bytes / 2 * 3 / 16;
+  gru_pack_taps_kernel<<<elem_blocks(units), NTHREADS, 0, st>>>(
+      Taps{{w[0], w[1], w[2], w[3], w[4], w[5]}, Ch, Cx}, images, units);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned char* img = reinterpret_cast<const unsigned char*>(images);
+  using ZT = FTiles<2, GF_ZSTAGES>;
+  using QT = FTiles<1, GF_QSTAGES>;
+  auto zr_k = gru_fwd_wgmma_kernel<true, GF_ZSTAGES>;
+  auto q_k = gru_fwd_wgmma_kernel<false, GF_QSTAGES>;
+  if ((err = allow_smem(zr_k, ZT::SMEM)) != cudaSuccess ||
+      (err = allow_smem(q_k, QT::SMEM)) != cudaSuccess)
+    return (int)err;
+  const dim3 grid(cdiv(g.rows, ZT::ROWS), nct);
+  const FConv zr{{h, x}, img, {Ch, Cx}, Ch};
+  zr_k<<<grid, ZT::THREADS, ZT::SMEM, st>>>(zr, g, ep);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const FConv qc{{ep.rh, x}, img + zr_bytes, {Ch, Cx}, Ch};
+  q_k<<<grid, QT::THREADS, QT::SMEM, st>>>(qc, g, ep);
   return (int)cudaGetLastError();
 }
 
@@ -1029,8 +1254,17 @@ int wgrad_splits(int rows, int io_bf16) {
   return n < 1 ? 1 : n > most ? most : n;
 }
 
-// The scratch of a backward: dqh, dzh, rh, drhat (io), dhp (fp32), part
-// (fp32, nsplit x the length of dw).
+// The backward's scratch, in bytes: dqh, dzh, r h and drhat (io), dhp
+// (fp32), each [rows][Ch], then part (fp32, nsplit x the length of dw);
+// the wrapper repeats the rule (another size is refused).
+long long bwd_scratch_bytes(int rows, int Ch, int Cx, int nsplit,
+                            int io_bf16) {
+  const long long n = (long long)rows * Ch;
+  const long long per_split = 15LL * (Ch + Cx) * Ch + 3 * Ch;
+  return 4 * align_up((io_bf16 ? 2 : 4) * n) + align_up(4 * n) +
+         align_up(4 * nsplit * per_split);
+}
+
 struct BwdScratch {
   void *dqh, *dzh, *rh, *drhat;
   float *dhp, *part;
@@ -1068,7 +1302,7 @@ int bwd_fp32(const float* h, const float* x, const float* z, const float* r,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t per_split = (size_t)15 * Cin * Ch + 3 * Ch;
   sum_splits_kernel<<<elem_blocks(per_split), NTHREADS, 0, st>>>(
-      sc.part, nsplit, per_split, dw);
+      sc.part, nsplit, per_split, Ch, Cx, dw);
   return (int)cudaGetLastError();
 }
 
@@ -1120,55 +1354,76 @@ int bwd_bf16(const bf16* h, const bf16* x, const bf16* z, const bf16* r,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t per_split = (size_t)15 * Cin * Ch + 3 * Ch;
   sum_splits_kernel<<<elem_blocks(per_split), NTHREADS, 0, st>>>(
-      sc.part, nsplit, per_split, dw);
+      sc.part, nsplit, per_split, Ch, Cx, dw);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // h [B*HW, Ch], x [B*HW, Cx] and the weights w = (wzh, wzx, wrh, wrx, wqh,
-// wqx: [5, Ch or Cx, Ch]) contiguous, all bf16 (in_bf16) or all fp32; bias
-// [3, Ch] fp32.  Writes hout, z, r, q [B*HW, Ch] in that type; zf [B*HW, Ch]
-// fp32 and rh [B*HW, Ch] are scratch.
+// wqx: [5, Ch or Cx, Ch]) contiguous, all bf16 (in_bf16) or all fp32; the
+// biases bz, br, bq [Ch] fp32.  Writes hout, z, r, q [B*HW, Ch] in that
+// type.  scratch: fwd_scratch_bytes(B*HW, Ch, Cx, in_bf16) bytes (refused
+// otherwise).  bf16: Ch, Cx multiples of 8, the inputs and scratch 16-byte
+// aligned.
 extern "C" int gru_fwd_launch(const void* h, const void* x, const void* wzh,
                               const void* wzx, const void* wrh,
                               const void* wrx, const void* wqh,
-                              const void* wqx, const void* bias, void* hout,
-                              void* z, void* r, void* q, void* zf, void* rh,
+                              const void* wqx, const void* bz, const void* br,
+                              const void* bq, void* hout, void* z, void* r,
+                              void* q, void* scratch, long long scratch_bytes,
                               int B, int HW, int Ch, int Cx, int s, int width,
                               int in_bf16, void* stream) {
-  const void* w[6] = {wzh, wzx, wrh, wrx, wqh, wqx};
+  const Geo g{B * HW, HW, s, width};
+  if (scratch_bytes != fwd_scratch_bytes(g.rows, Ch, Cx, in_bf16))
+    return (int)cudaErrorInvalidValue;
+  const Bias3 bias{(const float*)bz, (const float*)br, (const float*)bq};
+  const Carve sc{(unsigned char*)scratch};
   cudaStream_t st = (cudaStream_t)stream;
-  return in_bf16
-             ? fwd<__nv_bfloat16>(h, x, w, (const float*)bias, hout, z, r, q,
-                                  (float*)zf, rh, B, HW, Ch, Cx, s, width, st)
-             : fwd<float>(h, x, w, (const float*)bias, hout, z, r, q,
-                          (float*)zf, rh, B, HW, Ch, Cx, s, width, st);
+  if (in_bf16) {
+    const bf16* w[6] = {(const bf16*)wzh, (const bf16*)wzx, (const bf16*)wrh,
+                        (const bf16*)wrx, (const bf16*)wqh, (const bf16*)wqx};
+    return fwd_bf16((const bf16*)h, (const bf16*)x, w, bias, (bf16*)hout,
+                    (bf16*)z, (bf16*)r, (bf16*)q, sc, g, Ch, Cx, st);
+  }
+  const float* w[6] = {(const float*)wzh, (const float*)wzx,
+                       (const float*)wrh, (const float*)wrx,
+                       (const float*)wqh, (const float*)wqx};
+  return fwd_fp32((const float*)h, (const float*)x, w, bias, (float*)hout,
+                  (float*)z, (float*)r, (float*)q, sc, g, Ch, Cx, st);
 }
 
 // The saved h, x, z, r, q and the cotangent g of h' (all in the io type,
 // contiguous, as gru_fwd_launch's), the weights as there.  Writes dh
 // [B*HW, Ch] (io) and dx [B*HW, Cx] (fp32 when dx_f32, else io; fp32 io
-// takes fp32), and dw: the fp32 weight gradients [3 gates][5][Ch + Cx][Ch]
-// (rows of the h part, then of the x part) followed by the bias gradients
-// [3][Ch].  dqh, dzh, rh, drhat [B*HW, Ch] (io), dhp [B*HW, Ch] fp32 and
-// part [nsplit][len(dw)] fp32 are scratch, nsplit = wgrad_splits(B*HW,
-// in_bf16) (refused otherwise).  bf16: Ch, Cx multiples of 8, every tensor
-// 16-byte aligned.
+// takes fp32), and dw: the fp32 weight gradients, per gate the h part [5]
+// [Ch][Ch] then the x part [5][Cx][Ch], followed by the bias gradients
+// [3][Ch].  scratch: bwd_scratch_bytes(B*HW, Ch, Cx, nsplit, in_bf16)
+// bytes, nsplit = wgrad_splits(B*HW, in_bf16) (both refused otherwise).
+// bf16: Ch, Cx multiples of 8, every tensor 16-byte aligned.
 extern "C" int gru_bwd_launch(const void* h, const void* x, const void* z,
                               const void* r, const void* q, const void* g,
                               const void* wzh, const void* wzx,
                               const void* wrh, const void* wrx,
                               const void* wqh, const void* wqx, void* dh,
-                              void* dx, int dx_f32, void* dqh, void* dzh,
-                              void* rh, void* drhat, void* dhp, void* part,
-                              int nsplit, void* dw, int B, int HW, int Ch,
-                              int Cx, int s, int width, int in_bf16,
-                              void* stream) {
+                              void* dx, int dx_f32, void* scratch,
+                              long long scratch_bytes, int nsplit, void* dw,
+                              int B, int HW, int Ch, int Cx, int s, int width,
+                              int in_bf16, void* stream) {
   const Geo geo{B * HW, HW, s, width};
   if (nsplit != wgrad_splits(geo.rows, in_bf16))
     return (int)cudaErrorInvalidValue;
-  const BwdScratch sc{dqh, dzh, rh, drhat, (float*)dhp, (float*)part};
+  if (scratch_bytes != bwd_scratch_bytes(geo.rows, Ch, Cx, nsplit, in_bf16))
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)geo.rows * Ch, io = in_bf16 ? 2 : 4;
+  Carve cv{(unsigned char*)scratch};
+  BwdScratch sc;
+  sc.dqh = cv.take<unsigned char>(io * n);
+  sc.dzh = cv.take<unsigned char>(io * n);
+  sc.rh = cv.take<unsigned char>(io * n);
+  sc.drhat = cv.take<unsigned char>(io * n);
+  sc.dhp = cv.take<float>(4 * n);
+  sc.part = (float*)cv.p;
   cudaStream_t st = (cudaStream_t)stream;
   if (in_bf16) {
     const bf16* w[6] = {(const bf16*)wzh, (const bf16*)wzx, (const bf16*)wrh,

@@ -197,6 +197,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most one committed group of this warpgroup is in flight.
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // Shared memory written by cp.async (the generic proxy) made visible to
 // wgmma's reads (the async proxy).
 __device__ __forceinline__ void fence_async_smem() {

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from craft_tpu_torch.ops.kernels.launch import (I, P, call, check_cuda,
+from craft_tpu_torch.ops.kernels.launch import (I, L, P, call, check_cuda,
                                                 counted, ptr, stream)
 
 TAPS, RAD = 5, 2
@@ -41,8 +41,12 @@ TAPS, RAD = 5, 2
 # GW_SPLITS of at least GW_SPLIT_ROWS for the bf16 (wgmma) body.
 FW_SPLITS, FW_SPLIT_ROWS = 16, 1024
 GW_SPLITS, GW_SPLIT_ROWS = 4, 2048
-_FWD_SIG = [P] * 15 + [I] * 7 + [P]
-_BWD_SIG = [P] * 14 + [I] + [P] * 6 + [I, P] + [I] * 7 + [P]
+# Scratch buffers are carved into pieces that each start on a SCRATCH_ALIGN
+# byte boundary (csrc/sep_conv_gru.cu).
+SCRATCH_ALIGN = 256
+GF_TILE = 16384  # bytes of one gate's weights in a bf16 forward stage
+_FWD_SIG = [P] * 16 + [L] + [I] * 7 + [P]
+_BWD_SIG = [P] * 14 + [I, P, L, I, P] + [I] * 7 + [P]
 
 
 def fused_gru_vmem_ok(HW: int, Ch: int, Cx: int, stride: int = 1,
@@ -62,6 +66,33 @@ def wgrad_splits(rows: int, io_bf16: bool) -> int:
     most, least = (GW_SPLITS, GW_SPLIT_ROWS) if io_bf16 else \
         (FW_SPLITS, FW_SPLIT_ROWS)
     return max(1, min(most, rows // least))
+
+
+def _align(n: int) -> int:
+    return -(-n // SCRATCH_ALIGN) * SCRATCH_ALIGN
+
+
+def fwd_scratch_bytes(rows: int, Ch: int, Cx: int, io_bf16: bool) -> int:
+    """The forward's scratch, as the kernel carves it (it refuses another
+    size): zf (fp32), then r h (io), each [rows, Ch], then for bf16 the
+    weights laid out as the images of the kernel's stages (GF_TILE bytes
+    for each gate, tap, 64-channel chunk of Ch and of Cx, and 128-column
+    tile of Ch)."""
+    n = rows * Ch
+    images = 3 * TAPS * (-(-Ch // 64) + -(-Cx // 64)) * -(-Ch // 128) * \
+        GF_TILE if io_bf16 else 0
+    return _align(4 * n) + _align((2 if io_bf16 else 4) * n) + images
+
+
+def bwd_scratch_bytes(rows: int, Ch: int, Cx: int, io_bf16: bool) -> int:
+    """The backward's scratch, as the kernel carves it (it refuses another
+    size): dqh, dzh, r h, drhat (io) and dhp (fp32), each [rows, Ch], then
+    the weight gradients' partials, wgrad_splits(rows) x (15 (Ch + Cx) Ch
+    + 3 Ch) fp32."""
+    n = rows * Ch
+    per_split = 15 * (Ch + Cx) * Ch + 3 * Ch
+    return 4 * _align((2 if io_bf16 else 4) * n) + _align(4 * n) + \
+        _align(4 * wgrad_splits(rows, io_bf16) * per_split)
 
 
 def acc_type(io: torch.dtype) -> torch.dtype:
@@ -217,16 +248,18 @@ def gru_pass_fwd(h, x, wzh, wzx, wrh, wrx, wqh, wqx, bz, br, bq,
     ws = (wzh, wzx, wrh, wrx, wqh, wqx)
     B, HW, Ch, Cx = _check(h, x, ws, stride, width, "gru_pass_fwd")
     io = h.dtype
+    bf16 = io == torch.bfloat16
     h = _dense(h)
     x = _dense(x.to(io))
     ws = [_dense(w.to(io)) for w in ws]
-    bias = torch.stack([bz, br, bq]).to(h.device, torch.float32).contiguous()
-    hout, z, r, q, rh = (torch.empty_like(h) for _ in range(5))
-    zf = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+    bs = [b.to(h.device, torch.float32).contiguous() for b in (bz, br, bq)]
+    hout, z, r, q = (torch.empty_like(h) for _ in range(4))
+    nbytes = fwd_scratch_bytes(B * HW, Ch, Cx, bf16)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=h.device)
     call("sep_conv_gru", "gru_fwd_launch", _FWD_SIG, ptr(h), ptr(x),
-         *(ptr(w) for w in ws), ptr(bias), ptr(hout), ptr(z), ptr(r), ptr(q),
-         ptr(zf), ptr(rh), B, HW, Ch, Cx, stride, width,
-         int(io == torch.bfloat16), stream(h))
+         *(ptr(w) for w in ws), *(ptr(b) for b in bs), ptr(hout), ptr(z),
+         ptr(r), ptr(q), ptr(scratch), nbytes, B, HW, Ch, Cx, stride, width,
+         int(bf16), stream(h))
     gru_pass_fwd.launches += 1
     return hout, z, r, q
 
@@ -253,30 +286,27 @@ def gru_pass_bwd(h, x, z, r, q, g, wzh, wzx, wrh, wrx, wqh, wqx,
     g = _dense(g.to(io))
     ws = [_dense(w.to(io)) for w in ws0]
     dx_f32 = x.dtype != io
+    bf16 = io == torch.bfloat16
     dh = torch.empty_like(h)
     dx = torch.empty(x.shape, dtype=torch.float32 if dx_f32 else io,
                      device=h.device)
-    dqh, dzh, rh, drhat = (torch.empty_like(h) for _ in range(4))
-    dhp = torch.empty(h.shape, dtype=torch.float32, device=h.device)
-    rows, Cin = B * HW, Ch + Cx
-    nsplit = wgrad_splits(rows, io == torch.bfloat16)
-    per_split = 15 * Cin * Ch + 3 * Ch
-    part = torch.empty(nsplit, per_split, dtype=torch.float32,
-                       device=h.device)
-    dw = torch.empty(per_split, dtype=torch.float32, device=h.device)
+    rows = B * HW
+    nbytes = bwd_scratch_bytes(rows, Ch, Cx, bf16)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=h.device)
+    # dw: per gate the h part [5, Ch, Ch], then the x part [5, Cx, Ch], then
+    # the bias gradients [3, Ch]: each a contiguous piece.
+    sizes = [TAPS * c * Ch for _ in range(3) for c in (Ch, Cx)] + [3 * Ch]
+    dw = torch.empty(sum(sizes), dtype=torch.float32, device=h.device)
     call("sep_conv_gru", "gru_bwd_launch", _BWD_SIG, ptr(h), ptr(xi),
          ptr(z), ptr(r), ptr(q), ptr(g), *(ptr(w) for w in ws), ptr(dh),
-         ptr(dx), int(dx_f32), ptr(dqh), ptr(dzh), ptr(rh), ptr(drhat),
-         ptr(dhp), ptr(part), nsplit, ptr(dw), B, HW, Ch, Cx, stride, width,
-         int(io == torch.bfloat16), stream(h))
+         ptr(dx), int(dx_f32), ptr(scratch), nbytes,
+         wgrad_splits(rows, bf16), ptr(dw), B, HW, Ch, Cx, stride, width,
+         int(bf16), stream(h))
     gru_pass_bwd.launches += 1
-    wg = dw[:15 * Cin * Ch].view(3, TAPS, Cin, Ch)
-    dws = []
-    for gate in range(3):
-        dws += [wg[gate, :, :Ch], wg[gate, :, Ch:]]
-    db = dw[15 * Cin * Ch:].view(3, Ch)
+    *dws, db = dw.split(sizes)
+    db = db.view(3, Ch)
     return (dh, dx.to(x.dtype),
-            *(d.to(w.dtype).contiguous() for d, w in zip(dws, ws0)),
+            *(d.view(w.shape).to(w.dtype) for d, w in zip(dws, ws0)),
             db[0], db[1], db[2])
 
 

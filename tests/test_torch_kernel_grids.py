@@ -14,10 +14,12 @@ The same constants give each instantiation of the sweep's body its shared
 memory, which must fit the 232,448 bytes a block may have on an H100.
 
 B10's backward sizes its weight-gradient partials by its row splits
-(wgrad_splits, refused otherwise), and its bf16 tile bodies' rings must fit
-a block; B5's backward cuts each level into items of whole 16-byte units,
-which must cover every unit once and touch no more queries than an item's
-static shared memory holds.
+(wgrad_splits, refused otherwise), both its directions carve one scratch
+buffer by a rule the wrapper repeats (another size is refused), and its
+bf16 tile bodies' rings, forward and backward, must fit a block; B5's
+backward cuts each level into items of whole 16-byte units, which must
+cover every unit once and touch no more queries than an item's static
+shared memory holds.
 """
 
 import re
@@ -376,6 +378,115 @@ def test_the_gru_tiles_smem_follows_these_constants():
 @pytest.mark.parametrize("stages", ["GB_TSTAGES", "GB_WSTAGES"])
 def test_every_gru_backward_body_fits_a_block(stages):
     assert _gru_tiles_smem(_gru_defines()[stages]) <= SMEM_PER_BLOCK
+
+
+# ------------------------------------------------- B10's forward
+
+# An H100 SM's shared memory, of which each resident block also takes 1 KB.
+SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
+SMS = 132
+
+
+def _gru_fwd_smem(gates: int, stages: int) -> int:
+    """sep_conv_gru.cu FTiles<NG, ST>::SMEM."""
+    d = _gru_defines()
+    a = d["GF_ROWS"] * d["GB_DEPTH"] * 2
+    return stages * (a + gates * d["GF_TILE"]) + 2 * stages * 8 + 1024
+
+
+def test_the_gru_forward_follows_these_constants():
+    """FTiles' shared memory, the two launches' bodies and their grid are
+    the formulas here, and a gate's stage of weights is GF_TILE bytes."""
+    text = (CSRC / "sep_conv_gru.cu").read_text()
+    body = text[text.index("struct FTiles {"):]
+    body = body[:body.index("\n};\n")]
+    for decl in ("ROWS = GF_ROWS, THREADS = 128 * NG;",
+                 "A = ROWS * GB_DEPTH * 2;", "STAGE = A + NG * GF_TILE;",
+                 "SMEM = ST * STAGE + 2 * ST * 8 + 1024;"):
+        assert decl in body, decl
+    for inst in ("using ZT = FTiles<2, GF_ZSTAGES>;",
+                 "using QT = FTiles<1, GF_QSTAGES>;",
+                 "const dim3 grid(cdiv(g.rows, ZT::ROWS), nct);",
+                 "__launch_bounds__(ZR ? 256 : 128, ZR ? 1 : 3)",
+                 "zr_k<<<grid, ZT::THREADS, ZT::SMEM, st>>>",
+                 "q_k<<<grid, QT::THREADS, QT::SMEM, st>>>",
+                 "GB_COLS * GB_DEPTH * 2 == GF_TILE"):
+        assert inst in text, inst
+    d = _gru_defines()
+    assert d["GF_TILE"] == sg.GF_TILE
+
+
+@pytest.mark.parametrize("gates,stages", [(2, "GF_ZSTAGES"),
+                                          (1, "GF_QSTAGES")])
+def test_every_gru_forward_body_fits_a_block(gates, stages):
+    assert _gru_fwd_smem(gates, _gru_defines()[stages]) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("label,rows,blocks,waves", [
+    ("serving", 7040, 110, (0.83, 0.28)),
+    ("chairs", 22816, 357, (2.70, 0.90))])
+def test_the_gru_forward_grids(label, rows, blocks, waves):
+    """PERF.md's block counts of the bf16 forward at Ch 128: each launch
+    110 blocks at serving and 357 at chairs; the z | r launch one block an
+    SM and the q launch three, by their shared memory (and its launch
+    bounds), so waves of 0.83 and 0.28 at serving, 2.70 and 0.90 at
+    chairs."""
+    d = _gru_defines()
+    assert _cdiv(rows, d["GF_ROWS"]) * _cdiv(128, d["GB_COLS"]) == blocks
+    per_sm = [SMEM_PER_SM // (_gru_fwd_smem(gates, d[st]) + SMEM_RESERVED)
+              for gates, st in ((2, "GF_ZSTAGES"), (1, "GF_QSTAGES"))]
+    assert per_sm == [1, 3]
+    assert tuple(round(blocks / (n * SMS), 2) for n in per_sm) == waves
+
+
+def _gru_scratch(rows: int, Ch: int, Cx: int, bf16: int) -> tuple:
+    """(forward, backward) scratch bytes as sep_conv_gru.cu's
+    fwd_scratch_bytes and bwd_scratch_bytes count them."""
+    d = _gru_defines()
+
+    def up(n):
+        return _cdiv(n, d["SCRATCH_ALIGN"]) * d["SCRATCH_ALIGN"]
+    n, io = rows * Ch, 2 if bf16 else 4
+    images = (3 * 5 * (_cdiv(Ch, d["GB_DEPTH"]) + _cdiv(Cx, d["GB_DEPTH"]))
+              * _cdiv(Ch, d["GB_COLS"]) * d["GF_TILE"]) if bf16 else 0
+    per_split = 15 * (Ch + Cx) * Ch + 3 * Ch
+    return (up(4 * n) + up(io * n) + images,
+            4 * up(io * n) + up(4 * n)
+            + up(4 * _gru_splits(rows, bf16) * per_split))
+
+
+def test_the_gru_scratch_rules_name_their_pieces():
+    """Each launcher refuses another scratch size and carves the pieces
+    that its rule counts, in that order."""
+    text = (CSRC / "sep_conv_gru.cu").read_text()
+    for piece in (
+            "return align_up(4 * n) + align_up((io_bf16 ? 2 : 4) * n) + "
+            "images;",
+            "ep.zf = sc.take<float>(4 * n);\n  ep.rh = sc.take<bf16>(2 * n);"
+            "\n  uint4* images = reinterpret_cast<uint4*>(sc.p);",
+            "float* zf = sc.take<float>(4 * n);\n"
+            "  float* rh = sc.take<float>(4 * n);",
+            "if (scratch_bytes != fwd_scratch_bytes(g.rows, Ch, Cx, in_bf16))",
+            "return 4 * align_up((io_bf16 ? 2 : 4) * n) + align_up(4 * n) +\n"
+            "         align_up(4 * nsplit * per_split);",
+            "if (scratch_bytes != bwd_scratch_bytes(geo.rows, Ch, Cx, nsplit, "
+            "in_bf16))"):
+        assert piece in text, piece
+
+
+@pytest.mark.parametrize("Ch,Cx", [(128, 384), (16, 24)])
+@pytest.mark.parametrize("bf16", [1, 0])
+@pytest.mark.parametrize("label,rows", GRU_ROWS)
+def test_b10_scratch_follows_the_rule(label, rows, bf16, Ch, Cx):
+    assert (sg.fwd_scratch_bytes(rows, Ch, Cx, bool(bf16)),
+            sg.bwd_scratch_bytes(rows, Ch, Cx, bool(bf16))) == \
+        _gru_scratch(rows, Ch, Cx, bf16)
+
+
+def test_the_bf16_forward_images_are_the_taps():
+    """At Ch 128, Cx 384 the stage images hold the bf16 taps exactly: 3
+    gates x 5 taps x 512 x 128 x 2 bytes, no padding."""
+    assert sg.fwd_scratch_bytes(0, 128, 384, True) == 3 * 5 * 512 * 128 * 2
 
 
 # ------------------------------------------------- B5's backward

@@ -1061,6 +1061,33 @@ def test_b10_backward_is_deterministic(dev, dtype):
         assert torch.equal(a, b)
 
 
+# (B, H, W, Ch, Cx) over several of the bf16 forward's 64-row tiles: 2 x 9
+# x 20 = 360 rows (5.6 tiles), whose vertical taps (20 and 40 rows apart)
+# cross every tile edge, at the full width and with channels that no
+# 64-channel stage divides.
+GRU_TILED = [(2, 9, 20, 128, 384), (3, 7, 13, 24, 40)]
+
+
+@pytest.mark.parametrize("vertical", [False, True], ids=["h", "v"])
+@pytest.mark.parametrize("shape", GRU_TILED)
+def test_b10_forward_across_tiles(dev, vertical, shape):
+    args, _ = _gru_inputs(dev, shape, torch.bfloat16)
+    geo = (shape[2], shape[1] * shape[2]) if vertical else (1, shape[2])
+    got = sg.gru_pass_fwd(*args, *geo)
+    want = sg.gru_pass_fwd_plain(*args, *geo)
+    _gru_close(got, want, GRU_TOL[torch.bfloat16][0])
+
+
+@pytest.mark.parametrize("vertical", [False, True], ids=["h", "v"])
+def test_b10_forward_is_deterministic(dev, vertical):
+    shape = GRU_TILED[0]
+    args, _ = _gru_inputs(dev, shape, torch.bfloat16)
+    geo = (shape[2], shape[1] * shape[2]) if vertical else (1, shape[2])
+    for a, b in zip(sg.gru_pass_fwd(*args, *geo),
+                    sg.gru_pass_fwd(*args, *geo)):
+        assert torch.equal(a, b)
+
+
 # 2 x 37 x 61 = 4514 rows: a multiple neither of the bf16 backward's
 # 128-row tiles nor of its 64-row weight-gradient steps, in two row splits.
 GRU_RAGGED = (2, 37, 61, 128, 384)

@@ -624,7 +624,7 @@ def test_gru_checks_pass_the_plain_versions():
 
 
 def _gru_fault(fault):
-    if fault in chip_smoke.B10_FAULTS[:3]:
+    if fault in chip_smoke.B10_FWD_FAULTS:
         return "gru_pass_fwd", lambda *a: chip_smoke._gru_fwd_fault(
             list(a[:11]), a[11], a[12], fault)
     return "gru_pass_bwd", lambda *a: chip_smoke._gru_bwd_fault(
@@ -637,6 +637,18 @@ def test_gru_checks_catch_a_planted_kernel_fault(monkeypatch, fault):
     monkeypatch.setattr(sg, wrapper, faulty)
     with pytest.raises(AssertionError, match="disagrees"):
         _run_gru()
+
+
+def test_the_tile_edge_fault_is_at_the_forward_tile():
+    """'r h halo dropped' cuts q's taps at the bf16 forward's row tiles
+    (csrc/sep_conv_gru.cu GF_ROWS)."""
+    import re
+    from pathlib import Path
+    src = Path(sg.__file__).resolve().parents[2] / "csrc" / "sep_conv_gru.cu"
+    rows = re.search(r"^#define\s+GF_ROWS\s+(\d+)\b", src.read_text(),
+                     re.MULTILINE)
+    assert int(rows.group(1)) == chip_smoke.B10_FWD_TILE
+    assert "r h halo dropped" in chip_smoke.B10_FWD_FAULTS
 
 
 def test_gru_checks_catch_a_backward_that_is_not_repeatable(monkeypatch):

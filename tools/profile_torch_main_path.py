@@ -54,7 +54,9 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("B5 lookup", ("lookup_fwd_kernel",)),
     # B10, the fused SepConvGRU pass (SepConvGRU(fused='on'); no FlowModel
     # path builds it, so a model profile shows it only when a caller does).
-    ("B10 gru_pass", ("gru_zr_kernel", "gru_q_kernel")),
+    # Its fp32 tiles, and its bf16 (wgmma) tiles with their weights' layout.
+    ("B10 gru_pass", ("gru_zr_kernel", "gru_q_kernel",
+                      "gru_fwd_wgmma_kernel", "gru_pack_taps_kernel")),
     # B10's backward: its fp32 tiles and its bf16 (wgmma) tiles.
     ("B10 gru_pass_bwd", ("gru_bwd_elem_kernel", "gru_drh_kernel",
                           "gru_dhx_kernel", "gru_wgrad_kernel",

@@ -30,7 +30,8 @@ W8=156):
   B10 (gru_pass_fwd, gru_pass_bwd) at the serving and chairs grids, bf16
   h, Ch 128, Cx 384 (fp32 x, as the module passes it), both passes: h
   (stride 1) and v (stride W); the backward on the plain forward's z, r, q,
-  so that both checkouts' backwards read the same bits.
+  so that both checkouts' backwards read the same bits; and the forward
+  at serving in fp32 (its fp32 body).
 
 Seeded inputs from CPU generators (q, k ~ N(0, 1.5^2) bf16, the window ~
 N(0, 0.5^2)), the clamp off.  Each case is timed in ROUNDS rounds of `reps`
@@ -85,7 +86,8 @@ SECOND = {"B7_md64": "dlsum", "B7_md32": "dlsum", "B6_bwd": "da"}
 # B10: the pass's forward and backward, each pass, serving and chairs.
 B10_CASES = tuple(f"B10{b}{g}_{p}" for b in ("", "_bwd")
                   for g in ("", "_chairs") for p in ("h", "v"))
-SAVED += B10_CASES
+B10_FP32_CASES = ("B10_fp32_h", "B10_fp32_v")
+SAVED += B10_CASES + B10_FP32_CASES
 # Cases whose every output is kept and compared.
 WHOLE = tuple(c for c in B10_CASES if c.startswith("B10_bwd"))
 GRU_CH, GRU_CX = 128, 384
@@ -250,6 +252,9 @@ def _gru_cases(torch, gen, dev, cases) -> None:
                                                          *args)
             cases[f"B10_bwd{label}_{p}"] = functools.partial(
                 sg.gru_pass_bwd, h, x, z, r, q, g, *ws, *geo)
+            if not label:
+                cases[f"B10_fp32_{p}"] = functools.partial(
+                    sg.gru_pass_fwd, h.float(), *args[1:])
 
 
 def _max_ulp_diff(torch, a, b) -> int:

@@ -103,6 +103,18 @@ these phases and fails on the first that fails:
      fp32; the last h and every weight gradient within stated bounds; 24
      forward passes per 12 calls, 24 backward passes per backward, none
      under `static` (asserted).
+     Then the training entry point (python -m craft_tpu_torch.train, run
+     in this process) on a synthetic FlyingChairs tree at 384x512 (48
+     training and 4 validation pairs, written by the port's PPM and .flo
+     writers under build/chip_smoke_train/) with the chairs stage's flags:
+     6 steps with --val_freq 5 (one checkpoint, one chairs validation);
+     the steps' launches (B5 and B5 backward 12 a step; B1, B4, B6, B6
+     backward and B7; no B2 or B3) and the validation's (B1-B5) apart;
+     a resume from the checkpoint with --loadopt --loadsched to the same
+     step and learning rate; the loader alone; two ranks of the CLI under
+     torch.distributed.run on the one card (gloo), 2 steps, one writer.
+     Its step wall and steps/s beside the fixed-batch step wall above,
+     the loader's batches/s and the peak memory.
   5. kernel times over CUDA events at the main-path shapes, beside each
      plain version, the bound and (B2) scaled_dot_product_attention; B2-B4
      at the KITTI shape (U=7332, W8=156); the training kernels and B1/B4
@@ -141,8 +153,11 @@ import numpy as np
 import torch
 
 from craft_tpu_torch import evaluate as evaluate_cli
+from craft_tpu_torch import train as train_cli
 from craft_tpu_torch.config import craft_config
 from craft_tpu_torch.data import frame_utils, imgio
+from craft_tpu_torch.data.datasets import fetch_training_dataset
+from craft_tpu_torch.data.loader import MultiprocessLoader
 from craft_tpu_torch.eval import evaluate as tev
 from craft_tpu_torch.models.flow_model import FlowModel, create_model
 from craft_tpu_torch.nn.update import SepConvGRU
@@ -1947,16 +1962,16 @@ SP_KERNELS = {"scores_global_max": 3, "flash_mode_attention": 1,
 SP_TIMEOUT = 900  # seconds for one multi-rank command
 
 
-def _run_ranks(cmd, label) -> None:
+def _run_ranks(cmd, label, timeout: float = SP_TIMEOUT) -> str:
     """Run a rank command in its own process group, print its output, and
-    kill the whole group if it outlives SP_TIMEOUT; fail unless it exits
-    0."""
+    kill the whole group if it outlives `timeout` seconds; fail unless it
+    exits 0.  Returns the output."""
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=SP_TIMEOUT)
+        out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
@@ -1969,6 +1984,7 @@ def _run_ranks(cmd, label) -> None:
     print(f"{label}: exit {proc.returncode} after "
           f"{time.perf_counter() - t0:.1f} s")
     assert proc.returncode == 0, f"{label} failed"
+    return out
 
 
 def _sp_kitti_argv(pth, root) -> list:
@@ -2036,6 +2052,201 @@ def sp_rank_main(outdir: str, nccl_only: bool) -> int:
 def _max_diff(a, b) -> float:
     return float(max((x.float() - y.float()).abs().max()
                      for x, y in zip(a, b)))
+
+
+# The training entry point (python -m craft_tpu_torch.train) on a synthetic
+# FlyingChairs tree at the dataset's 384x512, written by the port's own PPM
+# and .flo writers: the canonical chairs stage's flags.
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+CHAIRS_HW = (384, 512)
+# 48 training pairs: the 6 steps below are one epoch of batch 8, so no
+# worker restart (the loader's, at each epoch) falls inside the timed steps.
+TRAIN_PAIRS, VAL_PAIRS = 48, 4
+CLI_STEPS, CLI_VAL_FREQ = 6, 5   # one checkpoint and validation, at step 5
+TRAIN_CLI_ARGS = ["--stage", "chairs", "--craft", "--setrans", "--f2", "full",
+                  "--mixed_precision", "--lr", "2.5e-4", "--image_size",
+                  str(CROP_H), str(CROP_W), "--batch_size", str(TRAIN_BATCH),
+                  "--workers", "4", "--iters", str(ITERS), "--name", "smoke"]
+DP_TIMEOUT = 300  # seconds for the two CLI ranks
+
+
+def write_chairs(root, n_train: int, n_val: int, hw, seed: int = 0) -> None:
+    """A FlyingChairs tree under root (FlyingChairs_release/data/NNNNN_img1
+    .ppm, _img2.ppm, _flow.flo and the split file: the first n_train pairs
+    train, the rest validate): noise frames and blockwise-smooth flows of a
+    few pixels, written by the port's own codecs."""
+    rng = np.random.RandomState(seed)
+    data = Path(root) / "FlyingChairs_release" / "data"
+    data.mkdir(parents=True)
+    H, W = hw
+    for i in range(n_train + n_val):
+        for k in (1, 2):
+            imgio.write_ppm(str(data / f"{i + 1:05d}_img{k}.ppm"),
+                            rng.randint(0, 256, (H, W, 3)).astype(np.uint8))
+        coarse = rng.uniform(-4, 4, (H // 16 + 1, W // 16 + 1, 2))
+        flow = np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:H, :W]
+        frame_utils.write_flo(str(data / f"{i + 1:05d}_flow.flo"),
+                              flow.astype(np.float32))
+    np.savetxt(str(Path(root) / "FlyingChairs_release" /
+                   "FlyingChairs_train_val.txt"),
+               np.array([1] * n_train + [2] * n_val), fmt="%d")
+
+
+def _instrumented_cli(argv) -> dict:
+    """train_cli.main(argv) with the launch counts set to 0 just before,
+    recording each step's host start, the validation's launches and wall
+    and the checkpoint saves' walls (each after a synchronize).  Returns
+    the final state, the counts of the steps alone and of the validation,
+    and the step wall over steps 2..n (validation and saves taken out)."""
+    rec = {"entries": [], "val": [], "saves": []}
+    factory, validate, save = (train_cli.make_train_step,
+                               train_cli._run_validation,
+                               train_cli.save_checkpoint)
+
+    def make_step(*a, **k):
+        step = factory(*a, **k)
+
+        def timed(state, batch):
+            rec["entries"].append(time.perf_counter())
+            return step(state, batch)
+        return timed
+
+    def counted_validation(*a, **k):
+        torch.cuda.synchronize()
+        t0, before = time.perf_counter(), launch.launch_counts()
+        validate(*a, **k)
+        torch.cuda.synchronize()
+        rec["val"].append((time.perf_counter() - t0, {
+            n: c - before[n] for n, c in launch.launch_counts().items()}))
+
+    def timed_save(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(*a, **k)
+        rec["saves"].append((t0, time.perf_counter() - t0))
+
+    train_cli.make_train_step = make_step
+    train_cli._run_validation = counted_validation
+    train_cli.save_checkpoint = timed_save
+    try:
+        launch.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        state = train_cli.main(argv)
+    finally:
+        train_cli.make_train_step = factory
+        train_cli._run_validation = validate
+        train_cli.save_checkpoint = save
+    total = launch.launch_counts()
+    val = {n: sum(v[1][n] for v in rec["val"]) for n in total}
+    steps = {n: total[n] - val[n] for n in total}
+    out = {"state": state, "steps": steps, "validation": val,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    e = rec["entries"]
+    if len(e) >= 3:
+        # Steps 2..n end where the final save starts (after a sync).
+        end = rec["saves"][-1][0]
+        inside = sum(v[0] for v in rec["val"]) + sum(
+            d for t0, d in rec["saves"][:-1] if t0 > e[1])
+        out["step_ms"] = (end - e[1] - inside) / (len(e) - 1) * 1e3
+        out["val_s"] = [v[0] for v in rec["val"]]
+    return out
+
+
+def loader_rate(root, n_warm: int = 8, n_batches: int = 24) -> dict:
+    """The chairs stage's loader alone (batch 8, 4 worker processes): the
+    first batch's wait and the steady batches/s over n_batches after
+    n_warm, within one epoch (the tree's list repeated 100 times)."""
+    ds = 100 * fetch_training_dataset("chairs", (CROP_H, CROP_W),
+                                      data_root=str(root))
+    it = iter(MultiprocessLoader(ds, TRAIN_BATCH, num_workers=4, seed=1234))
+    t0 = time.perf_counter()
+    batch = next(it)
+    first = time.perf_counter() - t0
+    assert batch["image1"].shape == (TRAIN_BATCH, CROP_H, CROP_W, 3)
+    for _ in range(n_warm):
+        next(it)
+    t1 = time.perf_counter()
+    for _ in range(n_batches):
+        next(it)
+    rate = n_batches / (time.perf_counter() - t1)
+    it.close()
+    return {"first_batch_s": first, "batches_per_s": rate}
+
+
+def train_cli_phase(dev, fixed_step_ms) -> dict:
+    """The training CLI on the card: (1) CLI_STEPS steps of the chairs stage
+    with --val_freq CLI_VAL_FREQ (one checkpoint, one chairs validation on
+    VAL_PAIRS pairs); B5 and its backward 12 a step, B1, B4, B6, B6
+    backward and B7 launched, B2 and B3 not, during the steps; B1-B5 during
+    the validation; (2) a resume from that checkpoint with --loadopt
+    --loadsched for the last 2 steps, which must end at the uninterrupted
+    run's step and learning rate; (3) the loader alone; (4) two ranks of
+    the CLI on the one card under torch.distributed.run (gloo), 2 steps,
+    only rank 0 writing.  Prints the CLI's step wall beside phase 4's
+    fixed-batch step wall (`fixed_step_ms`), the loader's batches/s and the
+    peak memory."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    data = TRAIN_DIR / "data"
+    write_chairs(data, TRAIN_PAIRS, VAL_PAIRS, CHAIRS_HW)
+    base = TRAIN_CLI_ARGS + ["--data_root", str(data), "--device", str(dev),
+                             "--num_steps", str(CLI_STEPS), "--val_freq",
+                             str(CLI_VAL_FREQ), "--print_freq", "3"]
+    run = _instrumented_cli(base + ["--validation", "chairs", "--output",
+                                    str(TRAIN_DIR / "run")])
+    steps, val = run["steps"], run["validation"]
+    print("train cli: steps' launches", json.dumps(steps))
+    print("train cli: validation's launches", json.dumps(val))
+    assert run["state"].step == CLI_STEPS
+    for name in ("corr_lookup", "corr_lookup_bwd"):
+        assert steps[name] == ITERS * CLI_STEPS, f"train cli: {name}"
+    for name in TRAIN_KERNELS:
+        assert steps[name] > 0, f"train cli: {name} not launched"
+    for name in ("flash_mode_attention", "fused_agg_corr_norm"):
+        assert steps[name] == 0, f"train cli: {name} launched in a step"
+    for name in SERVE_KERNELS:  # the chairs validation, mixed precision
+        assert val[name] > 0, f"train cli validation: {name} not launched"
+    assert val["corr_lookup"] == ITERS * VAL_PAIRS
+    ckpt = TRAIN_DIR / "run" / f"{CLI_VAL_FREQ}_smoke.pth"
+    assert ckpt.is_file() and (TRAIN_DIR / "run" / "smoke.pth").is_file()
+
+    resumed = _instrumented_cli(base + [
+        "--restore_ckpt", str(ckpt), "--loadopt", "--loadsched", "--output",
+        str(TRAIN_DIR / "resumed")])
+    a, b = run["state"], resumed["state"]
+    lr_a = a.optimizer.param_groups[0]["lr"]
+    lr_b = b.optimizer.param_groups[0]["lr"]
+    print(f"train cli: resumed at step {b.step} lr {lr_b!r}; uninterrupted "
+          f"step {a.step} lr {lr_a!r}")
+    assert b.step == a.step and lr_b == lr_a, "train cli: resume"
+    # The checkpoint holds step CLI_VAL_FREQ - 1.
+    n_resumed = CLI_STEPS - (CLI_VAL_FREQ - 1)
+    assert resumed["steps"]["corr_lookup"] == ITERS * n_resumed
+    rate = loader_rate(data)
+
+    out = TRAIN_DIR / "ranks"
+    log = _run_ranks([sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc_per_node", "2", "-m",
+                      "craft_tpu_torch.train", *TRAIN_CLI_ARGS, "--data_root",
+                      str(data), "--device", str(dev), "--num_steps", "2",
+                      "--output", str(out)], "train cli ranks", DP_TIMEOUT)
+    assert "distributed: 2 rank(s), backend gloo" in log
+    assert log.count("Parameter Count") == 2
+    assert log.count(" saved") == 1, "train cli ranks: rank 1 wrote"
+    # (Plots, where matplotlib imports, go there too.)
+    assert [f for f in os.listdir(out) if not f.endswith(".png")] == [
+        "smoke.pth"]
+
+    res = {"cli_step_ms": run["step_ms"],
+           "cli_steps_per_s": 1e3 / run["step_ms"],
+           "fixed_batch_step_ms": fixed_step_ms,
+           "host_share": 1.0 - fixed_step_ms / run["step_ms"],
+           "loader_batches_per_s": rate["batches_per_s"],
+           "loader_first_batch_s": rate["first_batch_s"],
+           "validation_s": run["val_s"],
+           "max_memory_allocated": run["max_memory_allocated"]}
+    print("train cli:", json.dumps(res))
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return res
 
 
 def sp_paths(dev) -> dict:
@@ -2979,6 +3190,8 @@ def main() -> int:
     report["gru_pass_bwd"]["launches"] = \
         gres["chairs torch.bfloat16"]["gru_pass_bwd"]
     eval_phase(dev)
+    torch.cuda.empty_cache()
+    train_cli_phase(dev, float(np.median(tres["step_ms"])))
     torch.cuda.empty_cache()
     time_kernels(dev, gen, report)
     time_kitti_kernels(dev, gen)

@@ -17,6 +17,10 @@ ROADMAP_SP = "ROADMAP.md section 2, item 8 (sequence parallelism under " \
     "lsinu and --f2radius, and across several cards)"
 ROADMAP_EVAL = "ROADMAP.md section 2, item 4 (the rest of the evaluator)"
 ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (the remaining archs)"
+ROADMAP_TRAIN = "ROADMAP.md section 2, item 11 (the rest of training: " \
+    "--attn_diag, drop_path_prob, remat_att_sites, the Gaussian blur)"
+ROADMAP_TRAIN_DENSE = "ROADMAP.md section 2, item 7 (training under " \
+    "lsinu and --f2radius)"
 
 
 def not_ported(what: str, item: str) -> SystemExit:

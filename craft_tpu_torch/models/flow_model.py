@@ -105,7 +105,7 @@ class FlowModel(nn.Module):
 
     def forward(self, image1, image2, iters: Optional[int] = None,
                 flow_init=None, upsample_mode: Optional[str] = None,
-                generator=None, seq_parallel=None):
+                generator=None, seq_parallel=None, data_parallel=None):
         """image1/image2: [B, H, W, 3] floats in [0, 255] on the model's
         device.  Returns (flow_lowres [B, H/8, W/8, 2], flows_up
         [iters, B, H, W, 2]); with upsample_mode='final' only the last
@@ -113,7 +113,8 @@ class FlowModel(nn.Module):
         `generator` (a ``torch.Generator`` on the model's device) draws
         every training dropout mask.  `seq_parallel` (a SeqParallel group,
         eval only) splits the grid's rows across its ranks; every rank
-        returns the whole flow."""
+        returns the whole flow.  `data_parallel` (a group, training) makes
+        cnet's BatchNorm take its moments over every rank's batch."""
         cfg = self.cfg
         iters = iters or cfg.iters
         upsample_mode = upsample_mode or cfg.upsample_mode
@@ -132,7 +133,7 @@ class FlowModel(nn.Module):
         with record_function("craft.encoders"):
             fmaps = self.fnet(torch.cat([image1, image2], dim=0), generator)
             fmap1, fmap2 = fmaps[:B], fmaps[B:]
-            cnet = self.cnet(image1, generator)
+            cnet = self.cnet(image1, generator, data_parallel)
             net = torch.tanh(cnet[..., :hdim])
             inp = torch.relu(cnet[..., hdim:])
         with record_function("craft.f2_trans"):

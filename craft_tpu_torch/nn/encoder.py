@@ -30,13 +30,16 @@ def _norm(norm_fn: str, planes: int):
     raise NotImplementedError(f"norm_fn {norm_fn}")
 
 
-def _conv_norm(conv_m, norm_m, norm_fn, x, dtype, train=False):
-    """conv -> norm in the compute dtype (NCHW)."""
+def _conv_norm(conv_m, norm_m, norm_fn, x, dtype, train=False,
+               data_parallel=None):
+    """conv -> norm in the compute dtype (NCHW).  `data_parallel`: the group
+    whose ranks share train-mode BatchNorm's moments."""
     if norm_fn == "batch" and not train:
         return folded_conv_bn(conv_m, norm_m, x, dtype)
     y = conv(conv_m, x, dtype)
     if norm_fn == "batch":
-        return batch_norm_train(y, norm_m, dtype)
+        return batch_norm_train(y, norm_m, dtype,
+                                data_parallel=data_parallel)
     return instance_norm(y) if norm_fn == "instance" else y
 
 
@@ -60,10 +63,10 @@ class ResidualBlock(nn.Module):
                 ds.append(norm3)
             self.downsample = nn.Sequential(*ds)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, data_parallel=None):
         def cn(conv_m, norm_m, h):
             return _conv_norm(conv_m, norm_m, self.norm_fn, h, dtype,
-                              self.training)
+                              self.training, data_parallel)
         y = torch.relu(cn(self.conv1, self.norm1, x))
         y = torch.relu(cn(self.conv2, self.norm2, y))
         if self.downsample is not None:
@@ -92,16 +95,18 @@ class BasicEncoder(nn.Module):
             in_planes = dim
         self.conv2 = nn.Conv2d(in_planes, output_dim, 1)
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None,
+                data_parallel=None) -> torch.Tensor:
         """x: [B, H, W, 3] NHWC -> [B, H/8, W/8, output_dim] NHWC.
-        `generator` draws the training Dropout2d mask."""
+        `generator` draws the training Dropout2d mask; `data_parallel` (a
+        group) gives train-mode BatchNorm its ranks' moments."""
         dt = self.dtype
         x = x.permute(0, 3, 1, 2).to(dt)
         x = torch.relu(_conv_norm(self.conv1, self.norm1, self.norm_fn, x, dt,
-                                  self.training))
+                                  self.training, data_parallel))
         for layer in (self.layer1, self.layer2, self.layer3):
             for block in layer:
-                x = block(x, dt)
+                x = block(x, dt, data_parallel)
         x = conv(self.conv2, x, dt).permute(0, 2, 3, 1)
         if self.training:
             x = dropout2d(x, self.dropout, generator)

@@ -13,6 +13,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from craft_tpu_torch.parallel.data_parallel import all_sum
+
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias=None, stride=1,
            padding=0, dtype=torch.float32) -> torch.Tensor:
@@ -79,18 +81,27 @@ def folded_conv_bn(conv_m: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor,
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, dtype,
-                     momentum: float = 0.9) -> torch.Tensor:
+                     momentum: float = 0.9,
+                     data_parallel=None) -> torch.Tensor:
     """Train-mode BatchNorm on NCHW with flax's semantics
     (``flax.linen.BatchNorm(momentum=0.9)``): batch moments in fp32, and
     the running averages updated in place with momentum 0.9 and the
     *biased* batch variance (``nn.BatchNorm2d`` would take the unbiased
     one).  The variance is taken in two passes, E[(x - E[x])^2]: flax's
     E[x^2] - E[x]^2 is the same value up to rounding, but its gradient
-    cancels badly in fp32 where |E[x]| >> std.  Returns the normalized x in
-    `dtype`."""
+    cancels badly in fp32 where |E[x]| >> std.  With `data_parallel` (a
+    group of more than one rank) the moments run over every rank's batch,
+    as the JAX step's over its global batch, and their gradient crosses the
+    ranks.  Returns the normalized x in `dtype`."""
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = x32.mean(dim=(0, 2, 3))
-    var = (x32 - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+    if data_parallel is None or data_parallel.world == 1:
+        mean = x32.mean(dim=(0, 2, 3))
+        var = (x32 - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+    else:
+        n = x32.numel() // x32.shape[1] * data_parallel.world
+        mean = all_sum(x32.sum(dim=(0, 2, 3))) / n
+        var = all_sum((x32 - mean.view(1, -1, 1, 1)).square().sum(
+            dim=(0, 2, 3))) / n
     with torch.no_grad():
         bn.running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
         bn.running_var.mul_(momentum).add_((1.0 - momentum) * var)

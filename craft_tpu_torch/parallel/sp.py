@@ -1,8 +1,9 @@
 """Sequence parallelism across ranks (the port's counterpart of
 ``craft_tpu.parallel.sp``): the query rows of the O(U^2) attention and
 correlation tensors are split across ranks, one process per rank, joined by
-``torch.distributed``.  This module is the only one of the port that calls
-``torch.distributed``.
+``torch.distributed``.  Its group also joins the ranks of data-parallel
+training (``parallel/data_parallel.py``, the one other module of the port
+that calls ``torch.distributed``).
 
 A run has one ``SeqParallel`` group per process: ``init`` makes it from
 torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, ...), or
@@ -154,7 +155,7 @@ def init(device=None, store=None, rank: Optional[int] = None,
     atexit.register(shutdown)
     _GROUP = SeqParallel(rank, world, dev, backend)
     if rank == 0:
-        print(f"seq_parallel: {world} rank(s), backend {backend}, rank 0 on "
+        print(f"distributed: {world} rank(s), backend {backend}, rank 0 on "
               f"{dev}", flush=True)
     return _GROUP
 

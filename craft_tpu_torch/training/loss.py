@@ -7,7 +7,7 @@ iteration's prediction, masked by validity and a 400 px magnitude cutoff.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -15,11 +15,14 @@ MAX_FLOW = 400.0
 
 
 def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
-                  valid: torch.Tensor, gamma: float = 0.8
+                  valid: torch.Tensor, gamma: float = 0.8,
+                  metric_sum: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """flow_preds: [iters, B, H, W, 2]; flow_gt: [B, H, W, 2]; valid:
     [B, H, W] (>= 0.5 = supervised pixel).  Returns (0-d loss, metrics
-    epe/1px/3px/5px as 0-d tensors); nothing syncs the host."""
+    epe/1px/3px/5px as 0-d tensors); nothing syncs the host.
+    `metric_sum` (data parallelism: a sum over the ranks) reduces the
+    metrics' numerators and denominator, so they are the global batch's."""
     n = flow_preds.shape[0]
     mag = torch.sqrt((flow_gt ** 2).sum(-1))
     valid = (valid >= 0.5) & (mag < MAX_FLOW)
@@ -33,8 +36,12 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
 
     epe_map = torch.sqrt(((flow_preds[-1] - flow_gt) ** 2).sum(-1))
     vm = valid.float()
-    denom = vm.sum().clamp(min=1.0)
-    metrics = {"epe": (epe_map * vm).sum() / denom}
-    for px in (1, 3, 5):
-        metrics[f"{px}px"] = ((epe_map < px) * vm).sum() / denom
+    sums = torch.stack([(epe_map * vm).sum()] + [
+        ((epe_map < px) * vm).sum() for px in (1, 3, 5)] + [vm.sum()])
+    sums = sums.detach()
+    if metric_sum is not None:
+        sums = metric_sum(sums)
+    denom = sums[-1].clamp(min=1.0)
+    metrics = {key: sums[i] / denom
+               for i, key in enumerate(("epe", "1px", "3px", "5px"))}
     return loss, metrics

@@ -7,6 +7,11 @@ refinement iteration's upsampled flow -> sequence loss -> backward ->
 global-norm clip -> AdamW update -> schedule step.  Dropout draws from a
 generator seeded from (seed, step), as the JAX step folds the step into
 its key.
+
+With a data-parallel group (``parallel/data_parallel.py``) the step is the
+JAX step over the ranks' batches together: BatchNorm's moments, the
+gradients (averaged before the clip) and the metrics run over the global
+batch, and each rank's dropout generator folds in its rank.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from torch.profiler import record_function
 from craft_tpu_torch import resolve_device
 from craft_tpu_torch.config import ModelConfig
 from craft_tpu_torch.models.flow_model import FlowModel
+from craft_tpu_torch.parallel.data_parallel import (average_gradients,
+                                                    sum_over_ranks)
 from craft_tpu_torch.training.loss import sequence_loss
 from craft_tpu_torch.training.optim import (clip_by_global_norm,
                                             make_optimizer)
@@ -59,12 +66,18 @@ def create_train_state(cfg: ModelConfig,
 
 
 def make_train_step(cfg: ModelConfig, iters: int = 12, gamma: float = 0.8,
-                    freeze_bn: bool = False, seed: int = 0):
+                    freeze_bn: bool = False, seed: int = 0,
+                    data_parallel=None):
     """step(state, batch) -> (state, metrics).  batch: image1, image2
     [B, H, W, 3] in [0, 255], flow [B, H, W, 2], valid [B, H, W], on the
     model's device.  metrics: loss, epe, 1px, 3px, 5px and grad_norm (the
     global norm before clipping), 0-d tensors on the device.  The step
-    updates the state's model and optimizer in place and returns it."""
+    updates the state's model and optimizer in place and returns it.
+    `data_parallel`: this rank's group (``sp.init``), whose ranks each take
+    their own batch; None or a world of 1 runs alone."""
+    dp = data_parallel if data_parallel is not None \
+        and data_parallel.world > 1 else None
+    rank = 0 if dp is None else dp.rank
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         model = state.model
@@ -72,13 +85,15 @@ def make_train_step(cfg: ModelConfig, iters: int = 12, gamma: float = 0.8,
         model.train()
         dev = next(model.parameters()).device
         gen = torch.Generator(device=dev)
-        gen.manual_seed(_fold_in(seed, state.step))
+        gen.manual_seed(_fold_in(seed + (rank << 32), state.step))
         params = [p for p in model.parameters() if p.requires_grad]
         state.optimizer.zero_grad(set_to_none=True)
         _, flows = model(batch["image1"], batch["image2"], iters=iters,
-                         upsample_mode="all", generator=gen)
-        loss, metrics = sequence_loss(flows.float(), batch["flow"],
-                                      batch["valid"], gamma)
+                         upsample_mode="all", generator=gen,
+                         data_parallel=dp)
+        loss, metrics = sequence_loss(
+            flows.float(), batch["flow"], batch["valid"], gamma,
+            metric_sum=None if dp is None else sum_over_ranks)
         with record_function("craft.backward"):
             loss.backward()
         with record_function("craft.optimizer"):
@@ -88,6 +103,9 @@ def make_train_step(cfg: ModelConfig, iters: int = 12, gamma: float = 0.8,
                 # decays it as optax does.
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if dp is not None:
+                average_gradients(params, dp.world)
+                loss = sum_over_ranks(loss) / dp.world
             grad_norm = clip_by_global_norm(params, state.clip)
             state.optimizer.step()
             state.schedule.step()

@@ -3,7 +3,8 @@
 state_dict_from_flax inverts craft_tpu.utils.torch_convert: carried through
 convert_torch_state it must give back the oracle's flax tree exactly, and
 the port's FlowModel must load it with strict=True.  The port imports no
-JAX, flax or craft_tpu module.
+JAX, flax or craft_tpu module, and nothing the card's machine lacks (PIL,
+OpenCV, orbax).
 """
 
 import ast
@@ -22,7 +23,10 @@ from craft_tpu_torch.utils.weights import load_oracle_npz, state_dict_from_flax
 
 REPO = Path(__file__).resolve().parents[1]
 ORACLE = REPO / "tests" / "data" / "oracle_craft_128.npz"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "craft_tpu")
+# JAX and the JAX package; and what the card's machine lacks: PIL and
+# OpenCV (the port decodes and augments in numpy) and orbax.
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "craft_tpu", "PIL", "cv2",
+             "orbax")
 
 
 def _flat(tree, prefix=()):
@@ -131,9 +135,10 @@ def test_importing_the_port_leaves_jax_and_flax_out():
     code = ("import sys; import craft_tpu_torch.models.flow_model, "
             "craft_tpu_torch.ops.kernels.mode_attention, "
             "craft_tpu_torch.parallel.sequence_parallel, "
-            "craft_tpu_torch.ops.kernels.sep_conv_gru; "
-            "bad = [m for m in ('jax', 'flax', 'craft_tpu') "
-            "if m in sys.modules]; assert not bad, bad")
+            "craft_tpu_torch.ops.kernels.sep_conv_gru, "
+            "craft_tpu_torch.train; "
+            "bad = [m for m in ('jax', 'flax', 'craft_tpu', 'PIL', 'cv2', "
+            "'orbax') if m in sys.modules]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
 

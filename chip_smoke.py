@@ -55,7 +55,11 @@ these phases and fails on the first that fails:
      the blend reversed, r h read as zero across the forward's 64-row
      tiles, halo rows counted twice in the weight gradients
      and dh without its drh r term planted in the plain versions; two
-     backwards of one input must be bit-identical.
+     backwards of one input must be bit-identical.  Then B3 and B5 at the
+     HD1K grid (136 x 320, U = 43520: a 3.79e9-byte bf16 volume, past
+     2^31 bytes) on the last two grid rows against their plain versions
+     (B3's moments and raw max taken over whole grid rows at a time), with
+     a dropped bias and another query's slab planted.
   3. oracle: full-width CRAFT with the weights of
      tests/data/oracle_craft_128.npz at 128x128, 12 iterations, against the
      reference flow: fp32 within 1e-3 px, the mixed-precision config
@@ -103,6 +107,17 @@ these phases and fails on the first that fails:
      fp32; the last h and every weight gradient within stated bounds; 24
      forward passes per 12 calls, 24 backward passes per backward, none
      under `static` (asserted).
+     Then the rest of the evaluator: the VIPER JPEG fixtures of
+     tests/data decoded to PIL's pixel hashes; the further validators at
+     their sets' full shapes (things 540x960, sintel_occ 436x1024,
+     kittitrain 375x1242, hd1k 1080x2560, viper's 1920x1080 JPEGs at 0.5,
+     slowflow 436x1024), the Sintel submission with --warm_start (3
+     frames, 32 iterations), the KITTI and VIPER submissions (24), the
+     shift sweep (100,50), (200,100), (300,150) on the Sintel tree and
+     --flop at 440x1024, each with its launches asserted (B1 3, B2-B4 1,
+     B5 the iterations, a forward), pairs/s and peak memory (HD1K's beside
+     its estimate); then each further validator on small trees (128x128),
+     card (--fullprec, mixed) against the port's fp32 CPU metrics.
      Then the training entry point (python -m craft_tpu_torch.train, run
      in this process) on a synthetic FlyingChairs tree at 384x512 (48
      training and 4 validation pairs, written by the port's PPM and .flo
@@ -139,6 +154,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import os
@@ -1079,6 +1095,84 @@ def check_lookup_radii(dev, report, grid=LOOKUP_ODD_GRID,
 # tile: a kernel that read them as scores of 0 would move about a tenth of
 # each softmax row's weight onto zero keys.
 RECT_U2 = 129
+# B3 and B5 at the HD1K grid (1080x2560 padded to 1088x2560: 136 x 320,
+# U = 43520): the level-0 volume holds U^2 = 1.89e9 elements, 3.79e9 bytes
+# in bf16, past 2^31, so a byte offset or a char* sum in 32 bits would
+# wrap on the last rows.  The plain versions over all U rows do not fit:
+# the global moments and the raw max come from whole grid rows at a time
+# (B9's plain shard functions), and the outputs are compared on the last
+# rows only.
+HD1K_GRID = (136, 320)
+HD1K_LAST_ROWS = 2       # grid rows compared at the end of the volume
+HD1K_CHUNK_ROWS = 4      # grid rows a plain chunk
+
+
+def check_hd1k_grid(dev, gen, grid=HD1K_GRID, last=HD1K_LAST_ROWS,
+                    chunk=HD1K_CHUNK_ROWS) -> dict:
+    """Phase 2: B3 (its bf16 volume, stats) and B5 forward at the HD1K
+    grid, on the last `last` grid rows, against their plain versions; a
+    dropped bias (B3) and the slabs of the grid row above (B5: a query
+    reading another query's slab) planted, which must fail the bounds."""
+    H8, W8 = grid
+    u = H8 * W8
+    biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
+    q, k = inputs(gen, 64, dev, u)
+    agg_w = torch.tensor(1.3, device=dev)
+    agg_b = torch.tensor(0.1, device=dev)
+    attn_clip, pos_w = CLIP_ON, 0.5
+    got, stats = ma.fused_agg_corr_norm(q, k, biases, grid, attn_clip,
+                                        pos_w, agg_w, agg_b)
+    sync(dev)
+    print(f"B3 HD1K {H8}x{W8}: volume {got.numel()} elements, "
+          f"{got.numel() * got.element_size()} bytes")
+    scale = 1.0 / math.sqrt(64)
+    rows = [(r0, min(r0 + chunk, H8)) for r0 in range(0, H8, chunk)]
+    gmax = max(float(ma.scores(q[:, :, r0 * W8:r1 * W8], k, scale).amax())
+               for r0, r1 in rows)
+    gmax = torch.tensor(gmax, device=dev)
+    sums = sum(ma.corr_norm_sums_plain(q[:, :, r0 * W8:r1 * W8], k, biases,
+                                       grid, gmax, attn_clip, pos_w, agg_w,
+                                       agg_b, q_row0=r0)
+               for r0, r1 in rows)
+    n_elems = float(u) * float(u)
+    r0 = H8 - last
+
+    def plain(pw):
+        return ma.corr_norm_write_plain(
+            q[:, :, r0 * W8:], k, biases, grid, gmax, sums, n_elems,
+            attn_clip, pw, agg_w, agg_b, q_row0=r0, out_dtype=torch.float32)
+    want = plain(pos_w)
+    out = {"b3": hold(f"B3 HD1K last {last} rows", got[:, r0 * W8:], want,
+                      b3_err, 1.0, {"no bias": plain(0.0)})}
+    mean, ex2 = sums[0, 0] / n_elems, sums[0, 1] / n_elems
+    torch.testing.assert_close(
+        stats[0, 0, :3], torch.stack([gmax, mean.float(), ex2.float()]),
+        rtol=1e-4, atol=1e-5)
+    del got, want, q, k
+    torch.cuda.empty_cache()
+
+    levels, coords = lookup_inputs(dev, 1, H8, W8, torch.bfloat16)
+    got = lk.corr_lookup(levels, coords, RADIUS)
+    sync(dev)
+    n_last = last * W8
+    top = max(float(lv[-n_last:].float().abs().max()) for lv in levels
+              if lv.numel())
+
+    def plain_lookup(shift):
+        lv = [x[x.shape[0] - n_last - shift:x.shape[0] - shift]
+              for x in levels]
+        return lk.corr_lookup_plain(lv, coords[:, H8 - last:].contiguous(),
+                                    RADIUS)
+    out["b5"] = hold(f"B5 HD1K last {last} rows", got[:, H8 - last:],
+                     plain_lookup(0),
+                     lambda a, b: float((a - b).abs().max()) / top,
+                     B5_FWD_TOL, {"the slabs of the row above":
+                                  plain_lookup(W8)})
+    del got, levels
+    torch.cuda.empty_cache()
+    return out
+
+
 DENSE_POS_W = 0.5
 DENSE_FP32_TOL = 1e-4  # fp32 out, max |diff| / max |plain|: fp32 sums of md
 #                        products in another order and an online softmax
@@ -1775,30 +1869,111 @@ EVAL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
 KITTI_H, KITTI_W = 375, 1242  # KITTI 2015 frames, padded to 376x1248
 
 
-def _write_sintel(root: Path, frames, flows, scene="alley_1") -> None:
-    """A Sintel training tree of one scene: the same uint8 frames as the
-    clean and the final pass, and flows[i] as frame i + 1's ground truth."""
-    for sub in ("clean", "final", "flow"):
-        (root / "Sintel" / "training" / sub / scene).mkdir(parents=True)
+def _img(path: Path, img) -> None:
+    """A frame as PNG (uint8 array) or as JPEG bytes already encoded."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if isinstance(img, bytes):
+        path.write_bytes(img)
+    else:
+        imgio.write_png(str(path), img)
+
+
+def _flo(path: Path, flow) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    frame_utils.write_flo(str(path), flow)
+
+
+def _kitti_png(path: Path, flow) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    frame_utils.write_flow_kitti(str(path), flow)
+
+
+# Synthetic trees in each dataset's own layout (the port's datasets read
+# them as they read the real ones); shared with the CPU tests, which write
+# them small.
+def write_sintel_tree(root: Path, frames, flows=None, occs=None,
+                      split="training", scene="alley_1") -> None:
+    """Sintel: the same frames as the clean and the final pass; flows[i]
+    (training) and occs[i] (uint8 0/255 occlusion masks) for pair i."""
     for i, frame in enumerate(frames):
         for sub in ("clean", "final"):
-            imgio.write_png(str(root / "Sintel" / "training" / sub / scene
-                                / f"frame_{i + 1:04d}.png"), frame)
-    for i, flow in enumerate(flows):
-        frame_utils.write_flo(str(root / "Sintel" / "training" / "flow"
-                                  / scene / f"frame_{i + 1:04d}.flo"), flow)
+            _img(root / "Sintel" / split / sub / scene
+                 / f"frame_{i + 1:04d}.png", frame)
+    for i, flow in enumerate(flows or []):
+        _flo(root / "Sintel" / split / "flow" / scene
+             / f"frame_{i + 1:04d}.flo", flow)
+    for i, occ in enumerate(occs or []):
+        _img(root / "Sintel" / split / "occlusions" / scene
+             / f"frame_{i + 1:04d}.png", occ)
 
 
-def _write_kitti(root: Path, pairs, flows) -> None:
-    for sub in ("image_2", "flow_occ"):
-        (root / "KITTI" / "training" / sub).mkdir(parents=True)
-    for i, ((a, b), flow) in enumerate(zip(pairs, flows)):
+def write_kitti_tree(root: Path, pairs, flows=None, split="training") -> None:
+    """KITTI 2015: pair i as image_2/<i>_10.png, <i>_11.png, its flow as a
+    16-bit KITTI PNG in flow_occ (training only)."""
+    for i, (a, b) in enumerate(pairs):
         for suf, img in (("10", a), ("11", b)):
-            imgio.write_png(str(root / "KITTI" / "training" / "image_2"
-                                / f"{i:06d}_{suf}.png"), img)
-        frame_utils.write_flow_kitti(str(root / "KITTI" / "training"
-                                         / "flow_occ" / f"{i:06d}_10.png"),
-                                     flow)
+            _img(root / "KITTI" / split / "image_2" / f"{i:06d}_{suf}.png",
+                 img)
+    for i, flow in enumerate(flows or []):
+        _kitti_png(root / "KITTI" / split / "flow_occ" / f"{i:06d}_10.png",
+                   flow)
+
+
+def write_things_tree(root: Path, frames, flows) -> None:
+    """FlyingThings3D's TEST subset, one scene, both passes: frames[i] and
+    flows[i] (into the future and, the same arrays, into the past); the
+    validation filter keeps the into-future pairs only."""
+    for sub in ("frames_cleanpass", "frames_finalpass"):
+        for i, frame in enumerate(frames):
+            _img(root / "FlyingThings3D" / sub / "TEST" / "A" / "0000"
+                 / "left" / f"{i + 6:04d}.png", frame)
+    for direction in ("into_future", "into_past"):
+        for i, flow in enumerate(flows):
+            _flo(root / "FlyingThings3D" / "optical_flow" / "TEST" / "A"
+                 / "0000" / direction / "left" / f"{i + 6:04d}.flo", flow)
+    n = len(flows) - 1
+    np.savetxt(root / "things_val_test_set.txt", [1] * n + [0] * n,
+               fmt="%d")
+
+
+def write_hd1k_tree(root: Path, frames, flows) -> None:
+    """HD1K: one sequence, frames[i] and the 16-bit KITTI PNG flows[i]."""
+    for i, frame in enumerate(frames):
+        _img(root / "HD1k" / "hd1k_input" / "image_2" / f"000000_{i:04d}.png",
+             frame)
+    for i, flow in enumerate(flows):
+        _kitti_png(root / "HD1k" / "hd1k_flow_gt" / "flow_occ"
+                   / f"000000_{i:04d}.png", flow)
+
+
+def write_viper_tree(root: Path, pairs, flows=None, split="val") -> None:
+    """VIPER: scene 001, pair i as 001_<10 (i + 1)>.jpg and the next frame
+    (JPEG bytes), the val split's flows as 16-bit KITTI PNGs; the test
+    split lists its first frames in test_frames.txt."""
+    firsts = []
+    for i, (a, b) in enumerate(pairs):
+        idx = 10 * (i + 1)
+        firsts.append(f"001_{idx:05d}")
+        for j, img in ((idx, a), (idx + 1, b)):
+            _img(root / "viper" / "jpg" / split / "img" / "001"
+                 / f"001_{j:05d}.jpg", img)
+    for i, flow in enumerate(flows or []):
+        _kitti_png(root / "viper" / "jpg" / split / "flow" / "001"
+                   / f"001_{10 * (i + 1):05d}.png", flow)
+    if split == "test":
+        (root / "viper" / "test_frames.txt").write_text(
+            "".join(f"{t}\n" for t in firsts))
+
+
+def write_slowflow_tree(root: Path, pairs, flows) -> None:
+    """SlowFlow at blur magnitude 100: pair i as seq1_<i>0.png and
+    seq1_<i>1.png, its flow as seq1_<i>0.flo."""
+    for i, ((a, b), flow) in enumerate(zip(pairs, flows)):
+        for j, img in ((0, a), (1, b)):
+            _img(root / "slowflow" / "100" / "sequence" / "scene"
+                 / f"seq1_{i:03d}{j}.png", img)
+        _flo(root / "slowflow" / "100" / "flow" / "scene"
+             / f"seq1_{i:03d}0.flo", flow)
 
 
 def _timed_cli(label, argv, n_pairs) -> dict:
@@ -1839,7 +2014,7 @@ def eval_phase(dev, kitti_hw=(KITTI_H, KITTI_W),
     with torch.inference_mode():
         _, flows = cpu(*(torch.from_numpy(f[None].astype(np.float32))
                          for f in frames), iters=ITERS)
-    _write_sintel(EVAL_DIR / "oracle", frames, [flows[-1][0].numpy()])
+    write_sintel_tree(EVAL_DIR / "oracle", frames, [flows[-1][0].numpy()])
     argv = ["--model", str(pth), "--craft", "--setrans", "--iters",
             str(ITERS), "--device", str(dev), "--dataset"]
     out = {}
@@ -1861,10 +2036,11 @@ def eval_phase(dev, kitti_hw=(KITTI_H, KITTI_W),
     def flow(hw):
         return rng.uniform(-10, 10, (*hw, 2)).astype(np.float32)
     big = EVAL_DIR / "full"
-    _write_kitti(big, [(frame(kitti_hw), frame(kitti_hw)) for _ in range(2)],
-                 [flow(kitti_hw) for _ in range(2)])
-    _write_sintel(big, [frame(sintel_hw) for _ in range(3)],
-                  [flow(sintel_hw) for _ in range(2)])
+    write_kitti_tree(big, [(frame(kitti_hw), frame(kitti_hw))
+                           for _ in range(2)],
+                     [flow(kitti_hw) for _ in range(2)])
+    write_sintel_tree(big, [frame(sintel_hw) for _ in range(3)],
+                      [flow(sintel_hw) for _ in range(2)])
     # (CLI arguments, pairs, forwards): Sintel's 2 pairs make one batch
     # per pass, clean and final.
     runs = {"kitti": (["kitti"], 2, 2),
@@ -1905,6 +2081,222 @@ def eval_phase(dev, kitti_hw=(KITTI_H, KITTI_W),
     return out
 
 
+# The rest of the evaluator: the six further validators, the submission
+# writers, the shift sweep and --flop, each at its dataset's full shape;
+# then the same validators on small trees, card against CPU.
+SETS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_sets"
+FIXTURES = Path(__file__).resolve().parent / "tests" / "data"
+THINGS_HW = (540, 960)
+HD1K_HW = (1080, 2560)
+SHIFTS = ((100, 50), (200, 100), (300, 150))  # scripts/shifteval.sh
+SMALL_HW = (128, 128)  # the small trees: U = 256, as the oracle
+# Per forward: B1 at the three sites, B2 (f2), B3 (inter), B4 (intra) once,
+# B5 once per iteration.
+SERVE_PER_PAIR = {"scores_global_max": 3, "flash_mode_attention": 1,
+                  "fused_agg_corr_norm": 1, "mode_softmax_probs": 1,
+                  "corr_lookup": ITERS}
+
+
+def check_jpeg_fixtures() -> dict:
+    """The VIPER fixtures (tests/data, written by PIL through
+    tools/make_jpeg_fixtures.py) decoded by the port's decoder on this
+    host: each must hash to PIL's pixels.  {name: JPEG bytes}."""
+    meta = json.loads((FIXTURES / "viper_jpeg.json").read_text())
+    out = {}
+    for name, m in meta.items():
+        data = (FIXTURES / name).read_bytes()
+        t0 = time.perf_counter()
+        img = imgio.decode_jpeg(data)
+        ms = (time.perf_counter() - t0) * 1e3
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes())
+        assert list(img.shape) == m["shape"], name
+        assert digest.hexdigest() == m["pixels_sha256"], \
+            f"JPEG {name}: the decoded pixels are not PIL's"
+        print(f"jpeg {name}: {img.shape[1]}x{img.shape[0]} decoded on the "
+              f"host in {ms:.1f} ms, pixels identical to PIL's")
+        out[name] = data
+    return out
+
+
+def _eval_path(dev, label, argv, n_pairs, forwards, iters=ITERS) -> dict:
+    """One CLI run of the rest of the evaluator on the card with its
+    launches (B1-B5 a forward; B5 `iters` times) asserted and its peak
+    memory recorded."""
+    assert dev.type == "cuda", dev
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = evaluate_cli.main(argv)
+    sync(dev)
+    sec = time.perf_counter() - t0
+    counts = launch.launch_counts()
+    _assert_launches(f"eval {label}", counts,
+                     dict(SERVE_PER_PAIR, corr_lookup=iters), forwards)
+    out = {"seconds": sec, "pairs_per_s": n_pairs / sec,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": {k: v for k, v in counts.items() if v},
+           "result": res}
+    print(f"eval {label}:", json.dumps(out), "|", card_line())
+    for r in res if isinstance(res, list) else [res]:
+        if isinstance(r, dict):
+            assert all(math.isfinite(v) for v in r.values()), label
+    return out
+
+
+def _flow_tree_files_finite(paths) -> None:
+    for p in paths:
+        flow = frame_utils.read_flo(str(p)) if p.suffix == ".flo" else \
+            frame_utils.read_flow_kitti(str(p))[0]
+        assert np.isfinite(flow).all() and flow.shape[-1] == 2, p
+
+
+def write_set_trees(root: Path, rng, jpegs, hw=None) -> None:
+    """The further evaluation sets under root at their datasets' shapes
+    (or all at hw for the small trees): things (2 frames: one pair a
+    pass), Sintel training with occlusions (2 frames) and test (3 frames),
+    KITTI training (2 pairs: kittitrain holds out 1) and testing (1),
+    HD1K (1 pair), VIPER val and test (the JPEG pair `jpegs`), SlowFlow
+    (1 pair); noise frames, flows uniform in +-10 px."""
+    def frame(shape):
+        return rng.randint(0, 256, (*shape, 3)).astype(np.uint8)
+
+    def flow(shape):
+        return rng.uniform(-10, 10, (*shape, 2)).astype(np.float32)
+    things, sintel = hw or THINGS_HW, hw or (FRAME_H, FRAME_W)
+    kitti, hd1k = hw or (KITTI_H, KITTI_W), hw or HD1K_HW
+    if hw:  # the sparse sets a little off the multiple of 8
+        kitti = hd1k = (hw[0] - 4, hw[1] - 4)
+    write_things_tree(root, [frame(things) for _ in range(2)],
+                      [flow(things) for _ in range(2)])
+    write_sintel_tree(root, [frame(sintel) for _ in range(2)],
+                      [flow(sintel)],
+                      [np.where(rng.uniform(size=sintel) < 0.2, 255,
+                                0).astype(np.uint8)])
+    write_sintel_tree(root, [frame(sintel) for _ in range(3)], split="test")
+    write_kitti_tree(root, [(frame(kitti), frame(kitti)) for _ in range(2)],
+                     [flow(kitti) for _ in range(2)])
+    write_kitti_tree(root, [(frame(kitti), frame(kitti))], split="testing")
+    write_hd1k_tree(root, [frame(hd1k) for _ in range(2)],
+                    [flow(hd1k) for _ in range(2)])
+    viper = imgio.decode_jpeg(jpegs[0]).shape[:2]
+    write_viper_tree(root, [tuple(jpegs)], [flow(viper)])
+    write_viper_tree(root, [tuple(jpegs)], split="test")
+    write_slowflow_tree(root, [(frame(sintel), frame(sintel))],
+                        [flow(sintel)])
+
+
+def eval_sets_phase(dev) -> dict:
+    """The rest of the evaluator on the card (craft_tpu_torch.evaluate.main,
+    the oracle tree as a reference .pth, mixed precision): each further
+    --dataset at its shape (things 540x960, sintel_occ 436x1024,
+    kittitrain 375x1242, hd1k 1080x2560 (U = 43520), viper's 1920x1080
+    JPEG fixtures at 0.5 (544x960), slowflow 436x1024), the Sintel
+    submission with --warm_start (3 frames, 32 iterations), the KITTI and
+    VIPER submissions (24), the shift sweep of scripts/shifteval.sh on
+    the Sintel tree and --flop at 440x1024: pairs/s, launches asserted
+    (B1 3, B2-B4 1, B5 the iterations, a forward) and peak memory.  Then
+    each further validator on small trees (128x128; VIPER's 256x256 JPEG
+    fixtures at 0.5), card (--fullprec, and mixed) against the port's
+    fp32 CPU metrics: every EPE within 1e-3 px, and 0.15 px mixed."""
+    jpegs = check_jpeg_fixtures()
+    shutil.rmtree(SETS_DIR, ignore_errors=True)
+    SETS_DIR.mkdir(parents=True)
+    _, _, _, tree = load_oracle_npz(ORACLE)
+    sd = state_dict_from_flax(tree)
+    pth = SETS_DIR / "craft-oracle.pth"
+    torch.save({f"module.{k}": v for k, v in sd.items()}, pth)
+    full = SETS_DIR / "full"
+    write_set_trees(full, np.random.RandomState(8),
+                    [jpegs[f"viper_000{i}.jpg"] for i in (10, 11)])
+    argv = ["--model", str(pth), "--craft", "--setrans", "--device",
+            str(dev), "--data_root", str(full)]
+    out = {}
+    # (label, CLI arguments, pairs, forwards, iterations)
+    runs = [("things", ["--dataset", "things"], 2, 2, ITERS),
+            ("sintel_occ", ["--dataset", "sintel_occ"], 2, 2, ITERS),
+            ("kittitrain", ["--dataset", "kittitrain"], 1, 1, ITERS),
+            ("hd1k", ["--dataset", "hd1k"], 1, 1, ITERS),
+            ("viper", ["--dataset", "viper"], 1, 1, ITERS),
+            ("slowflow", ["--dataset", "slowflow"], 1, 1, ITERS),
+            ("sintel submission --warm_start",
+             ["--submission", "sintel", "--warm_start", "--output_path",
+              str(SETS_DIR / "sub_sintel")], 4, 4, 32),
+            ("kitti submission", ["--submission", "kitti", "--output_path",
+                                  str(SETS_DIR / "sub_kitti")], 1, 1, 24),
+            ("viper submission", ["--submission", "viper", "--output_path",
+                                  str(SETS_DIR / "sub_viper")], 1, 1, 24),
+            ("shift sweep", ["--dataset", "sintel", "--xshifts",
+                             ",".join(str(x) for x, _ in SHIFTS),
+                             "--yshifts", ",".join(str(y) for _, y in
+                                                   SHIFTS)],
+             2 * len(SHIFTS), 2 * len(SHIFTS), ITERS)]
+    for label, extra, n_pairs, forwards, iters in runs:
+        out[label] = _eval_path(dev, label, argv + extra, n_pairs, forwards,
+                                iters)
+    assert len(out["shift sweep"]["result"]) == len(SHIFTS)
+    _flow_tree_files_finite(
+        sorted((SETS_DIR / "sub_sintel").glob("*/*/*.flo"))
+        + sorted((SETS_DIR / "sub_kitti").glob("*.png"))
+        + sorted((SETS_DIR / "sub_viper").glob("*.flo")))
+    assert len(list((SETS_DIR / "sub_sintel").glob("*/*/*.flo"))) == 4
+    print(f"eval hd1k: peak {out['hd1k']['peak_bytes']} B at U = "
+          f"{(1088 // 8) * (HD1K_HW[1] // 8)} (estimate 28e9 B) |",
+          card_line())
+
+    # --flop: the analytic breakdown and one counted forward at 440x1024.
+    rng = np.random.RandomState(9)
+    flop_hw = (FRAME_H + 4, FRAME_W)
+    for i in (1, 2):
+        imgio.write_png(str(SETS_DIR / f"flop_{i}.png"), rng.randint(
+            0, 256, (*flop_hw, 3)).astype(np.uint8))
+    launch.reset_launch_counts()
+    flops = evaluate_cli.main(argv + ["--flop", "--img1",
+                                      str(SETS_DIR / "flop_1.png"),
+                                      "--img2", str(SETS_DIR / "flop_2.png")])
+    print(f"eval --flop {flop_hw[0]}x{flop_hw[1]}:", json.dumps(
+        {k: v for k, v in flops.items() if k != "analytic_gflops"}),
+        "analytic total", flops["analytic_gflops"]["total"], "G")
+    assert flops["torch_flops"] > 0 and flops["kernel_flops"] > 0
+    _assert_launches("eval --flop", launch.launch_counts(), SERVE_PER_PAIR, 1)
+    out["flop"] = flops
+
+    out["small"] = eval_sets_small(dev, sd, pth, jpegs)
+    shutil.rmtree(SETS_DIR, ignore_errors=True)
+    return out
+
+
+def eval_sets_small(dev, sd, pth, jpegs) -> dict:
+    """Each further validator on small trees: the CLI on the card with
+    --fullprec and mixed against the validator on the CPU in fp32.  EPEs
+    (all pixels, magnitude buckets, occluded / not) within 1e-3 px and
+    0.15 px; shares of pixels are not compared (a flow 0.1 px away moves a
+    pixel across a threshold)."""
+    small = SETS_DIR / "small"
+    write_set_trees(small, np.random.RandomState(10),
+                    [jpegs["viper_small_00010.jpg"],
+                     jpegs["viper_small_00011.jpg"]], SMALL_HW)
+    argv = ["--model", str(pth), "--craft", "--setrans", "--device",
+            str(dev), "--data_root", str(small), "--dataset"]
+    cfg = craft_config(mixed_precision=False)
+    out = {}
+    for name in ("things", "sintel_occ", "kittitrain", "hd1k", "viper",
+                 "slowflow"):
+        want = tev.VALIDATORS[name](cfg, sd, iters=ITERS,
+                                    data_root=str(small), device="cpu")
+        for label, extra, bound in (
+                ("fp32", ["--fullprec"], FULLPREC_BOUND_PX),
+                ("mixed", [], BF16_BOUND_PX)):
+            got = evaluate_cli.main(argv + [name] + extra)
+            assert sorted(got) == sorted(want), name
+            err = max(abs(got[k] - want[k]) for k in want
+                      if k.endswith("_epe"))
+            print(f"eval {name} small {label}: largest EPE difference "
+                  f"card - CPU {err:.3e} px (bound {bound})")
+            assert err < bound, f"eval {name} small {label}"
+            out[f"{name} {label}"] = err
+    return out
+
+
 def eval_dense(dev, sd, frames, argv, big) -> dict:
     """The evaluation entry point under the dense-table flags.  (1) The
     lsinu state_dict saved as a reference .pth, and the CLI with --interpos
@@ -1931,7 +2323,7 @@ def eval_dense(dev, sd, frames, argv, big) -> dict:
         _, flows = cpu(*(torch.from_numpy(f[None].astype(np.float32))
                          for f in frames), iters=ITERS)
     root = EVAL_DIR / "oracle_f2radius"
-    _write_sintel(root, frames, [flows[-1][0].numpy()])
+    write_sintel_tree(root, frames, [flows[-1][0].numpy()])
     for label, extra, bound in (("fp32", ["--fullprec"], FULLPREC_BOUND_PX),
                                 ("mixed", [], BF16_BOUND_PX)):
         r = _timed_cli(f"f2radius {F2RADIUS} sintel {label}", argv + [
@@ -2289,10 +2681,11 @@ def sp_paths(dev) -> dict:
                SP_DIR / "craft-oracle.pth")
     rng = np.random.RandomState(9)
     hw = (KITTI_H, KITTI_W)
-    _write_kitti(SP_DIR / "data", [(rng.randint(0, 256, (*hw, 3)).astype(
-        np.uint8), rng.randint(0, 256, (*hw, 3)).astype(np.uint8))
-        for _ in range(2)], [rng.uniform(-10, 10, (*hw, 2)).astype(
-            np.float32) for _ in range(2)])
+    write_kitti_tree(SP_DIR / "data", [(
+        rng.randint(0, 256, (*hw, 3)).astype(np.uint8),
+        rng.randint(0, 256, (*hw, 3)).astype(np.uint8)) for _ in range(2)],
+        [rng.uniform(-10, 10, (*hw, 2)).astype(np.float32)
+         for _ in range(2)])
     argv = _sp_kitti_argv(SP_DIR / "craft-oracle.pth", SP_DIR / "data")
     kitti = {label: _timed_cli(f"sp kitti unsharded {label}", argv + extra,
                                2)["metrics"]
@@ -3161,6 +3554,8 @@ def main() -> int:
     check_lookup(dev, report)
     check_lookup_radii(dev, report)
     torch.cuda.empty_cache()
+    check_hd1k_grid(dev, gen)
+    torch.cuda.empty_cache()
     check_dense_kernels(dev, gen, report)
     torch.cuda.empty_cache()
     check_sp_kernels(dev, gen, report)
@@ -3190,6 +3585,8 @@ def main() -> int:
     report["gru_pass_bwd"]["launches"] = \
         gres["chairs torch.bfloat16"]["gru_pass_bwd"]
     eval_phase(dev)
+    torch.cuda.empty_cache()
+    eval_sets_phase(dev)
     torch.cuda.empty_cache()
     train_cli_phase(dev, float(np.median(tres["step_ms"])))
     torch.cuda.empty_cache()

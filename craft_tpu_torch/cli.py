@@ -15,7 +15,6 @@ from craft_tpu_torch.config import (ModelConfig, f2_trans_config,
 # ROADMAP.md queue items (section 2) that hold what the port lacks.
 ROADMAP_SP = "ROADMAP.md section 2, item 8 (sequence parallelism under " \
     "lsinu and --f2radius, and across several cards)"
-ROADMAP_EVAL = "ROADMAP.md section 2, item 4 (the rest of the evaluator)"
 ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (the remaining archs)"
 ROADMAP_TRAIN = "ROADMAP.md section 2, item 11 (the rest of training: " \
     "--attn_diag, drop_path_prob, remat_att_sites, the Gaussian blur)"

@@ -249,14 +249,20 @@ def resize_size(shape, fx: float, fy: float):
     return int(np.rint(shape[0] * fy)), int(np.rint(shape[1] * fx))
 
 
-def resize_linear(img: np.ndarray, fx: float, fy: float, rows=None,
-                  cols=None) -> np.ndarray:
+def resize_linear(img: np.ndarray, fx: float = 0.0, fy: float = 0.0,
+                  rows=None, cols=None, dsize=None) -> np.ndarray:
     """``cv2.resize(img, None, fx=fx, fy=fy, interpolation=INTER_LINEAR)``
     of a uint8 or float32 [H, W, C] image, or only its window [rows,
     cols] (slices of the output; each output pixel depends only on its
-    own coordinates, so the window is computed alone)."""
+    own coordinates, so the window is computed alone).  With dsize = (W',
+    H'), ``cv2.resize(img, dsize, ...)``: OpenCV then takes the scales as
+    W' / W and H' / H."""
     H, W = img.shape[:2]
-    oh, ow = resize_size(img.shape, fx, fy)
+    if dsize is not None:
+        ow, oh = dsize
+        fx, fy = ow / W, oh / H
+    else:
+        oh, ow = resize_size(img.shape, fx, fy)
     rows = rows or slice(0, oh)
     cols = cols or slice(0, ow)
     if (oh, ow) == (H, W):  # OpenCV copies the image at its own size

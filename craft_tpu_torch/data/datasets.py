@@ -1,25 +1,27 @@
 """The datasets (port of ``craft_tpu.data.datasets``; reference
-core/datasets.py:25-567): MPI Sintel, FlyingChairs (its splits through
-FlyingChairs_train_val.txt), FlyingThings3D, KITTI 2015 (and its 70/30
-re-split, KITTITrain), HD1K and Autoflow, with or without augmentation,
+core/datasets.py:25-580): MPI Sintel (with its occlusion masks),
+FlyingChairs (its splits through FlyingChairs_train_val.txt),
+FlyingThings3D, KITTI 2015 (and its 70/30 re-split, KITTITrain), HD1K,
+Autoflow, VIPER (JPEG frames) and SlowFlow, with or without augmentation,
 and the training curriculum's mixes (``fetch_training_dataset``).
 
 Items are numpy dicts, as in the JAX package: image1 and image2 [H, W, 3]
-fp32 in [0, 255], flow [H, W, 2] fp32, valid [H, W] fp32, extra_info.  The
-directory layouts, file lists, multipliers and augmentation parameters are
-the reference's.
+fp32 in [0, 255], flow [H, W, 2] fp32, valid [H, W] fp32, extra_info, and
+occ [H, W] bool where the dataset reads occlusion masks.  The directory
+layouts, file lists, multipliers and augmentation parameters are the
+reference's.
 """
 
 from __future__ import annotations
 
 import os
 import os.path as osp
+import re
 from glob import glob
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from craft_tpu_torch.cli import ROADMAP_EVAL, not_ported
 from craft_tpu_torch.data import frame_utils
 from craft_tpu_torch.data.augmentor import FlowAugmentor, SparseFlowAugmentor
 
@@ -42,6 +44,7 @@ class FlowDataset:
         self.flow_list: List[str] = []
         self.image_list: List[List[str]] = []
         self.extra_info: Optional[list] = None
+        self.occ_list: Optional[List[str]] = None
 
     def __getitem__(self, index) -> Dict[str, np.ndarray]:
         extra = self.extra_info[index] if self.extra_info is not None \
@@ -73,11 +76,15 @@ class FlowDataset:
         if valid is None:
             valid = (np.abs(flow[..., 0]) < 1000) & \
                 (np.abs(flow[..., 1]) < 1000)
-        return {"image1": img1.astype(np.float32),
+        item = {"image1": img1.astype(np.float32),
                 "image2": img2.astype(np.float32),
                 "flow": flow.astype(np.float32),
                 "valid": valid.astype(np.float32),
                 "extra_info": extra}
+        if self.occ_list is not None:
+            occ = np.asarray(frame_utils.read_gen(self.occ_list[index]))
+            item["occ"] = (occ.astype(np.uint8) // 255).astype(bool)
+        return item
 
     def __rmul__(self, v: int) -> "FlowDataset":
         self.flow_list = v * self.flow_list
@@ -120,12 +127,18 @@ class ConcatDataset:
 
 
 class MpiSintel(FlowDataset):
+    """MPI Sintel; with occlusion=True each item also carries the pair's
+    occlusion mask from <split>/occlusions (item["occ"])."""
+
     def __init__(self, aug_params=None, split="training",
-                 root="datasets/Sintel", dstype="clean"):
+                 root="datasets/Sintel", dstype="clean", occlusion=False):
         self.ds_name = f"sintel-{split}-{dstype}"
         super().__init__(aug_params)
         flow_root = osp.join(root, split, "flow")
         image_root = osp.join(root, split, dstype)
+        occ_root = osp.join(root, split, "occlusions")
+        if occlusion:
+            self.occ_list = []
         if split == "test":
             self.is_test = True
         self.extra_info = []
@@ -137,6 +150,9 @@ class MpiSintel(FlowDataset):
             if split != "test":
                 self.flow_list += sorted(glob(osp.join(flow_root, scene,
                                                        "*.flo")))
+                if occlusion:
+                    self.occ_list += sorted(glob(osp.join(occ_root, scene,
+                                                          "*.png")))
 
 
 class FlyingChairs(FlowDataset):
@@ -278,6 +294,79 @@ class Autoflow(FlowDataset):
                 self.flow_list += [osp.join(root, scene, "forward.flo")]
 
 
+class VIPER(FlowDataset):
+    """VIPER with its flows converted to KITTI PNGs (reference
+    datasets.py:391-458): JPEG (or PNG) frames, every tenth frame's pair
+    in the train and val splits, the listed frames in the test split."""
+
+    def __init__(self, aug_params=None, split="training",
+                 root="datasets/viper/", filetype="jpg"):
+        self.ds_name = f"viper-{split}"
+        super().__init__(aug_params, sparse=True)
+        split = {"training": "train", "validation": "val",
+                 "test": "test"}[split]
+        img_root = osp.join(root, filetype, split, "img")
+        flow_root = osp.join(root, filetype, split, "flow")
+        self.extra_info = []
+        test_frames = set()
+        if split == "test":
+            with open(osp.join(root, "test_frames.txt")) as f:
+                test_frames = {line.strip() for line in f if line.strip()}
+            self.is_test = True
+        for scene in sorted(os.listdir(img_root)):
+            for img0_name in sorted(os.listdir(osp.join(img_root, scene))):
+                m = re.match(r"(\d{3})_(\d{5}).(jpg|png)", img0_name)
+                if not m:
+                    continue
+                img0_idx, suffix = m.group(2), m.group(3)
+                trunk = f"{scene}_{img0_idx}"
+                first = (split in ("train", "val") and img0_idx[-1] == "0") \
+                    or (split == "test" and trunk in test_frames)
+                if not first:
+                    continue
+                img1_name = f"{scene}_{int(img0_idx) + 1:05d}.{suffix}"
+                image0 = osp.join(img_root, scene, img0_name)
+                image1 = osp.join(img_root, scene, img1_name)
+                flow_p = osp.join(flow_root, scene, img0_name[:-3] + "png")
+                if not osp.isfile(image1):
+                    continue
+                if split != "test" and not osp.isfile(flow_p):
+                    continue
+                self.image_list += [[image0, image1]]
+                self.flow_list += [flow_p]
+                self.extra_info += [[trunk]]
+
+
+class SlowFlow(FlowDataset):
+    """SlowFlow (reference datasets.py:460-507): every frame pair
+    seqN_xxx0 -> seqN_xxx1 with a .flo, at one blur magnitude and blur
+    frame count."""
+
+    def __init__(self, aug_params=None, split="test",
+                 root="datasets/slowflow/", blur_mag=100, blur_num_frames=0):
+        self.ds_name = f"slowflow-{split}-{blur_mag}-{blur_num_frames}"
+        super().__init__(aug_params, sparse=False)
+        seq_folder = ("sequence" if blur_num_frames == 0
+                      else f"sequence_R0{blur_num_frames}")
+        seq_root = osp.join(root, str(blur_mag), seq_folder)
+        flow_root = osp.join(root, str(blur_mag), "flow")
+        self.extra_info = []
+        for scene in sorted(os.listdir(seq_root)):
+            for img0_name in sorted(os.listdir(osp.join(seq_root, scene))):
+                m = re.match(r"seq(\d+)_(\d+).png", img0_name)
+                if not m or m.group(2)[-1] != "0":
+                    continue
+                trunk = f"seq{m.group(1)}_{m.group(2)}"
+                img1_name = f"seq{m.group(1)}_{m.group(2)[:-1]}1.png"
+                flow_p = osp.join(flow_root, scene, trunk + ".flo")
+                if not osp.isfile(flow_p):
+                    continue
+                self.image_list += [[osp.join(seq_root, scene, img0_name),
+                                     osp.join(seq_root, scene, img1_name)]]
+                self.flow_list += [flow_p]
+                self.extra_info += [[scene, trunk]]
+
+
 TRAINING_STAGES = ("chairs", "things", "sintel", "kitti", "kittitrain",
                    "viper", "autoflow")
 
@@ -286,8 +375,7 @@ def fetch_training_dataset(stage: str, image_size, shift_prob=0.0,
                            shift_sigmas=(16, 10), data_root="datasets",
                            sintel_train_ds="C+T+K+S+H"):
     """Per-stage dataset mixes and augmentation parameters (reference
-    datasets.py:509-567).  The viper stage reads JPEG frames, which the
-    port does not decode yet (SystemExit naming its ROADMAP.md item)."""
+    datasets.py:509-567)."""
     base = dict(crop_size=image_size, shift_prob=shift_prob,
                 shift_sigmas=shift_sigmas)
     if stage == "chairs":
@@ -328,5 +416,7 @@ def fetch_training_dataset(stage: str, image_size, shift_prob=0.0,
         aug = dict(base, min_scale=-0.2, max_scale=0.4, do_flip=False)
         return KITTITrain(aug, split="training", root=f"{data_root}/KITTI")
     if stage == "viper":
-        raise not_ported("--stage viper (VIPER's JPEG frames)", ROADMAP_EVAL)
+        aug = dict(base, min_scale=-1, max_scale=-0.5, spatial_aug_prob=1,
+                   do_flip=False)
+        return VIPER(aug, split="training", root=f"{data_root}/viper/")
     raise ValueError(f"unknown stage {stage}")

@@ -69,15 +69,21 @@ def write_flow_kitti(path: str, flow: np.ndarray) -> None:
     imgio.write_png(path, np.concatenate([uv, valid], -1).astype(np.uint16))
 
 
+def read_disp_kitti(path: str):
+    """A KITTI 16-bit disparity PNG as a horizontal flow: (flow [H, W, 2]
+    = (-disp, 0), valid [H, W] = disp > 0), disp = value / 256."""
+    disp = imgio.load(path) / 256.0
+    valid = disp > 0.0
+    return np.stack([-disp, np.zeros_like(disp)], -1), valid
+
+
 def read_gen(file_name: str):
-    """Read by extension: images (.png, .ppm, .pgm) as numpy arrays, .flo
-    and .pfm flow as fp32 [H, W, 2], .bin/.raw with np.load; [] for any
-    other extension, as the reference."""
+    """Read by extension: images (.png, .ppm, .pgm, .jpg, .jpeg) as numpy
+    arrays, .flo and .pfm flow as fp32 [H, W, 2], .bin/.raw with np.load;
+    [] for any other extension, as the reference."""
     ext = splitext(file_name)[-1]
-    if ext in (".png", ".ppm", ".pgm"):
+    if ext in (".png", ".ppm", ".pgm", ".jpg", ".jpeg"):
         return imgio.load(file_name)
-    if ext in (".jpg", ".jpeg"):
-        raise ValueError(f"{file_name}: JPEG is not decoded by the port")
     if ext in (".bin", ".raw"):
         return np.load(file_name)
     if ext == ".flo":

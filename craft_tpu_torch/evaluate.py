@@ -2,14 +2,22 @@
 reference evaluate.py:1418-1653).
 
 Loads a reference ``.pth`` checkpoint straight into the port's model (its
-modules use the reference key names), then validates on a dataset or runs
-one image pair:
+modules use the reference key names), then validates on a dataset, writes
+a leaderboard submission, sweeps the shift protocol, converts the
+checkpoint or runs one image pair:
 
   python -m craft_tpu_torch.evaluate --model checkpoints/craft-sintel.pth \\
       --craft --setrans --dataset sintel [--batch_size 2] [--test_mode 2]
-  python -m craft_tpu_torch.evaluate --model ... --dataset kitti
-  python -m craft_tpu_torch.evaluate --model ... --img1 a.png --img2 b.png
-  torchrun --nproc_per_node N -m craft_tpu_torch.evaluate --seq_parallel \
+  python -m craft_tpu_torch.evaluate --model ... --dataset \\
+      {chairs,things,sintel,sintel_occ,kitti,kittitrain,hd1k,viper,slowflow}
+  python -m craft_tpu_torch.evaluate --model ... --submission sintel \\
+      --warm_start [--vis]                # also kitti, viper
+  python -m craft_tpu_torch.evaluate --model ... --dataset sintel \\
+      --xshifts 100,200,300 --yshifts 50,100,150     # shift robustness
+  python -m craft_tpu_torch.evaluate --model ... --img1 a.png --img2 b.png \\
+      [--flow gt.flo] [--scale 0.5] [--flop]
+  python -m craft_tpu_torch.evaluate --model craft-chairs.pth --convert out
+  torchrun --nproc_per_node N -m craft_tpu_torch.evaluate --seq_parallel \\
       --model ... --dataset kitti
 
 Mixed precision is on unless --fullprec, which also turns TF32 off for
@@ -23,19 +31,23 @@ ranks share one; every rank computes the metrics and rank 0 prints them.
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
 from craft_tpu_torch import resolve_device
-from craft_tpu_torch.cli import (ROADMAP_EVAL, ROADMAP_SP, add_model_args,
+from craft_tpu_torch.cli import (ROADMAP_SP, add_model_args,
                                  model_config_from_args, not_ported)
+from craft_tpu_torch.eval import submission
 from craft_tpu_torch.eval.demo import gen_flow
 from craft_tpu_torch.eval.evaluate import VALIDATORS
 from craft_tpu_torch.models.flow_model import FlowModel
+from craft_tpu_torch.training.checkpoint import save_weights
 from craft_tpu_torch.utils.weights import load_reference_checkpoint
 
-_DATASETS = ["chairs", "things", "sintel", "kitti", "kittitrain", "hd1k",
-             "viper", "slowflow"]
+_DATASETS = list(VALIDATORS)
+# --test_mode 2 applies to the dense sets.
+_TEST_MODE_SETS = ("sintel", "things", "slowflow")
 
 
 def parse_args(argv=None):
@@ -47,8 +59,10 @@ def parse_args(argv=None):
     p.add_argument("--submission", default=None,
                    choices=[None, "sintel", "kitti", "viper"])
     p.add_argument("--warm_start", action="store_true")
-    p.add_argument("--output_path", default="output",
-                   help="where the single-pair flow is written")
+    p.add_argument("--output_path", default=None,
+                   help="where the single pair's flow_viz PNG (default "
+                        "output) or the submission (default "
+                        "<name>_submission) is written")
     p.add_argument("--vis", dest="do_vis", action="store_true")
     p.add_argument("--img1", default=None)
     p.add_argument("--img2", default=None)
@@ -64,7 +78,10 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=1,
                    help="batch consecutive same-shape pairs (sintel)")
     p.add_argument("--data_root", type=str, default="datasets")
-    p.add_argument("--convert", default=None, metavar="OUT_DIR")
+    p.add_argument("--convert", default=None, metavar="OUT_DIR",
+                   help="write the loaded weights as a reference-format "
+                        ".pth, OUT_DIR/<model_name>.pth (the JAX CLI loads "
+                        "it as it is)")
     p.add_argument("--fullprec", dest="fullprec", action="store_true")
     p.add_argument("--seq_parallel", action="store_true")
     p.add_argument("--device", default="cuda",
@@ -76,28 +93,42 @@ def parse_args(argv=None):
 
 
 def _check_ported(args) -> None:
-    checks = [("--submission", args.submission, ROADMAP_EVAL),
-              ("--xshifts / --yshifts (the shift sweep)",
-               args.xshifts or args.yshifts, ROADMAP_EVAL),
-              ("--vis (flow_viz)", args.do_vis, ROADMAP_EVAL),
-              ("--flop (eval/flops.py)", args.calc_flop, ROADMAP_EVAL),
-              ("--convert", args.convert, ROADMAP_EVAL),
-              ("--scale", args.scale != 1.0, ROADMAP_EVAL),
-              (f"--dataset {args.dataset}",
-               args.dataset not in (None, "chairs", "sintel", "kitti"),
-               ROADMAP_EVAL),
-              ("--seq_parallel with --interpos/--intrapos lsinu or "
-               "--f2radius", args.seq_parallel and (
-                   "lsinu" in (args.inter_pos_code_type,
-                               args.intra_pos_code_type)
-                   or args.f2_attn_mask_radius > 0), ROADMAP_SP)]
-    for what, on, item in checks:
-        if on:
-            raise not_ported(what, item)
+    if args.seq_parallel and ("lsinu" in (args.inter_pos_code_type,
+                                          args.intra_pos_code_type)
+                              or args.f2_attn_mask_radius > 0):
+        raise not_ported("--seq_parallel with --interpos/--intrapos lsinu "
+                         "or --f2radius", ROADMAP_SP)
+
+
+def _shifts(args):
+    """The (dx, dy) pairs of --xshifts/--yshifts (zip of the two lists, a
+    missing one read as 0), or [None] without a sweep."""
+    if not (args.xshifts or args.yshifts):
+        return [None]
+    xs = [int(v) for v in (args.xshifts or "0").split(",")]
+    ys = [int(v) for v in (args.yshifts or "0").split(",")]
+    return list(zip(xs, ys))
+
+
+def _submit(args, cfg, weights, device):
+    out = args.output_path or f"{args.submission}_submission"
+    common = dict(model_name=args.model_name, data_root=args.data_root,
+                  output_path=out, do_vis=args.do_vis, device=device,
+                  seq_parallel=args.seq_parallel)
+    if args.submission == "sintel":
+        submission.create_sintel_submission(
+            cfg, weights, warm_start=args.warm_start, iters=32, **common)
+    elif args.submission == "kitti":
+        submission.create_kitti_submission(cfg, weights, iters=24, **common)
+    else:
+        submission.create_viper_submission(cfg, weights, iters=24, **common)
+    return out
 
 
 def main(argv=None):
-    """Returns the validator's metrics, or the single pair's flow."""
+    """Returns the validator's metrics (a list of them, one per shift, for
+    a shift sweep), the submission's directory, the converted file, or the
+    single pair's flow (its FLOPs with --flop)."""
     args = parse_args(argv)
     _check_ported(args)
     cfg = model_config_from_args(args)
@@ -111,24 +142,43 @@ def main(argv=None):
     load_reference_checkpoint(args.model, model, strict=False)
     weights = model.state_dict()
 
+    if args.convert:
+        os.makedirs(args.convert, exist_ok=True)
+        out = os.path.join(args.convert, f"{args.model_name}.pth")
+        save_weights(out, weights)
+        print(f"Converted {args.model} -> {out}")
+        return out
     if args.img1 and args.img2:
         return gen_flow(cfg, weights, args.img1, args.img2, args.flow_path,
-                        output_path=args.output_path, iters=args.iters,
-                        model_name=args.model_name, device=device,
+                        output_path=args.output_path or "output",
+                        iters=args.iters, model_name=args.model_name,
+                        scale=args.scale, calc_flop=args.calc_flop,
+                        device=device,
                         seq_parallel=args.seq_parallel)
+    if args.submission:
+        return _submit(args, cfg, weights, device)
     if args.dataset:
         extra = {}
-        if args.dataset == "sintel":
-            extra = {"batch_size": args.batch_size,
-                     "test_mode": args.test_mode}
-        elif args.test_mode != 1:
-            print(f"--test_mode {args.test_mode} only applies to sintel; "
-                  "ignoring")
-        return VALIDATORS[args.dataset](
-            cfg, weights, iters=args.iters, data_root=args.data_root,
-            max_val_count=args.max_val_count, device=device,
-            seq_parallel=args.seq_parallel, **extra)
-    print("Nothing to do: pass --dataset or --img1/--img2")
+        if args.dataset == "sintel" and args.batch_size > 1:
+            extra["batch_size"] = args.batch_size
+        if args.test_mode != 1:
+            if args.dataset in _TEST_MODE_SETS:
+                extra["test_mode"] = args.test_mode
+            else:
+                print(f"--test_mode {args.test_mode} only applies to dense "
+                      "sets (sintel/things/slowflow); ignoring")
+        results = []
+        for shift in _shifts(args):
+            if shift is not None:
+                print(f"=== shift ({shift[0]}, {shift[1]}) ===")
+                extra["xy_shift"] = shift
+            results.append(VALIDATORS[args.dataset](
+                cfg, weights, iters=args.iters, data_root=args.data_root,
+                max_val_count=args.max_val_count, device=device,
+                seq_parallel=args.seq_parallel, **extra))
+        return results[0] if len(results) == 1 else results
+    print("Nothing to do: pass --dataset, --submission, --convert or "
+          "--img1/--img2")
     return None
 
 

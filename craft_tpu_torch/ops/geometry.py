@@ -2,13 +2,16 @@
 ``craft_tpu.ops.geometry``).
 
 Image-like tensors are NHWC; flow/coords tensors carry their 2-vector in the
-trailing axis in (x, y) order (reference core/utils/utils.py:14-139).
+trailing axis in (x, y) order (reference core/utils/utils.py:14-139).  The
+shift protocol and the forward splat of the warm start work on the host in
+numpy, as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -95,3 +98,52 @@ class InputPadder:
         ht, wd = x.shape[1], x.shape[2]
         l, r, t, b = self._pad
         return x[:, t:ht - b, l:wd - r, :]
+
+
+def shift_pixels(img1: np.ndarray, flow: np.ndarray, valid, dx: int,
+                 dy: int):
+    """The shift-robustness protocol (reference evaluate.py:44-89), on the
+    host in numpy: image1 and the ground-truth flow translated by (dx, dy)
+    (positive dx moves content right, positive dy down), the flow less the
+    offset, the vacated border zero and invalid.
+
+    img1 [H, W, 3]; flow [H, W, 2]; valid [H, W] or None (dense ground
+    truth: all valid).  Returns (img1, flow, valid) shifted."""
+    H, W = img1.shape[:2]
+    if valid is None:
+        valid = np.ones((H, W), dtype=np.float32)
+    out_img = np.zeros_like(img1)
+    out_flow = np.zeros_like(flow)
+    out_valid = np.zeros_like(valid)
+    sy0, sy1 = max(0, dy), min(H, H + dy)
+    sx0, sx1 = max(0, dx), min(W, W + dx)
+    ty0, ty1 = max(0, -dy), min(H, H - dy)
+    tx0, tx1 = max(0, -dx), min(W, W - dx)
+    # Content at source [ty0:ty1, tx0:tx1] lands at target [sy0:sy1, sx0:sx1].
+    out_img[sy0:sy1, sx0:sx1] = img1[ty0:ty1, tx0:tx1]
+    out_flow[sy0:sy1, sx0:sx1] = flow[ty0:ty1, tx0:tx1]
+    out_flow[sy0:sy1, sx0:sx1, 0] -= dx
+    out_flow[sy0:sy1, sx0:sx1, 1] -= dy
+    out_valid[sy0:sy1, sx0:sx1] = valid[ty0:ty1, tx0:tx1]
+    return out_img, out_flow, out_valid
+
+
+def forward_interpolate(flow: np.ndarray) -> np.ndarray:
+    """A [H, W, 2] flow splatted forward to the next frame by nearest
+    neighbour (reference utils.py:34-62; the Sintel submission's warm
+    start), on the host with scipy, as the JAX package."""
+    from scipy import interpolate
+
+    dx, dy = flow[..., 0], flow[..., 1]
+    ht, wd = dx.shape
+    x0, y0 = np.meshgrid(np.arange(wd), np.arange(ht))
+    x1 = (x0 + dx).reshape(-1)
+    y1 = (y0 + dy).reshape(-1)
+    dxf, dyf = dx.reshape(-1), dy.reshape(-1)
+    valid = (x1 > 0) & (x1 < wd) & (y1 > 0) & (y1 < ht)
+    x1, y1, dxf, dyf = x1[valid], y1[valid], dxf[valid], dyf[valid]
+    flow_x = interpolate.griddata((x1, y1), dxf, (x0, y0), method="nearest",
+                                  fill_value=0)
+    flow_y = interpolate.griddata((x1, y1), dyf, (x0, y0), method="nearest",
+                                  fill_value=0)
+    return np.stack([flow_x, flow_y], axis=-1).astype(np.float32)

@@ -133,6 +133,8 @@ def corr_lookup(levels, coords: torch.Tensor, radius: int) -> torch.Tensor:
          len(levels), ptr(flat), ptr(out), Q, radius,
          int(levels[0].dtype == torch.bfloat16), stream(coords))
     corr_lookup.launches += 1
+    # 12 per tap: the bilinear blend of its four corners.
+    corr_lookup.flops += 12.0 * Q * len(levels) * n * n
     return out
 
 

@@ -105,6 +105,7 @@ def fused_agg_corr(q, k, biases, grid_hw, clip, pos_w: float, agg_w, agg_b):
          ptr(scal), ptr(out), B, U, md, grid_hw[1], R, 1.0 / math.sqrt(md),
          bf16, stream(q))
     fused_agg_corr.launches += 1
+    fused_agg_corr.flops += 2.0 * B * _MODES * U * U * md
     return out
 
 
@@ -140,6 +141,7 @@ def fused_agg_corr_dense(q, k, table, clip, pos_w: float, agg_w, agg_b):
          table_ptr(table), ptr(scal), ptr(out), B, U1, U2, md,
          1.0 / math.sqrt(md), bf16, stream(q))
     fused_agg_corr_dense.launches += 1
+    fused_agg_corr_dense.flops += 2.0 * B * M * U1 * U2 * md
     return out
 
 

@@ -4,7 +4,9 @@ input checks, and the launch counts.
 Each wrapper that launches a hand-written kernel is registered with
 ``counted``; it adds one to its ``launches`` attribute where it launches the
 kernel and nowhere else (never on the plain path of a CPU tensor), so a run
-can show which kernels a path went through.
+can show which kernels a path went through.  The forward's wrappers also
+add the operations of the launch (those that the kernel's bound counts) to
+their ``flops`` attribute there, for ``eval/flops.py``'s counted total.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ _COUNTED: list = []
 
 
 def counted(fn):
-    """Register a kernel wrapper for launch_counts()."""
+    """Register a kernel wrapper for launch_counts() and launch_flops()."""
     fn.launches = 0
+    fn.flops = 0.0
     _COUNTED.append(fn)
     return fn
 
@@ -32,11 +35,17 @@ def counted(fn):
 def reset_launch_counts() -> None:
     for fn in _COUNTED:
         fn.launches = 0
+        fn.flops = 0.0
 
 
 def launch_counts() -> dict:
     """{wrapper name: kernel launches} for every registered wrapper."""
     return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def launch_flops() -> dict:
+    """{wrapper name: operations of its launches} (forward wrappers)."""
+    return {fn.__name__: fn.flops for fn in _COUNTED}
 
 
 def call(lib: str, fn_name: str, argtypes, *args) -> None:

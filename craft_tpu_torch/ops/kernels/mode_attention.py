@@ -260,6 +260,7 @@ def _launch_scores_max(q, k, scale) -> torch.Tensor:
     _call("scores_max_launch", _ptr(q), _ptr(k), _ptr(partial), n_partial,
           _ptr(out), B * M, U1, U2, md, scale, bf16, _stream(q))
     scores_global_max.launches += 1
+    scores_global_max.flops += 2.0 * B * M * U1 * U2 * md
     return out
 
 
@@ -319,6 +320,7 @@ def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float,
           _ptr(win), _ptr(clip_t), B * M, U1, U2, q_row0 * W8, md, F, W8, R,
           1.0 / math.sqrt(md), pos_w, bf16, _stream(q))
     flash_mode_attention.launches += 1
+    flash_mode_attention.flops += 2.0 * B * M * U1 * U2 * (md + F)
     return out
 
 
@@ -359,6 +361,7 @@ def flash_mode_attention_dense(q, k, v, table, clip, pos_w: float):
           table_ptr(table), _ptr(clip_t), B * M, U1, U2, md, F,
           1.0 / math.sqrt(md), pos_w, bf16, _stream(q))
     flash_mode_attention_dense.launches += 1
+    flash_mode_attention_dense.flops += 2.0 * B * M * U1 * U2 * (md + F)
     return out
 
 
@@ -458,6 +461,7 @@ def fused_agg_corr_norm(q, k, biases, grid_hw, attn_clip: float,
           _ptr(out), B, U, md, grid_hw[1], R, scale, eps, bf16,
           int(out_dtype == torch.bfloat16), _stream(q))
     fused_agg_corr_norm.launches += 1
+    fused_agg_corr_norm.flops += 2.0 * B * M * U * U * md
     return out, stats
 
 
@@ -526,6 +530,7 @@ def corr_norm_sums(q, k, biases, grid_hw, gmax, attn_clip: float,
           k.shape[2], q_row0 * W8, md, W8, (biases.shape[0] - 1) // 2,
           1.0 / math.sqrt(md), bf16, _stream(q))
     corr_norm_sums.launches += 1
+    corr_norm_sums.flops += 2.0 * B * q.shape[1] * U1 * k.shape[2] * md
     return sums
 
 
@@ -567,6 +572,7 @@ def corr_norm_write(q, k, biases, grid_hw, gmax, sums, attn_clip: float,
           (biases.shape[0] - 1) // 2, 1.0 / math.sqrt(md), n_elems, eps,
           bf16, int(out_dtype == torch.bfloat16), _stream(q))
     corr_norm_write.launches += 1
+    corr_norm_write.flops += 2.0 * B * q.shape[1] * U1 * U2 * md
     return out
 
 
@@ -629,6 +635,7 @@ def mode_softmax_probs(q, k, biases, grid_hw, clip, pos_w: float,
           _ptr(row_scale), B * M, U1, U2, q_row0 * W8, md, W8, R,
           1.0 / math.sqrt(md), pos_w, bf16, kind, _stream(q))
     mode_softmax_probs.launches += 1
+    mode_softmax_probs.flops += 2.0 * B * M * U1 * U2 * md
     return (out, row_scale) if quantized else out
 
 
@@ -680,6 +687,7 @@ def mode_softmax_probs_dense(q, k, table, clip, pos_w: float,
           probs_partials(B * M, U1, U2, bf16), _ptr(out), B * M, U1, U2, md,
           1.0 / math.sqrt(md), pos_w, bf16, kinds[out_dtype], _stream(q))
     mode_softmax_probs_dense.launches += 1
+    mode_softmax_probs_dense.flops += 2.0 * B * M * U1 * U2 * md
     return out
 
 

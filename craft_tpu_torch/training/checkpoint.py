@@ -47,6 +47,13 @@ def save_checkpoint(path: str, state, logger_state: Optional[Dict] = None):
     print(f"{path} saved")
 
 
+def save_weights(path: str, weights) -> None:
+    """Save a reference state_dict alone as {"model": weights}, the
+    reference's own checkpoint layout (the evaluator's --convert), which
+    the JAX package's converter and ``load_checkpoint`` both read."""
+    torch.save({"model": dict(weights)}, path)
+
+
 def load_checkpoint(path: str, state, load_optimizer_state: bool = False,
                     load_scheduler_state: bool = False):
     """Restore `path` into `state` in place.  Returns the logger's dict

@@ -20,13 +20,11 @@ a table scaled by pos_w twice, no clamp or ragged keys left unmasked
 (B6 dense reads each key on its own, so it has no such fault), and for the
 sequence-parallel kernels (B9, and B2 and B4 on a row shard) the row offset
 dropped, the moments over a shard's own element count or a shard's own max
-as the clamp predicate, and for the fused GRU pass B10 the row mask
-dropped, q over h, the blend reversed, halo rows counted twice in the
-weight gradients or dh without its drh r term, and B5's backward with its
-16-byte units that straddle two queries dropped or doubled, also at odd
-slab sizes and radii 0, 1, 4 and 7) they must fail.  On the card the same
-checks also plant the faults in the plain versions and fail unless their
-bounds catch them.
+as the clamp predicate, and B5's backward with its 16-byte units that
+straddle two queries dropped or doubled, also at odd slab sizes and radii
+0, 1, 4 and 7) they must fail.  On the card the same checks also plant the
+faults in the plain versions and fail unless their bounds catch them.  The
+fused GRU pass B10's checks are in ``tests/test_torch_smoke_checks_gru.py``.
 """
 
 import functools
@@ -39,12 +37,22 @@ from craft_tpu_torch.ops.kernels import corr_lookup as lk
 from craft_tpu_torch.ops.kernels import corr_vjp as cv
 from craft_tpu_torch.ops.kernels import mode_attention as ma
 from craft_tpu_torch.ops.kernels import probs_vjp as pv
-from craft_tpu_torch.ops.kernels import sep_conv_gru as sg
 
 GRID = (6, 20)  # U = 120: not a multiple of the kernels' 64-row tiles
 # B3 also at a ragged KITTI-width grid (W8 = 156, U = 468).
 B3_GRIDS = (GRID, (3, 156))
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the plain versions: under pytest-xdist the
+    workers share the cores, and every extra spinning thread slows them
+    all."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _run(seed=0):
@@ -606,77 +614,26 @@ def test_sp_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper, fault):
         _run_sp()
 
 
-# ------------------------------------------------- B10, the fused GRU pass
+# ------------------------------------------------- the HD1K grid
 
-GRU_GRIDS = (("tiny", 2, 5, 9),)  # 45 rows an image: no 64-row tile fits
-
-
-def _run_gru():
-    report = {"gru_pass_fwd": {}, "gru_pass_bwd": {}}
-    chip_smoke.check_gru(CPU, report, grids=GRU_GRIDS)
-    return report
-
-
-def test_gru_checks_pass_the_plain_versions():
-    report = _run_gru()
-    assert report["gru_pass_fwd"]["max_abs_err"] == 0.0
-    assert report["gru_pass_bwd"]["max_abs_err"] == 0.0
+def test_hd1k_grid_checks_pass_and_catch_their_faults():
+    """check_hd1k_grid at a small grid (6 x 20, its last 2 rows, plain
+    chunks of 4 rows, so the last chunk is short): B3 against the plain
+    volume from chunked moments, B5 against the plain lookup of the last
+    rows; the planted faults (a dropped bias, another query's slab) fail
+    the bounds inside the check."""
+    out = chip_smoke.check_hd1k_grid(CPU, torch.Generator().manual_seed(0),
+                                     grid=GRID, last=2, chunk=4)
+    assert out["b5"] == 0.0 and out["b3"] <= 1.0
 
 
-def _gru_fault(fault):
-    if fault in chip_smoke.B10_FWD_FAULTS:
-        return "gru_pass_fwd", lambda *a: chip_smoke._gru_fwd_fault(
-            list(a[:11]), a[11], a[12], fault)
-    return "gru_pass_bwd", lambda *a: chip_smoke._gru_bwd_fault(
-        a[:12], a[12], a[13], fault)
+def test_hd1k_grid_checks_catch_a_kernel_fault(monkeypatch):
+    """B3 writing the last rows with the bias dropped fails the check."""
+    plain = ma.fused_agg_corr_norm
 
-
-@pytest.mark.parametrize("fault", chip_smoke.B10_FAULTS)
-def test_gru_checks_catch_a_planted_kernel_fault(monkeypatch, fault):
-    wrapper, faulty = _gru_fault(fault)
-    monkeypatch.setattr(sg, wrapper, faulty)
+    def faulty(q, k, biases, grid_hw, attn_clip, pos_w, *a, **kw):
+        return plain(q, k, biases, grid_hw, attn_clip, 0.0, *a, **kw)
+    monkeypatch.setattr(ma, "fused_agg_corr_norm", faulty)
     with pytest.raises(AssertionError, match="disagrees"):
-        _run_gru()
-
-
-def test_the_tile_edge_fault_is_at_the_forward_tile():
-    """'r h halo dropped' cuts q's taps at the bf16 forward's row tiles
-    (csrc/sep_conv_gru.cu GF_ROWS)."""
-    import re
-    from pathlib import Path
-    src = Path(sg.__file__).resolve().parents[2] / "csrc" / "sep_conv_gru.cu"
-    rows = re.search(r"^#define\s+GF_ROWS\s+(\d+)\b", src.read_text(),
-                     re.MULTILINE)
-    assert int(rows.group(1)) == chip_smoke.B10_FWD_TILE
-    assert "r h halo dropped" in chip_smoke.B10_FWD_FAULTS
-
-
-def test_gru_checks_catch_a_backward_that_is_not_repeatable(monkeypatch):
-    calls = []
-
-    def drifting(*a):
-        out = list(sg.gru_pass_bwd_plain(*a))
-        calls.append(1)
-        out[2] = out[2] + len(calls) * 1e-7
-        return tuple(out)
-    monkeypatch.setattr(sg, "gru_pass_bwd", drifting)
-    with pytest.raises(AssertionError, match="two backwards differ"):
-        _run_gru()
-
-
-def test_the_ragged_gru_grid_is_ragged():
-    """chip_smoke's ragged GRU grid: its rows are a multiple neither of the
-    bf16 backward's row tiles nor of its weight-gradient steps, and they
-    fall into two or more row splits, the last one short."""
-    import re
-    from pathlib import Path
-    src = Path(sg.__file__).resolve().parents[2] / "csrc" / "sep_conv_gru.cu"
-    d = {m.group(1): int(m.group(2)) for m in re.finditer(
-        r"^#define\s+(\w+)\s+(\d+)\b", src.read_text(), re.MULTILINE)}
-    label, batch, h8, w8 = chip_smoke.GRU_CHECK_GRIDS[-1]
-    rows = batch * h8 * w8
-    assert label == "ragged" and rows % (64 * d["GB_WG"]) and \
-        rows % d["GB_DEPTH"]
-    n = sg.wgrad_splits(rows, True)
-    chunk = -(-(-(-rows // n)) // d["GB_DEPTH"]) * d["GB_DEPTH"]
-    assert n >= 2 and 0 < rows - (n - 1) * chunk < chunk
+        chip_smoke.check_hd1k_grid(CPU, torch.Generator().manual_seed(0),
+                                   grid=GRID, last=2, chunk=4)

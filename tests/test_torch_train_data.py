@@ -217,9 +217,34 @@ def test_sintel_stage_mix_lengths(trees):
         "sintel", CROP, data_root=trees, sintel_train_ds="C+T+S")) == 808
 
 
-def test_viper_stage_exits_naming_its_item(trees):
-    with pytest.raises(SystemExit, match="item 4"):
-        tds.fetch_training_dataset("viper", CROP, data_root=trees)
+def test_viper_stage_matches_jax(tmp_path):
+    """The viper stage (its JPEG frames through the port's decoder, PIL's
+    on the JAX side; sparse KITTI-PNG flows; scaled to 2^-1..2^-0.5 before
+    the crop): every item's files and augmented items."""
+    import io
+
+    from PIL import Image
+
+    from chip_smoke import write_viper_tree
+
+    rng = np.random.RandomState(3)
+    hw = (192, 256)
+
+    def jpeg():
+        buf = io.BytesIO()
+        img = rng.randint(0, 256, (*hw, 3)).astype(np.uint8)
+        Image.fromarray(img).save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+    flows = [np.where(rng.uniform(size=(*hw, 1)) < 0.3, 0,
+                      rng.uniform(-8, 8, (*hw, 2))).astype(np.float32)
+             for _ in range(2)]
+    write_viper_tree(tmp_path, [(jpeg(), jpeg()) for _ in range(2)], flows,
+                     split="train")
+    kw = dict(shift_prob=0.3, data_root=str(tmp_path))
+    tset = tds.fetch_training_dataset("viper", CROP, **kw)
+    jset = jds.fetch_training_dataset("viper", CROP, **kw)
+    assert tset.image_list == jset.image_list and len(tset) == 2
+    _same_dataset(tset, jset)
 
 
 # ------------------------------------------------------------ loaders

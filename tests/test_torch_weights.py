@@ -136,7 +136,8 @@ def test_importing_the_port_leaves_jax_and_flax_out():
             "craft_tpu_torch.ops.kernels.mode_attention, "
             "craft_tpu_torch.parallel.sequence_parallel, "
             "craft_tpu_torch.ops.kernels.sep_conv_gru, "
-            "craft_tpu_torch.train; "
+            "craft_tpu_torch.train, craft_tpu_torch.evaluate, "
+            "craft_tpu_torch.eval.flops, craft_tpu_torch.utils.bundle; "
             "bad = [m for m in ('jax', 'flax', 'craft_tpu', 'PIL', 'cv2', "
             "'orbax') if m in sys.modules]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

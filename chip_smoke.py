@@ -59,7 +59,10 @@ these phases and fails on the first that fails:
      HD1K grid (136 x 320, U = 43520: a 3.79e9-byte bf16 volume, past
      2^31 bytes) on the last two grid rows against their plain versions
      (B3's moments and raw max taken over whole grid rows at a time), with
-     a dropped bias and another query's slab planted.
+     a dropped bias and another query's slab planted.  Then B2 at the
+     lazy intra aggregator's width (F 128, md 32), bf16 and fp32, clamp off
+     and on, at the serving grid, a ragged grid (37 x 61) and HD1K's last
+     two grid rows, a dropped bias and a missing clamp planted.
   3. oracle: full-width CRAFT with the weights of
      tests/data/oracle_craft_128.npz at 128x128, 12 iterations, against the
      reference flow: fp32 within 1e-3 px, the mixed-precision config
@@ -100,6 +103,12 @@ these phases and fails on the first that fails:
      metrics against the unsharded CLI's, and each rank's peak memory
      below the unsharded peak at 440x1024 and 1088x1920; then one rank
      without torchrun on NCCL (world = the card count) against unsharded.
+     Then the lazy intra path (intra probs past 4e9 bytes): one HD1K pair
+     (1088x2560) of the main config with its launches asserted (B2 13, 12
+     of them at F 128; no B4) and its peak below 8e9 B, against the same
+     pair with the probs materialised (0.15 px), and each forward's device
+     time; one fp32 batch of 6 Sintel pairs lazy against materialised
+     (1e-3 px).
      Then the GRU path: SepConvGRU(fused='on') against fused='off' with
      the oracle tree's update-block GRU, 12 chained calls (h carried, a
      fresh x each call): serving forward in bf16, chairs forward and
@@ -115,9 +124,10 @@ these phases and fails on the first that fails:
      frames, 32 iterations), the KITTI and VIPER submissions (24), the
      shift sweep (100,50), (200,100), (300,150) on the Sintel tree and
      --flop at 440x1024, each with its launches asserted (B1 3, B2-B4 1,
-     B5 the iterations, a forward), pairs/s and peak memory (HD1K's beside
-     its estimate); then each further validator on small trees (128x128),
-     card (--fullprec, mixed) against the port's fp32 CPU metrics.
+     B5 the iterations, a forward; HD1K on the lazy intra path: B2 13, no
+     B4), pairs/s and peak memory (HD1K's below 8e9 B); then each further
+     validator on small trees (128x128), card (--fullprec, mixed) against
+     the port's fp32 CPU metrics.
      Then the training entry point (python -m craft_tpu_torch.train, run
      in this process) on a synthetic FlyingChairs tree at 384x512 (48
      training and 4 validation pairs, written by the port's PPM and .flo
@@ -131,7 +141,9 @@ these phases and fails on the first that fails:
      Its step wall and steps/s beside the fixed-batch step wall above,
      the loader's batches/s and the peak memory.
   5. kernel times over CUDA events at the main-path shapes, beside each
-     plain version, the bound and (B2) scaled_dot_product_attention; B2-B4
+     plain version, the bound and (B2) scaled_dot_product_attention; B2 at
+     F 128 at a Sintel batch of 11 and at HD1K (the plain version there in
+     chunks of grid rows); B2-B4
      at the KITTI shape (U=7332, W8=156); the training kernels and B1/B4
      at the chairs shapes; B5 forward and backward at the serving and
      chairs shapes beside per-level F.grid_sample and its backward; B8,
@@ -152,6 +164,7 @@ runs one rank of the sequence-parallel phase (the script starts them).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -176,6 +189,7 @@ from craft_tpu_torch.data.datasets import fetch_training_dataset
 from craft_tpu_torch.data.loader import MultiprocessLoader
 from craft_tpu_torch.eval import evaluate as tev
 from craft_tpu_torch.models.flow_model import FlowModel, create_model
+from craft_tpu_torch.nn import setrans
 from craft_tpu_torch.nn.update import SepConvGRU
 from craft_tpu_torch.ops.geometry import InputPadder, coords_grid
 from craft_tpu_torch.ops.kernels import build, launch
@@ -1173,6 +1187,66 @@ def check_hd1k_grid(dev, gen, grid=HD1K_GRID, last=HD1K_LAST_ROWS,
     return out
 
 
+# Phase 2, B2 at the lazy intra aggregator's width (F 128, md 32, the intra
+# site's pos_w 1.0), bf16 and fp32, the clamp off and on: the serving grid
+# at B = 1, a ragged grid (37 x 61: neither U nor W8 a multiple of a tile)
+# and HD1K's last two grid rows of a whole-grid launch (U * U = 1.89e9,
+# within 12 % of 2^31; the plain version over all rows would be a 30 GB
+# fp32 tensor, so it takes those rows with q_row0).
+LAZY_F, LAZY_MD, LAZY_POS_W = 128, 32, 1.0
+B2_LAZY_GRIDS = (("serving", (H8, W8)), ("ragged", (37, 61)))
+
+
+def b2_lazy_tol(dtype) -> float:
+    """B2_TOL for bf16; fp32 sums in another order: DENSE_FP32_TOL."""
+    return B2_TOL if dtype == torch.bfloat16 else DENSE_FP32_TOL
+
+
+def check_b2_lazy(dev, gen, report, grids=B2_LAZY_GRIDS, hd1k=HD1K_GRID,
+                  last=HD1K_LAST_ROWS) -> None:
+    """Phase 2: B2 at F 128, md 32 against its plain version on each grid
+    (and on the last `last` grid rows of `hd1k`), bf16 and fp32, the clamp
+    off and on; a dropped bias and a missing clamp planted in the plain
+    version must fall outside the bound."""
+    biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
+    cases = [(label, grid, 0) for label, grid in grids]
+    cases.append((f"HD1K {hd1k[0]}x{hd1k[1]} last {last} rows", hd1k, last))
+    errs = []
+    for label, grid, last_rows in cases:
+        u = grid[0] * grid[1]
+        t0 = (grid[0] - last_rows) * grid[1] if last_rows else 0
+        q, k = inputs(gen, LAZY_MD, dev, u)
+        v = torch.randn(1, 4, u, LAZY_F, generator=gen).to(dev,
+                                                           torch.bfloat16)
+        for dt in (torch.bfloat16, torch.float32):
+            qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+            qp = qd[:, :, t0:]
+            for clip in (CLIP_OFF, CLIP_ON):
+                got = ma.flash_mode_attention(
+                    qd, kd, vd, biases, grid, torch.tensor(clip, device=dev),
+                    LAZY_POS_W)[:, :, t0:]
+                sync(dev)
+
+                def plain(c, w):
+                    return ma.flash_mode_attention_plain(
+                        qp, kd, vd, biases, grid,
+                        torch.tensor(c, device=dev), w,
+                        q_row0=t0 // grid[1])
+                faults = {"no bias": plain(clip, 0.0)}
+                if clip != CLIP_OFF:
+                    faults["no clamp"] = plain(CLIP_OFF, LAZY_POS_W)
+                want = plain(clip, LAZY_POS_W)
+                hold(f"B2 F={LAZY_F} md={LAZY_MD} {label} {dt} "
+                     f"clip={clip:g}", got, want, rel_err, b2_lazy_tol(dt),
+                     faults)
+                errs.append(float((got.float() - want.float()).abs().max()))
+                del got, want, faults
+        del q, k, v, qd, kd, vd, qp
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    report["flash_mode_attention_f128"]["max_abs_err"] = max(errs)
+
+
 DENSE_POS_W = 0.5
 DENSE_FP32_TOL = 1e-4  # fp32 out, max |diff| / max |plain|: fp32 sums of md
 #                        products in another order and an online softmax
@@ -2095,6 +2169,15 @@ SMALL_HW = (128, 128)  # the small trees: U = 256, as the oracle
 SERVE_PER_PAIR = {"scores_global_max": 3, "flash_mode_attention": 1,
                   "fused_agg_corr_norm": 1, "mode_softmax_probs": 1,
                   "corr_lookup": ITERS}
+# A forward on the lazy intra path (the intra probs past
+# setrans.LAZY_PROBS_BYTES, as at HD1K): B2 at the f2 site (F 256) and in
+# every iteration's aggregator (F 128), no B4.
+LAZY_PER_PAIR = dict(SERVE_PER_PAIR, flash_mode_attention=1 + ITERS,
+                     mode_softmax_probs=0)
+LAZY_PEAK_BOUND = 8e9  # bytes, one HD1K pair on the lazy path
+# bytes, one HD1K pair on the materialised path before the lazy one
+# existed (PERF.md section 5)
+MATERIALISED_HD1K_PEAK = 28_286_863_872
 
 
 def check_jpeg_fixtures() -> dict:
@@ -2118,10 +2201,11 @@ def check_jpeg_fixtures() -> dict:
     return out
 
 
-def _eval_path(dev, label, argv, n_pairs, forwards, iters=ITERS) -> dict:
+def _eval_path(dev, label, argv, n_pairs, forwards, iters=ITERS,
+               per_pair=SERVE_PER_PAIR) -> dict:
     """One CLI run of the rest of the evaluator on the card with its
-    launches (B1-B5 a forward; B5 `iters` times) asserted and its peak
-    memory recorded."""
+    launches (per_pair a forward: B1-B5, or the lazy path's; B5 `iters`
+    times) asserted and its peak memory recorded."""
     assert dev.type == "cuda", dev
     torch.cuda.reset_peak_memory_stats()
     launch.reset_launch_counts()
@@ -2131,10 +2215,11 @@ def _eval_path(dev, label, argv, n_pairs, forwards, iters=ITERS) -> dict:
     sec = time.perf_counter() - t0
     counts = launch.launch_counts()
     _assert_launches(f"eval {label}", counts,
-                     dict(SERVE_PER_PAIR, corr_lookup=iters), forwards)
+                     dict(per_pair, corr_lookup=iters), forwards)
     out = {"seconds": sec, "pairs_per_s": n_pairs / sec,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "launches": {k: v for k, v in counts.items() if v},
+           "b2_by_width": dict(ma.flash_mode_attention.launches_by),
            "result": res}
     print(f"eval {label}:", json.dumps(out), "|", card_line())
     for r in res if isinstance(res, list) else [res]:
@@ -2232,16 +2317,22 @@ def eval_sets_phase(dev) -> dict:
              2 * len(SHIFTS), 2 * len(SHIFTS), ITERS)]
     for label, extra, n_pairs, forwards, iters in runs:
         out[label] = _eval_path(dev, label, argv + extra, n_pairs, forwards,
-                                iters)
+                                iters, LAZY_PER_PAIR if label == "hd1k"
+                                else SERVE_PER_PAIR)
     assert len(out["shift sweep"]["result"]) == len(SHIFTS)
+    assert out["hd1k"]["b2_by_width"] == {256: 1, LAZY_F: ITERS}, \
+        "eval hd1k: B2's launches by width"
     _flow_tree_files_finite(
         sorted((SETS_DIR / "sub_sintel").glob("*/*/*.flo"))
         + sorted((SETS_DIR / "sub_kitti").glob("*.png"))
         + sorted((SETS_DIR / "sub_viper").glob("*.flo")))
     assert len(list((SETS_DIR / "sub_sintel").glob("*/*/*.flo"))) == 4
-    print(f"eval hd1k: peak {out['hd1k']['peak_bytes']} B at U = "
-          f"{(1088 // 8) * (HD1K_HW[1] // 8)} (estimate 28e9 B) |",
+    peak = out["hd1k"]["peak_bytes"]
+    print(f"eval hd1k: peak {peak} B at U = {HD1K_GRID[0] * HD1K_GRID[1]} "
+          f"on the lazy intra path (bound {LAZY_PEAK_BOUND:g} B; "
+          f"materialised before: {MATERIALISED_HD1K_PEAK} B) |",
           card_line())
+    assert peak < LAZY_PEAK_BOUND, "eval hd1k: peak memory"
 
     # --flop: the analytic breakdown and one counted forward at 440x1024.
     rng = np.random.RandomState(9)
@@ -2294,6 +2385,111 @@ def eval_sets_small(dev, sd, pth, jpegs) -> dict:
                   f"card - CPU {err:.3e} px (bound {bound})")
             assert err < bound, f"eval {name} small {label}"
             out[f"{name} {label}"] = err
+    return out
+
+
+@contextlib.contextmanager
+def materialised_probs():
+    """The intra site materialises its probs at any size (the module
+    constant raised) inside the block: the path the lazy one replaces."""
+    old = setrans.LAZY_PROBS_BYTES
+    setrans.LAZY_PROBS_BYTES = math.inf
+    try:
+        yield
+    finally:
+        setrans.LAZY_PROBS_BYTES = old
+
+
+def _final_flow(model, a, b):
+    with torch.inference_mode():
+        return model(a, b, iters=ITERS)[1][-1]
+
+
+def _intra_run(dev, label, model, a, b, per_pair, f128,
+               timed=True) -> tuple:
+    """One forward of `model` on the batch (a, b) with the launch counts
+    set to 0 just before and read just after (per_pair for the forward;
+    B2 at F 128 f128 times) and its peak memory; then (timed) one more
+    forward's device time by CUDA events, after a warm-up forward.
+    Returns (final flow, stats)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launch_counts()
+    flow = _final_flow(model, a, b)
+    sync(dev)
+    counts = launch.launch_counts()
+    by = dict(ma.flash_mode_attention.launches_by)
+    stats = {"peak_bytes": torch.cuda.max_memory_allocated(),
+             "launches": {k: v for k, v in counts.items() if v},
+             "b2_by_width": by}
+    _assert_launches(label, counts, per_pair, 1)
+    assert by.get(LAZY_F, 0) == f128, f"{label}: B2 by width {by}"
+    assert bool(torch.isfinite(flow).all()), label
+    if timed:
+        stats["ms"] = time_ms(lambda: _final_flow(model, a, b), 1)
+    print(f"lazy intra {label}:", json.dumps(stats), "|", card_line())
+    return flow, stats
+
+
+def lazy_intra_phase(dev) -> dict:
+    """Phase 4, the lazy intra path.  One HD1K pair (1080x2560 padded to
+    1088x2560, U = 43520) of the main config: lazy (B2 13 a forward, 12 of
+    them at F 128 in the aggregator; no B4), its peak below
+    LAZY_PEAK_BOUND, then the same pair with the probs materialised (the
+    module constant raised); the two flows within 0.15 px, and each
+    forward's device time (CUDA events).  Then one
+    fp32 batch of 6 Sintel pairs at 440x1024, lazy at the real threshold
+    (6 * 4 * 7040^2 * 4 = 4.76e9 B), against its materialised flow within
+    1e-3 px."""
+    out = {}
+    model = serving_model(dev)
+    _, pairs = frame_pairs(dev, 1, seed=12, hw=HD1K_HW)
+    a, b = pairs[0]
+    u = (a.shape[1] // 8) * (a.shape[2] // 8)
+    assert setrans.probs_go_lazy(1, 4, u, u, torch.bfloat16)
+    lazy, out["hd1k lazy"] = _intra_run(dev, "hd1k", model, a, b,
+                                        LAZY_PER_PAIR, ITERS)
+    with materialised_probs():
+        mat, out["hd1k materialised"] = _intra_run(
+            dev, "hd1k materialised", model, a, b, SERVE_PER_PAIR, 0)
+    peak = out["hd1k lazy"]["peak_bytes"]
+    err = _max_diff([lazy], [mat])
+    print(f"lazy intra hd1k: max |flow diff| against the materialised path "
+          f"{err:.3e} px (bound {BF16_BOUND_PX}); peak {peak} B (bound "
+          f"{LAZY_PEAK_BOUND:g}; materialised "
+          f"{out['hd1k materialised']['peak_bytes']} B, before "
+          f"{MATERIALISED_HD1K_PEAK} B); a forward's device time (CUDA "
+          f"events) lazy {out['hd1k lazy']['ms']:.3f} ms against materialised "
+          f"{out['hd1k materialised']['ms']:.3f} ms |", card_line())
+    assert peak < LAZY_PEAK_BOUND, "lazy intra hd1k: peak memory"
+    assert err < BF16_BOUND_PX, "lazy intra hd1k: flow"
+    out["hd1k err_px"] = err
+    del model, pairs, a, b, lazy, mat
+    torch.cuda.empty_cache()
+
+    batch = 6
+    model = create_model(craft_config(mixed_precision=False), device=dev)
+    model.load_state_dict(state_dict_from_flax(load_oracle_npz(ORACLE)[3]))
+    _, pairs = frame_pairs(dev, batch, seed=13)
+    a = torch.cat([p[0] for p in pairs])
+    b = torch.cat([p[1] for p in pairs])
+    assert setrans.probs_go_lazy(batch, 4, U, U, torch.float32)
+    label = f"sintel fp32 batch {batch}"
+    # Untimed: at this batch the fp32 convolutions dominate (cuDNN's FFT
+    # algorithms, seconds a forward).
+    lazy, out[label] = _intra_run(dev, label, model, a, b, LAZY_PER_PAIR,
+                                  ITERS, timed=False)
+    with materialised_probs():
+        mat, out[f"{label} materialised"] = _intra_run(
+            dev, f"{label} materialised", model, a, b, SERVE_PER_PAIR, 0,
+            timed=False)
+    err = _max_diff([lazy], [mat])
+    print(f"lazy intra {label}: max |flow diff| against the materialised "
+          f"path {err:.3e} px (bound {FULLPREC_BOUND_PX}) |", card_line())
+    assert err < FULLPREC_BOUND_PX, f"lazy intra {label}: flow"
+    out[f"{label} err_px"] = err
+    del model, pairs, a, b, lazy, mat
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2648,7 +2844,9 @@ def sp_paths(dev) -> dict:
     this script on the one card (gloo) and one NCCL rank; each rank's flows
     against the unsharded ones (0.15 px mixed, 1e-3 px fp32), its launches
     (SP_KERNELS per pair, no B3) and its peak memory (below the unsharded
-    peak at 440x1024 and at BIG_H x BIG_W)."""
+    peak at 440x1024 and at BIG_H x BIG_W).  The unsharded BIG_H x BIG_W
+    pair materialises its intra probs as the ranks do (materialised_probs):
+    unsharded it would take the lazy path."""
     shutil.rmtree(SP_DIR, ignore_errors=True)
     SP_DIR.mkdir(parents=True)
     res = {}
@@ -2665,7 +2863,11 @@ def sp_paths(dev) -> dict:
     torch.cuda.empty_cache()
     _, big = frame_pairs(dev, 1, seed=8, hw=(BIG_H, BIG_W))
     torch.cuda.reset_peak_memory_stats()
-    times, big_flow = serve(model, big)
+    # Its intra probs (8.5e9 B in bf16) would go lazy unsharded; a rank
+    # materialises its rows' probs, as the JAX package does under sequence
+    # parallelism, so the reference materialises them too.
+    with materialised_probs():
+        times, big_flow = serve(model, big)
     res["big_unsharded"] = {"pair_ms": times, "max_memory_allocated":
                             torch.cuda.max_memory_allocated()}
     print("sp: unsharded", json.dumps(res))
@@ -2974,6 +3176,87 @@ def time_kernels(dev, gen, report) -> None:
             ("fused_agg_corr_norm sweeps and moments",
              cases["fused_agg_corr_norm"][0], ("corr_",))):
         print(f"{label}: device {device_ms(fn, 5, match):.4f} ms")
+
+
+# Phase 5, B2 at F 128 where the lazy intra path runs it: a Sintel batch of
+# 11 (the first bf16 batch past the threshold) and HD1K (B = 1).
+B2_LAZY_TIMED = (("Sintel batch 11", 11, (H8, W8)), ("HD1K", 1, HD1K_GRID))
+CHUNK_ROWS = 8  # grid rows a chunk of the plain version at HD1K
+
+
+def window_mask(biases, grid, pos_w, chunk=CHUNK_ROWS) -> torch.Tensor:
+    """pos_w * the dense window table [U, U] in bf16, built a chunk of
+    grid rows at a time (scaled_dot_product_attention's mask)."""
+    H, W = grid
+    mask = torch.empty(H * W, H * W, dtype=torch.bfloat16,
+                       device=biases.device)
+    for h0 in range(0, H, chunk):
+        rows = min(chunk, H - h0)
+        mask[h0 * W:(h0 + rows) * W] = pos_w * ma.sliding_pos_biases(
+            biases, H, W, h0, rows)
+    return mask
+
+
+def time_b2_lazy(dev, gen, report) -> None:
+    """Phase 5: B2 at F 128, md 32 at each B2_LAZY_TIMED shape beside its
+    plain version (in chunks of grid rows where a whole plain run would not
+    fit: [B, M, U, U] fp32 scores twice over), its bound, the exponentials'
+    floor and scaled_dot_product_attention with the window as its mask;
+    the HD1K numbers go into the kernels line."""
+    biases = (torch.randn(15, 15, generator=gen) * 0.5).to(dev)
+    clip = torch.tensor(1e30, device=dev)
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    for label, batch, grid in B2_LAZY_TIMED:
+        u = grid[0] * grid[1]
+        q, k = inputs(gen, LAZY_MD, dev, u, batch)
+        v = torch.randn(batch, 4, u, LAZY_F, generator=gen).to(
+            dev, torch.bfloat16)
+        n = batch * 4 * u * u
+        bms, by = bound_ms(2.0 * n * (LAZY_MD + LAZY_F),
+                           2 * batch * 4 * u * LAZY_MD * 2
+                           + 2 * batch * 4 * u * LAZY_F * 2)
+        args = (q, k, v, biases, grid, clip, LAZY_POS_W)
+        ms = time_ms(lambda: ma.flash_mode_attention(*args), 5)
+        # The plain version holds about four [B, M, U, U] fp32 tensors.
+        if 4 * 4 * n < 0.6 * free:
+            plain_ms = time_ms(lambda: ma.flash_mode_attention_plain(*args),
+                               1)
+            plain_how = "whole"
+        else:
+            def chunked():
+                for h0 in range(0, grid[0], CHUNK_ROWS):
+                    t = slice(h0 * grid[1],
+                              min(h0 + CHUNK_ROWS, grid[0]) * grid[1])
+                    ma.flash_mode_attention_plain(
+                        q[:, :, t], k, v, biases, grid, clip, LAZY_POS_W,
+                        q_row0=h0)
+            plain_ms = time_ms(chunked, 1)
+            plain_how = (f"in chunks of {CHUNK_ROWS} grid rows: whole it "
+                         f"needs about {4 * 4 * n / 1e9:.0f} GB")
+        torch.cuda.empty_cache()
+        mask = window_mask(biases, grid, LAZY_POS_W)
+        try:
+            lib_ms = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), 3)
+            lib_how = "the window as its mask"
+        except torch.cuda.OutOfMemoryError as e:
+            lib_ms, lib_how = None, f"does not fit: {str(e)[:160]}"
+        del mask
+        torch.cuda.empty_cache()
+        print(f"flash_mode_attention F={LAZY_F} md={LAZY_MD} ({label}, "
+              f"B={batch}, U={u}): {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms ({plain_how}), bound {bms:.4f} ms ({by}), "
+              f"exponentials floor {exp_ms(n):.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms} ms ({lib_how}) |",
+              card_line())
+        if label == "HD1K":
+            report["flash_mode_attention_f128"].update(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by)
+        del q, k, v, args
+        torch.cuda.empty_cache()
 
 
 def time_dense_kernels(dev, gen, report) -> None:
@@ -3529,6 +3812,9 @@ def main() -> int:
              pallas + "probs_vjp.py:_pallas_probs_bwd:80"),
             ("flash_mode_attention_dense", "flash_attn",
              TPU_KERNEL.format("flash_mode_attention:201")),
+            # B2 at the lazy intra aggregator's width (F 128).
+            ("flash_mode_attention_f128", "flash_attn",
+             TPU_KERNEL.format("flash_mode_attention_mt:295")),
             ("fused_agg_corr_dense", "agg_corr",
              TPU_KERNEL.format("fused_agg_corr:1137")),
             ("mode_softmax_probs_dense", "softmax_probs",
@@ -3555,6 +3841,8 @@ def main() -> int:
     check_lookup_radii(dev, report)
     torch.cuda.empty_cache()
     check_hd1k_grid(dev, gen)
+    torch.cuda.empty_cache()
+    check_b2_lazy(dev, gen, report)
     torch.cuda.empty_cache()
     check_dense_kernels(dev, gen, report)
     torch.cuda.empty_cache()
@@ -3588,9 +3876,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_sets_phase(dev)
     torch.cuda.empty_cache()
+    lres = lazy_intra_phase(dev)
+    report["flash_mode_attention_f128"]["launches"] = \
+        lres["hd1k lazy"]["b2_by_width"][LAZY_F]
     train_cli_phase(dev, float(np.median(tres["step_ms"])))
     torch.cuda.empty_cache()
     time_kernels(dev, gen, report)
+    time_b2_lazy(dev, gen, report)
     time_kitti_kernels(dev, gen)
     time_train_kernels(dev, gen, report)
     time_lookup(dev, report)

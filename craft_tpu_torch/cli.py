@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from craft_tpu_torch.config import (ModelConfig, f2_trans_config,
                                     inter_corr_config, intra_attn_config)
@@ -25,6 +26,23 @@ ROADMAP_TRAIN_DENSE = "ROADMAP.md section 2, item 7 (training under " \
 def not_ported(what: str, item: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to craft_tpu_torch yet: see "
                       f"{item}.")
+
+
+# Converts the JAX package's orbax checkpoint directories into the port's
+# .pth files; it needs JAX and orbax, which the port never imports.
+JAX_CHECKPOINT_TOOL = "tools/jax_checkpoint_to_pth.py"
+
+
+def refuse_jax_checkpoint(path, flag: str) -> None:
+    """Exit when `path` is a directory: a checkpoint of the JAX package,
+    which the port reads only once the tool has converted it."""
+    if path and os.path.isdir(path):
+        raise SystemExit(
+            f"{flag} {path} is a directory, a checkpoint of the JAX "
+            f"package (orbax), which craft_tpu_torch does not read. Convert "
+            f"it where JAX and orbax are installed: python "
+            f"{JAX_CHECKPOINT_TOOL} {path} OUT.pth <the training run's "
+            f"model and schedule flags>, then pass OUT.pth.")
 
 
 def add_model_args(p: argparse.ArgumentParser):

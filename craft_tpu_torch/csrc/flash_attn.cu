@@ -8,23 +8,30 @@
 // (body _flash_kernel_mt; B2, the window) and flash_mode_attention (body
 // _flash_kernel; B8, the dense table: the f2 site under --intrapos lsinu,
 // no table, and under --f2radius, the table pos_w * bias + the -1e9 mask).
+// Two value widths F, each a template instance of both bodies: 256, the
+// f2 site's, and 128, the intra aggregator's, where the lazy intra path
+// (probs past 4e9 bytes: HD1K, 1080p frames, large batches; craft_tpu/nn/
+// setrans.py:826-836) runs B2 once an iteration with md 32.
 //
 // Bound on the H100: operations.  At the f2 site (B=1, M=4, U=7040, md=64,
 // F=256) it is 127 GFLOP, 80 % of it p.v, over 36 MB of inputs and outputs
 // (B8 with a table adds 198 MB of fp32 table, 59 us, still under the 128 us
-// of the bf16 peak).  Two bodies:
+// of the bf16 peak); at HD1K's lazy aggregator (B=1, M=4, U=43520, md=32,
+// F=128) 2.42 TFLOP, and the exponentials (7.6e9) take about as long.
+// Offsets that reach U1 * U2 or a row times F are formed in size_t: at
+// HD1K U * U is within 12 % of 2^31.  Two bodies:
 //
 // bf16 (flash_wgmma_kernel): the products on the tensor cores as wgmma
 // (sm_90a), bf16 operands and fp32 sums.  A block is two warpgroups, each
 // owning 64 query rows (a warp 16): its q fragments stay in registers for
 // the whole key sweep (read once from global memory, so q takes no shared
-// memory), as does its 64 x 256 fp32 output accumulator (128 registers a
-// thread).  Per key tile of 64: S = q k^T as 64 x 64 x 16 wgmmas (A = the q
+// memory), as does its 64 x F fp32 output accumulator (128 registers a
+// thread at F = 256, 64 at 128).  Per key tile of 64: S = q k^T as 64 x 64 x 16 wgmmas (A = the q
 // registers, B = k from shared memory); the clamp, the bias, the ragged-key
 // mask and the online softmax (fp32, two quad shuffles per row max) run on
 // S in its accumulator layout; p, rounded to bf16 as the Pallas kernels
 // round it before p.v, is repacked in registers as the A operand of
-// o += p v (64 x 256 x 16 wgmmas, v from shared memory, MN-major): the
+// o += p v (64 x F x 16 wgmmas, v from shared memory, MN-major): the
 // m16n8 accumulator layout of two adjacent n tiles is the m16k16 A layout,
 // so p never touches shared memory.  A warpgroup starts o += p v(kt) and
 // S(kt + 1) together and waits once; the two warpgroups take turns to start
@@ -33,16 +40,20 @@
 // than MAX_SLACK (p <= e^8), so o is rescaled on few tiles; the row sum
 // takes the fp32 p and is reduced over the quad once, at the end.
 //   Keys arrive through a ring of 4 stages (3 with a table) in shared
-// memory: k (64 x md bf16), v (64 x 256 bf16) and a table's 128 x 64 fp32
-// tile, 40 KB a stage (72 KB with a table), filled by 16-byte cp.async
+// memory: k (64 x md bf16), v (64 x F bf16) and a table's 128 x 64 fp32
+// tile, 40 KB a stage at F = 256 and md 64 (72 KB with a table; 20 KB at
+// F = 128 and md 32), filled by 16-byte cp.async
 // whose completion an mbarrier counts (full); a second mbarrier per stage
 // (empty) frees it once both warpgroups are done, and tile kt + 3 (kt + 2)
 // is copied while tile kt is multiplied.  Each thread copies fixed chunk
 // columns, its offsets set once per block.  k rows and v's 64-feature
-// blocks are laid out with the 128-, 64- or 32-byte swizzle that wgmma's
-// descriptors name (16-byte chunk index XOR row bits), conflict-free.
-//   Sizes: about 245 registers a thread, 160 (216) KB of shared memory, one
-// block of 256 threads an SM.  Serving (U=7040, 4 modes) launches 55 x 4 =
+// blocks (F / 64 of them) are laid out with the 128-, 64- or 32-byte
+// swizzle that wgmma's descriptors name (16-byte chunk index XOR row bits),
+// conflict-free.
+//   Sizes at F = 256: about 245 registers a thread, 160 (216) KB of shared
+// memory, one block of 256 threads an SM.  F = 128 keeps the same tiles,
+// ring and grid (half the accumulator registers left unused: wider row
+// tiles or two blocks an SM are later speed work).  Serving (U=7040, 4 modes) launches 55 x 4 =
 // 220 blocks on 132 SMs, 1.67 waves; KITTI (U=7332) 58 x 4 = 232, 1.76
 // waves (the last wave leaves a third of the SMs idle; 64-row blocks, two
 // an SM, gave the same 1.67).  The grid runs the B*M blocks of one q tile
@@ -63,7 +74,8 @@
 //
 // fp32 (flash_attn_kernel): plain fp32 FMA, kept for fp32 parity (--fullprec
 // and the fp32 oracle; TF32 would not hold 1e-5).  Each block keeps a 64-row
-// q tile and its 64 x F output accumulator resident (64 floats a thread)
+// q tile and its 64 x F output accumulator resident (F / 4 floats a
+// thread)
 // and streams k and v tiles (and a table tile) through shared memory.  The
 // running row max and sum are kept per thread for its four rows; the
 // online-softmax rescale multiplies the thread's own accumulator rows.
@@ -77,16 +89,16 @@
 #include "common.cuh"
 #include "wgmma.cuh"
 
-#define FEAT 256      // value / output width: the f2 site's feat_dim
-#define FJ (FEAT / 16)  // output columns per thread
-
-template <typename T, class Bias>
+// F: the value / output width, 256 (the f2 site's feat_dim) or 128 (the
+// intra aggregator's feat_dim, the lazy intra path); the launches refuse
+// any other.
+template <typename T, int F, class Bias>
 __global__ void __launch_bounds__(NTHREADS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
                       BiasArgs ba, const float* __restrict__ clip_ptr, int U1,
                       int U2, int md, float scale, float pos_w) {
-  constexpr int F = FEAT;
+  constexpr int FJ = F / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;                    // [MAXMD][SPAD]
   float* ks = qs + MAXMD * SPAD;       // [MAXMD][SPAD]
@@ -177,17 +189,17 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <class Bias>
+template <int F, class Bias>
 static int launch_fp32(const void* q, const void* k, const void* v, void* out,
                        const BiasArgs& ba, const void* clip, int BM, int U1,
                        int U2, int md, float scale, float pos_w,
                        cudaStream_t s) {
-  const size_t smem = (2 * MAXMD * SPAD + TILE * SPAD + TILE * FEAT +
+  const size_t smem = (2 * MAXMD * SPAD + TILE * SPAD + TILE * F +
                        Bias::SMEM) * sizeof(float);
-  cudaError_t err = allow_smem(flash_attn_kernel<float, Bias>, smem);
+  cudaError_t err = allow_smem(flash_attn_kernel<float, F, Bias>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((U1 + TILE - 1) / TILE, BM);
-  flash_attn_kernel<float, Bias><<<grid, NTHREADS, smem, s>>>(
+  flash_attn_kernel<float, F, Bias><<<grid, NTHREADS, smem, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, ba,
       (const float*)clip, U1, U2, md, scale, pos_w);
   return (int)cudaGetLastError();
@@ -216,8 +228,9 @@ __host__ __device__ constexpr int ring_depth() {
   return Bias::STAGE > 0 ? 3 : 4;
 }
 
-// MDP: the tiles' mode dim (16, 32 or 64 >= md; columns past md are zero).
-template <int MDP, class Bias>
+// MDP: the tiles' mode dim (16, 32 or 64 >= md; columns past md are zero);
+// F: the value / output width, 256 or 128.
+template <int MDP, int F, class Bias>
 __global__ void __launch_bounds__(MTHREADS, 1)
     flash_wgmma_kernel(const bf16* __restrict__ q,
                        const bf16* __restrict__ k,
@@ -225,8 +238,9 @@ __global__ void __launch_bounds__(MTHREADS, 1)
                        BiasArgs ba, const float* __restrict__ clip_ptr,
                        int U1, int U2, int md, float scale, float pos_w) {
   constexpr int KC = MDP / 8;    // 16-byte chunks of a k row
-  constexpr int K_BYTES = MKEYS * MDP * 2, V_BYTES = MKEYS * FEAT * 2;
-  constexpr int VBLK = MKEYS * 128;  // v: 4 blocks of 64 keys x 64 features
+  constexpr int K_BYTES = MKEYS * MDP * 2, V_BYTES = MKEYS * F * 2;
+  constexpr int VBLK = MKEYS * 128;  // v: F / 64 blocks of 64 keys x 64
+                                     // features
   constexpr int STAGE = K_BYTES + V_BYTES + Bias::STAGE;
   constexpr int NST = ring_depth<Bias>();
   static_assert(STAGE % 1024 == 0, "stages keep the 1024-byte swizzle atoms");
@@ -238,7 +252,7 @@ __global__ void __launch_bounds__(MTHREADS, 1)
   const int g = lane >> 2, t = lane & 3;
   const bf16* qb = q + (size_t)bm * U1 * md;
   const bf16* kb = k + (size_t)bm * U2 * md;
-  const bf16* vb = v + (size_t)bm * U2 * FEAT;
+  const bf16* vb = v + (size_t)bm * U2 * F;
 
   const int wg = threadIdx.x >> 7;  // warpgroup 0 or 1
   Bias bias;
@@ -255,11 +269,12 @@ __global__ void __launch_bounds__(MTHREADS, 1)
   }
   __syncthreads();  // the barriers and the bias source's shared memory
 
-  // k rows at MDP * 2 bytes, their chunks swizzled; v as 4 blocks of 64
-  // features, 128-byte rows, chunks swizzled by key % 8 (the 128-byte
+  // k rows at MDP * 2 bytes, their chunks swizzled; v as F / 64 blocks of
+  // 64 features, 128-byte rows, chunks swizzled by key % 8 (the 128-byte
   // swizzle of an MN-major wgmma operand).  Each thread copies the same
-  // chunk column of rows KROWS (k) and 8 (v) apart, so its shared and
-  // global offsets are fixed here and a tile adds key0 and constants.
+  // chunk column of rows KROWS (k) and VROWS (v: 8 at F = 256, 16 at 128)
+  // apart, so its shared and global offsets are fixed here and a tile adds
+  // key0 and constants.
   constexpr int KROWS = MTHREADS / KC;  // k rows a pass covers
   constexpr int KIT = (MKEYS + KROWS - 1) / KROWS;
   const int tid = threadIdx.x;
@@ -268,10 +283,13 @@ __global__ void __launch_bounds__(MTHREADS, 1)
   const bf16* k_src =
       k_on ? kb + (size_t)k_r * md + 8 * k_c : kb;
   const uint32_t k_dst = k_r * MDP * 2 + 16 * swz<KC>(k_r, k_c);
-  const int v_r = tid >> 5;  // + 8 it
-  const bf16* v_src = vb + (size_t)v_r * FEAT + 8 * (tid & 31);
-  const uint32_t v_dst =
-      K_BYTES + ((tid & 31) >> 3) * VBLK + v_r * 128 + 16 * ((tid & 7) ^ v_r);
+  constexpr int VC = F / 8;              // 16-byte chunks of a v row
+  constexpr int VROWS = MTHREADS / VC;   // v rows a pass covers
+  static_assert(MKEYS % VROWS == 0, "whole passes of v rows");
+  const int v_r = tid / VC, v_c = tid % VC;  // row + VROWS it
+  const bf16* v_src = vb + (size_t)v_r * F + 8 * v_c;
+  const uint32_t v_dst = K_BYTES + (v_c >> 3) * VBLK + v_r * 128 +
+                         16 * ((v_c & 7) ^ (v_r & 7));
   auto load_stage = [&](int kt, int s) {
     unsigned char* st = smem + s * STAGE;
     const uint32_t sa = smem_u32(st);
@@ -284,17 +302,18 @@ __global__ void __launch_bounds__(MTHREADS, 1)
         cp_async16(sa + k_dst + it * KROWS * MDP * 2,
                    ok ? k_src + (size_t)(key0 + KROWS * it) * md : kb, ok);
     }
-    const bf16* vsrc = v_src + (size_t)key0 * FEAT;
+    const bf16* vsrc = v_src + (size_t)key0 * F;
     if (left >= MKEYS) {
 #pragma unroll
-      for (int it = 0; it < MKEYS / 8; ++it)
-        cp_async16(sa + v_dst + it * 8 * 128, vsrc + it * 8 * FEAT, true);
+      for (int it = 0; it < MKEYS / VROWS; ++it)
+        cp_async16(sa + v_dst + it * VROWS * 128, vsrc + it * VROWS * F,
+                   true);
     } else {
 #pragma unroll
-      for (int it = 0; it < MKEYS / 8; ++it) {
-        const bool ok = v_r + 8 * it < left;
-        cp_async16(sa + v_dst + it * 8 * 128, ok ? vsrc + it * 8 * FEAT : vb,
-                   ok);
+      for (int it = 0; it < MKEYS / VROWS; ++it) {
+        const bool ok = v_r + VROWS * it < left;
+        cp_async16(sa + v_dst + it * VROWS * 128,
+                   ok ? vsrc + it * VROWS * F : vb, ok);
       }
     }
     bias.load(st + K_BYTES + V_BYTES, kt);
@@ -326,9 +345,9 @@ __global__ void __launch_bounds__(MTHREADS, 1)
     }
   const float clip = clip_ptr[0];
 
-  float o[FEAT / 8][4];
+  float o[F / 8][4];
 #pragma unroll
-  for (int n = 0; n < FEAT / 8; ++n)
+  for (int n = 0; n < F / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.f, 0.f};
@@ -420,7 +439,7 @@ __global__ void __launch_bounds__(MTHREADS, 1)
     // Rescale only where a row max moved.
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < FEAT / 8; ++n) {
+      for (int n = 0; n < F / 8; ++n) {
         o[n][0] *= alpha[0];
         o[n][1] *= alpha[0];
         o[n][2] *= alpha[1];
@@ -429,7 +448,7 @@ __global__ void __launch_bounds__(MTHREADS, 1)
     }
 
     // o += bf16(p) v: the C fragments of n tiles 2 kk and 2 kk + 1 are the
-    // A fragment of keys 16 kk .. + 15; one 64 x 256 x 16 wgmma each.
+    // A fragment of keys 16 kk .. + 15; one 64 x F x 16 wgmma each.
     uint32_t pa[NT / 2][4];
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
@@ -443,7 +462,8 @@ __global__ void __launch_bounds__(MTHREADS, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk)
-      wgmma_o(o, pa[kk], gmma_desc(vs + kk * 16 * 128, VBLK, 1024, 1), 1);
+      wgmma_o<F>(o, pa[kk], gmma_desc(vs + kk * 16 * 128, VBLK, 1024, 1),
+                 1);
     wgmma_commit();
     if (kt + 1 < nk) {
       const int s1 = s == NST - 1 ? 0 : s + 1;
@@ -454,7 +474,7 @@ __global__ void __launch_bounds__(MTHREADS, 1)
     if (wg == 0 || kt + 1 < nk) bar_arrive<MTHREADS>(2 - wg);  // the other's turn
     wgmma_wait0();
 #pragma unroll
-    for (int n = 0; n < FEAT / 8; ++n)
+    for (int n = 0; n < F / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) pin(o[n][e]);
 #pragma unroll
@@ -479,25 +499,25 @@ __global__ void __launch_bounds__(MTHREADS, 1)
     const int row = r0 + 8 * i;
     if (row >= U1) continue;
     const float inv = 1.f / l;
-    bf16* dst = out + ((size_t)bm * U1 + row) * FEAT + 2 * t;
+    bf16* dst = out + ((size_t)bm * U1 + row) * F + 2 * t;
 #pragma unroll
-    for (int n = 0; n < FEAT / 8; ++n)
+    for (int n = 0; n < F / 8; ++n)
       *reinterpret_cast<uint32_t*>(dst + 8 * n) =
           pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
   }
 }
 
-template <int MDP, class Bias>
+template <int MDP, int F, class Bias>
 static int launch_wgmma_md(const void* q, const void* k, const void* v,
                            void* out, const BiasArgs& ba, const void* clip,
                            int BM, int U1, int U2, int md, float scale,
                            float pos_w, cudaStream_t s) {
-  constexpr int STAGE = MKEYS * MDP * 2 + MKEYS * FEAT * 2 + Bias::STAGE;
+  constexpr int STAGE = MKEYS * MDP * 2 + MKEYS * F * 2 + Bias::STAGE;
   // + 1024: the ring starts at the first 1024-byte boundary (the swizzle
   // atoms' alignment).
   const size_t smem =
       ring_depth<Bias>() * (STAGE + 16) + Bias::SMEM + 1024;  // + barriers
-  auto kernel = flash_wgmma_kernel<MDP, Bias>;
+  auto kernel = flash_wgmma_kernel<MDP, F, Bias>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
@@ -513,7 +533,7 @@ static int launch_wgmma_md(const void* q, const void* k, const void* v,
 }
 
 // md a multiple of 16 up to 64, q, k, v and out 16-byte aligned.
-template <class Bias>
+template <int F, class Bias>
 static int launch_wgmma(const void* q, const void* k, const void* v,
                         void* out, const BiasArgs& ba, const void* clip,
                         int BM, int U1, int U2, int md, float scale,
@@ -523,18 +543,38 @@ static int launch_wgmma(const void* q, const void* k, const void* v,
   if (md <= 0 || md > MAXMD || md % 16 != 0 || (align & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (md <= 16)
-    return launch_wgmma_md<16, Bias>(q, k, v, out, ba, clip, BM, U1, U2,
-                                     md, scale, pos_w, s);
+    return launch_wgmma_md<16, F, Bias>(q, k, v, out, ba, clip, BM, U1, U2,
+                                        md, scale, pos_w, s);
   if (md <= 32)
-    return launch_wgmma_md<32, Bias>(q, k, v, out, ba, clip, BM, U1, U2,
-                                     md, scale, pos_w, s);
-  return launch_wgmma_md<64, Bias>(q, k, v, out, ba, clip, BM, U1, U2, md,
-                                   scale, pos_w, s);
+    return launch_wgmma_md<32, F, Bias>(q, k, v, out, ba, clip, BM, U1, U2,
+                                        md, scale, pos_w, s);
+  return launch_wgmma_md<64, F, Bias>(q, k, v, out, ba, clip, BM, U1, U2,
+                                      md, scale, pos_w, s);
+}
+
+// One launch of the body that in_bf16 selects (MmaB's bf16 or FmaB's fp32)
+// at F = 128 or 256; any other F is refused.
+template <class MmaB, class FmaB>
+static int launch_f(const void* q, const void* k, const void* v, void* out,
+                    const BiasArgs& ba, const void* clip, int BM, int U1,
+                    int U2, int md, int F, float scale, float pos_w,
+                    int in_bf16, cudaStream_t s) {
+  if (F == 128)
+    return in_bf16 ? launch_wgmma<128, MmaB>(q, k, v, out, ba, clip, BM, U1,
+                                             U2, md, scale, pos_w, s)
+                   : launch_fp32<128, FmaB>(q, k, v, out, ba, clip, BM, U1,
+                                            U2, md, scale, pos_w, s);
+  if (F == 256)
+    return in_bf16 ? launch_wgmma<256, MmaB>(q, k, v, out, ba, clip, BM, U1,
+                                             U2, md, scale, pos_w, s)
+                   : launch_fp32<256, FmaB>(q, k, v, out, ba, clip, BM, U1,
+                                            U2, md, scale, pos_w, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // B2.  q: [BM, U1, md]; k: [BM, U2, md]; v: [BM, U2, F]; out: [BM, U1, F]
 // contiguous, all bf16 when in_bf16 else fp32; md <= 64 (bf16: a multiple
-// of 16, the pointers 16-byte aligned), F == FEAT; the queries are the
+// of 16, the pointers 16-byte aligned), F 128 or 256; the queries are the
 // grid's tokens q_tok0 .. q_tok0 + U1 - 1 (a row shard; 0 and U1 = U2 for
 // the whole grid), the keys all U2 = H8 * W8 tokens; biases: [(2R+1)^2]
 // fp32; clip: [1] fp32 on the device.  Returns a cudaError_t code.
@@ -544,18 +584,15 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  int q_tok0, int md, int F, int W8, int R,
                                  float scale, float pos_w, int in_bf16,
                                  void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (F != FEAT) return (int)cudaErrorInvalidValue;
   const BiasArgs ba{(const float*)biases, W8, R, U1, U2, q_tok0};
-  return in_bf16 ? launch_wgmma<MmaWindow>(q, k, v, out, ba, clip, BM, U1,
-                                           U2, md, scale, pos_w, s)
-                 : launch_fp32<WindowBias>(q, k, v, out, ba, clip, BM, U1,
-                                           U2, md, scale, pos_w, s);
+  return launch_f<MmaWindow, WindowBias>(q, k, v, out, ba, clip, BM, U1, U2,
+                                         md, F, scale, pos_w, in_bf16,
+                                         (cudaStream_t)stream);
 }
 
 // B8.  q: [BM, U1, md]; k: [BM, U2, md]; v: [BM, U2, F]; out: [BM, U1, F];
-// contiguous, bf16 when in_bf16 else fp32; md <= 64 (bf16: as B2), F ==
-// FEAT; table: [U1, U2] fp32, or null for no bias; clip: [1] fp32 on the
+// contiguous, bf16 when in_bf16 else fp32; md <= 64 (bf16: as B2), F 128
+// or 256; table: [U1, U2] fp32, or null for no bias; clip: [1] fp32 on the
 // device.
 extern "C" int flash_attn_dense_launch(const void* q, const void* k,
                                        const void* v, void* out,
@@ -564,15 +601,10 @@ extern "C" int flash_attn_dense_launch(const void* q, const void* k,
                                        float scale, float pos_w, int in_bf16,
                                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (F != FEAT) return (int)cudaErrorInvalidValue;
   const BiasArgs ba{(const float*)table, 0, 0, U1, U2, 0};
   if (table == nullptr)
-    return in_bf16 ? launch_wgmma<MmaNoBias>(q, k, v, out, ba, clip, BM,
-                                             U1, U2, md, scale, pos_w, s)
-                   : launch_fp32<NoBias>(q, k, v, out, ba, clip, BM, U1, U2,
-                                         md, scale, pos_w, s);
-  return in_bf16 ? launch_wgmma<MmaTable>(q, k, v, out, ba, clip, BM, U1,
-                                          U2, md, scale, pos_w, s)
-                 : launch_fp32<TableBias>(q, k, v, out, ba, clip, BM, U1, U2,
-                                          md, scale, pos_w, s);
+    return launch_f<MmaNoBias, NoBias>(q, k, v, out, ba, clip, BM, U1, U2,
+                                       md, F, scale, pos_w, in_bf16, s);
+  return launch_f<MmaTable, TableBias>(q, k, v, out, ba, clip, BM, U1, U2,
+                                       md, F, scale, pos_w, in_bf16, s);
 }

@@ -4,7 +4,8 @@ reference evaluate.py:1418-1653).
 Loads a reference ``.pth`` checkpoint straight into the port's model (its
 modules use the reference key names), then validates on a dataset, writes
 a leaderboard submission, sweeps the shift protocol, converts the
-checkpoint or runs one image pair:
+checkpoint or runs one image pair.  A checkpoint directory of the JAX
+package is refused: tools/jax_checkpoint_to_pth.py converts it first.
 
   python -m craft_tpu_torch.evaluate --model checkpoints/craft-sintel.pth \\
       --craft --setrans --dataset sintel [--batch_size 2] [--test_mode 2]
@@ -37,7 +38,8 @@ import torch
 
 from craft_tpu_torch import resolve_device
 from craft_tpu_torch.cli import (ROADMAP_SP, add_model_args,
-                                 model_config_from_args, not_ported)
+                                 model_config_from_args, not_ported,
+                                 refuse_jax_checkpoint)
 from craft_tpu_torch.eval import submission
 from craft_tpu_torch.eval.demo import gen_flow
 from craft_tpu_torch.eval.evaluate import VALIDATORS
@@ -52,7 +54,10 @@ _TEST_MODE_SETS = ("sintel", "things", "slowflow")
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--model", required=True, help="reference .pth checkpoint")
+    p.add_argument("--model", required=True,
+                   help="reference .pth checkpoint (a JAX package "
+                        "checkpoint directory converts with "
+                        "tools/jax_checkpoint_to_pth.py)")
     p.add_argument("--model_name", default="craft")
     add_model_args(p)
     p.add_argument("--dataset", default=None, choices=[None, *_DATASETS])
@@ -130,6 +135,7 @@ def main(argv=None):
     a shift sweep), the submission's directory, the converted file, or the
     single pair's flow (its FLOPs with --flop)."""
     args = parse_args(argv)
+    refuse_jax_checkpoint(args.model, "--model")
     _check_ported(args)
     cfg = model_config_from_args(args)
     device = resolve_device(args.device)

@@ -2,7 +2,9 @@
 for arch='craft' with f1trans='none'; reference core/network.py:26-267).
 
 Forward: fnet/cnet encoders -> f2 transformer on frame 2 -> SETrans intra
-attention probs (B4) -> the inter-frame volume as the pyramid base -> 12
+attention probs (B4; past 4e9 bytes of probs, as at HD1K's grid, a
+LazyModeAttention instead, which each iteration's aggregator applies
+through B2) -> the inter-frame volume as the pyramid base -> 12
 refinement iterations of windowed lookup (B5, forward and, in training,
 backward) + GMAUpdateBlock + convex upsampling.  In eval mode with the
 sliding bias at the inter site the volume is clamped, aggregated and normed

@@ -8,7 +8,12 @@ In eval mode (serving), with the sliding positional bias
   * f2 semantic smoothing (feature output, input skip): flash attention B2
     feeding ExpandedFeatTrans;
   * intra-frame attention (out_attn_probs_only): probs from B4, int8 with a
-    row scale (QuantizedProbs) when the site quantizes.
+    row scale (QuantizedProbs) when the site quantizes; or, when the probs
+    would pass LAZY_PROBS_BYTES (B * M * U1 * U2 * the compute dtype's
+    itemsize, as the JAX package counts them: HD1K, 1088x1920 frames,
+    Sintel batches of 11, or 6 under fp32), no probs at all but a
+    LazyModeAttention (q, k, the window, the clamp), which the motion
+    aggregator applies through B2 against each iteration's values.
 With learned sinusoid codes (pos_code_type='lsinu') the positions are added
 to the tokens and no bias reaches the scores, and an f2 site with
 attn_mask_radius > 0 (--f2radius) adds a dense table: pos_w * the dense
@@ -82,6 +87,36 @@ class QuantizedProbs(NamedTuple):
 
     num: torch.Tensor    # [B, M, U, U] int8
     scale: torch.Tensor  # [B, M, U, 1] fp32
+
+
+# The intra site hands its consumer a LazyModeAttention in place of probs
+# whose B * M * U1 * U2 * itemsize(compute dtype) bytes would pass this:
+# the JAX package's threshold (craft_tpu/nn/setrans.py:725-726).
+LAZY_PROBS_BYTES = 4e9
+
+
+def probs_go_lazy(B: int, M: int, U1: int, U2: int, dtype) -> bool:
+    """Whether [B, M, U1, U2] intra probs in the site's compute dtype would
+    pass LAZY_PROBS_BYTES (counted in that dtype even where the stored
+    probs are int8, as the JAX package counts them)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return B * M * U1 * U2 * itemsize > LAZY_PROBS_BYTES
+
+
+class LazyModeAttention(NamedTuple):
+    """The intra attention held as (q, k, the sliding window, the clamp)
+    in place of [B, M, U, U] probs (the JAX package's LazyModeAttention,
+    craft_tpu/nn/setrans.py:131-160): the motion aggregator re-runs the
+    attention (B2) against each iteration's values, so the probs never
+    exist."""
+
+    q: torch.Tensor       # [B, M, U, md]
+    k: torch.Tensor       # [B, M, U, md]
+    biases: torch.Tensor  # [2R+1, 2R+1] sliding window
+    H: int
+    W: int
+    clip: torch.Tensor    # 0-d: attn_clip, or 1e30 (no clamp)
+    pos_w: float
 
 
 class SlidingPosBiases2D(nn.Module):
@@ -193,8 +228,10 @@ class ExpandedFeatTrans(nn.Module):
     """Multi-mode value expansion + mode pooling + input skip (reference
     setrans.py:304-410), without the FFN (has_FFN=False on every main-path
     site) and with softmax mode pooling (every site's).  input_feat:
-    [B, U2, C]; attention: probs [B, M, U1, U2], QuantizedProbs, or None with
-    `attention_fn` mapping v [B, M, U2, F] to [B, M, U1, F].  Under
+    [B, U2, C]; attention: probs [B, M, U1, U2], QuantizedProbs,
+    LazyModeAttention (B2 against v, its output in the compute dtype, as
+    craft_tpu/nn/setrans.py:826-836), or None with `attention_fn` mapping
+    v [B, M, U2, F] to [B, M, U1, F].  Under
     sequence parallelism U1 is the `shard`'s rows: the input skip takes
     those rows of input_feat, and the output is gathered to every rank as
     [B, U2, F]."""
@@ -223,6 +260,11 @@ class ExpandedFeatTrans(nn.Module):
         v = v.reshape(B, U2, M, F).permute(0, 2, 1, 3)  # [B, M, U2, F]
         if attention_fn is not None:
             fused = attention_fn(v.contiguous())
+        elif isinstance(attention, LazyModeAttention):
+            la = attention
+            fused = flash_mode_attention(
+                la.q.to(dt), la.k.to(dt), v.contiguous(), la.biases,
+                (la.H, la.W), la.clip, la.pos_w).to(dt)
         elif isinstance(attention, QuantizedProbs):
             # The per-row dequant scale is linear in the row: it lands on
             # the product's output (setrans.py:841-849).
@@ -288,7 +330,10 @@ class CrossAttFeatTrans(nn.Module):
         """Scores-only site: the normed [B, U1, U2] volume in `out_dtype`
         (eval with the sliding bias), or the raw fp32 one (train, or no
         sliding bias).  Probs-only site: [B, M, U1, U2] probs or
-        QuantizedProbs.  Feature site: [B, U1, F].  `pos_biases` is a
+        QuantizedProbs, or a LazyModeAttention where the probs would pass
+        LAZY_PROBS_BYTES (eval with the sliding bias, no `shard`: under
+        sequence parallelism the JAX package materialises them too).
+        Feature site: [B, U1, F].  `pos_biases` is a
         SlidingBias or None (pos_code_type 'lsinu'); `attention_mask` an
         additive fp32 [U1, U2] table (the f2 site's --f2radius) or None.
         `generator` draws the attention dropout in training.  `shard` (a
@@ -323,6 +368,10 @@ class CrossAttFeatTrans(nn.Module):
             return vol
         clip = self._clip(q, k, shard)
         if cfg.out_attn_probs_only:
+            if shard is None and probs_go_lazy(*q.shape[:3], k.shape[2],
+                                               self.dtype):
+                return LazyModeAttention(q, k, pos_biases.biases, *grid_hw,
+                                         clip, cfg.pos_code_weight)
             if cfg.quantize_probs:
                 return QuantizedProbs(*mode_softmax_probs(
                     q, k, pos_biases.biases, grid_hw, clip,

@@ -172,10 +172,12 @@ class FlowHead(nn.Module):
 
 class GMAUpdateBlock(nn.Module):
     """GMA update block with the SETrans motion aggregator (reference
-    update.py:116-162).  `attention` (intra probs) and `gru_static` are
-    computed once per forward, outside the refinement loop.  Under sequence
-    parallelism `attention` holds the `shard`'s rows, and the aggregator
-    gathers its output to every rank."""
+    update.py:116-162).  `attention` (the intra probs, or a
+    LazyModeAttention that the aggregator applies through B2 each
+    iteration) and `gru_static` are computed once per forward, outside
+    the refinement loop.  Under sequence parallelism `attention` holds
+    the `shard`'s rows (always probs), and the aggregator gathers its
+    output to every rank."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()

@@ -25,9 +25,12 @@ _COUNTED: list = []
 
 
 def counted(fn):
-    """Register a kernel wrapper for launch_counts() and launch_flops()."""
+    """Register a kernel wrapper for launch_counts() and launch_flops().
+    A wrapper whose kernel has several instances may also count its
+    launches by instance in ``launches_by`` ({instance: launches})."""
     fn.launches = 0
     fn.flops = 0.0
+    fn.launches_by = {}
     _COUNTED.append(fn)
     return fn
 
@@ -36,6 +39,7 @@ def reset_launch_counts() -> None:
     for fn in _COUNTED:
         fn.launches = 0
         fn.flops = 0.0
+        fn.launches_by = {}
 
 
 def launch_counts() -> dict:

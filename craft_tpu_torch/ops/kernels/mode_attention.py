@@ -4,6 +4,7 @@ mode_attention.py``):
 
   B1 scores_global_max      max of scale * q k^T (the clamp predicate)
   B2 flash_mode_attention   softmax(clamp(s) + pos_w * bias) @ v, f2 site
+                            (F 256) and the lazy intra aggregator (F 128)
   B3 fused_agg_corr_norm    clamped, mode-aggregated, globally normed
                             volume, inter site
   B4 mode_softmax_probs     softmax probs (float, or int8 + row scale),
@@ -70,7 +71,9 @@ _LIB_OF = {"scores_max_launch": "scores_max",
            "probs_launch": "softmax_probs",
            "flash_attn_dense_launch": "flash_attn",
            "probs_dense_launch": "softmax_probs"}
-FLASH_FEAT = 256  # csrc/flash_attn.cu FEAT: the f2 site's feature width
+# The value widths B2 and B8 take (csrc/flash_attn.cu's F): the f2 site's
+# feat_dim 256, and the intra aggregator's 128 (the lazy intra path).
+FLASH_FEAT = (128, 256)
 # Scratch sizes follow the kernels' grids: the fp32 bodies' tiles
 # (csrc/common.cuh TILE, csrc/agg_modes.cuh KGROUP) and the bf16 bodies'
 # (csrc/scores_max.cu B1_*, csrc/agg_modes.cuh B3_* (B3's and B9's sweeps,
@@ -297,8 +300,9 @@ def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float,
 
     q: [B, M, U1, md], the grid rows from q_row0 (all of them by default);
     k: [B, M, U2, md] and v: [B, M, U2, F], every token of the H8 x W8
-    grid; biases: [2R+1, 2R+1]; clip: 0-d tensor.  Returns [B, M, U1, F]
-    in v's dtype."""
+    grid, F in FLASH_FEAT (the f2 site's 256, the lazy intra aggregator's
+    128); biases: [2R+1, 2R+1]; clip: 0-d tensor.  Returns [B, M, U1, F]
+    in v's dtype.  Launches are also counted by F in `launches_by`."""
     query_rows(q, k, grid_hw, q_row0)
     if not q.is_cuda:
         return flash_mode_attention_plain(q, k, v, biases, grid_hw, clip,
@@ -306,10 +310,11 @@ def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float,
     (q, k, v), bf16 = _prep(q, k, v)
     B, M, U1, md = q.shape
     U2, F = k.shape[2], v.shape[-1]
-    if F != FLASH_FEAT or k.shape[:2] != (B, M) or v.shape[:3] != (B, M, U2):
+    if F not in FLASH_FEAT or k.shape[:2] != (B, M) or \
+            v.shape[:3] != (B, M, U2):
         raise ValueError(f"flash_mode_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; the kernel "
-                         f"takes feature dim {FLASH_FEAT}")
+                         f"takes feature dims {FLASH_FEAT}")
     R = (biases.shape[0] - 1) // 2
     W8 = grid_hw[1]
     out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
@@ -320,6 +325,8 @@ def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float,
           _ptr(win), _ptr(clip_t), B * M, U1, U2, q_row0 * W8, md, F, W8, R,
           1.0 / math.sqrt(md), pos_w, bf16, _stream(q))
     flash_mode_attention.launches += 1
+    flash_mode_attention.launches_by[F] = \
+        flash_mode_attention.launches_by.get(F, 0) + 1
     flash_mode_attention.flops += 2.0 * B * M * U1 * U2 * (md + F)
     return out
 
@@ -348,10 +355,11 @@ def flash_mode_attention_dense(q, k, v, table, clip, pos_w: float):
     (q, k, v), bf16 = _prep(q, k, v)
     B, M, U1, md = q.shape
     U2, F = k.shape[2], v.shape[-1]
-    if F != FLASH_FEAT or k.shape[:2] != (B, M) or v.shape[:3] != (B, M, U2):
+    if F not in FLASH_FEAT or k.shape[:2] != (B, M) or \
+            v.shape[:3] != (B, M, U2):
         raise ValueError(f"flash_mode_attention_dense: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; the kernel "
-                         f"takes feature dim {FLASH_FEAT}")
+                         f"takes feature dims {FLASH_FEAT}")
     out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
     check_mma_tiles("flash_mode_attention_dense", bf16, md,
                     "q, k, v and out", q, k, v, out)

@@ -17,7 +17,9 @@ plots; at the end it writes <output>/<name>.pth.  Under torchrun each rank
 takes --batch_size samples of its shard of each epoch, and the step is the
 JAX package's step over all the ranks' samples (``parallel/
 data_parallel.py``).  What the port does not run yet exits before training
-starts, naming its ROADMAP.md item.
+starts, naming its ROADMAP.md item.  --restore_ckpt takes a .pth; a
+checkpoint directory of the JAX package is refused, naming
+tools/jax_checkpoint_to_pth.py, which converts it.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ import torch
 from craft_tpu_torch import resolve_device
 from craft_tpu_torch.cli import (ROADMAP_ARCHS, ROADMAP_TRAIN,
                                  ROADMAP_TRAIN_DENSE, add_model_args,
-                                 model_config_from_args, not_ported)
+                                 model_config_from_args, not_ported,
+                                 refuse_jax_checkpoint)
 from craft_tpu_torch.data.datasets import (TRAINING_STAGES,
                                            fetch_training_dataset)
 from craft_tpu_torch.data.loader import (InfiniteLoader, MultiprocessLoader,
@@ -131,6 +134,7 @@ def _to_device(batch, device):
 def main(argv=None):
     """Train one stage; returns the final TrainState."""
     args = parse_args(argv)
+    refuse_jax_checkpoint(args.restore_ckpt, "--restore_ckpt")
     args.shift_sigmas = tuple(int(s) for s in args.shift_sigmas.split(","))
     _check_ported(args)
     cfg = model_config_from_args(args)

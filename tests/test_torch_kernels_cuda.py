@@ -147,13 +147,18 @@ def test_b1_b3_bf16_tiles_reject_what_they_do_not_take(dev):
 B2_GRIDS = GRIDS + [(3, 62), (2, 156)]
 
 
+# B2's value widths: the f2 site's 256 and the lazy intra aggregator's 128.
+B2_FEATS = [128, 256]
+
+
+@pytest.mark.parametrize("F", B2_FEATS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("grid", B2_GRIDS)
 @pytest.mark.parametrize("clip", [1e30, 0.4])
 @pytest.mark.parametrize("md", [16, 32, 64])
-def test_b2_flash_attention(dev, dtype, grid, clip, md):
+def test_b2_flash_attention(dev, dtype, grid, clip, md, F):
     q, k, biases = _inputs(dev, grid, md, dtype, **_PEAKY)
-    v = torch.randn(2, 4, q.shape[2], 256, generator=_gen(1)).to(dev, dtype)
+    v = torch.randn(2, 4, q.shape[2], F, generator=_gen(1)).to(dev, dtype)
     clip_t = torch.tensor(clip, device=dev)
     got = ma.flash_mode_attention(q, k, v, biases, grid, clip_t, 0.5)
     want = ma.flash_mode_attention_plain(q, k, v, biases, grid, clip_t, 0.5)
@@ -204,10 +209,11 @@ def test_b2_window_outer_ring(dev, dtype, grid):
 @pytest.mark.parametrize("grid,shards", [((10, 62), [(0, 3), (3, 10)]),
                                          ((9, 156), [(2, 5)])])
 @pytest.mark.parametrize("md", [16, 32, 64])
-def test_b2_bf16_tiles_on_row_shards(dev, grid, shards, md):
+@pytest.mark.parametrize("F", B2_FEATS)
+def test_b2_bf16_tiles_on_row_shards(dev, grid, shards, md, F):
     q, k, biases = _inputs(dev, grid, md, torch.bfloat16, seed=6, **_PEAKY)
     biases, _ = _ring(biases)
-    v = torch.randn(2, 4, k.shape[2], 256, generator=_gen(4)).to(
+    v = torch.randn(2, 4, k.shape[2], F, generator=_gen(4)).to(
         dev, torch.bfloat16)
     clip_t = torch.tensor(0.4, device=dev)
     W8 = grid[1]
@@ -217,13 +223,14 @@ def test_b2_bf16_tiles_on_row_shards(dev, grid, shards, md):
                                       q_row0=h0)
         want = ma.flash_mode_attention_plain(ql, k, v, biases, grid, clip_t,
                                              0.5, q_row0=h0)
-        assert got.shape == (2, 4, ql.shape[2], 256)
+        assert got.shape == (2, 4, ql.shape[2], F)
         assert _rel(got, want) <= 2e-2
 
 
 def test_flash_bf16_tiles_reject_what_they_do_not_take(dev):
     """The bf16 body needs md a multiple of 16 and 16-byte aligned
-    tensors; fp32 takes md 24."""
+    tensors; fp32 takes md 24.  Both take F 128 and 256 and refuse any
+    other width (192)."""
     grid = GRIDS[0]
     q, k, biases = _inputs(dev, grid, 24, torch.bfloat16)
     v = torch.randn(2, 4, q.shape[2], 256, generator=_gen(1)).to(
@@ -246,6 +253,28 @@ def test_flash_bf16_tiles_reject_what_they_do_not_take(dev):
         with pytest.raises(ValueError, match="16-byte aligned"):
             fn(q_off)
         fn(q)
+    for F, takes in ((128, True), (192, False)):
+        for dt in (torch.bfloat16, torch.float32):
+            vf = torch.randn(2, 4, q.shape[2], F, generator=_gen(2)).to(
+                dev, dt)
+            for fn in (lambda: ma.flash_mode_attention(
+                           q.to(dt), k.to(dt), vf, biases, grid, clip, 0.5),
+                       lambda: ma.flash_mode_attention_dense(
+                           q.to(dt), k.to(dt), vf, None, clip, 0.5)):
+                if takes:
+                    assert fn().shape == (2, 4, q.shape[2], F)
+                else:
+                    with pytest.raises(ValueError, match="feature dims"):
+                        fn()
+    # The launch itself refuses F = 192 past the wrapper's check.
+    out = torch.empty(2, 4, q.shape[2], 192, dtype=q.dtype, device=dev)
+    v192 = torch.zeros(2, 4, q.shape[2], 192, dtype=q.dtype, device=dev)
+    win = biases.float().contiguous()
+    with pytest.raises(RuntimeError, match="flash_attn_launch"):
+        ma._call("flash_attn_launch", *(launch.ptr(t) for t in (
+            q, k, v192, out, win, clip.reshape(1))), 8, q.shape[2],
+            q.shape[2], 0, 64, 192, grid[1], 7, 0.125, 0.5, 1,
+            launch.stream(q))
 
 
 # B3's grids add ragged widths, the KITTI one (156) among them, whose

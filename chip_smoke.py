@@ -71,7 +71,12 @@ these phases and fails on the first that fails:
      against the CPU within the same bounds.  Then one fp32 training step
      (dropout off, 2 iterations) on the card through the kernels against
      the same step on the CPU through the plain versions: loss, every
-     gradient, batch stats.
+     gradient, batch stats, and its exact launches; the same under lsinu
+     (every site on the plain path: B5 alone).  Then remat_att_sites on
+     against off: one fp32 step with dropout on (128x128, batch 2, 2
+     iterations) of the main config (its recompute relaunches B1, B4, B6)
+     and under lsinu, cuDNN deterministic: the loss and every gradient
+     bit-identical, and a dropout-off step moving them.
   4. main path: craft_config(mixed_precision=True), 436x1024 padded to
      440x1024, 12 iterations, one warm-up pair then 3 seeded frame pairs;
      per-pair ms, frame-pairs/s and peak device memory.  Every kernel's
@@ -80,7 +85,14 @@ these phases and fails on the first that fails:
      training path: the same config at 368x496 (the chairs crops), batch
      8, 12 iterations, dropout at the config's rates, one warm-up step and
      3 timed steps; ms per step, samples/s, peak memory, each step's loss
-     and grad norm, and the launches of its own run.
+     and grad norm, and the launches of its own run (exact, with the
+     attention sites recomputed in the backward: B1 6, B4 4, B6 2, B6
+     backward 1, B7 2, B5 and its backward 12 a step).  Then the training
+     paths at the same crops with remat_att_sites on and off: 3 steps each
+     of the main config, under lsinu and under --f2radius 7, and the main
+     config's --attn_diag step (its three metrics finite, attn_max > 0)
+     followed by a fast step with the training path's launches: device ms
+     a step (CUDA events), peak memory and exact launches.
      Then the dense-table paths: the lsinu config served as the main path
      (3 pairs after a warm-up: 3 launches each of B8, B6 dense and B4
      dense, 9 of B1, 36 of B5, none of B2-B4), and one pair of the main
@@ -133,11 +145,14 @@ these phases and fails on the first that fails:
      training and 4 validation pairs, written by the port's PPM and .flo
      writers under build/chip_smoke_train/) with the chairs stage's flags:
      6 steps with --val_freq 5 (one checkpoint, one chairs validation);
-     the steps' launches (B5 and B5 backward 12 a step; B1, B4, B6, B6
-     backward and B7; no B2 or B3) and the validation's (B1-B5) apart;
+     the steps' launches (the training path's, exact) and the
+     validation's (B1-B5) apart;
      a resume from the checkpoint with --loadopt --loadsched to the same
      step and learning rate; the loader alone; two ranks of the CLI under
-     torch.distributed.run on the one card (gloo), 2 steps, one writer.
+     torch.distributed.run on the one card (gloo), 2 steps, one writer;
+     2 steps under --interpos lsinu --intrapos lsinu --f2radius 7
+     --attn_diag --print_freq 2 (B5 alone; the status line prints the
+     three attention metrics).
      Its step wall and steps/s beside the fixed-batch step wall above,
      the loader's batches/s and the peak memory.
   5. kernel times over CUDA events at the main-path shapes, beside each
@@ -168,6 +183,7 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import io
 import json
 import math
 import os
@@ -1654,19 +1670,24 @@ def check_oracle_lsinu(dev) -> dict:
     return errs
 
 
-def serving_model(dev, variant: str = "main"):
-    """The serving model in eval mode on `dev`, with the oracle's full-width
-    weights: craft_config(mixed_precision=True) ('main'), under lsinu with
-    seeded pos_fc weights in place of the windows ('lsinu'), or under
-    --f2radius F2RADIUS ('f2radius')."""
+def variant_weights(variant: str, mixed_precision: bool):
+    """(config, state_dict) under `variant`: 'main' (craft_config),
+    'lsinu' (every site, the oracle's windows replaced by seeded pos_fc
+    weights) or 'f2radius' (--f2radius F2RADIUS), with the oracle's
+    full-width weights."""
     _, _, _, tree = load_oracle_npz(ORACLE)
     sd = state_dict_from_flax(tree)
     if variant == "lsinu":
-        cfg, sd = lsinu_config(True), lsinu_state_dict(sd)
-    elif variant == "f2radius":
-        cfg = f2radius_config(F2RADIUS)
-    else:
-        cfg = craft_config(mixed_precision=True)
+        return lsinu_config(mixed_precision), lsinu_state_dict(sd)
+    if variant == "f2radius":
+        return f2radius_config(F2RADIUS, mixed_precision), sd
+    return craft_config(mixed_precision=mixed_precision), sd
+
+
+def serving_model(dev, variant: str = "main"):
+    """The serving model in eval mode on `dev`, mixed precision, under
+    `variant` (``variant_weights``)."""
+    cfg, sd = variant_weights(variant, True)
     model = create_model(cfg, device=dev)
     model.load_state_dict(sd, strict=True)
     return model
@@ -1800,10 +1821,30 @@ def dense_paths(dev, n_pairs: int = 3) -> dict:
 # O(1).
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_STATS_TOL = 1e-5, 1e-2, 1e-4
 GROUPS = ("fnet", "cnet", "f2_trans", "att", "corr_fn", "update_block")
-# The kernels a training step launches (B1, B4 float, B5, B6 and B7).
-TRAIN_KERNELS = ("scores_global_max", "mode_softmax_probs", "fused_agg_corr",
-                 "agg_corr_bwd", "probs_bwd", "corr_lookup",
-                 "corr_lookup_bwd")
+# Which sites of a training step take the training kernels (B1 + B4 float
+# with B7 as its backward at the f2 and intra sites, B1 + B6 with its
+# backward at the inter site); the others run the plain path (lsinu, the
+# --f2radius f2 site, every site on the --attn_diag step).
+KERNEL_SITES = {"main": ("f2", "intra", "inter"), "lsinu": (),
+                "f2radius": ("intra", "inter"), "diag": ()}
+
+
+def step_launches(variant: str, remat: bool = True, iters: int = ITERS
+                  ) -> dict:
+    """The hand kernels one training step of `variant` launches, and how
+    many times: B5 and its backward once an iteration; at each kernel
+    site B1 and its forward kernel once in the forward and once more in
+    the backward's recompute (the inter site always, the f2 and intra
+    sites under remat_att_sites), and its backward kernel once."""
+    out = {"corr_lookup": iters, "corr_lookup_bwd": iters}
+    for site in KERNEL_SITES[variant]:
+        fwd, bwd = (("fused_agg_corr", "agg_corr_bwd") if site == "inter"
+                    else ("mode_softmax_probs", "probs_bwd"))
+        n = 2 if remat or site == "inter" else 1
+        for name in ("scores_global_max", fwd):
+            out[name] = out.get(name, 0) + n
+        out[bwd] = out.get(bwd, 0) + 1
+    return out
 
 
 def _no_dropout(cfg):
@@ -1813,13 +1854,13 @@ def _no_dropout(cfg):
                                                        "intra")})
 
 
-def _oracle_train_step(dev, batch):
+def _oracle_train_step(dev, batch, variant="main"):
     """One fp32 training step (dropout off, 2 iterations) from the oracle
-    weights on `dev`: (metrics, {name: gradient}, {name: buffer})."""
-    _, _, _, tree = load_oracle_npz(ORACLE)
-    cfg = _no_dropout(craft_config(mixed_precision=False))
-    state = create_train_state(cfg, state_dict_from_flax(tree), device=dev,
-                               num_steps=100)
+    weights under `variant` on `dev`: (metrics, {name: gradient},
+    {name: buffer})."""
+    cfg, sd = variant_weights(variant, False)
+    cfg = _no_dropout(cfg)
+    state = create_train_state(cfg, sd, device=dev, num_steps=100)
     step = make_train_step(cfg, iters=2)
     state, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
     model = state.model
@@ -1830,9 +1871,10 @@ def _oracle_train_step(dev, batch):
              if "running_" in n})
 
 
-def check_oracle_train(dev) -> None:
-    """Phase 3, training: one fp32 step on the card (kernels) against the
-    same step on the CPU (plain versions)."""
+def check_oracle_train(dev, variant: str = "main") -> None:
+    """Phase 3, training: one fp32 step on the card (kernels; under lsinu
+    the plain path) against the same step on the CPU (plain versions),
+    with its launches."""
     img1, img2, _, _ = load_oracle_npz(ORACLE)
     rng = np.random.RandomState(0)
     batch = {"image1": torch.from_numpy(img1),
@@ -1840,17 +1882,18 @@ def check_oracle_train(dev) -> None:
              "flow": torch.from_numpy(
                  (rng.randn(*img1.shape[:3], 2) * 3).astype(np.float32)),
              "valid": torch.ones(img1.shape[:3])}
+    label = f"oracle train step {variant}"
     launch.reset_launch_counts()
-    got, grads, stats = _oracle_train_step(dev, batch)
+    got, grads, stats = _oracle_train_step(dev, batch, variant)
     counts = launch.launch_counts()
-    want, wgrads, wstats = _oracle_train_step(torch.device("cpu"), batch)
-    print("oracle train step: card", json.dumps(got))
-    print("oracle train step: cpu ", json.dumps(want))
-    print("oracle train step launches:", json.dumps(counts))
+    want, wgrads, wstats = _oracle_train_step(torch.device("cpu"), batch,
+                                              variant)
+    print(f"{label}: card", json.dumps(got))
+    print(f"{label}: cpu ", json.dumps(want))
+    print(f"{label} launches:", json.dumps(counts))
     rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
-    print(f"oracle train step: loss rel diff {rel:.3e} "
-          f"(bound {TRAIN_LOSS_RTOL:g})")
-    assert rel <= TRAIN_LOSS_RTOL, "oracle train step: loss"
+    print(f"{label}: loss rel diff {rel:.3e} (bound {TRAIN_LOSS_RTOL:g})")
+    assert rel <= TRAIN_LOSS_RTOL, f"{label}: loss"
     assert all(np.isfinite(v) for v in got.values())
     bad = []
     for group in GROUPS:
@@ -1861,18 +1904,69 @@ def check_oracle_train(dev) -> None:
         worst = max(names, key=lambda n: float(
             (grads[n] - wgrads[n]).abs().max()
             / wgrads[n].abs().max().clamp(min=1e-30)))
-        print(f"oracle train step: {group} gradient rel diff {err:.3e} "
+        print(f"{label}: {group} gradient rel diff {err:.3e} "
               f"(bound {tol:g}); worst tensor {worst}")
         if err > tol:
             bad.append(group)
-    assert not bad, f"oracle train step: gradients of {bad}"
+    assert not bad, f"{label}: gradients of {bad}"
     serr = max(float(((stats[n] - wstats[n]).abs()
                       / (wstats[n].abs() + 1e-3)).max()) for n in wstats)
-    print(f"oracle train step: batch stats rel diff {serr:.3e} "
+    print(f"{label}: batch stats rel diff {serr:.3e} "
           f"(bound {TRAIN_STATS_TOL:g})")
-    assert serr <= TRAIN_STATS_TOL, "oracle train step: batch stats"
-    for name in TRAIN_KERNELS:
-        assert counts[name] > 0, f"oracle train step: {name} not launched"
+    assert serr <= TRAIN_STATS_TOL, f"{label}: batch stats"
+    _assert_launches(label, counts, step_launches(variant, iters=2), 1)
+
+
+REMAT_HW, REMAT_BATCH = (128, 128), 2
+
+
+def check_remat(dev) -> None:
+    """Phase 3, remat: one fp32 step with dropout on (2 iterations, a
+    seeded 128x128 batch of 2) on the card with remat_att_sites on and off,
+    on the main config (whose recompute relaunches B1, B4 and B6) and under
+    lsinu, with cuDNN deterministic (its default backward sums in another
+    order from run to run: fnet's weight gradients moved by 2.7e-5 of
+    their largest value between the two runs): the loss and every gradient
+    bit-identical; a step with dropout off must move the gradients."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shape = (REMAT_BATCH, *REMAT_HW)
+    batch = {"image1": torch.rand(*shape, 3, generator=gen, device=dev) * 255,
+             "image2": torch.rand(*shape, 3, generator=gen, device=dev) * 255,
+             "flow": torch.randn(*shape, 2, generator=gen, device=dev) * 3,
+             "valid": torch.ones(*shape, device=dev)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for variant in ("main", "lsinu"):
+            _remat_runs(dev, variant, batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _remat_runs(dev, variant, batch) -> None:
+    cfg, sd = variant_weights(variant, False)
+    runs = {}
+    for remat, drop in ((True, True), (False, True), (True, False)):
+        c = cfg.replace(remat_att_sites=remat)
+        if not drop:
+            c = _no_dropout(c)
+        state = create_train_state(c, sd, device=dev, num_steps=100)
+        state, m = make_train_step(c, iters=2, seed=5)(state, batch)
+        runs[remat, drop] = (host_metrics(m)["loss"], {
+            n: p.grad.detach().clone()
+            for n, p in state.model.named_parameters()})
+        del state
+    (l_on, g_on), (l_off, g_off) = runs[True, True], runs[False, True]
+    l_still, g_still = runs[True, False]
+    differ = [n for n in g_on if not torch.equal(g_on[n], g_off[n])]
+    moved = max(float((g_still[n] - g_on[n]).abs().max()
+                      / g_on[n].abs().max().clamp(min=1e-30)) for n in g_on)
+    print(f"remat {variant}: loss on {l_on!r} off {l_off!r}; gradients "
+          f"that differ: {differ}; dropout off moves them by up to "
+          f"{moved:.3e} (loss {l_still!r})")
+    assert l_on == l_off, f"remat {variant}: loss"
+    assert not differ, f"remat {variant}: gradients"
+    assert moved > 1e-2, f"remat {variant}: masks"
 
 
 def train_batch(dev, seed: int = 0) -> dict:
@@ -1886,15 +1980,18 @@ def train_batch(dev, seed: int = 0) -> dict:
             "valid": torch.ones(*shape, device=dev)}
 
 
-def train_setup(dev):
-    """(state, step, batch) of the training path:
-    craft_config(mixed_precision=True) with the oracle's full-width weights,
-    dropout at the config's rates, 12 iterations, a chairs-size batch."""
-    _, _, _, tree = load_oracle_npz(ORACLE)
-    cfg = craft_config(mixed_precision=True)
-    state = create_train_state(cfg, state_dict_from_flax(tree), device=dev,
-                               num_steps=1000)
-    return state, make_train_step(cfg, iters=ITERS), train_batch(dev)
+def train_setup(dev, variant: str = "main", remat: bool = True,
+                attn_diag: bool = False):
+    """(state, step, batch) of the training path: craft_config(
+    mixed_precision=True) under `variant` ('main', 'lsinu', 'f2radius';
+    ``variant_weights``) with the oracle's full-width weights, dropout at
+    the config's rates, remat_att_sites as given, 12 iterations, a
+    chairs-size batch; `attn_diag` gives the diagnostics step."""
+    cfg, sd = variant_weights(variant, True)
+    cfg = cfg.replace(remat_att_sites=remat)
+    state = create_train_state(cfg, sd, device=dev, num_steps=1000)
+    return (state, make_train_step(cfg, iters=ITERS, attn_diag=attn_diag),
+            train_batch(dev))
 
 
 def train_steps(state, step, batch, n: int):
@@ -1927,13 +2024,81 @@ def train_path(dev, n_steps: int = 3) -> dict:
            "launches_per_step": {k: v / n_steps for k, v in counts.items()}}
     print("training path:", json.dumps(res))
     assert all(math.isfinite(x) for x in losses + norms), "non-finite step"
-    for name in TRAIN_KERNELS:
-        assert counts[name] > 0, f"{name} was not launched on the train path"
-    for name in ("flash_mode_attention", "fused_agg_corr_norm"):
-        assert counts[name] == 0, f"{name} was launched on the train path"
-    for name in ("corr_lookup", "corr_lookup_bwd"):
-        assert counts[name] == ITERS * n_steps, f"B5 {name}: 12 per step"
+    _assert_launches("training path", counts, step_launches("main"),
+                     n_steps)
     res["launches"] = counts
+    return res
+
+
+def _event_steps(state, step, batch, n: int):
+    """n steps, each between two CUDA events: (state, each step's device
+    ms, each step's host metrics)."""
+    ms, metrics = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        metrics.append(host_metrics(m))
+    return state, ms, metrics
+
+
+DENSE_TRAIN_STEPS = 3
+
+
+def dense_train_phase(dev) -> dict:
+    """Phase 4, the training paths of the plain sites at the chairs crops
+    (368x496, batch 8, 12 iterations, dropout at the config's rates), each
+    with remat_att_sites on and off: DENSE_TRAIN_STEPS steps of the main
+    config (the kernel sites, for comparison), under lsinu (every site
+    plain) and under --f2radius F2RADIUS (the f2 site plain) after a
+    warm-up step; then the main config's --attn_diag step (every site
+    plain) after its warm-up, with its three metrics, followed by one fast
+    step whose launches must be the training path's.  Each run's
+    device ms a step (CUDA events around the step), its peak memory (from
+    after its warm-up) and its launches, which must be ``step_launches``."""
+    res = {}
+    runs = [(v, r, False) for v in ("main", "lsinu", "f2radius")
+            for r in (True, False)] + [("main", r, True) for r in (True,
+                                                                  False)]
+    for variant, remat, diag in runs:
+        label = (f"train {'diag' if diag else variant} remat "
+                 f"{'on' if remat else 'off'}")
+        state, step, batch = train_setup(dev, variant, remat, diag)
+        state, _, _ = _event_steps(state, step, batch, 1)  # warm-up
+        n = 1 if diag else DENSE_TRAIN_STEPS
+        torch.cuda.reset_peak_memory_stats()
+        launch.reset_launch_counts()
+        state, ms, metrics = _event_steps(state, step, batch, n)
+        counts = launch.launch_counts()
+        r = {"step_device_ms": ms,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "loss": [m["loss"] for m in metrics],
+             "launches": {k: c for k, c in counts.items() if c}}
+        if diag:
+            r.update({k: metrics[0][k] for k in ("attn_max",
+                                                 "attn_clamp_frac",
+                                                 "attn_avg_abs")})
+        print(f"{label}:", json.dumps(r))
+        assert all(math.isfinite(v) for m in metrics for v in m.values()), \
+            f"{label}: non-finite metrics"
+        _assert_launches(label, counts,
+                         step_launches("diag" if diag else variant, remat), n)
+        if diag:
+            assert r["attn_max"] > 0, f"{label}: attn_max"
+            fast = make_train_step(state.model.cfg, iters=ITERS)
+            launch.reset_launch_counts()
+            state, fms, _ = _event_steps(state, fast, batch, 1)
+            _assert_launches(f"{label}, the fast step after it",
+                             launch.launch_counts(),
+                             step_launches("main", remat), 1)
+            r["fast_step_device_ms"] = fms
+        res[label] = r
+        del state, step, batch
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2764,15 +2929,17 @@ def loader_rate(root, n_warm: int = 8, n_batches: int = 24) -> dict:
 def train_cli_phase(dev, fixed_step_ms) -> dict:
     """The training CLI on the card: (1) CLI_STEPS steps of the chairs stage
     with --val_freq CLI_VAL_FREQ (one checkpoint, one chairs validation on
-    VAL_PAIRS pairs); B5 and its backward 12 a step, B1, B4, B6, B6
-    backward and B7 launched, B2 and B3 not, during the steps; B1-B5 during
-    the validation; (2) a resume from that checkpoint with --loadopt
-    --loadsched for the last 2 steps, which must end at the uninterrupted
-    run's step and learning rate; (3) the loader alone; (4) two ranks of
-    the CLI on the one card under torch.distributed.run (gloo), 2 steps,
-    only rank 0 writing.  Prints the CLI's step wall beside phase 4's
-    fixed-batch step wall (`fixed_step_ms`), the loader's batches/s and the
-    peak memory."""
+    VAL_PAIRS pairs), each step's launches those of ``step_launches``;
+    B1-B5 during the validation; (2) a resume from that checkpoint with
+    --loadopt --loadsched for the last 2 steps, which must end at the
+    uninterrupted run's step and learning rate; (3) the loader alone; (4)
+    two ranks of the CLI on the one card under torch.distributed.run
+    (gloo), 2 steps, only rank 0 writing; (5) 2 steps under --interpos
+    lsinu --intrapos lsinu --f2radius F2RADIUS --attn_diag --print_freq 2:
+    the diagnostics step at step 0, its status line with the three
+    metrics, only B5 and its backward launched.  Prints the CLI's step
+    wall beside phase 4's fixed-batch step wall (`fixed_step_ms`), the
+    loader's batches/s and the peak memory."""
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     data = TRAIN_DIR / "data"
     write_chairs(data, TRAIN_PAIRS, VAL_PAIRS, CHAIRS_HW)
@@ -2785,12 +2952,7 @@ def train_cli_phase(dev, fixed_step_ms) -> dict:
     print("train cli: steps' launches", json.dumps(steps))
     print("train cli: validation's launches", json.dumps(val))
     assert run["state"].step == CLI_STEPS
-    for name in ("corr_lookup", "corr_lookup_bwd"):
-        assert steps[name] == ITERS * CLI_STEPS, f"train cli: {name}"
-    for name in TRAIN_KERNELS:
-        assert steps[name] > 0, f"train cli: {name} not launched"
-    for name in ("flash_mode_attention", "fused_agg_corr_norm"):
-        assert steps[name] == 0, f"train cli: {name} launched in a step"
+    _assert_launches("train cli", steps, step_launches("main"), CLI_STEPS)
     for name in SERVE_KERNELS:  # the chairs validation, mixed precision
         assert val[name] > 0, f"train cli validation: {name} not launched"
     assert val["corr_lookup"] == ITERS * VAL_PAIRS
@@ -2823,6 +2985,25 @@ def train_cli_phase(dev, fixed_step_ms) -> dict:
     # (Plots, where matplotlib imports, go there too.)
     assert [f for f in os.listdir(out) if not f.endswith(".png")] == [
         "smoke.pth"]
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dense = _instrumented_cli(TRAIN_CLI_ARGS + [
+            "--data_root", str(data), "--device", str(dev), "--num_steps",
+            "2", "--val_freq", "1000", "--print_freq", "2", "--interpos",
+            "lsinu", "--intrapos", "lsinu", "--f2radius", str(F2RADIUS),
+            "--attn_diag", "--output", str(TRAIN_DIR / "dense")])
+    log = buf.getvalue()
+    print(log, end="")
+    print("train cli dense + diag: steps' launches",
+          json.dumps(dense["steps"]), "peak", dense["max_memory_allocated"])
+    assert dense["state"].step == 2
+    _assert_launches("train cli dense", dense["steps"],
+                     step_launches("lsinu"), 2)
+    status = [ln for ln in log.splitlines() if ln.startswith("[")]
+    assert len(status) == 1 and all(
+        f"{k} " in status[0] for k in ("attn_max", "attn_clamp_frac",
+                                       "attn_avg_abs")), "train cli diag"
 
     res = {"cli_step_ms": run["step_ms"],
            "cli_steps_per_s": 1e3 / run["step_ms"],
@@ -3853,6 +4034,8 @@ def main() -> int:
     check_oracle(dev)
     check_oracle_lsinu(dev)
     check_oracle_train(dev)
+    check_oracle_train(dev, "lsinu")
+    check_remat(dev)
     res = main_path(dev)
     for name, n in res["launches"].items():
         report[name]["launches"] = n
@@ -3867,6 +4050,7 @@ def main() -> int:
                  "corr_lookup_bwd"):
         report[name]["launches"] = tres["launches"][name]
     torch.cuda.empty_cache()
+    dense_train_phase(dev)
     gres = gru_path(dev)
     report["gru_pass_fwd"]["launches"] = \
         gres["serving torch.bfloat16"]["gru_pass_fwd"]

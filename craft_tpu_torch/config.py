@@ -46,6 +46,9 @@ class SETransSiteConfig:
     # tokens of every site, and on the probs of the f2 and intra sites.
     hidden_dropout_prob: float = 0.1
     attention_probs_dropout_prob: float = 0.2
+    # Stochastic depth on the pooled output before the input skip
+    # (reference setrans.py:42-69; off by default).
+    drop_path_prob: float = 0.0
 
     @property
     def mode_dim(self) -> int:
@@ -94,9 +97,11 @@ def intra_attn_config(num_modes: int = 4, pos_code_type: str = "bias",
 
 def intra_aggregator_config(cfg: SETransSiteConfig) -> SETransSiteConfig:
     """The motion aggregator reuses the intra config but consumes the probs
-    it is given (reference update.py:129-135): same dims, feature output."""
+    it is given (reference update.py:129-135): same dims, feature output.
+    It runs deterministic in the JAX package (craft_tpu/nn/update.py:349),
+    so it takes no drop_path."""
     return dataclasses.replace(cfg, out_attn_probs_only=False,
-                               out_attn_scores_only=False)
+                               out_attn_scores_only=False, drop_path_prob=0.0)
 
 
 @dataclass(frozen=True)
@@ -120,6 +125,10 @@ class ModelConfig:
     dropout: float = 0.0          # fnet/cnet Dropout2d rate (training)
     mixed_precision: bool = True  # bf16 compute islands, fp32 correlation
     upsample_mode: str = "all"    # 'all' | 'final'
+    # Training recomputes the f2 and intra sites in the backward
+    # (torch.utils.checkpoint) instead of keeping their activations, as the
+    # JAX package's nn.remat (the inter site is recomputed always).
+    remat_att_sites: bool = True
 
     @property
     def corr_multiplier(self) -> int:

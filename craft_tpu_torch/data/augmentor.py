@@ -29,11 +29,10 @@ these gives the same bits as the arithmetic it replaces.
 from __future__ import annotations
 
 import functools
+import math
 import random
 
 import numpy as np
-
-from craft_tpu_torch.cli import ROADMAP_TRAIN, not_ported
 
 _F32 = np.float32
 
@@ -303,6 +302,65 @@ def resize_linear(img: np.ndarray, fx: float = 0.0, fy: float = 0.0,
 
 
 # ---------------------------------------------------------------------------
+# cv2.GaussianBlur on uint8 images
+# ---------------------------------------------------------------------------
+
+def gaussian_kernel_q8(ksize: int, sigma: float) -> np.ndarray:
+    """OpenCV's fixed-point Gaussian kernel for uint8 images (odd `ksize`,
+    sigma > 0): the taps of getGaussianKernelBitExact in double precision,
+    rounded to 8 fractional bits half to even with each tap's rounding
+    error carried into the next, symmetric, the centre 256 minus the
+    rest (getGaussianKernelFixedPoint_ED).  int64 [ksize], summing to
+    256."""
+    half = ksize // 2
+    var = sigma * sigma
+    # A sigma whose square underflows divides by zero in C: -inf.
+    scale = -0.125 / var if var > 0.0 else -math.inf
+    taps = [math.exp(float(x * x) * scale)
+            for x in range(1 - ksize, 0, 2)]  # x = 2 * (i - half)
+    total = 0.0
+    for t in taps:  # in order, as OpenCV (sum() compensates since 3.12)
+        total += t
+    total = total * 2.0 + 1.0
+    inv = 1.0 / total
+    out = np.zeros(ksize, np.int64)
+    err = 0.0
+    for i, t in enumerate(taps):
+        adj = t * inv * 256.0 + err
+        v = round(adj)  # half to even, as cvRound
+        err = adj - v
+        out[i] = out[ksize - 1 - i] = v
+    out[half] = 256 - 2 * int(out[:half].sum())
+    return out
+
+
+def _reflect_101(idx: np.ndarray, n: int) -> np.ndarray:
+    """OpenCV's BORDER_REFLECT_101 (borderInterpolate), reflected again
+    until inside, for extents shorter than the kernel."""
+    if n == 1:
+        return np.zeros_like(idx)
+    period = 2 * (n - 1)
+    idx = np.mod(idx, period)
+    return np.where(idx < n, idx, period - idx)
+
+
+def gaussian_blur(img: np.ndarray, ksize: int, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (ksize, ksize), sigma)`` of a uint8 [H, W]
+    or [H, W, C] image, bit for bit: rows, then columns, each a sum of
+    taps of ``gaussian_kernel_q8`` (8 fractional bits, then 16), rounded
+    once at the end."""
+    k = gaussian_kernel_q8(ksize, sigma)
+    offsets = np.arange(ksize) - ksize // 2
+    H, W = img.shape[:2]
+    x = img.astype(np.int32)
+    cols = _reflect_101(np.arange(W)[:, None] + offsets, W)
+    rows = _reflect_101(np.arange(H)[:, None] + offsets, H)
+    h = sum(x[:, cols[:, j]] * int(k[j]) for j in range(ksize))
+    v = sum(h[rows[:, j]] * int(k[j]) for j in range(ksize))
+    return ((v + (1 << 15)) >> 16).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
 # Augmentors
 # ---------------------------------------------------------------------------
 
@@ -375,9 +433,6 @@ class FlowAugmentor:
     def __init__(self, ds_name, crop_size, min_scale=-0.2, max_scale=0.5,
                  spatial_aug_prob=0.8, blur_kernel=5, blur_sigma=-1,
                  do_flip=True, shift_prob=0.0, shift_sigmas=(16, 10)):
-        if blur_sigma > 0:
-            raise not_ported("FlowAugmentor(blur_sigma > 0) (the Gaussian "
-                             "blur)", ROADMAP_TRAIN)
         self.ds_name = ds_name
         self.crop_size = crop_size
         self.min_scale = min_scale
@@ -393,6 +448,8 @@ class FlowAugmentor:
         self.photo_aug = ColorJitter(0.4, 0.4, 0.4, 0.5 / 3.14)
         self.asymmetric_color_aug_prob = 0.2
         self.eraser_aug_prob = 0.5
+        self.blur_kernel = blur_kernel
+        self.blur_sigma = blur_sigma
 
     def color_transform(self, img1, img2):
         if np.random.rand() < self.asymmetric_color_aug_prob:
@@ -451,6 +508,9 @@ class FlowAugmentor:
         if self.shift_prob > 0 and random.random() < self.shift_prob:
             img1, img2, flow, valid = random_shift(img1, img2, flow,
                                                    self.shift_sigmas)
+        if self.blur_sigma > 0:
+            img1, img2 = (gaussian_blur(x, self.blur_kernel, self.blur_sigma)
+                          for x in (img1, img2))
         return (np.ascontiguousarray(img1), np.ascontiguousarray(img2),
                 np.ascontiguousarray(flow), valid)
 

@@ -12,7 +12,13 @@ in one kernel call (B3).  Otherwise (train mode, or an inter site under
 pos_code_type 'lsinu') it is the raw volume (B6, or B6 dense in eval),
 normed by ``build_pyramid``.  In train mode (``model.train()``) cnet's
 BatchNorm takes batch statistics unless ``freeze_bn``; dropout draws from
-the `generator` passed to forward.  The correlation is an fp32 island; pyramid
+the `generator` passed to forward.  In train mode the inter site, and with
+``remat_att_sites`` (the default) the f2 and intra sites, keep none of
+their activations: the backward recomputes them (``torch.utils.
+checkpoint``) from the same dropout draws, as the JAX package's
+``nn.remat``.  A forward given an ``AttentionDiagnostics`` (train mode)
+runs every site through the plain path and records its telemetry.  The
+correlation is an fp32 island; pyramid
 levels are stored bf16 under mixed precision; coords stay fp32 and are
 detached every iteration.
 
@@ -34,6 +40,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from craft_tpu_torch import resolve_device
 from craft_tpu_torch.config import ModelConfig
@@ -66,12 +73,38 @@ class TransCorr(nn.Module):
         return not self.training and self.pos_code_type == "bias"
 
     def forward(self, fmap1, fmap2, out_dtype=torch.float32, generator=None,
-                shard=None):
+                shard=None, diagnostics=None):
         vispos1, pos_biases = self.vispos_encoder(fmap1, generator)
         vispos2, _ = self.vispos_encoder(fmap2, generator)
         return self.setrans(vispos1, vispos2, pos_biases=pos_biases,
                             out_dtype=out_dtype, generator=generator,
-                            shard=shard)
+                            shard=shard, diagnostics=diagnostics)
+
+
+def recomputed(fn, generator, /, *args, **kwargs):
+    """fn(*args, **kwargs) under ``torch.utils.checkpoint``: its activations
+    are freed and recomputed in the backward.  ``checkpoint`` restores only
+    the default generators, so the recompute also runs from `generator`'s
+    state at this call (the same dropout masks), and leaves it where the
+    backward found it."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    start = generator.get_state()
+    calls = 0
+
+    def run(*a, **kw):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return fn(*a, **kw)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a, **kw)
+        finally:
+            generator.set_state(resume)
+
+    return checkpoint(run, *args, use_reentrant=False, **kwargs)
 
 
 class FlowModel(nn.Module):
@@ -107,7 +140,8 @@ class FlowModel(nn.Module):
 
     def forward(self, image1, image2, iters: Optional[int] = None,
                 flow_init=None, upsample_mode: Optional[str] = None,
-                generator=None, seq_parallel=None, data_parallel=None):
+                generator=None, seq_parallel=None, data_parallel=None,
+                diagnostics=None):
         """image1/image2: [B, H, W, 3] floats in [0, 255] on the model's
         device.  Returns (flow_lowres [B, H/8, W/8, 2], flows_up
         [iters, B, H, W, 2]); with upsample_mode='final' only the last
@@ -116,7 +150,9 @@ class FlowModel(nn.Module):
         every training dropout mask.  `seq_parallel` (a SeqParallel group,
         eval only) splits the grid's rows across its ranks; every rank
         returns the whole flow.  `data_parallel` (a group, training) makes
-        cnet's BatchNorm take its moments over every rank's batch."""
+        cnet's BatchNorm take its moments over every rank's batch.
+        `diagnostics` (an AttentionDiagnostics, training) collects the
+        attention sites' telemetry."""
         cfg = self.cfg
         iters = iters or cfg.iters
         upsample_mode = upsample_mode or cfg.upsample_mode
@@ -138,14 +174,23 @@ class FlowModel(nn.Module):
             cnet = self.cnet(image1, generator, data_parallel)
             net = torch.tanh(cnet[..., :hdim])
             inp = torch.relu(cnet[..., hdim:])
+
+        def site(module, remat, *args, **kwargs):
+            if self.training and remat:
+                return recomputed(module, generator, *args, **kwargs)
+            return module(*args, **kwargs)
+
         with record_function("craft.f2_trans"):
-            fmap2 = self.f2_trans(fmap2, generator, shard)
+            fmap2 = site(self.f2_trans, cfg.remat_att_sites, fmap2,
+                         generator, shard, diagnostics)
             fmap1, fmap2 = fmap1.float(), fmap2.float()
         with record_function("craft.intra_attention"):
-            attention = self.att(inp, generator, shard)
+            attention = site(self.att, cfg.remat_att_sites, inp, generator,
+                             shard, diagnostics)
         with record_function("craft.corr_volume"):
-            vol = self.corr_fn(fmap1, fmap2, out_dtype=lvl_dtype,
-                               generator=generator, shard=shard)
+            vol = site(self.corr_fn, True, fmap1, fmap2, out_dtype=lvl_dtype,
+                       generator=generator, shard=shard,
+                       diagnostics=diagnostics)
             if self.corr_fn.prenormed():
                 pyramid = pyramid_from_level0(vol, B, H8, W8,
                                               cfg.corr_levels,

@@ -144,3 +144,16 @@ def dropout2d(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
     B, C = x.shape[0], x.shape[-1]
     mask = _keep_mask((B, 1, 1, C), keep, generator, x.device)
     return x * mask.to(x.dtype) / keep
+
+
+def drop_path(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+    """Stochastic depth per sample (``craft_tpu.nn.setrans.drop_path``;
+    reference setrans.py:42-69): each sample (the leading axis) kept with
+    probability 1 - rate, as x / (1 - rate), else zero; the keeps drawn
+    from `generator`."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return x / keep * mask.to(x.dtype)

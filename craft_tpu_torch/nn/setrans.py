@@ -30,16 +30,23 @@ rows of the normed volume (B9 in place of B3,
 ``craft_tpu_torch.parallel.sequence_parallel``), the intra site the shard's
 rows of the probs, and the f2 site its rows of the output gathered to every
 rank.
-In train mode every site is differentiable: the inter site gives the raw
+In train mode every site is differentiable.  With the sliding bias and no
+mask the sites take the training kernels: the inter site gives the raw
 aggregated volume of B6 (its backward a kernel too), the f2 and intra sites
 float probs in the compute dtype from B4 with B7 as their backward
 (``quantize_probs`` is ignored), then attention dropout; the f2 site feeds
-the materialized probs to ExpandedFeatTrans.  Hidden dropout follows the
-token layer norm of every site.  Training under lsinu or an f2 mask is not
-ported (ROADMAP.md section 2, item 7).  The conditional clamp (only when the
-batch-global max exceeds attn_clip, reference setrans.py:527-529) takes its
-predicate from B1 on detached q and k, and stays on the device.  Module and
-parameter names are the reference's.
+the materialized probs to ExpandedFeatTrans.  A site without a sliding
+bias (lsinu) or with a mask (--f2radius), and every site when an
+AttentionDiagnostics collects (--attn_diag), trains through stock autograd
+over the materialised fp32 scores instead, the JAX package's XLA path:
+clamp, + pos_w * the dense sliding bias, + the mask, then the mode
+aggregation (inter) or the softmax and dropout (f2, intra).  Hidden
+dropout follows the token layer norm of every site; drop_path_prob drops
+whole samples of the f2 site's pooled output before its input skip.  The
+conditional clamp (only when the batch-global max exceeds attn_clip,
+reference setrans.py:527-529) takes its predicate from B1 on detached q
+and k on the kernel paths, and stays on the device.  Module and parameter
+names are the reference's.
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ import torch
 import torch.nn as nn
 
 from craft_tpu_torch.config import SETransSiteConfig
-from craft_tpu_torch.nn.layers import dropout, layer_norm, linear
+from craft_tpu_torch.nn.layers import (drop_path, dropout, layer_norm,
+                                       linear)
 from craft_tpu_torch.ops.kernels.corr_vjp import (fused_agg_corr_dense,
                                                   fused_agg_corr_diff)
 from craft_tpu_torch.ops.kernels.mode_attention import (
@@ -62,10 +70,6 @@ from craft_tpu_torch.ops.kernels.probs_vjp import mode_softmax_probs_diff
 from craft_tpu_torch.parallel.sequence_parallel import \
     sp_fused_agg_corr_norm_mt
 
-NOT_PORTED_TRAIN = (
-    "training with pos_code_type='lsinu' or an f2 attention mask "
-    "(--interpos/--intrapos lsinu, --f2radius) is not ported to "
-    "craft_tpu_torch yet: see ROADMAP.md section 2, item 7.")
 NOT_PORTED_SP = (
     "sequence parallelism in training, with pos_code_type='lsinu' or with "
     "an f2 attention mask (--seq_parallel with --interpos/--intrapos lsinu "
@@ -117,6 +121,37 @@ class LazyModeAttention(NamedTuple):
     W: int
     clip: torch.Tensor    # 0-d: attn_clip, or 1e30 (no clamp)
     pos_w: float
+
+
+class AttentionDiagnostics:
+    """Attention-health telemetry of one forward (the JAX package's
+    'diagnostics' sows, craft_tpu/nn/setrans.py:347-354, and their summary,
+    craft_tpu/training/train_step.py:52-72).  Passed down a training
+    forward, it sends every site through the plain path, where each records
+    its raw max score, its mean |score| after the clamp and the share of
+    scores at the clip, as 0-d device tensors (no host copy).  Read
+    ``summary()`` before the backward: under remat_att_sites the recompute
+    records the sites again."""
+
+    def __init__(self):
+        self.sites = []
+
+    def record(self, max_attn: torch.Tensor, scores: torch.Tensor,
+               clip: float) -> None:
+        with torch.no_grad():
+            a = scores.abs()
+            clamped = (a >= clip).sum(dtype=torch.float64) / a.numel()
+            self.sites.append((max_attn.float(), a.mean(),
+                               clamped.float()))
+
+    def summary(self) -> dict:
+        """attn_max (the max over the sites), attn_clamp_frac and
+        attn_avg_abs (their means)."""
+        max_attn, avg_abs, clamp_frac = (torch.stack(v)
+                                         for v in zip(*self.sites))
+        return {"attn_max": max_attn.max(),
+                "attn_clamp_frac": clamp_frac.mean(),
+                "attn_avg_abs": avg_abs.mean()}
 
 
 class SlidingPosBiases2D(nn.Module):
@@ -231,7 +266,9 @@ class ExpandedFeatTrans(nn.Module):
     [B, U2, C]; attention: probs [B, M, U1, U2], QuantizedProbs,
     LazyModeAttention (B2 against v, its output in the compute dtype, as
     craft_tpu/nn/setrans.py:826-836), or None with `attention_fn` mapping
-    v [B, M, U2, F] to [B, M, U1, F].  Under
+    v [B, M, U2, F] to [B, M, U1, F].  In training, drop_path_prob drops
+    whole samples of the pooled output (drawn from `generator`) before the
+    input skip.  Under
     sequence parallelism U1 is the `shard`'s rows: the input skip takes
     those rows of input_feat, and the output is gathered to every rank as
     [B, U2, F]."""
@@ -252,7 +289,7 @@ class ExpandedFeatTrans(nn.Module):
             self.input_skip_coeff = nn.Parameter(torch.ones(1))
 
     def forward(self, input_feat, attention=None, attention_fn=None,
-                shard=None):
+                shard=None, generator=None):
         cfg, dt = self.cfg, self.dtype
         B, U2, _ = input_feat.shape
         M, F = cfg.num_modes, cfg.feat_dim
@@ -273,6 +310,8 @@ class ExpandedFeatTrans(nn.Module):
             fused = attention.to(dt) @ v
         pooled = self.feat_softaggr(fused)
         if cfg.has_input_skip:
+            if self.training:
+                pooled = drop_path(pooled, cfg.drop_path_prob, generator)
             skip = input_feat if shard is None else shard.tokens(input_feat)
             pooled = self.input_skip_coeff.to(dt) * skip + pooled
             pooled = layer_norm(pooled, dtype=dt)
@@ -326,7 +365,7 @@ class CrossAttFeatTrans(nn.Module):
 
     def forward(self, query_feat, key_feat=None, pos_biases=None,
                 out_dtype=None, generator=None, attention_mask=None,
-                shard=None):
+                shard=None, diagnostics=None):
         """Scores-only site: the normed [B, U1, U2] volume in `out_dtype`
         (eval with the sliding bias), or the raw fp32 one (train, or no
         sliding bias).  Probs-only site: [B, M, U1, U2] probs or
@@ -337,7 +376,9 @@ class CrossAttFeatTrans(nn.Module):
         SlidingBias or None (pos_code_type 'lsinu'); `attention_mask` an
         additive fp32 [U1, U2] table (the f2 site's --f2radius) or None.
         `generator` draws the attention dropout in training.  `shard` (a
-        RowShard) takes the queries from this rank's rows of query_feat."""
+        RowShard) takes the queries from this rank's rows of query_feat.
+        `diagnostics` (an AttentionDiagnostics, training) records the
+        scores' telemetry and sends the site through the plain path."""
         cfg = self.cfg
         if key_feat is None:
             key_feat = query_feat
@@ -347,8 +388,10 @@ class CrossAttFeatTrans(nn.Module):
         q, k = self._qk(query_feat if shard is None
                         else shard.tokens(query_feat), key_feat)
         if self.training:
-            if dense:
-                raise NotImplementedError(NOT_PORTED_TRAIN)
+            if dense or diagnostics is not None:
+                return self._plain_train_forward(q, k, key_feat, pos_biases,
+                                                 attention_mask, generator,
+                                                 diagnostics)
             return self._train_forward(q, k, key_feat, pos_biases, generator)
         if dense:
             return self._dense_forward(q, k, key_feat, pos_biases,
@@ -430,7 +473,40 @@ class CrossAttFeatTrans(nn.Module):
         probs = dropout(probs, cfg.attention_probs_dropout_prob, generator)
         if cfg.out_attn_probs_only:
             return probs
-        return self.out_trans(key_feat, attention=probs)
+        return self.out_trans(key_feat, attention=probs, generator=generator)
+
+    def _plain_train_forward(self, q, k, key_feat, pos_biases,
+                             attention_mask, generator, diagnostics):
+        """Training through stock autograd over the materialised scores,
+        the JAX package's XLA path (craft_tpu/nn/setrans.py:335-367,
+        437-470): scores in fp32, the clamp, + pos_w * the dense sliding
+        bias, + the mask; the inter site's mode aggregation, or the f2 and
+        intra sites' softmax, cast to the compute dtype, and dropout."""
+        cfg = self.cfg
+        # fp32 operands (an exact cast): the JAX einsum accumulates and
+        # returns fp32, where a bf16 matmul would round the scores to bf16.
+        scores = q.float() @ k.float().transpose(-1, -2) \
+            / math.sqrt(cfg.mode_dim)
+        max_attn = scores.detach().amax()
+        scores = torch.where(max_attn > cfg.attn_clip,
+                             scores.clamp(-cfg.attn_clip, cfg.attn_clip),
+                             scores)
+        if diagnostics is not None:
+            diagnostics.record(max_attn, scores, cfg.attn_clip)
+        if pos_biases is not None:
+            scores = scores + cfg.pos_code_weight * sliding_pos_biases(
+                pos_biases.biases.float(), pos_biases.H, pos_biases.W)
+        if attention_mask is not None:
+            scores = scores + attention_mask
+        if cfg.out_attn_scores_only:
+            agg_w, agg_b = self.attn_softaggr.scalar_wb()
+            probs = torch.softmax(scores * agg_w + agg_b, dim=1)
+            return (scores * probs).sum(dim=1)
+        probs = torch.softmax(scores, dim=-1).to(self.dtype)
+        probs = dropout(probs, cfg.attention_probs_dropout_prob, generator)
+        if cfg.out_attn_probs_only:
+            return probs
+        return self.out_trans(key_feat, attention=probs, generator=generator)
 
 
 class SelfAttVisPosTrans(nn.Module):
@@ -446,7 +522,8 @@ class SelfAttVisPosTrans(nn.Module):
         self.vispos_encoder = InputFeatEncoder(cfg, dtype)
         self.setrans = CrossAttFeatTrans(cfg, dtype)
 
-    def forward(self, x: torch.Tensor, generator=None, shard=None):
+    def forward(self, x: torch.Tensor, generator=None, shard=None,
+                diagnostics=None):
         B, H, W, C = x.shape
         mask = None
         if self.cfg.attn_mask_radius > 0:
@@ -454,7 +531,7 @@ class SelfAttVisPosTrans(nn.Module):
         tokens, pos_biases = self.vispos_encoder(x, generator)
         out = self.setrans(tokens, pos_biases=pos_biases,
                            generator=generator, attention_mask=mask,
-                           shard=shard)
+                           shard=shard, diagnostics=diagnostics)
         if not self.cfg.out_attn_only:
             out = out.reshape(B, H, W, C)
         return out

@@ -15,7 +15,8 @@ reductions across ranks:
   * the gradients are summed in one flat all-reduce and divided by the
     world size (the global batch's mean) before the global-norm clip;
   * the loss and the flow metrics are reduced as numerators and
-    denominators (``sum_over_ranks``).
+    denominators (``sum_over_ranks``), the --attn_diag step's max score
+    by ``max_over_ranks``.
 """
 
 from __future__ import annotations
@@ -50,6 +51,13 @@ def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
     """The sum of x over the ranks (no gradient)."""
     out = x.detach().clone()
     dist.all_reduce(out)
+    return out
+
+
+def max_over_ranks(x: torch.Tensor) -> torch.Tensor:
+    """The max of x over the ranks (no gradient)."""
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX)
     return out
 
 

@@ -16,9 +16,11 @@ line, one host copy every --print_freq steps.  Every --val_freq steps rank
 plots; at the end it writes <output>/<name>.pth.  Under torchrun each rank
 takes --batch_size samples of its shard of each epoch, and the step is the
 JAX package's step over all the ranks' samples (``parallel/
-data_parallel.py``).  What the port does not run yet exits before training
-starts, naming its ROADMAP.md item.  --restore_ckpt takes a .pth; a
-checkpoint directory of the JAX package is refused, naming
+data_parallel.py``).  --attn_diag runs the diagnostics step every
+--print_freq-th step, and the status line prints attn_max,
+attn_clamp_frac and attn_avg_abs.  What the port does not run yet exits
+before training starts, naming its ROADMAP.md item.  --restore_ckpt takes
+a .pth; a checkpoint directory of the JAX package is refused, naming
 tools/jax_checkpoint_to_pth.py, which converts it.
 """
 
@@ -33,8 +35,7 @@ import numpy as np
 import torch
 
 from craft_tpu_torch import resolve_device
-from craft_tpu_torch.cli import (ROADMAP_ARCHS, ROADMAP_TRAIN,
-                                 ROADMAP_TRAIN_DENSE, add_model_args,
+from craft_tpu_torch.cli import (ROADMAP_ARCHS, add_model_args,
                                  model_config_from_args, not_ported,
                                  refuse_jax_checkpoint)
 from craft_tpu_torch.data.datasets import (TRAINING_STAGES,
@@ -101,21 +102,11 @@ def parse_args(argv=None):
 
 
 def _check_ported(args) -> None:
-    """Exit, naming the ROADMAP.md item, on what training does not run."""
-    checks = [
-        ("--attn_diag (the diagnostics step)", args.attn_diag,
-         ROADMAP_TRAIN),
-        ("training under --interpos/--intrapos lsinu",
-         "lsinu" in (args.inter_pos_code_type, args.intra_pos_code_type),
-         ROADMAP_TRAIN_DENSE),
-        ("training under --f2radius", args.f2_attn_mask_radius > 0,
-         ROADMAP_TRAIN_DENSE),
-        # Training maps 'final' to 'packed', as the JAX CLI does.
-        ("--upsample_mode final (trained as packed)",
-         args.upsample_mode == "final", ROADMAP_ARCHS)]
-    for what, on, item in checks:
-        if on:
-            raise not_ported(what, item)
+    """Exit, naming the ROADMAP.md item, on what training does not run:
+    --upsample_mode final, which the JAX CLI trains as packed."""
+    if args.upsample_mode == "final":
+        raise not_ported("--upsample_mode final (trained as packed)",
+                         ROADMAP_ARCHS)
 
 
 def _to_device(batch, device):
@@ -169,9 +160,14 @@ def main(argv=None):
         if logger_state:
             logger.load_state_dict(logger_state)
 
-    train_step = make_train_step(cfg, iters=args.iters, gamma=args.gamma,
-                                 freeze_bn=freeze_bn, seed=args.seed + 7,
-                                 data_parallel=group)
+    step_args = dict(iters=args.iters, gamma=args.gamma, freeze_bn=freeze_bn,
+                     seed=args.seed + 7, data_parallel=group)
+    train_step = make_train_step(cfg, **step_args)
+    # --attn_diag: a second step (every attention site on the plain path,
+    # the telemetry in its metrics) every print_freq-th step, as the JAX
+    # CLI; the other steps keep the kernels.
+    diag_step = make_train_step(cfg, attn_diag=True, **step_args) \
+        if args.attn_diag else None
     dataset = fetch_training_dataset(
         args.stage, tuple(args.image_size), shift_prob=args.shift_aug_prob,
         shift_sigmas=args.shift_sigmas, data_root=args.data_root)
@@ -200,7 +196,9 @@ def main(argv=None):
             batch = _to_device(batch, device)
             if args.profile_steps and step == 10:
                 profiling.enter_context(trace(args.profile_dir))
-            state, metrics = train_step(state, batch)
+            use_diag = diag_step is not None and step % args.print_freq == 0
+            state, metrics = (diag_step if use_diag else train_step)(state,
+                                                                     batch)
             step = state.step
             if args.profile_steps and step == 10 + args.profile_steps:
                 profiling.close()

@@ -6,7 +6,10 @@ its one-cycle schedule, and the step count.  A step: forward with every
 refinement iteration's upsampled flow -> sequence loss -> backward ->
 global-norm clip -> AdamW update -> schedule step.  Dropout draws from a
 generator seeded from (seed, step), as the JAX step folds the step into
-its key.
+its key.  ``make_train_step(attn_diag=True)`` builds the JAX package's
+second step: every attention site runs the plain path and the metrics gain
+attn_max, attn_clamp_frac and attn_avg_abs (the training CLI runs it every
+--print_freq-th step).
 
 With a data-parallel group (``parallel/data_parallel.py``) the step is the
 JAX step over the ranks' batches together: BatchNorm's moments, the
@@ -25,7 +28,9 @@ from torch.profiler import record_function
 from craft_tpu_torch import resolve_device
 from craft_tpu_torch.config import ModelConfig
 from craft_tpu_torch.models.flow_model import FlowModel
+from craft_tpu_torch.nn.setrans import AttentionDiagnostics
 from craft_tpu_torch.parallel.data_parallel import (average_gradients,
+                                                    max_over_ranks,
                                                     sum_over_ranks)
 from craft_tpu_torch.training.loss import sequence_loss
 from craft_tpu_torch.training.optim import (clip_by_global_norm,
@@ -67,14 +72,17 @@ def create_train_state(cfg: ModelConfig,
 
 def make_train_step(cfg: ModelConfig, iters: int = 12, gamma: float = 0.8,
                     freeze_bn: bool = False, seed: int = 0,
-                    data_parallel=None):
+                    data_parallel=None, attn_diag: bool = False):
     """step(state, batch) -> (state, metrics).  batch: image1, image2
     [B, H, W, 3] in [0, 255], flow [B, H, W, 2], valid [B, H, W], on the
     model's device.  metrics: loss, epe, 1px, 3px, 5px and grad_norm (the
     global norm before clipping), 0-d tensors on the device.  The step
     updates the state's model and optimizer in place and returns it.
     `data_parallel`: this rank's group (``sp.init``), whose ranks each take
-    their own batch; None or a world of 1 runs alone."""
+    their own batch; None or a world of 1 runs alone.  `attn_diag`: the
+    diagnostics step (every site on the plain path), whose metrics add
+    attn_max (the max over the sites, and the ranks), attn_clamp_frac and
+    attn_avg_abs (means over the sites, then the ranks)."""
     dp = data_parallel if data_parallel is not None \
         and data_parallel.world > 1 else None
     rank = 0 if dp is None else dp.rank
@@ -88,12 +96,15 @@ def make_train_step(cfg: ModelConfig, iters: int = 12, gamma: float = 0.8,
         gen.manual_seed(_fold_in(seed + (rank << 32), state.step))
         params = [p for p in model.parameters() if p.requires_grad]
         state.optimizer.zero_grad(set_to_none=True)
+        diag = AttentionDiagnostics() if attn_diag else None
         _, flows = model(batch["image1"], batch["image2"], iters=iters,
                          upsample_mode="all", generator=gen,
-                         data_parallel=dp)
+                         data_parallel=dp, diagnostics=diag)
         loss, metrics = sequence_loss(
             flows.float(), batch["flow"], batch["valid"], gamma,
             metric_sum=None if dp is None else sum_over_ranks)
+        if diag is not None:
+            metrics.update(_diag_metrics(diag, dp))
         with record_function("craft.backward"):
             loss.backward()
         with record_function("craft.optimizer"):
@@ -116,6 +127,16 @@ def make_train_step(cfg: ModelConfig, iters: int = 12, gamma: float = 0.8,
         return state, out
 
     return step
+
+
+def _diag_metrics(diag, dp) -> Dict[str, torch.Tensor]:
+    """The diagnostics' summary, over every rank's batch under `dp`."""
+    out = diag.summary()
+    if dp is not None:
+        out["attn_max"] = max_over_ranks(out["attn_max"])
+        for key in ("attn_clamp_frac", "attn_avg_abs"):
+            out[key] = sum_over_ranks(out[key]) / dp.world
+    return out
 
 
 def _fold_in(seed: int, step: int) -> int:

@@ -198,8 +198,3 @@ def test_sparse_flow_augmentor_matches_jax(size):
         got, gs = _run(tx, seed, img1, img2, flow, valid)
         _check_outputs(got, want, seed)
         _same_states(gs, ws)
-
-
-def test_blur_is_not_ported():
-    with pytest.raises(SystemExit, match="item 11"):
-        taug.FlowAugmentor("t", crop_size=(64, 64), blur_sigma=1.0)

@@ -7,7 +7,8 @@ use_pallas='on'), and the whole FlowModel at 64x64 under lsinu (all three
 sites) and under --f2radius 3 with JAX-initialised weights bridged by
 ``state_dict_from_flax``: fp32 within 1e-3 px, mixed precision within
 0.15 px (the JAX package's own bounds, tools/verify_tpu.py:36-37).  Train
-mode under these configurations raises.
+mode under these configurations: tests/test_torch_plain_sites.py and
+tests/test_torch_train_dense*.py.
 """
 
 import dataclasses
@@ -247,22 +248,6 @@ def test_inter_site_lsinu_matches_flax_raw_volume(rng, attn_clip):
         raw.var(axis=(1, 2, 3), keepdims=True) + 1e-12)
     np.testing.assert_allclose(normed.reshape(2, U, U), want.reshape(2, U, U),
                                atol=1e-3)
-
-
-def test_train_mode_under_lsinu_or_a_mask_raises(rng):
-    for kw in (dict(pos_code_type="lsinu"), dict(attn_mask_radius=2)):
-        _, tcfg = _site("f2", 64, **kw)
-        model = ts.SelfAttVisPosTrans(tcfg).train()
-        with pytest.raises(NotImplementedError, match="item 7"):
-            model(torch.from_numpy(rng.randn(1, H8, W8, 64).astype(
-                np.float32)))
-    cfg = tconfig.craft_config(mixed_precision=False)
-    cfg = cfg.replace(inter=dataclasses.replace(cfg.inter,
-                                                pos_code_type="lsinu"))
-    model = FlowModel(cfg).train()
-    img = torch.rand(1, 64, 64, 3) * 255
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model(img, img, iters=1)
 
 
 # ------------------------------------------------------- the whole model

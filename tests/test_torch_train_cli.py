@@ -283,10 +283,6 @@ def _has_matplotlib() -> bool:
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--attn_diag"], "item 11"),
-    (["--interpos", "lsinu"], "item 7"),
-    (["--intrapos", "lsinu"], "item 7"),
-    (["--f2radius", "3"], "item 7"),
     (["--upsample_mode", "final"], "item 6"),
     (["--upsample_mode", "packed"], "item 6"),
     (["--raft"], "item 6"),

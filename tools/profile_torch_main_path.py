@@ -14,7 +14,8 @@ traced), the kernel time under each phase range (craft.* in
 FlowModel.forward and the train step), kernel time by family, the device
 busy share (kernel time over the untraced wall time), and the 20 costliest
 kernels.  With --train the unit is a training step of chip_smoke.py's
-training path (368x496, batch 8) instead of a pair.  The last line is one
+training path (368x496, batch 8; under --config lsinu or f2radius its
+train_setup of that config) instead of a pair.  The last line is one
 JSON object with those numbers.  Needs CUDA; imports nothing of JAX.
 """
 
@@ -105,7 +106,7 @@ def main() -> int:
                     help="profile training steps instead of serving")
     ap.add_argument("--config", default="main",
                     choices=["main", "lsinu", "f2radius"],
-                    help="the serving configuration")
+                    help="the configuration served or trained")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: CUDA is not available", file=sys.stderr)
@@ -114,7 +115,7 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(card)
     if args.train:
-        state, step, batch = chip_smoke.train_setup(dev)
+        state, step, batch = chip_smoke.train_setup(dev, args.config)
 
         def wall_ms_per_pair():
             return sum(chip_smoke.train_steps(state, step, batch,
@@ -158,8 +159,9 @@ def main() -> int:
         print(f"family {fam}: {t:.3f} ms")
     for t, count, name in kernels[:20]:
         print(f"kernel {t:8.3f} ms  x{count:<4d} {name[:110]}")
-    print(json.dumps({"card": card, "config": "train" if args.train else
-                      args.config, "wall_ms_per_pair": wall_ms,
+    print(json.dumps({"card": card, "config": ("train " if args.train
+                                                else "") + args.config,
+                      "wall_ms_per_pair": wall_ms,
                       "traced_wall_ms_per_pair": traced_wall_ms,
                       "device_ms_per_pair": total,
                       "busy_share": total / wall_ms, "phases_ms": phases,

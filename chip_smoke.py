@@ -153,8 +153,27 @@ these phases and fails on the first that fails:
      2 steps under --interpos lsinu --intrapos lsinu --f2radius 7
      --attn_diag --print_freq 2 (B5 alone; the status line prints the
      three attention metrics).
+     Then 2 steps with --raft and 2 with --upsample_mode final (trained
+     as packed), each with its steps' launches asserted.
      Its step wall and steps/s beside the fixed-batch step wall above,
      the loader's batches/s and the peak memory.
+     Then the other families (RAFT, GMA, CRAFT with GMA attention,
+     craft_nogma, --f2 none), seeded weights (the oracle tree's where it
+     has them): each at 128x128 on the card against the CPU (fp32 within
+     1e-3 px, mixed within 0.15 px); each served at 440x1024 (mixed, one
+     warm-up pair, 3 pairs: ms between CUDA events, the profiler's kernel
+     ms of a pair, peak memory, launches asserted: B5 12 a pair, B1 once
+     at each SETrans site, B2 at f2, B3 at TransCorr, B4 at SETrans
+     intra); one packed pair of the main config, its unpacked final frame
+     bit-identical to the 'all' pair's; RAFT, GMA and craft_nogma training
+     at the chairs crops (3 steps after a warm-up: events ms, peak, loss,
+     grad norm, launches); one fp32 step (2 iterations) of each family on
+     the card against the CPU (phase 3's bounds) and one packed step of
+     the main config against its 'all' step; the evaluator CLI with
+     --raft, --nogma and without --setrans over each family's .pth on a
+     one-pair Sintel tree whose ground truth is the family's CPU flow
+     (--fullprec within 1e-3 px, mixed within 0.15 px) and a KITTI tree at
+     375x1242, launches asserted.
   5. kernel times over CUDA events at the main-path shapes, beside each
      plain version, the bound and (B2) scaled_dot_product_attention; B2 at
      F 128 at a Sintel batch of 11 and at HD1K (the plain version there in
@@ -199,7 +218,8 @@ import torch
 
 from craft_tpu_torch import evaluate as evaluate_cli
 from craft_tpu_torch import train as train_cli
-from craft_tpu_torch.config import craft_config
+from craft_tpu_torch.config import (craft_config, craft_nogma_config,
+                                    gma_config, raft_config)
 from craft_tpu_torch.data import frame_utils, imgio
 from craft_tpu_torch.data.datasets import fetch_training_dataset
 from craft_tpu_torch.data.loader import MultiprocessLoader
@@ -207,7 +227,8 @@ from craft_tpu_torch.eval import evaluate as tev
 from craft_tpu_torch.models.flow_model import FlowModel, create_model
 from craft_tpu_torch.nn import setrans
 from craft_tpu_torch.nn.update import SepConvGRU
-from craft_tpu_torch.ops.geometry import InputPadder, coords_grid
+from craft_tpu_torch.ops.geometry import (InputPadder, coords_grid,
+                                          unpack_upsampled)
 from craft_tpu_torch.ops.kernels import build, launch
 from craft_tpu_torch.ops.kernels import corr_lookup as lk
 from craft_tpu_torch.ops.kernels import corr_vjp as cv
@@ -271,8 +292,11 @@ def device_ms(fn, reps: int, match=None) -> float:
         torch.cuda.synchronize()
     total = 0.0
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and (
-                match is None or any(m in e.key for m in match)):
+        # A craft.* range also shows as a device-side span over its
+        # kernels: counting it would count them twice.
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.key.startswith("craft.") and (
+                    match is None or any(m in e.key for m in match)):
             total += getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
     return total / 1e3 / reps
@@ -1854,14 +1878,11 @@ def _no_dropout(cfg):
                                                        "intra")})
 
 
-def _oracle_train_step(dev, batch, variant="main"):
-    """One fp32 training step (dropout off, 2 iterations) from the oracle
-    weights under `variant` on `dev`: (metrics, {name: gradient},
-    {name: buffer})."""
-    cfg, sd = variant_weights(variant, False)
-    cfg = _no_dropout(cfg)
+def _train_step_grads(dev, cfg, sd, batch, upsample_mode=None):
+    """One step (2 iterations) of `cfg` from the state_dict `sd` on `dev`:
+    (metrics, {name: gradient}, {name: BatchNorm running stat})."""
     state = create_train_state(cfg, sd, device=dev, num_steps=100)
-    step = make_train_step(cfg, iters=2)
+    step = make_train_step(cfg, iters=2, upsample_mode=upsample_mode)
     state, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
     model = state.model
     return (host_metrics(metrics),
@@ -1871,49 +1892,72 @@ def _oracle_train_step(dev, batch, variant="main"):
              if "running_" in n})
 
 
-def check_oracle_train(dev, variant: str = "main") -> None:
-    """Phase 3, training: one fp32 step on the card (kernels; under lsinu
-    the plain path) against the same step on the CPU (plain versions),
-    with its launches."""
+def _oracle_train_step(dev, batch, variant="main"):
+    """One fp32 training step (dropout off, 2 iterations) from the oracle
+    weights under `variant` on `dev`: (metrics, {name: gradient},
+    {name: buffer})."""
+    cfg, sd = variant_weights(variant, False)
+    return _train_step_grads(dev, _no_dropout(cfg), sd, batch)
+
+
+def oracle_batch() -> dict:
+    """The oracle frames with a seeded flow of a few pixels, all valid."""
     img1, img2, _, _ = load_oracle_npz(ORACLE)
     rng = np.random.RandomState(0)
-    batch = {"image1": torch.from_numpy(img1),
-             "image2": torch.from_numpy(img2),
-             "flow": torch.from_numpy(
-                 (rng.randn(*img1.shape[:3], 2) * 3).astype(np.float32)),
-             "valid": torch.ones(img1.shape[:3])}
-    label = f"oracle train step {variant}"
-    launch.reset_launch_counts()
-    got, grads, stats = _oracle_train_step(dev, batch, variant)
-    counts = launch.launch_counts()
-    want, wgrads, wstats = _oracle_train_step(torch.device("cpu"), batch,
-                                              variant)
-    print(f"{label}: card", json.dumps(got))
-    print(f"{label}: cpu ", json.dumps(want))
-    print(f"{label} launches:", json.dumps(counts))
+    return {"image1": torch.from_numpy(img1),
+            "image2": torch.from_numpy(img2),
+            "flow": torch.from_numpy(
+                (rng.randn(*img1.shape[:3], 2) * 3).astype(np.float32)),
+            "valid": torch.ones(img1.shape[:3])}
+
+
+def hold_step(label, card, cpu, loss_rtol=TRAIN_LOSS_RTOL,
+              grad_tol=TRAIN_GRAD_TOL, stats_tol=TRAIN_STATS_TOL) -> None:
+    """A step's (metrics, gradients, stats) against another's: the loss
+    within loss_rtol, each module group's gradient within grad_tol in the
+    norm of the group (the groups the model has), the batch stats within
+    stats_tol."""
+    (got, grads, stats), (want, wgrads, wstats) = card, cpu
+    print(f"{label}: got ", json.dumps(got))
+    print(f"{label}: want", json.dumps(want))
     rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
-    print(f"{label}: loss rel diff {rel:.3e} (bound {TRAIN_LOSS_RTOL:g})")
-    assert rel <= TRAIN_LOSS_RTOL, f"{label}: loss"
+    print(f"{label}: loss rel diff {rel:.3e} (bound {loss_rtol:g})")
+    assert rel <= loss_rtol, f"{label}: loss"
     assert all(np.isfinite(v) for v in got.values())
     bad = []
     for group in GROUPS:
         names = [n for n in wgrads if n.startswith(group)]
+        if not names:
+            continue
         num = sum(float(((grads[n] - wgrads[n]) ** 2).sum()) for n in names)
         den = sum(float((wgrads[n] ** 2).sum()) for n in names)
-        err, tol = math.sqrt(num / den), TRAIN_GRAD_TOL
+        err = math.sqrt(num / den)
         worst = max(names, key=lambda n: float(
             (grads[n] - wgrads[n]).abs().max()
             / wgrads[n].abs().max().clamp(min=1e-30)))
         print(f"{label}: {group} gradient rel diff {err:.3e} "
-              f"(bound {tol:g}); worst tensor {worst}")
-        if err > tol:
+              f"(bound {grad_tol:g}); worst tensor {worst}")
+        if err > grad_tol:
             bad.append(group)
     assert not bad, f"{label}: gradients of {bad}"
     serr = max(float(((stats[n] - wstats[n]).abs()
                       / (wstats[n].abs() + 1e-3)).max()) for n in wstats)
-    print(f"{label}: batch stats rel diff {serr:.3e} "
-          f"(bound {TRAIN_STATS_TOL:g})")
-    assert serr <= TRAIN_STATS_TOL, f"{label}: batch stats"
+    print(f"{label}: batch stats rel diff {serr:.3e} (bound {stats_tol:g})")
+    assert serr <= stats_tol, f"{label}: batch stats"
+
+
+def check_oracle_train(dev, variant: str = "main") -> None:
+    """Phase 3, training: one fp32 step on the card (kernels; under lsinu
+    the plain path) against the same step on the CPU (plain versions),
+    with its launches."""
+    batch = oracle_batch()
+    label = f"oracle train step {variant}"
+    launch.reset_launch_counts()
+    card = _oracle_train_step(dev, batch, variant)
+    counts = launch.launch_counts()
+    cpu = _oracle_train_step(torch.device("cpu"), batch, variant)
+    print(f"{label} launches:", json.dumps(counts))
+    hold_step(label, card, cpu)
     _assert_launches(label, counts, step_launches(variant, iters=2), 1)
 
 
@@ -2099,6 +2143,275 @@ def dense_train_phase(dev) -> dict:
         res[label] = r
         del state, step, batch
         torch.cuda.empty_cache()
+    return res
+
+
+# The other model families: RAFT and GMA (the plain volume, B5 alone), CRAFT
+# with GMA attention, craft_nogma and CRAFT without the f2 transformer.
+FAMILIES = {
+    "raft": lambda mp: raft_config(mixed_precision=mp),
+    "gma": lambda mp: gma_config(mixed_precision=mp),
+    "craft_gma": lambda mp: craft_config(mixed_precision=mp,
+                                         use_setrans=False),
+    "craft_nogma": lambda mp: craft_nogma_config(mixed_precision=mp),
+    "craft_f2_none": lambda mp: craft_config(mixed_precision=mp,
+                                             f2trans="none"),
+}
+# The hand kernels a served pair of each family launches: B5 once an
+# iteration; B1 once at each SETrans site (the f2 and inter sites of CRAFT
+# with GMA attention and of craft_nogma, the intra and inter sites without
+# f2); B2 at the f2 site; B3 at the inter site (TransCorr); B4 (int8) at
+# the SETrans intra site.  GMA attention, its aggregation and the plain
+# volume are stock PyTorch, as the JAX package leaves them to XLA.
+_TRANSCORR_F2 = {"scores_global_max": 2, "flash_mode_attention": 1,
+                 "fused_agg_corr_norm": 1, "corr_lookup": ITERS}
+FAMILY_SERVE = {
+    "raft": {"corr_lookup": ITERS},
+    "gma": {"corr_lookup": ITERS},
+    "craft_gma": _TRANSCORR_F2,
+    "craft_nogma": _TRANSCORR_F2,
+    "craft_f2_none": {"scores_global_max": 2, "fused_agg_corr_norm": 1,
+                      "mode_softmax_probs": 1, "corr_lookup": ITERS},
+}
+# Training: the kernel sites of each family (``step_launches``).
+KERNEL_SITES.update({"raft": (), "gma": (), "craft_gma": ("f2", "inter"),
+                     "craft_nogma": ("f2", "inter"),
+                     "craft_f2_none": ("intra", "inter")})
+FAMILY_TRAIN = ("raft", "gma", "craft_nogma")
+FAMILY_GAMMA = 0.5  # Aggregate's gate, seeded off its initial zero
+FAMILY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_families"
+# The evaluator CLI's flags for a family (``craft_tpu_torch/cli.py``).
+FAMILY_FLAGS = {"raft": ["--raft"], "craft_nogma": ["--nogma"],
+                "craft_gma": ["--craft"]}
+
+
+def family_weights(name: str, seed: int = 17) -> dict:
+    """The state_dict of `name`: PyTorch's initialisation under `seed`,
+    each tensor the oracle tree also has taken from it (its leading part
+    where the oracle's is larger: BasicUpdateBlock's GRU reads 384 input
+    channels of GMAUpdateBlock's 512), Aggregate's gamma at FAMILY_GAMMA
+    (it starts at zero, where the aggregation shows nothing)."""
+    oracle = state_dict_from_flax(load_oracle_npz(ORACLE)[3])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        sd = FlowModel(FAMILIES[name](False)).state_dict()
+    for key, v in sd.items():
+        o = oracle.get(key)
+        if o is not None and o.dim() == v.dim() and all(
+                a >= b for a, b in zip(o.shape, v.shape)):
+            sd[key] = o[tuple(slice(0, n) for n in v.shape)].clone()
+    if "update_block.aggregator.gamma" in sd:
+        sd["update_block.aggregator.gamma"] = torch.full((1,), FAMILY_GAMMA)
+    return sd
+
+
+def family_model(dev, name, mixed_precision, sd=None):
+    model = create_model(FAMILIES[name](mixed_precision), device=dev)
+    model.load_state_dict(family_weights(name) if sd is None else sd,
+                          strict=True)
+    return model
+
+
+def _final(model, a, b, **kw):
+    with torch.inference_mode():
+        return model(a, b, iters=ITERS, **kw)[1][-1]
+
+
+def families_card_vs_cpu(dev) -> dict:
+    """Each family at 128x128 (the oracle frames rounded to uint8), 12
+    iterations, on the card against the CPU (plain versions): fp32 within
+    FULLPREC_BOUND_PX, mixed within BF16_BOUND_PX.  Returns the frames and
+    each family's fp32 CPU flow."""
+    img1, img2, _, _ = load_oracle_npz(ORACLE)
+    frames = [np.round(x[0]).astype(np.uint8) for x in (img1, img2)]
+    pair = [torch.from_numpy(f[None].astype(np.float32)) for f in frames]
+    out = {"frames": frames}
+    for name in FAMILIES:
+        sd = family_weights(name)
+        for label, mp, bound in (("fp32", False, FULLPREC_BOUND_PX),
+                                 ("mixed", True, BF16_BOUND_PX)):
+            want = _final(family_model("cpu", name, mp, sd), *pair).float()
+            got = _final(family_model(dev, name, mp, sd),
+                         *(t.to(dev) for t in pair)).float().cpu()
+            err = float((got - want).abs().max())
+            print(f"family {name} {label}: card against the CPU, max |flow "
+                  f"diff| {err:.3e} px (max |flow| "
+                  f"{float(want.abs().max()):.3f}, bound {bound})")
+            assert bool(torch.isfinite(got).all()) and err < bound, \
+                f"family {name} {label}"
+            if not mp:
+                out[name] = want[0].numpy()
+    return out
+
+
+def families_serving(dev, n_pairs: int = 3) -> dict:
+    """Each family served as the main path (mixed precision, 440x1024, 12
+    iterations, one warm-up pair, then n_pairs seeded pairs with the
+    launch counts zeroed just before): each pair's ms between CUDA events,
+    the device's kernel ms of one more pair (torch.profiler), the peak
+    memory and the exact launches of FAMILY_SERVE.  Then one pair of the
+    main config with upsample_mode='packed', whose unpacked final frame
+    must be the 'all' pair's, bit for bit."""
+    padder, pairs = frame_pairs(dev, n_pairs + 1, seed=3)
+    res = {}
+    for name in FAMILIES:
+        model = family_model(dev, name, True)
+        _final(model, *pairs[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launch.reset_launch_counts()
+        ms = []
+        for a, b in pairs[1:]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            flow = _final(model, a, b)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            out = padder.unpad(flow)
+            assert out.shape == (1, FRAME_H, FRAME_W, 2)
+            assert bool(torch.isfinite(out).all()), f"family {name}"
+        counts = launch.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        dev_ms = device_ms(lambda: _final(model, *pairs[1]), 1)
+        r = {"pair_ms": ms, "pair_device_ms": dev_ms,
+             "max_memory_allocated": peak,
+             "launches": {k: c for k, c in counts.items() if c}}
+        print(f"family {name} serving:", json.dumps(r))
+        _assert_launches(f"family {name} serving", counts,
+                         FAMILY_SERVE[name], n_pairs)
+        res[name] = r
+        del model
+        torch.cuda.empty_cache()
+    model = serving_model(dev)
+    a, b = pairs[1]
+    want = _final(model, a, b)
+    packed = _final(model, a, b, upsample_mode="packed")
+    assert packed.shape == (1, H8, W8, 128)
+    same = torch.equal(unpack_upsampled(packed), want)
+    print(f"main config packed pair: unpacked final frame bit-identical to "
+          f"the 'all' pair's: {same}")
+    assert same, "packed pair"
+    return res
+
+
+def family_train_setup(dev, name: str):
+    """(state, step, batch) of family `name`'s training path: mixed
+    precision, ``family_weights``, dropout at the config's rates, 12
+    iterations, a chairs-size batch."""
+    cfg = FAMILIES[name](True)
+    state = create_train_state(cfg, family_weights(name), device=dev,
+                               num_steps=1000)
+    return state, make_train_step(cfg, iters=ITERS), train_batch(dev)
+
+
+def families_training(dev, n_steps: int = 3) -> dict:
+    """RAFT, GMA and craft_nogma at the chairs crops (368x496, batch 8, 12
+    iterations, dropout at the config's rates, mixed precision), one
+    warm-up step, then n_steps steps: device ms a step (CUDA events), peak
+    memory, loss, grad norm and the exact launches of ``step_launches``.
+    Then one fp32 step (dropout off, 2 iterations, the oracle frames) of
+    every family on the card against the CPU (phase 3's bounds), and one
+    packed step of the main config against its 'all' step on the card."""
+    res = {}
+    for name in FAMILY_TRAIN:
+        state, step, batch = family_train_setup(dev, name)
+        state, _, _ = _event_steps(state, step, batch, 1)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        launch.reset_launch_counts()
+        state, ms, metrics = _event_steps(state, step, batch, n_steps)
+        counts = launch.launch_counts()
+        r = {"step_device_ms": ms,
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "loss": [m["loss"] for m in metrics],
+             "grad_norm": [m["grad_norm"] for m in metrics],
+             "launches": {k: c for k, c in counts.items() if c}}
+        print(f"family {name} training:", json.dumps(r))
+        assert all(math.isfinite(v) for m in metrics for v in m.values()), \
+            f"family {name} training: non-finite metrics"
+        _assert_launches(f"family {name} training", counts,
+                         step_launches(name), n_steps)
+        res[name] = r
+        del state, step, batch
+        torch.cuda.empty_cache()
+
+    batch = oracle_batch()
+    for name in FAMILIES:
+        cfg, sd = _no_dropout(FAMILIES[name](False)), family_weights(name)
+        label = f"family {name} train step"
+        launch.reset_launch_counts()
+        card = _train_step_grads(dev, cfg, sd, batch)
+        counts = launch.launch_counts()
+        hold_step(label, card, _train_step_grads(torch.device("cpu"), cfg,
+                                                 sd, batch))
+        _assert_launches(label, counts, step_launches(name, iters=2), 1)
+    cfg, sd = variant_weights("main", False)
+    cfg = _no_dropout(cfg)
+    # The packed loss sums the same terms in another order.
+    hold_step("main packed train step",
+              _train_step_grads(dev, cfg, sd, batch, "packed"),
+              _train_step_grads(dev, cfg, sd, batch, "all"),
+              loss_rtol=1e-6, grad_tol=1e-4, stats_tol=0.0)
+    return res
+
+
+def families_eval_cli(dev, cpu_flows, frames) -> dict:
+    """The evaluator CLI on the card with --raft, --nogma and without
+    --setrans (GMA attention), over each family's weights as a reference
+    .pth: a one-pair Sintel tree of the oracle frames whose ground truth is
+    the family's fp32 CPU flow (--fullprec within FULLPREC_BOUND_PX, mixed
+    within BF16_BOUND_PX), then a KITTI tree (2 pairs at 375x1242, mixed);
+    metrics, pairs/s and the exact launches of FAMILY_SERVE a forward."""
+    shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+    FAMILY_DIR.mkdir(parents=True)
+    kitti_hw = (KITTI_H, KITTI_W)
+    rng = np.random.RandomState(8)
+    write_kitti_tree(FAMILY_DIR / "kitti",
+                     [tuple(rng.randint(0, 256, (*kitti_hw, 3)).astype(
+                         np.uint8) for _ in range(2)) for _ in range(2)],
+                     [rng.uniform(-10, 10, (*kitti_hw, 2)).astype(np.float32)
+                      for _ in range(2)])
+    out = {}
+    for name, flags in FAMILY_FLAGS.items():
+        pth = FAMILY_DIR / f"{name}.pth"
+        torch.save({f"module.{k}": v
+                    for k, v in family_weights(name).items()}, pth)
+        write_sintel_tree(FAMILY_DIR / name, frames, [cpu_flows[name]])
+        argv = ["--model", str(pth), *flags, "--iters", str(ITERS),
+                "--device", str(dev), "--dataset"]
+        runs = (("sintel fp32", ["sintel", "--fullprec"], name, 2, 2),
+                ("sintel mixed", ["sintel"], name, 2, 2),
+                ("kitti mixed", ["kitti"], "kitti", 2, 2))
+        for label, ds_args, root, n_pairs, n_fwd in runs:
+            r = _timed_cli(f"{name} {label}", argv + ds_args + [
+                "--data_root", str(FAMILY_DIR / root)], n_pairs)
+            _assert_launches(f"eval {name} {label}", r["launches"],
+                             FAMILY_SERVE[name], n_fwd)
+            if root == name:
+                epe = r["metrics"]["sintel_clean_epe"]
+                bound = FULLPREC_BOUND_PX if "fp32" in label \
+                    else BF16_BOUND_PX
+                print(f"eval {name} {label}: sintel_clean_epe {epe:.3e} px "
+                      f"against the port's CPU flow (bound {bound})")
+                assert epe < bound, f"eval {name} {label}"
+            out[f"{name} {label}"] = r
+    shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+    return out
+
+
+def families_phase(dev) -> dict:
+    """The other families: card against CPU, serving at full width,
+    training at the chairs crops and the evaluator CLI (the training CLI's
+    --raft and --upsample_mode final runs are in ``train_cli_phase``)."""
+    t0 = time.perf_counter()
+    flows = families_card_vs_cpu(dev)
+    res = {"serving": families_serving(dev)}
+    torch.cuda.empty_cache()
+    res["training"] = families_training(dev)
+    torch.cuda.empty_cache()
+    res["eval"] = families_eval_cli(dev, flows, flows["frames"])
+    print(f"families phase: {time.perf_counter() - t0:.1f} s")
     return res
 
 
@@ -2850,14 +3163,16 @@ def _instrumented_cli(argv) -> dict:
     recording each step's host start, the validation's launches and wall
     and the checkpoint saves' walls (each after a synchronize).  Returns
     the final state, the counts of the steps alone and of the validation,
-    and the step wall over steps 2..n (validation and saves taken out)."""
-    rec = {"entries": [], "val": [], "saves": []}
+    the upsample_mode each train step was made with, and the step wall
+    over steps 2..n (validation and saves taken out)."""
+    rec = {"entries": [], "val": [], "saves": [], "modes": []}
     factory, validate, save = (train_cli.make_train_step,
                                train_cli._run_validation,
                                train_cli.save_checkpoint)
 
     def make_step(*a, **k):
         step = factory(*a, **k)
+        rec["modes"].append(k.get("upsample_mode"))
 
         def timed(state, batch):
             rec["entries"].append(time.perf_counter())
@@ -2893,6 +3208,7 @@ def _instrumented_cli(argv) -> dict:
     val = {n: sum(v[1][n] for v in rec["val"]) for n in total}
     steps = {n: total[n] - val[n] for n in total}
     out = {"state": state, "steps": steps, "validation": val,
+           "upsample_modes": rec["modes"],
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     e = rec["entries"]
     if len(e) >= 3:
@@ -2937,7 +3253,9 @@ def train_cli_phase(dev, fixed_step_ms) -> dict:
     (gloo), 2 steps, only rank 0 writing; (5) 2 steps under --interpos
     lsinu --intrapos lsinu --f2radius F2RADIUS --attn_diag --print_freq 2:
     the diagnostics step at step 0, its status line with the three
-    metrics, only B5 and its backward launched.  Prints the CLI's step
+    metrics, only B5 and its backward launched; (6) 2 steps with --raft
+    (B5 and its backward) and 2 with --upsample_mode final, which the CLI
+    trains as packed (the training path's launches).  Prints the CLI's step
     wall beside phase 4's fixed-batch step wall (`fixed_step_ms`), the
     loader's batches/s and the peak memory."""
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -3005,6 +3323,24 @@ def train_cli_phase(dev, fixed_step_ms) -> dict:
         f"{k} " in status[0] for k in ("attn_max", "attn_clamp_frac",
                                        "attn_avg_abs")), "train cli diag"
 
+    # The other families: --raft, and the main config under
+    # --upsample_mode final, which the CLI trains as packed.
+    fam = {}
+    for label, extra, variant, mode in (
+            ("raft", ["--raft"], "raft", "all"),
+            ("final", ["--upsample_mode", "final"], "main", "packed")):
+        r = _instrumented_cli(TRAIN_CLI_ARGS + extra + [
+            "--data_root", str(data), "--device", str(dev), "--num_steps",
+            "2", "--val_freq", "1000", "--output", str(TRAIN_DIR / label)])
+        print(f"train cli {label}: steps' launches", json.dumps(r["steps"]),
+              "modes", r["upsample_modes"], "peak",
+              r["max_memory_allocated"])
+        assert r["state"].step == 2 and r["upsample_modes"] == [mode]
+        _assert_launches(f"train cli {label}", r["steps"],
+                         step_launches(variant), 2)
+        fam[label] = {"max_memory_allocated": r["max_memory_allocated"],
+                      "launches": {k: c for k, c in r["steps"].items() if c}}
+
     res = {"cli_step_ms": run["step_ms"],
            "cli_steps_per_s": 1e3 / run["step_ms"],
            "fixed_batch_step_ms": fixed_step_ms,
@@ -3012,7 +3348,8 @@ def train_cli_phase(dev, fixed_step_ms) -> dict:
            "loader_batches_per_s": rate["batches_per_s"],
            "loader_first_batch_s": rate["first_batch_s"],
            "validation_s": run["val_s"],
-           "max_memory_allocated": run["max_memory_allocated"]}
+           "max_memory_allocated": run["max_memory_allocated"],
+           "families": fam}
     print("train cli:", json.dumps(res))
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return res
@@ -4064,6 +4401,8 @@ def main() -> int:
     report["flash_mode_attention_f128"]["launches"] = \
         lres["hd1k lazy"]["b2_by_width"][LAZY_F]
     train_cli_phase(dev, float(np.median(tres["step_ms"])))
+    torch.cuda.empty_cache()
+    families_phase(dev)
     torch.cuda.empty_cache()
     time_kernels(dev, gen, report)
     time_b2_lazy(dev, gen, report)

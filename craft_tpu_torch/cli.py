@@ -15,8 +15,10 @@ from craft_tpu_torch.config import (ModelConfig, f2_trans_config,
 
 # ROADMAP.md queue items (section 2) that hold what the port lacks.
 ROADMAP_SP = "ROADMAP.md section 2, item 8 (sequence parallelism under " \
-    "lsinu and --f2radius, and across several cards)"
-ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (the remaining archs)"
+    "lsinu and --f2radius, for the families other than full CRAFT, and " \
+    "across several cards)"
+ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (two-way correlation and " \
+    "other mode counts)"
 
 
 def not_ported(what: str, item: str) -> SystemExit:
@@ -83,8 +85,7 @@ def add_model_args(p: argparse.ArgumentParser):
                    help="convex-upsample output layout (value-identical)")
 
 
-def _check_ported(args) -> None:
-    """Exit, naming the ROADMAP.md item, on what the port does not run."""
+def _refuse_half(args) -> None:
     if args.f2trans == "half":
         # As the JAX package: in the reference --f2 half is a no-op
         # (do_half_attn is set at craft_nogma.py:64 and never read).
@@ -92,41 +93,57 @@ def _check_ported(args) -> None:
             "--f2 half is not supported: in the reference it is a no-op "
             "(do_half_attn is set at craft_nogma.py:64 but never read by "
             "setrans.py). Use --f2 full or --f2 none.")
-    gma = not args.raft and not args.nogma and not args.use_setrans
-    checks = [
-        ("--raft", args.raft, ROADMAP_ARCHS),
-        ("--nogma", args.nogma, ROADMAP_ARCHS),
-        ("GMA attention (no --setrans)", gma, ROADMAP_ARCHS),
-        ("--position_only / --position_and_content (GMA)",
-         args.position_only or args.position_and_content, ROADMAP_ARCHS),
-        ("--f1 shared / private", args.f1trans != "none", ROADMAP_ARCHS),
-        ("--f2 none", args.f2trans == "none", ROADMAP_ARCHS),
-        ("--upsample_mode packed", args.upsample_mode == "packed",
-         ROADMAP_ARCHS),
-        ("mode counts other than 4 (--intermodes, --intramodes, --f2modes)",
-         (args.inter_num_modes, args.intra_num_modes,
-          args.f2_num_modes) != (4, 4, 4), ROADMAP_ARCHS)]
-    for what, on, item in checks:
-        if on:
-            raise not_ported(what, item)
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    """Exit, naming the ROADMAP.md item, on what the port does not run:
+    two-way correlation (--f1 shared / private, which only arch 'craft'
+    reads) and a SETrans site of the family with a mode count other than
+    4."""
+    if cfg.arch == "craft" and cfg.f1trans != "none":
+        raise not_ported("--f1 shared / private", ROADMAP_ARCHS)
+    sites = [("--intermodes", cfg.inter.num_modes, cfg.craft),
+             ("--f2modes (--intramodes under --nogma)", cfg.f2.num_modes,
+              cfg.f2trans != "none" and cfg.arch != "raft"),
+             ("--intramodes", cfg.intra.num_modes,
+              cfg.arch == "craft" and cfg.use_setrans)]
+    for flag, modes, built in sites:
+        if built and modes != 4:
+            raise not_ported(f"mode counts other than 4 ({flag} {modes})",
+                             ROADMAP_ARCHS)
 
 
 def model_config_from_args(args) -> ModelConfig:
-    """The full-CRAFT config the flags name (arch 'craft' with the f2
-    transformer, SETrans intra attention and TransCorr), or SystemExit."""
-    _check_ported(args)
+    """The config the flags name, built as the JAX CLI builds it
+    (``craft_tpu/cli.py:58-110``): --raft gives RAFT; --nogma craft_nogma,
+    whose f2 site takes --intramodes; otherwise arch 'craft' with
+    TransCorr (--craft is parsed but never read, in both packages), SETrans
+    intra attention with --setrans and GMA attention without it.  Exits on
+    what the port does not run."""
+    _refuse_half(args)
+    if args.raft:
+        arch, craft, f2trans, use_setrans = "raft", False, "none", False
+    elif args.nogma:
+        arch, craft = "craft_nogma", True
+        f2trans, use_setrans = args.f2trans, False
+    else:
+        arch, craft = "craft", True
+        f2trans, use_setrans = args.f2trans, args.use_setrans
     inter = inter_corr_config(
         num_modes=args.inter_num_modes, qk_have_bias=args.inter_qk_have_bias,
         pos_code_type=args.inter_pos_code_type,
         pos_code_weight=args.inter_pos_code_weight,
         pos_bias_radius=args.pos_bias_radius)
     # The f2 site takes the intra site's positional code, as the reference
-    # (craft_tpu/cli.py:82-88).
-    f2 = f2_trans_config(num_modes=args.f2_num_modes,
-                         pos_code_type=args.intra_pos_code_type,
-                         pos_code_weight=args.f2_pos_code_weight,
-                         pos_bias_radius=args.pos_bias_radius,
-                         attn_mask_radius=args.f2_attn_mask_radius)
+    # (craft_tpu/cli.py:82-88); craft_nogma's its mode count too
+    # (craft_nogma.py:77).
+    f2 = f2_trans_config(
+        num_modes=(args.intra_num_modes if arch == "craft_nogma"
+                   else args.f2_num_modes),
+        pos_code_type=args.intra_pos_code_type,
+        pos_code_weight=args.f2_pos_code_weight,
+        pos_bias_radius=args.pos_bias_radius,
+        attn_mask_radius=args.f2_attn_mask_radius)
     intra = intra_attn_config(num_modes=args.intra_num_modes,
                               pos_code_type=args.intra_pos_code_type,
                               pos_code_weight=args.intra_pos_code_weight,
@@ -135,9 +152,14 @@ def model_config_from_args(args) -> ModelConfig:
         # int8 fixed-point intra probs ride with mixed precision (the
         # serving config), as config.craft_config.
         intra = dataclasses.replace(intra, quantize_probs=True)
-    return ModelConfig(
-        arch="craft", craft=True, f2trans=args.f2trans, f1trans="none",
-        use_setrans=True, corr_radius=args.corr_radius, iters=args.iters,
-        num_heads=args.num_heads, inter=inter, f2=f2, intra=intra,
-        dropout=args.dropout, mixed_precision=args.mixed_precision,
+    cfg = ModelConfig(
+        arch=arch, craft=craft, f2trans=f2trans, f1trans=args.f1trans,
+        use_setrans=use_setrans, corr_radius=args.corr_radius,
+        iters=args.iters, num_heads=args.num_heads,
+        position_only=args.position_only,
+        position_and_content=args.position_and_content, inter=inter, f2=f2,
+        intra=intra, dropout=args.dropout,
+        mixed_precision=args.mixed_precision,
         upsample_mode=args.upsample_mode)
+    _check_ported(cfg)
+    return cfg

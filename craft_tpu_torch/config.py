@@ -118,13 +118,19 @@ class ModelConfig:
     f2trans: str = "full"   # 'none' | 'full' | 'half'
     f1trans: str = "none"   # 'none' | 'shared' | 'private'
     use_setrans: bool = True
-    num_heads: int = 1
+    num_heads: int = 1            # GMA attention heads
+    position_only: bool = False   # GMA attention: positions, no content
+    position_and_content: bool = False
+    gma_max_pos_size: int = 160   # GMA RelPosEmb tables of 2 * 160 - 1 rows
     inter: SETransSiteConfig = field(default_factory=inter_corr_config)
     f2: SETransSiteConfig = field(default_factory=f2_trans_config)
     intra: SETransSiteConfig = field(default_factory=intra_attn_config)
     dropout: float = 0.0          # fnet/cnet Dropout2d rate (training)
     mixed_precision: bool = True  # bf16 compute islands, fp32 correlation
-    upsample_mode: str = "all"    # 'all' | 'final'
+    # 'all' (one [B, 8H, 8W, 2] field per iteration), 'packed' (the same
+    # values as [B, H, W, 128], unpacked by the consumer) or 'final' (the
+    # last iteration only; serving).
+    upsample_mode: str = "all"
     # Training recomputes the f2 and intra sites in the backward
     # (torch.utils.checkpoint) instead of keeping their activations, as the
     # JAX package's nn.remat (the inter site is recomputed always).
@@ -157,6 +163,7 @@ def raft_config(mixed_precision: bool = True,
 
 def gma_config(mixed_precision: bool = True,
                num_heads: int = 1) -> ModelConfig:
+    """GMA: the plain volume, GMA attention and GMAUpdateBlock."""
     return ModelConfig(arch="craft", craft=False, f2trans="none",
                        f1trans="none", use_setrans=False, num_heads=num_heads,
                        mixed_precision=mixed_precision)
@@ -164,6 +171,8 @@ def gma_config(mixed_precision: bool = True,
 
 def craft_nogma_config(mixed_precision: bool = True,
                        f2trans: str = "full") -> ModelConfig:
+    """TransCorr and the f2 site without intra attention, and
+    BasicUpdateBlock."""
     return ModelConfig(arch="craft_nogma", craft=True, f2trans=f2trans,
                        f1trans="none", use_setrans=False,
                        mixed_precision=mixed_precision)

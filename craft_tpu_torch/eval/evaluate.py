@@ -34,7 +34,8 @@ from craft_tpu_torch.config import ModelConfig
 from craft_tpu_torch.data import datasets as ds
 from craft_tpu_torch.data.augmentor import resize_linear
 from craft_tpu_torch.models.flow_model import create_model
-from craft_tpu_torch.ops.geometry import InputPadder, shift_pixels
+from craft_tpu_torch.ops.geometry import (InputPadder, shift_pixels,
+                                          unpack_upsampled)
 from craft_tpu_torch.parallel import sp
 
 MAG_ENDPOINTS = [1, 10, 20, 30, np.inf]
@@ -81,6 +82,8 @@ class Evaluator:
                                        seq_parallel=self.seq_parallel)
             if self.test_mode == 1:
                 flows = flows[-1:]
+                if mode == "packed":
+                    flows = unpack_upsampled(flows[0])[None]
             flows = flows.cpu().numpy()
         return lowres.cpu().numpy(), [flows[i] for i in range(len(flows))]
 

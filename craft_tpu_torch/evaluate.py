@@ -9,6 +9,10 @@ package is refused: tools/jax_checkpoint_to_pth.py converts it first.
 
   python -m craft_tpu_torch.evaluate --model checkpoints/craft-sintel.pth \\
       --craft --setrans --dataset sintel [--batch_size 2] [--test_mode 2]
+  python -m craft_tpu_torch.evaluate --model raft-sintel.pth --raft ...
+      (also --nogma [--f2 none], GMA attention without --setrans
+      [--position_only | --position_and_content] [--num_heads 2],
+      --f2 none, --upsample_mode packed)
   python -m craft_tpu_torch.evaluate --model ... --dataset \\
       {chairs,things,sintel,sintel_occ,kitti,kittitrain,hd1k,viper,slowflow}
   python -m craft_tpu_torch.evaluate --model ... --submission sintel \\
@@ -26,7 +30,8 @@ matrix products and convolutions.  It runs on the card unless --device
 names another device (--device cpu).  --seq_parallel splits the grid rows
 of the attention and correlation tensors across the ranks (under torchrun;
 one rank without it): NCCL when every rank has a card of its own, gloo when
-ranks share one; every rank computes the metrics and rank 0 prints them.
+ranks share one; every rank computes the metrics and rank 0 prints them
+(full CRAFT only).
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from craft_tpu_torch.cli import (ROADMAP_SP, add_model_args,
 from craft_tpu_torch.eval import submission
 from craft_tpu_torch.eval.demo import gen_flow
 from craft_tpu_torch.eval.evaluate import VALIDATORS
-from craft_tpu_torch.models.flow_model import FlowModel
+from craft_tpu_torch.models.flow_model import FlowModel, full_craft
 from craft_tpu_torch.training.checkpoint import save_weights
 from craft_tpu_torch.utils.weights import load_reference_checkpoint
 
@@ -97,12 +102,16 @@ def parse_args(argv=None):
     return args
 
 
-def _check_ported(args) -> None:
-    if args.seq_parallel and ("lsinu" in (args.inter_pos_code_type,
-                                          args.intra_pos_code_type)
-                              or args.f2_attn_mask_radius > 0):
+def _check_ported(args, cfg) -> None:
+    if not args.seq_parallel:
+        return
+    if "lsinu" in (args.inter_pos_code_type, args.intra_pos_code_type) \
+            or args.f2_attn_mask_radius > 0:
         raise not_ported("--seq_parallel with --interpos/--intrapos lsinu "
                          "or --f2radius", ROADMAP_SP)
+    if not full_craft(cfg):
+        raise not_ported("--seq_parallel with --raft, --nogma, GMA "
+                         "attention (no --setrans) or --f2 none", ROADMAP_SP)
 
 
 def _shifts(args):
@@ -136,8 +145,8 @@ def main(argv=None):
     single pair's flow (its FLOPs with --flop)."""
     args = parse_args(argv)
     refuse_jax_checkpoint(args.model, "--model")
-    _check_ported(args)
     cfg = model_config_from_args(args)
+    _check_ported(args, cfg)
     device = resolve_device(args.device)
     if args.fullprec:
         # Exact fp32 products, the counterpart of the JAX CLI's "highest"

@@ -1,9 +1,23 @@
-"""The CRAFT flow model (PyTorch port of ``craft_tpu.models.flow_model``
-for arch='craft' with f1trans='none'; reference core/network.py:26-267).
+"""The RAFT / GMA / craft_nogma / CRAFT flow model (PyTorch port of
+``craft_tpu.models.flow_model`` with one-way correlation, f1trans='none';
+reference core/raft.py:24-146, core/craft_nogma.py:25-203,
+core/network.py:26-267).  One module covers every family, driven by the
+ModelConfig as the JAX one is, and builds only the modules the JAX tree
+has:
+  * the f2 transformer (``f2_trans``) on frame 2 when f2trans != 'none'
+    (arch 'craft' or 'craft_nogma');
+  * intra attention (``att``, arch 'craft' only): SETrans probs
+    (use_setrans) or GMA ``Attention``;
+  * the volume: TransCorr (``corr_fn``, cfg.craft) or RAFT's plain
+    all-pairs volume (no parameters);
+  * ``update_block``: GMAUpdateBlock (arch 'craft': the SETrans aggregator
+    or GMA ``Aggregate``) or BasicUpdateBlock (RAFT, craft_nogma).
+RAFT and GMA run B5 alone; a TransCorr family adds the inter site's
+kernels, and each SETrans site its own, as below.
 
-Forward: fnet/cnet encoders -> f2 transformer on frame 2 -> SETrans intra
-attention probs (B4; past 4e9 bytes of probs, as at HD1K's grid, a
-LazyModeAttention instead, which each iteration's aggregator applies
+Full CRAFT's forward: fnet/cnet encoders -> f2 transformer on frame 2 ->
+SETrans intra attention probs (B4; past 4e9 bytes of probs, as at HD1K's
+grid, a LazyModeAttention instead, which each iteration's aggregator applies
 through B2) -> the inter-frame volume as the pyramid base -> 12
 refinement iterations of windowed lookup (B5, forward and, in training,
 backward) + GMAUpdateBlock + convex upsampling.  In eval mode with the
@@ -22,7 +36,8 @@ correlation is an fp32 island; pyramid
 levels are stored bf16 under mixed precision; coords stay fp32 and are
 detached every iteration.
 
-Under sequence parallelism (eval, sliding bias; ``seq_parallel``, a
+Under sequence parallelism (full CRAFT alone; eval, sliding bias;
+``seq_parallel``, a
 ``craft_tpu_torch.parallel.sp.SeqParallel`` group) each rank holds its
 RowShard's query rows of the O(U^2) tensors: the intra probs, the normed
 level 0 (B9) and the pyramid pooled from it (pooling runs over the key axis
@@ -45,12 +60,16 @@ from torch.utils.checkpoint import checkpoint
 from craft_tpu_torch import resolve_device
 from craft_tpu_torch.config import ModelConfig
 from craft_tpu_torch.nn.encoder import BasicEncoder
+from craft_tpu_torch.nn.gma import Attention
 from craft_tpu_torch.nn.setrans import (CrossAttFeatTrans, InputFeatEncoder,
                                         SelfAttVisPosTrans)
-from craft_tpu_torch.nn.update import GMAUpdateBlock
+from craft_tpu_torch.nn.update import BasicUpdateBlock, GMAUpdateBlock
 from craft_tpu_torch.ops.corr import (build_pyramid, corr_lookup,
+                                      plain_corr_pyramid,
                                       pyramid_from_level0)
-from craft_tpu_torch.ops.geometry import convex_upsample, coords_grid
+from craft_tpu_torch.ops.geometry import (convex_upsample,
+                                          convex_upsample_packed,
+                                          coords_grid)
 
 
 class TransCorr(nn.Module):
@@ -107,8 +126,20 @@ def recomputed(fn, generator, /, *args, **kwargs):
     return checkpoint(run, *args, use_reentrant=False, **kwargs)
 
 
+# The ROADMAP.md items that hold what FlowModel refuses.
+ROADMAP_F1 = "ROADMAP.md section 2, item 6"
+ROADMAP_SP = "ROADMAP.md section 2, item 8"
+
+
+def full_craft(cfg: ModelConfig) -> bool:
+    """arch 'craft' with TransCorr, the f2 transformer and SETrans intra
+    attention: the only family with a sequence-parallel path."""
+    return (cfg.arch == "craft" and cfg.craft and cfg.use_setrans
+            and cfg.f2trans != "none")
+
+
 class FlowModel(nn.Module):
-    """Full CRAFT: f2 transformer, SETrans intra attention, TransCorr.
+    """Every family with one-way correlation (f1trans='none').
 
     With ``freeze_bn`` set, train mode keeps cnet as in eval (BatchNorm on
     its running statistics, folded; no Dropout2d), as the JAX package's
@@ -116,21 +147,33 @@ class FlowModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if not (cfg.arch == "craft" and cfg.craft and cfg.use_setrans
-                and cfg.f1trans == "none" and cfg.f2trans != "none"):
+        if cfg.arch not in ("raft", "craft_nogma", "craft"):
+            raise ValueError(f"unknown arch {cfg.arch!r}")
+        if cfg.arch == "craft" and cfg.f1trans != "none":
             raise NotImplementedError(
-                "the port runs arch='craft' with TransCorr, SETrans intra "
-                "attention, the f2 transformer and f1trans='none'")
+                f"f1trans={cfg.f1trans!r} (two-way correlation) is not "
+                f"ported to craft_tpu_torch yet: see {ROADMAP_F1}.")
         self.cfg = cfg
         self.freeze_bn = False
         cdt = cfg.compute_dtype
         self.fnet = BasicEncoder(256, "instance", cdt, cfg.dropout)
         self.cnet = BasicEncoder(cfg.hidden_dim + cfg.context_dim, "batch",
                                  cdt, cfg.dropout)
-        self.f2_trans = SelfAttVisPosTrans(cfg.f2, cdt)
-        self.att = SelfAttVisPosTrans(cfg.intra, cdt)
-        self.corr_fn = TransCorr(cfg, cdt)
-        self.update_block = GMAUpdateBlock(cfg, cdt)
+        self.f2_trans = (SelfAttVisPosTrans(cfg.f2, cdt)
+                         if cfg.f2trans != "none" and cfg.arch != "raft"
+                         else None)
+        self.att = None
+        if cfg.arch == "craft":
+            self.att = SelfAttVisPosTrans(cfg.intra, cdt) \
+                if cfg.use_setrans else Attention(
+                    dim=cfg.context_dim, max_pos_size=cfg.gma_max_pos_size,
+                    heads=cfg.num_heads, dim_head=cfg.context_dim,
+                    position_only=cfg.position_only,
+                    position_and_content=cfg.position_and_content,
+                    dtype=cdt)
+        self.corr_fn = TransCorr(cfg, cdt) if cfg.craft else None
+        self.update_block = (GMAUpdateBlock(cfg, cdt) if cfg.arch == "craft"
+                             else BasicUpdateBlock(cfg, cdt))
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -145,19 +188,26 @@ class FlowModel(nn.Module):
         """image1/image2: [B, H, W, 3] floats in [0, 255] on the model's
         device.  Returns (flow_lowres [B, H/8, W/8, 2], flows_up
         [iters, B, H, W, 2]); with upsample_mode='final' only the last
-        iteration is upsampled and flows_up is [1, B, H, W, 2].
+        iteration is upsampled and flows_up is [1, B, H, W, 2]; with
+        'packed' the same values as 'all' in the [iters, B, H/8, W/8, 128]
+        layout (``ops.geometry.unpack_upsampled`` unpacks a frame).
         `generator` (a ``torch.Generator`` on the model's device) draws
         every training dropout mask.  `seq_parallel` (a SeqParallel group,
-        eval only) splits the grid's rows across its ranks; every rank
-        returns the whole flow.  `data_parallel` (a group, training) makes
-        cnet's BatchNorm take its moments over every rank's batch.
-        `diagnostics` (an AttentionDiagnostics, training) collects the
-        attention sites' telemetry."""
+        eval, full CRAFT only) splits the grid's rows across its ranks;
+        every rank returns the whole flow.  `data_parallel` (a group,
+        training) makes cnet's BatchNorm take its moments over every
+        rank's batch.  `diagnostics` (an AttentionDiagnostics, training)
+        collects the SETrans sites' telemetry."""
         cfg = self.cfg
         iters = iters or cfg.iters
         upsample_mode = upsample_mode or cfg.upsample_mode
-        if upsample_mode not in ("all", "final"):
-            raise NotImplementedError(f"upsample_mode {upsample_mode}")
+        if upsample_mode not in ("all", "final", "packed"):
+            raise ValueError(f"upsample_mode {upsample_mode!r}")
+        if seq_parallel is not None and not full_craft(cfg):
+            raise NotImplementedError(
+                "sequence parallelism for a family other than full CRAFT "
+                "(--raft, --nogma, GMA attention, --f2 none) is not ported "
+                f"to craft_tpu_torch yet: see {ROADMAP_SP}.")
         cdt = cfg.compute_dtype
         lvl_dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
         image1 = 2.0 * (image1.float() / 255.0) - 1.0
@@ -175,39 +225,55 @@ class FlowModel(nn.Module):
             net = torch.tanh(cnet[..., :hdim])
             inp = torch.relu(cnet[..., hdim:])
 
+        # Training recomputes the inter site always, and the f2 and intra
+        # SETrans sites under remat_att_sites, as the JAX package's
+        # nn.remat; GMA attention is kept.
         def site(module, remat, *args, **kwargs):
             if self.training and remat:
                 return recomputed(module, generator, *args, **kwargs)
             return module(*args, **kwargs)
 
-        with record_function("craft.f2_trans"):
-            fmap2 = site(self.f2_trans, cfg.remat_att_sites, fmap2,
-                         generator, shard, diagnostics)
-            fmap1, fmap2 = fmap1.float(), fmap2.float()
-        with record_function("craft.intra_attention"):
-            attention = site(self.att, cfg.remat_att_sites, inp, generator,
-                             shard, diagnostics)
+        if self.f2_trans is not None:
+            with record_function("craft.f2_trans"):
+                fmap2 = site(self.f2_trans, cfg.remat_att_sites, fmap2,
+                             generator, shard, diagnostics)
+        fmap1, fmap2 = fmap1.float(), fmap2.float()
+        attention = None
+        if self.att is not None:
+            with record_function("craft.intra_attention"):
+                if cfg.use_setrans:
+                    attention = site(self.att, cfg.remat_att_sites, inp,
+                                     generator, shard, diagnostics)
+                else:
+                    attention = self.att(inp.to(cdt))
         with record_function("craft.corr_volume"):
-            vol = site(self.corr_fn, True, fmap1, fmap2, out_dtype=lvl_dtype,
-                       generator=generator, shard=shard,
-                       diagnostics=diagnostics)
-            if self.corr_fn.prenormed():
-                pyramid = pyramid_from_level0(vol, B, H8, W8,
-                                              cfg.corr_levels,
-                                              cfg.corr_radius,
-                                              level_dtype=lvl_dtype)
+            if self.corr_fn is None:
+                pyramid = plain_corr_pyramid(fmap1, fmap2, cfg.corr_levels,
+                                             cfg.corr_radius,
+                                             level_dtype=lvl_dtype)
             else:
-                pyramid = build_pyramid(
-                    vol.reshape(B, H8 * W8, 1, H8 * W8), B, H8, W8,
-                    cfg.corr_levels, cfg.corr_radius, do_global_norm=True,
-                    level_dtype=lvl_dtype)
-            del vol
+                vol = site(self.corr_fn, True, fmap1, fmap2,
+                           out_dtype=lvl_dtype, generator=generator,
+                           shard=shard, diagnostics=diagnostics)
+                if self.corr_fn.prenormed():
+                    pyramid = pyramid_from_level0(vol, B, H8, W8,
+                                                  cfg.corr_levels,
+                                                  cfg.corr_radius,
+                                                  level_dtype=lvl_dtype)
+                else:
+                    pyramid = build_pyramid(
+                        vol.reshape(B, H8 * W8, 1, H8 * W8), B, H8, W8,
+                        cfg.corr_levels, cfg.corr_radius,
+                        do_global_norm=True, level_dtype=lvl_dtype)
+                del vol
 
         coords0 = coords_grid(B, H8, W8, device=image1.device)
         coords1 = coords0.clone()
         if flow_init is not None:
             coords1 = coords1 + flow_init
         gru_static = self.update_block.precompute_gru_static(inp.to(cdt))
+        upsample = convex_upsample_packed if upsample_mode == "packed" \
+            else convex_upsample
 
         flows_up = []
         for _ in range(iters):
@@ -222,14 +288,19 @@ class FlowModel(nn.Module):
                                         ).reshape(B, H8, W8, -1)
             flow = coords1 - coords0
             with record_function("craft.update_block"):
-                net, up_mask, delta = self.update_block(
-                    net, inp, corr.to(cdt), flow.to(cdt), attention,
-                    gru_static=gru_static, shard=shard)
+                if self.att is None:
+                    net, up_mask, delta = self.update_block(
+                        net, inp, corr.to(cdt), flow.to(cdt),
+                        gru_static=gru_static)
+                else:
+                    net, up_mask, delta = self.update_block(
+                        net, inp, corr.to(cdt), flow.to(cdt), attention,
+                        gru_static=gru_static, shard=shard)
             coords1 = coords1 + delta.float()
-            if upsample_mode == "all":
+            if upsample_mode != "final":
                 with record_function("craft.upsample"):
-                    flows_up.append(convex_upsample(coords1 - coords0,
-                                                    up_mask.float()))
+                    flows_up.append(upsample(coords1 - coords0,
+                                             up_mask.float()))
         if upsample_mode == "final":
             up_mask = self.update_block.upsample_mask(net)
             flows_up.append(convex_upsample(coords1 - coords0,

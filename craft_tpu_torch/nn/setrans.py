@@ -146,7 +146,10 @@ class AttentionDiagnostics:
 
     def summary(self) -> dict:
         """attn_max (the max over the sites), attn_clamp_frac and
-        attn_avg_abs (their means)."""
+        attn_avg_abs (their means); empty when no site recorded (RAFT,
+        GMA), as the JAX package's summary of an empty collection."""
+        if not self.sites:
+            return {}
         max_attn, avg_abs, clamp_frac = (torch.stack(v)
                                          for v in zip(*self.sites))
         return {"attn_max": max_attn.max(),

@@ -1,6 +1,7 @@
 """Refinement update block (PyTorch port of ``craft_tpu.nn.update``;
 reference core/update.py:8-162): SepConvGRU, BasicMotionEncoder, the flow
-and upsample-mask heads, and GMAUpdateBlock with the SETrans aggregator.
+and upsample-mask heads, RAFT's BasicUpdateBlock, and GMAUpdateBlock with
+the SETrans aggregator or GMA's Aggregate.
 
 The arithmetic is restructured as in the JAX package, with the reference's
 parameters: each GRU gate conv is linear over its [h, x] input split, so
@@ -17,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from craft_tpu_torch.config import ModelConfig, intra_aggregator_config
+from craft_tpu_torch.nn.gma import Aggregate
 from craft_tpu_torch.nn.layers import conv, conv2d
 from craft_tpu_torch.nn.setrans import ExpandedFeatTrans
 from craft_tpu_torch.ops.kernels.sep_conv_gru import (fused_gru_vmem_ok,
@@ -170,28 +172,24 @@ class FlowHead(nn.Module):
         self.conv2 = nn.Conv2d(hidden_dim, 2, 3, padding=1)
 
 
-class GMAUpdateBlock(nn.Module):
-    """GMA update block with the SETrans motion aggregator (reference
-    update.py:116-162).  `attention` (the intra probs, or a
-    LazyModeAttention that the aggregator applies through B2 each
-    iteration) and `gru_static` are computed once per forward, outside
-    the refinement loop.  Under sequence parallelism `attention` holds
-    the `shard`'s rows (always probs), and the aggregator gathers its
-    output to every rank."""
+class _UpdateBlock(nn.Module):
+    """What both update blocks share: the motion encoder, the GRU over
+    128 + `dyn_channels` input channels (the context features' 128 among
+    them), the flow head and the upsample-mask head (conv3x3 -> ReLU ->
+    conv1x1, scaled by 0.25; reference update.py:98-101, 112).  An
+    `aggregator` is registered after the encoder, the reference's order
+    (which the optimizer state of a checkpoint follows)."""
 
-    def __init__(self, cfg: ModelConfig, dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, dyn_channels: int,
+                 dtype=torch.float32, aggregator=None):
         super().__init__()
-        if not cfg.use_setrans:
-            raise NotImplementedError("GMAUpdateBlock with GMA Aggregate")
         self.dtype = dtype
         hd = cfg.hidden_dim
         self.encoder = BasicMotionEncoder(cfg.cor_planes, dtype)
-        self.aggregator = ExpandedFeatTrans(
-            intra_aggregator_config(cfg.intra), dtype)
-        self.gru = SepConvGRU(hd, 128 + hd + hd, dtype)
+        if aggregator is not None:
+            self.aggregator = aggregator
+        self.gru = SepConvGRU(hd, 128 + dyn_channels, dtype)
         self.flow_head = FlowHead(hd, 256)
-        # Upsample-mask head: conv3x3 -> ReLU -> conv1x1, scaled by 0.25
-        # (reference update.py:98-101, 112).
         self.mask = nn.Sequential(nn.Conv2d(hd, 256, 3, padding=1),
                                   nn.ReLU(inplace=True),
                                   nn.Conv2d(256, 64 * 9, 1))
@@ -206,7 +204,8 @@ class GMAUpdateBlock(nn.Module):
         return _nhwc(0.25 * conv(self.mask[2], m, dt))
 
     def _heads(self, net):
-        """Flow head + mask head with their first convs merged."""
+        """Flow head + mask head with their first convs merged (the JAX
+        package's ``_merged_heads``)."""
         dt = self.dtype
         fh, m0, m2 = self.flow_head, self.mask[0], self.mask[2]
         nf = fh.conv1.out_channels
@@ -217,18 +216,61 @@ class GMAUpdateBlock(nn.Module):
         mask = 0.25 * conv(m2, y[:, nf:], dt)
         return _nhwc(delta), _nhwc(mask)
 
+    def _step(self, net, inp, dyn, gru_static):
+        """The GRU over [inp, dyn] (inp's share from `gru_static` when
+        given), then the heads: (net, up_mask, delta_flow)."""
+        if gru_static is None:
+            net = self.gru(net, torch.cat([inp, dyn], -1))
+        else:
+            net = self.gru(net, dyn, static=gru_static)
+        delta, mask = self._heads(net)
+        return net, mask, delta
+
+
+class BasicUpdateBlock(_UpdateBlock):
+    """RAFT's update block (reference update.py:90-113), also craft_nogma's:
+    the GRU takes the context and motion features (x 256 wide)."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32):
+        super().__init__(cfg, 128, dtype)
+
+    def forward(self, net, inp, corr, flow, gru_static=None):
+        """NHWC in and out: returns (net, up_mask, delta_flow)."""
+        return self._step(net, inp, self.encoder(flow, corr), gru_static)
+
+
+class GMAUpdateBlock(_UpdateBlock):
+    """GMA update block with global motion aggregation (reference
+    update.py:116-162): the SETrans aggregator (``cfg.use_setrans``) or GMA
+    ``Aggregate``, the GRU over the context, motion and aggregated motion
+    features (x 384 wide).  `attention` (the intra probs, a
+    LazyModeAttention that the SETrans aggregator applies through B2 each
+    iteration, or GMA's [B, heads, U, U] attention) and `gru_static` are
+    computed once per forward, outside the refinement loop.  Under
+    sequence parallelism (SETrans only) `attention` holds the `shard`'s
+    rows (always probs), and the aggregator gathers its output to every
+    rank."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32):
+        if cfg.use_setrans:
+            aggregator = ExpandedFeatTrans(
+                intra_aggregator_config(cfg.intra), dtype)
+        else:
+            aggregator = Aggregate(dim=128, heads=cfg.num_heads,
+                                   dim_head=128, dtype=dtype)
+        super().__init__(cfg, 256, dtype, aggregator)
+        self.use_setrans = cfg.use_setrans
+
     def forward(self, net, inp, corr, flow, attention, gru_static=None,
                 shard=None):
         """NHWC in and out: returns (net, up_mask, delta_flow)."""
         motion = self.encoder(flow, corr)
         B, H, W, C = motion.shape
-        motion_global = self.aggregator(
-            motion.reshape(B, H * W, C), attention,
-            shard=shard).reshape(B, H, W, C)
-        if gru_static is None:
-            net = self.gru(net, torch.cat([inp, motion, motion_global], -1))
+        if self.use_setrans:
+            motion_global = self.aggregator(
+                motion.reshape(B, H * W, C), attention,
+                shard=shard).reshape(B, H, W, C)
         else:
-            net = self.gru(net, torch.cat([motion, motion_global], -1),
-                           static=gru_static)
-        delta, mask = self._heads(net)
-        return net, mask, delta
+            motion_global = self.aggregator(attention, motion)
+        return self._step(net, inp, torch.cat([motion, motion_global], -1),
+                          gru_static)

@@ -1,5 +1,6 @@
-"""Correlation pyramid and windowed lookup (PyTorch port of
-``craft_tpu.ops.corr``, one-way D=1 volumes).
+"""Correlation volume, pyramid and windowed lookup (PyTorch port of
+``craft_tpu.ops.corr``, one-way D=1 volumes): the plain all-pairs volume of
+RAFT and GMA, and the pyramids of the plain and the TransCorr volumes.
 
 Pyramid level l is stored [B*H1*W1, h_l, w_l].  The per-iteration lookup
 samples a (2r+1)^2 bilinear window around coords/2^l on every level and
@@ -10,6 +11,8 @@ x-offset i, then y-offset j (reference corr.py:47-71).
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import math
 
 import torch
 
@@ -37,6 +40,16 @@ def _pool2x2(x: torch.Tensor) -> torch.Tensor:
     acc.add_(x[:, 0::2, 1::2])
     acc.add_(x[:, 1::2, 1::2])
     return acc.mul_(0.25)
+
+
+def all_pairs_correlation(fmap1: torch.Tensor,
+                          fmap2: torch.Tensor) -> torch.Tensor:
+    """[B, H*W, H*W] dot-product correlation of two NHWC maps in fp32,
+    divided by sqrt(C) (reference corr.py:73-81)."""
+    B, H, W, C = fmap1.shape
+    f1 = fmap1.reshape(B, H * W, C).float()
+    f2 = fmap2.reshape(B, H * W, C).float()
+    return torch.matmul(f1, f2.transpose(1, 2)) / math.sqrt(C)
 
 
 def global_layer_norm(vol: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -75,6 +88,17 @@ def pyramid_from_level0(level0: torch.Tensor, batch: int, h1: int, w1: int,
         cur = _pool2x2(cur).to(level_dtype)
         levels.append(cur)
     return CorrPyramid(tuple(levels), batch, h1, w1, radius)
+
+
+def plain_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                       num_levels: int = 4, radius: int = 4,
+                       level_dtype=torch.float32) -> CorrPyramid:
+    """RAFT's CorrBlock (reference corr.py:16-45): the pyramid of the plain
+    volume, without the global norm."""
+    B, H, W, _ = fmap1.shape
+    corr = all_pairs_correlation(fmap1, fmap2)
+    return build_pyramid(corr.reshape(B, H * W, 1, H * W), B, H, W,
+                         num_levels, radius, level_dtype=level_dtype)
 
 
 def corr_lookup(pyr: CorrPyramid, coords: torch.Tensor) -> torch.Tensor:

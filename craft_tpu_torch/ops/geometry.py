@@ -49,12 +49,10 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
             + tap(y0 + 1, x0, wy1 * wx0) + tap(y0 + 1, x0 + 1, wy1 * wx1))
 
 
-def convex_upsample(flow: torch.Tensor, mask: torch.Tensor,
-                    factor: int = 8) -> torch.Tensor:
-    """Convex 9-neighbour upsampling (reference network.py:151-162).
-
-    flow [B, H, W, 2]; mask [B, H, W, 9*factor^2] logits laid out
-    (9, factor, factor) row-major.  Returns [B, factor*H, factor*W, 2]."""
+def _convex_parts(flow: torch.Tensor, mask: torch.Tensor,
+                  factor: int) -> torch.Tensor:
+    """The convex combination both layouts share: [B, H, W, 2, f^2], the x
+    then the y component of each (fr, fc) sub-pixel, row-major."""
     B, H, W, _ = flow.shape
     f2 = factor * factor
     w = torch.softmax(mask.reshape(B, H, W, 9, f2), dim=3)
@@ -62,9 +60,44 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor,
     # The 9 neighbours in F.unfold's order: row-major offsets (-1,-1)..(1,1).
     nb = torch.stack([fp[:, di:di + H, dj:dj + W, :]
                       for di in range(3) for dj in range(3)], dim=3)
-    up = torch.einsum("bhwkf,bhwkc->bhwfc", w, nb)  # [B, H, W, f2, 2]
-    up = up.reshape(B, H, W, factor, factor, 2).permute(0, 1, 3, 2, 4, 5)
+    return torch.einsum("bhwkf,bhwkc->bhwcf", w, nb)
+
+
+def convex_upsample(flow: torch.Tensor, mask: torch.Tensor,
+                    factor: int = 8) -> torch.Tensor:
+    """Convex 9-neighbour upsampling (reference network.py:151-162).
+
+    flow [B, H, W, 2]; mask [B, H, W, 9*factor^2] logits laid out
+    (9, factor, factor) row-major.  Returns [B, factor*H, factor*W, 2]."""
+    B, H, W, _ = flow.shape
+    return unpack_upsampled(
+        _convex_parts(flow, mask, factor).reshape(B, H, W, -1), factor)
+
+
+def convex_upsample_packed(flow: torch.Tensor, mask: torch.Tensor,
+                           factor: int = 8) -> torch.Tensor:
+    """convex_upsample without the pixel shuffle: [B, H, W, 2*factor^2],
+    the x sub-pixel block (row-major (fr, fc)) in channels [:f^2] and y in
+    [f^2:], the same bits as convex_upsample's values."""
+    B, H, W, _ = flow.shape
+    return _convex_parts(flow, mask, factor).reshape(B, H, W, -1)
+
+
+def unpack_upsampled(packed: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """[B, H, W, 2*factor^2] packed flow -> [B, factor*H, factor*W, 2]."""
+    B, H, W, c2 = packed.shape
+    assert c2 == 2 * factor * factor
+    up = packed.reshape(B, H, W, 2, factor, factor).permute(0, 1, 4, 2, 5, 3)
     return up.reshape(B, factor * H, factor * W, 2)
+
+
+def pack_fullres(x: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """Inverse of unpack_upsampled, for the ground truth: [B, fH, fW, C] ->
+    [B, H, W, C*factor^2], each channel's (fr, fc) block contiguous."""
+    B, FH, FW, C = x.shape
+    H, W = FH // factor, FW // factor
+    x = x.reshape(B, H, factor, W, factor, C).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(B, H, W, C * factor * factor)
 
 
 def avg_pool2x2(x: torch.Tensor) -> torch.Tensor:

@@ -18,8 +18,12 @@ takes --batch_size samples of its shard of each epoch, and the step is the
 JAX package's step over all the ranks' samples (``parallel/
 data_parallel.py``).  --attn_diag runs the diagnostics step every
 --print_freq-th step, and the status line prints attn_max,
-attn_clamp_frac and attn_avg_abs.  What the port does not run yet exits
-before training starts, naming its ROADMAP.md item.  --restore_ckpt takes
+attn_clamp_frac and attn_avg_abs (a family without a SETrans site, RAFT or
+GMA, records none).  Every family trains (--raft, --nogma, GMA attention
+without --setrans, --f2 none); --upsample_mode packed keeps the flows
+packed through the loss, and final trains as packed, as the JAX CLI.
+What the port does not run yet exits before training starts, naming its
+ROADMAP.md item.  --restore_ckpt takes
 a .pth; a checkpoint directory of the JAX package is refused, naming
 tools/jax_checkpoint_to_pth.py, which converts it.
 """
@@ -35,8 +39,7 @@ import numpy as np
 import torch
 
 from craft_tpu_torch import resolve_device
-from craft_tpu_torch.cli import (ROADMAP_ARCHS, add_model_args,
-                                 model_config_from_args, not_ported,
+from craft_tpu_torch.cli import (add_model_args, model_config_from_args,
                                  refuse_jax_checkpoint)
 from craft_tpu_torch.data.datasets import (TRAINING_STAGES,
                                            fetch_training_dataset)
@@ -101,14 +104,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _check_ported(args) -> None:
-    """Exit, naming the ROADMAP.md item, on what training does not run:
-    --upsample_mode final, which the JAX CLI trains as packed."""
-    if args.upsample_mode == "final":
-        raise not_ported("--upsample_mode final (trained as packed)",
-                         ROADMAP_ARCHS)
-
-
 def _to_device(batch, device):
     """Host batch (tensors or arrays) -> tensors on `device`; on a card
     from pinned memory (the loader's, else a pinned copy), without
@@ -127,7 +122,6 @@ def main(argv=None):
     args = parse_args(argv)
     refuse_jax_checkpoint(args.restore_ckpt, "--restore_ckpt")
     args.shift_sigmas = tuple(int(s) for s in args.shift_sigmas.split(","))
-    _check_ported(args)
     cfg = model_config_from_args(args)
 
     group = None
@@ -160,8 +154,13 @@ def main(argv=None):
         if logger_state:
             logger.load_state_dict(logger_state)
 
+    # Training takes 'all' or 'packed'; the JAX CLI trains 'final' (a
+    # serving knob) as 'packed' (craft_tpu/train.py:125-128).
+    train_upsample = cfg.upsample_mode if cfg.upsample_mode != "final" \
+        else "packed"
     step_args = dict(iters=args.iters, gamma=args.gamma, freeze_bn=freeze_bn,
-                     seed=args.seed + 7, data_parallel=group)
+                     seed=args.seed + 7, data_parallel=group,
+                     upsample_mode=train_upsample)
     train_step = make_train_step(cfg, **step_args)
     # --attn_diag: a second step (every attention site on the plain path,
     # the telemetry in its metrics) every print_freq-th step, as the JAX

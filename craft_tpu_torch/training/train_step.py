@@ -20,7 +20,7 @@ batch, and each rank's dropout generator folds in its rank.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Optional, Union
 
 import torch
 from torch.profiler import record_function
@@ -32,7 +32,8 @@ from craft_tpu_torch.nn.setrans import AttentionDiagnostics
 from craft_tpu_torch.parallel.data_parallel import (average_gradients,
                                                     max_over_ranks,
                                                     sum_over_ranks)
-from craft_tpu_torch.training.loss import sequence_loss
+from craft_tpu_torch.training.loss import (sequence_loss,
+                                           sequence_loss_packed)
 from craft_tpu_torch.training.optim import (clip_by_global_norm,
                                             make_optimizer)
 
@@ -72,7 +73,8 @@ def create_train_state(cfg: ModelConfig,
 
 def make_train_step(cfg: ModelConfig, iters: int = 12, gamma: float = 0.8,
                     freeze_bn: bool = False, seed: int = 0,
-                    data_parallel=None, attn_diag: bool = False):
+                    data_parallel=None, attn_diag: bool = False,
+                    upsample_mode: Optional[str] = None):
     """step(state, batch) -> (state, metrics).  batch: image1, image2
     [B, H, W, 3] in [0, 255], flow [B, H, W, 2], valid [B, H, W], on the
     model's device.  metrics: loss, epe, 1px, 3px, 5px and grad_norm (the
@@ -82,7 +84,18 @@ def make_train_step(cfg: ModelConfig, iters: int = 12, gamma: float = 0.8,
     their own batch; None or a world of 1 runs alone.  `attn_diag`: the
     diagnostics step (every site on the plain path), whose metrics add
     attn_max (the max over the sites, and the ranks), attn_clamp_frac and
-    attn_avg_abs (means over the sites, then the ranks)."""
+    attn_avg_abs (means over the sites, then the ranks); a family without
+    a SETrans site (RAFT, GMA) adds none of them, as the JAX step.
+    `upsample_mode`: 'all' or 'packed' (None: cfg.upsample_mode), the same
+    values; 'packed' keeps every iteration's flow as [B, H/8, W/8, 128]
+    and the loss packs the ground truth once (``sequence_loss_packed``)."""
+    if upsample_mode is None:
+        upsample_mode = cfg.upsample_mode
+    if upsample_mode not in ("all", "packed"):
+        raise ValueError(f"train upsample_mode must be 'all' or 'packed', "
+                         f"got {upsample_mode!r}")
+    loss_fn = sequence_loss_packed if upsample_mode == "packed" \
+        else sequence_loss
     dp = data_parallel if data_parallel is not None \
         and data_parallel.world > 1 else None
     rank = 0 if dp is None else dp.rank
@@ -98,9 +111,9 @@ def make_train_step(cfg: ModelConfig, iters: int = 12, gamma: float = 0.8,
         state.optimizer.zero_grad(set_to_none=True)
         diag = AttentionDiagnostics() if attn_diag else None
         _, flows = model(batch["image1"], batch["image2"], iters=iters,
-                         upsample_mode="all", generator=gen,
+                         upsample_mode=upsample_mode, generator=gen,
                          data_parallel=dp, diagnostics=diag)
-        loss, metrics = sequence_loss(
+        loss, metrics = loss_fn(
             flows.float(), batch["flow"], batch["valid"], gamma,
             metric_sum=None if dp is None else sum_over_ranks)
         if diag is not None:
@@ -132,7 +145,7 @@ def make_train_step(cfg: ModelConfig, iters: int = 12, gamma: float = 0.8,
 def _diag_metrics(diag, dp) -> Dict[str, torch.Tensor]:
     """The diagnostics' summary, over every rank's batch under `dp`."""
     out = diag.summary()
-    if dp is not None:
+    if dp is not None and out:
         out["attn_max"] = max_over_ranks(out["attn_max"])
         for key in ("attn_clamp_frac", "attn_avg_abs"):
             out[key] = sum_over_ranks(out[key]) / dp.world

@@ -193,10 +193,14 @@ def test_loader_unwraps_like_the_jax_converter(setup, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--raft"], "item 6"), (["--nogma"], "item 6"),
-    (["--f1", "shared"], "item 6"), (["--upsample_mode", "packed"], "item 6"),
+    (["--nogma", "--intramodes", "2"], "item 6"), (["--f2modes", "8"],
+                                                   "item 6"),
+    (["--f1", "shared"], "item 6"), (["--intermodes", "2"], "item 6"),
     (["--seq_parallel", "--intrapos", "lsinu"], "item 8"),
-    (["--seq_parallel", "--f2radius", "3"], "item 8")])
+    (["--seq_parallel", "--f2radius", "3"], "item 8"),
+    (["--seq_parallel", "--raft"], "item 8"),
+    (["--seq_parallel", "--nogma"], "item 8"),
+    (["--seq_parallel", "--f2", "none"], "item 8")])
 def test_unported_flags_exit_naming_the_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md section 2, {item}"):
         tcli.main(["--model", "absent.pth", "--craft", "--setrans",
@@ -270,8 +274,11 @@ def test_cli_runs_the_evaluator_flags(setup, tmp_path, monkeypatch, flag):
 
 
 def test_gma_attention_exits():
-    with pytest.raises(SystemExit, match="GMA attention"):
-        tcli.main(["--model", "absent.pth", "--craft", "--device", CPU])
+    """GMA attention (no --setrans) serves (tests/test_torch_family_cli.py);
+    it exits only under --seq_parallel, naming ROADMAP item 8."""
+    with pytest.raises(SystemExit, match="GMA attention.*item 8"):
+        tcli.main(["--model", "absent.pth", "--craft", "--seq_parallel",
+                   "--device", CPU])
 
 
 def test_missing_card_raises(monkeypatch):

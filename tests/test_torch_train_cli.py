@@ -283,9 +283,9 @@ def _has_matplotlib() -> bool:
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--upsample_mode", "final"], "item 6"),
-    (["--upsample_mode", "packed"], "item 6"),
-    (["--raft"], "item 6"),
+    (["--f2modes", "8"], "item 6"),
+    (["--nogma", "--intramodes", "8"], "item 6"),
+    (["--intermodes", "2"], "item 6"),
     (["--f1", "shared"], "item 6"),
     (["--intramodes", "2"], "item 6")],
     ids=lambda v: v if isinstance(v, str) else "_".join(v))

@@ -1,13 +1,15 @@
 """Where the time goes in the PyTorch port's main path, on one GPU.
 
     python3 tools/profile_torch_main_path.py [--pairs 2] [--train]
-        [--config main|lsinu|f2radius]
+        [--config main|lsinu|f2radius|raft|gma|craft_gma|craft_nogma|
+                  craft_f2_none]
 
 The main path of chip_smoke.py (its model, frame pairs and serving loop):
 full CRAFT at 436x1024 padded to 440x1024, bf16 with int8 intra probs, 12
 iterations, the weights of the oracle snapshot; with --config, the same
 served under lsinu (all three sites) or --f2radius 7 (chip_smoke.py's
-serving_model).  After one warm-up pair it
+serving_model), or another family with its seeded weights (chip_smoke.py's
+family_model and family_train_setup).  After one warm-up pair it
 times `--pairs` frame pairs on the host clock, then traces the same pairs
 with torch.profiler, and prints per pair: the host wall time (untraced and
 traced), the kernel time under each phase range (craft.* in
@@ -105,7 +107,8 @@ def main() -> int:
     ap.add_argument("--train", action="store_true",
                     help="profile training steps instead of serving")
     ap.add_argument("--config", default="main",
-                    choices=["main", "lsinu", "f2radius"],
+                    choices=["main", "lsinu", "f2radius",
+                             *chip_smoke.FAMILIES],
                     help="the configuration served or trained")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -114,8 +117,11 @@ def main() -> int:
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
     print(card)
+    family = args.config in chip_smoke.FAMILIES
     if args.train:
-        state, step, batch = chip_smoke.train_setup(dev, args.config)
+        state, step, batch = (
+            chip_smoke.family_train_setup(dev, args.config) if family
+            else chip_smoke.train_setup(dev, args.config))
 
         def wall_ms_per_pair():
             return sum(chip_smoke.train_steps(state, step, batch,
@@ -123,7 +129,8 @@ def main() -> int:
 
         chip_smoke.train_steps(state, step, batch, 1)  # warm-up
     else:
-        model = chip_smoke.serving_model(dev, args.config)
+        model = (chip_smoke.family_model(dev, args.config, True) if family
+                 else chip_smoke.serving_model(dev, args.config))
         _, pairs = chip_smoke.frame_pairs(dev, args.pairs + 1)
 
         def wall_ms_per_pair():

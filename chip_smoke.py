@@ -32,7 +32,11 @@ these phases and fails on the first that fails:
      must give the same bits.
      Then B5, the pyramid lookup, forward
      and backward at the serving, chairs and oracle shapes, with four
-     faults planted in its plain version.  Then the dense-table kernels
+     faults planted in its plain version; then B5 at D = 2 (the two-way
+     pyramid's 8 planes) at the same shapes, with the two planes of a
+     level swapped, every plane scaled as a level of its own, the channels
+     in (level, i, j, d) order and a plane's backward written into the
+     other planted.  Then the dense-table kernels
      B8, B6 dense and B4 dense at the serving shapes: no table and a
      seeded one, U1 != U2 with ragged keys, the clamp off and on, bf16 and
      fp32, with a transposed table, a table scaled by pos_w twice, ragged
@@ -174,13 +178,30 @@ these phases and fails on the first that fails:
      one-pair Sintel tree whose ground truth is the family's CPU flow
      (--fullprec within 1e-3 px, mixed within 0.15 px) and a KITTI tree at
      375x1242, launches asserted.
+     Then two-way correlation (--f1): the oracle tree with a seeded
+     private f1 site at 128x128 on the card against the CPU (fp32 within
+     1e-3 px, mixed within 0.15 px); 'shared' and 'private' served at
+     440x1024 (one warm-up pair, 3 pairs: events ms, the profiler's kernel
+     ms, peak memory, launches asserted: B1 5, B2 2, B3 2, B4 1, B5 12 a
+     pair); one fp32 'private' step on the card against the CPU (phase 3's
+     bounds, launches) and 3 mixed steps at the chairs crops (events ms,
+     peak, launches: B1 10, B4 6, B6 4, B6 backward 2, B7 3, B5 12 + 12);
+     the evaluator CLI with --f1 shared over a one-pair Sintel tree whose
+     ground truth is the CPU flow (--fullprec, mixed).  Then one pair each
+     of the ablations (pos codes 'zero', 'rand', 'sinu' at every site;
+     ablate_multihead at the f2 site) on the card against the CPU, fp32 and
+     mixed, launches asserted; and attvis: dump_attention on the card
+     against the CPU (the same keys and shapes, each array within 1e-4 of
+     its largest value; no B2, B3 or B4 while capturing, B3 and B4 in the
+     next forward) and vis_attention's PNGs.
   5. kernel times over CUDA events at the main-path shapes, beside each
      plain version, the bound and (B2) scaled_dot_product_attention; B2 at
      F 128 at a Sintel batch of 11 and at HD1K (the plain version there in
      chunks of grid rows); B2-B4
      at the KITTI shape (U=7332, W8=156); the training kernels and B1/B4
      at the chairs shapes; B5 forward and backward at the serving and
-     chairs shapes beside per-level F.grid_sample and its backward; B8,
+     chairs shapes beside per-level F.grid_sample and its backward, at
+     D = 1 and D = 2 (per plane); B8,
      B6 dense and B4 dense at the serving shape (B8 and B6 dense also with
      the --f2radius table, B8 beside scaled_dot_product_attention with it
      as its mask); B9 sums and write per shard at 2 and 4 shards beside their
@@ -1142,6 +1163,104 @@ def check_lookup_radii(dev, report, grid=LOOKUP_ODD_GRID,
             del got, want, g, faults
 
 
+# B5 at D = 2 (two-way correlation, --f1): every level two planes, the L D
+# planes in (level, d) order, plane p sampled at coords / 2^(p // 2), its
+# outputs channel block p.  Faults planted in the plain versions: the two
+# planes of each level swapped, every plane scaled as a level of its own
+# (plane p at coords / 2^p: the one-way rule over 8 planes), the channels
+# in (level, i, j, d) order, and each level's two plane gradients swapped
+# (a plane's backward written into the other).
+LOOKUP_D = 2
+B5_PLANE_FAULTS = ("planes swapped", "plane p scaled as level p",
+                   "channels (i, j, d)", "backward into the other plane")
+
+
+def lookup_planes(dev, batch, h8, w8, dtype, seed=3):
+    """lookup_inputs with LOOKUP_D planes a level: (planes, coords)."""
+    dgen = torch.Generator(device=dev).manual_seed(seed + 100)
+    levels, coords = lookup_inputs(dev, batch, h8, w8, dtype, seed)
+    planes = []
+    for lv in levels:
+        planes.append(lv)
+        planes += [torch.randn(lv.shape, generator=dgen, device=dev)
+                   .to(dtype) for _ in range(LOOKUP_D - 1)]
+    return planes, coords
+
+
+def _swap_pairs(items):
+    out = list(items)
+    for p in range(0, len(out), LOOKUP_D):
+        out[p:p + LOOKUP_D] = out[p:p + LOOKUP_D][::-1]
+    return out
+
+
+def _b5_plane_fault(planes, coords, r, fault):
+    """The plain D = 2 lookup with one B5_PLANE_FAULTS fault (forward)."""
+    if fault == "planes swapped":
+        return lk.corr_lookup_plain(_swap_pairs(planes), coords, r, LOOKUP_D)
+    if fault == "plane p scaled as level p":
+        return lk.corr_lookup_plain(planes, coords, r, 1)
+    out = lk.corr_lookup_plain(planes, coords, r, LOOKUP_D)
+    if fault == "channels (i, j, d)":
+        lead, L = out.shape[:3], len(planes) // LOOKUP_D
+        out = out.reshape(*lead, L, LOOKUP_D, -1).transpose(-1, -2) \
+            .reshape(*lead, -1)
+    return out
+
+
+def _b5_plane_bwd_fault(coords, g, shapes, r, fault):
+    """Plane gradients (fp32) of the plain D = 2 lookup with one fault."""
+    if fault == "backward into the other plane":
+        return _swap_pairs(lk.corr_lookup_bwd_plain(
+            coords, g, shapes, torch.float32, r, LOOKUP_D))
+    with torch.enable_grad():
+        planes = [torch.zeros(s, device=coords.device, requires_grad=True)
+                  for s in shapes]
+        out = _b5_plane_fault(planes, coords, r, fault)
+        grads = torch.autograd.grad(out, planes, g, allow_unused=True)
+    return [torch.zeros_like(lv) if d is None else d
+            for lv, d in zip(planes, grads)]
+
+
+def check_lookup_planes(dev, report, shapes=LOOKUP_SHAPES) -> None:
+    """Phase 2, B5 at D = 2: the lookup and its backward against the plain
+    versions at the serving, chairs and oracle shapes (8 planes), with the
+    B5_PLANE_FAULTS planted in the plain versions; the forward's bound is
+    D = 1's, the backward's too."""
+    errs = {"corr_lookup_d2": [], "corr_lookup_bwd_d2": []}
+    for label, batch, h8, w8, dtype in shapes:
+        planes, coords = lookup_planes(dev, batch, h8, w8, dtype)
+        top = max(float(lv.float().abs().max()) for lv in planes
+                  if lv.numel())
+        got = lk.corr_lookup(planes, coords, RADIUS, LOOKUP_D)
+        sync(dev)
+        want = lk.corr_lookup_plain(planes, coords, RADIUS, LOOKUP_D)
+        assert got.shape[-1] == LEVELS * LOOKUP_D * (2 * RADIUS + 1) ** 2
+        hold(f"B5 D=2 forward {label} {dtype}", got, want,
+             lambda a, b: float((a - b).abs().max()) / top, B5_FWD_TOL,
+             {f: _b5_plane_fault(planes, coords, RADIUS, f)
+              for f in B5_PLANE_FAULTS[:3]})
+        errs["corr_lookup_d2"].append(float((got - want).abs().max()))
+        shapes_ = [tuple(lv.shape) for lv in planes]
+        g = torch.randn(got.shape, generator=torch.Generator(
+            device=dev).manual_seed(4), device=dev)
+        del got, want, planes
+        got = lk.corr_lookup_bwd(coords, g, shapes_, dtype, RADIUS, LOOKUP_D)
+        sync(dev)
+        want = lk.corr_lookup_bwd_plain(coords, g, shapes_, torch.float32,
+                                        RADIUS, LOOKUP_D)
+        hold(f"B5 D=2 backward {label} {dtype}", got, want, level_rel_err,
+             B5_BWD_TOL[dtype],
+             {f: _b5_plane_bwd_fault(coords, g, shapes_, RADIUS, f)
+              for f in B5_PLANE_FAULTS})
+        errs["corr_lookup_bwd_d2"].append(max(
+            float((a.float() - b).abs().max()) for a, b in zip(got, want)
+            if b.numel()))
+        del got, want, g
+    for name, e in errs.items():
+        report[name]["max_abs_err"] = max(e)
+
+
 # Phase 2, the dense-table kernels (B8, B6 dense, B4 dense) at the serving
 # shapes.  The seeded table ~ N(0, BIAS_STD^2), as the window; pos_w 0.5 at
 # every kernel, so that a table scaled by pos_w twice differs.  The
@@ -1697,7 +1816,8 @@ def check_oracle_lsinu(dev) -> dict:
 def variant_weights(variant: str, mixed_precision: bool):
     """(config, state_dict) under `variant`: 'main' (craft_config),
     'lsinu' (every site, the oracle's windows replaced by seeded pos_fc
-    weights) or 'f2radius' (--f2radius F2RADIUS), with the oracle's
+    weights), 'f2radius' (--f2radius F2RADIUS), 'f1_shared' or 'f1_private'
+    (two-way correlation, ``two_way_state_dict``), with the oracle's
     full-width weights."""
     _, _, _, tree = load_oracle_npz(ORACLE)
     sd = state_dict_from_flax(tree)
@@ -1705,7 +1825,51 @@ def variant_weights(variant: str, mixed_precision: bool):
         return lsinu_config(mixed_precision), lsinu_state_dict(sd)
     if variant == "f2radius":
         return f2radius_config(F2RADIUS, mixed_precision), sd
+    if variant in TWO_WAY:
+        cfg = craft_config(mixed_precision=mixed_precision,
+                           f1trans=TWO_WAY[variant])
+        return cfg, two_way_state_dict(sd, cfg)
     return craft_config(mixed_precision=mixed_precision), sd
+
+
+# Two-way correlation (--f1): the variants and their f1trans.
+TWO_WAY = {"f1_shared": "shared", "f1_private": "private"}
+F1_NOISE = 0.02       # the private f1 site: the oracle's f2 site + noise
+F1_WINDOW_STD = 0.5   # ... its sliding window ~ N(0, F1_WINDOW_STD^2)
+
+
+def two_way_state_dict(sd: dict, cfg, seed: int = 11) -> dict:
+    """The oracle's state_dict completed for the two-way config `cfg`: under
+    'private' the f1 site is the oracle's f2 site moved by seeded noise (its
+    window replaced by a seeded one), so that the two transformers differ;
+    the motion encoder's first conv, which reads 648 channels here against
+    the oracle's 324, takes the oracle's kernel for the first direction and
+    a seeded permutation of it, halved, for the second.  Under 'shared'
+    f1_trans.* are the f2_trans.* tensors."""
+    gen = torch.Generator().manual_seed(seed)
+    want = FlowModel(cfg).state_dict()
+    out = {}
+    for key, v in want.items():
+        if key in sd and sd[key].shape == v.shape:
+            out[key] = sd[key]
+        elif key.startswith("f1_trans."):
+            src = sd["f2_trans." + key[len("f1_trans."):]]
+            if cfg.f1trans == "shared":
+                out[key] = src
+            elif key.endswith("pos_coder.biases"):
+                out[key] = torch.randn(src.shape, generator=gen) \
+                    * F1_WINDOW_STD
+            elif src.is_floating_point():
+                out[key] = src + torch.randn(src.shape, generator=gen) \
+                    * F1_NOISE
+            else:
+                out[key] = src
+        else:  # update_block.encoder.convc1.weight [256, 648, 1, 1]
+            half = sd[key]
+            perm = torch.randperm(half.shape[1], generator=gen)
+            out[key] = torch.cat([half, half[:, perm] * 0.5], dim=1)
+            assert out[key].shape == v.shape, key
+    return out
 
 
 def serving_model(dev, variant: str = "main"):
@@ -2412,6 +2576,314 @@ def families_phase(dev) -> dict:
     torch.cuda.empty_cache()
     res["eval"] = families_eval_cli(dev, flows, flows["frames"])
     print(f"families phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Two-way correlation (--f1), the SETrans ablations and attvis
+# ---------------------------------------------------------------------------
+
+# A served two-way pair: B1 at the f1, f2 and intra sites and once inside
+# each direction's B3; B2 at the f1 and f2 sites; B3 once a direction; B4
+# (int8) at the intra site; B5 (D = 2) once an iteration.
+TWO_WAY_SERVE = {"scores_global_max": 5, "flash_mode_attention": 2,
+                 "fused_agg_corr_norm": 2, "mode_softmax_probs": 1,
+                 "corr_lookup": ITERS}
+# A training step: the f1, f2 and intra sites' B1 + B4 float (B7 as the
+# backward), each direction's B1 + B6 (B6 backward), B5 and its backward.
+KERNEL_SITES["f1_private"] = KERNEL_SITES["f1_shared"] = (
+    "f1", "f2", "intra", "inter", "inter")
+GROUPS = GROUPS + ("f1_trans",)
+TWO_WAY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_two_way"
+
+
+def _variant_model(dev, variant, mixed_precision, sd=None):
+    cfg, vsd = variant_weights(variant, mixed_precision)
+    model = create_model(cfg, device=dev)
+    model.load_state_dict(vsd if sd is None else sd, strict=True)
+    return model
+
+
+def two_way_card_vs_cpu(dev) -> dict:
+    """The oracle tree with a seeded private f1 site at 128x128, 12
+    iterations, on the card against the CPU (plain versions): fp32 within
+    FULLPREC_BOUND_PX, mixed within BF16_BOUND_PX; and the shared config's
+    fp32 CPU flow, the ground truth of the CLI run.  Returns the frames and
+    the fp32 CPU flows."""
+    img1, img2, _, _ = load_oracle_npz(ORACLE)
+    frames = [np.round(x[0]).astype(np.uint8) for x in (img1, img2)]
+    pair = [torch.from_numpy(f[None].astype(np.float32)) for f in frames]
+    out = {"frames": frames}
+    runs = (("f1_private", "fp32", False, FULLPREC_BOUND_PX),
+            ("f1_private", "mixed", True, BF16_BOUND_PX),
+            ("f1_shared", "fp32", False, FULLPREC_BOUND_PX))
+    for variant, label, mp, bound in runs:
+        want = _final(_variant_model("cpu", variant, mp), *pair).float()
+        got = _final(_variant_model(dev, variant, mp),
+                     *(t.to(dev) for t in pair)).float().cpu()
+        err = float((got - want).abs().max())
+        print(f"two-way {variant} {label}: card against the CPU, max |flow "
+              f"diff| {err:.3e} px (max |flow| {float(want.abs().max()):.3f}"
+              f", bound {bound})")
+        assert bool(torch.isfinite(got).all()) and err < bound, \
+            f"two-way {variant} {label}"
+        if not mp:
+            out[variant] = want[0].numpy()
+    return out
+
+
+def two_way_serving(dev, n_pairs: int = 3) -> dict:
+    """'shared' and 'private' served as the main path (mixed, 440x1024, 12
+    iterations, one warm-up pair, then n_pairs seeded pairs with the launch
+    counts zeroed just before): ms between CUDA events, the profiler's
+    kernel ms of a pair, peak memory and the exact TWO_WAY_SERVE."""
+    padder, pairs = frame_pairs(dev, n_pairs + 1, seed=4)
+    res = {}
+    for variant in TWO_WAY:
+        model = serving_model(dev, variant)
+        _final(model, *pairs[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launch.reset_launch_counts()
+        ms = []
+        for a, b in pairs[1:]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            flow = _final(model, a, b)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            out = padder.unpad(flow)
+            assert out.shape == (1, FRAME_H, FRAME_W, 2)
+            assert bool(torch.isfinite(out).all()), f"two-way {variant}"
+        counts = launch.launch_counts()
+        r = {"pair_ms": ms,
+             "pair_device_ms": device_ms(lambda: _final(model, *pairs[1]),
+                                         1),
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "launches": {k: c for k, c in counts.items() if c}}
+        print(f"two-way {variant} serving:", json.dumps(r))
+        _assert_launches(f"two-way {variant} serving", counts,
+                         TWO_WAY_SERVE, n_pairs)
+        res[variant] = r
+        del model
+        torch.cuda.empty_cache()
+    return res
+
+
+def two_way_training(dev, n_steps: int = 3) -> dict:
+    """One fp32 step (dropout off, 2 iterations, the oracle frames) of the
+    private config on the card against the CPU (phase 3's bounds, exact
+    launches), then the private config at the chairs crops (mixed, dropout
+    at the config's rates, 12 iterations): one warm-up step and n_steps
+    steps, device ms (CUDA events), peak memory and exact launches."""
+    cfg, sd = variant_weights("f1_private", False)
+    cfg = _no_dropout(cfg)
+    batch = oracle_batch()
+    launch.reset_launch_counts()
+    card = _train_step_grads(dev, cfg, sd, batch)
+    counts = launch.launch_counts()
+    hold_step("two-way f1_private train step", card,
+              _train_step_grads(torch.device("cpu"), cfg, sd, batch))
+    _assert_launches("two-way f1_private train step", counts,
+                     step_launches("f1_private", iters=2), 1)
+    state, step, batch = train_setup(dev, "f1_private")
+    state, _, _ = _event_steps(state, step, batch, 1)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launch_counts()
+    state, ms, metrics = _event_steps(state, step, batch, n_steps)
+    counts = launch.launch_counts()
+    r = {"step_ms": ms,
+         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "loss": [m["loss"] for m in metrics],
+         "grad_norm": [m["grad_norm"] for m in metrics],
+         "launches": {k: c for k, c in counts.items() if c}}
+    print("two-way f1_private training:", json.dumps(r))
+    assert all(math.isfinite(v) for m in metrics for v in m.values()), \
+        "two-way training: non-finite metrics"
+    _assert_launches("two-way f1_private training", counts,
+                     step_launches("f1_private"), n_steps)
+    return r
+
+
+def two_way_eval_cli(dev, cpu_flow, frames) -> dict:
+    """The evaluator CLI with --f1 shared on the card over the shared
+    weights as a reference .pth, on a one-pair Sintel tree of the oracle
+    frames whose ground truth is the shared config's fp32 CPU flow:
+    --fullprec within FULLPREC_BOUND_PX, mixed within BF16_BOUND_PX, the
+    exact TWO_WAY_SERVE a forward."""
+    shutil.rmtree(TWO_WAY_DIR, ignore_errors=True)
+    TWO_WAY_DIR.mkdir(parents=True)
+    _, sd = variant_weights("f1_shared", False)
+    pth = TWO_WAY_DIR / "f1_shared.pth"
+    torch.save({f"module.{k}": v for k, v in sd.items()}, pth)
+    write_sintel_tree(TWO_WAY_DIR / "sintel", frames, [cpu_flow])
+    out = {}
+    for label, extra, bound in (("fp32", ["--fullprec"], FULLPREC_BOUND_PX),
+                                ("mixed", [], BF16_BOUND_PX)):
+        argv = ["--model", str(pth), "--craft", "--setrans", "--f1",
+                "shared", "--iters", str(ITERS), "--device", str(dev),
+                "--dataset", "sintel", "--data_root",
+                str(TWO_WAY_DIR / "sintel"), *extra]
+        r = _timed_cli(f"two-way f1_shared {label}", argv, 2)
+        _assert_launches(f"eval two-way {label}", r["launches"],
+                         TWO_WAY_SERVE, 2)
+        epe = r["metrics"]["sintel_clean_epe"]
+        print(f"eval two-way {label}: sintel_clean_epe {epe:.3e} px against "
+              f"the port's CPU flow (bound {bound})")
+        assert epe < bound, f"eval two-way {label}"
+        out[label] = r
+    shutil.rmtree(TWO_WAY_DIR, ignore_errors=True)
+    return out
+
+
+# The SETrans ablations: the positional codes at every site, and the
+# multi-head output at the f2 site.  A pair under a code launches the
+# dense-table kernels without a table (lsinu's); under ablate_multihead the
+# f2 site runs the plain path (B1 once inside B3, once at the intra site).
+ABLATIONS = ("zero", "rand", "sinu", "multihead")
+ABLATION_SERVE = {"multihead": {"scores_global_max": 2,
+                                "fused_agg_corr_norm": 1,
+                                "mode_softmax_probs": 1,
+                                "corr_lookup": ITERS}}
+
+
+def ablation_config(variant: str, mixed_precision: bool):
+    cfg = craft_config(mixed_precision=mixed_precision)
+    if variant == "multihead":
+        return cfg.replace(f2=dataclasses.replace(cfg.f2,
+                                                  ablate_multihead=True))
+    return cfg.replace(**{site: dataclasses.replace(
+        getattr(cfg, site), pos_code_type=variant)
+        for site in ("inter", "f2", "intra")})
+
+
+def ablation_state_dict(variant: str, grid, seed: int = 13) -> dict:
+    """The oracle's state_dict for `variant`, each tensor it lacks seeded:
+    a 'rand' table of one N(0, 1) row a token of `grid`, the multi-head
+    output's linears as PyTorch initialises them (first_linear the leading
+    part of the oracle's)."""
+    sd = state_dict_from_flax(load_oracle_npz(ORACLE)[3])
+    gen = torch.Generator().manual_seed(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        want = FlowModel(ablation_config(variant, False)).state_dict()
+    out = {}
+    for key, v in want.items():
+        o = sd.get(key)
+        if key.endswith("pos_coder.pos_embed"):
+            out[key] = torch.randn(grid[0] * grid[1], v.shape[1],
+                                   generator=gen)
+        elif o is not None and o.dim() == v.dim() and all(
+                a >= b for a, b in zip(o.shape, v.shape)):
+            out[key] = o[tuple(slice(0, n) for n in v.shape)].clone()
+        else:
+            out[key] = v
+    return out
+
+
+def ablations_card_vs_cpu(dev) -> dict:
+    """One pair (the oracle frames, 128x128, 12 iterations) of each
+    ablation on the card against the CPU: fp32 within FULLPREC_BOUND_PX,
+    mixed within BF16_BOUND_PX, and the card's launches."""
+    img1, img2, _, _ = load_oracle_npz(ORACLE)
+    pair = [torch.from_numpy(x) for x in (img1, img2)]
+    grid = (img1.shape[1] // 8, img1.shape[2] // 8)
+    res = {}
+    for variant in ABLATIONS:
+        sd = ablation_state_dict(variant, grid)
+        for label, mp, bound in (("fp32", False, FULLPREC_BOUND_PX),
+                                 ("mixed", True, BF16_BOUND_PX)):
+            flows = []
+            for d in (torch.device("cpu"), dev):
+                model = create_model(ablation_config(variant, mp), device=d)
+                model.load_state_dict(sd, strict=True)
+                launch.reset_launch_counts()
+                flows.append(_final(model, *(t.to(d) for t in pair))
+                             .float().cpu())
+            counts = launch.launch_counts()
+            want, got = flows
+            err = float((got - want).abs().max())
+            print(f"ablation {variant} {label}: card against the CPU, max "
+                  f"|flow diff| {err:.3e} px (max |flow| "
+                  f"{float(want.abs().max()):.3f}, bound {bound})")
+            assert bool(torch.isfinite(got).all()) and err < bound, \
+                f"ablation {variant} {label}"
+            _assert_launches(f"ablation {variant} {label}", counts,
+                             ABLATION_SERVE.get(variant, LSINU_KERNELS), 1)
+            res[f"{variant} {label}"] = err
+    return res
+
+
+ATTVIS_POINTS = ((0, 0), (5, 9), (15, 15))
+
+
+def attvis_on_card(dev) -> dict:
+    """attvis: dump_attention of the private two-way config (fp32, the
+    oracle frames, 1 iteration) on the card and on the CPU: the same keys
+    and shapes, the arrays within 1e-4 of each array's largest value; no
+    B2, B3 or B4 launch while capturing, and B3 and B4 launching again in
+    the next forward; then vis_attention's PNGs of the intra probs."""
+    from craft_tpu_torch.eval import attvis
+
+    img1, img2, _, _ = load_oracle_npz(ORACLE)
+    cfg, sd = variant_weights("f1_private", False)
+    shutil.rmtree(TWO_WAY_DIR, ignore_errors=True)
+    TWO_WAY_DIR.mkdir(parents=True)
+    launch.reset_launch_counts()
+    got = attvis.dump_attention(cfg, sd, img1, img2,
+                                str(TWO_WAY_DIR / "card.npz"), iters=1,
+                                device=dev)
+    counts = launch.launch_counts()
+    for name in ("flash_mode_attention", "fused_agg_corr_norm",
+                 "mode_softmax_probs"):
+        assert counts[name] == 0, f"attvis: {name} launched while capturing"
+    assert counts["corr_lookup"] == 1, "attvis: B5 once an iteration"
+    want = attvis.dump_attention(cfg, sd, img1, img2,
+                                 str(TWO_WAY_DIR / "cpu.npz"), iters=1,
+                                 device="cpu")
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    errs = {}
+    for key, w in want.items():
+        assert got[key].shape == w.shape, key
+        errs[key] = float(np.abs(got[key] - w).max() / np.abs(w).max())
+        assert errs[key] < 1e-4, f"attvis {key}: {errs[key]:.3e}"
+    print("attvis: card against the CPU, max |diff| / max |value| per key",
+          json.dumps(errs))
+    launch.reset_launch_counts()
+    _final(_variant_model(dev, "f1_private", False),
+           *(torch.from_numpy(x).to(dev) for x in (img1, img2)))
+    counts = launch.launch_counts()
+    assert counts["fused_agg_corr_norm"] == 2 and \
+        counts["mode_softmax_probs"] == 1, "attvis: the kernels after it"
+    n = attvis.vis_attention(got["att/setrans/attn_probs"][0], img2[0],
+                             ATTVIS_POINTS, str(TWO_WAY_DIR / "vis"),
+                             (img1.shape[1] // 8, img1.shape[2] // 8))
+    pngs = sorted(p.name for p in (TWO_WAY_DIR / "vis").glob("*.png"))
+    print(f"attvis: {n} PNGs written: {pngs}")
+    assert n == len(pngs) == len(ATTVIS_POINTS)
+    assert imgio.load(str(TWO_WAY_DIR / "vis" / pngs[0])).shape == \
+        img2.shape[1:]
+    shutil.rmtree(TWO_WAY_DIR, ignore_errors=True)
+    return {"keys": {k: list(v.shape) for k, v in got.items()},
+            "errs": errs}
+
+
+def two_way_phase(dev) -> dict:
+    """Two-way correlation (card against CPU, serving at full width,
+    training, the evaluator CLI), the SETrans ablations and attvis."""
+    t0 = time.perf_counter()
+    flows = two_way_card_vs_cpu(dev)
+    res = {"serving": two_way_serving(dev)}
+    torch.cuda.empty_cache()
+    res["training"] = two_way_training(dev)
+    torch.cuda.empty_cache()
+    res["eval"] = two_way_eval_cli(dev, flows["f1_shared"], flows["frames"])
+    res["ablations"] = ablations_card_vs_cpu(dev)
+    res["attvis"] = attvis_on_card(dev)
+    torch.cuda.empty_cache()
+    print(f"two-way phase: {time.perf_counter() - t0:.1f} s")
     return res
 
 
@@ -3850,14 +4322,14 @@ def time_dense_kernels(dev, gen, report) -> None:
           "(4 U^2 on the SFUs)")
 
 
-def window_elems(levels, coords, r=RADIUS) -> int:
-    """Level values that this run's windows must read: per query and level,
-    the (2r+2)^2 corners that lie inside the level."""
+def window_elems(levels, coords, r=RADIUS, dim=1) -> int:
+    """Level values that this run's windows must read: per query and plane
+    (`dim` planes a level), the (2r+2)^2 corners that lie inside it."""
     flat = coords.reshape(-1, 2).float()
     total = 0
     for i, lv in enumerate(levels):
         h, w = lv.shape[1], lv.shape[2]
-        lo = torch.floor(flat / 2.0 ** i) - r
+        lo = torch.floor(flat / 2.0 ** (i // dim)) - r
 
         def span(start, size):
             return ((start + 2 * r + 2).clamp(max=size)
@@ -3866,11 +4338,11 @@ def window_elems(levels, coords, r=RADIUS) -> int:
     return total
 
 
-def _grid_sample_args(levels, coords, g, r=RADIUS):
-    """Per level: the fp32 level [Q, 1, h, w], the grid of its window taps
-    normalized for F.grid_sample(align_corners=True) [Q, n, n, 2] (the
-    reference's bilinear_sampler, corr.py:47-71: axis 1 offsets x, axis 2
-    y) and that level's output cotangent [Q, 1, n, n]."""
+def _grid_sample_args(levels, coords, g, r=RADIUS, dim=1):
+    """Per plane (`dim` planes a level): the fp32 plane [Q, 1, h, w], the
+    grid of its window taps normalized for F.grid_sample(align_corners=True)
+    [Q, n, n, 2] (the reference's bilinear_sampler, corr.py:47-71: axis 1
+    offsets x, axis 2 y) and that plane's output cotangent [Q, 1, n, n]."""
     n = 2 * r + 1
     Q = coords.numel() // 2
     flat = coords.reshape(Q, 1, 1, 2).float()
@@ -3879,54 +4351,61 @@ def _grid_sample_args(levels, coords, g, r=RADIUS):
     args = []
     for i, lv in enumerate(levels):
         h, w = lv.shape[1], lv.shape[2]
-        xy = flat / 2.0 ** i + delta
+        xy = flat / 2.0 ** (i // dim) + delta
         grid = torch.stack([2 * xy[..., 0] / (w - 1) - 1,
                             2 * xy[..., 1] / (h - 1) - 1], -1)
-        gl = g.reshape(Q, LEVELS, n, n)[:, i, None].contiguous()
+        gl = g.reshape(Q, len(levels), n, n)[:, i, None].contiguous()
         args.append((lv.float()[:, None].contiguous(), grid, gl))
     return args
 
 
-def time_lookup(dev, report) -> None:
+def time_lookup(dev, report, dim: int = 1) -> None:
     """Phase 5, B5: forward and backward at the serving and chairs shapes,
-    beside the plain versions, the bounds and the library: per level
+    beside the plain versions, the bounds and the library: per plane
     F.grid_sample (forward) and its backward (aten.grid_sampler_2d_backward),
-    on fp32 copies of the levels made outside the timing.  The forward row
+    on fp32 copies of the planes made outside the timing.  The forward row
     of the kernels line takes the serving shape, the backward row the
-    chairs shape (the backward runs only in training)."""
+    chairs shape (the backward runs only in training).  With dim = 2 the
+    two-way pyramid's 8 planes (the rows corr_lookup_d2 and
+    corr_lookup_bwd_d2)."""
     F = torch.nn.functional
     n2 = (2 * RADIUS + 1) ** 2
+    suffix = "" if dim == 1 else f"_d{dim}"
     for label, batch, h8, w8, dtype in LOOKUP_SHAPES[:2]:
-        levels, coords = lookup_inputs(dev, batch, h8, w8, dtype)
+        levels, coords = (lookup_inputs if dim == 1 else lookup_planes)(
+            dev, batch, h8, w8, dtype)
         Q = coords.numel() // 2
+        P = len(levels)
         shapes = [tuple(lv.shape) for lv in levels]
-        g = torch.randn(batch, h8, w8, LEVELS * n2, device=dev)
+        g = torch.randn(batch, h8, w8, P * n2, device=dev)
         isz = levels[0].element_size()
-        taps = Q * LEVELS * n2
+        taps = Q * P * n2
         out_b, g_b = 4 * taps, 4 * taps
-        fwd_bytes = window_elems(levels, coords) * isz + 8 * Q + out_b
+        fwd_bytes = window_elems(levels, coords, dim=dim) * isz + 8 * Q \
+            + out_b
         bwd_bytes = g_b + 8 * Q + isz * sum(lv.numel() for lv in levels)
-        lib = _grid_sample_args(levels, coords, g)
-        want = lk.corr_lookup_plain(levels, coords, RADIUS)
+        lib = _grid_sample_args(levels, coords, g, dim=dim)
+        want = lk.corr_lookup_plain(levels, coords, RADIUS, dim)
         got_lib = torch.cat([F.grid_sample(x, gr, align_corners=True)
                              .reshape(batch, h8, w8, n2)
                              for x, gr, _ in lib], -1)
         lib_err = float((got_lib - want).abs().max())
-        print(f"B5 {label}: grid_sample against the plain version "
+        print(f"B5{suffix} {label}: grid_sample against the plain version "
               f"{lib_err:.3e}")
         assert lib_err < 1e-3 * float(want.abs().max()), "grid_sample"
         del want, got_lib
         cases = {
             "corr_lookup": (
-                lambda: lk.corr_lookup(levels, coords, RADIUS),
-                lambda: lk.corr_lookup_plain(levels, coords, RADIUS),
+                lambda: lk.corr_lookup(levels, coords, RADIUS, dim),
+                lambda: lk.corr_lookup_plain(levels, coords, RADIUS, dim),
                 lambda: [F.grid_sample(x, gr, align_corners=True)
                          for x, gr, _ in lib],
                 bound_ms(12.0 * taps, fwd_bytes, FP32_TFLOPS)),
             "corr_lookup_bwd": (
-                lambda: lk.corr_lookup_bwd(coords, g, shapes, dtype, RADIUS),
+                lambda: lk.corr_lookup_bwd(coords, g, shapes, dtype, RADIUS,
+                                           dim),
                 lambda: lk.corr_lookup_bwd_plain(coords, g, shapes, dtype,
-                                                 RADIUS),
+                                                 RADIUS, dim),
                 lambda: [torch.ops.aten.grid_sampler_2d_backward(
                     gl, x, gr, 0, 0, True, [True, False])
                     for x, gr, gl in lib],
@@ -3935,11 +4414,13 @@ def time_lookup(dev, report) -> None:
         for name, (kern, plain, libf, (bms, by)) in cases.items():
             ms, pms, lms = time_ms(kern, 20), time_ms(plain, 5), \
                 time_ms(libf, 10)
-            print(f"{name} ({label}, {dtype}): {ms:.4f} ms, plain {pms:.4f} "
-                  f"ms, bound {bms:.4f} ms ({by}), library {lms:.4f} ms")
+            print(f"{name}{suffix} ({label}, {dtype}): {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), library "
+                  f"{lms:.4f} ms")
             if (name == "corr_lookup") == (label == "serving"):
-                report[name].update(ms=ms, plain_ms=pms, library_ms=lms,
-                                    bound_ms=bms, bound_by=by)
+                report[name + suffix].update(ms=ms, plain_ms=pms,
+                                             library_ms=lms, bound_ms=bms,
+                                             bound_by=by)
         del lib, levels, g
         torch.cuda.empty_cache()
 
@@ -4322,6 +4803,12 @@ def main() -> int:
             # corr_lookup_mxu as the lookup's backward.
             ("corr_lookup_bwd", "corr_lookup",
              pallas + "corr_lookup.py:_lookup_bwd:198"),
+            # B5 at D = 2 (two-way correlation): the same pallas_call with
+            # D planes a level.
+            ("corr_lookup_d2", "corr_lookup",
+             pallas + "corr_lookup.py:_lookup_all_levels:98"),
+            ("corr_lookup_bwd_d2", "corr_lookup",
+             pallas + "corr_lookup.py:_lookup_bwd:198"),
             ("fused_agg_corr", "agg_corr",
              TPU_KERNEL.format("fused_agg_corr_mt:394")),
             ("agg_corr_bwd", "agg_corr",
@@ -4357,6 +4844,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_lookup(dev, report)
     check_lookup_radii(dev, report)
+    check_lookup_planes(dev, report)
     torch.cuda.empty_cache()
     check_hd1k_grid(dev, gen)
     torch.cuda.empty_cache()
@@ -4404,11 +4892,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     families_phase(dev)
     torch.cuda.empty_cache()
+    wres = two_way_phase(dev)
+    report["corr_lookup_d2"]["launches"] = \
+        wres["serving"]["f1_private"]["launches"]["corr_lookup"]
+    report["corr_lookup_bwd_d2"]["launches"] = \
+        wres["training"]["launches"]["corr_lookup_bwd"]
+    torch.cuda.empty_cache()
     time_kernels(dev, gen, report)
     time_b2_lazy(dev, gen, report)
     time_kitti_kernels(dev, gen)
     time_train_kernels(dev, gen, report)
     time_lookup(dev, report)
+    time_lookup(dev, report, dim=LOOKUP_D)
     time_dense_kernels(dev, gen, report)
     time_gru(dev, report)
 

@@ -15,10 +15,9 @@ from craft_tpu_torch.config import (ModelConfig, f2_trans_config,
 
 # ROADMAP.md queue items (section 2) that hold what the port lacks.
 ROADMAP_SP = "ROADMAP.md section 2, item 8 (sequence parallelism under " \
-    "lsinu and --f2radius, for the families other than full CRAFT, and " \
-    "across several cards)"
-ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (two-way correlation and " \
-    "other mode counts)"
+    "lsinu and --f2radius, for the families other than full CRAFT, with " \
+    "two-way correlation, and across several cards)"
+ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (mode counts other than 4)"
 
 
 def not_ported(what: str, item: str) -> SystemExit:
@@ -96,12 +95,8 @@ def _refuse_half(args) -> None:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Exit, naming the ROADMAP.md item, on what the port does not run:
-    two-way correlation (--f1 shared / private, which only arch 'craft'
-    reads) and a SETrans site of the family with a mode count other than
-    4."""
-    if cfg.arch == "craft" and cfg.f1trans != "none":
-        raise not_ported("--f1 shared / private", ROADMAP_ARCHS)
+    """Exit, naming the ROADMAP.md item, on what the port does not run: a
+    SETrans site of the family with a mode count other than 4."""
     sites = [("--intermodes", cfg.inter.num_modes, cfg.craft),
              ("--f2modes (--intramodes under --nogma)", cfg.f2.num_modes,
               cfg.f2trans != "none" and cfg.arch != "raft"),
@@ -129,6 +124,10 @@ def model_config_from_args(args) -> ModelConfig:
     else:
         arch, craft = "craft", True
         f2trans, use_setrans = args.f2trans, args.use_setrans
+        if args.f1trans != "none" and f2trans == "none":
+            raise SystemExit(
+                f"--f1 {args.f1trans} correlates the f1 and f2 transformers' "
+                f"outputs both ways: it needs --f2 full.")
     inter = inter_corr_config(
         num_modes=args.inter_num_modes, qk_have_bias=args.inter_qk_have_bias,
         pos_code_type=args.inter_pos_code_type,

@@ -27,7 +27,9 @@ class SETransSiteConfig:
     qk_have_bias: bool = False
     v_has_bias: bool = False
     attn_clip: float = 100.0
-    # 'bias' (the sliding window) or 'lsinu' (learned sinusoid codes).
+    # 'bias' (the sliding window), 'lsinu' (learned sinusoid codes), or the
+    # ablations 'zero', 'rand' (a learned table) and 'sinu' (fixed 2D
+    # sinusoids), nn/setrans_ablation.py.
     pos_code_type: str = "bias"
     pos_code_weight: float = 1.0
     pos_bias_radius: int = 7
@@ -37,6 +39,9 @@ class SETransSiteConfig:
     has_FFN: bool = True
     has_input_skip: bool = False
     pool_modes_feat: str = "softmax"    # only softmax pooling is ported
+    # The standard multi-head attention output (heads = num_modes) in place
+    # of ExpandedFeatTrans at a feature site (nn/setrans_ablation.py).
+    ablate_multihead: bool = False
     # Local attention mask radius in 1/8-res cells (<= 0 disables); f2 only.
     attn_mask_radius: int = -1
     # int8 fixed-point probs (p*127 with a per-row scale) for the

@@ -6,6 +6,16 @@
 // backward, the XLA VJP of corr_lookup_mxu that corr_lookup_tpu's custom_vjp
 // runs.
 //
+// Planes.  The pyramid arrives as P = L D planes in (level, d) order: D = 1
+// for the one-way volume, D = 2 for the two-way one (--f1), whose level l
+// holds the planes p = l D + d, each its own [Q, h_l, w_l] array.  Plane p
+// belongs to level p / D and is sampled at coords / 2^(p / D), and its
+// (2r+1)^2 outputs are channel block p of the query's: the reference order
+// (level, d, i, j).  The TPU kernel interleaved D into the lane axis
+// ([Q, h, w D]), a tiling choice; separate planes keep each plane's rows the
+// layout of a one-way level, so the loads and the backward's 16-byte units
+// are those of D = 1.  Below, "level" means a plane.
+//
 // Forward.  Query q has coords (x, y) at 1/8 resolution; level l is its own
 // [h_l, w_l] slab of the pyramid.  Tap (i, j) of the (2r+1)^2 window samples
 // (x / 2^l + i - r, y / 2^l + j - r) bilinearly, align_corners=True, zero
@@ -16,7 +26,10 @@
 // its order (no fused multiply-add, so the two agree bit for bit), and
 // writes out[q, l (2r+1)^2 + i (2r+1) + j], the reference channel order.
 // The radius is a template parameter (a kernel for each r <= MAXR), and all
-// levels' corner loads are in flight together.
+// levels' corner loads are in flight together.  So is the most planes a
+// kernel takes, NP = 4 or MAXP = 8 (two-way): its corner buffer holds NP
+// planes a warp, and at NP = 8 and r >= 6 fewer warps a block keep it within
+// the 48 KB of static shared memory (fwd_warps).
 //
 // Backward.  A query reads only its own slab, so queries never share a level
 // element: each element of the dense gradient [Q, h_l, w_l] has one writer,
@@ -49,14 +62,23 @@
 // for a machine without a fast gather; a warp-level gather needs neither.
 #include "common.cuh"
 
-#define MAXL 4
+#define MAXP 8  // planes: L <= 4 levels of D = 1, or of D = 2
 #define MAXR 7
 #define WARPS 8
+#define FWD_SMEM 49152  // static shared memory a block may declare
 
 struct Levels {
-  void* ptr[MAXL];
-  int h[MAXL], w[MAXL];
+  void* ptr[MAXP];
+  int h[MAXP], w[MAXP];
 };
+
+// Warps a forward block of NP planes at radius R: WARPS, or as many as
+// leave the corner buffer within FWD_SMEM.
+__host__ __device__ constexpr int fwd_warps(int np, int r) {
+  return FWD_SMEM / (np * (2 * r + 2) * (2 * r + 2) * 4) < WARPS
+             ? FWD_SMEM / (np * (2 * r + 2) * (2 * r + 2) * 4)
+             : WARPS;
+}
 
 // The window's first corner (column x0, row y0) and fractional offset of
 // level l.  A window wholly outside the level reads zero whatever its
@@ -86,27 +108,29 @@ __device__ __forceinline__ float lerp_rn(float a, float b, float t) {
 // each lane blends its taps into registers, and the query's L (2r+1)^2
 // outputs, staged in the same shared memory, leave in 16-byte stores when
 // L (2r+1)^2 is a multiple of 4 (L = 4: 1296 bytes at r = 4).
-template <typename T, int R>
-__global__ void __launch_bounds__(WARPS * 32)
-    lookup_fwd_kernel(Levels lv, int L, const float* __restrict__ coords,
+template <typename T, int R, int NP>
+__global__ void __launch_bounds__(fwd_warps(NP, R) * 32)
+    lookup_fwd_kernel(Levels lv, int L, int D,
+                      const float* __restrict__ coords,
                       float* __restrict__ out, int Q) {
   constexpr int n = 2 * R + 1, m = n + 1, MM = m * m, NN = n * n;
   constexpr int CIT = (MM + 31) / 32;  // corners a lane loads per level
   constexpr int OIT = (NN + 31) / 32;  // taps a lane blends per level
-  __shared__ __align__(16) float buf[WARPS][MAXL * MM];
+  constexpr int NW = fwd_warps(NP, R);
+  __shared__ __align__(16) float buf[NW][NP * MM];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q = blockIdx.x * WARPS + warp;
+  const int q = blockIdx.x * NW + warp;
   if (q >= Q) return;  // a whole warp; the block never synchronises
   float* g = buf[warp];
   const float cx = coords[2 * (size_t)q], cy = coords[2 * (size_t)q + 1];
-  int x0[MAXL], y0[MAXL];
-  float fx[MAXL], fy[MAXL];
-  float v[MAXL][CIT];
+  int x0[NP], y0[NP];
+  float fx[NP], fy[NP];
+  float v[NP][CIT];
 #pragma unroll
-  for (int l = 0; l < MAXL; ++l) {
+  for (int l = 0; l < NP; ++l) {
     if (l >= L) continue;
     const int h = lv.h[l], w = lv.w[l];
-    window_origin(cx, cy, l, h, w, R, &x0[l], &y0[l], &fx[l], &fy[l]);
+    window_origin(cx, cy, l / D, h, w, R, &x0[l], &y0[l], &fx[l], &fy[l]);
     const T* slab = (const T*)lv.ptr[l] + (size_t)q * h * w;
 #pragma unroll
     for (int it = 0; it < CIT; ++it) {
@@ -118,7 +142,7 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
   }
 #pragma unroll
-  for (int l = 0; l < MAXL; ++l) {
+  for (int l = 0; l < NP; ++l) {
     if (l >= L) continue;
 #pragma unroll
     for (int it = 0; it < CIT; ++it) {
@@ -127,9 +151,9 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
   }
   __syncwarp();
-  float o[MAXL][OIT];
+  float o[NP][OIT];
 #pragma unroll
-  for (int l = 0; l < MAXL; ++l) {
+  for (int l = 0; l < NP; ++l) {
     if (l >= L) continue;
     const float* gl = g + l * MM;
 #pragma unroll
@@ -145,7 +169,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
   __syncwarp();  // every corner is read: the buffer takes the outputs
 #pragma unroll
-  for (int l = 0; l < MAXL; ++l) {
+  for (int l = 0; l < NP; ++l) {
     if (l >= L) continue;
 #pragma unroll
     for (int it = 0; it < OIT; ++it) {
@@ -181,9 +205,9 @@ __host__ __device__ constexpr int qmax(int r) {
 // The backward's work: per level its gradient, size, element count, the
 // units an item takes, and its items [item0, item1) of the launch's.
 struct BwdPlan {
-  void* ptr[MAXL];
-  int h[MAXL], w[MAXL], ub[MAXL], item0[MAXL], item1[MAXL];
-  long long nel[MAXL], units[MAXL];
+  void* ptr[MAXP];
+  int h[MAXP], w[MAXP], ub[MAXP], item0[MAXP], item1[MAXP];
+  long long nel[MAXP], units[MAXP];
 };
 
 // Units an item of a level of hw values a query takes: at most B5B_RUN,
@@ -211,7 +235,7 @@ __device__ __forceinline__ uint4 pack_unit(const float (&v)[8]) {
 
 template <typename T, int R>
 __global__ void __launch_bounds__(B5B_THREADS)
-    lookup_bwd_kernel(BwdPlan pl, int L, int nitems,
+    lookup_bwd_kernel(BwdPlan pl, int L, int D, int nitems,
                       const float* __restrict__ coords,
                       const float* __restrict__ gout) {
   constexpr int n = 2 * R + 1, m = n + 1, MM = m * m, NN = n * n;
@@ -239,8 +263,8 @@ __global__ void __launch_bounds__(B5B_THREADS)
       touched[i] = 0u;
     for (int qi = threadIdx.x; qi < nq; qi += B5B_THREADS) {
       const int q = qa + qi;
-      window_origin(coords[2 * (size_t)q], coords[2 * (size_t)q + 1], l, h,
-                    w, R, &org[qi][0], &org[qi][1], &frac[qi][0],
+      window_origin(coords[2 * (size_t)q], coords[2 * (size_t)q + 1], l / D,
+                    h, w, R, &org[qi][0], &org[qi][1], &frac[qi][0],
                     &frac[qi][1]);
     }
     __syncthreads();
@@ -371,8 +395,9 @@ __global__ void __launch_bounds__(B5B_THREADS)
 }
 
 static inline cudaError_t fill_levels(Levels* lv, void* const* ptrs,
-                                      const int* hw, int L, int r) {
-  if (L < 1 || L > MAXL || r < 0 || r > MAXR) return cudaErrorInvalidValue;
+                                      const int* hw, int L, int D, int r) {
+  if (L < 1 || L > MAXP || D < 1 || L % D || r < 0 || r > MAXR)
+    return cudaErrorInvalidValue;
   for (int l = 0; l < L; ++l) {
     lv->ptr[l] = ptrs[l];
     lv->h[l] = hw[2 * l];
@@ -382,26 +407,43 @@ static inline cudaError_t fill_levels(Levels* lv, void* const* ptrs,
 }
 
 // levels: L host pointers to [Q, h_l, w_l] contiguous device arrays (bf16
-// when in_bf16, else fp32); hw: 2L host ints (h_0, w_0, h_1, ...);
-// coords: [Q, 2] fp32 (x, y); out: [Q, L (2r+1)^2] fp32.  L <= 4, r <= 7.
+// when in_bf16, else fp32), the planes of L / D levels in (level, d) order;
+// hw: 2L host ints (h_0, w_0, h_1, ...); coords: [Q, 2] fp32 (x, y); out:
+// [Q, L (2r+1)^2] fp32.  L <= 8 planes, D divides L, r <= 7.
+template <typename T, int R, int NP>
+static void launch_fwd_np(const Levels& lv, int L, int D, const float* coords,
+                       float* out, int Q, cudaStream_t s) {
+  constexpr int nw = fwd_warps(NP, R);
+  lookup_fwd_kernel<T, R, NP><<<(Q + nw - 1) / nw, nw * 32, 0, s>>>(
+      lv, L, D, coords, out, Q);
+}
+
+template <typename T, int R>
+static void launch_fwd(const Levels& lv, int L, int D, const float* coords,
+                       float* out, int Q, cudaStream_t s) {
+  if (L <= 4)
+    launch_fwd_np<T, R, 4>(lv, L, D, coords, out, Q, s);
+  else
+    launch_fwd_np<T, R, MAXP>(lv, L, D, coords, out, Q, s);
+}
+
 extern "C" int corr_lookup_launch(void* const* levels, const int* hw, int L,
-                                  const void* coords, void* out, int Q, int r,
-                                  int in_bf16, void* stream) {
+                                  int D, const void* coords, void* out,
+                                  int Q, int r, int in_bf16, void* stream) {
   Levels lv;
-  cudaError_t err = fill_levels(&lv, levels, hw, L, r);
+  cudaError_t err = fill_levels(&lv, levels, hw, L, D, r);
   if (err != cudaSuccess) return (int)err;
   if (Q == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (Q + WARPS - 1) / WARPS;
+  const float* c = (const float*)coords;
+  float* o = (float*)out;
   switch (r) {
-#define CASE(R)                                                            \
-  case R:                                                                  \
-    if (in_bf16)                                                           \
-      lookup_fwd_kernel<__nv_bfloat16, R><<<blocks, WARPS * 32, 0, s>>>(   \
-          lv, L, (const float*)coords, (float*)out, Q);                    \
-    else                                                                   \
-      lookup_fwd_kernel<float, R><<<blocks, WARPS * 32, 0, s>>>(           \
-          lv, L, (const float*)coords, (float*)out, Q);                    \
+#define CASE(R)                                                \
+  case R:                                                      \
+    if (in_bf16)                                               \
+      launch_fwd<__nv_bfloat16, R>(lv, L, D, c, o, Q, s);      \
+    else                                                       \
+      launch_fwd<float, R>(lv, L, D, c, o, Q, s);              \
     break;
     CASE(0) CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7)
 #undef CASE
@@ -434,7 +476,7 @@ static int plan_items(BwdPlan* pl, const Levels& lv, int L, int Q, int r,
 }
 
 template <typename T, int R>
-static int launch_bwd(const BwdPlan& pl, int L, int items,
+static int launch_bwd(const BwdPlan& pl, int L, int D, int items,
                       const float* coords, const float* gout,
                       cudaStream_t s) {
   auto kernel = lookup_bwd_kernel<T, R>;
@@ -447,19 +489,20 @@ static int launch_bwd(const BwdPlan& pl, int L, int items,
                                                         B5B_THREADS, 0);
   if (err != cudaSuccess) return (int)err;
   const int grid = min(items, max(1, sms * per_sm));  // whole waves
-  kernel<<<grid, B5B_THREADS, 0, s>>>(pl, L, items, coords, gout);
+  kernel<<<grid, B5B_THREADS, 0, s>>>(pl, L, D, items, coords, gout);
   return (int)cudaGetLastError();
 }
 
 // dlevels: L host pointers to [Q, h_l, w_l] 16-byte aligned device arrays
-// that the kernel fills completely (bf16 when out_bf16, else fp32); gout:
-// [Q, L (2r+1)^2] fp32, the cotangent of the forward's output.
+// that the kernel fills completely (bf16 when out_bf16, else fp32), the
+// planes of L / D levels in (level, d) order; gout: [Q, L (2r+1)^2] fp32,
+// the cotangent of the forward's output.
 extern "C" int corr_lookup_bwd_launch(void* const* dlevels, const int* hw,
-                                      int L, const void* coords,
+                                      int L, int D, const void* coords,
                                       const void* gout, int Q, int r,
                                       int out_bf16, void* stream) {
   Levels lv;
-  cudaError_t err = fill_levels(&lv, dlevels, hw, L, r);
+  cudaError_t err = fill_levels(&lv, dlevels, hw, L, D, r);
   if (err != cudaSuccess) return (int)err;
   for (int l = 0; l < L; ++l)
     if ((uintptr_t)dlevels[l] & 15) return (int)cudaErrorInvalidValue;
@@ -470,10 +513,10 @@ extern "C" int corr_lookup_bwd_launch(void* const* dlevels, const int* hw,
   cudaStream_t s = (cudaStream_t)stream;
   const float *c = (const float*)coords, *g = (const float*)gout;
   switch (r) {
-#define CASE(R)                                                          \
-  case R:                                                                \
-    return out_bf16 ? launch_bwd<__nv_bfloat16, R>(pl, L, items, c, g, s) \
-                    : launch_bwd<float, R>(pl, L, items, c, g, s);
+#define CASE(R)                                                             \
+  case R:                                                                   \
+    return out_bf16 ? launch_bwd<__nv_bfloat16, R>(pl, L, D, items, c, g, s) \
+                    : launch_bwd<float, R>(pl, L, D, items, c, g, s);
     CASE(0) CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7)
 #undef CASE
   }

@@ -48,7 +48,8 @@ from craft_tpu_torch.cli import (ROADMAP_SP, add_model_args,
 from craft_tpu_torch.eval import submission
 from craft_tpu_torch.eval.demo import gen_flow
 from craft_tpu_torch.eval.evaluate import VALIDATORS
-from craft_tpu_torch.models.flow_model import FlowModel, full_craft
+from craft_tpu_torch.models.flow_model import (FlowModel, full_craft,
+                                              two_way)
 from craft_tpu_torch.training.checkpoint import save_weights
 from craft_tpu_torch.utils.weights import load_reference_checkpoint
 
@@ -109,6 +110,9 @@ def _check_ported(args, cfg) -> None:
             or args.f2_attn_mask_radius > 0:
         raise not_ported("--seq_parallel with --interpos/--intrapos lsinu "
                          "or --f2radius", ROADMAP_SP)
+    if two_way(cfg):
+        raise not_ported("--seq_parallel with --f1 shared / private",
+                         ROADMAP_SP)
     if not full_craft(cfg):
         raise not_ported("--seq_parallel with --raft, --nogma, GMA "
                          "attention (no --setrans) or --f2 none", ROADMAP_SP)

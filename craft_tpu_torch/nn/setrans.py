@@ -47,6 +47,11 @@ conditional clamp (only when the batch-global max exceeds attn_clip,
 reference setrans.py:527-529) takes its predicate from B1 on detached q
 and k on the kernel paths, and stays on the device.  Module and parameter
 names are the reference's.
+The ablation codes 'zero', 'rand' and 'sinu' (nn/setrans_ablation.py) give
+no bias either and route as lsinu; a feature site under ablate_multihead
+takes the plain path with MultiHeadFeatTrans, eval and training.  A
+forward handed a ``Sow`` (attvis's capture) runs the site on the plain path
+in eval mode and sows its probs, as the JAX package's 'intermediates'.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ import torch
 import torch.nn as nn
 
 from craft_tpu_torch.config import SETransSiteConfig
+from craft_tpu_torch.nn import setrans_ablation as ablation
 from craft_tpu_torch.nn.layers import (drop_path, dropout, layer_norm,
                                        linear)
 from craft_tpu_torch.ops.kernels.corr_vjp import (fused_agg_corr_dense,
@@ -121,6 +127,24 @@ class LazyModeAttention(NamedTuple):
     W: int
     clip: torch.Tensor    # 0-d: attn_clip, or 1e30 (no clamp)
     pos_w: float
+
+
+class Sow(NamedTuple):
+    """The capture hook standing in for flax's sow into the
+    'intermediates' collection (craft_tpu/eval/attvis.py): `store` takes
+    each captured tensor (detached) under its module path, as the JAX dump
+    flattens it ('att/setrans/attn_probs'); the first value sown under a
+    key stays, as the dump keeps the first of a sown tuple.  `prefix` is
+    the path of the module it is handed to."""
+
+    store: dict
+    prefix: str = ""
+
+    def scope(self, name: str) -> "Sow":
+        return Sow(self.store, f"{self.prefix}{name}/")
+
+    def __call__(self, name: str, value: torch.Tensor) -> None:
+        self.store.setdefault(self.prefix + name, value.detach())
 
 
 class AttentionDiagnostics:
@@ -205,7 +229,9 @@ class InputFeatEncoder(nn.Module):
     plus the positional code (reference SETransInputFeatEncoder,
     setrans.py:710-800): the sliding bias for pos_code_type='bias', or, for
     'lsinu', learned sinusoid codes of the token coordinates added to the
-    tokens before the layer norm, and no bias (None)."""
+    tokens before the layer norm, and no bias (None); the ablation codes
+    'zero', 'rand' and 'sinu' (nn/setrans_ablation.py) are added as lsinu's
+    are, and give no bias either."""
 
     def __init__(self, cfg: SETransSiteConfig, dtype=torch.float32):
         super().__init__()
@@ -213,10 +239,17 @@ class InputFeatEncoder(nn.Module):
         self.pos_code_type = cfg.pos_code_type
         self.pos_code_weight = cfg.pos_code_weight
         self.hidden_dropout_prob = cfg.hidden_dropout_prob
+        C = cfg.in_feat_dim
         if cfg.pos_code_type == "bias":
             self.pos_coder = SlidingPosBiases2D(cfg.pos_bias_radius)
         elif cfg.pos_code_type == "lsinu":
-            self.pos_coder = LearnedSinuPosEmbedder(cfg.in_feat_dim, dtype)
+            self.pos_coder = LearnedSinuPosEmbedder(C, dtype)
+        elif cfg.pos_code_type == "zero":
+            self.pos_coder = ablation.ZeroEmbedder(C, dtype)
+        elif cfg.pos_code_type == "rand":
+            self.pos_coder = ablation.RandPosEmbedder(C, dtype)
+        elif cfg.pos_code_type == "sinu":
+            self.pos_coder = ablation.SinuPosEmbedder(C, dtype)
         else:
             raise NotImplementedError(f"pos_code_type {cfg.pos_code_type}")
 
@@ -234,7 +267,9 @@ class InputFeatEncoder(nn.Module):
                 indexing="ij")
             coords = torch.stack([ys, xs], dim=-1).reshape(1, H * W, 2)
             coords = coords / max(H - 1, W - 1, 1)
-            tokens = tokens + self.pos_code_weight * self.pos_coder(coords)
+            code = self.pos_coder(coords) if self.pos_code_type == "lsinu" \
+                else self.pos_coder(coords, H, W)
+            tokens = tokens + self.pos_code_weight * code
         tokens = layer_norm(tokens, dtype=self.dtype)
         if self.training:
             tokens = dropout(tokens, self.hidden_dropout_prob, generator)
@@ -342,7 +377,9 @@ class CrossAttFeatTrans(nn.Module):
             # state-dict parity with the reference (setrans.py:432-436).
             self.attn_softaggr = LearnedSoftAggregate(1)
         if not cfg.out_attn_only:
-            self.out_trans = ExpandedFeatTrans(cfg, dtype)
+            self.out_trans = (ablation.MultiHeadFeatTrans(cfg, dtype)
+                              if cfg.ablate_multihead
+                              else ExpandedFeatTrans(cfg, dtype))
 
     def _qk(self, query_feat, key_feat):
         cfg = self.cfg
@@ -368,7 +405,7 @@ class CrossAttFeatTrans(nn.Module):
 
     def forward(self, query_feat, key_feat=None, pos_biases=None,
                 out_dtype=None, generator=None, attention_mask=None,
-                shard=None, diagnostics=None):
+                shard=None, diagnostics=None, sow=None):
         """Scores-only site: the normed [B, U1, U2] volume in `out_dtype`
         (eval with the sliding bias), or the raw fp32 one (train, or no
         sliding bias).  Probs-only site: [B, M, U1, U2] probs or
@@ -381,7 +418,13 @@ class CrossAttFeatTrans(nn.Module):
         `generator` draws the attention dropout in training.  `shard` (a
         RowShard) takes the queries from this rank's rows of query_feat.
         `diagnostics` (an AttentionDiagnostics, training) records the
-        scores' telemetry and sends the site through the plain path."""
+        scores' telemetry and sends the site through the plain path.
+        `sow` (a Sow, eval) captures the probs of the f2 and intra sites as
+        'attn_probs' and sends the site through the plain path, as the JAX
+        package's 'intermediates' does; the scores-only site then gives its
+        raw volume.  Under ``ablate_multihead`` a feature site takes the
+        plain path in eval and training, and a probs site in training, as
+        the JAX package's XLA path."""
         cfg = self.cfg
         if key_feat is None:
             key_feat = query_feat
@@ -391,11 +434,16 @@ class CrossAttFeatTrans(nn.Module):
         q, k = self._qk(query_feat if shard is None
                         else shard.tokens(query_feat), key_feat)
         if self.training:
-            if dense or diagnostics is not None:
-                return self._plain_train_forward(q, k, key_feat, pos_biases,
-                                                 attention_mask, generator,
-                                                 diagnostics)
+            if dense or diagnostics is not None or (
+                    cfg.ablate_multihead and not cfg.out_attn_scores_only):
+                return self._plain_forward(q, k, key_feat, pos_biases,
+                                           attention_mask, generator,
+                                           diagnostics)
             return self._train_forward(q, k, key_feat, pos_biases, generator)
+        if sow is not None or (cfg.ablate_multihead
+                               and not cfg.out_attn_only):
+            return self._plain_forward(q, k, key_feat, pos_biases,
+                                       attention_mask, sow=sow)
         if dense:
             return self._dense_forward(q, k, key_feat, pos_biases,
                                        attention_mask)
@@ -478,13 +526,14 @@ class CrossAttFeatTrans(nn.Module):
             return probs
         return self.out_trans(key_feat, attention=probs, generator=generator)
 
-    def _plain_train_forward(self, q, k, key_feat, pos_biases,
-                             attention_mask, generator, diagnostics):
-        """Training through stock autograd over the materialised scores,
-        the JAX package's XLA path (craft_tpu/nn/setrans.py:335-367,
-        437-470): scores in fp32, the clamp, + pos_w * the dense sliding
-        bias, + the mask; the inter site's mode aggregation, or the f2 and
-        intra sites' softmax, cast to the compute dtype, and dropout."""
+    def _plain_forward(self, q, k, key_feat, pos_biases, attention_mask,
+                       generator=None, diagnostics=None, sow=None):
+        """Stock autograd over the materialised scores, the JAX package's
+        XLA path (craft_tpu/nn/setrans.py:335-367, 437-470, 755-760):
+        scores in fp32, the clamp, + pos_w * the dense sliding bias, + the
+        mask; the inter site's mode aggregation, or the f2 and intra sites'
+        softmax, cast to the compute dtype (sown as 'attn_probs'), and
+        dropout in training."""
         cfg = self.cfg
         # fp32 operands (an exact cast): the JAX einsum accumulates and
         # returns fp32, where a bf16 matmul would round the scores to bf16.
@@ -506,7 +555,11 @@ class CrossAttFeatTrans(nn.Module):
             probs = torch.softmax(scores * agg_w + agg_b, dim=1)
             return (scores * probs).sum(dim=1)
         probs = torch.softmax(scores, dim=-1).to(self.dtype)
-        probs = dropout(probs, cfg.attention_probs_dropout_prob, generator)
+        if sow is not None:
+            sow("attn_probs", probs)
+        if self.training:
+            probs = dropout(probs, cfg.attention_probs_dropout_prob,
+                            generator)
         if cfg.out_attn_probs_only:
             return probs
         return self.out_trans(key_feat, attention=probs, generator=generator)
@@ -526,7 +579,7 @@ class SelfAttVisPosTrans(nn.Module):
         self.setrans = CrossAttFeatTrans(cfg, dtype)
 
     def forward(self, x: torch.Tensor, generator=None, shard=None,
-                diagnostics=None):
+                diagnostics=None, sow=None):
         B, H, W, C = x.shape
         mask = None
         if self.cfg.attn_mask_radius > 0:
@@ -534,7 +587,8 @@ class SelfAttVisPosTrans(nn.Module):
         tokens, pos_biases = self.vispos_encoder(x, generator)
         out = self.setrans(tokens, pos_biases=pos_biases,
                            generator=generator, attention_mask=mask,
-                           shard=shard, diagnostics=diagnostics)
+                           shard=shard, diagnostics=diagnostics,
+                           sow=None if sow is None else sow.scope("setrans"))
         if not self.cfg.out_attn_only:
             out = out.reshape(B, H, W, C)
         return out

@@ -1,11 +1,15 @@
 """Correlation volume, pyramid and windowed lookup (PyTorch port of
-``craft_tpu.ops.corr``, one-way D=1 volumes): the plain all-pairs volume of
-RAFT and GMA, and the pyramids of the plain and the TransCorr volumes.
+``craft_tpu.ops.corr``): the plain all-pairs volume of RAFT and GMA, and
+the pyramids of the plain and the TransCorr volumes, one-way (D = 1) or
+two-way (D = 2, --f1: [f1'.f2, f1.f2'], ``craft_tpu/models/
+flow_model.py:67-96``).
 
-Pyramid level l is stored [B*H1*W1, h_l, w_l].  The per-iteration lookup
-samples a (2r+1)^2 bilinear window around coords/2^l on every level and
-returns [B, H1, W1, L*(2r+1)^2] in the reference channel order: level, then
-x-offset i, then y-offset j (reference corr.py:47-71).
+Level l of a pyramid is D planes, each stored [B*H1*W1, h_l, w_l], held in
+(level, d) order (the JAX package interleaves D into one array's lane axis,
+[B*H1*W1, h_l, w_l*D], a TPU tiling choice).  The per-iteration lookup
+samples a (2r+1)^2 bilinear window around coords/2^l on every plane and
+returns [B, H1, W1, L*D*(2r+1)^2] in the reference channel order: level,
+then d, then x-offset i, then y-offset j (reference corr.py:47-71).
 """
 
 from __future__ import annotations
@@ -20,11 +24,12 @@ from craft_tpu_torch.ops.kernels import corr_lookup as lk
 
 
 class CorrPyramid(NamedTuple):
-    levels: tuple  # [B*H1*W1, h_l, w_l] per level
+    levels: tuple  # [B*H1*W1, h_l, w_l] per plane, (level, d) order
     batch: int
     h1: int
     w1: int
     radius: int
+    dim: int = 1  # D, the planes a level
 
 
 def _pool2x2(x: torch.Tensor) -> torch.Tensor:
@@ -64,30 +69,50 @@ def build_pyramid(corr: torch.Tensor, batch: int, h1: int, w1: int,
                   num_levels: int = 4, radius: int = 4,
                   do_global_norm: bool = False,
                   level_dtype=torch.float32) -> CorrPyramid:
-    """Average-pool pyramid from a raw [B, U1, 1, U2] fp32 volume."""
+    """Average-pool pyramid from a raw [B, U1, D, U2] fp32 volume (D = 1,
+    or 2 for the two-way volume), normed per (batch, d) when asked, as the
+    JAX package's (``craft_tpu/ops/corr.py:87-129``).  Each d becomes its
+    own contiguous plane of every level."""
     B, U1, D, U2 = corr.shape
-    assert D == 1 and U1 == h1 * w1 and U2 == h1 * w1
-    if do_global_norm:
-        corr = global_layer_norm(corr.reshape(B, 1, U1 * U2))
-    levels = [corr.reshape(B * U1, h1, w1)]
+    assert U1 == h1 * w1 and U2 == h1 * w1
+    planes = []
+    for d in range(D):
+        plane = corr[:, :, d]
+        if do_global_norm:
+            plane = global_layer_norm(plane.reshape(B, 1, U1 * U2))
+        planes.append(plane.reshape(B * U1, h1, w1).contiguous())
+    return _pooled(planes, batch, h1, w1, num_levels, radius, level_dtype,
+                   cast_each=False)
+
+
+def _pooled(planes, batch, h1, w1, num_levels, radius, level_dtype,
+            cast_each):
+    """The pyramid of level-0 planes [B*U1, h1, w1] (one per d): each plane
+    pooled on its own, the levels in (level, d) order.  With `cast_each`
+    every level is cast to `level_dtype` before the next is pooled from it
+    (the pyramid of an already-normed bf16 level 0); otherwise the levels
+    are pooled in the planes' type and cast at the end."""
+    chain = [[p] for p in planes]
     for _ in range(num_levels - 1):
-        levels.append(_pool2x2(levels[-1]))
-    return CorrPyramid(tuple(l.to(level_dtype) for l in levels), batch, h1,
-                       w1, radius)
+        for c in chain:
+            nxt = _pool2x2(c[-1])
+            c.append(nxt.to(level_dtype) if cast_each else nxt)
+    levels = tuple(c[l].to(level_dtype) for l in range(num_levels)
+                   for c in chain)
+    return CorrPyramid(levels, batch, h1, w1, radius, len(planes))
 
 
-def pyramid_from_level0(level0: torch.Tensor, batch: int, h1: int, w1: int,
+def pyramid_from_level0(level0, batch: int, h1: int, w1: int,
                         num_levels: int = 4, radius: int = 4,
                         level_dtype=torch.bfloat16) -> CorrPyramid:
-    """Pyramid from an already-normalized [B, U1, U2] base volume.  Pooling
-    accumulates in fp32; an odd last row or column is dropped."""
-    B, U1, U2 = level0.shape
-    cur = level0.reshape(B * U1, h1, w1)
-    levels = [cur.to(level_dtype)]
-    for _ in range(num_levels - 1):
-        cur = _pool2x2(cur).to(level_dtype)
-        levels.append(cur)
-    return CorrPyramid(tuple(levels), batch, h1, w1, radius)
+    """Pyramid from an already-normalized [B, U1, U2] base volume, or a
+    sequence of them, one per d of a two-way volume.  Pooling accumulates
+    in fp32; an odd last row or column is dropped."""
+    if isinstance(level0, torch.Tensor):
+        level0 = (level0,)
+    planes = [v.reshape(v.shape[0] * v.shape[1], h1, w1) for v in level0]
+    return _pooled(planes, batch, h1, w1, num_levels, radius, level_dtype,
+                   cast_each=True)
 
 
 def plain_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
@@ -102,10 +127,10 @@ def plain_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
 
 
 def corr_lookup(pyr: CorrPyramid, coords: torch.Tensor) -> torch.Tensor:
-    """The windowed multi-scale lookup (B5), [B, H1, W1, L*(2r+1)^2] fp32,
-    differentiable in the levels.
+    """The windowed multi-scale lookup (B5), [B, H1, W1, L*D*(2r+1)^2]
+    fp32, differentiable in the levels.
 
     coords: [B, H1, W1, 2] (x, y) fp32; they get no gradient.  CPU tensors
     take the plain gather forward and backward; CUDA tensors take the hand
     kernels, forward and backward, or raise."""
-    return lk.corr_lookup_diff(pyr.levels, coords, pyr.radius)
+    return lk.corr_lookup_diff(pyr.levels, coords, pyr.radius, pyr.dim)

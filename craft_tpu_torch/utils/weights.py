@@ -10,7 +10,11 @@ flax), with its own copy of the flax-path -> reference-key mapping:
   BatchNorm batch_stats mean/var    -> running_mean/running_var (+ a zero
                                        num_batches_tracked)
 and the tied Q/K projection duplicated under ``setrans.key.*`` (the
-reference registers the shared module twice, setrans.py:470-478).
+reference registers the shared module twice, setrans.py:470-478).  A
+private f1 transformer (--f1 private) maps as any module; under --f1
+shared the tree has ``f2_trans`` alone, and ``FlowModel`` fills its
+``f1_trans.*`` entries from those at load, as the reference lists the one
+module under both names.
 
 Since the port's modules use the reference key names, a reference ``.pth``
 checkpoint loads straight into them (``load_reference_checkpoint``).

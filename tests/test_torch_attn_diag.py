@@ -97,7 +97,7 @@ def test_which_sites_take_the_plain_path(case, monkeypatch):
     at the f2 site alone."""
     variant, kind = case.rsplit(" ", 1)
     calls = {"plain": [], "kernels": []}
-    for branch, method in (("plain", "_plain_train_forward"),
+    for branch, method in (("plain", "_plain_forward"),
                            ("kernels", "_train_forward")):
         orig = getattr(CrossAttFeatTrans, method)
 

@@ -195,7 +195,9 @@ def test_loader_unwraps_like_the_jax_converter(setup, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--nogma", "--intramodes", "2"], "item 6"), (["--f2modes", "8"],
                                                    "item 6"),
-    (["--f1", "shared"], "item 6"), (["--intermodes", "2"], "item 6"),
+    (["--f1", "shared", "--intermodes", "2"], "item 6"),
+    (["--intermodes", "2"], "item 6"),
+    (["--seq_parallel", "--f1", "shared"], "item 8"),
     (["--seq_parallel", "--intrapos", "lsinu"], "item 8"),
     (["--seq_parallel", "--f2radius", "3"], "item 8"),
     (["--seq_parallel", "--raft"], "item 8"),

@@ -46,6 +46,9 @@ FAMILY_FLAGS = {
                                  "--f2modes", "8"],
     "f2_none": ["--craft", "--setrans", "--f2", "none"],
     "raft_f1_mixed": ["--raft", "--f1", "shared", "--mixed_precision"],
+    "f1_shared": ["--craft", "--setrans", "--f1", "shared"],
+    "f1_private_mixed": ["--craft", "--setrans", "--f1", "private",
+                         "--mixed_precision"],
     "packed": ["--craft", "--setrans", "--upsample_mode", "packed"],
 }
 # The trees of tests/test_torch_families.py each CLI family loads.
@@ -85,8 +88,9 @@ def test_flags_resolve_to_the_jax_config(family):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--craft", "--setrans", "--f1", "shared"], "item 6"),
-    (["--craft", "--f1", "private"], "item 6"),
+    (["--craft", "--setrans", "--f1", "shared", "--intermodes", "2"],
+     "item 6"),
+    (["--craft", "--f1", "private", "--f2modes", "8"], "item 6"),
     (["--nogma", "--intermodes", "8"], "item 6"),
     (["--nogma", "--intramodes", "2"], "item 6"),
     (["--craft", "--f2modes", "2"], "item 6")])
@@ -96,7 +100,9 @@ def test_still_refused_flags_exit_naming_their_item(flags, item):
 
 
 @pytest.mark.parametrize("flags", [["--raft"], ["--nogma"], ["--craft"],
-                                   ["--craft", "--setrans", "--f2", "none"]])
+                                   ["--craft", "--setrans", "--f2", "none"],
+                                   ["--craft", "--setrans", "--f1",
+                                    "shared"]])
 def test_seq_parallel_exits_for_other_families(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md section 2, item 8"):
         teval.main(["--model", "absent.pth", "--seq_parallel", "--device",
@@ -179,7 +185,7 @@ def test_train_cli_final_trains_as_packed(chairs_tree, tmp_path):
 
 
 @pytest.mark.parametrize("family", ["raft", "gma_attention", "nogma",
-                                    "f2_none"])
+                                    "f2_none", "f1_shared"])
 def test_flop_breakdown_of_each_family_matches_jax(family):
     """--flop's analytic table for each family, against the JAX package's
     (craft_tpu/eval/flops.py:85-114), and the counted forward at 64x96."""

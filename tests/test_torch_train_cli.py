@@ -286,7 +286,7 @@ def _has_matplotlib() -> bool:
     (["--f2modes", "8"], "item 6"),
     (["--nogma", "--intramodes", "8"], "item 6"),
     (["--intermodes", "2"], "item 6"),
-    (["--f1", "shared"], "item 6"),
+    (["--f1", "shared", "--f2modes", "2"], "item 6"),
     (["--intramodes", "2"], "item 6")],
     ids=lambda v: v if isinstance(v, str) else "_".join(v))
 def test_cli_exits_on_what_is_not_ported(tmp_path, flags, item):

@@ -1,14 +1,15 @@
 """Where the time goes in the PyTorch port's main path, on one GPU.
 
     python3 tools/profile_torch_main_path.py [--pairs 2] [--train]
-        [--config main|lsinu|f2radius|raft|gma|craft_gma|craft_nogma|
-                  craft_f2_none]
+        [--config main|lsinu|f2radius|f1_shared|f1_private|raft|gma|
+                  craft_gma|craft_nogma|craft_f2_none]
 
 The main path of chip_smoke.py (its model, frame pairs and serving loop):
 full CRAFT at 436x1024 padded to 440x1024, bf16 with int8 intra probs, 12
 iterations, the weights of the oracle snapshot; with --config, the same
-served under lsinu (all three sites) or --f2radius 7 (chip_smoke.py's
-serving_model), or another family with its seeded weights (chip_smoke.py's
+served under lsinu (all three sites), --f2radius 7 or two-way
+correlation, --f1 shared or private (chip_smoke.py's serving_model), or
+another family with its seeded weights (chip_smoke.py's
 family_model and family_train_setup).  After one warm-up pair it
 times `--pairs` frame pairs on the host clock, then traces the same pairs
 with torch.profiler, and prints per pair: the host wall time (untraced and
@@ -16,8 +17,8 @@ traced), the kernel time under each phase range (craft.* in
 FlowModel.forward and the train step), kernel time by family, the device
 busy share (kernel time over the untraced wall time), and the 20 costliest
 kernels.  With --train the unit is a training step of chip_smoke.py's
-training path (368x496, batch 8; under --config lsinu or f2radius its
-train_setup of that config) instead of a pair.  The last line is one
+training path (368x496, batch 8; under --config lsinu, f2radius,
+f1_shared or f1_private its train_setup of that config) instead of a pair.  The last line is one
 JSON object with those numbers.  Needs CUDA; imports nothing of JAX.
 """
 
@@ -108,7 +109,7 @@ def main() -> int:
                     help="profile training steps instead of serving")
     ap.add_argument("--config", default="main",
                     choices=["main", "lsinu", "f2radius",
-                             *chip_smoke.FAMILIES],
+                             *chip_smoke.TWO_WAY, *chip_smoke.FAMILIES],
                     help="the configuration served or trained")
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -15,7 +15,8 @@ W8=156):
   B3 (fused_agg_corr_norm) at serving and KITTI, and at serving in fp32;
   B4 (mode_softmax_probs) int8 at serving and KITTI, bf16 probs at chairs
   (md 32 and 64), and fp32 at serving (its fp32 body);
-  B5 (corr_lookup) forward and backward at serving and chairs, bf16 levels;
+  B5 (corr_lookup) forward and backward at serving and chairs, bf16 levels,
+  and at D = 2 (two planes a level) where the checkout has it;
   B6 (fused_agg_corr) forward and backward at chairs, md 64 (the backward
   on the plain version's volume, so that both checkouts' backwards read
   the same bits);
@@ -67,6 +68,7 @@ from __future__ import annotations
 import argparse
 import functools
 import hashlib
+import inspect
 import json
 import statistics
 import subprocess
@@ -224,6 +226,23 @@ def _cases(torch, dev):
         p = ma.mode_softmax_probs_plain(q, k, biases, CHAIRS, clip, pos_w)
         cases[f"B7_md{md}"] = functools.partial(pv.probs_bwd, q, k, p, g_p,
                                                 clip)
+    if "dim" in inspect.signature(lk.corr_lookup).parameters:
+        # B5 at D = 2 (two-way correlation), in a checkout that has it:
+        # each level two planes, from a generator of its own, so that the
+        # cases above draw the same inputs in every checkout.
+        gen2 = torch.Generator().manual_seed(2)
+        for label, batch, grid in (("", 1, SERVING), ("_chairs", 8, CHAIRS)):
+            levels, coords = _lookup_inputs(torch, gen2, dev, batch, grid)
+            planes = [p for lv in levels for p in (lv, torch.randn(
+                lv.shape, generator=gen2).to(dev, lv.dtype))]
+            shapes = [tuple(p.shape) for p in planes]
+            g = torch.randn(batch, *grid, len(planes) * (2 * RADIUS + 1) ** 2,
+                            generator=gen2).to(dev)
+            cases["B5_d2" + label] = functools.partial(
+                lk.corr_lookup, planes, coords, RADIUS, 2)
+            cases["B5_bwd_d2" + label] = functools.partial(
+                lk.corr_lookup_bwd, coords, g, shapes, torch.bfloat16, RADIUS,
+                2)
     return cases
 
 

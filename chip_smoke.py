@@ -66,7 +66,19 @@ these phases and fails on the first that fails:
      a dropped bias and another query's slab planted.  Then B2 at the
      lazy intra aggregator's width (F 128, md 32), bf16 and fp32, clamp off
      and on, at the serving grid, a ragged grid (37 x 61) and HD1K's last
-     two grid rows, a dropped bias and a missing clamp planted.
+     two grid rows, a dropped bias and a missing clamp planted.  Then the
+     mode counts other than 4 (check_mode_kernels): the checks above
+     (check_kernels, check_train_kernels, check_dense_kernels,
+     check_sp_kernels, check_b2_lazy), each taking the 256-wide sites'
+     and the intra site's (modes, mode dim), run again at 1, 2, 8 and 16
+     modes of the 256-wide sites (md 256, 128, 32, 16) and 1, 2 and 8 of
+     the intra site (md 128, 64, 16), bf16 and fp32; the training
+     kernels at the chairs grid with batch 8 at 1 and 8 modes (modes1 and
+     modes8, whose rows the kernels line has) and batch 2 at the others;
+     beside each check's own faults, the modes past the first group of
+     four dropped (the aggregating kernels), q's first two 64-wide md
+     chunks swapped (md 128 and 256) and B6 backward's dc in the next
+     mode's plane planted, one fault at a time.
   3. oracle: full-width CRAFT with the weights of
      tests/data/oracle_craft_128.npz at 128x128, 12 iterations, against the
      reference flow: fp32 within 1e-3 px, the mixed-precision config
@@ -194,6 +206,20 @@ these phases and fails on the first that fails:
      against the CPU (the same keys and shapes, each array within 1e-4 of
      its largest value; no B2, B3 or B4 while capturing, B3 and B4 in the
      next forward) and vis_attention's PNGs.
+     Then the mode counts other than 4 (modes_phase): seven configurations
+     (MODE_CONFIGS: one, two, eight and sixteen modes, a mixed one, --f1
+     private at 8 inter modes, --nogma at 2) at 128x128 on the card against
+     the CPU (fp32 within 1e-3 px, mixed within 0.15 px), the oracle's
+     weights where their shapes hold and seeded first linears; modes1 and
+     modes8 served at 440x1024 (one warm-up pair, 2 pairs: event ms, the
+     profiler's device ms and busy share, peak memory, the main path's
+     launches asserted) and trained at the chairs crops (2 steps: event
+     ms, device ms, peak, launches), one fp32 step each card against CPU;
+     the evaluator CLI with modes8's flags over a one-pair Sintel tree
+     whose ground truth is the CPU flow (--fullprec, mixed) and the
+     training CLI with modes1's flags (2 steps, launches asserted); two
+     gloo ranks of this script (--sp-modes-rank) at 8 modes, 128x128,
+     mixed and fp32, against the unsharded flows.
   5. kernel times over CUDA events at the main-path shapes, beside each
      plain version, the bound and (B2) scaled_dot_product_attention; B2 at
      F 128 at a Sintel batch of 11 and at HD1K (the plain version there in
@@ -209,12 +235,15 @@ these phases and fails on the first that fails:
      pass at the serving and chairs grids (bf16) beside the plain
      versions, the bounds and the same pass in the cuDNN conv form.
      B4's, B6's and B6 dense's lines add the floor of their exponentials
-     on the SFUs.
+     on the SFUs.  Then B1, B2, B3, B4 int8 (serving) and B6, B6 backward
+     and B7 (chairs, batch 8) at 1 and 8 modes, as modes1 and modes8 run
+     them, beside their plain versions, bounds and exponentials' floors.
 
 Prints the card line and a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is unavailable.  Imports nothing of JAX.  `--sp-rank DIR [--sp-nccl]`
-runs one rank of the sequence-parallel phase (the script starts them).
+runs one rank of the sequence-parallel phase, `--sp-modes-rank DIR` one of
+the mode-count phase's (the script starts them).
 """
 
 from __future__ import annotations
@@ -370,11 +399,11 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def inputs(gen, md, dev, u=U, batch=1):
-    """Seeded q, k [batch, 4, u, md] bf16 with scores of std QK_STD^2."""
+def inputs(gen, md, dev, u=U, batch=1, modes=4, dtype=torch.bfloat16):
+    """Seeded q, k [batch, modes, u, md] with scores of std QK_STD^2."""
     def one():
-        x = torch.randn(batch, 4, u, md, generator=gen) * QK_STD
-        return x.to(dev, torch.bfloat16)
+        x = torch.randn(batch, modes, u, md, generator=gen) * QK_STD
+        return x.to(dev, dtype)
     return one(), one()
 
 
@@ -403,16 +432,55 @@ def b3_err(got, want) -> float:
 
 def hold(label, got, want, err_fn, tol, faults) -> float:
     """err_fn(got, want) <= tol, and err_fn(fault, want) > tol for each
-    planted fault {name: plain output with that fault}: a bound that a
-    dropped bias or a missing clamp would pass proves nothing."""
+    planted fault {name: plain output with that fault, or a function that
+    makes it, called and freed one at a time}: a bound that a dropped bias
+    or a missing clamp would pass proves nothing."""
     err = err_fn(got, want)
     print(f"{label}: error {err:.3e} (bound {tol:g})")
     assert err <= tol, f"{label}: kernel disagrees with its plain version"
     for name, out in faults.items():
-        ferr = err_fn(out, want)
+        ferr = err_fn(out() if callable(out) else out, want)
         print(f"{label}: planted fault '{name}' gives {ferr:.3e}")
         assert ferr > tol, f"{label}: the bound misses a '{name}' fault"
     return err
+
+
+# The faults planted against the mode counts other than 4: the aggregating
+# kernels' second and later groups of four modes dropped (B3, B6, B6 dense,
+# B9 at 8 and 16 modes); q's first two 64-wide chunks of the mode dim
+# swapped (the FMA bodies staged past 64, md 128 and 256); B6 backward's
+# dc planes one mode off.
+GROUP_DROPPED, CHUNK_SWAPPED, DC_MODE_OFF = (
+    "modes past the first group of four dropped",
+    "q's first two 64-wide md chunks swapped",
+    "dc written into the next mode's plane")
+
+
+def swap_md_chunks(x):
+    """x with its mode dim's chunks [0, 64) and [64, 128) swapped: what an
+    FMA body that staged its chunks out of order would multiply."""
+    return torch.cat([x[..., 64:128], x[..., :64], x[..., 128:]], -1)
+
+
+def mode_faults(M, md, fn, q, k, agg=False):
+    """{fault: function giving fn(q', k')} of the faults that apply at (M,
+    md): for an aggregating kernel (agg) the modes past the first group of
+    four dropped (M > 4), and q's md chunks swapped (md > 64)."""
+    out = {}
+    if agg and M > 4:
+        out[GROUP_DROPPED] = lambda: fn(q[:, :4], k[:, :4])
+    if md > 64:
+        out[CHUNK_SWAPPED] = lambda: fn(swap_md_chunks(q), k)
+    return out
+
+
+def note_err(report, name, M, err) -> None:
+    """Fold err into the kernels line's max_abs_err of `name` at M modes
+    (<name>_m<M> where M != 4), where the report has that row."""
+    r = report.get(name if M == 4 else f"{name}_m{M}")
+    if r is not None:
+        prev = r.get("max_abs_err")
+        r["max_abs_err"] = err if prev is None else max(prev, err)
 
 
 def drop_outer_ring(biases):
@@ -431,124 +499,162 @@ def clamped_share(q, k, clip: float) -> float:
 
 
 def check_kernels(dev, gen, report, grid=(H8, W8),
-                  b3_grids=((H8, W8), KITTI_GRID)) -> None:
+                  b3_grids=((H8, W8), KITTI_GRID), wide=(4, 64),
+                  intra=(4, 32), dtype=torch.bfloat16) -> None:
     """Phase 2: every kernel against its plain version on the same inputs
     (the plain versions run on the card too), with the clamp off and on;
-    B3 also at a ragged grid width (b3_grids).  On CPU tensors the
+    B3 also at a ragged grid width (b3_grids).  wide is the (modes, mode
+    dim) of the 256-wide sites (B1, B2, B3), intra the intra site's (B1,
+    B4; None: not checked), dtype the inputs' (B4 int8 takes bf16 only);
+    mode_faults are planted beside the others.  On CPU tensors the
     wrappers take the plain versions themselves, which is how the tests
     run this phase with planted faults."""
     biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
     u = grid[0] * grid[1]
 
     # B1 at the f2/inter (md 64) and intra (md 32) shapes.
-    errs = []
-    for md in (64, 32):
-        q, k = inputs(gen, md, dev, u)
+    for M, md in [wide] + ([intra] if intra else []):
+        q, k = inputs(gen, md, dev, u, modes=M, dtype=dtype)
         scale = 1.0 / math.sqrt(md)
         got = float(ma.scores_global_max(q, k, scale))
         sync(dev)
         want = float(ma.scores_global_max_plain(q, k, scale))
-        print(f"B1 md={md}: kernel {got:.6f} plain {want:.6f}")
-        assert abs(got - want) <= B1_RTOL * abs(want), "B1 disagrees"
-        errs.append(abs(got - want))
-    report["scores_global_max"]["max_abs_err"] = max(errs)
+        tag = f"B1 M={M} md={md} {dtype}"
+        print(f"{tag}: kernel {got:.6f} plain {want:.6f}")
+        assert abs(got - want) <= B1_RTOL * abs(want), f"{tag} disagrees"
+        for name, f in mode_faults(M, md, lambda a, b: float(
+                ma.scores_global_max_plain(a, b, scale)), q, k).items():
+            f = f()
+            print(f"{tag}: planted fault '{name}' gives {f:.6f}")
+            assert abs(f - want) > B1_RTOL * abs(want), \
+                f"{tag}: the bound misses a '{name}' fault"
+        note_err(report, "scores_global_max", M, abs(got - want))
 
-    # B2 (f2 site, pos_w 0.5), bf16.
-    q, k = inputs(gen, 64, dev, u)
-    v = torch.randn(1, 4, u, 256, generator=gen).to(dev, torch.bfloat16)
+    # B2 (f2 site, pos_w 0.5).
+    M, md = wide
+    q, k = inputs(gen, md, dev, u, modes=M, dtype=dtype)
+    v = torch.randn(1, M, u, 256, generator=gen).to(dev, dtype)
     print(f"B2/B3 inputs: clip {CLIP_ON} clamps "
           f"{clamped_share(q, k, CLIP_ON):.3f} of the scores")
-    errs = []
     for clip in (CLIP_OFF, CLIP_ON):
         clip_t = torch.tensor(clip, device=dev)
         got = ma.flash_mode_attention(q, k, v, biases, grid, clip_t, 0.5)
         sync(dev)
-        plain = lambda c, w: ma.flash_mode_attention_plain(  # noqa: E731
-            q, k, v, biases, grid, torch.tensor(c, device=dev), w)
-        faults = {"no bias": plain(clip, 0.0),
-                  "outer ring dropped": ma.flash_mode_attention_plain(
-                      q, k, v, drop_outer_ring(biases), grid,
-                      torch.tensor(clip, device=dev), 0.5)}
+
+        def plain(c, w, a=q, b=k, bias=biases):
+            return ma.flash_mode_attention_plain(
+                a, b, v, bias, grid, torch.tensor(c, device=dev), w)
+        faults = {"no bias": lambda: plain(clip, 0.0),
+                  "outer ring dropped": lambda: plain(
+                      clip, 0.5, bias=drop_outer_ring(biases))}
         if clip != CLIP_OFF:
-            faults["no clamp"] = plain(CLIP_OFF, 0.5)
+            faults["no clamp"] = lambda: plain(CLIP_OFF, 0.5)
+        faults.update(mode_faults(M, md, lambda a, b: plain(clip, 0.5, a, b),
+                                  q, k))
         want = plain(clip, 0.5)
-        hold(f"B2 clip={clip:g}", got, want, rel_err, B2_TOL, faults)
-        errs.append(float((got.float() - want.float()).abs().max()))
+        hold(f"B2 M={M} md={md} {dtype} clip={clip:g}", got, want, rel_err,
+             b2_tol(dtype), faults)
+        note_err(report, "flash_mode_attention", M,
+                 float((got.float() - want.float()).abs().max()))
         del got, want, faults
-    report["flash_mode_attention"]["max_abs_err"] = max(errs)
     del v
 
-    # B3 (inter site, pos_w 0.5), bf16 output against the fp32 plain
-    # volume, the clamp inactive (attn_clip 100 > raw max) and active; at
-    # the serving grid and at the KITTI width, whose key tiles cross grid
-    # rows where the band test decides which tiles take the window.
+    # B3 (inter site, pos_w 0.5), its output in dtype against the fp32
+    # plain volume, the clamp inactive (attn_clip 100 > raw max) and
+    # active; at the serving grid and at the KITTI width, whose key tiles
+    # cross grid rows where the band test decides which tiles take the
+    # window.
     agg_w = torch.tensor(1.3, device=dev)
     agg_b = torch.tensor(0.1, device=dev)
-    errs = []
+    err_fn, tol = vol_err(dtype)
     for g3 in b3_grids:
         if g3 != grid:
-            q, k = inputs(gen, 64, dev, g3[0] * g3[1])
+            q, k = inputs(gen, md, dev, g3[0] * g3[1], modes=M, dtype=dtype)
         for attn_clip in (100.0, CLIP_ON):
             got, stats = ma.fused_agg_corr_norm(q, k, biases, g3, attn_clip,
-                                                0.5, agg_w, agg_b)
+                                                0.5, agg_w, agg_b,
+                                                out_dtype=dtype)
             sync(dev)
-            plain = lambda c, w, b=biases: (  # noqa: E731
-                ma.fused_agg_corr_norm_plain(q, k, b, g3, c, w, agg_w, agg_b,
-                                             out_dtype=torch.float32))
-            faults = {"no bias": plain(attn_clip, 0.0)[0],
-                      "outer ring dropped": plain(
+
+            def plain(c, w, b=biases, x=q, y=k):
+                return ma.fused_agg_corr_norm_plain(
+                    x, y, b, g3, c, w, agg_w, agg_b, out_dtype=torch.float32)
+            faults = {"no bias": lambda: plain(attn_clip, 0.0)[0],
+                      "outer ring dropped": lambda: plain(
                           attn_clip, 0.5, drop_outer_ring(biases))[0]}
             if attn_clip != 100.0:
-                faults["no clamp"] = plain(CLIP_OFF, 0.5)[0]
+                faults["no clamp"] = lambda: plain(CLIP_OFF, 0.5)[0]
+            faults.update(mode_faults(M, md, lambda a, b: plain(
+                attn_clip, 0.5, x=a, y=b)[0], q, k, agg=True))
             want, wstats = plain(attn_clip, 0.5)
-            hold(f"B3 {g3[0]}x{g3[1]} attn_clip={attn_clip:g}", got, want,
-                 b3_err, 1.0, faults)
+            hold(f"B3 M={M} md={md} {dtype} {g3[0]}x{g3[1]} "
+                 f"attn_clip={attn_clip:g}", got, want, err_fn, tol, faults)
             print(f"B3 stats {stats.flatten().tolist()} plain "
                   f"{wstats.flatten().tolist()}")
             torch.testing.assert_close(stats, wstats, rtol=1e-4, atol=1e-5)
-            errs.append(float((got.float() - want).abs().max()))
+            note_err(report, "fused_agg_corr_norm", M,
+                     float((got.float() - want).abs().max()))
             del got, want, faults
-    report["fused_agg_corr_norm"]["max_abs_err"] = max(errs)
+    if intra is None:
+        return
 
-    # B4 (intra site, pos_w 1.0): quantized (the main path) and float.
-    q, k = inputs(gen, 32, dev, u)
+    # B4 (intra site, pos_w 1.0): quantized (the main path, bf16) and float.
+    M, md = intra
+    q, k = inputs(gen, md, dev, u, modes=M, dtype=dtype)
     print(f"B4 inputs: clip {CLIP_ON} clamps "
           f"{clamped_share(q, k, CLIP_ON):.3f} of the scores")
-    errs = []
+    tag = f"M={M} md={md} {dtype}"
     for clip in (CLIP_OFF, CLIP_ON):
         clip_t = torch.tensor(clip, device=dev)
-        num, sc = ma.mode_softmax_probs(q, k, biases, grid, clip_t, 1.0,
-                                        quantized=True)
-        sync(dev)
-        plain = lambda c, w, **kw: ma.mode_softmax_probs_plain(  # noqa: E731
-            q, k, biases, grid, torch.tensor(c, device=dev), w, **kw)
-        faults = {"no bias": plain(clip, 0.0, quantized=True),
-                  "row max taken over one key tile": b4_tile_max_fault(
-                      q, k, biases, grid, clip_t, 1.0)}
-        if clip != CLIP_OFF:
-            faults["no clamp"] = plain(CLIP_OFF, 1.0, quantized=True)
-        wnum, wsc = plain(clip, 1.0, quantized=True)
-        hold(f"B4 int8 numerators clip={clip:g}", num, wnum, num_err,
-             B4_NUM_TOL, {n: f[0] for n, f in faults.items()})
-        hold(f"B4 int8 row scales clip={clip:g}", sc, wsc, lambda a, b: float(
-            ((a - b).abs() / b).max()), B4_SCALE_RTOL,
-            {n: f[1] for n, f in faults.items()})
-        errs.append(float((num.float() * sc - wnum.float() * wsc).abs().max()))
-        del num, sc, wnum, wsc, faults
-        for odt in (torch.float32, torch.bfloat16):
+
+        def plain(c, w, a=q, b=k, **kw):
+            return ma.mode_softmax_probs_plain(
+                a, b, biases, grid, torch.tensor(c, device=dev), w, **kw)
+        if dtype == torch.bfloat16:
+            num, sc = ma.mode_softmax_probs(q, k, biases, grid, clip_t, 1.0,
+                                            quantized=True)
+            sync(dev)
+            faults = {"no bias": plain(clip, 0.0, quantized=True),
+                      "row max taken over one key tile": b4_tile_max_fault(
+                          q, k, biases, grid, clip_t, 1.0)}
+            if clip != CLIP_OFF:
+                faults["no clamp"] = plain(CLIP_OFF, 1.0, quantized=True)
+            faults.update({n: f() for n, f in mode_faults(
+                M, md, lambda a, b: plain(clip, 1.0, a, b, quantized=True),
+                q, k).items()})
+            wnum, wsc = plain(clip, 1.0, quantized=True)
+            hold(f"B4 int8 numerators {tag} clip={clip:g}", num, wnum,
+                 num_err, B4_NUM_TOL, {n: f[0] for n, f in faults.items()})
+            hold(f"B4 int8 row scales {tag} clip={clip:g}", sc, wsc,
+                 lambda a, b: float(((a - b).abs() / b).max()),
+                 B4_SCALE_RTOL, {n: f[1] for n, f in faults.items()})
+            note_err(report, "mode_softmax_probs", M, float(
+                (num.float() * sc - wnum.float() * wsc).abs().max()))
+            del num, sc, wnum, wsc, faults
+        for odt in probs_out_dtypes(dtype):
             got = ma.mode_softmax_probs(q, k, biases, grid, clip_t, 1.0,
                                         out_dtype=odt)
             sync(dev)
-            faults = {"no bias": plain(clip, 0.0, out_dtype=torch.float32)}
+            faults = {"no bias": lambda: plain(clip, 0.0,
+                                               out_dtype=torch.float32)}
             if clip != CLIP_OFF:
-                faults["no clamp"] = plain(CLIP_OFF, 1.0,
-                                           out_dtype=torch.float32)
+                faults["no clamp"] = lambda: plain(CLIP_OFF, 1.0,
+                                                   out_dtype=torch.float32)
+            faults.update(mode_faults(M, md, lambda a, b: plain(
+                clip, 1.0, a, b, out_dtype=torch.float32), q, k))
             want = plain(clip, 1.0, out_dtype=torch.float32)
-            hold(f"B4 {odt} clip={clip:g}", got, want, row_rel_err,
+            hold(f"B4 {tag} out {odt} clip={clip:g}", got, want, row_rel_err,
                  B4_ROW_TOL[odt], faults)
-            errs.append(float((got.float() - want).abs().max()))
+            note_err(report, "mode_softmax_probs", M,
+                     float((got.float() - want).abs().max()))
             del got, want, faults
-    report["mode_softmax_probs"]["max_abs_err"] = max(errs)
+
+
+def probs_out_dtypes(dtype):
+    """B4 float's output dtypes from inputs in dtype: fp32 and bf16 from
+    bf16 (the mixed-precision sites), fp32 from fp32."""
+    return ((torch.float32, torch.bfloat16) if dtype == torch.bfloat16
+            else (torch.float32,))
 
 
 def b4_tile_max_fault(q, k, biases, grid, clip, pos_w, q_row0: int = 0):
@@ -676,6 +782,10 @@ B6_TOL = 1e-4       # fp32 volume / dc: fp32 sums of md products in
 B6_DA_RTOL = 1e-4   # da: one sum over B*M*U^2 terms, fp64 partials vs fp32
 B7_DC_TOL = 1e-2    # bf16 dc per row, over the row max: half an ulp 2^-8
 B7_DLSUM_TOL = 1e-4  # fp32 sum over B*M of dl from the same bf16 p, g
+# fp32 dc over the tensor's largest value: the row terms (sums of U
+# products) in another order; per row a weak row's dc is within 1e-4 of
+# the terms it cancels, not of itself.
+B7_FP32_DC_TOL = 1e-4
 # A clamp-mask element flips where |c| lies within the rounding of the two
 # q.k^T sums of the clip; those elements are left out of the dc checks.
 MASK_BAND = 1e-4
@@ -775,21 +885,25 @@ def _b7_fault(q, k, p, g, clip, row_term=True, mask=True, row_cols=None,
 
 
 def check_b6_forward(dev, gen, report, biases, grid=CHAIRS_GRID,
-                     batch=TRAIN_BATCH):
+                     batch=TRAIN_BATCH, modes=4, mds=(64, 32),
+                     dtype=torch.bfloat16):
     """Phase 2, B6 forward (inter site, pos_w 0.5): the raw fp32 volume at
-    md 64 (the inter site) and 32, the whole batch and one sample, the clamp
-    off and on, each launched twice (the same bits), with faults planted in
-    the plain version, among them three against the bf16 body's tiles.
-    Returns md 64's q, k and the plain volume of the whole batch with the
-    clamp on.  On CPU tensors the wrapper takes the plain version itself
-    (how the tests run this check)."""
+    `modes` modes of each dim in mds (64: the inter site; 32), the whole
+    batch and one sample, the clamp off and on, each launched twice (the
+    same bits), with faults planted in the plain version, among them three
+    against the bf16 body's tiles, and mode_faults.  Returns the first md's
+    q, k and the plain volume of the whole batch with the clamp on.  On CPU
+    tensors the wrapper takes the plain version itself (how the tests run
+    this check)."""
     agg_w = torch.tensor(1.3, device=dev)
     agg_b = torch.tensor(0.1, device=dev)
     u = grid[0] * grid[1]
-    errs = []
-    for md in (64, 32):
-        q, k = inputs(gen, md, dev, u, batch)
-        print(f"B6 inputs md={md}: clip {CLIP_ON} clamps "
+    # At one mode every mode is mode 0, and vol = s has no offset to leave.
+    tile_faults = (B6_MODE0, B6_HALF_WINDOW, B6_WB) if modes > 1 else (
+        B6_HALF_WINDOW,)
+    for md in mds:
+        q, k = inputs(gen, md, dev, u, batch, modes, dtype)
+        print(f"B6 inputs M={modes} md={md} {dtype}: clip {CLIP_ON} clamps "
               f"{clamped_share(q, k, CLIP_ON):.3f} of the scores")
         for bsz, clip in ((batch, CLIP_OFF), (batch, CLIP_ON), (1, CLIP_OFF),
                           (1, CLIP_ON)):
@@ -797,165 +911,239 @@ def check_b6_forward(dev, gen, report, biases, grid=CHAIRS_GRID,
             got = cv.fused_agg_corr(qb, kb, biases, grid, clip, 0.5, agg_w,
                                     agg_b)
             sync(dev)
-            plain = lambda c, w: cv.fused_agg_corr_plain(  # noqa: E731
-                qb, kb, biases, grid, c, w, agg_w, agg_b)
+
+            def plain(c, w, a=qb, b=kb):
+                return cv.fused_agg_corr_plain(a, b, biases, grid, c, w,
+                                               agg_w, agg_b)
             window = ma.window_rows(biases, grid, qb, kb)
-            faults = {"no bias": plain(clip, 0.0)}
+            faults = {"no bias": lambda: plain(clip, 0.0)}
             if clip != CLIP_OFF:
-                faults["no clamp"] = plain(CLIP_OFF, 0.5)
-            for fault in (B6_MODE0, B6_HALF_WINDOW, B6_WB):
-                faults[fault] = b6_fwd_fault(qb, kb, window, clip, 0.5,
-                                             agg_w, agg_b, fault)
+                faults["no clamp"] = lambda: plain(CLIP_OFF, 0.5)
+            for fault in tile_faults:
+                faults[fault] = lambda fault=fault: b6_fwd_fault(
+                    qb, kb, window, clip, 0.5, agg_w, agg_b, fault)
+            faults.update(mode_faults(modes, md, lambda a, b: plain(
+                clip, 0.5, a, b), qb, kb, agg=True))
             want = plain(clip, 0.5)
-            label = f"B6 forward md={md} B={bsz} clip={clip:g}"
+            label = f"B6 forward M={modes} md={md} {dtype} B={bsz} " \
+                f"clip={clip:g}"
             hold(label, got, want, rel_err, B6_TOL, faults)
-            errs.append(float((got - want).abs().max()))
+            note_err(report, "fused_agg_corr", modes,
+                     float((got - want).abs().max()))
             got2 = cv.fused_agg_corr(qb, kb, biases, grid, clip, 0.5, agg_w,
                                      agg_b)
             sync(dev)
             assert torch.equal(got, got2), f"{label}: two launches differ"
-            if md == 64 and bsz == batch and clip == CLIP_ON:
-                q64, k64, vol = q, k, want
+            if md == mds[0] and bsz == batch and clip == CLIP_ON:
+                q0, k0, vol = q, k, want
             del got, got2, faults, window, want
         del q, k
-    report["fused_agg_corr"]["max_abs_err"] = max(errs)
-    return q64, k64, vol
+    return q0, k0, vol
 
 
 def check_train_kernels(dev, gen, report, grid=CHAIRS_GRID,
-                        batch=TRAIN_BATCH) -> None:
+                        batch=TRAIN_BATCH, wide=(4, 64), intra=(4, 32),
+                        dtype=torch.bfloat16) -> None:
     """Phase 2, training kernels: B1 and B4 float at the chairs U (no tile
     divides it), B6 forward and backward, B7 backward, each against its
     plain version on the same peaky inputs, the clamp off and on, with
-    faults planted in the plain versions.  On CPU tensors the wrappers take
-    the plain versions themselves (how the tests run this phase)."""
+    faults planted in the plain versions (mode_faults, and DC_MODE_OFF in
+    B6 backward's dc, among them), built and freed one at a time.  wide is
+    the (modes, mode dim) of the 256-wide sites (B1, B4 float and B7 at the
+    f2 site, B6 at the inter site), intra the intra site's (B1, B4 float,
+    B7, B6 forward's second md; None: not checked), dtype the inputs'.  On
+    CPU tensors the wrappers take the plain versions themselves (how the
+    tests run this phase)."""
     biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
     u = grid[0] * grid[1]
     dgen = torch.Generator(device=dev).manual_seed(1)
+    sites = [(wide, 0.5)] + ([(intra, 1.0)] if intra else [])
 
     def randn(*shape):
         return torch.randn(*shape, generator=dgen, device=dev)
 
     # B1 at this ragged U, batch 8, md 64 (inter, f2) and 32 (intra).
-    for md in (64, 32):
-        q, k = inputs(gen, md, dev, u, batch)
+    for (M, md), _ in sites:
+        q, k = inputs(gen, md, dev, u, batch, M, dtype)
         scale = 1.0 / math.sqrt(md)
         got = float(ma.scores_global_max(q, k, scale))
         sync(dev)
         want = float(ma.scores_global_max_plain(q, k, scale))
-        print(f"B1 U={u} md={md}: kernel {got:.6f} plain {want:.6f}")
-        assert abs(got - want) <= B1_RTOL * abs(want), "B1 disagrees"
+        tag = f"B1 U={u} B={batch} M={M} md={md} {dtype}"
+        print(f"{tag}: kernel {got:.6f} plain {want:.6f}")
+        assert abs(got - want) <= B1_RTOL * abs(want), f"{tag} disagrees"
+        for name, f in mode_faults(M, md, lambda a, b: float(
+                ma.scores_global_max_plain(a, b, scale)), q, k).items():
+            f = f()
+            print(f"{tag}: planted fault '{name}' gives {f:.6f}")
+            assert abs(f - want) > B1_RTOL * abs(want), \
+                f"{tag}: the bound misses a '{name}' fault"
+        if (M, md) == wide:
+            qw, kw = q, k
 
-    # B4 float (B7's forward) at this ragged U, intra site (pos_w 1).
-    q, k = inputs(gen, 32, dev, u, batch)
-    for clip in (CLIP_OFF, CLIP_ON):
-        clip_t = torch.tensor(clip, device=dev)
-        plain = lambda c, w: ma.mode_softmax_probs_plain(  # noqa: E731
-            q, k, biases, grid, torch.tensor(c, device=dev), w,
-            out_dtype=torch.float32)
-        want = plain(clip, 1.0)
-        faults = {"no bias": plain(clip, 0.0)}
-        if clip != CLIP_OFF:
-            faults["no clamp"] = plain(CLIP_OFF, 1.0)
-        for odt in (torch.float32, torch.bfloat16):
-            got = ma.mode_softmax_probs(q, k, biases, grid, clip_t, 1.0,
-                                        out_dtype=odt)
-            sync(dev)
-            hold(f"B4 U={u} {odt} clip={clip:g}", got, want, row_rel_err,
-                 B4_ROW_TOL[odt], faults)
-        del want, faults, got
+    # B4 float (B7's forward) at this ragged U: the f2 site (pos_w 0.5) on
+    # B1's inputs, then the intra site (pos_w 1).
+    b4_cases = [(qw, kw, wide, 0.5)]
+    if intra:
+        b4_cases.append((*inputs(gen, intra[1], dev, u, batch, intra[0],
+                                 dtype), intra, 1.0))
+    del qw, kw
+    while b4_cases:
+        q, k, (M, md), pos_w = b4_cases.pop(0)
+        for clip in (CLIP_OFF, CLIP_ON):
+            clip_t = torch.tensor(clip, device=dev)
 
-    # B6 forward, then its backward on md 64's inputs and the plain volume
-    # of the whole batch with the clamp on.
-    q, k, vol = check_b6_forward(dev, gen, report, biases, grid, batch)
+            def plain(c, w, a=q, b=k):
+                return ma.mode_softmax_probs_plain(
+                    a, b, biases, grid, torch.tensor(c, device=dev), w,
+                    out_dtype=torch.float32)
+            want = plain(clip, pos_w)
+            faults = {"no bias": lambda: plain(clip, 0.0)}
+            if clip != CLIP_OFF:
+                faults["no clamp"] = lambda: plain(CLIP_OFF, pos_w)
+            faults.update(mode_faults(M, md, lambda a, b: plain(
+                clip, pos_w, a, b), q, k))
+            for odt in probs_out_dtypes(dtype):
+                got = ma.mode_softmax_probs(q, k, biases, grid, clip_t, pos_w,
+                                            out_dtype=odt)
+                sync(dev)
+                hold(f"B4 U={u} M={M} md={md} {dtype} out {odt} "
+                     f"clip={clip:g}", got, want, row_rel_err,
+                     B4_ROW_TOL[odt], faults)
+                del got
+            del want, faults
+        del q, k
+
+    # B6 forward, then its backward on the wide md's inputs and the plain
+    # volume of the whole batch with the clamp on.
+    M, md = wide
+    q, k, vol = check_b6_forward(
+        dev, gen, report, biases, grid, batch, M,
+        (md,) + ((intra[1],) if intra else ()), dtype)
     agg_w = torch.tensor(1.3, device=dev)
 
     # B6 backward: g ~ N(1, 1) so that da is a well-conditioned sum; the
     # whole batch, then one sample.
     g = randn(batch, u, u) + 1.0
-    errs = []
     for bsz, clip in ((batch, CLIP_OFF), (batch, CLIP_ON), (1, CLIP_ON)):
         args = (q[:bsz], k[:bsz], g[:bsz], vol[:bsz], biases, grid, clip)
         dc, da = cv.agg_corr_bwd(*args, 0.5, agg_w)
         sync(dev)
         wdc, wda = cv.agg_corr_bwd_plain(*args, 0.5, agg_w)
         keep, band = _outside_band(q[:bsz], k[:bsz], clip)
-        label = f"B6 backward B={bsz} clip={clip:g}"
+        label = f"B6 backward M={M} md={md} {dtype} B={bsz} clip={clip:g}"
         print(f"{label}: {band:.2e} of dc in the mask band")
-        fdc = {"t = p": _b6_dc_fault(*args, agg_w, drop_term=True),
-               "dc of every mode from mode 0's scores":
-                   _b6_dc_fault(*args, agg_w, mode0=True)}
+        fdc = {"no bias": lambda: cv.agg_corr_bwd_plain(
+            *args[:-1], clip, 0.0, agg_w)[0]}
+        if M > 1:  # at one mode t = p = 1, and mode 0 is every mode
+            fdc["t = p"] = lambda: _b6_dc_fault(*args, agg_w, drop_term=True)
+            fdc["dc of every mode from mode 0's scores"] = \
+                lambda: _b6_dc_fault(*args, agg_w, mode0=True)
+            fdc[DC_MODE_OFF] = lambda: wdc.roll(1, dims=1)
         if clip != CLIP_OFF:
-            fdc["no clamp mask"] = _b6_dc_fault(*args, agg_w, mask=False)
+            fdc["no clamp mask"] = lambda: _b6_dc_fault(*args, agg_w,
+                                                        mask=False)
+        if M > 4:
+            fdc[GROUP_DROPPED] = lambda: torch.cat(
+                [wdc[:, :4], torch.zeros_like(wdc[:, 4:])], 1)
+        if md > 64:
+            fdc[CHUNK_SWAPPED] = lambda: cv.agg_corr_bwd_plain(
+                swap_md_chunks(args[0]), *args[1:], 0.5, agg_w)[0]
         got_m, want_m = _masked(keep, dc, wdc)
         hold(f"{label} dc", got_m, want_m, rel_err, B6_TOL,
-             {n: _masked(keep, f)[0] for n, f in fdc.items()})
+             {n: (lambda f=f: _masked(keep, f())[0]) for n, f in fdc.items()})
         del fdc, got_m, want_m
-        fda = {"no bias": cv.agg_corr_bwd_plain(*args[:-1], clip, 0.0,
-                                                agg_w)[1]}
-        if u > B6_KEY_GROUP:
-            fda["da from the first key group only"] = _b6_da_fault(*args,
-                                                                  agg_w)
-        hold(f"{label} da", da, wda,
-             lambda a, b: float((a - b).abs() / b.abs()), B6_DA_RTOL, fda)
+        fda = {"no bias": lambda: cv.agg_corr_bwd_plain(
+            *args[:-1], clip, 0.0, agg_w)[1]}
+        if float(wda) == 0.0:
+            # One mode and its own volume: vol = s, so da = sum g s (s -
+            # vol) = 0 at any agg_w; without the bias s != vol.
+            print(f"{label} da: {float(da):.3e} (one mode: 0)")
+            assert float(da) == 0.0, f"{label}: kernel disagrees on da"
+            for name, f in fda.items():
+                f = float(f())
+                print(f"{label} da: planted fault '{name}' gives {f:.3e}")
+                assert f != 0.0, f"{label} da: the check misses '{name}'"
+        else:
+            if M == 1:
+                # One mode against another clamp's volume: da is the
+                # clamp's s (s - vol), which the bias barely moves; the dc
+                # check above holds the bias.
+                del fda["no bias"]
+            if u > B6_KEY_GROUP:
+                fda["da from the first key group only"] = \
+                    lambda: _b6_da_fault(*args, agg_w)
+            hold(f"{label} da", da, wda,
+                 lambda a, b: float((a - b).abs() / b.abs()), B6_DA_RTOL,
+                 fda)
         dc2, da2 = cv.agg_corr_bwd(*args, 0.5, agg_w)
         sync(dev)
         assert torch.equal(dc, dc2) and torch.equal(da, da2), \
             f"{label}: two launches differ"
-        errs.append(float(((dc - wdc) * keep).abs().max()))
+        note_err(report, "agg_corr_bwd", M,
+                 float(((dc - wdc) * keep).abs().max()))
         del dc, wdc, dc2, keep
-    report["agg_corr_bwd"]["max_abs_err"] = max(errs)
     del vol, g, q, k
 
     # B7 backward at the f2 (md 64, pos_w 0.5) and intra (md 32) shapes,
-    # from the site's own bf16 probs and a bf16 cotangent; then at md 64
-    # one (b, mode) slice, BM = 1.
-    errs = []
-    for md, pos_w in ((64, 0.5), (32, 1.0)):
-        q, k = inputs(gen, md, dev, u, batch)
-        g = randn(batch, 4, u, u).to(torch.bfloat16)
-        cases = [(4 * batch, CLIP_OFF), (4 * batch, CLIP_ON)]
-        if md == 64:
+    # from the site's own probs and a cotangent in dtype; then at the f2
+    # shape one (b, mode) slice, BM = 1.  fp32 dc is held over the tensor's
+    # largest value (B7_FP32_DC_TOL), bf16 per row.
+    dc_err, dc_tol = ((row_rel_err, B7_DC_TOL) if dtype == torch.bfloat16
+                      else (rel_err, B7_FP32_DC_TOL))
+    for (M, md), pos_w in sites:
+        q, k = inputs(gen, md, dev, u, batch, M, dtype)
+        g = randn(batch, M, u, u).to(dtype)
+        cases = [(M * batch, CLIP_OFF), (M * batch, CLIP_ON)]
+        if (M, md) == wide:
             cases.append((1, CLIP_ON))
         for bm, clip in cases:
             p = ma.mode_softmax_probs_plain(
                 q, k, biases, grid, torch.tensor(clip, device=dev), pos_w,
-                out_dtype=torch.bfloat16)
+                out_dtype=dtype)
             args = (q, k, p, g) if bm > 1 else tuple(
                 x[:1, :1] for x in (q, k, p, g))
             dc, dlsum = pv.probs_bwd(*args, clip)
             sync(dev)
             wdc, wdlsum = pv.probs_bwd_plain(*args, clip)
-            label = f"B7 backward md={md} BM={bm} clip={clip:g}"
+            label = f"B7 backward M={M} md={md} {dtype} BM={bm} clip={clip:g}"
             keep, band = _outside_band(args[0], args[1], clip)
             print(f"{label}: {band:.2e} of dc in the mask band")
             # dl = p * g: the softmax row term dropped.
-            no_row = _b7_fault(*args, clip, row_term=False)
-            fdc = {"no row term": no_row[0]}
-            fsum = {"no row term": no_row[1]}
+            faults = {"no row term": dict(row_term=False)}
             if u > B7_COL_TILE:
-                part = _b7_fault(*args, clip, row_cols=B7_COL_TILE)
-                fdc["row term over the first column tile only"] = part[0]
-                fsum["row term over the first column tile only"] = part[1]
+                faults["row term over the first column tile only"] = dict(
+                    row_cols=B7_COL_TILE)
+            fdc = {n: (lambda kw=kw: _b7_fault(*args, clip, **kw)[0])
+                   for n, kw in faults.items()}
+            fsum = {n: (lambda kw=kw: _b7_fault(*args, clip, **kw)[1])
+                    for n, kw in faults.items()}
             if bm > 1:
-                fsum["dlsum of the last bm only"] = _b7_fault(
+                fsum["dlsum of the last bm only"] = lambda: _b7_fault(
                     *args, clip, last_bm=True)[1]
-            if clip != CLIP_OFF:
-                fdc["no clamp mask"] = _b7_fault(*args, clip, mask=False)[0]
+            if clip != CLIP_OFF:  # q and k enter dc through the mask only
+                fdc["no clamp mask"] = lambda: _b7_fault(*args, clip,
+                                                         mask=False)[0]
+                if md > 64:
+                    fdc[CHUNK_SWAPPED] = lambda: pv.probs_bwd_plain(
+                        swap_md_chunks(args[0]), *args[1:], clip)[0]
             got_m, want_m = _masked(keep, dc, wdc)
-            hold(f"{label} dc", got_m, want_m, row_rel_err, B7_DC_TOL,
-                 {n: _masked(keep, f)[0] for n, f in fdc.items()})
+            hold(f"{label} dc", got_m, want_m, dc_err, dc_tol,
+                 {n: (lambda f=f: _masked(keep, f())[0])
+                  for n, f in fdc.items()})
             hold(f"{label} dlsum", dlsum, wdlsum, rel_err, B7_DLSUM_TOL,
                  fsum)
             dc2, dlsum2 = pv.probs_bwd(*args, clip)
             sync(dev)
             assert torch.equal(dc, dc2) and torch.equal(dlsum, dlsum2), \
                 f"{label}: two launches differ"
-            errs.append(float((dlsum - wdlsum).abs().max()))
-            del p, args, dc, dlsum, dc2, dlsum2, wdc, wdlsum, no_row, fdc
-            del fsum, got_m, want_m, keep
+            note_err(report, "probs_bwd", M,
+                     float((dlsum - wdlsum).abs().max()))
+            del p, args, dc, dlsum, dc2, dlsum2, wdc, wdlsum, fdc, fsum
+            del got_m, want_m, keep
         del q, k, g
-    report["probs_bwd"]["max_abs_err"] = max(errs)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 # B5, the pyramid lookup: (label, batch, H8, W8, level type) of the serving
@@ -1356,26 +1544,29 @@ LAZY_F, LAZY_MD, LAZY_POS_W = 128, 32, 1.0
 B2_LAZY_GRIDS = (("serving", (H8, W8)), ("ragged", (37, 61)))
 
 
-def b2_lazy_tol(dtype) -> float:
+def b2_tol(dtype) -> float:
     """B2_TOL for bf16; fp32 sums in another order: DENSE_FP32_TOL."""
     return B2_TOL if dtype == torch.bfloat16 else DENSE_FP32_TOL
 
 
 def check_b2_lazy(dev, gen, report, grids=B2_LAZY_GRIDS, hd1k=HD1K_GRID,
-                  last=HD1K_LAST_ROWS) -> None:
-    """Phase 2: B2 at F 128, md 32 against its plain version on each grid
-    (and on the last `last` grid rows of `hd1k`), bf16 and fp32, the clamp
-    off and on; a dropped bias and a missing clamp planted in the plain
-    version must fall outside the bound."""
+                  last=HD1K_LAST_ROWS, modes=(4, LAZY_MD)) -> None:
+    """Phase 2: B2 at F 128 at the intra site's (modes, mode dim) against
+    its plain version on each grid (and on the last `last` grid rows of
+    `hd1k`; None: none), bf16 and fp32, the clamp off and on; a dropped
+    bias, a missing clamp and mode_faults planted in the plain version
+    must fall outside the bound."""
     biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
+    M, md = modes
     cases = [(label, grid, 0) for label, grid in grids]
-    cases.append((f"HD1K {hd1k[0]}x{hd1k[1]} last {last} rows", hd1k, last))
-    errs = []
+    if hd1k is not None:
+        cases.append((f"HD1K {hd1k[0]}x{hd1k[1]} last {last} rows", hd1k,
+                      last))
     for label, grid, last_rows in cases:
         u = grid[0] * grid[1]
         t0 = (grid[0] - last_rows) * grid[1] if last_rows else 0
-        q, k = inputs(gen, LAZY_MD, dev, u)
-        v = torch.randn(1, 4, u, LAZY_F, generator=gen).to(dev,
+        q, k = inputs(gen, md, dev, u, modes=M)
+        v = torch.randn(1, M, u, LAZY_F, generator=gen).to(dev,
                                                            torch.bfloat16)
         for dt in (torch.bfloat16, torch.float32):
             qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
@@ -1386,24 +1577,26 @@ def check_b2_lazy(dev, gen, report, grids=B2_LAZY_GRIDS, hd1k=HD1K_GRID,
                     LAZY_POS_W)[:, :, t0:]
                 sync(dev)
 
-                def plain(c, w):
+                def plain(c, w, a=qp, b=kd):
                     return ma.flash_mode_attention_plain(
-                        qp, kd, vd, biases, grid,
+                        a, b, vd, biases, grid,
                         torch.tensor(c, device=dev), w,
                         q_row0=t0 // grid[1])
-                faults = {"no bias": plain(clip, 0.0)}
+                faults = {"no bias": lambda: plain(clip, 0.0)}
                 if clip != CLIP_OFF:
-                    faults["no clamp"] = plain(CLIP_OFF, LAZY_POS_W)
+                    faults["no clamp"] = lambda: plain(CLIP_OFF, LAZY_POS_W)
+                faults.update(mode_faults(M, md, lambda a, b: plain(
+                    clip, LAZY_POS_W, a, b), qp, kd))
                 want = plain(clip, LAZY_POS_W)
-                hold(f"B2 F={LAZY_F} md={LAZY_MD} {label} {dt} "
-                     f"clip={clip:g}", got, want, rel_err, b2_lazy_tol(dt),
+                hold(f"B2 F={LAZY_F} M={M} md={md} {label} {dt} "
+                     f"clip={clip:g}", got, want, rel_err, b2_tol(dt),
                      faults)
-                errs.append(float((got.float() - want.float()).abs().max()))
+                note_err(report, "flash_mode_attention_f128", M,
+                         float((got.float() - want.float()).abs().max()))
                 del got, want, faults
         del q, k, v, qd, kd, vd, qp
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    report["flash_mode_attention_f128"]["max_abs_err"] = max(errs)
 
 
 DENSE_POS_W = 0.5
@@ -1420,10 +1613,11 @@ def _pad_keys(x, mult: int = 64):
         if pad else x
 
 
-def _dense_plains():
-    """{wrapper name: (plain(q, k, table, clip, pos_w, v), mode dim,
-    io dtype -> (err_fn, tol), the plain version with its ragged keys left
-    unmasked or None)}."""
+def _dense_plains(wide=(4, 64), intra=(4, 32)):
+    """{wrapper name: (plain(q, k, table, clip, pos_w, v), (modes, mode
+    dim), io dtype -> (err_fn, tol), the plain version with its ragged keys
+    left unmasked or None)}: B8 and B6 dense at the 256-wide sites' count,
+    B4 dense at the intra site's (none where intra is None)."""
     def b8(q, k, table, clip, pos_w, v):
         return ma.flash_mode_attention_dense_plain(q, k, v, table, clip, pos_w)
 
@@ -1448,14 +1642,15 @@ def _dense_plains():
         return b4(q, _pad_keys(k), t, clip, pos_w, v)[..., :u2]
 
     def b8_tol(dtype):
-        return rel_err, (B2_TOL if dtype == torch.bfloat16
-                         else DENSE_FP32_TOL)
-    return {
-        "flash_mode_attention_dense": (b8, 64, b8_tol, b8_ragged),
-        "fused_agg_corr_dense": (b6, 64, lambda _: (rel_err, B6_TOL), None),
-        "mode_softmax_probs_dense": (b4, 32, lambda dtype: (
-            row_rel_err, B4_ROW_TOL[dtype]), b4_ragged),
-    }
+        return rel_err, b2_tol(dtype)
+    out = {
+        "flash_mode_attention_dense": (b8, wide, b8_tol, b8_ragged),
+        "fused_agg_corr_dense": (b6, wide, lambda _: (rel_err, B6_TOL),
+                                 None)}
+    if intra:
+        out["mode_softmax_probs_dense"] = (b4, intra, lambda dtype: (
+            row_rel_err, B4_ROW_TOL[dtype]), b4_ragged)
+    return out
 
 
 def _dense_call(name, q, k, table, clip, v):
@@ -1470,12 +1665,15 @@ def _dense_call(name, q, k, table, clip, v):
 
 
 def check_dense_kernels(dev, gen, report, grid=(H8, W8),
-                        rect_u2=RECT_U2) -> None:
+                        rect_u2=RECT_U2, wide=(4, 64), intra=(4, 32),
+                        only=None) -> None:
     """Phase 2, the dense-table kernels against their plain versions, each
     with faults planted in the plain version: no table and a seeded one, a
     U1 != U2 case with ragged keys, the clamp off and on, bf16 and fp32
-    inputs.  On CPU tensors the wrappers take the plain versions themselves
-    (how the tests run this phase with faults planted in the wrappers)."""
+    inputs (only: the labels of the cases to run; None: all), at the mode
+    counts of _dense_plains(wide, intra), with mode_faults.  On CPU tensors
+    the wrappers take the plain versions themselves (how the tests run
+    this phase with faults planted in the wrappers)."""
     u = grid[0] * grid[1]
     tables = {u: (torch.randn(u, u, generator=gen) * BIAS_STD).to(dev),
               rect_u2: (torch.randn(u, rect_u2, generator=gen)
@@ -1488,14 +1686,17 @@ def check_dense_kernels(dev, gen, report, grid=(H8, W8),
              (f"U1={u} U2={rect_u2}, table, clip on", rect_u2,
               torch.bfloat16, True, CLIP_ON),
              ("fp32, table, clip on", u, torch.float32, True, CLIP_ON)]
-    for name, (plain, md, tol_of, ragged) in _dense_plains().items():
-        errs = []
+    cases = [c for c in cases if only is None or c[0] in only]
+    for name, (plain, (M, md), tol_of, ragged) in _dense_plains(
+            wide, intra).items():
+        # At one mode every mode is mode 0, and vol = s has no offset.
+        b6_faults = (B6_MODE0, B6_WB) if M > 1 else ()
         for label, u2, dtype, with_table, clip in cases:
-            q = (torch.randn(1, 4, u, md, generator=gen) * QK_STD).to(dev,
+            q = (torch.randn(1, M, u, md, generator=gen) * QK_STD).to(dev,
                                                                       dtype)
-            k = (torch.randn(1, 4, u2, md, generator=gen) * QK_STD).to(
+            k = (torch.randn(1, M, u2, md, generator=gen) * QK_STD).to(
                 dev, dtype)
-            v = torch.randn(1, 4, u2, 256, generator=gen).to(dev, dtype)
+            v = torch.randn(1, M, u2, 256, generator=gen).to(dev, dtype)
             full = tables[u2]
             table = full if with_table else None
             clip_t = torch.tensor(clip, device=dev)
@@ -1503,29 +1704,34 @@ def check_dense_kernels(dev, gen, report, grid=(H8, W8),
             sync(dev)
             want = plain(q, k, table, clip_t, DENSE_POS_W, v)
             if with_table:
-                faults = {"table scaled by pos_w twice": plain(
+                faults = {"table scaled by pos_w twice": lambda: plain(
                     q, k, table, clip_t, DENSE_POS_W ** 2, v)}
                 if u2 == u:
-                    faults["table transposed"] = plain(
+                    faults["table transposed"] = lambda: plain(
                         q, k, table.t(), clip_t, DENSE_POS_W, v)
             else:
-                faults = {"a table where there is none": plain(
+                faults = {"a table where there is none": lambda: plain(
                     q, k, full, clip_t, DENSE_POS_W, v)}
             if clip != CLIP_OFF:
-                faults["no clamp"] = plain(q, k, table,
-                                           torch.tensor(CLIP_OFF, device=dev),
-                                           DENSE_POS_W, v)
+                faults["no clamp"] = lambda: plain(
+                    q, k, table, torch.tensor(CLIP_OFF, device=dev),
+                    DENSE_POS_W, v)
             if ragged is not None and u2 != u:
-                faults["ragged keys unmasked"] = ragged(q, k, table, clip_t,
-                                                       DENSE_POS_W, v)
+                faults["ragged keys unmasked"] = lambda: ragged(
+                    q, k, table, clip_t, DENSE_POS_W, v)
             if name == "fused_agg_corr_dense":  # against B6's bf16 tiles
-                for fault in (B6_MODE0, B6_WB) + (
+                for fault in b6_faults + (
                         (B6_TABLE_ROWS,) if with_table else ()):
-                    faults[fault] = b6_fwd_fault(q, k, table, clip_t,
-                                                 DENSE_POS_W, *AGG_WB, fault)
+                    faults[fault] = lambda fault=fault: b6_fwd_fault(
+                        q, k, table, clip_t, DENSE_POS_W, *AGG_WB, fault)
+            faults.update(mode_faults(M, md, lambda a, b: plain(
+                a, b, table, clip_t, DENSE_POS_W, v), q, k,
+                agg=name == "fused_agg_corr_dense"))
             err_fn, tol = tol_of(dtype)
-            hold(f"{name} {label}", got, want, err_fn, tol, faults)
-            errs.append(float((got.float() - want.float()).abs().max()))
+            hold(f"{name} M={M} md={md} {label}", got, want, err_fn, tol,
+                 faults)
+            note_err(report, name, M,
+                     float((got.float() - want.float()).abs().max()))
             if name == "fused_agg_corr_dense":
                 got2 = _dense_call(name, q, k, table, clip_t, v)
                 sync(dev)
@@ -1533,7 +1739,6 @@ def check_dense_kernels(dev, gen, report, grid=(H8, W8),
                     f"{name} {label}: two launches differ"
                 del got2
             del got, want, faults
-        report[name]["max_abs_err"] = max(errs)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -1558,16 +1763,17 @@ B9_SUMS_TOL = 1e-5
 B9_FP32_ATOL = B9_FP32_RTOL = 1e-4
 
 
-def sp_inputs(gen, md, dev, dtype, pos_rows, grid=(H8, W8), batch=1):
-    """q, k [batch, 4, U, md] for the B9 checks, the positive shift on grid
-    rows [0, pos_rows) (see SP_SHIFT)."""
+def sp_inputs(gen, md, dev, dtype, pos_rows, grid=(H8, W8), batch=1,
+              modes=4):
+    """q, k [batch, modes, U, md] for the B9 checks, the positive shift on
+    grid rows [0, pos_rows) (see SP_SHIFT)."""
     u = grid[0] * grid[1]
     w = torch.randn(md, generator=gen)
     w = w / w.norm() * math.sqrt(SP_SHIFT) * md ** 0.25
     sign = torch.full((u, 1), -1.0)
     sign[:pos_rows * grid[1]] = 1.0
-    q = torch.randn(batch, 4, u, md, generator=gen) * SP_STD + sign * w
-    k = torch.randn(batch, 4, u, md, generator=gen) * SP_STD + w
+    q = torch.randn(batch, modes, u, md, generator=gen) * SP_STD + sign * w
+    k = torch.randn(batch, modes, u, md, generator=gen) * SP_STD + w
     return q.to(dev, dtype), k.to(dev, dtype)
 
 
@@ -1596,26 +1802,31 @@ def vol_err(dtype):
     return err, 1.0
 
 
-def check_sp_kernels(dev, gen, report, grid=(H8, W8), worlds=SP_WORLDS
-                     ) -> None:
+def check_sp_kernels(dev, gen, report, grid=(H8, W8), worlds=SP_WORLDS,
+                     wide=(4, 64), intra=(4, 32)) -> None:
     """Phase 2, sequence parallelism: B9 sums and write on every shard
     against their plain versions (the plain write taking the kernels'
     summed sums), the written shards assembled against plain B3, with the
-    row offset dropped, the moments over the shard's own element count and
-    the shard's own max as the clamp predicate planted in the plain
-    versions; then B1, B2 and B4 on a shard with its row offset, the offset
-    dropped planted.  On CPU tensors the wrappers take the plain versions
-    themselves (how the tests run this phase with faults planted in the
-    wrappers)."""
+    row offset dropped, the moments over the shard's own element count,
+    the shard's own max as the clamp predicate and (where the clamp is
+    off: at SP_CLIP_ON most scores sit at +-clip in every mode, which a
+    dropped mode group barely moves) mode_faults planted in the plain
+    versions; then B1, B2 and B4 on a shard with its row offset,
+    the offset dropped planted.  wide is the (modes, mode dim) of B9, B1
+    and B2, intra B4's (None: not checked).  On CPU tensors the wrappers
+    take the plain versions themselves (how the tests run this phase with
+    faults planted in the wrappers)."""
     from craft_tpu_torch.parallel.sp import row_split
     biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
     H, Wd = grid
+    M, md = wide
+    scale = 1.0 / math.sqrt(md)
     agg = (torch.tensor(AGG_WB[0], device=dev),
            torch.tensor(AGG_WB[1], device=dev))
     errs = {"corr_norm_sums": [0.0], "corr_norm_write": [0.0]}
     pos_rows = row_split(H, max(worlds), 0)[1]
     for dtype in (torch.bfloat16, torch.float32):
-        q, k = sp_inputs(gen, 64, dev, dtype, pos_rows, grid)
+        q, k = sp_inputs(gen, md, dev, dtype, pos_rows, grid, modes=M)
         n_all = float(k.shape[2]) ** 2
         err_fn, tol = vol_err(dtype)
         for attn_clip in (SP_CLIP_OFF, SP_CLIP_ON):
@@ -1625,26 +1836,36 @@ def check_sp_kernels(dev, gen, report, grid=(H8, W8), worlds=SP_WORLDS
             for world in worlds:
                 shards = [row_split(H, world, r) for r in range(world)]
                 ql = [q[:, :, h0 * Wd:h1 * Wd] for h0, h1 in shards]
-                lmax = [ma.scores_global_max(x, k, 0.125) for x in ql]
+                lmax = [ma.scores_global_max(x, k, scale) for x in ql]
                 gmax = torch.stack(lmax).amax()
                 sync(dev)
-                tag = f"B9 {dtype} attn_clip={attn_clip:g} n={world}"
+                tag = f"B9 M={M} md={md} {dtype} attn_clip={attn_clip:g} " \
+                    f"n={world}"
                 clamps = float(gmax) > attn_clip
                 sums = []
                 for x, lm, (h0, h1) in zip(ql, lmax, shards):
                     got = ma.corr_norm_sums(x, k, biases, grid, gmax,
                                             attn_clip, 0.5, *agg, q_row0=h0)
                     sync(dev)
-                    plain = functools.partial(ma.corr_norm_sums_plain, x, k,
-                                              biases, grid)
+
+                    def plain(a, b, gm, r0=h0):
+                        return ma.corr_norm_sums_plain(
+                            a, b, biases, grid, gm, attn_clip, 0.5, *agg,
+                            q_row0=r0)
                     faults = {}
-                    if h0 > 0:
-                        faults["row offset dropped"] = plain(
-                            gmax, attn_clip, 0.5, *agg)
+                    if h0 > 0 and M == 4:
+                        # A full window's bias sums the same at any row, so
+                        # the offset moves the sums by the edge rows alone:
+                        # at 16 modes 4.2e-6 against 1e-5; the write below
+                        # holds it at every count.
+                        faults["row offset dropped"] = lambda: plain(
+                            x, k, gmax, r0=0)
                     if clamps and float(lm) <= attn_clip:
-                        faults["local gmax"] = plain(lm, attn_clip, 0.5,
-                                                     *agg, q_row0=h0)
-                    want = plain(gmax, attn_clip, 0.5, *agg, q_row0=h0)
+                        faults["local gmax"] = lambda: plain(x, k, lm)
+                    if not clamps:
+                        faults.update(mode_faults(M, md, lambda a, b: plain(
+                            a, b, gmax), x, k, agg=True))
+                    want = plain(x, k, gmax)
                     hold(f"{tag} sums rows {h0}:{h1}", got, want,
                          sums_err(float(x.shape[2] * k.shape[2])),
                          B9_SUMS_TOL, faults)
@@ -1658,22 +1879,25 @@ def check_sp_kernels(dev, gen, report, grid=(H8, W8), worlds=SP_WORLDS
                                              attn_clip, 0.5, *agg, q_row0=h0,
                                              out_dtype=dtype)
                     sync(dev)
-                    plain = functools.partial(ma.corr_norm_write_plain, x, k,
-                                              biases, grid)
-                    args = (attn_clip, 0.5, *agg)
-                    kw = {"q_row0": h0, "out_dtype": torch.float32}
+
+                    def plain(a, b, gm, n, r0=h0):
+                        return ma.corr_norm_write_plain(
+                            a, b, biases, grid, gm, total, n, attn_clip, 0.5,
+                            *agg, q_row0=r0, out_dtype=torch.float32)
                     faults = {}
                     if h0 > 0:
-                        faults["row offset dropped"] = plain(
-                            gmax, total, n_all, *args, out_dtype=torch.float32)
+                        faults["row offset dropped"] = lambda: plain(
+                            x, k, gmax, n_all, r0=0)
                     if world > 1:
-                        faults["moments over the local count"] = plain(
-                            gmax, total, float(x.shape[2] * k.shape[2]),
-                            *args, **kw)
+                        faults["moments over the local count"] = \
+                            lambda: plain(x, k, gmax,
+                                          float(x.shape[2] * k.shape[2]))
                     if clamps and float(lm) <= attn_clip:
-                        faults["local gmax"] = plain(lm, total, n_all, *args,
-                                                     **kw)
-                    want = plain(gmax, total, n_all, *args, **kw)
+                        faults["local gmax"] = lambda: plain(x, k, lm, n_all)
+                    if not clamps:
+                        faults.update(mode_faults(M, md, lambda a, b: plain(
+                            a, b, gmax, n_all), x, k, agg=True))
+                    want = plain(x, k, gmax, n_all)
                     hold(f"{tag} write rows {h0}:{h1}", got, want, err_fn,
                          tol, faults)
                     errs["corr_norm_write"].append(
@@ -1690,28 +1914,33 @@ def check_sp_kernels(dev, gen, report, grid=(H8, W8), worlds=SP_WORLDS
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
     for name, e in errs.items():
-        report[name]["max_abs_err"] = max(e)
+        note_err(report, name, M, max(e))
 
-    # B1, B2, B4 on shard 2 of 4 (rows 28..41 of the serving grid).
+    # B1, B2 (wide), B4 (intra) on shard 2 of 4 (rows 28..41 of the
+    # serving grid).
     h0, h1 = row_split(H, 4, 2) if H >= 4 else (H - 1, H)
-    q, k = inputs(gen, 64, dev, H * Wd)
+    q, k = inputs(gen, md, dev, H * Wd, modes=M)
     ql = q[:, :, h0 * Wd:h1 * Wd]
-    got = float(ma.scores_global_max(ql, k, 0.125))
+    got = float(ma.scores_global_max(ql, k, scale))
     sync(dev)
-    want = float(ma.scores_global_max_plain(ql, k, 0.125))
-    print(f"B1 rows {h0}:{h1}: kernel {got:.6f} plain {want:.6f}")
+    want = float(ma.scores_global_max_plain(ql, k, scale))
+    print(f"B1 M={M} md={md} rows {h0}:{h1}: kernel {got:.6f} plain "
+          f"{want:.6f}")
     assert abs(got - want) <= B1_RTOL * abs(want), "B1 disagrees on a shard"
-    v = torch.randn(1, 4, H * Wd, 256, generator=gen).to(dev, torch.bfloat16)
+    v = torch.randn(1, M, H * Wd, 256, generator=gen).to(dev, torch.bfloat16)
     clip_t = torch.tensor(CLIP_ON, device=dev)
     got = ma.flash_mode_attention(ql, k, v, biases, grid, clip_t, 0.5,
                                   q_row0=h0)
     sync(dev)
     plain = functools.partial(ma.flash_mode_attention_plain, ql, k, v,
                               biases, grid, clip_t, 0.5)
-    hold(f"B2 rows {h0}:{h1}", got, plain(q_row0=h0), rel_err, B2_TOL,
-         {"row offset dropped": plain()})
+    hold(f"B2 M={M} md={md} rows {h0}:{h1}", got, plain(q_row0=h0), rel_err,
+         B2_TOL, {"row offset dropped": plain()})
     del v, got
-    q, k = inputs(gen, 32, dev, H * Wd)
+    if intra is None:
+        return
+    M, md = intra
+    q, k = inputs(gen, md, dev, H * Wd, modes=M)
     ql = q[:, :, h0 * Wd:h1 * Wd]
     plain = functools.partial(ma.mode_softmax_probs_plain, ql, k, biases,
                               grid, clip_t, 1.0)
@@ -1720,14 +1949,15 @@ def check_sp_kernels(dev, gen, report, grid=(H8, W8), worlds=SP_WORLDS
     sync(dev)
     wnum, wsc = plain(quantized=True, q_row0=h0)
     fnum, fsc = plain(quantized=True)
-    hold(f"B4 int8 numerators rows {h0}:{h1}", num, wnum, num_err,
+    tag = f"M={M} md={md} rows {h0}:{h1}"
+    hold(f"B4 int8 numerators {tag}", num, wnum, num_err,
          B4_NUM_TOL, {"row offset dropped": fnum})
-    hold(f"B4 int8 row scales rows {h0}:{h1}", sc, wsc, lambda a, b: float(
+    hold(f"B4 int8 row scales {tag}", sc, wsc, lambda a, b: float(
         ((a - b).abs() / b).max()), B4_SCALE_RTOL, {"row offset dropped": fsc})
     got = ma.mode_softmax_probs(ql, k, biases, grid, clip_t, 1.0,
                                 out_dtype=torch.bfloat16, q_row0=h0)
     sync(dev)
-    hold(f"B4 bf16 rows {h0}:{h1}", got,
+    hold(f"B4 bf16 {tag}", got,
          plain(out_dtype=torch.float32, q_row0=h0), row_rel_err,
          B4_ROW_TOL[torch.bfloat16],
          {"row offset dropped": plain(out_dtype=torch.float32)})
@@ -2312,6 +2542,76 @@ def dense_train_phase(dev) -> dict:
 
 # The other model families: RAFT and GMA (the plain volume, B5 alone), CRAFT
 # with GMA attention, craft_nogma and CRAFT without the f2 transformer.
+def _served(label, model, padder, pairs, per_pair) -> dict:
+    """`model` served as the main path (12 iterations): a warm-up pair
+    (pairs[0]), then the others with the launch counts zeroed just before:
+    each pair's ms between CUDA events, the profiler's device ms of one
+    more pair and the busy share (that over the median event ms), peak
+    memory and the exact launches of `per_pair` a pair."""
+    _final(model, *pairs[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launch_counts()
+    ms = []
+    for a, b in pairs[1:]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        flow = _final(model, a, b)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        out = padder.unpad(flow)
+        assert out.shape == (1, FRAME_H, FRAME_W, 2)
+        assert bool(torch.isfinite(out).all()), f"{label} serving"
+    counts = launch.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms = device_ms(lambda: _final(model, *pairs[1]), 1)
+    r = {"pair_ms": ms, "pair_device_ms": dev_ms,
+         "busy_share": dev_ms / float(np.median(ms)),
+         "max_memory_allocated": peak,
+         "launches": {k: c for k, c in counts.items() if c}}
+    print(f"{label} serving:", json.dumps(r))
+    _assert_launches(f"{label} serving", counts, per_pair, len(pairs) - 1)
+    return r
+
+
+def _trained(label, state, step, batch, n_steps, variant) -> dict:
+    """One warm-up step, then n_steps steps with the launch counts zeroed
+    just before: each step's ms between CUDA events, peak memory, loss,
+    grad norm and the exact launches of ``step_launches(variant)``."""
+    state, _, _ = _event_steps(state, step, batch, 1)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launch_counts()
+    state, ms, metrics = _event_steps(state, step, batch, n_steps)
+    counts = launch.launch_counts()
+    r = {"step_ms": ms,
+         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "loss": [m["loss"] for m in metrics],
+         "grad_norm": [m["grad_norm"] for m in metrics],
+         "launches": {k: c for k, c in counts.items() if c}}
+    print(f"{label} training:", json.dumps(r))
+    assert all(math.isfinite(v) for m in metrics for v in m.values()), \
+        f"{label} training: non-finite metrics"
+    _assert_launches(f"{label} training", counts, step_launches(variant),
+                     n_steps)
+    return r
+
+
+def _step_card_vs_cpu(dev, label, cfg, sd, variant) -> None:
+    """One fp32 step (dropout off, 2 iterations, the oracle frames) of
+    `cfg` from `sd` on the card against the CPU (phase 3's bounds), its
+    launches those of ``step_launches(variant, iters=2)``."""
+    batch = oracle_batch()
+    cfg = _no_dropout(cfg)
+    launch.reset_launch_counts()
+    card = _train_step_grads(dev, cfg, sd, batch)
+    counts = launch.launch_counts()
+    hold_step(label, card, _train_step_grads(torch.device("cpu"), cfg, sd,
+                                             batch))
+    _assert_launches(label, counts, step_launches(variant, iters=2), 1)
+
+
 FAMILIES = {
     "raft": lambda mp: raft_config(mixed_precision=mp),
     "gma": lambda mp: gma_config(mixed_precision=mp),
@@ -2420,32 +2720,8 @@ def families_serving(dev, n_pairs: int = 3) -> dict:
     res = {}
     for name in FAMILIES:
         model = family_model(dev, name, True)
-        _final(model, *pairs[0])  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        launch.reset_launch_counts()
-        ms = []
-        for a, b in pairs[1:]:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            flow = _final(model, a, b)
-            end.record()
-            torch.cuda.synchronize()
-            ms.append(start.elapsed_time(end))
-            out = padder.unpad(flow)
-            assert out.shape == (1, FRAME_H, FRAME_W, 2)
-            assert bool(torch.isfinite(out).all()), f"family {name}"
-        counts = launch.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        dev_ms = device_ms(lambda: _final(model, *pairs[1]), 1)
-        r = {"pair_ms": ms, "pair_device_ms": dev_ms,
-             "max_memory_allocated": peak,
-             "launches": {k: c for k, c in counts.items() if c}}
-        print(f"family {name} serving:", json.dumps(r))
-        _assert_launches(f"family {name} serving", counts,
-                         FAMILY_SERVE[name], n_pairs)
-        res[name] = r
+        res[name] = _served(f"family {name}", model, padder, pairs,
+                            FAMILY_SERVE[name])
         del model
         torch.cuda.empty_cache()
     model = serving_model(dev)
@@ -2481,37 +2757,16 @@ def families_training(dev, n_steps: int = 3) -> dict:
     res = {}
     for name in FAMILY_TRAIN:
         state, step, batch = family_train_setup(dev, name)
-        state, _, _ = _event_steps(state, step, batch, 1)  # warm-up
-        torch.cuda.reset_peak_memory_stats()
-        launch.reset_launch_counts()
-        state, ms, metrics = _event_steps(state, step, batch, n_steps)
-        counts = launch.launch_counts()
-        r = {"step_device_ms": ms,
-             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-             "loss": [m["loss"] for m in metrics],
-             "grad_norm": [m["grad_norm"] for m in metrics],
-             "launches": {k: c for k, c in counts.items() if c}}
-        print(f"family {name} training:", json.dumps(r))
-        assert all(math.isfinite(v) for m in metrics for v in m.values()), \
-            f"family {name} training: non-finite metrics"
-        _assert_launches(f"family {name} training", counts,
-                         step_launches(name), n_steps)
-        res[name] = r
+        res[name] = _trained(f"family {name}", state, step, batch, n_steps,
+                             name)
         del state, step, batch
         torch.cuda.empty_cache()
 
-    batch = oracle_batch()
     for name in FAMILIES:
-        cfg, sd = _no_dropout(FAMILIES[name](False)), family_weights(name)
-        label = f"family {name} train step"
-        launch.reset_launch_counts()
-        card = _train_step_grads(dev, cfg, sd, batch)
-        counts = launch.launch_counts()
-        hold_step(label, card, _train_step_grads(torch.device("cpu"), cfg,
-                                                 sd, batch))
-        _assert_launches(label, counts, step_launches(name, iters=2), 1)
+        _step_card_vs_cpu(dev, f"family {name} train step",
+                          FAMILIES[name](False), family_weights(name), name)
     cfg, sd = variant_weights("main", False)
-    cfg = _no_dropout(cfg)
+    cfg, batch = _no_dropout(cfg), oracle_batch()
     # The packed loss sums the same terms in another order.
     hold_step("main packed train step",
               _train_step_grads(dev, cfg, sd, batch, "packed"),
@@ -2641,32 +2896,8 @@ def two_way_serving(dev, n_pairs: int = 3) -> dict:
     res = {}
     for variant in TWO_WAY:
         model = serving_model(dev, variant)
-        _final(model, *pairs[0])  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        launch.reset_launch_counts()
-        ms = []
-        for a, b in pairs[1:]:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            flow = _final(model, a, b)
-            end.record()
-            torch.cuda.synchronize()
-            ms.append(start.elapsed_time(end))
-            out = padder.unpad(flow)
-            assert out.shape == (1, FRAME_H, FRAME_W, 2)
-            assert bool(torch.isfinite(out).all()), f"two-way {variant}"
-        counts = launch.launch_counts()
-        r = {"pair_ms": ms,
-             "pair_device_ms": device_ms(lambda: _final(model, *pairs[1]),
-                                         1),
-             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-             "launches": {k: c for k, c in counts.items() if c}}
-        print(f"two-way {variant} serving:", json.dumps(r))
-        _assert_launches(f"two-way {variant} serving", counts,
-                         TWO_WAY_SERVE, n_pairs)
-        res[variant] = r
+        res[variant] = _served(f"two-way {variant}", model, padder, pairs,
+                               TWO_WAY_SERVE)
         del model
         torch.cuda.empty_cache()
     return res
@@ -2679,32 +2910,11 @@ def two_way_training(dev, n_steps: int = 3) -> dict:
     at the config's rates, 12 iterations): one warm-up step and n_steps
     steps, device ms (CUDA events), peak memory and exact launches."""
     cfg, sd = variant_weights("f1_private", False)
-    cfg = _no_dropout(cfg)
-    batch = oracle_batch()
-    launch.reset_launch_counts()
-    card = _train_step_grads(dev, cfg, sd, batch)
-    counts = launch.launch_counts()
-    hold_step("two-way f1_private train step", card,
-              _train_step_grads(torch.device("cpu"), cfg, sd, batch))
-    _assert_launches("two-way f1_private train step", counts,
-                     step_launches("f1_private", iters=2), 1)
+    _step_card_vs_cpu(dev, "two-way f1_private train step", cfg, sd,
+                      "f1_private")
     state, step, batch = train_setup(dev, "f1_private")
-    state, _, _ = _event_steps(state, step, batch, 1)  # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    launch.reset_launch_counts()
-    state, ms, metrics = _event_steps(state, step, batch, n_steps)
-    counts = launch.launch_counts()
-    r = {"step_ms": ms,
-         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-         "loss": [m["loss"] for m in metrics],
-         "grad_norm": [m["grad_norm"] for m in metrics],
-         "launches": {k: c for k, c in counts.items() if c}}
-    print("two-way f1_private training:", json.dumps(r))
-    assert all(math.isfinite(v) for m in metrics for v in m.values()), \
-        "two-way training: non-finite metrics"
-    _assert_launches("two-way f1_private training", counts,
-                     step_launches("f1_private"), n_steps)
-    return r
+    return _trained("two-way f1_private", state, step, batch, n_steps,
+                    "f1_private")
 
 
 def two_way_eval_cli(dev, cpu_flow, frames) -> dict:
@@ -4765,6 +4975,451 @@ def time_gru(dev, report) -> None:
         torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------------
+# Mode counts other than 4 (--intermodes, --f2modes, --intramodes)
+# ---------------------------------------------------------------------------
+
+# The checks' counts: ((modes, mode dim) of the 256-wide inter, f2 and f1
+# sites, that of the 128-wide intra site or None where another count
+# checks it) of modes1, modes2, modes8 and modes16 (md = width / M, ROADMAP
+# item 6).
+MODE_COUNTS = (((1, 256), (1, 128)), ((2, 128), (2, 64)),
+               ((8, 32), (8, 16)), ((16, 16), None))
+# The kernels whose instantiations the new counts add, in the kernels line
+# as <name>_m1 and <name>_m8 (the modes1 and modes8 configurations).
+MODE_KERNELS = ("scores_global_max", "flash_mode_attention",
+                "fused_agg_corr_norm", "mode_softmax_probs",
+                "fused_agg_corr", "agg_corr_bwd", "probs_bwd")
+# The training checks' batch at the chairs grid: TRAIN_BATCH at the counts
+# that modes1 and modes8 train at full width (the kernels line's rows),
+# two samples at the others, which hold every tile and mode of the
+# kernels at a quarter of the plain versions' memory.
+MODE_CHECK_BATCH = 2
+# The dense-table cases at the new counts (check_dense_kernels' labels).
+MODE_DENSE_CASES = ("table, clip on", "fp32, table, clip on")
+
+
+def check_mode_kernels(dev, gen, report, grid=(H8, W8),
+                       train_grid=CHAIRS_GRID,
+                       b3_grids=((H8, W8), KITTI_GRID),
+                       counts=MODE_COUNTS) -> None:
+    """Phase 2, the mode counts other than 4: the checks of the four modes
+    (check_kernels, check_train_kernels, check_dense_kernels,
+    check_sp_kernels at two shards, check_b2_lazy at the serving grid) at
+    each count, bf16 and fp32, their faults and mode_faults planted.  On
+    CPU tensors the wrappers take the plain versions themselves (how the
+    tests run this check)."""
+    for wide, intra in counts:
+        batch = TRAIN_BATCH if wide[0] in (1, 8) else MODE_CHECK_BATCH
+        for dtype in (torch.bfloat16, torch.float32):
+            check_kernels(dev, gen, report, grid, b3_grids, wide, intra,
+                          dtype)
+            check_train_kernels(dev, gen, report, train_grid, batch, wide,
+                                intra, dtype)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        check_dense_kernels(dev, gen, report, grid, wide=wide, intra=intra,
+                            only=MODE_DENSE_CASES)
+        check_sp_kernels(dev, gen, report, grid, worlds=(2,), wide=wide,
+                         intra=intra)
+        if intra:
+            check_b2_lazy(dev, gen, report, grids=(("serving", grid),),
+                          hd1k=None, modes=intra)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+# The configurations of the mode-count phase: each site's mode count (the
+# flags --intermodes, --f2modes, --intramodes); the two full-width ones
+# (modes1, modes8) are served and trained at the main path's shapes, every
+# one runs card against CPU at 128x128.  two_way8 is --f1 private
+# --intermodes 8, nogma2 --nogma --intramodes 2 (craft_nogma's f2 site
+# takes --intramodes).
+MODE_CONFIGS = {
+    "modes1": (1, 1, 1), "modes8": (8, 8, 8), "modes2": (2, 2, 2),
+    "modes16": (16, 16, 8), "modes_mixed": (2, 16, 1),
+    "two_way8": (8, 4, 4), "nogma2": (4, 2, 2)}
+MODE_FULL = ("modes1", "modes8")
+MODE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_modes"
+MODE_SP_RANKS = 2
+MODE_SP_CONFIG = "modes8"
+
+
+def mode_flags(name: str) -> list:
+    """The CLIs' flags of configuration `name` (``craft_tpu_torch/cli.py``,
+    ``craft_tpu/cli.py``'s)."""
+    inter, f2, intra = MODE_CONFIGS[name]
+    if name == "nogma2":
+        return ["--nogma", "--intramodes", str(intra)]
+    flags = ["--craft", "--setrans", "--intermodes", str(inter), "--f2modes",
+             str(f2), "--intramodes", str(intra)]
+    return flags + (["--f1", "private"] if name == "two_way8" else [])
+
+
+def mode_config(name: str, mixed_precision: bool):
+    """The ModelConfig the CLI builds from ``mode_flags(name)``."""
+    from craft_tpu_torch import cli
+    import argparse
+    p = argparse.ArgumentParser()
+    cli.add_model_args(p)
+    args = p.parse_args(mode_flags(name) + (
+        ["--mixed_precision"] if mixed_precision else []))
+    return cli.model_config_from_args(args)
+
+
+def config_weights(cfg, seed: int = 23) -> dict:
+    """The state_dict of `cfg`: the oracle tree's tensors where it has them
+    at the same shape (the encoders, the update block, the sites' q and k
+    projections, which keep their width at every mode count; an f1 site
+    from the f2 site's), the rest (the feature sites' first linears of
+    M x F outputs, the two-way convc1) as PyTorch initialises them under
+    `seed`."""
+    oracle = _oracle_state_dict()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        sd = FlowModel(cfg).state_dict()
+    for key, v in sd.items():
+        src = oracle.get(key)
+        if src is None and key.startswith("f1_trans."):
+            src = oracle.get("f2_trans." + key[len("f1_trans."):])
+        if src is not None and src.shape == v.shape:
+            sd[key] = src.clone()
+    return sd
+
+
+@functools.lru_cache(maxsize=None)
+def _oracle_state_dict() -> dict:
+    return state_dict_from_flax(load_oracle_npz(ORACLE)[3])
+
+
+def mode_weights(name: str) -> dict:
+    """``config_weights`` of configuration `name`."""
+    return config_weights(mode_config(name, False))
+
+
+def mode_model(dev, name, mixed_precision):
+    model = create_model(mode_config(name, mixed_precision), device=dev)
+    model.load_state_dict(mode_weights(name), strict=True)
+    return model
+
+
+def modes_card_vs_cpu(dev) -> dict:
+    """Every configuration at 128x128 (the oracle frames rounded to uint8),
+    12 iterations, on the card against the CPU (plain versions): fp32 within
+    FULLPREC_BOUND_PX, mixed within BF16_BOUND_PX.  Returns the frames and
+    the fp32 CPU flows."""
+    img1, img2, _, _ = load_oracle_npz(ORACLE)
+    frames = [np.round(x[0]).astype(np.uint8) for x in (img1, img2)]
+    pair = [torch.from_numpy(f[None].astype(np.float32)) for f in frames]
+    out = {"frames": frames}
+    for name in MODE_CONFIGS:
+        for label, mp, bound in (("fp32", False, FULLPREC_BOUND_PX),
+                                 ("mixed", True, BF16_BOUND_PX)):
+            want = _final(mode_model("cpu", name, mp), *pair).float()
+            got = _final(mode_model(dev, name, mp),
+                         *(t.to(dev) for t in pair)).float().cpu()
+            err = float((got - want).abs().max())
+            print(f"{name} {label}: card against the CPU, max |flow diff| "
+                  f"{err:.3e} px (max |flow| {float(want.abs().max()):.3f}, "
+                  f"bound {bound})")
+            assert bool(torch.isfinite(got).all()) and err < bound, \
+                f"{name} {label}"
+            if not mp:
+                out[name] = want
+    return out
+
+
+def modes_serving(dev, n_pairs: int = 2) -> dict:
+    """modes1 and modes8 served as the main path (mixed, 440x1024, 12
+    iterations, one warm-up pair, then n_pairs seeded pairs with the launch
+    counts zeroed just before): ms between CUDA events (wall), the
+    profiler's device ms of one more pair and the busy share (that device
+    ms over the median wall), peak memory and the exact launches of the
+    main path (SERVE_PER_PAIR: the sites are the same, at other mode
+    counts)."""
+    padder, pairs = frame_pairs(dev, n_pairs + 1, seed=6)
+    res = {}
+    for name in MODE_FULL:
+        model = mode_model(dev, name, True)
+        res[name] = _served(name, model, padder, pairs, SERVE_PER_PAIR)
+        del model
+        torch.cuda.empty_cache()
+    return res
+
+
+def mode_train_setup(dev, name: str):
+    """(state, step, batch) of configuration `name`'s training path: mixed
+    precision, ``mode_weights``, dropout at the config's rates, remat on,
+    12 iterations, a chairs-size batch."""
+    cfg = mode_config(name, True)
+    state = create_train_state(cfg, mode_weights(name), device=dev,
+                               num_steps=1000)
+    return state, make_train_step(cfg, iters=ITERS), train_batch(dev)
+
+
+def modes_training(dev, n_steps: int = 2) -> dict:
+    """modes1 and modes8 at the chairs crops (368x496, batch 8, 12
+    iterations, dropout at the config's rates, mixed precision, remat on),
+    one warm-up step, then n_steps steps between CUDA events: their ms, the
+    profiler's device ms of one more step, peak memory, loss, grad norm
+    and the exact launches of the main config's step."""
+    res = {}
+    for name in MODE_FULL:
+        state, step, batch = mode_train_setup(dev, name)
+        r = _trained(name, state, step, batch, n_steps, "main")
+        box = [state]
+
+        def one():
+            box[0], _ = step(box[0], batch)
+        r["step_device_ms"] = device_ms(one, 1)
+        print(f"{name} training: device {r['step_device_ms']:.3f} ms a step")
+        res[name] = r
+        del state, step, batch, box
+        torch.cuda.empty_cache()
+    return res
+
+
+def modes_step_card_vs_cpu(dev) -> None:
+    """One fp32 step (dropout off, 2 iterations, the oracle frames) of
+    modes1 and modes8 on the card against the CPU (phase 3's bounds), its
+    launches asserted."""
+    for name in MODE_FULL:
+        _step_card_vs_cpu(dev, f"{name} train step", mode_config(name, False),
+                          mode_weights(name), "main")
+
+
+def modes_clis(dev, cpu_flows, frames) -> dict:
+    """The evaluator CLI with modes8's flags over its weights as a
+    reference .pth, on a one-pair Sintel tree of the oracle frames whose
+    ground truth is modes8's fp32 CPU flow (--fullprec within
+    FULLPREC_BOUND_PX, mixed within BF16_BOUND_PX, SERVE_PER_PAIR a
+    forward); then the training CLI with modes1's flags, 2 steps of the
+    chairs stage on a small synthetic FlyingChairs tree (the steps'
+    launches: the main config's, exact)."""
+    shutil.rmtree(MODE_DIR, ignore_errors=True)
+    MODE_DIR.mkdir(parents=True)
+    out = {}
+    pth = MODE_DIR / "modes8.pth"
+    torch.save({f"module.{k}": v for k, v in mode_weights("modes8").items()},
+               pth)
+    write_sintel_tree(MODE_DIR / "sintel", frames,
+                      [cpu_flows["modes8"][0].numpy()])
+    for label, extra, bound in (("fp32", ["--fullprec"], FULLPREC_BOUND_PX),
+                                ("mixed", [], BF16_BOUND_PX)):
+        argv = ["--model", str(pth), *mode_flags("modes8"), "--iters",
+                str(ITERS), "--device", str(dev), "--dataset", "sintel",
+                "--data_root", str(MODE_DIR / "sintel"), *extra]
+        r = _timed_cli(f"modes8 {label}", argv, 2)
+        _assert_launches(f"eval modes8 {label}", r["launches"],
+                         SERVE_PER_PAIR, 2)
+        epe = r["metrics"]["sintel_clean_epe"]
+        print(f"eval modes8 {label}: sintel_clean_epe {epe:.3e} px against "
+              f"the port's CPU flow (bound {bound})")
+        assert epe < bound, f"eval modes8 {label}"
+        out[f"eval {label}"] = r
+    write_chairs(MODE_DIR / "chairs", 8, 2, (128, 160))
+    argv = ["--stage", "chairs", *mode_flags("modes1"), "--mixed_precision",
+            "--lr", "2.5e-4", "--image_size", "96", "128", "--batch_size",
+            "4", "--workers", "1", "--iters", str(ITERS), "--print_freq",
+            "1", "--num_steps", "2", "--data_root", str(MODE_DIR / "chairs"),
+            "--output", str(MODE_DIR / "out"), "--name", "modes1",
+            "--device", str(dev)]
+    launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = train_cli.main(argv)
+    counts = launch.launch_counts()
+    r = {"seconds": time.perf_counter() - t0, "step": state.step,
+         "launches": {k: c for k, c in counts.items() if c}}
+    print("train CLI modes1:", json.dumps(r))
+    assert state.step == 2 and state.model.cfg.inter.num_modes == 1
+    assert all(bool(torch.isfinite(p).all())
+               for p in state.model.parameters()), "train CLI modes1"
+    _assert_launches("train CLI modes1", counts, step_launches("main"), 2)
+    assert (MODE_DIR / "out" / "modes1.pth").exists()
+    out["train"] = r
+    shutil.rmtree(MODE_DIR, ignore_errors=True)
+    return out
+
+
+def mode_sp_rank_main(outdir: str) -> int:
+    """One rank of the mode-count phase's sequence parallelism: MODE_SP_
+    CONFIG at 128x128 (the oracle frames), mixed and fp32, as this rank of
+    a gloo group; writes its flows and launches under outdir."""
+    from craft_tpu_torch.parallel import sp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = sp.init("cuda")
+    img1, img2, _, _ = load_oracle_npz(ORACLE)
+    pair = [torch.from_numpy(np.round(x).astype(np.float32)).to(group.device)
+            for x in (img1, img2)]
+    res = {"rank": group.rank, "world": group.world,
+           "backend": group.backend}
+    for label, mp in (("mixed", True), ("fp32", False)):
+        model = mode_model(group.device, MODE_SP_CONFIG, mp)
+        launch.reset_launch_counts()
+        _, flows = serve(model, [pair], group)
+        res[f"launches_{label}"] = launch.launch_counts()
+        torch.save(flows[0].cpu(),
+                   Path(outdir) / f"rank{group.rank}_{label}.pt")
+    (Path(outdir) / f"rank{group.rank}.json").write_text(json.dumps(res))
+    print(f"modes sp rank{group.rank}:", json.dumps(res), flush=True)
+    return 0
+
+
+def modes_sp(dev) -> dict:
+    """MODE_SP_RANKS ranks of this script on the one card (gloo) serving
+    MODE_SP_CONFIG at 128x128 against the unsharded card flow: mixed within
+    BF16_BOUND_PX, fp32 within FULLPREC_BOUND_PX, SP_KERNELS per rank (B9
+    in place of B3, at 8 modes)."""
+    sp_dir = MODE_DIR / "sp"
+    shutil.rmtree(sp_dir, ignore_errors=True)
+    sp_dir.mkdir(parents=True)
+    img1, img2, _, _ = load_oracle_npz(ORACLE)
+    pair = [torch.from_numpy(np.round(x).astype(np.float32)).to(dev)
+            for x in (img1, img2)]
+    ref = {label: serve(mode_model(dev, MODE_SP_CONFIG, mp), [pair])[1][0]
+           .cpu() for label, mp in (("mixed", True), ("fp32", False))}
+    script = str(Path(__file__).resolve())
+    _run_ranks([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(MODE_SP_RANKS), script,
+                "--sp-modes-rank", str(sp_dir)], "modes sp ranks")
+    res = {}
+    for r in range(MODE_SP_RANKS):
+        rk = json.loads((sp_dir / f"rank{r}.json").read_text())
+        assert (rk["world"], rk["backend"]) == (MODE_SP_RANKS, "gloo"), rk
+        for label, bound in (("mixed", BF16_BOUND_PX),
+                             ("fp32", FULLPREC_BOUND_PX)):
+            got = torch.load(sp_dir / f"rank{r}_{label}.pt")
+            err = float((got.float() - ref[label].float()).abs().max())
+            print(f"{MODE_SP_CONFIG} sp rank {r} {label}: max |flow diff| "
+                  f"against unsharded {err:.3e} px (bound {bound})")
+            assert bool(torch.isfinite(got).all()) and err < bound, \
+                f"{MODE_SP_CONFIG} sp rank {r} {label}"
+            _assert_launches(f"{MODE_SP_CONFIG} sp rank {r} {label}",
+                             rk[f"launches_{label}"], SP_KERNELS, 1)
+            rk[f"{label}_err_px"] = err
+        res[r] = rk
+    shutil.rmtree(sp_dir, ignore_errors=True)
+    return res
+
+
+def modes_phase(dev) -> dict:
+    """The mode counts other than 4: card against CPU for every
+    configuration, modes1 and modes8 served at 440x1024 and trained at the
+    chairs crops, one fp32 step each card against CPU, the evaluator and
+    training CLIs, and a gloo pair of sequence-parallel ranks at 8 modes."""
+    t0 = time.perf_counter()
+    flows = modes_card_vs_cpu(dev)
+    res = {"serving": modes_serving(dev)}
+    torch.cuda.empty_cache()
+    res["training"] = modes_training(dev)
+    torch.cuda.empty_cache()
+    modes_step_card_vs_cpu(dev)
+    res["cli"] = modes_clis(dev, flows, flows["frames"])
+    torch.cuda.empty_cache()
+    res["sp"] = modes_sp(dev)
+    print(f"modes phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def time_mode_kernels(dev, gen, report) -> None:
+    """Phase 5, the mode counts: each kernel of MODE_KERNELS at 1 and 8
+    modes where modes1 and modes8 run it (B1, B2, B3 and B4 int8 at the
+    serving shape: the f2 site's md for B1 and B2, the intra site's for
+    B4; B6, its backward and B7 at the chairs shape, batch 8), beside its
+    plain version, its bound (bf16 inputs: the tensor cores' peak) and the
+    floor of its exponentials on the SFUs."""
+    biases = (torch.randn(15, 15, generator=gen) * 0.5).to(dev)
+    grid, tgrid = (H8, W8), CHAIRS_GRID
+    ut, B = tgrid[0] * tgrid[1], TRAIN_BATCH
+    clip = torch.tensor(1e30, device=dev)
+    agg = (torch.tensor(1.3, device=dev), torch.tensor(0.1, device=dev))
+    dgen = torch.Generator(device=dev).manual_seed(3)
+    for M in (1, 8):
+        md, md_i = 256 // M, 128 // M
+        q, k = inputs(gen, md, dev, U, modes=M)
+        qi, ki = inputs(gen, md_i, dev, U, modes=M)
+        v = torch.randn(1, M, U, 256, generator=gen).to(dev, torch.bfloat16)
+        n = M * U * U
+        qk = lambda d, b=1, u=U: (2.0 * b * M * u * u * d,  # noqa: E731
+                                  2 * b * M * u * d * 2)
+        dense = (0.5 * ma.sliding_pos_biases(biases, *grid)).to(
+            torch.bfloat16)
+        fl_b1, by_b1 = qk(md)
+        fl_b4, by_b4 = qk(md_i)
+        flash = (q, k, v, biases, grid, clip, 0.5)
+        corr = (q, k, biases, grid, 100.0, 0.5, *agg)
+        probs = (qi, ki, biases, grid, clip, 1.0)
+        cases = {
+            "scores_global_max": (
+                lambda: ma.scores_global_max(q, k, md ** -0.5),
+                lambda: ma.scores_global_max_plain(q, k, md ** -0.5), None,
+                bound_ms(fl_b1, by_b1 + 4), 0.0),
+            "flash_mode_attention": (
+                lambda: ma.flash_mode_attention(*flash),
+                lambda: ma.flash_mode_attention_plain(*flash),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=dense),
+                bound_ms(fl_b1 + 2.0 * n * 256, by_b1 + 2 * 2 * M * U * 256),
+                exp_ms(n)),
+            "fused_agg_corr_norm": (
+                lambda: ma.fused_agg_corr_norm(*corr),
+                lambda: ma.fused_agg_corr_norm_plain(*corr), None,
+                bound_ms(fl_b1, by_b1 + 2 * U * U + 16), exp_ms(2.0 * n)),
+            "mode_softmax_probs": (
+                lambda: ma.mode_softmax_probs(*probs, quantized=True),
+                lambda: ma.mode_softmax_probs_plain(*probs, quantized=True),
+                None, bound_ms(fl_b4, by_b4 + n + 4 * M * U),
+                exp_ms(2.0 * n)),
+        }
+        _time_mode_cases(cases, report, M, f"serving, M={M}")
+        del q, k, qi, ki, v, dense
+        torch.cuda.empty_cache()
+        q, k = inputs(gen, md, dev, ut, B, M)
+        nt = B * M * ut * ut
+        fl_t, by_t = qk(md, B, ut)
+        vol = cv.fused_agg_corr(q, k, biases, tgrid, clip, 0.5, *agg)
+        g_vol = torch.randn(B, ut, ut, generator=dgen, device=dev)
+        p = ma.mode_softmax_probs(q, k, biases, tgrid, clip, 0.5)
+        g_p = torch.randn(B, M, ut, ut, generator=dgen,
+                          device=dev).to(torch.bfloat16)
+        fwd = (q, k, biases, tgrid, clip, 0.5, *agg)
+        bwd = (q, k, g_vol, vol, biases, tgrid, clip, 0.5, agg[0])
+        pb = (q, k, p, g_p, clip)
+        cases = {
+            "fused_agg_corr": (
+                lambda: cv.fused_agg_corr(*fwd),
+                lambda: cv.fused_agg_corr_plain(*fwd), None,
+                bound_ms(fl_t, by_t + 4 * B * ut * ut), exp_ms(nt)),
+            "agg_corr_bwd": (
+                lambda: cv.agg_corr_bwd(*bwd),
+                lambda: cv.agg_corr_bwd_plain(*bwd), None,
+                bound_ms(fl_t, by_t + 2 * 4 * B * ut * ut + 4 * nt + 4),
+                exp_ms(nt)),
+            "probs_bwd": (
+                lambda: pv.probs_bwd(*pb), lambda: pv.probs_bwd_plain(*pb),
+                None, bound_ms(fl_t, by_t + 3 * 2 * nt + 4 * ut * ut), 0.0),
+        }
+        _time_mode_cases(cases, report, M, f"chairs, B={B}, M={M}")
+        del q, k, vol, g_vol, p, g_p
+        torch.cuda.empty_cache()
+
+
+def _time_mode_cases(cases, report, M, where) -> None:
+    for name, (kern, plain, lib, (bms, by), exps) in cases.items():
+        r = report[f"{name}_m{M}"]
+        r["ms"] = time_ms(kern, 3)
+        r["plain_ms"] = time_ms(plain, 2)
+        r["library_ms"] = time_ms(lib, 3) if lib is not None else None
+        r["bound_ms"], r["bound_by"] = bms, by
+        print(f"{name}_m{M} ({where}): {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {bms:.4f} ms ({by}), "
+              f"exponentials floor {exps:.4f} ms, library "
+              f"{r['library_ms']} | {card_line()}")
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4774,7 +5429,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     reports = build.build_all()
     for name, out in reports.items():
         for line in out.splitlines():
@@ -4834,6 +5489,11 @@ def main() -> int:
              pallas + "sep_conv_gru.py:_gru_bwd_vjp:319")):
         report[name] = dict(report["scores_global_max"], name=name,
                             source=SOURCE.format(src), replaces=tpu)
+    # The kernels at one and eight modes (modes1, modes8): the FMA bodies
+    # past md 64 and the aggregating kernels' mode groups.
+    for name in MODE_KERNELS:
+        for M in (1, 8):
+            report[f"{name}_m{M}"] = dict(report[name], name=f"{name}_m{M}")
 
     gen = torch.Generator().manual_seed(0)
     check_kernels(dev, gen, report)
@@ -4855,6 +5515,8 @@ def main() -> int:
     check_sp_kernels(dev, gen, report)
     torch.cuda.empty_cache()
     check_gru(dev, report)
+    torch.cuda.empty_cache()
+    check_mode_kernels(dev, gen, report)
     torch.cuda.empty_cache()
     check_oracle(dev)
     check_oracle_lsinu(dev)
@@ -4898,6 +5560,14 @@ def main() -> int:
     report["corr_lookup_bwd_d2"]["launches"] = \
         wres["training"]["launches"]["corr_lookup_bwd"]
     torch.cuda.empty_cache()
+    mres = modes_phase(dev)
+    for name in MODE_KERNELS:
+        for M in (1, 8):
+            runs = mres["serving"] if name in SERVE_PER_PAIR \
+                else mres["training"]
+            report[f"{name}_m{M}"]["launches"] = \
+                runs[f"modes{M}"]["launches"][name]
+    torch.cuda.empty_cache()
     time_kernels(dev, gen, report)
     time_b2_lazy(dev, gen, report)
     time_kitti_kernels(dev, gen)
@@ -4906,6 +5576,7 @@ def main() -> int:
     time_lookup(dev, report, dim=LOOKUP_D)
     time_dense_kernels(dev, gen, report)
     time_gru(dev, report)
+    time_mode_kernels(dev, gen, report)
 
     sres = sp_paths(dev)
     for name in ("corr_norm_sums", "corr_norm_write"):
@@ -4914,6 +5585,7 @@ def main() -> int:
     time_sp_kernels(dev, gen, report, report["fused_agg_corr_norm"]["ms"]
                     - report["scores_global_max"]["ms"])
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -4926,4 +5598,7 @@ if __name__ == "__main__":
     if "--sp-rank" in sys.argv:  # a rank of the sequence-parallel phase
         sys.exit(sp_rank_main(sys.argv[sys.argv.index("--sp-rank") + 1],
                               "--sp-nccl" in sys.argv))
+    if "--sp-modes-rank" in sys.argv:  # a rank of the mode-count phase
+        sys.exit(mode_sp_rank_main(
+            sys.argv[sys.argv.index("--sp-modes-rank") + 1]))
     sys.exit(main())

@@ -17,7 +17,11 @@ from craft_tpu_torch.config import (ModelConfig, f2_trans_config,
 ROADMAP_SP = "ROADMAP.md section 2, item 8 (sequence parallelism under " \
     "lsinu and --f2radius, for the families other than full CRAFT, with " \
     "two-way correlation, and across several cards)"
-ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (mode counts other than 4)"
+ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (mode counts that leave a " \
+    "mode dim below 16)"
+# The shortest mode dim the port's kernels take in bf16 (their tiles' k
+# step); a site's mode count must also divide its width.
+MIN_MODE_DIM = 16
 
 
 def not_ported(what: str, item: str) -> SystemExit:
@@ -96,16 +100,22 @@ def _refuse_half(args) -> None:
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Exit, naming the ROADMAP.md item, on what the port does not run: a
-    SETrans site of the family with a mode count other than 4."""
-    sites = [("--intermodes", cfg.inter.num_modes, cfg.craft),
-             ("--f2modes (--intramodes under --nogma)", cfg.f2.num_modes,
+    SETrans site of the family whose mode count does not divide its width
+    or leaves a mode dim below 16 (the 256-wide inter, f2 and f1 sites take
+    1, 2, 4, 8 and 16 modes, the 128-wide intra site 1, 2, 4 and 8)."""
+    sites = [("--intermodes", cfg.inter, cfg.craft),
+             ("--f2modes (--intramodes under --nogma)", cfg.f2,
               cfg.f2trans != "none" and cfg.arch != "raft"),
-             ("--intramodes", cfg.intra.num_modes,
+             ("--intramodes", cfg.intra,
               cfg.arch == "craft" and cfg.use_setrans)]
-    for flag, modes, built in sites:
-        if built and modes != 4:
-            raise not_ported(f"mode counts other than 4 ({flag} {modes})",
-                             ROADMAP_ARCHS)
+    for flag, site, built in sites:
+        modes, width = site.num_modes, site.in_feat_dim
+        if built and not (0 < modes <= width and width % modes == 0
+                          and width // modes >= MIN_MODE_DIM):
+            raise not_ported(
+                f"{modes} modes at a {width}-wide site ({flag} {modes}: a "
+                f"mode dim below {MIN_MODE_DIM}, or a count that does not "
+                f"divide the width)", ROADMAP_ARCHS)
 
 
 def model_config_from_args(args) -> ModelConfig:

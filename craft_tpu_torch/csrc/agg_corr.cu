@@ -49,35 +49,38 @@
 // order: no float atomics, deterministic.
 //
 // The wrappers raise on bf16 unless md is a multiple of 16 and q and k are
-// 16-byte aligned.  fp32 inputs take the FMA bodies (agg_corr_kernel,
-// agg_corr_bwd_kernel below; agg_modes.cuh's FMA tiles), kept for fp32
-// parity.
+// 16-byte aligned.  fp32 inputs, and bf16 inputs at a mode count other
+// than four, take the FMA bodies (agg_corr_kernel, agg_corr_bwd_kernel
+// below; agg_modes.cuh's FMA tiles), templates over the mode count NM (1,
+// 2, 4, 8, 16; NM md <= 256): a simple kernel that is right at those
+// counts, at the FMA rate.
 #include "agg_modes.cuh"
 
-// The fp32 forward.
-template <class Bias>
+// The FMA forward: NM modes of input type T (fp32 at every NM; bf16 where
+// the wgmma sweep does not take it).
+template <int NM, typename T, class Bias>
 __global__ void __launch_bounds__(NTHREADS)
-    agg_corr_kernel(const float* __restrict__ q, const float* __restrict__ k,
+    agg_corr_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     BiasArgs ba, const float* __restrict__ scal,
                     float* __restrict__ out, int U1, int U2, int md,
                     float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + NMODES * MAXMD * SPAD;
-  float* bsm = ks + MAXMD * SPAD;
+  float* ks = qs + NM * agg_mds<NM>() * SPAD;
+  float* bsm = ks + agg_mds<NM>() * SPAD;
   const int qt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   Bias bias;
-  load_q_modes(q + (size_t)b * NMODES * U1 * md, qs, bsm, bias, ba, qt, U1,
-               md);
-  const float* kb = k + (size_t)b * NMODES * U2 * md;
+  load_q_modes<NM>(q + (size_t)b * NM * U1 * md, qs, bsm, bias, ba, qt, U1,
+                   md);
+  const T* kb = k + (size_t)b * NM * U2 * md;
   const float clip = scal[0], pos_w = scal[1], agg_w = scal[2],
               agg_b = scal[3];
   const int nk = (U2 + TILE - 1) / TILE;
   for (int kt = g * KGROUP; kt < min(nk, (g + 1) * KGROUP); ++kt) {
     float vol[4][4];
-    agg_tile(vol, kb, qs, ks, bias, kt, U2, md, scale, clip, pos_w, agg_w,
-             agg_b);
+    agg_tile<NM>(vol, kb, qs, ks, bias, kt, U2, md, scale, clip, pos_w,
+                 agg_w, agg_b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = qt * TILE + ty + 16 * i;
@@ -104,7 +107,12 @@ __global__ void __launch_bounds__(B3_THREADS, 1)
                                            out, nullptr, md, scale);
 }
 
-template <typename T>
+// The FMA backward: NM modes of input type T.  With one group of modes
+// (NM <= 4) each element's mode softmax comes from its scores at once; with
+// more, a first pass over the groups carries the softmax's running (max,
+// denominator) and a second recomputes each group's scores for its dc
+// planes (twice the products, the registers of four modes).
+template <int NM, typename T>
 __global__ void __launch_bounds__(NTHREADS)
     agg_corr_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ g,
@@ -113,61 +121,138 @@ __global__ void __launch_bounds__(NTHREADS)
                         const float* __restrict__ scal,
                         float* __restrict__ dc, double* __restrict__ partial,
                         int U, int md, int W8, int R, float scale) {
+  constexpr int G = mode_group<NM>(), MDS = agg_mds<NM>();
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + NMODES * MAXMD * SPAD;
-  float* win = ks + MAXMD * SPAD;
+  float* ks = qs + NM * MDS * SPAD;
+  float* win = ks + MDS * SPAD;
   __shared__ double red[NTHREADS / 32];
   const int qt = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t off = (size_t)b * NMODES * U * md;
+  const size_t off = (size_t)b * NM * U * md;
   const size_t plane = (size_t)U * U;
   WindowBias wb;
-  load_q_modes(q + off, qs, win, wb, BiasArgs{biases, W8, R, U, U, 0}, qt,
-               U, md);
+  load_q_modes<NM>(q + off, qs, win, wb, BiasArgs{biases, W8, R, U, U, 0},
+                   qt, U, md);
   const float clip = scal[0], pos_w = scal[1], agg_w = scal[2];
   const int nk = (U + TILE - 1) / TILE;
   double da = 0.0;
   for (int kt = grp * KGROUP; kt < min(nk, (grp + 1) * KGROUP); ++kt) {
-    float s[NMODES][4][4];
-    mode_score_tiles(s, k + off, qs, ks, wb, kt, U, md);
+    if constexpr (NM == G) {
+      float s[G][4][4];
+      mode_score_tiles<G, MDS>(s, k + off, qs, ks, wb, kt, U, md);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = kt * TILE + tx + 16 * j;
-      if (col >= U) continue;
+      for (int j = 0; j < 4; ++j) {
+        const int col = kt * TILE + tx + 16 * j;
+        if (col >= U) continue;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = qt * TILE + ty + 16 * i;
-        if (row >= U) continue;
-        const size_t e = (size_t)b * plane + (size_t)row * U + col;
-        const float gv = g[e], vv = vol[e];
-        const float bias = pos_w * wb.at(i, j);
-        float c[NMODES], x[NMODES], p[NMODES];
+        for (int i = 0; i < 4; ++i) {
+          const int row = qt * TILE + ty + 16 * i;
+          if (row >= U) continue;
+          const size_t e = (size_t)b * plane + (size_t)row * U + col;
+          const float gv = g[e], vv = vol[e];
+          const float bias = pos_w * wb.at(i, j);
+          float c[G], x[G], p[G];
 #pragma unroll
-        for (int m = 0; m < NMODES; ++m) {
-          c[m] = s[m][i][j] * scale;
-          x[m] = fminf(fmaxf(c[m], -clip), clip) + bias;
+          for (int m = 0; m < G; ++m) {
+            c[m] = s[m][i][j] * scale;
+            x[m] = fminf(fmaxf(c[m], -clip), clip) + bias;
+          }
+          float mmax = agg_w * x[0];
+#pragma unroll
+          for (int m = 1; m < G; ++m) mmax = fmaxf(mmax, agg_w * x[m]);
+          float denom = 0.f;
+#pragma unroll
+          for (int m = 0; m < G; ++m) {
+            p[m] = expf(agg_w * x[m] - mmax);
+            denom += p[m];
+          }
+          float dsum = 0.f;
+#pragma unroll
+          for (int m = 0; m < G; ++m) {
+            const float pm = p[m] / denom;
+            const float sv = x[m] - vv;
+            const float t = pm * (1.f + agg_w * sv);
+            dc[((size_t)b * NM + m) * plane + (size_t)row * U + col] =
+                fabsf(c[m]) < clip ? gv * t : 0.f;
+            dsum += pm * x[m] * sv;
+          }
+          da += (double)(gv * dsum);
         }
-        float mmax = agg_w * x[0];
+      }
+    } else {
+      // Pass 1: the mode softmax's running max and denominator.
+      float rmax[4][4], rden[4][4];
+#pragma unroll 1
+      for (int gi = 0; gi < NM / G; ++gi) {
+        float s[G][4][4];
+        mode_score_tiles<G, MDS>(s, k + off + (size_t)gi * G * U * md,
+                                 qs + gi * G * MDS * SPAD, ks, wb, kt, U, md);
 #pragma unroll
-        for (int m = 1; m < NMODES; ++m) mmax = fmaxf(mmax, agg_w * x[m]);
-        float denom = 0.f;
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int m = 0; m < NMODES; ++m) {
-          p[m] = expf(agg_w * x[m] - mmax);
-          denom += p[m];
+          for (int i = 0; i < 4; ++i) {
+            const float bias = pos_w * wb.at(i, j);
+            float l[G];
+#pragma unroll
+            for (int m = 0; m < G; ++m)
+              l[m] = agg_w *
+                     (fminf(fmaxf(s[m][i][j] * scale, -clip), clip) + bias);
+            float gmx = l[0];
+#pragma unroll
+            for (int m = 1; m < G; ++m) gmx = fmaxf(gmx, l[m]);
+            const float mmax = gi == 0 ? gmx : fmaxf(rmax[i][j], gmx);
+            float denom = gi == 0 ? 0.f : rden[i][j] * expf(rmax[i][j] - mmax);
+#pragma unroll
+            for (int m = 0; m < G; ++m) denom += expf(l[m] - mmax);
+            rmax[i][j] = mmax;
+            rden[i][j] = denom;
+          }
+      }
+      // Pass 2: each group's scores again, its dc planes and da's terms.
+      float dsum[4][4] = {};
+#pragma unroll 1
+      for (int gi = 0; gi < NM / G; ++gi) {
+        float s[G][4][4];
+        mode_score_tiles<G, MDS>(s, k + off + (size_t)gi * G * U * md,
+                                 qs + gi * G * MDS * SPAD, ks, wb, kt, U, md);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = kt * TILE + tx + 16 * j;
+          if (col >= U) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = qt * TILE + ty + 16 * i;
+            if (row >= U) continue;
+            const size_t e = (size_t)b * plane + (size_t)row * U + col;
+            const float gv = g[e], vv = vol[e];
+            const float bias = pos_w * wb.at(i, j);
+#pragma unroll
+            for (int m = 0; m < G; ++m) {
+              const float c = s[m][i][j] * scale;
+              const float x = fminf(fmaxf(c, -clip), clip) + bias;
+              const float pm =
+                  expf(agg_w * x - rmax[i][j]) / rden[i][j];
+              const float sv = x - vv;
+              const float t = pm * (1.f + agg_w * sv);
+              dc[((size_t)b * NM + gi * G + m) * plane + (size_t)row * U +
+                 col] = fabsf(c) < clip ? gv * t : 0.f;
+              dsum[i][j] += pm * x * sv;
+            }
+          }
         }
-        float dsum = 0.f;
+      }
 #pragma unroll
-        for (int m = 0; m < NMODES; ++m) {
-          const float pm = p[m] / denom;
-          const float sv = x[m] - vv;
-          const float t = pm * (1.f + agg_w * sv);
-          dc[((size_t)b * NMODES + m) * plane + (size_t)row * U + col] =
-              fabsf(c[m]) < clip ? gv * t : 0.f;
-          dsum += pm * x[m] * sv;
+      for (int j = 0; j < 4; ++j) {
+        const int col = kt * TILE + tx + 16 * j;
+        if (col >= U) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = qt * TILE + ty + 16 * i;
+          if (row >= U) continue;
+          const size_t e = (size_t)b * plane + (size_t)row * U + col;
+          da += (double)(g[e] * dsum[i][j]);
         }
-        da += (double)(gv * dsum);
       }
     }
   }
@@ -470,13 +555,28 @@ static int launch_fwd_md(const void* q, const void* k, const BiasArgs& ba,
   return (int)cudaGetLastError();
 }
 
-// The forward over the bias source Bias: the bf16 body (md a multiple of
-// 16 up to 64, q and k 16-byte aligned; refused otherwise) or the fp32 one.
+template <int NM, typename T, class FmaBias>
+static int launch_fwd_fma(const void* q, const void* k, const BiasArgs& ba,
+                          const void* scal, void* out, int B, int md,
+                          float scale, cudaStream_t s) {
+  const size_t smem = agg_smem<FmaBias, NM>();
+  cudaError_t err = allow_smem(agg_corr_kernel<NM, T, FmaBias>, smem);
+  if (err != cudaSuccess) return (int)err;
+  agg_corr_kernel<NM, T, FmaBias>
+      <<<agg_grid(B, ba.U1, ba.U2), NTHREADS, smem, s>>>(
+          (const T*)q, (const T*)k, ba, (const float*)scal, (float*)out,
+          ba.U1, ba.U2, md, scale);
+  return (int)cudaGetLastError();
+}
+
+// The forward of NM modes over the bias source Bias: the bf16 body (four
+// modes, md a multiple of 16 up to 64, q and k 16-byte aligned; refused
+// otherwise) or the FMA one.
 template <class Bias, class FmaBias>
 static int launch_fwd(const void* q, const void* k, const BiasArgs& ba,
-                      const void* scal, void* out, int B, int md,
+                      const void* scal, void* out, int B, int NM, int md,
                       float scale, int in_bf16, cudaStream_t s) {
-  if (in_bf16) {
+  if (agg_mma_body(NM, md, in_bf16)) {
     if (!sweep_takes(q, k, md)) return (int)cudaErrorInvalidValue;
     if (md <= 16)
       return launch_fwd_md<16, Bias>(q, k, ba, scal, out, B, md, scale, s);
@@ -484,13 +584,14 @@ static int launch_fwd(const void* q, const void* k, const BiasArgs& ba,
       return launch_fwd_md<32, Bias>(q, k, ba, scal, out, B, md, scale, s);
     return launch_fwd_md<64, Bias>(q, k, ba, scal, out, B, md, scale, s);
   }
-  const size_t smem = agg_smem<FmaBias>();
-  cudaError_t err = allow_smem(agg_corr_kernel<FmaBias>, smem);
-  if (err != cudaSuccess) return (int)err;
-  agg_corr_kernel<FmaBias><<<agg_grid(B, ba.U1, ba.U2), NTHREADS, smem, s>>>(
-      (const float*)q, (const float*)k, ba, (const float*)scal, (float*)out,
-      ba.U1, ba.U2, md, scale);
-  return (int)cudaGetLastError();
+  if (!fma_takes(NM, md)) return (int)cudaErrorInvalidValue;
+#define LAUNCH(NM_)                                                         \
+  return in_bf16 ? launch_fwd_fma<NM_, bf16, FmaBias>(q, k, ba, scal, out, \
+                                                      B, md, scale, s)     \
+                 : launch_fwd_fma<NM_, float, FmaBias>(q, k, ba, scal, out,\
+                                                       B, md, scale, s);
+  WITH_MODES(NM, LAUNCH)
+#undef LAUNCH
 }
 
 // The backward's grid for the body that in_bf16 selects: (q tiles, key-tile
@@ -530,14 +631,32 @@ static cudaError_t launch_bwd_wgmma(const void* q, const void* k,
   return cudaGetLastError();
 }
 
+template <int NM, typename T>
+static cudaError_t launch_bwd_fma(const void* q, const void* k,
+                                  const void* g, const void* vol,
+                                  const void* biases, const void* scal,
+                                  void* dc, void* partial, dim3 grid, int U,
+                                  int md, int W8, int R, float scale,
+                                  cudaStream_t s) {
+  const size_t smem = agg_smem<WindowBias, NM>();
+  cudaError_t err = allow_smem(agg_corr_bwd_kernel<NM, T>, smem);
+  if (err != cudaSuccess) return err;
+  agg_corr_bwd_kernel<NM, T><<<grid, NTHREADS, smem, s>>>(
+      (const T*)q, (const T*)k, (const float*)g, (const float*)vol,
+      (const float*)biases, (const float*)scal, (float*)dc, (double*)partial,
+      U, md, W8, R, scale);
+  return cudaGetLastError();
+}
+
 static int launch_bwd(const void* q, const void* k, const void* g,
                       const void* vol, const void* biases, const void* scal,
-                      void* dc, void* partial, void* da, int B, int U,
+                      void* dc, void* partial, void* da, int B, int NM, int U,
                       int md, int W8, int R, float scale, int in_bf16,
                       cudaStream_t s) {
-  const dim3 grid = bwd_grid(B, U, in_bf16);
+  const int mma = agg_mma_body(NM, md, in_bf16);
+  const dim3 grid = bwd_grid(B, U, mma);
   cudaError_t err;
-  if (in_bf16) {
+  if (mma) {
     if (!sweep_takes(q, k, md)) return (int)cudaErrorInvalidValue;
     const BiasArgs ba{(const float*)biases, W8, R, U, U, 0};
     err = md <= 16   ? launch_bwd_wgmma<16>(q, k, g, vol, ba, scal, dc,
@@ -547,14 +666,17 @@ static int launch_bwd(const void* q, const void* k, const void* g,
                      : launch_bwd_wgmma<64>(q, k, g, vol, ba, scal, dc,
                                             partial, B, md, scale, s);
   } else {
-    const size_t smem = agg_smem<WindowBias>();
-    err = allow_smem(agg_corr_bwd_kernel<float>, smem);
-    if (err != cudaSuccess) return (int)err;
-    agg_corr_bwd_kernel<float><<<grid, NTHREADS, smem, s>>>(
-        (const float*)q, (const float*)k, (const float*)g, (const float*)vol,
-        (const float*)biases, (const float*)scal, (float*)dc,
-        (double*)partial, U, md, W8, R, scale);
-    err = cudaGetLastError();
+    if (!fma_takes(NM, md)) return (int)cudaErrorInvalidValue;
+#define LAUNCH(NM_)                                                        \
+  err = in_bf16 ? launch_bwd_fma<NM_, bf16>(q, k, g, vol, biases, scal, dc, \
+                                            partial, grid, U, md, W8, R,    \
+                                            scale, s)                       \
+                : launch_bwd_fma<NM_, float>(q, k, g, vol, biases, scal,    \
+                                             dc, partial, grid, U, md, W8,  \
+                                             R, scale, s);                  \
+  break;
+    WITH_MODES(NM, LAUNCH)
+#undef LAUNCH
   }
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<1, NTHREADS, 0, s>>>(
@@ -562,48 +684,52 @@ static int launch_bwd(const void* q, const void* k, const void* g,
   return (int)cudaGetLastError();
 }
 
-// q, k: [B, 4, U, md] contiguous (bf16 when in_bf16, else fp32), md <= 64
-// (bf16: a multiple of 16, q and k 16-byte aligned); biases: [(2R+1)^2]
+// q, k: [B, NM, U, md] contiguous (bf16 when in_bf16, else fp32), NM 1, 2,
+// 4, 8 or 16 modes with NM md <= 256 (the wgmma body at four modes, md <=
+// 64, bf16: a multiple of 16, q and k 16-byte aligned); biases: [(2R+1)^2]
 // fp32; scal: [4] fp32 (clip, pos_w, agg_w, agg_b); out: [B, U, U] fp32.
 extern "C" int agg_corr_launch(const void* q, const void* k,
                                const void* biases, const void* scal,
-                               void* out, int B, int U, int md, int W8, int R,
-                               float scale, int in_bf16, void* stream) {
+                               void* out, int B, int NM, int U, int md,
+                               int W8, int R, float scale, int in_bf16,
+                               void* stream) {
   const BiasArgs ba{(const float*)biases, W8, R, U, U, 0};
-  return launch_fwd<CorrWindow, WindowBias>(q, k, ba, scal, out, B, md, scale,
-                                            in_bf16, (cudaStream_t)stream);
+  return launch_fwd<CorrWindow, WindowBias>(q, k, ba, scal, out, B, NM, md,
+                                            scale, in_bf16,
+                                            (cudaStream_t)stream);
 }
 
-// B6 dense.  q: [B, 4, U1, md]; k: [B, 4, U2, md] contiguous (bf16 when
-// in_bf16, else fp32), md <= 64 (bf16 as B6); table: [U1, U2] fp32, or null
-// for no bias; scal: [4] fp32 (clip, pos_w, agg_w, agg_b); out: [B, U1, U2]
+// B6 dense.  q: [B, NM, U1, md]; k: [B, NM, U2, md] contiguous (bf16 when
+// in_bf16, else fp32), NM and md as B6; table: [U1, U2] fp32, or null for
+// no bias; scal: [4] fp32 (clip, pos_w, agg_w, agg_b); out: [B, U1, U2]
 // fp32.
 extern "C" int agg_corr_dense_launch(const void* q, const void* k,
                                      const void* table, const void* scal,
-                                     void* out, int B, int U1, int U2, int md,
-                                     float scale, int in_bf16, void* stream) {
+                                     void* out, int B, int NM, int U1, int U2,
+                                     int md, float scale, int in_bf16,
+                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const BiasArgs ba{(const float*)table, 0, 0, U1, U2, 0};
   if (table == nullptr)
-    return launch_fwd<MmaNoBias, NoBias>(q, k, ba, scal, out, B, md, scale,
-                                         in_bf16, s);
-  return launch_fwd<CorrTable, TableBias>(q, k, ba, scal, out, B, md, scale,
-                                          in_bf16, s);
+    return launch_fwd<MmaNoBias, NoBias>(q, k, ba, scal, out, B, NM, md,
+                                         scale, in_bf16, s);
+  return launch_fwd<CorrTable, TableBias>(q, k, ba, scal, out, B, NM, md,
+                                          scale, in_bf16, s);
 }
 
-// q, k, biases, scal as above (agg_b unread; bf16: md a multiple of 16, q
-// and k 16-byte aligned); g, vol: [B, U, U] fp32; dc: [B, 4, U, U] fp32;
-// partial: n_partial = bwd_partials(B, U, in_bf16) fp64 of scratch
-// (refused otherwise); da: [1] fp32.
+// q, k, biases, scal as above (agg_b unread); g, vol: [B, U, U] fp32; dc:
+// [B, NM, U, U] fp32; partial: n_partial = bwd_partials(B, U,
+// agg_mma_body(NM, md, in_bf16)) fp64 of scratch (refused otherwise); da:
+// [1] fp32.
 extern "C" int agg_corr_bwd_launch(const void* q, const void* k,
                                    const void* g, const void* vol,
                                    const void* biases, const void* scal,
                                    void* dc, void* partial, int n_partial,
-                                   void* da, int B, int U, int md, int W8,
-                                   int R, float scale, int in_bf16,
+                                   void* da, int B, int NM, int U, int md,
+                                   int W8, int R, float scale, int in_bf16,
                                    void* stream) {
-  if (n_partial != bwd_partials(B, U, in_bf16))
+  if (n_partial != bwd_partials(B, U, agg_mma_body(NM, md, in_bf16)))
     return (int)cudaErrorInvalidValue;
-  return launch_bwd(q, k, g, vol, biases, scal, dc, partial, da, B, U, md,
-                    W8, R, scale, in_bf16, (cudaStream_t)stream);
+  return launch_bwd(q, k, g, vol, biases, scal, dc, partial, da, B, NM, U,
+                    md, W8, R, scale, in_bf16, (cudaStream_t)stream);
 }

@@ -2,97 +2,191 @@
 // (corr_norm.cu) and B6 and B6 dense (agg_corr.cu):
 //   s_m = clamp(scale * q_m k_m^T, +-clip) + pos_w * bias
 //   vol = sum_m softmax_m(agg_w * s_m + agg_b) * s_m
-// Two bodies.  fp32 (the FMA tiles first below): a block holds all four
-// modes' q tiles (one 64-row slice) in shared memory and sweeps k tiles
-// past them; the four per-mode scores of each element stay in registers.
-// bf16 (corr_sweep, last below): the same sweep on wgmma, 128 query rows a
-// block, templated on its epilogue (B3's and B9's stats and normalised
-// write, B6's raw fp32 volume) and its bias source (the window, none, a
-// dense table).
+// Two bodies.  FMA (the tiles first below), a template over the mode
+// count NM (1, 2, 4, 8 or 16) and the input type: a block holds all NM
+// modes' q tiles (one 64-row slice; NM * md <= 256, MAXMD_FMA) in shared
+// memory and sweeps k tiles past them; the per-mode scores of each element
+// stay in registers, a group of at most four modes at a time.  With one
+// group (NM <= 4) the softmax over the modes is one max, one sum; with
+// more (NM 8, 16) a running (max, denominator, weighted sum) per element
+// is carried across the groups, rescaled where a group's max passes it, so
+// the registers stay those of four modes.  It takes fp32 inputs at every
+// NM, and bf16 at every NM but the four modes of the wgmma sweep.
+// bf16 at four modes (corr_sweep, last below): the same sweep on wgmma, 128
+// query rows a block, templated on its epilogue (B3's and B9's stats and
+// normalised write, B6's raw fp32 volume) and its bias source (the window,
+// none, a dense table).
 #pragma once
 
 #include "common.cuh"
 #include "wgmma.cuh"
 
-#define NMODES 4
+#define NMODES 4  // the wgmma sweep's modes, and the FMA bodies' group
 #define KGROUP 8  // k tiles per block
 
-// Dynamic shared memory of a block: the q tiles of all modes, one k tile,
-// and what the bias source takes.
-template <class Bias>
-constexpr size_t agg_smem() {
-  return ((NMODES + 1) * MAXMD * SPAD + Bias::SMEM) * sizeof(float);
+// The body an aggregating kernel runs (B3, B9, B6, B6 dense, B6 backward):
+// the wgmma sweep for bf16 inputs at four modes up to md MAXMD, the FMA
+// bodies otherwise (mirrored by mode_attention.py agg_mma_body).
+__host__ __device__ constexpr bool agg_mma_body(int NM, int md, int in_bf16) {
+  return mma_body(md, in_bf16) && NM == NMODES;
 }
 
-// s[m] = q_m k_m^T (unscaled) over k tile kt, for every mode; the bias
-// source loads its tile kt with mode 0's k tile and sets up its columns
-// after the products.  qs holds the q tiles at
-// qs + m * MAXMD * SPAD; ks is the k staging buffer; kb is [4, U2, md].
-template <typename T, class Bias>
-__device__ __forceinline__ void mode_score_tiles(float s[NMODES][4][4],
+// The FMA bodies' mode dim stride in shared memory at NM modes: 64 at four
+// (MAXMD), up to 256 / NM, so that the NM q tiles take the bytes of four.
+template <int NM>
+__host__ __device__ constexpr int agg_mds() {
+  return MAXMD_FMA / NM;
+}
+
+// Modes a group: all of them up to four, else four.
+template <int NM>
+__host__ __device__ constexpr int mode_group() {
+  return NM < NMODES ? NM : NMODES;
+}
+
+// Dynamic shared memory of an FMA block: the q tiles of all NM modes, one
+// k tile, and what the bias source takes.
+template <class Bias, int NM = NMODES>
+constexpr size_t agg_smem() {
+  return ((NM + 1) * agg_mds<NM>() * SPAD + Bias::SMEM) * sizeof(float);
+}
+
+// s[m] = q_m k_m^T (unscaled) over k tile kt, for the G modes of a group
+// (their q tiles at qs + m * MDS * SPAD, their k rows [G, U2, md] at kb);
+// with first, the bias source loads its tile kt with the group's first k
+// tile.  The bias source sets up its columns after the products.
+template <int G, int MDS, typename T, class Bias>
+__device__ __forceinline__ void mode_score_tiles(float s[G][4][4],
                                                  const T* __restrict__ kb,
                                                  const float* qs, float* ks,
                                                  Bias& bias, int kt, int U2,
-                                                 int md) {
+                                                 int md, bool first = true) {
 #pragma unroll
-  for (int m = 0; m < NMODES; ++m) {
+  for (int m = 0; m < G; ++m) {
     __syncthreads();
     load_tile_t(ks, kb + (size_t)m * U2 * md, kt * TILE, U2, md);
-    if (m == 0) bias.load(kt);
+    if (m == 0 && first) bias.load(kt);
     __syncthreads();
-    score_tile(s[m], qs + m * MAXMD * SPAD, ks, md);
+    score_tile(s[m], qs + m * MDS * SPAD, ks, md);
   }
   bias.cols(kt);
 }
 
-// vol of one (q tile, k tile kt), as a 4x4 micro-tile per thread.
-template <typename T, class Bias>
+// vol of one (q tile, k tile kt), as a 4x4 micro-tile per thread; kb is
+// [NM, U2, md].
+template <int NM, typename T, class Bias>
 __device__ __forceinline__ void agg_tile(
     float vol[4][4], const T* __restrict__ kb, const float* qs, float* ks,
     Bias& bias, int kt, int U2, int md, float scale, float clip, float pos_w,
     float agg_w, float agg_b) {
-  float s[NMODES][4][4];
-  mode_score_tiles(s, kb, qs, ks, bias, kt, U2, md);
+  constexpr int G = mode_group<NM>(), MDS = agg_mds<NM>();
+  if constexpr (NM == G) {
+    float s[G][4][4];
+    mode_score_tiles<G, MDS>(s, kb, qs, ks, bias, kt, U2, md);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < 4; ++j) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float b = pos_w * bias.at(i, j);
-      float x[NMODES], lg[NMODES];
+      for (int i = 0; i < 4; ++i) {
+        const float b = pos_w * bias.at(i, j);
+        float x[G], lg[G];
 #pragma unroll
-      for (int m = 0; m < NMODES; ++m) {
-        x[m] = fminf(fmaxf(s[m][i][j] * scale, -clip), clip) + b;
-        lg[m] = agg_w * x[m] + agg_b;
+        for (int m = 0; m < G; ++m) {
+          x[m] = fminf(fmaxf(s[m][i][j] * scale, -clip), clip) + b;
+          lg[m] = agg_w * x[m] + agg_b;
+        }
+        float mmax = lg[0];
+#pragma unroll
+        for (int m = 1; m < G; ++m) mmax = fmaxf(mmax, lg[m]);
+        float denom = 0.f, acc = 0.f;
+#pragma unroll
+        for (int m = 0; m < G; ++m) {
+          const float e = expf(lg[m] - mmax);
+          denom += e;
+          acc += e * x[m];
+        }
+        vol[i][j] = acc / denom;
       }
-      float mmax = lg[0];
-#pragma unroll
-      for (int m = 1; m < NMODES; ++m) mmax = fmaxf(mmax, lg[m]);
-      float denom = 0.f, acc = 0.f;
-#pragma unroll
-      for (int m = 0; m < NMODES; ++m) {
-        const float e = expf(lg[m] - mmax);
-        denom += e;
-        acc += e * x[m];
-      }
-      vol[i][j] = acc / denom;
     }
+  } else {
+    // Groups of four modes, the softmax's (max, denominator, weighted
+    // sum) carried across them.
+    float rmax[4][4], rden[4][4], racc[4][4];
+#pragma unroll 1
+    for (int gi = 0; gi < NM / G; ++gi) {
+      float s[G][4][4];
+      mode_score_tiles<G, MDS>(s, kb + (size_t)gi * G * U2 * md,
+                               qs + gi * G * MDS * SPAD, ks, bias, kt, U2, md,
+                               gi == 0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float b = pos_w * bias.at(i, j);
+          float x[G], lg[G];
+#pragma unroll
+          for (int m = 0; m < G; ++m) {
+            x[m] = fminf(fmaxf(s[m][i][j] * scale, -clip), clip) + b;
+            lg[m] = agg_w * x[m] + agg_b;
+          }
+          float gmax = lg[0];
+#pragma unroll
+          for (int m = 1; m < G; ++m) gmax = fmaxf(gmax, lg[m]);
+          const float mmax = gi == 0 ? gmax : fmaxf(rmax[i][j], gmax);
+          const float a = gi == 0 ? 0.f : expf(rmax[i][j] - mmax);
+          float denom = gi == 0 ? 0.f : rden[i][j] * a;
+          float acc = gi == 0 ? 0.f : racc[i][j] * a;
+#pragma unroll
+          for (int m = 0; m < G; ++m) {
+            const float e = expf(lg[m] - mmax);
+            denom += e;
+            acc += e * x[m];
+          }
+          rmax[i][j] = mmax;
+          rden[i][j] = denom;
+          racc[i][j] = acc;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) vol[i][j] = racc[i][j] / rden[i][j];
   }
 }
 
-// This block's q tiles (all modes; qb is [4, U1, md]) and the bias
+// This block's q tiles (all NM modes; qb is [NM, U1, md]) and the bias
 // source's set-up.  The caller's first __syncthreads (in mode_score_tiles)
 // publishes them.
-template <typename T, class Bias>
+template <int NM, typename T, class Bias>
 __device__ __forceinline__ void load_q_modes(const T* __restrict__ qb,
                                              float* qs, float* bsm,
                                              Bias& bias, const BiasArgs& ba,
                                              int qt, int U1, int md) {
 #pragma unroll
-  for (int m = 0; m < NMODES; ++m)
-    load_tile_t(qs + m * MAXMD * SPAD, qb + (size_t)m * U1 * md, qt * TILE,
-                U1, md);
+  for (int m = 0; m < NM; ++m)
+    load_tile_t(qs + m * agg_mds<NM>() * SPAD, qb + (size_t)m * U1 * md,
+                qt * TILE, U1, md);
   bias.init(bsm, ba, qt);
 }
+
+// The FMA bodies' mode counts, and whether NM modes of md take them.
+__host__ __device__ constexpr bool fma_modes(int NM) {
+  return NM == 1 || NM == 2 || NM == 4 || NM == 8 || NM == 16;
+}
+static inline bool fma_takes(int NM, int md) {
+  return fma_modes(NM) && md > 0 && NM * md <= MAXMD_FMA;
+}
+
+// The FMA launch of NM modes, as LAUNCH(NM) expands it, for NM in 1, 2,
+// 4, 8, 16 (fma_takes checked by the caller).
+#define WITH_MODES(NM_, LAUNCH) \
+  switch (NM_) {                \
+    case 1: LAUNCH(1)           \
+    case 2: LAUNCH(2)           \
+    case 4: LAUNCH(4)           \
+    case 8: LAUNCH(8)           \
+    default: LAUNCH(16)         \
+  }
 
 // One block: out[0] = the sum of partial[0..n) in a fixed order (each
 // thread a strided share, then a tree over the block), so the result does

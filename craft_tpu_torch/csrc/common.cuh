@@ -23,10 +23,19 @@
 
 #define TILE 64
 #define SPAD (TILE + 1)
-#define MAXMD 64
+#define MAXMD 64       // the wgmma bodies' widest mode dim
+#define MAXMD_FMA 256  // the FMA bodies' (md 128 and 256: one or two modes)
 #define NTHREADS 256
 #define MAXWIN 225  // (2R+1)^2 for R <= 7
 #define NEG_INF (-1e30f)
+
+// The body a per-mode kernel runs (B1, B2, B4, B7, B8, B4 dense): wgmma for
+// bf16 inputs up to md MAXMD, FMA for fp32 and for bf16 past it.  The
+// wrappers mirror it (ops/kernels/mode_attention.py mma_body) to size the
+// scratch, whose size every launcher checks.
+__host__ __device__ constexpr bool mma_body(int md, int in_bf16) {
+  return in_bf16 && md <= MAXMD;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {

@@ -62,52 +62,59 @@
 // exponentials) and the window lookups bound it.  The wrapper raises
 // unless md is a multiple of 16 and q and k are 16-byte aligned.
 //
-// fp32 inputs (corr_stats_kernel, corr_write_kernel): plain fp32 FMA, kept
-// for fp32 parity.  A block holds all four modes' q tiles (one 64-row
-// slice) in shared memory and sweeps a group of k tiles (agg_modes.cuh's
-// FMA tiles, shared with B6).
+// fp32 inputs, and bf16 at a mode count other than four
+// (corr_stats_kernel, corr_write_kernel): plain FMA, a template over the
+// mode count NM (1, 2, 4, 8, 16; NM md <= 256).  A block holds all NM
+// modes' q tiles (one 64-row slice) in shared memory and sweeps a group of
+// k tiles (agg_modes.cuh's FMA tiles, shared with B6): at NM 8 and 16 the
+// mode softmax runs over groups of four modes with a running (max,
+// denominator, weighted sum); at NM 1 it is exactly 1 and vol = s.  A
+// simple kernel that is right for the other mode counts: at the FMA rate,
+// with NM U^2 exponentials, not the tensor cores'.
 #include "agg_modes.cuh"
 
 // Shared prologue: this block's q tiles, window and token coordinates
 // (load_q_modes), and the clip value from the raw max.
-__device__ __forceinline__ float prologue(const float* __restrict__ qb,
+template <int NM, typename T>
+__device__ __forceinline__ float prologue(const T* __restrict__ qb,
                                           const BiasArgs& ba,
                                           const float* __restrict__ scal,
                                           const float* __restrict__ gmax,
                                           float* qs, float* win,
                                           WindowBias& wb, int qt, int md) {
-  load_q_modes(qb, qs, win, wb, ba, qt, ba.U1, md);
+  load_q_modes<NM>(qb, qs, win, wb, ba, qt, ba.U1, md);
   const float attn_clip = scal[0];
   return gmax[0] > attn_clip ? attn_clip : 1e30f;
 }
 
 // Per block: fixed-order fp64 sums of vol and vol^2 over its tile rows and
-// k-tile group -> partial[2 * blk], partial[2 * blk + 1].
+// k-tile group -> partial[2 * blk], partial[2 * blk + 1].  NM modes of
+// input type T.
+template <int NM, typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    corr_stats_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
+    corr_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       BiasArgs ba, const float* __restrict__ scal,
                       const float* __restrict__ gmax,
                       double* __restrict__ partial, int md, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + NMODES * MAXMD * SPAD;
-  float* win = ks + MAXMD * SPAD;
+  float* ks = qs + NM * agg_mds<NM>() * SPAD;
+  float* win = ks + agg_mds<NM>() * SPAD;
   __shared__ double red[2][NTHREADS / 32];
   const int qt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int U1 = ba.U1, U2 = ba.U2;
   WindowBias wb;
-  const float clip = prologue(q + (size_t)b * NMODES * U1 * md, ba, scal,
-                              gmax, qs, win, wb, qt, md);
-  const float* kb = k + (size_t)b * NMODES * U2 * md;
+  const float clip = prologue<NM>(q + (size_t)b * NM * U1 * md, ba, scal,
+                                  gmax, qs, win, wb, qt, md);
+  const T* kb = k + (size_t)b * NM * U2 * md;
   const float pos_w = scal[1], agg_w = scal[2], agg_b = scal[3];
   const int nk = (U2 + TILE - 1) / TILE;
   double sum = 0.0, sumsq = 0.0;
   for (int kt = g * KGROUP; kt < min(nk, (g + 1) * KGROUP); ++kt) {
     float vol[4][4];
-    agg_tile(vol, kb, qs, ks, wb, kt, U2, md, scale, clip, pos_w, agg_w,
-             agg_b);
+    agg_tile<NM>(vol, kb, qs, ks, wb, kt, U2, md, scale, clip, pos_w,
+                 agg_w, agg_b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (qt * TILE + ty + 16 * i >= U1) continue;
@@ -224,40 +231,41 @@ __global__ void corr_finish_kernel(const double* __restrict__ sums, int B,
                    nullptr, norm);
 }
 
+// NM modes of input type T, output type O.
+template <int NM, typename T, typename O>
 __global__ void __launch_bounds__(NTHREADS)
-    corr_write_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
+    corr_write_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       BiasArgs ba, const float* __restrict__ scal,
                       const float* __restrict__ gmax,
-                      const float* __restrict__ norm,
-                      float* __restrict__ out, int md, float scale) {
+                      const float* __restrict__ norm, O* __restrict__ out,
+                      int md, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + NMODES * MAXMD * SPAD;
-  float* win = ks + MAXMD * SPAD;
+  float* ks = qs + NM * agg_mds<NM>() * SPAD;
+  float* win = ks + agg_mds<NM>() * SPAD;
   const int qt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int U1 = ba.U1, U2 = ba.U2;
   WindowBias wb;
-  const float clip = prologue(q + (size_t)b * NMODES * U1 * md, ba, scal,
-                              gmax, qs, win, wb, qt, md);
-  const float* kb = k + (size_t)b * NMODES * U2 * md;
+  const float clip = prologue<NM>(q + (size_t)b * NM * U1 * md, ba, scal,
+                                  gmax, qs, win, wb, qt, md);
+  const T* kb = k + (size_t)b * NM * U2 * md;
   const float pos_w = scal[1], agg_w = scal[2], agg_b = scal[3];
   const float mean = norm[2 * b], rstd = norm[2 * b + 1];
   const int nk = (U2 + TILE - 1) / TILE;
   for (int kt = g * KGROUP; kt < min(nk, (g + 1) * KGROUP); ++kt) {
     float vol[4][4];
-    agg_tile(vol, kb, qs, ks, wb, kt, U2, md, scale, clip, pos_w, agg_w,
-             agg_b);
+    agg_tile<NM>(vol, kb, qs, ks, wb, kt, U2, md, scale, clip, pos_w,
+                 agg_w, agg_b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = qt * TILE + ty + 16 * i;
       if (row >= U1) continue;
-      float* orow = out + ((size_t)b * U1 + row) * U2;
+      O* orow = out + ((size_t)b * U1 + row) * U2;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = kt * TILE + tx + 16 * j;
-        if (col < U2) orow[col] = (vol[i][j] - mean) * rstd;
+        if (col < U2) orow[col] = from_f<O>((vol[i][j] - mean) * rstd);
       }
     }
   }
@@ -277,9 +285,10 @@ __global__ void __launch_bounds__(B3_THREADS, 1)
 }
 
 // The stats sweep's fp64 partial pairs per sample (the wrapper's count is
-// held against this by tests/test_torch_kernel_grids.py).
-static int partial_blocks(int U1, int U2, int in_bf16) {
-  const dim3 g = sweep_grid(1, U1, U2, in_bf16);
+// held against this by tests/test_torch_kernel_grids.py); mma: the body
+// (agg_mma_body).
+static int partial_blocks(int U1, int U2, int mma) {
+  const dim3 g = sweep_grid(1, U1, U2, mma);
   return (int)(g.x * g.y);
 }
 
@@ -316,50 +325,91 @@ static int launch_sweep(const void* q, const void* k, const BiasArgs& ba,
                                        partial, B, md, scale, s);
 }
 
-// The stats sweep, either body.
+// The FMA stats sweep of NM modes of input type T.
+template <int NM, typename T>
+static int launch_stats_fma(const void* q, const void* k, const BiasArgs& ba,
+                            const void* scal, const void* gmax,
+                            void* partial, int B, int md, float scale,
+                            cudaStream_t s) {
+  const size_t smem = agg_smem<WindowBias, NM>();
+  cudaError_t err = allow_smem(corr_stats_kernel<NM, T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  corr_stats_kernel<NM, T>
+      <<<sweep_grid(B, ba.U1, ba.U2, 0), NTHREADS, smem, s>>>(
+          (const T*)q, (const T*)k, ba, (const float*)scal,
+          (const float*)gmax, (double*)partial, md, scale);
+  return (int)cudaGetLastError();
+}
+
+// The FMA write sweep of NM modes, input T, output O.
+template <int NM, typename T, typename O>
+static int launch_write_fma(const void* q, const void* k, const BiasArgs& ba,
+                            const void* scal, const void* gmax,
+                            const void* norm, void* out, int B, int md,
+                            float scale, cudaStream_t s) {
+  const size_t smem = agg_smem<WindowBias, NM>();
+  cudaError_t err = allow_smem(corr_write_kernel<NM, T, O>, smem);
+  if (err != cudaSuccess) return (int)err;
+  corr_write_kernel<NM, T, O>
+      <<<sweep_grid(B, ba.U1, ba.U2, 0), NTHREADS, smem, s>>>(
+          (const T*)q, (const T*)k, ba, (const float*)scal,
+          (const float*)gmax, (const float*)norm, (O*)out, md, scale);
+  return (int)cudaGetLastError();
+}
+
+// The stats sweep, either body, NM modes.
 static int launch_stats(const void* q, const void* k, const BiasArgs& ba,
                         const void* scal, const void* gmax, void* partial,
-                        int B, int md, float scale, int in_bf16,
+                        int B, int NM, int md, float scale, int in_bf16,
                         cudaStream_t s) {
-  if (in_bf16)
+  if (agg_mma_body(NM, md, in_bf16))
     return launch_sweep<false, float>(q, k, ba, scal, gmax, nullptr, nullptr,
                                       partial, B, md, scale, s);
-  const size_t smem = agg_smem<WindowBias>();
-  cudaError_t err = allow_smem(corr_stats_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  corr_stats_kernel<<<sweep_grid(B, ba.U1, ba.U2, 0), NTHREADS, smem, s>>>(
-      (const float*)q, (const float*)k, ba, (const float*)scal,
-      (const float*)gmax, (double*)partial, md, scale);
-  return (int)cudaGetLastError();
+  if (!fma_takes(NM, md)) return (int)cudaErrorInvalidValue;
+#define LAUNCH(NM_)                                                        \
+  return in_bf16 ? launch_stats_fma<NM_, bf16>(q, k, ba, scal, gmax,       \
+                                               partial, B, md, scale, s)   \
+                 : launch_stats_fma<NM_, float>(q, k, ba, scal, gmax,      \
+                                                partial, B, md, scale, s);
+  WITH_MODES(NM, LAUNCH)
+#undef LAUNCH
 }
 
 // The write sweep, either body: (in, out) bf16 -> bf16, bf16 -> fp32 or
-// fp32 -> fp32.
+// fp32 -> fp32, NM modes.
 static int launch_write(const void* q, const void* k, const BiasArgs& ba,
                         const void* scal, const void* gmax, const void* norm,
-                        void* out, int B, int md, float scale, int in_bf16,
-                        int out_bf16, cudaStream_t s) {
-  if (in_bf16 && out_bf16)
-    return launch_sweep<true, bf16>(q, k, ba, scal, gmax, norm, out, nullptr,
-                                    B, md, scale, s);
-  if (in_bf16)
+                        void* out, int B, int NM, int md, float scale,
+                        int in_bf16, int out_bf16, cudaStream_t s) {
+  if (!in_bf16 && out_bf16) return (int)cudaErrorInvalidValue;
+  if (agg_mma_body(NM, md, in_bf16)) {
+    if (out_bf16)
+      return launch_sweep<true, bf16>(q, k, ba, scal, gmax, norm, out,
+                                      nullptr, B, md, scale, s);
     return launch_sweep<true, float>(q, k, ba, scal, gmax, norm, out, nullptr,
                                      B, md, scale, s);
-  if (out_bf16) return (int)cudaErrorInvalidValue;
-  const size_t smem = agg_smem<WindowBias>();
-  cudaError_t err = allow_smem(corr_write_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  corr_write_kernel<<<sweep_grid(B, ba.U1, ba.U2, 0), NTHREADS, smem, s>>>(
-      (const float*)q, (const float*)k, ba, (const float*)scal,
-      (const float*)gmax, (const float*)norm, (float*)out, md, scale);
-  return (int)cudaGetLastError();
+  }
+  if (!fma_takes(NM, md)) return (int)cudaErrorInvalidValue;
+#define LAUNCH(NM_)                                                        \
+  if (!in_bf16)                                                            \
+    return launch_write_fma<NM_, float, float>(q, k, ba, scal, gmax, norm, \
+                                               out, B, md, scale, s);      \
+  if (out_bf16)                                                            \
+    return launch_write_fma<NM_, bf16, bf16>(q, k, ba, scal, gmax, norm,   \
+                                             out, B, md, scale, s);        \
+  return launch_write_fma<NM_, bf16, float>(q, k, ba, scal, gmax, norm,    \
+                                            out, B, md, scale, s);
+  WITH_MODES(NM, LAUNCH)
+#undef LAUNCH
 }
 
-// B3.  q, k: [B, 4, U, md] contiguous (bf16 when in_bf16, else fp32), md <=
-// 64 (bf16: a multiple of 16, q and k 16-byte aligned); scal: [4] fp32
-// (attn_clip, pos_w, agg_w, agg_b); gmax: [1] fp32, the raw max of scale *
-// q k^T over the batch (B1); partial: [n_partial] fp64 scratch, n_partial
-// = 2 B partial_blocks(U, U, in_bf16) (refused otherwise); stats: [B, 4]
+// B3.  q, k: [B, NM, U, md] contiguous (bf16 when in_bf16, else fp32), NM
+// 1, 2, 4, 8 or 16 modes with NM md <= 256 (the wgmma sweep at four modes,
+// md <= 64, bf16: a multiple of 16, q and k 16-byte aligned); scal: [4]
+// fp32 (attn_clip, pos_w, agg_w, agg_b); gmax: [1] fp32, the raw max of
+// scale * q k^T over the batch (B1); partial: [n_partial] fp64 scratch,
+// n_partial = 2 B partial_blocks(U, U, agg_mma_body(NM, md, in_bf16))
+// (refused otherwise); stats: [B, 4]
 // fp32; norm: [B, 2] fp32 scratch; out: [B, U, U] bf16 when out_bf16 else
 // fp32.  The (in, out) pairs are bf16 -> bf16 (the main path), fp32 -> fp32
 // (the fp32 config) and bf16 -> fp32; fp32 -> bf16 is refused.
@@ -367,15 +417,15 @@ extern "C" int corr_norm_launch(const void* q, const void* k,
                                 const void* biases, const void* scal,
                                 const void* gmax, void* partial,
                                 int n_partial, void* stats, void* norm,
-                                void* out, int B, int U, int md, int W8,
-                                int R, float scale, float eps, int in_bf16,
-                                int out_bf16, void* stream) {
+                                void* out, int B, int NM, int U, int md,
+                                int W8, int R, float scale, float eps,
+                                int in_bf16, int out_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nblk = partial_blocks(U, U, in_bf16);
+  const int nblk = partial_blocks(U, U, agg_mma_body(NM, md, in_bf16));
   if (n_partial != 2 * B * nblk || (!in_bf16 && out_bf16))
     return (int)cudaErrorInvalidValue;
   const BiasArgs ba{(const float*)biases, W8, R, U, U, 0};
-  int err = launch_stats(q, k, ba, scal, gmax, partial, B, md, scale,
+  int err = launch_stats(q, k, ba, scal, gmax, partial, B, NM, md, scale,
                          in_bf16, s);
   if (err != 0) return err;
   corr_moments_kernel<<<B, NTHREADS, 0, s>>>(
@@ -383,28 +433,28 @@ extern "C" int corr_norm_launch(const void* q, const void* k,
       (double)U * (double)U, eps, (float*)stats, (float*)norm);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return launch_write(q, k, ba, scal, gmax, norm, out, B, md, scale, in_bf16,
-                      out_bf16, s);
+  return launch_write(q, k, ba, scal, gmax, norm, out, B, NM, md, scale,
+                      in_bf16, out_bf16, s);
 }
 
-// B9 sums.  q: [B, 4, U1, md], the shard's query rows (global tokens q_tok0
-// .. q_tok0 + U1 - 1); k: [B, 4, U2, md], every key; contiguous, bf16 when
-// in_bf16 else fp32, md <= 64 (bf16 as B3); scal as B3; gmax: [1] fp32, the
-// global raw max; partial: [n_partial] fp64 scratch, n_partial = 2 B
-// partial_blocks(U1, U2, in_bf16) (refused otherwise); sums: [B, 2] fp64
-// out.
+// B9 sums.  q: [B, NM, U1, md], the shard's query rows (global tokens
+// q_tok0 .. q_tok0 + U1 - 1); k: [B, NM, U2, md], every key; contiguous,
+// bf16 when in_bf16 else fp32, NM and md as B3; scal as B3; gmax: [1]
+// fp32, the global raw max; partial: [n_partial] fp64 scratch, n_partial =
+// 2 B partial_blocks(U1, U2, agg_mma_body(NM, md, in_bf16)) (refused
+// otherwise); sums: [B, 2] fp64 out.
 extern "C" int corr_norm_sums_launch(const void* q, const void* k,
                                      const void* biases, const void* scal,
                                      const void* gmax, void* partial,
                                      int n_partial, void* sums, int B,
-                                     int U1, int U2, int q_tok0, int md,
-                                     int W8, int R, float scale, int in_bf16,
-                                     void* stream) {
+                                     int NM, int U1, int U2, int q_tok0,
+                                     int md, int W8, int R, float scale,
+                                     int in_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nblk = partial_blocks(U1, U2, in_bf16);
+  const int nblk = partial_blocks(U1, U2, agg_mma_body(NM, md, in_bf16));
   if (n_partial != 2 * B * nblk) return (int)cudaErrorInvalidValue;
   const BiasArgs ba{(const float*)biases, W8, R, U1, U2, q_tok0};
-  int err = launch_stats(q, k, ba, scal, gmax, partial, B, md, scale,
+  int err = launch_stats(q, k, ba, scal, gmax, partial, B, NM, md, scale,
                          in_bf16, s);
   if (err != 0) return err;
   corr_shard_sums_kernel<<<B, NTHREADS, 0, s>>>((const double*)partial, nblk,
@@ -419,11 +469,11 @@ extern "C" int corr_norm_sums_launch(const void* q, const void* k,
 extern "C" int corr_norm_write_launch(const void* q, const void* k,
                                       const void* biases, const void* scal,
                                       const void* gmax, const void* sums,
-                                      void* norm, void* out, int B, int U1,
-                                      int U2, int q_tok0, int md, int W8,
-                                      int R, float scale, double n_elems,
-                                      float eps, int in_bf16, int out_bf16,
-                                      void* stream) {
+                                      void* norm, void* out, int B, int NM,
+                                      int U1, int U2, int q_tok0, int md,
+                                      int W8, int R, float scale,
+                                      double n_elems, float eps, int in_bf16,
+                                      int out_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (!in_bf16 && out_bf16) return (int)cudaErrorInvalidValue;
   corr_finish_kernel<<<(B + 31) / 32, 32, 0, s>>>(
@@ -431,6 +481,6 @@ extern "C" int corr_norm_write_launch(const void* q, const void* k,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const BiasArgs ba{(const float*)biases, W8, R, U1, U2, q_tok0};
-  return launch_write(q, k, ba, scal, gmax, norm, out, B, md, scale, in_bf16,
-                      out_bf16, s);
+  return launch_write(q, k, ba, scal, gmax, norm, out, B, NM, md, scale,
+                      in_bf16, out_bf16, s);
 }

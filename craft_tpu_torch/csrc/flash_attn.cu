@@ -73,7 +73,10 @@
 // not (U2 % 4 != 0) is staged by 4-byte copies.
 //
 // fp32 (flash_attn_kernel): plain fp32 FMA, kept for fp32 parity (--fullprec
-// and the fp32 oracle; TF32 would not hold 1e-5).  Each block keeps a 64-row
+// and the fp32 oracle; TF32 would not hold 1e-5).  The same body takes
+// bf16 inputs whose mode dim passes 64 (one or two modes at the f2 site, md
+// 256 or 128; p stays fp32 there), staged at a 256 stride: a simple kernel
+// that is right, at the FMA rate.  Each block keeps a 64-row
 // q tile and its 64 x F output accumulator resident (F / 4 floats a
 // thread)
 // and streams k and v tiles (and a table tile) through shared memory.  The
@@ -91,8 +94,10 @@
 
 // F: the value / output width, 256 (the f2 site's feat_dim) or 128 (the
 // intra aggregator's feat_dim, the lazy intra path); the launches refuse
-// any other.
-template <typename T, int F, class Bias>
+// any other.  T: the io type (fp32, or bf16 at a mode dim past 64); MDS:
+// the staged tiles' mode dim stride (MAXMD, or MAXMD_FMA for md 128 and
+// 256: 227 KB at F = 256 with a table).
+template <typename T, int F, class Bias, int MDS>
 __global__ void __launch_bounds__(NTHREADS)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
@@ -100,9 +105,9 @@ __global__ void __launch_bounds__(NTHREADS)
                       int U2, int md, float scale, float pos_w) {
   constexpr int FJ = F / 16;  // output columns per thread
   extern __shared__ float smem[];
-  float* qs = smem;                    // [MAXMD][SPAD]
-  float* ks = qs + MAXMD * SPAD;       // [MAXMD][SPAD]
-  float* ps = ks + MAXMD * SPAD;       // [TILE][SPAD]: p[key][row]
+  float* qs = smem;                    // [MDS][SPAD]
+  float* ks = qs + MDS * SPAD;         // [MDS][SPAD]
+  float* ps = ks + MDS * SPAD;         // [TILE][SPAD]: p[key][row]
   float* vs = ps + TILE * SPAD;        // [TILE][F]
   float* bsm = vs + TILE * F;          // Bias::SMEM
   const int qt = blockIdx.x, bm = blockIdx.y;
@@ -189,20 +194,34 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <int F, class Bias>
-static int launch_fp32(const void* q, const void* k, const void* v, void* out,
-                       const BiasArgs& ba, const void* clip, int BM, int U1,
-                       int U2, int md, float scale, float pos_w,
-                       cudaStream_t s) {
-  const size_t smem = (2 * MAXMD * SPAD + TILE * SPAD + TILE * F +
+template <typename T, int F, class Bias, int MDS>
+static int launch_fma_md(const void* q, const void* k, const void* v,
+                         void* out, const BiasArgs& ba, const void* clip,
+                         int BM, int U1, int U2, int md, float scale,
+                         float pos_w, cudaStream_t s) {
+  const size_t smem = (2 * MDS * SPAD + TILE * SPAD + TILE * F +
                        Bias::SMEM) * sizeof(float);
-  cudaError_t err = allow_smem(flash_attn_kernel<float, F, Bias>, smem);
+  cudaError_t err = allow_smem(flash_attn_kernel<T, F, Bias, MDS>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((U1 + TILE - 1) / TILE, BM);
-  flash_attn_kernel<float, F, Bias><<<grid, NTHREADS, smem, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, ba,
+  flash_attn_kernel<T, F, Bias, MDS><<<grid, NTHREADS, smem, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, ba,
       (const float*)clip, U1, U2, md, scale, pos_w);
   return (int)cudaGetLastError();
+}
+
+// The FMA body: md up to 256, at the stride of md.
+template <typename T, int F, class Bias>
+static int launch_fma(const void* q, const void* k, const void* v, void* out,
+                      const BiasArgs& ba, const void* clip, int BM, int U1,
+                      int U2, int md, float scale, float pos_w,
+                      cudaStream_t s) {
+  if (md <= 0 || md > MAXMD_FMA) return (int)cudaErrorInvalidValue;
+  if (md <= MAXMD)
+    return launch_fma_md<T, F, Bias, MAXMD>(q, k, v, out, ba, clip, BM, U1,
+                                            U2, md, scale, pos_w, s);
+  return launch_fma_md<T, F, Bias, MAXMD_FMA>(q, k, v, out, ba, clip, BM, U1,
+                                              U2, md, scale, pos_w, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -552,29 +571,35 @@ static int launch_wgmma(const void* q, const void* k, const void* v,
                                       md, scale, pos_w, s);
 }
 
-// One launch of the body that in_bf16 selects (MmaB's bf16 or FmaB's fp32)
-// at F = 128 or 256; any other F is refused.
+// One launch of the body that in_bf16 and md select (MmaB's wgmma for bf16
+// up to md 64, FmaB's FMA otherwise) at F = 128 or 256; any other F is
+// refused.
 template <class MmaB, class FmaB>
 static int launch_f(const void* q, const void* k, const void* v, void* out,
                     const BiasArgs& ba, const void* clip, int BM, int U1,
                     int U2, int md, int F, float scale, float pos_w,
                     int in_bf16, cudaStream_t s) {
-  if (F == 128)
-    return in_bf16 ? launch_wgmma<128, MmaB>(q, k, v, out, ba, clip, BM, U1,
-                                             U2, md, scale, pos_w, s)
-                   : launch_fp32<128, FmaB>(q, k, v, out, ba, clip, BM, U1,
-                                            U2, md, scale, pos_w, s);
-  if (F == 256)
-    return in_bf16 ? launch_wgmma<256, MmaB>(q, k, v, out, ba, clip, BM, U1,
-                                             U2, md, scale, pos_w, s)
-                   : launch_fp32<256, FmaB>(q, k, v, out, ba, clip, BM, U1,
-                                            U2, md, scale, pos_w, s);
+  const bool mma = mma_body(md, in_bf16);
+#define CASE(F_)                                                            \
+  if (F == F_)                                                              \
+    return mma ? launch_wgmma<F_, MmaB>(q, k, v, out, ba, clip, BM, U1, U2, \
+                                        md, scale, pos_w, s)                \
+           : in_bf16 ? launch_fma<bf16, F_, FmaB>(q, k, v, out, ba, clip,   \
+                                                  BM, U1, U2, md, scale,    \
+                                                  pos_w, s)                 \
+                     : launch_fma<float, F_, FmaB>(q, k, v, out, ba, clip,  \
+                                                   BM, U1, U2, md, scale,   \
+                                                   pos_w, s);
+  CASE(128)
+  CASE(256)
+#undef CASE
   return (int)cudaErrorInvalidValue;
 }
 
 // B2.  q: [BM, U1, md]; k: [BM, U2, md]; v: [BM, U2, F]; out: [BM, U1, F]
-// contiguous, all bf16 when in_bf16 else fp32; md <= 64 (bf16: a multiple
-// of 16, the pointers 16-byte aligned), F 128 or 256; the queries are the
+// contiguous, all bf16 when in_bf16 else fp32; md <= 256 (bf16 up to 64:
+// a multiple of 16, the pointers 16-byte aligned, on wgmma; past 64 and
+// fp32 the FMA body), F 128 or 256; the queries are the
 // grid's tokens q_tok0 .. q_tok0 + U1 - 1 (a row shard; 0 and U1 = U2 for
 // the whole grid), the keys all U2 = H8 * W8 tokens; biases: [(2R+1)^2]
 // fp32; clip: [1] fp32 on the device.  Returns a cudaError_t code.
@@ -591,8 +616,8 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
 }
 
 // B8.  q: [BM, U1, md]; k: [BM, U2, md]; v: [BM, U2, F]; out: [BM, U1, F];
-// contiguous, bf16 when in_bf16 else fp32; md <= 64 (bf16: as B2), F 128
-// or 256; table: [U1, U2] fp32, or null for no bias; clip: [1] fp32 on the
+// contiguous, bf16 when in_bf16 else fp32; md <= 256 (as B2), F 128 or
+// 256; table: [U1, U2] fp32, or null for no bias; clip: [1] fp32 on the
 // device.
 extern "C" int flash_attn_dense_launch(const void* q, const void* k,
                                        const void* v, void* out,

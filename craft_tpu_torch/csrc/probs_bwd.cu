@@ -50,7 +50,9 @@
 //   sizes the row scratch from B7_ROWS (probs_rowterm_size, refused
 //   otherwise).
 //
-// fp32 (probs_bwd_kernel, kept for fp32 parity): a block owns RB rows and
+// FMA (probs_bwd_kernel, kept for fp32 parity, and the bf16 body past md
+// 64: one or two modes at the f2 site, one at the intra site; a simple
+// kernel that is right, at the FMA rate): a block owns RB rows and
 // walks bm = 0..BM-1 in order, as the TPU grid did, so dlsum for its rows
 // is summed in a fixed order with no atomics: at bm = 0 it is written,
 // after that read and added to by the one thread that owns the element.
@@ -65,6 +67,10 @@
 #define CW NTHREADS   // columns per sweep-2 chunk, one per thread
 #define CWP (CW + 1)  // padded row of the transposed k chunk
 
+// T: the io type (fp32, or bf16 at a mode dim past 64).  The k chunk is
+// staged 64 of its mode dim at a time (one stage up to md 64), c summed
+// over them in order; q is kept chunk by chunk, so that a chunk's rows
+// sit 64 floats apart as at md <= 64.
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
     probs_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -73,8 +79,8 @@ __global__ void __launch_bounds__(NTHREADS)
                      float* __restrict__ dlsum, int BM, int U, int md,
                      float scale) {
   extern __shared__ float smem[];
-  float* ks = smem;               // [md][CWP]: k chunk, transposed
-  float* qs = ks + MAXMD * CWP;   // [RB][MAXMD]: this block's q rows
+  float* ks = smem;               // [min(md, 64)][CWP]: k chunk, transposed
+  float* qs = ks + MAXMD * CWP;   // [md / 64][RB][64]: this block's q rows
   __shared__ float red[RB][NTHREADS / 32];
   __shared__ float rowsum[RB];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -111,7 +117,8 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     for (int e = t; e < RB * md; e += NTHREADS) {
       const int r = e / md, d = e - r * md;
-      qs[r * MAXMD + d] = r < nrows ? to_f(q[(base + r0 + r) * md + d]) : 0.f;
+      qs[(d / MAXMD * RB + r) * MAXMD + d % MAXMD] =
+          r < nrows ? to_f(q[(base + r0 + r) * md + d]) : 0.f;
     }
     __syncthreads();
     float row[RB];
@@ -119,23 +126,31 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int r = 0; r < RB; ++r) row[r] = rowsum[r];
     // Sweep 2: dl, the clamp mask, dc and dlsum, CW columns at a time.
     for (int c0 = 0; c0 < U; c0 += CW) {
-      __syncthreads();  // the previous chunk's readers are done with ks
-      for (int e = t; e < CW * md; e += NTHREADS) {
-        const int col = e / md, d = e - col * md;
-        const int j = c0 + col;
-        ks[d * CWP + col] = j < U ? to_f(k[(base + j) * md + d]) : 0.f;
-      }
-      __syncthreads();
       const int j = c0 + t;
-      if (j >= U) continue;
       float c[RB];
 #pragma unroll
       for (int r = 0; r < RB; ++r) c[r] = 0.f;
-      for (int d = 0; d < md; ++d) {
-        const float kv = ks[d * CWP + t];
+      for (int ci = 0; ci * MAXMD < md; ++ci) {
+        const int d0 = ci * MAXMD, dn = min(MAXMD, md - d0);
+        __syncthreads();  // the previous chunk's readers are done with ks
+        for (int e = t; e < CW * dn; e += NTHREADS) {
+          const int col = e / dn, d = e - col * dn;
+          const int jj = c0 + col;
+          ks[d * CWP + col] =
+              jj < U ? to_f(k[(base + jj) * md + d0 + d]) : 0.f;
+        }
+        __syncthreads();
+        // The chunk's [RB][64], whole chunks past qs: aligned as qs is.
+        const float* qc = qs + ci * (RB * MAXMD);
+        if (j < U)
+          for (int d = 0; d < dn; ++d) {
+            const float kv = ks[d * CWP + t];
 #pragma unroll
-        for (int r = 0; r < RB; ++r) c[r] = fmaf(qs[r * MAXMD + d], kv, c[r]);
+            for (int r = 0; r < RB; ++r)
+              c[r] = fmaf(qc[r * MAXMD + d], kv, c[r]);
+          }
       }
+      if (j >= U) continue;
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
         if (r >= nrows) break;
@@ -497,27 +512,41 @@ static int launch_bf16(const void* q, const void* k, const void* p,
                              scale, s);
 }
 
+// The FMA body in io type T.
+template <typename T>
+static int launch_fma(const void* q, const void* k, const void* p,
+                      const void* g, const void* clip, void* dc, void* dlsum,
+                      int BM, int U, int md, float scale, cudaStream_t s) {
+  const size_t smem = (MAXMD * CWP + RB * MAXMD_FMA) * sizeof(float);
+  cudaError_t err = allow_smem(probs_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  probs_bwd_kernel<T><<<(U + RB - 1) / RB, NTHREADS, smem, s>>>(
+      (const T*)q, (const T*)k, (const T*)p, (const T*)g,
+      (const float*)clip, (T*)dc, (float*)dlsum, BM, U, md, scale);
+  return (int)cudaGetLastError();
+}
+
 // q, k: [BM, U, md]; p, g, dc: [BM, U, U]; all contiguous, bf16 when
-// io_bf16 else fp32; md <= 64 (bf16: a multiple of 16, every tensor
-// 16-byte aligned); clip: [1] fp32; dlsum: [U, U] fp32; rowt: n_row =
-// probs_rowterm_size(BM, U, io_bf16) fp32 of scratch (refused otherwise;
-// null and 0 for fp32).
+// io_bf16 else fp32; md <= 256 (bf16 up to 64: a multiple of 16, every
+// tensor 16-byte aligned, on wgmma; past 64 and fp32 the FMA body); clip:
+// [1] fp32; dlsum: [U, U] fp32; rowt: n_row = probs_rowterm_size(BM, U,
+// io_bf16 && md <= 64) fp32 of scratch (refused otherwise; null and 0 for
+// the FMA body).
 extern "C" int probs_bwd_launch(const void* q, const void* k, const void* p,
                                 const void* g, const void* clip, void* dc,
                                 void* dlsum, void* rowt, long long n_row,
                                 int BM, int U, int md, float scale,
                                 int io_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_row != probs_rowterm_size(BM, U, io_bf16))
+  const int mma = mma_body(md, io_bf16);
+  if (n_row != probs_rowterm_size(BM, U, mma))
     return (int)cudaErrorInvalidValue;
-  if (io_bf16)
+  if (mma)
     return launch_bf16(q, k, p, g, clip, dc, dlsum, rowt, BM, U, md, scale,
                        s);
-  const size_t smem = (MAXMD * CWP + RB * MAXMD) * sizeof(float);
-  cudaError_t err = allow_smem(probs_bwd_kernel<float>, smem);
-  if (err != cudaSuccess) return (int)err;
-  probs_bwd_kernel<float><<<(U + RB - 1) / RB, NTHREADS, smem, s>>>(
-      (const float*)q, (const float*)k, (const float*)p, (const float*)g,
-      (const float*)clip, (float*)dc, (float*)dlsum, BM, U, md, scale);
-  return (int)cudaGetLastError();
+  if (md <= 0 || md > MAXMD_FMA) return (int)cudaErrorInvalidValue;
+  return io_bf16 ? launch_fma<bf16>(q, k, p, g, clip, dc, dlsum, BM, U, md,
+                                    scale, s)
+                 : launch_fma<float>(q, k, p, g, clip, dc, dlsum, BM, U, md,
+                                     scale, s);
 }

@@ -35,7 +35,11 @@
 // tiles with zero columns) and q and k are 16-byte aligned.
 //
 // fp32 (scores_max_kernel): plain fp32 FMA over TILE x TILE tiles staged
-// transposed in shared memory (common.cuh), kept for fp32 parity.
+// transposed in shared memory (common.cuh), kept for fp32 parity.  The same
+// body takes bf16 inputs whose mode dim passes 64 (md 128 and 256: one or
+// two modes at a 256-wide site, one at the intra site), staged at a 256
+// stride (133 KB of shared memory); a simple kernel that is right, at
+// the FMA rate, not the tensor cores'.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -45,29 +49,30 @@
 #define B1_STAGES 4   // ring depth
 #define B1_THREADS 128
 
-// The fp32 body.  SHARD is false when the queries are all of the keys'
-// rows (U1 == U2, every path but sequence parallelism): the key count is
-// then U1 itself, and the masks test the token indices in place.  The
-// sharded instantiation tests its query rows against the rows left in the
-// shard and its key columns against the keys left in each tile.  Keeping
-// the unsharded sweep free of the shard's arithmetic keeps its time (see
+// The FMA body (fp32, and bf16 at a mode dim past the wgmma body's 64).
+// SHARD is false when the queries are all of the keys' rows (U1 == U2,
+// every path but sequence parallelism): the key count is then U1 itself,
+// and the masks test the token indices in place.  The sharded
+// instantiation tests its query rows against the rows left in the shard
+// and its key columns against the keys left in each tile.  Keeping the
+// unsharded sweep free of the shard's arithmetic keeps its time (see
 // PERF.md, B1).  The bf16 body takes U1 != U2 as it is: its masks are
-// tile-uniform tests of U1 and U2.
-template <bool SHARD>
+// tile-uniform tests of U1 and U2.  T: the input type; MDS: the staged
+// tiles' mode dim stride (MAXMD, or MAXMD_FMA for md 128 and 256).
+template <typename T, bool SHARD, int MDS>
 __global__ void __launch_bounds__(NTHREADS)
-    scores_max_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
+    scores_max_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       float* __restrict__ partial, int U1, int U2_,
                       int md, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = smem + MAXMD * SPAD;
+  float* ks = smem + MDS * SPAD;
   __shared__ float red[NTHREADS / 32];
   const int U2 = SHARD ? U2_ : U1;
   const int qt = blockIdx.x, bm = blockIdx.y;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* qb = q + (size_t)bm * U1 * md;
-  const float* kb = k + (size_t)bm * U2 * md;
+  const T* qb = q + (size_t)bm * U1 * md;
+  const T* kb = k + (size_t)bm * U2 * md;
   load_tile_t(qs, qb, qt * TILE, U1, md);
   float m = NEG_INF;
   const int nk = (U2 + TILE - 1) / TILE;
@@ -273,22 +278,42 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <bool SHARD>
+template <typename T, bool SHARD, int MDS>
 static cudaError_t launch_max(const void* q, const void* k, void* partial,
-                              dim3 grid, size_t smem, int U1, int U2, int md,
-                              float scale, cudaStream_t s) {
-  cudaError_t err = allow_smem(scores_max_kernel<SHARD>, smem);
+                              dim3 grid, int U1, int U2, int md, float scale,
+                              cudaStream_t s) {
+  const size_t smem = 2 * MDS * SPAD * sizeof(float);
+  cudaError_t err = allow_smem(scores_max_kernel<T, SHARD, MDS>, smem);
   if (err != cudaSuccess) return err;
-  scores_max_kernel<SHARD><<<grid, NTHREADS, smem, s>>>(
-      (const float*)q, (const float*)k, (float*)partial, U1, U2, md, scale);
+  scores_max_kernel<T, SHARD, MDS><<<grid, NTHREADS, smem, s>>>(
+      (const T*)q, (const T*)k, (float*)partial, U1, U2, md, scale);
   return cudaGetLastError();
 }
 
-// The partial maxima of a launch: one per block of the body that in_bf16
-// selects (tests/test_torch_kernel_grids.py holds the wrapper's count
-// against this).
-static int max_partials(int BM, int U1, int U2, int in_bf16) {
-  if (!in_bf16) return BM * ((U1 + TILE - 1) / TILE);
+// The FMA body for input type T: the unsharded or the sharded sweep, at
+// the stride of md.
+template <typename T>
+static cudaError_t launch_fma(const void* q, const void* k, void* partial,
+                              int BM, int U1, int U2, int md, float scale,
+                              cudaStream_t s) {
+  if (md <= 0 || md > MAXMD_FMA) return cudaErrorInvalidValue;
+  dim3 grid((U1 + TILE - 1) / TILE, BM);
+  if (md <= MAXMD)
+    return U1 == U2 ? launch_max<T, false, MAXMD>(q, k, partial, grid, U1,
+                                                  U2, md, scale, s)
+                    : launch_max<T, true, MAXMD>(q, k, partial, grid, U1, U2,
+                                                 md, scale, s);
+  return U1 == U2 ? launch_max<T, false, MAXMD_FMA>(q, k, partial, grid, U1,
+                                                    U2, md, scale, s)
+                  : launch_max<T, true, MAXMD_FMA>(q, k, partial, grid, U1,
+                                                   U2, md, scale, s);
+}
+
+// The partial maxima of a launch: one per block of the body that mma
+// selects (mma_body; tests/test_torch_kernel_grids.py holds the wrapper's
+// count against this).
+static int max_partials(int BM, int U1, int U2, int mma) {
+  if (!mma) return BM * ((U1 + TILE - 1) / TILE);
   const int nk = (U2 + B1_KEYS - 1) / B1_KEYS;
   return BM * ((U1 + B1_ROWS - 1) / B1_ROWS) *
          ((nk + B1_KCHUNK - 1) / B1_KCHUNK);
@@ -326,28 +351,26 @@ static cudaError_t launch_wgmma(const void* q, const void* k, void* partial,
 }
 
 // q: [BM, U1, md], k: [BM, U2, md] contiguous (bf16 when in_bf16, else
-// fp32), md <= 64 (bf16: a multiple of 16, q and k 16-byte aligned); U1 <
-// U2 for a row shard of the queries.  partial: [n_partial] fp32 scratch,
-// n_partial = max_partials(BM, U1, U2, in_bf16) (refused otherwise); out:
+// fp32), md <= 256 (bf16 up to 64: a multiple of 16, q and k 16-byte
+// aligned, on wgmma; past 64 and fp32 the FMA body); U1 < U2 for a row
+// shard of the queries.  partial: [n_partial] fp32 scratch, n_partial =
+// max_partials(BM, U1, U2, mma_body(md, in_bf16)) (refused otherwise); out:
 // [1] fp32.
 extern "C" int scores_max_launch(const void* q, const void* k, void* partial,
                                  int n_partial, void* out, int BM, int U1,
                                  int U2, int md, float scale, int in_bf16,
                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int np = max_partials(BM, U1, U2, in_bf16);
+  const int mma = mma_body(md, in_bf16);
+  const int np = max_partials(BM, U1, U2, mma);
   if (n_partial != np) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (in_bf16) {
+  if (mma)
     err = launch_wgmma(q, k, partial, BM, U1, U2, md, scale, s);
-  } else {
-    const size_t smem = 2 * MAXMD * SPAD * sizeof(float);
-    dim3 grid((U1 + TILE - 1) / TILE, BM);
-    err = U1 == U2 ? launch_max<false>(q, k, partial, grid, smem, U1, U2,
-                                       md, scale, s)
-                   : launch_max<true>(q, k, partial, grid, smem, U1, U2, md,
-                                      scale, s);
-  }
+  else if (in_bf16)
+    err = launch_fma<bf16>(q, k, partial, BM, U1, U2, md, scale, s);
+  else
+    err = launch_fma<float>(q, k, partial, BM, U1, U2, md, scale, s);
   if (err != cudaSuccess) return (int)err;
   max_reduce_kernel<<<1, NTHREADS, 0, s>>>((const float*)partial, np,
                                            (float*)out);

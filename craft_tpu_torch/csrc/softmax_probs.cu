@@ -67,15 +67,22 @@
 // probs_partials(...) pairs (refused otherwise).
 //
 // fp32 inputs (probs_kernel, fp32 output): plain fp32 FMA, kept for fp32
-// parity.  A block owns 64 query rows of one (b, m): sweep 1 keeps the
-// running row max and sum in registers, sweep 2 recomputes the scores and
-// writes each probability once.
+// parity.  The same body takes bf16 inputs whose mode dim passes 64 (the
+// intra site at one mode, md 128; the f2 site's training probs at one or
+// two, md 256 or 128), every output type, staged at a 256 stride: a
+// simple kernel that is right, at the FMA rate.  A block owns 64 query
+// rows of one (b, m): sweep 1 keeps the running row max and sum in
+// registers, sweep 2 recomputes the scores and writes each probability
+// once.
 #include "common.cuh"
 #include "wgmma.cuh"
 
 enum { OUT_F32 = 0, OUT_BF16 = 1, OUT_INT8 = 2 };
 
-template <typename T, int KIND, class Bias>
+// The FMA body.  T: the input type (fp32, or bf16 at a mode dim past 64);
+// MDS: the staged tiles' mode dim stride (MAXMD, or MAXMD_FMA for md 128
+// and 256).
+template <typename T, int KIND, class Bias, int MDS>
 __global__ void __launch_bounds__(NTHREADS)
     probs_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  BiasArgs ba, const float* __restrict__ clip_ptr,
@@ -83,8 +90,8 @@ __global__ void __launch_bounds__(NTHREADS)
                  int U1, int U2, int md, float scale, float pos_w) {
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + MAXMD * SPAD;
-  float* bsm = ks + MAXMD * SPAD;  // Bias::SMEM
+  float* ks = qs + MDS * SPAD;
+  float* bsm = ks + MDS * SPAD;  // Bias::SMEM
   const int qt = blockIdx.x, bm = blockIdx.y;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t qbase = (size_t)bm * U1, kbase = (size_t)bm * U2;
@@ -612,11 +619,12 @@ __launch_bounds__(B4_THREADS, probs_min_blocks<MDP, KIND, Bias>())
   }
 }
 
-// The (max, sum) pairs of a bf16 launch: one per (b * M, q tile, key
-// chunk, row of the tile); 0 for fp32 (tests/test_torch_kernel_grids.py
-// holds the wrapper's count against this).
-static int probs_partials(int BM, int U1, int U2, int in_bf16) {
-  if (!in_bf16) return 0;
+// The (max, sum) pairs of a wgmma launch (mma: mma_body): one per (b * M,
+// q tile, key chunk, row of the tile); 0 for the FMA body
+// (tests/test_torch_kernel_grids.py holds the wrapper's count against
+// this).
+static int probs_partials(int BM, int U1, int U2, int mma) {
+  if (!mma) return 0;
   const int nk = (U2 + B4_KEYS - 1) / B4_KEYS;
   return BM * ((U1 + B4_ROWS - 1) / B4_ROWS) *
          ((nk + B4_KCHUNK - 1) / B4_KCHUNK) * B4_ROWS;
@@ -686,29 +694,45 @@ static int launch_wgmma(const void* q, const void* k, const BiasArgs& ba,
 // The fp32 body's launch and the C interface
 // ---------------------------------------------------------------------------
 
-template <class Bias>
-static int launch_fp32(const void* q, const void* k, const BiasArgs& ba,
-                       const void* clip, void* out, int BM, int U1, int U2,
-                       int md, float scale, float pos_w, cudaStream_t s) {
-  const size_t smem = (2 * MAXMD * SPAD + Bias::SMEM) * sizeof(float);
-  cudaError_t err = allow_smem(probs_kernel<float, OUT_F32, Bias>, smem);
+template <typename T, int KIND, class Bias, int MDS>
+static int launch_fma_md(const void* q, const void* k, const BiasArgs& ba,
+                         const void* clip, void* out, void* row_scale,
+                         int BM, int U1, int U2, int md, float scale,
+                         float pos_w, cudaStream_t s) {
+  const size_t smem = (2 * MDS * SPAD + Bias::SMEM) * sizeof(float);
+  cudaError_t err = allow_smem(probs_kernel<T, KIND, Bias, MDS>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((U1 + TILE - 1) / TILE, BM);
-  probs_kernel<float, OUT_F32, Bias><<<grid, NTHREADS, smem, s>>>(
-      (const float*)q, (const float*)k, ba, (const float*)clip, out,
-      nullptr, U1, U2, md, scale, pos_w);
+  probs_kernel<T, KIND, Bias, MDS><<<grid, NTHREADS, smem, s>>>(
+      (const T*)q, (const T*)k, ba, (const float*)clip, out,
+      (float*)row_scale, U1, U2, md, scale, pos_w);
   return (int)cudaGetLastError();
 }
 
+// The FMA body of output KIND: md up to 256, at the stride of md.
+template <typename T, int KIND, class Bias>
+static int launch_fma(const void* q, const void* k, const BiasArgs& ba,
+                      const void* clip, void* out, void* row_scale, int BM,
+                      int U1, int U2, int md, float scale, float pos_w,
+                      cudaStream_t s) {
+  if (md <= 0 || md > MAXMD_FMA) return (int)cudaErrorInvalidValue;
+  if (md <= MAXMD)
+    return launch_fma_md<T, KIND, Bias, MAXMD>(
+        q, k, ba, clip, out, row_scale, BM, U1, U2, md, scale, pos_w, s);
+  return launch_fma_md<T, KIND, Bias, MAXMD_FMA>(
+      q, k, ba, clip, out, row_scale, BM, U1, U2, md, scale, pos_w, s);
+}
+
 // B4.  q: [BM, U1, md], k: [BM, U2, md] contiguous (bf16 when in_bf16,
-// else fp32), md <= 64 (bf16: a multiple of 16, q, k and out 16-byte
-// aligned); the queries are the grid's tokens q_tok0 .. q_tok0 + U1 - 1 (a
-// row shard; 0 and U1 = U2 for the whole grid), the keys all U2 = H8 * W8
-// tokens; out: [BM, U1, U2] of out_kind (0 fp32, 1 bf16, 2 int8);
-// row_scale: [BM, U1] fp32 (written for int8 only); biases: [(2R+1)^2]
-// fp32; clip: [1] fp32; partial: n_partial = probs_partials(BM, U1, U2,
-// in_bf16) fp32 pairs of scratch (refused otherwise; null and 0 for
-// fp32).  bf16 inputs take every out_kind; fp32 inputs only fp32.
+// else fp32), md <= 256 (bf16 up to 64: a multiple of 16, q, k and out
+// 16-byte aligned, on wgmma; past 64 and fp32 the FMA body); the queries
+// are the grid's tokens q_tok0 .. q_tok0 + U1 - 1 (a row shard; 0 and U1
+// = U2 for the whole grid), the keys all U2 = H8 * W8 tokens; out: [BM,
+// U1, U2] of out_kind (0 fp32, 1 bf16, 2 int8); row_scale: [BM, U1] fp32
+// (written for int8 only); biases: [(2R+1)^2] fp32; clip: [1] fp32;
+// partial: n_partial = probs_partials(BM, U1, U2, mma_body(md, in_bf16))
+// fp32 pairs of scratch (refused otherwise; null and 0 for the FMA body).
+// bf16 inputs take every out_kind; fp32 inputs only fp32.
 extern "C" int probs_launch(const void* q, const void* k, const void* biases,
                             const void* clip, void* partial, int n_partial,
                             void* out, void* row_scale, int BM, int U1,
@@ -716,17 +740,23 @@ extern "C" int probs_launch(const void* q, const void* k, const void* biases,
                             float scale, float pos_w, int in_bf16,
                             int out_kind, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_partial != probs_partials(BM, U1, U2, in_bf16))
+  const int mma = mma_body(md, in_bf16);
+  if (n_partial != probs_partials(BM, U1, U2, mma))
     return (int)cudaErrorInvalidValue;
   const BiasArgs ba{(const float*)biases, W8, R, U1, U2, q_tok0};
   if (!in_bf16)
     return out_kind == OUT_F32
-               ? launch_fp32<WindowBias>(q, k, ba, clip, out, BM, U1, U2, md,
-                                         scale, pos_w, s)
+               ? launch_fma<float, OUT_F32, WindowBias>(
+                     q, k, ba, clip, out, nullptr, BM, U1, U2, md, scale,
+                     pos_w, s)
                : (int)cudaErrorInvalidValue;
 #define CASE(KIND)                                                          \
-  return launch_wgmma<KIND, ProbsWindow>(q, k, ba, clip, partial, out,      \
-                                         row_scale, BM, md, scale, pos_w, s);
+  return mma ? launch_wgmma<KIND, ProbsWindow>(q, k, ba, clip, partial, out, \
+                                               row_scale, BM, md, scale,     \
+                                               pos_w, s)                     \
+             : launch_fma<bf16, KIND, WindowBias>(q, k, ba, clip, out,       \
+                                                  row_scale, BM, U1, U2, md, \
+                                                  scale, pos_w, s);
   if (out_kind == OUT_F32) CASE(OUT_F32)
   if (out_kind == OUT_BF16) CASE(OUT_BF16)
   if (out_kind == OUT_INT8) CASE(OUT_INT8)
@@ -735,10 +765,10 @@ extern "C" int probs_launch(const void* q, const void* k, const void* biases,
 }
 
 // B4 dense.  q: [BM, U1, md]; k: [BM, U2, md] contiguous (bf16 when
-// in_bf16, else fp32), md <= 64 (bf16: as B4); out: [BM, U1, U2] of
-// out_kind (0 fp32, 1 bf16); table: [U1, U2] fp32, or null for no bias;
-// clip: [1] fp32; partial as B4.  bf16 inputs take both out_kinds, fp32
-// inputs fp32 only.
+// in_bf16, else fp32), md <= 256 (as B4); out: [BM, U1, U2] of out_kind (0
+// fp32, 1 bf16); table: [U1, U2] fp32, or null for no bias; clip: [1]
+// fp32; partial as B4.  bf16 inputs take both out_kinds, fp32 inputs fp32
+// only.
 extern "C" int probs_dense_launch(const void* q, const void* k,
                                   const void* table, const void* clip,
                                   void* partial, int n_partial, void* out,
@@ -746,23 +776,37 @@ extern "C" int probs_dense_launch(const void* q, const void* k,
                                   float pos_w, int in_bf16, int out_kind,
                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_partial != probs_partials(BM, U1, U2, in_bf16))
+  const int mma = mma_body(md, in_bf16);
+  if (n_partial != probs_partials(BM, U1, U2, mma))
     return (int)cudaErrorInvalidValue;
   const BiasArgs ba{(const float*)table, 0, 0, U1, U2, 0};
   if (!in_bf16) {
     if (out_kind != OUT_F32) return (int)cudaErrorInvalidValue;
-    return table ? launch_fp32<TableBias>(q, k, ba, clip, out, BM, U1, U2,
-                                          md, scale, pos_w, s)
-                 : launch_fp32<NoBias>(q, k, ba, clip, out, BM, U1, U2, md,
-                                       scale, pos_w, s);
+    return table ? launch_fma<float, OUT_F32, TableBias>(
+                       q, k, ba, clip, out, nullptr, BM, U1, U2, md, scale,
+                       pos_w, s)
+                 : launch_fma<float, OUT_F32, NoBias>(
+                       q, k, ba, clip, out, nullptr, BM, U1, U2, md, scale,
+                       pos_w, s);
   }
 #define CASE(KIND)                                                          \
-  return table ? launch_wgmma<KIND, ProbsTable>(q, k, ba, clip, partial,   \
-                                                out, nullptr, BM, md,      \
-                                                scale, pos_w, s)           \
-               : launch_wgmma<KIND, MmaNoBias>(q, k, ba, clip, partial,    \
-                                               out, nullptr, BM, md,       \
-                                               scale, pos_w, s);
+  {                                                                         \
+    if (mma)                                                                \
+      return table ? launch_wgmma<KIND, ProbsTable>(q, k, ba, clip,        \
+                                                    partial, out, nullptr, \
+                                                    BM, md, scale, pos_w,  \
+                                                    s)                     \
+                   : launch_wgmma<KIND, MmaNoBias>(q, k, ba, clip,         \
+                                                   partial, out, nullptr,  \
+                                                   BM, md, scale, pos_w,   \
+                                                   s);                     \
+    return table ? launch_fma<bf16, KIND, TableBias>(                      \
+                       q, k, ba, clip, out, nullptr, BM, U1, U2, md,       \
+                       scale, pos_w, s)                                    \
+                 : launch_fma<bf16, KIND, NoBias>(                         \
+                       q, k, ba, clip, out, nullptr, BM, U1, U2, md,       \
+                       scale, pos_w, s);                                   \
+  }
   if (out_kind == OUT_F32) CASE(OUT_F32)
   if (out_kind == OUT_BF16) CASE(OUT_BF16)
 #undef CASE

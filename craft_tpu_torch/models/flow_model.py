@@ -92,9 +92,12 @@ class TransCorr(nn.Module):
     def prenormed(self) -> bool:
         """Whether forward gives the normed volume: eval mode with the
         sliding bias, the static decision of ``craft_tpu/models/
-        flow_model.py:219-225`` (there fp32 and the two-way volume also
-        take the raw volume; the port keeps B3 for both, one launch a
-        direction, whose output it normalizes exactly per (batch, d))."""
+        flow_model.py:219-225`` (there fp32, the two-way volume and one
+        mode (no fused norm, ``craft_tpu/nn/setrans.py:86``) take the raw
+        volume and ``build_pyramid``'s global norm; the port keeps B3 for
+        all three, one launch a direction, whose output it normalizes
+        exactly per (batch, d); at one mode B3's mode softmax is 1 and its
+        volume the raw scores)."""
         return not self.training and self.pos_code_type == "bias"
 
     def forward(self, fmap1, fmap2, fmap1o=None, fmap2o=None,

@@ -375,6 +375,8 @@ class CrossAttFeatTrans(nn.Module):
         if M > 1 and cfg.out_attn_only:
             # Used by the scores-only site; the probs-only site keeps it for
             # state-dict parity with the reference (setrans.py:432-436).
+            # At one mode neither site has it (craft_tpu/nn/setrans.py:
+            # 682-685, 775).
             self.attn_softaggr = LearnedSoftAggregate(1)
         if not cfg.out_attn_only:
             self.out_trans = (ablation.MultiHeadFeatTrans(cfg, dtype)
@@ -391,6 +393,15 @@ class CrossAttFeatTrans(nn.Module):
         q = q.reshape(B, U1, M, md).permute(0, 2, 1, 3).contiguous()
         k = k.reshape(B, U2, M, md).permute(0, 2, 1, 3).contiguous()
         return q, k
+
+    def _agg_wb(self):
+        """(w, b) of the scores-only site's mode aggregation.  One mode has
+        no attn_softaggr and no aggregation: (1, 0) makes the kernels' mode
+        softmax exactly 1 (vol = s, dc = g * the clamp mask, no agg_w
+        gradient), the JAX package's raw scores."""
+        if self.cfg.num_modes == 1:
+            return 1.0, 0.0
+        return self.attn_softaggr.scalar_wb()
 
     def _clip(self, q, k, shard=None):
         """The clamp: attn_clip where the raw max of the scores (over every
@@ -450,7 +461,7 @@ class CrossAttFeatTrans(nn.Module):
         grid_hw = (pos_biases.H, pos_biases.W)
         q_row0 = 0 if shard is None else shard.h0
         if cfg.out_attn_scores_only:
-            agg_w, agg_b = self.attn_softaggr.scalar_wb()
+            agg_w, agg_b = self._agg_wb()
             out_dtype = out_dtype or torch.float32
             if shard is not None:
                 return sp_fused_agg_corr_norm_mt(
@@ -498,7 +509,7 @@ class CrossAttFeatTrans(nn.Module):
                     pos_biases.biases.float(), pos_biases.H, pos_biases.W)
         clip = self._clip(q, k)
         if cfg.out_attn_scores_only:
-            agg_w, agg_b = self.attn_softaggr.scalar_wb()
+            agg_w, agg_b = self._agg_wb()
             return fused_agg_corr_dense(q, k, table, clip, pos_w, agg_w,
                                         agg_b)
         if cfg.out_attn_probs_only:
@@ -515,7 +526,7 @@ class CrossAttFeatTrans(nn.Module):
         grid_hw = (pos_biases.H, pos_biases.W)
         clip = self._clip(q, k)
         if cfg.out_attn_scores_only:
-            agg_w, agg_b = self.attn_softaggr.scalar_wb()
+            agg_w, agg_b = self._agg_wb()
             return fused_agg_corr_diff(q, k, pos_biases.biases, clip,
                                        cfg.pos_code_weight, agg_w, agg_b,
                                        grid_hw)
@@ -551,7 +562,7 @@ class CrossAttFeatTrans(nn.Module):
         if attention_mask is not None:
             scores = scores + attention_mask
         if cfg.out_attn_scores_only:
-            agg_w, agg_b = self.attn_softaggr.scalar_wb()
+            agg_w, agg_b = self._agg_wb()
             probs = torch.softmax(scores * agg_w + agg_b, dim=1)
             return (scores * probs).sum(dim=1)
         probs = torch.softmax(scores, dim=-1).to(self.dtype)

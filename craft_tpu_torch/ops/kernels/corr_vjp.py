@@ -16,10 +16,13 @@ q_m k_m^T:
   dagg_w          = sum g * sum_m p_m s_m (s_m - vol);  dagg_b = 0
 The kernels (csrc/agg_corr.cu) compute vol and (dc, dagg_w); the products
 dq/dk run as plain fp32 matrix products, as the JAX package leaves them to
-XLA.  The bf16 bodies (wgmma tiles: the forward B3's sweep in
-csrc/agg_modes.cuh, the backward its own) take a mode dim that is a
-multiple of 16 and 16-byte aligned q and k; the backward's fp64 partials of
-dagg_w are bwd_partials(...), one a block of the grid that it launches.
+XLA.  The bf16 bodies at four modes (wgmma tiles: the forward B3's sweep
+in csrc/agg_modes.cuh, the backward its own) take a mode dim that is a
+multiple of 16 and 16-byte aligned q and k; every other mode count (1, 2,
+8, 16, with M * md <= 256) and fp32 take the FMA bodies; the backward's
+fp64 partials of dagg_w are bwd_partials(...), one a block of the grid
+that it launches.  At one mode p = 1: vol = s, dc = g * the clamp mask,
+dagg_w = 0.
 pos_w is a config constant and gets no gradient; clip comes from B1 on
 detached q and k, so the clamp predicate carries none either.
 """
@@ -34,16 +37,18 @@ from craft_tpu_torch.ops.kernels.launch import (F, I, P, call, check_cuda,
                                                 counted, f32, prep, ptr,
                                                 stream)
 from craft_tpu_torch.ops.kernels.mode_attention import (acc_dtype,
+                                                        agg_mma_body,
                                                         biased_scores,
+                                                        check_agg_modes,
                                                         check_mma_tiles,
                                                         check_table,
                                                         table_ptr,
                                                         table_scores)
 
-_FWD_SIG = [P, P, P, P, P, I, I, I, I, I, F, I, P]
-_DENSE_SIG = [P, P, P, P, P, I, I, I, I, F, I, P]
-_BWD_SIG = [P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, P]
-_TILE, _KGROUP, _MODES = 64, 8, 4  # csrc/agg_modes.cuh TILE, KGROUP, NMODES
+_FWD_SIG = [P, P, P, P, P, I, I, I, I, I, I, F, I, P]
+_DENSE_SIG = [P, P, P, P, P, I, I, I, I, I, F, I, P]
+_BWD_SIG = [P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, F, I, P]
+_TILE, _KGROUP = 64, 8  # csrc/common.cuh TILE, agg_modes.cuh KGROUP
 # The backward's bf16 body (csrc/agg_corr.cu): query rows and keys a
 # block's tile, key tiles a block.
 B6B_ROWS, B6B_KEYS, B6B_KGROUP = 64, 64, 9
@@ -51,8 +56,8 @@ B6B_ROWS, B6B_KEYS, B6B_KGROUP = 64, 64, 9
 
 def bwd_partials(B: int, U: int, bf16: int) -> int:
     """The backward's fp64 partials of dagg_w: one a block, (q tiles, key
-    groups, samples) of the body that bf16 selects (the kernel refuses
-    another count)."""
+    groups, samples) of the body that bf16 selects (1: the wgmma body,
+    agg_mma_body; the kernel refuses another count)."""
     if bf16:
         nq = -(-U // B6B_ROWS)
         return B * nq * -(-(-(-U // B6B_KEYS)) // B6B_KGROUP)
@@ -69,9 +74,10 @@ def _scal(q, clip, pos_w, agg_w, agg_b):
 
 def _shape_check(q, k, name):
     B, M, U, md = q.shape
-    if M != _MODES or k.shape != q.shape:
-        raise ValueError(f"{name}: q, k must be [B, {_MODES}, U, md] alike, "
-                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
+    if k.shape != q.shape:
+        raise ValueError(f"{name}: q, k must be [B, M, U, md] alike, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    check_agg_modes(name, M, md)
 
 
 # ---------------------------------------------------------------------------
@@ -88,24 +94,25 @@ def fused_agg_corr_plain(q, k, biases, grid_hw, clip, pos_w, agg_w, agg_b):
 def fused_agg_corr(q, k, biases, grid_hw, clip, pos_w: float, agg_w, agg_b):
     """vol[b] = sum_m softmax_m(agg_w s_m + agg_b) s_m, s_m = clamp(scale
     q_m k_m^T, +-clip) + pos_w * bias, as [B, U, U] fp32 (fp64 for fp64
-    inputs on the CPU).  q, k: [B, 4, U, md] (bf16: md a multiple of 16,
-    16-byte aligned); biases: the [2R+1, 2R+1] window over the (H8, W8)
-    token grid; clip: 0-d tensor or float."""
+    inputs on the CPU).  q, k: [B, M, U, md], M in AGG_MODES with M * md
+    <= 256 (bf16: md a multiple of 16, 16-byte aligned); biases: the
+    [2R+1, 2R+1] window over the (H8, W8) token grid; clip: 0-d tensor or
+    float."""
     if not q.is_cuda:
         return fused_agg_corr_plain(q, k, biases, grid_hw, clip, pos_w,
                                     agg_w, agg_b)
     _shape_check(q, k, "fused_agg_corr")
     (q, k), bf16 = prep(q, k)
-    B, _, U, md = q.shape
+    B, M, U, md = q.shape
     check_mma_tiles("fused_agg_corr", bf16, md, "q and k", q, k)
     R = (biases.shape[0] - 1) // 2
     out = torch.empty(B, U, U, dtype=torch.float32, device=q.device)
     win, scal = f32(biases, q), _scal(q, clip, pos_w, agg_w, agg_b)
     call("agg_corr", "agg_corr_launch", _FWD_SIG, ptr(q), ptr(k), ptr(win),
-         ptr(scal), ptr(out), B, U, md, grid_hw[1], R, 1.0 / math.sqrt(md),
-         bf16, stream(q))
+         ptr(scal), ptr(out), B, M, U, md, grid_hw[1], R,
+         1.0 / math.sqrt(md), bf16, stream(q))
     fused_agg_corr.launches += 1
-    fused_agg_corr.flops += 2.0 * B * _MODES * U * U * md
+    fused_agg_corr.flops += 2.0 * B * M * U * U * md
     return out
 
 
@@ -120,9 +127,9 @@ def fused_agg_corr_dense(q, k, table, clip, pos_w: float, agg_w, agg_b):
     """vol[b] = sum_m softmax_m(agg_w s_m + agg_b) s_m with s_m = clamp(scale
     q_m k_m^T, +-clip) + pos_w * table, as [B, U1, U2] fp32: the counterpart
     of ``craft_tpu.ops.pallas.mode_attention.fused_agg_corr`` (B6 dense).
-    q: [B, 4, U1, md]; k: [B, 4, U2, md] (bf16: md a multiple of 16, q and
-    k 16-byte aligned); table: fp32 [U1, U2] or None (no bias); clip: 0-d
-    tensor or float."""
+    q: [B, M, U1, md]; k: [B, M, U2, md] (M and md as B6; bf16: md a
+    multiple of 16, q and k 16-byte aligned); table: fp32 [U1, U2] or None
+    (no bias); clip: 0-d tensor or float."""
     check_table(table, q, k)
     if not q.is_cuda:
         return fused_agg_corr_dense_plain(q, k, table, clip, pos_w, agg_w,
@@ -130,15 +137,16 @@ def fused_agg_corr_dense(q, k, table, clip, pos_w: float, agg_w, agg_b):
     (q, k), bf16 = prep(q, k)
     B, M, U1, md = q.shape
     U2 = k.shape[2]
-    if M != _MODES or k.shape[:2] != (B, M):
-        raise ValueError(f"fused_agg_corr_dense: q, k must be [B, {_MODES}, "
-                         f"U, md], got {tuple(q.shape)} and {tuple(k.shape)}")
+    if k.shape[:2] != (B, M):
+        raise ValueError(f"fused_agg_corr_dense: q, k must be [B, M, U, md],"
+                         f" got {tuple(q.shape)} and {tuple(k.shape)}")
+    check_agg_modes("fused_agg_corr_dense", M, md)
     check_mma_tiles("fused_agg_corr_dense", bf16, md, "q and k", q, k)
     out = torch.empty(B, U1, U2, dtype=torch.float32, device=q.device)
     table = None if table is None else table.contiguous()
     scal = _scal(q, clip, pos_w, agg_w, agg_b)
     call("agg_corr", "agg_corr_dense_launch", _DENSE_SIG, ptr(q), ptr(k),
-         table_ptr(table), ptr(scal), ptr(out), B, U1, U2, md,
+         table_ptr(table), ptr(scal), ptr(out), B, M, U1, U2, md,
          1.0 / math.sqrt(md), bf16, stream(q))
     fused_agg_corr_dense.launches += 1
     fused_agg_corr_dense.flops += 2.0 * B * M * U1 * U2 * md
@@ -164,7 +172,7 @@ def agg_corr_bwd_plain(q, k, g, vol, biases, grid_hw, clip, pos_w, agg_w):
 
 @counted
 def agg_corr_bwd(q, k, g, vol, biases, grid_hw, clip, pos_w: float, agg_w):
-    """The clamp-masked score cotangent dc [B, 4, U, U] fp32 and the agg_w
+    """The clamp-masked score cotangent dc [B, M, U, U] fp32 and the agg_w
     cotangent da (0-d fp32) from the volume's cotangent g and the saved
     volume vol, both [B, U, U] fp32."""
     if not q.is_cuda:
@@ -182,13 +190,13 @@ def agg_corr_bwd(q, k, g, vol, biases, grid_hw, clip, pos_w: float, agg_w):
     R = (biases.shape[0] - 1) // 2
     dev = q.device
     dc = torch.empty(B, M, U, U, dtype=torch.float32, device=dev)
-    n_partial = bwd_partials(B, U, bf16)
+    n_partial = bwd_partials(B, U, agg_mma_body(bf16, M, md))
     partial = torch.empty(n_partial, dtype=torch.float64, device=dev)
     da = torch.empty(1, dtype=torch.float32, device=dev)
     win, scal = f32(biases, q), _scal(q, clip, pos_w, agg_w, 0.0)
     call("agg_corr", "agg_corr_bwd_launch", _BWD_SIG, ptr(q), ptr(k), ptr(g),
          ptr(vol), ptr(win), ptr(scal), ptr(dc), ptr(partial), n_partial,
-         ptr(da), B, U, md, grid_hw[1], R, 1.0 / math.sqrt(md), bf16,
+         ptr(da), B, M, U, md, grid_hw[1], R, 1.0 / math.sqrt(md), bf16,
          stream(q))
     agg_corr_bwd.launches += 1
     return dc, da[0]

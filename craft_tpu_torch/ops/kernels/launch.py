@@ -19,7 +19,11 @@ from craft_tpu_torch.ops.kernels import build
 
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 L = ctypes.c_longlong
-MAX_MODE_DIM = 64
+# The widest mode dim of the wgmma bodies (csrc/common.cuh MAXMD) and of
+# the FMA bodies (MAXMD_FMA), which take bf16 past MMA_MODE_DIM: md 128 and
+# 256, one or two modes at a 256-wide site.
+MMA_MODE_DIM = 64
+MAX_MODE_DIM = 256
 
 _COUNTED: list = []
 

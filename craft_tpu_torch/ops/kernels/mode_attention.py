@@ -26,9 +26,11 @@ U2 = H8 * W8 keys; B1 takes any U1 and U2, and B2, B4 and B9 take the
 shard's `q_row0` so that the window lands on the right diagonals.  The
 tensor decides the route: CUDA tensors launch the hand-written kernel
 (csrc/*.cu) or raise, CPU tensors take the plain version.  In bf16, B1,
-B2, B3, B4, B8 and B9 run tensor-core (wgmma) bodies, which take a mode
-dim that is a multiple of 16 and 16-byte aligned inputs (check_mma_tiles);
-fp32 runs FMA bodies.  Each kernel's launches are counted in
+B2, B3, B4, B8 and B9 run tensor-core (wgmma) bodies up to a mode dim of
+64 (B3 and B9 at four modes), which take a mode dim that is a multiple of
+16 and 16-byte aligned inputs (check_mma_tiles); fp32, and bf16 past
+those (md 128 and 256; B3 and B9 at 1, 2, 8 or 16 modes), run FMA bodies
+(mma_body, agg_mma_body).  Each kernel's launches are counted in
 ``<wrapper>.launches`` where the kernel is launched: B1's count includes
 the B1 launch that B3 makes as its phase 0.  The clamp value `clip` is a device tensor, so the
 predicate never syncs the host.
@@ -41,9 +43,10 @@ import math
 import torch
 
 from craft_tpu_torch.ops.kernels.launch import (D as _D, F as _F, I as _I,
-                                                MAX_MODE_DIM, P as _P,
-                                                call, counted, f32 as _f32,
-                                                prep as _prep, ptr as _ptr,
+                                                MAX_MODE_DIM, MMA_MODE_DIM,
+                                                P as _P, call, counted,
+                                                f32 as _f32, prep as _prep,
+                                                ptr as _ptr,
                                                 stream as _stream)
 
 _SIGNATURES = {
@@ -51,11 +54,11 @@ _SIGNATURES = {
     "flash_attn_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _F, _F, _I, _P],
     "corr_norm_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _F, _F, _I, _I, _P],
+                         _I, _I, _I, _F, _F, _I, _I, _P],
     "corr_norm_sums_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _F, _I, _P],
+                              _I, _I, _I, _I, _I, _F, _I, _P],
     "corr_norm_write_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _D, _F, _I, _I, _P],
+                               _I, _I, _I, _I, _I, _F, _D, _F, _I, _I, _P],
     "probs_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _F, _F, _I, _I, _P],
     "flash_attn_dense_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -84,16 +87,46 @@ _TILE, _KGROUP = 64, 8
 _B1_ROWS, _B1_KEYS, _B1_KCHUNK = 128, 64, 16
 _B3_ROWS, _B3_KEYS, _B3_KGROUP = 128, 64, 8
 _B4_ROWS, _B4_KEYS, _B4_KCHUNK = 128, 64, 16
-assert MAX_MODE_DIM == 64  # csrc/common.cuh MAXMD
+assert (MMA_MODE_DIM, MAX_MODE_DIM) == (64, 256)  # common.cuh MAXMD(_FMA)
+# The mode counts of the aggregating kernels' FMA bodies (B3, B6, B6 dense,
+# B9, B6 backward: csrc/agg_modes.cuh, NM modes with NM * md <= 256), and
+# the count of their wgmma bodies.
+AGG_MODES = (1, 2, 4, 8, 16)
+MMA_MODES = 4
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def mma_body(bf16: int, md: int) -> int:
+    """Whether a per-mode kernel (B1, B2, B4, B7, B8, B4 dense) runs its
+    wgmma body: bf16 up to md 64; fp32 and bf16 past it take the FMA one,
+    whose scratch the grids below count.  csrc/common.cuh mma_body, which
+    every launcher takes, is the same test."""
+    return int(bool(bf16) and md <= MMA_MODE_DIM)
+
+
+def agg_mma_body(bf16: int, M: int, md: int) -> int:
+    """Whether an aggregating kernel (B3, B9, B6, B6 dense, B6 backward)
+    runs its wgmma body: bf16 at four modes up to md 64
+    (csrc/agg_modes.cuh agg_mma_body)."""
+    return int(mma_body(bf16, md) and M == MMA_MODES)
+
+
+def check_agg_modes(what: str, M: int, md: int) -> None:
+    """The aggregating kernels take 1, 2, 4, 8 or 16 modes with M * md <=
+    256 (their FMA bodies' staging); raises on anything else."""
+    if M not in AGG_MODES or M * md > MAX_MODE_DIM:
+        raise ValueError(f"{what}: {M} modes of dim {md}; the kernel takes "
+                         f"{AGG_MODES} modes with modes * dim <= "
+                         f"{MAX_MODE_DIM}")
+
+
 def scores_max_partials(BM: int, U1: int, U2: int, bf16: int) -> int:
-    """B1's partial maxima: one per block, [BM * ceil(U1/64)] fp32 (fp32
-    body) or [BM * ceil(U1/128) * key chunks] (bf16)."""
+    """B1's partial maxima: one per block, [BM * ceil(U1/64)] fp32 (FMA
+    body) or [BM * ceil(U1/128) * key chunks] (wgmma body: bf16 = 1 here
+    names the body, mma_body)."""
     if not bf16:
         return BM * _cdiv(U1, _TILE)
     return (BM * _cdiv(U1, _B1_ROWS)
@@ -102,7 +135,8 @@ def scores_max_partials(BM: int, U1: int, U2: int, bf16: int) -> int:
 
 def corr_partials(B: int, U1: int, U2: int, bf16: int) -> int:
     """fp64 scratch of B3's and B9's stats sweep: a (sum, sum of squares)
-    pair per block, the blocks of the body that bf16 selects."""
+    pair per block, the blocks of the body that bf16 selects (1: the wgmma
+    sweep, agg_mma_body)."""
     if bf16:
         nq, ng = (_cdiv(U1, _B3_ROWS),
                   _cdiv(_cdiv(U2, _B3_KEYS), _B3_KGROUP))
@@ -112,9 +146,9 @@ def corr_partials(B: int, U1: int, U2: int, bf16: int) -> int:
 
 
 def probs_partials(BM: int, U1: int, U2: int, bf16: int) -> int:
-    """B4's (max, sum) pairs of the bf16 body's stats sweep: one per (b *
-    M, 128-row q tile, chunk of 16 key tiles, row of the tile); none for
-    the fp32 body."""
+    """B4's (max, sum) pairs of the wgmma body's stats sweep (bf16 = 1
+    names that body, mma_body): one per (b * M, 128-row q tile, chunk of
+    16 key tiles, row of the tile); none for the FMA body."""
     if not bf16:
         return 0
     return (BM * _cdiv(U1, _B4_ROWS) * _cdiv(_cdiv(U2, _B4_KEYS), _B4_KCHUNK)
@@ -123,7 +157,7 @@ def probs_partials(BM: int, U1: int, U2: int, bf16: int) -> int:
 
 def _probs_scratch(BM: int, U1: int, U2: int, bf16: int, like):
     """A B4 launch's scratch: fp32 [pairs, 2] on like's device, or None
-    (fp32 body)."""
+    (the FMA body; bf16 here names the body, mma_body)."""
     n = probs_partials(BM, U1, U2, bf16)
     return (torch.empty(n, 2, dtype=torch.float32, device=like.device)
             if n else None)
@@ -227,9 +261,10 @@ def check_table(table, q, k) -> None:
 
 def check_mma_tiles(what: str, bf16: int, md: int, names: str,
                     *tensors) -> None:
-    """The bf16 bodies on the tensor cores (B1-B4, B6-B9) take a mode
-    dim that is a multiple of 16 and 16-byte aligned tensors (`names`);
-    raises on anything else.  fp32 takes any md <= 64."""
+    """bf16 inputs (the tensor-core bodies of B1-B4, B6-B9, and the FMA
+    bodies that take bf16 past them) take a mode dim that is a multiple of
+    16 and 16-byte aligned tensors (`names`); raises on anything else.
+    fp32 takes any md <= 256."""
     if not bf16:
         return
     if md % 16:
@@ -257,7 +292,7 @@ def _launch_scores_max(q, k, scale) -> torch.Tensor:
         raise ValueError(f"scores_global_max: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
     check_mma_tiles("scores_global_max", bf16, md, "q and k", q, k)
-    n_partial = scores_max_partials(B * M, U1, U2, bf16)
+    n_partial = scores_max_partials(B * M, U1, U2, mma_body(bf16, md))
     partial = torch.empty(n_partial, dtype=torch.float32, device=q.device)
     out = torch.empty(1, dtype=torch.float32, device=q.device)
     _call("scores_max_launch", _ptr(q), _ptr(k), _ptr(partial), n_partial,
@@ -438,14 +473,15 @@ def fused_agg_corr_norm(q, k, biases, grid_hw, attn_clip: float,
     vol = sum_m softmax_m(agg_w s_m + agg_b) s_m; returns
     ((vol - mean) * rsqrt(var + eps) as [B, U, U] out_dtype,
      stats [B, 1, 4] fp32 = (raw max, mean, E[x^2], 0)), with per-sample
-    moments over the whole volume.  q, k: [B, M, U, md]."""
+    moments over the whole volume.  q, k: [B, M, U, md], M in AGG_MODES
+    with M * md <= 256 (M = 1: vol = s, the softmax over one mode being
+    1)."""
     if not q.is_cuda:
         return fused_agg_corr_norm_plain(q, k, biases, grid_hw, attn_clip,
                                          pos_w, agg_w, agg_b, out_dtype, eps)
     B, M, U, md = q.shape
     scale = 1.0 / math.sqrt(md)
-    if M != 4:
-        raise ValueError(f"fused_agg_corr_norm: {M} modes, the kernel takes 4")
+    check_agg_modes("fused_agg_corr_norm", M, md)
     (q, k), bf16 = _prep(q, k)
     if out_dtype not in (torch.bfloat16, torch.float32) or (
             out_dtype == torch.bfloat16 and not bf16):
@@ -456,7 +492,7 @@ def fused_agg_corr_norm(q, k, biases, grid_hw, attn_clip: float,
     gmax = _launch_scores_max(q, k, scale)  # phase 0: the raw max (B1)
     R = (biases.shape[0] - 1) // 2
     dev = q.device
-    n_partial = corr_partials(B, U, U, bf16)
+    n_partial = corr_partials(B, U, U, agg_mma_body(bf16, M, md))
     partial = torch.empty(n_partial, dtype=torch.float64, device=dev)
     stats = torch.empty(B, 1, 4, dtype=torch.float32, device=dev)
     norm = torch.empty(B, 2, dtype=torch.float32, device=dev)
@@ -466,7 +502,7 @@ def fused_agg_corr_norm(q, k, biases, grid_hw, attn_clip: float,
                       _f32(agg_b, q)])
     _call("corr_norm_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(scal),
           _ptr(gmax), _ptr(partial), n_partial, _ptr(stats), _ptr(norm),
-          _ptr(out), B, U, md, grid_hw[1], R, scale, eps, bf16,
+          _ptr(out), B, M, U, md, grid_hw[1], R, scale, eps, bf16,
           int(out_dtype == torch.bfloat16), _stream(q))
     fused_agg_corr_norm.launches += 1
     fused_agg_corr_norm.flops += 2.0 * B * M * U * U * md
@@ -498,9 +534,9 @@ def _shard_prep(q, k, grid_hw, q_row0, what):
     """Checks shared by the two B9 halves: (contiguous q, k, bf16 flag)."""
     query_rows(q, k, grid_hw, q_row0)
     B, M, U1, md = q.shape
-    if M != 4 or k.shape[:2] != (B, M):
-        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}; "
-                         "the kernel takes 4 modes")
+    if k.shape[:2] != (B, M):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    check_agg_modes(what, M, md)
     (q, k), bf16 = _prep(q, k)
     check_mma_tiles(what, bf16, md, "q and k", q, k)
     return q, k, bf16
@@ -518,23 +554,24 @@ def corr_norm_sums(q, k, biases, grid_hw, gmax, attn_clip: float,
     ``craft_tpu.ops.pallas.mode_attention.corr_norm_sums_mt``): per sample
     fp64 (sum, sum of squares) [B, 2] of this shard's rows of the clamped,
     aggregated volume, the clamp decided by `gmax`, the raw max over every
-    shard.  q: [B, 4, U1, md], the grid rows from q_row0; k: [B, 4, U2, md],
-    every token.  Summed over the shards, they give B3's moments."""
+    shard.  q: [B, M, U1, md], the grid rows from q_row0; k: [B, M, U2, md],
+    every token (M and md as B3).  Summed over the shards, they give B3's
+    moments."""
     if not q.is_cuda:
         query_rows(q, k, grid_hw, q_row0)
         return corr_norm_sums_plain(q, k, biases, grid_hw, gmax, attn_clip,
                                     pos_w, agg_w, agg_b, q_row0)
     q, k, bf16 = _shard_prep(q, k, grid_hw, q_row0, "corr_norm_sums")
-    B, _, U1, md = q.shape
+    B, M, U1, md = q.shape
     W8 = grid_hw[1]
-    n_partial = corr_partials(B, U1, k.shape[2], bf16)
+    n_partial = corr_partials(B, U1, k.shape[2], agg_mma_body(bf16, M, md))
     partial = torch.empty(n_partial, dtype=torch.float64, device=q.device)
     sums = torch.empty(B, 2, dtype=torch.float64, device=q.device)
     # The kernel's inputs are held here until the launch.
     win, gmax = _f32(biases, q), _f32(gmax, q)
     scal = _corr_scalars(attn_clip, pos_w, agg_w, agg_b, q)
     _call("corr_norm_sums_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(scal),
-          _ptr(gmax), _ptr(partial), n_partial, _ptr(sums), B, U1,
+          _ptr(gmax), _ptr(partial), n_partial, _ptr(sums), B, M, U1,
           k.shape[2], q_row0 * W8, md, W8, (biases.shape[0] - 1) // 2,
           1.0 / math.sqrt(md), bf16, _stream(q))
     corr_norm_sums.launches += 1
@@ -564,7 +601,7 @@ def corr_norm_write(q, k, biases, grid_hw, gmax, sums, attn_clip: float,
         raise ValueError(f"corr_norm_write: {q.dtype} -> {out_dtype}; the "
                          "kernel takes bf16 -> bf16, bf16 -> fp32 and fp32 -> "
                          "fp32")
-    B, _, U1, md = q.shape
+    B, M, U1, md = q.shape
     U2, W8 = k.shape[2], grid_hw[1]
     if sums.shape != (B, 2) or sums.dtype != torch.float64 or \
             sums.device != q.device:
@@ -575,7 +612,7 @@ def corr_norm_write(q, k, biases, grid_hw, gmax, sums, attn_clip: float,
     win, gmax, sums = _f32(biases, q), _f32(gmax, q), sums.contiguous()
     scal = _corr_scalars(attn_clip, pos_w, agg_w, agg_b, q)
     _call("corr_norm_write_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(scal),
-          _ptr(gmax), _ptr(sums), _ptr(norm), _ptr(out), B, U1, U2,
+          _ptr(gmax), _ptr(sums), _ptr(norm), _ptr(out), B, M, U1, U2,
           q_row0 * W8, md, W8,
           (biases.shape[0] - 1) // 2, 1.0 / math.sqrt(md), n_elems, eps,
           bf16, int(out_dtype == torch.bfloat16), _stream(q))
@@ -637,9 +674,10 @@ def mode_softmax_probs(q, k, biases, grid_hw, clip, pos_w: float,
     check_mma_tiles("mode_softmax_probs", bf16, md, "q, k and out", q, k,
                     out)
     win, clip_t = _f32(biases, q), _f32(clip, q)
-    scratch = _probs_scratch(B * M, U1, U2, bf16, q)
+    mma = mma_body(bf16, md)
+    scratch = _probs_scratch(B * M, U1, U2, mma, q)
     _call("probs_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(clip_t),
-          table_ptr(scratch), probs_partials(B * M, U1, U2, bf16), _ptr(out),
+          table_ptr(scratch), probs_partials(B * M, U1, U2, mma), _ptr(out),
           _ptr(row_scale), B * M, U1, U2, q_row0 * W8, md, W8, R,
           1.0 / math.sqrt(md), pos_w, bf16, kind, _stream(q))
     mode_softmax_probs.launches += 1
@@ -689,10 +727,11 @@ def mode_softmax_probs_dense(q, k, table, clip, pos_w: float,
                     k, out)
     table = None if table is None else table.contiguous()
     clip_t = _f32(clip, q)
-    scratch = _probs_scratch(B * M, U1, U2, bf16, q)
+    mma = mma_body(bf16, md)
+    scratch = _probs_scratch(B * M, U1, U2, mma, q)
     _call("probs_dense_launch", _ptr(q), _ptr(k), table_ptr(table),
           _ptr(clip_t), table_ptr(scratch),
-          probs_partials(B * M, U1, U2, bf16), _ptr(out), B * M, U1, U2, md,
+          probs_partials(B * M, U1, U2, mma), _ptr(out), B * M, U1, U2, md,
           1.0 / math.sqrt(md), pos_w, bf16, kinds[out_dtype], _stream(q))
     mode_softmax_probs_dense.launches += 1
     mode_softmax_probs_dense.flops += 2.0 * B * M * U1 * U2 * md

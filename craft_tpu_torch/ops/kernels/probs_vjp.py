@@ -16,9 +16,11 @@ recomputes only c, for the clamp mask.  The kernel (csrc/probs_bwd.cu)
 computes dc in the io type and dlsum = sum_{b,m} dl in fp32; dq/dk run as
 plain products in the io type with fp32 accumulation, as the JAX package
 leaves them to XLA.  Attention dropout stays outside (nn/layers.py).  The
-bf16 body (a row-term pass, then wgmma tiles) takes a mode dim that is a
-multiple of 16 and 16-byte aligned q, k, p, g and dc, and its row-term
-scratch is probs_rowterm_size(...) floats.
+bf16 body (a row-term pass, then wgmma tiles; up to md 64) takes a mode
+dim that is a multiple of 16 and 16-byte aligned q, k, p, g and dc, and
+its row-term scratch is probs_rowterm_size(...) floats; fp32, and bf16
+past md 64 (128 and 256: one or two modes at a 256-wide site), take the
+FMA body.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from craft_tpu_torch.ops.kernels.launch import (F, I, L, P, call, counted,
                                                 f32, prep, ptr, stream)
 from craft_tpu_torch.ops.kernels.mode_attention import (acc_dtype,
                                                         check_mma_tiles,
+                                                        mma_body,
                                                         mode_softmax_probs,
                                                         scores)
 
@@ -40,9 +43,10 @@ _B7_ROWS = 64  # csrc/probs_bwd.cu B7_ROWS
 
 
 def probs_rowterm_size(BM: int, U: int, bf16: int) -> int:
-    """The bf16 body's row-term scratch: one fp32 a row of each of the BM
-    probs matrices, the rows padded to its 64-row tiles; none for fp32
-    (the kernel refuses another size)."""
+    """The wgmma body's row-term scratch (bf16 = 1 names that body,
+    mma_body): one fp32 a row of each of the BM probs matrices, the rows
+    padded to its 64-row tiles; none for the FMA body (the kernel refuses
+    another size)."""
     return BM * -(-U // _B7_ROWS) * _B7_ROWS if bf16 else 0
 
 
@@ -74,7 +78,7 @@ def probs_bwd(q, k, p, g, clip):
     check_mma_tiles("probs_bwd", bf16, md, "q, k, p, g and dc", q, k, p, g,
                     dc)
     dlsum = torch.empty(U, U, dtype=torch.float32, device=q.device)
-    n_row = probs_rowterm_size(B * M, U, bf16)
+    n_row = probs_rowterm_size(B * M, U, mma_body(bf16, md))
     rowt = torch.empty(n_row, dtype=torch.float32, device=q.device)
     call("probs_bwd", "probs_bwd_launch", _BWD_SIG, ptr(q), ptr(k), ptr(p),
          ptr(g), ptr(f32(clip, q)), ptr(dc), ptr(dlsum), ptr(rowt), n_row,

@@ -192,11 +192,12 @@ def test_loader_unwraps_like_the_jax_converter(setup, tmp_path):
         load_reference_checkpoint(pth, model, strict=True)
 
 
+# Mode counts that leave a mode dim below 16 or do not divide the width.
 @pytest.mark.parametrize("flags,item", [
-    (["--nogma", "--intramodes", "2"], "item 6"), (["--f2modes", "8"],
-                                                   "item 6"),
-    (["--f1", "shared", "--intermodes", "2"], "item 6"),
-    (["--intermodes", "2"], "item 6"),
+    (["--nogma", "--intramodes", "32"], "item 6"), (["--f2modes", "64"],
+                                                    "item 6"),
+    (["--f1", "shared", "--intermodes", "3"], "item 6"),
+    (["--intramodes", "16"], "item 6"),
     (["--seq_parallel", "--f1", "shared"], "item 8"),
     (["--seq_parallel", "--intrapos", "lsinu"], "item 8"),
     (["--seq_parallel", "--f2radius", "3"], "item 8"),
@@ -207,6 +208,33 @@ def test_unported_flags_exit_naming_the_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md section 2, {item}"):
         tcli.main(["--model", "absent.pth", "--craft", "--setrans",
                    "--device", CPU] + flags)
+
+
+# What exited naming ROADMAP item 6 (mode counts other than 4) runs.
+@pytest.mark.parametrize("flags", [
+    ["--nogma", "--intramodes", "2"], ["--f2modes", "8"],
+    ["--f1", "shared", "--intermodes", "2"], ["--intermodes", "2"]])
+def test_cli_runs_other_mode_counts(tmp_path, flags):
+    """The flags build the JAX CLI's config, field by field, and the
+    evaluator runs one pair over a .pth of that config (``chip_smoke.
+    config_weights``: the oracle's tensors where their shapes hold) on the
+    CPU, its metrics finite."""
+    import craft_tpu.cli as jcli
+    from test_torch_modes import parse, same_config
+    argv = ["--craft", "--setrans"] + flags
+    got = cli.model_config_from_args(parse(cli, argv))
+    same_config(got, jcli.model_config_from_args(parse(jcli, argv)))
+    pth = str(tmp_path / "modes.pth")
+    _save_pth(chip_smoke.config_weights(got), pth)
+    rng = np.random.RandomState(2)
+    frames = [rng.randint(0, 256, (32, 64, 3)).astype(np.uint8)
+              for _ in range(2)]
+    chip_smoke.write_sintel_tree(tmp_path / "data", frames,
+                                 [np.zeros((32, 64, 2), np.float32)])
+    out = tcli.main(["--model", pth, *argv, "--fullprec", "--iters", "2",
+                     "--dataset", "sintel", "--data_root",
+                     str(tmp_path / "data"), "--device", CPU])
+    assert all(np.isfinite(v) for v in out.values()), out
 
 
 @pytest.mark.parametrize("flag", ["submission", "xshifts", "convert", "flop",

@@ -87,16 +87,45 @@ def test_flags_resolve_to_the_jax_config(family):
             assert g == w, f.name
 
 
+# Mode counts that leave a mode dim below 16 or do not divide the width:
+# 32 modes at a 256-wide site (md 8), 16 at the 128-wide intra site, 3.
 @pytest.mark.parametrize("flags,item", [
-    (["--craft", "--setrans", "--f1", "shared", "--intermodes", "2"],
+    (["--craft", "--setrans", "--f1", "shared", "--intermodes", "32"],
      "item 6"),
-    (["--craft", "--f1", "private", "--f2modes", "8"], "item 6"),
-    (["--nogma", "--intermodes", "8"], "item 6"),
-    (["--nogma", "--intramodes", "2"], "item 6"),
-    (["--craft", "--f2modes", "2"], "item 6")])
+    (["--craft", "--f1", "private", "--f2modes", "3"], "item 6"),
+    (["--nogma", "--intermodes", "64"], "item 6"),
+    (["--nogma", "--intramodes", "32"], "item 6"),
+    (["--craft", "--setrans", "--intramodes", "16"], "item 6")])
 def test_still_refused_flags_exit_naming_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md section 2, {item}"):
         tcli.model_config_from_args(_parse(tcli, flags))
+
+
+# What exited naming ROADMAP item 6 (mode counts other than 4) runs.
+MODE_FLAGS = [["--craft", "--setrans", "--f1", "shared", "--intermodes", "2"],
+              ["--craft", "--f1", "private", "--f2modes", "8"],
+              ["--nogma", "--intermodes", "8"], ["--nogma", "--intramodes",
+                                                 "2"],
+              ["--craft", "--f2modes", "2"]]
+
+
+@pytest.mark.parametrize("flags", MODE_FLAGS,
+                         ids=lambda v: "_".join(v).replace("--", ""))
+def test_mode_count_flags_resolve_and_run(sintel, tmp_path, flags):
+    """The flags give the JAX CLI's config, field by field, and the
+    evaluator runs the one-pair Sintel tree over a .pth of that config
+    (``chip_smoke.config_weights``) on the CPU, its metrics finite."""
+    from test_torch_modes import same_config
+    got = tcli.model_config_from_args(_parse(tcli, flags))
+    same_config(got, jcli.model_config_from_args(_parse(jcli, flags)))
+    root, _, _ = sintel
+    pth = tmp_path / "modes.pth"
+    torch.save({"model": {"module." + k: v for k, v in
+                          chip_smoke.config_weights(got).items()}}, pth)
+    out = teval.main(["--model", str(pth), *flags, "--dataset", "sintel",
+                      "--fullprec", "--iters", "2", "--data_root", str(root),
+                      "--device", "cpu"])
+    assert all(np.isfinite(v) for v in out.values()), out
 
 
 @pytest.mark.parametrize("flags", [["--raft"], ["--nogma"], ["--craft"],

@@ -96,6 +96,40 @@ def test_the_launchers_count_from_these_constants():
         assert name in body, name
 
 
+# Where each kind of kernel chooses its body: the per-mode launchers (B1,
+# B2/B8, B4/B4 dense, B7) and the aggregating ones (B3/B9, B6, B6 dense, B6
+# backward).
+BODY_CHOICE = {"mma_body": ("scores_max.cu", "flash_attn.cu",
+                            "softmax_probs.cu", "probs_bwd.cu"),
+               "agg_mma_body": ("corr_norm.cu", "agg_corr.cu")}
+
+
+def test_the_body_choice_is_defined_once_and_mirrored():
+    """Each kind's wgmma-or-FMA choice is one constexpr predicate
+    (common.cuh mma_body, agg_modes.cuh agg_mma_body) that every launcher
+    of that kind calls and no source restates; the wrappers' mirrors, which
+    size the scratch, give the same answer at every count and dim."""
+    sources = {p.name: p.read_text() for p in CSRC.glob("*.cu*")}
+    for pred, users in BODY_CHOICE.items():
+        defined = [n for n, t in sources.items()
+                   if re.search(rf"constexpr bool {pred}\(", t)]
+        assert defined == [{"mma_body": "common.cuh",
+                            "agg_mma_body": "agg_modes.cuh"}[pred]], defined
+        for name in users:
+            assert re.search(rf"\b{pred}\(", sources[name]), (pred, name)
+    restated = [n for n, t in sources.items()
+                if re.search(r"bf16 &&[^;]*md <= MAXMD\b", t)]
+    assert restated == ["common.cuh"], restated
+    common, agg = _defines("common.cuh"), _defines("agg_modes.cuh")
+    for bf16 in (0, 1):
+        for md in (8, 16, 32, 64, 128, 256):
+            mma = bool(bf16) and md <= common["MAXMD"]
+            assert ma.mma_body(bf16, md) == mma
+            for M in ma.AGG_MODES:
+                assert ma.agg_mma_body(bf16, M, md) == (
+                    mma and M == agg["NMODES"])
+
+
 # (label, batch, query rows U1, keys U2): serving 440x1024, chairs 368x496
 # (batch 8), KITTI 376x1248, and the serving grid's row shards at 2 and 4
 # ranks (28/27 and 14/13 rows of 128 tokens).

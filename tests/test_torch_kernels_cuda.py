@@ -441,7 +441,8 @@ def test_launch_counts_count_kernel_launches_only(dev):
 def test_unsupported_variants_raise(dev):
     q, k, biases = _inputs(dev, GRIDS[0], 64, torch.float32)
     clip = torch.tensor(1e30, device=dev)
-    v = torch.randn(2, 4, q.shape[2], 128, generator=_gen(1)).to(dev)
+    # F = 192: the kernel takes 128 and 256 (FLASH_FEAT).
+    v = torch.randn(2, 4, q.shape[2], 192, generator=_gen(1)).to(dev)
     with pytest.raises(ValueError, match="feature dim"):
         ma.flash_mode_attention(q, k, v, biases, GRIDS[0], clip, 0.5)
     one = torch.tensor(1.0, device=dev)
@@ -820,7 +821,7 @@ def test_b4_dense_bf16_body_at_wide_shapes(dev, with_table, shape, md):
 def test_dense_variants_that_the_kernels_do_not_take_raise(dev):
     q, k, table, v = _dense_inputs(dev, (60, 60), 64, torch.float32, True)
     with pytest.raises(ValueError, match="feature dim"):
-        ma.flash_mode_attention_dense(q, k, v[..., :128], table, 1e30, 0.5)
+        ma.flash_mode_attention_dense(q, k, v[..., :192], table, 1e30, 0.5)
     with pytest.raises(ValueError, match="fp32 -> fp32"):
         ma.mode_softmax_probs_dense(q, k, table, 1e30, 1.0)
     with pytest.raises(ValueError, match="dense bias table"):

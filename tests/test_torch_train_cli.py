@@ -282,12 +282,13 @@ def _has_matplotlib() -> bool:
     return True
 
 
+# Mode counts that leave a mode dim below 16 or do not divide the width.
 @pytest.mark.parametrize("flags,item", [
-    (["--f2modes", "8"], "item 6"),
-    (["--nogma", "--intramodes", "8"], "item 6"),
-    (["--intermodes", "2"], "item 6"),
-    (["--f1", "shared", "--f2modes", "2"], "item 6"),
-    (["--intramodes", "2"], "item 6")],
+    (["--f2modes", "32"], "item 6"),
+    (["--nogma", "--intramodes", "64"], "item 6"),
+    (["--intermodes", "3"], "item 6"),
+    (["--f1", "shared", "--f2modes", "32"], "item 6"),
+    (["--intramodes", "16"], "item 6")],
     ids=lambda v: v if isinstance(v, str) else "_".join(v))
 def test_cli_exits_on_what_is_not_ported(tmp_path, flags, item):
     """Each exits before training starts (no data, no output written)."""
@@ -295,6 +296,32 @@ def test_cli_exits_on_what_is_not_ported(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=item):
         tcli.main(argv + flags)
     assert not (tmp_path / "out").exists()
+
+
+# What exited naming ROADMAP item 6 (mode counts other than 4) trains.
+@pytest.mark.parametrize("flags", [
+    ["--f2modes", "8"], ["--nogma", "--intramodes", "8"],
+    ["--intermodes", "2"], ["--f1", "shared", "--f2modes", "2"],
+    ["--intramodes", "2"]], ids=lambda v: "_".join(v))
+def test_cli_trains_other_mode_counts(chairs_tree, tmp_path, flags):
+    """The flags give the JAX CLI's config, field by field, and one step of
+    the chairs stage runs with it (finite weights, the checkpoint
+    written)."""
+    import craft_tpu.cli as jcli
+    from craft_tpu_torch import cli
+    from test_torch_modes import parse, same_config
+    argv = ["--craft", "--setrans"] + flags
+    got = cli.model_config_from_args(parse(cli, argv))
+    same_config(got, jcli.model_config_from_args(parse(jcli, argv)))
+    out = tmp_path / "out"
+    state = tcli.main(_cli_args(chairs_tree, out, "--num_steps", "1",
+                                *flags))
+    cfg = state.model.cfg
+    assert state.step == 1 and (cfg.arch, cfg.inter, cfg.f2, cfg.intra) == (
+        got.arch, got.inter, got.f2, got.intra)
+    assert all(bool(torch.isfinite(p).all())
+               for p in state.model.parameters())
+    assert (out / "t.pth").exists()
 
 
 @pytest.mark.parametrize("case", ["stage_viper", "validation_things"])

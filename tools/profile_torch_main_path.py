@@ -2,7 +2,7 @@
 
     python3 tools/profile_torch_main_path.py [--pairs 2] [--train]
         [--config main|lsinu|f2radius|f1_shared|f1_private|raft|gma|
-                  craft_gma|craft_nogma|craft_f2_none]
+                  craft_gma|craft_nogma|craft_f2_none|modes1|modes8]
 
 The main path of chip_smoke.py (its model, frame pairs and serving loop):
 full CRAFT at 436x1024 padded to 440x1024, bf16 with int8 intra probs, 12
@@ -10,7 +10,9 @@ iterations, the weights of the oracle snapshot; with --config, the same
 served under lsinu (all three sites), --f2radius 7 or two-way
 correlation, --f1 shared or private (chip_smoke.py's serving_model), or
 another family with its seeded weights (chip_smoke.py's
-family_model and family_train_setup).  After one warm-up pair it
+family_model and family_train_setup), or one or eight modes at every
+SETrans site (modes1, modes8: chip_smoke.py's mode_model and
+mode_train_setup).  After one warm-up pair it
 times `--pairs` frame pairs on the host clock, then traces the same pairs
 with torch.profiler, and prints per pair: the host wall time (untraced and
 traced), the kernel time under each phase range (craft.* in
@@ -109,7 +111,8 @@ def main() -> int:
                     help="profile training steps instead of serving")
     ap.add_argument("--config", default="main",
                     choices=["main", "lsinu", "f2radius",
-                             *chip_smoke.TWO_WAY, *chip_smoke.FAMILIES],
+                             *chip_smoke.TWO_WAY, *chip_smoke.FAMILIES,
+                             *chip_smoke.MODE_FULL],
                     help="the configuration served or trained")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -119,9 +122,11 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(card)
     family = args.config in chip_smoke.FAMILIES
+    modes = args.config in chip_smoke.MODE_FULL
     if args.train:
         state, step, batch = (
             chip_smoke.family_train_setup(dev, args.config) if family
+            else chip_smoke.mode_train_setup(dev, args.config) if modes
             else chip_smoke.train_setup(dev, args.config))
 
         def wall_ms_per_pair():
@@ -131,6 +136,7 @@ def main() -> int:
         chip_smoke.train_steps(state, step, batch, 1)  # warm-up
     else:
         model = (chip_smoke.family_model(dev, args.config, True) if family
+                 else chip_smoke.mode_model(dev, args.config, True) if modes
                  else chip_smoke.serving_model(dev, args.config))
         _, pairs = chip_smoke.frame_pairs(dev, args.pairs + 1)
 

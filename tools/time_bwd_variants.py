@@ -194,10 +194,10 @@ def main() -> int:
         if not name.startswith("b6"):
             continue
         fn = lib.agg_corr_bwd_launch
-        fn.argtypes = [P] * 8 + [I, P, I, I, I, I, I, F, I, P]
+        fn.argtypes = [P] * 8 + [I, P, I, I, I, I, I, I, F, I, P]
         fn.restype = I
         args = (ptr(q), ptr(k), ptr(g), ptr(vol), ptr(win), ptr(scal),
-                ptr(dc), ptr(part), n_part, ptr(da), BATCH, U, 64,
+                ptr(dc), ptr(part), n_part, ptr(da), BATCH, 4, U, 64,
                 CHAIRS[1], 7, 0.125, 1, stream)
         build.check(fn(*args), name)
         print(f"{name}, md 64: {time_ms(lambda: fn(*args)):.3f} ms")

@@ -22,7 +22,8 @@ W8=156):
   the same bits);
   B6 dense and B4 dense (bf16 probs) at serving, each with no table and
   with the --f2radius 7 table;
-  B7 (probs_bwd) at chairs, md 64 and 32;
+  B7 (probs_bwd) at chairs, md 64 and 32, and md 64 in fp32 (its FMA
+  body);
   B8 (flash_mode_attention_dense) at serving, with no table and with the
   --f2radius 7 table (pos_w * the dense window + the mask);
   B2 and B8 with the table again in fp32 (their fp32 body);
@@ -80,11 +81,12 @@ SAVED = ("B1", "B1_md32", "B1_chairs", "B1_fp32", "B2", "B2_fp32", "B3",
          "B3_kitti", "B3_fp32", "B4", "B4_kitti", "B4_chairs_md32",
          "B4_chairs_md64", "B4_dense", "B4_dense_table", "B5", "B5_chairs",
          "B8", "B8_table", "B8_fp32_table", "B9_sums_r0", "B9_sums_r1",
-         "B9_write_r0", "B9_write_r1", "B7_md64", "B7_md32", "B6", "B6_bwd",
-         "B6_dense", "B6_dense_table")
+         "B9_write_r0", "B9_write_r1", "B7_md64", "B7_md32", "B7_fp32_md64",
+         "B6", "B6_bwd", "B6_dense", "B6_dense_table")
 # The second output kept beside the first, by case: B7's dlsum, B6
 # backward's da.
-SECOND = {"B7_md64": "dlsum", "B7_md32": "dlsum", "B6_bwd": "da"}
+SECOND = {"B7_md64": "dlsum", "B7_md32": "dlsum", "B7_fp32_md64": "dlsum",
+          "B6_bwd": "da"}
 # B10: the pass's forward and backward, each pass, serving and chairs.
 B10_CASES = tuple(f"B10{b}{g}_{p}" for b in ("", "_bwd")
                   for g in ("", "_chairs") for p in ("h", "v"))
@@ -226,6 +228,12 @@ def _cases(torch, dev):
         p = ma.mode_softmax_probs_plain(q, k, biases, CHAIRS, clip, pos_w)
         cases[f"B7_md{md}"] = functools.partial(pv.probs_bwd, q, k, p, g_p,
                                                 clip)
+    # B7's FMA body: md 64 in fp32, from the same inputs.
+    q, k = qc64.float(), kc64.float()
+    p = ma.mode_softmax_probs_plain(q, k, biases, CHAIRS, clip, 0.5,
+                                    out_dtype=torch.float32)
+    cases["B7_fp32_md64"] = functools.partial(pv.probs_bwd, q, k, p,
+                                              g_p.float(), clip)
     if "dim" in inspect.signature(lk.corr_lookup).parameters:
         # B5 at D = 2 (two-way correlation), in a checkout that has it:
         # each level two planes, from a generator of its own, so that the

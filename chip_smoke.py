@@ -51,7 +51,22 @@ these phases and fails on the first that fails:
      row offset dropped, the moments over the shard's own element count
      and the shard's own max as the clamp predicate planted in the plain
      versions; B1, B2 and B4 on a shard with its row offset (offset
-     dropped planted).  Then B10, the fused SepConvGRU pass, at the GRU's
+     dropped planted); B8, B6 dense and B4 dense on every row shard of
+     the serving grid at 2 and 4 ranks and of the KITTI grid at 2 (24/23
+     rows, off the kernels' row tiles), every rank a thread whose
+     collectives meet in one process (``LocalGroup``), its clamp from
+     ``sp_clip``, with no table (lsinu) and with the shard's rows of a
+     table (B8: the --f2radius mask and window as the dense site builds
+     them, against the rows of the whole table), bf16 and fp32, the
+     table's rows from grid row 0 and the shard's own max as the clamp
+     predicate planted, and B6 dense's shards normed by
+     ``build_pyramid(shard=...)`` with every rank's moments, the shard's
+     own moments planted; B9 in both directions of the two-way volume
+     through ``sp_fused_agg_corr_norm_mt``, the first direction's moments
+     planted in the second; GMA's
+     attention (position and content, max_pos_size 40 below the grid's
+     sides) on rank 1 of 2 against the unsharded rows, x0 = 0 planted.
+     Then B10, the fused SepConvGRU pass, at the GRU's
      full width (hidden 128, x 384) on the serving grid (B=1, 55x128) and
      the chairs grid (B=8, 46x62), bf16 and fp32: both passes (horizontal,
      stride 1 with the image-row mask; vertical, stride W over the same
@@ -131,6 +146,16 @@ these phases and fails on the first that fails:
      metrics against the unsharded CLI's, and each rank's peak memory
      below the unsharded peak at 440x1024 and 1088x1920; then one rank
      without torchrun on NCCL (world = the card count) against unsharded.
+     Then two ranks (--sp-config-rank, gloo) for each other configuration
+     the evaluator takes (lsinu, --f2radius 7, --f1 shared and private,
+     RAFT, GMA with --position_and_content, CRAFT with GMA attention,
+     craft_nogma, --f2 none; SP_CONFIG_KERNELS): 3 mixed pairs at 440x1024
+     after a warm-up against the unsharded forward (0.15 px), launches per
+     rank and pair asserted, event and device ms; one fp32 pair of lsinu
+     and GMA (1e-3 px); one 1088x1920 pair of each, each rank's peak below
+     the unsharded peak; the evaluator CLI with --seq_parallel over a
+     KITTI tree with --f1 private and with --raft against the unsharded
+     CLI.
      Then the lazy intra path (intra probs past 4e9 bytes): one HD1K pair
      (1088x2560) of the main config with its launches asserted (B2 13, 12
      of them at F 128; no B4) and its peak below 8e9 B, against the same
@@ -231,7 +256,10 @@ these phases and fails on the first that fails:
      B6 dense and B4 dense at the serving shape (B8 and B6 dense also with
      the --f2radius table, B8 beside scaled_dot_product_attention with it
      as its mask); B9 sums and write per shard at 2 and 4 shards beside their
-     plain versions, bounds and B3; B10 forward and backward of each
+     plain versions, bounds and B3; B8, B6 dense and B4 dense at the
+     shards of the serving grid over 2 ranks (rows 0:28 and 28:55; B8
+     also with its --f2radius table's rows); B10 forward and backward of
+     each
      pass at the serving and chairs grids (bf16) beside the plain
      versions, the bounds and the same pass in the cuDNN conv form.
      B4's, B6's and B6 dense's lines add the floor of their exponentials
@@ -242,8 +270,9 @@ these phases and fails on the first that fails:
 Prints the card line and a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 CUDA is unavailable.  Imports nothing of JAX.  `--sp-rank DIR [--sp-nccl]`
-runs one rank of the sequence-parallel phase, `--sp-modes-rank DIR` one of
-the mode-count phase's (the script starts them).
+runs one rank of the sequence-parallel phase, `--sp-config-rank DIR` one
+of the configurations' sequence-parallel phase, `--sp-modes-rank DIR` one
+of the mode-count phase's (the script starts them).
 """
 
 from __future__ import annotations
@@ -260,11 +289,14 @@ import shutil
 import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from craft_tpu_torch import evaluate as evaluate_cli
 from craft_tpu_torch import train as train_cli
@@ -285,6 +317,7 @@ from craft_tpu_torch.ops.kernels import corr_vjp as cv
 from craft_tpu_torch.ops.kernels import mode_attention as ma
 from craft_tpu_torch.ops.kernels import probs_vjp as pv
 from craft_tpu_torch.ops.kernels import sep_conv_gru as sg
+from craft_tpu_torch.parallel.sp import RowShard, row_split
 from craft_tpu_torch.training.train_step import (create_train_state,
                                                  host_metrics,
                                                  make_train_step)
@@ -1961,6 +1994,333 @@ def check_sp_kernels(dev, gen, report, grid=(H8, W8), worlds=SP_WORLDS,
          plain(out_dtype=torch.float32, q_row0=h0), row_rel_err,
          B4_ROW_TOL[torch.bfloat16],
          {"row offset dropped": plain(out_dtype=torch.float32)})
+
+
+# Phase 2, sequence parallelism under the dense tables and for the other
+# families: B8, B6 dense and B4 dense on every row shard of the serving
+# grid at 2 and 4 ranks (28/27 and 14/14/14/13 rows) and of the KITTI grid
+# at 2 (24/23 rows: 3744 and 3588 query tokens, off the 64- and 128-row
+# tiles), each with no table (lsinu) and with the shard's rows of a table
+# (B8: the --f2radius mask and window's rows, ``f2_table_rows``; B6 dense
+# and B4 dense: a seeded one), the clamp from ``parallel/
+# sequence_parallel.py:sp_clip``, each rank a thread of a LocalGroup: the
+# port's RowShard with its all-reduce met in one process.  The inputs are
+# sp_inputs's: every shard but the first sees only scores whose local max
+# is below SP_CLIP_ON while the global max is above it.  Planted in the
+# plain versions: the table's rows taken from grid row 0 instead of the
+# shard's first row, and the clamp predicate from the shard's own max (no
+# all_max); B6 dense's shards are then normed by ``build_pyramid(...,
+# shard=)`` (RowShard.layer_norm_moments) against the plain whole volume's
+# norm, the moments of the shard's own rows (no all_sum) planted.  Then B9
+# in both directions of the two-way volume at 2 ranks through
+# ``sp_fused_agg_corr_norm_mt``, each direction's moments its own (the
+# first direction's planted in the second), and GMA's attention on rank 1
+# of 2 against the unsharded attention's rows, at a max_pos_size below the
+# grid's sides, its relative positions from grid row 0 (x0 = 0) planted.
+SP_DENSE_CASES = (((H8, W8), 2), ((H8, W8), 4), (KITTI_GRID, 2))
+SP_GMA_MAX_POS = 40  # RelPosEmb rows 2 * 40 - 1, below 55 and 128
+# The shards' normed B6 dense volume (fp32, std 1) against the plain one:
+# max |d| / (1e-4 + 1e-4 |want|), the fp32 raw volume's B6_TOL carried
+# through the norm.
+SP_NORM_TOL = 1.0
+SP_GMA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # row_rel_err
+
+
+class LocalGroup:
+    """`world` stand-in ranks of a RowShard group in one process: ``run``
+    calls a function on each rank's LocalShard, each in a thread of its
+    own, and their collectives meet at a barrier, where every rank's tensor
+    is reduced in rank order."""
+
+    def __init__(self, world: int):
+        self.world = world
+        self._slots = [None] * world
+        self._barrier = threading.Barrier(world)
+
+    def reduce(self, rank: int, x, op):
+        self._slots[rank] = x
+        self._barrier.wait()
+        stacked = torch.stack(self._slots)
+        out = stacked.amax(0) if op == dist.ReduceOp.MAX else stacked.sum(0)
+        self._barrier.wait()
+        return out
+
+    def run(self, fn, grid) -> list:
+        """[fn(shard) for each rank's LocalShard of `grid`], the ranks run
+        together; a rank's exception breaks the barrier for the others and
+        is raised here."""
+        out, errors = [None] * self.world, []
+        self._barrier = threading.Barrier(self.world)
+
+        def rank_body(r):
+            try:
+                out[r] = fn(LocalShard(self, grid, r))
+            except BaseException as e:  # noqa: BLE001 (re-raised below)
+                errors.append(e)
+                self._barrier.abort()
+        threads = [threading.Thread(target=rank_body, args=(r,))
+                   for r in range(self.world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        errors.sort(key=lambda e: isinstance(e, threading.BrokenBarrierError))
+        if errors:
+            raise errors[0]
+        return out
+
+
+class LocalShard(RowShard):
+    """Rank `rank`'s RowShard of `grid` in a LocalGroup: the port's own
+    RowShard (its split, its collectives, its layer-norm moments), with the
+    transport's all-reduce met in the group."""
+
+    def __init__(self, group: LocalGroup, grid, rank: int):
+        super().__init__(SimpleNamespace(world=group.world, rank=rank), *grid)
+        self.local, self.rank = group, rank
+
+    def _all_reduce(self, x, op):
+        return x.copy_(self.local.reduce(self.rank, x, op))
+
+
+def _sp_clip(gmax, attn_clip: float):
+    return torch.where(gmax > attn_clip, torch.full_like(gmax, attn_clip),
+                       torch.full_like(gmax, 1e30))
+
+
+def _sp_dense(name, q, k, table, clip, pos_w, v, plain=False):
+    """Kernel `name` (its plain version if `plain`) on the rows q."""
+    if name == "flash_mode_attention_dense":
+        fn = ma.flash_mode_attention_dense_plain if plain \
+            else ma.flash_mode_attention_dense
+        return fn(q, k, v, table, clip, pos_w)
+    if name == "fused_agg_corr_dense":
+        fn = cv.fused_agg_corr_dense_plain if plain \
+            else cv.fused_agg_corr_dense
+        return fn(q, k, table, clip, pos_w, *AGG_WB)
+    fn = ma.mode_softmax_probs_dense_plain if plain \
+        else ma.mode_softmax_probs_dense
+    return fn(q, k, table, clip, pos_w,
+              out_dtype=torch.float32 if plain else q.dtype)
+
+
+def f2_table_rows(biases, grid, dev, h0: int, rows: int):
+    """The f2 site's --f2radius table on grid rows h0 .. h0 + rows - 1 as
+    the port's dense site builds it (``nn/setrans.py:_dense_forward``):
+    the row-range mask + DENSE_POS_W * the window's rows."""
+    return setrans.attention_mask(*grid, F2RADIUS, dev, h0, rows) + \
+        DENSE_POS_W * ma.sliding_pos_biases(biases, *grid, h0, rows)
+
+
+def _sp_tables(name, grid, seeded, biases, dev):
+    """(the whole table of kernel `name`, its pos_w, the shard's rows of the
+    table as the port builds them: shard -> [U_local, U]): for B8 the f2
+    site's --f2radius mask and window (the whole table as the unsharded
+    site sums them, the shard's by f2_table_rows), for B6 dense and B4
+    dense the seeded table."""
+    if name != "flash_mode_attention_dense":
+        return seeded, DENSE_POS_W, lambda sh: seeded[sh.u0:sh.u1]
+    whole = setrans.attention_mask(*grid, F2RADIUS, dev) + DENSE_POS_W * \
+        ma.sliding_pos_biases(biases, *grid)
+    return whole, 1.0, lambda sh: f2_table_rows(biases, grid, dev, sh.h0,
+                                                sh.rows)
+
+
+def check_sp_dense_kernels(dev, gen, report, cases=SP_DENSE_CASES,
+                           wide=(4, 64), intra=(4, 32)) -> None:
+    """Phase 2: B8, B6 dense and B4 dense on row shards (SP_DENSE_CASES'
+    grids and rank counts; bf16, and fp32 at the first case), each rank's
+    clamp from ``sp_clip``, then B6 dense's shards normed by
+    ``build_pyramid``, with the planted faults above.  On CPU tensors the
+    kernels' wrappers take the plain versions themselves."""
+    from craft_tpu_torch.ops.corr import global_layer_norm
+    from craft_tpu_torch.parallel import sequence_parallel as spw
+    biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
+    sites = (("flash_mode_attention_dense", wide),
+             ("fused_agg_corr_dense", wide),
+             ("mode_softmax_probs_dense", intra))
+    tols = {"flash_mode_attention_dense": lambda dt: (rel_err, b2_tol(dt)),
+            "fused_agg_corr_dense": lambda dt: (rel_err, B6_TOL),
+            "mode_softmax_probs_dense": lambda dt: (row_rel_err,
+                                                    B4_ROW_TOL[dt])}
+    for i, (grid, world) in enumerate(cases):
+        H, Wd = grid
+        u = H * Wd
+        shards = [row_split(H, world, r) for r in range(world)]
+        seeded = (torch.randn(u, u, generator=gen) * BIAS_STD).to(dev)
+        dtypes = (torch.bfloat16, torch.float32) if i == 0 \
+            else (torch.bfloat16,)
+        for dtype, (name, (M, md)), with_table in (
+                (dt, s, t) for dt in dtypes for s in sites
+                for t in (False, True)):
+            q, k = sp_inputs(gen, md, dev, dtype, shards[0][1], grid,
+                             modes=M)
+            v = torch.randn(1, M, u, 256, generator=gen).to(dev, dtype)
+            ql = [q[:, :, h0 * Wd:h1 * Wd] for h0, h1 in shards]
+            lmax = [ma.scores_global_max_plain(x, k, md ** -0.5) for x in ql]
+            gmax = torch.stack(lmax).amax()
+            clip = _sp_clip(gmax, SP_CLIP_ON)
+            err_fn, tol = tols[name](dtype)
+            tag = f"{name} M={M} md={md} {dtype} grid {H}x{Wd} n={world} " \
+                f"{'table' if with_table else 'no table'}"
+            whole, pos_w, rows_of = _sp_tables(name, grid, seeded, biases,
+                                               dev)
+
+            def rank_call(shard):
+                x = q[:, :, shard.u0:shard.u1]
+                return _sp_dense(name, x, k,
+                                 rows_of(shard) if with_table else None,
+                                 spw.sp_clip(shard, x, k, SP_CLIP_ON), pos_w,
+                                 v)
+            gots = LocalGroup(world).run(rank_call, grid)
+            sync(dev)
+            raws = []
+            for got, x, lm, (h0, h1) in zip(gots, ql, lmax, shards):
+                n = x.shape[2]
+                want_table = whole[h0 * Wd:h1 * Wd] if with_table else None
+
+                def plain(tab=want_table, c=clip, x=x):
+                    return _sp_dense(name, x, k, tab, c, pos_w, v, plain=True)
+                faults = {}
+                if with_table and h0 > 0:
+                    faults["table rows from grid row 0"] = \
+                        lambda n=n: plain(tab=whole[:n])
+                if float(lm) <= SP_CLIP_ON < float(gmax):
+                    faults["local clamp predicate"] = \
+                        lambda lm=lm: plain(c=_sp_clip(lm, SP_CLIP_ON))
+                want = plain()
+                hold(f"{tag} rows {h0}:{h1}", got, want, err_fn, tol, faults)
+                note_err(report, name, M,
+                         float((got.float() - want.float()).abs().max()))
+                if name == "fused_agg_corr_dense":
+                    raws.append(want)
+                del want, faults, want_table
+            if raws:
+                _check_sp_norm(tag, grid, world, gots, raws,
+                               global_layer_norm)
+            del q, k, v, ql, gots, raws, whole
+        del seeded
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _check_sp_norm(tag, grid, world, gots, wants, global_layer_norm) -> None:
+    """Each rank's raw B6 dense volume (`gots`) normed by the port's
+    ``build_pyramid(..., shard=)`` (level 0: the moments of every rank's
+    rows through RowShard.layer_norm_moments) against those rows of the
+    plain whole volume's norm (`wants` the plain shards), the moments of
+    the shard's own rows planted."""
+    from craft_tpu_torch.ops.corr import build_pyramid
+    H, Wd = grid
+    B = wants[0].shape[0]
+    levels = LocalGroup(world).run(lambda sh: build_pyramid(
+        gots[sh.rank][:, :, None], B, H, Wd, 1, do_global_norm=True,
+        shard=sh).levels[0], grid)
+    whole = torch.cat(wants, dim=1)
+    want = global_layer_norm(whole.reshape(B, 1, -1)).reshape(whole.shape)
+    err_fn, _ = vol_err(torch.float32)
+    n0 = 0
+    for got, w in zip(levels, wants):
+        n = w.shape[1]
+        local = global_layer_norm(w.reshape(B, 1, -1)).reshape(w.shape)
+        hold(f"{tag} normed rows of {n} tokens", got.reshape(w.shape),
+             want[:, n0:n0 + n], err_fn, SP_NORM_TOL,
+             {"moments of the shard's own rows": local})
+        n0 += n
+
+
+def check_sp_two_way_b9(dev, gen, report, grid=(H8, W8), world=2,
+                        md=64) -> None:
+    """Phase 2: B9 in both directions of the two-way volume on the shards
+    of `grid` over `world` ranks, clamp on, each direction through the
+    port's ``sp_fused_agg_corr_norm_mt`` (B1, all_max, B9 sums, all_sum,
+    B9 write) on every rank, assembled against plain B3 of that
+    direction; the second direction written with the first direction's
+    sums planted (its scores shifted up on every row, the first
+    direction's on the first shard's rows alone, so that their moments
+    differ)."""
+    from craft_tpu_torch.parallel import sequence_parallel as spw
+    biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
+    agg = (torch.tensor(AGG_WB[0], device=dev),
+           torch.tensor(AGG_WB[1], device=dev))
+    H, Wd = grid
+    shards = [row_split(H, world, r) for r in range(world)]
+    n_all = float(H * Wd) ** 2
+    err_fn, tol = vol_err(torch.bfloat16)
+    first_sums = None
+    for d, pos_rows in enumerate((shards[0][1], H)):
+        q, k = sp_inputs(gen, md, dev, torch.bfloat16, pos_rows, grid)
+        got = torch.cat(LocalGroup(world).run(
+            lambda sh: spw.sp_fused_agg_corr_norm_mt(
+                sh, q[:, :, sh.u0:sh.u1], k, biases, SP_CLIP_ON, 0.5, *agg,
+                out_dtype=torch.bfloat16), grid), 1)
+        sync(dev)
+        ql = [q[:, :, h0 * Wd:h1 * Wd] for h0, h1 in shards]
+        gmax = torch.stack([ma.scores_global_max_plain(x, k, md ** -0.5)
+                            for x in ql]).amax()
+        args = (biases, grid, gmax)
+        sums = torch.stack([ma.corr_norm_sums_plain(
+            x, k, *args, SP_CLIP_ON, 0.5, *agg, q_row0=h0)
+            for x, (h0, _) in zip(ql, shards)]).sum(0)
+        first_sums = sums if d == 0 else first_sums
+        want, _ = ma.fused_agg_corr_norm_plain(q, k, biases, grid,
+                                               SP_CLIP_ON, 0.5, *agg,
+                                               out_dtype=torch.float32)
+        faults = {}
+        if d == 1:
+            faults["the first direction's moments"] = lambda: torch.cat([
+                ma.corr_norm_write_plain(
+                    x, k, *args, first_sums, n_all, SP_CLIP_ON, 0.5, *agg,
+                    q_row0=h0, out_dtype=torch.float32)
+                for x, (h0, _) in zip(ql, shards)], 1)
+        hold(f"B9 two-way direction {d + 1} n={world}: shards against B3",
+             got, want, err_fn, tol, faults)
+        note_err(report, "corr_norm_write", 4,
+                 float((got.float() - want).abs().max()))
+        del q, k, ql, got, want, faults
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def gma_x0_fault(att, fmap, shard):
+    """Attention on `shard` with its relative positions read from grid row
+    0 instead of the shard's first row: the planted fault of a rank that
+    passes a local row offset."""
+    probs = att._probs
+    att._probs = lambda q, kt, h, w, x0: probs(q, kt, h, w, x0 - shard.h0)
+    try:
+        return att(fmap, shard=shard)
+    finally:
+        del att._probs
+
+
+def check_sp_gma(dev, gen, grid=(H8, W8), max_pos=SP_GMA_MAX_POS, world=2,
+                 rank=1) -> None:
+    """Phase 2: GMA's attention (position and content, max_pos_size below
+    both sides of `grid`) on rank `rank` of `world` against the unsharded
+    attention's rows, fp32 and bf16, x0 = 0 planted (gma_x0_fault)."""
+    from craft_tpu_torch.nn.gma import Attention
+    shard = LocalShard(LocalGroup(world), grid, rank)
+    h0, h1 = shard.h0, shard.h1
+    fmap = torch.randn(1, *grid, 128, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        att = Attention(dim=128, max_pos_size=max_pos, dim_head=128,
+                        position_and_content=True, dtype=dtype)
+        with torch.no_grad():
+            for p in att.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        * (1.0 if p.dim() == 2 else 128 ** -0.5))
+        att = att.to(dev).eval()
+        x = fmap.to(dev)
+        with torch.inference_mode():
+            want = att(x)[:, :, h0 * grid[1]:h1 * grid[1]]
+            got = att(x, shard=shard)
+            sync(dev)
+            hold(f"GMA attention {dtype} grid {grid[0]}x{grid[1]} max_pos "
+                 f"{max_pos} rows {h0}:{h1}", got, want, row_rel_err,
+                 SP_GMA_TOL[dtype],
+                 {"x0 = 0 on rank 1": lambda: gma_x0_fault(att, x, shard)})
+        del att, want, got
 
 
 def check_oracle(dev) -> dict:
@@ -4196,6 +4556,301 @@ def time_sp_kernels(dev, gen, report, b3_ms) -> None:
               f"against B3 {b3_ms:.3f} ms")
 
 
+# Phase 4, sequence parallelism of every configuration the evaluator takes
+# beside full CRAFT with the sliding bias: two ranks of this script
+# (--sp-config-rank) under torch.distributed.run on the one card (gloo),
+# each configuration of SP_CONFIG_KERNELS at 440x1024, mixed, against the
+# unsharded forward of this process.  Per rank and pair, the launches:
+#   lsinu           B1 3, B8 1, B6 dense 1, B4 dense 1, B5 12
+#   --f2radius 7    B1 3, B8 1, B9 sums 1 + write 1, B4 int8 1, B5 12
+#   --f1            B1 5, B2 2, B9 2 + 2, B4 int8 1, B5 12 (at D = 2)
+#   RAFT, GMA       B5 12
+#   CRAFT with GMA attention, craft_nogma
+#                   B1 2, B2 1, B9 1 + 1, B5 12
+#   --f2 none       B1 2, B9 1 + 1, B4 int8 1, B5 12
+SP_CONFIG_DIR = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_sp_configs"
+_SP_TWO_WAY = {"scores_global_max": 5, "flash_mode_attention": 2,
+               "corr_norm_sums": 2, "corr_norm_write": 2,
+               "mode_softmax_probs": 1, "corr_lookup": ITERS}
+_SP_F2_INTER = {"scores_global_max": 2, "flash_mode_attention": 1,
+                "corr_norm_sums": 1, "corr_norm_write": 1,
+                "corr_lookup": ITERS}
+SP_CONFIG_KERNELS = {
+    "lsinu": LSINU_KERNELS,
+    "f2radius": {"scores_global_max": 3, "flash_mode_attention_dense": 1,
+                 "corr_norm_sums": 1, "corr_norm_write": 1,
+                 "mode_softmax_probs": 1, "corr_lookup": ITERS},
+    "f1_shared": _SP_TWO_WAY,
+    "f1_private": _SP_TWO_WAY,
+    "raft": {"corr_lookup": ITERS},
+    "gma_pc": {"corr_lookup": ITERS},
+    "craft_gma": _SP_F2_INTER,
+    "craft_nogma": _SP_F2_INTER,
+    "craft_f2_none": {"scores_global_max": 2, "corr_norm_sums": 1,
+                      "corr_norm_write": 1, "mode_softmax_probs": 1,
+                      "corr_lookup": ITERS},
+}
+SP_CONFIG_PAIRS = 3
+SP_CONFIG_FP32 = ("lsinu", "gma_pc")  # also one fp32 pair
+SP_CONFIG_BIG = ("lsinu", "gma_pc")   # also one BIG_H x BIG_W pair
+# The evaluator CLI with --seq_parallel over the KITTI tree (47 rows:
+# 24/23), mixed.
+SP_CONFIG_CLI = {"f1_private": ["--craft", "--setrans", "--f1", "private"],
+                 "raft": ["--raft"]}
+
+
+def sp_config_weights(name: str, mixed_precision: bool):
+    """(config, state_dict) of SP_CONFIG_KERNELS' `name`: the variants'
+    (variant_weights), GMA with --position_and_content (gma_pc: GMA's
+    family weights; the flag adds no parameter) and the families'."""
+    if name in ("lsinu", "f2radius", *TWO_WAY):
+        return variant_weights(name, mixed_precision)
+    if name == "gma_pc":
+        return (gma_config(mixed_precision=mixed_precision).replace(
+            position_and_content=True), family_weights("gma"))
+    return FAMILIES[name](mixed_precision), family_weights(name)
+
+
+def sp_config_model(dev, name: str, mixed_precision: bool):
+    cfg, sd = sp_config_weights(name, mixed_precision)
+    model = create_model(cfg, device=dev)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def _sp_config_argv(name: str) -> list:
+    return ["--model", str(SP_CONFIG_DIR / f"{name}.pth"),
+            *SP_CONFIG_CLI[name], "--iters", str(ITERS), "--device", "cuda",
+            "--dataset", "kitti", "--data_root", str(SP_CONFIG_DIR / "data")]
+
+
+def sp_config_rank_main(outdir: str) -> int:
+    """One rank of the configurations' sequence-parallel phase: each
+    configuration's SP_CONFIG_PAIRS pairs after a warm-up (launches,
+    event ms, the profiler's device ms of one more pair, peak memory),
+    one fp32 pair of SP_CONFIG_FP32's, one BIG_H x BIG_W pair of
+    SP_CONFIG_BIG's, and the evaluator CLI of SP_CONFIG_CLI's on the KITTI
+    tree the parent wrote.  Writes rank<r>.json and the flows under
+    outdir."""
+    from craft_tpu_torch.parallel import sp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = sp.init("cuda")
+    dev, r = group.device, group.rank
+    out = Path(outdir)
+    res = {"rank": r, "world": group.world, "backend": group.backend}
+    _, pairs = frame_pairs(dev, SP_CONFIG_PAIRS + 1, seed=4)
+    for name, per_pair in SP_CONFIG_KERNELS.items():
+        model = sp_config_model(dev, name, True)
+        serve(model, pairs[:1], group)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        launch.reset_launch_counts()
+        times, flows = serve(model, pairs[1:], group)
+        counts = launch.launch_counts()
+        rr = {"pair_ms": times,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches": {k: c for k, c in counts.items() if c}}
+        _assert_launches(f"sp {name} rank{r}", counts, per_pair,
+                         SP_CONFIG_PAIRS)
+        rr["pair_device_ms"] = device_ms(
+            lambda: serve(model, pairs[1:2], group), 1)
+        torch.save([f.cpu() for f in flows], out / f"rank{r}_{name}_mixed.pt")
+        del model, flows
+        if name in SP_CONFIG_FP32:
+            model = sp_config_model(dev, name, False)
+            _, flows = serve(model, pairs[1:2], group)
+            torch.save([f.cpu() for f in flows],
+                       out / f"rank{r}_{name}_fp32.pt")
+            del model, flows
+        torch.cuda.empty_cache()
+        res[name] = rr
+        print(f"sp {name} rank{r}:", json.dumps(rr), flush=True)
+    del pairs
+    for name in SP_CONFIG_BIG:
+        model = sp_config_model(dev, name, True)
+        _, big = frame_pairs(dev, 1, seed=8, hw=(BIG_H, BIG_W))
+        torch.cuda.reset_peak_memory_stats()
+        times, flows = serve(model, big, group)
+        res[f"{name}_big"] = {"pair_ms": times, "max_memory_allocated":
+                              torch.cuda.max_memory_allocated()}
+        torch.save([f.cpu() for f in flows], out / f"rank{r}_{name}_big.pt")
+        del model, big, flows
+        torch.cuda.empty_cache()
+    for name in SP_CONFIG_CLI:
+        launch.reset_launch_counts()
+        metrics = evaluate_cli.main(_sp_config_argv(name) + ["--seq_parallel"])
+        counts = launch.launch_counts()
+        _assert_launches(f"sp {name} kitti rank{r}", counts,
+                         SP_CONFIG_KERNELS[name], 2)
+        res[f"{name}_kitti"] = {"metrics": metrics, "launches": {
+            k: c for k, c in counts.items() if c}}
+    (out / f"rank{r}.json").write_text(json.dumps(res))
+    print(f"sp configs rank{r}:", json.dumps(res), flush=True)
+    return 0
+
+
+def sp_configs_phase(dev) -> dict:
+    """Phase 4, the configurations' sequence parallelism: the unsharded
+    references here (each configuration's pairs, event and device ms;
+    the fp32 and big pairs, with the big pairs' peak memory; the KITTI
+    CLI's metrics), then SP_RANKS ranks of this script on the one card;
+    each rank's flows against the unsharded ones (BF16_BOUND_PX mixed,
+    FULLPREC_BOUND_PX fp32), its launches (asserted in the rank), its peak
+    below the unsharded one at BIG_H x BIG_W and its CLI metrics against
+    the unsharded CLI's."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SP_CONFIG_DIR, ignore_errors=True)
+    SP_CONFIG_DIR.mkdir(parents=True)
+    _, pairs = frame_pairs(dev, SP_CONFIG_PAIRS + 1, seed=4)
+    ref, unsharded = {}, {}
+    for name in SP_CONFIG_KERNELS:
+        model = sp_config_model(dev, name, True)
+        serve(model, pairs[:1])
+        times, flows = serve(model, pairs[1:])
+        unsharded[name] = {"pair_ms": times, "pair_device_ms": device_ms(
+            lambda: serve(model, pairs[1:2]), 1)}
+        ref[name, "mixed"] = [f.cpu() for f in flows]
+        del model, flows
+        if name in SP_CONFIG_FP32:
+            model = sp_config_model(dev, name, False)
+            ref[name, "fp32"] = [f.cpu() for f in serve(model,
+                                                         pairs[1:2])[1]]
+            del model
+        torch.cuda.empty_cache()
+    del pairs
+    for name in SP_CONFIG_BIG:
+        model = sp_config_model(dev, name, True)
+        _, big = frame_pairs(dev, 1, seed=8, hw=(BIG_H, BIG_W))
+        torch.cuda.reset_peak_memory_stats()
+        times, flows = serve(model, big)
+        unsharded[f"{name}_big"] = {"pair_ms": times, "max_memory_allocated":
+                                    torch.cuda.max_memory_allocated()}
+        ref[name, "big"] = [f.cpu() for f in flows]
+        del model, big, flows
+        torch.cuda.empty_cache()
+    print("sp configs: unsharded", json.dumps(unsharded))
+    rng = np.random.RandomState(9)
+    hw = (KITTI_H, KITTI_W)
+    write_kitti_tree(SP_CONFIG_DIR / "data", [(
+        rng.randint(0, 256, (*hw, 3)).astype(np.uint8),
+        rng.randint(0, 256, (*hw, 3)).astype(np.uint8)) for _ in range(2)],
+        [rng.uniform(-10, 10, (*hw, 2)).astype(np.float32)
+         for _ in range(2)])
+    kitti = {}
+    for name in SP_CONFIG_CLI:
+        torch.save({f"module.{k}": v for k, v in
+                    sp_config_weights(name, False)[1].items()},
+                   SP_CONFIG_DIR / f"{name}.pth")
+        kitti[name] = _timed_cli(f"sp kitti unsharded {name}",
+                                 _sp_config_argv(name), 2)["metrics"]
+    torch.cuda.empty_cache()
+
+    _run_ranks([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(SP_RANKS),
+                str(Path(__file__).resolve()), "--sp-config-rank",
+                str(SP_CONFIG_DIR)],
+               f"sp configs {SP_RANKS} ranks")
+    ranks = [json.loads((SP_CONFIG_DIR / f"rank{r}.json").read_text())
+             for r in range(SP_RANKS)]
+    for r, rk in enumerate(ranks):
+        assert (rk["world"], rk["backend"]) == (SP_RANKS, "gloo"), rk
+        for (name, label), want in ref.items():
+            bound = FULLPREC_BOUND_PX if label == "fp32" else BF16_BOUND_PX
+            got = torch.load(SP_CONFIG_DIR / f"rank{r}_{name}_{label}.pt")
+            err = _max_diff(got, want)
+            print(f"sp {name} rank {r} {label}: max |flow diff| against "
+                  f"unsharded {err:.3e} px (bound {bound})")
+            assert all(bool(torch.isfinite(f).all()) for f in got)
+            assert err < bound, f"sp {name} rank {r} {label}"
+            rk.setdefault("err_px", {})[f"{name}_{label}"] = err
+        for name in SP_CONFIG_BIG:
+            peak = rk[f"{name}_big"]["max_memory_allocated"]
+            whole = unsharded[f"{name}_big"]["max_memory_allocated"]
+            print(f"sp {name} rank {r} peak memory at {BIG_H}x{BIG_W}: "
+                  f"{peak / 1e9:.3f} GB against unsharded {whole / 1e9:.3f} "
+                  f"GB")
+            assert peak < whole, f"sp {name} rank {r} peak memory"
+        for name, want in kitti.items():
+            got = rk[f"{name}_kitti"]["metrics"]
+            d_epe = abs(got["kitti_epe"] - want["kitti_epe"])
+            print(f"sp {name} rank {r} kitti: epe {got['kitti_epe']:.6f} "
+                  f"against {want['kitti_epe']:.6f} (|d| {d_epe:.3e}, bound "
+                  f"{BF16_BOUND_PX}); f1 {got['kitti_f1']:.4f} against "
+                  f"{want['kitti_f1']:.4f}")
+            assert d_epe < BF16_BOUND_PX, f"sp {name} rank {r} kitti epe"
+    for name in SP_CONFIG_KERNELS:
+        flows = [torch.load(SP_CONFIG_DIR / f"rank{r}_{name}_mixed.pt")
+                 for r in range(SP_RANKS)]
+        print(f"sp {name}: the ranks' flows differ by "
+              f"{_max_diff(flows[0], flows[1]):.3e} px; rank 0 pair ms "
+              f"{ranks[0][name]['pair_ms']}, device ms "
+              f"{ranks[0][name]['pair_device_ms']:.3f} (unsharded "
+              f"{unsharded[name]['pair_ms']}, device ms "
+              f"{unsharded[name]['pair_device_ms']:.3f}) | {card_line()}")
+    shutil.rmtree(SP_CONFIG_DIR, ignore_errors=True)
+    print(f"sp configs phase: {time.perf_counter() - t0:.1f} s")
+    return {"unsharded": unsharded, "ranks": ranks, "kitti": kitti}
+
+
+def time_sp_dense_kernels(dev, gen) -> None:
+    """Phase 5, B8, B6 dense and B4 dense at the shard shapes of the
+    serving grid over two ranks (rows 0:28 and 28:55), as the lsinu path
+    runs them (no table) and B8 as --f2radius runs it (the shard's rows of
+    its table), beside the plain versions and the bounds (each input read
+    once, the output written once), over CUDA events.  These calls are
+    shorter than their wrappers' host work, so the events time the host;
+    their device times come from tools/time_window_kernels.py (the
+    profiler of a fresh process: late in this run it drops records of the
+    kernels launched through ctypes)."""
+    biases = (torch.randn(15, 15, generator=gen) * 0.5).to(dev)
+    q, k = inputs(gen, 64, dev)
+    qi, ki = inputs(gen, 32, dev)
+    v = torch.randn(1, 4, U, 256, generator=gen).to(dev, torch.bfloat16)
+    clip = torch.tensor(1e30, device=dev)
+    for h0, h1 in (row_split(H8, 2, r) for r in range(2)):
+        u0, u1 = h0 * W8, (h1 - h0) * W8
+        ql, qil = q[:, :, u0:u0 + u1], qi[:, :, u0:u0 + u1]
+        table = f2_table_rows(biases, (H8, W8), dev, h0, h1 - h0)
+        n = 4.0 * u1 * U
+        qk = lambda md: 2 * 4 * (u1 + U) * md  # noqa: E731
+        cases = {
+            "flash_mode_attention_dense": (
+                lambda: ma.flash_mode_attention_dense(ql, k, v, None, clip,
+                                                      0.5),
+                lambda: ma.flash_mode_attention_dense_plain(ql, k, v, None,
+                                                            clip, 0.5),
+                bound_ms(2.0 * n * (64 + 256),
+                         qk(64) + 2 * 4 * U * 256 + 2 * 4 * u1 * 256)),
+            "flash_mode_attention_dense table": (
+                lambda: ma.flash_mode_attention_dense(ql, k, v, table, clip,
+                                                      1.0),
+                lambda: ma.flash_mode_attention_dense_plain(ql, k, v, table,
+                                                            clip, 1.0),
+                bound_ms(2.0 * n * (64 + 256),
+                         qk(64) + 2 * 4 * U * 256 + 2 * 4 * u1 * 256
+                         + 4 * u1 * U)),
+            "fused_agg_corr_dense": (
+                lambda: cv.fused_agg_corr_dense(ql, k, None, clip, 0.5,
+                                                *AGG_WB),
+                lambda: cv.fused_agg_corr_dense_plain(ql, k, None, clip, 0.5,
+                                                      *AGG_WB),
+                bound_ms(2.0 * n * 64, qk(64) + 4 * u1 * U)),
+            "mode_softmax_probs_dense": (
+                lambda: ma.mode_softmax_probs_dense(qil, ki, None, clip, 1.0),
+                lambda: ma.mode_softmax_probs_dense_plain(qil, ki, None, clip,
+                                                          1.0),
+                bound_ms(2.0 * n * 32, qk(32) + 2 * n)),
+        }
+        for name, (kern, plain, (bms, by)) in cases.items():
+            ms, pms = time_ms(kern, 5), time_ms(plain, 2)
+            print(f"{name} shard rows {h0}:{h1} (U1 {u1}, U2 {U}): "
+                  f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms "
+                  f"({by}) | {card_line()}")
+        del table
+        torch.cuda.empty_cache()
+
+
 def time_kitti_kernels(dev, gen) -> None:
     """Phase 5, the KITTI evaluation shape (376x1248: H8 = 47, W8 = 156,
     U = 7332, B = 1): B2-B4 beside their plain versions and bounds."""
@@ -5514,6 +6169,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_sp_kernels(dev, gen, report)
     torch.cuda.empty_cache()
+    check_sp_dense_kernels(dev, gen, report)
+    check_sp_two_way_b9(dev, gen, report)
+    check_sp_gma(dev, gen)
+    torch.cuda.empty_cache()
     check_gru(dev, report)
     torch.cuda.empty_cache()
     check_mode_kernels(dev, gen, report)
@@ -5584,6 +6243,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     time_sp_kernels(dev, gen, report, report["fused_agg_corr_norm"]["ms"]
                     - report["scores_global_max"]["ms"])
+    torch.cuda.empty_cache()
+    sp_configs_phase(dev)
+    torch.cuda.empty_cache()
+    time_sp_dense_kernels(dev, gen)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card_line())
@@ -5598,6 +6261,9 @@ if __name__ == "__main__":
     if "--sp-rank" in sys.argv:  # a rank of the sequence-parallel phase
         sys.exit(sp_rank_main(sys.argv[sys.argv.index("--sp-rank") + 1],
                               "--sp-nccl" in sys.argv))
+    if "--sp-config-rank" in sys.argv:  # a rank of the configurations' SP
+        sys.exit(sp_config_rank_main(
+            sys.argv[sys.argv.index("--sp-config-rank") + 1]))
     if "--sp-modes-rank" in sys.argv:  # a rank of the mode-count phase
         sys.exit(mode_sp_rank_main(
             sys.argv[sys.argv.index("--sp-modes-rank") + 1]))

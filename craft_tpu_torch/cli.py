@@ -13,10 +13,7 @@ import os
 from craft_tpu_torch.config import (ModelConfig, f2_trans_config,
                                     inter_corr_config, intra_attn_config)
 
-# ROADMAP.md queue items (section 2) that hold what the port lacks.
-ROADMAP_SP = "ROADMAP.md section 2, item 8 (sequence parallelism under " \
-    "lsinu and --f2radius, for the families other than full CRAFT, with " \
-    "two-way correlation, and across several cards)"
+# The ROADMAP.md queue item (section 2) that holds what the CLIs refuse.
 ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (mode counts that leave a " \
     "mode dim below 16)"
 # The shortest mode dim the port's kernels take in bf16 (their tiles' k

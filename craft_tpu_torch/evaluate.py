@@ -31,7 +31,7 @@ names another device (--device cpu).  --seq_parallel splits the grid rows
 of the attention and correlation tensors across the ranks (under torchrun;
 one rank without it): NCCL when every rank has a card of its own, gloo when
 ranks share one; every rank computes the metrics and rank 0 prints them
-(full CRAFT only).
+(every family and flag the evaluator takes without it).
 """
 
 from __future__ import annotations
@@ -42,14 +42,12 @@ import os
 import torch
 
 from craft_tpu_torch import resolve_device
-from craft_tpu_torch.cli import (ROADMAP_SP, add_model_args,
-                                 model_config_from_args, not_ported,
+from craft_tpu_torch.cli import (add_model_args, model_config_from_args,
                                  refuse_jax_checkpoint)
 from craft_tpu_torch.eval import submission
 from craft_tpu_torch.eval.demo import gen_flow
 from craft_tpu_torch.eval.evaluate import VALIDATORS
-from craft_tpu_torch.models.flow_model import (FlowModel, full_craft,
-                                              two_way)
+from craft_tpu_torch.models.flow_model import FlowModel
 from craft_tpu_torch.training.checkpoint import save_weights
 from craft_tpu_torch.utils.weights import load_reference_checkpoint
 
@@ -103,21 +101,6 @@ def parse_args(argv=None):
     return args
 
 
-def _check_ported(args, cfg) -> None:
-    if not args.seq_parallel:
-        return
-    if "lsinu" in (args.inter_pos_code_type, args.intra_pos_code_type) \
-            or args.f2_attn_mask_radius > 0:
-        raise not_ported("--seq_parallel with --interpos/--intrapos lsinu "
-                         "or --f2radius", ROADMAP_SP)
-    if two_way(cfg):
-        raise not_ported("--seq_parallel with --f1 shared / private",
-                         ROADMAP_SP)
-    if not full_craft(cfg):
-        raise not_ported("--seq_parallel with --raft, --nogma, GMA "
-                         "attention (no --setrans) or --f2 none", ROADMAP_SP)
-
-
 def _shifts(args):
     """The (dx, dy) pairs of --xshifts/--yshifts (zip of the two lists, a
     missing one read as 0), or [None] without a sweep."""
@@ -150,7 +133,6 @@ def main(argv=None):
     args = parse_args(argv)
     refuse_jax_checkpoint(args.model, "--model")
     cfg = model_config_from_args(args)
-    _check_ported(args, cfg)
     device = resolve_device(args.device)
     if args.fullprec:
         # Exact fp32 products, the counterpart of the JAX CLI's "highest"

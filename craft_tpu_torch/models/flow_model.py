@@ -37,16 +37,19 @@ correlation is an fp32 island; pyramid
 levels are stored bf16 under mixed precision; coords stay fp32 and are
 detached every iteration.
 
-Under sequence parallelism (full CRAFT alone; eval, sliding bias;
-``seq_parallel``, a
+Under sequence parallelism (eval, every family; ``seq_parallel``, a
 ``craft_tpu_torch.parallel.sp.SeqParallel`` group) each rank holds its
-RowShard's query rows of the O(U^2) tensors: the intra probs, the normed
-level 0 (B9) and the pyramid pooled from it (pooling runs over the key axis
-only), and it runs the lookup on its rows of coords1 and the aggregator's
-probs product on its rows; the f2 output, the lookup features and the
-aggregated motion are gathered to every rank, and everything else (the
-encoders, the projections, the update block's convs, GRU and upsampling)
-runs on every rank as it is.
+RowShard's query rows of the O(U^2) tensors: the intra probs (SETrans or
+GMA attention), the volume (B9's normed level 0 with the sliding bias, B6
+dense's raw one under lsinu, RAFT's plain one), each direction's under
+two-way correlation, and the pyramid pooled from it (pooling runs over the
+key axes only; a raw volume's global norm takes every rank's moments), and
+it runs the lookup on its rows of coords1 and the aggregator's product on
+its rows; the f1 and f2 outputs, the lookup features and the aggregated
+motion are gathered to every rank, and everything else (the encoders, the
+projections, the update block's convs, GRU and upsampling) runs on every
+rank as it is.  The lazy intra path stays off under a shard: the JAX
+package materialises the probs under sequence parallelism too.
 """
 
 from __future__ import annotations
@@ -62,8 +65,9 @@ from craft_tpu_torch import resolve_device
 from craft_tpu_torch.config import ModelConfig
 from craft_tpu_torch.nn.encoder import BasicEncoder
 from craft_tpu_torch.nn.gma import Attention
-from craft_tpu_torch.nn.setrans import (CrossAttFeatTrans, InputFeatEncoder,
-                                        SelfAttVisPosTrans, Sow)
+from craft_tpu_torch.nn.setrans import (NOT_PORTED_SP, CrossAttFeatTrans,
+                                        InputFeatEncoder, SelfAttVisPosTrans,
+                                        Sow)
 from craft_tpu_torch.nn.update import BasicUpdateBlock, GMAUpdateBlock
 from craft_tpu_torch.ops.corr import (all_pairs_correlation, build_pyramid,
                                       corr_lookup, plain_corr_pyramid,
@@ -154,22 +158,10 @@ def recomputed(fn, generator, /, *args, **kwargs):
     return checkpoint(run, *args, use_reentrant=False, **kwargs)
 
 
-# The ROADMAP.md item that holds what FlowModel refuses.
-ROADMAP_SP = "ROADMAP.md section 2, item 8"
-
-
 def two_way(cfg: ModelConfig) -> bool:
     """Two-way correlation: --f1 shared|private, read by arch 'craft'
     only."""
     return cfg.arch == "craft" and cfg.f1trans != "none"
-
-
-def full_craft(cfg: ModelConfig) -> bool:
-    """arch 'craft' with TransCorr, the f2 transformer, SETrans intra
-    attention and one-way correlation: the only family with a
-    sequence-parallel path."""
-    return (cfg.arch == "craft" and cfg.craft and cfg.use_setrans
-            and cfg.f2trans != "none" and not two_way(cfg))
 
 
 def _scope(sow, name):
@@ -254,10 +246,9 @@ class FlowModel(nn.Module):
         layout (``ops.geometry.unpack_upsampled`` unpacks a frame).
         `generator` (a ``torch.Generator`` on the model's device) draws
         every training dropout mask.  `seq_parallel` (a SeqParallel group,
-        eval, full CRAFT only) splits the grid's rows across its ranks;
-        every rank returns the whole flow.  `data_parallel` (a group,
-        training) makes cnet's BatchNorm take its moments over every
-        rank's batch.  `diagnostics` (an AttentionDiagnostics, training)
+        eval) splits the grid's rows across its ranks; every rank returns
+        the whole flow.  `data_parallel` (a group, training) makes cnet's
+        BatchNorm take its moments over every rank's batch.  `diagnostics` (an AttentionDiagnostics, training)
         collects the SETrans sites' telemetry.  `intermediates` (a dict,
         eval) takes what the JAX package sows into its 'intermediates'
         collection: the raw volume [B, D, U1, U2] ('corr_fn/corr_volume')
@@ -270,12 +261,8 @@ class FlowModel(nn.Module):
         upsample_mode = upsample_mode or cfg.upsample_mode
         if upsample_mode not in ("all", "final", "packed"):
             raise ValueError(f"upsample_mode {upsample_mode!r}")
-        if seq_parallel is not None and not full_craft(cfg):
-            raise NotImplementedError(
-                "sequence parallelism for a family other than full CRAFT "
-                "(--raft, --nogma, GMA attention, --f2 none) or with two-way "
-                "correlation (--f1) is not ported to craft_tpu_torch yet: "
-                f"see {ROADMAP_SP}.")
+        if seq_parallel is not None and self.training:
+            raise NotImplementedError(NOT_PORTED_SP)
         sow = None if intermediates is None else Sow(intermediates)
         cdt = cfg.compute_dtype
         lvl_dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
@@ -329,7 +316,7 @@ class FlowModel(nn.Module):
                                      generator, shard, diagnostics,
                                      _scope(sow, "att"))
                 else:
-                    attention = self.att(inp.to(cdt))
+                    attention = self.att(inp.to(cdt), shard=shard)
         with record_function("craft.corr_volume"):
             if self.corr_fn is None:
                 if sow is not None:
@@ -337,7 +324,8 @@ class FlowModel(nn.Module):
                         fmap1, fmap2)[:, None])
                 pyramid = plain_corr_pyramid(fmap1, fmap2, cfg.corr_levels,
                                              cfg.corr_radius,
-                                             level_dtype=lvl_dtype)
+                                             level_dtype=lvl_dtype,
+                                             shard=shard)
             else:
                 vol = site(self.corr_fn, True, fmap1, fmap2, fmap1o, fmap2o,
                            out_dtype=lvl_dtype, generator=generator,
@@ -353,7 +341,8 @@ class FlowModel(nn.Module):
                         else vol[:, :, None]
                     pyramid = build_pyramid(
                         raw, B, H8, W8, cfg.corr_levels, cfg.corr_radius,
-                        do_global_norm=True, level_dtype=lvl_dtype)
+                        do_global_norm=True, level_dtype=lvl_dtype,
+                        shard=shard)
                     del raw
                 del vol
 

@@ -13,6 +13,13 @@ Outside autograd (serving) the attention is built a few grid rows at a
 time into its output, so the fp32 scores never exist whole (7.6 GB each
 at HD1K's U = 43520); with gradients on it is one piece, whose fp32 softmax
 output autograd keeps for the backward.
+
+Under sequence parallelism (`shard`, a ``RowShard``; serving) ``Attention``
+builds only the shard's query rows against every key, its relative
+positions read from the shard's global grid rows, and ``Aggregate`` takes
+those rows against every token's values, adds the residual of the shard's
+rows and gathers the result to every rank: the JAX package's
+``sp_shard(sim, 2)`` (``craft_tpu/nn/gma.py:93-96``).
 """
 
 from __future__ import annotations
@@ -86,25 +93,28 @@ class Attention(nn.Module):
         self.to_qk = nn.Conv2d(dim, heads * dim_head * 2, 1, bias=False)
         self.pos_emb = RelPosEmb(max_pos_size, dim_head, dtype)
 
-    def forward(self, fmap: torch.Tensor) -> torch.Tensor:
-        """fmap: [B, h, w, dim] -> [B, heads, h*w, h*w]."""
+    def forward(self, fmap: torch.Tensor, shard=None) -> torch.Tensor:
+        """fmap: [B, h, w, dim] -> [B, heads, h*w, h*w]; under `shard` the
+        shard's query rows, [B, heads, rows*w, h*w]."""
         B, h, w, _ = fmap.shape
         dt, n, d = self.dtype, self.heads, self.dim_head
         U = h * w
+        h0, h1 = (0, h) if shard is None else (shard.h0, shard.h1)
         q, k = _linear(fmap, self.to_qk, dt).chunk(2, dim=-1)
         # The scale is rounded to the compute dtype first, as JAX's
         # weakly typed scalar.
-        q = q.reshape(B, h, w, n, d).permute(0, 3, 1, 2, 4) \
+        q = q[:, h0:h1].reshape(B, h1 - h0, w, n, d).permute(0, 3, 1, 2, 4) \
             * torch.tensor(d ** -0.5, dtype=dt, device=q.device)
         kt = k.reshape(B, U, n, d).permute(0, 2, 3, 1)  # [B, n, d, U]
         if torch.is_grad_enabled():
-            return self._probs(q, kt, h, w, 0)
-        out = torch.empty(B, n, U, U, dtype=dt, device=fmap.device)
+            return self._probs(q, kt, h, w, h0)
+        out = torch.empty(B, n, (h1 - h0) * w, U, dtype=dt,
+                          device=fmap.device)
         rows = max(1, ROW_CHUNK_ELEMS // (B * n * w * U))
-        for x0 in range(0, h, rows):
-            x1 = min(h, x0 + rows)
-            out[:, :, x0 * w:x1 * w] = self._probs(q[:, :, x0:x1], kt, h, w,
-                                                   x0)
+        for x0 in range(h0, h1, rows):
+            x1 = min(h1, x0 + rows)
+            out[:, :, (x0 - h0) * w:(x1 - h0) * w] = self._probs(
+                q[:, :, x0 - h0:x1 - h0], kt, h, w, x0)
         return out
 
     def _probs(self, q, kt, h, w, x0):
@@ -135,14 +145,20 @@ class Aggregate(nn.Module):
                         if inner != dim else None)
         self.gamma = nn.Parameter(torch.zeros(1))
 
-    def forward(self, attn: torch.Tensor, fmap: torch.Tensor
+    def forward(self, attn: torch.Tensor, fmap: torch.Tensor, shard=None
                 ) -> torch.Tensor:
-        """attn: [B, heads, U, U]; fmap: [B, h, w, dim] -> [B, h, w, dim]."""
-        B, h, w, _ = fmap.shape
+        """attn: [B, heads, U, U]; fmap: [B, h, w, dim] -> [B, h, w, dim].
+        Under `shard` attn holds the shard's query rows [B, heads,
+        rows*w, U], and the shard's rows of the output are gathered to
+        every rank."""
+        B, h, w, C = fmap.shape
         dt, n, d = self.dtype, self.heads, self.dim_head
         v = _linear(fmap, self.to_v, dt).reshape(B, h * w, n, d)
-        out = torch.matmul(attn.to(dt), v.transpose(1, 2))  # [B, n, U, d]
-        out = out.transpose(1, 2).reshape(B, h, w, n * d)
+        out = torch.matmul(attn.to(dt), v.transpose(1, 2))  # [B, n, U1, d]
+        out = out.transpose(1, 2).reshape(B, -1, w, n * d)
         if self.project is not None:
             out = _linear(out, self.project, dt)
-        return fmap + self.gamma.to(dt) * out
+        if shard is None:
+            return fmap + self.gamma.to(dt) * out
+        out = fmap[:, shard.h0:shard.h1] + self.gamma.to(dt) * out
+        return shard.gather(out.reshape(B, -1, C)).reshape(B, h, w, C)

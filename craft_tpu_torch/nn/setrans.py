@@ -22,14 +22,16 @@ sites take the dense-table kernels: the inter site the raw fp32 volume of
 B6 dense (normed by the caller's build_pyramid), the f2 site B8, the intra
 site float probs in the compute dtype from B4 dense (``quantize_probs`` is
 ignored, as the JAX package's XLA softmax does).
-Under sequence parallelism (eval, sliding bias) each site takes `shard`, this
-rank's RowShard of the grid: queries from its rows, keys and values from
-every token, through the same kernels with the shard's row offset and the
-clamp predicate all-maxed over the ranks; the inter site gives the shard's
-rows of the normed volume (B9 in place of B3,
-``craft_tpu_torch.parallel.sequence_parallel``), the intra site the shard's
-rows of the probs, and the f2 site its rows of the output gathered to every
-rank.
+Under sequence parallelism (eval) each site takes `shard`, this rank's
+RowShard of the grid: queries from its rows, keys and values from every
+token, through the same kernels with the shard's row offset (or the
+shard's rows of a dense table) and the clamp predicate all-maxed over the
+ranks (``craft_tpu_torch.parallel.sequence_parallel``); the inter site
+gives the shard's rows of the normed volume (B9 in place of B3) or, under
+lsinu, of the raw volume (B6 dense, normed by ``build_pyramid`` with every
+rank's moments), the intra site the shard's rows of the probs (B4 or B4
+dense), and a feature site (f2, f1) its rows of the output (B2 or B8)
+gathered to every rank.
 In train mode every site is differentiable.  With the sliding bias and no
 mask the sites take the training kernels: the inter site gives the raw
 aggregated volume of B6 (its backward a kernel too), the f2 and intra sites
@@ -73,14 +75,13 @@ from craft_tpu_torch.ops.kernels.mode_attention import (
     mode_softmax_probs, mode_softmax_probs_dense, scores_global_max,
     sliding_pos_biases)
 from craft_tpu_torch.ops.kernels.probs_vjp import mode_softmax_probs_diff
-from craft_tpu_torch.parallel.sequence_parallel import \
-    sp_fused_agg_corr_norm_mt
+from craft_tpu_torch.parallel.sequence_parallel import (
+    sp_clip, sp_fused_agg_corr_norm_mt)
 
 NOT_PORTED_SP = (
-    "sequence parallelism in training, with pos_code_type='lsinu' or with "
-    "an f2 attention mask (--seq_parallel with --interpos/--intrapos lsinu "
-    "or --f2radius) is not ported to craft_tpu_torch yet: see ROADMAP.md "
-    "section 2, item 8.")
+    "sequence parallelism runs in evaluation only: the JAX package trains "
+    "without it too (craft_tpu/nn/setrans.py:622), so craft_tpu_torch has "
+    "no sharded training path.")
 
 
 class SlidingBias(NamedTuple):
@@ -194,16 +195,26 @@ class SlidingPosBiases2D(nn.Module):
         return SlidingBias(self.biases, H, W)
 
 
-def attention_mask(H: int, W: int, radius: int, device=None) -> torch.Tensor:
+def attention_mask(H: int, W: int, radius: int, device=None,
+                   row0: int = 0, rows=None) -> torch.Tensor:
     """The f2 site's local attention mask (reference setrans.py:568-619, the
-    JAX package's setrans.py:922-928): fp32 [H*W, H*W], -1e9 where the
-    Chebyshev distance of two tokens exceeds `radius`, else 0."""
-    ys, xs = torch.meshgrid(torch.arange(H, device=device),
-                            torch.arange(W, device=device), indexing="ij")
-    coords = torch.stack([ys, xs], dim=-1).reshape(H * W, 2)
-    diff = (coords[None] - coords[:, None]).abs().amax(dim=-1)
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    return torch.where(diff > radius, torch.full_like(zero, -1e9), zero)
+    JAX package's setrans.py:922-928): fp32 [rows*W, H*W] over the query
+    grid rows row0 .. row0 + rows - 1 (every row by default), -1e9 where
+    the Chebyshev distance of two tokens exceeds `radius`, else 0.  The
+    row and column distances are masked apart and met in one broadcast
+    minimum, so nothing larger than the output is built."""
+    rows = H - row0 if rows is None else rows
+
+    def far(a, b):  # -1e9 where |a_i - b_j| > radius, [len(a), len(b)]
+        d = (a[:, None] - b[None, :]).abs()
+        return torch.where(d > radius, -1e9, 0.0).to(torch.float32)
+
+    ar_h = torch.arange(H, device=device)
+    ar_w = torch.arange(W, device=device)
+    dy = far(torch.arange(row0, row0 + rows, device=device), ar_h)
+    dx = far(ar_w, ar_w)
+    return torch.minimum(dy[:, None, :, None],
+                         dx[None, :, None, :]).reshape(rows * W, H * W)
 
 
 class LearnedSinuPosEmbedder(nn.Module):
@@ -406,10 +417,10 @@ class CrossAttFeatTrans(nn.Module):
     def _clip(self, q, k, shard=None):
         """The clamp: attn_clip where the raw max of the scores (over every
         rank's rows under `shard`) exceeds it, else none (1e30)."""
+        if shard is not None:
+            return sp_clip(shard, q, k, self.cfg.attn_clip)
         scale = 1.0 / math.sqrt(self.cfg.mode_dim)
         gmax = scores_global_max(q.detach(), k.detach(), scale)
-        if shard is not None:
-            gmax = shard.all_max(gmax)
         return torch.where(gmax > self.cfg.attn_clip,
                            torch.full_like(gmax, self.cfg.attn_clip),
                            torch.full_like(gmax, 1e30))
@@ -440,7 +451,7 @@ class CrossAttFeatTrans(nn.Module):
         if key_feat is None:
             key_feat = query_feat
         dense = pos_biases is None or attention_mask is not None
-        if shard is not None and (self.training or dense):
+        if shard is not None and self.training:
             raise NotImplementedError(NOT_PORTED_SP)
         q, k = self._qk(query_feat if shard is None
                         else shard.tokens(query_feat), key_feat)
@@ -457,7 +468,7 @@ class CrossAttFeatTrans(nn.Module):
                                        attention_mask, sow=sow)
         if dense:
             return self._dense_forward(q, k, key_feat, pos_biases,
-                                       attention_mask)
+                                       attention_mask, shard)
         grid_hw = (pos_biases.H, pos_biases.W)
         q_row0 = 0 if shard is None else shard.h0
         if cfg.out_attn_scores_only:
@@ -493,21 +504,25 @@ class CrossAttFeatTrans(nn.Module):
         return self.out_trans(key_feat, attention_fn=attention_fn,
                               shard=shard)
 
-    def _dense_forward(self, q, k, key_feat, pos_biases, attention_mask):
+    def _dense_forward(self, q, k, key_feat, pos_biases, attention_mask,
+                       shard=None):
         """Eval mode without a sliding bias (lsinu) or with an attention
         mask: the dense-table kernels.  A mask becomes one table, pos_w *
         the dense sliding bias (if any) + the mask, applied with pos_w = 1:
         the JAX package's XLA sum (setrans.py:675-680), computed by the
         kernel.  The inter site returns the raw fp32 volume, the intra site
-        float probs in the compute dtype."""
+        float probs in the compute dtype.  Under `shard` q, the mask and
+        the table hold the shard's rows, the clamp is every rank's and a
+        feature site's output is gathered to every rank."""
         cfg = self.cfg
         table, pos_w = None, cfg.pos_code_weight
         if attention_mask is not None:
             table, pos_w = attention_mask, 1.0
             if pos_biases is not None:
                 table = table + cfg.pos_code_weight * sliding_pos_biases(
-                    pos_biases.biases.float(), pos_biases.H, pos_biases.W)
-        clip = self._clip(q, k)
+                    pos_biases.biases.float(), pos_biases.H, pos_biases.W,
+                    *(() if shard is None else (shard.h0, shard.rows)))
+        clip = self._clip(q, k, shard)
         if cfg.out_attn_scores_only:
             agg_w, agg_b = self._agg_wb()
             return fused_agg_corr_dense(q, k, table, clip, pos_w, agg_w,
@@ -519,7 +534,8 @@ class CrossAttFeatTrans(nn.Module):
         def attention_fn(v):
             return flash_mode_attention_dense(q, k, v, table, clip, pos_w)
 
-        return self.out_trans(key_feat, attention_fn=attention_fn)
+        return self.out_trans(key_feat, attention_fn=attention_fn,
+                              shard=shard)
 
     def _train_forward(self, q, k, key_feat, pos_biases, generator):
         cfg = self.cfg
@@ -580,8 +596,9 @@ class SelfAttVisPosTrans(nn.Module):
     """Self-attention over an NHWC feature map (reference setrans.py:568-619):
     encode -> CrossAttFeatTrans -> NHWC (unless attention-only output), with
     the local attention mask when attn_mask_radius > 0.  Under sequence
-    parallelism (`shard`) a feature site's output is the whole grid, gathered
-    before the reshape; an attention-only site gives the shard's rows."""
+    parallelism (`shard`) the mask holds the shard's rows; a feature site's
+    output is the whole grid, gathered before the reshape; an
+    attention-only site gives the shard's rows."""
 
     def __init__(self, cfg: SETransSiteConfig, dtype=torch.float32):
         super().__init__()
@@ -594,7 +611,9 @@ class SelfAttVisPosTrans(nn.Module):
         B, H, W, C = x.shape
         mask = None
         if self.cfg.attn_mask_radius > 0:
-            mask = attention_mask(H, W, self.cfg.attn_mask_radius, x.device)
+            mask = attention_mask(H, W, self.cfg.attn_mask_radius, x.device,
+                                  *(() if shard is None
+                                    else (shard.h0, shard.rows)))
         tokens, pos_biases = self.vispos_encoder(x, generator)
         out = self.setrans(tokens, pos_biases=pos_biases,
                            generator=generator, attention_mask=mask,

@@ -247,9 +247,9 @@ class GMAUpdateBlock(_UpdateBlock):
     LazyModeAttention that the SETrans aggregator applies through B2 each
     iteration, or GMA's [B, heads, U, U] attention) and `gru_static` are
     computed once per forward, outside the refinement loop.  Under
-    sequence parallelism (SETrans only) `attention` holds the `shard`'s
-    rows (always probs), and the aggregator gathers its output to every
-    rank."""
+    sequence parallelism `attention` holds the `shard`'s rows (probs,
+    never lazy, or GMA's attention), and the aggregator gathers its output
+    to every rank."""
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         if cfg.use_setrans:
@@ -271,6 +271,6 @@ class GMAUpdateBlock(_UpdateBlock):
                 motion.reshape(B, H * W, C), attention,
                 shard=shard).reshape(B, H, W, C)
         else:
-            motion_global = self.aggregator(attention, motion)
+            motion_global = self.aggregator(attention, motion, shard=shard)
         return self._step(net, inp, torch.cat([motion, motion_global], -1),
                           gru_static)

@@ -10,6 +10,13 @@ Level l of a pyramid is D planes, each stored [B*H1*W1, h_l, w_l], held in
 samples a (2r+1)^2 bilinear window around coords/2^l on every plane and
 returns [B, H1, W1, L*D*(2r+1)^2] in the reference channel order: level,
 then d, then x-offset i, then y-offset j (reference corr.py:47-71).
+
+Under sequence parallelism (a ``RowShard``, ``parallel/sp.py``) a volume
+and its pyramid hold the shard's query rows against every key: U1 = rows
+* W1 query tokens, each level [B*U1, h_l, w_l].  Pooling runs over the key
+axes, so it stays row-local; the global norm takes its moments over every
+rank's rows (``RowShard.layer_norm_moments``), as the JAX package's
+``sp_shard(corr, 1)`` before its norm (``craft_tpu/ops/corr.py:95-101``).
 """
 
 from __future__ import annotations
@@ -49,37 +56,46 @@ def _pool2x2(x: torch.Tensor) -> torch.Tensor:
 
 def all_pairs_correlation(fmap1: torch.Tensor,
                           fmap2: torch.Tensor) -> torch.Tensor:
-    """[B, H*W, H*W] dot-product correlation of two NHWC maps in fp32,
-    divided by sqrt(C) (reference corr.py:73-81)."""
-    B, H, W, C = fmap1.shape
-    f1 = fmap1.reshape(B, H * W, C).float()
+    """[B, H1*W1, H*W] dot-product correlation of two NHWC maps in fp32,
+    divided by sqrt(C) (reference corr.py:73-81); fmap1 may hold some grid
+    rows of the frame (a shard's), fmap2 holds every one."""
+    B, H, W, C = fmap2.shape
+    f1 = fmap1.reshape(B, -1, C).float()
     f2 = fmap2.reshape(B, H * W, C).float()
     return torch.matmul(f1, f2.transpose(1, 2)) / math.sqrt(C)
 
 
-def global_layer_norm(vol: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+def global_layer_norm(vol: torch.Tensor, eps: float = 1e-12,
+                      shard=None) -> torch.Tensor:
     """Layer-norm over the flat volume per (batch, dim) slice (reference
-    corr.py:27-30, 200-204).  vol: [B, D, N]."""
-    mean = vol.mean(dim=-1, keepdim=True)
-    var = (vol - mean).square().mean(dim=-1, keepdim=True)
+    corr.py:27-30, 200-204).  vol: [B, D, N]; under `shard` (a RowShard)
+    N is this rank's part and the moments are every rank's."""
+    if shard is None:
+        mean = vol.mean(dim=-1, keepdim=True)
+        var = (vol - mean).square().mean(dim=-1, keepdim=True)
+    else:
+        mean, var = shard.layer_norm_moments(vol)
     return (vol - mean) * torch.rsqrt(var + eps)
 
 
 def build_pyramid(corr: torch.Tensor, batch: int, h1: int, w1: int,
                   num_levels: int = 4, radius: int = 4,
                   do_global_norm: bool = False,
-                  level_dtype=torch.float32) -> CorrPyramid:
+                  level_dtype=torch.float32, shard=None) -> CorrPyramid:
     """Average-pool pyramid from a raw [B, U1, D, U2] fp32 volume (D = 1,
     or 2 for the two-way volume), normed per (batch, d) when asked, as the
     JAX package's (``craft_tpu/ops/corr.py:87-129``).  Each d becomes its
-    own contiguous plane of every level."""
+    own contiguous plane of every level.  Under `shard` U1 is the shard's
+    rows of the h1 x w1 grid, and the norm's moments are every rank's."""
     B, U1, D, U2 = corr.shape
-    assert U1 == h1 * w1 and U2 == h1 * w1
+    rows = h1 if shard is None else shard.rows
+    assert U1 == rows * w1 and U2 == h1 * w1
     planes = []
     for d in range(D):
         plane = corr[:, :, d]
         if do_global_norm:
-            plane = global_layer_norm(plane.reshape(B, 1, U1 * U2))
+            plane = global_layer_norm(plane.reshape(B, 1, U1 * U2),
+                                      shard=shard)
         planes.append(plane.reshape(B * U1, h1, w1).contiguous())
     return _pooled(planes, batch, h1, w1, num_levels, radius, level_dtype,
                    cast_each=False)
@@ -117,13 +133,16 @@ def pyramid_from_level0(level0, batch: int, h1: int, w1: int,
 
 def plain_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
                        num_levels: int = 4, radius: int = 4,
-                       level_dtype=torch.float32) -> CorrPyramid:
+                       level_dtype=torch.float32, shard=None) -> CorrPyramid:
     """RAFT's CorrBlock (reference corr.py:16-45): the pyramid of the plain
-    volume, without the global norm."""
-    B, H, W, _ = fmap1.shape
+    volume, without the global norm; under `shard` the volume and pyramid
+    of the shard's rows of fmap1."""
+    B, H, W, _ = fmap2.shape
+    if shard is not None:
+        fmap1 = fmap1[:, shard.h0:shard.h1]
     corr = all_pairs_correlation(fmap1, fmap2)
-    return build_pyramid(corr.reshape(B, H * W, 1, H * W), B, H, W,
-                         num_levels, radius, level_dtype=level_dtype)
+    return build_pyramid(corr[:, :, None], B, H, W, num_levels, radius,
+                         level_dtype=level_dtype, shard=shard)
 
 
 def corr_lookup(pyr: CorrPyramid, coords: torch.Tensor) -> torch.Tensor:

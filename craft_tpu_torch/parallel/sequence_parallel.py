@@ -1,11 +1,21 @@
-"""The row-sharded inter site (the port's counterpart of
-``craft_tpu.parallel.sequence_parallel``): each rank computes its RowShard's
-query rows of the normed volume against every key with the same hand
-kernels as one device, and the shards meet in RowShard's collectives where
-the norm needs the whole volume.  The f2 and intra sites need no wrapper:
-B1, B2 and B4 take the shard's row offset (``q_row0``) and its rows of q
-directly, with the clamp predicate all-maxed over the ranks
-(``nn/setrans.py``).
+"""The row-sharded attention and correlation sites (the port's counterpart
+of ``craft_tpu.parallel.sequence_parallel``): each rank computes its
+RowShard's query rows against every key with the same hand kernels as one
+device, and the shards meet in RowShard's collectives where a result needs
+every row: the clamp predicate (B1's local maximum, all-maxed over the
+ranks) and the volume's moments.
+
+Every site takes the clamp of ``sp_clip``.  With the sliding bias, B2 and
+B4 take the shard's row offset (``q_row0``) and its rows of q directly
+(``nn/setrans.py``), and the inter site runs ``sp_fused_agg_corr_norm_mt``
+(B9 in place of B3).  With a dense table (lsinu, the --f2radius mask) the
+table holds the shard's rows and the dense kernels run on them as they
+are: B6 dense (the raw fp32 volume, normed by
+``ops/corr.py:build_pyramid`` with the moments of every rank's rows), B8
+(the f2 and f1 sites) and B4 dense (the intra site's float probs); these
+are the counterparts of the JAX package's ``sp_fused_agg_corr`` and
+``sp_flash_mode_attention`` (``craft_tpu/parallel/sequence_parallel.py:96,
+225``).
 """
 
 from __future__ import annotations
@@ -17,6 +27,16 @@ import torch
 from craft_tpu_torch.ops.kernels.mode_attention import (
     corr_norm_sums, corr_norm_write, scores_global_max)
 from craft_tpu_torch.parallel.sp import RowShard
+
+
+def sp_clip(shard: RowShard, q, k, attn_clip: float) -> torch.Tensor:
+    """The clamp of the shard's rows q against every key k: attn_clip where
+    the raw max of the scores over every rank's rows exceeds it, else none
+    (1e30); a 0-d fp32 tensor on q's device."""
+    gmax = shard.all_max(scores_global_max(q.detach(), k.detach(),
+                                           1.0 / math.sqrt(q.shape[-1])))
+    return torch.where(gmax > attn_clip, torch.full_like(gmax, attn_clip),
+                       torch.full_like(gmax, 1e30))
 
 
 def sp_fused_agg_corr_norm_mt(shard: RowShard, q, k, biases,

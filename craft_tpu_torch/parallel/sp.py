@@ -17,10 +17,13 @@ a choice of transport; the work stays on the rank's device either way.
 
 Per forward, ``SeqParallel.shard(H8, W8)`` gives this rank's ``RowShard``
 of the H8 x W8 token grid: whole grid rows, split as evenly as they go (the
-first H8 % n ranks take one row more), with the three collectives the model
+first H8 % n ranks take one row more), with the collectives the model
 needs:
   all_max      the clamp predicate: the shards' raw score maxima;
-  all_sum      the volume moments, fp64;
+  all_sum      the volume moments, fp64: B9's sums, and the two passes of
+               layer_norm_moments, the (mean, centred second moment) per
+               (batch, plane) of a row-sharded fp32 volume that
+               ``build_pyramid``'s global norm takes;
   gather       a row-sharded [B, U_local, C] tensor to every rank as
                [B, U, C]: each rank writes its rows into a zero-filled
                buffer, then one all-reduce SUM (x + 0 is exact, so the
@@ -37,6 +40,10 @@ import torch
 import torch.distributed as dist
 
 from craft_tpu_torch import resolve_device
+
+# Elements of a volume summed in fp64 at a time by layer_norm_moments: the
+# fp64 copy of a chunk is 128 MB, however large the shard's volume.
+MOMENT_CHUNK = 1 << 24
 
 
 def row_split(H8: int, world: int, rank: int) -> tuple:
@@ -67,25 +74,41 @@ class RowShard:
         """This rank's tokens of x [B, U, ...]."""
         return x[:, self.u0:self.u1]
 
+    def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        """x reduced in place over every rank by `op` (a dist.ReduceOp)."""
+        dist.all_reduce(x, op=op)
+        return x
+
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         """The max of a 0-d tensor over every rank."""
-        out = x.reshape(1).clone()
-        dist.all_reduce(out, op=dist.ReduceOp.MAX)
-        return out[0]
+        return self._all_reduce(x.reshape(1).clone(), dist.ReduceOp.MAX)[0]
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over every rank (in fp64)."""
-        out = x.double().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
-        return out
+        return self._all_reduce(x.double().clone(), dist.ReduceOp.SUM)
+
+    def layer_norm_moments(self, vol: torch.Tensor) -> tuple:
+        """(mean, var) [B, D, 1] fp32 of a row-sharded volume vol
+        [B, D, N_local], the shard's rows against every key, over every
+        rank's elements (``ops/corr.py:global_layer_norm``'s two passes):
+        the mean from fp64 sums, then the mean square of vol - mean, each
+        summed in fp64 a chunk of MOMENT_CHUNK elements at a time and over
+        the ranks by all_sum."""
+        def total(fn):
+            return self.all_sum(sum(fn(c).sum(-1, dtype=torch.float64)
+                                    for c in vol.split(MOMENT_CHUNK, -1)))
+
+        count = vol.shape[-1] // self.rows * self.H8
+        mean = (total(lambda c: c.double()) / count).float()[..., None]
+        var = total(lambda c: (c - mean).double().square()) / count
+        return mean, var.float()[..., None]
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The whole grid's tokens [B, U, ...] from every rank's x
         [B, U_local, ...]."""
         full = x.new_zeros((x.shape[0], self.H8 * self.W8, *x.shape[2:]))
         full[:, self.u0:self.u1] = x
-        dist.all_reduce(full, op=dist.ReduceOp.SUM)
-        return full
+        return self._all_reduce(full, dist.ReduceOp.SUM)
 
 
 class SeqParallel:

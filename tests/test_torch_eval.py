@@ -192,18 +192,22 @@ def test_loader_unwraps_like_the_jax_converter(setup, tmp_path):
         load_reference_checkpoint(pth, model, strict=True)
 
 
-# Mode counts that leave a mode dim below 16 or do not divide the width.
+# Mode counts that leave a mode dim below 16 or do not divide the width,
+# with and without --seq_parallel (which runs every family and flag since
+# item 8's first parts, tests/test_torch_sp_dense.py and
+# test_torch_sp_families.py, and exits only where the config does).
 @pytest.mark.parametrize("flags,item", [
     (["--nogma", "--intramodes", "32"], "item 6"), (["--f2modes", "64"],
                                                     "item 6"),
     (["--f1", "shared", "--intermodes", "3"], "item 6"),
     (["--intramodes", "16"], "item 6"),
-    (["--seq_parallel", "--f1", "shared"], "item 8"),
-    (["--seq_parallel", "--intrapos", "lsinu"], "item 8"),
-    (["--seq_parallel", "--f2radius", "3"], "item 8"),
-    (["--seq_parallel", "--raft"], "item 8"),
-    (["--seq_parallel", "--nogma"], "item 8"),
-    (["--seq_parallel", "--f2", "none"], "item 8")])
+    (["--seq_parallel", "--f1", "shared", "--f2modes", "32"], "item 6"),
+    (["--seq_parallel", "--intrapos", "lsinu", "--intramodes", "16"],
+     "item 6"),
+    (["--seq_parallel", "--f2radius", "3", "--f2modes", "64"], "item 6"),
+    (["--seq_parallel", "--nogma", "--intermodes", "3"], "item 6"),
+    (["--seq_parallel", "--nogma", "--intramodes", "32"], "item 6"),
+    (["--seq_parallel", "--f2", "none", "--intermodes", "64"], "item 6")])
 def test_unported_flags_exit_naming_the_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md section 2, {item}"):
         tcli.main(["--model", "absent.pth", "--craft", "--setrans",
@@ -304,11 +308,12 @@ def test_cli_runs_the_evaluator_flags(setup, tmp_path, monkeypatch, flag):
 
 
 def test_gma_attention_exits():
-    """GMA attention (no --setrans) serves (tests/test_torch_family_cli.py);
-    it exits only under --seq_parallel, naming ROADMAP item 8."""
-    with pytest.raises(SystemExit, match="GMA attention.*item 8"):
+    """GMA attention (no --setrans) serves (tests/test_torch_family_cli.py),
+    under --seq_parallel too; it exits only where a SETrans site it has
+    takes a mode count that is not ported, naming ROADMAP item 6."""
+    with pytest.raises(SystemExit, match="--intermodes.*item 6"):
         tcli.main(["--model", "absent.pth", "--craft", "--seq_parallel",
-                   "--device", CPU])
+                   "--intermodes", "3", "--device", CPU])
 
 
 def test_missing_card_raises(monkeypatch):

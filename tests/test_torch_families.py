@@ -245,12 +245,13 @@ def test_packed_forward_equals_all(name):
 def test_families_refuse_what_is_not_ported():
     """Two-way correlation (arch 'craft') builds its f1 site, and refuses a
     config without the f2 transformer it correlates against; sequence
-    parallelism for a family other than full CRAFT names item 8."""
+    parallelism, which every family serves (tests/test_torch_sp_families.
+    py), is refused in training, as the JAX package has none there."""
     model = FlowModel(tconfig.craft_config(f1trans="shared"))
     assert model.f1_trans is model.f2_trans
     with pytest.raises(ValueError, match="f2 transformer"):
         FlowModel(tconfig.craft_config(f1trans="private", f2trans="none"))
-    model = port_model("raft", False)
+    model = port_model("raft", False).train()
     img = torch.zeros(1, *HW, 3)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="evaluation only"):
         model(img, img, iters=1, seq_parallel=object())

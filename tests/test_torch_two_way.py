@@ -224,11 +224,12 @@ def test_reference_checkpoint_loads(tmp_path, f1, source):
 
 
 def test_two_way_refuses_what_is_not_ported():
-    """Sequence parallelism with --f1 names item 8; --f1 without the f2
-    transformer it correlates against is refused."""
-    model = port_model("shared", False)
+    """Sequence parallelism with --f1 serves (tests/test_torch_sp_dense.py)
+    but is refused in training, as the JAX package has none there; --f1
+    without the f2 transformer it correlates against is refused."""
+    model = port_model("shared", False).train()
     img = torch.zeros(1, *HW, 3)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="evaluation only"):
         model(img, img, iters=1, seq_parallel=object())
     _, tcfg = configs("private", False)
     with pytest.raises(ValueError, match="f2 transformer"):

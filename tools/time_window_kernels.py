@@ -29,6 +29,9 @@ W8=156):
   B2 and B8 with the table again in fp32 (their fp32 body);
   B9 (corr_norm_sums, corr_norm_write) on both row shards of the serving
   grid at n = 2 (rows 0:28 and 28:55);
+  B8 (no table and the shard's rows of the --f2radius 7 table), B6 dense
+  and B4 dense (no table) on the same shards, as sequence parallelism
+  runs them under lsinu and --f2radius (U1 < U2);
   B10 (gru_pass_fwd, gru_pass_bwd) at the serving and chairs grids, bf16
   h, Ch 128, Cx 384 (fp32 x, as the module passes it), both passes: h
   (stride 1) and v (stride W); the backward on the plain forward's z, r, q,
@@ -215,6 +218,18 @@ def _cases(torch, dev):
         cases[f"B9_write_r{r}"] = functools.partial(
             ma.corr_norm_write, ql, k64, biases, SERVING, gmax, sums, 100.0,
             0.5, agg_w, agg_b, q_row0=h0)
+        u0, u1 = h0 * SERVING[1], h1 * SERVING[1]
+        q64l, q32l = (x[:, :, u0:u1].contiguous() for x in (q64, q32))
+        cases[f"B8_r{r}"] = functools.partial(
+            ma.flash_mode_attention_dense, q64l, k64, v, None, clip, 0.5)
+        cases[f"B8_table_r{r}"] = functools.partial(
+            ma.flash_mode_attention_dense, q64l, k64, v,
+            table[u0:u1].contiguous(), clip, 1.0)
+        cases[f"B6_dense_r{r}"] = functools.partial(
+            cv.fused_agg_corr_dense, q64l, k64, None, clip, 0.5, agg_w,
+            agg_b)
+        cases[f"B4_dense_r{r}"] = functools.partial(
+            ma.mode_softmax_probs_dense, q32l, k32, None, clip, 1.0)
     _gru_cases(torch, gen, dev, cases)
     for md, (q, k), pos_w in ((32, (qc32, kc32), 1.0),
                               (64, (qc64, kc64), 0.5)):

@@ -169,8 +169,15 @@ these phases and fails on the first that fails:
      fp32; the last h and every weight gradient within stated bounds; 24
      forward passes per 12 calls, 24 backward passes per backward, none
      under `static` (asserted).
-     Then the rest of the evaluator: the VIPER JPEG fixtures of
-     tests/data decoded to PIL's pixel hashes; the further validators at
+     Then the rest of the evaluator: every image fixture of tests/data
+     decoded on this host (no PIL here): the VIPER JPEGs to PIL's pixel
+     hashes, and each form of tests/data/formats (progressive,
+     arithmetic-coded, lossless, CMYK and YCCK JPEG; interlaced, 1/2/4-bit
+     and tRNS PNG) to the JAX package's array, or refused where it
+     refuses, with each file's decode ms (each new form also as one
+     1920x1080 frame); the single-pair demo on the
+     progressive 1920x1080 pair (its flow's shape, finite, launches on
+     the lazy intra path); the further validators at
      their sets' full shapes (things 540x960, sintel_occ 436x1024,
      kittitrain 375x1242, hd1k 1080x2560, viper's 1920x1080 JPEGs at 0.5,
      slowflow 436x1024), the Sintel submission with --warm_start (3
@@ -3700,24 +3707,99 @@ LAZY_PEAK_BOUND = 8e9  # bytes, one HD1K pair on the lazy path
 MATERIALISED_HD1K_PEAK = 28_286_863_872
 
 
-def check_jpeg_fixtures() -> dict:
-    """The VIPER fixtures (tests/data, written by PIL through
-    tools/make_jpeg_fixtures.py) decoded by the port's decoder on this
-    host: each must hash to PIL's pixels.  {name: JPEG bytes}."""
-    meta = json.loads((FIXTURES / "viper_jpeg.json").read_text())
-    out = {}
-    for name, m in meta.items():
+def _image_digest(img) -> str:
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def check_image_fixtures(names=None) -> dict:
+    """Every image fixture of tests/data decoded by the port's decoder on
+    this host, which has no PIL: the VIPER JPEGs (tools/make_jpeg_fixtures.py)
+    to PIL's pixel hashes, and each file of tests/data/formats
+    (tools/make_image_fixtures.py: progressive, arithmetic-coded, lossless,
+    CMYK and YCCK JPEG, interlaced, 1/2/4-bit and tRNS PNG, and the forms
+    the JAX package refuses) to the array the JAX package's load gives
+    (its native core's, or PIL's where the core refuses the file) in
+    dtype, shape and bytes, or to a ValueError where it raises.  Prints
+    each file's decode ms on the host and a line of the 1920x1080 files'
+    ms.  `names` limits the files checked.  Returns {name: bytes} of the
+    VIPER JPEGs."""
+    out, full_ms = {}, {}
+    for name, m in json.loads((FIXTURES / "viper_jpeg.json").read_text()
+                              ).items():
+        if names is not None and name not in names:
+            continue
         data = (FIXTURES / name).read_bytes()
         t0 = time.perf_counter()
         img = imgio.decode_jpeg(data)
         ms = (time.perf_counter() - t0) * 1e3
-        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes())
-        assert list(img.shape) == m["shape"], name
-        assert digest.hexdigest() == m["pixels_sha256"], \
-            f"JPEG {name}: the decoded pixels are not PIL's"
+        assert list(img.shape) == m["shape"] and \
+            _image_digest(img) == m["pixels_sha256"], \
+            f"JPEG {name}: the port's pixels disagree with PIL's"
         print(f"jpeg {name}: {img.shape[1]}x{img.shape[0]} decoded on the "
               f"host in {ms:.1f} ms, pixels identical to PIL's")
         out[name] = data
+    meta = json.loads((FIXTURES / "image_formats.json").read_text())
+    for name, m in meta.items():
+        if names is not None and name not in names:
+            continue
+        path = FIXTURES / "formats" / name
+        want = m[m["load"]] if m["load"] else None
+        t0 = time.perf_counter()
+        try:
+            img, err = imgio.load(str(path)), None
+        except ValueError as e:
+            img, err = None, e
+        ms = (time.perf_counter() - t0) * 1e3
+        if want is None:
+            assert img is None, \
+                f"image {name} ({m['form']}): the port decodes a file the " \
+                "JAX package refuses: it disagrees"
+            print(f"image {name}: {m['form']}, refused as by the JAX "
+                  f"package ({err})")
+            continue
+        assert img is not None, \
+            f"image {name} ({m['form']}): the port disagrees with the JAX " \
+            f"package's {m['load']} decode: it raised {err}"
+        assert [list(img.shape), str(img.dtype), _image_digest(img)] == \
+            [want["shape"], want["dtype"], want["sha256"]], \
+            f"image {name} ({m['form']}): the port's array disagrees with " \
+            f"the JAX package's {m['load']} decode"
+        if img.shape[:2] == (1080, 1920):
+            full_ms[name] = ms
+        print(f"image {name}: {m['form']}, {img.shape[1]}x{img.shape[0]} "
+              f"decoded on the host in {ms:.1f} ms, identical to the JAX "
+              f"package's ({m['load']})")
+    print("image decode ms on the host, 1920x1080 files:",
+          json.dumps(full_ms))
+    return out
+
+
+def demo_progressive(dev, pth: Path) -> dict:
+    """The single-pair demo (python -m craft_tpu_torch.evaluate --img1
+    --img2, eval/demo.py's gen_flow) on the card on the progressive
+    1920x1080 pair (tests/data/formats/viper_prog_0001{0,1}.jpg) with the
+    main path's configuration: the flow's shape, that it is finite, its
+    launches (1080x1920 takes the lazy intra path) and the wall with the
+    decode."""
+    frames = [FIXTURES / "formats" / f"viper_prog_000{i}.jpg"
+              for i in (10, 11)]
+    launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    flow = evaluate_cli.main(["--model", str(pth), "--craft", "--setrans",
+                              "--device", str(dev), "--img1", str(frames[0]),
+                              "--img2", str(frames[1]), "--output_path",
+                              str(SETS_DIR / "demo")])
+    sync(dev)
+    sec = time.perf_counter() - t0
+    _assert_launches("demo progressive", launch.launch_counts(),
+                     LAZY_PER_PAIR, 1)
+    finite = bool(np.isfinite(flow).all())
+    out = {"shape": list(flow.shape), "finite": finite, "seconds": sec,
+           "png": [p.name for p in (SETS_DIR / "demo").glob("*.png")]}
+    print("demo on the progressive 1920x1080 pair:", json.dumps(out), "|",
+          card_line())
+    assert out["shape"] == [1080, 1920, 2] and finite and out["png"], \
+        "demo progressive"
     return out
 
 
@@ -3795,7 +3877,8 @@ def eval_sets_phase(dev) -> dict:
     the oracle tree as a reference .pth, mixed precision): each further
     --dataset at its shape (things 540x960, sintel_occ 436x1024,
     kittitrain 375x1242, hd1k 1080x2560 (U = 43520), viper's 1920x1080
-    JPEG fixtures at 0.5 (544x960), slowflow 436x1024), the Sintel
+    JPEG fixtures at 0.5 (544x960), slowflow 436x1024), after the image
+    fixtures' check and the demo on the progressive pair, the Sintel
     submission with --warm_start (3 frames, 32 iterations), the KITTI and
     VIPER submissions (24), the shift sweep of scripts/shifteval.sh on
     the Sintel tree and --flop at 440x1024: pairs/s, launches asserted
@@ -3803,19 +3886,20 @@ def eval_sets_phase(dev) -> dict:
     each further validator on small trees (128x128; VIPER's 256x256 JPEG
     fixtures at 0.5), card (--fullprec, and mixed) against the port's
     fp32 CPU metrics: every EPE within 1e-3 px, and 0.15 px mixed."""
-    jpegs = check_jpeg_fixtures()
+    jpegs = check_image_fixtures()
+    print("the image fixtures' host |", card_line())
     shutil.rmtree(SETS_DIR, ignore_errors=True)
     SETS_DIR.mkdir(parents=True)
     _, _, _, tree = load_oracle_npz(ORACLE)
     sd = state_dict_from_flax(tree)
     pth = SETS_DIR / "craft-oracle.pth"
     torch.save({f"module.{k}": v for k, v in sd.items()}, pth)
+    out = {"demo progressive": demo_progressive(dev, pth)}
     full = SETS_DIR / "full"
     write_set_trees(full, np.random.RandomState(8),
                     [jpegs[f"viper_000{i}.jpg"] for i in (10, 11)])
     argv = ["--model", str(pth), "--craft", "--setrans", "--device",
             str(dev), "--data_root", str(full)]
-    out = {}
     # (label, CLI arguments, pairs, forwards, iterations)
     runs = [("things", ["--dataset", "things"], 2, 2, ITERS),
             ("sintel_occ", ["--dataset", "sintel_occ"], 2, 2, ITERS),

@@ -1,23 +1,34 @@
-"""Image codec on numpy and ``zlib``: PNG, binary PNM (PPM/PGM) and
-baseline JPEG.
+"""Image codec on numpy and ``zlib``: PNG, binary PNM (PPM/PGM) and JPEG.
 
 The port's own reader and writer for the datasets' files, so that loading
-needs neither PIL nor OpenCV.  ``load(path)`` returns the array that
-``np.array(PIL.Image.open(path))`` gives for the formats the datasets use:
-uint8 [H, W] gray, [H, W, 3] RGB, [H, W, 4] RGBA (PNG, 8-bit), uint16 where
-the file is 16-bit (KITTI flow PNGs, [H, W, 3]), and the raw indices of a
-palette PNG.  Non-interlaced PNG only, with any of the five row filters.
-``write_png`` and ``write_ppm`` write the same formats (PNG rows unfiltered).
+needs neither PIL nor OpenCV.  ``load(path)`` returns the array of the JAX
+package's ``craft_tpu.data.imgio.load`` with its native core (libpng and
+libjpeg) built, bit for bit, for every file that decodes: uint8 [H, W]
+gray, [H, W, 2] gray + alpha, [H, W, 3] RGB, [H, W, 4] RGBA or CMYK,
+uint16 where a PNG is 16-bit (KITTI flow PNGs, [H, W, 3]), and the raw
+indices of a palette PNG.  What it refuses, the port refuses with a
+ValueError naming the form.  ``write_png`` and ``write_ppm`` write PNG
+(rows unfiltered) and PPM/PGM.
 
-JPEG (VIPER's frames): sequential Huffman-coded 8-bit files, baseline or
-extended, one or more scans, restart intervals, gray or three components
-at any integer sampling.  The pixels are libjpeg's (and so PIL's) with its
-default settings, bit for bit: the ISLOW integer IDCT (``jidctint.c``),
-libjpeg-turbo's "fancy" triangular chroma upsampling (h2v1, h1v2, h2v2;
-``jdsample.c``) and the fixed-point YCbCr -> RGB tables (``jdcolor.c``).
-The entropy decoding runs in Python over a table of every 16-bit window of
-the bit stream; the rest is vectorised over all blocks.  Progressive,
-lossless, arithmetic-coded and 12-bit files are refused.
+PNG: any bit depth libpng takes (1, 2 and 4-bit gray scaled to 8 bits,
+palette indices unpacked to bytes), the five row filters, Adam7
+interlacing, and a ``tRNS`` chunk on a gray or RGB image made an alpha
+channel, as the native core's libpng transforms give them.
+
+JPEG: 8-bit files, Huffman or arithmetic-coded (``jpeg_arith``),
+sequential, progressive (``jpeg_progressive``, with libjpeg-turbo 2.1's
+block smoothing of coefficients the scans leave inexact) or lossless
+(``jpeg_lossless``, as PIL decodes it, the native core's libjpeg having
+no lossless decoder), restart intervals, any sampling, one to four
+components (or more of no colour).  The pixels are libjpeg's with its
+default settings: the ISLOW integer IDCT (``jidctint.c``), libjpeg-turbo's
+"fancy" triangular chroma upsampling (h2v1, h1v2, h2v2; ``jdsample.c``),
+the fixed-point YCbCr -> RGB tables and YCCK -> CMYK (``jdcolor.c``; CMYK
+as stored).  The entropy decoding runs in Python over a table of every
+16-bit window of the bit stream; the rest is vectorised over all blocks.
+Hierarchical and 12-bit files are refused, as libjpeg and PIL refuse them.
+Truncated or damaged files raise, where libjpeg would decode them with a
+warning.
 """
 
 from __future__ import annotations
@@ -68,10 +79,76 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return recon[1:, 1:].reshape(h, w * bpp).astype(np.uint8)
 
 
+# Adam7's passes: (x0, y0, dx, dy), each pass the pixels (y0 + i dy,
+# x0 + j dx).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# Bit depths libpng takes for each colour type.
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+
+
+def _png_rows(raw, h: int, w: int, depth: int, ch: int) -> np.ndarray:
+    """One (sub)image's filtered rows -> samples [h, w * ch]: uint8, uint16
+    at 16 bits, and at 1, 2 or 4 bits each sample unpacked (MSB first) into
+    a byte.  The filters work on whole bytes, one byte a pixel below 8
+    bits."""
+    if depth < 8:
+        rowbytes = -(-w * depth // 8)
+        packed = _unfilter(raw, h, rowbytes, 1)
+        bits = np.unpackbits(packed, axis=1)[:, :w * depth]
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        return (bits.reshape(h, w, depth) * weights).sum(
+            -1, dtype=np.uint8)
+    pix = _unfilter(raw, h, w, ch * depth // 8)
+    return pix.view(">u2").astype(np.uint16) if depth == 16 else pix
+
+
+def _deinterlace(raw: bytes, h: int, w: int, depth: int,
+                 ch: int) -> np.ndarray:
+    """Adam7: seven reduced images one after the other, each with its own
+    rows and filter bytes; a pass empty at this size has no bytes."""
+    out = np.empty((h, w * ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if not pw or not ph:
+            continue
+        n = ph * (-(-pw * ch * depth // 8) + 1)
+        sub = _png_rows(raw[pos:pos + n], ph, pw, depth, ch)
+        out.reshape(h, w, ch)[y0::dy, x0::dx] = sub.reshape(ph, pw, ch)
+        pos += n
+    if pos != len(raw):
+        raise ValueError("PNG: image data has the wrong size")
+    return out
+
+
+def _trns_alpha(pix: np.ndarray, color: int, depth: int,
+                trns: bytes) -> np.ndarray:
+    """png_set_tRNS_to_alpha on a gray or RGB image (samples [H, W * ch]):
+    the pixels equal to the chunk's gray value or RGB triple get alpha 0,
+    every other one full scale; gray + alpha [H, W, 2] or RGBA [H, W, 4].
+    libpng compares the value's low byte at 8 bits and its low `depth`
+    bits below 8."""
+    ch = 1 if color == 0 else 3
+    key = np.array(struct.unpack(f">{ch}H", trns), np.int64)
+    key &= (1 << depth) - 1
+    if depth < 8:
+        key *= 255 // ((1 << depth) - 1)
+    px = pix.reshape(pix.shape[0], -1, ch)
+    top = 65535 if depth == 16 else 255
+    alpha = np.where((px == key.astype(px.dtype)).all(-1), 0, top)
+    return np.concatenate([px, alpha[..., None].astype(px.dtype)], -1)
+
+
 def decode_png(data: bytes) -> np.ndarray:
+    """A PNG as libpng gives it with the JAX package's transforms
+    (``native/imgio/imgio.cpp``): 1, 2 or 4-bit gray scaled to 8 bits
+    (x 255, 85, 17), palette indices unpacked to bytes, and a ``tRNS``
+    chunk on a gray or RGB image made an alpha channel."""
     if not data.startswith(_PNG_SIG):
         raise ValueError("not a PNG file")
-    pos, idat, hdr = len(_PNG_SIG), [], None
+    pos, idat, hdr, trns = len(_PNG_SIG), [], None, None
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
@@ -80,20 +157,26 @@ def decode_png(data: bytes) -> np.ndarray:
             hdr = struct.unpack(">IIBBBBB", body)
         elif ctype == b"IDAT":
             idat.append(body)
+        elif ctype == b"tRNS" and not idat and trns is None:
+            trns = body  # libpng reads the first, before the image data
         elif ctype == b"IEND":
             break
     if hdr is None:
         raise ValueError("PNG: no IHDR chunk")
     w, h, depth, color, _, _, interlace = hdr
-    if interlace or color not in _CHANNELS or depth not in (8, 16) or \
-            (color == 3 and depth != 8):
+    if depth not in _DEPTHS.get(color, ()) or interlace > 1:
         raise ValueError(f"PNG: unsupported (bit depth {depth}, colour type "
                          f"{color}, interlace {interlace})")
     ch = _CHANNELS[color]
-    bpp = ch * depth // 8
-    pix = _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp)
-    if depth == 16:
-        pix = pix.view(">u2").astype(np.uint16)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        pix = _deinterlace(raw, h, w, depth, ch)
+    else:
+        pix = _png_rows(raw, h, w, depth, ch)
+    if color == 0 and depth < 8:
+        pix = pix * np.uint8(255 // ((1 << depth) - 1))
+    if color in (0, 2) and trns is not None and len(trns) == 2 * ch:
+        return _trns_alpha(pix, color, depth, trns)
     return pix.reshape(h, w) if ch == 1 else pix.reshape(h, w, ch)
 
 
@@ -165,10 +248,14 @@ _ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19,
            26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49,
            56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52,
            45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
-_SOF_REFUSED = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "progressive",
-                0xC6: "progressive", 0xC7: "lossless", 0xC9: "arithmetic",
-                0xCA: "progressive", 0xCB: "lossless", 0xCD: "arithmetic",
-                0xCE: "progressive", 0xCF: "lossless"}
+# SOF marker -> (entropy coding, process).  Hierarchical frames (SOF5-7,
+# SOF13-15) libjpeg refuses, and so does the port.
+_SOF = {0xC0: ("Huffman", "sequential"), 0xC1: ("Huffman", "sequential"),
+        0xC2: ("Huffman", "progressive"), 0xC3: ("Huffman", "lossless"),
+        0xC9: ("arithmetic", "sequential"),
+        0xCA: ("arithmetic", "progressive"),
+        0xCB: ("arithmetic", "lossless")}
+_SOF_HIERARCHICAL = (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF)
 
 
 def _huffman_lut(counts, symbols) -> list:
@@ -356,14 +443,14 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A sequential Huffman JPEG -> uint8 [H, W] (one component) or [H, W,
-    3] RGB, the pixels of libjpeg's default decode (see the module)."""
+    """A JPEG -> uint8 [H, W] (one component), [H, W, 3] RGB, [H, W, 4]
+    CMYK, or [H, W, N] of N components of no known colour: the pixels of
+    libjpeg's default decode (see the module)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     buf = np.frombuffer(data, np.uint8)
-    qts, dc_tabs, ac_tabs = {}, {}, {}
-    comps, frame, planes, restart = [], None, None, 0
-    adobe, jfif = None, False
+    tabs = {"q": {}, "dc": {}, "ac": {}, "dac_dc": {}, "dac_ac": {}}
+    frame, restart, adobe, jfif = None, 0, None, False
     pos = 2
     while True:
         while pos < len(data) and data[pos] == 0xFF:
@@ -379,27 +466,26 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         length = struct.unpack(">H", data[pos:pos + 2])[0]
         body = data[pos + 2:pos + length]
         pos += length
-        if marker in _SOF_REFUSED:
-            raise ValueError(f"JPEG: {_SOF_REFUSED[marker]} JPEG is not "
-                             "decoded by the port (sequential Huffman "
-                             "only)")
-        if marker in (0xC0, 0xC1):
-            prec, h, w, n = struct.unpack(">BHHB", body[:6])
-            if prec != 8 or h == 0:
-                raise ValueError(f"JPEG: {prec}-bit samples or height {h} "
-                                 "not decoded by the port")
-            comps = [dict(id=body[6 + 3 * i], h=body[7 + 3 * i] >> 4,
-                          v=body[7 + 3 * i] & 15, tq=body[8 + 3 * i])
-                     for i in range(n)]
-            frame = (h, w)
+        if marker in _SOF_HIERARCHICAL:
+            raise ValueError(f"JPEG: hierarchical JPEG (SOF{marker - 0xC0}) "
+                             "is not decoded (libjpeg refuses it)")
+        if marker in _SOF:
+            frame = _frame(body, *_SOF[marker])
         elif marker == 0xC4:  # DHT
             i = 0
             while i < len(body):
                 tc, th = body[i] >> 4, body[i] & 15
                 counts = body[i + 1:i + 17]
                 syms = body[i + 17:i + 17 + sum(counts)]
-                (ac_tabs if tc else dc_tabs)[th] = _huffman_lut(counts, syms)
+                tabs["ac" if tc else "dc"][th] = _huffman_lut(counts, syms)
                 i += 17 + sum(counts)
+        elif marker == 0xCC:  # DAC: arithmetic conditioning
+            for i in range(0, len(body) - 1, 2):
+                tc, tb, cs = body[i] >> 4, body[i] & 15, body[i + 1]
+                if tc:
+                    tabs["dac_ac"][tb] = cs
+                else:
+                    tabs["dac_dc"][tb] = (cs & 15, cs >> 4)
         elif marker == 0xDB:  # DQT
             i = 0
             while i < len(body):
@@ -409,7 +495,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                                   ">u2" if pq else np.uint8)
                 nat = np.zeros(64, np.int64)
                 nat[_ZIGZAG] = q
-                qts[tq] = nat
+                tabs["q"][tq] = nat
                 i += 1 + n
         elif marker == 0xDD:  # DRI
             restart = struct.unpack(">H", body[:2])[0]
@@ -420,71 +506,66 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise ValueError("JPEG: scan before the frame header")
-            if planes is None:
-                planes = _alloc_planes(comps, *frame)
-            pos = _decode_scan(buf, pos, body, comps, frame, planes,
-                               dc_tabs, ac_tabs, restart)
-    if planes is None:
+            pos = _scan(frame, buf, pos, body, tabs, restart)
+    if frame is None or not frame["scans"]:
         raise ValueError("JPEG: no frame or no scan")
-    return _to_pixels(comps, frame, planes, qts, adobe, jfif)
+    if frame["process"] == "lossless":
+        from craft_tpu_torch.data import jpeg_lossless
+        planes = jpeg_lossless.samples(frame)
+    else:
+        planes = _dct_samples(frame)
+    return _to_pixels(frame, planes, adobe, jfif)
 
 
-def _alloc_planes(comps, h, w) -> dict:
+def _frame(body: bytes, coding: str, process: str) -> dict:
+    """A frame header: its components and an empty store for their
+    coefficients (or, lossless, their samples)."""
+    prec, h, w, n = struct.unpack(">BHHB", body[:6])
+    if coding == "arithmetic" and process == "lossless":
+        raise ValueError("JPEG: arithmetic-coded lossless JPEG (SOF11) is "
+                         "not decoded (libjpeg has no decoder for it)")
+    if prec != 8:
+        raise ValueError(f"JPEG: {prec}-bit samples are not decoded (the "
+                         "JAX package's libjpeg and PIL take 8 bits)")
+    if h == 0 or w == 0 or n == 0:
+        raise ValueError(f"JPEG: a frame of {w}x{h} and {n} components "
+                         "is not decoded")
+    comps = [dict(id=body[6 + 3 * i], h=body[7 + 3 * i] >> 4,
+                  v=body[7 + 3 * i] & 15, tq=body[8 + 3 * i],
+                  coef_bits=np.full(64, -1))
+             for i in range(n)]
+    if any(not 1 <= c["h"] <= 4 or not 1 <= c["v"] <= 4 for c in comps):
+        raise ValueError("JPEG: a sampling factor outside 1..4")
+    frame = {"coding": coding, "process": process, "size": (h, w),
+             "comps": comps, "scans": 0}
+    frame.update(_alloc_planes(comps, h, w,
+                               1 if process == "lossless" else 8))
+    return frame
+
+
+def _alloc_planes(comps, h, w, unit: int = 8) -> dict:
+    """Each component's padded store of whole MCUs: bw x bh blocks of 8 x
+    8 coefficients (unit 8) or samples (lossless, unit 1); dw x dh its
+    samples and cols x rows the blocks that hold them."""
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
-    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    mcux, mcuy = -(-w // (unit * hmax)), -(-h // (unit * vmax))
     offset = 0
     for c in comps:
         c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]
         c["dw"] = -(-w * c["h"] // hmax)
         c["dh"] = -(-h * c["v"] // vmax)
+        c["cols"], c["rows"] = -(-c["dw"] // unit), -(-c["dh"] // unit)
         c["off"] = offset
-        offset += c["bw"] * c["bh"] * 64
+        offset += c["bw"] * c["bh"] * unit * unit
     return {"coef": np.zeros(offset, np.int32), "mcu": (mcux, mcuy),
             "max": (hmax, vmax)}
 
 
-def _decode_scan(buf, pos, body, comps, frame, planes, dc_tabs, ac_tabs,
-                 restart) -> int:
-    """Decode the scan whose SOS body is `body` and whose entropy-coded
-    data starts at `pos`; returns the position of the marker after it."""
-    ns = body[0]
-    ids = [body[1 + 2 * i] for i in range(ns)]
-    sel = [body[2 + 2 * i] for i in range(ns)]
-    ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, ahl) != (0, 63, 0):
-        raise ValueError("JPEG: a spectral-selection scan (progressive) is "
-                         "not decoded by the port")
-    by_id = {c["id"]: i for i, c in enumerate(comps)}
-    scomps = [comps[by_id[i]] for i in ids]
-    if ns == 1:  # non-interleaved: the component's own blocks, raster
-        c = scomps[0]
-        bx, by = -(-c["dw"] // 8), -(-c["dh"] // 8)
-        yy, xx = np.meshgrid(np.arange(by), np.arange(bx), indexing="ij")
-        bases = (c["off"] + (yy * c["bw"] + xx) * 64).reshape(-1)
-        cidx = np.zeros(bases.size, np.int64)
-        per_mcu = 1
-    else:  # interleaved MCUs: each component's h x v blocks in turn
-        mcux, mcuy = planes["mcu"]
-        my, mx = np.meshgrid(np.arange(mcuy), np.arange(mcux),
-                             indexing="ij")
-        parts, cparts = [], []
-        for j, c in enumerate(scomps):
-            for v in range(c["v"]):
-                for h in range(c["h"]):
-                    parts.append(c["off"] + ((my * c["v"] + v) * c["bw"]
-                                             + mx * c["h"] + h) * 64)
-                    cparts.append(np.full(my.shape, j))
-        bases = np.stack(parts, -1).reshape(-1)
-        cidx = np.stack(cparts, -1).reshape(-1)
-        per_mcu = len(parts)
-    try:
-        dcl = [dc_tabs[t >> 4] for t in sel]
-        acl = [ac_tabs[t & 15] for t in sel]
-    except KeyError:
-        raise ValueError("JPEG: a scan names a Huffman table not defined "
-                         "before it") from None
-    # The scan's bytes run to the first marker other than RSTn.
+def _scan_data(buf, pos):
+    """The scan's entropy-coded bytes from `pos` to the first marker other
+    than RSTn: its restart segments (0xFF00 unstuffed) and the position of
+    that marker."""
     rest = buf[pos:]
     ff = np.flatnonzero(rest[:-1] == 0xFF)
     nxt = rest[ff + 1]
@@ -494,45 +575,193 @@ def _decode_scan(buf, pos, body, comps, frame, planes, dc_tabs, ac_tabs,
     stuffed = ff[(ff < end) & (nxt == 0)] + 1
     bounds = [0] + [int(r) for r in rst] + [end]
     starts = [0] + [int(r) + 2 for r in rst]
+    segs = []
+    for a, b in zip(starts, bounds[1:]):
+        keep = np.ones(b - a, bool)
+        keep[stuffed[(stuffed >= a) & (stuffed < b)] - a] = False
+        segs.append(rest[a:b][keep])
+    return segs, pos + end
+
+
+def _scan_order(frame, scomps, unit: int = 8):
+    """The scan's blocks (lossless: samples) in decode order: offsets into
+    the store, each one's component index in the scan, and blocks an
+    MCU."""
+    if len(scomps) == 1:  # non-interleaved: the component's own, raster
+        c = scomps[0]
+        yy, xx = np.meshgrid(np.arange(c["rows"]), np.arange(c["cols"]),
+                             indexing="ij")
+        bases = (c["off"] + (yy * c["bw"] + xx) * unit * unit).reshape(-1)
+        return bases, np.zeros(bases.size, np.int64), 1
+    # interleaved MCUs: each component's h x v blocks in turn
+    mcux, mcuy = frame["mcu"]
+    my, mx = np.meshgrid(np.arange(mcuy), np.arange(mcux), indexing="ij")
+    parts, cparts = [], []
+    for j, c in enumerate(scomps):
+        for v in range(c["v"]):
+            for h in range(c["h"]):
+                parts.append(c["off"] + ((my * c["v"] + v) * c["bw"]
+                                         + mx * c["h"] + h) * unit * unit)
+                cparts.append(np.full(my.shape, j))
+    return (np.stack(parts, -1).reshape(-1),
+            np.stack(cparts, -1).reshape(-1), len(parts))
+
+
+def _progression(scomps, ss, se, ah, al) -> None:
+    """libjpeg's check of a progressive scan's parameters, and each
+    component's coefficient bits (the Al each coefficient was last sent
+    at, -1 before it is), which block smoothing reads."""
+    bad = (se != 0) if ss == 0 else (se < ss or se > 63 or len(scomps) != 1)
+    if bad or (ah and al != ah - 1) or al > 13:
+        raise ValueError(f"JPEG: a progressive scan of Ss {ss}, Se {se}, "
+                         f"Ah {ah}, Al {al} is not valid")
+    for c in scomps:
+        c["coef_bits"][ss:se + 1] = al
+
+
+def _scan(frame, buf, pos, body, tabs, restart) -> int:
+    """Decode the scan whose SOS body is `body` and whose entropy-coded
+    data starts at `pos`; returns the position of the marker after it."""
+    ns = body[0]
+    ids = [body[1 + 2 * i] for i in range(ns)]
+    sel = [body[2 + 2 * i] for i in range(ns)]
+    ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
+    ah, al = ahl >> 4, ahl & 15
+    by_id = {c["id"]: c for c in frame["comps"]}
+    if ns == 0 or any(i not in by_id for i in ids):
+        raise ValueError("JPEG: a scan names a component not in the frame")
+    scomps = [by_id[i] for i in ids]
+    process, coding = frame["process"], frame["coding"]
+    if process != "lossless":
+        for c in scomps:  # libjpeg latches a table at a component's first
+            if "qt" not in c:  # scan
+                if c["tq"] not in tabs["q"]:
+                    raise ValueError("JPEG: a component's quantisation "
+                                     "table is not defined before its scan")
+                c["qt"] = tabs["q"][c["tq"]]
+    if process == "progressive":
+        _progression(scomps, ss, se, ah, al)
+    segs, end = _scan_data(buf, pos)
+    unit = 1 if process == "lossless" else 8
+    order = _scan_order(frame, scomps, unit)
+    if coding == "arithmetic":
+        from craft_tpu_torch.data import jpeg_arith
+        dac_dc = [tabs["dac_dc"].get(t >> 4, (0, 1)) for t in sel]
+        dac_ac = [tabs["dac_ac"].get(t & 15, 5) for t in sel]
+        jpeg_arith.decode_scan(segs, order, frame["coef"], sel, dac_dc,
+                               dac_ac, process == "progressive", ss, se,
+                               ah, al, restart)
+    else:
+        try:
+            dcl = [tabs["dc"][t >> 4] for t in sel] \
+                if process != "progressive" or ss == ah == 0 else []
+            acl = [tabs["ac"][t & 15] for t in sel] \
+                if process == "sequential" or (process == "progressive"
+                                               and ss) else []
+        except KeyError:
+            raise ValueError("JPEG: a scan names a Huffman table not "
+                             "defined before it") from None
+        if process == "lossless":
+            from craft_tpu_torch.data import jpeg_lossless
+            jpeg_lossless.decode_scan(segs, frame, scomps, order, dcl,
+                                      restart, ss, se, ah, al)
+        elif process == "progressive":
+            from craft_tpu_torch.data import jpeg_progressive
+            jpeg_progressive.decode_scan(segs, scomps, order, frame["coef"],
+                                         dcl, acl, ss, se, ah, al, restart)
+        else:
+            _decode_sequential(segs, order, frame["coef"], dcl, acl,
+                               restart)
+    frame["scans"] += 1
+    return end
+
+
+def _decode_sequential(segs, order, coef, dcl, acl, restart) -> None:
+    """A sequential Huffman scan (libjpeg takes any Ss, Se, Ah, Al here as
+    0, 63, 0, 0)."""
+    bases, cidx, per_mcu = order
     blocks = list(zip(cidx.tolist(), bases.tolist()))
     seg_blocks = restart * per_mcu if restart else len(blocks)
-    cf = memoryview(planes["coef"])
-    for s, (a, b) in enumerate(zip(starts, bounds[1:])):
-        keep = np.ones(b - a, bool)
-        st = stuffed[(stuffed >= a) & (stuffed < b)] - a
-        keep[st] = False
-        seg = rest[a:b][keep]
+    cf = memoryview(coef)
+    for s, seg in enumerate(segs):
         part = blocks[s * seg_blocks:(s + 1) * seg_blocks]
         if not part:
             break
         _decode_blocks(_windows(seg), part, dcl, acl, cf)
-    return pos + end
 
 
-def _to_pixels(comps, frame, planes, qts, adobe, jfif) -> np.ndarray:
-    h, w = frame
-    hmax, vmax = planes["max"]
+def _dct_samples(frame) -> list:
+    """Each component's samples [dh, dw]: its blocks (smoothed where
+    libjpeg smooths a progressive file's) through the ISLOW IDCT."""
+    comps = frame["comps"]
+    smooth = frame["process"] == "progressive"
+    if smooth:
+        from craft_tpu_torch.data import jpeg_progressive
+        smooth = jpeg_progressive.smoothing_applies(comps)
     out = []
     for c in comps:
-        coef = planes["coef"][c["off"]:c["off"] + c["bw"] * c["bh"] * 64]
-        samples = _idct_islow(coef.reshape(-1, 64), qts[c["tq"]])
-        plane = samples.reshape(c["bh"], c["bw"], 8, 8).transpose(
-            0, 2, 1, 3).reshape(c["bh"] * 8, c["bw"] * 8)
-        plane = plane[:c["dh"], :c["dw"]]
-        out.append(_upsample(plane, hmax // c["h"], vmax // c["v"], h, w))
+        coef = frame["coef"][c["off"]:c["off"] + c["bw"] * c["bh"] * 64]
+        blocks = coef.reshape(c["bh"], c["bw"], 64)[:c["rows"], :c["cols"]]
+        qt = c.get("qt", np.zeros(64, np.int64))  # no scan: all zero
+        if smooth:
+            blocks = jpeg_progressive.smooth(blocks, qt, c, frame["mcu"][1])
+        samples = _idct_islow(blocks.reshape(-1, 64), qt)
+        plane = samples.reshape(c["rows"], c["cols"], 8, 8).transpose(
+            0, 2, 1, 3).reshape(c["rows"] * 8, c["cols"] * 8)
+        out.append(plane[:c["dh"], :c["dw"]])
+    return out
+
+
+def _ycck_to_cmyk(y, cb, cr, k) -> np.ndarray:
+    """jdcolor.c's ycck_cmyk_convert: C, M, Y = 255 - R, G, B of the
+    YCbCr conversion; K as stored."""
+    return np.concatenate([255 - _ycc_to_rgb(y, cb, cr),
+                           k.astype(np.uint8)[..., None]], -1)
+
+
+def _to_pixels(frame, planes, adobe, jfif) -> np.ndarray:
+    """The components' samples brought to the image's size (libjpeg's
+    fancy upsampling; replication in a lossless file, where libjpeg has
+    no fancy form) and converted to the output colour space."""
+    h, w = frame["size"]
+    hmax, vmax = frame["max"]
+    fancy = frame["process"] != "lossless"
+    out = [_upsample(p, hmax // c["h"], vmax // c["v"], h, w) if fancy
+           else np.repeat(np.repeat(p, vmax // c["v"], 0), hmax // c["h"],
+                          1)[:h, :w]
+           for p, c in zip(planes, frame["comps"])]
+    ids = [c["id"] for c in frame["comps"]]
     if len(out) == 1:
         return out[0].astype(np.uint8)
-    if len(out) != 3:
-        raise ValueError(f"JPEG: {len(out)} components not decoded by the "
-                         "port (gray or three)")
-    # libjpeg's guess of the colour space (jdapimin.c): JFIF or Adobe
-    # transform 1 mean YCbCr; Adobe transform 0 or ids 'R', 'G', 'B' RGB.
-    ids = [c["id"] for c in comps]
-    rgb = (not jfif) and (adobe == 0 if adobe is not None
-                          else ids == [82, 71, 66])
-    if rgb:
+    if not fancy:
+        return _lossless_colour(out, adobe, jfif)
+    if len(out) == 3:
+        # libjpeg's guess of the colour space (jdapimin.c): JFIF or Adobe
+        # transform 1 mean YCbCr; Adobe transform 0 or ids 'R', 'G', 'B'
+        # RGB.
+        rgb = (not jfif) and (adobe == 0 if adobe is not None
+                              else ids == [82, 71, 66])
+        if not rgb:
+            return _ycc_to_rgb(*out)
+    elif len(out) == 4 and adobe not in (None, 0):
+        return _ycck_to_cmyk(*out)  # Adobe transform 2 (or unknown): YCCK
+    return np.stack(out, -1).astype(np.uint8)
+
+
+def _lossless_colour(out, adobe, jfif) -> np.ndarray:
+    """A lossless file's components as PIL gives them (the JAX package
+    reads lossless JPEG through PIL): libjpeg-turbo converts no colour in
+    lossless mode, so a file it takes for YCbCr (JFIF, Adobe transform
+    other than 0) or YCCK is refused; RGB as stored; four components as
+    PIL's inverted CMYK ("CMYK;I"); PIL has no mode for other counts."""
+    if len(out) == 3 and not jfif and adobe in (None, 0):
         return np.stack(out, -1).astype(np.uint8)
-    return _ycc_to_rgb(*out)
+    if len(out) == 4 and adobe in (None, 0):
+        return 255 - np.stack(out, -1).astype(np.uint8)
+    raise ValueError(f"JPEG: lossless JPEG of {len(out)} components "
+                     f"({'JFIF' if jfif else f'Adobe transform {adobe}'}) "
+                     "is not decoded (PIL's libjpeg-turbo converts no "
+                     "colour in lossless mode)")
 
 
 def load(path: str) -> np.ndarray:

@@ -7,9 +7,10 @@ OpenCV, on the CPU:
   * shift_pixels and forward_interpolate bit-identical.
   * the Sintel bundle reader: generate_selector and read_bundle give the
     JAX package's arrays on a bundle that native/bundler writes.
-  * the JPEG decoder bit-identical to PIL (4:2:0, 4:2:2, 4:4:4 and gray;
-    quality 75 and 95; restart intervals; odd sizes), progressive refused,
-    and the committed VIPER fixtures decoding to their recorded hashes.
+  * the baseline JPEG decoder bit-identical to PIL (4:2:0, 4:2:2, 4:4:4
+    and gray; quality 75 and 95; restart intervals; odd sizes), and the
+    committed VIPER fixtures decoding to their recorded hashes (the other
+    JPEG and PNG forms: tests/test_torch_imgio_formats.py).
   * resize_linear with a destination size against cv2.resize.
   * read_disp_kitti, and the Sintel occlusion, VIPER and SlowFlow datasets
     against the JAX package's.
@@ -195,16 +196,6 @@ def test_jpeg_restart_intervals(rng, restart, sampling):
     assert b"\xff\xdd" in data  # a DRI marker
     np.testing.assert_array_equal(imgio.decode_jpeg(data),
                                   np.array(Image.open(io.BytesIO(data))))
-
-
-def test_jpeg_progressive_is_refused(rng, tmp_path):
-    data = _pil_jpeg(_scene(rng, 32, 32), progressive=True)
-    with pytest.raises(ValueError, match="progressive"):
-        imgio.decode_jpeg(data)
-    path = tmp_path / "p.jpg"
-    path.write_bytes(data)
-    with pytest.raises(ValueError, match="progressive"):
-        tfu.read_gen(str(path))
 
 
 def test_jpeg_fixtures_decode_to_their_hashes():

@@ -53,21 +53,27 @@ def pixels_sha256(data: bytes) -> str:
     return hashlib.sha256(arr.tobytes()).hexdigest()
 
 
+def frames() -> list:
+    """The two 1920x1080 uint8 RGB frames of the seeded scene."""
+    rng = np.random.RandomState(2015)
+    pad = 16
+    big = scene(rng, H + 2 * pad, W + 2 * pad)
+    dx, dy = SHIFT
+    out = []
+    for frame in (big[pad:pad + H, pad:pad + W],
+                  big[pad - dy:pad - dy + H, pad - dx:pad - dx + W]):
+        frame = frame + rng.normal(0, 2, frame.shape)
+        out.append(np.clip(np.rint(frame), 0, 255).astype(np.uint8))
+    return out
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--out", default=str(Path(__file__).resolve().parent.parent
                                         / "tests" / "data"))
     out = Path(p.parse_args().out)
-    rng = np.random.RandomState(2015)
-    pad = 16
-    big = scene(rng, H + 2 * pad, W + 2 * pad)
-    dx, dy = SHIFT
-    frames = [big[pad:pad + H, pad:pad + W],
-              big[pad - dy:pad - dy + H, pad - dx:pad - dx + W]]
     meta = {}
-    for name, frame in zip(NAMES, frames):
-        frame = frame + rng.normal(0, 2, frame.shape)
-        img = np.clip(np.rint(frame), 0, 255).astype(np.uint8)
+    for name, img in zip(NAMES, frames()):
         for prefix, part in (("viper_", img),
                              ("viper_small_", img[:SMALL[0], :SMALL[1]])):
             buf = io.BytesIO()

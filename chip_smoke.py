@@ -85,15 +85,20 @@ these phases and fails on the first that fails:
      mode counts other than 4 (check_mode_kernels): the checks above
      (check_kernels, check_train_kernels, check_dense_kernels,
      check_sp_kernels, check_b2_lazy), each taking the 256-wide sites'
-     and the intra site's (modes, mode dim), run again at 1, 2, 8 and 16
-     modes of the 256-wide sites (md 256, 128, 32, 16) and 1, 2 and 8 of
-     the intra site (md 128, 64, 16), bf16 and fp32; the training
-     kernels at the chairs grid with batch 8 at 1 and 8 modes (modes1 and
-     modes8, whose rows the kernels line has) and batch 2 at the others;
-     beside each check's own faults, the modes past the first group of
-     four dropped (the aggregating kernels), q's first two 64-wide md
-     chunks swapped (md 128 and 256) and B6 backward's dc in the next
-     mode's plane planted, one fault at a time.
+     and the intra site's (modes, mode dim), run again at 1, 2, 8, 16, 32,
+     64, 128 and 256 modes of the 256-wide sites (md 256 to 1) and 1, 2,
+     8, 16, 32, 64 and 128 of the intra site (md 128 to 1), bf16 and fp32;
+     the training kernels at the chairs grid with batch 8 at 1 and 8
+     modes and batch 2 at the others; past 32 modes at the cut grids
+     MODE_CUT_GRID and MODE_CUT_TRAIN_GRID (the plain versions' fp32
+     scores at 256 modes would take 50.7 GB on the serving grid); beside
+     each check's own faults, the modes past the first group of four
+     dropped (the aggregating kernels), q's first two 64-wide md chunks
+     swapped (md 128 and 256), B6 backward's dc in the next mode's plane,
+     and below md 16 a nonzero pad column (the per-mode kernels' padded q
+     and k), modes 16-19 skipped and the running max reset between groups
+     of four modes (the aggregating kernels) planted, one fault at a
+     time.
   3. oracle: full-width CRAFT with the weights of
      tests/data/oracle_craft_128.npz at 128x128, 12 iterations, against the
      reference flow: fp32 within 1e-3 px, the mixed-precision config
@@ -238,20 +243,23 @@ these phases and fails on the first that fails:
      against the CPU (the same keys and shapes, each array within 1e-4 of
      its largest value; no B2, B3 or B4 while capturing, B3 and B4 in the
      next forward) and vis_attention's PNGs.
-     Then the mode counts other than 4 (modes_phase): seven configurations
-     (MODE_CONFIGS: one, two, eight and sixteen modes, a mixed one, --f1
-     private at 8 inter modes, --nogma at 2) at 128x128 on the card against
-     the CPU (fp32 within 1e-3 px, mixed within 0.15 px), the oracle's
-     weights where their shapes hold and seeded first linears; modes1 and
-     modes8 served at 440x1024 (one warm-up pair, 2 pairs: event ms, the
-     profiler's device ms and busy share, peak memory, the main path's
-     launches asserted) and trained at the chairs crops (2 steps: event
-     ms, device ms, peak, launches), one fp32 step each card against CPU;
-     the evaluator CLI with modes8's flags over a one-pair Sintel tree
-     whose ground truth is the CPU flow (--fullprec, mixed) and the
-     training CLI with modes1's flags (2 steps, launches asserted); two
-     gloo ranks of this script (--sp-modes-rank) at 8 modes, 128x128,
-     mixed and fp32, against the unsharded flows.
+     Then the mode counts other than 4 (modes_phase): ten configurations
+     (MODE_CONFIGS: one, two, eight, sixteen, 32 and 256 modes, two mixed
+     ones, --f1 private at 8 inter modes, --nogma at 2) at 128x128 on the
+     card against the CPU (fp32 within 1e-3 px, mixed within 0.15 px), the
+     oracle's weights where their shapes hold and seeded first linears;
+     modes1, modes8, modes32, modes256 (on the lazy intra path, its B2
+     launches by width asserted) and modes_small_mixed served at 440x1024
+     (one warm-up pair, 2 pairs: event ms, the profiler's device ms and
+     busy share, peak memory, the path's launches asserted) and trained at
+     the chairs crops (batch 8, modes256 and modes_small_mixed batch 2; 2
+     steps: event ms, device ms, peak, launches), one fp32 step of modes1,
+     modes8 and modes32 card against CPU; the evaluator CLI with modes8's
+     and modes32's flags over a one-pair Sintel tree whose ground truth is
+     the CPU flow (--fullprec, mixed) and the training CLI with modes1's
+     and modes32's flags (2 steps, launches asserted); two gloo ranks of
+     this script (--sp-modes-rank) at 8 and 32 modes, 128x128, mixed and
+     fp32, against the unsharded flows.
   5. kernel times over CUDA events at the main-path shapes, beside each
      plain version, the bound and (B2) scaled_dot_product_attention; B2 at
      F 128 at a Sintel batch of 11 and at HD1K (the plain version there in
@@ -271,8 +279,10 @@ these phases and fails on the first that fails:
      versions, the bounds and the same pass in the cuDNN conv form.
      B4's, B6's and B6 dense's lines add the floor of their exponentials
      on the SFUs.  Then B1, B2, B3, B4 int8 (serving) and B6, B6 backward
-     and B7 (chairs, batch 8) at 1 and 8 modes, as modes1 and modes8 run
-     them, beside their plain versions, bounds and exponentials' floors.
+     and B7 (chairs, batch 8) at 1, 8 and 32 modes, as modes1, modes8 and
+     modes32 run them, beside their plain versions (at 32 modes over two
+     samples at a time), bounds and exponentials' floors, and B8 at 32
+     modes beside scaled_dot_product_attention.
 
 Prints the card line and a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
@@ -494,6 +504,17 @@ GROUP_DROPPED, CHUNK_SWAPPED, DC_MODE_OFF = (
     "modes past the first group of four dropped",
     "q's first two 64-wide md chunks swapped",
     "dc written into the next mode's plane")
+# Past 16 modes at a 256-wide site (md 8 to 1): a nonzero pad column where
+# the per-mode kernels (B1, B2, B4, B7, B8, B4 dense) take q and k
+# zero-padded to 16 columns (a pad holding a copy of column 0 adds q_0 k_0
+# to every score: column 0 counted twice); the aggregating kernels' fifth
+# group of four modes (16-19) skipped (M > 16); their running max reset at
+# each group, each group's exponentials taken against its own max and
+# summed unrescaled (M > 4).
+PAD_NONZERO, GROUP_SKIPPED, MAX_RESET = (
+    "a nonzero pad column (column 0 counted twice)",
+    "the group of modes 16-19 skipped",
+    "the running max reset between groups of four modes")
 
 
 def swap_md_chunks(x):
@@ -502,13 +523,61 @@ def swap_md_chunks(x):
     return torch.cat([x[..., 64:128], x[..., :64], x[..., 128:]], -1)
 
 
-def mode_faults(M, md, fn, q, k, agg=False):
+def pad_col_fault(x):
+    """x with column 0 scaled by sqrt(2): q' k'^T = q k^T + q_0 k_0^T, what
+    a pad column holding a copy of column 0 would add."""
+    y = x.clone()
+    y[..., 0] *= math.sqrt(2.0)
+    return y
+
+
+def skip_group(x):
+    """x [B, M, ...] without modes 16-19 (the fifth group of four)."""
+    return torch.cat([x[:, :16], x[:, 20:]], 1)
+
+
+def group_max_weights(lg):
+    """The mode softmax's weights of logits lg [B, M, ...] with its running
+    max reset at each group of four modes: each exponential against its
+    own group's max, normalised over every mode unrescaled."""
+    g = lg.unflatten(1, (lg.shape[1] // 4, 4))
+    e = torch.exp(g - g.amax(2, keepdim=True)).flatten(1, 2)
+    return e / e.sum(1, keepdim=True)
+
+
+def max_reset_volume(q, k, table, clip, pos_w, agg_w, agg_b):
+    """The plain aggregated volume [B, U1, U2] (B6, B6 dense) with the
+    MAX_RESET fault: s_m = clamp(c_m, +-clip) + pos_w * table (the window's
+    dense rows, a table, or None) weighted by group_max_weights."""
+    s = ma.table_scores(q, k, table, clip, pos_w)
+    return (group_max_weights(agg_w * s + agg_b) * s).sum(1)
+
+
+def b3_max_reset(q, k, biases, grid, attn_clip, pos_w, agg_w, agg_b):
+    """Plain B3's normed fp32 volume with the MAX_RESET fault."""
+    gmax = ma.scores(q, k, 1.0 / math.sqrt(q.shape[-1])).amax()
+    clip = torch.where(gmax > attn_clip, attn_clip, 1e30)
+    vol = max_reset_volume(q, k, ma.window_rows(biases, grid, q, k), clip,
+                           pos_w, agg_w, agg_b)
+    return ma._normed(vol, ma._volume_sums(vol), float(k.shape[2]) ** 2,
+                      1e-12)[0]
+
+
+def mode_faults(M, md, fn, q, k, agg=False, normed=False):
     """{fault: function giving fn(q', k')} of the faults that apply at (M,
     md): for an aggregating kernel (agg) the modes past the first group of
-    four dropped (M > 4), and q's md chunks swapped (md > 64)."""
+    four dropped (M > 4) and modes 16-19 skipped (M > 16; for the normed
+    volume of B3 and B9 (normed) up to 64 modes: at 128 and 256 four
+    modes move it by less than the bf16 bound, and B6's raw volume, from
+    the same FMA tiles, holds the fault there); for a per-mode kernel a
+    nonzero pad column (md < 16); and q's md chunks swapped (md > 64)."""
     out = {}
     if agg and M > 4:
         out[GROUP_DROPPED] = lambda: fn(q[:, :4], k[:, :4])
+    if agg and M > 16 and not (normed and M > 64):
+        out[GROUP_SKIPPED] = lambda: fn(skip_group(q), skip_group(k))
+    if not agg and md < ma.MMA_K:
+        out[PAD_NONZERO] = lambda: fn(pad_col_fault(q), pad_col_fault(k))
     if md > 64:
         out[CHUNK_SWAPPED] = lambda: fn(swap_md_chunks(q), k)
     return out
@@ -625,7 +694,11 @@ def check_kernels(dev, gen, report, grid=(H8, W8),
             if attn_clip != 100.0:
                 faults["no clamp"] = lambda: plain(CLIP_OFF, 0.5)[0]
             faults.update(mode_faults(M, md, lambda a, b: plain(
-                attn_clip, 0.5, x=a, y=b)[0], q, k, agg=True))
+                attn_clip, 0.5, x=a, y=b)[0], q, k, agg=True,
+                normed=True))
+            if M > 4:
+                faults[MAX_RESET] = lambda: b3_max_reset(
+                    q, k, biases, g3, attn_clip, 0.5, agg_w, agg_b)
             want, wstats = plain(attn_clip, 0.5)
             hold(f"B3 M={M} md={md} {dtype} {g3[0]}x{g3[1]} "
                  f"attn_clip={attn_clip:g}", got, want, err_fn, tol, faults)
@@ -862,14 +935,15 @@ B6_MODE0, B6_HALF_WINDOW, B6_TABLE_ROWS, B6_WB = (
 
 
 def _b6_dc_fault(q, k, g, vol, biases, grid, clip, agg_w, drop_term=False,
-                 mask=True, mode0=False):
+                 mask=True, mode0=False, max_reset=False):
     """The plain B6 backward's dc with a planted fault: t = p (the
-    agg_w * (s - vol) term dropped), no clamp mask, or every mode's dc from
-    mode 0's scores."""
+    agg_w * (s - vol) term dropped), no clamp mask, every mode's dc from
+    mode 0's scores, or p with MAX_RESET."""
     if mode0:
         q, k = q[:, :1].expand_as(q), k[:, :1].expand_as(k)
     c, s = ma.biased_scores(q, k, biases, grid, clip, 0.5)
-    p = torch.softmax(agg_w * s, dim=1)
+    p = group_max_weights(agg_w * s) if max_reset else \
+        torch.softmax(agg_w * s, dim=1)
     t = p if drop_term else p * (1.0 + agg_w * (s - vol[:, None]))
     dc = g[:, None] * t
     return torch.where(c.abs() < clip, dc, 0.0) if mask else dc
@@ -908,6 +982,30 @@ def _b6_da_fault(q, k, g, vol, biases, grid, clip, agg_w):
     g[..., B6_KEY_GROUP:] = 0.0
     return cv.agg_corr_bwd_plain(q, k, g, vol, biases, grid, clip, 0.5,
                                  agg_w)[1]
+
+
+# The fp32 row term sum_j g_j p_j of U <= 2^13 terms rounds within
+# U 2^-24 = 2^-11 of sum_j |g_j p_j| in any order.
+B7_ROW_TERM_ULP = 2.0 ** -11
+
+
+def b7_row_err(p, g):
+    """B7's bf16 dc error per row: max |got - want| over the larger of the
+    row's max |want| and what the fp32 row term's rounding moves dc by
+    (B7_ROW_TERM_ULP * max_i p_i * sum_j |g_j p_j|); the worst row.  In a
+    row whose softmax sits on one key, dc = p (g - sum g p) is a difference
+    of near-equal sums that fp32 leaves at that level in any summation
+    order (the plain version against its float64 self: 2.6e-2 of the row's
+    max |dc| at md 2, 4.5e-5 at md 64)."""
+    pf, gf = p.float(), g.float()
+    floor = B7_ROW_TERM_ULP * pf.amax(-1) * (gf * pf).abs().sum(-1)
+    del pf, gf
+
+    def err(got, want):
+        d = (got.float() - want.float()).abs().amax(-1)
+        return float((d / torch.maximum(want.float().abs().amax(-1),
+                                        floor)).max())
+    return err
 
 
 def _b7_fault(q, k, p, g, clip, row_term=True, mask=True, row_cols=None,
@@ -964,6 +1062,9 @@ def check_b6_forward(dev, gen, report, biases, grid=CHAIRS_GRID,
                     qb, kb, window, clip, 0.5, agg_w, agg_b, fault)
             faults.update(mode_faults(modes, md, lambda a, b: plain(
                 clip, 0.5, a, b), qb, kb, agg=True))
+            if modes > 4:
+                faults[MAX_RESET] = lambda: max_reset_volume(
+                    qb, kb, window, clip, 0.5, agg_w, agg_b)
             want = plain(clip, 0.5)
             label = f"B6 forward M={modes} md={md} {dtype} B={bsz} " \
                 f"clip={clip:g}"
@@ -1086,6 +1187,12 @@ def check_train_kernels(dev, gen, report, grid=CHAIRS_GRID,
         if M > 4:
             fdc[GROUP_DROPPED] = lambda: torch.cat(
                 [wdc[:, :4], torch.zeros_like(wdc[:, 4:])], 1)
+            fdc[MAX_RESET] = lambda: _b6_dc_fault(*args, agg_w,
+                                                  max_reset=True)
+        if M > 16:
+            fdc[GROUP_SKIPPED] = lambda: torch.cat(
+                [wdc[:, :16], torch.zeros_like(wdc[:, 16:20]), wdc[:, 20:]],
+                1)
         if md > 64:
             fdc[CHUNK_SWAPPED] = lambda: cv.agg_corr_bwd_plain(
                 swap_md_chunks(args[0]), *args[1:], 0.5, agg_w)[0]
@@ -1129,8 +1236,7 @@ def check_train_kernels(dev, gen, report, grid=CHAIRS_GRID,
     # from the site's own probs and a cotangent in dtype; then at the f2
     # shape one (b, mode) slice, BM = 1.  fp32 dc is held over the tensor's
     # largest value (B7_FP32_DC_TOL), bf16 per row.
-    dc_err, dc_tol = ((row_rel_err, B7_DC_TOL) if dtype == torch.bfloat16
-                      else (rel_err, B7_FP32_DC_TOL))
+    bf16_dc = dtype == torch.bfloat16
     for (M, md), pos_w in sites:
         q, k = inputs(gen, md, dev, u, batch, M, dtype)
         g = randn(batch, M, u, u).to(dtype)
@@ -1167,7 +1273,13 @@ def check_train_kernels(dev, gen, report, grid=CHAIRS_GRID,
                 if md > 64:
                     fdc[CHUNK_SWAPPED] = lambda: pv.probs_bwd_plain(
                         swap_md_chunks(args[0]), *args[1:], clip)[0]
+                if md < ma.MMA_K:
+                    fdc[PAD_NONZERO] = lambda: pv.probs_bwd_plain(
+                        pad_col_fault(args[0]), pad_col_fault(args[1]),
+                        *args[2:], clip)[0]
             got_m, want_m = _masked(keep, dc, wdc)
+            dc_err, dc_tol = ((b7_row_err(args[2], args[3]), B7_DC_TOL)
+                              if bf16_dc else (rel_err, B7_FP32_DC_TOL))
             hold(f"{label} dc", got_m, want_m, dc_err, dc_tol,
                  {n: (lambda f=f: _masked(keep, f())[0])
                   for n, f in fdc.items()})
@@ -1767,6 +1879,9 @@ def check_dense_kernels(dev, gen, report, grid=(H8, W8),
             faults.update(mode_faults(M, md, lambda a, b: plain(
                 a, b, table, clip_t, DENSE_POS_W, v), q, k,
                 agg=name == "fused_agg_corr_dense"))
+            if name == "fused_agg_corr_dense" and M > 4:
+                faults[MAX_RESET] = lambda: max_reset_volume(
+                    q, k, table, clip_t, DENSE_POS_W, *AGG_WB)
             err_fn, tol = tol_of(dtype)
             hold(f"{name} M={M} md={md} {label}", got, want, err_fn, tol,
                  faults)
@@ -1904,7 +2019,7 @@ def check_sp_kernels(dev, gen, report, grid=(H8, W8), worlds=SP_WORLDS,
                         faults["local gmax"] = lambda: plain(x, k, lm)
                     if not clamps:
                         faults.update(mode_faults(M, md, lambda a, b: plain(
-                            a, b, gmax), x, k, agg=True))
+                            a, b, gmax), x, k, agg=True, normed=True))
                     want = plain(x, k, gmax)
                     hold(f"{tag} sums rows {h0}:{h1}", got, want,
                          sums_err(float(x.shape[2] * k.shape[2])),
@@ -1936,7 +2051,8 @@ def check_sp_kernels(dev, gen, report, grid=(H8, W8), worlds=SP_WORLDS,
                         faults["local gmax"] = lambda: plain(x, k, lm, n_all)
                     if not clamps:
                         faults.update(mode_faults(M, md, lambda a, b: plain(
-                            a, b, gmax, n_all), x, k, agg=True))
+                            a, b, gmax, n_all), x, k, agg=True,
+                            normed=True))
                     want = plain(x, k, gmax, n_all)
                     hold(f"{tag} write rows {h0}:{h1}", got, want, err_fn,
                          tol, faults)
@@ -5721,20 +5837,31 @@ def time_gru(dev, report) -> None:
 
 # The checks' counts: ((modes, mode dim) of the 256-wide inter, f2 and f1
 # sites, that of the 128-wide intra site or None where another count
-# checks it) of modes1, modes2, modes8 and modes16 (md = width / M, ROADMAP
-# item 6).
+# checks it) of modes1, modes2, modes8, modes16, and past 16 modes (md 8
+# to 1: modes32, modes_small_mixed's and modes256's counts; md = width /
+# M).
 MODE_COUNTS = (((1, 256), (1, 128)), ((2, 128), (2, 64)),
-               ((8, 32), (8, 16)), ((16, 16), None))
+               ((8, 32), (8, 16)), ((16, 16), None),
+               ((32, 8), (16, 8)), ((64, 4), (32, 4)), ((128, 2), (64, 2)),
+               ((256, 1), (128, 1)))
 # The kernels whose instantiations the new counts add, in the kernels line
-# as <name>_m1 and <name>_m8 (the modes1 and modes8 configurations).
+# as <name>_m1, <name>_m8 and <name>_m32 (the modes1, modes8 and modes32
+# configurations: MODE_ROWS).
 MODE_KERNELS = ("scores_global_max", "flash_mode_attention",
                 "fused_agg_corr_norm", "mode_softmax_probs",
                 "fused_agg_corr", "agg_corr_bwd", "probs_bwd")
+MODE_ROWS = (1, 8, 32)
 # The training checks' batch at the chairs grid: TRAIN_BATCH at the counts
-# that modes1 and modes8 train at full width (the kernels line's rows),
-# two samples at the others, which hold every tile and mode of the
-# kernels at a quarter of the plain versions' memory.
+# that modes1 and modes8 train at full width, two samples at the others,
+# which hold every tile and mode of the kernels at a quarter of the plain
+# versions' memory.
 MODE_CHECK_BATCH = 2
+# Past 32 modes the checks run at cut grids: the plain versions' fp32
+# scores at 256 modes would take 50.7 GB on the serving grid, 4.5 GB a
+# tensor on (30, 70) (U 2100, ragged: 32.8 key tiles), and the training
+# checks' (20, 41) (U 820) at batch 2.  Both have several query and key
+# tiles and key groups.
+MODE_CUT_GRID, MODE_CUT_TRAIN_GRID, MODE_CUT_PAST = (30, 70), (20, 41), 32
 # The dense-table cases at the new counts (check_dense_kernels' labels).
 MODE_DENSE_CASES = ("table, clip on", "fp32, table, clip on")
 
@@ -5742,14 +5869,19 @@ MODE_DENSE_CASES = ("table, clip on", "fp32, table, clip on")
 def check_mode_kernels(dev, gen, report, grid=(H8, W8),
                        train_grid=CHAIRS_GRID,
                        b3_grids=((H8, W8), KITTI_GRID),
-                       counts=MODE_COUNTS) -> None:
+                       counts=MODE_COUNTS, cut_grid=MODE_CUT_GRID,
+                       cut_train_grid=MODE_CUT_TRAIN_GRID) -> None:
     """Phase 2, the mode counts other than 4: the checks of the four modes
     (check_kernels, check_train_kernels, check_dense_kernels,
     check_sp_kernels at two shards, check_b2_lazy at the serving grid) at
-    each count, bf16 and fp32, their faults and mode_faults planted.  On
-    CPU tensors the wrappers take the plain versions themselves (how the
-    tests run this check)."""
+    each count, bf16 and fp32, their faults and mode_faults planted; past
+    MODE_CUT_PAST modes at cut_grid and cut_train_grid in place of grid,
+    b3_grids and train_grid.  On CPU tensors the wrappers take the plain
+    versions themselves (how the tests run this check)."""
+    full = (grid, train_grid, b3_grids)
     for wide, intra in counts:
+        grid, train_grid, b3_grids = full if wide[0] <= MODE_CUT_PAST else (
+            cut_grid, cut_train_grid, (cut_grid,))
         batch = TRAIN_BATCH if wide[0] in (1, 8) else MODE_CHECK_BATCH
         for dtype in (torch.bfloat16, torch.float32):
             check_kernels(dev, gen, report, grid, b3_grids, wide, intra,
@@ -5763,26 +5895,44 @@ def check_mode_kernels(dev, gen, report, grid=(H8, W8),
         check_sp_kernels(dev, gen, report, grid, worlds=(2,), wide=wide,
                          intra=intra)
         if intra:
-            check_b2_lazy(dev, gen, report, grids=(("serving", grid),),
+            check_b2_lazy(dev, gen, report, grids=((f"{grid[0]}x{grid[1]}",
+                                                    grid),),
                           hd1k=None, modes=intra)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
 
 # The configurations of the mode-count phase: each site's mode count (the
-# flags --intermodes, --f2modes, --intramodes); the two full-width ones
-# (modes1, modes8) are served and trained at the main path's shapes, every
-# one runs card against CPU at 128x128.  two_way8 is --f1 private
-# --intermodes 8, nogma2 --nogma --intramodes 2 (craft_nogma's f2 site
-# takes --intramodes).
+# flags --intermodes, --f2modes, --intramodes); the full-width ones
+# (MODE_FULL: modes1, modes8, modes32) are served and trained at the main
+# path's shapes, modes256 and modes_small_mixed served at 440x1024 and
+# trained at a cut batch (MODE_TRAIN_BATCH), every one runs card against
+# CPU at 128x128.  two_way8 is --f1 private --intermodes 8, nogma2 --nogma
+# --intramodes 2 (craft_nogma's f2 site takes --intramodes).
 MODE_CONFIGS = {
     "modes1": (1, 1, 1), "modes8": (8, 8, 8), "modes2": (2, 2, 2),
     "modes16": (16, 16, 8), "modes_mixed": (2, 16, 1),
-    "two_way8": (8, 4, 4), "nogma2": (4, 2, 2)}
-MODE_FULL = ("modes1", "modes8")
+    "two_way8": (8, 4, 4), "nogma2": (4, 2, 2),
+    "modes32": (32, 32, 16), "modes256": (256, 256, 128),
+    "modes_small_mixed": (64, 128, 32)}
+MODE_FULL = ("modes1", "modes8", "modes32")
+# The served configurations and their launches a pair: modes256's intra
+# probs (128 x 7040^2 bf16, 12.7 GB) pass setrans.LAZY_PROBS_BYTES, so it
+# serves on the lazy intra path (B2 at F 128 each iteration, no B4).
+MODE_SERVED = {"modes1": "SERVE_PER_PAIR", "modes8": "SERVE_PER_PAIR",
+               "modes32": "SERVE_PER_PAIR",
+               "modes_small_mixed": "SERVE_PER_PAIR",
+               "modes256": "LAZY_PER_PAIR"}
+# The training batch at the chairs crops: TRAIN_BATCH at full width; the
+# f2 site's bf16 probs are [B, M, 2852, 2852], 16.3 MB a mode and sample,
+# 33 GB at 256 modes and batch 8 before their gradient and dropout, so
+# modes256 and modes_small_mixed train at batch 2.
+MODE_TRAIN_BATCH = {"modes1": TRAIN_BATCH, "modes8": TRAIN_BATCH,
+                    "modes32": TRAIN_BATCH, "modes256": 2,
+                    "modes_small_mixed": 2}
 MODE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_modes"
 MODE_SP_RANKS = 2
-MODE_SP_CONFIG = "modes8"
+MODE_SP_CONFIGS = ("modes8", "modes32")
 
 
 def mode_flags(name: str) -> list:
@@ -5870,18 +6020,26 @@ def modes_card_vs_cpu(dev) -> dict:
 
 
 def modes_serving(dev, n_pairs: int = 2) -> dict:
-    """modes1 and modes8 served as the main path (mixed, 440x1024, 12
-    iterations, one warm-up pair, then n_pairs seeded pairs with the launch
-    counts zeroed just before): ms between CUDA events (wall), the
-    profiler's device ms of one more pair and the busy share (that device
-    ms over the median wall), peak memory and the exact launches of the
-    main path (SERVE_PER_PAIR: the sites are the same, at other mode
-    counts)."""
+    """The MODE_SERVED configurations served as the main path (mixed,
+    440x1024, 12 iterations, one warm-up pair, then n_pairs seeded pairs
+    with the launch counts zeroed just before): ms between CUDA events
+    (wall), the profiler's device ms of one more pair and the busy share
+    (that device ms over the median wall), peak memory and the exact
+    launches a pair (SERVE_PER_PAIR: the sites are the same, at other mode
+    counts; LAZY_PER_PAIR for modes256, its B2 launches at F 128 held to
+    ITERS a pair)."""
     padder, pairs = frame_pairs(dev, n_pairs + 1, seed=6)
     res = {}
-    for name in MODE_FULL:
+    for name, per_pair in MODE_SERVED.items():
         model = mode_model(dev, name, True)
-        res[name] = _served(name, model, padder, pairs, SERVE_PER_PAIR)
+        res[name] = _served(name, model, padder, pairs, globals()[per_pair])
+        if per_pair == "LAZY_PER_PAIR":
+            ma.flash_mode_attention.launches_by = {}
+            _final(model, *pairs[1])
+            by = dict(ma.flash_mode_attention.launches_by)
+            print(f"{name}: B2 launches by width {by}")
+            assert by == {256: 1, LAZY_F: ITERS}, f"{name} lazy path"
+            res[name]["b2_by_width"] = by
         del model
         torch.cuda.empty_cache()
     return res
@@ -5890,21 +6048,24 @@ def modes_serving(dev, n_pairs: int = 2) -> dict:
 def mode_train_setup(dev, name: str):
     """(state, step, batch) of configuration `name`'s training path: mixed
     precision, ``mode_weights``, dropout at the config's rates, remat on,
-    12 iterations, a chairs-size batch."""
+    12 iterations, a chairs-size batch of MODE_TRAIN_BATCH samples."""
     cfg = mode_config(name, True)
     state = create_train_state(cfg, mode_weights(name), device=dev,
                                num_steps=1000)
-    return state, make_train_step(cfg, iters=ITERS), train_batch(dev)
+    n = MODE_TRAIN_BATCH[name]
+    batch = {k: v[:n] for k, v in train_batch(dev).items()}
+    return state, make_train_step(cfg, iters=ITERS), batch
 
 
 def modes_training(dev, n_steps: int = 2) -> dict:
-    """modes1 and modes8 at the chairs crops (368x496, batch 8, 12
-    iterations, dropout at the config's rates, mixed precision, remat on),
-    one warm-up step, then n_steps steps between CUDA events: their ms, the
-    profiler's device ms of one more step, peak memory, loss, grad norm
-    and the exact launches of the main config's step."""
+    """The MODE_TRAIN_BATCH configurations at the chairs crops (368x496,
+    their batch, 12 iterations, dropout at the config's rates, mixed
+    precision, remat on), one warm-up step, then n_steps steps between
+    CUDA events: their ms, the profiler's device ms of one more step, peak
+    memory, loss, grad norm and the exact launches of the main config's
+    step."""
     res = {}
-    for name in MODE_FULL:
+    for name in MODE_TRAIN_BATCH:
         state, step, batch = mode_train_setup(dev, name)
         r = _trained(name, state, step, batch, n_steps, "main")
         box = [state]
@@ -5920,71 +6081,82 @@ def modes_training(dev, n_steps: int = 2) -> dict:
 
 
 def modes_step_card_vs_cpu(dev) -> None:
-    """One fp32 step (dropout off, 2 iterations, the oracle frames) of
-    modes1 and modes8 on the card against the CPU (phase 3's bounds), its
-    launches asserted."""
+    """One fp32 step (dropout off, 2 iterations, the oracle frames) of each
+    MODE_FULL configuration on the card against the CPU (phase 3's
+    bounds), its launches asserted."""
     for name in MODE_FULL:
         _step_card_vs_cpu(dev, f"{name} train step", mode_config(name, False),
                           mode_weights(name), "main")
 
 
+# The configurations that the CLIs run in the mode-count phase.
+MODE_EVAL_CLI, MODE_TRAIN_CLI = ("modes8", "modes32"), ("modes1", "modes32")
+
+
 def modes_clis(dev, cpu_flows, frames) -> dict:
-    """The evaluator CLI with modes8's flags over its weights as a
-    reference .pth, on a one-pair Sintel tree of the oracle frames whose
-    ground truth is modes8's fp32 CPU flow (--fullprec within
-    FULLPREC_BOUND_PX, mixed within BF16_BOUND_PX, SERVE_PER_PAIR a
-    forward); then the training CLI with modes1's flags, 2 steps of the
-    chairs stage on a small synthetic FlyingChairs tree (the steps'
-    launches: the main config's, exact)."""
+    """The evaluator CLI with each MODE_EVAL_CLI configuration's flags over
+    its weights as a reference .pth, on a one-pair Sintel tree of the
+    oracle frames whose ground truth is that configuration's fp32 CPU flow
+    (--fullprec within FULLPREC_BOUND_PX, mixed within BF16_BOUND_PX,
+    SERVE_PER_PAIR a forward); then the training CLI with each
+    MODE_TRAIN_CLI configuration's flags, 2 steps of the chairs stage on a
+    small synthetic FlyingChairs tree (the steps' launches: the main
+    config's, exact)."""
     shutil.rmtree(MODE_DIR, ignore_errors=True)
     MODE_DIR.mkdir(parents=True)
     out = {}
-    pth = MODE_DIR / "modes8.pth"
-    torch.save({f"module.{k}": v for k, v in mode_weights("modes8").items()},
-               pth)
-    write_sintel_tree(MODE_DIR / "sintel", frames,
-                      [cpu_flows["modes8"][0].numpy()])
-    for label, extra, bound in (("fp32", ["--fullprec"], FULLPREC_BOUND_PX),
-                                ("mixed", [], BF16_BOUND_PX)):
-        argv = ["--model", str(pth), *mode_flags("modes8"), "--iters",
-                str(ITERS), "--device", str(dev), "--dataset", "sintel",
-                "--data_root", str(MODE_DIR / "sintel"), *extra]
-        r = _timed_cli(f"modes8 {label}", argv, 2)
-        _assert_launches(f"eval modes8 {label}", r["launches"],
-                         SERVE_PER_PAIR, 2)
-        epe = r["metrics"]["sintel_clean_epe"]
-        print(f"eval modes8 {label}: sintel_clean_epe {epe:.3e} px against "
-              f"the port's CPU flow (bound {bound})")
-        assert epe < bound, f"eval modes8 {label}"
-        out[f"eval {label}"] = r
+    for name in MODE_EVAL_CLI:
+        pth = MODE_DIR / f"{name}.pth"
+        torch.save({f"module.{k}": v for k, v in mode_weights(name).items()},
+                   pth)
+        write_sintel_tree(MODE_DIR / name, frames,
+                          [cpu_flows[name][0].numpy()])
+        for label, extra, bound in (("fp32", ["--fullprec"],
+                                     FULLPREC_BOUND_PX),
+                                    ("mixed", [], BF16_BOUND_PX)):
+            argv = ["--model", str(pth), *mode_flags(name), "--iters",
+                    str(ITERS), "--device", str(dev), "--dataset", "sintel",
+                    "--data_root", str(MODE_DIR / name), *extra]
+            r = _timed_cli(f"{name} {label}", argv, 2)
+            _assert_launches(f"eval {name} {label}", r["launches"],
+                             SERVE_PER_PAIR, 2)
+            epe = r["metrics"]["sintel_clean_epe"]
+            print(f"eval {name} {label}: sintel_clean_epe {epe:.3e} px "
+                  f"against the port's CPU flow (bound {bound})")
+            assert epe < bound, f"eval {name} {label}"
+            out[f"eval {name} {label}"] = r
     write_chairs(MODE_DIR / "chairs", 8, 2, (128, 160))
-    argv = ["--stage", "chairs", *mode_flags("modes1"), "--mixed_precision",
-            "--lr", "2.5e-4", "--image_size", "96", "128", "--batch_size",
-            "4", "--workers", "1", "--iters", str(ITERS), "--print_freq",
-            "1", "--num_steps", "2", "--data_root", str(MODE_DIR / "chairs"),
-            "--output", str(MODE_DIR / "out"), "--name", "modes1",
-            "--device", str(dev)]
-    launch.reset_launch_counts()
-    t0 = time.perf_counter()
-    state = train_cli.main(argv)
-    counts = launch.launch_counts()
-    r = {"seconds": time.perf_counter() - t0, "step": state.step,
-         "launches": {k: c for k, c in counts.items() if c}}
-    print("train CLI modes1:", json.dumps(r))
-    assert state.step == 2 and state.model.cfg.inter.num_modes == 1
-    assert all(bool(torch.isfinite(p).all())
-               for p in state.model.parameters()), "train CLI modes1"
-    _assert_launches("train CLI modes1", counts, step_launches("main"), 2)
-    assert (MODE_DIR / "out" / "modes1.pth").exists()
-    out["train"] = r
+    for name in MODE_TRAIN_CLI:
+        argv = ["--stage", "chairs", *mode_flags(name), "--mixed_precision",
+                "--lr", "2.5e-4", "--image_size", "96", "128",
+                "--batch_size", "4", "--workers", "1", "--iters",
+                str(ITERS), "--print_freq", "1", "--num_steps", "2",
+                "--data_root", str(MODE_DIR / "chairs"), "--output",
+                str(MODE_DIR / "out"), "--name", name, "--device", str(dev)]
+        launch.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_cli.main(argv)
+        counts = launch.launch_counts()
+        r = {"seconds": time.perf_counter() - t0, "step": state.step,
+             "launches": {k: c for k, c in counts.items() if c}}
+        print(f"train CLI {name}:", json.dumps(r))
+        assert state.step == 2 and state.model.cfg.inter.num_modes == \
+            MODE_CONFIGS[name][0]
+        assert all(bool(torch.isfinite(p).all())
+                   for p in state.model.parameters()), f"train CLI {name}"
+        _assert_launches(f"train CLI {name}", counts, step_launches("main"),
+                         2)
+        assert (MODE_DIR / "out" / f"{name}.pth").exists()
+        out[f"train {name}"] = r
     shutil.rmtree(MODE_DIR, ignore_errors=True)
     return out
 
 
 def mode_sp_rank_main(outdir: str) -> int:
-    """One rank of the mode-count phase's sequence parallelism: MODE_SP_
-    CONFIG at 128x128 (the oracle frames), mixed and fp32, as this rank of
-    a gloo group; writes its flows and launches under outdir."""
+    """One rank of the mode-count phase's sequence parallelism: each
+    MODE_SP_CONFIGS configuration at 128x128 (the oracle frames), mixed
+    and fp32, as this rank of a gloo group; writes its flows and launches
+    under outdir."""
     from craft_tpu_torch.parallel import sp
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5994,13 +6166,14 @@ def mode_sp_rank_main(outdir: str) -> int:
             for x in (img1, img2)]
     res = {"rank": group.rank, "world": group.world,
            "backend": group.backend}
-    for label, mp in (("mixed", True), ("fp32", False)):
-        model = mode_model(group.device, MODE_SP_CONFIG, mp)
-        launch.reset_launch_counts()
-        _, flows = serve(model, [pair], group)
-        res[f"launches_{label}"] = launch.launch_counts()
-        torch.save(flows[0].cpu(),
-                   Path(outdir) / f"rank{group.rank}_{label}.pt")
+    for name in MODE_SP_CONFIGS:
+        for label, mp in (("mixed", True), ("fp32", False)):
+            model = mode_model(group.device, name, mp)
+            launch.reset_launch_counts()
+            _, flows = serve(model, [pair], group)
+            res[f"launches_{name}_{label}"] = launch.launch_counts()
+            torch.save(flows[0].cpu(), Path(outdir)
+                       / f"rank{group.rank}_{name}_{label}.pt")
     (Path(outdir) / f"rank{group.rank}.json").write_text(json.dumps(res))
     print(f"modes sp rank{group.rank}:", json.dumps(res), flush=True)
     return 0
@@ -6008,17 +6181,18 @@ def mode_sp_rank_main(outdir: str) -> int:
 
 def modes_sp(dev) -> dict:
     """MODE_SP_RANKS ranks of this script on the one card (gloo) serving
-    MODE_SP_CONFIG at 128x128 against the unsharded card flow: mixed within
-    BF16_BOUND_PX, fp32 within FULLPREC_BOUND_PX, SP_KERNELS per rank (B9
-    in place of B3, at 8 modes)."""
+    each MODE_SP_CONFIGS configuration at 128x128 against the unsharded
+    card flow: mixed within BF16_BOUND_PX, fp32 within FULLPREC_BOUND_PX,
+    SP_KERNELS per rank (B9 in place of B3, at 8 and 32 modes)."""
     sp_dir = MODE_DIR / "sp"
     shutil.rmtree(sp_dir, ignore_errors=True)
     sp_dir.mkdir(parents=True)
     img1, img2, _, _ = load_oracle_npz(ORACLE)
     pair = [torch.from_numpy(np.round(x).astype(np.float32)).to(dev)
             for x in (img1, img2)]
-    ref = {label: serve(mode_model(dev, MODE_SP_CONFIG, mp), [pair])[1][0]
-           .cpu() for label, mp in (("mixed", True), ("fp32", False))}
+    ref = {(name, label): serve(mode_model(dev, name, mp), [pair])[1][0]
+           .cpu() for name in MODE_SP_CONFIGS
+           for label, mp in (("mixed", True), ("fp32", False))}
     script = str(Path(__file__).resolve())
     _run_ranks([sys.executable, "-m", "torch.distributed.run", "--standalone",
                 "--nproc_per_node", str(MODE_SP_RANKS), script,
@@ -6027,17 +6201,20 @@ def modes_sp(dev) -> dict:
     for r in range(MODE_SP_RANKS):
         rk = json.loads((sp_dir / f"rank{r}.json").read_text())
         assert (rk["world"], rk["backend"]) == (MODE_SP_RANKS, "gloo"), rk
-        for label, bound in (("mixed", BF16_BOUND_PX),
-                             ("fp32", FULLPREC_BOUND_PX)):
-            got = torch.load(sp_dir / f"rank{r}_{label}.pt")
-            err = float((got.float() - ref[label].float()).abs().max())
-            print(f"{MODE_SP_CONFIG} sp rank {r} {label}: max |flow diff| "
-                  f"against unsharded {err:.3e} px (bound {bound})")
-            assert bool(torch.isfinite(got).all()) and err < bound, \
-                f"{MODE_SP_CONFIG} sp rank {r} {label}"
-            _assert_launches(f"{MODE_SP_CONFIG} sp rank {r} {label}",
-                             rk[f"launches_{label}"], SP_KERNELS, 1)
-            rk[f"{label}_err_px"] = err
+        for name in MODE_SP_CONFIGS:
+            for label, bound in (("mixed", BF16_BOUND_PX),
+                                 ("fp32", FULLPREC_BOUND_PX)):
+                got = torch.load(sp_dir / f"rank{r}_{name}_{label}.pt")
+                err = float((got.float() - ref[name, label].float()).abs()
+                            .max())
+                print(f"{name} sp rank {r} {label}: max |flow diff| "
+                      f"against unsharded {err:.3e} px (bound {bound})")
+                assert bool(torch.isfinite(got).all()) and err < bound, \
+                    f"{name} sp rank {r} {label}"
+                _assert_launches(f"{name} sp rank {r} {label}",
+                                 rk[f"launches_{name}_{label}"], SP_KERNELS,
+                                 1)
+                rk[f"{name}_{label}_err_px"] = err
         res[r] = rk
     shutil.rmtree(sp_dir, ignore_errors=True)
     return res
@@ -6045,9 +6222,10 @@ def modes_sp(dev) -> dict:
 
 def modes_phase(dev) -> dict:
     """The mode counts other than 4: card against CPU for every
-    configuration, modes1 and modes8 served at 440x1024 and trained at the
-    chairs crops, one fp32 step each card against CPU, the evaluator and
-    training CLIs, and a gloo pair of sequence-parallel ranks at 8 modes."""
+    configuration, MODE_SERVED served at 440x1024 and MODE_TRAIN_BATCH
+    trained at the chairs crops, one fp32 step of each MODE_FULL
+    configuration card against CPU, the evaluator and training CLIs, and a
+    gloo pair of sequence-parallel ranks at 8 and 32 modes."""
     t0 = time.perf_counter()
     flows = modes_card_vs_cpu(dev)
     res = {"serving": modes_serving(dev)}
@@ -6062,34 +6240,57 @@ def modes_phase(dev) -> dict:
     return res
 
 
+def _in_slices(fn, n: int, batched: int, *args):
+    """fn over the leading `batched` arguments' batch in slices of n
+    samples (the plain versions at 32 modes and batch 8 would hold 8.3 GB
+    fp32 tensors by the handful): tensors concatenated, 0-d sums and
+    [U, U] sums added up."""
+    B = args[0].shape[0]
+    outs = [fn(*(a[i:i + n] for a in args[:batched]), *args[batched:])
+            for i in range(0, B, n)]
+
+    def join(parts):
+        if parts[0].dim() in (0, 2):
+            return sum(parts[1:], parts[0])
+        return torch.cat(parts)
+    if isinstance(outs[0], tuple):
+        return tuple(join([o[j] for o in outs]) for j in range(len(outs[0])))
+    return join(outs)
+
+
 def time_mode_kernels(dev, gen, report) -> None:
-    """Phase 5, the mode counts: each kernel of MODE_KERNELS at 1 and 8
-    modes where modes1 and modes8 run it (B1, B2, B3 and B4 int8 at the
-    serving shape: the f2 site's md for B1 and B2, the intra site's for
-    B4; B6, its backward and B7 at the chairs shape, batch 8), beside its
-    plain version, its bound (bf16 inputs: the tensor cores' peak) and the
-    floor of its exponentials on the SFUs."""
+    """Phase 5, the mode counts: each kernel of MODE_KERNELS at 1, 8 and
+    32 modes where modes1, modes8 and modes32 run it (B1, B2, B3 and B4
+    int8 at the serving shape: the f2 site's md for B1 and B2, the intra
+    site's count and md for B4; B6, its backward and B7 at the chairs
+    shape, batch 8, their plain versions over slices of two samples at 32
+    modes), beside its plain version, its bound (bf16 inputs: the tensor
+    cores' peak) and the floor of its exponentials on the SFUs; at 32
+    modes also B8 (no table) at the serving shape beside SDPA."""
     biases = (torch.randn(15, 15, generator=gen) * 0.5).to(dev)
     grid, tgrid = (H8, W8), CHAIRS_GRID
     ut, B = tgrid[0] * tgrid[1], TRAIN_BATCH
     clip = torch.tensor(1e30, device=dev)
     agg = (torch.tensor(1.3, device=dev), torch.tensor(0.1, device=dev))
     dgen = torch.Generator(device=dev).manual_seed(3)
-    for M in (1, 8):
-        md, md_i = 256 // M, 128 // M
+    for M in MODE_ROWS:
+        Mi = MODE_CONFIGS[f"modes{M}"][2]
+        md, md_i = 256 // M, 128 // Mi
         q, k = inputs(gen, md, dev, U, modes=M)
-        qi, ki = inputs(gen, md_i, dev, U, modes=M)
+        qi, ki = inputs(gen, md_i, dev, U, modes=Mi)
         v = torch.randn(1, M, U, 256, generator=gen).to(dev, torch.bfloat16)
-        n = M * U * U
-        qk = lambda d, b=1, u=U: (2.0 * b * M * u * u * d,  # noqa: E731
-                                  2 * b * M * u * d * 2)
+        n, ni = M * U * U, Mi * U * U
+        qk = lambda d, b=1, u=U, m=M: (2.0 * b * m * u * u * d,  # noqa: E731
+                                       2 * b * m * u * d * 2)
         dense = (0.5 * ma.sliding_pos_biases(biases, *grid)).to(
             torch.bfloat16)
         fl_b1, by_b1 = qk(md)
-        fl_b4, by_b4 = qk(md_i)
+        fl_b4, by_b4 = qk(md_i, m=Mi)
         flash = (q, k, v, biases, grid, clip, 0.5)
         corr = (q, k, biases, grid, 100.0, 0.5, *agg)
         probs = (qi, ki, biases, grid, clip, 1.0)
+        b2_bound = bound_ms(fl_b1 + 2.0 * n * 256,
+                            by_b1 + 2 * 2 * M * U * 256)
         cases = {
             "scores_global_max": (
                 lambda: ma.scores_global_max(q, k, md ** -0.5),
@@ -6100,8 +6301,7 @@ def time_mode_kernels(dev, gen, report) -> None:
                 lambda: ma.flash_mode_attention_plain(*flash),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, attn_mask=dense),
-                bound_ms(fl_b1 + 2.0 * n * 256, by_b1 + 2 * 2 * M * U * 256),
-                exp_ms(n)),
+                b2_bound, exp_ms(n)),
             "fused_agg_corr_norm": (
                 lambda: ma.fused_agg_corr_norm(*corr),
                 lambda: ma.fused_agg_corr_norm_plain(*corr), None,
@@ -6109,16 +6309,26 @@ def time_mode_kernels(dev, gen, report) -> None:
             "mode_softmax_probs": (
                 lambda: ma.mode_softmax_probs(*probs, quantized=True),
                 lambda: ma.mode_softmax_probs_plain(*probs, quantized=True),
-                None, bound_ms(fl_b4, by_b4 + n + 4 * M * U),
-                exp_ms(2.0 * n)),
+                None, bound_ms(fl_b4, by_b4 + ni + 4 * Mi * U),
+                exp_ms(2.0 * ni)),
         }
-        _time_mode_cases(cases, report, M, f"serving, M={M}")
+        if M == 32:
+            cases["flash_mode_attention_dense"] = (
+                lambda: ma.flash_mode_attention_dense(q, k, v, None, clip,
+                                                      0.5),
+                lambda: ma.flash_mode_attention_dense_plain(q, k, v, None,
+                                                            clip, 0.5),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v), b2_bound, exp_ms(n))
+        _time_mode_cases(cases, report, M, f"serving, M={M}, intra M={Mi}")
         del q, k, qi, ki, v, dense
         torch.cuda.empty_cache()
         q, k = inputs(gen, md, dev, ut, B, M)
         nt = B * M * ut * ut
         fl_t, by_t = qk(md, B, ut)
-        vol = cv.fused_agg_corr(q, k, biases, tgrid, clip, 0.5, *agg)
+        sl = 2 if M > 8 else B  # the plain versions' slices of samples
+        vol = _in_slices(cv.fused_agg_corr_plain, sl, 2, q, k, biases, tgrid,
+                         clip, 0.5, *agg)
         g_vol = torch.randn(B, ut, ut, generator=dgen, device=dev)
         p = ma.mode_softmax_probs(q, k, biases, tgrid, clip, 0.5)
         g_p = torch.randn(B, M, ut, ut, generator=dgen,
@@ -6129,16 +6339,17 @@ def time_mode_kernels(dev, gen, report) -> None:
         cases = {
             "fused_agg_corr": (
                 lambda: cv.fused_agg_corr(*fwd),
-                lambda: cv.fused_agg_corr_plain(*fwd), None,
-                bound_ms(fl_t, by_t + 4 * B * ut * ut), exp_ms(nt)),
+                lambda: _in_slices(cv.fused_agg_corr_plain, sl, 2, *fwd),
+                None, bound_ms(fl_t, by_t + 4 * B * ut * ut), exp_ms(nt)),
             "agg_corr_bwd": (
                 lambda: cv.agg_corr_bwd(*bwd),
-                lambda: cv.agg_corr_bwd_plain(*bwd), None,
+                lambda: _in_slices(cv.agg_corr_bwd_plain, sl, 4, *bwd), None,
                 bound_ms(fl_t, by_t + 2 * 4 * B * ut * ut + 4 * nt + 4),
                 exp_ms(nt)),
             "probs_bwd": (
-                lambda: pv.probs_bwd(*pb), lambda: pv.probs_bwd_plain(*pb),
-                None, bound_ms(fl_t, by_t + 3 * 2 * nt + 4 * ut * ut), 0.0),
+                lambda: pv.probs_bwd(*pb),
+                lambda: _in_slices(pv.probs_bwd_plain, sl, 4, *pb), None,
+                bound_ms(fl_t, by_t + 3 * 2 * nt + 4 * ut * ut), 0.0),
         }
         _time_mode_cases(cases, report, M, f"chairs, B={B}, M={M}")
         del q, k, vol, g_vol, p, g_p
@@ -6146,8 +6357,10 @@ def time_mode_kernels(dev, gen, report) -> None:
 
 
 def _time_mode_cases(cases, report, M, where) -> None:
+    """Time each case; a case without a row in the kernels line (B8 at 32
+    modes, which no configuration of the phase launches) is printed only."""
     for name, (kern, plain, lib, (bms, by), exps) in cases.items():
-        r = report[f"{name}_m{M}"]
+        r = report.get(f"{name}_m{M}", {})
         r["ms"] = time_ms(kern, 3)
         r["plain_ms"] = time_ms(plain, 2)
         r["library_ms"] = time_ms(lib, 3) if lib is not None else None
@@ -6228,10 +6441,12 @@ def main() -> int:
              pallas + "sep_conv_gru.py:_gru_bwd_vjp:319")):
         report[name] = dict(report["scores_global_max"], name=name,
                             source=SOURCE.format(src), replaces=tpu)
-    # The kernels at one and eight modes (modes1, modes8): the FMA bodies
-    # past md 64 and the aggregating kernels' mode groups.
+    # The kernels at one, eight and 32 modes (modes1, modes8, modes32): the
+    # FMA bodies past md 64, the aggregating kernels' mode groups, and md 8
+    # (the per-mode kernels' padded q and k, the aggregating kernels' FMA
+    # body past 16 modes).
     for name in MODE_KERNELS:
-        for M in (1, 8):
+        for M in MODE_ROWS:
             report[f"{name}_m{M}"] = dict(report[name], name=f"{name}_m{M}")
 
     gen = torch.Generator().manual_seed(0)
@@ -6305,7 +6520,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mres = modes_phase(dev)
     for name in MODE_KERNELS:
-        for M in (1, 8):
+        for M in MODE_ROWS:
             runs = mres["serving"] if name in SERVE_PER_PAIR \
                 else mres["training"]
             report[f"{name}_m{M}"]["launches"] = \

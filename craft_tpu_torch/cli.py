@@ -1,7 +1,7 @@
 """The model flags (port of ``craft_tpu.cli``; reference train.py:311-404,
 evaluate.py:1419-1513): the same flag surface, resolved onto the port's
-``config.py``.  A combination the port does not run yet exits with a
-message that names its item in ROADMAP.md.
+``config.py``.  A combination that the JAX package cannot build either
+exits with a message that says why.
 """
 
 from __future__ import annotations
@@ -12,19 +12,6 @@ import os
 
 from craft_tpu_torch.config import (ModelConfig, f2_trans_config,
                                     inter_corr_config, intra_attn_config)
-
-# The ROADMAP.md queue item (section 2) that holds what the CLIs refuse.
-ROADMAP_ARCHS = "ROADMAP.md section 2, item 6 (mode counts that leave a " \
-    "mode dim below 16)"
-# The shortest mode dim the port's kernels take in bf16 (their tiles' k
-# step); a site's mode count must also divide its width.
-MIN_MODE_DIM = 16
-
-
-def not_ported(what: str, item: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to craft_tpu_torch yet: see "
-                      f"{item}.")
-
 
 # Converts the JAX package's orbax checkpoint directories into the port's
 # .pth files; it needs JAX and orbax, which the port never imports.
@@ -95,11 +82,12 @@ def _refuse_half(args) -> None:
             "setrans.py). Use --f2 full or --f2 none.")
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Exit, naming the ROADMAP.md item, on what the port does not run: a
-    SETrans site of the family whose mode count does not divide its width
-    or leaves a mode dim below 16 (the 256-wide inter, f2 and f1 sites take
-    1, 2, 4, 8 and 16 modes, the 128-wide intra site 1, 2, 4 and 8)."""
+def _check_mode_counts(cfg: ModelConfig) -> None:
+    """Exit on a SETrans site of the family whose mode count does not
+    divide its width: its q and k projections (modes x (width // modes)
+    outputs) would not take the width, and the JAX package's model fails
+    to build it.  Every divisor runs (the 256-wide inter, f2 and f1 sites
+    1 to 256 modes, the 128-wide intra site 1 to 128)."""
     sites = [("--intermodes", cfg.inter, cfg.craft),
              ("--f2modes (--intramodes under --nogma)", cfg.f2,
               cfg.f2trans != "none" and cfg.arch != "raft"),
@@ -107,12 +95,11 @@ def _check_ported(cfg: ModelConfig) -> None:
               cfg.arch == "craft" and cfg.use_setrans)]
     for flag, site, built in sites:
         modes, width = site.num_modes, site.in_feat_dim
-        if built and not (0 < modes <= width and width % modes == 0
-                          and width // modes >= MIN_MODE_DIM):
-            raise not_ported(
-                f"{modes} modes at a {width}-wide site ({flag} {modes}: a "
-                f"mode dim below {MIN_MODE_DIM}, or a count that does not "
-                f"divide the width)", ROADMAP_ARCHS)
+        if built and not (0 < modes <= width and width % modes == 0):
+            raise SystemExit(
+                f"{modes} modes at a {width}-wide site ({flag} {modes}): "
+                f"the mode count must divide the site's width, as in the "
+                f"JAX package, whose model cannot build it either.")
 
 
 def model_config_from_args(args) -> ModelConfig:
@@ -121,7 +108,7 @@ def model_config_from_args(args) -> ModelConfig:
     whose f2 site takes --intramodes; otherwise arch 'craft' with
     TransCorr (--craft is parsed but never read, in both packages), SETrans
     intra attention with --setrans and GMA attention without it.  Exits on
-    what the port does not run."""
+    a mode count that does not divide its site's width."""
     _refuse_half(args)
     if args.raft:
         arch, craft, f2trans, use_setrans = "raft", False, "none", False
@@ -167,5 +154,5 @@ def model_config_from_args(args) -> ModelConfig:
         intra=intra, dropout=args.dropout,
         mixed_precision=args.mixed_precision,
         upsample_mode=args.upsample_mode)
-    _check_ported(cfg)
+    _check_mode_counts(cfg)
     return cfg

@@ -48,38 +48,39 @@
 // SM.  da is a fp64 per-block partial, summed by one block in a fixed
 // order: no float atomics, deterministic.
 //
-// The wrappers raise on bf16 unless md is a multiple of 16 and q and k are
-// 16-byte aligned.  fp32 inputs, and bf16 inputs at a mode count other
-// than four, take the FMA bodies (agg_corr_kernel, agg_corr_bwd_kernel
-// below; agg_modes.cuh's FMA tiles), templates over the mode count NM (1,
-// 2, 4, 8, 16; NM md <= 256): a simple kernel that is right at those
-// counts, at the FMA rate.
+// The wgmma bodies take md a multiple of 16 and q and k 16-byte aligned.
+// fp32 inputs, and bf16 inputs at a mode count other than four, take the
+// FMA bodies (agg_corr_kernel, agg_corr_bwd_kernel below; agg_modes.cuh's
+// FMA tiles), templates over the mode count NM (1, 2, 4, 8, 16, and
+// NM_WIDE for 32 to 256 as a run-time count; NM md <= 256, any md): a
+// simple kernel that is right at those counts, at the FMA rate.
 #include "agg_modes.cuh"
 
-// The FMA forward: NM modes of input type T (fp32 at every NM; bf16 where
-// the wgmma sweep does not take it).
+// The FMA forward: NM modes (nm at NM_WIDE) of input type T (fp32 at every
+// NM; bf16 where the wgmma sweep does not take it).
 template <int NM, typename T, class Bias>
 __global__ void __launch_bounds__(NTHREADS)
     agg_corr_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     BiasArgs ba, const float* __restrict__ scal,
-                    float* __restrict__ out, int U1, int U2, int md,
+                    float* __restrict__ out, int U1, int U2, int md, int nm,
                     float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + NM * agg_mds<NM>() * SPAD;
-  float* bsm = ks + agg_mds<NM>() * SPAD;
+  float* ks = qs + MAXMD_FMA * SPAD;
+  float* bsm = smem + agg_bias_off<NM>();
   const int qt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const size_t nmodes = modes_of<NM>(nm);
   Bias bias;
-  load_q_modes<NM>(q + (size_t)b * NM * U1 * md, qs, bsm, bias, ba, qt, U1,
-                   md);
-  const T* kb = k + (size_t)b * NM * U2 * md;
+  load_q_modes<NM>(q + (size_t)b * nmodes * U1 * md, qs, bsm, bias, ba, qt,
+                   U1, md, nm);
+  const T* kb = k + (size_t)b * nmodes * U2 * md;
   const float clip = scal[0], pos_w = scal[1], agg_w = scal[2],
               agg_b = scal[3];
   const int nk = (U2 + TILE - 1) / TILE;
   for (int kt = g * KGROUP; kt < min(nk, (g + 1) * KGROUP); ++kt) {
     float vol[4][4];
-    agg_tile<NM>(vol, kb, qs, ks, bias, kt, U2, md, scale, clip, pos_w,
+    agg_tile<NM>(vol, kb, qs, ks, bias, kt, U2, md, nm, scale, clip, pos_w,
                  agg_w, agg_b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -107,11 +108,12 @@ __global__ void __launch_bounds__(B3_THREADS, 1)
                                            out, nullptr, md, scale);
 }
 
-// The FMA backward: NM modes of input type T.  With one group of modes
-// (NM <= 4) each element's mode softmax comes from its scores at once; with
-// more, a first pass over the groups carries the softmax's running (max,
-// denominator) and a second recomputes each group's scores for its dc
-// planes (twice the products, the registers of four modes).
+// The FMA backward: NM modes (nm at NM_WIDE) of input type T.  With one
+// group of modes (NM <= 4) each element's mode softmax comes from its
+// scores at once; with more, a first pass over the groups carries the
+// softmax's running (max, denominator) and a second recomputes each
+// group's scores for its dc planes (twice the products, the registers of
+// four modes; at NM_WIDE both passes read the k tiles staged once).
 template <int NM, typename T>
 __global__ void __launch_bounds__(NTHREADS)
     agg_corr_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -120,25 +122,27 @@ __global__ void __launch_bounds__(NTHREADS)
                         const float* __restrict__ biases,
                         const float* __restrict__ scal,
                         float* __restrict__ dc, double* __restrict__ partial,
-                        int U, int md, int W8, int R, float scale) {
-  constexpr int G = mode_group<NM>(), MDS = agg_mds<NM>();
+                        int U, int md, int nm, int W8, int R, float scale) {
+  constexpr int G = mode_group<NM>();
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + NM * MDS * SPAD;
-  float* win = ks + MDS * SPAD;
+  float* ks = qs + MAXMD_FMA * SPAD;
+  float* win = smem + agg_bias_off<NM>();
   __shared__ double red[NTHREADS / 32];
   const int qt = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t off = (size_t)b * NM * U * md;
+  const size_t nmodes = modes_of<NM>(nm);
+  const size_t off = (size_t)b * nmodes * U * md;
   const size_t plane = (size_t)U * U;
   WindowBias wb;
   load_q_modes<NM>(q + off, qs, win, wb, BiasArgs{biases, W8, R, U, U, 0},
-                   qt, U, md);
+                   qt, U, md, nm);
   const float clip = scal[0], pos_w = scal[1], agg_w = scal[2];
   const int nk = (U + TILE - 1) / TILE;
   double da = 0.0;
   for (int kt = grp * KGROUP; kt < min(nk, (grp + 1) * KGROUP); ++kt) {
     if constexpr (NM == G) {
+      constexpr int MDS = agg_mds<NM>();
       float s[G][4][4];
       mode_score_tiles<G, MDS>(s, k + off, qs, ks, wb, kt, U, md);
 #pragma unroll
@@ -182,12 +186,14 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     } else {
       // Pass 1: the mode softmax's running max and denominator.
+      if constexpr (NM == NM_WIDE)
+        stage_k_modes(ks, k + off, wb, kt, U, md, nm);
+      const int ng = modes_of<NM>(nm) / G;
       float rmax[4][4], rden[4][4];
 #pragma unroll 1
-      for (int gi = 0; gi < NM / G; ++gi) {
+      for (int gi = 0; gi < ng; ++gi) {
         float s[G][4][4];
-        mode_score_tiles<G, MDS>(s, k + off + (size_t)gi * G * U * md,
-                                 qs + gi * G * MDS * SPAD, ks, wb, kt, U, md);
+        group_scores<NM, G>(s, k + off, qs, ks, wb, kt, U, md, gi);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -212,10 +218,9 @@ __global__ void __launch_bounds__(NTHREADS)
       // Pass 2: each group's scores again, its dc planes and da's terms.
       float dsum[4][4] = {};
 #pragma unroll 1
-      for (int gi = 0; gi < NM / G; ++gi) {
+      for (int gi = 0; gi < ng; ++gi) {
         float s[G][4][4];
-        mode_score_tiles<G, MDS>(s, k + off + (size_t)gi * G * U * md,
-                                 qs + gi * G * MDS * SPAD, ks, wb, kt, U, md);
+        group_scores<NM, G>(s, k + off, qs, ks, wb, kt, U, md, gi);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = kt * TILE + tx + 16 * j;
@@ -235,8 +240,8 @@ __global__ void __launch_bounds__(NTHREADS)
                   expf(agg_w * x - rmax[i][j]) / rden[i][j];
               const float sv = x - vv;
               const float t = pm * (1.f + agg_w * sv);
-              dc[((size_t)b * NM + gi * G + m) * plane + (size_t)row * U +
-                 col] = fabsf(c) < clip ? gv * t : 0.f;
+              dc[((size_t)b * nmodes + gi * G + m) * plane +
+                 (size_t)row * U + col] = fabsf(c) < clip ? gv * t : 0.f;
               dsum[i][j] += pm * x * sv;
             }
           }
@@ -558,14 +563,14 @@ static int launch_fwd_md(const void* q, const void* k, const BiasArgs& ba,
 template <int NM, typename T, class FmaBias>
 static int launch_fwd_fma(const void* q, const void* k, const BiasArgs& ba,
                           const void* scal, void* out, int B, int md,
-                          float scale, cudaStream_t s) {
+                          int nm, float scale, cudaStream_t s) {
   const size_t smem = agg_smem<FmaBias, NM>();
   cudaError_t err = allow_smem(agg_corr_kernel<NM, T, FmaBias>, smem);
   if (err != cudaSuccess) return (int)err;
   agg_corr_kernel<NM, T, FmaBias>
       <<<agg_grid(B, ba.U1, ba.U2), NTHREADS, smem, s>>>(
           (const T*)q, (const T*)k, ba, (const float*)scal, (float*)out,
-          ba.U1, ba.U2, md, scale);
+          ba.U1, ba.U2, md, nm, scale);
   return (int)cudaGetLastError();
 }
 
@@ -587,9 +592,9 @@ static int launch_fwd(const void* q, const void* k, const BiasArgs& ba,
   if (!fma_takes(NM, md)) return (int)cudaErrorInvalidValue;
 #define LAUNCH(NM_)                                                         \
   return in_bf16 ? launch_fwd_fma<NM_, bf16, FmaBias>(q, k, ba, scal, out, \
-                                                      B, md, scale, s)     \
+                                                      B, md, NM, scale, s) \
                  : launch_fwd_fma<NM_, float, FmaBias>(q, k, ba, scal, out,\
-                                                       B, md, scale, s);
+                                                       B, md, NM, scale, s);
   WITH_MODES(NM, LAUNCH)
 #undef LAUNCH
 }
@@ -636,7 +641,7 @@ static cudaError_t launch_bwd_fma(const void* q, const void* k,
                                   const void* g, const void* vol,
                                   const void* biases, const void* scal,
                                   void* dc, void* partial, dim3 grid, int U,
-                                  int md, int W8, int R, float scale,
+                                  int md, int nm, int W8, int R, float scale,
                                   cudaStream_t s) {
   const size_t smem = agg_smem<WindowBias, NM>();
   cudaError_t err = allow_smem(agg_corr_bwd_kernel<NM, T>, smem);
@@ -644,7 +649,7 @@ static cudaError_t launch_bwd_fma(const void* q, const void* k,
   agg_corr_bwd_kernel<NM, T><<<grid, NTHREADS, smem, s>>>(
       (const T*)q, (const T*)k, (const float*)g, (const float*)vol,
       (const float*)biases, (const float*)scal, (float*)dc, (double*)partial,
-      U, md, W8, R, scale);
+      U, md, nm, W8, R, scale);
   return cudaGetLastError();
 }
 
@@ -669,11 +674,11 @@ static int launch_bwd(const void* q, const void* k, const void* g,
     if (!fma_takes(NM, md)) return (int)cudaErrorInvalidValue;
 #define LAUNCH(NM_)                                                        \
   err = in_bf16 ? launch_bwd_fma<NM_, bf16>(q, k, g, vol, biases, scal, dc, \
-                                            partial, grid, U, md, W8, R,    \
-                                            scale, s)                       \
+                                            partial, grid, U, md, NM, W8,   \
+                                            R, scale, s)                    \
                 : launch_bwd_fma<NM_, float>(q, k, g, vol, biases, scal,    \
-                                             dc, partial, grid, U, md, W8,  \
-                                             R, scale, s);                  \
+                                             dc, partial, grid, U, md, NM,  \
+                                             W8, R, scale, s);              \
   break;
     WITH_MODES(NM, LAUNCH)
 #undef LAUNCH
@@ -685,7 +690,7 @@ static int launch_bwd(const void* q, const void* k, const void* g,
 }
 
 // q, k: [B, NM, U, md] contiguous (bf16 when in_bf16, else fp32), NM 1, 2,
-// 4, 8 or 16 modes with NM md <= 256 (the wgmma body at four modes, md <=
+// 4, ..., 256 modes with NM md <= 256 (the wgmma body at four modes, md <=
 // 64, bf16: a multiple of 16, q and k 16-byte aligned); biases: [(2R+1)^2]
 // fp32; scal: [4] fp32 (clip, pos_w, agg_w, agg_b); out: [B, U, U] fp32.
 extern "C" int agg_corr_launch(const void* q, const void* k,

@@ -3,15 +3,19 @@
 //   s_m = clamp(scale * q_m k_m^T, +-clip) + pos_w * bias
 //   vol = sum_m softmax_m(agg_w * s_m + agg_b) * s_m
 // Two bodies.  FMA (the tiles first below), a template over the mode
-// count NM (1, 2, 4, 8 or 16) and the input type: a block holds all NM
-// modes' q tiles (one 64-row slice; NM * md <= 256, MAXMD_FMA) in shared
-// memory and sweeps k tiles past them; the per-mode scores of each element
-// stay in registers, a group of at most four modes at a time.  With one
-// group (NM <= 4) the softmax over the modes is one max, one sum; with
-// more (NM 8, 16) a running (max, denominator, weighted sum) per element
-// is carried across the groups, rescaled where a group's max passes it, so
-// the registers stay those of four modes.  It takes fp32 inputs at every
-// NM, and bf16 at every NM but the four modes of the wgmma sweep.
+// count NM (1, 2, 4, 8 or 16, or NM_WIDE: 32, 64, 128 or 256 as a run-time
+// count) and the input type: a block holds all NM modes' q tiles (one
+// 64-row slice; NM * md <= 256, MAXMD_FMA) in shared memory and sweeps k
+// tiles past them; the per-mode scores of each element stay in registers,
+// a group of at most four modes at a time.  With one group (NM <= 4) the
+// softmax over the modes is one max, one sum; with more a running (max,
+// denominator, weighted sum) per element is carried across the groups,
+// rescaled where a group's max passes it, so the registers stay those of
+// four modes.  Up to 16 modes a k tile is staged one mode at a time; past
+// 16 (md 8 to 1 at a 256-wide site) every mode's k tile is staged at once,
+// one barrier pair a k tile instead of two a mode.  It takes fp32 inputs at
+// every NM, and bf16 at every NM but the four modes of the wgmma sweep, at
+// any md (the tiles are loaded element by element).
 // bf16 at four modes (corr_sweep, last below): the same sweep on wgmma, 128
 // query rows a block, templated on its epilogue (B3's and B9's stats and
 // normalised write, B6's raw fp32 volume) and its bias source (the window,
@@ -23,6 +27,7 @@
 
 #define NMODES 4  // the wgmma sweep's modes, and the FMA bodies' group
 #define KGROUP 8  // k tiles per block
+#define NM_WIDE 0  // the FMA instance of the counts past 16 (run-time nm)
 
 // The body an aggregating kernel runs (B3, B9, B6, B6 dense, B6 backward):
 // the wgmma sweep for bf16 inputs at four modes up to md MAXMD, the FMA
@@ -31,24 +36,78 @@ __host__ __device__ constexpr bool agg_mma_body(int NM, int md, int in_bf16) {
   return mma_body(md, in_bf16) && NM == NMODES;
 }
 
-// The FMA bodies' mode dim stride in shared memory at NM modes: 64 at four
-// (MAXMD), up to 256 / NM, so that the NM q tiles take the bytes of four.
+// The FMA bodies' mode dim stride in shared memory at NM modes (not
+// NM_WIDE): 64 at four (MAXMD), up to 256 / NM, so that the NM q tiles take
+// the bytes of four.  At NM_WIDE the stride is md itself.
 template <int NM>
 __host__ __device__ constexpr int agg_mds() {
   return MAXMD_FMA / NM;
 }
 
+// The columns of an FMA block's staged k tiles: one mode's, or at NM_WIDE
+// every mode's (nm * md <= MAXMD_FMA).
+template <int NM>
+__host__ __device__ constexpr int agg_kcols() {
+  if constexpr (NM == NM_WIDE)
+    return MAXMD_FMA;
+  else
+    return agg_mds<NM>();
+}
+
+// The mode count of an FMA instance: NM, or the run-time nm at NM_WIDE.
+template <int NM>
+__device__ __forceinline__ int modes_of(int nm) {
+  return NM == NM_WIDE ? nm : NM;
+}
+
 // Modes a group: all of them up to four, else four.
 template <int NM>
 __host__ __device__ constexpr int mode_group() {
-  return NM < NMODES ? NM : NMODES;
+  return NM != NM_WIDE && NM < NMODES ? NM : NMODES;
 }
 
-// Dynamic shared memory of an FMA block: the q tiles of all NM modes, one
-// k tile, and what the bias source takes.
+// Dynamic shared memory of an FMA block: the q tiles of all NM modes (256
+// columns), the staged k tiles, and what the bias source takes.  The
+// bias source's floats start at smem + agg_bias_off<NM>().
+template <int NM>
+__host__ __device__ constexpr int agg_bias_off() {
+  return (MAXMD_FMA + agg_kcols<NM>()) * SPAD;
+}
 template <class Bias, int NM = NMODES>
 constexpr size_t agg_smem() {
-  return ((NM + 1) * agg_mds<NM>() * SPAD + Bias::SMEM) * sizeof(float);
+  return (agg_bias_off<NM>() + Bias::SMEM) * sizeof(float);
+}
+
+// Rows [row0, row0 + TILE) of nm row-major [U, md] matrices (mode m's at
+// src + m U md) into dst as fp32, mode m's column d at dst[(m md + d) SPAD
+// + r]; rows past U read as zero.  One strided pass over every mode's
+// elements (NM_WIDE's q and k tiles).
+template <typename T>
+__device__ __forceinline__ void load_modes_t(float* dst, const T* src,
+                                             int row0, int U, int md,
+                                             int nm) {
+  const int per = TILE * md;
+  for (int e = threadIdx.x; e < nm * per; e += NTHREADS) {
+    const int m = e / per, rem = e - m * per;
+    const int r = rem / md, d = rem - r * md;
+    const int row = row0 + r;
+    dst[(m * md + d) * SPAD + r] =
+        row < U ? to_f(src[((size_t)m * U + row) * md + d]) : 0.f;
+  }
+}
+
+// NM_WIDE: k tile kt of all nm modes (kb is [nm, U2, md]) into ks between
+// one barrier pair, the bias source's tile kt with it, then its columns.
+template <typename T, class Bias>
+__device__ __forceinline__ void stage_k_modes(float* ks,
+                                              const T* __restrict__ kb,
+                                              Bias& bias, int kt, int U2,
+                                              int md, int nm) {
+  __syncthreads();
+  load_modes_t(ks, kb, kt * TILE, U2, md, nm);
+  bias.load(kt);
+  __syncthreads();
+  bias.cols(kt);
 }
 
 // s[m] = q_m k_m^T (unscaled) over k tile kt, for the G modes of a group
@@ -72,15 +131,39 @@ __device__ __forceinline__ void mode_score_tiles(float s[G][4][4],
   bias.cols(kt);
 }
 
+// s[m] = q_m k_m^T (unscaled) over k tile kt for the G modes of group gi
+// of NM modes (kb is [NM, U2, md]).  At NM_WIDE the k tiles are staged
+// already (stage_k_modes); otherwise this stages them, mode by mode.
+template <int NM, int G, typename T, class Bias>
+__device__ __forceinline__ void group_scores(float s[G][4][4],
+                                             const T* __restrict__ kb,
+                                             const float* qs, float* ks,
+                                             Bias& bias, int kt, int U2,
+                                             int md, int gi) {
+  if constexpr (NM == NM_WIDE) {
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      const int col = (gi * G + m) * md * SPAD;
+      score_tile(s[m], qs + col, ks + col, md);
+    }
+  } else {
+    constexpr int MDS = agg_mds<NM>();
+    mode_score_tiles<G, MDS>(s, kb + (size_t)gi * G * U2 * md,
+                             qs + gi * G * MDS * SPAD, ks, bias, kt, U2, md,
+                             gi == 0);
+  }
+}
+
 // vol of one (q tile, k tile kt), as a 4x4 micro-tile per thread; kb is
-// [NM, U2, md].
+// [NM, U2, md] (nm modes at NM_WIDE).
 template <int NM, typename T, class Bias>
 __device__ __forceinline__ void agg_tile(
     float vol[4][4], const T* __restrict__ kb, const float* qs, float* ks,
-    Bias& bias, int kt, int U2, int md, float scale, float clip, float pos_w,
-    float agg_w, float agg_b) {
-  constexpr int G = mode_group<NM>(), MDS = agg_mds<NM>();
+    Bias& bias, int kt, int U2, int md, int nm, float scale, float clip,
+    float pos_w, float agg_w, float agg_b) {
+  constexpr int G = mode_group<NM>();
   if constexpr (NM == G) {
+    constexpr int MDS = agg_mds<NM>();
     float s[G][4][4];
     mode_score_tiles<G, MDS>(s, kb, qs, ks, bias, kt, U2, md);
 #pragma unroll
@@ -110,13 +193,12 @@ __device__ __forceinline__ void agg_tile(
   } else {
     // Groups of four modes, the softmax's (max, denominator, weighted
     // sum) carried across them.
+    if constexpr (NM == NM_WIDE) stage_k_modes(ks, kb, bias, kt, U2, md, nm);
     float rmax[4][4], rden[4][4], racc[4][4];
 #pragma unroll 1
-    for (int gi = 0; gi < NM / G; ++gi) {
+    for (int gi = 0; gi < modes_of<NM>(nm) / G; ++gi) {
       float s[G][4][4];
-      mode_score_tiles<G, MDS>(s, kb + (size_t)gi * G * U2 * md,
-                               qs + gi * G * MDS * SPAD, ks, bias, kt, U2, md,
-                               gi == 0);
+      group_scores<NM, G>(s, kb, qs, ks, bias, kt, U2, md, gi);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -154,38 +236,45 @@ __device__ __forceinline__ void agg_tile(
   }
 }
 
-// This block's q tiles (all NM modes; qb is [NM, U1, md]) and the bias
-// source's set-up.  The caller's first __syncthreads (in mode_score_tiles)
-// publishes them.
+// This block's q tiles (all NM modes, nm at NM_WIDE; qb is [NM, U1, md])
+// and the bias source's set-up.  The caller's first __syncthreads (in
+// mode_score_tiles or stage_k_modes) publishes them.
 template <int NM, typename T, class Bias>
 __device__ __forceinline__ void load_q_modes(const T* __restrict__ qb,
                                              float* qs, float* bsm,
                                              Bias& bias, const BiasArgs& ba,
-                                             int qt, int U1, int md) {
+                                             int qt, int U1, int md,
+                                             int nm) {
+  if constexpr (NM == NM_WIDE) {
+    load_modes_t(qs, qb, qt * TILE, U1, md, nm);
+  } else {
 #pragma unroll
-  for (int m = 0; m < NM; ++m)
-    load_tile_t(qs + m * agg_mds<NM>() * SPAD, qb + (size_t)m * U1 * md,
-                qt * TILE, U1, md);
+    for (int m = 0; m < NM; ++m)
+      load_tile_t(qs + m * agg_mds<NM>() * SPAD, qb + (size_t)m * U1 * md,
+                  qt * TILE, U1, md);
+  }
   bias.init(bsm, ba, qt);
 }
 
 // The FMA bodies' mode counts, and whether NM modes of md take them.
 __host__ __device__ constexpr bool fma_modes(int NM) {
-  return NM == 1 || NM == 2 || NM == 4 || NM == 8 || NM == 16;
+  return NM == 1 || NM == 2 || NM == 4 || NM == 8 || NM == 16 || NM == 32 ||
+         NM == 64 || NM == 128 || NM == 256;
 }
 static inline bool fma_takes(int NM, int md) {
   return fma_modes(NM) && md > 0 && NM * md <= MAXMD_FMA;
 }
 
-// The FMA launch of NM modes, as LAUNCH(NM) expands it, for NM in 1, 2,
-// 4, 8, 16 (fma_takes checked by the caller).
+// The FMA launch of NM modes, as LAUNCH(NM) expands it: a template for 1,
+// 2, 4, 8 and 16, NM_WIDE for 32 to 256 (fma_takes checked by the caller).
 #define WITH_MODES(NM_, LAUNCH) \
   switch (NM_) {                \
     case 1: LAUNCH(1)           \
     case 2: LAUNCH(2)           \
     case 4: LAUNCH(4)           \
     case 8: LAUNCH(8)           \
-    default: LAUNCH(16)         \
+    case 16: LAUNCH(16)         \
+    default: LAUNCH(NM_WIDE)    \
   }
 
 // One block: out[0] = the sum of partial[0..n) in a fixed order (each

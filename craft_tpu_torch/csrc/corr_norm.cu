@@ -64,13 +64,14 @@
 //
 // fp32 inputs, and bf16 at a mode count other than four
 // (corr_stats_kernel, corr_write_kernel): plain FMA, a template over the
-// mode count NM (1, 2, 4, 8, 16; NM md <= 256).  A block holds all NM
-// modes' q tiles (one 64-row slice) in shared memory and sweeps a group of
-// k tiles (agg_modes.cuh's FMA tiles, shared with B6): at NM 8 and 16 the
-// mode softmax runs over groups of four modes with a running (max,
-// denominator, weighted sum); at NM 1 it is exactly 1 and vol = s.  A
-// simple kernel that is right for the other mode counts: at the FMA rate,
-// with NM U^2 exponentials, not the tensor cores'.
+// mode count NM (1, 2, 4, 8, 16, and NM_WIDE for 32 to 256 as a run-time
+// count nm; NM md <= 256, any md).  A block holds all NM modes' q tiles
+// (one 64-row slice) in shared memory and sweeps a group of k tiles
+// (agg_modes.cuh's FMA tiles, shared with B6): past four modes the mode
+// softmax runs over groups of four with a running (max, denominator,
+// weighted sum); at NM 1 it is exactly 1 and vol = s.  A simple kernel
+// that is right for the other mode counts: at the FMA rate, with NM U^2
+// exponentials, not the tensor cores'.
 #include "agg_modes.cuh"
 
 // Shared prologue: this block's q tiles, window and token coordinates
@@ -81,39 +82,41 @@ __device__ __forceinline__ float prologue(const T* __restrict__ qb,
                                           const float* __restrict__ scal,
                                           const float* __restrict__ gmax,
                                           float* qs, float* win,
-                                          WindowBias& wb, int qt, int md) {
-  load_q_modes<NM>(qb, qs, win, wb, ba, qt, ba.U1, md);
+                                          WindowBias& wb, int qt, int md,
+                                          int nm) {
+  load_q_modes<NM>(qb, qs, win, wb, ba, qt, ba.U1, md, nm);
   const float attn_clip = scal[0];
   return gmax[0] > attn_clip ? attn_clip : 1e30f;
 }
 
 // Per block: fixed-order fp64 sums of vol and vol^2 over its tile rows and
-// k-tile group -> partial[2 * blk], partial[2 * blk + 1].  NM modes of
-// input type T.
+// k-tile group -> partial[2 * blk], partial[2 * blk + 1].  NM modes (nm
+// at NM_WIDE) of input type T.
 template <int NM, typename T>
 __global__ void __launch_bounds__(NTHREADS)
     corr_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       BiasArgs ba, const float* __restrict__ scal,
                       const float* __restrict__ gmax,
-                      double* __restrict__ partial, int md, float scale) {
+                      double* __restrict__ partial, int md, int nm,
+                      float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + NM * agg_mds<NM>() * SPAD;
-  float* win = ks + agg_mds<NM>() * SPAD;
+  float* ks = qs + MAXMD_FMA * SPAD;
+  float* win = smem + agg_bias_off<NM>();
   __shared__ double red[2][NTHREADS / 32];
   const int qt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int U1 = ba.U1, U2 = ba.U2;
   WindowBias wb;
-  const float clip = prologue<NM>(q + (size_t)b * NM * U1 * md, ba, scal,
-                                  gmax, qs, win, wb, qt, md);
-  const T* kb = k + (size_t)b * NM * U2 * md;
+  const float clip = prologue<NM>(q + (size_t)b * modes_of<NM>(nm) * U1 * md,
+                                  ba, scal, gmax, qs, win, wb, qt, md, nm);
+  const T* kb = k + (size_t)b * modes_of<NM>(nm) * U2 * md;
   const float pos_w = scal[1], agg_w = scal[2], agg_b = scal[3];
   const int nk = (U2 + TILE - 1) / TILE;
   double sum = 0.0, sumsq = 0.0;
   for (int kt = g * KGROUP; kt < min(nk, (g + 1) * KGROUP); ++kt) {
     float vol[4][4];
-    agg_tile<NM>(vol, kb, qs, ks, wb, kt, U2, md, scale, clip, pos_w,
+    agg_tile<NM>(vol, kb, qs, ks, wb, kt, U2, md, nm, scale, clip, pos_w,
                  agg_w, agg_b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -231,31 +234,31 @@ __global__ void corr_finish_kernel(const double* __restrict__ sums, int B,
                    nullptr, norm);
 }
 
-// NM modes of input type T, output type O.
+// NM modes (nm at NM_WIDE) of input type T, output type O.
 template <int NM, typename T, typename O>
 __global__ void __launch_bounds__(NTHREADS)
     corr_write_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       BiasArgs ba, const float* __restrict__ scal,
                       const float* __restrict__ gmax,
                       const float* __restrict__ norm, O* __restrict__ out,
-                      int md, float scale) {
+                      int md, int nm, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + NM * agg_mds<NM>() * SPAD;
-  float* win = ks + agg_mds<NM>() * SPAD;
+  float* ks = qs + MAXMD_FMA * SPAD;
+  float* win = smem + agg_bias_off<NM>();
   const int qt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int U1 = ba.U1, U2 = ba.U2;
   WindowBias wb;
-  const float clip = prologue<NM>(q + (size_t)b * NM * U1 * md, ba, scal,
-                                  gmax, qs, win, wb, qt, md);
-  const T* kb = k + (size_t)b * NM * U2 * md;
+  const float clip = prologue<NM>(q + (size_t)b * modes_of<NM>(nm) * U1 * md,
+                                  ba, scal, gmax, qs, win, wb, qt, md, nm);
+  const T* kb = k + (size_t)b * modes_of<NM>(nm) * U2 * md;
   const float pos_w = scal[1], agg_w = scal[2], agg_b = scal[3];
   const float mean = norm[2 * b], rstd = norm[2 * b + 1];
   const int nk = (U2 + TILE - 1) / TILE;
   for (int kt = g * KGROUP; kt < min(nk, (g + 1) * KGROUP); ++kt) {
     float vol[4][4];
-    agg_tile<NM>(vol, kb, qs, ks, wb, kt, U2, md, scale, clip, pos_w,
+    agg_tile<NM>(vol, kb, qs, ks, wb, kt, U2, md, nm, scale, clip, pos_w,
                  agg_w, agg_b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -329,15 +332,15 @@ static int launch_sweep(const void* q, const void* k, const BiasArgs& ba,
 template <int NM, typename T>
 static int launch_stats_fma(const void* q, const void* k, const BiasArgs& ba,
                             const void* scal, const void* gmax,
-                            void* partial, int B, int md, float scale,
-                            cudaStream_t s) {
+                            void* partial, int B, int md, int nm,
+                            float scale, cudaStream_t s) {
   const size_t smem = agg_smem<WindowBias, NM>();
   cudaError_t err = allow_smem(corr_stats_kernel<NM, T>, smem);
   if (err != cudaSuccess) return (int)err;
   corr_stats_kernel<NM, T>
       <<<sweep_grid(B, ba.U1, ba.U2, 0), NTHREADS, smem, s>>>(
           (const T*)q, (const T*)k, ba, (const float*)scal,
-          (const float*)gmax, (double*)partial, md, scale);
+          (const float*)gmax, (double*)partial, md, nm, scale);
   return (int)cudaGetLastError();
 }
 
@@ -346,14 +349,14 @@ template <int NM, typename T, typename O>
 static int launch_write_fma(const void* q, const void* k, const BiasArgs& ba,
                             const void* scal, const void* gmax,
                             const void* norm, void* out, int B, int md,
-                            float scale, cudaStream_t s) {
+                            int nm, float scale, cudaStream_t s) {
   const size_t smem = agg_smem<WindowBias, NM>();
   cudaError_t err = allow_smem(corr_write_kernel<NM, T, O>, smem);
   if (err != cudaSuccess) return (int)err;
   corr_write_kernel<NM, T, O>
       <<<sweep_grid(B, ba.U1, ba.U2, 0), NTHREADS, smem, s>>>(
           (const T*)q, (const T*)k, ba, (const float*)scal,
-          (const float*)gmax, (const float*)norm, (O*)out, md, scale);
+          (const float*)gmax, (const float*)norm, (O*)out, md, nm, scale);
   return (int)cudaGetLastError();
 }
 
@@ -368,9 +371,9 @@ static int launch_stats(const void* q, const void* k, const BiasArgs& ba,
   if (!fma_takes(NM, md)) return (int)cudaErrorInvalidValue;
 #define LAUNCH(NM_)                                                        \
   return in_bf16 ? launch_stats_fma<NM_, bf16>(q, k, ba, scal, gmax,       \
-                                               partial, B, md, scale, s)   \
+                                               partial, B, md, NM, scale, s) \
                  : launch_stats_fma<NM_, float>(q, k, ba, scal, gmax,      \
-                                                partial, B, md, scale, s);
+                                                partial, B, md, NM, scale, s);
   WITH_MODES(NM, LAUNCH)
 #undef LAUNCH
 }
@@ -393,18 +396,18 @@ static int launch_write(const void* q, const void* k, const BiasArgs& ba,
 #define LAUNCH(NM_)                                                        \
   if (!in_bf16)                                                            \
     return launch_write_fma<NM_, float, float>(q, k, ba, scal, gmax, norm, \
-                                               out, B, md, scale, s);      \
+                                               out, B, md, NM, scale, s);  \
   if (out_bf16)                                                            \
     return launch_write_fma<NM_, bf16, bf16>(q, k, ba, scal, gmax, norm,   \
-                                             out, B, md, scale, s);        \
+                                             out, B, md, NM, scale, s);    \
   return launch_write_fma<NM_, bf16, float>(q, k, ba, scal, gmax, norm,    \
-                                            out, B, md, scale, s);
+                                            out, B, md, NM, scale, s);
   WITH_MODES(NM, LAUNCH)
 #undef LAUNCH
 }
 
 // B3.  q, k: [B, NM, U, md] contiguous (bf16 when in_bf16, else fp32), NM
-// 1, 2, 4, 8 or 16 modes with NM md <= 256 (the wgmma sweep at four modes,
+// 1, 2, 4, ..., 256 modes with NM md <= 256 (the wgmma sweep at four modes,
 // md <= 64, bf16: a multiple of 16, q and k 16-byte aligned); scal: [4]
 // fp32 (attn_clip, pos_w, agg_w, agg_b); gmax: [1] fp32, the raw max of
 // scale * q k^T over the batch (B1); partial: [n_partial] fp64 scratch,

@@ -19,7 +19,8 @@ dq/dk run as plain fp32 matrix products, as the JAX package leaves them to
 XLA.  The bf16 bodies at four modes (wgmma tiles: the forward B3's sweep
 in csrc/agg_modes.cuh, the backward its own) take a mode dim that is a
 multiple of 16 and 16-byte aligned q and k; every other mode count (1, 2,
-8, 16, with M * md <= 256) and fp32 take the FMA bodies; the backward's
+8, ..., 256, with M * md <= 256, md 1 to 8 past 16 modes) and fp32 take
+the FMA bodies; the backward's
 fp64 partials of dagg_w are bwd_partials(...), one a block of the grid
 that it launches.  At one mode p = 1: vol = s, dc = g * the clamp mask,
 dagg_w = 0.
@@ -95,9 +96,9 @@ def fused_agg_corr(q, k, biases, grid_hw, clip, pos_w: float, agg_w, agg_b):
     """vol[b] = sum_m softmax_m(agg_w s_m + agg_b) s_m, s_m = clamp(scale
     q_m k_m^T, +-clip) + pos_w * bias, as [B, U, U] fp32 (fp64 for fp64
     inputs on the CPU).  q, k: [B, M, U, md], M in AGG_MODES with M * md
-    <= 256 (bf16: md a multiple of 16, 16-byte aligned); biases: the
-    [2R+1, 2R+1] window over the (H8, W8) token grid; clip: 0-d tensor or
-    float."""
+    <= 256 (bf16: md a multiple of 16 or below 16, 16-byte aligned);
+    biases: the [2R+1, 2R+1] window over the (H8, W8) token grid; clip: 0-d
+    tensor or float."""
     if not q.is_cuda:
         return fused_agg_corr_plain(q, k, biases, grid_hw, clip, pos_w,
                                     agg_w, agg_b)
@@ -128,7 +129,8 @@ def fused_agg_corr_dense(q, k, table, clip, pos_w: float, agg_w, agg_b):
     q_m k_m^T, +-clip) + pos_w * table, as [B, U1, U2] fp32: the counterpart
     of ``craft_tpu.ops.pallas.mode_attention.fused_agg_corr`` (B6 dense).
     q: [B, M, U1, md]; k: [B, M, U2, md] (M and md as B6; bf16: md a
-    multiple of 16, q and k 16-byte aligned); table: fp32 [U1, U2] or None
+    multiple of 16 or below 16, q and k 16-byte aligned); table: fp32
+    [U1, U2] or None
     (no bias); clip: 0-d tensor or float."""
     check_table(table, q, k)
     if not q.is_cuda:

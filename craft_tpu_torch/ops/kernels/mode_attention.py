@@ -28,9 +28,12 @@ tensor decides the route: CUDA tensors launch the hand-written kernel
 (csrc/*.cu) or raise, CPU tensors take the plain version.  In bf16, B1,
 B2, B3, B4, B8 and B9 run tensor-core (wgmma) bodies up to a mode dim of
 64 (B3 and B9 at four modes), which take a mode dim that is a multiple of
-16 and 16-byte aligned inputs (check_mma_tiles); fp32, and bf16 past
-those (md 128 and 256; B3 and B9 at 1, 2, 8 or 16 modes), run FMA bodies
-(mma_body, agg_mma_body).  Each kernel's launches are counted in
+16 and 16-byte aligned inputs (check_mma_tiles); below 16 (8, 4, 2 or 1:
+32 to 256 modes at a 256-wide site) the per-mode kernels B1, B2, B4, B8
+and B4 dense take a copy of q and k zero-padded to 16 columns
+(pad_mode_dim), the scale staying 1/sqrt(md).  fp32, and bf16 past those (md 128 and 256; B3
+and B9 at 1, 2 or 8 to 256 modes), run FMA bodies (mma_body,
+agg_mma_body).  Each kernel's launches are counted in
 ``<wrapper>.launches`` where the kernel is launched: B1's count includes
 the B1 launch that B3 makes as its phase 0.  The clamp value `clip` is a device tensor, so the
 predicate never syncs the host.
@@ -89,10 +92,14 @@ _B3_ROWS, _B3_KEYS, _B3_KGROUP = 128, 64, 8
 _B4_ROWS, _B4_KEYS, _B4_KCHUNK = 128, 64, 16
 assert (MMA_MODE_DIM, MAX_MODE_DIM) == (64, 256)  # common.cuh MAXMD(_FMA)
 # The mode counts of the aggregating kernels' FMA bodies (B3, B6, B6 dense,
-# B9, B6 backward: csrc/agg_modes.cuh, NM modes with NM * md <= 256), and
+# B9, B6 backward: csrc/agg_modes.cuh, NM modes with NM * md <= 256: a
+# template each up to 16, one instance with a run-time count past it), and
 # the count of their wgmma bodies.
-AGG_MODES = (1, 2, 4, 8, 16)
+AGG_MODES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 MMA_MODES = 4
+# The k step of the wgmma bodies: a bf16 mode dim below it is zero-padded
+# to it (pad_mode_dim).
+MMA_K = 16
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -115,8 +122,9 @@ def agg_mma_body(bf16: int, M: int, md: int) -> int:
 
 
 def check_agg_modes(what: str, M: int, md: int) -> None:
-    """The aggregating kernels take 1, 2, 4, 8 or 16 modes with M * md <=
-    256 (their FMA bodies' staging); raises on anything else."""
+    """The aggregating kernels take AGG_MODES modes (1, 2, 4, ..., 256)
+    with M * md <= 256 (their FMA bodies' staging); raises on anything
+    else."""
     if M not in AGG_MODES or M * md > MAX_MODE_DIM:
         raise ValueError(f"{what}: {M} modes of dim {md}; the kernel takes "
                          f"{AGG_MODES} modes with modes * dim <= "
@@ -263,15 +271,30 @@ def check_mma_tiles(what: str, bf16: int, md: int, names: str,
                     *tensors) -> None:
     """bf16 inputs (the tensor-core bodies of B1-B4, B6-B9, and the FMA
     bodies that take bf16 past them) take a mode dim that is a multiple of
-    16 and 16-byte aligned tensors (`names`); raises on anything else.
-    fp32 takes any md <= 256."""
+    16, or below 16 (the per-mode kernels take it padded, pad_mode_dim; the
+    aggregating kernels' FMA bodies past 16 modes as it is), and 16-byte
+    aligned tensors (`names`); raises on anything else.  fp32 takes any md
+    <= 256."""
     if not bf16:
         return
-    if md % 16:
+    if md % MMA_K and md > MMA_K:
         raise ValueError(f"{what}: bf16 needs a mode dim that is a multiple "
-                         f"of 16, got {md}")
+                         f"of 16 or below 16, got {md}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: bf16 needs {names} 16-byte aligned")
+
+
+def pad_mode_dim(bf16: int, *tensors):
+    """The per-mode kernels' q and k (B1, B2, B4, B7, B8, B4 dense): bf16
+    at a mode dim below 16 as contiguous copies zero-padded to 16 columns,
+    the wgmma bodies' k step (zeros add nothing to q.k^T; the caller keeps
+    the scale at 1/sqrt(md)); anything else as it is.  Returns (tensors,
+    the mode dim the kernel is given)."""
+    md = tensors[0].shape[-1]
+    if not bf16 or md >= MMA_K:
+        return list(tensors), md
+    return [torch.nn.functional.pad(t, (0, MMA_K - md)) for t in tensors], \
+        MMA_K
 
 
 def table_ptr(table) -> _P:
@@ -291,12 +314,13 @@ def _launch_scores_max(q, k, scale) -> torch.Tensor:
     if k.shape[:2] != (B, M) or k.shape[3] != md:
         raise ValueError(f"scores_global_max: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    check_mma_tiles("scores_global_max", bf16, md, "q and k", q, k)
-    n_partial = scores_max_partials(B * M, U1, U2, mma_body(bf16, md))
+    (q, k), mdk = pad_mode_dim(bf16, q, k)
+    check_mma_tiles("scores_global_max", bf16, mdk, "q and k", q, k)
+    n_partial = scores_max_partials(B * M, U1, U2, mma_body(bf16, mdk))
     partial = torch.empty(n_partial, dtype=torch.float32, device=q.device)
     out = torch.empty(1, dtype=torch.float32, device=q.device)
     _call("scores_max_launch", _ptr(q), _ptr(k), _ptr(partial), n_partial,
-          _ptr(out), B * M, U1, U2, md, scale, bf16, _stream(q))
+          _ptr(out), B * M, U1, U2, mdk, scale, bf16, _stream(q))
     scores_global_max.launches += 1
     scores_global_max.flops += 2.0 * B * M * U1 * U2 * md
     return out
@@ -353,11 +377,12 @@ def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float,
     R = (biases.shape[0] - 1) // 2
     W8 = grid_hw[1]
     out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
-    check_mma_tiles("flash_mode_attention", bf16, md, "q, k, v and out",
+    (q, k), mdk = pad_mode_dim(bf16, q, k)
+    check_mma_tiles("flash_mode_attention", bf16, mdk, "q, k, v and out",
                     q, k, v, out)
     win, clip_t = _f32(biases, q), _f32(clip, q)
     _call("flash_attn_launch", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-          _ptr(win), _ptr(clip_t), B * M, U1, U2, q_row0 * W8, md, F, W8, R,
+          _ptr(win), _ptr(clip_t), B * M, U1, U2, q_row0 * W8, mdk, F, W8, R,
           1.0 / math.sqrt(md), pos_w, bf16, _stream(q))
     flash_mode_attention.launches += 1
     flash_mode_attention.launches_by[F] = \
@@ -396,12 +421,13 @@ def flash_mode_attention_dense(q, k, v, table, clip, pos_w: float):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; the kernel "
                          f"takes feature dims {FLASH_FEAT}")
     out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
-    check_mma_tiles("flash_mode_attention_dense", bf16, md,
+    (q, k), mdk = pad_mode_dim(bf16, q, k)
+    check_mma_tiles("flash_mode_attention_dense", bf16, mdk,
                     "q, k, v and out", q, k, v, out)
     table = None if table is None else table.contiguous()
     clip_t = _f32(clip, q)
     _call("flash_attn_dense_launch", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-          table_ptr(table), _ptr(clip_t), B * M, U1, U2, md, F,
+          table_ptr(table), _ptr(clip_t), B * M, U1, U2, mdk, F,
           1.0 / math.sqrt(md), pos_w, bf16, _stream(q))
     flash_mode_attention_dense.launches += 1
     flash_mode_attention_dense.flops += 2.0 * B * M * U1 * U2 * (md + F)
@@ -475,7 +501,7 @@ def fused_agg_corr_norm(q, k, biases, grid_hw, attn_clip: float,
      stats [B, 1, 4] fp32 = (raw max, mean, E[x^2], 0)), with per-sample
     moments over the whole volume.  q, k: [B, M, U, md], M in AGG_MODES
     with M * md <= 256 (M = 1: vol = s, the softmax over one mode being
-    1)."""
+    1).  Its phase 0 (B1) takes q and k padded where md < 16."""
     if not q.is_cuda:
         return fused_agg_corr_norm_plain(q, k, biases, grid_hw, attn_clip,
                                          pos_w, agg_w, agg_b, out_dtype, eps)
@@ -671,14 +697,15 @@ def mode_softmax_probs(q, k, biases, grid_hw, clip, pos_w: float,
         kind = {torch.float32: 0, torch.bfloat16: 1}[out_dtype]
         out = torch.empty(B, M, U1, U2, dtype=out_dtype, device=dev)
         row_scale = out  # not written
-    check_mma_tiles("mode_softmax_probs", bf16, md, "q, k and out", q, k,
+    (q, k), mdk = pad_mode_dim(bf16, q, k)
+    check_mma_tiles("mode_softmax_probs", bf16, mdk, "q, k and out", q, k,
                     out)
     win, clip_t = _f32(biases, q), _f32(clip, q)
-    mma = mma_body(bf16, md)
+    mma = mma_body(bf16, mdk)
     scratch = _probs_scratch(B * M, U1, U2, mma, q)
     _call("probs_launch", _ptr(q), _ptr(k), _ptr(win), _ptr(clip_t),
           table_ptr(scratch), probs_partials(B * M, U1, U2, mma), _ptr(out),
-          _ptr(row_scale), B * M, U1, U2, q_row0 * W8, md, W8, R,
+          _ptr(row_scale), B * M, U1, U2, q_row0 * W8, mdk, W8, R,
           1.0 / math.sqrt(md), pos_w, bf16, kind, _stream(q))
     mode_softmax_probs.launches += 1
     mode_softmax_probs.flops += 2.0 * B * M * U1 * U2 * md
@@ -723,15 +750,16 @@ def mode_softmax_probs_dense(q, k, table, clip, pos_w: float,
         raise ValueError(f"mode_softmax_probs_dense: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
     out = torch.empty(B, M, U1, U2, dtype=out_dtype, device=q.device)
-    check_mma_tiles("mode_softmax_probs_dense", bf16, md, "q, k and out", q,
+    (q, k), mdk = pad_mode_dim(bf16, q, k)
+    check_mma_tiles("mode_softmax_probs_dense", bf16, mdk, "q, k and out", q,
                     k, out)
     table = None if table is None else table.contiguous()
     clip_t = _f32(clip, q)
-    mma = mma_body(bf16, md)
+    mma = mma_body(bf16, mdk)
     scratch = _probs_scratch(B * M, U1, U2, mma, q)
     _call("probs_dense_launch", _ptr(q), _ptr(k), table_ptr(table),
           _ptr(clip_t), table_ptr(scratch),
-          probs_partials(B * M, U1, U2, mma), _ptr(out), B * M, U1, U2, md,
+          probs_partials(B * M, U1, U2, mma), _ptr(out), B * M, U1, U2, mdk,
           1.0 / math.sqrt(md), pos_w, bf16, kinds[out_dtype], _stream(q))
     mode_softmax_probs_dense.launches += 1
     mode_softmax_probs_dense.flops += 2.0 * B * M * U1 * U2 * md

@@ -17,10 +17,11 @@ computes dc in the io type and dlsum = sum_{b,m} dl in fp32; dq/dk run as
 plain products in the io type with fp32 accumulation, as the JAX package
 leaves them to XLA.  Attention dropout stays outside (nn/layers.py).  The
 bf16 body (a row-term pass, then wgmma tiles; up to md 64) takes a mode
-dim that is a multiple of 16 and 16-byte aligned q, k, p, g and dc, and
-its row-term scratch is probs_rowterm_size(...) floats; fp32, and bf16
-past md 64 (128 and 256: one or two modes at a 256-wide site), take the
-FMA body.
+dim that is a multiple of 16 and 16-byte aligned q, k, p, g and dc (q
+and k of a mode dim below 16 go in zero-padded to 16 columns,
+pad_mode_dim, the scale staying 1/sqrt(md)), and its row-term scratch is
+probs_rowterm_size(...) floats; fp32, and bf16 past md 64 (128 and 256:
+one or two modes at a 256-wide site), take the FMA body.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from craft_tpu_torch.ops.kernels.mode_attention import (acc_dtype,
                                                         check_mma_tiles,
                                                         mma_body,
                                                         mode_softmax_probs,
-                                                        scores)
+                                                        pad_mode_dim, scores)
 
 _BWD_SIG = [P, P, P, P, P, P, P, P, L, I, I, I, F, I, P]
 _B7_ROWS = 64  # csrc/probs_bwd.cu B7_ROWS
@@ -75,14 +76,15 @@ def probs_bwd(q, k, p, g, clip):
         raise ValueError("probs_bwd: q, k [B, M, U, md] and p, g "
                          "[B, M, U, U]")
     dc = torch.empty_like(p)
-    check_mma_tiles("probs_bwd", bf16, md, "q, k, p, g and dc", q, k, p, g,
+    (q, k), mdk = pad_mode_dim(bf16, q, k)
+    check_mma_tiles("probs_bwd", bf16, mdk, "q, k, p, g and dc", q, k, p, g,
                     dc)
     dlsum = torch.empty(U, U, dtype=torch.float32, device=q.device)
-    n_row = probs_rowterm_size(B * M, U, mma_body(bf16, md))
+    n_row = probs_rowterm_size(B * M, U, mma_body(bf16, mdk))
     rowt = torch.empty(n_row, dtype=torch.float32, device=q.device)
     call("probs_bwd", "probs_bwd_launch", _BWD_SIG, ptr(q), ptr(k), ptr(p),
          ptr(g), ptr(f32(clip, q)), ptr(dc), ptr(dlsum), ptr(rowt), n_row,
-         B * M, U, md, 1.0 / math.sqrt(md), bf16, stream(q))
+         B * M, U, mdk, 1.0 / math.sqrt(md), bf16, stream(q))
     probs_bwd.launches += 1
     return dc, dlsum
 

@@ -192,32 +192,32 @@ def test_loader_unwraps_like_the_jax_converter(setup, tmp_path):
         load_reference_checkpoint(pth, model, strict=True)
 
 
-# Mode counts that leave a mode dim below 16 or do not divide the width,
-# with and without --seq_parallel (which runs every family and flag since
-# item 8's first parts, tests/test_torch_sp_dense.py and
-# test_torch_sp_families.py, and exits only where the config does).
+# Mode counts that do not divide the width exit, with and without
+# --seq_parallel (which runs every family and flag since item 8's first
+# parts, tests/test_torch_sp_dense.py and test_torch_sp_families.py, and
+# exits only where the config does), as the JAX package's model cannot
+# build them.
 @pytest.mark.parametrize("flags,item", [
-    (["--nogma", "--intramodes", "32"], "item 6"), (["--f2modes", "64"],
-                                                    "item 6"),
-    (["--f1", "shared", "--intermodes", "3"], "item 6"),
-    (["--intramodes", "16"], "item 6"),
-    (["--seq_parallel", "--f1", "shared", "--f2modes", "32"], "item 6"),
-    (["--seq_parallel", "--intrapos", "lsinu", "--intramodes", "16"],
-     "item 6"),
-    (["--seq_parallel", "--f2radius", "3", "--f2modes", "64"], "item 6"),
-    (["--seq_parallel", "--nogma", "--intermodes", "3"], "item 6"),
-    (["--seq_parallel", "--nogma", "--intramodes", "32"], "item 6"),
-    (["--seq_parallel", "--f2", "none", "--intermodes", "64"], "item 6")])
+    (["--f1", "shared", "--intermodes", "3"], "must divide"),
+    (["--seq_parallel", "--nogma", "--intermodes", "3"], "must divide")])
 def test_unported_flags_exit_naming_the_roadmap_item(flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md section 2, {item}"):
+    with pytest.raises(SystemExit, match=item):
         tcli.main(["--model", "absent.pth", "--craft", "--setrans",
                    "--device", CPU] + flags)
 
 
-# What exited naming ROADMAP item 6 (mode counts other than 4) runs.
+# What exited naming ROADMAP item 6 (mode counts other than 4, then mode
+# dims below 16) runs, with --seq_parallel as one rank too.
 @pytest.mark.parametrize("flags", [
     ["--nogma", "--intramodes", "2"], ["--f2modes", "8"],
-    ["--f1", "shared", "--intermodes", "2"], ["--intermodes", "2"]])
+    ["--f1", "shared", "--intermodes", "2"], ["--intermodes", "2"],
+    ["--nogma", "--intramodes", "32"], ["--f2modes", "64"],
+    ["--intramodes", "16"],
+    ["--seq_parallel", "--f1", "shared", "--f2modes", "32"],
+    ["--seq_parallel", "--intrapos", "lsinu", "--intramodes", "16"],
+    ["--seq_parallel", "--f2radius", "3", "--f2modes", "64"],
+    ["--seq_parallel", "--nogma", "--intramodes", "32"],
+    ["--seq_parallel", "--f2", "none", "--intermodes", "64"]])
 def test_cli_runs_other_mode_counts(tmp_path, flags):
     """The flags build the JAX CLI's config, field by field, and the
     evaluator runs one pair over a .pth of that config (``chip_smoke.
@@ -226,8 +226,9 @@ def test_cli_runs_other_mode_counts(tmp_path, flags):
     import craft_tpu.cli as jcli
     from test_torch_modes import parse, same_config
     argv = ["--craft", "--setrans"] + flags
-    got = cli.model_config_from_args(parse(cli, argv))
-    same_config(got, jcli.model_config_from_args(parse(jcli, argv)))
+    model_argv = [f for f in argv if f != "--seq_parallel"]
+    got = cli.model_config_from_args(parse(cli, model_argv))
+    same_config(got, jcli.model_config_from_args(parse(jcli, model_argv)))
     pth = str(tmp_path / "modes.pth")
     _save_pth(chip_smoke.config_weights(got), pth)
     rng = np.random.RandomState(2)
@@ -310,8 +311,8 @@ def test_cli_runs_the_evaluator_flags(setup, tmp_path, monkeypatch, flag):
 def test_gma_attention_exits():
     """GMA attention (no --setrans) serves (tests/test_torch_family_cli.py),
     under --seq_parallel too; it exits only where a SETrans site it has
-    takes a mode count that is not ported, naming ROADMAP item 6."""
-    with pytest.raises(SystemExit, match="--intermodes.*item 6"):
+    takes a mode count that does not divide the site's width."""
+    with pytest.raises(SystemExit, match="--intermodes 3.*must divide"):
         tcli.main(["--model", "absent.pth", "--craft", "--seq_parallel",
                    "--intermodes", "3", "--device", CPU])
 

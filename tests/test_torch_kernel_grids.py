@@ -613,3 +613,30 @@ def test_every_lookup_backward_fits_its_static_smem(radius):
                  "__shared__ float frac[QM][2];",
                  "__shared__ unsigned touched[B5B_RUN / 32];"):
         assert decl in text, decl
+
+
+# ------------------------------------------- the aggregating FMA bodies
+
+def test_the_fma_mode_counts_are_mirrored_and_fit_a_block():
+    """The aggregating kernels' FMA mode counts (agg_modes.cuh fma_modes)
+    are the wrapper's AGG_MODES; 1 to 16 are a template each and every
+    count past 16 takes the one NM_WIDE instance (WITH_MODES' default); and
+    each instance's block (agg_smem: the q tiles' 256 columns, the staged k
+    tiles, the largest bias source's floats) fits an H100 block."""
+    text = (CSRC / "agg_modes.cuh").read_text()
+    body = text[text.index("constexpr bool fma_modes(int NM)"):]
+    body = body[:body.index("\n}\n")]
+    assert tuple(int(m) for m in re.findall(r"NM == (\d+)", body)) == \
+        ma.AGG_MODES
+    switch = text[text.index("#define WITH_MODES"):]
+    switch = switch[:switch.index("\n\n")]
+    templates = tuple(int(m) for m in re.findall(r"case (\d+): LAUNCH",
+                                                 switch))
+    assert templates == tuple(m for m in ma.AGG_MODES if m <= 16)
+    assert "default: LAUNCH(NM_WIDE)" in switch
+    common = _defines("common.cuh")
+    spad, fma = common["TILE"] + 1, common["MAXMD_FMA"]
+    table = common["TILE"] * spad  # common.cuh TableBias::SMEM, the largest
+    for nm in templates + ("wide",):
+        kcols = fma if nm == "wide" else fma // nm
+        assert ((fma + kcols) * spad + table) * 4 <= SMEM_PER_BLOCK, nm

@@ -88,8 +88,8 @@ def _close(got, want, what):
 
 
 @pytest.mark.parametrize("site,modes", CASES)
-def test_site_eval_matches_jax(site, modes):
-    jcfg, tcfg = _configs(site, modes, CLAMP_CLIP)
+def test_site_eval_matches_jax(site, modes, attn_clip=CLAMP_CLIP):
+    jcfg, tcfg = _configs(site, modes, attn_clip)
     inputs = _inputs(site, jcfg)
     xs = [jnp.asarray(x) for x in inputs]
     jmod = _jax_module(site, jcfg)
@@ -113,8 +113,8 @@ def test_site_eval_matches_jax(site, modes):
 
 
 @pytest.mark.parametrize("site,modes", CASES)
-def test_site_gradients_match_jax_vjp(site, modes):
-    jcfg, tcfg = _configs(site, modes, CLAMP_CLIP)
+def test_site_gradients_match_jax_vjp(site, modes, attn_clip=CLAMP_CLIP):
+    jcfg, tcfg = _configs(site, modes, attn_clip)
     inputs = _inputs(site, jcfg)
     xs = [jnp.asarray(x) for x in inputs]
     jmod = _jax_module(site, jcfg)
@@ -154,8 +154,8 @@ def test_site_gradients_match_jax_vjp(site, modes):
 
 @pytest.mark.parametrize("site,modes", [("inter", 1), ("inter", 8),
                                         ("f2", 1)])
-def test_plain_site_matches_jax_vjp(site, modes):
-    jcfg, tcfg = _configs(site, modes, CLAMP_CLIP)
+def test_plain_site_matches_jax_vjp(site, modes, attn_clip=CLAMP_CLIP):
+    jcfg, tcfg = _configs(site, modes, attn_clip)
     inputs = _inputs(site, jcfg)
     want, cot, wgrads, wx, sows, params = _jax_site(site, jcfg, inputs, True)
     got, model, gx, diag = _port_site(site, tcfg, params, inputs, cot, True)

@@ -38,8 +38,8 @@ from test_torch_training import (BF16_LOSS_RTOL, BF16_SPREAD, FP32_GRAD_TOL,
 NAME = "modes_mixed"
 
 
-def _jax_step(mixed_precision, tree, batch):
-    jcfg, _ = configs(NAME, mixed_precision)
+def _jax_step(mixed_precision, tree, batch, name=NAME):
+    jcfg, _ = configs(name, mixed_precision)
     model = JaxFlowModel(cfg=_no_dropout(jcfg), train=True)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
 
@@ -63,10 +63,11 @@ def _jax_step(mixed_precision, tree, batch):
             state_dict_from_flax({"batch_stats": stats}))
 
 
-def _port_step(mixed_precision, tree, batch, seen=None):
-    """(model after the step, host metrics); `seen`, a dict, receives each
-    encoder's input and the cotangent of its output."""
-    _, tcfg = configs(NAME, mixed_precision)
+def _port_step(mixed_precision, tree, batch, seen=None, name=NAME):
+    """(model after the step, host metrics) of configuration `name`;
+    `seen`, a dict, receives each encoder's input and the cotangent of its
+    output."""
+    _, tcfg = configs(name, mixed_precision)
     cfg = _no_dropout(tcfg)
     state = create_train_state(cfg, state_dict_from_flax(tree), device="cpu",
                                num_steps=100)
@@ -89,9 +90,15 @@ def jax_fp32():
 
 
 def test_fp32_train_step_matches_jax(jax_fp32):
+    check_fp32_step(jax_fp32, NAME)
+
+
+def check_fp32_step(jax_fp32, name):
+    """The fp32 step of configuration `name` against the JAX step's
+    (loss, grad norm, metrics, gradients, batch statistics)."""
     want, want_grads, want_stats = jax_fp32
     seen = {}
-    model, got = _port_step(False, modes_tree(NAME), _batch(), seen)
+    model, got = _port_step(False, modes_tree(name), _batch(), seen, name)
     print({k: (got[k], want[k]) for k in want})
     np.testing.assert_allclose(got["loss"], want["loss"],
                                rtol=FP32_LOSS_RTOL)
@@ -131,9 +138,16 @@ def test_fp32_train_step_matches_jax(jax_fp32):
 
 
 def test_mixed_precision_train_step_matches_jax(jax_fp32):
+    check_mixed_step(jax_fp32, NAME)
+
+
+def check_mixed_step(jax_fp32, name):
+    """The mixed-precision step of configuration `name` against the JAX
+    step's, each gradient group within BF16_SPREAD of JAX's own bf16 against
+    fp32 spread (jax_fp32: the JAX fp32 step of `name`)."""
     _, grads32, _ = jax_fp32
-    want, want_grads, _ = _jax_step(True, modes_tree(NAME), _batch())
-    model, got = _port_step(True, modes_tree(NAME), _batch())
+    want, want_grads, _ = _jax_step(True, modes_tree(name), _batch(), name)
+    model, got = _port_step(True, modes_tree(name), _batch(), name=name)
     np.testing.assert_allclose(got["loss"], want["loss"],
                                rtol=BF16_LOSS_RTOL)
     np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],

@@ -2,7 +2,8 @@
 
     python3 tools/profile_torch_main_path.py [--pairs 2] [--train]
         [--config main|lsinu|f2radius|f1_shared|f1_private|raft|gma|
-                  craft_gma|craft_nogma|craft_f2_none|modes1|modes8]
+                  craft_gma|craft_nogma|craft_f2_none|modes1|modes8|
+                  modes32|modes256|modes_small_mixed]
 
 The main path of chip_smoke.py (its model, frame pairs and serving loop):
 full CRAFT at 436x1024 padded to 440x1024, bf16 with int8 intra probs, 12
@@ -10,9 +11,11 @@ iterations, the weights of the oracle snapshot; with --config, the same
 served under lsinu (all three sites), --f2radius 7 or two-way
 correlation, --f1 shared or private (chip_smoke.py's serving_model), or
 another family with its seeded weights (chip_smoke.py's
-family_model and family_train_setup), or one or eight modes at every
-SETrans site (modes1, modes8: chip_smoke.py's mode_model and
-mode_train_setup).  After one warm-up pair it
+family_model and family_train_setup), or another mode count at every
+SETrans site (modes1, modes8, modes32, modes256, modes_small_mixed:
+chip_smoke.py's mode_model and mode_train_setup, whose training batch is
+MODE_TRAIN_BATCH: 2 for modes256 and modes_small_mixed).  After one
+warm-up pair it
 times `--pairs` frame pairs on the host clock, then traces the same pairs
 with torch.profiler, and prints per pair: the host wall time (untraced and
 traced), the kernel time under each phase range (craft.* in
@@ -112,7 +115,7 @@ def main() -> int:
     ap.add_argument("--config", default="main",
                     choices=["main", "lsinu", "f2radius",
                              *chip_smoke.TWO_WAY, *chip_smoke.FAMILIES,
-                             *chip_smoke.MODE_FULL],
+                             *chip_smoke.MODE_SERVED],
                     help="the configuration served or trained")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -122,7 +125,7 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(card)
     family = args.config in chip_smoke.FAMILIES
-    modes = args.config in chip_smoke.MODE_FULL
+    modes = args.config in chip_smoke.MODE_SERVED
     if args.train:
         state, step, batch = (
             chip_smoke.family_train_setup(dev, args.config) if family

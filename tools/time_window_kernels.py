@@ -36,7 +36,12 @@ W8=156):
   h, Ch 128, Cx 384 (fp32 x, as the module passes it), both passes: h
   (stride 1) and v (stride W); the backward on the plain forward's z, r, q,
   so that both checkouts' backwards read the same bits; and the forward
-  at serving in fp32 (its fp32 body).
+  at serving in fp32 (its fp32 body);
+  the aggregating kernels' FMA bodies at other mode counts (a mode dim of
+  256 / M, a generator of their own): B3 at serving at 1, 8, 16 and, where
+  the checkout takes them, 32 and 256 modes; B6 forward and backward at
+  chairs, batch 2, at 8, 16 and, where taken, 32 modes; B9 on the second
+  serving shard at 16 modes.
 
 Seeded inputs from CPU generators (q, k ~ N(0, 1.5^2) bf16, the window ~
 N(0, 0.5^2)), the clamp off.  Each case is timed in ROUNDS rounds of `reps`
@@ -95,6 +100,15 @@ B10_CASES = tuple(f"B10{b}{g}_{p}" for b in ("", "_bwd")
                   for g in ("", "_chairs") for p in ("h", "v"))
 B10_FP32_CASES = ("B10_fp32_h", "B10_fp32_v")
 SAVED += B10_CASES + B10_FP32_CASES
+# The aggregating kernels' FMA bodies at other mode counts (mode dim 256 /
+# M); the counts past 16 only where the checkout takes them.
+AGG_SERVE_MODES, AGG_TRAIN_MODES = (1, 8, 16, 32, 256), (8, 16, 32)
+AGG_CASES = (tuple(f"B3_m{m}" for m in AGG_SERVE_MODES)
+             + tuple(f"B6{b}_m{m}" for b in ("", "_bwd")
+                     for m in AGG_TRAIN_MODES)
+             + ("B9_sums_m16_r1", "B9_write_m16_r1"))
+SAVED += AGG_CASES
+SECOND.update({f"B6_bwd_m{m}": "da" for m in AGG_TRAIN_MODES})
 # Cases whose every output is kept and compared.
 WHOLE = tuple(c for c in B10_CASES if c.startswith("B10_bwd"))
 GRU_CH, GRU_CX = 128, 384
@@ -266,7 +280,54 @@ def _cases(torch, dev):
             cases["B5_bwd_d2" + label] = functools.partial(
                 lk.corr_lookup_bwd, coords, g, shapes, torch.bfloat16, RADIUS,
                 2)
+    _agg_mode_cases(torch, dev, ma, cv, biases, cases)
     return cases
+
+
+def _agg_mode_cases(torch, dev, ma, cv, biases, cases) -> None:
+    """B3, B6, B6 backward and B9 at other mode counts, from a generator
+    of their own (the cases above draw the same inputs in every
+    checkout)."""
+    gen = torch.Generator().manual_seed(3)
+    takes = 256 in getattr(ma, "AGG_MODES", ())
+    clip = torch.tensor(1e30, device=dev)
+    one = torch.tensor(1.0, device=dev)
+    agg_w = torch.tensor(1.3, device=dev)
+    agg_b = torch.tensor(0.1, device=dev)
+    u, uc = (g[0] * g[1] for g in (SERVING, CHAIRS))
+
+    def qk(batch, m, uu):
+        return [(torch.randn(batch, m, uu, 256 // m, generator=gen) * 1.5)
+                .to(dev, torch.bfloat16) for _ in range(2)]
+    for m in AGG_SERVE_MODES:
+        q, k = qk(1, m, u)
+        if m <= 16 or takes:
+            cases[f"B3_m{m}"] = functools.partial(
+                ma.fused_agg_corr_norm, q, k, biases, SERVING, 100.0, 0.5,
+                one, one)
+        if m == 16:
+            gmax = ma.scores_global_max_plain(q, k, 0.25)
+            r0 = 28 * SERVING[1]
+            sums = torch.tensor([[1e7, 1e8]], dtype=torch.float64,
+                                device=dev)
+            ql = q[:, :, r0:].contiguous()
+            cases["B9_sums_m16_r1"] = functools.partial(
+                ma.corr_norm_sums, ql, k, biases, SERVING, gmax, 100.0, 0.5,
+                agg_w, agg_b, q_row0=28)
+            cases["B9_write_m16_r1"] = functools.partial(
+                ma.corr_norm_write, ql, k, biases, SERVING, gmax, sums,
+                100.0, 0.5, agg_w, agg_b, q_row0=28)
+    for m in AGG_TRAIN_MODES:
+        q, k = qk(2, m, uc)
+        if m > 16 and not takes:
+            continue
+        vol = torch.randn(2, uc, uc, generator=gen).to(dev)
+        g_vol = torch.randn(2, uc, uc, generator=gen).to(dev)
+        cases[f"B6_m{m}"] = functools.partial(
+            cv.fused_agg_corr, q, k, biases, CHAIRS, clip, 0.5, agg_w, agg_b)
+        cases[f"B6_bwd_m{m}"] = functools.partial(
+            cv.agg_corr_bwd, q, k, g_vol, vol, biases, CHAIRS, clip, 0.5,
+            agg_w)
 
 
 def _gru_cases(torch, gen, dev, cases) -> None:
@@ -385,7 +446,8 @@ def main() -> int:
             torch.save(tuple(None if t is None else t.cpu()
                              for t in (first, scales, second)),
                        Path(args.save) / f"{name}.pt")
-        if name in SAVED and name not in WHOLE and args.diff:
+        if name in SAVED and name not in WHOLE and args.diff and (
+                Path(args.diff) / f"{name}.pt").exists():
             ref, ref_scales, ref_second = torch.load(
                 Path(args.diff) / f"{name}.pt")
             out[name + "_max_abs_diff"] = float(

@@ -81,7 +81,9 @@ these phases and fails on the first that fails:
      a dropped bias and another query's slab planted.  Then B2 at the
      lazy intra aggregator's width (F 128, md 32), bf16 and fp32, clamp off
      and on, at the serving grid, a ragged grid (37 x 61) and HD1K's last
-     two grid rows, a dropped bias and a missing clamp planted.  Then the
+     two grid rows, a dropped bias, a missing clamp and keys 64-127 of
+     every 128-key tile dropped (against the pipelined body's tiles)
+     planted.  Then the
      mode counts other than 4 (check_mode_kernels): the checks above
      (check_kernels, check_train_kernels, check_dense_kernels,
      check_sp_kernels, check_b2_lazy), each taking the 256-wide sites'
@@ -98,7 +100,10 @@ these phases and fails on the first that fails:
      and below md 16 a nonzero pad column (the per-mode kernels' padded q
      and k), modes 16-19 skipped and the running max reset between groups
      of four modes (the aggregating kernels) planted, one fault at a
-     time.
+     time; at one and two modes (md 256, 128) also B2 and B8 (no table,
+     and the --f2radius table) on the serving grid and a ragged one (37 x
+     61: 4 and 3 key splits), with q.k over md chunk 3 skipped planted at
+     md 256.
   3. oracle: full-width CRAFT with the weights of
      tests/data/oracle_craft_128.npz at 128x128, 12 iterations, against the
      reference flow: fp32 within 1e-3 px, the mixed-precision config
@@ -243,13 +248,15 @@ these phases and fails on the first that fails:
      against the CPU (the same keys and shapes, each array within 1e-4 of
      its largest value; no B2, B3 or B4 while capturing, B3 and B4 in the
      next forward) and vis_attention's PNGs.
-     Then the mode counts other than 4 (modes_phase): ten configurations
+     Then the mode counts other than 4 (modes_phase): eleven configurations
      (MODE_CONFIGS: one, two, eight, sixteen, 32 and 256 modes, two mixed
-     ones, --f1 private at 8 inter modes, --nogma at 2) at 128x128 on the
+     ones, --f1 private at 8 inter modes, --nogma at 2, one mode under
+     --f2radius 7) at 128x128 on the
      card against the CPU (fp32 within 1e-3 px, mixed within 0.15 px), the
      oracle's weights where their shapes hold and seeded first linears;
      modes1, modes8, modes32, modes256 (on the lazy intra path, its B2
-     launches by width asserted) and modes_small_mixed served at 440x1024
+     launches by width asserted), modes_small_mixed, modes2 (B2 at md 128)
+     and modes1 under --f2radius 7 (B8 at md 256) served at 440x1024
      (one warm-up pair, 2 pairs: event ms, the profiler's device ms and
      busy share, peak memory, the path's launches asserted) and trained at
      the chairs crops (batch 8, modes256 and modes_small_mixed batch 2; 2
@@ -282,7 +289,10 @@ these phases and fails on the first that fails:
      and B7 (chairs, batch 8) at 1, 8 and 32 modes, as modes1, modes8 and
      modes32 run them, beside their plain versions (at 32 modes over two
      samples at a time), bounds and exponentials' floors, and B8 at 32
-     modes beside scaled_dot_product_attention.
+     modes beside scaled_dot_product_attention; B2 at two modes (md 128)
+     beside SDPA with the window as its mask, and B8 at one mode (md 256)
+     with the --f2radius table beside SDPA with it as its mask (and with no
+     table beside SDPA without a mask).
 
 Prints the card line and a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
@@ -517,6 +527,36 @@ PAD_NONZERO, GROUP_SKIPPED, MAX_RESET = (
     "the running max reset between groups of four modes")
 
 
+# Against B2's and B8's pipelined body (csrc/flash_attn.cu): q.k over md
+# chunk 3 (columns 192-255) skipped at md 256 (its k loop over 64-wide
+# chunks one short), and at F 128 the second half (keys 64-127) of every
+# 128-key tile dropped.
+CHUNK_SKIPPED, HALF_TILE = (
+    "q.k over md chunk 3 (columns 192-255) skipped",
+    "keys 64-127 of every 128-key tile dropped")
+
+
+def skip_md_chunk3(x):
+    """x with columns 192-255 of its mode dim zeroed."""
+    y = x.clone()
+    y[..., 192:256] = 0
+    return y
+
+
+def flash_faults(md, fn, q, k) -> dict:
+    """{CHUNK_SKIPPED: fn(q', k)} at md 256 (B2, B8), else {}."""
+    return ({CHUNK_SKIPPED: lambda: fn(skip_md_chunk3(q), k)} if md > 192
+            else {})
+
+
+def b2_half_tile(q, k, v, biases, grid, clip, pos_w, q_row0: int = 0):
+    """Plain B2 with keys 64-127 of every 128-key tile masked out."""
+    _, s = ma.biased_scores(q, k, biases, grid, clip, pos_w, q_row0)
+    keys = torch.arange(k.shape[2], device=s.device)
+    s = s.masked_fill(keys % 128 >= 64, float("-inf"))
+    return (torch.softmax(s, -1) @ v.float()).to(v.dtype)
+
+
 def swap_md_chunks(x):
     """x with its mode dim's chunks [0, 64) and [64, 128) swapped: what an
     FMA body that staged its chunks out of order would multiply."""
@@ -660,6 +700,8 @@ def check_kernels(dev, gen, report, grid=(H8, W8),
             faults["no clamp"] = lambda: plain(CLIP_OFF, 0.5)
         faults.update(mode_faults(M, md, lambda a, b: plain(clip, 0.5, a, b),
                                   q, k))
+        faults.update(flash_faults(md, lambda a, b: plain(clip, 0.5, a, b),
+                                   q, k))
         want = plain(clip, 0.5)
         hold(f"B2 M={M} md={md} {dtype} clip={clip:g}", got, want, rel_err,
              b2_tol(dtype), faults)
@@ -1706,8 +1748,9 @@ def check_b2_lazy(dev, gen, report, grids=B2_LAZY_GRIDS, hd1k=HD1K_GRID,
     """Phase 2: B2 at F 128 at the intra site's (modes, mode dim) against
     its plain version on each grid (and on the last `last` grid rows of
     `hd1k`; None: none), bf16 and fp32, the clamp off and on; a dropped
-    bias, a missing clamp and mode_faults planted in the plain version
-    must fall outside the bound."""
+    bias, a missing clamp, keys 64-127 of every 128-key tile dropped
+    (HALF_TILE, against the pipelined body's tiles) and mode_faults
+    planted in the plain version must fall outside the bound."""
     biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
     M, md = modes
     cases = [(label, grid, 0) for label, grid in grids]
@@ -1739,6 +1782,9 @@ def check_b2_lazy(dev, gen, report, grids=B2_LAZY_GRIDS, hd1k=HD1K_GRID,
                     faults["no clamp"] = lambda: plain(CLIP_OFF, LAZY_POS_W)
                 faults.update(mode_faults(M, md, lambda a, b: plain(
                     clip, LAZY_POS_W, a, b), qp, kd))
+                faults[HALF_TILE] = lambda: b2_half_tile(
+                    qp, kd, vd, biases, grid, torch.tensor(clip, device=dev),
+                    LAZY_POS_W, q_row0=t0 // grid[1])
                 want = plain(clip, LAZY_POS_W)
                 hold(f"B2 F={LAZY_F} M={M} md={md} {label} {dt} "
                      f"clip={clip:g}", got, want, rel_err, b2_tol(dt),
@@ -1879,6 +1925,9 @@ def check_dense_kernels(dev, gen, report, grid=(H8, W8),
             faults.update(mode_faults(M, md, lambda a, b: plain(
                 a, b, table, clip_t, DENSE_POS_W, v), q, k,
                 agg=name == "fused_agg_corr_dense"))
+            if name == "flash_mode_attention_dense":
+                faults.update(flash_faults(md, lambda a, b: plain(
+                    a, b, table, clip_t, DENSE_POS_W, v), q, k))
             if name == "fused_agg_corr_dense" and M > 4:
                 faults[MAX_RESET] = lambda: max_reset_volume(
                     q, k, table, clip_t, DENSE_POS_W, *AGG_WB)
@@ -5851,6 +5900,9 @@ MODE_KERNELS = ("scores_global_max", "flash_mode_attention",
                 "fused_agg_corr_norm", "mode_softmax_probs",
                 "fused_agg_corr", "agg_corr_bwd", "probs_bwd")
 MODE_ROWS = (1, 8, 32)
+# B2 at md 128 (two modes: modes2) and B8 at md 256 with the --f2radius
+# table (modes1_f2radius), rows of their own in the kernels line.
+FLASH_ROWS = (("flash_mode_attention", 2), ("flash_mode_attention_dense", 1))
 # The training checks' batch at the chairs grid: TRAIN_BATCH at the counts
 # that modes1 and modes8 train at full width, two samples at the others,
 # which hold every tile and mode of the kernels at a quarter of the plain
@@ -5866,15 +5918,80 @@ MODE_CUT_GRID, MODE_CUT_TRAIN_GRID, MODE_CUT_PAST = (30, 70), (20, 41), 32
 MODE_DENSE_CASES = ("table, clip on", "fp32, table, clip on")
 
 
+# B2 and B8 past md 64 (one or two modes at the f2 site: the pipelined
+# body) on the serving grid and a ragged one, whose 37 x 61 = 2257 tokens
+# end in a ragged key tile and a ragged q tile and take 4 key splits at one
+# mode, 3 at two.
+FLASH_WIDE_GRIDS = (("serving", (H8, W8)), ("ragged", (37, 61)))
+
+
+def check_flash_wide(dev, gen, report, wide, grids=FLASH_WIDE_GRIDS) -> None:
+    """Phase 2, B2 (the window, pos_w 0.5) and B8 (no table, and the f2
+    site's --f2radius table: pos_w * the dense window + the radius mask,
+    pos_w 1) at the f2 site's (modes, mode dim) `wide` on each grid, bf16,
+    the clamp on, against their plain versions; a dropped bias (B8: a table
+    where there is none, the table dropped), a missing clamp, mode_faults
+    and flash_faults planted in the plain versions must fall outside the
+    bound."""
+    M, md = wide
+    biases = (torch.randn(15, 15, generator=gen) * BIAS_STD).to(dev)
+    clip_t = torch.tensor(CLIP_ON, device=dev)
+    no_clip = torch.tensor(CLIP_OFF, device=dev)
+    for label, grid in grids:
+        u = grid[0] * grid[1]
+        q, k = inputs(gen, md, dev, u, modes=M)
+        v = torch.randn(1, M, u, 256, generator=gen).to(dev, torch.bfloat16)
+        tag = f"M={M} md={md} {label} {grid[0]}x{grid[1]}"
+
+        def b2(a=q, b=k, w=0.5, c=clip_t):
+            return ma.flash_mode_attention_plain(a, b, v, biases, grid, c, w)
+        faults = {"no bias": lambda: b2(w=0.0), "no clamp": lambda: b2(
+            c=no_clip)}
+        faults.update(mode_faults(M, md, lambda a, b: b2(a, b), q, k))
+        faults.update(flash_faults(md, lambda a, b: b2(a, b), q, k))
+        got = ma.flash_mode_attention(q, k, v, biases, grid, clip_t, 0.5)
+        sync(dev)
+        want = b2()
+        hold(f"B2 {tag}", got, want, rel_err, B2_TOL, faults)
+        note_err(report, "flash_mode_attention", M,
+                 float((got.float() - want.float()).abs().max()))
+        del got, want, faults
+        table = (0.5 * ma.sliding_pos_biases(biases, *grid)
+                 + setrans.attention_mask(*grid, F2RADIUS, dev))
+        for tab in (None, table):
+
+            def b8(a=q, b=k, t=tab, c=clip_t):
+                return ma.flash_mode_attention_dense_plain(a, b, v, t, c, 1.0)
+            faults = ({"a table where there is none": lambda: b8(t=table)}
+                      if tab is None else {"the table dropped": lambda: b8(
+                          t=None)})
+            faults["no clamp"] = lambda: b8(c=no_clip)
+            faults.update(mode_faults(M, md, lambda a, b: b8(a, b), q, k))
+            faults.update(flash_faults(md, lambda a, b: b8(a, b), q, k))
+            got = ma.flash_mode_attention_dense(q, k, v, tab, clip_t, 1.0)
+            sync(dev)
+            want = b8()
+            hold(f"B8 {tag} {'no table' if tab is None else 'table'}", got,
+                 want, rel_err, B2_TOL, faults)
+            note_err(report, "flash_mode_attention_dense", M,
+                     float((got.float() - want.float()).abs().max()))
+            del got, want, faults
+        del q, k, v, table
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
 def check_mode_kernels(dev, gen, report, grid=(H8, W8),
                        train_grid=CHAIRS_GRID,
                        b3_grids=((H8, W8), KITTI_GRID),
                        counts=MODE_COUNTS, cut_grid=MODE_CUT_GRID,
-                       cut_train_grid=MODE_CUT_TRAIN_GRID) -> None:
+                       cut_train_grid=MODE_CUT_TRAIN_GRID,
+                       flash_grids=FLASH_WIDE_GRIDS) -> None:
     """Phase 2, the mode counts other than 4: the checks of the four modes
     (check_kernels, check_train_kernels, check_dense_kernels,
     check_sp_kernels at two shards, check_b2_lazy at the serving grid) at
-    each count, bf16 and fp32, their faults and mode_faults planted; past
+    each count, bf16 and fp32, their faults and mode_faults planted, and
+    past md 64 check_flash_wide (B2 and B8 on flash_grids); past
     MODE_CUT_PAST modes at cut_grid and cut_train_grid in place of grid,
     b3_grids and train_grid.  On CPU tensors the wrappers take the plain
     versions themselves (how the tests run this check)."""
@@ -5894,6 +6011,8 @@ def check_mode_kernels(dev, gen, report, grid=(H8, W8),
                             only=MODE_DENSE_CASES)
         check_sp_kernels(dev, gen, report, grid, worlds=(2,), wide=wide,
                          intra=intra)
+        if wide[1] > ma.MMA_MODE_DIM:
+            check_flash_wide(dev, gen, report, wide, flash_grids)
         if intra:
             check_b2_lazy(dev, gen, report, grids=((f"{grid[0]}x{grid[1]}",
                                                     grid),),
@@ -5914,15 +6033,19 @@ MODE_CONFIGS = {
     "modes16": (16, 16, 8), "modes_mixed": (2, 16, 1),
     "two_way8": (8, 4, 4), "nogma2": (4, 2, 2),
     "modes32": (32, 32, 16), "modes256": (256, 256, 128),
-    "modes_small_mixed": (64, 128, 32)}
+    "modes_small_mixed": (64, 128, 32), "modes1_f2radius": (1, 1, 1)}
 MODE_FULL = ("modes1", "modes8", "modes32")
 # The served configurations and their launches a pair: modes256's intra
 # probs (128 x 7040^2 bf16, 12.7 GB) pass setrans.LAZY_PROBS_BYTES, so it
-# serves on the lazy intra path (B2 at F 128 each iteration, no B4).
+# serves on the lazy intra path (B2 at F 128 each iteration, no B4);
+# modes2 launches B2 at md 128 and modes1_f2radius B8 at md 256 with the
+# --f2radius table (the kernels line's flash_mode_attention_m2 and
+# flash_mode_attention_dense_m1).
 MODE_SERVED = {"modes1": "SERVE_PER_PAIR", "modes8": "SERVE_PER_PAIR",
                "modes32": "SERVE_PER_PAIR",
                "modes_small_mixed": "SERVE_PER_PAIR",
-               "modes256": "LAZY_PER_PAIR"}
+               "modes256": "LAZY_PER_PAIR", "modes2": "SERVE_PER_PAIR",
+               "modes1_f2radius": "F2RADIUS_KERNELS"}
 # The training batch at the chairs crops: TRAIN_BATCH at full width; the
 # f2 site's bf16 probs are [B, M, 2852, 2852], 16.3 MB a mode and sample,
 # 33 GB at 256 modes and batch 8 before their gradient and dropout, so
@@ -5943,6 +6066,8 @@ def mode_flags(name: str) -> list:
         return ["--nogma", "--intramodes", str(intra)]
     flags = ["--craft", "--setrans", "--intermodes", str(inter), "--f2modes",
              str(f2), "--intramodes", str(intra)]
+    if name == "modes1_f2radius":  # B8 at md 256 with the f2 table
+        flags += ["--f2radius", str(F2RADIUS)]
     return flags + (["--f1", "private"] if name == "two_way8" else [])
 
 
@@ -6354,6 +6479,52 @@ def time_mode_kernels(dev, gen, report) -> None:
         _time_mode_cases(cases, report, M, f"chairs, B={B}, M={M}")
         del q, k, vol, g_vol, p, g_p
         torch.cuda.empty_cache()
+    time_flash_rows(dev, gen, report, biases)
+
+
+def time_flash_rows(dev, gen, report, biases) -> None:
+    """Phase 5, FLASH_ROWS at the serving shape: B2 at two modes (md 128)
+    beside SDPA with the window as its mask, and B8 at one mode (md 256)
+    with the --f2radius table beside SDPA with that table as its mask (and
+    with no table beside SDPA without a mask, printed only), each beside its
+    plain version, its bound and its exponentials' floor."""
+    clip = torch.tensor(1e30, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, M in FLASH_ROWS:
+        md = 256 // M
+        q, k = inputs(gen, md, dev, U, modes=M)
+        v = torch.randn(1, M, U, 256, generator=gen).to(dev, torch.bfloat16)
+        n = M * U * U
+        flops, nbytes = 2.0 * n * (md + 256), 2 * 2 * M * U * (md + 256)
+        bms = bound_ms(flops, nbytes)
+        if name == "flash_mode_attention":
+            dense = (0.5 * ma.sliding_pos_biases(biases, H8, W8)).to(
+                torch.bfloat16)
+            args = (q, k, v, biases, (H8, W8), clip, 0.5)
+            cases = {name: (lambda: ma.flash_mode_attention(*args),
+                            lambda: ma.flash_mode_attention_plain(*args),
+                            lambda: sdpa(q, k, v, attn_mask=dense), bms,
+                            exp_ms(n))}
+        else:
+            table = (0.5 * ma.sliding_pos_biases(biases, H8, W8)
+                     + setrans.attention_mask(H8, W8, F2RADIUS, dev))
+            tmask = table.to(torch.bfloat16)
+            t_bms = bound_ms(flops, nbytes + 4 * U * U)
+            cases = {name: (
+                lambda: ma.flash_mode_attention_dense(q, k, v, table, clip,
+                                                      1.0),
+                lambda: ma.flash_mode_attention_dense_plain(q, k, v, table,
+                                                            clip, 1.0),
+                lambda: sdpa(q, k, v, attn_mask=tmask), t_bms, exp_ms(n)),
+                f"{name} (no table)": (
+                lambda: ma.flash_mode_attention_dense(q, k, v, None, clip,
+                                                      1.0),
+                lambda: ma.flash_mode_attention_dense_plain(q, k, v, None,
+                                                            clip, 1.0),
+                lambda: sdpa(q, k, v), bms, exp_ms(n))}
+        _time_mode_cases(cases, report, M, f"serving, M={M}, md={md}")
+        del q, k, v, cases
+        torch.cuda.empty_cache()
 
 
 def _time_mode_cases(cases, report, M, where) -> None:
@@ -6448,6 +6619,8 @@ def main() -> int:
     for name in MODE_KERNELS:
         for M in MODE_ROWS:
             report[f"{name}_m{M}"] = dict(report[name], name=f"{name}_m{M}")
+    for name, M in FLASH_ROWS:
+        report[f"{name}_m{M}"] = dict(report[name], name=f"{name}_m{M}")
 
     gen = torch.Generator().manual_seed(0)
     check_kernels(dev, gen, report)
@@ -6525,6 +6698,9 @@ def main() -> int:
                 else mres["training"]
             report[f"{name}_m{M}"]["launches"] = \
                 runs[f"modes{M}"]["launches"][name]
+    for (name, M), config in zip(FLASH_ROWS, ("modes2", "modes1_f2radius")):
+        report[f"{name}_m{M}"]["launches"] = \
+            mres["serving"][config]["launches"][name]
     torch.cuda.empty_cache()
     time_kernels(dev, gen, report)
     time_b2_lazy(dev, gen, report)

@@ -29,12 +29,19 @@
 #define MAXWIN 225  // (2R+1)^2 for R <= 7
 #define NEG_INF (-1e30f)
 
-// The body a per-mode kernel runs (B1, B2, B4, B7, B8, B4 dense): wgmma for
-// bf16 inputs up to md MAXMD, FMA for fp32 and for bf16 past it.  The
-// wrappers mirror it (ops/kernels/mode_attention.py mma_body) to size the
-// scratch, whose size every launcher checks.
+// The body a per-mode kernel runs (B1, B4, B7, B4 dense): wgmma for bf16
+// inputs up to md MAXMD, FMA for fp32 and for bf16 past it.  The wrappers
+// mirror it (ops/kernels/mode_attention.py mma_body) to size the scratch,
+// whose size every launcher checks.
 __host__ __device__ constexpr bool mma_body(int md, int in_bf16) {
   return in_bf16 && md <= MAXMD;
+}
+
+// B2 and B8 (flash_attn.cu) run wgmma for bf16 at every mode dim they take,
+// up to MAXMD_FMA (one or two modes at a 256-wide site), and FMA for fp32
+// only.  The wrappers mirror it (mode_attention.py flash_mma_body).
+__host__ __device__ constexpr bool flash_mma_body(int md, int in_bf16) {
+  return in_bf16 && md <= MAXMD_FMA;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }

@@ -957,14 +957,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
 // The copy engine: bytes from global to shared memory, their arrival
 // counted on the mbarrier at bar (whose phase waits for them after
-// arrive_expect_tx has announced them).
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
+// mbar_arrive_expect_tx, wgmma.cuh, has announced them).
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
                                           uint32_t bytes, uint32_t bar) {
   asm volatile(

@@ -95,6 +95,31 @@ __device__ __forceinline__ void wgmma_s(float (*d)[4], const uint32_t a[4],
         "r"(scale_d));
 }
 
+// The m64n64k16 product with A from shared memory too (a K-major tile
+// through its own descriptor, as B): wgmma_s's product for an A tile that
+// does not fit the registers (the flash body's q past md 64).
+__device__ __forceinline__ void wgmma_ss64(float (*d)[4], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // The m64n32k16 product with A from shared memory too (a K-major tile
 // through its own descriptor, as B), so that the 64 rows of the
 // warpgroup's A tile take no registers: a 32-column accumulator, d[j] for
@@ -271,6 +296,15 @@ __device__ __forceinline__ void mbar_arrive(uint32_t a) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a)
                : "memory");
 }
+// Arrive and announce `bytes` that the copy engine (bulk copies, TMA) will
+// complete on this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
 __device__ __forceinline__ void mbar_arrive_copies(uint32_t a) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    a)
@@ -293,6 +327,17 @@ __device__ __forceinline__ void bar_sync(int id) {
 template <int N>
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+// Registers a thread of the calling warpgroup owns from here on (all its
+// threads call it): fewer, given back to the block's pool, or more, taken
+// from it (waits until another warpgroup has given them).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Staged stores (B6 backward, B7): a tile row staged in shared memory at

@@ -26,14 +26,17 @@ U2 = H8 * W8 keys; B1 takes any U1 and U2, and B2, B4 and B9 take the
 shard's `q_row0` so that the window lands on the right diagonals.  The
 tensor decides the route: CUDA tensors launch the hand-written kernel
 (csrc/*.cu) or raise, CPU tensors take the plain version.  In bf16, B1,
-B2, B3, B4, B8 and B9 run tensor-core (wgmma) bodies up to a mode dim of
-64 (B3 and B9 at four modes), which take a mode dim that is a multiple of
-16 and 16-byte aligned inputs (check_mma_tiles); below 16 (8, 4, 2 or 1:
-32 to 256 modes at a 256-wide site) the per-mode kernels B1, B2, B4, B8
-and B4 dense take a copy of q and k zero-padded to 16 columns
-(pad_mode_dim), the scale staying 1/sqrt(md).  fp32, and bf16 past those (md 128 and 256; B3
+B3, B4 and B9 run tensor-core (wgmma) bodies up to a mode dim of 64 (B3
+and B9 at four modes), B2 and B8 at every mode dim up to 256 (their
+pipelined body past md 64 and at F 128, flash_pipe_body, with key splits
+where the q tiles would leave SMs idle, flash_splits); these take a mode
+dim that is a multiple of 16 and 16-byte aligned inputs
+(check_mma_tiles); below 16 (8, 4, 2 or 1: 32 to 256 modes at a 256-wide
+site) the per-mode kernels B1, B2, B4, B8 and B4 dense take a copy of q
+and k zero-padded to 16 columns (pad_mode_dim), the scale staying
+1/sqrt(md).  fp32, and bf16 past those (B1 and B4 at md 128 and 256; B3
 and B9 at 1, 2 or 8 to 256 modes), run FMA bodies (mma_body,
-agg_mma_body).  Each kernel's launches are counted in
+flash_mma_body, agg_mma_body).  Each kernel's launches are counted in
 ``<wrapper>.launches`` where the kernel is launched: B1's count includes
 the B1 launch that B3 makes as its phase 0.  The clamp value `clip` is a device tensor, so the
 predicate never syncs the host.
@@ -46,16 +49,16 @@ import math
 import torch
 
 from craft_tpu_torch.ops.kernels.launch import (D as _D, F as _F, I as _I,
-                                                MAX_MODE_DIM, MMA_MODE_DIM,
-                                                P as _P, call, counted,
-                                                f32 as _f32, prep as _prep,
-                                                ptr as _ptr,
+                                                L as _L, MAX_MODE_DIM,
+                                                MMA_MODE_DIM, P as _P, call,
+                                                counted, f32 as _f32,
+                                                prep as _prep, ptr as _ptr,
                                                 stream as _stream)
 
 _SIGNATURES = {
     "scores_max_launch": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _P],
-    "flash_attn_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _F, _F, _I, _P],
+    "flash_attn_launch": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "corr_norm_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _F, _F, _I, _I, _P],
     "corr_norm_sums_launch": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
@@ -64,8 +67,8 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _F, _D, _F, _I, _I, _P],
     "probs_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _F, _F, _I, _I, _P],
-    "flash_attn_dense_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _F, _F, _I, _P],
+    "flash_attn_dense_launch": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                                _I, _I, _I, _F, _F, _I, _P],
     "probs_dense_launch": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F,
                            _F, _I, _I, _P],
 }
@@ -90,6 +93,9 @@ _TILE, _KGROUP = 64, 8
 _B1_ROWS, _B1_KEYS, _B1_KCHUNK = 128, 64, 16
 _B3_ROWS, _B3_KEYS, _B3_KGROUP = 128, 64, 8
 _B4_ROWS, _B4_KEYS, _B4_KCHUNK = 128, 64, 16
+# B2's and B8's pipelined body (csrc/flash_attn.cu PROWS, PMAX_SPLITS,
+# pipe_keys): 128-row blocks, at most 4 key splits of a q tile.
+_P_ROWS, _P_MAX_SPLITS = 128, 4
 assert (MMA_MODE_DIM, MAX_MODE_DIM) == (64, 256)  # common.cuh MAXMD(_FMA)
 # The mode counts of the aggregating kernels' FMA bodies (B3, B6, B6 dense,
 # B9, B6 backward: csrc/agg_modes.cuh, NM modes with NM * md <= 256: a
@@ -107,11 +113,75 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def mma_body(bf16: int, md: int) -> int:
-    """Whether a per-mode kernel (B1, B2, B4, B7, B8, B4 dense) runs its
-    wgmma body: bf16 up to md 64; fp32 and bf16 past it take the FMA one,
-    whose scratch the grids below count.  csrc/common.cuh mma_body, which
-    every launcher takes, is the same test."""
+    """Whether a per-mode kernel (B1, B4, B7, B4 dense) runs its wgmma
+    body: bf16 up to md 64; fp32 and bf16 past it take the FMA one, whose
+    scratch the grids below count.  csrc/common.cuh mma_body, which every
+    launcher takes, is the same test."""
     return int(bool(bf16) and md <= MMA_MODE_DIM)
+
+
+def flash_mma_body(bf16: int, md: int) -> int:
+    """Whether B2 and B8 run a wgmma body: bf16 at every mode dim they take
+    (up to 256); fp32 takes the FMA one (csrc/common.cuh flash_mma_body)."""
+    return int(bool(bf16) and md <= MAX_MODE_DIM)
+
+
+def flash_pipe_body(bf16: int, md: int, F: int) -> int:
+    """Whether B2 and B8 run their pipelined wgmma body (csrc/flash_attn.cu
+    launch_f): at F 128 (up to md 128, check_flash_dims), at F 256 past md
+    64 (up to md 64 the F = 256 body, which takes no key split)."""
+    return int(flash_mma_body(bf16, md) and (F == 128 or md > MMA_MODE_DIM))
+
+
+def flash_keys(md: int, F: int) -> int:
+    """The pipelined body's keys a tile (pipe_keys): 128 at F 128, 64 at F
+    256."""
+    return 128 if F == 128 else 64
+
+
+def flash_splits(BM: int, U1: int, U2: int, md: int, F: int, bf16: int,
+                 sms: int) -> int:
+    """The key splits of the pipelined body's grid: as many as keep the
+    BM x ceil(U1 / 128) q tiles' blocks within one wave of `sms` SMs, at
+    most 4 and one key tile a split (1 for the other bodies).  The serving
+    shape at one mode (55 q tiles) takes 2, at two modes 1."""
+    if not flash_pipe_body(bf16, md, F):
+        return 1
+    blocks = BM * _cdiv(U1, _P_ROWS)
+    return max(1, min(_P_MAX_SPLITS, _cdiv(U2, flash_keys(md, F)),
+                      sms // blocks))
+
+
+def flash_partials(BM: int, U1: int, F: int, nsplit: int) -> int:
+    """The fp32 scratch of nsplit key splits (csrc/flash_attn.cu
+    pipe_partials): each split's unnormalised o [BM, U1, F] and (max, sum)
+    rows [BM, U1, 2]; none for one split."""
+    return nsplit * BM * U1 * (F + 2) if nsplit > 1 else 0
+
+
+def check_flash_dims(what: str, bf16: int, md: int, F: int) -> None:
+    """B2's and B8's value width F is 128 or 256 (FLASH_FEAT); in bf16 F
+    128 takes a mode dim up to 128, the intra site's width (the pipelined
+    body has no wider instance at F 128).  Raises on anything else."""
+    if F not in FLASH_FEAT:
+        raise ValueError(f"{what}: the kernel takes feature dims "
+                         f"{FLASH_FEAT}, got {F}")
+    if bf16 and F == 128 and md > 128:
+        raise ValueError(f"{what}: bf16 at feature dim 128 takes a mode dim "
+                         f"up to 128, got {md}")
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _flash_scratch(BM, U1, U2, md, F, bf16, like):
+    """(scratch tensor or None, its floats, splits) of a B2 / B8 launch."""
+    nsplit = flash_splits(BM, U1, U2, md, F, bf16, _sm_count(like.device))
+    n = flash_partials(BM, U1, F, nsplit)
+    part = (torch.empty(n, dtype=torch.float32, device=like.device)
+            if n else None)
+    return part, n, nsplit
 
 
 def agg_mma_body(bf16: int, M: int, md: int) -> int:
@@ -369,11 +439,10 @@ def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float,
     (q, k, v), bf16 = _prep(q, k, v)
     B, M, U1, md = q.shape
     U2, F = k.shape[2], v.shape[-1]
-    if F not in FLASH_FEAT or k.shape[:2] != (B, M) or \
-            v.shape[:3] != (B, M, U2):
+    if k.shape[:2] != (B, M) or v.shape[:3] != (B, M, U2):
         raise ValueError(f"flash_mode_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}; the kernel "
-                         f"takes feature dims {FLASH_FEAT}")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    check_flash_dims("flash_mode_attention", bf16, md, F)
     R = (biases.shape[0] - 1) // 2
     W8 = grid_hw[1]
     out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
@@ -381,9 +450,11 @@ def flash_mode_attention(q, k, v, biases, grid_hw, clip, pos_w: float,
     check_mma_tiles("flash_mode_attention", bf16, mdk, "q, k, v and out",
                     q, k, v, out)
     win, clip_t = _f32(biases, q), _f32(clip, q)
+    part, n_part, nsplit = _flash_scratch(B * M, U1, U2, mdk, F, bf16, q)
     _call("flash_attn_launch", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-          _ptr(win), _ptr(clip_t), B * M, U1, U2, q_row0 * W8, mdk, F, W8, R,
-          1.0 / math.sqrt(md), pos_w, bf16, _stream(q))
+          _ptr(win), _ptr(clip_t), table_ptr(part), n_part, nsplit, B * M,
+          U1, U2, q_row0 * W8, mdk, F, W8, R, 1.0 / math.sqrt(md), pos_w,
+          bf16, _stream(q))
     flash_mode_attention.launches += 1
     flash_mode_attention.launches_by[F] = \
         flash_mode_attention.launches_by.get(F, 0) + 1
@@ -415,20 +486,21 @@ def flash_mode_attention_dense(q, k, v, table, clip, pos_w: float):
     (q, k, v), bf16 = _prep(q, k, v)
     B, M, U1, md = q.shape
     U2, F = k.shape[2], v.shape[-1]
-    if F not in FLASH_FEAT or k.shape[:2] != (B, M) or \
-            v.shape[:3] != (B, M, U2):
+    if k.shape[:2] != (B, M) or v.shape[:3] != (B, M, U2):
         raise ValueError(f"flash_mode_attention_dense: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}; the kernel "
-                         f"takes feature dims {FLASH_FEAT}")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    check_flash_dims("flash_mode_attention_dense", bf16, md, F)
     out = torch.empty(B, M, U1, F, dtype=v.dtype, device=v.device)
     (q, k), mdk = pad_mode_dim(bf16, q, k)
     check_mma_tiles("flash_mode_attention_dense", bf16, mdk,
                     "q, k, v and out", q, k, v, out)
     table = None if table is None else table.contiguous()
     clip_t = _f32(clip, q)
+    part, n_part, nsplit = _flash_scratch(B * M, U1, U2, mdk, F, bf16, q)
     _call("flash_attn_dense_launch", _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-          table_ptr(table), _ptr(clip_t), B * M, U1, U2, mdk, F,
-          1.0 / math.sqrt(md), pos_w, bf16, _stream(q))
+          table_ptr(table), _ptr(clip_t), table_ptr(part), n_part, nsplit,
+          B * M, U1, U2, mdk, F, 1.0 / math.sqrt(md), pos_w, bf16,
+          _stream(q))
     flash_mode_attention_dense.launches += 1
     flash_mode_attention_dense.flops += 2.0 * B * M * U1 * U2 * (md + F)
     return out

@@ -97,34 +97,46 @@ def test_the_launchers_count_from_these_constants():
 
 
 # Where each kind of kernel chooses its body: the per-mode launchers (B1,
-# B2/B8, B4/B4 dense, B7) and the aggregating ones (B3/B9, B6, B6 dense, B6
-# backward).
-BODY_CHOICE = {"mma_body": ("scores_max.cu", "flash_attn.cu",
-                            "softmax_probs.cu", "probs_bwd.cu"),
+# B4/B4 dense, B7), B2/B8 (wgmma for bf16 at every mode dim they take) and
+# the aggregating ones (B3/B9, B6, B6 dense, B6 backward).
+BODY_CHOICE = {"mma_body": ("scores_max.cu", "softmax_probs.cu",
+                            "probs_bwd.cu"),
+               "flash_mma_body": ("flash_attn.cu",),
                "agg_mma_body": ("corr_norm.cu", "agg_corr.cu")}
+DEFINED_IN = {"mma_body": "common.cuh", "flash_mma_body": "common.cuh",
+              "agg_mma_body": "agg_modes.cuh"}
 
 
 def test_the_body_choice_is_defined_once_and_mirrored():
     """Each kind's wgmma-or-FMA choice is one constexpr predicate
-    (common.cuh mma_body, agg_modes.cuh agg_mma_body) that every launcher
-    of that kind calls and no source restates; the wrappers' mirrors, which
-    size the scratch, give the same answer at every count and dim."""
+    (common.cuh mma_body and flash_mma_body, agg_modes.cuh agg_mma_body)
+    that every launcher of that kind calls and no source restates; the
+    wrappers' mirrors, which size the scratch, give the same answer at
+    every count and dim."""
     sources = {p.name: p.read_text() for p in CSRC.glob("*.cu*")}
     for pred, users in BODY_CHOICE.items():
         defined = [n for n, t in sources.items()
                    if re.search(rf"constexpr bool {pred}\(", t)]
-        assert defined == [{"mma_body": "common.cuh",
-                            "agg_mma_body": "agg_modes.cuh"}[pred]], defined
+        assert defined == [DEFINED_IN[pred]], defined
         for name in users:
             assert re.search(rf"\b{pred}\(", sources[name]), (pred, name)
-    restated = [n for n, t in sources.items()
-                if re.search(r"bf16 &&[^;]*md <= MAXMD\b", t)]
-    assert restated == ["common.cuh"], restated
+    # B2/B8 take their own predicate, not the per-mode kernels'.
+    assert not re.search(r"\bmma_body\(", sources["flash_attn.cu"])
+    for limit, pred in (("MAXMD", "mma_body"),
+                        ("MAXMD_FMA", "flash_mma_body")):
+        restated = [n for n, t in sources.items()
+                    if re.search(rf"bf16 &&[^;]*md <= {limit}\b", t)]
+        assert restated == ["common.cuh"], (pred, restated)
     common, agg = _defines("common.cuh"), _defines("agg_modes.cuh")
     for bf16 in (0, 1):
         for md in (8, 16, 32, 64, 128, 256):
             mma = bool(bf16) and md <= common["MAXMD"]
             assert ma.mma_body(bf16, md) == mma
+            assert ma.flash_mma_body(bf16, md) == (
+                bool(bf16) and md <= common["MAXMD_FMA"])
+            for F in ma.FLASH_FEAT:
+                assert ma.flash_pipe_body(bf16, md, F) == (
+                    bool(bf16) and (F == 128 or md > common["MAXMD"]))
             for M in ma.AGG_MODES:
                 assert ma.agg_mma_body(bf16, M, md) == (
                     mma and M == agg["NMODES"])
@@ -640,3 +652,130 @@ def test_the_fma_mode_counts_are_mirrored_and_fit_a_block():
     for nm in templates + ("wide",):
         kcols = fma if nm == "wide" else fma // nm
         assert ((fma + kcols) * spad + table) * 4 <= SMEM_PER_BLOCK, nm
+
+
+# ------------------------------------- B2 and B8's pipelined body (flash)
+
+# Its instances: F 128 at every padded mode dim up to 128 (the intra
+# site's width), F 256 past md 64; each with the window, no bias and the
+# table read from global memory.
+PIPE_INSTANCES = [(mdp, 128) for mdp in (16, 32, 64, 128)] + \
+    [(mdp, 256) for mdp in (128, 256)]
+
+
+def _pipe_smem(mdp: int, F: int, bias: str) -> tuple:
+    """(stages, bytes) of flash_attn.cu pipe_stages / pipe_smem: q past md
+    64 (PROWS rows), as many k | v stages of pipe_keys keys as fit PSMEM
+    beside it and the bias source (+ 16 bytes of mbarriers a stage), at
+    most PMAX_STAGES, + 1024 for the ring's alignment."""
+    d, common = _defines("flash_attn.cu"), _defines("common.cuh")
+    keys = ma.flash_keys(mdp, F)
+    q = d["PROWS"] * mdp * 2 if mdp > common["MAXMD"] else 0
+    after = (common["MAXWIN"] * 4 + 15) // 16 * 16 if bias == "window" \
+        else 0
+    stage = keys * (mdp + F) * 2
+    stages = min(d["PMAX_STAGES"],
+                 (d["PSMEM"] - 1024 - q - after) // (stage + 16))
+    return stages, 1024 + q + stages * (stage + 16) + after
+
+
+def test_the_pipelined_body_follows_these_constants():
+    """The wrapper's tile constants are flash_attn.cu's, and its keys a
+    tile, stages and shared memory are the formulas above: each names its
+    constants, the table source takes no shared memory (it reads global
+    memory), and the launcher sizes the block with pipe_smem."""
+    d = _defines("flash_attn.cu")
+    assert (ma._P_ROWS, ma._P_MAX_SPLITS) == (d["PROWS"], d["PMAX_SPLITS"])
+    assert d["PSMEM"] == SMEM_PER_BLOCK
+    text = (CSRC / "flash_attn.cu").read_text()
+    for fn, names in (
+            ("constexpr int pipe_keys",
+             ("F == 128 ? 128 : 64",)),
+            ("constexpr int pipe_q_bytes", ("MDP > MAXMD ? PROWS * MDP * 2",)),
+            ("constexpr int pipe_stage_bytes",
+             ("pipe_keys<MDP, F>() * (MDP + F) * 2",)),
+            ("constexpr int pipe_stages", ("PSMEM - 1024", "Bias::SMEM",
+                                           "+ 16", "PMAX_STAGES")),
+            ("constexpr size_t pipe_smem", ("1024 + pipe_q_bytes",
+                                            "Bias::SMEM")),
+            ("static inline long long pipe_partials",
+             ("nsplit > 1 ? (long long)nsplit * BM * U1 * (F + 2) : 0",))):
+        body = text[text.index(fn):]
+        body = body[:body.index("\n}\n")]
+        for name in names:
+            assert name in body, (fn, name)
+    assert "STAGE = 0, SMEM = 0;" in text[text.index("struct MmaTableDirect"):]
+    assert "pipe_smem<MDP, F, BiasT<NK>>()" in text
+    # A producer warpgroup beside the consumers, one block an SM: its and
+    # the consumers' registers under setmaxnreg (multiples of 8 in 24..256)
+    # fit the SM's 65536, and the launch gives every thread at most the
+    # registers that 384 threads leave (168), which setmaxnreg then moves.
+    assert d["PPRODUCER"] == 128 and d["PTHREADS"] == 2 * 128
+    for regs in (d["PREG_PRODUCER"], d["PREG_CONSUMER"]):
+        assert regs % 8 == 0 and 24 <= regs <= 256
+    assert d["PTHREADS"] * d["PREG_CONSUMER"] + \
+        d["PPRODUCER"] * d["PREG_PRODUCER"] <= 65536
+    assert "__launch_bounds__(PTHREADS + PPRODUCER, 1)" in text
+    assert "kernel<<<grid, PTHREADS + PPRODUCER, smem, s>>>(" in text
+    assert "mbar_init(empty0 + 8 * i, PTHREADS);" in text  # consumers only
+    # The launcher takes F 128 up to md 128 and instantiates no wider one.
+    launcher = text[text.index("static int launch_pipe("):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert "md > (F == 128 ? 128 : MAXMD_FMA)" in launcher
+    f128 = launcher[launcher.index("if constexpr (F == 128) {"):
+                    launcher.index("} else {")]
+    assert re.findall(r"PIPE\((\d+)\)", f128) == ["16", "32", "64", "128"]
+    # BM x q tiles x splits blocks, q tiles fastest.
+    assert "const int nq = (U1 + PROWS - 1) / PROWS;" in text
+    assert "const dim3 grid(nq, BM, nsplit);" in text
+    assert "const int qt = blockIdx.x, bm = blockIdx.y, BM = gridDim.y;" \
+        in text
+
+
+@pytest.mark.parametrize("bias", BIASES)
+@pytest.mark.parametrize("mdp,F", PIPE_INSTANCES)
+def test_every_pipelined_instance_fits_a_block(mdp, F, bias):
+    stages, smem = _pipe_smem(mdp, F, bias)
+    assert stages >= 2 and smem <= SMEM_PER_BLOCK
+
+
+def test_the_pipelined_rings_the_source_states():
+    """2 stages at md 256 and F 256 (q 64 KB, 64 KB a stage), 3 at F 128
+    and md 128, 4 below: with the table too, which takes no stage."""
+    for bias in BIASES:
+        assert [_pipe_smem(mdp, F, bias)[0] for mdp, F in PIPE_INSTANCES] \
+            == [4, 4, 4, 3, 4, 2]
+
+
+SMS = 132
+# (label, B * M, U1, U2, md, F, splits, blocks): the f2 site at one and two
+# modes (md 256, 128) on the serving grid and on a ragged one (37 x 61),
+# the lazy intra aggregator at HD1K and at a Sintel batch of 11 (F 128, md
+# 32), modes256's (F 128, md 1 padded to 16), and the F = 256 body up to md
+# 64, which takes no split.
+FLASH_GRIDS = [
+    ("serving md 256", 1, 7040, 7040, 256, 256, 2, 110),
+    ("serving md 128", 2, 7040, 7040, 128, 256, 1, 110),
+    ("ragged md 256", 1, 2257, 2257, 256, 256, 4, 72),
+    ("ragged md 128", 2, 2257, 2257, 128, 256, 3, 108),
+    ("HD1K F 128", 4, 43520, 43520, 32, 128, 1, 1360),
+    ("Sintel batch 11 F 128", 44, 7040, 7040, 32, 128, 1, 2420),
+    ("modes256 F 128", 128, 7040, 7040, 16, 128, 1, 7040),
+    ("serving md 64", 4, 7040, 7040, 64, 256, 1, 220)]
+
+
+@pytest.mark.parametrize("label,BM,u1,u2,md,F,splits,blocks", FLASH_GRIDS)
+def test_the_flash_grids(label, BM, u1, u2, md, F, splits, blocks):
+    """Key splits fill the card where the q tiles would not: the blocks
+    (BM x q tiles x splits) stay within a wave of 132 SMs; at most
+    PMAX_SPLITS, one key tile a split; the scratch holds each split's o and
+    (max, sum) rows, none for one split."""
+    assert ma.flash_splits(BM, u1, u2, md, F, 1, SMS) == splits
+    assert ma.flash_splits(BM, u1, u2, md, F, 0, SMS) == 1  # fp32: FMA
+    got = BM * _cdiv(u1, ma._P_ROWS if ma.flash_pipe_body(1, md, F)
+                     else 128) * splits
+    assert got == blocks
+    if splits > 1:
+        assert blocks <= SMS
+    assert ma.flash_partials(BM, u1, F, splits) == (
+        splits * BM * u1 * (F + 2) if splits > 1 else 0)

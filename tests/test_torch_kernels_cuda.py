@@ -1,4 +1,5 @@
-"""The CUDA kernels (B1-B4, the training kernels B6 forward and backward
+"""The CUDA kernels (B1-B4 (B2 and B8's pipelined body past md 64 and at
+F 128 too), the training kernels B6 forward and backward
 and B7 backward (their bf16 bodies also at misaligned and ragged grids,
 BM 1 to 32, twice for bit-identity, B6's forward against the faults
 planted against its tiles), the lookup B5 forward and
@@ -272,9 +273,62 @@ def test_flash_bf16_tiles_reject_what_they_do_not_take(dev):
     win = biases.float().contiguous()
     with pytest.raises(RuntimeError, match="flash_attn_launch"):
         ma._call("flash_attn_launch", *(launch.ptr(t) for t in (
-            q, k, v192, out, win, clip.reshape(1))), 8, q.shape[2],
-            q.shape[2], 0, 64, 192, grid[1], 7, 0.125, 0.5, 1,
-            launch.stream(q))
+            q, k, v192, out, win, clip.reshape(1))), ma.table_ptr(None), 0,
+            1, 8, q.shape[2], q.shape[2], 0, 64, 192, grid[1], 7, 0.125, 0.5,
+            1, launch.stream(q))
+
+
+# B2's and B8's pipelined body: past md 64 at F 256 (one or two modes, q
+# in shared memory, key splits at these grids' few q tiles) and at F 128
+# up to md 128 (128-key tiles), at ragged grids (the last q and key tiles
+# part-filled), on row shards with q_row0, with and without a table, and
+# bit-identical twice over (the splits combined in a fixed order).
+PIPE_CASES = [(1, 256, 256), (2, 128, 256), (1, 128, 128), (2, 64, 128)]
+PIPE_GRIDS = [(5, 12), (3, 62), (9, 156)]
+
+
+def _pipe_inputs(dev, u1, u2, M, md, F, seed=7):
+    gen = _gen(seed)
+    q = torch.randn(2, M, u1, md, generator=gen) * 1.5
+    k = torch.randn(2, M, u2, md, generator=gen) * 1.5
+    v = torch.randn(2, M, u2, F, generator=gen)
+    biases = torch.randn(15, 15, generator=gen) * 3.0
+    return (*(x.to(dev, torch.bfloat16) for x in (q, k, v)), biases.to(dev))
+
+
+@pytest.mark.parametrize("M,md,F", PIPE_CASES)
+@pytest.mark.parametrize("grid", PIPE_GRIDS)
+@pytest.mark.parametrize("clip", [1e30, 0.4])
+def test_b2_pipelined_body(dev, M, md, F, grid, clip):
+    u = grid[0] * grid[1]
+    q, k, v, biases = _pipe_inputs(dev, u, u, M, md, F)
+    clip_t = torch.tensor(clip, device=dev)
+    got = ma.flash_mode_attention(q, k, v, biases, grid, clip_t, 0.5)
+    want = ma.flash_mode_attention_plain(q, k, v, biases, grid, clip_t, 0.5)
+    assert got.shape == (2, M, u, F) and _rel(got, want) <= 2e-2
+    assert torch.equal(got, ma.flash_mode_attention(q, k, v, biases, grid,
+                                                    clip_t, 0.5))
+    h0, h1 = 1, grid[0] - 1  # a row shard off the first and last rows
+    ql = q[:, :, h0 * grid[1]:h1 * grid[1]]
+    got = ma.flash_mode_attention(ql, k, v, biases, grid, clip_t, 0.5,
+                                  q_row0=h0)
+    want = ma.flash_mode_attention_plain(ql, k, v, biases, grid, clip_t,
+                                         0.5, q_row0=h0)
+    assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("M,md,F", PIPE_CASES)
+@pytest.mark.parametrize("with_table", [False, True])
+@pytest.mark.parametrize("shape", [(60, 60), (384, 384), (100, 37)])
+def test_b8_pipelined_body(dev, M, md, F, with_table, shape):
+    u1, u2 = shape
+    q, k, v, _ = _pipe_inputs(dev, u1, u2, M, md, F, seed=8)
+    table = (torch.randn(u1, u2, generator=_gen(9)) * 3.0).to(dev) \
+        if with_table else None
+    clip_t = torch.tensor(0.4, device=dev)
+    got = ma.flash_mode_attention_dense(q, k, v, table, clip_t, 0.5)
+    want = ma.flash_mode_attention_dense_plain(q, k, v, table, clip_t, 0.5)
+    assert got.shape == (2, M, u1, F) and _rel(got, want) <= 2e-2
 
 
 # B3's grids add ragged widths, the KITTI one (156) among them, whose
@@ -445,6 +499,15 @@ def test_unsupported_variants_raise(dev):
     v = torch.randn(2, 4, q.shape[2], 192, generator=_gen(1)).to(dev)
     with pytest.raises(ValueError, match="feature dim"):
         ma.flash_mode_attention(q, k, v, biases, GRIDS[0], clip, 0.5)
+    # bf16 at F = 128 takes md up to 128, the intra site's width.
+    q256 = torch.zeros(2, 1, q.shape[2], 256, dtype=torch.bfloat16,
+                       device=dev)
+    v128 = torch.zeros(2, 1, q.shape[2], 128, dtype=torch.bfloat16,
+                       device=dev)
+    with pytest.raises(ValueError, match="mode dim up to 128"):
+        ma.flash_mode_attention(q256, q256, v128, biases, GRIDS[0], clip, 0.5)
+    with pytest.raises(ValueError, match="mode dim up to 128"):
+        ma.flash_mode_attention_dense(q256, q256, v128, None, clip, 0.5)
     one = torch.tensor(1.0, device=dev)
     with pytest.raises(ValueError, match="fp32 -> fp32"):
         ma.fused_agg_corr_norm(q, k, biases, GRIDS[0], 100.0, 0.5, one, one,

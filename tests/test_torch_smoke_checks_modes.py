@@ -9,7 +9,10 @@ of four dropped (B3, B6, B6 dense, B9, B6 backward's dc), q's first two
 backward's dc written into the next mode's plane; and below md 16 a
 nonzero pad column (B1, B2, B8, B4, B4 dense, B7), modes 16-19 skipped
 (B3, B6, B6 dense, B9, B6 backward's dc) and the running max reset
-between groups of four modes (B3, B6, B6 dense, B6 backward's dc).  Also
+between groups of four modes (B3, B6, B6 dense, B6 backward's dc); and
+at one mode against B2's and B8's pipelined body q.k over md chunk 3
+skipped (B2, B8) and keys 64-127 of every 128-key tile dropped (B2 at F
+128).  Also
 every configuration of the phase builds from the CLI's flags and loads
 its weights (``chip_smoke.mode_weights``) strictly.
 """
@@ -37,10 +40,17 @@ FAULT_IDS = {chip_smoke.GROUP_DROPPED: "group_dropped",
              chip_smoke.DC_MODE_OFF: "dc_mode_off",
              chip_smoke.PAD_NONZERO: "pad_nonzero",
              chip_smoke.GROUP_SKIPPED: "group_skipped",
-             chip_smoke.MAX_RESET: "max_reset"}
+             chip_smoke.MAX_RESET: "max_reset",
+             chip_smoke.CHUNK_SKIPPED: "chunk_skipped",
+             chip_smoke.HALF_TILE: "half_tile"}
 # The counts past 16 modes (md 8 to 1), where the pad and group-skip
 # faults apply.
 PAST_16 = tuple(c for c in chip_smoke.MODE_COUNTS if c[0][0] > 16)
+# One mode (md 256 at the 256-wide sites, 128 at the intra site), where
+# the pipelined body's md-chunk and key-tile faults apply: md chunk 3
+# skipped (B2, B8), and at F 128 keys 64-127 of every 128-key tile dropped
+# (B2).
+ONE_MODE = tuple(c for c in chip_smoke.MODE_COUNTS if c[0][0] == 1)
 PER_MODE = ("scores_global_max", "flash_mode_attention",
             "flash_mode_attention_dense", "mode_softmax_probs",
             "mode_softmax_probs_dense", "probs_bwd")
@@ -52,7 +62,8 @@ def _run(counts=chip_smoke.MODE_COUNTS):
     chip_smoke.check_mode_kernels(CPU, torch.Generator().manual_seed(0),
                                   report, grid=GRID, train_grid=TRAIN_GRID,
                                   b3_grids=(GRID,), counts=counts,
-                                  cut_grid=GRID, cut_train_grid=TRAIN_GRID)
+                                  cut_grid=GRID, cut_train_grid=TRAIN_GRID,
+                                  flash_grids=(("small", GRID),))
     return report
 
 
@@ -89,6 +100,12 @@ def _faulty(wrapper, fault):
             return _max_reset(wrapper, orig, q, k, *args, **kw)
         if fault == chip_smoke.CHUNK_SWAPPED and md > 64:
             q = chip_smoke.swap_md_chunks(q)
+        if fault == chip_smoke.CHUNK_SKIPPED and md > 192:
+            q = chip_smoke.skip_md_chunk3(q)
+        if fault == chip_smoke.HALF_TILE and args[0].shape[-1] == 128:
+            v, biases, grid, clip, pos_w = args[:5]
+            return chip_smoke.b2_half_tile(q, k, v, biases, grid, clip,
+                                           pos_w, *args[5:], **kw)
         if fault == chip_smoke.PAD_NONZERO and md < ma.MMA_K:
             q, k = chip_smoke.pad_col_fault(q), chip_smoke.pad_col_fault(k)
         if fault == chip_smoke.GROUP_DROPPED and M > 4 and \
@@ -127,14 +144,19 @@ def _faulty(wrapper, fault):
         "corr_norm_sums", "corr_norm_write", "agg_corr_bwd")),
     *((w, chip_smoke.MAX_RESET) for w in (
         "fused_agg_corr_norm", "fused_agg_corr", "fused_agg_corr_dense",
-        "agg_corr_bwd"))],
+        "agg_corr_bwd")),
+    *((w, chip_smoke.CHUNK_SKIPPED) for w in (
+        "flash_mode_attention", "flash_mode_attention_dense")),
+    ("flash_mode_attention", chip_smoke.HALF_TILE)],
     ids=lambda v: FAULT_IDS.get(v, v))
 def test_mode_checks_catch_a_planted_kernel_fault(monkeypatch, wrapper,
                                                   fault):
     monkeypatch.setattr(MODULES[wrapper], wrapper, _faulty(wrapper, fault))
     past_16 = fault in (chip_smoke.PAD_NONZERO, chip_smoke.GROUP_SKIPPED)
+    one_mode = fault in (chip_smoke.CHUNK_SKIPPED, chip_smoke.HALF_TILE)
     with pytest.raises(AssertionError, match="disagrees"):
-        _run(PAST_16 if past_16 else chip_smoke.MODE_COUNTS)
+        _run(PAST_16 if past_16 else ONE_MODE if one_mode
+             else chip_smoke.MODE_COUNTS)
 
 
 @pytest.mark.parametrize("name", list(chip_smoke.MODE_CONFIGS))

@@ -46,7 +46,10 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
                        "max_reduce_kernel")),
     # The dense-table kernels share their window twins' names: under lsinu
     # and --f2radius the B2, B4 and B6 rows hold B8, B4 dense and B6 dense.
-    ("B2 / B8 flash_attn", ("flash_attn_kernel", "flash_wgmma_kernel")),
+    # B2 / B8's fp32 body, its F = 256 body up to md 64, its pipelined body
+    # (F = 128, md past 64) and the combine of the pipelined body's splits.
+    ("B2 / B8 flash_attn", ("flash_attn_kernel", "flash_wgmma_kernel",
+                            "flash_pipe_kernel", "flash_combine_kernel")),
     # B9's halves (--seq_parallel) run B3's sweep kernels.
     ("B3 corr_norm", ("corr_stats_kernel", "corr_moments_kernel",
                       "corr_write_kernel", "corr_sweep_kernel",
@@ -75,6 +78,14 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("matmul", ("gemm", "cutlass", "sm90", "ampere")),
     ("gather/index", ("gather", "index", "scatter")),
 )
+
+
+def family(kernel: str) -> str:
+    """The family of a profiled kernel's name: the first of FAMILIES whose
+    substrings it contains, else 'elementwise/other'."""
+    low = kernel.lower()
+    return next((f for f, subs in FAMILIES
+                 if any(s.lower() in low for s in subs)), "elementwise/other")
 
 
 def _self_dev_time(evt):
@@ -162,9 +173,7 @@ def main() -> int:
             continue
         total += t
         kernels.append((t, e.count // n, e.key))
-        low = e.key.lower()
-        fam = next((f for f, subs in FAMILIES
-                    if any(s.lower() in low for s in subs)), "elementwise/other")
+        fam = family(e.key)
         families[fam] = families.get(fam, 0.0) + t
     kernels.sort(reverse=True)
     print(f"host wall per pair {wall_ms:.3f} ms ({traced_wall_ms:.3f} ms "

@@ -3,8 +3,9 @@ craft_tpu_torch package under --root (default: this checkout), so that two
 checkouts can be compared in one call on one card:
 
     python tools/time_window_kernels.py --root build/parent --reps 20
+        [--save DIR | --diff DIR] [--cases B2 B8]
 
-Builds that checkout's kernels into its own build/kernels/.  The cases, at
+(--cases: only the cases whose names start with one of these.)  Builds that checkout's kernels into its own build/kernels/.  The cases, at
 the shapes their paths run them (serving: B=1, M=4, 440x1024 -> U=7040,
 W8=128; chairs: B=8, 368x496 -> U=2852, W8=62; KITTI: 376x1248 -> U=7332,
 W8=156):
@@ -42,6 +43,10 @@ W8=156):
   the checkout takes them, 32 and 256 modes; B6 forward and backward at
   chairs, batch 2, at 8, 16 and, where taken, 32 modes; B9 on the second
   serving shard at 16 modes.
+  B2 and B8's pipelined body (a generator of its own): B2 at F 128, md
+  32 on a Sintel batch of 11 at serving (the lazy intra aggregator), at md
+  256 (one mode) and md 128 (two modes), and B8 at md 256 with the
+  --f2radius 7 table.
 
 Seeded inputs from CPU generators (q, k ~ N(0, 1.5^2) bf16, the window ~
 N(0, 0.5^2)), the clamp off.  Each case is timed in ROUNDS rounds of `reps`
@@ -108,6 +113,10 @@ AGG_CASES = (tuple(f"B3_m{m}" for m in AGG_SERVE_MODES)
                      for m in AGG_TRAIN_MODES)
              + ("B9_sums_m16_r1", "B9_write_m16_r1"))
 SAVED += AGG_CASES
+# B2 and B8 past md 64 and B2 at F 128 (the pipelined body): their bits
+# move by bf16 rounding between the parent's FMA or 64-key body and it.
+FLASH_CASES = ("B2_f128", "B2_md256", "B2_md128", "B8_md256")
+SAVED += FLASH_CASES
 SECOND.update({f"B6_bwd_m{m}": "da" for m in AGG_TRAIN_MODES})
 # Cases whose every output is kept and compared.
 WHOLE = tuple(c for c in B10_CASES if c.startswith("B10_bwd"))
@@ -281,7 +290,34 @@ def _cases(torch, dev):
                 lk.corr_lookup_bwd, coords, g, shapes, torch.bfloat16, RADIUS,
                 2)
     _agg_mode_cases(torch, dev, ma, cv, biases, cases)
+    _flash_cases(torch, dev, ma, biases, table, cases)
     return cases
+
+
+def _flash_cases(torch, dev, ma, biases, table, cases) -> None:
+    """B2 at F 128, md 32 on a Sintel batch of 11 (the lazy intra
+    aggregator), at md 256 (one mode) and md 128 (two) on the serving grid,
+    and B8 at md 256 with the --f2radius table, from a generator of their
+    own (the cases above draw the same inputs in every checkout)."""
+    gen = torch.Generator().manual_seed(4)
+    clip = torch.tensor(1e30, device=dev)
+    u = SERVING[0] * SERVING[1]
+
+    def qkv(batch, m, md, F):
+        q, k = ((torch.randn(batch, m, u, md, generator=gen) * 1.5).to(
+            dev, torch.bfloat16) for _ in range(2))
+        return q, k, torch.randn(batch, m, u, F, generator=gen).to(
+            dev, torch.bfloat16)
+    for name, batch, m, md, F in (("B2_f128", 11, 4, 32, 128),
+                                  ("B2_md256", 1, 1, 256, 256),
+                                  ("B2_md128", 1, 2, 128, 256)):
+        q, k, v = qkv(batch, m, md, F)
+        cases[name] = functools.partial(ma.flash_mode_attention, q, k, v,
+                                        biases, SERVING, clip,
+                                        1.0 if F == 128 else 0.5)
+    q, k, v = qkv(1, 1, 256, 256)
+    cases["B8_md256"] = functools.partial(ma.flash_mode_attention_dense, q,
+                                          k, v, table, clip, 1.0)
 
 
 def _agg_mode_cases(torch, dev, ma, cv, biases, cases) -> None:
@@ -403,6 +439,8 @@ def main() -> int:
     ap.add_argument("--save", help="write the SAVED cases' outputs here")
     ap.add_argument("--diff", help="max |difference| from the outputs "
                     "saved here")
+    ap.add_argument("--cases", nargs="*", help="run only the cases whose "
+                    "names start with one of these (all by default)")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -417,7 +455,9 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card)
     assert Path(ma.__file__).resolve().is_relative_to(root), ma.__file__
-    cases = _cases(torch, torch.device("cuda"))
+    cases = {name: fn for name, fn in _cases(torch, torch.device("cuda"))
+             .items() if not args.cases
+             or any(name.startswith(c) for c in args.cases)}
     out = {"root": str(root), "card": card}
     for name, fn in cases.items():
         res = fn()
